@@ -30,8 +30,8 @@ Phases, each printed on its own lines:
 
 Then a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
-that line. Options exist for quicker partial runs; the defaults are the
-contract run.
+that line. ``--profile`` adds a device-time profile of one step of each
+served path.
 """
 
 from __future__ import annotations
@@ -468,8 +468,6 @@ def check_captured(inputs):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="build and check the kernels, skip serving")
     ap.add_argument("--profile", action="store_true",
                     help="profile serve step 1 of each path (device time "
                          "by op, device busy share)")
@@ -502,31 +500,27 @@ def main(argv=None) -> int:
                 say(f"  nvcc {name}: {line.strip()}")
 
     rows = phase_kernels((4, 320), REPS)
-    launches_inc = launches_batch = {}
-    serve = {}
-    if not args.kernels_only:
-        phase_small_agreement()
-        from repro_torch.configs.igpm_paper import FULL
-        from repro_torch.data.temporal import generate_stream, scaled_twin
-        spec = scaled_twin("transactions", 1.0)
-        t0 = time.perf_counter()
-        stream = generate_stream(spec, n_max=FULL.n_max, e_max=FULL.e_max,
-                                 n_measured_steps=max(INC_STEPS,
-                                                      BATCH_STEPS),
-                                 u_max=512, device="cuda")
-        say(f"phase stream: {spec.name} n_vertices={spec.n_vertices} "
-            f"warm arcs={int(stream.graph.edge_mask.sum())} "
-            f"({time.perf_counter() - t0:.2f} s)")
-        say("phase serve-inc:")
-        launches_inc, inc_steps, captured, louvain_s = phase_serve_inc(
-            stream, INC_STEPS, args.profile)
-        cap = check_captured(captured)
-        del captured
-        say("phase serve-batch:")
-        launches_batch, batch_steps = phase_serve_batch(
-            stream, BATCH_STEPS, args.profile)
-        serve = dict(inc_steps=inc_steps, batch_steps=batch_steps,
-                     louvain_s=louvain_s, captured=cap)
+    phase_small_agreement()
+    from repro_torch.configs.igpm_paper import FULL
+    from repro_torch.data.temporal import generate_stream, scaled_twin
+    spec = scaled_twin("transactions", 1.0)
+    t0 = time.perf_counter()
+    stream = generate_stream(spec, n_max=FULL.n_max, e_max=FULL.e_max,
+                             n_measured_steps=max(INC_STEPS, BATCH_STEPS),
+                             u_max=512, device="cuda")
+    say(f"phase stream: {spec.name} n_vertices={spec.n_vertices} "
+        f"warm arcs={int(stream.graph.edge_mask.sum())} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    say("phase serve-inc:")
+    launches_inc, inc_steps, captured, louvain_s = phase_serve_inc(
+        stream, INC_STEPS, args.profile)
+    cap = check_captured(captured)
+    del captured
+    say("phase serve-batch:")
+    launches_batch, batch_steps = phase_serve_batch(
+        stream, BATCH_STEPS, args.profile)
+    serve = dict(inc_steps=inc_steps, batch_steps=batch_steps,
+                 louvain_s=louvain_s, captured=cap)
 
     kernels = []
     for name, src, line in (
@@ -537,8 +531,8 @@ def main(argv=None) -> int:
         head = rows[(name, 320)]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": line,
-            "launches": launches_inc.get(name, 0),
-            "launches_batch": launches_batch.get(name, 0),
+            "launches": launches_inc[name],
+            "launches_batch": launches_batch[name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -48,14 +48,44 @@ from repro_torch.engine.state import EngineState, QueryDelta, StepOutput
 from repro_torch.engine.store import PatternStore, live_vertex_mask
 
 
+# EngineConfig knobs whose features are not ported yet, with the ROADMAP.md
+# queue-1 "Next" item that brings each. Only the default is accepted, so a
+# config asking for one of them never yields an engine that silently lacks it.
+_WAITING = {
+    "graph_shard": "6, multi-GPU layers",
+    "edge_partition": "6, multi-GPU layers",
+    "partition_headroom": "6, multi-GPU layers",
+    "obs": "5, observability",
+}
+
+
+def _refuse_unported(ecfg: EngineConfig) -> None:
+    """Raise for a knob of ``ecfg`` that asks for a feature not ported yet.
+
+    ``shard`` may be ``"auto"`` or ``"off"``: the engine runs on its one
+    device, which is the reference's path for both values on one device
+    (query-axis sharding across cards is item 6 and not ported)."""
+    if ecfg.mode not in ("incremental", "batch"):
+        raise ValueError(f"unknown engine mode {ecfg.mode!r}")
+    if ecfg.shard not in ("auto", "off"):
+        raise ValueError(f"unknown query-axis shard mode {ecfg.shard!r}")
+    default = EngineConfig()
+    for name, item in _WAITING.items():
+        if getattr(ecfg, name) != getattr(default, name):
+            raise NotImplementedError(
+                f"EngineConfig.{name}={getattr(ecfg, name)!r} asks for a "
+                f"feature that is not ported yet — see ROADMAP.md queue 1, "
+                f"'Next' item {item}; leave it at its default "
+                f"{getattr(default, name)!r}")
+
+
 class Engine:
     """Functional-core match engine with bucketed dynamic query banks."""
 
     def __init__(self, cfg: IGPMConfig, ecfg: Optional[EngineConfig] = None,
                  seed: int = 0, device="cuda"):
         ecfg = ecfg or EngineConfig()
-        if ecfg.mode not in ("incremental", "batch"):
-            raise ValueError(f"unknown engine mode {ecfg.mode!r}")
+        _refuse_unported(ecfg)
         self.device = check_device(device)
         if cfg.backend == "auto":
             cfg = dataclasses.replace(

@@ -1,9 +1,8 @@
 """Build the ELL kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own,
-for ``sm_90a``, into a shared library under the build directory (default
-``build/`` next to this file; ``REPRO_TORCH_BUILD_DIR`` overrides it). The
-library's name carries a hash of its source and flags, so an edited source
+for ``sm_90a``, into a shared library under ``build/`` next to this file
+(git-ignored). The library's name carries a hash of its source and flags, so an edited source
 builds anew and an unchanged one is reused. All missing libraries are
 compiled at once, one ``nvcc`` process per source, started together.
 """
@@ -39,7 +38,7 @@ BUILD_LOG: Dict[str, str] = {}  # name → nvcc's output (ptxas register use)
 
 
 def build_dir() -> Path:
-    return Path(os.environ.get("REPRO_TORCH_BUILD_DIR", _HERE / "build"))
+    return _HERE / "build"
 
 
 def nvcc() -> str:

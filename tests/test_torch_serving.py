@@ -19,6 +19,7 @@ from repro.core.query import query_zoo as r_zoo
 from repro.serving.server import MatchServer as RServer
 from repro_torch.config.base import EngineConfig as TEngCfg
 from repro_torch.config.base import IGPMConfig as TCfg
+from repro_torch.config.base import ObsConfig as TObsCfg
 from repro_torch.config.base import ServingConfig as TServCfg
 from repro_torch.core.query import query_zoo as t_zoo
 from repro_torch.engine import Engine as TEngine
@@ -79,4 +80,32 @@ def test_entry_points_refuse_a_missing_card_and_adaptive_mode():
         TEngine(_cfg(TCfg, "ell"), TEngCfg(mode="batch"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TServer(_cfg(TCfg, "coo"), t_zoo(1), TServCfg(adaptive=True),
+                device=CPU)
+
+
+@pytest.mark.parametrize("entry", ["engine", "server"])
+@pytest.mark.parametrize("knob", [
+    ("graph_shard", "auto"), ("edge_partition", "on"),
+    ("partition_headroom", 2.0), ("obs", TObsCfg(enabled=True))],
+    ids=lambda k: k[0])
+def test_entry_points_refuse_knobs_of_unported_features(entry, knob):
+    """A knob whose feature waits is refused with the ROADMAP item, through
+    both entry points, instead of giving an engine without it."""
+    name, value = knob
+    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
+        if entry == "engine":
+            TEngine(_cfg(TCfg, "coo"),
+                    TEngCfg(adaptive=False, **{name: value}), device=CPU)
+        else:
+            TServer(_cfg(TCfg, "coo"), t_zoo(1),
+                    TServCfg(adaptive=False, **{name: value}), device=CPU)
+
+
+@pytest.mark.parametrize("shard", ["auto", "off"])
+def test_both_query_axis_modes_run_the_single_device_path(shard):
+    srv = TServer(_cfg(TCfg, "coo"), t_zoo(1),
+                  TServCfg(adaptive=False, shard=shard), device=CPU)
+    assert srv.engine.ecfg.shard == shard
+    with pytest.raises(ValueError, match="shard"):
+        TEngine(_cfg(TCfg, "coo"), TEngCfg(adaptive=False, shard="rows"),
                 device=CPU)
