@@ -7,26 +7,44 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printed on its own lines:
 
-1. the card (``nvidia-smi``) and the build of both ELL kernels from the
-   sources in ``src/repro_torch/kernels/spmv_ell/csrc`` (one ``nvcc`` per
+1. the card (``nvidia-smi``) and the build of all four kernels from the
+   sources under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per
    source, started together);
-2. each kernel against its plain PyTorch version on random ELL data at the
-   full mirror's shapes (R 393,216 rows, K 64, n 262,144, d ∈ {4, 320},
-   with shuffled spill rows, unallocated capacity rows and empty vertices):
-   SpMM to max relative error ≤ 1e-5, reach bitwise; median kernel time
-   from CUDA events, the plain version's time, ``torch.sparse.mm`` on the
-   same matrix as a CSR tensor (a yardstick only — the port never calls
-   it), and the byte/flop bound of the work;
-3. a small-input check: the toy stream served on the card and on the CPU
+2. the ELL kernels against their plain PyTorch versions on random ELL data
+   at the full mirror's shapes (R 393,216 rows, K 64, n 262,144,
+   d ∈ {4, 320}, with shuffled spill rows, unallocated capacity rows and
+   empty vertices): SpMM to max relative error ≤ 1e-5, reach bitwise;
+   median kernel time from CUDA events, the plain version's time,
+   ``torch.sparse.mm`` on the same matrix as a CSR tensor (a yardstick only
+   — the port never calls it), and the byte/flop bound of the work;
+3. the LM kernels against their plain versions at the serve-lm shapes of
+   qwen3-moe-30b-a3b: flash attention at prefill (B 2, S 4,096, H 32, KV 4,
+   hd 128) and at a ragged S 4,111 against dense f32 ``attention_ref``;
+   the expert GEMM at the three prefill products (gate, up, down of the
+   (2, 128, 328, ·) dispatch buffer) and at decode (C 8) against an f32
+   einsum; bf16 to rtol = atol = 2e-2, two launches bitwise equal; times,
+   bounds and the yardsticks ``scaled_dot_product_attention`` (causal,
+   GQA) and ``torch.matmul`` on the same inputs;
+4. a small-input check: the toy stream served on the card and on the CPU
    (plain versions) must give equal match deltas and stores;
-4. serve-inc — ``MatchServer(FULL, query_zoo(16), ServingConfig(adaptive=
+5. LM agreement: qwen3-moe ``SMOKE`` (f32) with one set of weights served
+   greedily on the card (kernels) and on the CPU (plain versions): equal
+   tokens, logits within 1e-4;
+6. serve-inc — ``MatchServer(FULL, query_zoo(16), ServingConfig(adaptive=
    False))`` on the ``transactions`` twin at full scale for 4 served steps,
    launch counters set to 0 before and read after; the inputs of the first
    label-RWR sweep, the first expansion sweep and the first BFS sweep are
    captured and the kernels held against their plain versions on them;
-5. serve-batch — 2 steps of ``Engine(FULL, EngineConfig(mode="batch"))``
+7. serve-batch — 2 steps of ``Engine(FULL, EngineConfig(mode="batch"))``
    on the same stream (full-graph label RWR and bank match), counters
-   again set to 0 before and read after.
+   again set to 0 before and read after;
+8. serve-lm — qwen3-moe-30b-a3b ``FULL`` at its published widths with the
+   depth cut from 48 to 8 layers, seeded random weights, a 2 × 4,096-token
+   prompt: prefill and 15 greedy decode steps through
+   ``repro_torch.launch.serve.greedy_generate``, counters set to 0 before
+   and read after (flash 8 launches, expert GEMM 384); then a prefill over
+   the prompt plus the 15 generated tokens must give the last decode
+   step's logits.
 
 Then a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -48,7 +66,21 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # fp32 outside the tensor cores, data sheet
+H100_BF16_FLOPS = 989e12        # dense bf16 on the tensor cores, data sheet
 SPMM_RTOL = 1e-5
+LM_KERNEL_TOL = 2e-2   # bf16 rtol = atol, as tests/test_kernels.py
+LM_AGREE_TOL = 1e-4    # SMOKE f32 logits, card against CPU
+LM_LAYERS = 8          # serve-lm depth (48 in the published config)
+LM_BATCH, LM_PROMPT, LM_TOKENS = 2, 4096, 16
+# serve-lm prefill-vs-decode logits: correlation floor and absolute bound.
+# Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): bf16 3.9e-2 and
+# 0.99898, where the bf16 router logits send the last token to another
+# expert in 4 of 8 layers; f32 3.8e-4 and 0.9999995, the bf16 cache's
+# rounding alone.
+LM_CONSIST_CORR = 0.99
+LM_CONSIST_ATOL = 0.1
+LM_CONSIST32_CORR = 0.9999
+LM_CONSIST32_ATOL = 4e-3
 REPS = 20          # timed launches per kernel measurement
 INC_STEPS = 4      # serve-inc steps
 BATCH_STEPS = 2    # serve-batch steps
@@ -246,7 +278,396 @@ def phase_kernels(ds, reps: int):
     return rows
 
 
-# -- phase 3: CUDA vs CPU on a small stream ------------------------------------
+# -- phase 3: the LM kernels against their plain versions -----------------------
+
+def bound(nbytes: int, flops: int, peak_flops: float):
+    """Least card time: the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def causal_pairs(sq: int, sk: int, q_offset: int = 0) -> int:
+    """Visible (query, key) pairs of one head under the causal mask."""
+    import numpy as np
+    rows = np.minimum(q_offset + np.arange(sq) + 1, sk)
+    return int(rows.sum())
+
+
+def lm_check(name: str, got, again, want):
+    import torch
+    check(bool(torch.equal(got, again)), f"{name}: two launches differ")
+    g, w = got.float(), want.float()
+    abs_err = float((g - w).abs().max())
+    ok = bool(((g - w).abs() <= LM_KERNEL_TOL + LM_KERNEL_TOL * w.abs()).all())
+    check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    check(ok, f"{name}: outside rtol = atol = {LM_KERNEL_TOL} (max abs "
+              f"error {abs_err:.3e})")
+    return abs_err
+
+
+def phase_lm_kernels(reps: int):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.models.moe import moe_capacity
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf = torch.bfloat16
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(bf)
+
+    B, H, KV, hd = LM_BATCH, FULL.n_heads, FULL.n_kv_heads, FULL.head_dim
+    for label, S in (("prefill", LM_PROMPT),
+                     ("ragged", LM_PROMPT + LM_TOKENS - 1)):
+        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        o = flash_ops.flash_attention(q, k, v)
+        o2 = flash_ops.flash_attention(q, k, v)
+        want = flash_attention_ref(q, k, v)
+        err = lm_check(f"flash_attention {label}", o, o2, want)
+        del want, o2
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v), reps)
+        plain = cuda_ms(lambda: flash_attention_ref(q, k, v), 3, warmup=1)
+        torch.cuda.empty_cache()
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), reps)
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
+        flops = 4 * B * H * hd * causal_pairs(S, S)
+        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+        say(f"  flash_attention {label}: q {tuple(q.shape)} k,v "
+            f"{tuple(k.shape)} bf16: max_abs_err={err:.3e} run-to-run "
+            f"bitwise equal; {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+            f"{flops} flop)")
+        rows[("flash_attention_fwd", label)] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
+            shape=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal")
+        del q, k, v, o
+        torch.cuda.empty_cache()
+
+    # the dispatch buffers of serve-lm: one MoE group per sequence at
+    # prefill (capacity 328), one group of the batch's 2 tokens at decode
+    moe = FULL.moe
+    E, d, f = moe.n_experts, FULL.d_model, moe.d_ff_expert
+    c_pre = moe_capacity(LM_PROMPT, E, moe.top_k)
+    c_dec = moe_capacity(LM_BATCH, E, moe.top_k)
+    s_in = (2.0 / (d + f)) ** 0.5
+    w_gate, w_up = randn(E, d, f, scale=s_in), randn(E, d, f, scale=s_in)
+    w_down = randn(E, f, d, scale=s_in)
+    for label, G, C, w in (("prefill gate", LM_BATCH, c_pre, w_gate),
+                           ("prefill up", LM_BATCH, c_pre, w_up),
+                           ("prefill down", LM_BATCH, c_pre, w_down),
+                           ("decode gate", 1, c_dec, w_gate)):
+        depth = w.shape[1]
+        x = randn(G * E, C, depth)
+        y = gemm_ops.expert_gemm(x, w)
+        y2 = gemm_ops.expert_gemm(x, w)
+        err = lm_check(f"expert_gemm {label}", y, y2,
+                       expert_gemm_ref(x, w))
+        ms = cuda_ms(lambda: gemm_ops.expert_gemm(x, w), reps)
+        plain = cuda_ms(lambda: expert_gemm_ref(x, w), 3, warmup=1)
+        x4 = x.view(G, E, C, depth)
+        lib = cuda_ms(lambda: torch.matmul(x4, w), reps)
+        nbytes = sum(t.numel() * t.element_size() for t in (x, w, y))
+        flops = 2 * G * E * C * depth * w.shape[2]
+        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+        say(f"  expert_gemm {label}: x {tuple(x.shape)} w {tuple(w.shape)}"
+            f" bf16: max_abs_err={err:.3e} run-to-run bitwise equal; "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms,"
+            f" bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
+        rows[("expert_gemm", label)] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
+            shape=f"x {tuple(x.shape)} w {tuple(w.shape)} bf16")
+        del x, y, y2, x4
+    del w_gate, w_up, w_down
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reset_all_counts():
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.spmv_ell import ops as ell_ops
+    for ops in (ell_ops, flash_ops, gemm_ops):
+        ops.reset_launch_counts()
+
+
+def read_all_counts():
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.spmv_ell import ops as ell_ops
+    return {**ell_ops.LAUNCHES, **flash_ops.LAUNCHES, **gemm_ops.LAUNCHES}
+
+
+# -- phase 5: LM agreement, card against CPU ------------------------------------
+
+def phase_lm_agreement():
+    import torch
+    from repro_torch.configs.qwen3_moe_30b_a3b import SMOKE
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.transformer import TransformerLM
+    # f32 products in full f32 on the card (PyTorch's default, set here so
+    # the 1e-4 agreement does not rest on it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = TransformerLM(SMOKE)
+    params = model.init(torch.Generator(device="cpu").manual_seed(0))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    prompt = torch.randint(0, SMOKE.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    reset_all_counts()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = to(params, dev)
+        logits, _ = model.prefill(p, prompt.to(dev))
+        gen = greedy_generate(model, p, prompt.to(dev), LM_TOKENS)
+        out[dev] = (logits.cpu(), gen.tokens.cpu(), gen.logits.cpu(),
+                    gen.cache[0].cpu())
+    counts = read_all_counts()
+    check(counts["flash_attention_fwd"] > 0 and counts["expert_gemm"] > 0,
+          f"LM agreement: the card path launched no LM kernel ({counts})")
+    (pre_g, tok_g, last_g, k_g), (pre_c, tok_c, last_c, k_c) = \
+        out["cuda"], out["cpu"]
+    check(bool(torch.equal(tok_g, tok_c)),
+          f"LM agreement: greedy tokens differ: {tok_g.tolist()} vs "
+          f"{tok_c.tolist()}")
+    err_pre = float((pre_g - pre_c).abs().max())
+    err_last = float((last_g - last_c).abs().max())
+    k_steps = int((k_g != k_c).sum())
+    say(f"phase lm-agreement: qwen3-moe SMOKE f32, 2 x 12 prompt, "
+        f"{LM_TOKENS} greedy tokens equal on card and CPU; max |logit "
+        f"diff| prefill {err_pre:.3e}, last step {err_last:.3e}; "
+        f"bf16 key-cache entries that differ {k_steps} of {k_g.numel()}; "
+        f"card launches {counts}")
+    check(max(err_pre, err_last) <= LM_AGREE_TOL,
+          f"LM agreement: logits differ by more than {LM_AGREE_TOL}")
+
+
+# -- phase 8: serve-lm -----------------------------------------------------------
+
+def phase_serve_lm(profile: bool = False):
+    import dataclasses
+    import torch
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(FULL, n_layers=LM_LAYERS)
+    model = TransformerLM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"  serve-lm model: qwen3-moe-30b-a3b FULL widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd "
+        f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+        f"d_ff {cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}); reduced: "
+        f"n_layers {cfg.n_layers} of {FULL.n_layers}; {n_params} params "
+        f"bf16 (param_count {cfg.param_count()}), init {init_s:.2f} s")
+    check(n_params == cfg.param_count(), "serve-lm: parameter count")
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    gen = greedy_generate(model, params, prompt, LM_TOKENS)
+    launches = read_all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_dec = LM_BATCH * (LM_TOKENS - 1)
+    say(f"  serve-lm prefill {LM_BATCH} x {LM_PROMPT}: {gen.prefill_s:.3f} s"
+        f" ({LM_BATCH * LM_PROMPT / gen.prefill_s:.1f} tok/s); "
+        f"{LM_TOKENS - 1} decode steps: {gen.decode_s:.3f} s "
+        f"({n_dec / gen.decode_s:.2f} tok/s, "
+        f"{gen.decode_s / (LM_TOKENS - 1) * 1e3:.2f} ms/step); peak memory "
+        f"{peak} B")
+    say(f"  serve-lm launches: {launches}")
+    check(launches["flash_attention_fwd"] == LM_LAYERS,
+          f"serve-lm: flash launches {launches['flash_attention_fwd']} != "
+          f"{LM_LAYERS}")
+    want_gemm = 3 * LM_LAYERS * LM_TOKENS
+    check(launches["expert_gemm"] == want_gemm,
+          f"serve-lm: expert_gemm launches {launches['expert_gemm']} != "
+          f"{want_gemm}")
+    toks = gen.tokens
+    check(toks.shape == (LM_BATCH, LM_TOKENS), "serve-lm: token shape")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "serve-lm: token out of the vocabulary")
+    check(bool(torch.isfinite(gen.logits.float()).all()),
+          "serve-lm: non-finite logits")
+    say(f"  serve-lm greedy continuation (row 0): {toks[0].tolist()}")
+    prefill_s, decode_s = gen.prefill_s, gen.decode_s
+    if profile:
+        cache = tuple(c.clone() for c in gen.cache)
+        StepProfiler(True, "serve-lm decode").step(
+            1, lambda: model.decode_step(params, toks[:, -1:], cache,
+                                         LM_PROMPT + LM_TOKENS - 1))
+        del cache
+
+    # consistency: a prefill over the prompt + the 15 fed-back tokens gives
+    # the last decode step's logits — if both compute the same function.
+    # At the served capacity (factor 1.25) they do not: the prompt's prefill
+    # drops MoE slots over capacity (the later positions' first, as they
+    # sort last), a 2-token decode step drops none, and the decode then
+    # attends to keys and values built on those drops. So the served run's
+    # drops are reported, and the check serves the prompt again and prefills
+    # at a capacity that drops nothing (factor E / top_k), in bf16 and, on
+    # the same draws, in f32.
+    full = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+    prof = StepProfiler(profile, "serve-lm prefill")
+    with RouteSpy(full.shape[1]) as spy:
+        prof.step(1, lambda: model.prefill(params, full))
+    dropped, dropped_last = spy.counts()
+    say(f"  serve-lm served-capacity prefill {tuple(full.shape)}: MoE slots "
+        f"dropped over capacity per layer {dropped} of "
+        f"{full.numel() * cfg.moe.top_k}, of them the last position's "
+        f"{dropped_last}")
+    del gen
+    t0 = time.perf_counter()
+    bf = consistency(cfg, params, prompt, "bf16")
+    consist_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = TransformerLM(cfg32).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    f32 = consistency(cfg32, params32, prompt, "f32")
+    del params32
+    torch.cuda.empty_cache()
+    for tag, res, corr_min, atol in (
+            ("bf16", bf, LM_CONSIST_CORR, LM_CONSIST_ATOL),
+            ("f32", f32, LM_CONSIST32_CORR, LM_CONSIST32_ATOL)):
+        check(res["corr"] >= corr_min,
+              f"serve-lm {tag}: prefill/decode logits correlation "
+              f"{res['corr']} < {corr_min}")
+        check(res["max_abs"] <= atol,
+              f"serve-lm {tag}: prefill/decode logits differ by "
+              f"{res['max_abs']} > {atol}")
+    return launches, dict(n_layers=cfg.n_layers, init_s=init_s,
+                          prefill_s=prefill_s, decode_s=decode_s,
+                          decode_tok_s=n_dec / decode_s,
+                          consistency_s=consist_s, peak_bytes=peak,
+                          consistency_bf16=bf, consistency_f32=f32,
+                          served_capacity_dropped=dropped,
+                          served_capacity_dropped_last=dropped_last)
+
+
+def consistency(cfg, params, prompt, tag: str):
+    """Serve ``prompt`` at a MoE capacity that drops nothing, then prefill
+    the prompt + the fed-back tokens at it and compare the last logits with
+    the last decode step's. The last decode step runs again to read its
+    routing: per layer, the sequences whose last token's set of top-k
+    experts differs between the two."""
+    import torch
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.transformer import TransformerLM
+    model = TransformerLM(cfg, capacity_factor=cfg.moe.n_experts
+                          / cfg.moe.top_k)
+    with RouteSpy(prompt.shape[1]) as served:
+        gen = greedy_generate(model, params, prompt, LM_TOKENS)
+    check(sum(served.counts()[0]) == 0, f"serve-lm {tag}: the no-drop "
+                                        f"serve dropped slots")
+    full = torch.cat([prompt, gen.tokens[:, :-1].to(prompt.dtype)], dim=1)
+    pos = full.shape[1] - 1
+    with RouteSpy(1) as dec:
+        again, _ = model.decode_step(params, full[:, -1:], gen.cache, pos)
+    check(bool(torch.equal(again, gen.logits)),
+          f"serve-lm {tag}: the last decode step run again differs")
+    with RouteSpy(full.shape[1]) as pre:
+        logits, _ = model.prefill(params, full)
+    check(sum(pre.counts()[0]) == 0, f"serve-lm {tag}: the no-drop prefill "
+                                     f"dropped slots")
+    flips = [int((a != b).any(dim=-1).sum())
+             for a, b in zip(pre.last_experts, dec.last_experts)]
+    a, b = logits.float(), gen.logits.float()
+    out = dict(max_abs=float((a - b).abs().max()),
+               max_logit=float(b.abs().max()),
+               corr=float(torch.corrcoef(torch.stack([a.ravel(),
+                                                      b.ravel()]))[0, 1]),
+               same_argmax=bool(torch.equal(a.argmax(-1), b.argmax(-1))),
+               routing_flips=flips)
+    say(f"  serve-lm consistency {tag}: no-drop serve of the prompt, then a "
+        f"no-drop prefill {tuple(full.shape)} vs the last decode step: max "
+        f"|diff| {out['max_abs']:.4e} (max |logit| {out['max_logit']:.4e}),"
+        f" correlation {out['corr']:.6f}, same argmax {out['same_argmax']}; "
+        f"sequences whose last token's top-{cfg.moe.top_k} experts differ, "
+        f"per layer {flips}")
+    return out
+
+
+class RouteSpy:
+    """Per MoE layer: the slots that ``moe.route`` drops over capacity,
+    those of each sequence's last position, and that position's top-k
+    experts, for sequences of ``seq_len`` tokens (1 for a decode step)."""
+
+    def __init__(self, seq_len: int):
+        from repro_torch.models import moe
+        self.moe, self._route, self.seq_len = moe, moe.route, seq_len
+        self.seen = []          # per layer: (dropped, dropped at last pos)
+        self.last_experts = []  # per layer: (B, k) sorted expert ids
+
+    def __enter__(self):
+        import torch
+        route, seen, last, seq_len = (self._route, self.seen,
+                                      self.last_experts, self.seq_len)
+
+        def spy(*args, **kw):
+            r = route(*args, **kw)
+            # flat token index (over the batch) of every sorted slot
+            flat = (torch.arange(r.G, device=r.tokens.device)[:, None] * r.S
+                    + r.tokens)
+            dropped = ~r.keep
+            seen.append((dropped.sum(),
+                         (dropped & ((flat + 1) % seq_len == 0)).sum()))
+            if r.G * r.S >= seq_len:  # a decode step under a prefill's spy
+                ends = torch.arange(seq_len - 1, r.G * r.S, seq_len,
+                                    device=r.tokens.device)
+                ex = r.expert_idx[ends // r.S, ends % r.S]
+                last.append(torch.sort(ex, dim=-1).values)
+            return r
+
+        self.moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self._route
+        return False
+
+    def counts(self):
+        return ([int(a) for a, _ in self.seen],
+                [int(b) for _, b in self.seen])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# -- phase 4: CUDA vs CPU on a small stream ------------------------------------
 
 def phase_small_agreement():
     from repro_torch.config.base import IGPMConfig, ServingConfig
@@ -282,7 +703,7 @@ def phase_small_agreement():
     check(worst <= 1e-4, "small stream: goodness differs by more than 1e-4")
 
 
-# -- phases 4-5: the main path ---------------------------------------------------
+# -- phases 6-7: the IGPM paths ---------------------------------------------------
 
 class Capture:
     """Wrap the ELL wrappers to keep copies of the first inputs of each
@@ -489,7 +910,7 @@ def main(argv=None) -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    from repro_torch.kernels.spmv_ell import build
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     built = build.build()
     say(f"phase build: {time.perf_counter() - t0:.2f} s wall "
@@ -500,7 +921,10 @@ def main(argv=None) -> int:
                 say(f"  nvcc {name}: {line.strip()}")
 
     rows = phase_kernels((4, 320), REPS)
+    say("phase lm-kernels:")
+    rows.update(phase_lm_kernels(REPS))
     phase_small_agreement()
+    phase_lm_agreement()
     from repro_torch.configs.igpm_paper import FULL
     from repro_torch.data.temporal import generate_stream, scaled_twin
     spec = scaled_twin("transactions", 1.0)
@@ -519,8 +943,11 @@ def main(argv=None) -> int:
     say("phase serve-batch:")
     launches_batch, batch_steps = phase_serve_batch(
         stream, BATCH_STEPS, args.profile)
+    del stream
+    say("phase serve-lm:")
+    launches_lm, lm = phase_serve_lm(args.profile)
     serve = dict(inc_steps=inc_steps, batch_steps=batch_steps,
-                 louvain_s=louvain_s, captured=cap)
+                 louvain_s=louvain_s, captured=cap, lm=lm)
 
     kernels = []
     for name, src, line in (
@@ -538,6 +965,27 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": "R=393216 K=64 n=262144 d=320",
             "by_d": {str(d): rows[(name, d)] for d in (4, 320)},
+        })
+    for name, src, line, labels in (
+            ("flash_attention_fwd",
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_fwd.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:80",
+             ("prefill", "ragged")),
+            ("expert_gemm",
+             "src/repro_torch/kernels/expert_gemm/csrc/expert_gemm.cu",
+             "src/repro/kernels/expert_gemm/expert_gemm.py:44",
+             ("prefill gate", "prefill up", "prefill down", "decode gate"))):
+        head = rows[(name, labels[0])]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": line,
+            "launches": launches_lm[name],
+            "max_abs_err": max(rows[(name, lb)]["max_abs_err"]
+                               for lb in labels),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["shape"],
+            "by_shape": {lb: rows[(name, lb)] for lb in labels},
         })
     say(f"serve summary: {json.dumps(serve)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")

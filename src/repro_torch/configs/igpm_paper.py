@@ -4,7 +4,7 @@ serving configuration at the published scale, ``SMOKE`` a reduced one;
 the temporal pattern-matching loop). Values match the JAX package's
 ``repro.configs.igpm_paper``."""
 
-from repro_torch.config.base import IGPMConfig, ShapeSpec
+from repro_torch.config.base import ArchConfig, IGPMConfig, ShapeSpec
 
 FULL = IGPMConfig(n_max=262_144, e_max=8_388_608, n_labels=4,
                   rwr_iters=25, rwr_iters_incremental=5, top_k_patterns=20,
@@ -24,3 +24,13 @@ SHAPES = (
     ShapeSpec("sx-mathoverflow", "stream",
               {"n_vertices": 24_818, "n_edges": 506_550, "steps": 2_350}),
 )
+
+
+def full() -> ArchConfig:
+    return ArchConfig("igpm-pem", "igpm", FULL, SHAPES,
+                      source="Kanezashi et al. 2018")
+
+
+def smoke() -> ArchConfig:
+    return ArchConfig("igpm-pem", "igpm", SMOKE, SHAPES,
+                      source="Kanezashi et al. 2018")

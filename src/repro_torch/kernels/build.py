@@ -1,10 +1,11 @@
-"""Build the ELL kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/*.cu`` file has a plain C interface and compiles on its own,
-for ``sm_90a``, into a shared library under ``build/`` next to this file
-(git-ignored). The library's name carries a hash of its source and flags, so an edited source
-builds anew and an unchanged one is reused. All missing libraries are
-compiled at once, one ``nvcc`` process per source, started together.
+Each kernel source (``<package>/csrc/*.cu``) has a plain C interface and
+compiles on its own, for ``sm_90a``, into a shared library under ``build/``
+next to this file (git-ignored). The library's name carries a hash of its
+source and flags, so an edited source builds anew and an unchanged one is
+reused. All missing libraries are compiled at once, one ``nvcc`` process
+per source, started together; the first use of any kernel builds them all.
 """
 
 from __future__ import annotations
@@ -19,18 +20,26 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 _HERE = Path(__file__).resolve().parent
-CSRC = _HERE / "csrc"
-SOURCES = {"ell_spmm": "ell_spmm.cu", "ell_reach": "ell_reach.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-ARGTYPES = {
+# kernel name → (source under this directory, exported C function, argtypes)
+KERNELS = {
     # cols, vals, mask, perm, row_ptr, x, y, n, d, K, stream
-    "ell_spmm": ("ell_spmm_f32", [_P] * 7 + [_I] * 3 + [_P]),
+    "ell_spmm": ("spmv_ell/csrc/ell_spmm.cu", "ell_spmm_f32",
+                 [_P] * 7 + [_I] * 3 + [_P]),
     # cols, mask, perm, row_ptr, x, y, n, d, K, stream
-    "ell_reach": ("ell_reach_f32", [_P] * 6 + [_I] * 3 + [_P]),
+    "ell_reach": ("spmv_ell/csrc/ell_reach.cu", "ell_reach_f32",
+                  [_P] * 6 + [_I] * 3 + [_P]),
+    # q, k, v, o, B, Sq, Sk, H, KV, hd, q_offset, causal, bf16, stream
+    "flash_attention_fwd": (
+        "flash_attention/csrc/flash_attention_fwd.cu", "flash_attention_fwd",
+        [_P] * 4 + [_I] * 9 + [_P]),
+    # x, w, y, N, E, C, d, f, bf16, stream
+    "expert_gemm": ("expert_gemm/csrc/expert_gemm.cu", "expert_gemm",
+                    [_P] * 3 + [_I] * 6 + [_P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -48,12 +57,16 @@ def nvcc() -> str:
     default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the ELL kernels build only where "
+    raise RuntimeError("nvcc not found: the port's kernels build only where "
                        "the CUDA toolkit is installed")
 
 
+def _source(name: str) -> Path:
+    return _HERE / KERNELS[name][0]
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    src = _source(name).read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 
@@ -62,7 +75,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every missing library among ``names`` (default: all), one
     ``nvcc`` per source, in parallel. Returns seconds per compiled name
     (empty when everything was built already). Raises on a failed build."""
-    names = list(SOURCES if names is None else names)
+    names = list(KERNELS if names is None else names)
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -72,7 +85,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
@@ -87,19 +100,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             continue
         os.replace(tmp, target)
     if failed:
-        raise RuntimeError("ELL kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return times
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+def kernel(name: str):
+    """The C entry point of kernel ``name``; the first call builds every
+    missing library of :data:`KERNELS` (so one use builds all four)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
+        build()
         lib = ctypes.CDLL(str(_target(name)))
-        fn_name, argtypes = ARGTYPES[name]
+        _, fn_name, argtypes = KERNELS[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
-    return lib
+    return getattr(lib, KERNELS[name][1])

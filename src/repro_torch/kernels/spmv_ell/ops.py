@@ -4,7 +4,8 @@
 bridge's BFS frontier step) check their inputs, then:
 
 * on CUDA tensors launch the hand-written kernel (``csrc/*.cu``, built on
-  first use by :mod:`.build`) on the current stream, or raise;
+  first use by :mod:`repro_torch.kernels.build`) on the current stream, or
+  raise;
 * on CPU tensors run the plain version from :mod:`.ref`.
 
 Each keeps a plain-integer launch count in :data:`LAUNCHES`, bumped only
@@ -23,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.spmv_ell import build
+from repro_torch.kernels import build
 from repro_torch.kernels.spmv_ell.ref import ell_reach_ref, ell_spmm_ref
 from repro_torch.sparse.ell import build_row_index
 
@@ -92,7 +93,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     y = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return y
-    fn = build.library("ell_spmm").ell_spmm_f32
+    fn = build.kernel("ell_spmm")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(cols.data_ptr(), vals.data_ptr(), mask.data_ptr(),
@@ -119,7 +120,7 @@ def ell_reach(cols: torch.Tensor, mask: torch.Tensor, row_ids: torch.Tensor,
     y = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return y
-    fn = build.library("ell_reach").ell_reach_f32
+    fn = build.kernel("ell_reach")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(cols.data_ptr(), mask.data_ptr(), perm.data_ptr(),

@@ -1,0 +1,154 @@
+"""Transformer building blocks (PyTorch port of ``repro.models.layers``).
+
+Plain functions over parameter tensors, with the JAX package's layouts:
+activations (B, S, d), attention tensors (B, S, H, hd) with H = KV·G
+(GQA), and the same casts in the same places (RMSNorm and RoPE in f32,
+attention statistics in f32). ``blockwise_attention`` is the serving path's
+prefill attention: on CUDA tensors it launches the flash-attention kernel,
+on CPU tensors it runs the plain online-softmax scan over KV blocks.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * w
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)                # (hd/2,)
+    ang = positions[..., None].float() * freqs                   # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                           # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _scale(hd: int, device) -> torch.Tensor:
+    return 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32,
+                                         device=device))
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, block: int = 1024,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention, O(block·S) memory.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H = KV·G (GQA). On CUDA
+    tensors this is one launch of the flash-attention kernel (``block`` is
+    the CPU scan's knob and does not reach it); on CPU tensors a scan over
+    KV blocks keeps the running (max, denominator, accumulator) in f32.
+    """
+    if q.device.type != "cpu":
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal,
+                               q_offset=q_offset)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.reshape(B, Sq, KV, G, hd).float() * _scale(hd, q.device)
+    q_pos = q_offset + torch.arange(Sq)
+    neg_inf = torch.tensor(float("-inf"))
+    m = torch.full((B, KV, G, Sq), float("-inf"))
+    l = torch.zeros((B, KV, G, Sq))
+    acc = torch.zeros((B, KV, G, Sq, hd))
+    for lo in range(0, Sk, block):
+        hi = min(lo + block, Sk)
+        kf = k[:, lo:hi].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf)           # (B,KV,G,Sq,blk)
+        if causal:
+            kv_pos = torch.arange(lo, hi)
+            valid = kv_pos[None, :] <= q_pos[:, None]
+            s = torch.where(valid[None, None, None], s, neg_inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (m_new = -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(torch.isfinite(s), p, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p, v[:, lo:hi].float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, KV * G, Sq, hd).permute(0, 2, 1, 3) \
+              .to(q.dtype).contiguous()
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Reference full-materialization attention (tests / tiny shapes)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.reshape(B, Sq, KV, G, hd).float() * _scale(hd, q.device)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        mask = torch.arange(Sk, device=q.device)[None, :] <= q_pos[:, None]
+        s = s.masked_fill(~mask[None, None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, KV * G, hd) \
+              .to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Single-token decode against a KV cache.
+
+    q: (B, 1, H, hd); caches: (B, S, KV, hd); ``cache_len`` (B,) masks the
+    slots at and past each row's length. Plain reductions in f32."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qf = q.reshape(B, KV, G, hd).float() * _scale(hd, q.device)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    if cache_len is not None:
+        valid = torch.arange(S, device=q.device)[None] < cache_len[:, None]
+        s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp_min(l, 1e-30),
+                       v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    return (F.silu(g) * u) @ w_down.to(x.dtype)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                dtype=torch.float32) -> torch.Tensor:
+    """Glorot-normal (d_in, d_out) weight on the generator's device."""
+    scale = (2.0 / (d_in + d_out)) ** 0.5
+    return (torch.randn((d_in, d_out), generator=gen, device=gen.device)
+            * scale).to(dtype)
