@@ -22,7 +22,10 @@ Phases, each printed on its own lines:
    hd 128) and at a ragged S 4,111 against dense f32 ``attention_ref``;
    the expert GEMM at the three prefill products (gate, up, down of the
    (2, 128, 328, ·) dispatch buffer) and at decode (C 8) against an f32
-   einsum; bf16 to rtol = atol = 2e-2, two launches bitwise equal; times,
+   einsum; bf16 to rtol 2e-2, with atol 2e-2 for the expert GEMM (outputs
+   of O(1)) and, for flash, 2e-2 times each output row's RMS in the plain
+   version (late causal rows average thousands of values and are a few
+   hundredths); two launches bitwise equal; times,
    bounds and the yardsticks ``scaled_dot_product_attention`` (causal,
    GQA) and ``torch.matmul`` on the same inputs;
 4. a small-input check: the toy stream served on the card and on the CPU
@@ -42,8 +45,9 @@ Phases, each printed on its own lines:
    depth cut from 48 to 8 layers, seeded random weights, a 2 × 4,096-token
    prompt: prefill and 15 greedy decode steps through
    ``repro_torch.launch.serve.greedy_generate``, counters set to 0 before
-   and read after (flash 8 launches, expert GEMM 384); then a prefill over
-   the prompt plus the 15 generated tokens must give the last decode
+   and read after (flash 8 launches, expert GEMM 384); then, with the MoE
+   at a capacity that drops no slot, the prompt is served again and a
+   prefill over it plus the 15 generated tokens must give the last decode
    step's logits.
 
 Then a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
@@ -55,6 +59,7 @@ served path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -68,15 +73,20 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # fp32 outside the tensor cores, data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 on the tensor cores, data sheet
 SPMM_RTOL = 1e-5
-LM_KERNEL_TOL = 2e-2   # bf16 rtol = atol, as tests/test_kernels.py
+# bf16 kernels against their plain versions: rtol as tests/test_kernels.py,
+# atol per kernel. The expert GEMM's outputs are O(1): atol 2e-2. A causal
+# flash row i averages i + 1 values of N(0, 1) v, so its outputs shrink to
+# |o| ~ 0.03 in the late rows, and the kernel rounds P to bf16 before P·V,
+# an error that scales with the row, not with each element: its atol is
+# LM_KERNEL_RTOL times the RMS of that output row in the plain version.
+LM_KERNEL_RTOL = 2e-2
+LM_GEMM_ATOL = 2e-2
 LM_AGREE_TOL = 1e-4    # SMOKE f32 logits, card against CPU
 LM_LAYERS = 8          # serve-lm depth (48 in the published config)
 LM_BATCH, LM_PROMPT, LM_TOKENS = 2, 4096, 16
 # serve-lm prefill-vs-decode logits: correlation floor and absolute bound.
 # Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): bf16 3.9e-2 and
-# 0.99898, where the bf16 router logits send the last token to another
-# expert in 4 of 8 layers; f32 3.8e-4 and 0.9999995, the bf16 cache's
-# rounding alone.
+# 0.99898; f32 3.8e-4 and 0.9999995, the bf16 cache's rounding alone.
 LM_CONSIST_CORR = 0.99
 LM_CONSIST_ATOL = 0.1
 LM_CONSIST32_CORR = 0.9999
@@ -296,16 +306,26 @@ def causal_pairs(sq: int, sk: int, q_offset: int = 0) -> int:
     return int(rows.sum())
 
 
-def lm_check(name: str, got, again, want):
+def row_atol(want):
+    """Flash's atol: ``LM_KERNEL_RTOL`` times the RMS of each output row
+    (the hd values of one query and head) of the plain version."""
+    return LM_KERNEL_RTOL * want.float().pow(2).mean(-1, keepdim=True).sqrt()
+
+
+def lm_check(name: str, got, again, want, atol):
+    """Max abs error, and the largest share of its allowance ``atol +
+    rtol·|want|`` that any element uses (≤ 1 passes); ``atol`` is a number
+    or a tensor that broadcasts against ``want``."""
     import torch
     check(bool(torch.equal(got, again)), f"{name}: two launches differ")
     g, w = got.float(), want.float()
-    abs_err = float((g - w).abs().max())
-    ok = bool(((g - w).abs() <= LM_KERNEL_TOL + LM_KERNEL_TOL * w.abs()).all())
     check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
-    check(ok, f"{name}: outside rtol = atol = {LM_KERNEL_TOL} (max abs "
-              f"error {abs_err:.3e})")
-    return abs_err
+    diff = (g - w).abs()
+    abs_err = float(diff.max())
+    used = float((diff / (atol + LM_KERNEL_RTOL * w.abs())).max())
+    check(used <= 1.0, f"{name}: outside its tolerance (max abs error "
+                       f"{abs_err:.3e}, {used:.2f} of the allowance)")
+    return abs_err, used
 
 
 def phase_lm_kernels(reps: int):
@@ -332,7 +352,13 @@ def phase_lm_kernels(reps: int):
         o = flash_ops.flash_attention(q, k, v)
         o2 = flash_ops.flash_attention(q, k, v)
         want = flash_attention_ref(q, k, v)
-        err = lm_check(f"flash_attention {label}", o, o2, want)
+        err, used = lm_check(f"flash_attention {label}", o, o2, want,
+                             row_atol(want))
+        # the second half of the rows: outputs of a few hundredths
+        late = slice(S // 2, None)
+        late_err = float((o[:, late].float() - want[:, late].float())
+                         .abs().max())
+        late_rms = float(want[:, late].float().pow(2).mean().sqrt())
         del want, o2
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v), reps)
@@ -345,13 +371,16 @@ def phase_lm_kernels(reps: int):
         flops = 4 * B * H * hd * causal_pairs(S, S)
         b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
         say(f"  flash_attention {label}: q {tuple(q.shape)} k,v "
-            f"{tuple(k.shape)} bf16: max_abs_err={err:.3e} run-to-run "
+            f"{tuple(k.shape)} bf16: max_abs_err={err:.3e} ({used:.3f} of "
+            f"the allowance; rows >= {S // 2}: {late_err:.3e} at output RMS"
+            f" {late_rms:.3e}) run-to-run "
             f"bitwise equal; {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
             f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
             f"{flops} flop)")
         rows[("flash_attention_fwd", label)] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
             bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
+            tol_used=used, late_max_abs_err=late_err, late_rms=late_rms,
             shape=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal")
         del q, k, v, o
         torch.cuda.empty_cache()
@@ -373,8 +402,8 @@ def phase_lm_kernels(reps: int):
         x = randn(G * E, C, depth)
         y = gemm_ops.expert_gemm(x, w)
         y2 = gemm_ops.expert_gemm(x, w)
-        err = lm_check(f"expert_gemm {label}", y, y2,
-                       expert_gemm_ref(x, w))
+        err, used = lm_check(f"expert_gemm {label}", y, y2,
+                             expert_gemm_ref(x, w), LM_GEMM_ATOL)
         ms = cuda_ms(lambda: gemm_ops.expert_gemm(x, w), reps)
         plain = cuda_ms(lambda: expert_gemm_ref(x, w), 3, warmup=1)
         x4 = x.view(G, E, C, depth)
@@ -383,13 +412,14 @@ def phase_lm_kernels(reps: int):
         flops = 2 * G * E * C * depth * w.shape[2]
         b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
         say(f"  expert_gemm {label}: x {tuple(x.shape)} w {tuple(w.shape)}"
-            f" bf16: max_abs_err={err:.3e} run-to-run bitwise equal; "
+            f" bf16: max_abs_err={err:.3e} ({used:.3f} of the allowance) "
+            f"run-to-run bitwise equal; "
             f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms,"
             f" bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
         rows[("expert_gemm", label)] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
             bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
-            shape=f"x {tuple(x.shape)} w {tuple(w.shape)} bf16")
+            tol_used=used, shape=f"x {tuple(x.shape)} w {tuple(w.shape)} bf16")
         del x, y, y2, x4
     del w_gate, w_up, w_down
     torch.cuda.synchronize()
@@ -521,25 +551,15 @@ def phase_serve_lm(profile: bool = False):
             1, lambda: model.decode_step(params, toks[:, -1:], cache,
                                          LM_PROMPT + LM_TOKENS - 1))
         del cache
+        StepProfiler(True, "serve-lm prefill").step(
+            1, lambda: model.prefill(params, prompt))
 
     # consistency: a prefill over the prompt + the 15 fed-back tokens gives
-    # the last decode step's logits — if both compute the same function.
-    # At the served capacity (factor 1.25) they do not: the prompt's prefill
-    # drops MoE slots over capacity (the later positions' first, as they
-    # sort last), a 2-token decode step drops none, and the decode then
-    # attends to keys and values built on those drops. So the served run's
-    # drops are reported, and the check serves the prompt again and prefills
-    # at a capacity that drops nothing (factor E / top_k), in bf16 and, on
-    # the same draws, in f32.
-    full = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
-    prof = StepProfiler(profile, "serve-lm prefill")
-    with RouteSpy(full.shape[1]) as spy:
-        prof.step(1, lambda: model.prefill(params, full))
-    dropped, dropped_last = spy.counts()
-    say(f"  serve-lm served-capacity prefill {tuple(full.shape)}: MoE slots "
-        f"dropped over capacity per layer {dropped} of "
-        f"{full.numel() * cfg.moe.top_k}, of them the last position's "
-        f"{dropped_last}")
+    # the last decode step's logits if both compute the same per-token
+    # function. At the served capacity factor (1.25) they do not: the
+    # prefill drops the MoE slots over capacity, a 2-token decode step
+    # drops none. So the check serves the prompt again and prefills at a
+    # capacity that drops nothing, in bf16 and, on the same draws, in f32.
     del gen
     t0 = time.perf_counter()
     bf = consistency(cfg, params, prompt, "bf16")
@@ -565,95 +585,52 @@ def phase_serve_lm(profile: bool = False):
                           prefill_s=prefill_s, decode_s=decode_s,
                           decode_tok_s=n_dec / decode_s,
                           consistency_s=consist_s, peak_bytes=peak,
-                          consistency_bf16=bf, consistency_f32=f32,
-                          served_capacity_dropped=dropped,
-                          served_capacity_dropped_last=dropped_last)
+                          consistency_bf16=bf, consistency_f32=f32)
 
 
 def consistency(cfg, params, prompt, tag: str):
-    """Serve ``prompt`` at a MoE capacity that drops nothing, then prefill
-    the prompt + the fed-back tokens at it and compare the last logits with
-    the last decode step's. The last decode step runs again to read its
-    routing: per layer, the sequences whose last token's set of top-k
-    experts differs between the two."""
+    """Serve ``prompt`` with no MoE slot dropped, then prefill the prompt +
+    the fed-back tokens the same way and compare the last logits with the
+    last decode step's."""
     import torch
     from repro_torch.launch.serve import greedy_generate
     from repro_torch.models.transformer import TransformerLM
-    model = TransformerLM(cfg, capacity_factor=cfg.moe.n_experts
-                          / cfg.moe.top_k)
-    with RouteSpy(prompt.shape[1]) as served:
+    model = TransformerLM(cfg)
+    with no_drop_capacity():
         gen = greedy_generate(model, params, prompt, LM_TOKENS)
-    check(sum(served.counts()[0]) == 0, f"serve-lm {tag}: the no-drop "
-                                        f"serve dropped slots")
-    full = torch.cat([prompt, gen.tokens[:, :-1].to(prompt.dtype)], dim=1)
-    pos = full.shape[1] - 1
-    with RouteSpy(1) as dec:
-        again, _ = model.decode_step(params, full[:, -1:], gen.cache, pos)
-    check(bool(torch.equal(again, gen.logits)),
-          f"serve-lm {tag}: the last decode step run again differs")
-    with RouteSpy(full.shape[1]) as pre:
+        full = torch.cat([prompt, gen.tokens[:, :-1].to(prompt.dtype)],
+                         dim=1)
         logits, _ = model.prefill(params, full)
-    check(sum(pre.counts()[0]) == 0, f"serve-lm {tag}: the no-drop prefill "
-                                     f"dropped slots")
-    flips = [int((a != b).any(dim=-1).sum())
-             for a, b in zip(pre.last_experts, dec.last_experts)]
     a, b = logits.float(), gen.logits.float()
     out = dict(max_abs=float((a - b).abs().max()),
                max_logit=float(b.abs().max()),
                corr=float(torch.corrcoef(torch.stack([a.ravel(),
                                                       b.ravel()]))[0, 1]),
-               same_argmax=bool(torch.equal(a.argmax(-1), b.argmax(-1))),
-               routing_flips=flips)
+               same_argmax=bool(torch.equal(a.argmax(-1), b.argmax(-1))))
     say(f"  serve-lm consistency {tag}: no-drop serve of the prompt, then a "
         f"no-drop prefill {tuple(full.shape)} vs the last decode step: max "
         f"|diff| {out['max_abs']:.4e} (max |logit| {out['max_logit']:.4e}),"
-        f" correlation {out['corr']:.6f}, same argmax {out['same_argmax']}; "
-        f"sequences whose last token's top-{cfg.moe.top_k} experts differ, "
-        f"per layer {flips}")
+        f" correlation {out['corr']:.6f}, same argmax {out['same_argmax']}")
     return out
 
 
-class RouteSpy:
-    """Per MoE layer: the slots that ``moe.route`` drops over capacity,
-    those of each sequence's last position, and that position's top-k
-    experts, for sequences of ``seq_len`` tokens (1 for a decode step)."""
+@contextlib.contextmanager
+def no_drop_capacity():
+    """Route every MoE block at capacity factor E / top_k, where no slot can
+    be dropped (the served factor is 1.25), and check that none is."""
+    from repro_torch.models import moe
+    route = moe.route
 
-    def __init__(self, seq_len: int):
-        from repro_torch.models import moe
-        self.moe, self._route, self.seq_len = moe, moe.route, seq_len
-        self.seen = []          # per layer: (dropped, dropped at last pos)
-        self.last_experts = []  # per layer: (B, k) sorted expert ids
+    def no_drop(x, router, cfg, n_groups, capacity_factor=1.25):
+        r = route(x, router, cfg, n_groups, cfg.n_experts / cfg.top_k)
+        check(bool(r.keep.all()), "no-drop capacity dropped a MoE slot")
+        return r
 
-    def __enter__(self):
-        import torch
-        route, seen, last, seq_len = (self._route, self.seen,
-                                      self.last_experts, self.seq_len)
-
-        def spy(*args, **kw):
-            r = route(*args, **kw)
-            # flat token index (over the batch) of every sorted slot
-            flat = (torch.arange(r.G, device=r.tokens.device)[:, None] * r.S
-                    + r.tokens)
-            dropped = ~r.keep
-            seen.append((dropped.sum(),
-                         (dropped & ((flat + 1) % seq_len == 0)).sum()))
-            if r.G * r.S >= seq_len:  # a decode step under a prefill's spy
-                ends = torch.arange(seq_len - 1, r.G * r.S, seq_len,
-                                    device=r.tokens.device)
-                ex = r.expert_idx[ends // r.S, ends % r.S]
-                last.append(torch.sort(ex, dim=-1).values)
-            return r
-
-        self.moe.route = spy
-        return self
-
-    def __exit__(self, *exc):
-        self.moe.route = self._route
-        return False
-
-    def counts(self):
-        return ([int(a) for a, _ in self.seen],
-                [int(b) for _, b in self.seen])
+    moe.route = no_drop
+    try:
+        yield
+    finally:
+        moe.route = route
 
 
 def _leaves(tree):

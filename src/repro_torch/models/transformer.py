@@ -37,13 +37,8 @@ Cache = Tuple[torch.Tensor, torch.Tensor]
 
 
 class TransformerLM:
-    """``capacity_factor`` sizes the MoE dispatch buffer (the reference's
-    ``moe_block`` default 1.25, which its TransformerLM always uses); at
-    ``n_experts / top_k`` or more no slot is ever dropped, so a prefill
-    computes the same per-token function as a decode step."""
-
     def __init__(self, cfg: TransformerConfig, moe_group_size: int = 4096,
-                 act_spec=None, capacity_factor: float = 1.25):
+                 act_spec=None):
         if act_spec is not None:
             raise NotImplementedError(
                 "TransformerLM: act_spec (activation sharding) waits for the "
@@ -52,7 +47,6 @@ class TransformerLM:
         self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                               else torch.float32)
         self.moe_group_size = moe_group_size
-        self.capacity_factor = capacity_factor
 
     # -- init -----------------------------------------------------------------
 
@@ -157,7 +151,7 @@ class TransformerLM:
             T = B * S
             n_groups = max(1, T // self.moe_group_size)
             y2d, aux = moe_block(h.reshape(T, d), p["moe"], cfg.moe,
-                                 n_groups, self.capacity_factor)
+                                 n_groups)
             y = y2d.reshape(B, S, d)
             if cfg.moe.n_shared_experts:
                 y = y + L.swiglu(h, p["sg"], p["su"], p["sd"])

@@ -9,9 +9,15 @@ the expert GEMM shapes have unaligned C, d and f.
 
 Tolerances: SpMM to rtol 1e-6 (float sums in another order), reach bitwise
 (a max over exact 0/1 values); flash attention and the expert GEMM to
-rtol 1e-4 / atol 1e-5 in f32 and 2e-2 / 2e-2 in bf16, the tolerances of
+rtol 1e-4 / atol 1e-5 in f32 and rtol 2e-2 in bf16, the tolerances of
 ``tests/test_kernels.py`` (bf16 inputs, long f32 reductions in another
-order, one bf16 rounding of the output). The CUDA-vs-plain tests need a
+order, one bf16 rounding of the output). The bf16 atol is 2e-2 for the
+expert GEMM, whose outputs are O(1). Flash attention's causal rows average
+up to S values of v and shrink to a few hundredths, so its bf16 atol is
+1e-3 for the plain version against the Pallas kernel (both keep the
+softmax weights in f32) and, for the card's kernel, which rounds them to
+bf16 before P·V, 2e-2 times the RMS of each output row of the plain
+version. The CUDA-vs-plain tests need a
 card and are skipped elsewhere; on the card two launches must also give
 the same bits. The JAX kernels are imported inside the tests that use
 them, so that ``pytest --noconftest -m cuda`` runs this file on a machine
@@ -193,9 +199,25 @@ GEMM_SHAPES = [(4, 96, 200, 72),   # unaligned everything
                (1, 8, 8, 8)]
 
 
-def _tol(dtype):
-    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+def _tol(dtype, bf16_atol=2e-2):
+    return (dict(rtol=2e-2, atol=bf16_atol) if dtype == "bfloat16"
             else dict(rtol=1e-4, atol=1e-5))
+
+
+def _flash_tol(dtype):
+    return _tol(dtype, bf16_atol=1e-3)
+
+
+def _assert_flash_close(got, want, dtype):
+    """The card's flash kernel against its plain version: bf16 to rtol 2e-2
+    with an atol of 2e-2 times each output row's RMS."""
+    if dtype != "bfloat16":
+        torch.testing.assert_close(got, want, **_tol(dtype))
+        return
+    g, w = got.float(), want.float()
+    allow = 2e-2 * (w.abs() + w.pow(2).mean(-1, keepdim=True).sqrt())
+    used = float(((g - w).abs() / allow).max())
+    assert used <= 1.0, f"{used:.2f} of the allowance"
 
 
 def _pair(a, dtype):
@@ -226,7 +248,7 @@ def test_plain_flash_matches_pallas_kernel(S, H, KV, hd, causal, dtype):
     want = flash_attention(qj, kj, vj, causal=causal)
     got = flash_ops.flash_attention(qt, kt, vt, causal=causal)
     assert got.dtype == qt.dtype and got.shape == qt.shape
-    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+    np.testing.assert_allclose(_f32(got), _f32(want), **_flash_tol(dtype))
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -337,7 +359,7 @@ def test_cuda_flash_matches_plain_version(cuda_device, S, H, KV, hd, causal,
     o = flash_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     assert flash_ops.LAUNCHES["flash_attention_fwd"] == before + 1
     want = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
-    torch.testing.assert_close(o.float(), want.float(), **_tol(dtype))
+    _assert_flash_close(o, want, dtype)
     assert torch.equal(o, flash_ops.flash_attention(q, k, v, causal=causal,
                                                     q_offset=q_offset))
 

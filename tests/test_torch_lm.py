@@ -380,14 +380,22 @@ def test_greedy_loop_matches_reference_loop(lm):
                                   cfg.n_kv_heads, cfg.head_dim)
 
 
-def test_prefill_gives_last_decode_logits_when_nothing_drops():
-    """tests/test_models.py:46 for the MoE model: with a capacity that
-    drops no slot (factor E / top_k), a prefill over the prompt and the
+def test_prefill_gives_last_decode_logits_when_nothing_drops(monkeypatch):
+    """tests/test_models.py:46 for the MoE model: with the MoE routed at a
+    capacity that drops no slot (factor E / top_k, patched into
+    ``moe.route`` for the test), a prefill over the prompt and the
     fed-back tokens gives the last decode step's logits; 3e-2 as there,
     since the decode path reads the bf16 cache."""
+    route = TM.route
+
+    def no_drop(x, router, mcfg, n_groups, capacity_factor=1.25):
+        r = route(x, router, mcfg, n_groups, mcfg.n_experts / mcfg.top_k)
+        assert bool(r.keep.all())
+        return r
+
+    monkeypatch.setattr(TM, "route", no_drop)
     cfg = qcfg.SMOKE
-    model = TransformerLM(cfg, capacity_factor=cfg.moe.n_experts
-                          / cfg.moe.top_k)
+    model = TransformerLM(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     prompt = torch.randint(0, cfg.vocab_size, (2, 12),
                            generator=torch.Generator().manual_seed(1))
