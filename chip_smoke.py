@@ -7,20 +7,24 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printed on its own lines:
 
-1. the card (``nvidia-smi``) and the build of all four kernels from the
-   sources under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per
-   source, started together);
+1. the card (``nvidia-smi``) and the build of all five kernel sources
+   under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source,
+   started together);
 2. the ELL kernels against their plain PyTorch versions on random ELL data
    at the full mirror's shapes (R 393,216 rows, K 64, n 262,144,
    d ∈ {4, 320}, with shuffled spill rows, unallocated capacity rows and
    empty vertices): SpMM to max relative error ≤ 1e-5, reach bitwise;
    median kernel time from CUDA events, the plain version's time,
    ``torch.sparse.mm`` on the same matrix as a CSR tensor (a yardstick only
-   — the port never calls it), and the byte/flop bound of the work;
+   — the port never calls it), the byte/flop bound of the work, and for
+   the SpMM the gather floor (nnz · d · 4 bytes at the memory rate: every
+   live entry's row of x read once, no reuse in L2) and a digest of its
+   output;
 3. the LM kernels against their plain versions at the serve-lm shapes of
    qwen3-moe-30b-a3b: flash attention at prefill (B 2, S 4,096, H 32, KV 4,
-   hd 128) and at a ragged S 4,111 against dense f32 ``attention_ref``;
-   the expert GEMM at the three prefill products (gate, up, down of the
+   hd 128) and at a ragged S 4,111 against dense f32 ``attention_ref``
+   (both taken by the TMA + wgmma kernel), and the first flash kernel at
+   hd 40, a shape only it takes; the expert GEMM at the three prefill products (gate, up, down of the
    (2, 128, 328, ·) dispatch buffer) and at decode (C 8) against an f32
    einsum; bf16 to rtol 2e-2, with atol 2e-2 for the expert GEMM (outputs
    of O(1)) and, for flash, 2e-2 times each output row's RMS in the plain
@@ -37,7 +41,8 @@ Phases, each printed on its own lines:
    False))`` on the ``transactions`` twin at full scale for 4 served steps,
    launch counters set to 0 before and read after; the inputs of the first
    label-RWR sweep, the first expansion sweep and the first BFS sweep are
-   captured and the kernels held against their plain versions on them;
+   captured, the kernels held against their plain versions on them, and
+   the SpMM timed on the two captured sweeps;
 7. serve-batch — 2 steps of ``Engine(FULL, EngineConfig(mode="batch"))``
    on the same stream (full-graph label RWR and bank match), counters
    again set to 0 before and read after;
@@ -45,7 +50,8 @@ Phases, each printed on its own lines:
    depth cut from 48 to 8 layers, seeded random weights, a 2 × 4,096-token
    prompt: prefill and 15 greedy decode steps through
    ``repro_torch.launch.serve.greedy_generate``, counters set to 0 before
-   and read after (flash 8 launches, expert GEMM 384); then, with the MoE
+   and read after (flash 8 launches, all of the TMA + wgmma kernel; expert
+   GEMM 384); then, with the MoE
    at a capacity that drops no slot, the prompt is served again and a
    prefill over it plus the 15 generated tokens must give the last decode
    step's logits.
@@ -92,6 +98,7 @@ LM_CONSIST_ATOL = 0.1
 LM_CONSIST32_CORR = 0.9999
 LM_CONSIST32_ATOL = 4e-3
 REPS = 20          # timed launches per kernel measurement
+SPIN_CYCLES = 2_000_000  # card clock cycles spun before each timed run
 INC_STEPS = 4      # serve-inc steps
 BATCH_STEPS = 2    # serve-batch steps
 
@@ -119,7 +126,10 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` runs, each bracketed
-    by its own pair of CUDA events."""
+    by its own pair of CUDA events. Before each run the card spins for
+    about 1 ms, so the host's work in ``fn`` before its launch overlaps
+    the spin and the start event fires with the launch already queued:
+    the time is the card's, not the wrapper's Python."""
     import torch
     for _ in range(warmup):
         fn()
@@ -127,6 +137,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -197,6 +208,30 @@ def spmm_bound(mask, x, n: int, with_vals: bool):
                                  "operations"), nbytes, ops
 
 
+def gather_floor(mask, d: int) -> float:
+    """Milliseconds to read every live entry's row of x once from device
+    memory (nnz · d · 4 bytes), as when x is far larger than L2."""
+    return int(mask.sum()) * d * 4 / H100_BYTES_PER_S * 1e3
+
+
+def spmm_csr(cols, vals, mask, row_ids, n: int, n_x: int):
+    """The ELL tile as a CSR tensor for ``torch.sparse.mm`` (a yardstick
+    only: the port never calls it)."""
+    import torch
+    live = mask.nonzero(as_tuple=True)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([row_ids[live[0]].to(torch.int64),
+                     cols[live].to(torch.int64)]),
+        vals[live], (n, n_x)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def digest(t) -> str:
+    """First 16 hex digits of the sha256 of a tensor's bytes."""
+    import hashlib
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def spmm_errors(y, y_ref):
     import torch
     diff = (y - y_ref).abs()
@@ -213,9 +248,11 @@ def compare_spmm(ops, ref, cols, vals, mask, row_ids, x, n, index, label):
     y_ref = ref.ell_spmm_ref(cols, vals, mask, row_ids, x, n)
     check(bool((y == y2).all()), f"ell_spmm {label}: two launches differ")
     abs_err, rel_err = spmm_errors(y, y_ref)
+    variant = ops.spmm_variant(x.shape[1], x.data_ptr())
     say(f"  ell_spmm {label}: R={cols.shape[0]} K={cols.shape[1]} n={n} "
-        f"d={x.shape[1]} max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e}"
-        f" run-to-run bitwise equal")
+        f"d={x.shape[1]} variant={variant} max_abs_err={abs_err:.3e} "
+        f"max_rel_err={rel_err:.3e} run-to-run bitwise equal, output "
+        f"sha256 {digest(y)}")
     check(rel_err <= SPMM_RTOL,
           f"ell_spmm {label}: max relative error {rel_err} > {SPMM_RTOL}")
     return abs_err, rel_err
@@ -243,12 +280,7 @@ def phase_kernels(ds, reps: int):
     say(f"phase kernels: synthetic ELL n={n} R={r_cap} K={k} nnz={nnz} "
         f"live_rows={index[0].shape[0]} "
         f"empty_vertices={int((index[1][1:] == index[1][:-1]).sum())}")
-    live = mask.nonzero(as_tuple=True)
-    coo = torch.sparse_coo_tensor(
-        torch.stack([row_ids[live[0]].to(torch.int64),
-                     cols[live].to(torch.int64)]),
-        vals[live], (n, n)).coalesce()
-    csr = coo.to_sparse_csr()
+    csr = spmm_csr(cols, vals, mask, row_ids, n, n)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for d in ds:
@@ -270,14 +302,19 @@ def phase_kernels(ds, reps: int):
         s_lib = cuda_ms(lambda: torch.sparse.mm(csr, x), reps)
         s_bound, s_by, s_bytes, s_ops = spmm_bound(mask, x, n, True)
         r_bound, r_by, r_bytes, r_ops = spmm_bound(mask, xb, n, False)
+        s_floor = gather_floor(mask, d)
         say(f"  d={d} ell_spmm: {s_ms:.4f} ms, plain {s_plain:.4f} ms, "
             f"torch.sparse.mm(csr) {s_lib:.4f} ms, bound {s_bound:.4f} ms "
-            f"({s_by}: {s_bytes} B, {s_ops} flop)")
+            f"({s_by}: {s_bytes} B, {s_ops} flop), gather floor "
+            f"{s_floor:.4f} ms ({nnz * d * 4} B)")
         say(f"  d={d} ell_reach: {r_ms:.4f} ms, plain {r_plain:.4f} ms, "
             f"bound {r_bound:.4f} ms ({r_by}: {r_bytes} B, {r_ops} op)")
         rows[("ell_spmm", d)] = dict(ms=s_ms, plain_ms=s_plain,
                                      library_ms=s_lib, bound_ms=s_bound,
                                      bound_by=s_by, bytes=s_bytes,
+                                     gather_floor_ms=s_floor,
+                                     variant=ops.spmm_variant(
+                                         d, x.data_ptr()),
                                      max_abs_err=s_abs, max_rel_err=s_rel)
         rows[("ell_reach", d)] = dict(ms=r_ms, plain_ms=r_plain,
                                       library_ms=None, bound_ms=r_bound,
@@ -345,14 +382,23 @@ def phase_lm_kernels(reps: int):
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(bf)
 
-    B, H, KV, hd = LM_BATCH, FULL.n_heads, FULL.n_kv_heads, FULL.head_dim
-    for label, S in (("prefill", LM_PROMPT),
-                     ("ragged", LM_PROMPT + LM_TOKENS - 1)):
+    B, H, KV = LM_BATCH, FULL.n_heads, FULL.n_kv_heads
+    # the served prefill and a ragged S go to the TMA + wgmma kernel; hd 40
+    # only the first kernel takes
+    for label, S, hd, name in (
+            ("prefill", LM_PROMPT, FULL.head_dim, flash_ops.WGMMA),
+            ("ragged", LM_PROMPT + LM_TOKENS - 1, FULL.head_dim,
+             flash_ops.WGMMA),
+            ("hd40", LM_PROMPT, 40, flash_ops.FIRST)):
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        before = dict(flash_ops.LAUNCHES)
         o = flash_ops.flash_attention(q, k, v)
+        check(flash_ops.LAUNCHES[name] == before[name] + 1,
+              f"flash_attention {label}: not taken by {name} "
+              f"({flash_ops.LAUNCHES})")
         o2 = flash_ops.flash_attention(q, k, v)
         want = flash_attention_ref(q, k, v)
-        err, used = lm_check(f"flash_attention {label}", o, o2, want,
+        err, used = lm_check(f"{name} {label}", o, o2, want,
                              row_atol(want))
         # the second half of the rows: outputs of a few hundredths
         late = slice(S // 2, None)
@@ -370,14 +416,14 @@ def phase_lm_kernels(reps: int):
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
         flops = 4 * B * H * hd * causal_pairs(S, S)
         b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
-        say(f"  flash_attention {label}: q {tuple(q.shape)} k,v "
+        say(f"  {name} {label}: q {tuple(q.shape)} k,v "
             f"{tuple(k.shape)} bf16: max_abs_err={err:.3e} ({used:.3f} of "
             f"the allowance; rows >= {S // 2}: {late_err:.3e} at output RMS"
             f" {late_rms:.3e}) run-to-run "
             f"bitwise equal; {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
             f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
             f"{flops} flop)")
-        rows[("flash_attention_fwd", label)] = dict(
+        rows[(name, label)] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
             bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
             tol_used=used, late_max_abs_err=late_err, late_rms=late_rms,
@@ -490,6 +536,7 @@ def phase_lm_agreement():
         f"card launches {counts}")
     check(max(err_pre, err_last) <= LM_AGREE_TOL,
           f"LM agreement: logits differ by more than {LM_AGREE_TOL}")
+    return counts
 
 
 # -- phase 8: serve-lm -----------------------------------------------------------
@@ -530,9 +577,11 @@ def phase_serve_lm(profile: bool = False):
         f"{gen.decode_s / (LM_TOKENS - 1) * 1e3:.2f} ms/step); peak memory "
         f"{peak} B")
     say(f"  serve-lm launches: {launches}")
-    check(launches["flash_attention_fwd"] == LM_LAYERS,
-          f"serve-lm: flash launches {launches['flash_attention_fwd']} != "
-          f"{LM_LAYERS}")
+    check(launches["flash_attention_fwd_wgmma"] == LM_LAYERS
+          and launches["flash_attention_fwd"] == 0,
+          f"serve-lm: flash launches {launches['flash_attention_fwd_wgmma']}"
+          f" (TMA + wgmma) and {launches['flash_attention_fwd']} (first "
+          f"kernel), want {LM_LAYERS} and 0")
     want_gemm = 3 * LM_LAYERS * LM_TOKENS
     check(launches["expert_gemm"] == want_gemm,
           f"serve-lm: expert_gemm launches {launches['expert_gemm']} != "
@@ -847,6 +896,7 @@ def phase_serve_batch(stream, n_steps: int, profile: bool = False):
 
 
 def check_captured(inputs):
+    import torch
     from repro_torch.kernels.spmv_ell import ops, ref
     from repro_torch.sparse.ell import build_row_index
     for key in ("label_rwr", "expansion_rwr", "bfs"):
@@ -855,8 +905,21 @@ def check_captured(inputs):
     for key in ("label_rwr", "expansion_rwr"):
         cols, vals, mask, row_ids, x, n = inputs[key]
         index = build_row_index(mask, row_ids, n)
-        out[key] = compare_spmm(ops, ref, cols, vals, mask, row_ids, x, n,
-                                index, f"captured {key}")
+        abs_err, rel_err = compare_spmm(ops, ref, cols, vals, mask, row_ids,
+                                        x, n, index, f"captured {key}")
+        ms = cuda_ms(lambda: ops.ell_spmm(cols, vals, mask, row_ids, x, n,
+                                          index=index), REPS)
+        csr = spmm_csr(cols, vals, mask, row_ids, n, x.shape[0])
+        lib = cuda_ms(lambda: torch.sparse.mm(csr, x), REPS)
+        b_ms, b_by, nbytes, _ = spmm_bound(mask, x, n, True)
+        floor = gather_floor(mask, x.shape[1])
+        say(f"  ell_spmm captured {key}: nnz={int(mask.sum())} "
+            f"{ms:.4f} ms, torch.sparse.mm(csr) {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes} B), gather floor {floor:.4f} ms")
+        out[key] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+                        library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                        gather_floor_ms=floor, nnz=int(mask.sum()),
+                        R=cols.shape[0], n=n, d=x.shape[1])
     cols, mask, row_ids, x, n = inputs["bfs"]
     index = build_row_index(mask, row_ids, n)
     out["bfs"] = compare_reach(ops, ref, cols, mask, row_ids, x, n, index,
@@ -901,7 +964,7 @@ def main(argv=None) -> int:
     say("phase lm-kernels:")
     rows.update(phase_lm_kernels(REPS))
     phase_small_agreement()
-    phase_lm_agreement()
+    launches_agree = phase_lm_agreement()
     from repro_torch.configs.igpm_paper import FULL
     from repro_torch.data.temporal import generate_stream, scaled_twin
     spec = scaled_twin("transactions", 1.0)
@@ -935,28 +998,35 @@ def main(argv=None) -> int:
         head = rows[(name, 320)]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": line,
-            "launches": launches_inc[name],
+            "launches": launches_inc[name], "launches_path": "serve-inc",
             "launches_batch": launches_batch[name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "gather_floor_ms": head.get("gather_floor_ms"),
             "shape": "R=393216 K=64 n=262144 d=320",
             "by_d": {str(d): rows[(name, d)] for d in (4, 320)},
         })
-    for name, src, line, labels in (
-            ("flash_attention_fwd",
-             "src/repro_torch/kernels/flash_attention/csrc/"
-             "flash_attention_fwd.cu",
-             "src/repro/kernels/flash_attention/flash_attention.py:80",
-             ("prefill", "ragged")),
+    flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
+    flash_tpu = "src/repro/kernels/flash_attention/flash_attention.py:80"
+    for name, src, line, labels, launches, path in (
+            ("flash_attention_fwd_wgmma",
+             flash_src + "flash_attention_fwd_wgmma.cu", flash_tpu,
+             ("prefill", "ragged"), launches_lm, "serve-lm"),
+            # the first kernel keeps the f32 and the odd-hd bf16 calls: the
+            # SMOKE model's f32 attention on the card launches it
+            ("flash_attention_fwd", flash_src + "flash_attention_fwd.cu",
+             flash_tpu, ("hd40",), launches_agree, "lm-agreement"),
             ("expert_gemm",
              "src/repro_torch/kernels/expert_gemm/csrc/expert_gemm.cu",
              "src/repro/kernels/expert_gemm/expert_gemm.py:44",
-             ("prefill gate", "prefill up", "prefill down", "decode gate"))):
+             ("prefill gate", "prefill up", "prefill down", "decode gate"),
+             launches_lm, "serve-lm")):
+        check(launches[name] > 0, f"{path} never launched {name}")
         head = rows[(name, labels[0])]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": line,
-            "launches": launches_lm[name],
+            "launches": launches[name], "launches_path": path,
             "max_abs_err": max(rows[(name, lb)]["max_abs_err"]
                                for lb in labels),
             "ms": head["ms"], "plain_ms": head["plain_ms"],

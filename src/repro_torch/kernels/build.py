@@ -6,6 +6,8 @@ next to this file (git-ignored). The library's name carries a hash of its
 source and flags, so an edited source builds anew and an unchanged one is
 reused. All missing libraries are compiled at once, one ``nvcc`` process
 per source, started together; the first use of any kernel builds them all.
+The TMA kernel finds the driver's ``cuTensorMapEncodeTiled`` at run time
+through ``cudaGetDriverEntryPoint``, so no library links against libcuda.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # kernel name → (source under this directory, exported C function, argtypes)
 KERNELS = {
-    # cols, vals, mask, perm, row_ptr, x, y, n, d, K, stream
+    # cols, vals, mask, perm, row_ptr, x, y, n, d, K, variant, stream
     "ell_spmm": ("spmv_ell/csrc/ell_spmm.cu", "ell_spmm_f32",
-                 [_P] * 7 + [_I] * 3 + [_P]),
+                 [_P] * 7 + [_I] * 4 + [_P]),
     # cols, mask, perm, row_ptr, x, y, n, d, K, stream
     "ell_reach": ("spmv_ell/csrc/ell_reach.cu", "ell_reach_f32",
                   [_P] * 6 + [_I] * 3 + [_P]),
@@ -37,6 +39,10 @@ KERNELS = {
     "flash_attention_fwd": (
         "flash_attention/csrc/flash_attention_fwd.cu", "flash_attention_fwd",
         [_P] * 4 + [_I] * 9 + [_P]),
+    # q, k, v, o, B, Sq, Sk, H, KV, hd, q_offset, causal, stream
+    "flash_attention_fwd_wgmma": (
+        "flash_attention/csrc/flash_attention_fwd_wgmma.cu",
+        "flash_attention_fwd_wgmma", [_P] * 4 + [_I] * 8 + [_P]),
     # x, w, y, N, E, C, d, f, bf16, stream
     "expert_gemm": ("expert_gemm/csrc/expert_gemm.cu", "expert_gemm",
                     [_P] * 3 + [_I] * 6 + [_P]),
@@ -106,7 +112,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 def kernel(name: str):
     """The C entry point of kernel ``name``; the first call builds every
-    missing library of :data:`KERNELS` (so one use builds all four)."""
+    missing library of :data:`KERNELS` (so one use builds them all)."""
     lib = _LIBS.get(name)
     if lib is None:
         build()

@@ -2,6 +2,8 @@
 
 from repro_torch.kernels.flash_attention.ops import (LAUNCHES,
                                                      flash_attention,
+                                                     flash_variant,
                                                      reset_launch_counts)
 
-__all__ = ["flash_attention", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["flash_attention", "flash_variant", "LAUNCHES",
+           "reset_launch_counts"]

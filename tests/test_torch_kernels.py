@@ -19,7 +19,8 @@ softmax weights in f32) and, for the card's kernel, which rounds them to
 bf16 before P·V, 2e-2 times the RMS of each output row of the plain
 version. The CUDA-vs-plain tests need a
 card and are skipped elsewhere; on the card two launches must also give
-the same bits. The JAX kernels are imported inside the tests that use
+the same bits. Which kernel variant takes a call is decided by shape in
+pure Python (``flash_variant``, ``spmm_variant``), pinned here on the CPU. The JAX kernels are imported inside the tests that use
 them, so that ``pytest --noconftest -m cuda`` runs this file on a machine
 with a card and no JAX.
 """
@@ -188,6 +189,56 @@ def test_cuda_kernels_match_plain_versions(ell_data, cuda_device, d):
     assert torch.equal(y, ops.ell_spmm(cols, vals, mask, row_ids, x, n))
 
 
+@pytest.mark.parametrize("d,ptr,want", [
+    (1, 0, "small"),
+    (4, 256, "small"),          # the label RWR
+    (4, 4, "small"),            # alignment does not matter below 32
+    (20, 0, "small"),
+    (31, 0, "small"),
+    (32, 0, "wide_vec4"),
+    (36, 16, "wide_vec4"),      # 9 float4 groups
+    (38, 0, "wide_scalar"),     # d % 4 != 0
+    (320, 512, "wide_vec4"),    # the expansion RWR
+    (320, 8, "wide_scalar"),    # x not 16-byte aligned
+    (520, 0, "wide_vec4"),      # more than 512 columns: two walks
+])
+def test_spmm_variant_by_shape(d, ptr, want):
+    assert ops.spmm_variant(d, ptr) == want
+
+
+def _misaligned(a, device):
+    """``a`` as a contiguous float32 tensor whose data sits 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(a.size + 1, dtype=torch.float32, device=device)
+    out = buf[1:].view(a.shape)
+    out.copy_(torch.as_tensor(a))
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,aligned", [(4, False), (32, True), (36, True),
+                                       (38, True), (320, True),
+                                       (320, False), (520, True)])
+def test_cuda_spmm_variants_match_plain_version(ell_data, cuda_device, d,
+                                                aligned):
+    cols, vals, mask, row_ids, _ = (torch.as_tensor(a, device=cuda_device)
+                                    for a in ell_data)
+    n = 300
+    xa = np.random.default_rng(d).random((n, d)).astype(np.float32)
+    x = (torch.as_tensor(xa, device=cuda_device) if aligned
+         else _misaligned(xa, cuda_device))
+    want = ("small" if d < 32 else "wide_vec4" if aligned and d % 4 == 0
+            else "wide_scalar")
+    assert ops.spmm_variant(d, x.data_ptr()) == want
+    before = ops.LAUNCHES["ell_spmm"]
+    y = ops.ell_spmm(cols, vals, mask, row_ids, x, n)
+    assert ops.LAUNCHES["ell_spmm"] == before + 1
+    torch.testing.assert_close(y, ell_spmm_ref(cols, vals, mask, row_ids,
+                                               x, n), rtol=1e-5, atol=0)
+    assert torch.equal(y, ops.ell_spmm(cols, vals, mask, row_ids, x, n))
+
+
 # -- flash attention and the expert GEMM -------------------------------------------
 
 FLASH_SHAPES = [(128, 4, 4, 64),   # MHA
@@ -297,8 +348,28 @@ def test_lm_kernels_cpu_path_launches_no_kernel():
     flash_ops.flash_attention(q, q[:, :, :1].contiguous(),
                               q[:, :, :1].contiguous())
     gemm_ops.expert_gemm(torch.ones((2, 3, 4)), torch.ones((1, 4, 5)))
-    assert flash_ops.LAUNCHES == {"flash_attention_fwd": 0}
+    assert flash_ops.LAUNCHES == {"flash_attention_fwd": 0,
+                                  "flash_attention_fwd_wgmma": 0}
     assert gemm_ops.LAUNCHES == {"expert_gemm": 0}
+
+
+@pytest.mark.parametrize("dtype,hd,sq,sk,ptrs,want", [
+    ("bfloat16", 128, 4096, 4096, (0, 512, 1024, 4096), "wgmma"),  # prefill
+    ("bfloat16", 128, 4111, 4111, (16, 32, 48, 64), "wgmma"),      # ragged
+    ("bfloat16", 64, 1, 1, (0, 0, 0, 0), "wgmma"),
+    ("bfloat16", 40, 4096, 4096, (0, 0, 0, 0), "first"),   # hd not 64/128
+    ("bfloat16", 32, 200, 200, (0, 0, 0, 0), "first"),
+    ("bfloat16", 16, 16, 64, (0, 0, 0, 0), "first"),
+    ("float32", 128, 300, 300, (0, 0, 0, 0), "first"),     # f32
+    ("float32", 64, 128, 128, (0, 0, 0, 0), "first"),
+    ("bfloat16", 128, 300, 300, (0, 8, 0, 0), "first"),    # k misaligned
+    ("bfloat16", 64, 300, 300, (0, 0, 0, 2), "first"),     # o misaligned
+    ("bfloat16", 128, 300, 0, (0, 0, 0, 0), "first"),      # no keys
+])
+def test_flash_variant_by_shape(dtype, hd, sq, sk, ptrs, want):
+    name = flash_ops.flash_variant(getattr(torch, dtype), hd, sq, sk, ptrs)
+    assert name == {"wgmma": "flash_attention_fwd_wgmma",
+                    "first": "flash_attention_fwd"}[want]
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "kv_heads", "head_dim",
@@ -355,11 +426,46 @@ def test_cuda_flash_matches_plain_version(cuda_device, S, H, KV, hd, causal,
     q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
                                device=cuda_device).to(tdt)
                for shape in ((2, S, H, hd), (2, Sk, KV, hd), (2, Sk, KV, hd)))
-    before = flash_ops.LAUNCHES["flash_attention_fwd"]
+    o_ptr = torch.empty_like(q).data_ptr()  # any fresh allocation: aligned
+    name = flash_ops.flash_variant(tdt, hd, S, Sk, (q.data_ptr(),
+                                                    k.data_ptr(),
+                                                    v.data_ptr(), o_ptr))
+    assert name == ("flash_attention_fwd_wgmma"
+                    if dtype == "bfloat16" and hd in (64, 128)
+                    else "flash_attention_fwd")
+    before = dict(flash_ops.LAUNCHES)
     o = flash_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-    assert flash_ops.LAUNCHES["flash_attention_fwd"] == before + 1
+    assert flash_ops.LAUNCHES[name] == before[name] + 1
+    assert sum(flash_ops.LAUNCHES.values()) == sum(before.values()) + 1
     want = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     _assert_flash_close(o, want, dtype)
+    assert torch.equal(o, flash_ops.flash_attention(q, k, v, causal=causal,
+                                                    q_offset=q_offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0),
+                                             (True, 48)])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [128, 300, 4111])
+def test_cuda_wgmma_flash_matches_plain_version(cuda_device, S, hd, G,
+                                                causal, q_offset):
+    """The TMA + wgmma kernel (bf16, hd 64 or 128): one 128-row tile, a
+    ragged S, and the prefill's length plus a ragged tail; MHA and GQA;
+    queries after a 48-key prefix."""
+    KV = 2
+    rng = np.random.default_rng(S + hd + G)
+    Sk = S + q_offset
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=cuda_device).to(torch.bfloat16)
+               for shape in ((2, S, KV * G, hd), (2, Sk, KV, hd),
+                             (2, Sk, KV, hd)))
+    before = flash_ops.LAUNCHES["flash_attention_fwd_wgmma"]
+    o = flash_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert flash_ops.LAUNCHES["flash_attention_fwd_wgmma"] == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    _assert_flash_close(o, want, "bfloat16")
     assert torch.equal(o, flash_ops.flash_attention(q, k, v, causal=causal,
                                                     q_offset=q_offset))
 
