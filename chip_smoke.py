@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printed on its own lines:
 
-1. the card (``nvidia-smi``) and the build of all five kernel sources
+1. the card (``nvidia-smi``) and the build of all six kernel sources
    under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source,
    started together);
 2. the ELL kernels against their plain PyTorch versions on random ELL data
@@ -17,21 +17,25 @@ Phases, each printed on its own lines:
    median kernel time from CUDA events, the plain version's time,
    ``torch.sparse.mm`` on the same matrix as a CSR tensor (a yardstick only
    — the port never calls it), the byte/flop bound of the work, and for
-   the SpMM the gather floor (nnz · d · 4 bytes at the memory rate: every
-   live entry's row of x read once, no reuse in L2) and a digest of its
-   output;
+   both the gather floor (nnz · d · 4 bytes at the memory rate: every
+   live entry's row of x read once, no reuse in L2), the variant that took
+   the call, and for the SpMM a digest of its output;
 3. the LM kernels against their plain versions at the serve-lm shapes of
    qwen3-moe-30b-a3b: flash attention at prefill (B 2, S 4,096, H 32, KV 4,
    hd 128) and at a ragged S 4,111 against dense f32 ``attention_ref``
    (both taken by the TMA + wgmma kernel), and the first flash kernel at
-   hd 40, a shape only it takes; the expert GEMM at the three prefill products (gate, up, down of the
-   (2, 128, 328, ·) dispatch buffer) and at decode (C 8) against an f32
-   einsum; bf16 to rtol 2e-2, with atol 2e-2 for the expert GEMM (outputs
-   of O(1)) and, for flash, 2e-2 times each output row's RMS in the plain
-   version (late causal rows average thousands of values and are a few
-   hundredths); two launches bitwise equal; times,
-   bounds and the yardsticks ``scaled_dot_product_attention`` (causal,
-   GQA) and ``torch.matmul`` on the same inputs;
+   hd 40, a shape only it takes; the expert GEMM at the three prefill
+   products (gate, up, down of the (2, 128, 328, ·) dispatch buffer; the
+   tiles variant of the TMA + wgmma source), at decode gate and down (C 8;
+   its skinny variant), and in f32 and in bf16 with x 2 bytes off a
+   16-byte boundary at decode gate (both the first kernel), against an
+   f32 einsum; each case asserts which variant took it; bf16 to
+   rtol 2e-2, with atol 2e-2 for the expert GEMM (outputs of O(1)) and,
+   for flash, 2e-2 times each output row's RMS in the plain version (late
+   causal rows average thousands of values and are a few hundredths); the
+   f32 GEMM to 1e-4; two launches bitwise equal; times, bounds and the
+   yardsticks ``scaled_dot_product_attention`` (causal, GQA) and
+   ``torch.matmul`` on the same inputs;
 4. a small-input check: the toy stream served on the card and on the CPU
    (plain versions) must give equal match deltas and stores;
 5. LM agreement: qwen3-moe ``SMOKE`` (f32) with one set of weights served
@@ -41,17 +45,19 @@ Phases, each printed on its own lines:
    False))`` on the ``transactions`` twin at full scale for 4 served steps,
    launch counters set to 0 before and read after; the inputs of the first
    label-RWR sweep, the first expansion sweep and the first BFS sweep are
-   captured, the kernels held against their plain versions on them, and
-   the SpMM timed on the two captured sweeps;
+   captured, the kernels held against their plain versions on them and
+   timed;
 7. serve-batch — 2 steps of ``Engine(FULL, EngineConfig(mode="batch"))``
    on the same stream (full-graph label RWR and bank match), counters
-   again set to 0 before and read after;
+   again set to 0 before and read after; its first BFS sweep (the full
+   mirror) is captured, held bitwise and timed;
 8. serve-lm — qwen3-moe-30b-a3b ``FULL`` at its published widths with the
    depth cut from 48 to 8 layers, seeded random weights, a 2 × 4,096-token
    prompt: prefill and 15 greedy decode steps through
    ``repro_torch.launch.serve.greedy_generate``, counters set to 0 before
    and read after (flash 8 launches, all of the TMA + wgmma kernel; expert
-   GEMM 384); then, with the MoE
+   GEMM 24 of the tiles variant, 360 of the skinny one, none of the first
+   kernel); then, with the MoE
    at a capacity that drops no slot, the prompt is served again and a
    prefill over it plus the 15 generated tokens must give the last decode
    step's logits.
@@ -67,17 +73,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12          # fp32 outside the tensor cores, data sheet
-H100_BF16_FLOPS = 989e12        # dense bf16 on the tensor cores, data sheet
 SPMM_RTOL = 1e-5
 # bf16 kernels against their plain versions: rtol as tests/test_kernels.py,
 # atol per kernel. The expert GEMM's outputs are O(1): atol 2e-2. A causal
@@ -87,6 +88,9 @@ SPMM_RTOL = 1e-5
 # LM_KERNEL_RTOL times the RMS of that output row in the plain version.
 LM_KERNEL_RTOL = 2e-2
 LM_GEMM_ATOL = 2e-2
+# the first GEMM kernel in f32 against an f32 einsum: rtol and atol, for
+# sums over d = 2,048 in another order (outputs O(1))
+LM_GEMM32_TOL = 1e-4
 LM_AGREE_TOL = 1e-4    # SMOKE f32 logits, card against CPU
 LM_LAYERS = 8          # serve-lm depth (48 in the published config)
 LM_BATCH, LM_PROMPT, LM_TOKENS = 2, 4096, 16
@@ -98,7 +102,6 @@ LM_CONSIST_ATOL = 0.1
 LM_CONSIST32_CORR = 0.9999
 LM_CONSIST32_ATOL = 4e-3
 REPS = 20          # timed launches per kernel measurement
-SPIN_CYCLES = 2_000_000  # card clock cycles spun before each timed run
 INC_STEPS = 4      # serve-inc steps
 BATCH_STEPS = 2    # serve-batch steps
 
@@ -116,79 +119,7 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, each bracketed
-    by its own pair of CUDA events. Before each run the card spins for
-    about 1 ms, so the host's work in ``fn`` before its launch overlaps
-    the spin and the start event fires with the launch already queued:
-    the time is the card's, not the wrapper's Python."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 # -- phase 2: kernels against their plain versions -----------------------------
-
-def random_ell(n: int, r_cap: int, k: int, seed: int, device="cuda"):
-    """Random incoming-adjacency ELL tile shaped like the full mirror: one
-    first row per vertex in vertex order, spill rows for vertices with
-    more than ``k`` entries handed out in shuffled order after them,
-    unallocated capacity rows (row_id 0, all masked) at the end, ~10 %
-    empty vertices; entries packed at the front of each row."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng(seed)
-    deg = rng.integers(1, 13, n)
-    deg[rng.random(n) < 0.10] = 0
-    heavy = rng.random(n) < 0.005
-    deg[heavy] = rng.integers(k + 1, 5 * k, int(heavy.sum()))
-    rows_per_v = np.maximum(1, -(-deg // k))
-    spill_owner = np.repeat(np.arange(n), rows_per_v - 1)
-    rng.shuffle(spill_owner)
-    n_rows = n + len(spill_owner)
-    assert n_rows <= r_cap
-    row_ids = np.zeros(r_cap, np.int32)
-    row_ids[:n] = np.arange(n)
-    row_ids[n:n_rows] = spill_owner
-    # the j-th row of vertex v: its first row, then its spill rows in the
-    # order the shuffled cursor handed them out
-    rows_of = [[v] for v in range(n)]
-    for j, v in enumerate(spill_owner):
-        rows_of[v].append(n + j)
-    fill = np.zeros(r_cap, np.int64)
-    for v in np.nonzero(deg > k)[0]:
-        left = deg[v]
-        for r in rows_of[v]:
-            fill[r] = min(k, left)
-            left -= fill[r]
-    light = deg <= k
-    fill[:n][light] = deg[light]
-    mask = np.arange(k)[None, :] < fill[:, None]
-    cols = rng.integers(0, n, (r_cap, k)).astype(np.int32)
-    vals = rng.uniform(0.5, 1.5, (r_cap, k)).astype(np.float32)
-    vals[~mask] = 0.0
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in (cols, vals, mask, row_ids))
-
 
 def spmm_bound(mask, x, n: int, with_vals: bool):
     """Least card time for the function on these inputs: each input byte
@@ -196,6 +127,7 @@ def spmm_bound(mask, x, n: int, with_vals: bool):
     the row ids, the column id (and weight) of every live entry, all of
     x — against its flops (2·nnz·d for the SpMM, nnz·d compares for the
     reach) at the fp32 peak."""
+    from repro_torch.kernels.measure import H100_BYTES_PER_S, H100_F32_FLOPS
     r, k = mask.shape
     nnz = int(mask.sum())
     d = x.shape[1]
@@ -206,12 +138,6 @@ def spmm_bound(mask, x, n: int, with_vals: bool):
     t_ops = ops / H100_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations"), nbytes, ops
-
-
-def gather_floor(mask, d: int) -> float:
-    """Milliseconds to read every live entry's row of x once from device
-    memory (nnz · d · 4 bytes), as when x is far larger than L2."""
-    return int(mask.sum()) * d * 4 / H100_BYTES_PER_S * 1e3
 
 
 def spmm_csr(cols, vals, mask, row_ids, n: int, n_x: int):
@@ -248,7 +174,7 @@ def compare_spmm(ops, ref, cols, vals, mask, row_ids, x, n, index, label):
     y_ref = ref.ell_spmm_ref(cols, vals, mask, row_ids, x, n)
     check(bool((y == y2).all()), f"ell_spmm {label}: two launches differ")
     abs_err, rel_err = spmm_errors(y, y_ref)
-    variant = ops.spmm_variant(x.shape[1], x.data_ptr())
+    variant = ops.ell_variant(x.shape[1], x.data_ptr())
     say(f"  ell_spmm {label}: R={cols.shape[0]} K={cols.shape[1]} n={n} "
         f"d={x.shape[1]} variant={variant} max_abs_err={abs_err:.3e} "
         f"max_rel_err={rel_err:.3e} run-to-run bitwise equal, output "
@@ -271,6 +197,7 @@ def compare_reach(ops, ref, cols, mask, row_ids, x, n, index, label):
 
 def phase_kernels(ds, reps: int):
     import torch
+    from repro_torch.kernels.measure import cuda_ms, gather_floor, random_ell
     from repro_torch.kernels.spmv_ell import ops, ref
     from repro_torch.sparse.ell import build_row_index
     n, k, r_cap = 262_144, 64, 393_216
@@ -307,19 +234,22 @@ def phase_kernels(ds, reps: int):
             f"torch.sparse.mm(csr) {s_lib:.4f} ms, bound {s_bound:.4f} ms "
             f"({s_by}: {s_bytes} B, {s_ops} flop), gather floor "
             f"{s_floor:.4f} ms ({nnz * d * 4} B)")
-        say(f"  d={d} ell_reach: {r_ms:.4f} ms, plain {r_plain:.4f} ms, "
-            f"bound {r_bound:.4f} ms ({r_by}: {r_bytes} B, {r_ops} op)")
+        r_variant = ops.ell_variant(d, xb.data_ptr())
+        say(f"  d={d} ell_reach ({r_variant}): {r_ms:.4f} ms, plain "
+            f"{r_plain:.4f} ms, bound {r_bound:.4f} ms ({r_by}: {r_bytes} "
+            f"B, {r_ops} op), gather floor {s_floor:.4f} ms")
         rows[("ell_spmm", d)] = dict(ms=s_ms, plain_ms=s_plain,
                                      library_ms=s_lib, bound_ms=s_bound,
                                      bound_by=s_by, bytes=s_bytes,
                                      gather_floor_ms=s_floor,
-                                     variant=ops.spmm_variant(
+                                     variant=ops.ell_variant(
                                          d, x.data_ptr()),
                                      max_abs_err=s_abs, max_rel_err=s_rel)
         rows[("ell_reach", d)] = dict(ms=r_ms, plain_ms=r_plain,
                                       library_ms=None, bound_ms=r_bound,
                                       bound_by=r_by, bytes=r_bytes,
-                                      max_abs_err=r_abs)
+                                      gather_floor_ms=s_floor,
+                                      variant=r_variant, max_abs_err=r_abs)
         del x, xb
     torch.cuda.synchronize()
     return rows
@@ -330,6 +260,7 @@ def phase_kernels(ds, reps: int):
 def bound(nbytes: int, flops: int, peak_flops: float):
     """Least card time: the larger of bytes over the memory rate and
     operations over the peak rate of their type."""
+    from repro_torch.kernels.measure import H100_BYTES_PER_S
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -349,7 +280,7 @@ def row_atol(want):
     return LM_KERNEL_RTOL * want.float().pow(2).mean(-1, keepdim=True).sqrt()
 
 
-def lm_check(name: str, got, again, want, atol):
+def lm_check(name: str, got, again, want, atol, rtol=LM_KERNEL_RTOL):
     """Max abs error, and the largest share of its allowance ``atol +
     rtol·|want|`` that any element uses (≤ 1 passes); ``atol`` is a number
     or a tensor that broadcasts against ``want``."""
@@ -359,7 +290,7 @@ def lm_check(name: str, got, again, want, atol):
     check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
     diff = (g - w).abs()
     abs_err = float(diff.max())
-    used = float((diff / (atol + LM_KERNEL_RTOL * w.abs())).max())
+    used = float((diff / (atol + rtol * w.abs())).max())
     check(used <= 1.0, f"{name}: outside its tolerance (max abs error "
                        f"{abs_err:.3e}, {used:.2f} of the allowance)")
     return abs_err, used
@@ -368,6 +299,8 @@ def lm_check(name: str, got, again, want, atol):
 def phase_lm_kernels(reps: int):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.measure import (H100_BF16_FLOPS, H100_F32_FLOPS,
+                                             cuda_ms)
     from repro_torch.kernels.expert_gemm import ops as gemm_ops
     from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -440,33 +373,59 @@ def phase_lm_kernels(reps: int):
     s_in = (2.0 / (d + f)) ** 0.5
     w_gate, w_up = randn(E, d, f, scale=s_in), randn(E, d, f, scale=s_in)
     w_down = randn(E, f, d, scale=s_in)
-    for label, G, C, w in (("prefill gate", LM_BATCH, c_pre, w_gate),
-                           ("prefill up", LM_BATCH, c_pre, w_up),
-                           ("prefill down", LM_BATCH, c_pre, w_down),
-                           ("decode gate", 1, c_dec, w_gate)):
+    # bf16 goes to the TMA + wgmma source: its tiles variant at prefill,
+    # its skinny variant at decode; f32 (the SMOKE configs) and bf16 that
+    # TMA cannot address (here x 2 bytes off a 16-byte boundary: `shift`
+    # elements) only the first kernel takes. f32 sums are held to
+    # LM_GEMM32_TOL against an f32 einsum in full f32 (set here: TF32
+    # would lose those digits).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for label, G, C, w, name, shift in (
+            ("prefill gate", LM_BATCH, c_pre, w_gate, gemm_ops.TILES, 0),
+            ("prefill up", LM_BATCH, c_pre, w_up, gemm_ops.TILES, 0),
+            ("prefill down", LM_BATCH, c_pre, w_down, gemm_ops.TILES, 0),
+            ("decode gate", 1, c_dec, w_gate, gemm_ops.SKINNY, 0),
+            ("decode down", 1, c_dec, w_down, gemm_ops.SKINNY, 0),
+            ("decode gate f32", 1, c_dec, w_gate.float(), gemm_ops.FIRST, 0),
+            ("decode gate bf16 misaligned", 1, c_dec, w_gate, gemm_ops.FIRST,
+             1)):
         depth = w.shape[1]
-        x = randn(G * E, C, depth)
+        x = randn(G * E * C * depth + shift).to(w.dtype)[shift:].view(
+            G * E, C, depth)
+        check(x.data_ptr() % 16 == shift * x.element_size(),
+              f"expert_gemm {label}: x at {x.data_ptr() % 16} bytes past a "
+              f"16-byte boundary, want {shift * x.element_size()}")
+        before = dict(gemm_ops.LAUNCHES)
         y = gemm_ops.expert_gemm(x, w)
+        check(gemm_ops.LAUNCHES[name] == before[name] + 1,
+              f"expert_gemm {label}: not taken by {name} "
+              f"({gemm_ops.LAUNCHES})")
         y2 = gemm_ops.expert_gemm(x, w)
-        err, used = lm_check(f"expert_gemm {label}", y, y2,
-                             expert_gemm_ref(x, w), LM_GEMM_ATOL)
+        f32 = w.dtype == torch.float32
+        err, used = lm_check(f"{name} {label}", y, y2, expert_gemm_ref(x, w),
+                             LM_GEMM32_TOL if f32 else LM_GEMM_ATOL,
+                             rtol=LM_GEMM32_TOL if f32 else LM_KERNEL_RTOL)
         ms = cuda_ms(lambda: gemm_ops.expert_gemm(x, w), reps)
         plain = cuda_ms(lambda: expert_gemm_ref(x, w), 3, warmup=1)
         x4 = x.view(G, E, C, depth)
         lib = cuda_ms(lambda: torch.matmul(x4, w), reps)
         nbytes = sum(t.numel() * t.element_size() for t in (x, w, y))
         flops = 2 * G * E * C * depth * w.shape[2]
-        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
-        say(f"  expert_gemm {label}: x {tuple(x.shape)} w {tuple(w.shape)}"
-            f" bf16: max_abs_err={err:.3e} ({used:.3f} of the allowance) "
+        b_ms, b_by = bound(nbytes, flops,
+                           H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
+        dt = "f32" if f32 else "bf16"
+        say(f"  {name} {label}: x {tuple(x.shape)} w {tuple(w.shape)}"
+            f" {dt}: max_abs_err={err:.3e} ({used:.3f} of the allowance) "
             f"run-to-run bitwise equal; "
             f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms,"
             f" bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
-        rows[("expert_gemm", label)] = dict(
+        rows[(name, label)] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
             bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
-            tol_used=used, shape=f"x {tuple(x.shape)} w {tuple(w.shape)} bf16")
+            tol_used=used, shape=f"x {tuple(x.shape)} w {tuple(w.shape)} {dt}")
         del x, y, y2, x4
+        if f32:
+            del w
     del w_gate, w_up, w_down
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -582,10 +541,14 @@ def phase_serve_lm(profile: bool = False):
           f"serve-lm: flash launches {launches['flash_attention_fwd_wgmma']}"
           f" (TMA + wgmma) and {launches['flash_attention_fwd']} (first "
           f"kernel), want {LM_LAYERS} and 0")
-    want_gemm = 3 * LM_LAYERS * LM_TOKENS
-    check(launches["expert_gemm"] == want_gemm,
-          f"serve-lm: expert_gemm launches {launches['expert_gemm']} != "
-          f"{want_gemm}")
+    # 3 GEMMs per layer: the prefill's take the tiles variant, each decode
+    # step's the skinny one, the first kernel none
+    want_gemm = {"expert_gemm_wgmma": 3 * LM_LAYERS,
+                 "expert_gemm_skinny": 3 * LM_LAYERS * (LM_TOKENS - 1),
+                 "expert_gemm": 0}
+    got_gemm = {k: launches[k] for k in want_gemm}
+    check(got_gemm == want_gemm,
+          f"serve-lm: expert GEMM launches {got_gemm}, want {want_gemm}")
     toks = gen.tokens
     check(toks.shape == (LM_BATCH, LM_TOKENS), "serve-lm: token shape")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -733,28 +696,32 @@ def phase_small_agreement():
 
 class Capture:
     """Wrap the ELL wrappers to keep copies of the first inputs of each
-    kind the served path hands them: the label-RWR sweep (d = n_labels),
-    the expansion sweep (wider d) and the BFS frontier sweep."""
+    kind in ``kinds`` that the served path hands them: the label-RWR sweep
+    (d = n_labels), the expansion sweep (wider d) and the BFS frontier
+    sweep."""
 
-    def __init__(self, ops, n_labels: int):
+    KINDS = ("label_rwr", "expansion_rwr", "bfs")
+
+    def __init__(self, ops, n_labels: int, kinds=KINDS):
         self.ops = ops
         self.n_labels = n_labels
+        self.kinds = kinds
         self.inputs = {}
         self._spmm, self._reach = ops.ell_spmm, ops.ell_reach
 
     def __enter__(self):
-        ops, inputs = self.ops, self.inputs
+        ops, inputs, kinds = self.ops, self.inputs, self.kinds
         spmm, reach, n_labels = self._spmm, self._reach, self.n_labels
 
         def spy_spmm(cols, vals, mask, row_ids, x, n, index=None):
             key = "label_rwr" if x.shape[1] == n_labels else "expansion_rwr"
-            if key not in inputs:
+            if key in kinds and key not in inputs:
                 inputs[key] = tuple(t.clone() for t in
                                     (cols, vals, mask, row_ids, x)) + (n,)
             return spmm(cols, vals, mask, row_ids, x, n, index=index)
 
         def spy_reach(cols, mask, row_ids, x, n, index=None):
-            if "bfs" not in inputs:
+            if "bfs" in kinds and "bfs" not in inputs:
                 inputs["bfs"] = tuple(t.clone() for t in
                                       (cols, mask, row_ids, x)) + (n,)
             return reach(cols, mask, row_ids, x, n, index=index)
@@ -767,10 +734,18 @@ class Capture:
         return False
 
 
+# the port's kernels as the profiler names them (csrc/*.cu)
+PORT_KERNELS = ("ell_spmm_rows", "ell_spmm_small", "ell_reach_rows",
+                "ell_reach_small", "flash_fwd_wgmma", "flash_fwd_bf16",
+                "flash_fwd_f32", "gemm_tiles", "gemm_skinny",
+                "expert_gemm_bf16", "expert_gemm_f32")
+
+
 class StepProfiler:
     """With ``enabled``, record step 1 (the first warm step) under
-    ``torch.profiler`` and report device time by op and the device busy
-    share of that step's wall time. A no-op otherwise."""
+    ``torch.profiler`` and report device time by op, the port's kernels
+    summed by function, and the device busy share of that step's wall
+    time. A no-op otherwise."""
 
     def __init__(self, enabled: bool, label: str):
         self.enabled = enabled
@@ -805,6 +780,17 @@ class StepProfiler:
             f"({100 * busy_us / 1e6 / wall_s:.1f} %)")
         for dev_us, count, key in rows[:12]:
             say(f"    {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+        # the port's own kernels, summed by function over all instances
+        port = {}
+        for dev_us, count, key in rows:
+            for name in PORT_KERNELS:
+                if f"(anonymous namespace)::{name}<" in key or \
+                        f"(anonymous namespace)::{name}(" in key:
+                    ms, n = port.get(name, (0.0, 0))
+                    port[name] = (ms + dev_us / 1e3, n + count)
+        say("    port kernels: " + (", ".join(
+            f"{name} {ms:.3f} ms ({n}x)" for name, (ms, n) in
+            sorted(port.items(), key=lambda kv: -kv[1][0])) or "none"))
         return out
 
 
@@ -874,15 +860,17 @@ def phase_serve_batch(stream, n_steps: int, profile: bool = False):
     ops.reset_launch_counts()
     per_step = []
     prof = StepProfiler(profile, "serve-batch")
-    for i, upd in enumerate(stream.updates[:n_steps]):
-        t0 = time.perf_counter()
-        state, out = prof.step(i, lambda: eng.step(state, upd))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        say(f"  serve-batch step {i}: {dt:.3f} s (pipeline {out.elapsed:.3f}"
-            f" s) patterns={out.n_new_patterns} rwr_sweeps={out.rwr_sweeps}")
-        per_step.append(dict(step=i, s=dt, pipeline_s=out.elapsed,
-                             new_patterns=out.n_new_patterns))
+    with Capture(ops, FULL.n_labels, kinds=("bfs",)) as cap:
+        for i, upd in enumerate(stream.updates[:n_steps]):
+            t0 = time.perf_counter()
+            state, out = prof.step(i, lambda: eng.step(state, upd))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            say(f"  serve-batch step {i}: {dt:.3f} s (pipeline "
+                f"{out.elapsed:.3f} s) patterns={out.n_new_patterns} "
+                f"rwr_sweeps={out.rwr_sweeps}")
+            per_step.append(dict(step=i, s=dt, pipeline_s=out.elapsed,
+                                 new_patterns=out.n_new_patterns))
     launches = dict(ops.LAUNCHES)
     say(f"  serve-batch launches: {launches}")
     for name, count in launches.items():
@@ -892,11 +880,12 @@ def phase_serve_batch(stream, n_steps: int, profile: bool = False):
         good = np.asarray([v[0] for v in store._patterns.values()])
         check(bool(np.isfinite(good).all()),
               f"serve-batch: non-finite goodness in {qid}")
-    return launches, per_step
+    return launches, per_step, cap.inputs
 
 
 def check_captured(inputs):
     import torch
+    from repro_torch.kernels.measure import cuda_ms, gather_floor
     from repro_torch.kernels.spmv_ell import ops, ref
     from repro_torch.sparse.ell import build_row_index
     for key in ("label_rwr", "expansion_rwr", "bfs"):
@@ -920,11 +909,32 @@ def check_captured(inputs):
                         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                         gather_floor_ms=floor, nnz=int(mask.sum()),
                         R=cols.shape[0], n=n, d=x.shape[1])
-    cols, mask, row_ids, x, n = inputs["bfs"]
-    index = build_row_index(mask, row_ids, n)
-    out["bfs"] = compare_reach(ops, ref, cols, mask, row_ids, x, n, index,
-                               "captured bfs")
+    out["bfs"] = time_captured_bfs(inputs["bfs"], "serve-inc")
     return out
+
+
+def time_captured_bfs(inputs, path: str):
+    """Hold ``ell_reach`` bitwise against its plain version on a captured
+    BFS sweep, and time it beside its bound and gather floor."""
+    from repro_torch.kernels.measure import cuda_ms, gather_floor
+    from repro_torch.kernels.spmv_ell import ops, ref
+    from repro_torch.sparse.ell import build_row_index
+    cols, mask, row_ids, x, n = inputs
+    index = build_row_index(mask, row_ids, n)
+    abs_err = compare_reach(ops, ref, cols, mask, row_ids, x, n, index,
+                            f"captured {path} bfs")
+    ms = cuda_ms(lambda: ops.ell_reach(cols, mask, row_ids, x, n,
+                                       index=index), REPS)
+    b_ms, b_by, nbytes, _ = spmm_bound(mask, x, n, False)
+    d = x.shape[1]
+    floor = gather_floor(mask, d)
+    variant = ops.ell_variant(d, x.data_ptr())
+    say(f"  ell_reach captured {path} bfs ({variant}): nnz={int(mask.sum())}"
+        f" n={n} d={d} {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
+        f"B), gather floor {floor:.4f} ms")
+    return dict(max_abs_err=abs_err, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                gather_floor_ms=floor, variant=variant, nnz=int(mask.sum()),
+                R=cols.shape[0], n=n, d=d)
 
 
 def main(argv=None) -> int:
@@ -944,6 +954,7 @@ def main(argv=None) -> int:
             "checkout of the repository")
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.measure import card_line
     t_start = time.perf_counter()
     card = card_line()
     say(f"card: {card}")
@@ -981,9 +992,11 @@ def main(argv=None) -> int:
     cap = check_captured(captured)
     del captured
     say("phase serve-batch:")
-    launches_batch, batch_steps = phase_serve_batch(
+    launches_batch, batch_steps, captured = phase_serve_batch(
         stream, BATCH_STEPS, args.profile)
-    del stream
+    check("bfs" in captured, "serve-batch handed no BFS sweep to a kernel")
+    cap["batch_bfs"] = time_captured_bfs(captured["bfs"], "serve-batch")
+    del stream, captured
     say("phase serve-lm:")
     launches_lm, lm = phase_serve_lm(args.profile)
     serve = dict(inc_steps=inc_steps, batch_steps=batch_steps,
@@ -1004,11 +1017,14 @@ def main(argv=None) -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "gather_floor_ms": head.get("gather_floor_ms"),
+            "variant": head.get("variant"),
             "shape": "R=393216 K=64 n=262144 d=320",
             "by_d": {str(d): rows[(name, d)] for d in (4, 320)},
         })
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
     flash_tpu = "src/repro/kernels/flash_attention/flash_attention.py:80"
+    gemm_src = "src/repro_torch/kernels/expert_gemm/csrc/"
+    gemm_tpu = "src/repro/kernels/expert_gemm/expert_gemm.py:44"
     for name, src, line, labels, launches, path in (
             ("flash_attention_fwd_wgmma",
              flash_src + "flash_attention_fwd_wgmma.cu", flash_tpu,
@@ -1017,11 +1033,17 @@ def main(argv=None) -> int:
             # SMOKE model's f32 attention on the card launches it
             ("flash_attention_fwd", flash_src + "flash_attention_fwd.cu",
              flash_tpu, ("hd40",), launches_agree, "lm-agreement"),
-            ("expert_gemm",
-             "src/repro_torch/kernels/expert_gemm/csrc/expert_gemm.cu",
-             "src/repro/kernels/expert_gemm/expert_gemm.py:44",
-             ("prefill gate", "prefill up", "prefill down", "decode gate"),
-             launches_lm, "serve-lm")):
+            ("expert_gemm_wgmma", gemm_src + "expert_gemm_wgmma.cu",
+             gemm_tpu, ("prefill gate", "prefill up", "prefill down"),
+             launches_lm, "serve-lm"),
+            ("expert_gemm_skinny", gemm_src + "expert_gemm_wgmma.cu",
+             gemm_tpu, ("decode gate", "decode down"), launches_lm,
+             "serve-lm"),
+            # the first GEMM kernel keeps f32 and the bf16 calls TMA cannot
+            # address: the SMOKE model's f32 MoE on the card launches it
+            ("expert_gemm", gemm_src + "expert_gemm.cu", gemm_tpu,
+             ("decode gate f32", "decode gate bf16 misaligned"),
+             launches_agree, "lm-agreement")):
         check(launches[name] > 0, f"{path} never launched {name}")
         head = rows[(name, labels[0])]
         kernels.append({

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each with its plain PyTorch version.
 
 The ELL sweeps (`spmv_ell`), flash attention (`flash_attention`) and the
-grouped expert GEMM (`expert_gemm`); `build` compiles all four sources.
+grouped expert GEMM (`expert_gemm`); `build` compiles all six sources,
+and `measure` times them on a card.
 """

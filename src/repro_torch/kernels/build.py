@@ -3,10 +3,12 @@
 Each kernel source (``<package>/csrc/*.cu``) has a plain C interface and
 compiles on its own, for ``sm_90a``, into a shared library under ``build/``
 next to this file (git-ignored). The library's name carries a hash of its
-source and flags, so an edited source builds anew and an unchanged one is
-reused. All missing libraries are compiled at once, one ``nvcc`` process
-per source, started together; the first use of any kernel builds them all.
-The TMA kernel finds the driver's ``cuTensorMapEncodeTiled`` at run time
+source, of the headers it includes (``csrc/hopper.cuh``, shared by the
+TMA + wgmma kernels) and of the flags, so an edited source or header
+builds anew and an unchanged one is reused. All missing libraries are
+compiled at once, one ``nvcc`` process per source, started together; the
+first use of any kernel builds them all.
+The TMA kernels find the driver's ``cuTensorMapEncodeTiled`` at run time
 through ``cudaGetDriverEntryPoint``, so no library links against libcuda.
 """
 
@@ -15,13 +17,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _HERE = Path(__file__).resolve().parent
+INCLUDE_DIR = _HERE / "csrc"  # headers shared by several sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,9 +36,9 @@ KERNELS = {
     # cols, vals, mask, perm, row_ptr, x, y, n, d, K, variant, stream
     "ell_spmm": ("spmv_ell/csrc/ell_spmm.cu", "ell_spmm_f32",
                  [_P] * 7 + [_I] * 4 + [_P]),
-    # cols, mask, perm, row_ptr, x, y, n, d, K, stream
+    # cols, mask, perm, row_ptr, x, y, n, d, K, variant, stream
     "ell_reach": ("spmv_ell/csrc/ell_reach.cu", "ell_reach_f32",
-                  [_P] * 6 + [_I] * 3 + [_P]),
+                  [_P] * 6 + [_I] * 4 + [_P]),
     # q, k, v, o, B, Sq, Sk, H, KV, hd, q_offset, causal, bf16, stream
     "flash_attention_fwd": (
         "flash_attention/csrc/flash_attention_fwd.cu", "flash_attention_fwd",
@@ -46,6 +50,9 @@ KERNELS = {
     # x, w, y, N, E, C, d, f, bf16, stream
     "expert_gemm": ("expert_gemm/csrc/expert_gemm.cu", "expert_gemm",
                     [_P] * 3 + [_I] * 6 + [_P]),
+    # x, w, y, N, E, C, d, f, variant (0 tiles, 1 skinny), stream
+    "expert_gemm_wgmma": ("expert_gemm/csrc/expert_gemm_wgmma.cu",
+                          "expert_gemm_wgmma", [_P] * 3 + [_I] * 6 + [_P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -71,10 +78,32 @@ def _source(name: str) -> Path:
     return _HERE / KERNELS[name][0]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path) -> List[Path]:
+    """``path`` and every header it includes with ``#include "..."``,
+    found beside the including file or in :data:`INCLUDE_DIR`."""
+    seen = [path]
+    for p in seen:
+        for m in _INCLUDE.finditer(p.read_bytes()):
+            name = m.group(1).decode()
+            for where in (p.parent, INCLUDE_DIR):
+                hit = (where / name).resolve()
+                if hit.exists():
+                    if hit not in seen:
+                        seen.append(hit)
+                    break
+            else:
+                raise FileNotFoundError(f"{p}: included {name} not found")
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = _source(name).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{tag}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources(_source(name)):
+        h.update(p.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -91,7 +120,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+               str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)

@@ -5,24 +5,37 @@
 buffer goes in whole as N = G·E matrices. Both f32 or both bf16. It checks
 its inputs, then:
 
-* on CUDA tensors launches ``csrc/expert_gemm.cu`` (built on first use by
+* on CUDA tensors launches one of three kernels (built on first use by
   :mod:`repro_torch.kernels.build`) on the current stream, or raises;
+  :func:`gemm_variant` picks it by shape: bf16 that TMA can address (d and
+  f multiples of 8, x, w and y 16-byte aligned) goes to
+  ``csrc/expert_gemm_wgmma.cu``, as its skinny variant for C ≤
+  :data:`SKINNY_MAX_C` (the decode step) and its tiles variant above (the
+  prefill); everything else, f32 included, to ``csrc/expert_gemm.cu``;
 * on CPU tensors runs the plain version, :func:`.ref.expert_gemm_ref`.
 
-:data:`LAUNCHES` counts kernel launches, bumped only where the kernel is
-launched.
+:data:`LAUNCHES` counts launches per kernel, bumped only where the kernel
+is launched, so a run can show that its path went through the kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
 
-LAUNCHES: Dict[str, int] = {"expert_gemm": 0}
+FIRST = "expert_gemm"
+TILES = "expert_gemm_wgmma"
+SKINNY = "expert_gemm_skinny"
+LAUNCHES: Dict[str, int] = {FIRST: 0, TILES: 0, SKINNY: 0}
+# largest C the skinny variant takes (its wgmma N is C rounded up to 8,
+# 16, 32 or 64); csrc/expert_gemm_wgmma.cu: SKINNY_MAX_C
+SKINNY_MAX_C = 64
+# the C entry point's `variant` argument (csrc/expert_gemm_wgmma.cu)
+GEMM_VARIANTS = {TILES: 0, SKINNY: 1}
 
 
 def reset_launch_counts() -> None:
@@ -46,6 +59,19 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("expert_gemm: x and w must be contiguous")
 
 
+def gemm_variant(dtype: torch.dtype, C: int, d: int, f: int,
+                 ptrs: Iterable[int]) -> str:
+    """The kernel that takes a call, by shape alone: for bf16 with d and f
+    positive multiples of 8 (TMA's 16-byte row strides) and every pointer
+    (x, w, y) 16-byte aligned, the TMA + wgmma source, as its skinny
+    variant for C ≤ :data:`SKINNY_MAX_C` and its tiles variant above; the
+    first kernel (WMMA bf16, FMA f32) for everything else."""
+    if (dtype == torch.bfloat16 and d > 0 and d % 8 == 0 and f > 0
+            and f % 8 == 0 and all(p % 16 == 0 for p in ptrs)):
+        return SKINNY if C <= SKINNY_MAX_C else TILES
+    return FIRST
+
+
 def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(N, C, d) × (E, d, f) → (N, C, f), f32 accumulation over d."""
     _check(x, w)
@@ -59,13 +85,17 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((N, C, f), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    fn = build.kernel("expert_gemm")
+    ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
+    name = gemm_variant(x.dtype, C, d, f, ptrs)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, E, C, d, f,
-                int(x.dtype == torch.bfloat16), stream)
+        if name == FIRST:
+            rc = build.kernel(FIRST)(*ptrs, N, E, C, d, f,
+                                     int(x.dtype == torch.bfloat16), stream)
+        else:
+            rc = build.kernel(TILES)(*ptrs, N, E, C, d, f,
+                                     GEMM_VARIANTS[name], stream)
     if rc != 0:
-        raise RuntimeError(f"expert_gemm kernel launch failed (cudaError "
-                           f"{rc})")
-    LAUNCHES["expert_gemm"] += 1
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
+    LAUNCHES[name] += 1
     return y

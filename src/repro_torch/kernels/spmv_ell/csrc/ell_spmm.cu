@@ -58,7 +58,7 @@
 //    (`part += w * x`, contracted to an FMA by nvcc), so the two give the
 //    same bits.
 //  * the variant (small, wide float4, wide scalar) is chosen by shape in
-//    the wrapper (ops.py: spmm_variant).
+//    the wrapper (ops.py: ell_variant).
 //  * launches on the caller's stream, allocates nothing, and returns
 //    cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -242,7 +242,7 @@ void launch_rows(unsigned blocks, cudaStream_t s, const int32_t* c,
 
 }  // namespace
 
-// variant (ops.py: SPMM_VARIANTS): 0 small (d < 32), 1 wide float4
+// variant (ops.py: VARIANTS): 0 small (d < 32), 1 wide float4
 // (d >= 32, d % 4 == 0, x 16-byte aligned), 2 wide scalar (d >= 32).
 extern "C" int ell_spmm_f32(const void* cols, const void* vals,
                             const void* mask, const void* perm,

@@ -12,9 +12,9 @@ Each keeps a plain-integer launch count in :data:`LAUNCHES`, bumped only
 where its kernel is launched, so a run can show that the main path went
 through the kernels.
 
-:func:`spmm_variant` picks, by shape alone, which variant of the SpMM
-kernel takes a call (lanes across K for d < 32, one walk per vertex with
-float4 or scalar gathers for wider d).
+:func:`ell_variant` picks, by shape alone, which variant of either kernel
+takes a call (lanes across K for d < 32, one walk per vertex with float4
+or scalar gathers for wider d).
 
 Both kernels walk a vertex's rows through the row index of
 :func:`~repro_torch.sparse.ell.build_row_index`; callers that sweep one
@@ -33,8 +33,9 @@ from repro_torch.kernels.spmv_ell.ref import ell_reach_ref, ell_spmm_ref
 from repro_torch.sparse.ell import build_row_index
 
 LAUNCHES: Dict[str, int] = {"ell_spmm": 0, "ell_reach": 0}
-# the C entry point's `variant` argument (csrc/ell_spmm.cu)
-SPMM_VARIANTS = {"small": 0, "wide_vec4": 1, "wide_scalar": 2}
+# the `variant` argument of both C entry points (csrc/ell_spmm.cu,
+# csrc/ell_reach.cu)
+VARIANTS = {"small": 0, "wide_vec4": 1, "wide_scalar": 2}
 
 
 def reset_launch_counts() -> None:
@@ -86,11 +87,11 @@ def _cuda_args(mask: torch.Tensor, row_ids: torch.Tensor, n: int,
     return perm, row_ptr
 
 
-def spmm_variant(d: int, x_ptr: int) -> str:
-    """The SpMM kernel variant for x of width ``d`` at address ``x_ptr``:
-    lanes across K below 32 columns, else one walk of each vertex's rows
-    with float4 gathers where d % 4 == 0 and x is 16-byte aligned, scalar
-    gathers otherwise."""
+def ell_variant(d: int, x_ptr: int) -> str:
+    """The variant of either ELL kernel (SpMM or reach) for x of width
+    ``d`` at address ``x_ptr``: lanes across K below 32 columns, else one
+    walk of each vertex's rows with float4 gathers where d % 4 == 0 and x
+    is 16-byte aligned, scalar gathers otherwise."""
     if d < 32:
         return "small"
     return "wide_vec4" if d % 4 == 0 and x_ptr % 16 == 0 else "wide_scalar"
@@ -109,7 +110,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     y = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return y
-    variant = SPMM_VARIANTS[spmm_variant(d, x.data_ptr())]
+    variant = VARIANTS[ell_variant(d, x.data_ptr())]
     fn = build.kernel("ell_spmm")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -137,12 +138,13 @@ def ell_reach(cols: torch.Tensor, mask: torch.Tensor, row_ids: torch.Tensor,
     y = torch.empty((n, d), dtype=torch.float32, device=x.device)
     if n == 0 or d == 0:
         return y
+    variant = VARIANTS[ell_variant(d, x.data_ptr())]
     fn = build.kernel("ell_reach")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(cols.data_ptr(), mask.data_ptr(), perm.data_ptr(),
                 row_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), n, d,
-                cols.shape[1], stream)
+                cols.shape[1], variant, stream)
     if rc != 0:
         raise RuntimeError(f"ell_reach kernel launch failed (cudaError {rc})")
     LAUNCHES["ell_reach"] += 1

@@ -20,15 +20,19 @@ bf16 before P·V, 2e-2 times the RMS of each output row of the plain
 version. The CUDA-vs-plain tests need a
 card and are skipped elsewhere; on the card two launches must also give
 the same bits. Which kernel variant takes a call is decided by shape in
-pure Python (``flash_variant``, ``spmm_variant``), pinned here on the CPU. The JAX kernels are imported inside the tests that use
+pure Python (``flash_variant``, ``ell_variant``, ``gemm_variant``),
+pinned here on the CPU. The JAX kernels are imported inside the tests that use
 them, so that ``pytest --noconftest -m cuda`` runs this file on a machine
 with a card and no JAX.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import expert_gemm as gemm_ops
 from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
@@ -160,6 +164,35 @@ def test_wrappers_reject_malformed_inputs(ell_data, bad):
         ops.ell_reach(cols, mask, row_ids, x, 300)
 
 
+@pytest.mark.parametrize("name", sorted(build.KERNELS))
+def test_kernel_source_exports_its_entry_point(name):
+    """Each registered source defines the C function build.py binds, with
+    as many parameters as its ctypes argtypes (a missing one would shift
+    the stream pointer into an int)."""
+    import re
+    rel, fn, argtypes = build.KERNELS[name]
+    src = (Path(build.__file__).parent / rel).read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+    assert m, f"{rel} defines no extern \"C\" int {fn}(...)"
+    assert len(m.group(1).split(",")) == len(argtypes)
+
+
+def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
+    """A library's name changes with any header its source includes, so an
+    edited header is rebuilt, not loaded stale."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\nint x;\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setitem(build.KERNELS, "k", (str(tmp_path / "k.cu"), "k", []))
+    assert build._sources(tmp_path / "k.cu") == [tmp_path / "k.cu",
+                                                 tmp_path / "h.cuh"]
+    before = build._target("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build._target("k") != before
+    shared = build.INCLUDE_DIR / "hopper.cuh"
+    for name in ("flash_attention_fwd_wgmma", "expert_gemm_wgmma"):
+        assert shared in build._sources(build._source(name))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -193,17 +226,21 @@ def test_cuda_kernels_match_plain_versions(ell_data, cuda_device, d):
     (1, 0, "small"),
     (4, 256, "small"),          # the label RWR
     (4, 4, "small"),            # alignment does not matter below 32
-    (20, 0, "small"),
+    (20, 0, "small"),           # one BFS sweep of 20 seeds
     (31, 0, "small"),
     (32, 0, "wide_vec4"),
+    (32, 4, "wide_scalar"),     # x not 16-byte aligned
     (36, 16, "wide_vec4"),      # 9 float4 groups
     (38, 0, "wide_scalar"),     # d % 4 != 0
-    (320, 512, "wide_vec4"),    # the expansion RWR
+    (40, 0, "wide_vec4"),       # BFS, n_sweep 2
+    (160, 0, "wide_vec4"),      # BFS, n_sweep 8
+    (320, 512, "wide_vec4"),    # the expansion RWR; BFS, n_sweep 16
     (320, 8, "wide_scalar"),    # x not 16-byte aligned
     (520, 0, "wide_vec4"),      # more than 512 columns: two walks
 ])
 def test_spmm_variant_by_shape(d, ptr, want):
-    assert ops.spmm_variant(d, ptr) == want
+    """The variant rule that both ELL wrappers (SpMM and reach) follow."""
+    assert ops.ell_variant(d, ptr) == want
 
 
 def _misaligned(a, device):
@@ -230,7 +267,7 @@ def test_cuda_spmm_variants_match_plain_version(ell_data, cuda_device, d,
          else _misaligned(xa, cuda_device))
     want = ("small" if d < 32 else "wide_vec4" if aligned and d % 4 == 0
             else "wide_scalar")
-    assert ops.spmm_variant(d, x.data_ptr()) == want
+    assert ops.ell_variant(d, x.data_ptr()) == want
     before = ops.LAUNCHES["ell_spmm"]
     y = ops.ell_spmm(cols, vals, mask, row_ids, x, n)
     assert ops.LAUNCHES["ell_spmm"] == before + 1
@@ -244,10 +281,13 @@ def test_cuda_spmm_variants_match_plain_version(ell_data, cuda_device, d,
 FLASH_SHAPES = [(128, 4, 4, 64),   # MHA
                 (256, 4, 2, 64),   # GQA
                 (200, 8, 1, 32)]   # MQA, ragged S, small hd
-GEMM_SHAPES = [(4, 96, 200, 72),   # unaligned everything
-               (8, 128, 128, 128),
-               (2, 320, 64, 768),  # qwen3-moe-ish expert
-               (1, 8, 8, 8)]
+# (G, E, C, d, f): x is (G·E, C, d) and matrix n takes expert n mod E
+GEMM_SHAPES = [pytest.param(1, 4, 96, 200, 72, id="4-96-200-72"),  # unaligned
+               pytest.param(1, 8, 128, 128, 128, id="8-128-128-128"),
+               pytest.param(1, 2, 320, 64, 768, id="2-320-64-768"),  # qwen3-ish
+               pytest.param(1, 1, 8, 8, 8, id="1-8-8-8"),
+               # decode-like: two groups of experts, C = 8
+               pytest.param(2, 4, 8, 64, 48, id="g2-4-8-64-48")]
 
 
 def _tol(dtype, bf16_atol=2e-2):
@@ -318,15 +358,21 @@ def test_attention_ref_matches_jax_oracle(causal):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("e,c,d,f", GEMM_SHAPES)
-def test_plain_expert_gemm_matches_pallas_kernel(e, c, d, f, dtype):
+@pytest.mark.parametrize("g,e,c,d,f", GEMM_SHAPES)
+def test_plain_expert_gemm_matches_pallas_kernel(g, e, c, d, f, dtype):
+    """The Pallas kernel takes one group (E, C, d); the port takes all G
+    groups at once, so the reference runs once per group."""
+    import jax.numpy as jnp
+
     from repro.kernels.expert_gemm.ops import expert_gemm
-    rng = np.random.default_rng(e + c + d + f)
-    xj, xt = _pair(rng.standard_normal((e, c, d)).astype(np.float32), dtype)
+    rng = np.random.default_rng(e + c + d + f + 100 * (g - 1))
+    xj, xt = _pair(rng.standard_normal((g * e, c, d)).astype(np.float32),
+                   dtype)
     wj, wt = _pair(rng.standard_normal((e, d, f)).astype(np.float32), dtype)
-    want = expert_gemm(xj, wj)
+    want = jnp.concatenate([expert_gemm(xj[i * e:(i + 1) * e], wj)
+                            for i in range(g)])
     got = gemm_ops.expert_gemm(xt, wt)
-    assert got.dtype == xt.dtype and got.shape == (e, c, f)
+    assert got.dtype == xt.dtype and got.shape == (g * e, c, f)
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
 
 
@@ -350,7 +396,10 @@ def test_lm_kernels_cpu_path_launches_no_kernel():
     gemm_ops.expert_gemm(torch.ones((2, 3, 4)), torch.ones((1, 4, 5)))
     assert flash_ops.LAUNCHES == {"flash_attention_fwd": 0,
                                   "flash_attention_fwd_wgmma": 0}
-    assert gemm_ops.LAUNCHES == {"expert_gemm": 0}
+    gemm_ops.expert_gemm(torch.ones((2, 8, 64), dtype=torch.bfloat16),
+                         torch.ones((1, 64, 72), dtype=torch.bfloat16))
+    assert gemm_ops.LAUNCHES == {"expert_gemm": 0, "expert_gemm_wgmma": 0,
+                                 "expert_gemm_skinny": 0}
 
 
 @pytest.mark.parametrize("dtype,hd,sq,sk,ptrs,want", [
@@ -370,6 +419,30 @@ def test_flash_variant_by_shape(dtype, hd, sq, sk, ptrs, want):
     name = flash_ops.flash_variant(getattr(torch, dtype), hd, sq, sk, ptrs)
     assert name == {"wgmma": "flash_attention_fwd_wgmma",
                     "first": "flash_attention_fwd"}[want]
+
+
+@pytest.mark.parametrize("dtype,C,d,f,ptrs,want", [
+    ("bfloat16", 328, 2048, 768, (0, 512, 1024), "tiles"),   # prefill gate/up
+    ("bfloat16", 328, 768, 2048, (0, 16, 32), "tiles"),      # prefill down
+    ("bfloat16", 8, 2048, 768, (0, 0, 0), "skinny"),         # decode
+    ("bfloat16", 8, 768, 2048, (0, 0, 0), "skinny"),         # decode down
+    ("bfloat16", 1, 64, 72, (0, 0, 0), "skinny"),
+    ("bfloat16", 64, 64, 72, (0, 0, 0), "skinny"),           # the threshold
+    ("bfloat16", 65, 64, 72, (0, 0, 0), "tiles"),
+    ("bfloat16", 130, 200, 192, (0, 0, 0), "tiles"),
+    ("bfloat16", 328, 2044, 768, (0, 0, 0), "first"),        # d % 8 != 0
+    ("bfloat16", 8, 2048, 764, (0, 0, 0), "first"),          # f % 8 != 0
+    ("bfloat16", 328, 0, 768, (0, 0, 0), "first"),           # no depth
+    ("bfloat16", 328, 2048, 768, (2, 0, 0), "first"),        # x misaligned
+    ("bfloat16", 8, 2048, 768, (0, 8, 0), "first"),          # w misaligned
+    ("bfloat16", 328, 2048, 768, (0, 0, 4), "first"),        # y misaligned
+    ("float32", 328, 2048, 768, (0, 0, 0), "first"),         # f32
+    ("float32", 8, 2048, 768, (0, 0, 0), "first"),
+])
+def test_gemm_variant_by_shape(dtype, C, d, f, ptrs, want):
+    assert gemm_ops.gemm_variant(getattr(torch, dtype), C, d, f, ptrs) == {
+        "tiles": "expert_gemm_wgmma", "skinny": "expert_gemm_skinny",
+        "first": "expert_gemm"}[want]
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "kv_heads", "head_dim",
@@ -486,9 +559,100 @@ def test_cuda_expert_gemm_matches_plain_version(cuda_device, n, e, c, d, f,
                         device=cuda_device).to(tdt)
     w = torch.as_tensor(rng.standard_normal((e, d, f)).astype(np.float32),
                         device=cuda_device).to(tdt)
-    before = gemm_ops.LAUNCHES["expert_gemm"]
+    y_ptr = torch.empty((n, c, f), dtype=tdt,
+                        device=cuda_device).data_ptr()  # fresh: aligned
+    name = gemm_ops.gemm_variant(tdt, c, d, f, (x.data_ptr(), w.data_ptr(),
+                                                y_ptr))
+    before = dict(gemm_ops.LAUNCHES)
     y = gemm_ops.expert_gemm(x, w)
-    assert gemm_ops.LAUNCHES["expert_gemm"] == before + 1
+    assert gemm_ops.LAUNCHES[name] == before[name] + 1
+    assert sum(gemm_ops.LAUNCHES.values()) == sum(before.values()) + 1
     torch.testing.assert_close(y.float(), expert_gemm_ref(x, w).float(),
                                **_tol(dtype))
     assert torch.equal(y, gemm_ops.expert_gemm(x, w))
+
+
+def _misaligned_bf16(a, device):
+    """``a`` as a contiguous bf16 tensor whose data sits 2 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(a.size + 1, dtype=torch.bfloat16, device=device)
+    out = buf[1:].view(a.shape)
+    out.copy_(torch.as_tensor(a))
+    assert out.is_contiguous() and out.data_ptr() % 16 == 2
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(64, 72), (200, 192), (2048, 768)])
+@pytest.mark.parametrize("C", [1, 8, 12, 24, 37, 64, 130, 328])
+def test_cuda_gemm_variants_match_plain_version(cuda_device, C, d, f):
+    """The TMA + wgmma GEMM, skinny (C ≤ 64, at each of its widths N = 8,
+    16, 32 and 64) and tiles: two groups of four experts, ragged C, d and
+    f against the 64-deep k-tiles and the 128 × 192 output tiles; two
+    launches give the same bits."""
+    G, E = 2, 4
+    rng = np.random.default_rng(C + d + f)
+    x = torch.as_tensor(rng.standard_normal((G * E, C, d)).astype(
+        np.float32), device=cuda_device).to(torch.bfloat16)
+    w = torch.as_tensor((rng.standard_normal((E, d, f)) / np.sqrt(d))
+                        .astype(np.float32),
+                        device=cuda_device).to(torch.bfloat16)
+    name = "expert_gemm_skinny" if C <= 64 else "expert_gemm_wgmma"
+    before = dict(gemm_ops.LAUNCHES)
+    y = gemm_ops.expert_gemm(x, w)
+    assert gemm_ops.LAUNCHES[name] == before[name] + 1
+    assert sum(gemm_ops.LAUNCHES.values()) == sum(before.values()) + 1
+    torch.testing.assert_close(y.float(), expert_gemm_ref(x, w).float(),
+                               rtol=2e-2, atol=2e-2)
+    assert torch.equal(y, gemm_ops.expert_gemm(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(64, 72), (2048, 768)])
+@pytest.mark.parametrize("C", [8, 328])
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_cuda_misaligned_gemm_takes_first_kernel(cuda_device, which, C, d,
+                                                 f):
+    """bf16 that TMA cannot address goes to the first kernel, also at the
+    served widths (d 2048, f 768)."""
+    E = 4
+    rng = np.random.default_rng(C + d)
+    xa = rng.standard_normal((E, C, d)).astype(np.float32)
+    wa = (rng.standard_normal((E, d, f)) / np.sqrt(d)).astype(np.float32)
+    x = (_misaligned_bf16(xa, cuda_device) if which == "x" else
+         torch.as_tensor(xa, device=cuda_device).to(torch.bfloat16))
+    w = (_misaligned_bf16(wa, cuda_device) if which == "w" else
+         torch.as_tensor(wa, device=cuda_device).to(torch.bfloat16))
+    before = dict(gemm_ops.LAUNCHES)
+    y = gemm_ops.expert_gemm(x, w)
+    assert gemm_ops.LAUNCHES["expert_gemm"] == before["expert_gemm"] + 1
+    assert sum(gemm_ops.LAUNCHES.values()) == sum(before.values()) + 1
+    torch.testing.assert_close(y.float(), expert_gemm_ref(x, w).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["random", "zeros", "ones"])
+@pytest.mark.parametrize("d,aligned", [(32, True), (36, True), (38, True),
+                                       (160, True), (320, True),
+                                       (320, False), (520, True)])
+def test_cuda_reach_variants_match_plain_version(ell_data, cuda_device, d,
+                                                 aligned, fill):
+    """Every reach variant, bitwise against the plain version, for x of
+    random indicators, all zeros (nothing reached) and all ones (every
+    vertex with a live in-arc reached)."""
+    cols, _, mask, row_ids, _ = (torch.as_tensor(a, device=cuda_device)
+                                 for a in ell_data)
+    n = 300
+    xa = {"random": (np.random.default_rng(d).random((n, d)) < 0.2),
+          "zeros": np.zeros((n, d)),
+          "ones": np.ones((n, d))}[fill].astype(np.float32)
+    x = (torch.as_tensor(xa, device=cuda_device) if aligned
+         else _misaligned(xa, cuda_device))
+    want = "wide_vec4" if aligned and d % 4 == 0 else "wide_scalar"
+    assert ops.ell_variant(d, x.data_ptr()) == want
+    before = ops.LAUNCHES["ell_reach"]
+    y = ops.ell_reach(cols, mask, row_ids, x, n)
+    assert ops.LAUNCHES["ell_reach"] == before + 1
+    assert torch.equal(y, ell_reach_ref(cols, mask, row_ids, x, n))
+    assert torch.equal(y, ops.ell_reach(cols, mask, row_ids, x, n))
