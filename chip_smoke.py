@@ -38,20 +38,42 @@ Phases, each printed on its own lines:
    ``torch.matmul`` on the same inputs;
 4. a small-input check: the toy stream served on the card and on the CPU
    (plain versions) must give equal match deltas and stores;
-5. LM agreement: qwen3-moe ``SMOKE`` (f32) with one set of weights served
+5. adaptive agreement: the toy stream served with the default
+   ``ServingConfig()`` (adaptive PEM) on the card and on the CPU, the card's
+   DQN loaded from the CPU agent's state before step 0 and both PEMs'
+   feedback given one seeded elapsed schedule in place of wall time: equal
+   deltas, stores and c trajectory, TD losses within 1e-5 relative;
+6. LM agreement: qwen3-moe ``SMOKE`` (f32) with one set of weights served
    greedily on the card (kernels) and on the CPU (plain versions): equal
    tokens, logits within 1e-4;
-6. serve-inc — ``MatchServer(FULL, query_zoo(16), ServingConfig(adaptive=
+7. serve-inc — ``MatchServer(FULL, query_zoo(16), ServingConfig(adaptive=
    False))`` on the ``transactions`` twin at full scale for 4 served steps,
    launch counters set to 0 before and read after; the inputs of the first
    label-RWR sweep, the first expansion sweep and the first BFS sweep are
    captured, the kernels held against their plain versions on them and
    timed;
-7. serve-batch — 2 steps of ``Engine(FULL, EngineConfig(mode="batch"))``
+8. serve-batch — 2 steps of ``Engine(FULL, EngineConfig(mode="batch"))``
    on the same stream (full-graph label RWR and bank match), counters
    again set to 0 before and read after; its first BFS sweep (the full
    mirror) is captured, held bitwise and timed;
-8. serve-lm — qwen3-moe-30b-a3b ``FULL`` at its published widths with the
+9. serve-adaptive — ``MatchServer(FULL, query_zoo(16), ServingConfig())``,
+   the paper's IGPM-PEM, on the same stream for 20 steps, counters set to
+   0 before and read after: per step the wall and pipeline time, c, the TD
+   loss, the recompute set and subgraph, and the time of the PEM's
+   feedback and communities calls (wrapped here); checks that c moved,
+   that every learning step (from step 16, when the replay ring holds
+   replay_batch = 16 transitions) has rl_loss > 0, that both ELL kernels
+   launched, that the DQN's tensors are on the card and that the stores
+   are consistent; the first label-RWR and BFS sweeps at a c other than
+   the initial 64 are captured and held against the plain versions (SpMM
+   to 1e-5 relative, reach bitwise);
+10. round trips — the adaptive server's ``save``/``load`` into a fresh FULL
+    server (equal graph, stores, c, bitwise-equal Q-values) and its
+    ``save_policy``/``load_policy`` likewise;
+11. the CLI — ``python -m repro_torch.launch.serve --arch igpm-pem --steps 4
+    --policy-dir <dir>`` run twice: the second run restores the policy the
+    first saved;
+12. serve-lm — qwen3-moe-30b-a3b ``FULL`` at its published widths with the
    depth cut from 48 to 8 layers, seeded random weights, a 2 × 4,096-token
    prompt: prefill and 15 greedy decode steps through
    ``repro_torch.launch.serve.greedy_generate``, counters set to 0 before
@@ -104,6 +126,10 @@ LM_CONSIST32_ATOL = 4e-3
 REPS = 20          # timed launches per kernel measurement
 INC_STEPS = 4      # serve-inc steps
 BATCH_STEPS = 2    # serve-batch steps
+# serve-adaptive steps: transitions reach the replay ring from step 1 on, so
+# the ring holds replay_batch = 16 at step 16 and steps 16-19 learn
+ADAPT_STEPS = 20
+LOSS_RTOL = 1e-5   # TD losses, card against CPU (adaptive agreement)
 
 
 class SmokeFailure(RuntimeError):
@@ -447,7 +473,7 @@ def read_all_counts():
     return {**ell_ops.LAUNCHES, **flash_ops.LAUNCHES, **gemm_ops.LAUNCHES}
 
 
-# -- phase 5: LM agreement, card against CPU ------------------------------------
+# -- phase 6: LM agreement, card against CPU ------------------------------------
 
 def phase_lm_agreement():
     import torch
@@ -498,7 +524,7 @@ def phase_lm_agreement():
     return counts
 
 
-# -- phase 8: serve-lm -----------------------------------------------------------
+# -- phase 12: serve-lm ---------------------------------------------------------
 
 def phase_serve_lm(profile: bool = False):
     import dataclasses
@@ -692,7 +718,7 @@ def phase_small_agreement():
     check(worst <= 1e-4, "small stream: goodness differs by more than 1e-4")
 
 
-# -- phases 6-7: the IGPM paths ---------------------------------------------------
+# -- phases 7-8: the IGPM paths -------------------------------------------------
 
 class Capture:
     """Wrap the ELL wrappers to keep copies of the first inputs of each
@@ -707,23 +733,29 @@ class Capture:
         self.n_labels = n_labels
         self.kinds = kinds
         self.inputs = {}
+        # captures are taken only while ``armed``; ``where[kind]`` keeps the
+        # ``tag`` that was set when each was taken
+        self.armed = True
+        self.tag = None
+        self.where = {}
         self._spmm, self._reach = ops.ell_spmm, ops.ell_reach
 
+    def _take(self, key, tensors, n) -> None:
+        if self.armed and key in self.kinds and key not in self.inputs:
+            self.inputs[key] = tuple(t.clone() for t in tensors) + (n,)
+            self.where[key] = self.tag
+
     def __enter__(self):
-        ops, inputs, kinds = self.ops, self.inputs, self.kinds
+        ops, cap = self.ops, self
         spmm, reach, n_labels = self._spmm, self._reach, self.n_labels
 
         def spy_spmm(cols, vals, mask, row_ids, x, n, index=None):
             key = "label_rwr" if x.shape[1] == n_labels else "expansion_rwr"
-            if key in kinds and key not in inputs:
-                inputs[key] = tuple(t.clone() for t in
-                                    (cols, vals, mask, row_ids, x)) + (n,)
+            cap._take(key, (cols, vals, mask, row_ids, x), n)
             return spmm(cols, vals, mask, row_ids, x, n, index=index)
 
         def spy_reach(cols, mask, row_ids, x, n, index=None):
-            if "bfs" in kinds and "bfs" not in inputs:
-                inputs["bfs"] = tuple(t.clone() for t in
-                                      (cols, mask, row_ids, x)) + (n,)
+            cap._take("bfs", (cols, mask, row_ids, x), n)
             return reach(cols, mask, row_ids, x, n, index=index)
 
         ops.ell_spmm, ops.ell_reach = spy_spmm, spy_reach
@@ -937,6 +969,314 @@ def time_captured_bfs(inputs, path: str):
                 R=cols.shape[0], n=n, d=d)
 
 
+# -- phase 9: serve-adaptive, the paper's IGPM-PEM -----------------------------
+
+class PemTimer:
+    """Wrap a PEM's ``feedback`` and ``communities`` (here, not in the
+    package) and add up the wall time of their calls since ``reset``."""
+
+    def __init__(self, pem):
+        self.feedback_s = self.communities_s = 0.0
+        feedback, communities = pem.feedback, pem.communities
+
+        def timed_feedback(*args):
+            t0 = time.perf_counter()
+            out = feedback(*args)
+            self.feedback_s += time.perf_counter() - t0
+            return out
+
+        def timed_communities(*args):
+            t0 = time.perf_counter()
+            out = communities(*args)
+            self.communities_s += time.perf_counter() - t0
+            return out
+
+        pem.feedback, pem.communities = timed_feedback, timed_communities
+
+    def reset(self) -> None:
+        self.feedback_s = self.communities_s = 0.0
+
+
+def agent_tensors(agent):
+    return [*agent.params.values(), *agent.m.values(), *agent.v.values(),
+            *dict(agent.target_net.named_parameters()).values()]
+
+
+def phase_serve_adaptive(stream, n_steps: int, profile: bool = False):
+    """The default ``ServingConfig()`` (adaptive PEM) at ``FULL``: per step
+    the wall and pipeline time, c and the TD loss, the recompute set, the
+    PEM's feedback and communities time. The first label-RWR and BFS sweeps
+    of the first step that runs at a c other than the initial one are
+    captured."""
+    import torch
+    from repro_torch.config.base import ServingConfig
+    from repro_torch.configs.igpm_paper import FULL
+    from repro_torch.core.query import query_zoo
+    from repro_torch.kernels.spmv_ell import ops
+    from repro_torch.serving.server import MatchServer
+    srv = MatchServer(FULL, query_zoo(16), ServingConfig(), device="cuda")
+    check(srv.pem.adaptive and srv.pem.agent is not None,
+          "serve-adaptive: the default ServingConfig is not adaptive")
+    agent = srv.pem.agent
+    timer = PemTimer(srv.pem)
+    g = stream.graph
+    ops.reset_launch_counts()
+    per_step = []
+    prof = StepProfiler(profile, "serve-adaptive")
+    with Capture(ops, FULL.n_labels, kinds=("label_rwr", "bfs")) as cap:
+        for i, upd in enumerate(stream.updates[:n_steps]):
+            c_in, t_in = srv.pem.c, agent.t
+            cap.armed = (c_in != FULL.init_community_size
+                         and len(cap.inputs) < len(cap.kinds))
+            cap.tag = dict(step=i, c=c_in)
+            timer.reset()
+            t0 = time.perf_counter()
+            srv.submit_update(upd)
+            g, st = prof.step(i, lambda: srv.step(g))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            learned = agent.t > t_in
+            say(f"  serve-adaptive step {i}: {dt:.3f} s (pipeline "
+                f"{st.elapsed:.3f} s) c {c_in}->{st.community_size} "
+                f"rl_loss={st.rl_loss:.6g}{' (learned)' if learned else ''} "
+                f"n_recompute={st.n_recompute} subgraph={st.subgraph_nodes} "
+                f"vertices/{st.subgraph_edges} arcs feedback "
+                f"{timer.feedback_s * 1e3:.3f} ms communities "
+                f"{timer.communities_s * 1e3:.3f} ms "
+                f"new_patterns={st.n_new_patterns}")
+            if i == 0:
+                say(f"  serve-adaptive louvain dendrogram build (host): "
+                    f"{srv.pem.clustering_time:.3f} s")
+            per_step.append(dict(
+                step=i, s=dt, pipeline_s=st.elapsed, c_in=c_in,
+                c=st.community_size, rl_loss=st.rl_loss, learned=learned,
+                n_recompute=st.n_recompute, subgraph_nodes=st.subgraph_nodes,
+                subgraph_edges=st.subgraph_edges,
+                feedback_ms=timer.feedback_s * 1e3,
+                communities_ms=timer.communities_s * 1e3,
+                new_patterns=st.n_new_patterns))
+    launches = dict(ops.LAUNCHES)
+    say(f"  serve-adaptive launches: {launches}")
+    for name in ("ell_spmm", "ell_reach"):
+        check(launches[name] > 0, f"serve-adaptive never launched {name}")
+    cs = [s["c_in"] for s in per_step] + [per_step[-1]["c"]]
+    check(len(set(cs)) > 1, "serve-adaptive: c never moved")
+    learning = [s for s in per_step if s["learned"]]
+    check(len(learning) >= 4,
+          f"serve-adaptive: {len(learning)} learning steps, want >= 4")
+    check(all(s["rl_loss"] > 0 for s in learning),
+          "serve-adaptive: a learning step reported rl_loss <= 0")
+    check(all(s["rl_loss"] == 0 for s in per_step if not s["learned"]),
+          "serve-adaptive: rl_loss without a learning step")
+    check(all(t.is_cuda for t in agent_tensors(agent)),
+          "serve-adaptive: the DQN's tensors are not on the card")
+    check_results(st.deltas, "serve-adaptive")
+    for d in st.deltas:
+        check(d.total >= d.exact >= 0,
+              "serve-adaptive: inconsistent store counts")
+    say(f"  serve-adaptive c trajectory: {cs}; learning steps "
+        f"{[s['step'] for s in learning]}; agent t={agent.t}")
+    return launches, per_step, cap, srv
+
+
+def check_captured_adaptive(cap):
+    """Hold both ELL kernels against their plain versions on the sweeps
+    serve-adaptive handed them at a c other than the initial one."""
+    from repro_torch.configs.igpm_paper import FULL
+    from repro_torch.kernels.measure import cuda_ms
+    from repro_torch.kernels.spmv_ell import ops, ref
+    from repro_torch.sparse.ell import build_row_index
+    for key in ("label_rwr", "bfs"):
+        check(key in cap.inputs,
+              f"serve-adaptive handed no {key} sweep to a kernel at c != "
+              "the initial c")
+        check(cap.where[key]["c"] != FULL.init_community_size,
+              "serve-adaptive: captured at the initial c")
+    cols, vals, mask, row_ids, x, n = cap.inputs["label_rwr"]
+    index = build_row_index(mask, row_ids, n)
+    abs_err, rel_err = compare_spmm(
+        ops, ref, cols, vals, mask, row_ids, x, n, index,
+        f"captured serve-adaptive label_rwr (step {cap.where['label_rwr']})")
+    ms = cuda_ms(lambda: ops.ell_spmm(cols, vals, mask, row_ids, x, n,
+                                      index=index), REPS)
+    b_ms, b_by, nbytes, _ = spmm_bound(mask, x, n, True)
+    say(f"  ell_spmm captured serve-adaptive label_rwr: nnz="
+        f"{int(mask.sum())} n={n} {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    out = {"label_rwr": dict(max_abs_err=abs_err, max_rel_err=rel_err,
+                             ms=ms, bound_ms=b_ms, bound_by=b_by,
+                             nnz=int(mask.sum()), R=cols.shape[0], n=n,
+                             d=x.shape[1], **cap.where["label_rwr"])}
+    out["bfs"] = dict(time_captured_bfs(cap.inputs["bfs"], "serve-adaptive"),
+                      **cap.where["bfs"])
+    return out
+
+
+# -- phase 10: round trips of the adaptive server --------------------------------
+
+def q_probe(agent):
+    import numpy as np
+    obs = np.random.default_rng(0).random((8, 2)).astype(np.float32)
+    return agent.q_values(obs)
+
+
+def phase_round_trips(srv, graph0):
+    """``save``/``load`` of the whole engine and ``save_policy``/
+    ``load_policy`` into fresh FULL servers on the card: equal graph,
+    stores, c, and bitwise-equal Q-values."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.config.base import ServingConfig
+    from repro_torch.configs.igpm_paper import FULL
+    from repro_torch.core.query import query_zoo
+    from repro_torch.serving.server import MatchServer
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        srv.save(str(tmp / "engine"))
+        save_s = time.perf_counter() - t0
+        fresh = MatchServer(FULL, query_zoo(16), ServingConfig(),
+                            device="cuda")
+        t0 = time.perf_counter()
+        step = fresh.load(graph0, str(tmp / "engine"))
+        load_s = time.perf_counter() - t0
+        check(step == srv.step_idx, "round trip: wrong step restored")
+        for f in graph0._fields:
+            check(torch.equal(getattr(fresh.graph, f),
+                              getattr(srv.graph, f)),
+                  f"round trip: graph field {f} differs")
+        check([s._patterns for s in fresh.stores]
+              == [s._patterns for s in srv.stores],
+              "round trip: pattern stores differ")
+        check(fresh.pem.c == srv.pem.c, "round trip: c differs")
+        want = q_probe(srv.pem.agent)
+        check(np.array_equal(q_probe(fresh.pem.agent), want),
+              "round trip: Q-values differ")
+        check(all(t.is_cuda for t in agent_tensors(fresh.pem.agent)),
+              "round trip: the restored agent is not on the card")
+        del fresh
+        srv.save_policy(str(tmp / "policy"))
+        fresh = MatchServer(FULL, query_zoo(16), ServingConfig(),
+                            device="cuda")
+        check(fresh.load_policy(str(tmp / "policy")) == srv.step_idx,
+              "policy round trip: wrong step restored")
+        check(fresh.pem.c == srv.pem.c, "policy round trip: c differs")
+        check(fresh.pem.agent.t == srv.pem.agent.t,
+              "policy round trip: t differs")
+        check(np.array_equal(q_probe(fresh.pem.agent), want),
+              "policy round trip: Q-values differ")
+        n_bytes = sum(p.stat().st_size for p in tmp.rglob("*")
+                      if p.is_file())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase round-trips: save {save_s:.3f} s, load {load_s:.3f} s "
+        f"({n_bytes} B on disk): graph, stores, c={srv.pem.c} and Q-values "
+        f"equal; the policy alone likewise")
+    return dict(save_s=save_s, load_s=load_s, bytes=n_bytes)
+
+
+# -- phase 5: adaptive agreement, card against CPU ------------------------------
+
+def phase_small_adaptive_agreement():
+    """The toy stream served adaptively on the card and on the CPU: the
+    card agent loads the CPU agent's state before step 0, and both PEMs'
+    feedback get one seeded elapsed schedule in place of wall time."""
+    import numpy as np
+    from repro_torch.config.base import IGPMConfig, ServingConfig
+    from repro_torch.core.query import query_zoo
+    from repro_torch.data.temporal import TemporalGraphSpec, generate_stream
+    from repro_torch.serving.server import MatchServer
+    spec = TemporalGraphSpec("toy", "sparse_dense", n_vertices=512,
+                             n_edges=4096, n_steps=40, seed=7)
+    cfg = IGPMConfig(n_max=512, e_max=16384, rwr_iters=12,
+                     rwr_iters_incremental=4, top_k_patterns=8,
+                     init_community_size=32, backend="ell",
+                     replay_batch=4, target_update_every=2)
+    out, state = {}, None
+    for dev in ("cpu", "cuda"):
+        st = generate_stream(spec, n_measured_steps=8, u_max=128, device=dev)
+        srv = MatchServer(cfg, query_zoo(4), ServingConfig(), device=dev)
+        if state is None:
+            state = srv.pem.agent.state_dict()
+        else:
+            srv.pem.agent.load_state_dict(state)
+        rng = np.random.default_rng(3)
+        feedback = srv.pem.feedback
+
+        def seeded(g, frac, elapsed, feedback=feedback, rng=rng):
+            return feedback(g, frac, float(rng.uniform(0.02, 0.2)))
+
+        srv.pem.feedback = seeded
+        _, stats = srv.run(st.graph, st.updates)
+        out[dev] = (stats, [dict(s._patterns) for s in srv.stores])
+    (cpu, cpu_st), (card, card_st) = out["cpu"], out["cuda"]
+    check([s.deltas for s in card] == [s.deltas for s in cpu],
+          "adaptive agreement: match deltas differ")
+    c_card = [s.community_size for s in card]
+    check(c_card == [s.community_size for s in cpu],
+          "adaptive agreement: c trajectories differ")
+    check(len(set(c_card)) > 1, "adaptive agreement: c never moved")
+    worst = 0.0
+    for a, b in zip(card_st, cpu_st):
+        check(sorted(a) == sorted(b), "adaptive agreement: stores differ")
+        for key, (good, exact) in a.items():
+            check(exact == b[key][1], "adaptive agreement: exact flags differ")
+            worst = max(worst, abs(good - b[key][0]))
+    check(worst <= 1e-4, "adaptive agreement: goodness differs by > 1e-4")
+    loss_card = np.array([s.rl_loss for s in card])
+    loss_cpu = np.array([s.rl_loss for s in cpu])
+    check(int((loss_cpu > 0).sum()) >= 3,
+          "adaptive agreement: fewer than 3 learning steps")
+    rel = float(np.max(np.abs(loss_card - loss_cpu)
+                       / np.maximum(np.abs(loss_cpu), 1e-30)))
+    check(rel <= LOSS_RTOL,
+          f"adaptive agreement: rl_loss differs by {rel:.3e} relative")
+    say(f"phase adaptive-agreement: CUDA == CPU plain on {len(card)} steps, "
+        f"c {c_card}, {sum(len(s) for s in card_st)} patterns, max goodness "
+        f"diff {worst:.3e}, rl_loss max rel diff {rel:.3e}")
+    return dict(c=c_card, max_goodness_diff=worst, rl_loss_rel=rel)
+
+
+# -- phase 11: the port's CLI ----------------------------------------------------
+
+def phase_cli():
+    """``repro_torch.launch.serve --arch igpm-pem`` on the card, twice with
+    one policy directory: the second run restores the first's policy."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_policy_",
+                                dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "igpm-pem", "--steps", "4", "--policy-dir", str(tmp)]
+    outs = []
+    try:
+        for run in (1, 2):
+            t0 = time.perf_counter()
+            p = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                               text=True, timeout=300)
+            for line in p.stdout.splitlines():
+                say(f"  cli run {run}: {line}")
+            check(p.returncode == 0, f"cli run {run} exited {p.returncode}: "
+                                     f"{p.stderr[-2000:]}")
+            say(f"  cli run {run}: {time.perf_counter() - t0:.2f} s")
+            outs.append(p.stdout)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check("no policy in" in outs[0] and "saved PEM policy" in outs[0],
+          "cli run 1 did not start fresh and save its policy")
+    check("restored PEM policy" in outs[1],
+          "cli run 2 did not restore the saved policy")
+    say("phase cli: the second run restored the first run's policy")
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -975,13 +1315,15 @@ def main(argv=None) -> int:
     say("phase lm-kernels:")
     rows.update(phase_lm_kernels(REPS))
     phase_small_agreement()
+    adapt_agree = phase_small_adaptive_agreement()
     launches_agree = phase_lm_agreement()
     from repro_torch.configs.igpm_paper import FULL
     from repro_torch.data.temporal import generate_stream, scaled_twin
     spec = scaled_twin("transactions", 1.0)
     t0 = time.perf_counter()
     stream = generate_stream(spec, n_max=FULL.n_max, e_max=FULL.e_max,
-                             n_measured_steps=max(INC_STEPS, BATCH_STEPS),
+                             n_measured_steps=max(INC_STEPS, BATCH_STEPS,
+                                                  ADAPT_STEPS),
                              u_max=512, device="cuda")
     say(f"phase stream: {spec.name} n_vertices={spec.n_vertices} "
         f"warm arcs={int(stream.graph.edge_mask.sum())} "
@@ -996,11 +1338,23 @@ def main(argv=None) -> int:
         stream, BATCH_STEPS, args.profile)
     check("bfs" in captured, "serve-batch handed no BFS sweep to a kernel")
     cap["batch_bfs"] = time_captured_bfs(captured["bfs"], "serve-batch")
-    del stream, captured
+    del captured
+    say("phase serve-adaptive:")
+    launches_adapt, adapt_steps, adapt_cap, srv = phase_serve_adaptive(
+        stream, ADAPT_STEPS, args.profile)
+    cap["adaptive"] = check_captured_adaptive(adapt_cap)
+    adapt_louvain_s = srv.pem.clustering_time
+    round_trips = phase_round_trips(srv, stream.graph)
+    del srv, adapt_cap, stream
+    torch.cuda.empty_cache()
+    phase_cli()
     say("phase serve-lm:")
     launches_lm, lm = phase_serve_lm(args.profile)
     serve = dict(inc_steps=inc_steps, batch_steps=batch_steps,
-                 louvain_s=louvain_s, captured=cap, lm=lm)
+                 louvain_s=louvain_s, adaptive_steps=adapt_steps,
+                 adaptive_louvain_s=adapt_louvain_s,
+                 adaptive_agreement=adapt_agree, round_trips=round_trips,
+                 captured=cap, lm=lm)
 
     kernels = []
     for name, src, line in (
@@ -1009,11 +1363,15 @@ def main(argv=None) -> int:
             ("ell_reach", "src/repro_torch/kernels/spmv_ell/csrc/ell_reach.cu",
              "src/repro/kernels/spmv_ell/spmv_ell.py:91")):
         head = rows[(name, 320)]
+        served = cap["adaptive"]["label_rwr" if name == "ell_spmm" else "bfs"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": line,
-            "launches": launches_inc[name], "launches_path": "serve-inc",
+            "launches": launches_adapt[name],
+            "launches_path": "serve-adaptive",
+            "launches_inc": launches_inc[name],
             "launches_batch": launches_batch[name],
-            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "max_abs_err": max(head["max_abs_err"], served["max_abs_err"]),
+            "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "gather_floor_ms": head.get("gather_floor_ms"),

@@ -13,11 +13,21 @@ The three core functions map onto dense tensor ops:
 Queries are data: :class:`BankGRayMatcher` takes a stacked
 :class:`~repro_torch.core.query.QueryBank` and runs the expansion over a
 written-out query axis, while the expensive sparse sweeps (single-source
-RWR and the BFS bridge) run as ONE ``(n, n_sweep·k)`` dense block shared
-across the bank. The port carries the content-independent ``memo=False``
-schedule with a sub-pattern ``row_node`` plan, which is the mode the engine
-drives: table slots per DAG node, filled lazily, one sweep block per
-expansion step that meets a node not computed yet.
+RWR and the BFS bridge) run as ONE ``(n, P·k)`` dense block shared
+across the bank. Two schedules, with equal matches (goodness equal up to
+the summation order of sweep blocks of other widths):
+
+- ``memo=True`` (the default): the expansion schedule is host-static, and
+  each query computes one table per DISTINCT schedule source — a star-5
+  query runs ONE RWR for its four expansions — with every first use at one
+  step batched into one shared sweep.
+- ``memo=False``: content-independent, the mode the engine drives — table
+  slots per sub-pattern DAG node (the bucket's ``row_node`` plan), filled
+  lazily, one sweep block per expansion step that meets a node not
+  computed yet.
+
+:class:`GRayMatcher` is the single-query view (a bank of one) and
+:func:`gray_match` the one-shot batch match.
 
 Both sparse sweeps run on either the COO gather/scatter path or the ELL
 kernels — ``backend="ell"`` routes them through
@@ -26,14 +36,16 @@ kernels — ``backend="ell"`` routes them through
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.config.base import resolve_backend
 from repro_torch.core.graph import DynamicGraph, ell_from_graph
-from repro_torch.core.query import QueryBank
-from repro_torch.core.rwr import restart_onehot, rwr, rwr_adaptive
+from repro_torch.core.query import Query, QueryBank, stack_queries
+from repro_torch.core.rwr import (label_rwr, label_rwr_adaptive,
+                                  restart_onehot, rwr, rwr_adaptive)
 from repro_torch.kernels.spmv_ell import ops as ell_ops
 from repro_torch.sparse.ell import EllGraph
 
@@ -41,7 +53,7 @@ _EPS = 1e-12
 
 
 class GRayResult(NamedTuple):
-    """Bank results, leading axes (B, k)."""
+    """Single-query: leading axis k (seeds). Bank: leading axes (B, k)."""
 
     matched: torch.Tensor   # int32[B, k, q_max] — data vertex per query vertex
     goodness: torch.Tensor  # f32[B, k] — Σ log proximity over schedule edges
@@ -134,33 +146,37 @@ def _bfs_reach_hops(g: DynamicGraph, sources: torch.Tensor, max_hops: int,
 
 
 class BankGRayMatcher:
-    """G-Ray over a stacked bank of standing queries (``memo=False``).
+    """G-Ray over a stacked bank of standing queries.
 
     Every per-step single-source sweep (RWR + bounded BFS) runs as one
-    ``(n, n_sweep·k)`` dense block shared by the bank. The schedule is
-    content-independent: the expansion walks all ``qe_max`` steps of the
-    bank's padded shape; table slots exist per sub-pattern DAG node
-    (``node_cap`` of them plus a trash slot), "node computed" is data, and a
-    step runs its sweep block only when some row reads a node not computed
-    yet. Callers pass the bucket's ``row_node`` plan; without one the
-    identity plan (node ≡ (row, query vertex)) applies.
+    dense block shared by the bank.
+
+    ``memo=True`` fixes the schedule from ``bank`` at construction: the
+    expansion unrolls to the longest schedule in the bank, and each
+    (query, distinct source vertex) pair owns one table slot, computed at
+    the step that first reads it. Sound because ``matched`` is write-once
+    and BFS order matches a source before its first use; padded tail steps
+    of shorter queries read slot 0 and mask the result out.
+
+    ``memo=False`` is content-independent: the expansion walks all
+    ``qe_max`` steps of the bank's padded shape; table slots exist per
+    sub-pattern DAG node (``node_cap`` of them plus a trash slot), "node
+    computed" is data, and a step runs its sweep block only when some row
+    reads a node not computed yet. Callers pass the bucket's ``row_node``
+    plan; without one the identity plan (node ≡ (row, query vertex))
+    applies. Matches equal the memoized mode's.
 
     ``backend="ell"`` runs both sparse sweeps through the ELL kernels;
     callers pass the graph's ELL mirror via ``ell=`` (one is built on the
-    fly when omitted). The memoized host-static schedule (``memo=True``)
-    is not ported.
+    fly when omitted).
     """
 
     def __init__(self, bank: QueryBank, n_labels: int, k: int,
                  rwr_iters: int = 25, restart: float = 0.15,
                  bridge_hops: int = 4, backend: str = "coo",
-                 ell_width: int = 64, memo: bool = False,
+                 ell_width: int = 64, memo: bool = True,
                  rwr_tol: float = 0.0, node_cap: Optional[int] = None,
                  device="cuda"):
-        if memo:
-            raise NotImplementedError(
-                "memo=True (the host-static memoized schedule) is not ported "
-                "yet — see ROADMAP.md queue 1, 'Queries and the G-Ray bank'")
         backend = resolve_backend(backend, device)
         if backend not in ("coo", "ell"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -173,8 +189,36 @@ class BankGRayMatcher:
         self.backend = backend
         self.ell_width = ell_width
         self.rwr_tol = rwr_tol
-        self.n_steps = bank.qe_max
+        self.memo = memo
         self.node_cap = node_cap
+        if memo:
+            self._plan_memo(bank)
+        else:
+            self.n_steps = bank.qe_max
+
+    def _plan_memo(self, bank: QueryBank) -> None:
+        """The host-static schedule: per step, the (row, slot, source
+        vertex) pairs first used there, and the slot each row reads."""
+        src_np = bank.order_src.cpu().numpy()
+        mask_np = bank.order_mask.cpu().numpy()
+        B = bank.n_queries
+        self.n_steps = int(mask_np.sum(axis=1).max()) if mask_np.size else 0
+        pair_of: Tuple[Dict[int, int], ...] = tuple({} for _ in range(B))
+        new_pairs = []
+        self._read_slot = np.zeros((self.n_steps, B), np.int64)
+        for ei in range(self.n_steps):
+            fresh = []
+            for b in range(B):
+                if not mask_np[b, ei]:
+                    continue
+                sv = int(src_np[b, ei])
+                if sv not in pair_of[b]:
+                    pair_of[b][sv] = len(pair_of[b])
+                    fresh.append((b, pair_of[b][sv], sv))
+                self._read_slot[ei, b] = pair_of[b][sv]
+            new_pairs.append(tuple(fresh))
+        self._new_pairs = tuple(new_pairs)
+        self.t_max = max([1] + [len(p) for p in pair_of])
 
     # -- public API ---------------------------------------------------------
 
@@ -186,14 +230,43 @@ class BankGRayMatcher:
             ell = ell_from_graph(g, self.ell_width)
         return ell
 
+    def label_table(self, g: DynamicGraph,
+                    r0: Optional[torch.Tensor] = None,
+                    iters: Optional[int] = None,
+                    ell: Optional[EllGraph] = None) -> torch.Tensor:
+        """Label-conditioned RWR table — query-independent, computed once
+        per graph state and shared by every query in the bank. Honors
+        ``rwr_tol`` like the expansion sweeps (an explicit ``iters``
+        overrides the cap either way)."""
+        iters = iters if iters is not None else self.rwr_iters
+        ell = self._ell_for(g, ell)
+        if self.rwr_tol > 0:
+            r, _, _ = label_rwr_adaptive(g, self.n_labels, max_iters=iters,
+                                         tol=self.rwr_tol, c=self.restart,
+                                         r0=r0, ell=ell)
+            return r
+        return label_rwr(g, self.n_labels, iters=iters, c=self.restart,
+                         r0=r0, ell=ell)
+
     def seeds(self, g: DynamicGraph, r_lab: torch.Tensor,
               seed_filter: Optional[torch.Tensor] = None,
               bank: Optional[QueryBank] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-query top-k anchor candidates (ids (B, k), mask (B, k))."""
         b = bank or self.bank
-        return _find_seeds_arrays(g, r_lab, self.k, seed_filter, b.labels,
-                                  b.mask, b.anchor)
+        dev = r_lab.device
+        return _find_seeds_arrays(g, r_lab, self.k, seed_filter,
+                                  b.labels.to(dev), b.mask.to(dev),
+                                  b.anchor.to(dev))
+
+    def match(self, g: DynamicGraph, r_lab: torch.Tensor,
+              seed_filter: Optional[torch.Tensor] = None,
+              ell: Optional[EllGraph] = None,
+              bank: Optional[QueryBank] = None) -> GRayResult:
+        ell = self._ell_for(g, ell)
+        seed_ids, seed_mask = self.seeds(g, r_lab, seed_filter, bank=bank)
+        return self.match_from_seeds(g, r_lab, seed_ids, seed_mask, ell=ell,
+                                     bank=bank)
 
     def match_from_seeds(self, g: DynamicGraph, r_lab: torch.Tensor,
                          seed_ids: torch.Tensor, seed_mask: torch.Tensor,
@@ -250,59 +323,87 @@ class BankGRayMatcher:
         hops = torch.zeros((B, k, qe_max), dtype=torch.int32, device=dev)
         valid = seed_mask.clone()
 
-        if row_node is None:
-            n_slots = B * q_max
-            row_node = rows_b[:, None] * q_max + order_src
+        if self.memo:
+            # per-(query, source) tables; the first uses of one step batch
+            # into ONE shared (n, P·k) RWR + reach sweep
+            tables_r = torch.zeros((B, self.t_max, n, k),
+                                   dtype=torch.float32, device=dev)
+            tables_h = torch.zeros((B, self.t_max, k, n), dtype=torch.int32,
+                                   device=dev)
         else:
-            assert self.node_cap is not None, \
-                "row_node plans need a node_cap-sized matcher"
-            n_slots = int(self.node_cap)
-            row_node = row_node.to(dev).to(torch.int64)
-        n_sweep = min(B, n_slots)
-        tables_r = torch.zeros((n_slots + 1, n, k), dtype=torch.float32,
-                               device=dev)
-        tables_h = torch.zeros((n_slots + 1, k, n), dtype=torch.int32,
-                               device=dev)
-        node_seen = torch.zeros(n_slots + 1, dtype=torch.int32, device=dev)
+            if row_node is None:
+                n_slots = B * q_max
+                row_node = rows_b[:, None] * q_max + order_src
+            else:
+                assert self.node_cap is not None, \
+                    "row_node plans need a node_cap-sized matcher"
+                n_slots = int(self.node_cap)
+                row_node = row_node.to(dev).to(torch.int64)
+            n_sweep = min(B, n_slots)
+            tables_r = torch.zeros((n_slots + 1, n, k), dtype=torch.float32,
+                                   device=dev)
+            tables_h = torch.zeros((n_slots + 1, k, n), dtype=torch.int32,
+                                   device=dev)
+            node_seen = torch.zeros(n_slots + 1, dtype=torch.int32,
+                                    device=dev)
         ninf = torch.tensor(float("-inf"), device=dev)
 
+        def sweep_block(srcs: torch.Tensor):
+            """RWR and BFS tables of the (P, k) sources: (P, n, k), (P, k, n)."""
+            p = srcs.shape[0]
+            flat = srcs.reshape(p * k)
+            e = restart_onehot(flat, n)                            # (n, P·k)
+            r_new = self._rwr(g, e, ell).reshape(n, p, k).permute(1, 0, 2)
+            h_new = _bfs_reach_hops(g, flat, self.bridge_hops,
+                                    ell=ell).reshape(p, k, n)
+            return r_new, h_new
+
         for ei in range(self.n_steps):
-            # content-independent memo over DAG nodes: "node computed" is
-            # data; the step's shared sweep block runs only when some row
-            # reads a node not computed yet. One representative row (the
-            # lowest) per fresh node computes its tables for the bank.
             on = order_mask[:, ei]                                 # (B,)
-            nd = torch.where(on, row_node[:, ei],
-                             torch.full_like(row_node[:, ei], n_slots))
-            fresh = on & (node_seen[nd] == 0)
-            rep = torch.full((n_slots + 1,), B, dtype=torch.int64,
-                             device=dev)
-            rep.scatter_reduce_(
-                0, torch.where(fresh, nd, torch.full_like(nd, n_slots)),
-                rows_b, reduce="amin", include_self=True)
-            if bool(fresh.any()):
-                sel = torch.nonzero(rep[:n_slots] < B).flatten()
-                idx = torch.full((n_sweep,), n_slots, dtype=torch.int64,
+            if self.memo:
+                pairs = self._new_pairs[ei]
+                if pairs:
+                    b_idx, t_idx, s_idx = (
+                        torch.tensor(col, dtype=torch.int64, device=dev)
+                        for col in zip(*pairs))
+                    r_new, h_new = sweep_block(matched[b_idx, :, s_idx])
+                    tables_r[b_idx, t_idx] = r_new
+                    tables_h[b_idx, t_idx] = h_new
+                slot = torch.as_tensor(self._read_slot[ei], device=dev)
+                r_t = tables_r[rows_b, slot]                       # (B, n, k)
+                reach_t = tables_h[rows_b, slot]                   # (B, k, n)
+            else:
+                # content-independent memo over DAG nodes: "node computed"
+                # is data; the step's shared sweep block runs only when
+                # some row reads a node not computed yet. One
+                # representative row (the lowest) per fresh node computes
+                # its tables for the bank.
+                nd = torch.where(on, row_node[:, ei],
+                                 torch.full_like(row_node[:, ei], n_slots))
+                fresh = on & (node_seen[nd] == 0)
+                rep = torch.full((n_slots + 1,), B, dtype=torch.int64,
                                  device=dev)
-                idx[:sel.shape[0]] = sel[:n_sweep]
-                rows = torch.clamp(rep[idx], 0, B - 1)             # (n_sweep,)
-                srcv = order_src[rows, ei]                         # (n_sweep,)
-                srcs = matched[rows[:, None], cols_k[None, :],
-                               srcv[:, None]]                      # (n_sweep, k)
-                flat = srcs.reshape(n_sweep * k)
-                e = restart_onehot(flat, n)                   # (n, n_sweep·k)
-                r_new = self._rwr(g, e, ell)
-                r_new = r_new.reshape(n, n_sweep, k).permute(1, 0, 2)
-                h_new = _bfs_reach_hops(g, flat, self.bridge_hops,
-                                        ell=ell).reshape(n_sweep, k, n)
-                # packing fill (idx == n_slots) lands in the trash slot,
-                # which only masked reads ever see
-                tables_r[idx] = r_new
-                tables_h[idx] = h_new
-            node_seen.scatter_reduce_(0, nd, on.to(torch.int32),
-                                      reduce="amax", include_self=True)
-            r_t = tables_r[nd]                                  # (B, n, k)
-            reach_t = tables_h[nd]                              # (B, k, n)
+                rep.scatter_reduce_(
+                    0, torch.where(fresh, nd, torch.full_like(nd, n_slots)),
+                    rows_b, reduce="amin", include_self=True)
+                if bool(fresh.any()):
+                    sel = torch.nonzero(rep[:n_slots] < B).flatten()
+                    idx = torch.full((n_sweep,), n_slots, dtype=torch.int64,
+                                     device=dev)
+                    idx[:sel.shape[0]] = sel[:n_sweep]
+                    rows = torch.clamp(rep[idx], 0, B - 1)        # (n_sweep,)
+                    srcv = order_src[rows, ei]                    # (n_sweep,)
+                    r_new, h_new = sweep_block(
+                        matched[rows[:, None], cols_k[None, :],
+                                srcv[:, None]])                   # (n_sweep, k)
+                    # packing fill (idx == n_slots) lands in the trash
+                    # slot, which only masked reads ever see
+                    tables_r[idx] = r_new
+                    tables_h[idx] = h_new
+                node_seen.scatter_reduce_(0, nd, on.to(torch.int32),
+                                          reduce="amax", include_self=True)
+                r_t = tables_r[nd]                              # (B, n, k)
+                reach_t = tables_h[nd]                          # (B, k, n)
 
             # neighbor-expander: best label-compatible unused candidate
             qb = order_dst[:, ei]                                  # (B,)
@@ -343,3 +444,72 @@ class BankGRayMatcher:
         reachable = torch.where(em, hops <= self.bridge_hops, True).all(dim=2)
         valid = valid & reachable
         return GRayResult(matched, goodness, hops, exact & valid, valid)
+
+
+class GRayMatcher:
+    """G-Ray for one query shape — a bank of size one (``memo=True``).
+
+    All the matching machinery lives in :class:`BankGRayMatcher`, so
+    single-query and bank-mode results are equal by construction.
+    """
+
+    def __init__(self, query: Query, n_labels: int, k: int,
+                 rwr_iters: int = 25, restart: float = 0.15,
+                 bridge_hops: int = 4, backend: str = "coo",
+                 ell_width: int = 64, rwr_tol: float = 0.0, device="cuda"):
+        self.query = query
+        self.n_labels = n_labels
+        self.k = k
+        self.rwr_iters = rwr_iters
+        self.restart = restart
+        self.bridge_hops = bridge_hops
+        self.backend = resolve_backend(backend, device)
+        self.ell_width = ell_width
+        # host-static expansion schedule (introspection + tests)
+        cols = (query.order_src, query.order_dst, query.order_tree,
+                query.order_mask)
+        self.schedule: Tuple[Tuple[int, int, bool], ...] = tuple(
+            (int(a), int(b), bool(t))
+            for a, b, t, m in zip(*(c.cpu().numpy() for c in cols)) if m)
+        self._bank = BankGRayMatcher(
+            stack_queries([query], q_max=query.q_max,
+                          qe_max=int(query.order_src.shape[0])),
+            n_labels, k, rwr_iters=rwr_iters, restart=restart,
+            bridge_hops=bridge_hops, backend=self.backend,
+            ell_width=ell_width, rwr_tol=rwr_tol, device=device)
+
+    def label_table(self, g: DynamicGraph,
+                    r0: Optional[torch.Tensor] = None,
+                    iters: Optional[int] = None,
+                    ell: Optional[EllGraph] = None) -> torch.Tensor:
+        return self._bank.label_table(g, r0=r0, iters=iters, ell=ell)
+
+    def match(self, g: DynamicGraph, r_lab: torch.Tensor,
+              seed_filter: Optional[torch.Tensor] = None,
+              ell: Optional[EllGraph] = None) -> GRayResult:
+        return GRayResult(*(x[0] for x in self._bank.match(
+            g, r_lab, seed_filter=seed_filter, ell=ell)))
+
+    def match_from_seeds(self, g: DynamicGraph, r_lab: torch.Tensor,
+                         seed_ids: torch.Tensor, seed_mask: torch.Tensor,
+                         ell: Optional[EllGraph] = None) -> GRayResult:
+        return GRayResult(*(x[0] for x in self._bank.match_from_seeds(
+            g, r_lab, seed_ids[None], seed_mask[None], ell=ell)))
+
+
+def gray_match(g: DynamicGraph, query: Query, n_labels: int, k: int = 20,
+               rwr_iters: int = 25, restart: float = 0.15,
+               bridge_hops: int = 4,
+               seed_filter: Optional[torch.Tensor] = None,
+               r_lab: Optional[torch.Tensor] = None,
+               backend: str = "coo",
+               ell: Optional[EllGraph] = None) -> GRayResult:
+    """One-shot batch G-Ray on the graph's device (builds a matcher; prefer
+    :class:`GRayMatcher` in loops)."""
+    m = GRayMatcher(query, n_labels, k, rwr_iters, restart, bridge_hops,
+                    backend=backend, device=g.device)
+    if m.backend == "ell" and ell is None:
+        ell = ell_from_graph(g, m.ell_width)
+    if r_lab is None:
+        r_lab = m.label_table(g, ell=ell)
+    return m.match(g, r_lab, seed_filter=seed_filter, ell=ell)

@@ -4,7 +4,8 @@
 
   1. ``apply_update`` + incremental ELL-mirror refresh (one graph state)
   2. pattern-store pruning when removals could have killed a matched vertex
-  3. PEM recompute mask (one Louvain cut at a fixed community size — Inc)
+  3. PEM recompute mask (one Louvain cut; a fixed community size for Inc,
+     one the DQN moves by ±1 per step for IGPM-PEM)
   4. induced-subgraph extraction — or the full-graph *storm* fallback with
      warm-started label RWR and the staleness-keyed seed cache
   5. the label-conditioned RWR table (query-independent, shared by all
@@ -12,6 +13,8 @@
   6. one bank G-Ray match per bucket
   7. host-side merge into per-query :class:`~repro_torch.engine.store.
      PatternStore`
+  8. PEM feedback: the DQN observes the step's time and moves the
+     community size (adaptive mode only)
 
 ``mode="batch"`` instead re-runs G-Ray from scratch on the full graph each
 step (the paper's Batch oracle). All evolving data rides in
@@ -19,10 +22,16 @@ step (the paper's Batch oracle). All evolving data rides in
 registry (buckets, stores) and host caches that are pure functions of the
 state (ELL mirror, Louvain dendrogram, storm seed memo).
 
+``BatchMatcher`` / ``NaiveIncrementalMatcher`` / ``AdaptiveMatcher``
+(``repro_torch.core.matcher``) and ``MatchServer`` are facades over this
+one pipeline.
+
 Everything runs on one device, ``device="cuda"`` unless the caller asks for
-the CPU. Adaptive PEM, tracing, the executor pool, graph sharding, edge
-partitioning and checkpoint files are not ported; ``state_dict`` /
-``load_state_dict`` carry state in the JAX package's key layout.
+the CPU; the DQN agent of adaptive mode lives there too. ``state_dict`` /
+``load_state_dict`` carry state in the JAX package's key layout, and
+``save`` / ``load`` write and read it as checkpoint directories that
+either package restores. Tracing, the executor pool, graph sharding, edge
+partitioning and the serving controller's state are not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.config.base import EngineConfig, IGPMConfig, resolve_backend
 from repro_torch.core.graph import (DynamicGraph, EllCache, UpdateBatch,
                                     apply_update, check_device, to_numpy,
@@ -49,13 +59,13 @@ from repro_torch.engine.store import PatternStore, live_vertex_mask
 
 
 # EngineConfig knobs whose features are not ported yet, with the ROADMAP.md
-# queue-1 "Next" item that brings each. Only the default is accepted, so a
+# queue-1 item that brings each. Only the default is accepted, so a
 # config asking for one of them never yields an engine that silently lacks it.
 _WAITING = {
-    "graph_shard": "6, multi-GPU layers",
-    "edge_partition": "6, multi-GPU layers",
-    "partition_headroom": "6, multi-GPU layers",
-    "obs": "5, observability",
+    "graph_shard": "12, multi-GPU layers",
+    "edge_partition": "12, multi-GPU layers",
+    "partition_headroom": "12, multi-GPU layers",
+    "obs": "11, observability",
 }
 
 
@@ -64,7 +74,7 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
 
     ``shard`` may be ``"auto"`` or ``"off"``: the engine runs on its one
     device, which is the reference's path for both values on one device
-    (query-axis sharding across cards is item 6 and not ported)."""
+    (query-axis sharding across cards is item 12 and not ported)."""
     if ecfg.mode not in ("incremental", "batch"):
         raise ValueError(f"unknown engine mode {ecfg.mode!r}")
     if ecfg.shard not in ("auto", "off"):
@@ -75,7 +85,7 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={getattr(ecfg, name)!r} asks for a "
                 f"feature that is not ported yet — see ROADMAP.md queue 1, "
-                f"'Next' item {item}; leave it at its default "
+                f"item {item}; leave it at its default "
                 f"{getattr(default, name)!r}")
 
 
@@ -96,7 +106,7 @@ class Engine:
         self.pem: Optional[PartialExecutionManager] = (
             None if ecfg.mode == "batch"
             else PartialExecutionManager(cfg, adaptive=ecfg.adaptive,
-                                         seed=seed))
+                                         seed=seed, device=self.device))
         self.ell_cache = (EllCache(cfg.n_max, cfg.e_max, cfg.ell_width,
                                    device=self.device)
                           if cfg.backend == "ell" else None)
@@ -292,9 +302,9 @@ class Engine:
         return EngineState(graph=graph)
 
     def reset(self) -> None:
-        """Clear accumulated match state but KEEP the PEM's threshold —
-        benchmark warm/measure passes replay identical streams on one
-        engine."""
+        """Clear accumulated match state but KEEP the PEM's learned
+        threshold and policy — benchmark warm/measure passes replay
+        identical streams on one engine."""
         self.stores = {qid: PatternStore() for qid in self._order}
         self._reshare_alias_stores()
         self._seed_memo.clear()
@@ -395,7 +405,8 @@ class Engine:
     def state_dict(self, state: EngineState) -> Dict:
         """The engine state as host arrays, in the key layout of the JAX
         package's ``Engine.state_dict``: graph, the warm-start r_lab table,
-        per-bucket bank tables, PEM state, and the pattern-store arrays.
+        per-bucket bank tables, PEM state (with the DQN agent's, in adaptive
+        mode), and the pattern-store arrays.
         The ELL mirror and Louvain dendrogram are caches rebuilt from the
         graph and are not included."""
         n, L = self.cfg.n_max, self.cfg.n_labels
@@ -417,7 +428,29 @@ class Engine:
         }
         if self.pem is not None:
             d["pem"] = {"community_size": np.asarray(self.pem.c, np.int64)}
+            if self.pem.agent is not None:
+                d["pem"]["agent"] = self.pem.agent.state_dict()
         return d
+
+    def save(self, state: EngineState, directory: str,
+             step: Optional[int] = None) -> None:
+        """Checkpoint :meth:`state_dict` under ``directory`` (step defaults
+        to the state's step index)."""
+        ckpt = Checkpointer(directory, async_save=False)
+        ckpt.save(state.step_idx if step is None else step,
+                  self.state_dict(state))
+
+    def load(self, state: EngineState, directory: str,
+             step: Optional[int] = None) -> Tuple[EngineState, int]:
+        """Restore a checkpoint saved by :meth:`save` of either package.
+        The same queries must be registered (the registry is code +
+        configuration; the checkpoint carries data). Returns (state,
+        step)."""
+        ckpt = Checkpointer(directory, async_save=False)
+        if any(k.startswith("control/") for k in ckpt.leaf_keys(step)):
+            _refuse_control()
+        tree, step = ckpt.restore(self.state_dict(state), step=step)
+        return self.load_state_dict(tree), step
 
     def load_state_dict(self, tree: Dict) -> EngineState:
         """Restore a state tree — this engine's :meth:`state_dict`, or the
@@ -425,6 +458,8 @@ class Engine:
         a port engine carries on serving from a reference engine's state.
         The same queries must be registered (the registry is code +
         configuration; the tree carries data)."""
+        if "control" in tree:
+            _refuse_control()
         dev = self.device
         graph = DynamicGraph(**{
             f: torch.as_tensor(np.array(tree["graph"][f]), device=dev)
@@ -444,10 +479,8 @@ class Engine:
         self._reshare_alias_stores()
         if self.pem is not None:
             self.pem.c = int(np.asarray(tree["pem"]["community_size"]))
-            if "agent" in tree["pem"]:
-                raise NotImplementedError(
-                    "the state carries a DQN agent (adaptive PEM), which is "
-                    "not ported yet — see ROADMAP.md queue 1")
+            if self.pem.agent is not None:
+                self.pem.agent.load_state_dict(tree["pem"]["agent"])
         self._seed_memo.clear()
         if self.pem is not None:
             # the Louvain dendrogram is stale-tolerant (results-affecting)
@@ -462,6 +495,13 @@ class Engine:
             rlab_events=int(np.asarray(tree["rlab_events"])),
             rlab_version=0,
             step_idx=int(np.asarray(tree["step_idx"])))
+
+
+def _refuse_control() -> None:
+    raise NotImplementedError(
+        "the state carries the serving controller's state ('control'), "
+        "which is not ported yet — see ROADMAP.md queue 1, item 10, "
+        "control")
 
 
 def _sync(device: torch.device) -> None:

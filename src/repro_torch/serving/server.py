@@ -16,6 +16,10 @@ row writes). The matching pipeline — apply + ELL refresh, PEM mask, induced
 extraction, label RWR, per-bucket bank G-Ray sweep, store merge — lives in
 ``repro_torch.engine.core.engine_step``. The server runs on
 ``device="cuda"`` unless the caller asks for the CPU.
+
+A restarted server resumes through ``save``/``load`` (the whole engine) or
+``save_policy``/``load_policy`` (the learned PEM policy alone); both write
+checkpoint directories in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.config.base import IGPMConfig, ServingConfig
 from repro_torch.core.graph import DynamicGraph, UpdateBatch
 from repro_torch.core.query import Query
@@ -230,6 +236,47 @@ class MatchServer:
                 break
         return g, stats
 
+    # -- persistence (restarts) ----------------------------------------------
+
+    def save(self, directory: str, step: Optional[int] = None) -> None:
+        """Whole-engine checkpoint: graph, warm-start tables, bucket banks,
+        PEM/DQN state, pattern stores."""
+        if self._state is None:
+            raise ValueError("nothing to save before the first step")
+        self.engine.save(self._state, directory, step=step)
+
+    def load(self, g: DynamicGraph, directory: str,
+             step: Optional[int] = None) -> int:
+        """Restore a whole-engine checkpoint (the same queries must be
+        registered); the restored graph replaces ``g``."""
+        self._state, step = self.engine.load(self.engine.init_state(g),
+                                             directory, step=step)
+        return step
+
     @property
     def graph(self) -> Optional[DynamicGraph]:
         return self._state.graph if self._state is not None else None
+
+    # -- policy-only persistence ---------------------------------------------
+
+    def policy_state(self) -> Dict:
+        if self.pem is None or self.pem.agent is None:
+            raise ValueError("non-adaptive server has no policy to persist")
+        return {"agent": self.pem.agent.state_dict(),
+                "community_size": np.asarray(self.pem.c, np.int64)}
+
+    def save_policy(self, directory: str,
+                    step: Optional[int] = None) -> None:
+        """Persist the learned PEM policy (DQN + community threshold) so a
+        restarted server resumes with its learned behavior."""
+        ckpt = Checkpointer(directory, async_save=False)
+        ckpt.save(self.step_idx if step is None else step,
+                  self.policy_state())
+
+    def load_policy(self, directory: str,
+                    step: Optional[int] = None) -> int:
+        ckpt = Checkpointer(directory, async_save=False)
+        state, step = ckpt.restore(self.policy_state(), step=step)
+        self.pem.agent.load_state_dict(state["agent"])
+        self.pem.c = int(state["community_size"])
+        return step

@@ -1,0 +1,212 @@
+"""Checkpoints and policy persistence of the port against the JAX package.
+
+Directories written by either package's ``Engine.save`` restore into both,
+and the two engines then serve on step for step equal (the adaptive PEM
+under the shared agent and seeded ``elapsed`` of ``test_torch_adaptive``);
+the port's files equal the reference writer's byte for byte (the index is
+compared with ``msgpack``, which only this test imports); atomic commit,
+the ignored ``.tmp``, keep-N and the async writer; the learned policy
+carried across restarts in both directions.
+"""
+
+import msgpack
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import Checkpointer as RCkpt
+from repro.config.base import EngineConfig as REngCfg
+from repro.config.base import IGPMConfig as RCfg
+from repro.config.base import ServingConfig as RServCfg
+from repro.core.query import query_zoo as r_zoo
+from repro.engine import Engine as REngine
+from repro.serving.server import MatchServer as RServer
+from repro_torch.checkpoint import Checkpointer as TCkpt
+from repro_torch.config.base import EngineConfig as TEngCfg
+from repro_torch.config.base import IGPMConfig as TCfg
+from repro_torch.config.base import ServingConfig as TServCfg
+from repro_torch.core.query import query_zoo as t_zoo
+from repro_torch.engine import Engine as TEngine
+from repro_torch.serving.server import MatchServer as TServer
+from test_torch_adaptive import (CPU, _cfg, _steps_equal, _stores_equal,
+                                 seeded_elapsed, streams)  # noqa: F401
+
+torch.set_num_threads(1)
+
+
+def _engines(backend="coo"):
+    ecfg = dict(mode="incremental", adaptive=True)
+    ref = REngine(_cfg(RCfg, backend), REngCfg(**ecfg))
+    port = TEngine(_cfg(TCfg, backend), TEngCfg(**ecfg), device=CPU)
+    zoo_r = r_zoo(4) + [r_zoo(4)[0]._replace(name="dup")]
+    zoo_t = t_zoo(4) + [t_zoo(4)[0]._replace(name="dup")]
+    for q in zoo_r:
+        ref.register(q)
+    for q in zoo_t:
+        port.register(q)
+    return ref, port
+
+
+def _serve(eng, state, updates):
+    outs = []
+    for u in updates:
+        state, o = eng.step(state, u)
+        outs.append(o)
+    return state, outs
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_checkpoint_restores_across_packages(streams, tmp_path, writer):
+    """One package serves 2 steps and saves; a fresh engine of EACH package
+    loads the directory and both serve on, step for step equal."""
+    ref_s, port_s = streams
+    first_r, first_p = _engines()
+    if writer == "reference":
+        seeded_elapsed(first_r.pem, seed=9)
+        s, _ = _serve(first_r, first_r.init_state(ref_s.graph),
+                      ref_s.updates[:2])
+        first_r.save(s, str(tmp_path))
+    else:
+        seeded_elapsed(first_p.pem, seed=9)
+        s, _ = _serve(first_p, first_p.init_state(port_s.graph),
+                      port_s.updates[:2])
+        first_p.save(s, str(tmp_path))
+    ref, port = _engines()
+    s_r, step_r = ref.load(ref.init_state(ref_s.graph), str(tmp_path))
+    s_p, step_p = port.load(port.init_state(port_s.graph), str(tmp_path))
+    assert step_r == step_p == s_p.step_idx == 2
+    assert port.pem.c == ref.pem.c
+    assert port.pem.agent.t == ref.pem.agent.t
+    _stores_equal([ref.stores[q] for q in ref.qids],
+                  [port.stores[q] for q in port.qids])
+    seeded_elapsed(ref.pem, seed=4)
+    seeded_elapsed(port.pem, seed=4)
+    s_r, o_r = _serve(ref, s_r, ref_s.updates[2:5])
+    s_p, o_p = _serve(port, s_p, port_s.updates[2:5])
+    _steps_equal(o_r, o_p)
+    _stores_equal([ref.stores[q] for q in ref.qids],
+                  [port.stores[q] for q in port.qids])
+
+
+def test_checkpoint_files_equal_the_reference_writers(streams, tmp_path):
+    """The port's index.msgpack bytes equal msgpack's, and the reference
+    Checkpointer writes the same files for the same tree."""
+    _, port_s = streams
+    _, port = _engines()
+    seeded_elapsed(port.pem)
+    s, _ = _serve(port, port.init_state(port_s.graph), port_s.updates[:2])
+    tree = port.state_dict(s)
+    TCkpt(tmp_path / "t", async_save=False).save(2, tree)
+    RCkpt(tmp_path / "r", async_save=False).save(2, tree)
+    mine = (tmp_path / "t" / "step_000000000002" / "index.msgpack").read_bytes()
+    theirs = (tmp_path / "r" / "step_000000000002" /
+              "index.msgpack").read_bytes()
+    assert mine == theirs
+    assert msgpack.packb(msgpack.unpackb(mine)) == mine
+    index = msgpack.unpackb(mine)
+    assert any(leaf["key"] == "pem/agent/params/w0" for leaf in index["leaves"])
+    with np.load(tmp_path / "t" / "step_000000000002" / "arrays.npz") as a, \
+            np.load(tmp_path / "r" / "step_000000000002" / "arrays.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _tree():
+    return {"w": np.arange(6.0, dtype=np.float32).reshape(2, 3),
+            "b": np.ones(3, np.int32), "nest": [np.zeros(2, bool),
+                                                {"z": np.asarray(7, np.int64)}]}
+
+
+def test_checkpoint_round_trip_atomic_commit_and_keep_n(tmp_path):
+    ck = TCkpt(tmp_path, keep=2, async_save=False)
+    for s in (1, 2, 3, 4):
+        ck.save(s, _tree())
+    assert ck.all_steps() == [3, 4]
+    # a crash mid-save of step 5 leaves a .tmp directory behind
+    (tmp_path / "step_000000000005.tmp").mkdir()
+    assert ck.latest_step() == 4
+    like = {"w": np.zeros((2, 3), np.float32), "b": np.zeros(3, np.int32),
+            "nest": [np.ones(2, bool), {"z": np.asarray(0, np.int64)}]}
+    back, step = ck.restore(like)
+    assert step == 4
+    np.testing.assert_array_equal(back["w"], _tree()["w"])
+    assert back["b"].dtype == np.int32 and back["nest"][1]["z"] == 7
+    assert list(back) == list(like)
+    ck.save(4, {"w": np.zeros(1)})          # a committed step is not rewritten
+    np.testing.assert_array_equal(ck.restore(like)[0]["w"], _tree()["w"])
+    with pytest.raises(FileNotFoundError):
+        TCkpt(tmp_path / "empty").restore(like)
+    with pytest.raises(KeyError):
+        ck.restore({"missing": np.zeros(1)})
+    with pytest.raises(TypeError):
+        ck.restore({"w": np.zeros((2, 3), np.int32)})   # float → int refused
+    with pytest.raises(TypeError):
+        ck.save(9, {"p": torch.ones(2, dtype=torch.bfloat16)})
+
+
+def test_async_save_is_joined(tmp_path):
+    ck = TCkpt(tmp_path, async_save=True)
+    ck.save(5, _tree())
+    ck.save(6, {"t": torch.arange(3)})
+    ck.wait()
+    assert ck.all_steps() == [5, 6]
+
+
+def test_control_state_is_refused(streams, tmp_path):
+    """A state carrying the serving controller's entry is refused, as a
+    tree and as a checkpoint directory."""
+    ref, port = _engines()
+    tree = ref.state_dict(ref.init_state(streams[0].graph))
+    tree["control"] = {"x": np.zeros(1)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.load_state_dict(tree)
+    RCkpt(tmp_path, async_save=False).save(0, tree)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.load(port.init_state(streams[1].graph), str(tmp_path))
+
+
+# -- policy persistence ----------------------------------------------------------
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_policy_persists_across_restarts(streams, tmp_path, writer):
+    ref_s, port_s = streams
+    if writer == "reference":
+        first = RServer(_cfg(RCfg), r_zoo(2), RServCfg())
+        first.run(ref_s.graph, ref_s.updates[:5])
+    else:
+        first = TServer(_cfg(TCfg), t_zoo(2), TServCfg(), device=CPU)
+        first.run(port_s.graph, port_s.updates[:5])
+    first.save_policy(str(tmp_path))
+    want = first.policy_state()
+    for restarted in (TServer(_cfg(TCfg), t_zoo(2), TServCfg(), device=CPU),
+                      RServer(_cfg(RCfg), r_zoo(2), RServCfg())):
+        assert restarted.load_policy(str(tmp_path)) == 5
+        got = restarted.policy_state()
+        assert int(got["community_size"]) == int(want["community_size"])
+        for part in ("params", "target_params", "m", "v", "replay"):
+            for k in want["agent"][part]:
+                np.testing.assert_array_equal(got["agent"][part][k],
+                                              want["agent"][part][k])
+        assert int(got["agent"]["t"]) == int(want["agent"]["t"]) > 0
+    inc = TServer(_cfg(TCfg), t_zoo(2), TServCfg(adaptive=False), device=CPU)
+    with pytest.raises(ValueError, match="no policy"):
+        inc.save_policy(str(tmp_path))
+
+
+def test_server_save_load_round_trip(streams, tmp_path):
+    _, port_s = streams
+    a = TServer(_cfg(TCfg), t_zoo(4), TServCfg(), device=CPU)
+    with pytest.raises(ValueError, match="before the first step"):
+        a.save(str(tmp_path))
+    g, _ = a.run(port_s.graph, port_s.updates[:3])
+    a.save(str(tmp_path))
+    b = TServer(_cfg(TCfg), t_zoo(4), TServCfg(), device=CPU)
+    assert b.load(port_s.graph, str(tmp_path)) == 3
+    for f in g._fields:
+        assert torch.equal(getattr(b.graph, f), getattr(g, f)), f
+    _stores_equal(a.stores, b.stores)
+    assert b.pem.c == a.pem.c
+    obs = np.array([[0.3, 0.2], [1.5, 0.9]], np.float32)
+    np.testing.assert_array_equal(b.pem.agent.q_values(obs),
+                                  a.pem.agent.q_values(obs))

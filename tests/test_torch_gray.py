@@ -29,7 +29,8 @@ from repro.config.base import IGPMConfig as RCfg
 from repro.core.pem import PartialExecutionManager as RPem
 from repro.engine.buckets import QueryBucket as RBucket
 from repro_torch.config.base import IGPMConfig as TCfg
-from repro_torch.core.gray import _find_seeds_arrays
+from repro_torch.core.gray import (BankGRayMatcher, GRayMatcher,
+                                   _find_seeds_arrays, gray_match)
 from repro_torch.core.pem import PartialExecutionManager as TPem
 from repro_torch.engine.buckets import QueryBucket as TBucket
 
@@ -166,11 +167,80 @@ def test_seed_ties_below_k_rank_lower_ids_first():
     assert int(np.asarray(ok_r).sum()) == 3
 
 
-def test_memo_mode_is_refused():
-    from repro_torch.core.gray import BankGRayMatcher
-    bank = tq.stack_queries([tq.triangle()])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BankGRayMatcher(bank, 4, 8, memo=True, device=CPU)
+def _assert_results_equal(port, ref):
+    for f in ("matched", "hops", "exact", "valid"):
+        np.testing.assert_array_equal(_np(getattr(port, f)),
+                                      _np(getattr(ref, f)), err_msg=f)
+    np.testing.assert_allclose(_np(port.goodness), _np(ref.goodness),
+                               rtol=1e-5, atol=0)
+
+
+def test_memo_mode_is_refused(graphs):
+    """Once refused, now ported: ``memo=True`` (the host-static memoized
+    schedule, the reference's default) on a bank of queries of different
+    schedule lengths and repeated sources (triangle, square, star-5,
+    clique-4), COO and ELL, with and without a seed filter, against the
+    reference's memo mode; and the port's own ``memo=False`` gives the same
+    matches (goodness within 1e-5: its sweep blocks have other widths)."""
+    g_r, g_p = graphs
+    idx = [0, 1, 2, 3, 4]
+    rbank = rq.stack_queries([rq.query_zoo(8)[i] for i in idx])
+    tbank = tq.stack_queries([tq.query_zoo(8)[i] for i in idx])
+    r_lab = rr.label_rwr(g_r, 4, iters=8)
+    r_lab_t = torch.as_tensor(np.array(r_lab))
+    sf = np.random.default_rng(2).random(512) < 0.6
+    for backend in ("coo", "ell"):
+        ell_r = rg.ell_from_graph(g_r, 16) if backend == "ell" else None
+        ell_p = tg.ell_from_graph(g_p, 16) if backend == "ell" else None
+        rm = rgray.BankGRayMatcher(rbank, 4, 8, rwr_iters=8, backend=backend,
+                                   ell_width=16, memo=True)
+        tm = BankGRayMatcher(tbank, 4, 8, rwr_iters=8, backend=backend,
+                             ell_width=16, memo=True, device=CPU)
+        assert tm.memo and tm.n_steps == rm.n_steps
+        assert (tm.t_max, tm._new_pairs) == (rm.t_max, rm._new_pairs)
+        for filt in (None, sf):
+            ref = rm.match(g_r, r_lab, seed_filter=None if filt is None
+                           else jnp.asarray(filt), ell=ell_r)
+            port = tm.match(g_p, r_lab_t, seed_filter=None if filt is None
+                            else torch.as_tensor(filt), ell=ell_p)
+            _assert_results_equal(port, ref)
+            assert np.asarray(ref.valid).any()
+        plain = BankGRayMatcher(tbank, 4, 8, rwr_iters=8, backend=backend,
+                                ell_width=16, memo=False, device=CPU)
+        again = plain.match(g_p, r_lab_t, seed_filter=torch.as_tensor(sf),
+                            ell=ell_p)
+        _assert_results_equal(again, port)
+
+
+@pytest.mark.parametrize("shape,backend", [
+    ("triangle", "coo"), ("star5", "ell"), ("clique4", "coo"),
+    ("square", "ell")])
+def test_gray_matcher_and_gray_match_match_reference(graphs, shape,
+                                                     backend):
+    """``GRayMatcher`` (a bank of one) and the one-shot ``gray_match``."""
+    g_r, g_p = graphs
+    n = {"triangle": 3, "square": 4, "star5": 5, "clique4": 4}[shape]
+    labels = (1, 0, 2, 3, 1)[:n]
+    qr, qt = getattr(rq, shape)(labels), getattr(tq, shape)(labels)
+    rm = rgray.GRayMatcher(qr, 4, 8, rwr_iters=8, backend=backend,
+                           ell_width=16)
+    tm = GRayMatcher(qt, 4, 8, rwr_iters=8, backend=backend, ell_width=16,
+                     device=CPU)
+    assert tm.schedule == rm.schedule
+    ell_r = rg.ell_from_graph(g_r, 16) if backend == "ell" else None
+    ell_p = tg.ell_from_graph(g_p, 16) if backend == "ell" else None
+    r_lab = rm.label_table(g_r, ell=ell_r)
+    r_lab_t = tm.label_table(g_p, ell=ell_p)
+    np.testing.assert_allclose(r_lab_t.numpy(), np.asarray(r_lab),
+                               rtol=1e-6, atol=0)
+    r_lab_t = torch.as_tensor(np.array(r_lab))
+    _assert_results_equal(tm.match(g_p, r_lab_t, ell=ell_p),
+                          rm.match(g_r, r_lab, ell=ell_r))
+    ref = rgray.gray_match(g_r, qr, 4, k=8, rwr_iters=8, r_lab=r_lab,
+                           backend=backend)
+    port = gray_match(g_p, qt, 4, k=8, rwr_iters=8, r_lab=r_lab_t,
+                      backend=backend)
+    _assert_results_equal(port, ref)
 
 
 @pytest.mark.parametrize("ell_k", [None, 8])
@@ -212,6 +282,8 @@ def test_louvain_partitions_match(graphs):
 
 def test_pem_recompute_mask_matches_and_adaptive_is_refused(toy_stream,
                                                             graphs):
+    """The recompute mask in both modes; adaptive mode (once refused, now
+    ported) moves ``c`` as the reference does when the agents agree."""
     g_r, g_p = graphs
     rc, tc = _cfgs("coo", init_community_size=32)
     pr, pt = RPem(rc, adaptive=False), TPem(tc, adaptive=False)
@@ -222,5 +294,11 @@ def test_pem_recompute_mask_matches_and_adaptive_is_refused(toy_stream,
     np.testing.assert_array_equal(mt, mr)
     assert ft == fr
     assert pt.feedback(g_p, ft, 0.1) == pr.feedback(g_r, fr, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPem(tc, adaptive=True)
+    ar, at = RPem(rc, adaptive=True), TPem(tc, adaptive=True, device=CPU)
+    at.agent.load_state_dict(ar.agent.state_dict())
+    for elapsed in (0.1, 0.05, 0.2):
+        mr, fr = ar.recompute_mask(g_r, upd)
+        mt, ft = at.recompute_mask(g_p, upd)
+        np.testing.assert_array_equal(mt, mr)
+        assert at.feedback(g_p, ft, elapsed) == ar.feedback(g_r, fr, elapsed)
+    assert at.c == ar.c != 32       # three ±1 moves from 32
