@@ -70,10 +70,30 @@ Phases, each printed on its own lines:
 10. round trips — the adaptive server's ``save``/``load`` into a fresh FULL
     server (equal graph, stores, c, bitwise-equal Q-values) and its
     ``save_policy``/``load_policy`` likewise;
-11. the CLI — ``python -m repro_torch.launch.serve --arch igpm-pem --steps 4
+11. serve-traced — a FULL Inc server with tracing on
+    (``ServingConfig(adaptive=False, obs=ObsConfig(enabled=True))``)
+    replays serve-inc's 4 batches with serve-inc's Louvain dendrogram
+    handed over (no third host build): stores and ``ell_spmm``/
+    ``ell_reach`` launch counts must equal serve-inc's; each step's
+    ``stage_s`` is printed in ms beside its wall time (the stages should
+    cover 90-110 % of a warm step; a step outside that is reported), and
+    under ``--profile`` each warm step's device-to-host copies are
+    attributed to the stage they fall in;
+12. runtime — serve-inc's untraced server (``reset()`` between runs, its
+    PEM state put back) serves the stream's 20 measured batches dealt into
+    a seeded flash-crowd arrival process (1,000 events/s, 48 ticks of
+    50 ms, 8x bursts for 4 of every 16 ticks, seed 0): under
+    ``VirtualClock`` ``run_workload_sync`` and the lockstep
+    ``ServingRuntime`` must give bitwise-equal stores and graphs (launch
+    counters set to 0 before the lockstep run and read after), and a
+    2-executor lockstep run the serial one's stores; under ``WallClock``
+    ``run_workload_sync(ingest="open")`` and ``ServingRuntime(ingress=
+    "shed")`` are run and their p50/p99 step and e2e latency, drops and
+    step counts printed;
+13. the CLI — ``python -m repro_torch.launch.serve --arch igpm-pem --steps 4
     --policy-dir <dir>`` run twice: the second run restores the policy the
     first saved;
-12. serve-lm — qwen3-moe-30b-a3b ``FULL`` at its published widths with the
+14. serve-lm — qwen3-moe-30b-a3b ``FULL`` at its published widths with the
    depth cut from 48 to 8 layers, seeded random weights, a 2 × 4,096-token
    prompt: prefill and 15 greedy decode steps through
    ``repro_torch.launch.serve.greedy_generate``, counters set to 0 before
@@ -524,7 +544,7 @@ def phase_lm_agreement():
     return counts
 
 
-# -- phase 12: serve-lm ---------------------------------------------------------
+# -- phase 14: serve-lm ---------------------------------------------------------
 
 def phase_serve_lm(profile: bool = False):
     import dataclasses
@@ -874,7 +894,7 @@ def phase_serve_inc(stream, n_steps: int, profile: bool = False):
     for d in st.deltas:
         check(d.total >= d.exact >= 0, "serve-inc: inconsistent store counts")
     say(f"  serve-inc stores: {total} patterns over {len(st.deltas)} queries")
-    return launches, per_step, cap.inputs, srv.pem.clustering_time
+    return launches, per_step, cap.inputs, srv
 
 
 def phase_serve_batch(stream, n_steps: int, profile: bool = False):
@@ -1177,6 +1197,298 @@ def phase_round_trips(srv, graph0):
     return dict(save_s=save_s, load_s=load_s, bytes=n_bytes)
 
 
+# -- phases 11-12: serve-traced and the async runtime ----------------------------
+
+def stores_of(srv):
+    return [dict(s._patterns) for s in srv.stores]
+
+
+def record_outputs(eng):
+    """Wrap ``eng.step`` to keep each StepOutput (which carries
+    ``stage_s``; the server's step stats do not)."""
+    outs = []
+    step = eng.step
+
+    def recording(state, upd):
+        state, out = step(state, upd)
+        outs.append(out)
+        return state, out
+
+    eng.step = recording
+    return outs
+
+
+def pem_snapshot(pem):
+    return pem._dendro, dict(pem._cuts), pem.c
+
+
+def pem_restore(pem, snap) -> None:
+    """Put back a PEM's dendrogram, cuts and c: every run of the runtime
+    phase starts from the same PEM state (the dendrogram is a function of
+    the warm graph and the seed, so handing it over saves its host build)."""
+    pem._dendro, cuts, pem.c = snap
+    pem._cuts = dict(cuts)
+
+
+class SpanRanges:
+    """Under ``--profile``: open a ``torch.profiler.record_function`` of the
+    span's name inside each engine span of ``obs``, so the profile can
+    attribute device-to-host copies to the stage they fall in."""
+
+    def __init__(self, obs):
+        import torch
+        span = obs.span
+
+        @contextlib.contextmanager
+        def ranged(name, **args):
+            with span(name, **args) as sp, \
+                    torch.profiler.record_function(name):
+                yield sp
+
+        obs.span = ranged
+
+
+def attribute_copies(prof):
+    """Device-to-host copies of a profiled step by the innermost engine
+    span (``record_function`` range) their host call falls in: count and
+    host ms of the ``cudaMemcpy*`` calls, and device ms of the copies."""
+    from torch.autograd import DeviceType
+    events = list(prof.events())
+    ranges = [e for e in events if e.name.startswith(("engine/", "bank/"))
+              and getattr(e, "device_type", None) == DeviceType.CPU]
+
+    def stage_of(t0, t1):
+        best = None
+        for r in ranges:
+            if r.time_range.start <= t0 and t1 <= r.time_range.end:
+                if best is None or (r.time_range.elapsed_us()
+                                    < best.time_range.elapsed_us()):
+                    best = r
+        return best.name if best is not None else "(outside spans)"
+
+    host, dev = {}, {}
+    for e in events:
+        if getattr(e, "device_type", None) == DeviceType.CPU and \
+                e.name.startswith("cudaMemcpy"):
+            k = stage_of(e.time_range.start, e.time_range.end)
+            n, ms = host.get(k, (0, 0.0))
+            host[k] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+        elif getattr(e, "device_type", None) != DeviceType.CPU and \
+                "DtoH" in e.name:
+            k = stage_of(e.time_range.start, e.time_range.start)
+            n, ms = dev.get(k, (0, 0.0))
+            dev[k] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return host, dev
+
+
+# stages that partition a traced step: ``ell_refresh`` is inside ``apply``
+# and gray_wait inside ``device_wait``, so the sum leaves ell_refresh out
+STAGE_PARTS = ("apply", "prune", "pem", "extract", "rwr", "seeds", "gray",
+               "device_wait", "merge", "feedback")
+
+
+def phase_serve_traced(stream, inc, inc_stores, inc_launches, n_steps: int,
+                       profile: bool = False):
+    """A FULL Inc server with tracing on replays serve-inc's batches: its
+    stores and launch counts must equal serve-inc's untraced ones; each
+    warm step's stages are printed beside its wall time. Serve-inc's
+    dendrogram is handed over (a function of the warm graph and the seed),
+    so this phase pays no host Louvain build."""
+    import torch
+    from repro_torch.config.base import ObsConfig, ServingConfig
+    from repro_torch.configs.igpm_paper import FULL
+    from repro_torch.core.query import query_zoo
+    from repro_torch.kernels.spmv_ell import ops
+    from repro_torch.obs.export import validate_events
+    from repro_torch.serving.server import MatchServer
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    srv = MatchServer(FULL, query_zoo(16),
+                      ServingConfig(adaptive=False,
+                                    obs=ObsConfig(enabled=True)),
+                      device="cuda")
+    pem_restore(srv.pem, pem_snapshot(inc.pem))
+    builds = srv.pem.recluster_count
+    outs = record_outputs(srv.engine)
+    if profile:
+        SpanRanges(srv.obs)
+    g = stream.graph
+    ops.reset_launch_counts()
+    per_step = []
+    for i, upd in enumerate(stream.updates[:n_steps]):
+        ctx = (tprofile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+               if profile and i >= 1 else contextlib.nullcontext())
+        with ctx as prof:
+            t0 = time.perf_counter()
+            srv.submit_update(upd)
+            g, st = srv.step(g)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        stage = outs[-1].stage_s
+        parts = sum(stage.get(k, 0.0) for k in STAGE_PARTS)
+        share = parts / dt
+        say(f"  serve-traced step {i}: {dt:.3f} s, stages sum "
+            f"{parts:.3f} s ({100 * share:.1f} % of the step): "
+            + " ".join(f"{k}={v * 1e3:.2f}" for k, v in stage.items())
+            + " ms")
+        row = dict(step=i, s=dt, stages_sum_s=parts,
+                   stage_ms={k: v * 1e3 for k, v in stage.items()})
+        if i >= 1 and not 0.9 <= share <= 1.1:
+            say(f"  serve-traced step {i}: the stages cover {100 * share:.1f}"
+                f" % of the step's wall time, outside 90-110 %")
+        if prof is not None:
+            host, dev = attribute_copies(prof)
+            say(f"  serve-traced step {i} device-to-host copies by stage "
+                f"(host calls: count, ms | device copies: count, ms):")
+            for k in sorted(set(host) | set(dev),
+                            key=lambda k: -host.get(k, (0, 0.0))[1]):
+                hn, hms = host.get(k, (0, 0.0))
+                dn, dms = dev.get(k, (0, 0.0))
+                say(f"    {k:24s} host {hn:3d} {hms:8.3f} ms | device "
+                    f"{dn:3d} {dms:7.3f} ms")
+            row["copies"] = {k: dict(host=host.get(k), device=dev.get(k))
+                             for k in set(host) | set(dev)}
+        per_step.append(row)
+    launches = dict(ops.LAUNCHES)
+    say(f"  serve-traced launches: {launches} (serve-inc: {inc_launches})")
+    check(launches == inc_launches,
+          "serve-traced: kernel launches differ from serve-inc's")
+    check(stores_of(srv) == inc_stores,
+          "serve-traced: stores differ from serve-inc's untraced stores")
+    check(srv.pem.recluster_count == builds,
+          "serve-traced: paid a Louvain build")
+    events = srv.obs.tracer.events()
+    check(validate_events(events) == [], "serve-traced: invalid span events")
+    check(srv.obs.tracer.n_spans > 0, "serve-traced: no spans")
+    say(f"  serve-traced: stores equal serve-inc's bitwise, "
+        f"{srv.obs.tracer.n_spans} spans, no Louvain build")
+    return per_step
+
+
+RT_TICKS, RT_TICK_S, RT_RATE = 48, 0.05, 1000.0
+
+
+def rt_report(tag: str, srv, stats) -> dict:
+    snap = srv.telemetry.snapshot()
+    q = srv.queue
+    row = dict(steps=len(stats), p50_step_ms=snap["p50_step_ms"],
+               p99_step_ms=snap["p99_step_ms"],
+               p50_e2e_ms=snap.get("p50_e2e_ms"),
+               p99_e2e_ms=snap.get("p99_e2e_ms"),
+               dropped=q.n_dropped, evicted=q.n_evicted,
+               rejected=q.n_rejected,
+               events=sum(s.n_events for s in stats))
+    say(f"  runtime {tag}: steps={row['steps']} p50_step="
+        f"{row['p50_step_ms']:.1f} ms p99_step={row['p99_step_ms']:.1f} ms "
+        f"p50_e2e={row['p50_e2e_ms']} ms p99_e2e={row['p99_e2e_ms']} ms "
+        f"events={row['events']} dropped={row['dropped']} (evicted="
+        f"{row['evicted']} rejected={row['rejected']})")
+    return row
+
+
+def phase_runtime(stream, inc, card: str):
+    """The async runtime on serve-inc's untraced FULL Inc server (reset
+    between runs; its PEM state put back each time): the stream's measured
+    batches dealt into a seeded flash-crowd process (1,000 events/s, 48
+    ticks of 50 ms, 8x bursts for 4 of every 16 ticks, seed 0). Under
+    ``VirtualClock`` the sync runner and the lockstep runtime must give
+    bitwise-equal stores and graphs, and a 2-executor lockstep run the
+    serial one's stores; under ``WallClock`` the open sync runner and the
+    shed runtime are timed side by side."""
+    import numpy as np
+    import torch
+    from repro_torch.config.base import RuntimeConfig
+    from repro_torch.core.graph import to_numpy
+    from repro_torch.kernels.spmv_ell import ops
+    from repro_torch.runtime import (ServingRuntime, VirtualClock,
+                                     WallClock, deal, flash_crowd,
+                                     run_workload_sync)
+    sc = flash_crowd(rate=RT_RATE, tick_s=RT_TICK_S, n_ticks=RT_TICKS,
+                     burst_amplitude=8.0, burst_period=16, burst_len=4,
+                     seed=0, n_vertices=stream.spec.n_vertices)
+    wl = deal(sc, stream)
+    empty = sum(1 for t in wl.ticks if not t.events)
+    say(f"  runtime workload: {wl.n_events} events of {len(stream.updates)} "
+        f"batches over {RT_TICKS} ticks of {RT_TICK_S * 1e3:.0f} ms; "
+        f"{empty} ticks carried none (the stream ran out)")
+    snap = pem_snapshot(inc.pem)
+    builds = inc.pem.recluster_count
+    buckets = len(inc.engine.buckets)
+    say(f"  runtime: the 16-query zoo fills {buckets} buckets"
+        + ("" if buckets > 1 else " — one bucket: the pool runs it serially"))
+    out = dict(n_events=wl.n_events, empty_ticks=empty, buckets=buckets)
+
+    def fresh():
+        inc.reset()
+        pem_restore(inc.pem, snap)
+        return inc
+
+    def graph_arrays(g):
+        return [to_numpy(getattr(g, f)) for f in g._fields]
+
+    srv = fresh()
+    t0 = time.perf_counter()
+    g_sync, st_sync = run_workload_sync(srv, wl, clock=VirtualClock())
+    torch.cuda.synchronize()
+    out["virtual_sync_s"] = time.perf_counter() - t0
+    sync_stores, sync_graph = stores_of(srv), graph_arrays(g_sync)
+    out["virtual_sync"] = rt_report("virtual sync", srv, st_sync)
+
+    srv = fresh()
+    ops.reset_launch_counts()
+    rt = ServingRuntime(srv, RuntimeConfig(ingress="lockstep",
+                                           drain_timeout_s=600.0),
+                        clock=VirtualClock())
+    st_lock = rt.serve(wl)
+    torch.cuda.synchronize()
+    launches_rt = dict(ops.LAUNCHES)
+    out["virtual_lockstep"] = rt_report("virtual lockstep", srv, st_lock)
+    check([s.n_events for s in st_lock] == [s.n_events for s in st_sync],
+          "runtime: lockstep batches differ from the sync runner's")
+    check(stores_of(srv) == sync_stores,
+          "runtime: lockstep stores differ from the sync runner's")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(graph_arrays(rt.graph), sync_graph)),
+          "runtime: lockstep graph differs from the sync runner's")
+    for name, count in launches_rt.items():
+        check(count > 0, f"runtime never launched {name}")
+    say(f"  runtime lockstep == sync bitwise (stores, graph, "
+        f"{len(st_lock)} steps); launches {launches_rt}")
+
+    srv = fresh()
+    ops.reset_launch_counts()
+    rt = ServingRuntime(srv, RuntimeConfig(ingress="lockstep", n_executors=2,
+                                           drain_timeout_s=600.0),
+                        clock=VirtualClock())
+    rt.serve(wl)
+    torch.cuda.synchronize()
+    launches_pool = dict(ops.LAUNCHES)
+    check(stores_of(srv) == sync_stores,
+          "runtime: 2-executor stores differ from the serial run's")
+    check(srv.engine._exec_pool is None, "runtime: pool not torn down")
+    say(f"  runtime n_executors=2 == serial bitwise; launches "
+        f"{launches_pool} ({'equal to' if launches_pool == launches_rt else 'DIFFERENT from'}"
+        f" the serial run's)")
+    out["launches_pool_equal"] = launches_pool == launches_rt
+
+    srv = fresh()
+    t0 = time.perf_counter()
+    _, st = run_workload_sync(srv, wl, clock=WallClock(), ingest="open")
+    out["wall_s_sync"] = time.perf_counter() - t0
+    out["wall_sync_open"] = rt_report("wall sync open", srv, st)
+    srv = fresh()
+    t0 = time.perf_counter()
+    rt = ServingRuntime(srv, RuntimeConfig(ingress="shed",
+                                           drain_timeout_s=600.0),
+                        clock=WallClock())
+    st = rt.serve(wl)
+    out["wall_s_async"] = time.perf_counter() - t0
+    out["wall_async_shed"] = rt_report("wall async shed", srv, st)
+    say(f"  runtime wall-clock figures on {card}")
+    check(inc.pem.recluster_count == builds, "runtime: paid a Louvain build")
+    return out, launches_rt
+
+
 # -- phase 5: adaptive agreement, card against CPU ------------------------------
 
 def phase_small_adaptive_agreement():
@@ -1239,7 +1551,7 @@ def phase_small_adaptive_agreement():
     return dict(c=c_card, max_goodness_diff=worst, rl_loss_rel=rel)
 
 
-# -- phase 11: the port's CLI ----------------------------------------------------
+# -- phase 13: the port's CLI ----------------------------------------------------
 
 def phase_cli():
     """``repro_torch.launch.serve --arch igpm-pem`` on the card, twice with
@@ -1329,8 +1641,10 @@ def main(argv=None) -> int:
         f"warm arcs={int(stream.graph.edge_mask.sum())} "
         f"({time.perf_counter() - t0:.2f} s)")
     say("phase serve-inc:")
-    launches_inc, inc_steps, captured, louvain_s = phase_serve_inc(
+    launches_inc, inc_steps, captured, inc_srv = phase_serve_inc(
         stream, INC_STEPS, args.profile)
+    louvain_s = inc_srv.pem.clustering_time
+    inc_stores = stores_of(inc_srv)
     cap = check_captured(captured)
     del captured
     say("phase serve-batch:")
@@ -1345,7 +1659,14 @@ def main(argv=None) -> int:
     cap["adaptive"] = check_captured_adaptive(adapt_cap)
     adapt_louvain_s = srv.pem.clustering_time
     round_trips = phase_round_trips(srv, stream.graph)
-    del srv, adapt_cap, stream
+    del srv, adapt_cap
+    torch.cuda.empty_cache()
+    say("phase serve-traced:")
+    traced = phase_serve_traced(stream, inc_srv, inc_stores, launches_inc,
+                                INC_STEPS, args.profile)
+    say("phase runtime:")
+    runtime, launches_rt = phase_runtime(stream, inc_srv, card)
+    del inc_srv, stream
     torch.cuda.empty_cache()
     phase_cli()
     say("phase serve-lm:")
@@ -1354,7 +1675,7 @@ def main(argv=None) -> int:
                  louvain_s=louvain_s, adaptive_steps=adapt_steps,
                  adaptive_louvain_s=adapt_louvain_s,
                  adaptive_agreement=adapt_agree, round_trips=round_trips,
-                 captured=cap, lm=lm)
+                 traced=traced, runtime=runtime, captured=cap, lm=lm)
 
     kernels = []
     for name, src, line in (
@@ -1370,6 +1691,7 @@ def main(argv=None) -> int:
             "launches_path": "serve-adaptive",
             "launches_inc": launches_inc[name],
             "launches_batch": launches_batch[name],
+            "launches_runtime": launches_rt[name],
             "max_abs_err": max(head["max_abs_err"], served["max_abs_err"]),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

@@ -25,8 +25,13 @@ Contract:
 
 ``index.msgpack`` is written by a small MessagePack encoder of the subset
 the index uses (maps, arrays, str, non-negative int); restoring reads only
-``arrays.npz``. Leaves whose dtype numpy cannot hold (bfloat16) are
-refused.
+``arrays.npz``.
+
+Dtypes follow the JAX package: a leaf that ``arrays.npz`` cannot hold
+(bfloat16, fp8) is widened to float32 on disk, and ``restore`` casts every
+stored array to the dtype of the matching ``like`` leaf with numpy's
+unsafe casting (float → int truncates toward zero). A bfloat16 ``like``
+leaf, which numpy cannot hold, comes back as a CPU tensor.
 """
 
 from __future__ import annotations
@@ -118,24 +123,37 @@ def _leaf_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
-def _numpy_dtype(leaf) -> np.dtype:
+def _numpy_dtype(leaf) -> Optional[np.dtype]:
+    """The numpy dtype of a leaf, or None for a tensor dtype numpy cannot
+    hold (bfloat16, fp8)."""
     if isinstance(leaf, torch.Tensor):
         try:
             return torch.empty(0, dtype=leaf.dtype).numpy().dtype
-        except TypeError as exc:
-            raise TypeError(f"no numpy dtype for a {leaf.dtype} leaf; such "
-                            "trees are not checkpointed") from exc
+        except TypeError:
+            return None
     return np.asarray(leaf).dtype
 
 
 def _host_array(leaf) -> np.ndarray:
+    """The array stored for a leaf: float32 where ``arrays.npz`` cannot
+    hold its dtype (the reference's ``_storable``)."""
     dt = _numpy_dtype(leaf)
-    if dt.name not in _NPZ_SAFE:
-        raise TypeError(f"leaf dtype {dt} cannot be stored in arrays.npz")
     if isinstance(leaf, torch.Tensor):
         # a copy even on the CPU: an async save must not see later writes
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.asarray(leaf)
+        t = leaf.detach()
+        if dt is None or dt.name not in _NPZ_SAFE:
+            t = t.float()
+        return t.to("cpu", copy=True).numpy()
+    a = np.asarray(leaf)
+    return a if dt.name in _NPZ_SAFE else a.astype(np.float32)
+
+
+def _cast(arr: np.ndarray, leaf):
+    """``arr`` in the dtype of the ``like`` leaf (unchanged when equal)."""
+    want = _numpy_dtype(leaf)
+    if want is None:   # bf16 and the like: a tensor, as numpy has no dtype
+        return torch.from_numpy(arr).to(leaf.dtype)
+    return arr if arr.dtype == want else arr.astype(want)
 
 
 def _flatten(tree: Any) -> List[Tuple[str, np.ndarray]]:
@@ -238,7 +256,8 @@ class Checkpointer:
 
     def restore(self, like: Any, step: Optional[int] = None) -> Tuple[Any, int]:
         """Restore into the structure of ``like`` (values replaced by numpy
-        arrays of the dtype of ``like``'s leaves)."""
+        arrays of the dtype of ``like``'s leaves; CPU tensors for leaves
+        numpy cannot hold)."""
         step = self._resolve(step)
         path = self.dir / f"step_{step:012d}"
         with np.load(path / "arrays.npz") as z:
@@ -247,12 +266,5 @@ class Checkpointer:
         for key, leaf in _leaf_paths(like):
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
-            arr = arrays[key]
-            want = _numpy_dtype(leaf)
-            if arr.dtype != want:
-                if not np.can_cast(arr.dtype, want, casting="same_kind"):
-                    raise TypeError(f"leaf {key!r}: stored {arr.dtype} does "
-                                    f"not cast to {want}")
-                arr = arr.astype(want)
-            leaves.append(arr)
+            leaves.append(_cast(arrays[key], leaf))
         return _rebuild(like, iter(leaves)), step

@@ -30,14 +30,21 @@ Everything runs on one device, ``device="cuda"`` unless the caller asks for
 the CPU; the DQN agent of adaptive mode lives there too. ``state_dict`` /
 ``load_state_dict`` carry state in the JAX package's key layout, and
 ``save`` / ``load`` write and read it as checkpoint directories that
-either package restores. Tracing, the executor pool, graph sharding, edge
-partitioning and the serving controller's state are not ported.
+either package restores.
+
+Tracing (``EngineConfig.obs``) wraps each stage in a span and returns the
+per-stage wall times in ``StepOutput.stage_s``; its extra device fences
+(``torch.cuda.synchronize``) run only with tracing on. ``set_executor_pool``
+fans each step's per-bucket matches across worker threads, joined in
+bucket order. Graph sharding, edge partitioning and the serving
+controller's state are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -56,6 +63,7 @@ from repro_torch.engine.buckets import (QueryBucket, _pow2, bucket_shape,
                                         decode_strings, encode_strings)
 from repro_torch.engine.state import EngineState, QueryDelta, StepOutput
 from repro_torch.engine.store import PatternStore, live_vertex_mask
+from repro_torch.obs import Obs
 
 
 # EngineConfig knobs whose features are not ported yet, with the ROADMAP.md
@@ -65,7 +73,6 @@ _WAITING = {
     "graph_shard": "12, multi-GPU layers",
     "edge_partition": "12, multi-GPU layers",
     "partition_headroom": "12, multi-GPU layers",
-    "obs": "11, observability",
 }
 
 
@@ -137,6 +144,16 @@ class Engine:
         self.rwr_cols_skipped = 0  # converged-column sweeps retired
         self._last_sweeps = 0
         self._last_cols_skipped = 0
+        # observability hub: the serving/runtime layers reuse this
+        # engine's hub so one event stream spans all threads
+        self.obs = Obs(ecfg.obs)
+        # last _merge fan-out shape (bank rows folded / alias stores
+        # written / merge_arrays calls)
+        self.last_merge_rows = 0
+        self.last_merge_stores = 0
+        self.last_merge_folds = 0
+        # per-bucket match fan-out pool (set_executor_pool); None = serial
+        self._exec_pool: Optional[ThreadPoolExecutor] = None
 
     # -- standing-query registry ----------------------------------------------
 
@@ -169,6 +186,8 @@ class Engine:
             self.stores[qid] = store
             self._where[qid] = shape
             self._order.append(qid)
+            self.obs.instant("bank/register_alias", qid=qid,
+                             primary=self._dups[sig][0])
             return qid
         bucket = self.buckets.get(shape)
         if bucket is None:
@@ -177,15 +196,17 @@ class Engine:
             self.buckets[shape] = bucket
         elif bucket.full:
             bucket = self._grow(bucket)
-        while True:
-            try:
-                bucket.register(qid, query)
-                break
-            except DagFull:
-                # sub-pattern capacity outgrown: double it (a rebuild, the
-                # same amortized cost as the B_pad doubling)
-                bucket = self._rebuild(bucket, bucket.b_pad,
-                                       node_cap=2 * bucket.node_cap)
+        with self.obs.span("bank/register", qid=qid,
+                           bucket=f"{shape[0]}x{shape[1]}"):
+            while True:
+                try:
+                    bucket.register(qid, query)
+                    break
+                except DagFull:
+                    # sub-pattern capacity outgrown: double it (a rebuild,
+                    # the same amortized cost as the B_pad doubling)
+                    bucket = self._rebuild(bucket, bucket.b_pad,
+                                           node_cap=2 * bucket.node_cap)
         self._dups.setdefault(sig, []).append(qid)
         self._sig_of[qid] = sig
         self._seed_memo.pop(shape, None)
@@ -201,30 +222,32 @@ class Engine:
         left at ≤ quarter occupancy compacts to half its row capacity."""
         if qid not in self._where:
             raise KeyError(f"unknown qid {qid!r}; live: {self._order}")
-        shape = self._where.pop(qid)
-        sig = self._sig_of.pop(qid)
-        group = self._dups[sig]
-        del self.stores[qid]
-        self._order.remove(qid)
-        bucket = self.buckets[shape]
-        if qid != group[0]:
-            # alias — the primary keeps the row
-            group.remove(qid)
-            del self._alias_query[qid]
-            return
-        group.pop(0)
-        if group:
-            # primary with aliases: promote the next one onto the row
-            promoted = group[0]
-            bucket.rename_row(qid, promoted, self._alias_query.pop(promoted))
-            return
-        del self._dups[sig]
-        bucket.retire(qid)
-        self._seed_memo.pop(shape, None)
-        if bucket.n_live == 0:
-            del self.buckets[shape]
-        elif bucket.b_pad > 1 and bucket.n_live <= bucket.b_pad // 4:
-            self._rebuild(bucket, bucket.b_pad // 2)
+        with self.obs.span("bank/retire", qid=qid):
+            shape = self._where.pop(qid)
+            sig = self._sig_of.pop(qid)
+            group = self._dups[sig]
+            del self.stores[qid]
+            self._order.remove(qid)
+            bucket = self.buckets[shape]
+            if qid != group[0]:
+                # alias — the primary keeps the row
+                group.remove(qid)
+                del self._alias_query[qid]
+                return
+            group.pop(0)
+            if group:
+                # primary with aliases: promote the next one onto the row
+                promoted = group[0]
+                bucket.rename_row(qid, promoted,
+                                  self._alias_query.pop(promoted))
+                return
+            del self._dups[sig]
+            bucket.retire(qid)
+            self._seed_memo.pop(shape, None)
+            if bucket.n_live == 0:
+                del self.buckets[shape]
+            elif bucket.b_pad > 1 and bucket.n_live <= bucket.b_pad // 4:
+                self._rebuild(bucket, bucket.b_pad // 2)
 
     def _reshare_alias_stores(self) -> None:
         """Re-establish pattern-dict sharing across exact-duplicate groups
@@ -248,12 +271,14 @@ class Engine:
         explicit ``node_cap`` is forced (the DagFull doubling)."""
         if node_cap is None:
             node_cap = _pow2(bucket.dag.n_nodes, bucket.q_max)
-        fresh = QueryBucket(self.cfg, bucket.q_max, bucket.qe_max,
-                            b_pad=b_pad, node_cap=node_cap,
-                            device=self.device)
-        for slot, qid in bucket.rows():
-            fresh.register(qid, bucket.query(slot))
-        self.buckets[(bucket.q_max, bucket.qe_max)] = fresh
+        with self.obs.span("bank/rebuild", b_pad=b_pad, node_cap=node_cap,
+                           rows=bucket.n_live):
+            fresh = QueryBucket(self.cfg, bucket.q_max, bucket.qe_max,
+                                b_pad=b_pad, node_cap=node_cap,
+                                device=self.device)
+            for slot, qid in bucket.rows():
+                fresh.register(qid, bucket.query(slot))
+            self.buckets[(bucket.q_max, bucket.qe_max)] = fresh
         return fresh
 
     def _grow(self, bucket: QueryBucket) -> QueryBucket:
@@ -274,6 +299,35 @@ class Engine:
     @property
     def qids(self) -> Tuple[str, ...]:
         return tuple(self._order)
+
+    def alias_groups(self) -> Dict[str, str]:
+        """qid → its frontier-group primary (itself unless an alias) for
+        every live standing query. Exact-duplicate group members share
+        one bank row and receive identical result fan-out each step, so
+        any per-query delivery frontier is shared across the group — the
+        :class:`~repro_torch.obs.freshness.FreshnessLedger` reads this."""
+        return {qid: group[0]
+                for group in self._dups.values() for qid in group}
+
+    def partition_occupancy(self) -> Optional[float]:
+        """Worst live-slice fill fraction of edge-partitioned storage, read
+        by the health watchdog. Always None: the port keeps the graph's
+        edges in one unpartitioned store."""
+        return None
+
+    def set_executor_pool(self, n_executors: int) -> None:
+        """Install (``n > 1``) or tear down (``n <= 1``) the per-bucket
+        match fan-out pool. Pool workers only launch each bucket's match —
+        on inputs identical to the serial path — and the join happens in
+        bucket order before any merge, so pooled results are bitwise equal
+        to serial ones. Host-side step decisions (seed memo, PEM, merge)
+        never leave the calling thread."""
+        if self._exec_pool is not None:
+            self._exec_pool.shutdown(wait=True)
+            self._exec_pool = None
+        if n_executors > 1:
+            self._exec_pool = ThreadPoolExecutor(
+                max_workers=n_executors, thread_name_prefix="rt-bucket-exec")
 
     def occupancy(self) -> Dict[Tuple[int, int, int], Tuple[int, int]]:
         """bucket key (q_max, qe_max, B_pad) → (live rows, padded rows)."""
@@ -368,36 +422,54 @@ class Engine:
     def _merge(self, results, remap=None,
                rebuild: bool = False) -> Tuple[QueryDelta, ...]:
         """Fold per-bucket results into the per-query stores (the only
-        per-query host work of a step). Alias stores created while the
-        primary was empty SHARE the primary's pattern dict, so each row
-        folds its arrays once per *distinct dict* in its group."""
+        per-query host work of a step), traced per bucket and per row.
+        Alias stores created while the primary was empty SHARE the
+        primary's pattern dict, so each row folds its arrays once per
+        *distinct dict* in its group. ``last_merge_rows``/``_stores``/
+        ``_folds`` keep the fan-out accounting."""
+        obs = self.obs
         by_qid: Dict[str, QueryDelta] = {}
+        n_rows = n_stores = n_folds = 0
         for shape, res in results.items():
             bucket = self.buckets[shape]
-            matched = to_numpy(res.matched)
-            if remap is not None:
-                matched = remap_matched(
-                    matched.reshape(-1, matched.shape[-1]),
-                    remap).reshape(matched.shape)
-            goodness = to_numpy(res.goodness)
-            exact = to_numpy(res.exact)
-            valid = to_numpy(res.valid)
-            for slot, qid in bucket.rows():
-                group = self._dups.get(self._sig_of[qid], [qid])
-                folded: Dict[int, int] = {}  # id(pattern dict) → n_new
-                for alias in group:
-                    store = self.stores[alias]
-                    pid = id(store._patterns)
-                    if pid not in folded:
-                        if rebuild:
-                            store._patterns.clear()
-                        folded[pid] = store.merge_arrays(
-                            matched[slot], goodness[slot], exact[slot],
-                            valid[slot], bucket.row_mask(slot))
-                    name = (bucket.query(slot).name if alias == qid
-                            else self._alias_query[alias].name)
-                    by_qid[alias] = QueryDelta(alias, name, folded[pid],
-                                               store.total, store.exact)
+            with obs.span("engine/merge/bucket",
+                          bucket=f"{shape[0]}x{shape[1]}",
+                          rows=bucket.n_live):
+                matched = to_numpy(res.matched)
+                if remap is not None:
+                    matched = remap_matched(
+                        matched.reshape(-1, matched.shape[-1]),
+                        remap).reshape(matched.shape)
+                goodness = to_numpy(res.goodness)
+                exact = to_numpy(res.exact)
+                valid = to_numpy(res.valid)
+                for slot, qid in bucket.rows():
+                    group = self._dups.get(self._sig_of[qid], [qid])
+                    n_rows += 1
+                    n_stores += len(group)
+                    folded: Dict[int, int] = {}  # id(pattern dict) → n_new
+                    with obs.span("engine/merge/row", qid=qid,
+                                  aliases=len(group)):
+                        for alias in group:
+                            store = self.stores[alias]
+                            pid = id(store._patterns)
+                            if pid not in folded:
+                                if rebuild:
+                                    store._patterns.clear()
+                                folded[pid] = store.merge_arrays(
+                                    matched[slot], goodness[slot],
+                                    exact[slot], valid[slot],
+                                    bucket.row_mask(slot))
+                                n_folds += 1
+                            name = (bucket.query(slot).name if alias == qid
+                                    else self._alias_query[alias].name)
+                            by_qid[alias] = QueryDelta(alias, name,
+                                                       folded[pid],
+                                                       store.total,
+                                                       store.exact)
+        self.last_merge_rows = n_rows
+        self.last_merge_stores = n_stores
+        self.last_merge_folds = n_folds
         return tuple(by_qid[q] for q in self._order if q in by_qid)
 
     # -- state carried across (the JAX package's state_dict layout) ------------
@@ -514,42 +586,122 @@ def _n_events(upd: UpdateBatch) -> int:
     return int(upd.add_mask.sum() + upd.rem_mask.sum() + upd.lab_mask.sum())
 
 
+
+
 def engine_step(eng: Engine, state: EngineState,
                 upd: UpdateBatch) -> Tuple[EngineState, StepOutput]:
     """THE shared step pipeline (module docstring). Evolving data is read
     from ``state`` and returned in the new state; Engine-held host caches
-    are rebuilt-on-demand views."""
+    are rebuilt-on-demand views.
+
+    With tracing off this delegates straight to the pipeline — no span
+    objects, no stage dict, no extra device fences. With tracing on, the
+    step runs inside a step-scoped trace context (every span carries
+    ``step``), the flight recorder captures the step's span group, and
+    per-stage wall times come back in ``StepOutput.stage_s``."""
+    obs = eng.obs
+    if not obs.enabled:
+        return _engine_step(eng, state, upd, obs, None)
+    step_idx = int(state.step_idx)
+    with obs.profile_step(step_idx), obs.context(step=step_idx):
+        obs.begin_step(step_idx)
+        try:
+            return _engine_step(eng, state, upd, obs, {})
+        finally:
+            obs.end_step(step_idx)
+
+
+def _run_matches(eng: Engine, jobs, obs: Obs, tracing: bool):
+    """Run the per-bucket bank matches: serially without an executor pool
+    (or with one job), fanned across the pool otherwise, joined in bucket
+    submission order before returning. Each job is ``(shape, bucket_key,
+    thunk)``; every bucket's match is the same computation on the same
+    inputs either way, so pooled results are bitwise equal to serial ones
+    and ``results`` keeps bucket-insertion order. Pooled ``t_gray`` sums
+    per-worker seconds (may exceed wall time). On one card no launch holds
+    a collective, so workers launch concurrently without a lock."""
+    results = {}
+    t_gray = t_gwait = 0.0
+    dev = eng.device
+    pool = eng._exec_pool
+    if pool is None or len(jobs) <= 1:
+        for shape, bkey, thunk in jobs:
+            with obs.span("engine/gray", bucket=bkey) as sp:
+                results[shape] = thunk()
+            t_gray += sp.dur_s
+            if tracing:
+                with obs.span("engine/gray_wait", bucket=bkey) as spw:
+                    _sync(dev)
+                t_gwait += spw.dur_s
+        return results, t_gray, t_gwait
+
+    def run(bkey, thunk):
+        with obs.span("engine/gray", bucket=bkey, pooled=True) as sp:
+            out = thunk()
+            if tracing:
+                _sync(dev)
+        return out, sp.dur_s
+
+    futs = [(shape, pool.submit(run, bkey, thunk))
+            for shape, bkey, thunk in jobs]
+    for shape, fut in futs:
+        out, dur = fut.result()
+        results[shape] = out
+        t_gray += dur
+    return results, t_gray, t_gwait
+
+
+def _engine_step(eng: Engine, state: EngineState, upd: UpdateBatch,
+                 obs: Obs, stage: Optional[Dict[str, float]]
+                 ) -> Tuple[EngineState, StepOutput]:
+    """Pipeline body. ``stage`` is None when tracing is off (every span
+    call then hits the shared no-op span); when tracing, it accumulates
+    per-stage seconds for ``StepOutput.stage_s``. Stages: apply (with
+    ell_refresh inside it) → prune → pem → [storm: rwr → seeds → gray |
+    induced: extract → rwr → gray] → device_wait → merge → feedback. The
+    ``torch.cuda.synchronize`` fences that split host dispatch from device
+    wait inside rwr, seeds and gray run ONLY when tracing; device_wait is
+    the step's one untraced sync, as before."""
     cfg, ecfg = eng.cfg, eng.ecfg
     dev = eng.device
-    g, refresh_s = eng._apply(state.graph, upd)
-    n_events = _n_events(upd)
-    rlab_events = state.rlab_events + n_events
-    rlab_version = state.rlab_version
-    upd_ids = None
-    if ecfg.mode != "batch":
-        ids, mask = updated_vertices(g, upd, ecfg.v_max)
-        upd_ids = to_numpy(torch.where(mask, ids, -1))
+    tracing = stage is not None
+    with obs.span("engine/apply") as sp:
+        g, refresh_s = eng._apply(state.graph, upd)
+        n_events = _n_events(upd)
+        rlab_events = state.rlab_events + n_events
+        rlab_version = state.rlab_version
+        upd_ids = None
+        if ecfg.mode != "batch":
+            ids, mask = updated_vertices(g, upd, ecfg.v_max)
+            upd_ids = to_numpy(torch.where(mask, ids, -1))
+    if tracing:
+        stage["apply"] = sp.dur_s
+        stage["ell_refresh"] = refresh_s
 
     # -- store pruning (deletion-heavy streams) --------------------------------
     n_pruned = 0
     if (ecfg.mode != "batch"
             and any(s.total for s in eng.stores.values())
             and bool(upd.rem_mask.any())):
-        live = live_vertex_mask(g)
-        # prune each DISTINCT pattern dict once (alias stores share the
-        # primary's dict); every sharer still counts the removals
-        removed: Dict[int, int] = {}
-        for s in eng.stores.values():
-            pid = id(s._patterns)
-            if pid not in removed:
-                removed[pid] = s.prune(live)
-            n_pruned += removed[pid]
+        with obs.span("engine/prune") as sp:
+            live = live_vertex_mask(g)
+            # prune each DISTINCT pattern dict once (alias stores share the
+            # primary's dict); every sharer still counts the removals
+            removed: Dict[int, int] = {}
+            for s in eng.stores.values():
+                pid = id(s._patterns)
+                if pid not in removed:
+                    removed[pid] = s.prune(live)
+                n_pruned += removed[pid]
+        if tracing:
+            stage["prune"] = sp.dur_s
 
     t0 = time.perf_counter()
     n_live = max(int(g.node_mask.sum()), 1)
     rlab_hit = seed_hit = False
     community = 0
     rl_loss = 0.0
+    t_seeds = 0.0
 
     eng._last_sweeps = 0
     eng._last_cols_skipped = 0
@@ -559,19 +711,28 @@ def engine_step(eng: Engine, state: EngineState,
         n_rec = n_live
         storm = True
         ell = eng._full_ell
-        r_lab = eng._label_table(g, ell=ell)
-        results = {shape: bucket.match(g, r_lab, ell=ell)
-                   for shape, bucket in eng.buckets.items()}
-        _sync(dev)
-        elapsed = time.perf_counter() - t0
-        deltas = eng._merge(results, rebuild=True)
+        with obs.span("engine/rwr", mode="batch") as sp:
+            r_lab = eng._label_table(g, ell=ell)
+            if tracing:
+                _sync(dev)
+        if tracing:
+            stage["rwr"] = sp.dur_s
+        jobs = [(shape, f"{shape[0]}x{shape[1]}",
+                 (lambda b=bucket: b.match(g, r_lab, ell=ell)))
+                for shape, bucket in eng.buckets.items()]
+        remap = None
+        rebuild = True
         sub_n = sub_e = 0
-        r_lab = None  # batch mode keeps no warm-start state
+        r_next = None  # batch mode keeps no warm-start state
         rlab_events = 0
     else:
-        rec_mask, frac = eng.pem.recompute_mask(g, upd_ids)
-        n_rec = int(rec_mask.sum())
+        with obs.span("engine/pem") as sp:
+            rec_mask, frac = eng.pem.recompute_mask(g, upd_ids)
+            n_rec = int(rec_mask.sum())
+        if tracing:
+            stage["pem"] = sp.dur_s
         storm = n_rec > ecfg.full_graph_frac * n_live
+        rebuild = False
 
         if storm:
             # update storm — full pass, warm-started label RWR, gated by the
@@ -582,22 +743,33 @@ def engine_step(eng: Engine, state: EngineState,
                 r_lab = state.r_lab
                 rlab_hit = True
                 eng.rlab_hits += 1
+                if tracing:
+                    stage["rwr"] = 0.0
+                    obs.instant("engine/rwr_cache_hit")
             else:
                 # warm starts under the residual-adaptive loop keep the
                 # full hard cap — convergence is measured, not assumed
-                r_lab = eng._label_table(
-                    g, r0=state.r_lab,
-                    iters=(None if (state.r_lab is None or cfg.rwr_tol > 0)
-                           else cfg.rwr_iters_incremental),
-                    ell=ell)
+                with obs.span("engine/rwr", mode="storm",
+                              warm=state.r_lab is not None) as sp:
+                    r_lab = eng._label_table(
+                        g, r0=state.r_lab,
+                        iters=(None if (state.r_lab is None
+                                        or cfg.rwr_tol > 0)
+                               else cfg.rwr_iters_incremental),
+                        ell=ell)
+                    if tracing:
+                        _sync(dev)
+                if tracing:
+                    stage["rwr"] = sp.dur_s
                 rlab_events = 0
                 rlab_version += 1
                 eng.rlab_misses += 1
             sf = torch.as_tensor(rec_mask, device=dev)
             mask_arr = np.asarray(rec_mask, bool)
-            results = {}
+            jobs = []
             bucket_hits = []
             for shape, bucket in eng.buckets.items():
+                bkey = f"{shape[0]}x{shape[1]}"
                 ver_key = (rlab_version, bucket.version)
                 hit = eng._seed_memo.get(shape)
                 # bounded-divergence reuse: same table/bank versions and a
@@ -614,34 +786,68 @@ def engine_step(eng: Engine, state: EngineState,
                     else:
                         eng.seed_hits_bounded += 1
                 else:
-                    seeds = bucket.seeds(g, r_lab, sf)
+                    with obs.span("engine/seeds", bucket=bkey) as sp:
+                        seeds = bucket.seeds(g, r_lab, sf)
+                        if tracing:
+                            _sync(dev)
+                    t_seeds += sp.dur_s
                     eng._seed_memo[shape] = (ver_key, mask_arr, seeds)
                     bucket_hits.append(False)
                     eng.seed_misses += 1
-                results[shape] = bucket.match(g, r_lab, seed_filter=sf,
-                                              ell=ell, seeds=seeds)
+                jobs.append((shape, bkey,
+                             (lambda b=bucket, s=seeds:
+                              b.match(g, r_lab, seed_filter=sf, ell=ell,
+                                      seeds=s))))
             seed_hit = bool(bucket_hits) and all(bucket_hits)
-            _sync(dev)
-            elapsed = time.perf_counter() - t0
-            deltas = eng._merge(results)
+            remap = None
             sub_n, sub_e = n_live, int(g.edge_mask.sum())
+            r_next = r_lab
         else:
-            sub = extract_induced(
-                g, rec_mask,
-                ell_k=(cfg.ell_width if eng.ell_cache is not None
-                       else None))
-            r_sub = eng._label_table(sub.graph, ell=sub.ell)
-            results = {shape: bucket.match(sub.graph, r_sub, ell=sub.ell)
-                       for shape, bucket in eng.buckets.items()}
-            _sync(dev)
-            elapsed = time.perf_counter() - t0
-            deltas = eng._merge(results, remap=sub.local_to_global)
+            with obs.span("engine/extract") as sp:
+                sub = extract_induced(
+                    g, rec_mask,
+                    ell_k=(cfg.ell_width if eng.ell_cache is not None
+                           else None))
+            if tracing:
+                stage["extract"] = sp.dur_s
+            with obs.span("engine/rwr", mode="induced") as sp:
+                r_sub = eng._label_table(sub.graph, ell=sub.ell)
+                if tracing:
+                    _sync(dev)
+            if tracing:
+                stage["rwr"] = sp.dur_s
+            jobs = [(shape, f"{shape[0]}x{shape[1]}",
+                     (lambda b=bucket: b.match(sub.graph, r_sub,
+                                               ell=sub.ell)))
+                    for shape, bucket in eng.buckets.items()]
+            remap = sub.local_to_global
             sub_n, sub_e = sub.n_nodes, sub.n_edges
-            r_lab = state.r_lab  # full-graph warm start unchanged
+            r_next = state.r_lab  # full-graph warm start unchanged
 
-        community, rl_loss = eng.pem.feedback(g, frac, elapsed)
+    results, t_gray, t_gwait = _run_matches(eng, jobs, obs, tracing)
+    with obs.span("engine/device_wait") as sp:
+        _sync(dev)
+    elapsed = time.perf_counter() - t0
+    if tracing:
+        if storm and ecfg.mode != "batch":
+            stage["seeds"] = t_seeds
+        stage["gray"] = t_gray
+        stage["device_wait"] = t_gwait + sp.dur_s
+    with obs.span("engine/merge") as sp:
+        deltas = eng._merge(results, remap=remap, rebuild=rebuild)
+    if tracing:
+        stage["merge"] = sp.dur_s
+        obs.instant("engine/merge/fanout", rows=eng.last_merge_rows,
+                    stores=eng.last_merge_stores,
+                    folds=eng.last_merge_folds)
 
-    new_state = state.evolve(graph=g, r_lab=r_lab, rlab_events=rlab_events,
+    if ecfg.mode != "batch":
+        with obs.span("engine/pem_feedback") as sp:
+            community, rl_loss = eng.pem.feedback(g, frac, elapsed)
+        if tracing:
+            stage["feedback"] = sp.dur_s
+
+    new_state = state.evolve(graph=g, r_lab=r_next, rlab_events=rlab_events,
                              rlab_version=rlab_version,
                              step_idx=state.step_idx + 1)
     out = StepOutput(
@@ -651,5 +857,6 @@ def engine_step(eng: Engine, state: EngineState,
         ell_refresh_s=refresh_s, n_pruned=n_pruned, n_events=n_events,
         rlab_cache_hit=rlab_hit, seed_cache_hit=seed_hit,
         rwr_sweeps=eng._last_sweeps,
-        rwr_cols_skipped=eng._last_cols_skipped, deltas=deltas)
+        rwr_cols_skipped=eng._last_cols_skipped, deltas=deltas,
+        stage_s=stage)
     return new_state, out

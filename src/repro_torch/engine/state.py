@@ -71,7 +71,7 @@ class StepOutput(NamedTuple):
     rwr_sweeps: int = 0       # label-RWR sweeps run (measured if adaptive)
     rwr_cols_skipped: int = 0  # converged-column sweeps retired (adaptive)
     deltas: Tuple[QueryDelta, ...] = ()
-    # per-stage wall seconds — tracing is not ported, so always None
+    # per-stage wall seconds when tracing is on (EngineConfig.obs), else None
     stage_s: Optional[Dict[str, float]] = None
 
     @property

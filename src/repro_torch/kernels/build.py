@@ -7,7 +7,9 @@ source, of the headers it includes (``csrc/hopper.cuh``, shared by the
 TMA + wgmma kernels) and of the flags, so an edited source or header
 builds anew and an unchanged one is reused. All missing libraries are
 compiled at once, one ``nvcc`` process per source, started together; the
-first use of any kernel builds them all.
+first use of any kernel builds them all, under one lock, so concurrent
+first calls (the engine's per-bucket executor pool) build and load each
+library once.
 The TMA kernels find the driver's ``cuTensorMapEncodeTiled`` at run time
 through ``cudaGetDriverEntryPoint``, so no library links against libcuda.
 """
@@ -20,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
@@ -56,6 +59,9 @@ KERNELS = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# held around the build and the dlopen of a first call: without it two
+# threads could both run nvcc into one target, or both load a library
+_BUILD_LOCK = threading.Lock()
 BUILD_LOG: Dict[str, str] = {}  # name → nvcc's output (ptxas register use)
 
 
@@ -142,14 +148,19 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 def kernel(name: str):
     """The C entry point of kernel ``name``; the first call builds every
-    missing library of :data:`KERNELS` (so one use builds them all)."""
+    missing library of :data:`KERNELS` (so one use builds them all). Safe
+    under concurrent first calls: the build and the load run under one
+    lock, and a thread that waited on it finds the library loaded."""
     lib = _LIBS.get(name)
     if lib is None:
-        build()
-        lib = ctypes.CDLL(str(_target(name)))
-        _, fn_name, argtypes = KERNELS[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        with _BUILD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build()
+                lib = ctypes.CDLL(str(_target(name)))
+                _, fn_name, argtypes = KERNELS[name]
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _LIBS[name] = lib
     return getattr(lib, KERNELS[name][1])

@@ -9,7 +9,8 @@ bridge's BFS frontier step) check their inputs, then:
 * on CPU tensors run the plain version from :mod:`.ref`.
 
 Each keeps a plain-integer launch count in :data:`LAUNCHES`, bumped only
-where its kernel is launched, so a run can show that the main path went
+where its kernel is launched (under a lock: the engine's executor pool
+launches from several threads), so a run can show that the main path went
 through the kernels.
 
 :func:`ell_variant` picks, by shape alone, which variant of either kernel
@@ -24,6 +25,7 @@ once.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,6 +35,7 @@ from repro_torch.kernels.spmv_ell.ref import ell_reach_ref, ell_spmm_ref
 from repro_torch.sparse.ell import build_row_index
 
 LAUNCHES: Dict[str, int] = {"ell_spmm": 0, "ell_reach": 0}
+_COUNT_LOCK = threading.Lock()
 # the `variant` argument of both C entry points (csrc/ell_spmm.cu,
 # csrc/ell_reach.cu)
 VARIANTS = {"small": 0, "wide_vec4": 1, "wide_scalar": 2}
@@ -41,6 +44,12 @@ VARIANTS = {"small": 0, "wide_vec4": 1, "wide_scalar": 2}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of kernel ``name`` (a read-modify-write, so locked)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _check(name: str, cols: torch.Tensor, mask: torch.Tensor,
@@ -119,7 +128,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
                 y.data_ptr(), n, d, cols.shape[1], variant, stream)
     if rc != 0:
         raise RuntimeError(f"ell_spmm kernel launch failed (cudaError {rc})")
-    LAUNCHES["ell_spmm"] += 1
+    _count("ell_spmm")
     return y
 
 
@@ -147,5 +156,5 @@ def ell_reach(cols: torch.Tensor, mask: torch.Tensor, row_ids: torch.Tensor,
                 cols.shape[1], variant, stream)
     if rc != 0:
         raise RuntimeError(f"ell_reach kernel launch failed (cudaError {rc})")
-    LAUNCHES["ell_reach"] += 1
+    _count("ell_reach")
     return y

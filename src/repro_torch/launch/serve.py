@@ -1,17 +1,22 @@
 """Serving CLI, on the reduced config of the arch, on the card unless
 ``--device cpu`` is given: prefill + greedy decode with a KV cache (LM
-archs), or the continuous multi-query pattern-match server (IGPM) — the
-LM branch and the synchronous IGPM branch of the JAX package's
-``repro.launch.serve``.
+archs), or the continuous multi-query pattern-match server (IGPM),
+synchronous or under the async runtime, traced on request — the LM and
+IGPM branches of the JAX package's ``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-30b-a3b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch igpm-pem \\
       --bank 8 --steps 12 --churn 0.25 --hotspot --policy-dir /tmp/pem
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch igpm-pem \\
+      --async --scenario flash_crowd --ticks 8 --trace --trace-out /tmp/t
 
-The IGPM flags of features not ported yet (the async runtime, the serving
-controller, tracing and the ops surface) are refused with the ROADMAP.md
-item that brings them; the BST branch is not ported.
+``--trace`` prints the per-stage p50 breakdown; ``--trace-out PREFIX``
+also writes ``PREFIX.jsonl`` (span stream), ``PREFIX.json`` (Perfetto),
+``PREFIX.prom`` (Prometheus text) and flight dumps ``PREFIX.flight.*``.
+The serving controller's flags (``--control``, ``--control-episodes``)
+are refused with the ROADMAP.md item that brings them; the BST branch is
+not ported.
 """
 
 from __future__ import annotations
@@ -110,9 +115,50 @@ def _occupancy_str(server) -> str:
                     in sorted(server.occupancy().items()))
 
 
+def _obs_config(args):
+    """``--trace``/``--trace-out``/``--flight-n``/``--slo-ms``/
+    ``--metrics-port`` → :class:`ObsConfig`. Tracing stays off unless
+    asked, and writes files only under ``--trace-out``; ``--metrics-port``
+    turns on the live ops surface and, with it, the per-query freshness
+    ledger and the health watchdog that feed its routes."""
+    from repro_torch.config.base import ObsConfig
+
+    port = args.metrics_port
+    live = port >= 0
+    if not (args.trace or args.trace_out):
+        return ObsConfig(freshness=live, watchdog=live, metrics_port=port)
+    out = args.trace_out
+    return ObsConfig(enabled=True, trace_path=out,
+                     flight_n=args.flight_n,
+                     flight_path=out + ".flight" if out else "",
+                     slo_e2e_ms=args.slo_ms,
+                     prometheus_path=out + ".prom" if out else "",
+                     freshness=live, watchdog=live, metrics_port=port)
+
+
+def _report_obs(server) -> None:
+    """Export the configured trace artifacts and print the per-stage
+    breakdown the spans bought us."""
+    obs = server.obs
+    if not obs.enabled:
+        return
+    snap = server.telemetry.snapshot()
+    stages = sorted((k[len("p50_stage_"):-len("_ms")], snap[k])
+                    for k in snap if k.startswith("p50_stage_"))
+    if stages:
+        print("[serve] stage p50 ms: "
+              + " ".join(f"{name}={ms:.2f}" for name, ms in stages))
+    paths = obs.export(snap)
+    for kind, path in sorted(paths.items()):
+        print(f"[serve] {kind}: {path}")
+    if obs.flight is not None and obs.flight.n_dumps:
+        print(f"[serve] flight dumps: {obs.flight.n_dumps} "
+              f"(last: {obs.flight.last_path} — {obs.flight.last_reason})")
+
+
 def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
                policy_dir: str = "", register=(), retire=(),
-               device="cuda"):
+               device="cuda", obs=None):
     """Continuous multi-query match serving on a synthetic churn stream.
 
     One MatchServer (the default ``ServingConfig()``: adaptive PEM) serves
@@ -128,10 +174,10 @@ def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
                               printed when registered)
 
     ``--policy-dir`` restores the learned PEM policy before the first step
-    (when one is there) and saves it after the last. Returns (server,
-    per-step stats).
+    (when one is there) and saves it after the last. ``obs`` (an
+    :class:`ObsConfig`) turns on tracing. Returns (server, per-step stats).
     """
-    from repro_torch.config.base import ServingConfig
+    from repro_torch.config.base import ObsConfig, ServingConfig
     from repro_torch.core.query import (clique4, query_zoo, square, star5,
                                         triangle)
     from repro_torch.data.temporal import TemporalGraphSpec, generate_stream
@@ -148,7 +194,8 @@ def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
                              churn=churn, hotspot=hotspot)
     stream = generate_stream(spec, n_measured_steps=steps, u_max=512,
                              n_max=cfg.n_max, e_max=cfg.e_max, device=device)
-    server = MatchServer(cfg, query_zoo(bank), ServingConfig(), seed=0,
+    server = MatchServer(cfg, query_zoo(bank),
+                         ServingConfig(obs=obs or ObsConfig()), seed=0,
                          device=device)
     print(f"[serve] buckets: {_occupancy_str(server)}")
     if policy_dir:
@@ -191,6 +238,7 @@ def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
           f"pat/s recompute={snap['recompute_frac']:.2f}")
     print(f"[serve] buckets: {_occupancy_str(server)}")
     print(f"[serve] queue: {server.queue.stats()}")
+    _report_obs(server)
     if policy_dir:
         server.save_policy(policy_dir)
         print(f"[serve] saved PEM policy to {policy_dir} "
@@ -198,24 +246,109 @@ def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
     return server, stats
 
 
+def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
+                     bank: int, sync_too: bool = False,
+                     checkpoint_dir: str = "", obs=None,
+                     closed_loop: bool = False, device="cuda"):
+    """Async serving runtime on a seeded workload scenario: an ingress
+    thread replays the arrival process against the wall clock while the
+    executor thread runs double-buffered micro-batches; match deltas
+    stream to a subscriber and the closing drain flushes in-flight batches
+    (whole-engine ``Engine.save`` when ``--checkpoint-dir`` names a
+    directory). ``--sync-too`` replays the identical workload through the
+    single-threaded reference runner first, so the two tail-latency
+    snapshots print side by side. ``--closed-loop`` switches the scenario
+    to ack-driven closed-loop arrivals (the summary is goodput/SLO
+    violation). Each server is warmed by one replay under a virtual clock
+    and reset before its measured run. Returns (server, runtime)."""
+    import dataclasses
+
+    from repro_torch.config.base import (ObsConfig, RuntimeConfig,
+                                         ServingConfig)
+    from repro_torch.core.query import query_zoo
+    from repro_torch.runtime import (SCENARIOS, ServingRuntime, VirtualClock,
+                                     WallClock, build_workload,
+                                     run_workload_sync)
+    from repro_torch.serving import MatchServer
+
+    if scenario not in SCENARIOS:
+        raise SystemExit(f"unknown scenario {scenario!r} "
+                         f"(have: {sorted(SCENARIOS)})")
+    sc = SCENARIOS[scenario](rate=rate, tick_s=0.05, n_ticks=ticks,
+                             n_vertices=min(arch.model.n_max, 1024), seed=0,
+                             closed_loop=closed_loop)
+    wl = build_workload(sc, u_max=512, device=device)
+    print(f"[serve] scenario={scenario} rate={rate:.0f}/s "
+          f"ticks={ticks} events={wl.n_events} "
+          f"duration={sc.duration_s:.1f}s")
+    cfg = dataclasses.replace(arch.model, n_max=wl.graph.n_max,
+                              e_max=wl.graph.e_max)
+    serving = ServingConfig(microbatch_window=256, queue_depth=2048,
+                            obs=obs or ObsConfig())
+
+    def _report(tag: str, server) -> None:
+        snap = server.telemetry.snapshot()
+        print(f"[serve] {tag}: steps={snap['steps']} "
+              f"p50_step={snap['p50_step_ms']:.1f}ms "
+              f"p99_step={snap['p99_step_ms']:.1f}ms "
+              f"p99_e2e={snap.get('p99_e2e_ms', 0):.1f}ms "
+              f"p999_e2e={snap.get('p999_e2e_ms', 0):.1f}ms "
+              f"dropped={snap['dropped_events']} "
+              f"(evicted={snap['evicted_events']} "
+              f"rejected={snap['rejected_events']})")
+
+    if sync_too:
+        ref = MatchServer(cfg, query_zoo(bank), serving, seed=0,
+                          device=device)
+        run_workload_sync(ref, wl, clock=VirtualClock())  # warm
+        ref.reset()
+        run_workload_sync(ref, wl, clock=WallClock())
+        _report("sync ", ref)
+    server = MatchServer(cfg, query_zoo(bank), serving, seed=0, device=device)
+    run_workload_sync(server, wl, clock=VirtualClock())  # warm
+    server.reset()
+    rt = ServingRuntime(server,
+                        RuntimeConfig(ingress="shed",
+                                      checkpoint_dir=checkpoint_dir),
+                        clock=WallClock())
+    sub = rt.subscribe()
+    rt.start(wl)
+    if rt.ops is not None:
+        print(f"[serve] ops surface: {rt.ops.url}  "
+              f"(/metrics /health /freshness /flight)")
+    if not rt.join(timeout=rt.rcfg.drain_timeout_s + sc.duration_s):
+        rt.stop(drain=False)
+        raise TimeoutError("serving runtime did not finish the workload")
+    if rt.freshness is not None:
+        worst = rt.freshness.snapshot(rt.clock.now())[:3]
+        print("[serve] stalest queries: " + "  ".join(
+            f"{r.qid}={1e3 * r.staleness_s:.1f}ms(burn {r.burn_fast:.2f})"
+            for r in worst))
+    _report("async", server)
+    if closed_loop:
+        cs = rt.closed_summary(wl)
+        print(f"[serve] closed loop: offered={cs['events_offered']:.0f} "
+              f"acked={cs['events_acked']:.0f} "
+              f"goodput={cs['goodput_eps']:.0f} ev/s "
+              f"viol_rate={cs['viol_rate']:.3f} "
+              f"(slo={cs['slo_s'] * 1e3:.0f} ms, "
+              f"throttled={cs['events_throttled']:.0f})")
+    deltas = sub.drain()
+    new = sum(d.n_new for _, d in deltas)
+    print(f"[serve] subscriber saw {len(deltas)} deltas, {new} new patterns"
+          + (f"; drained checkpoint -> {checkpoint_dir}"
+             if checkpoint_dir else ""))
+    print(f"[serve] queue: {server.queue.stats()}")
+    _report_obs(server)
+    return server, rt
+
+
 # IGPM flags of the reference CLI whose features are not ported yet: dest →
 # (flag, default, the ROADMAP.md queue-1 item that brings it). A flag set
 # away from its default is refused, never ignored.
 _WAITING_FLAGS = {
-    "use_async": ("--async", False, "9, runtime"),
-    "scenario": ("--scenario", "flash_crowd", "9, runtime"),
-    "rate": ("--rate", 4000.0, "9, runtime"),
-    "ticks": ("--ticks", 24, "9, runtime"),
-    "sync_too": ("--sync-too", False, "9, runtime"),
-    "checkpoint_dir": ("--checkpoint-dir", "", "9, runtime"),
-    "closed_loop": ("--closed-loop", False, "9, runtime"),
     "control": ("--control", "off", "10, control"),
     "control_episodes": ("--control-episodes", 2, "10, control"),
-    "trace": ("--trace", False, "11, observability"),
-    "trace_out": ("--trace-out", "", "11, observability"),
-    "flight_n": ("--flight-n", 16, "11, observability"),
-    "slo_ms": ("--slo-ms", 0.0, "11, observability"),
-    "metrics_port": ("--metrics-port", -1, "11, observability"),
 }
 
 
@@ -226,7 +359,7 @@ def _refuse_waiting_flags(args) -> None:
                              f"yet — see ROADMAP.md queue 1, item {item}")
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--tokens", type=int, default=16)
@@ -250,21 +383,69 @@ def main(argv=None) -> None:
                     metavar="STEP:QID",
                     help="igpm: retire a standing query mid-stream; "
                          "repeatable")
+    ap.add_argument("--async", dest="use_async", action="store_true",
+                    help="igpm: threaded ingress + double-buffered device "
+                         "executor on a workload scenario")
+    ap.add_argument("--scenario", default="flash_crowd",
+                    help="igpm --async: poisson|flash_crowd|diurnal|"
+                         "churn_heavy")
+    ap.add_argument("--rate", type=float, default=4000.0,
+                    help="igpm --async: mean event arrivals per second")
+    ap.add_argument("--ticks", type=int, default=24,
+                    help="igpm --async: arrival-process ticks (50 ms each)")
+    ap.add_argument("--sync-too", action="store_true",
+                    help="igpm --async: also run the single-threaded "
+                         "reference runner for a side-by-side snapshot")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="igpm --async: drain checkpoints the whole "
+                         "engine here via Engine.save")
+    ap.add_argument("--closed-loop", action="store_true",
+                    help="igpm --async: ack-driven closed-loop arrivals — "
+                         "the summary is goodput/SLO-violation")
+    ap.add_argument("--trace", action="store_true",
+                    help="igpm: structured tracing; prints the per-stage "
+                         "breakdown")
+    ap.add_argument("--trace-out", default="", metavar="PREFIX",
+                    help="igpm: trace export prefix (implies --trace): "
+                         "PREFIX.jsonl, .json (Perfetto), .prom, .flight.*")
+    ap.add_argument("--flight-n", type=int, default=16,
+                    help="igpm --trace: flight-recorder ring of the last "
+                         "N traced steps (dumped on crash/SLO trigger)")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="igpm --trace: dump the flight ring when an e2e "
+                         "latency sample exceeds this many ms (0 = off)")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="igpm --async: serve the live ops surface "
+                         "(/metrics /health /freshness /flight) on "
+                         "127.0.0.1:PORT — 0 picks an ephemeral port, "
+                         "-1 (default) disables; also enables the "
+                         "per-query freshness ledger and the health "
+                         "watchdog")
     for dest, (flag, default, item) in _WAITING_FLAGS.items():
-        kw = ({"action": "store_true"} if default is False
-              else {"type": type(default), "default": default})
-        ap.add_argument(flag, dest=dest,
+        ap.add_argument(flag, dest=dest, type=type(default), default=default,
                         help=f"igpm: not ported yet (ROADMAP.md queue 1, "
-                             f"item {item})", **kw)
-    args = ap.parse_args(argv)
+                             f"item {item})")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
     arch = get_arch(args.arch, smoke=True)
     if arch.family == "lm":
         serve_lm(arch, args.tokens, device=args.device)
     elif arch.family == "igpm":
         _refuse_waiting_flags(args)
-        serve_igpm(arch, args.steps, args.bank, args.churn, args.hotspot,
-                   policy_dir=args.policy_dir, register=args.register,
-                   retire=args.retire, device=args.device)
+        obs = _obs_config(args)
+        if args.use_async:
+            serve_igpm_async(arch, args.scenario, args.rate, args.ticks,
+                             args.bank, sync_too=args.sync_too,
+                             checkpoint_dir=args.checkpoint_dir, obs=obs,
+                             closed_loop=args.closed_loop,
+                             device=args.device)
+        else:
+            serve_igpm(arch, args.steps, args.bank, args.churn, args.hotspot,
+                       policy_dir=args.policy_dir, register=args.register,
+                       retire=args.retire, device=args.device, obs=obs)
     else:
         raise SystemExit(f"{args.arch} ({arch.family}) has no serve path "
                          f"in the port yet (see ROADMAP.md)")

@@ -102,6 +102,12 @@ class MatchServer:
         self._evicted_seen = 0
         self._rejected_seen = 0
 
+    @property
+    def obs(self):
+        """The engine's observability hub — the async runtime and the CLI
+        share it so one trace spans every thread."""
+        return self.engine.obs
+
     # engine-owned pieces the historical API exposed -------------------------
 
     @property
@@ -182,9 +188,10 @@ class MatchServer:
                     t_start: Optional[float] = None
                     ) -> Tuple[DynamicGraph, ServingStepStats]:
         """Run the engine pipeline on an already-packed micro-batch — the
-        handoff point for a caller that owns the queue and packs itself.
-        :meth:`step` is drain + pack + this, so both paths share every line
-        of engine/merge/telemetry bookkeeping."""
+        handoff point the async runtime's executor thread drives (its
+        ingress thread owns the queue and packs). :meth:`step` is drain +
+        pack + this, so both paths share every line of engine/merge/
+        telemetry bookkeeping."""
         t_start = time.perf_counter() if t_start is None else t_start
         if self._state is None or self._state.graph is not g:
             # fresh stream (or caller-rebuilt graph): re-anchor the state
@@ -213,6 +220,11 @@ class MatchServer:
                                    st.n_new_patterns, out.frac_affected,
                                    n_dropped=dropped, n_evicted=evicted,
                                    n_rejected=rejected)
+        if out.stage_s:
+            # tracing on: stage wall times become telemetry channels, so
+            # snapshot() grows p50/p99 per pipeline stage
+            for name, dur_s in out.stage_s.items():
+                self.telemetry.record_latency(f"stage_{name}", dur_s)
         self.telemetry.record_counters(self.engine.counters())
         return self._state.graph, st
 

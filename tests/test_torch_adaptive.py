@@ -185,5 +185,12 @@ def test_cli_serves_and_restores_its_policy(tmp_path, capsys):
     ["--closed-loop"], ["--control", "train"], ["--metrics-port", "0"]],
     ids=lambda f: f[0])
 def test_cli_refuses_flags_of_unported_features(flag):
-    with pytest.raises(SystemExit, match=f"{flag[0]}.*ROADMAP.md"):
-        tserve.main(["--arch", "igpm-pem", "--device", "cpu"] + flag)
+    """Only the serving controller's flags wait (ROADMAP item 10); the
+    runtime, tracing and ops-surface flags are ported and pass the check
+    (their runs are in test_torch_obs.py and test_torch_runtime.py)."""
+    argv = ["--arch", "igpm-pem", "--device", "cpu"] + flag
+    if flag[0] == "--control":
+        with pytest.raises(SystemExit, match="--control.*ROADMAP.md.*10"):
+            tserve.main(argv)
+    else:
+        tserve._refuse_waiting_flags(tserve.parser().parse_args(argv))

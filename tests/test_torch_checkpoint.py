@@ -9,6 +9,7 @@ the ignored ``.tmp``, keep-N and the async writer; the learned policy
 carried across restarts in both directions.
 """
 
+import jax.numpy as jnp
 import msgpack
 import numpy as np
 import pytest
@@ -139,10 +140,66 @@ def test_checkpoint_round_trip_atomic_commit_and_keep_n(tmp_path):
         TCkpt(tmp_path / "empty").restore(like)
     with pytest.raises(KeyError):
         ck.restore({"missing": np.zeros(1)})
-    with pytest.raises(TypeError):
-        ck.restore({"w": np.zeros((2, 3), np.int32)})   # float → int refused
-    with pytest.raises(TypeError):
-        ck.save(9, {"p": torch.ones(2, dtype=torch.bfloat16)})
+    # float → int and bf16 follow the reference: the port's restore equals
+    # the reference's on the same files, bitwise
+    frac = {"w": np.asarray([[-2.75, -0.5, 0.5], [1.25, 2.99, 7.0]],
+                            np.float32)}
+    ck.save(8, frac)
+    as_int = {"w": np.zeros((2, 3), np.int32)}
+    got = ck.restore(as_int, step=8)[0]["w"]
+    want = np.asarray(RCkpt(tmp_path).restore(as_int, step=8)[0]["w"])
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [[-2, 0, 0], [1, 2, 7]])
+    ck.save(9, {"p": torch.tensor([1.5, -3.0078125], dtype=torch.bfloat16)})
+    got = ck.restore({"p": torch.zeros(2, dtype=torch.bfloat16)},
+                     step=9)[0]["p"]
+    want = RCkpt(tmp_path).restore(
+        {"p": jnp.zeros(2, jnp.bfloat16)}, step=9)[0]["p"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(want).view(np.int16))
+
+
+def _bf16_tree(rng):
+    """A bf16 leaf (values exact in bf16), an f32 one with fractions and an
+    int32 one, from one numpy seed."""
+    bits = (rng.standard_normal(64).astype(np.float32).view(np.uint32)
+            & np.uint32(0xFFFF0000)).view(np.float32)
+    return bits, rng.uniform(-9, 9, 16).astype(np.float32), \
+        rng.integers(-50, 50, 8).astype(np.int32)
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_bf16_checkpoint_crosses_packages(tmp_path, writer):
+    """A bf16 tree saved by either package (widened to f32 on disk)
+    restores into the other bitwise after the cast back to bf16; the f32
+    leaf restored as int32 truncates as the reference's cast does."""
+    p, f, i = _bf16_tree(np.random.default_rng(5))
+    if writer == "reference":
+        RCkpt(tmp_path, async_save=False).save(
+            3, {"p": jnp.asarray(p, jnp.bfloat16), "f": f, "i": i})
+    else:
+        TCkpt(tmp_path, async_save=False).save(
+            3, {"p": torch.from_numpy(p).to(torch.bfloat16), "f": f, "i": i})
+    with np.load(tmp_path / "step_000000000003" / "arrays.npz") as z:
+        assert z["p"].dtype == np.float32     # widened on disk
+        np.testing.assert_array_equal(z["p"], p)
+    like_t = {"p": torch.zeros(64, dtype=torch.bfloat16),
+              "f": np.zeros(16, np.int32), "i": np.zeros(8, np.int32)}
+    like_r = {"p": jnp.zeros(64, jnp.bfloat16),
+              "f": np.zeros(16, np.int32), "i": np.zeros(8, np.int32)}
+    port, step_t = TCkpt(tmp_path).restore(like_t)
+    ref, step_r = RCkpt(tmp_path).restore(like_r)
+    assert step_t == step_r == 3
+    assert port["p"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(port["p"].view(torch.int16).numpy(),
+                                  np.asarray(ref["p"]).view(np.int16))
+    np.testing.assert_array_equal(port["p"].float().numpy(), p)
+    for k in ("f", "i"):
+        assert port[k].dtype == np.int32
+        np.testing.assert_array_equal(port[k], np.asarray(ref[k]))
+    np.testing.assert_array_equal(port["f"], np.trunc(f).astype(np.int32))
 
 
 def test_async_save_is_joined(tmp_path):

@@ -193,6 +193,71 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
         assert shared in build._sources(build._source(name))
 
 
+def test_first_kernel_calls_build_once_under_the_build_lock(monkeypatch):
+    """Concurrent first calls (the engine's executor pool) are serialised
+    by ``build._BUILD_LOCK``: a stubbed build that sleeps runs once, never
+    two at a time, and both callers get the same entry point."""
+    import threading
+    import time
+
+    assert isinstance(build._BUILD_LOCK, type(threading.Lock()))
+    active, peak, calls = [0], [0], []
+
+    def slow_build(names=None):
+        active[0] += 1
+        peak[0] = max(peak[0], active[0])
+        calls.append(names)
+        time.sleep(0.05)
+        active[0] -= 1
+        return {}
+
+    class _Lib:
+        def __init__(self, path):
+            self.ell_spmm_f32 = lambda *a: 0
+
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "build", slow_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", _Lib)
+    barrier = threading.Barrier(4)
+    got = []
+
+    def first_call():
+        barrier.wait()
+        got.append(build.kernel("ell_spmm"))
+
+    threads = [threading.Thread(target=first_call) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert calls == [None] and peak[0] == 1
+    assert len(got) == 4 and all(fn is got[0] for fn in got)
+    assert list(build._LIBS) == ["ell_spmm"]
+
+
+def test_launch_counts_stay_exact_across_threads(monkeypatch):
+    """The executor pool's workers bump ``LAUNCHES`` concurrently: under a
+    short switch interval, 8 threads x 5,000 counts lose none."""
+    import sys
+    import threading
+
+    monkeypatch.setitem(ops.LAUNCHES, "ell_spmm", 0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [ops._count("ell_spmm") for _ in range(5000)])
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert ops.LAUNCHES["ell_spmm"] == 8 * 5000
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -435,10 +435,11 @@ def test_port_serve_cli_runs_on_cpu(capsys):
                  "--device", "cpu"])
     out = capsys.readouterr().out
     assert "decoded 3 tokens/seq" in out
-    # the igpm branch serves since the adaptive slice; what it still
-    # refuses is the async runtime (tests/test_torch_adaptive.py)
-    with pytest.raises(SystemExit, match="--async.*ROADMAP"):
-        tserve.main(["--arch", "igpm-pem", "--device", "cpu", "--async"])
+    # the igpm branch serves, synchronous or async; what it still refuses
+    # is the serving controller (tests/test_torch_adaptive.py)
+    with pytest.raises(SystemExit, match="--control.*ROADMAP"):
+        tserve.main(["--arch", "igpm-pem", "--device", "cpu", "--control",
+                     "train"])
 
 
 # -- configs and registry --------------------------------------------------------

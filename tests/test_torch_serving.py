@@ -136,8 +136,17 @@ def test_cuda_adaptive_server_keeps_its_agent_on_the_card():
     ids=lambda k: k[0])
 def test_entry_points_refuse_knobs_of_unported_features(entry, knob):
     """A knob whose feature waits is refused with the ROADMAP item, through
-    both entry points, instead of giving an engine without it."""
+    both entry points, instead of giving an engine without it. Tracing
+    (``obs``) is ported now: both entry points build with it on."""
     name, value = knob
+    if name == "obs":
+        eng = (TEngine(_cfg(TCfg, "coo"), TEngCfg(adaptive=False, obs=value),
+                       device=CPU) if entry == "engine"
+               else TServer(_cfg(TCfg, "coo"), t_zoo(1),
+                            TServCfg(adaptive=False, obs=value),
+                            device=CPU).engine)
+        assert eng.obs.enabled and eng.obs.tracer.enabled
+        return
     with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
         if entry == "engine":
             TEngine(_cfg(TCfg, "coo"),
