@@ -42,7 +42,12 @@ Phases, each printed on its own lines:
    ``ServingConfig()`` (adaptive PEM) on the card and on the CPU, the card's
    DQN loaded from the CPU agent's state before step 0 and both PEMs'
    feedback given one seeded elapsed schedule in place of wall time: equal
-   deltas, stores and c trajectory, TD losses within 1e-5 relative;
+   deltas, stores and c trajectory, TD losses within 1e-5 relative; then
+   the serving controller on a toy closed loop (n 128, ``rwr_tol`` 1e-4,
+   a flash crowd of 8 ticks under ``VirtualClock`` and the simulated
+   service model): a policy trained on the CPU, loaded frozen on the card
+   and on the CPU, must give equal decision histories (observations
+   bitwise), equal label-RWR sweeps per step and equal stores;
 6. LM agreement: qwen3-moe ``SMOKE`` (f32) with one set of weights served
    greedily on the card (kernels) and on the CPU (plain versions): equal
    tokens, logits within 1e-4;
@@ -102,7 +107,26 @@ Phases, each printed on its own lines:
    kernel); then, with the MoE
    at a capacity that drops no slot, the prompt is served again and a
    prefill over it plus the 15 generated tokens must give the last decode
-   step's logits.
+   step's logits;
+15. control (run after phase 12, on serve-adaptive's server, ``rwr_tol``
+    set to 1e-4 so all seven actions are live; reset between runs, its
+    PEM state put back, its PEM reward fed one seeded elapsed schedule
+    under ``VirtualClock``, so no further Louvain build): the stream's
+    batches dealt into the reference control bench's closed-loop flash
+    crowd (350 events/s, 20 ticks of 300 ms, 5x bursts for 2 of every 10
+    ticks, seed 11, lag reference and ack SLO 0.5 s); 2 training episodes
+    under ``VirtualClock`` and ``sim_service_model()`` (decisions, TD
+    losses, knobs and sweeps per step printed), two frozen replays that
+    must give equal histories and stores and no loss, an ``Engine.save``/
+    ``load`` round trip of the attached controller (Q-values bitwise, knob
+    indices equal), the frozen policy in ``ServingRuntime(ingress="shed")``
+    under ``WallClock`` (closed-loop summary, decisions, knobs, p50/p99 of
+    the ``on_batch`` hook and of its Q-value pass, the pass run on the
+    current stream and on a stream of its own in turn, step and e2e
+    latency), launch counters set to 0
+    before training and read after the wall-clock run (both ELL kernels
+    must launch); then a traced frozen replay prints each step's sweeps
+    beside ``stage_s["rwr"]``.
 
 Then a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -1489,6 +1513,396 @@ def phase_runtime(stream, inc, card: str):
     return out, launches_rt
 
 
+# -- phase 15: the closed-loop serving controller --------------------------------
+
+# the reference control bench's flash crowd (benchmarks/serving_bench.py,
+# _control_rows), over the stream's measured batches
+CTL_SC = dict(rate=350.0, tick_s=0.3, n_ticks=20, burst_amplitude=5.0,
+              burst_period=10, burst_len=2, seed=11, closed_loop=True,
+              lag_ref_s=0.5, ack_slo_s=0.5)
+CTL_EPISODES = 2   # the CLI's default --control-episodes
+CTL_TOL = 1e-4     # a tol_ladder rung: all seven actions live
+
+
+def control_cfg(mode: str, **dqn):
+    """``ControlConfig`` deciding at every micro-batch with the control
+    bench's DQN overrides (ε 0.3 → 0.05 over 300 observes, γ 0.9), and
+    ``dqn`` on top."""
+    import dataclasses
+    from repro_torch.config.base import ControlConfig
+    ccfg = ControlConfig(mode=mode, decide_every=1)
+    return dataclasses.replace(ccfg, dqn=dataclasses.replace(
+        ccfg.dqn, epsilon=0.3, epsilon_final=0.05, epsilon_decay_steps=300,
+        gamma=0.9, **dqn))
+
+
+class SeededElapsed:
+    """Replace the wall time a PEM's reward reads with a seeded schedule
+    (one draw per feedback call, restarted by ``reset``), so closed loops
+    under ``VirtualClock`` replay exactly; ``restore`` puts the PEM's own
+    feedback back."""
+
+    def __init__(self, pem, seed: int = 3):
+        self.pem, self.seed, self.feedback = pem, seed, pem.feedback
+        self.reset()
+
+    def reset(self) -> None:
+        import numpy as np
+        rng = np.random.default_rng(self.seed)
+
+        def seeded(g, frac, elapsed):
+            return self.feedback(g, frac, float(rng.uniform(0.02, 0.2)))
+
+        self.pem.feedback = seeded
+
+    def restore(self) -> None:
+        self.pem.feedback = self.feedback
+
+
+class HookTimer:
+    """Wall time of each call of a controller's ``on_batch`` hook."""
+
+    def __init__(self, ctl):
+        self.s = []
+        on_batch = ctl.on_batch
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            on_batch(*args)
+            self.s.append(time.perf_counter() - t0)
+
+        ctl.on_batch = timed
+
+    def ms(self):
+        return ms_stats(self.s)
+
+
+def ms_stats(seconds):
+    import numpy as np
+    a = np.asarray(seconds) * 1e3
+    if not len(a):
+        return dict(n=0)
+    return dict(n=len(a), p50=float(np.percentile(a, 50)),
+                p99=float(np.percentile(a, 99)), max=float(a.max()))
+
+
+class QTimer:
+    """Time each Q-value pass of a frozen controller's agent, alternating
+    the stream it runs on: even calls on the calling thread's current
+    stream (as the runtime runs them), odd calls on a stream of their own,
+    which waits for no other work. Each time is filed by that choice and
+    by whether the current stream still held queued work when the pass
+    began (the work a device-to-host copy on it would wait for). A frozen
+    agent's weights are not written during the run, so the second stream
+    needs no ordering against the first."""
+
+    def __init__(self, agent):
+        import torch
+        self.times = {}
+        side = torch.cuda.Stream()
+        q_values = agent.q_values
+        calls = [0]
+
+        def timed(obs):
+            queued = not torch.cuda.current_stream().query()
+            own = calls[0] % 2 == 1
+            calls[0] += 1
+            ctx = torch.cuda.stream(side) if own else contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with ctx:
+                out = q_values(obs)
+            key = (("own stream" if own else "current stream")
+                   + (", work queued" if queued else ", idle"))
+            self.times.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+
+        agent.q_values = timed
+
+    def ms(self):
+        return {k: ms_stats(v) for k, v in sorted(self.times.items())}
+
+
+def knobs_str(ctl) -> str:
+    k = ctl.env.knobs
+    return (f"window={k.window} depth={k.queue_depth} rwr_tol={k.rwr_tol:g} "
+            f"(idx {ctl.env.knob_state()})")
+
+
+def phase_control(stream, srv, card: str):
+    """The RL serving controller on serve-adaptive's FULL IGPM-PEM server
+    (``rwr_tol`` 1e-4; reset between runs, its PEM state — dendrogram,
+    cuts, c and learner — put back each time, and the PEM's reward fed
+    one seeded elapsed schedule under ``VirtualClock``): 2 training
+    episodes, two frozen replays that must be equal, a checkpoint round
+    trip of the controller, a traced frozen replay, then the frozen
+    policy in the shed runtime under ``WallClock``."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.config.base import ObsConfig, RuntimeConfig
+    from repro_torch.control import ServingController
+    from repro_torch.kernels.spmv_ell import ops
+    from repro_torch.obs import Obs
+    from repro_torch.runtime import (AckLedger, RuntimeKnobs, ServingRuntime,
+                                     VirtualClock, WallClock, deal,
+                                     flash_crowd, run_closed_loop,
+                                     sim_service_model)
+    check((srv.serving.microbatch_window, srv.serving.queue_depth)
+          == (256, 4096) and srv.pem.adaptive,
+          "control: not serve-adaptive's default ServingConfig()")
+    sc = flash_crowd(n_vertices=stream.spec.n_vertices, **CTL_SC)
+    wl = deal(sc, stream)
+    say(f"  control workload: flash crowd {sc.rate:.0f} events/s, "
+        f"{sc.n_ticks} ticks of {sc.tick_s * 1e3:.0f} ms, "
+        f"{sc.burst_amplitude:g}x bursts, closed loop, pool {wl.n_events} "
+        f"events of {len(stream.updates)} batches")
+    srv.engine.cfg = dataclasses.replace(srv.engine.cfg, rwr_tol=CTL_TOL)
+    pem = srv.pem
+    snap, agent0 = pem_snapshot(pem), copy.deepcopy(pem.agent)
+    fb0 = (pem._last_obs, pem._last_action, pem._reward_ema)
+    builds = pem.recluster_count
+    seeded = SeededElapsed(pem)
+    outs = record_outputs(srv.engine)
+    model = sim_service_model()
+
+    knobs = RuntimeKnobs(srv)
+    ledger = AckLedger(slo_s=sc.ack_slo_s)
+
+    def fresh():
+        """Reset the server and put its PEM state back. The tol knob goes
+        back to its configured rung too: a controller takes its tol
+        baseline from the engine's live config, as the reference's does,
+        and an earlier controller may have left it elsewhere."""
+        srv.reset()
+        pem_restore(pem, snap)
+        pem.agent = copy.deepcopy(agent0)
+        pem._last_obs, pem._last_action, pem._reward_ema = fb0
+        seeded.reset()
+        knobs.set_rwr_tol(CTL_TOL)
+        ledger.reset()
+        outs.clear()
+
+    def controller(mode):
+        fresh()
+        return ServingController(srv, knobs, ledger, control_cfg(mode))
+
+    def episode(ctl, tag):
+        n0, l0 = len(ctl.history), len(ctl.losses)
+        t0 = time.perf_counter()
+        _, st, _ = run_closed_loop(srv, wl, clock=VirtualClock(),
+                                   controller=ctl, knobs=knobs,
+                                   ledger=ledger, service_model=model)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        hist, losses = ctl.history[n0:], ctl.losses[l0:]
+        summ = ledger.summary(sc.duration_s)
+        sweeps = [o.rwr_sweeps for o in outs]
+        say(f"  control {tag}: {len(st)} steps in {dt:.2f} s, "
+            f"{len(hist)} decisions {[a for _, a, _ in hist]}, "
+            f"goodput {summ['goodput_eps']:.1f} ev/s viol_rate "
+            f"{summ['viol_rate']:.3f}, knobs {knobs_str(ctl)}")
+        if losses:
+            say(f"  control {tag} TD losses: "
+                + " ".join(f"{x:.4g}" for x in losses))
+        say(f"  control {tag} sweeps per step (cap "
+            f"{srv.engine.cfg.rwr_iters}): {sweeps}; skipped columns "
+            f"{[o.rwr_cols_skipped for o in outs]}")
+        return dict(steps=len(st), s=dt, decisions=len(hist),
+                    actions=[a for _, a, _ in hist], losses=losses,
+                    sweeps=sweeps, knobs=ctl.env.knob_state(), **summ), hist
+
+    out = {}
+    ops.reset_launch_counts()
+    # 1. train
+    ctl = controller("train")
+    check(ctl.env.tol_ladder == (1e-5, 1e-4, 1e-3, 1e-2),
+          f"control: tol knob not live ({ctl.env.tol_ladder})")
+    check(all(t.is_cuda for t in agent_tensors(ctl.agent)),
+          "control: the controller's DQN is not on the card")
+    out["train"] = []
+    for ep in range(CTL_EPISODES):
+        if ep:
+            fresh()
+        out["train"].append(episode(ctl, f"train episode {ep}")[0])
+    check(ctl.n_episodes == CTL_EPISODES, "control: episodes not counted")
+    # the replay ring must hold replay_batch = 32 transitions before the
+    # learner steps, so two short episodes may end before it does
+    say(f"  control training: {ctl.n_decisions} decisions, "
+        f"{sum(x > 0 for x in ctl.losses)} learning steps, agent t="
+        f"{ctl.agent.t}, replay {ctl.agent.replay.size}")
+    sd = ctl.state_dict()
+    # 2. freeze: two replays of the frozen policy must be equal
+    replays, hook_virtual = [], None
+    for rep in range(2):
+        fz = controller("frozen")
+        fz.load_state_dict(sd)
+        timer = HookTimer(fz)
+        row, hist = episode(fz, f"frozen replay {rep}")
+        check(fz.losses == [], "control: a frozen replay learned")
+        replays.append((hist, stores_of(srv), row))
+        hook_virtual = timer.ms()
+    check(len(replays[0][0]) > 0, "control: no decisions")
+    check(replays[0][0] == replays[1][0],
+          "control: frozen replays decided differently")
+    check(replays[0][1] == replays[1][1],
+          "control: frozen replays' stores differ")
+    out["frozen"] = replays[0][2]
+    out["hook_virtual_ms"] = hook_virtual
+    say(f"  control frozen replays equal: {len(replays[0][0])} decisions, "
+        f"stores equal; on_batch under VirtualClock {hook_virtual}")
+    # 3. checkpoint round trip of the attached controller
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ctl_", dir=ROOT / "build"))
+    try:
+        srv.engine.control = fz
+        t0 = time.perf_counter()
+        srv.save(str(tmp))
+        save_s = time.perf_counter() - t0
+        back = ServingController(srv, RuntimeKnobs(srv),
+                                 AckLedger(slo_s=sc.ack_slo_s),
+                                 control_cfg("frozen"))
+        check(back.env.tol_ladder == fz.env.tol_ladder,
+              "control: the round trip's ladders differ")
+        srv.engine.control = back
+        t0 = time.perf_counter()
+        srv.load(stream.graph, str(tmp))
+        load_s = time.perf_counter() - t0
+    finally:
+        srv.engine.control = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    probe = np.asarray(replays[0][0][-1][0], np.float32)
+    check(np.array_equal(back.agent.q_values(probe), fz.agent.q_values(probe)),
+          "control: Q-values differ after the checkpoint round trip")
+    check(back.env.knob_state() == fz.env.knob_state(),
+          "control: knob indices differ after the checkpoint round trip")
+    check((back.n_decisions, back.n_episodes)
+          == (fz.n_decisions, fz.n_episodes),
+          "control: counters differ after the checkpoint round trip")
+    say(f"  control checkpoint: save {save_s:.3f} s, load {load_s:.3f} s; "
+        f"Q-values bitwise, knobs {back.env.knob_state()}")
+    out["checkpoint"] = dict(save_s=save_s, load_s=load_s)
+    # 4. the frozen policy in the shed runtime under WallClock
+    fresh()
+    seeded.restore()
+    rt = ServingRuntime(srv, RuntimeConfig(ingress="shed",
+                                           drain_timeout_s=600.0,
+                                           control=control_cfg("frozen")),
+                        clock=WallClock())
+    rt.controller.load_state_dict(sd)
+    timer, q_timer = HookTimer(rt.controller), QTimer(rt.controller.agent)
+    t0 = time.perf_counter()
+    st = rt.serve(wl)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    srv.engine.control = None
+    cs = rt.closed_summary(wl)
+    hook, q_ms = timer.ms(), q_timer.ms()
+    row = rt_report("control wall shed", srv, st)
+    say(f"  control wall: {wall_s:.2f} s, goodput {cs['goodput_eps']:.1f} "
+        f"ev/s, viol_rate {cs['viol_rate']:.3f}, throttled "
+        f"{cs.get('events_throttled', 0):.0f}, offered "
+        f"{cs.get('events_offered', 0):.0f}, acked {cs['events_acked']:.0f}; "
+        f"{len(rt.controller.history)} decisions, knobs "
+        f"{knobs_str(rt.controller)}; on_batch {hook}; sweeps per step "
+        f"{[o.rwr_sweeps for o in outs]}")
+    say(f"  control wall: the Q-value pass inside the hook, ms, by the "
+        f"stream it ran on and whether the current stream held queued work "
+        f"when it began: {q_ms}")
+    out["wall"] = dict(row, s=wall_s, decisions=len(rt.controller.history),
+                       knobs=rt.controller.env.knob_state(), hook_ms=hook,
+                       q_values_ms=q_ms,
+                       sweeps=[o.rwr_sweeps for o in outs], **cs)
+    say(f"  control launches (train, frozen, round trip, wall): {launches}")
+    for name in ("ell_spmm", "ell_reach"):
+        check(launches.get(name, 0) > 0, f"control never launched {name}")
+    # a traced frozen replay: stage_s["rwr"] beside the sweeps it ran
+    obs0 = srv.engine.obs
+    srv.engine.obs = Obs(ObsConfig(enabled=True))
+    try:
+        fz = controller("frozen")
+        fz.load_state_dict(sd)
+        episode(fz, "traced frozen replay")
+    finally:
+        srv.engine.obs = obs0
+    rwr_ms = [o.stage_s["rwr"] * 1e3 for o in outs]
+    say("  control traced: per step sweeps/skipped, rwr ms, pipeline ms: "
+        + "  ".join(f"{o.rwr_sweeps}/{o.rwr_cols_skipped} {r:.2f} "
+                    f"{o.elapsed * 1e3:.1f}" for o, r in zip(outs, rwr_ms)))
+    out["traced"] = dict(sweeps=[o.rwr_sweeps for o in outs], rwr_ms=rwr_ms,
+                         pipeline_ms=[o.elapsed * 1e3 for o in outs])
+    seeded.restore()
+    del srv.engine.step   # record_outputs' wrapper
+    check(pem.recluster_count == builds, "control: paid a Louvain build")
+    say(f"  control figures on {card}")
+    return out, launches
+
+
+def phase_control_agreement():
+    """The controller on the toy closed loop, card against CPU: a policy
+    trained on the CPU is loaded frozen on both, the two PEMs share one
+    learner state and one seeded elapsed schedule; decision histories
+    (obs bitwise), sweeps per step and stores must be equal."""
+    from repro_torch.config.base import IGPMConfig, ServingConfig
+    from repro_torch.control import ServingController
+    from repro_torch.core.query import query_zoo
+    from repro_torch.runtime import (AckLedger, RuntimeKnobs, VirtualClock,
+                                     build_workload, flash_crowd,
+                                     run_closed_loop, sim_service_model)
+    from repro_torch.serving.server import MatchServer
+    cfg = IGPMConfig(n_max=128, e_max=8192, ell_width=8, rwr_iters=30,
+                     rwr_iters_incremental=4, top_k_patterns=4,
+                     init_community_size=32, backend="ell", rwr_tol=CTL_TOL)
+    sc = flash_crowd(rate=2000.0, tick_s=0.01, n_ticks=8, n_vertices=128,
+                     seed=3, closed_loop=True)
+
+    def run(dev, ccfg, state=None, pem_state=None):
+        wl = build_workload(sc, u_max=256, device=dev)
+        srv = MatchServer(cfg, query_zoo(2),
+                          ServingConfig(microbatch_window=64), seed=0,
+                          device=dev)
+        if pem_state is not None:
+            srv.pem.agent.load_state_dict(pem_state)
+        pem0 = srv.pem.agent.state_dict()
+        SeededElapsed(srv.pem)
+        outs = record_outputs(srv.engine)
+        knobs, ledger = RuntimeKnobs(srv), AckLedger(slo_s=0.25)
+        ctl = ServingController(srv, knobs, ledger, ccfg)
+        if state is not None:
+            ctl.load_state_dict(state)
+        run_closed_loop(srv, wl, clock=VirtualClock(), controller=ctl,
+                        knobs=knobs, ledger=ledger,
+                        service_model=sim_service_model())
+        return ctl, stores_of(srv), [o.rwr_sweeps for o in outs], pem0
+
+    trained, _, _, _ = run("cpu", control_cfg("train", replay_batch=4,
+                                              target_update_every=4))
+    check(sum(x > 0 for x in trained.losses) >= 2,
+          "control agreement: the CPU policy never learned")
+    sd = trained.state_dict()
+    cpu, cpu_st, cpu_sw, pem0 = run("cpu", control_cfg("frozen"), sd)
+    card, card_st, card_sw, _ = run("cuda", control_cfg("frozen"), sd, pem0)
+    say(f"phase control-agreement: sweeps per step card {card_sw} / CPU "
+        f"{cpu_sw} (cap {cfg.rwr_iters})")
+    check(card_sw == cpu_sw, "control agreement: sweep counts differ")
+    check(card.history == cpu.history,
+          "control agreement: decision histories differ")
+    check(len(set(cpu_sw)) > 1 or min(cpu_sw) < cfg.rwr_iters,
+          "control agreement: the tolerance never ended a sweep loop")
+    for a, b in zip(card_st, cpu_st):
+        check(sorted(a) == sorted(b), "control agreement: stores differ")
+        for key, (good, exact) in a.items():
+            check(exact == b[key][1] and abs(good - b[key][0]) <= 1e-4,
+                  "control agreement: stored goodness or exact flags differ")
+    say(f"phase control-agreement: CUDA == CPU on {len(card.history)} "
+        f"decisions {[a for _, a, _ in card.history]} (obs bitwise), "
+        f"{sum(len(s) for s in card_st)} patterns")
+    return dict(decisions=len(card.history), sweeps=card_sw)
+
+
 # -- phase 5: adaptive agreement, card against CPU ------------------------------
 
 def phase_small_adaptive_agreement():
@@ -1514,13 +1928,7 @@ def phase_small_adaptive_agreement():
             state = srv.pem.agent.state_dict()
         else:
             srv.pem.agent.load_state_dict(state)
-        rng = np.random.default_rng(3)
-        feedback = srv.pem.feedback
-
-        def seeded(g, frac, elapsed, feedback=feedback, rng=rng):
-            return feedback(g, frac, float(rng.uniform(0.02, 0.2)))
-
-        srv.pem.feedback = seeded
+        SeededElapsed(srv.pem)
         _, stats = srv.run(st.graph, st.updates)
         out[dev] = (stats, [dict(s._patterns) for s in srv.stores])
     (cpu, cpu_st), (card, card_st) = out["cpu"], out["cuda"]
@@ -1628,6 +2036,7 @@ def main(argv=None) -> int:
     rows.update(phase_lm_kernels(REPS))
     phase_small_agreement()
     adapt_agree = phase_small_adaptive_agreement()
+    ctl_agree = phase_control_agreement()
     launches_agree = phase_lm_agreement()
     from repro_torch.configs.igpm_paper import FULL
     from repro_torch.data.temporal import generate_stream, scaled_twin
@@ -1659,14 +2068,18 @@ def main(argv=None) -> int:
     cap["adaptive"] = check_captured_adaptive(adapt_cap)
     adapt_louvain_s = srv.pem.clustering_time
     round_trips = phase_round_trips(srv, stream.graph)
-    del srv, adapt_cap
+    del adapt_cap
     torch.cuda.empty_cache()
     say("phase serve-traced:")
     traced = phase_serve_traced(stream, inc_srv, inc_stores, launches_inc,
                                 INC_STEPS, args.profile)
     say("phase runtime:")
     runtime, launches_rt = phase_runtime(stream, inc_srv, card)
-    del inc_srv, stream
+    del inc_srv
+    say("phase control:")
+    control, launches_ctl = phase_control(stream, srv, card)
+    control["agreement"] = ctl_agree
+    del srv, stream
     torch.cuda.empty_cache()
     phase_cli()
     say("phase serve-lm:")
@@ -1675,7 +2088,8 @@ def main(argv=None) -> int:
                  louvain_s=louvain_s, adaptive_steps=adapt_steps,
                  adaptive_louvain_s=adapt_louvain_s,
                  adaptive_agreement=adapt_agree, round_trips=round_trips,
-                 traced=traced, runtime=runtime, captured=cap, lm=lm)
+                 traced=traced, runtime=runtime, control=control,
+                 captured=cap, lm=lm)
 
     kernels = []
     for name, src, line in (
@@ -1692,6 +2106,7 @@ def main(argv=None) -> int:
             "launches_inc": launches_inc[name],
             "launches_batch": launches_batch[name],
             "launches_runtime": launches_rt[name],
+            "launches_control": launches_ctl[name],
             "max_abs_err": max(head["max_abs_err"], served["max_abs_err"]),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

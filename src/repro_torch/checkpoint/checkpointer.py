@@ -248,12 +248,6 @@ class Checkpointer:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
         return step
 
-    def leaf_keys(self, step: Optional[int] = None) -> List[str]:
-        """Keys of the leaves a committed step holds."""
-        path = self.dir / f"step_{self._resolve(step):012d}"
-        with np.load(path / "arrays.npz") as z:
-            return list(z.files)
-
     def restore(self, like: Any, step: Optional[int] = None) -> Tuple[Any, int]:
         """Restore into the structure of ``like`` (values replaced by numpy
         arrays of the dtype of ``like``'s leaves; CPU tensors for leaves

@@ -98,7 +98,9 @@ def rwr_adaptive(g: DynamicGraph, e: torch.Tensor, max_iters: int = 30,
     ``max_iters``, whichever first. Convergence is tracked PER COLUMN: a
     column whose residual is already ≤ ``tol`` keeps its current value
     (bitwise stable from then on) while the stragglers sweep, and
-    ``n_col_skipped`` totals the column-sweeps the mask retired.
+    ``n_col_skipped`` totals the column-sweeps the mask retired. One count
+    of the live columns comes to the host per sweep: it both ends the loop
+    and feeds the skip count.
     """
     r = e if r0 is None else r0
     sweep = _sweep_fn(g, e, c, ell)
@@ -106,11 +108,14 @@ def rwr_adaptive(g: DynamicGraph, e: torch.Tensor, max_iters: int = 30,
     active = torch.ones(n_cols, dtype=torch.bool, device=r.device)
     i = 0
     skipped = 0
-    while i < max_iters and bool(active.any()):
+    while i < max_iters:
+        n_active = int(active.sum())
+        if n_active == 0:
+            break
         r_new = sweep(r)
         res = (r_new - r).abs().amax(dim=0)                  # (S,)
         take = active & (res > tol)
-        skipped += n_cols - int(active.sum())
+        skipped += n_cols - n_active
         r = torch.where(take[None, :], r_new, r)
         active = take
         i += 1

@@ -36,8 +36,9 @@ Tracing (``EngineConfig.obs``) wraps each stage in a span and returns the
 per-stage wall times in ``StepOutput.stage_s``; its extra device fences
 (``torch.cuda.synchronize``) run only with tracing on. ``set_executor_pool``
 fans each step's per-bucket matches across worker threads, joined in
-bucket order. Graph sharding, edge partitioning and the serving
-controller's state are not ported.
+bucket order. A serving controller attached as ``Engine.control`` rides
+``state_dict``/``save`` and ``load_state_dict``/``load``. Graph sharding
+and edge partitioning are not ported.
 """
 
 from __future__ import annotations
@@ -154,6 +155,10 @@ class Engine:
         self.last_merge_folds = 0
         # per-bucket match fan-out pool (set_executor_pool); None = serial
         self._exec_pool: Optional[ThreadPoolExecutor] = None
+        # optional serving-controller attachment (repro_torch.control):
+        # when a runtime binds one here, its state rides the engine
+        # checkpoint so save/load round-trips the learned policy too
+        self.control = None
 
     # -- standing-query registry ----------------------------------------------
 
@@ -502,6 +507,8 @@ class Engine:
             d["pem"] = {"community_size": np.asarray(self.pem.c, np.int64)}
             if self.pem.agent is not None:
                 d["pem"]["agent"] = self.pem.agent.state_dict()
+        if self.control is not None:
+            d["control"] = self.control.state_dict()
         return d
 
     def save(self, state: EngineState, directory: str,
@@ -519,8 +526,6 @@ class Engine:
         configuration; the checkpoint carries data). Returns (state,
         step)."""
         ckpt = Checkpointer(directory, async_save=False)
-        if any(k.startswith("control/") for k in ckpt.leaf_keys(step)):
-            _refuse_control()
         tree, step = ckpt.restore(self.state_dict(state), step=step)
         return self.load_state_dict(tree), step
 
@@ -529,9 +534,8 @@ class Engine:
         one the JAX package's ``Engine.state_dict`` returns (same keys), so
         a port engine carries on serving from a reference engine's state.
         The same queries must be registered (the registry is code +
-        configuration; the tree carries data)."""
-        if "control" in tree:
-            _refuse_control()
+        configuration; the tree carries data). A ``control`` entry restores
+        the attached controller and is ignored when none is attached."""
         dev = self.device
         graph = DynamicGraph(**{
             f: torch.as_tensor(np.array(tree["graph"][f]), device=dev)
@@ -553,6 +557,8 @@ class Engine:
             self.pem.c = int(np.asarray(tree["pem"]["community_size"]))
             if self.pem.agent is not None:
                 self.pem.agent.load_state_dict(tree["pem"]["agent"])
+        if self.control is not None and "control" in tree:
+            self.control.load_state_dict(tree["control"])
         self._seed_memo.clear()
         if self.pem is not None:
             # the Louvain dendrogram is stale-tolerant (results-affecting)
@@ -567,13 +573,6 @@ class Engine:
             rlab_events=int(np.asarray(tree["rlab_events"])),
             rlab_version=0,
             step_idx=int(np.asarray(tree["step_idx"])))
-
-
-def _refuse_control() -> None:
-    raise NotImplementedError(
-        "the state carries the serving controller's state ('control'), "
-        "which is not ported yet — see ROADMAP.md queue 1, item 10, "
-        "control")
 
 
 def _sync(device: torch.device) -> None:

@@ -10,13 +10,14 @@ IGPM branches of the JAX package's ``repro.launch.serve``.
       --bank 8 --steps 12 --churn 0.25 --hotspot --policy-dir /tmp/pem
   PYTHONPATH=src python -m repro_torch.launch.serve --arch igpm-pem \\
       --async --scenario flash_crowd --ticks 8 --trace --trace-out /tmp/t
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch igpm-pem \\
+      --async --closed-loop --control frozen --control-episodes 2
 
 ``--trace`` prints the per-stage p50 breakdown; ``--trace-out PREFIX``
 also writes ``PREFIX.jsonl`` (span stream), ``PREFIX.json`` (Perfetto),
 ``PREFIX.prom`` (Prometheus text) and flight dumps ``PREFIX.flight.*``.
-The serving controller's flags (``--control``, ``--control-episodes``)
-are refused with the ROADMAP.md item that brings them; the BST branch is
-not ported.
+``--control train|frozen`` attaches the RL serving controller to an
+``--async --closed-loop`` run. The BST branch is not ported.
 """
 
 from __future__ import annotations
@@ -249,7 +250,8 @@ def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
 def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
                      bank: int, sync_too: bool = False,
                      checkpoint_dir: str = "", obs=None,
-                     closed_loop: bool = False, device="cuda"):
+                     control: str = "off", closed_loop: bool = False,
+                     control_episodes: int = 2, device="cuda"):
     """Async serving runtime on a seeded workload scenario: an ingress
     thread replays the arrival process against the wall clock while the
     executor thread runs double-buffered micro-batches; match deltas
@@ -259,21 +261,28 @@ def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
     single-threaded reference runner first, so the two tail-latency
     snapshots print side by side. ``--closed-loop`` switches the scenario
     to ack-driven closed-loop arrivals (the summary is goodput/SLO
-    violation). Each server is warmed by one replay under a virtual clock
-    and reset before its measured run. Returns (server, runtime)."""
+    violation). ``--control train|frozen|off`` attaches the RL serving
+    controller: ``train`` learns during the run; ``frozen`` pre-trains
+    ``--control-episodes`` closed-loop episodes under a virtual clock,
+    freezes the policy, and measures pure greedy inference. Each server is
+    warmed by one replay under a virtual clock and reset before its
+    measured run. Returns (server, runtime)."""
     import dataclasses
 
-    from repro_torch.config.base import (ObsConfig, RuntimeConfig,
-                                         ServingConfig)
+    from repro_torch.config.base import (ControlConfig, ObsConfig,
+                                         RuntimeConfig, ServingConfig)
     from repro_torch.core.query import query_zoo
     from repro_torch.runtime import (SCENARIOS, ServingRuntime, VirtualClock,
                                      WallClock, build_workload,
-                                     run_workload_sync)
+                                     run_closed_loop, run_workload_sync)
     from repro_torch.serving import MatchServer
 
     if scenario not in SCENARIOS:
         raise SystemExit(f"unknown scenario {scenario!r} "
                          f"(have: {sorted(SCENARIOS)})")
+    if control != "off" and not closed_loop:
+        raise SystemExit("--control wants --closed-loop (the controller's "
+                         "reward is the closed-loop goodput curve)")
     sc = SCENARIOS[scenario](rate=rate, tick_s=0.05, n_ticks=ticks,
                              n_vertices=min(arch.model.n_max, 1024), seed=0,
                              closed_loop=closed_loop)
@@ -307,10 +316,24 @@ def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
     server = MatchServer(cfg, query_zoo(bank), serving, seed=0, device=device)
     run_workload_sync(server, wl, clock=VirtualClock())  # warm
     server.reset()
+    ccfg = ControlConfig(mode="train" if control != "off" else "off")
     rt = ServingRuntime(server,
                         RuntimeConfig(ingress="shed",
-                                      checkpoint_dir=checkpoint_dir),
+                                      checkpoint_dir=checkpoint_dir,
+                                      control=ccfg),
                         clock=WallClock())
+    if control == "frozen":
+        # pre-train on deterministic closed-loop replays, then freeze:
+        # the measured run below is pure greedy inference
+        for _ in range(max(control_episodes, 1)):
+            run_closed_loop(server, wl, clock=VirtualClock(),
+                            controller=rt.controller, knobs=rt.knobs,
+                            ledger=rt.acks)
+            server.reset()
+        print(f"[serve] controller: trained {rt.controller.n_episodes} "
+              f"episodes ({rt.controller.n_decisions} decisions) — frozen")
+        rt.controller.freeze()
+        rt.acks.reset()
     sub = rt.subscribe()
     rt.start(wl)
     if rt.ops is not None:
@@ -333,6 +356,12 @@ def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
               f"viol_rate={cs['viol_rate']:.3f} "
               f"(slo={cs['slo_s'] * 1e3:.0f} ms, "
               f"throttled={cs['events_throttled']:.0f})")
+        if rt.controller is not None:
+            print(f"[serve] controller[{rt.controller.mode}]: "
+                  f"{rt.controller.n_decisions} decisions, "
+                  f"knobs window={rt.knobs.window} "
+                  f"depth={rt.knobs.queue_depth} "
+                  f"rwr_tol={rt.knobs.rwr_tol:g}")
     deltas = sub.drain()
     new = sum(d.n_new for _, d in deltas)
     print(f"[serve] subscriber saw {len(deltas)} deltas, {new} new patterns"
@@ -341,22 +370,6 @@ def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
     print(f"[serve] queue: {server.queue.stats()}")
     _report_obs(server)
     return server, rt
-
-
-# IGPM flags of the reference CLI whose features are not ported yet: dest →
-# (flag, default, the ROADMAP.md queue-1 item that brings it). A flag set
-# away from its default is refused, never ignored.
-_WAITING_FLAGS = {
-    "control": ("--control", "off", "10, control"),
-    "control_episodes": ("--control-episodes", 2, "10, control"),
-}
-
-
-def _refuse_waiting_flags(args) -> None:
-    for dest, (flag, default, item) in _WAITING_FLAGS.items():
-        if getattr(args, dest) != default:
-            raise SystemExit(f"{flag} asks for a feature that is not ported "
-                             f"yet — see ROADMAP.md queue 1, item {item}")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -421,10 +434,15 @@ def parser() -> argparse.ArgumentParser:
                          "-1 (default) disables; also enables the "
                          "per-query freshness ledger and the health "
                          "watchdog")
-    for dest, (flag, default, item) in _WAITING_FLAGS.items():
-        ap.add_argument(flag, dest=dest, type=type(default), default=default,
-                        help=f"igpm: not ported yet (ROADMAP.md queue 1, "
-                             f"item {item})")
+    ap.add_argument("--control", default="off",
+                    choices=["train", "frozen", "off"],
+                    help="igpm --async --closed-loop: RL serving "
+                         "controller mode (frozen pre-trains "
+                         "--control-episodes, then measures pure greedy "
+                         "inference)")
+    ap.add_argument("--control-episodes", type=int, default=2,
+                    help="igpm --control frozen: closed-loop training "
+                         "episodes before freezing")
     return ap
 
 
@@ -434,15 +452,20 @@ def main(argv=None) -> None:
     if arch.family == "lm":
         serve_lm(arch, args.tokens, device=args.device)
     elif arch.family == "igpm":
-        _refuse_waiting_flags(args)
         obs = _obs_config(args)
         if args.use_async:
             serve_igpm_async(arch, args.scenario, args.rate, args.ticks,
                              args.bank, sync_too=args.sync_too,
                              checkpoint_dir=args.checkpoint_dir, obs=obs,
+                             control=args.control,
                              closed_loop=args.closed_loop,
+                             control_episodes=args.control_episodes,
                              device=args.device)
         else:
+            if args.control != "off":
+                raise SystemExit("--control wants --async --closed-loop "
+                                 "(the synchronous branch has no "
+                                 "controller)")
             serve_igpm(arch, args.steps, args.bank, args.churn, args.hotspot,
                        policy_dir=args.policy_dir, register=args.register,
                        retire=args.retire, device=args.device, obs=obs)

@@ -9,8 +9,8 @@ flash crowd, diurnal ramp, churn-heavy) layer seeded arrival processes on
 the temporal stream generators so tail-latency SLOs are measured against
 reproducible traffic. Closed-loop mode (``ScenarioConfig.closed_loop``)
 adds ack-driven arrival modulation through the ``AckLedger``; the
-``RuntimeKnobs`` indirection is the surface a serving controller would
-drive (the controller itself is not ported).
+``RuntimeKnobs`` indirection is the surface the serving controller
+(:mod:`repro_torch.control`) drives.
 """
 
 from repro_torch.runtime.clock import Clock, VirtualClock, WallClock

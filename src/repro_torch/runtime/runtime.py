@@ -42,8 +42,9 @@ sync-vs-async benchmarks and the bit-identical tests compare against.
 On the card the executor thread's step is mostly host work (extraction,
 merge, the PEM), so the two threads share the interpreter lock; the
 overlap is what the runtime offers, not a guaranteed tail-latency gain.
-The serving controller (``RuntimeConfig.control.mode != "off"``) is not
-ported: asking for it raises ``NotImplementedError``.
+``RuntimeConfig.control.mode`` ``train``/``frozen`` attaches the serving
+controller (:mod:`repro_torch.control`), which decides on the ingress
+thread at micro-batch boundaries.
 """
 
 from __future__ import annotations
@@ -415,8 +416,6 @@ class ServingRuntime:
                  rcfg: Optional[RuntimeConfig] = None,
                  clock: Optional[Clock] = None):
         if rcfg is not None:
-            if rcfg.control.mode != "off":
-                _refuse_control()
             if rcfg.ingress not in ("lockstep", "shed"):
                 raise ValueError(f"unknown ingress policy {rcfg.ingress!r}")
             if rcfg.handoff_depth < 1:
@@ -446,11 +445,14 @@ class ServingRuntime:
         self._exc: List[BaseException] = []
         self.n_checkpoints = 0
         # closed-loop plumbing: knob indirection + ack accounting always
-        # exist (inert without acking subscribers / closed-loop workloads)
+        # exist (inert without acking subscribers / closed-loop workloads);
+        # the controller only when asked for — mode='off' constructs
+        # nothing that could perturb the runtime
         self.knobs = RuntimeKnobs(server)
         self.acks = AckLedger(slo_s=self.rcfg.control.slo_e2e_s)
         self._last_service_s = 0.0     # clock-time of the last device step
         self._n_batches = 0
+        self.controller = None
         # freshness / watchdog / ops surface — all
         # host-side, all off by default; ocfg is the runtime-level
         # ObsConfig override when given, else the engine hub's
@@ -483,6 +485,12 @@ class ServingRuntime:
             self.health.attach_pending(
                 lambda: len(self._ingress) + len(self._handoff))
         self.ops = None                # OpsServer, bound at start()
+        if self.rcfg.control.mode != "off":
+            from repro_torch.control import ServingController  # no cycle
+            self.controller = ServingController(
+                server, self.knobs, self.acks, self.rcfg.control,
+                freshness=self.freshness)
+            server.engine.control = self.controller
 
     # -- subscriptions --------------------------------------------------------
 
@@ -514,6 +522,8 @@ class ServingRuntime:
             self.freshness.telemetry = self.telemetry
         self.knobs.apply()  # re-assert knob state on the (maybe new) queue
         self._start_obs_services()
+        if self.controller is not None:
+            self.controller.begin_episode()
         if workload.scenario.closed_loop:
             self.acks.slo_s = workload.scenario.ack_slo_s
             self.acks.telemetry = self.telemetry
@@ -631,7 +641,8 @@ class ServingRuntime:
     def _flush(self, block: bool) -> None:
         """Assemble pending events into packed batches while the handoff
         (and lockstep policy) allows. Reads the micro-batch window from
-        the live knobs."""
+        the live knobs; the controller's decision hook runs here, on the
+        ingress thread, at batch boundaries."""
         obs = self.obs
         while len(self._ingress) > 0 and not self._stop_now.is_set():
             # handoff occupancy: in lockstep this span IS the time the
@@ -650,6 +661,10 @@ class ServingRuntime:
                         n_events=item.n_events)
             self._handoff.push(item)
             self._n_batches += 1
+            if self.controller is not None:
+                self.controller.on_batch(item.n_events,
+                                         self._last_service_s,
+                                         self.clock.now())
 
     def _ingress_main(self, workload: Workload) -> None:
         lockstep = self.rcfg.ingress == "lockstep"
@@ -701,6 +716,8 @@ class ServingRuntime:
         # interrupts via _stop_now)
         if not self._stop_now.is_set():
             self._flush(block=True)
+        if self.controller is not None and not self._stop_now.is_set():
+            self.controller.end_episode(self.clock.now())
         self._handoff.close()
         if self.health is not None:   # clean exit: drained ≠ stalled
             self.health.set_inactive("ingress")
@@ -867,13 +884,13 @@ def run_closed_loop(server: MatchServer, workload: Workload,
     ClosedLoopSource` — arrivals throttle on delivered lag — and every
     executed batch is delivered and immediately acked (prompt-consumer
     semantics, the ``expected={}`` auto-ack path of :class:`AckLedger`).
-    The optional ``controller`` (an object with the serving controller's
-    ``begin_episode``/``on_batch``/``end_episode`` hooks) gets the same ``on_batch``/``end_episode`` hooks the threaded
-    runtime's ingress gives it, so training and deterministic evaluation
-    both run here: under a ``VirtualClock`` the whole run — lag sequence,
-    Poisson draws, observations, frozen-policy actions — is a pure
-    function of the seeds, which is what the replay-repeatability tests
-    pin. Under a ``WallClock`` lag is real and the goodput/SLO summary
+    The optional ``controller`` (a ``repro_torch.control.
+    ServingController``) gets the same ``on_batch``/``end_episode`` hooks
+    the threaded runtime's ingress gives it, so training and deterministic
+    evaluation both run here: under a ``VirtualClock`` the whole run — lag
+    sequence, Poisson draws, observations, frozen-policy actions — is a
+    pure function of the seeds, which is what the replay-repeatability
+    tests pin. Under a ``WallClock`` lag is real and the goodput/SLO summary
     (returned via the ledger) is the closed-loop benchmark metric.
 
     ``service_model`` (optional, requires a :class:`VirtualClock`): a
@@ -943,10 +960,3 @@ def run_closed_loop(server: MatchServer, workload: Workload,
     if controller is not None:
         controller.end_episode(clock.now())
     return g, stats, ledger
-
-
-def _refuse_control() -> None:
-    raise NotImplementedError(
-        "RuntimeConfig.control.mode asks for the serving controller, which "
-        "is not ported yet — see ROADMAP.md queue 1, item 10, control; "
-        "leave it at 'off'")

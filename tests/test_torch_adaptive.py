@@ -21,8 +21,10 @@ import repro.data.temporal as rdata
 import repro_torch.data.temporal as tdata
 from repro.config.base import IGPMConfig as RCfg
 from repro.config.base import ServingConfig as RServCfg
+from repro.config.registry import get_arch as r_get_arch
 from repro.core.pem import PartialExecutionManager as RPem
 from repro.core.query import query_zoo as r_zoo
+from repro.launch import serve as rserve
 from repro.serving.server import MatchServer as RServer
 from repro_torch.config.base import IGPMConfig as TCfg
 from repro_torch.config.base import ServingConfig as TServCfg
@@ -185,12 +187,17 @@ def test_cli_serves_and_restores_its_policy(tmp_path, capsys):
     ["--closed-loop"], ["--control", "train"], ["--metrics-port", "0"]],
     ids=lambda f: f[0])
 def test_cli_refuses_flags_of_unported_features(flag):
-    """Only the serving controller's flags wait (ROADMAP item 10); the
-    runtime, tracing and ops-surface flags are ported and pass the check
-    (their runs are in test_torch_obs.py and test_torch_runtime.py)."""
+    """Every igpm flag of the reference CLI is ported: each parses. Only
+    ``--control`` has a precondition, ``--async --closed-loop``, and
+    without it exits with the reference's message (the runs are in
+    test_torch_obs.py, test_torch_runtime.py and test_torch_control.py)."""
     argv = ["--arch", "igpm-pem", "--device", "cpu"] + flag
+    tserve.parser().parse_args(argv)
     if flag[0] == "--control":
-        with pytest.raises(SystemExit, match="--control.*ROADMAP.md.*10"):
-            tserve.main(argv)
-    else:
-        tserve._refuse_waiting_flags(tserve.parser().parse_args(argv))
+        with pytest.raises(SystemExit) as ref_exit:
+            rserve.serve_igpm_async(r_get_arch("igpm-pem", smoke=True),
+                                    "flash_crowd", 4000.0, 6, 2,
+                                    control="train", closed_loop=False)
+        with pytest.raises(SystemExit) as port_exit:
+            tserve.main(argv + ["--async"])
+        assert str(port_exit.value) == str(ref_exit.value)

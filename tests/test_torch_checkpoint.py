@@ -6,7 +6,8 @@ under the shared agent and seeded ``elapsed`` of ``test_torch_adaptive``);
 the port's files equal the reference writer's byte for byte (the index is
 compared with ``msgpack``, which only this test imports); atomic commit,
 the ignored ``.tmp``, keep-N and the async writer; the learned policy
-carried across restarts in both directions.
+carried across restarts in both directions; a ``control`` entry restored
+as the reference restores it.
 """
 
 import jax.numpy as jnp
@@ -16,18 +17,27 @@ import pytest
 import torch
 
 from repro.checkpoint import Checkpointer as RCkpt
+from repro.config.base import ControlConfig as RCtlCfg
 from repro.config.base import EngineConfig as REngCfg
 from repro.config.base import IGPMConfig as RCfg
 from repro.config.base import ServingConfig as RServCfg
+from repro.control import ServingController as RCtl
 from repro.core.query import query_zoo as r_zoo
 from repro.engine import Engine as REngine
+from repro.runtime.runtime import AckLedger as RLedger
+from repro.runtime.runtime import RuntimeKnobs as RKnobs
 from repro.serving.server import MatchServer as RServer
 from repro_torch.checkpoint import Checkpointer as TCkpt
+from repro_torch.config.base import ControlConfig as TCtlCfg
 from repro_torch.config.base import EngineConfig as TEngCfg
 from repro_torch.config.base import IGPMConfig as TCfg
 from repro_torch.config.base import ServingConfig as TServCfg
+from repro_torch.control import ACTION_NAMES
+from repro_torch.control import ServingController as TCtl
 from repro_torch.core.query import query_zoo as t_zoo
 from repro_torch.engine import Engine as TEngine
+from repro_torch.runtime.runtime import AckLedger as TLedger
+from repro_torch.runtime.runtime import RuntimeKnobs as TKnobs
 from repro_torch.serving.server import MatchServer as TServer
 from test_torch_adaptive import (CPU, _cfg, _steps_equal, _stores_equal,
                                  seeded_elapsed, streams)  # noqa: F401
@@ -211,16 +221,37 @@ def test_async_save_is_joined(tmp_path):
 
 
 def test_control_state_is_refused(streams, tmp_path):
-    """A state carrying the serving controller's entry is refused, as a
-    tree and as a checkpoint directory."""
+    """A state carrying the serving controller's entry ('control') — as a
+    tree and as a checkpoint directory of the reference — restores as the
+    reference's engine restores it: unread when no controller is attached,
+    into the attached controller otherwise (knob indices, counters, and
+    Q-values within f32 rounding)."""
     ref, port = _engines()
+    r_srv = RServer(_cfg(RCfg), r_zoo(2), RServCfg())
+    r_ctl = RCtl(r_srv, RKnobs(r_srv), RLedger(), RCtlCfg(mode="train"))
+    r_ctl.env.apply(ACTION_NAMES.index("window_down"))
+    r_ctl.n_decisions, r_ctl.n_episodes = 3, 1
+    ref.control = r_ctl
     tree = ref.state_dict(ref.init_state(streams[0].graph))
-    tree["control"] = {"x": np.zeros(1)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.load_state_dict(tree)
     RCkpt(tmp_path, async_save=False).save(0, tree)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.load(port.init_state(streams[1].graph), str(tmp_path))
+    s_p = port.load_state_dict(tree)
+    s_p, _ = port.load(port.init_state(streams[1].graph), str(tmp_path))
+    assert s_p.step_idx == 0 and port.control is None
+    probe = np.linspace(0.0, 1.0, 12, dtype=np.float32)
+    for restore in ("tree", "directory"):
+        t_srv = TServer(_cfg(TCfg), t_zoo(2), TServCfg(), device=CPU)
+        t_ctl = TCtl(t_srv, TKnobs(t_srv), TLedger(), TCtlCfg(mode="train"))
+        port.control = t_ctl
+        if restore == "tree":
+            port.load_state_dict(tree)
+        else:
+            port.load(port.init_state(streams[1].graph), str(tmp_path))
+        assert t_ctl.env.knob_state() == r_ctl.env.knob_state()
+        assert (t_ctl.n_decisions, t_ctl.n_episodes) == (3, 1)
+        assert t_ctl.env.window_idx < len(t_ctl.env.window_ladder) - 1
+        np.testing.assert_allclose(t_ctl.agent.q_values(probe),
+                                   np.asarray(r_ctl.agent.q_values(probe)),
+                                   rtol=1e-6, atol=1e-6)
 
 
 # -- policy persistence ----------------------------------------------------------

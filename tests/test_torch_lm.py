@@ -435,9 +435,9 @@ def test_port_serve_cli_runs_on_cpu(capsys):
                  "--device", "cpu"])
     out = capsys.readouterr().out
     assert "decoded 3 tokens/seq" in out
-    # the igpm branch serves, synchronous or async; what it still refuses
-    # is the serving controller (tests/test_torch_adaptive.py)
-    with pytest.raises(SystemExit, match="--control.*ROADMAP"):
+    # the igpm branch serves, synchronous or async; the serving
+    # controller needs --async --closed-loop (tests/test_torch_control.py)
+    with pytest.raises(SystemExit, match="--control wants --async"):
         tserve.main(["--arch", "igpm-pem", "--device", "cpu", "--control",
                      "train"])
 

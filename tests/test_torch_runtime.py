@@ -11,7 +11,9 @@ to serial; drains flush every accepted event; an abort returns promptly;
 forced back-pressure cannot deadlock; per-query subscriber streams and the
 tail-latency channels fill; a closed loop under ``VirtualClock`` gives the
 reference's ``AckLedger`` summary exactly; the drain checkpoint restores
-into the reference's engine and back; the serving controller is refused.
+into the reference's engine and back; the controller modes build the
+serving controller as the reference's runtime does
+(``test_torch_control.py`` holds the controller's own parity).
 """
 
 import math
@@ -21,10 +23,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.config.base import ControlConfig as RCtlCfg
 from repro.config.base import IGPMConfig as RCfg
+from repro.config.base import RuntimeConfig as RRtCfg
 from repro.config.base import ServingConfig as RServCfg
 from repro.core.query import query_zoo as r_zoo
 from repro.runtime import SCENARIOS as R_SCENARIOS
+from repro.runtime import ServingRuntime as RRuntime
 from repro.runtime import VirtualClock as RVClock
 from repro.runtime import build_workload as r_build
 from repro.runtime import run_closed_loop as r_closed
@@ -180,18 +185,29 @@ def test_multi_executor_store_identical_to_serial():
 
 
 def test_runtime_config_rejects_bad_values_and_the_controller():
+    """Bad values are refused; the controller modes build the serving
+    controller, as the reference's runtime does (same ladders, attached
+    to the engine); ``--control`` without ``--closed-loop`` exits with
+    the reference's message."""
     for bad, match in ((RuntimeConfig(n_executors=0), "n_executors"),
                        (RuntimeConfig(handoff_depth=0), "handoff_depth"),
                        (RuntimeConfig(ingress="burst"), "ingress")):
         with pytest.raises(ValueError, match=match):
             ServingRuntime(_server(), bad, clock=VirtualClock())
     for mode in ("train", "frozen"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 10"):
-            ServingRuntime(_server(),
-                           RuntimeConfig(control=ControlConfig(mode=mode)),
-                           clock=VirtualClock())
-    with pytest.raises(SystemExit, match="--control.*item 10"):
+        rt = ServingRuntime(_server(),
+                            RuntimeConfig(control=ControlConfig(mode=mode)),
+                            clock=VirtualClock())
+        r_rt = RRuntime(_ref_server(),
+                        RRtCfg(control=RCtlCfg(mode=mode)), clock=RVClock())
+        ctl, r_ctl = rt.controller, r_rt.controller
+        assert ctl.mode == r_ctl.mode == mode
+        assert rt.server.engine.control is ctl
+        assert (ctl.env.window_ladder, ctl.env.depth_ladder,
+                ctl.env.tol_ladder) == (r_ctl.env.window_ladder,
+                                        r_ctl.env.depth_ladder,
+                                        r_ctl.env.tol_ladder)
+    with pytest.raises(SystemExit, match="--control wants --closed-loop"):
         tserve.main(["--arch", "igpm-pem", "--device", "cpu", "--async",
                      "--control", "train"])
 
