@@ -60,7 +60,19 @@ Phases, each printed on its own lines:
 8. serve-batch — 2 steps of ``Engine(FULL, EngineConfig(mode="batch"))``
    on the same stream (full-graph label RWR and bank match), counters
    again set to 0 before and read after; its first BFS sweep (the full
-   mirror) is captured, held bitwise and timed;
+   mirror) is captured, held bitwise and timed. Then serve-sharded:
+   serve-batch's engine over the device mesh (the visible cards where
+   there are two or more, else ``cuda:0`` named four times, which checks
+   the distribution and is no speedup) in three
+   layouts — ``graph_shard="auto", shard="off"`` (g = 4), the same with
+   ``edge_partition="on"``, and ``shard="auto", graph_shard="auto"`` (a
+   2 × 2 mesh) — 2 steps each, counters set to 0 before each run and read
+   after; every label-RWR table, every bucket's matched ids, goodness,
+   hops and exact/valid flags, the deltas and the stores must equal
+   serve-batch's bitwise; step times, launches, the row-block capacity
+   and per-shard mirror bytes are printed; then both ELL kernels on row
+   block 0 of the g = 4 mirror (n_loc 65,536 of n_x 262,144) against their
+   plain versions at d 4 and 160, timed;
 9. serve-adaptive — ``MatchServer(FULL, query_zoo(16), ServingConfig())``,
    the paper's IGPM-PEM, on the same stream for 20 steps, counters set to
    0 before and read after: per step the wall and pipeline time, c, the TD
@@ -191,18 +203,21 @@ def check(ok: bool, what: str) -> None:
 
 # -- phase 2: kernels against their plain versions -----------------------------
 
-def spmm_bound(mask, x, n: int, with_vals: bool):
+def spmm_bound(mask, x, n: int, with_vals: bool, cols=None):
     """Least card time for the function on these inputs: each input byte
     it needs read once, each output byte written once — the whole mask,
-    the row ids, the column id (and weight) of every live entry, all of
-    x — against its flops (2·nnz·d for the SpMM, nnz·d compares for the
-    reach) at the fp32 peak."""
+    the row ids, the column id (and weight) of every live entry, the rows
+    of x it reads (all of x, or with ``cols`` the distinct live columns:
+    one shard's row block reads only those) — against its flops (2·nnz·d
+    for the SpMM, nnz·d compares for the reach) at the fp32 peak."""
     from repro_torch.kernels.measure import H100_BYTES_PER_S, H100_F32_FLOPS
     r, k = mask.shape
     nnz = int(mask.sum())
     d = x.shape[1]
+    x_rows = (x.shape[0] if cols is None
+              else int(cols[mask].unique().numel()))
     nbytes = (r * k + r * 4 + nnz * (8 if with_vals else 4)
-              + x.numel() * 4 + n * d * 4)
+              + x_rows * d * 4 + n * d * 4)
     ops = (2 if with_vals else 1) * nnz * d
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_FLOPS * 1e3
@@ -933,6 +948,7 @@ def phase_serve_batch(stream, n_steps: int, profile: bool = False):
     for q in query_zoo(16):
         eng.register(q)
     state = eng.init_state(stream.graph)
+    record = MeshRecord(eng)
     ops.reset_launch_counts()
     per_step = []
     prof = StepProfiler(profile, "serve-batch")
@@ -947,6 +963,8 @@ def phase_serve_batch(stream, n_steps: int, profile: bool = False):
                 f"rwr_sweeps={out.rwr_sweeps}")
             per_step.append(dict(step=i, s=dt, pipeline_s=out.elapsed,
                                  new_patterns=out.n_new_patterns))
+            record.deltas.append(out.deltas)
+    record.stores = {qid: dict(st._patterns) for qid, st in eng.stores.items()}
     launches = dict(ops.LAUNCHES)
     say(f"  serve-batch launches: {launches}")
     for name, count in launches.items():
@@ -956,7 +974,202 @@ def phase_serve_batch(stream, n_steps: int, profile: bool = False):
         good = np.asarray([v[0] for v in store._patterns.values()])
         check(bool(np.isfinite(good).all()),
               f"serve-batch: non-finite goodness in {qid}")
-    return launches, per_step, cap.inputs
+    return launches, per_step, cap.inputs, record
+
+
+# -- phase 8b: serve-sharded, serve-batch over the device mesh ------------
+
+class MeshRecord:
+    """Wrap an engine's ``_label_table`` and ``_merge`` (here, not in the
+    package) to keep, on the card, every label-RWR table and every bucket's
+    ``GRayResult`` (matched ids, goodness, hops, exact and valid flags) of
+    each step; the steps' deltas and the final stores are added by the
+    caller."""
+
+    def __init__(self, eng):
+        self.tables, self.results, self.deltas = [], [], []
+        self.stores = {}
+        label_table, merge = eng._label_table, eng._merge
+
+        def recording_table(*args, **kw):
+            r = label_table(*args, **kw)
+            self.tables.append(r.clone())
+            return r
+
+        def recording_merge(results, *args, **kw):
+            self.results.append({shape: tuple(t.clone() for t in res)
+                                 for shape, res in results.items()})
+            return merge(results, *args, **kw)
+
+        eng._label_table, eng._merge = recording_table, recording_merge
+
+    def mismatch(self, other) -> str:
+        """'' when ``other`` holds the same bits, else what differs."""
+        import torch
+        if len(self.tables) != len(other.tables) or not all(
+                torch.equal(a, b.to(a.device))
+                for a, b in zip(self.tables, other.tables)):
+            return "label-RWR tables"
+        for i, (a, b) in enumerate(zip(self.results, other.results)):
+            if a.keys() != b.keys():
+                return f"step {i} buckets"
+            for shape in a:
+                for f, x, y in zip(("matched", "goodness", "hops", "exact",
+                                    "valid"), a[shape], b[shape]):
+                    if not torch.equal(x, y.to(x.device)):
+                        return f"step {i} bucket {shape} {f}"
+        if len(self.results) != len(other.results):
+            return "step count"
+        if self.deltas != other.deltas:
+            return "deltas"
+        if self.stores != other.stores:
+            return "stores"
+        return ""
+
+
+SHARDED_RUNS = (
+    ("graph", dict(shard="off", graph_shard="auto")),
+    ("graph-partitioned", dict(shard="off", graph_shard="auto",
+                               edge_partition="on")),
+    ("mesh-2d", dict(shard="auto", graph_shard="auto")),
+)
+
+
+def smoke_mesh():
+    """The mesh of serve-sharded: the visible cards where there are two or
+    more, else the one card named four times (which checks the
+    distribution and is no speedup)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [f"cuda:{i}" for i in range(n)], "real cards"
+    return ["cuda:0"] * 4, "cuda:0 x 4 (one card: a check, not a speedup)"
+
+
+def phase_serve_sharded(stream, n_steps: int, batch_record, batch_steps,
+                        reps: int):
+    """serve-batch's engine (FULL, ``query_zoo(16)``, batch mode) over the
+    device mesh in three layouts; each must equal serve-batch's run
+    bitwise. Launch counters are set to 0 before each run and read after.
+    Then both ELL kernels on row block 0 of the graph run's mirror against
+    their plain versions."""
+    import torch
+    from repro_torch.config.base import EngineConfig
+    from repro_torch.configs.igpm_paper import FULL
+    from repro_torch.core.query import query_zoo
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.spmv_ell import ops
+    mesh, kind = smoke_mesh()
+    say(f"  mesh: {torch.cuda.device_count()} visible card(s); "
+        f"devices {mesh} — {kind}")
+    out = dict(mesh=mesh, mesh_kind=kind, runs={},
+               replicated_step_s=[st["s"] for st in batch_steps])
+    block_rows = None
+    for name, knobs in SHARDED_RUNS:
+        eng = Engine(FULL, EngineConfig(mode="batch", **knobs),
+                     device="cuda", devices=mesh)
+        for q in query_zoo(16):
+            eng.register(q)
+        record = MeshRecord(eng)
+        state = eng.init_state(stream.graph)
+        ops.reset_launch_counts()
+        step_s = []
+        for upd in stream.updates[:n_steps]:
+            t0 = time.perf_counter()
+            state, res = eng.step(state, upd)
+            for dev in dict.fromkeys(mesh):
+                torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t0)
+            record.deltas.append(res.deltas)
+        launches = dict(ops.LAUNCHES)
+        record.stores = {qid: dict(st._patterns)
+                         for qid, st in eng.stores.items()}
+        cache = eng.ell_cache
+        q_shards = {f"{k[0]}x{k[1]}": b.n_shards
+                    for k, b in eng.buckets.items()}
+        say(f"  serve-sharded {name}: g_shards={eng.g_shards} "
+            f"q_budget={eng.q_budget} partitioned={eng.partitioned} "
+            f"query shards per bucket {q_shards}; steps "
+            f"{', '.join(f'{t:.3f} s' for t in step_s)} (warm step "
+            f"{step_s[-1]:.3f} s against serve-batch's "
+            f"{batch_steps[-1]['s']:.3f} s; {kind}); launches {launches}; "
+            f"r_cap_block={cache.r_cap_block} rows, "
+            f"{cache.block_nbytes()} B per shard "
+            f"({cache.r_cap_block} x {FULL.ell_width} x 9 B), "
+            f"occupancy {cache.occupancy():.4f}")
+        for kname, count in launches.items():
+            check(count > 0, f"serve-sharded {name} never launched {kname}")
+        check(eng.g_shards > 1 or (name == "mesh-2d" and len(mesh) < 4),
+              f"serve-sharded {name}: no graph axis")
+        diff = batch_record.mismatch(record)
+        check(diff == "", f"serve-sharded {name} differs from serve-batch "
+                          f"in its {diff}")
+        say(f"  serve-sharded {name}: bitwise equal to serve-batch (tables, "
+            f"matched ids, goodness, hops, exact/valid, deltas, stores)")
+        out["runs"][name] = dict(
+            g_shards=eng.g_shards, q_budget=eng.q_budget,
+            partitioned=eng.partitioned, query_shards=q_shards,
+            step_s=step_s, launches=launches,
+            r_cap_block=cache.r_cap_block,
+            block_bytes=cache.block_nbytes(),
+            occupancy=cache.occupancy())
+        if name == "graph":
+            block_rows = phase_block_kernels(cache.ell.blocks[0],
+                                             FULL.n_max, reps)
+        del eng, record, state, cache
+        torch.cuda.empty_cache()
+    return out, block_rows
+
+
+def phase_block_kernels(block, n_x: int, reps: int):
+    """Both ELL kernels on one shard's row block of the FULL mirror (n =
+    n_loc < n_x, local row ids, global column ids) against their plain
+    versions at d 4 and d 160, timed beside the plain versions, their
+    bounds and (SpMM) ``torch.sparse.mm``."""
+    import torch
+    from repro_torch.kernels.measure import cuda_ms
+    from repro_torch.kernels.spmv_ell import ref
+    from repro_torch.kernels.spmv_ell import ops
+    cols, vals, mask, row_ids, n = (block.cols, block.vals, block.mask,
+                                    block.row_ids, block.n)
+    index = block.row_index()
+    say(f"phase kernels (row block 0 of the FULL mirror): R={cols.shape[0]} "
+        f"K={cols.shape[1]} n_loc={n} n_x={n_x} nnz={int(mask.sum())}")
+    csr = spmm_csr(cols, vals, mask, row_ids, n, n_x)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for d in (4, 160):
+        x = torch.rand((n_x, d), device="cuda", generator=gen)
+        xb = (torch.rand((n_x, d), device="cuda", generator=gen)
+              < 0.1).to(torch.float32)
+        s_abs, s_rel = compare_spmm(ops, ref, cols, vals, mask, row_ids, x,
+                                    n, index, f"row block d={d}")
+        r_abs = compare_reach(ops, ref, cols, mask, row_ids, xb, n, index,
+                              f"row block d={d}")
+        s_ms = cuda_ms(lambda: ops.ell_spmm(cols, vals, mask, row_ids, x, n,
+                                            index=index), reps)
+        r_ms = cuda_ms(lambda: ops.ell_reach(cols, mask, row_ids, xb, n,
+                                             index=index), reps)
+        s_plain = cuda_ms(lambda: ref.ell_spmm_ref(cols, vals, mask, row_ids,
+                                                   x, n), 3, warmup=1)
+        r_plain = cuda_ms(lambda: ref.ell_reach_ref(cols, mask, row_ids, xb,
+                                                    n), 3, warmup=1)
+        s_lib = cuda_ms(lambda: torch.sparse.mm(csr, x), reps)
+        s_bound, s_by, _, _ = spmm_bound(mask, x, n, True, cols)
+        r_bound, r_by, _, _ = spmm_bound(mask, xb, n, False, cols)
+        say(f"  row block d={d}: ell_spmm {s_ms:.4f} ms (plain {s_plain:.4f}"
+            f" ms, torch.sparse.mm {s_lib:.4f} ms, bound {s_bound:.4f} ms "
+            f"{s_by}); ell_reach {r_ms:.4f} ms (plain {r_plain:.4f} ms, "
+            f"bound {r_bound:.4f} ms {r_by})")
+        rows[("ell_spmm", d)] = dict(ms=s_ms, plain_ms=s_plain,
+                                     library_ms=s_lib, bound_ms=s_bound,
+                                     bound_by=s_by, max_abs_err=s_abs,
+                                     max_rel_err=s_rel)
+        rows[("ell_reach", d)] = dict(ms=r_ms, plain_ms=r_plain,
+                                      library_ms=None, bound_ms=r_bound,
+                                      bound_by=r_by, max_abs_err=r_abs)
+        del x, xb
+    return rows
 
 
 def check_captured(inputs):
@@ -2057,11 +2270,16 @@ def main(argv=None) -> int:
     cap = check_captured(captured)
     del captured
     say("phase serve-batch:")
-    launches_batch, batch_steps, captured = phase_serve_batch(
+    launches_batch, batch_steps, captured, batch_record = phase_serve_batch(
         stream, BATCH_STEPS, args.profile)
     check("bfs" in captured, "serve-batch handed no BFS sweep to a kernel")
     cap["batch_bfs"] = time_captured_bfs(captured["bfs"], "serve-batch")
     del captured
+    say("phase serve-sharded:")
+    sharded, block_rows = phase_serve_sharded(
+        stream, BATCH_STEPS, batch_record, batch_steps, REPS)
+    del batch_record
+    torch.cuda.empty_cache()
     say("phase serve-adaptive:")
     launches_adapt, adapt_steps, adapt_cap, srv = phase_serve_adaptive(
         stream, ADAPT_STEPS, args.profile)
@@ -2089,7 +2307,7 @@ def main(argv=None) -> int:
                  adaptive_louvain_s=adapt_louvain_s,
                  adaptive_agreement=adapt_agree, round_trips=round_trips,
                  traced=traced, runtime=runtime, control=control,
-                 captured=cap, lm=lm)
+                 captured=cap, lm=lm, sharded=sharded)
 
     kernels = []
     for name, src, line in (
@@ -2107,7 +2325,11 @@ def main(argv=None) -> int:
             "launches_batch": launches_batch[name],
             "launches_runtime": launches_rt[name],
             "launches_control": launches_ctl[name],
-            "max_abs_err": max(head["max_abs_err"], served["max_abs_err"]),
+            "launches_sharded": {run: r["launches"][name]
+                                 for run, r in sharded["runs"].items()},
+            "max_abs_err": max(head["max_abs_err"], served["max_abs_err"],
+                               *(block_rows[(name, d)]["max_abs_err"]
+                                 for d in (4, 160))),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -2115,6 +2337,7 @@ def main(argv=None) -> int:
             "variant": head.get("variant"),
             "shape": "R=393216 K=64 n=262144 d=320",
             "by_d": {str(d): rows[(name, d)] for d in (4, 320)},
+            "by_block_d": {str(d): block_rows[(name, d)] for d in (4, 160)},
         })
     flash_src = "src/repro_torch/kernels/flash_attention/csrc/"
     flash_tpu = "src/repro/kernels/flash_attention/flash_attention.py:80"

@@ -31,7 +31,10 @@ the summation order of sweep blocks of other widths):
 
 Both sparse sweeps run on either the COO gather/scatter path or the ELL
 kernels — ``backend="ell"`` routes them through
-``repro_torch.kernels.spmv_ell`` given an ELL mirror of the graph.
+``repro_torch.kernels.spmv_ell`` given an ELL mirror of the graph. Given a
+``graph_axis`` (:class:`~repro_torch.core.graph.GraphAxis`) both split over
+the graph axis of the engine's device mesh, bitwise as replicated
+(:mod:`repro_torch.core.rwr`).
 """
 
 from __future__ import annotations
@@ -42,10 +45,12 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import resolve_backend
-from repro_torch.core.graph import DynamicGraph, ell_from_graph
+from repro_torch.core.graph import (DynamicGraph, GraphAxis,
+                                    PartitionedEdges, ell_from_graph)
 from repro_torch.core.query import Query, QueryBank, stack_queries
-from repro_torch.core.rwr import (label_rwr, label_rwr_adaptive,
-                                  restart_onehot, rwr, rwr_adaptive)
+from repro_torch.core.rwr import (_owned_mask, label_rwr,
+                                  label_rwr_adaptive, restart_onehot, rwr,
+                                  rwr_adaptive)
 from repro_torch.kernels.spmv_ell import ops as ell_ops
 from repro_torch.sparse.ell import EllGraph
 
@@ -108,34 +113,84 @@ def _find_seeds_arrays(g: DynamicGraph, r_lab: torch.Tensor, k: int,
     return ids[:, :k].to(torch.int32), torch.isfinite(vals[:, :k])
 
 
+def _scatter_max(msg: torch.Tensor, idx: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """Per segment, the max of ``msg`` over the rows ``idx`` sends there;
+    -inf for a segment that gets no row."""
+    agg = torch.full((n, msg.shape[1]), float("-inf"), dtype=msg.dtype,
+                     device=msg.device)
+    return agg.scatter_reduce_(0, idx[:, None].expand_as(msg), msg,
+                               reduce="amax", include_self=True)
+
+
 def _bfs_reach_hops(g: DynamicGraph, sources: torch.Tensor, max_hops: int,
-                    ell: Optional[EllGraph] = None) -> torch.Tensor:
+                    ell=None, axis: Optional[GraphAxis] = None,
+                    part: Optional[PartitionedEdges] = None) -> torch.Tensor:
     """hops[k_idx, v] = min #edges from sources[k_idx] to v (≤ max_hops),
     else max_hops+1. Batched bounded BFS — the bridge function's path-length
     oracle. The frontier sweep is either an edge-gather/scatter-max (COO) or
     the reach kernel on the ELL layout; both propagate exact 0/1
-    indicators, so the backends are bit-identical."""
+    indicators, so the backends are bit-identical.
+
+    ``axis`` splits the frontier sweep over the graph axis: COO zeroes the
+    messages to other shards' slices and folds the shards' maxima in shard
+    order, ELL runs the kernel on each shard's row block and concatenates
+    the slices. Max is exact and the non-owners' zeros are absorbed by the
+    ``maximum`` against the current frontier, so the split sweep is
+    bit-identical too. ``part`` (partitioned storage, needs ``axis``)
+    sweeps each shard's receiver-sliced arcs into its local segments
+    instead of the replicated arrays; a vertex with no slot gets the
+    identity -inf in either layout, which the ``maximum`` absorbs."""
     n = g.n_max
+    home = sources.device
     reached = restart_onehot(sources, n)                      # (n, k)
     hops = torch.where(reached.T > 0, 0, max_hops + 1).to(torch.int32)
 
-    if ell is None:
+    if part is not None:
+        assert axis is not None, "partitioned sweeps need a graph axis"
+        slices = [(s.to(torch.int64), rl.to(torch.int64),
+                   m.to(torch.float32)[:, None])
+                  for s, rl, m in zip(part.senders, part.receivers_loc,
+                                      part.mask)]
+
+        def sweep(reached):
+            return axis.gather(
+                [_scatter_max(r_d[s] * live, rl, part.n_loc)
+                 for (s, rl, live), r_d in zip(slices,
+                                               axis.broadcast(reached))],
+                home)
+    elif ell is None:
         snd = g.senders.to(torch.int64)
         rcv = g.receivers.to(torch.int64)
         live = g.edge_mask.to(torch.float32)[:, None]
+        if axis is None:
+            def sweep(reached):
+                return _scatter_max(reached[snd] * live, rcv, n)
+        else:
+            shards = [(snd.to(dv), rcv.to(dv), live.to(dv),
+                       _owned_mask(rcv, n, d, axis).to(dv))
+                      for d, dv in enumerate(axis.devices)]
 
-        def sweep(reached):
-            msg = reached[snd] * live                         # (E, k)
-            agg = torch.full_like(reached, float("-inf"))
-            return agg.scatter_reduce_(
-                0, rcv[:, None].expand_as(msg), msg, reduce="amax",
-                include_self=True)
-    else:
+            def sweep(reached):
+                return axis.reduce(
+                    [_scatter_max(torch.where(own[:, None], r_d[s] * lv,
+                                              0.0), r, n)
+                     for (s, r, lv, own), r_d in zip(
+                         shards, axis.broadcast(reached))], home, "max")
+    elif axis is None:
         index = ell.row_index()
 
         def sweep(reached):
             return ell_ops.ell_reach(ell.cols, ell.mask, ell.row_ids,
                                      reached, ell.n, index=index)
+    else:
+        blocks = ell.to(axis.devices).blocks
+
+        def sweep(reached):
+            return axis.gather(
+                [ell_ops.ell_reach(b.cols, b.mask, b.row_ids, r_d, b.n,
+                                   index=b.row_index())
+                 for b, r_d in zip(blocks, axis.broadcast(reached))], home)
 
     for h in range(1, max_hops + 1):
         nxt = torch.maximum(sweep(reached), reached)
@@ -280,21 +335,29 @@ class BankGRayMatcher:
 
     # -- implementation ------------------------------------------------------
 
-    def _rwr(self, g: DynamicGraph, e: torch.Tensor,
-             ell: Optional[EllGraph]) -> torch.Tensor:
+    def _rwr(self, g: DynamicGraph, e: torch.Tensor, ell,
+             graph_axis: Optional[GraphAxis] = None,
+             part: Optional[PartitionedEdges] = None) -> torch.Tensor:
         """One shared expansion sweep block — fixed-count or residual-
         adaptive per ``rwr_tol`` (the hard cap is ``rwr_iters`` either
         way)."""
         if self.rwr_tol > 0:
             r, _, _ = rwr_adaptive(g, e, max_iters=self.rwr_iters,
-                                   tol=self.rwr_tol, c=self.restart, ell=ell)
+                                   tol=self.rwr_tol, c=self.restart, ell=ell,
+                                   axis=graph_axis, part=part)
             return r
-        return rwr(g, e, iters=self.rwr_iters, c=self.restart, ell=ell)
+        return rwr(g, e, iters=self.rwr_iters, c=self.restart, ell=ell,
+                   axis=graph_axis, part=part)
 
     def _match_impl(self, g: DynamicGraph, r_lab: torch.Tensor,
                     seed_ids: torch.Tensor, seed_mask: torch.Tensor,
-                    ell: Optional[EllGraph], bank: QueryBank,
-                    row_node: Optional[torch.Tensor]) -> GRayResult:
+                    ell, bank: QueryBank, row_node: Optional[torch.Tensor],
+                    part: Optional[PartitionedEdges] = None,
+                    graph_axis: Optional[GraphAxis] = None) -> GRayResult:
+        """The bank expansion on ``r_lab``'s device. ``graph_axis`` splits
+        its sweeps over the graph axis, ``ell`` then being the shard-local
+        row blocks and ``part`` (partitioned storage) replacing the graph's
+        edge tensors, which are not read."""
         dev = r_lab.device
         B, k = seed_ids.shape
         n = g.n_max
@@ -353,9 +416,11 @@ class BankGRayMatcher:
             p = srcs.shape[0]
             flat = srcs.reshape(p * k)
             e = restart_onehot(flat, n)                            # (n, P·k)
-            r_new = self._rwr(g, e, ell).reshape(n, p, k).permute(1, 0, 2)
-            h_new = _bfs_reach_hops(g, flat, self.bridge_hops,
-                                    ell=ell).reshape(p, k, n)
+            r_new = self._rwr(g, e, ell, graph_axis, part).reshape(
+                n, p, k).permute(1, 0, 2)
+            h_new = _bfs_reach_hops(g, flat, self.bridge_hops, ell=ell,
+                                    axis=graph_axis,
+                                    part=part).reshape(p, k, n)
             return r_new, h_new
 
         for ei in range(self.n_steps):

@@ -1,4 +1,4 @@
-"""Bucketed dynamic query banks (single device).
+"""Bucketed dynamic query banks.
 
 Standing queries are grouped into *buckets* keyed on the padded shape
 ``(q_max, qe_max, B_pad)`` — pow-2 roundups of (query vertices, schedule
@@ -7,22 +7,28 @@ engine's device and ONE :class:`~repro_torch.core.gray.BankGRayMatcher` in
 the content-independent ``memo=False`` mode, where every bank tensor is an
 argument and the schedule depends only on the bucket key: ``register``
 writes a query's tensors into a free row and ``retire`` zeroes them. Only
-outgrowing ``B_pad`` (a doubling) builds a new bucket. The query-axis
-sharding of the JAX package is not ported.
+outgrowing ``B_pad`` (a doubling) builds a new bucket.
+
+With more than one mesh device a bucket's match runs over the ``(q, g)``
+device mesh (:class:`~repro_torch.engine.sharding.ShardedBankMatch`): rows
+are independent in ``memo=False`` mode, so the query axis needs no
+collectives, and its results are bitwise the replicated path's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import EngineConfig, IGPMConfig
-from repro_torch.core.graph import DynamicGraph, to_numpy
+from repro_torch.core.graph import DynamicGraph, PartitionedEdges, to_numpy
 from repro_torch.core.gray import BankGRayMatcher, GRayResult
 from repro_torch.core.query import (PlanDAG, Query, QueryBank, SubPatternKey,
                                     decompose, schedule_reads, stack_queries)
+from repro_torch.engine.sharding import (ShardedBankMatch, mesh_devices,
+                                         query_shard_count)
 from repro_torch.sparse.ell import EllGraph
 
 
@@ -71,11 +77,22 @@ _BANK_FIELDS = ("labels", "mask", "order_src", "order_dst", "order_tree",
 
 
 class QueryBucket:
-    """One padded bank of standing queries sharing one bucket shape."""
+    """One padded bank of standing queries sharing one bucket shape.
+
+    ``n_shards`` (from ``shard`` and the query-axis budget ``q_budget``,
+    by default every mesh device) splits the rows over the query axis;
+    ``g_shards > 1`` adds the graph axis: the storm/batch full-graph match
+    runs on the 2-D ``(q, g)`` mesh against the shard-local ELL row blocks
+    (``match(..., graph_sharded=True)``), while the induced-subgraph path
+    keeps the graph replicated. ``devices`` are the engine's mesh devices."""
 
     def __init__(self, cfg: IGPMConfig, q_max: int, qe_max: int, b_pad: int,
-                 node_cap: Optional[int] = None, device="cuda"):
+                 shard: str = "auto", g_shards: int = 1,
+                 q_budget: Optional[int] = None,
+                 node_cap: Optional[int] = None, device="cuda",
+                 devices: Optional[Sequence] = None):
         self.device = torch.device(device)
+        devices = mesh_devices(self.device, devices)
         self.q_max, self.qe_max, self.b_pad = q_max, qe_max, b_pad
         # sub-pattern DAG capacity: defaults to the identity bound (every
         # row needs ≤ q_max nodes, so q_max·b_pad never overflows); the
@@ -92,6 +109,13 @@ class QueryBucket:
             bridge_hops=cfg.bridge_hops, backend=cfg.backend,
             ell_width=cfg.ell_width, memo=False, rwr_tol=cfg.rwr_tol,
             node_cap=self.node_cap, device=self.device)
+        self.n_shards = query_shard_count(
+            b_pad, shard, max_devices=(len(devices) if q_budget is None
+                                       else q_budget))
+        self.g_shards = g_shards
+        self._sharded = (
+            ShardedBankMatch(self.matcher, self.n_shards, g_shards, devices)
+            if self.n_shards > 1 or g_shards > 1 else None)
         self.qids: List[Optional[str]] = [None] * b_pad
         self._queries: List[Optional[Query]] = [None] * b_pad
         self._row_masks: List[Optional[np.ndarray]] = [None] * b_pad
@@ -205,13 +229,25 @@ class QueryBucket:
     def match(self, g: DynamicGraph, r_lab: torch.Tensor,
               seed_filter: Optional[torch.Tensor] = None,
               ell: Optional[EllGraph] = None,
-              seeds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-              ) -> GRayResult:
-        """Match every row against ``g``. ``seeds`` short-circuits the
-        top-k (the storm seed cache path)."""
+              seeds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              graph_sharded: bool = False,
+              part: Optional[PartitionedEdges] = None) -> GRayResult:
+        """Match every row against ``g`` — replicated on one device, over
+        the mesh otherwise. ``seeds`` short-circuits the top-k (the storm
+        seed cache path). ``graph_sharded`` marks a full-graph call whose
+        ``ell`` is the shard-local row blocks (the graph axis engages; only
+        meaningful when the bucket has ``g_shards > 1``). ``part`` is the
+        receiver-sliced COO edge store of partitioned storage — it replaces
+        the graph's edge tensors on the mesh and requires
+        ``graph_sharded=True``."""
         if seeds is None:
             seeds = self.seeds(g, r_lab, seed_filter)
         seed_ids, seed_mask = seeds
+        if self._sharded is not None:
+            return self._sharded(g, r_lab, seed_ids, seed_mask, ell,
+                                 self.bank, graph_sharded=graph_sharded,
+                                 row_node=self.row_node, part=part)
+        assert part is None, "partitioned storage needs the graph axis"
         return self.matcher.match_from_seeds(g, r_lab, seed_ids, seed_mask,
                                              ell=ell, bank=self.bank,
                                              row_node=self.row_node)

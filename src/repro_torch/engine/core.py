@@ -26,24 +26,35 @@ state (ELL mirror, Louvain dendrogram, storm seed memo).
 (``repro_torch.core.matcher``) and ``MatchServer`` are facades over this
 one pipeline.
 
-Everything runs on one device, ``device="cuda"`` unless the caller asks for
-the CPU; the DQN agent of adaptive mode lives there too. ``state_dict`` /
-``load_state_dict`` carry state in the JAX package's key layout, and
-``save`` / ``load`` write and read it as checkpoint directories that
-either package restores.
+The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
+the graph, the tables and the DQN agent of adaptive mode live there. Its
+device mesh (``devices=``, by default every visible device of that type;
+a list may repeat one device) splits between a query axis
+(``EngineConfig.shard``) and a graph axis (``graph_shard``) as the JAX
+package's ``device_split`` does (:mod:`repro_torch.engine.sharding`).
+With a graph axis the full-graph storm/batch sweeps run over it, against
+a shard-local ELL mirror or, with ``edge_partition="on"`` on the COO
+backend, a receiver-partitioned edge store
+(:class:`~repro_torch.core.graph.EdgePartition`); either is a cache of
+the graph, rebuilt from it.
+
+``state_dict`` / ``load_state_dict`` carry state in the JAX package's key
+layout, and ``save`` / ``load`` write and read it as checkpoint
+directories that either package restores.
 
 Tracing (``EngineConfig.obs``) wraps each stage in a span and returns the
 per-stage wall times in ``StepOutput.stage_s``; its extra device fences
 (``torch.cuda.synchronize``) run only with tracing on. ``set_executor_pool``
 fans each step's per-bucket matches across worker threads, joined in
-bucket order. A serving controller attached as ``Engine.control`` rides
-``state_dict``/``save`` and ``load_state_dict``/``load``. Graph sharding
-and edge partitioning are not ported.
+bucket order (serialised under a lock when the mesh has a graph axis).
+A serving controller attached as ``Engine.control`` rides
+``state_dict``/``save`` and ``load_state_dict``/``load``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
@@ -53,57 +64,35 @@ import torch
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.config.base import EngineConfig, IGPMConfig, resolve_backend
-from repro_torch.core.graph import (DynamicGraph, EllCache, UpdateBatch,
-                                    apply_update, check_device, to_numpy,
-                                    updated_vertices)
+from repro_torch.core.graph import (DynamicGraph, EdgePartition, EllCache,
+                                    UpdateBatch, apply_update, check_device,
+                                    to_numpy, updated_vertices)
 from repro_torch.core.pem import PartialExecutionManager
 from repro_torch.core.query import DagFull, Query, query_signature
 from repro_torch.core.rwr import label_rwr, label_rwr_adaptive
 from repro_torch.core.subgraph import extract_induced, remap_matched
 from repro_torch.engine.buckets import (QueryBucket, _pow2, bucket_shape,
                                         decode_strings, encode_strings)
+from repro_torch.engine.sharding import (ShardedSweep, device_split,
+                                         mesh_devices)
 from repro_torch.engine.state import EngineState, QueryDelta, StepOutput
 from repro_torch.engine.store import PatternStore, live_vertex_mask
 from repro_torch.obs import Obs
-
-
-# EngineConfig knobs whose features are not ported yet, with the ROADMAP.md
-# queue-1 item that brings each. Only the default is accepted, so a
-# config asking for one of them never yields an engine that silently lacks it.
-_WAITING = {
-    "graph_shard": "12, multi-GPU layers",
-    "edge_partition": "12, multi-GPU layers",
-    "partition_headroom": "12, multi-GPU layers",
-}
-
-
-def _refuse_unported(ecfg: EngineConfig) -> None:
-    """Raise for a knob of ``ecfg`` that asks for a feature not ported yet.
-
-    ``shard`` may be ``"auto"`` or ``"off"``: the engine runs on its one
-    device, which is the reference's path for both values on one device
-    (query-axis sharding across cards is item 12 and not ported)."""
-    if ecfg.mode not in ("incremental", "batch"):
-        raise ValueError(f"unknown engine mode {ecfg.mode!r}")
-    if ecfg.shard not in ("auto", "off"):
-        raise ValueError(f"unknown query-axis shard mode {ecfg.shard!r}")
-    default = EngineConfig()
-    for name, item in _WAITING.items():
-        if getattr(ecfg, name) != getattr(default, name):
-            raise NotImplementedError(
-                f"EngineConfig.{name}={getattr(ecfg, name)!r} asks for a "
-                f"feature that is not ported yet — see ROADMAP.md queue 1, "
-                f"item {item}; leave it at its default "
-                f"{getattr(default, name)!r}")
 
 
 class Engine:
     """Functional-core match engine with bucketed dynamic query banks."""
 
     def __init__(self, cfg: IGPMConfig, ecfg: Optional[EngineConfig] = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", devices=None):
         ecfg = ecfg or EngineConfig()
-        _refuse_unported(ecfg)
+        if ecfg.mode not in ("incremental", "batch"):
+            raise ValueError(f"unknown engine mode {ecfg.mode!r}")
+        if ecfg.shard not in ("auto", "off"):
+            raise ValueError(f"unknown query-axis shard mode {ecfg.shard!r}")
+        if ecfg.edge_partition not in ("off", "on"):
+            raise ValueError(
+                f"unknown edge_partition policy {ecfg.edge_partition!r}")
         self.device = check_device(device)
         if cfg.backend == "auto":
             cfg = dataclasses.replace(
@@ -115,9 +104,29 @@ class Engine:
             None if ecfg.mode == "batch"
             else PartialExecutionManager(cfg, adaptive=ecfg.adaptive,
                                          seed=seed, device=self.device))
-        self.ell_cache = (EllCache(cfg.n_max, cfg.e_max, cfg.ell_width,
-                                   device=self.device)
-                          if cfg.backend == "ell" else None)
+        # the device mesh: how its devices split between the query and the
+        # graph axis (1/1 on one device)
+        self.devices = mesh_devices(self.device, devices)
+        self.q_budget, self.g_shards = device_split(
+            ecfg.shard, ecfg.graph_shard, cfg.n_max, len(self.devices))
+        # without a graph axis the mirrors stay on the engine's device
+        self.graph_devices = (self.devices[:self.g_shards]
+                              if self.g_shards > 1 else [self.device])
+        self._sweeps = (ShardedSweep(self.graph_devices)
+                        if self.g_shards > 1 else None)
+        # edge-partitioned storage: co-partition the edges with the
+        # receiver slices so each graph shard holds ~1/g of them; the
+        # mirrors then never hand replicated edges to the mesh
+        self.partitioned = (ecfg.edge_partition == "on"
+                            and self.g_shards > 1)
+        self.ell_cache = None
+        self.part_cache = None
+        self._new_mirrors()
+        # graph-axis dispatch is serialised under the executor pool, as
+        # the JAX package serialises its collective-bearing launches: each
+        # bucket's mesh sweeps run whole, one bucket after another, which
+        # bounds the mesh's working set to one bucket's sweep blocks
+        self._dispatch_lock = threading.Lock()
         self.buckets: Dict[Tuple[int, int], QueryBucket] = {}
         self.stores: Dict[str, PatternStore] = {}
         self._where: Dict[str, Tuple[int, int]] = {}  # qid → bucket (q, qe)
@@ -197,7 +206,7 @@ class Engine:
         bucket = self.buckets.get(shape)
         if bucket is None:
             bucket = QueryBucket(self.cfg, *shape, b_pad=1,
-                                 node_cap=shape[0], device=self.device)
+                                 node_cap=shape[0], **self._mesh_kw())
             self.buckets[shape] = bucket
         elif bucket.full:
             bucket = self._grow(bucket)
@@ -280,7 +289,7 @@ class Engine:
                            rows=bucket.n_live):
             fresh = QueryBucket(self.cfg, bucket.q_max, bucket.qe_max,
                                 b_pad=b_pad, node_cap=node_cap,
-                                device=self.device)
+                                **self._mesh_kw())
             for slot, qid in bucket.rows():
                 fresh.register(qid, bucket.query(slot))
             self.buckets[(bucket.q_max, bucket.qe_max)] = fresh
@@ -314,10 +323,39 @@ class Engine:
         return {qid: group[0]
                 for group in self._dups.values() for qid in group}
 
+    def _mesh_kw(self) -> Dict:
+        """The mesh arguments of every bucket this engine builds."""
+        return dict(shard=self.ecfg.shard, g_shards=self.g_shards,
+                    q_budget=self.q_budget, device=self.device,
+                    devices=self.devices)
+
+    def _new_mirrors(self) -> None:
+        """Fresh (empty) edge mirrors for this engine's mesh: the ELL mirror
+        on the ELL backend, the edge partition on a partitioned COO one.
+        Both rebuild from the graph on the next ``_apply``."""
+        cfg = self.cfg
+        if cfg.backend == "ell":
+            self.ell_cache = EllCache(
+                cfg.n_max, cfg.e_max, cfg.ell_width, n_shards=self.g_shards,
+                partitioned=self.partitioned,
+                headroom=self.ecfg.partition_headroom,
+                devices=self.graph_devices)
+        if self.partitioned and cfg.backend == "coo":
+            self.part_cache = EdgePartition(
+                cfg.n_max, cfg.e_max, self.g_shards,
+                headroom=self.ecfg.partition_headroom,
+                devices=self.graph_devices)
+
     def partition_occupancy(self) -> Optional[float]:
-        """Worst live-slice fill fraction of edge-partitioned storage, read
-        by the health watchdog. Always None: the port keeps the graph's
-        edges in one unpartitioned store."""
+        """Worst live-slice fill fraction of the edge-partitioned storage,
+        or None when storage is not partitioned. This is overflow
+        *proximity*: 1.0 means the next uneven batch can raise
+        ``PartitionOverflowError`` — the health watchdog degrades before
+        that."""
+        if self.part_cache is not None:
+            return self.part_cache.occupancy()
+        if self.ell_cache is not None and self.partitioned:
+            return self.ell_cache.occupancy()
         return None
 
     def set_executor_pool(self, n_executors: int) -> None:
@@ -372,9 +410,7 @@ class Engine:
         self.seed_hits_exact = self.seed_hits_bounded = 0
         self.rwr_sweeps = 0
         self.rwr_cols_skipped = 0
-        if self.ell_cache is not None:
-            self.ell_cache = EllCache(self.cfg.n_max, self.cfg.e_max,
-                                      self.cfg.ell_width, device=self.device)
+        self._new_mirrors()
 
     # -- the ONE step pipeline -------------------------------------------------
 
@@ -384,30 +420,64 @@ class Engine:
 
     def _apply(self, g: DynamicGraph,
                upd: UpdateBatch) -> Tuple[DynamicGraph, float]:
-        """Apply the update, refreshing the ELL mirror when one is carried.
-        The returned refresh time covers only the mirror maintenance."""
-        if self.ell_cache is None:
+        """Apply the update, refreshing whichever mirror is carried (the
+        ELL mirror and/or the edge partition). The returned refresh time
+        covers only the mirror maintenance."""
+        mirrors = [m for m in (self.ell_cache, self.part_cache)
+                   if m is not None]
+        if not mirrors:
             return apply_update(g, upd), 0.0
-        if self.ell_cache._last is not g:
-            self.ell_cache.rebuild(g)
+        for m in mirrors:
+            if m._last is not g:
+                m.rebuild(g)
         g2 = apply_update(g, upd)
         t0 = time.perf_counter()
-        self.ell_cache.refresh(g, g2, upd)
-        _sync(self.device)
+        for m in mirrors:
+            m.refresh(g, g2, upd)
+        for dev in dict.fromkeys(self.graph_devices):
+            _sync(dev)
         return g2, time.perf_counter() - t0
 
     @property
     def _full_ell(self):
         return None if self.ell_cache is None else self.ell_cache.ell
 
+    @property
+    def _full_part(self):
+        """The receiver-sliced edge store to hand the graph axis, or None
+        when edge partitioning is off or the ELL backend carries the slices
+        itself (its mirror is already built per receiver block)."""
+        return None if self.part_cache is None else self.part_cache.part
+
+    def _node_view(self, g: DynamicGraph) -> DynamicGraph:
+        """``g`` with the replicated COO edge tensors cut to width-1
+        placeholders. Partitioned mesh calls read only the node-level
+        fields (labels, node_mask, degree) plus the partitioned slices, so
+        handing them this view keeps replicated edge storage off the mesh."""
+        z = torch.zeros((1,), dtype=torch.int32, device=g.device)
+        return g._replace(senders=z, receivers=z,
+                          edge_mask=torch.zeros((1,), dtype=torch.bool,
+                                                device=g.device))
+
     def _label_table(self, g: DynamicGraph,
                      r0: Optional[torch.Tensor] = None,
-                     iters: Optional[int] = None, ell=None) -> torch.Tensor:
-        """The per-step label-RWR table. ``cfg.rwr_tol > 0`` swaps the
-        fixed-count loop for the residual-adaptive one (hard cap = the fixed
-        count); the sweeps actually run are accounted in ``rwr_sweeps``."""
+                     iters: Optional[int] = None, ell=None,
+                     part=None, sharded: bool = False) -> torch.Tensor:
+        """The per-step label-RWR table. ``sharded`` marks a FULL-graph
+        call (storm/batch), which runs over the graph axis when the mesh
+        has one (``ell`` then being the shard-local row blocks, ``part``
+        the partitioned edges); induced-subgraph tables stay replicated.
+        ``cfg.rwr_tol > 0`` swaps the fixed-count loop for the
+        residual-adaptive one (hard cap = the fixed count); the sweeps
+        actually run are accounted in ``rwr_sweeps``."""
         cfg = self.cfg
         iters = iters if iters is not None else cfg.rwr_iters
+        if sharded and self._sweeps is not None:
+            r, n, skipped = self._sweeps.label_table(
+                g, cfg.n_labels, iters, cfg.restart_prob, r0, ell,
+                tol=cfg.rwr_tol, part=part)
+            self._account_sweeps(n, skipped)
+            return r
         if cfg.rwr_tol > 0:
             r, n, skipped = label_rwr_adaptive(
                 g, cfg.n_labels, max_iters=iters, tol=cfg.rwr_tol,
@@ -580,6 +650,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _sync_mesh(eng: Engine) -> None:
+    """Wait for every device of the engine and its mesh."""
+    for dev in dict.fromkeys([eng.device, *eng.devices]):
+        _sync(dev)
+
+
 def _n_events(upd: UpdateBatch) -> int:
     """Masked update entries in a batch (host-side; staleness accounting)."""
     return int(upd.add_mask.sum() + upd.rem_mask.sum() + upd.lab_mask.sum())
@@ -617,8 +693,10 @@ def _run_matches(eng: Engine, jobs, obs: Obs, tracing: bool):
     thunk)``; every bucket's match is the same computation on the same
     inputs either way, so pooled results are bitwise equal to serial ones
     and ``results`` keeps bucket-insertion order. Pooled ``t_gray`` sums
-    per-worker seconds (may exceed wall time). On one card no launch holds
-    a collective, so workers launch concurrently without a lock."""
+    per-worker seconds (may exceed wall time). With a graph axis the
+    workers take the engine's dispatch lock for a whole bucket match and
+    its completion, so the mesh runs one bucket at a time as on the serial
+    path; without one they launch concurrently."""
     results = {}
     t_gray = t_gwait = 0.0
     dev = eng.device
@@ -634,11 +712,18 @@ def _run_matches(eng: Engine, jobs, obs: Obs, tracing: bool):
                 t_gwait += spw.dur_s
         return results, t_gray, t_gwait
 
+    lock = eng._dispatch_lock if eng.g_shards > 1 else None
+
     def run(bkey, thunk):
         with obs.span("engine/gray", bucket=bkey, pooled=True) as sp:
-            out = thunk()
-            if tracing:
-                _sync(dev)
+            if lock is not None:
+                with lock:
+                    out = thunk()
+                    _sync_mesh(eng)
+            else:
+                out = thunk()
+                if tracing:
+                    _sync(dev)
         return out, sp.dur_s
 
     futs = [(shape, pool.submit(run, bkey, thunk))
@@ -710,14 +795,20 @@ def _engine_step(eng: Engine, state: EngineState, upd: UpdateBatch,
         n_rec = n_live
         storm = True
         ell = eng._full_ell
+        part = eng._full_part
+        # partitioned storage: the mesh reads edges from the partitioned
+        # slices, so it gets a node-only view of g
+        g_mesh = eng._node_view(g) if part is not None else g
         with obs.span("engine/rwr", mode="batch") as sp:
-            r_lab = eng._label_table(g, ell=ell)
+            r_lab = eng._label_table(g_mesh, ell=ell, part=part,
+                                     sharded=True)
             if tracing:
                 _sync(dev)
         if tracing:
             stage["rwr"] = sp.dur_s
         jobs = [(shape, f"{shape[0]}x{shape[1]}",
-                 (lambda b=bucket: b.match(g, r_lab, ell=ell)))
+                 (lambda b=bucket: b.match(g_mesh, r_lab, ell=ell,
+                                           graph_sharded=True, part=part)))
                 for shape, bucket in eng.buckets.items()]
         remap = None
         rebuild = True
@@ -737,6 +828,8 @@ def _engine_step(eng: Engine, state: EngineState, upd: UpdateBatch,
             # update storm — full pass, warm-started label RWR, gated by the
             # staleness-keyed seed cache
             ell = eng._full_ell
+            part = eng._full_part
+            g_mesh = eng._node_view(g) if part is not None else g
             if (ecfg.seed_cache_staleness > 0 and state.r_lab is not None
                     and rlab_events <= ecfg.seed_cache_staleness):
                 r_lab = state.r_lab
@@ -751,11 +844,11 @@ def _engine_step(eng: Engine, state: EngineState, upd: UpdateBatch,
                 with obs.span("engine/rwr", mode="storm",
                               warm=state.r_lab is not None) as sp:
                     r_lab = eng._label_table(
-                        g, r0=state.r_lab,
+                        g_mesh, r0=state.r_lab,
                         iters=(None if (state.r_lab is None
                                         or cfg.rwr_tol > 0)
                                else cfg.rwr_iters_incremental),
-                        ell=ell)
+                        ell=ell, part=part, sharded=True)
                     if tracing:
                         _sync(dev)
                 if tracing:
@@ -795,8 +888,9 @@ def _engine_step(eng: Engine, state: EngineState, upd: UpdateBatch,
                     eng.seed_misses += 1
                 jobs.append((shape, bkey,
                              (lambda b=bucket, s=seeds:
-                              b.match(g, r_lab, seed_filter=sf, ell=ell,
-                                      seeds=s))))
+                              b.match(g_mesh, r_lab, seed_filter=sf,
+                                      ell=ell, seeds=s, graph_sharded=True,
+                                      part=part))))
             seed_hit = bool(bucket_hits) and all(bucket_hits)
             remap = None
             sub_n, sub_e = n_live, int(g.edge_mask.sum())
@@ -825,7 +919,7 @@ def _engine_step(eng: Engine, state: EngineState, upd: UpdateBatch,
 
     results, t_gray, t_gwait = _run_matches(eng, jobs, obs, tracing)
     with obs.span("engine/device_wait") as sp:
-        _sync(dev)
+        _sync_mesh(eng)
     elapsed = time.perf_counter() - t0
     if tracing:
         if storm and ecfg.mode != "batch":

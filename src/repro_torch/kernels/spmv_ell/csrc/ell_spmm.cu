@@ -44,14 +44,22 @@
 //    vertices) found small batches (U 2-4) with the registers capped by
 //    __launch_bounds__ fastest, 2-5x faster than U = 8 at 120-170
 //    registers. The table in launch() keeps those settings.
-//  * d < 32 (`ell_spmm_small`): lanes run across K instead; each lane keeps
-//    d partial sums in registers (the column count is a template bound)
-//    and the 32 partials meet in a fixed shuffle tree at the end. (A
-//    16-byte gather of x's rows at d = 4 was slower: 42 registers against
-//    32 cut the warps in flight.)
-//  * no atomics and a fixed summation order: a row's partial is summed in
-//    ascending k by fused multiply-adds, then added to the vertex's total,
-//    rows in the index's order. Every vertex's sum is formed by one warp
+//  * d < 32 (`ell_spmm_small`): lanes run across K for the loads instead:
+//    each lane reads its slot of the row and gathers that slot's row of x
+//    (d floats, the column count a template bound) into shared memory,
+//    then lane j < d chains the fused multiply-adds of column j over the
+//    live slots in ascending k. So the small variant sums in the wide
+//    walk's order (below), and a column's bits do not depend on how many
+//    columns ride in its block: a sweep block split over the query axis
+//    of the engine's mesh (narrower, perhaps below 32 columns) gives the
+//    bits of the whole block. (The first small variant kept a partial
+//    per lane and met them in a shuffle tree, another order; broadcasting
+//    each live slot's row lane to lane by shuffles kept the order but was
+//    57 % slower at d = 4 on chip_smoke's tile.)
+//  * no atomics and a fixed summation order, the same in all three
+//    variants: a row's partial is summed in ascending k by fused
+//    multiply-adds, then added to the vertex's total, rows in the index's
+//    order. Every vertex's sum is formed by one warp
 //    in the same order on every run, so the result is bitwise the same
 //    from run to run (the seed top-k and the expander argmax of G-Ray read
 //    these values). It is the first design's order and its arithmetic
@@ -194,41 +202,57 @@ __global__ void ell_spmm_small(const int32_t* __restrict__ cols,
                                const int32_t* __restrict__ row_ptr,
                                const float* __restrict__ x,
                                float* __restrict__ y, int n, int d, int K) {
+  // per warp: each slot's weight and gathered row of x (DM + 1 floats a
+  // row, so the stores at a stride of DM + 1 and the reads along a row
+  // hit distinct banks)
+  __shared__ float xs[kThreads / 32][32][DM + 1];
+  __shared__ float ws[kThreads / 32][32];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long v =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (v >= n) return;  // warp-uniform
   const int p0 = row_ptr[v];
   const int p1 = row_ptr[v + 1];
-  float acc[DM];
-#pragma unroll
-  for (int j = 0; j < DM; ++j) acc[j] = 0.f;
+  float acc = 0.f;  // lane j < d owns column j
   for (int p = p0; p < p1; ++p) {
     const long long base = (long long)perm[p] * K;
-    for (int kk = lane; kk < K; kk += 32) {
-      if (mask[base + kk] != 0) {
-        const float w = vals[base + kk];
+    float part = 0.f;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int kk = k0 + lane;
+      const bool m = kk < K && mask[base + kk] != 0;
+      unsigned bits = __ballot_sync(kFull, m);
+      if (!bits) continue;  // warp-uniform: no live slot in this slice
+      if (m) {  // each live slot gathers its row of x before the sum
         const float* xr = x + (long long)cols[base + kk] * d;
+        ws[warp][lane] = vals[base + kk];
 #pragma unroll
-        for (int j = 0; j < DM; ++j) {
-          if (j < d) acc[j] = __fmaf_rn(w, xr[j], acc[j]);
+        for (int j = 0; j < DM; ++j)
+          if (j < d) xs[warp][lane][j] = __ldg(xr + j);
+      }
+      __syncwarp();
+      if (lane < d) {
+        while (bits) {  // live slots in ascending k, 4 loads in flight
+          float wv[4], xv[4];
+          bool live[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            live[u] = bits != 0;
+            const int src = live[u] ? __ffs(bits) - 1 : 0;
+            bits &= bits - 1;
+            wv[u] = ws[warp][src];
+            xv[u] = xs[warp][src][lane];
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (live[u]) part = __fmaf_rn(wv[u], xv[u], part);
         }
       }
+      __syncwarp();
     }
+    acc += part;
   }
-#pragma unroll
-  for (int j = 0; j < DM; ++j) {
-    float s = acc[j];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(kFull, s, off);
-    acc[j] = s;
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < DM; ++j) {
-      if (j < d) y[v * d + j] = acc[j];
-    }
-  }
+  if (lane < d) y[v * d + lane] = acc;
 }
 
 template <int VW, int NG, int U, int MINB>

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the two ELL kernels.
 
 They compute the same functions as the CUDA kernels in ``csrc/`` with
-ordinary tensor ops — gather + ``einsum`` + ``index_add_`` for the SpMM,
-gather + masked max + ``scatter_reduce(amax)`` + the clamp for the reach
-sweep — and serve the CPU path of the wrappers in ``ops.py`` and the
-kernel-vs-plain checks on the card. Rows are processed in chunks so the
-``(rows, K, d)`` gather stays bounded at the full mirror's shapes.
+ordinary tensor ops — per-slot gathers, multiplies and adds +
+``index_add_`` for the SpMM, gather + masked max +
+``scatter_reduce(amax)`` + the clamp for the reach sweep — and serve
+the CPU path of the wrappers in ``ops.py`` and the kernel-vs-plain
+checks on the card. Rows are processed in chunks so the gathers stay
+bounded at the full mirror's shapes.
 """
 
 from __future__ import annotations
@@ -23,14 +24,22 @@ def _chunks(r: int, k: int, d: int):
 
 def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
                  row_ids: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
-    """``y[v,:] = Σ_{rows r of v} Σ_k mask·vals·x[cols[r,k],:]`` → (n, d)."""
+    """``y[v,:] = Σ_{rows r of v} Σ_k mask·vals·x[cols[r,k],:]`` → (n, d).
+
+    Each row's partial is summed in ascending k by one elementwise multiply
+    and one add per slot, and the partials are added to their vertex in row
+    order, so a column's value never depends on how many other columns ride
+    along (a batched matmul picks its summation order by shape): a sweep
+    block split over the query axis gives the bits of the whole block."""
     r, k = cols.shape
     d = x.shape[1]
     w = torch.where(mask, vals, torch.zeros_like(vals)).to(x.dtype)
     y = torch.zeros((n, d), dtype=x.dtype, device=x.device)
-    for lo, hi in _chunks(r, k, d):
-        gathered = x[cols[lo:hi].to(torch.int64)]          # (rows, K, d)
-        partial = torch.einsum("rk,rkd->rd", w[lo:hi], gathered)
+    for lo, hi in _chunks(r, 1, d):
+        c = cols[lo:hi].to(torch.int64)
+        partial = torch.zeros((hi - lo, d), dtype=x.dtype, device=x.device)
+        for j in range(k):
+            partial = partial + w[lo:hi, j, None] * x[c[:, j]]
         y.index_add_(0, row_ids[lo:hi].to(torch.int64), partial)
     return y
 

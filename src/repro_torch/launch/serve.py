@@ -159,7 +159,7 @@ def _report_obs(server) -> None:
 
 def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
                policy_dir: str = "", register=(), retire=(),
-               device="cuda", obs=None):
+               device="cuda", obs=None, devices=None):
     """Continuous multi-query match serving on a synthetic churn stream.
 
     One MatchServer (the default ``ServingConfig()``: adaptive PEM) serves
@@ -176,7 +176,9 @@ def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
 
     ``--policy-dir`` restores the learned PEM policy before the first step
     (when one is there) and saves it after the last. ``obs`` (an
-    :class:`ObsConfig`) turns on tracing. Returns (server, per-step stats).
+    :class:`ObsConfig`) turns on tracing. ``devices`` names the engine's
+    device mesh (by default every visible device). Returns (server,
+    per-step stats).
     """
     from repro_torch.config.base import ObsConfig, ServingConfig
     from repro_torch.core.query import (clique4, query_zoo, square, star5,
@@ -197,7 +199,7 @@ def serve_igpm(arch, steps: int, bank: int, churn: float, hotspot: bool,
                              n_max=cfg.n_max, e_max=cfg.e_max, device=device)
     server = MatchServer(cfg, query_zoo(bank),
                          ServingConfig(obs=obs or ObsConfig()), seed=0,
-                         device=device)
+                         device=device, devices=devices)
     print(f"[serve] buckets: {_occupancy_str(server)}")
     if policy_dir:
         try:
@@ -251,7 +253,8 @@ def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
                      bank: int, sync_too: bool = False,
                      checkpoint_dir: str = "", obs=None,
                      control: str = "off", closed_loop: bool = False,
-                     control_episodes: int = 2, device="cuda"):
+                     control_episodes: int = 2, device="cuda",
+                     devices=None):
     """Async serving runtime on a seeded workload scenario: an ingress
     thread replays the arrival process against the wall clock while the
     executor thread runs double-buffered micro-batches; match deltas
@@ -266,7 +269,8 @@ def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
     ``--control-episodes`` closed-loop episodes under a virtual clock,
     freezes the policy, and measures pure greedy inference. Each server is
     warmed by one replay under a virtual clock and reset before its
-    measured run. Returns (server, runtime)."""
+    measured run. ``devices`` names the engine's device mesh. Returns
+    (server, runtime)."""
     import dataclasses
 
     from repro_torch.config.base import (ControlConfig, ObsConfig,
@@ -308,12 +312,13 @@ def serve_igpm_async(arch, scenario: str, rate: float, ticks: int,
 
     if sync_too:
         ref = MatchServer(cfg, query_zoo(bank), serving, seed=0,
-                          device=device)
+                          device=device, devices=devices)
         run_workload_sync(ref, wl, clock=VirtualClock())  # warm
         ref.reset()
         run_workload_sync(ref, wl, clock=WallClock())
         _report("sync ", ref)
-    server = MatchServer(cfg, query_zoo(bank), serving, seed=0, device=device)
+    server = MatchServer(cfg, query_zoo(bank), serving, seed=0,
+                         device=device, devices=devices)
     run_workload_sync(server, wl, clock=VirtualClock())  # warm
     server.reset()
     ccfg = ControlConfig(mode="train" if control != "off" else "off")

@@ -104,7 +104,7 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
     if exp_spec is not None:
         raise NotImplementedError(
             "moe_block: exp_spec (expert-parallel sharding) waits for the "
-            "multi-GPU layers (ROADMAP queue 1, item 12)")
+            "LM's multi-GPU layers (ROADMAP queue 1, item 13)")
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     r = route(x, params["router"], cfg, n_groups, capacity_factor)

@@ -42,7 +42,7 @@ class TransformerLM:
         if act_spec is not None:
             raise NotImplementedError(
                 "TransformerLM: act_spec (activation sharding) waits for the "
-                "multi-GPU layers (ROADMAP queue 1, item 12)")
+                "LM's multi-GPU layers (ROADMAP queue 1, item 13)")
         self.cfg = cfg
         self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                               else torch.float32)

@@ -15,7 +15,10 @@ seed-cache hit/miss counters), and dynamic membership (``register``/
 row writes). The matching pipeline — apply + ELL refresh, PEM mask, induced
 extraction, label RWR, per-bucket bank G-Ray sweep, store merge — lives in
 ``repro_torch.engine.core.engine_step``. The server runs on
-``device="cuda"`` unless the caller asks for the CPU.
+``device="cuda"`` unless the caller asks for the CPU; ``devices=`` names
+the engine's device mesh (by default every visible device of that type),
+which ``ServingConfig.shard``/``graph_shard`` split into a query and a
+graph axis.
 
 A restarted server resumes through ``save``/``load`` (the whole engine) or
 ``save_policy``/``load_policy`` (the learned PEM policy alone); both write
@@ -81,11 +84,12 @@ class MatchServer:
 
     def __init__(self, cfg: IGPMConfig, queries: Sequence[Query],
                  serving: Optional[ServingConfig] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", devices=None):
         serving = serving or ServingConfig()
         self.cfg = cfg
         self.serving = serving
-        self.engine = Engine(cfg, serving.engine(), seed=seed, device=device)
+        self.engine = Engine(cfg, serving.engine(), seed=seed, device=device,
+                             devices=devices)
         self.device = self.engine.device
         self._qids: List[str] = [self.engine.register(q) for q in queries]
         self.queue = UpdateQueue(depth=serving.queue_depth,

@@ -16,12 +16,17 @@ vertex's rows in ascending row order. :meth:`EllGraph.row_index` builds that
 walk order — a CSR over the live rows sorted stably by ``row_ids`` — once
 per graph object and caches it, so the 25 sweeps of one RWR table pay for
 one sort.
+
+Under the graph mesh axis the mirror is split into per-shard row blocks
+(:class:`EllBlocks`, :func:`build_ell_sharded`): block ``d`` holds the rows
+of vertex slice ``[d·n_loc, (d+1)·n_loc)`` with slice-local ``row_ids`` and
+global column ids, on shard ``d``'s device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +95,42 @@ def ell_block_capacity(n: int, e_cap: int, k: int, n_shards: int = 1) -> int:
     return n // n_shards + -(-e_cap // k)
 
 
+@dataclasses.dataclass(eq=False)
+class EllBlocks:
+    """Shard-local row-block ELL of the graph mesh axis: one
+    :class:`EllGraph` per vertex slice, each on its shard's device, with
+    ``n`` the slice width ``n_loc``, ``row_ids`` local to the slice and
+    column ids global. Each block's row index is built on the block, from
+    its own slice. Block ``d`` is exactly the rows ``[d·r_cap_block,
+    (d+1)·r_cap_block)`` of the JAX package's sharded ``EllGraph``."""
+
+    blocks: Tuple[EllGraph, ...]
+    _moved: Dict[Tuple[torch.device, ...], "EllBlocks"] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.blocks)
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(b.cols.device for b in self.blocks)
+
+    def to(self, devices: Sequence[torch.device]) -> "EllBlocks":
+        """The same blocks on ``devices`` (block ``d`` on ``devices[d]``);
+        a copy is made once per device set and kept, so every sweep of one
+        mirror version reuses it and its row indexes."""
+        devices = tuple(torch.device(dv) for dv in devices)
+        if devices == self.devices:
+            return self
+        if devices not in self._moved:
+            self._moved[devices] = EllBlocks(tuple(
+                EllGraph(b.cols.to(dv), b.vals.to(dv), b.row_ids.to(dv),
+                         b.mask.to(dv), b.n)
+                for b, dv in zip(self.blocks, devices)))
+        return self._moved[devices]
+
+
 def build_ell(senders: np.ndarray, receivers: np.ndarray, n: int,
               weights: Optional[np.ndarray] = None, k: int = 64,
               r_cap: Optional[int] = None, device="cuda") -> EllGraph:
@@ -132,3 +173,39 @@ def build_ell(senders: np.ndarray, receivers: np.ndarray, n: int,
                     torch.as_tensor(vals, device=dev),
                     torch.as_tensor(row_ids, device=dev),
                     torch.as_tensor(mask, device=dev), n)
+
+
+def build_ell_sharded(senders: np.ndarray, receivers: np.ndarray, n: int,
+                      n_shards: int, weights: Optional[np.ndarray] = None,
+                      k: int = 64, r_cap_block: Optional[int] = None,
+                      devices: Optional[Sequence] = None) -> EllBlocks:
+    """Shard-local row-block ELL over ``n_shards`` equal vertex slices.
+
+    The row-owner axis (``senders`` here, as in :func:`build_ell`)
+    partitions into contiguous slices of ``n // n_shards`` vertices; slice
+    ``d`` becomes a block of ``r_cap_block`` rows on ``devices[d]`` with
+    ``row_ids`` local to the slice and column ids global. Within a slice
+    the layout is :func:`build_ell` verbatim, so a vertex's entries land in
+    the same relative (row, slot) positions as in the unsharded layout and
+    every per-vertex reduction order is preserved.
+    """
+    if n % n_shards:
+        raise ValueError(f"n {n} not divisible by n_shards {n_shards}")
+    n_loc = n // n_shards
+    if r_cap_block is None:
+        r_cap_block = ell_block_capacity(n, len(np.asarray(senders)) or 1,
+                                         k, n_shards)
+    devices = list(devices) if devices is not None else ["cuda"] * n_shards
+    if len(devices) != n_shards:
+        raise ValueError(f"{len(devices)} devices for {n_shards} shards")
+    senders = np.asarray(senders, np.int64)
+    receivers = np.asarray(receivers, np.int64)
+    if weights is None:
+        weights = np.ones(senders.shape[0], np.float32)
+    blocks = []
+    for d in range(n_shards):
+        sel = (senders >= d * n_loc) & (senders < (d + 1) * n_loc)
+        blocks.append(build_ell(senders[sel] - d * n_loc, receivers[sel],
+                                n_loc, weights=weights[sel], k=k,
+                                r_cap=r_cap_block, device=devices[d]))
+    return EllBlocks(tuple(blocks))

@@ -341,7 +341,7 @@ def test_cuda_spmm_variants_match_plain_version(ell_data, cuda_device, d,
     assert torch.equal(y, ops.ell_spmm(cols, vals, mask, row_ids, x, n))
 
 
-# -- flash attention and the expert GEMM -------------------------------------------
+# -- flash attention and the expert GEMM --------------------------------------
 
 FLASH_SHAPES = [(128, 4, 4, 64),   # MHA
                 (256, 4, 2, 64),   # GQA
@@ -721,3 +721,126 @@ def test_cuda_reach_variants_match_plain_version(ell_data, cuda_device, d,
     assert ops.LAUNCHES["ell_reach"] == before + 1
     assert torch.equal(y, ell_reach_ref(cols, mask, row_ids, x, n))
     assert torch.equal(y, ops.ell_reach(cols, mask, row_ids, x, n))
+
+
+# -- the ELL kernels under the graph axis of the device mesh ------------------
+
+def _coo(n, k, seed):
+    """A random arc list with one receiver heavy enough for spill rows."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, 6 * n)
+    r = rng.integers(0, n, 6 * n)
+    r[:3 * k] = 5
+    return s, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 20, 40, 160])
+def test_cuda_kernels_on_a_row_block(cuda_device, d):
+    """Both kernels on each shard's row block (n = n_loc < n_x, local row
+    ids, global column ids) against their plain versions, and the blocks'
+    slices concatenated bitwise equal to the unsharded mirror's output."""
+    from repro_torch.sparse.ell import build_ell, build_ell_sharded
+    n, g, k = 256, 4, 8
+    s, r = _coo(n, k, d)
+    blocks = build_ell_sharded(r, s, n, g, k=k, devices=[cuda_device] * g)
+    full = build_ell(r, s, n, k=k, r_cap=n + len(s), device=cuda_device)
+    gen = np.random.default_rng(d)
+    x = torch.as_tensor(gen.random((n, d)).astype(np.float32),
+                        device=cuda_device)
+    xb = torch.as_tensor((gen.random((n, d)) < 0.2).astype(np.float32),
+                         device=cuda_device)
+    ys, rs = [], []
+    for b in blocks.blocks:
+        assert b.n == n // g and b.n < x.shape[0]
+        y = ops.ell_spmm(b.cols, b.vals, b.mask, b.row_ids, x, b.n,
+                         index=b.row_index())
+        reach = ops.ell_reach(b.cols, b.mask, b.row_ids, xb, b.n,
+                              index=b.row_index())
+        assert y.shape == reach.shape == (b.n, d)
+        torch.testing.assert_close(
+            y, ell_spmm_ref(b.cols, b.vals, b.mask, b.row_ids, x, b.n),
+            rtol=1e-5, atol=0)
+        assert torch.equal(reach, ell_reach_ref(b.cols, b.mask, b.row_ids,
+                                                xb, b.n))
+        ys.append(y)
+        rs.append(reach)
+    assert torch.equal(torch.cat(ys), ops.ell_spmm(
+        full.cols, full.vals, full.mask, full.row_ids, x, n))
+    assert torch.equal(torch.cat(rs), ops.ell_reach(
+        full.cols, full.mask, full.row_ids, xb, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide,aligned", [(32, True), (40, True),
+                                          (320, True), (320, False)])
+@pytest.mark.parametrize("d", [1, 4, 20, 31])
+def test_cuda_spmm_small_variant_sums_like_the_wide_ones(
+        ell_data, cuda_device, d, wide, aligned):
+    """A column's bits do not depend on the block's width: the small
+    variant (d < 32) gives the first d columns of a wide call exactly, so
+    a sweep block split over the query axis keeps the replicated bits."""
+    cols, vals, mask, row_ids, _ = (torch.as_tensor(a, device=cuda_device)
+                                    for a in ell_data)
+    n = 300
+    xa = np.random.default_rng(wide).random((n, wide)).astype(np.float32)
+    x = (torch.as_tensor(xa, device=cuda_device) if aligned
+         else _misaligned(xa, cuda_device))
+    narrow = torch.as_tensor(xa[:, :d].copy(), device=cuda_device)
+    assert ops.ell_variant(d, narrow.data_ptr()) == "small"
+    y_wide = ops.ell_spmm(cols, vals, mask, row_ids, x, n)
+    y_small = ops.ell_spmm(cols, vals, mask, row_ids, narrow, n)
+    assert torch.equal(y_small, y_wide[:, :d])
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_a_card_that_is_not_current(ell_data):
+    """Tensors on the second card while the first is current: each wrapper
+    launches under a guard for its tensors' card, and the bits equal the
+    first card's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    n, d = 300, 40
+    xa = np.random.default_rng(0).random((n, d)).astype(np.float32)
+    out = {}
+    with torch.cuda.device(0):
+        for dev in ("cuda:0", "cuda:1"):
+            cols, vals, mask, row_ids, _ = (torch.as_tensor(a, device=dev)
+                                            for a in ell_data)
+            x = torch.as_tensor(xa, device=dev)
+            out[dev] = (ops.ell_spmm(cols, vals, mask, row_ids, x, n),
+                        ops.ell_reach(cols, mask, row_ids, (x < 0.2).float(),
+                                      n))
+            torch.cuda.synchronize(dev)
+            assert out[dev][0].device == torch.device(dev)
+    assert all(torch.equal(a.cpu(), b.cpu())
+               for a, b in zip(out["cuda:0"], out["cuda:1"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_cuda_sharded_label_rwr_equals_replicated(cuda_device, partitioned):
+    """The label table and a 40-column expansion block over a graph axis
+    of the card named four times, bitwise equal to the replicated sweeps
+    (fixed and residual-adaptive, with equal sweep and skip counts)."""
+    from repro_torch.core.graph import EllCache, new_graph
+    from repro_torch.core.rwr import label_rwr, restart_onehot, rwr_adaptive
+    from repro_torch.engine.sharding import ShardedSweep
+    n, k = 256, 8
+    s, r = _coo(n, k, 11)
+    labels = np.random.default_rng(11).integers(0, 4, n).astype(np.int32)
+    g = new_graph(n, 4096, labels=labels, senders=s, receivers=r,
+                  device=cuda_device)
+    rep = EllCache(n, 4096, k, device=cuda_device)
+    mesh = EllCache(n, 4096, k, n_shards=4, partitioned=partitioned,
+                    devices=[cuda_device] * 4)
+    rep.rebuild(g)
+    mesh.rebuild(g)
+    sweeps = ShardedSweep([cuda_device] * 4)
+    want = label_rwr(g, 4, iters=10, ell=rep.ell)
+    got, n_sw, _ = sweeps.label_table(g, 4, 10, 0.15, None, mesh.ell)
+    assert n_sw == 10 and torch.equal(got, want)
+    e = restart_onehot(torch.arange(40, device=cuda_device) * 6, n)
+    want = rwr_adaptive(g, e, max_iters=30, tol=1e-5, ell=rep.ell)
+    got = sweeps.run_rwr(g, e, 30, tol=1e-5, ell=mesh.ell)
+    assert got[1:] == want[1:] and torch.equal(got[0], want[0])

@@ -129,15 +129,38 @@ def test_cuda_adaptive_server_keeps_its_agent_on_the_card():
                                [s.rl_loss for s in cpu], rtol=1e-5)
 
 
+def _serve_one_step(entry, ecfg_kw, stream, devices=None):
+    """One storm step of ``query_zoo(4)`` through ``entry``: (deltas,
+    stores, the engine)."""
+    kw = dict(adaptive=False, full_graph_frac=-1.0, **ecfg_kw)
+    if entry == "engine":
+        eng = TEngine(_cfg(TCfg, "coo"), TEngCfg(**kw), device=CPU,
+                      devices=devices)
+        for q in t_zoo(4):
+            eng.register(q)
+        _, out = eng.step(eng.init_state(stream.graph), stream.updates[0])
+        deltas = [tuple(d) for d in out.deltas]
+    else:
+        srv = TServer(_cfg(TCfg, "coo"), t_zoo(4), TServCfg(**kw),
+                      device=CPU, devices=devices)
+        _, stats = srv.run(stream.graph, stream.updates[:1])
+        eng = srv.engine
+        deltas = [tuple(d) for d in stats[0].deltas]
+    return deltas, [dict(eng.stores[q]._patterns) for q in eng.qids], eng
+
+
 @pytest.mark.parametrize("entry", ["engine", "server"])
 @pytest.mark.parametrize("knob", [
     ("graph_shard", "auto"), ("edge_partition", "on"),
     ("partition_headroom", 2.0), ("obs", TObsCfg(enabled=True))],
     ids=lambda k: k[0])
-def test_entry_points_refuse_knobs_of_unported_features(entry, knob):
-    """A knob whose feature waits is refused with the ROADMAP item, through
-    both entry points, instead of giving an engine without it. Tracing
-    (``obs``) is ported now: both entry points build with it on."""
+def test_entry_points_serve_knobs_of_the_device_mesh(port_stream, entry,
+                                                     knob):
+    """Every engine knob of the device mesh builds through both entry
+    points on ``["cpu"] * 4`` and serves a step equal to the replicated
+    one (the partition knobs with the graph axis on, so they engage; the
+    default query axis takes the other half of the mesh).
+    Tracing (``obs``) builds with its tracer on."""
     name, value = knob
     if name == "obs":
         eng = (TEngine(_cfg(TCfg, "coo"), TEngCfg(adaptive=False, obs=value),
@@ -147,13 +170,17 @@ def test_entry_points_refuse_knobs_of_unported_features(entry, knob):
                             device=CPU).engine)
         assert eng.obs.enabled and eng.obs.tracer.enabled
         return
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP"):
-        if entry == "engine":
-            TEngine(_cfg(TCfg, "coo"),
-                    TEngCfg(adaptive=False, **{name: value}), device=CPU)
-        else:
-            TServer(_cfg(TCfg, "coo"), t_zoo(1),
-                    TServCfg(adaptive=False, **{name: value}), device=CPU)
+    kw = {name: value}
+    if name != "graph_shard":
+        kw["graph_shard"] = "auto"
+    want = _serve_one_step(entry, {}, port_stream)
+    got = _serve_one_step(entry, kw, port_stream, devices=[CPU] * 4)
+    eng = got[2]
+    assert (eng.q_budget, eng.g_shards) == (2, 2)  # shard="auto": 2 x 2
+    assert eng.partitioned == (kw.get("edge_partition") == "on")
+    if name == "partition_headroom":
+        assert eng.ecfg.partition_headroom == 2.0
+    assert got[:2] == want[:2] and any(got[1])
 
 
 @pytest.mark.parametrize("shard", ["auto", "off"])
