@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printed on its own lines:
 
-1. the card (``nvidia-smi``) and the build of all six kernel sources
+1. the card (``nvidia-smi``) and the build of all seven kernel sources
    under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source,
    started together);
 2. the ELL kernels against their plain PyTorch versions on random ELL data
@@ -35,7 +35,19 @@ Phases, each printed on its own lines:
    causal rows average thousands of values and are a few hundredths); the
    f32 GEMM to 1e-4; two launches bitwise equal; times, bounds and the
    yardsticks ``scaled_dot_product_attention`` (causal, GQA) and
-   ``torch.matmul`` on the same inputs;
+   ``torch.matmul`` on the same inputs. Then the training side: both
+   forward kernels asked for each row's log-sum-exp (prefill, hd 40, f32
+   hd 16) must give O bit for bit as without it and an LSE within 1e-5
+   relative / 1e-4 absolute of a plain ``logsumexp``; the flash backward
+   kernel at the train shape (B 1, S 4,096, H 32, KV 4, hd 128, bf16), at
+   a ragged S 4,111 and in f32 at hd 16 against
+   ``flash_attention_bwd_ref`` (dq, dk, dv within 2e-2 — 1e-4 in f32 — of
+   each element plus its row's RMS, plus 1e-4 of the tensor's RMS; two
+   launches bitwise equal), timed beside the backward of
+   ``scaled_dot_product_attention`` through autograd; the expert GEMM's
+   backward products at the train shapes (dX = dY·Wᵀ and dW = Xᵀ·dY of
+   the gate and down products, G 4, C 88) against the plain version, timed
+   beside ``torch.matmul``, and the plain-torch transposes they need;
 4. a small-input check: the toy stream served on the card and on the CPU
    (plain versions) must give equal match deltas and stores;
 5. adaptive agreement: the toy stream served with the default
@@ -51,6 +63,13 @@ Phases, each printed on its own lines:
 6. LM agreement: qwen3-moe ``SMOKE`` (f32) with one set of weights served
    greedily on the card (kernels) and on the CPU (plain versions): equal
    tokens, logits within 1e-4;
+   train agreement: the qwen3-moe ``SMOKE`` config and the dense smoke
+   config of ``tests/test_torch_lm.py`` (both f32), 3 train steps of 2
+   microbatches on the card and on the CPU from one set of weights and one
+   ``TokenPipeline`` stream: losses within 1e-4 relative, step-0
+   gradients per leaf within 1e-4 relative plus 1e-5 of the leaf's
+   largest entry; the first flash kernel, the backward kernel (f32 path)
+   and the first GEMM kernel must launch;
 7. serve-inc — ``MatchServer(FULL, query_zoo(16), ServingConfig(adaptive=
    False))`` on the ``transactions`` twin at full scale for 4 served steps,
    launch counters set to 0 before and read after; the inputs of the first
@@ -119,7 +138,17 @@ Phases, each printed on its own lines:
    kernel); then, with the MoE
    at a capacity that drops no slot, the prompt is served again and a
    prefill over it plus the 15 generated tokens must give the last decode
-   step's logits;
+   step's logits; then train-lm — qwen3-moe-30b-a3b ``FULL`` widths, depth
+   cut to 2 layers, f32 masters from a seed, 5 ``TrainLoop`` steps
+   (``TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=5)``,
+   2 microbatches, ``remat="full"``, MoE groups of 1,024 tokens) on
+   ``TokenPipeline(151936, 2, 4096, seed=0)``, the final checkpoint under
+   ``build/`` (deleted after): per step loss, grad norm, lr, time and
+   tokens/s, the peak memory; finite losses, step 0 within 0.5 of ln V,
+   the last below step 0's, and the launches counted exactly (per step
+   and microbatch and layer: 2 flash forwards — the forward and its
+   recompute — on the TMA + wgmma kernel, 1 flash backward, 12 expert
+   GEMMs of the tiles variant — 3 forward, 3 recompute, 6 backward);
 15. control (run after phase 12, on serve-adaptive's server, ``rwr_tol``
     set to 1e-4 so all seven actions are live; reset between runs, its
     PEM state put back, its PEM reward fed one seeded elapsed schedule
@@ -140,7 +169,9 @@ Phases, each printed on its own lines:
     must launch); then a traced frozen replay prints each step's sweeps
     beside ``stage_s["rwr"]``.
 
-Then a ``{"kernels": [...]}`` JSON line, the card line, and as the last line
+Then a ``{"kernels": [...]}`` JSON line (every kernel with its serve and
+train launches, ``flash_attention_bwd`` among them), the card line, and as
+the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line. ``--profile`` adds a device-time profile of one step of each
 served path.
@@ -179,6 +210,23 @@ LM_CONSIST_CORR = 0.99
 LM_CONSIST_ATOL = 0.1
 LM_CONSIST32_CORR = 0.9999
 LM_CONSIST32_ATOL = 4e-3
+# train-lm: qwen3-moe-30b-a3b at full widths, depth cut to 2 layers, the
+# train_4k shape's sequence with its global batch cut from 256 to 2, two
+# microbatches of one sequence, MoE groups of 1,024 tokens (the reference's
+# cells rule min(4096, max(64, B·S // 8)) at B·S = 8,192), 5 steps
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 2, 4096, 2, 5
+TRAIN_GROUP = min(4096, max(64, TRAIN_BATCH * TRAIN_SEQ // 8))
+TRAIN_LOSS_BAND = 0.5  # step-0 loss within this of ln(vocab)
+# train-agreement: card against CPU, 3 steps of 2 microbatches
+AGREE_STEPS = 3
+AGREE_LOSS_RTOL = 1e-4
+# step-0 gradients, card against CPU: rtol plus this share of the leaf's
+# largest entry (f32 sums in another order through routing and softmax,
+# the tolerance tests/test_torch_train.py holds the port to against JAX)
+AGREE_GRAD_RTOL, AGREE_GRAD_FLOOR = 1e-4, 1e-5
+# LSE of the forward kernels against a plain logsumexp (f32 statistics)
+LSE_RTOL, LSE_ATOL = 1e-5, 1e-4
 REPS = 20          # timed launches per kernel measurement
 INC_STEPS = 4      # serve-inc steps
 BATCH_STEPS = 2    # serve-batch steps
@@ -517,6 +565,192 @@ def phase_lm_kernels(reps: int):
     return rows
 
 
+# -- phase 3b: the LM kernels' training side ---------------------------------------
+
+def grad_allowance_used(got, want, share):
+    """The largest share of its allowance any element of ``got`` uses:
+    ``share`` of the element plus its row's RMS, plus 1e-4 of the tensor's
+    RMS for rows that cancel to zero
+    (tests/test_torch_kernels.py::_grad_allowance_used)."""
+    g, w = got.float(), want.float()
+    allow = (share * (w.abs() + w.pow(2).mean(-1, keepdim=True).sqrt())
+             + 1e-4 * w.pow(2).mean().sqrt())
+    return float(((g - w).abs() / allow).max())
+
+
+def phase_train_kernels(reps: int):
+    """The forward kernels' log-sum-exp, the flash backward kernel and the
+    expert GEMM's backward products against their plain versions, timed,
+    at the train-lm shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    from repro_torch.kernels.measure import (H100_BF16_FLOPS, H100_F32_FLOPS,
+                                             cuda_ms)
+    from repro_torch.models.moe import moe_capacity
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf, f32 = torch.bfloat16, torch.float32
+    H, KV = FULL.n_heads, FULL.n_kv_heads
+    rows = {}
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    # the log-sum-exp output: O bitwise unchanged, LSE a row's logsumexp
+    for label, B, S, hd, dt, name in (
+            ("prefill", LM_BATCH, LM_PROMPT, FULL.head_dim, bf,
+             flash_ops.WGMMA),
+            ("hd40", LM_BATCH, LM_PROMPT, 40, bf, flash_ops.FIRST),
+            ("f32 hd16", 1, TRAIN_SEQ, 16, f32, flash_ops.FIRST)):
+        q = randn(B, S, H, hd, dtype=dt)
+        k, v = randn(B, S, KV, hd, dtype=dt), randn(B, S, KV, hd, dtype=dt)
+        before = dict(flash_ops.LAUNCHES)
+        o = flash_ops.flash_attention(q, k, v)
+        o2, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+        check(flash_ops.LAUNCHES[name] == before[name] + 2,
+              f"flash lse {label}: not taken by {name}")
+        check(bool(torch.equal(o, o2)),
+              f"flash lse {label}: O changed when LSE was requested")
+        _, want = flash_attention_ref(q, k, v, return_lse=True)
+        err = float((lse - want).abs().max())
+        used = float(((lse - want).abs()
+                      / (LSE_ATOL + LSE_RTOL * want.abs())).max())
+        say(f"  {name} {label} lse: O bitwise equal with and without it; "
+            f"LSE max_abs_err={err:.3e} ({used:.3f} of the allowance)")
+        check(used <= 1.0, f"flash lse {label}: LSE off its plain version")
+        rows[("lse", label)] = dict(max_abs_err=err, tol_used=used,
+                                    o_bitwise=True)
+        del q, k, v, o, o2, lse, want
+        torch.cuda.empty_cache()
+
+    # the flash backward: the train shape (one sequence of the train
+    # microbatch), a ragged S, and the f32 path at the SMOKE head dim
+    for label, S, hd, dt in (("train", TRAIN_SEQ, FULL.head_dim, bf),
+                             ("ragged", TRAIN_SEQ + 15, FULL.head_dim, bf),
+                             ("f32 hd16", TRAIN_SEQ, 16, f32)):
+        q, do = randn(1, S, H, hd, dtype=dt), randn(1, S, H, hd, dtype=dt)
+        k, v = randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
+        o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+
+        def bwd():
+            return flash_ops.flash_attention_bwd(q, k, v, o, do, lse)
+        before = flash_ops.LAUNCHES[flash_ops.BWD]
+        got = bwd()
+        check(flash_ops.LAUNCHES[flash_ops.BWD] == before + 1,
+              f"flash bwd {label}: launch not counted")
+        again = bwd()
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+              f"flash bwd {label}: two launches differ")
+        want = flash_attention_bwd_ref(q, k, v, o, do, lse)
+        share = LM_KERNEL_RTOL if dt == bf else LM_GEMM32_TOL
+        errs = {n: float((g.float() - w.float()).abs().max())
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        used_by = {n: grad_allowance_used(g, w, share)
+                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        used = max(used_by.values())
+        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+              f"flash bwd {label}: non-finite gradient")
+        check(used <= 1.0, f"flash bwd {label}: {used_by} of the "
+                           f"allowance ({errs})")
+        del again, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(bwd, reps)
+        plain = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse),
+                        3, warmup=1)
+        torch.cuda.empty_cache()
+        # the yardstick: SDPA's backward through autograd, same inputs
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+        dos = do.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                                  retain_graph=True), reps)
+        del out, qs, ks, vs
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (q, k, v, o, do, lse, *got))
+        flops = 10 * H * hd * causal_pairs(S, S)
+        b_ms, b_by = bound(nbytes, flops,
+                           H100_BF16_FLOPS if dt == bf else H100_F32_FLOPS)
+        tag = "bf16" if dt == bf else "f32"
+        say(f"  {flash_ops.BWD} {label}: q {tuple(q.shape)} k,v "
+            f"{tuple(k.shape)} {tag}: max_abs_err dq/dk/dv "
+            f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} ({used:.3f}"
+            f" of the allowance), run-to-run bitwise equal; {ms:.4f} ms "
+            f"(D = rowsum(dO·O) in torch included), plain {plain:.4f} ms, "
+            f"sdpa backward {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{nbytes} B, {flops} flop)")
+        rows[(flash_ops.BWD, label)] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, bytes=nbytes, flops=flops,
+            max_abs_err=max(errs.values()), tol_used=used,
+            shape=f"B=1 S={S} H={H} KV={KV} hd={hd} {tag} causal")
+        del q, k, v, o, do, lse, got
+        torch.cuda.empty_cache()
+
+    # the expert GEMM's backward products at the train shapes: groups of
+    # TRAIN_GROUP tokens of one microbatch, capacity 88
+    moe = FULL.moe
+    E, d, f = moe.n_experts, FULL.d_model, moe.d_ff_expert
+    G = TRAIN_SEQ // TRAIN_GROUP
+    C = moe_capacity(TRAIN_GROUP, E, moe.top_k)
+    s_in = (2.0 / (d + f)) ** 0.5
+    for label, din, dout in (("gate", d, f), ("down", f, d)):
+        x = randn(G * E, C, din)
+        w = randn(E, din, dout, scale=s_in)
+        dy = randn(G * E, C, dout, scale=(G * C) ** -0.5)
+        t_w = cuda_ms(lambda: w.transpose(1, 2).contiguous(), reps)
+        t_xy = cuda_ms(lambda: (
+            x.view(G, E, C, din).permute(1, 3, 0, 2).reshape(E, din, G * C),
+            dy.view(G, E, C, dout).transpose(0, 1).reshape(E, G * C, dout)),
+            reps)
+        wt = w.transpose(1, 2).contiguous()
+        xt = x.view(G, E, C, din).permute(1, 3, 0, 2).reshape(E, din, G * C)
+        dyt = dy.view(G, E, C, dout).transpose(0, 1).reshape(E, G * C, dout)
+        for prod, a, b, lib_a in (("dX", dy, wt, dy.view(G, E, C, dout)),
+                                  ("dW", xt, dyt, xt)):
+            before = dict(gemm_ops.LAUNCHES)
+            y = gemm_ops.expert_gemm(a, b)
+            check(gemm_ops.LAUNCHES[gemm_ops.TILES]
+                  == before[gemm_ops.TILES] + 1,
+                  f"expert_gemm train {label} {prod}: not the tiles variant")
+            want = expert_gemm_ref(a, b)
+            atol = LM_KERNEL_RTOL * float(want.float().pow(2).mean().sqrt())
+            err, used = lm_check(f"expert_gemm train {label} {prod}", y,
+                                 gemm_ops.expert_gemm(a, b), want, atol)
+            ms = cuda_ms(lambda: gemm_ops.expert_gemm(a, b), reps)
+            plain = cuda_ms(lambda: expert_gemm_ref(a, b), 3, warmup=1)
+            lib = cuda_ms(lambda: torch.matmul(lib_a, b), reps)
+            nbytes = sum(t.numel() * t.element_size() for t in (a, b, y))
+            flops = 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+            b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+            say(f"  expert_gemm_wgmma train {label} {prod}: "
+                f"{tuple(a.shape)} x {tuple(b.shape)} bf16: max_abs_err="
+                f"{err:.3e} ({used:.3f} of the allowance) run-to-run bitwise"
+                f" equal; {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
+                f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+                f"{flops} flop)")
+            rows[(gemm_ops.TILES, f"train {label} {prod}")] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
+                tol_used=used, shape=f"{tuple(a.shape)} x {tuple(b.shape)} "
+                                     f"bf16")
+            del y, want
+        say(f"  expert GEMM backward transposes (plain torch), train "
+            f"{label}: W^T {t_w:.4f} ms, X and dY for dW {t_xy:.4f} ms")
+        rows[("gemm transposes", label)] = dict(w_ms=t_w, x_dy_ms=t_xy)
+        del x, w, dy, wt, xt, dyt
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows
+
+
 def reset_all_counts():
     from repro_torch.kernels.expert_gemm import ops as gemm_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -544,20 +778,12 @@ def phase_lm_agreement():
     torch.backends.cuda.matmul.allow_tf32 = False
     model = TransformerLM(SMOKE)
     params = model.init(torch.Generator(device="cpu").manual_seed(0))
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
-
     prompt = torch.randint(0, SMOKE.vocab_size, (2, 12),
                            generator=torch.Generator().manual_seed(1))
     reset_all_counts()
     out = {}
     for dev in ("cuda", "cpu"):
-        p = to(params, dev)
+        p = tree_to(params, dev)
         logits, _ = model.prefill(p, prompt.to(dev))
         gen = greedy_generate(model, p, prompt.to(dev), LM_TOKENS)
         out[dev] = (logits.cpu(), gen.tokens.cpu(), gen.logits.cpu(),
@@ -683,6 +909,256 @@ def phase_serve_lm(profile: bool = False):
                           decode_tok_s=n_dec / decode_s,
                           consistency_s=consist_s, peak_bytes=peak,
                           consistency_bf16=bf, consistency_f32=f32)
+
+
+# -- train phases ------------------------------------------------------------
+
+def dense_smoke_cfg():
+    """The dense SMOKE-sized LM of tests/test_torch_lm.py (SwiGLU MLP)."""
+    from repro_torch.config.base import TransformerConfig
+    return TransformerConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                             d_ff=128, vocab_size=128, dtype="float32",
+                             remat="none")
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.detach().to(dev)
+
+
+def phase_train_agreement():
+    """The qwen3-moe SMOKE config (f32, hd 16: the first flash kernels and
+    the first GEMM kernel) and the dense smoke config, trained for
+    ``AGREE_STEPS`` steps of 2 microbatches on the card and on the CPU
+    from one set of f32 weights and one batch stream: losses within
+    ``AGREE_LOSS_RTOL``, step-0 gradients per leaf within
+    ``AGREE_GRAD_RTOL`` plus ``AGREE_GRAD_FLOOR`` of the leaf's largest
+    entry."""
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.configs.qwen3_moe_30b_a3b import SMOKE
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.state import make_train_step, new_train_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10)
+    reset_all_counts()
+    out = {}
+    for name, cfg in (("qwen3-moe SMOKE", SMOKE),
+                      ("dense smoke", dense_smoke_cfg())):
+        model = TransformerLM(cfg)
+        params = model.init(torch.Generator().manual_seed(0),
+                            dtype=torch.float32)
+        pipe = TokenPipeline(cfg.vocab_size, 4, 32, seed=0)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_to(params, dev)
+            toks, labels = (torch.as_tensor(a, device=dev)
+                            for a in pipe.batch_at(0))
+            for t in tree_leaves(p):
+                t.requires_grad_(True)
+            runs = []
+            for _ in range(2 if dev == "cuda" else 1):
+                model.loss(p, toks, labels).backward()
+                runs.append([t.grad.detach().cpu() for t in tree_leaves(p)])
+                for t in tree_leaves(p):
+                    t.grad = None
+            for t in tree_leaves(p):
+                t.requires_grad_(False)
+            grads = runs[0]
+            if dev == "cuda":
+                # the MoE token gather's backward adds with atomics on the card
+                repeat = [i for i, (a, b) in enumerate(zip(*runs))
+                          if not torch.equal(a, b)]
+            step = make_train_step(model.loss, tcfg, microbatches=2)
+            state = new_train_state(p)
+            losses = []
+            for i in range(AGREE_STEPS):
+                batch = (torch.as_tensor(a, device=dev)
+                         for a in pipe.batch_at(i))
+                state, m = step(state, *batch)
+                losses.append(float(m["loss"]))
+            res[dev] = (grads, losses)
+        (g_card, l_card), (g_cpu, l_cpu) = res["cuda"], res["cpu"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+        grad_err, grad_used = 0.0, 0.0
+        for a, b in zip(g_card, g_cpu):
+            diff = (a - b).abs()
+            allow = (AGREE_GRAD_RTOL * b.abs()
+                     + AGREE_GRAD_FLOOR * float(b.abs().max()) + 1e-30)
+            grad_err = max(grad_err, float(diff.max()))
+            grad_used = max(grad_used, float((diff / allow).max()))
+        say(f"phase train-agreement: {name}, {AGREE_STEPS} steps of 2 "
+            f"microbatches: losses card {[f'{x:.6f}' for x in l_card]} cpu "
+            f"{[f'{x:.6f}' for x in l_cpu]} (largest relative difference "
+            f"{loss_rel:.3e}); step-0 gradients, {len(g_card)} leaves: "
+            f"largest difference {grad_err:.3e} ({grad_used:.3f} of the "
+            f"allowance); two card backward passes bitwise equal: "
+            f"{not repeat} (leaves that differ: {repeat})")
+        check(loss_rel <= AGREE_LOSS_RTOL,
+              f"train-agreement {name}: losses differ by {loss_rel:.3e}")
+        check(grad_used <= 1.0,
+              f"train-agreement {name}: step-0 gradients outside tolerance")
+        out[name] = dict(losses_card=l_card, losses_cpu=l_cpu,
+                         loss_max_rel=loss_rel, grad_max_abs=grad_err,
+                         grad_tol_used=grad_used,
+                         card_repeat_differs=repeat)
+    counts = read_all_counts()
+    say(f"  train-agreement card launches: {counts}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "expert_gemm"):
+        check(counts[name] > 0,
+              f"train-agreement: the card path never launched {name}")
+    return out, counts
+
+
+def phase_train_lm(profile: bool = False):
+    """qwen3-moe-30b-a3b at its published widths, ``TRAIN_LAYERS`` layers,
+    f32 masters from a seed, ``TRAIN_STEPS`` steps of ``TrainLoop`` on the
+    synthetic ``TokenPipeline`` (2 × 4,096 tokens, 2 microbatches,
+    ``remat="full"``), the final checkpoint under build/."""
+    import dataclasses
+    import math
+    import shutil
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.state import make_train_step, new_train_state
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(FULL, n_layers=TRAIN_LAYERS)
+    model = TransformerLM(cfg, moe_group_size=TRAIN_GROUP)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.float32)
+    state = new_train_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == cfg.param_count(), "train-lm: parameter count")
+    say(f"  train-lm model: qwen3-moe-30b-a3b FULL widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd "
+        f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+        f"d_ff {cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}, remat "
+        f"{cfg.remat}); reduced: n_layers {cfg.n_layers} of {FULL.n_layers},"
+        f" train_4k's global batch 256 -> {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, {TRAIN_MICRO} microbatches, moe_group_size {TRAIN_GROUP};"
+        f" {n_params} params, f32 masters + f32 grads, m, v "
+        f"({16 * n_params} B); init {init_s:.2f} s")
+    ckpt_dir = ROOT / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=TRAIN_STEPS, checkpoint_dir=str(ckpt_dir),
+                       keep_checkpoints=1)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    inner = make_train_step(model.loss, tcfg, microbatches=TRAIN_MICRO)
+    record = []
+
+    def step_fn(st, *batch):
+        st, m = inner(st, *batch)
+        record.append({k: float(v) for k, v in m.items()})
+        return st, m
+
+    loop = TrainLoop(step_fn, state, pipe.batch_at, tcfg, log_every=10 ** 9,
+                     print_fn=say)
+    check(loop.start_step == 0, "train-lm: a checkpoint was restored")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    metrics = loop.run()
+    run_s = time.perf_counter() - t0
+    launches = read_all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, (loss, dt, m) in enumerate(zip(metrics.losses, metrics.step_times,
+                                          record)):
+        say(f"  train-lm step {i}: loss {loss:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3e} step {dt:.3f} s "
+            f"({tokens / dt:.1f} tok/s)")
+    ckpt_s = run_s - sum(metrics.step_times)
+    n_ckpt = sum(p.stat().st_size for p in ckpt_dir.rglob("*") if p.is_file())
+    say(f"  train-lm peak memory {peak} B; run {run_s:.2f} s, of it the "
+        f"batches and the final checkpoint ({n_ckpt} B under build/) "
+        f"{ckpt_s:.2f} s")
+    say(f"  train-lm launches ({TRAIN_STEPS} steps): {launches}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = metrics.losses
+    ln_v = math.log(cfg.vocab_size)
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train-lm: losses {losses}")
+    check(abs(losses[0] - ln_v) <= TRAIN_LOSS_BAND,
+          f"train-lm: step-0 loss {losses[0]:.4f} not within "
+          f"{TRAIN_LOSS_BAND} of ln V = {ln_v:.4f}")
+    check(losses[-1] < losses[0],
+          f"train-lm: last loss {losses[-1]:.4f} not below step 0's "
+          f"{losses[0]:.4f}")
+    # per step and microbatch, each layer runs attention and the three
+    # expert products forward, again in the remat recompute, and their
+    # backward passes (one flash backward, two GEMMs per product)
+    per = TRAIN_STEPS * TRAIN_MICRO * TRAIN_LAYERS
+    want = {"flash_attention_fwd_wgmma": 2 * per, "flash_attention_bwd": per,
+            "flash_attention_fwd": 0, "expert_gemm_wgmma": 12 * per,
+            "expert_gemm_skinny": 0, "expert_gemm": 0}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"train-lm launches {got}, want {want}")
+    parts = None
+    if profile:  # after the counts were read
+        parts = train_step_parts(model, loop, pipe)
+    del loop, state, params
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase train-lm: {phase_s:.1f} s wall")
+    return launches, dict(
+        n_layers=cfg.n_layers, n_params=n_params, init_s=init_s,
+        losses=losses, step_s=metrics.step_times,
+        grad_norm=[m["grad_norm"] for m in record],
+        lr=[m["lr"] for m in record],
+        tokens_per_s=[tokens / dt for dt in metrics.step_times],
+        peak_bytes=peak, run_s=run_s, checkpoint_and_batches_s=ckpt_s,
+        checkpoint_bytes=n_ckpt, phase_s=phase_s, profile_parts=parts)
+
+
+def train_step_parts(model, loop, pipe):
+    """One more train step under ``torch.profiler`` (device time by op),
+    then the step's parts timed alone with CUDA events: one microbatch's
+    forward (the loss, with remat's checkpoints), its forward + backward,
+    and AdamW over all parameters (which moves the state on: run after
+    the checks)."""
+    import torch
+    from repro_torch.kernels.measure import cuda_ms
+    from repro_torch.optim.adamw import adamw_update, tree_leaves
+    batch = [torch.as_tensor(a, device=loop.device)
+             for a in pipe.batch_at(TRAIN_STEPS)]
+    StepProfiler(True, "train-lm step").step(
+        1, lambda: loop.step_fn(loop.state, *batch))
+    state = loop.state
+    leaves = tree_leaves(state.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    mb = [x[:TRAIN_BATCH // TRAIN_MICRO] for x in batch]
+    fwd = cuda_ms(lambda: model.loss(state.params, *mb), 3, warmup=1)
+    fwd_bwd = cuda_ms(lambda: model.loss(state.params, *mb).backward(), 3,
+                      warmup=1)
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    opt = [state.opt]
+
+    def adamw():
+        opt[0] = adamw_update(grads, opt[0], state.params, 1e-9)[1]
+    adam = cuda_ms(adamw, 3, warmup=1)
+    del grads
+    say(f"  train-lm step parts (CUDA events, one microbatch of "
+        f"{TRAIN_SEQ} tokens): forward (loss, remat) {fwd:.1f} ms, forward "
+        f"+ backward {fwd_bwd:.1f} ms; AdamW over all parameters "
+        f"{adam:.1f} ms")
+    return dict(forward_ms=fwd, forward_backward_ms=fwd_bwd, adamw_ms=adam)
 
 
 def consistency(cfg, params, prompt, tag: str):
@@ -828,8 +1304,9 @@ class Capture:
 # the port's kernels as the profiler names them (csrc/*.cu)
 PORT_KERNELS = ("ell_spmm_rows", "ell_spmm_small", "ell_reach_rows",
                 "ell_reach_small", "flash_fwd_wgmma", "flash_fwd_bf16",
-                "flash_fwd_f32", "gemm_tiles", "gemm_skinny",
-                "expert_gemm_bf16", "expert_gemm_f32")
+                "flash_fwd_f32", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
+                "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "gemm_tiles",
+                "gemm_skinny", "expert_gemm_bf16", "expert_gemm_f32")
 
 
 class StepProfiler:
@@ -2247,10 +2724,12 @@ def main(argv=None) -> int:
     rows = phase_kernels((4, 320), REPS)
     say("phase lm-kernels:")
     rows.update(phase_lm_kernels(REPS))
+    rows.update(phase_train_kernels(REPS))
     phase_small_agreement()
     adapt_agree = phase_small_adaptive_agreement()
     ctl_agree = phase_control_agreement()
     launches_agree = phase_lm_agreement()
+    train_agree, launches_train_agree = phase_train_agreement()
     from repro_torch.configs.igpm_paper import FULL
     from repro_torch.data.temporal import generate_stream, scaled_twin
     spec = scaled_twin("transactions", 1.0)
@@ -2302,12 +2781,19 @@ def main(argv=None) -> int:
     phase_cli()
     say("phase serve-lm:")
     launches_lm, lm = phase_serve_lm(args.profile)
+    say("phase train-lm:")
+    launches_train, train = phase_train_lm(args.profile)
     serve = dict(inc_steps=inc_steps, batch_steps=batch_steps,
                  louvain_s=louvain_s, adaptive_steps=adapt_steps,
                  adaptive_louvain_s=adapt_louvain_s,
                  adaptive_agreement=adapt_agree, round_trips=round_trips,
                  traced=traced, runtime=runtime, control=control,
-                 captured=cap, lm=lm, sharded=sharded)
+                 captured=cap, lm=lm, sharded=sharded, train=train,
+                 train_agreement=train_agree,
+                 lse={lb: rows[("lse", lb)] for lb in
+                      ("prefill", "hd40", "f32 hd16")},
+                 gemm_transposes={lb: rows[("gemm transposes", lb)]
+                                  for lb in ("gate", "down")})
 
     kernels = []
     for name, src, line in (
@@ -2343,6 +2829,8 @@ def main(argv=None) -> int:
     flash_tpu = "src/repro/kernels/flash_attention/flash_attention.py:80"
     gemm_src = "src/repro_torch/kernels/expert_gemm/csrc/"
     gemm_tpu = "src/repro/kernels/expert_gemm/expert_gemm.py:44"
+    flash_bwd_tpu = (f"backward of {flash_tpu}, XLA autodiff of "
+                     f"src/repro/models/layers.py:43 in the reference")
     for name, src, line, labels, launches, path in (
             ("flash_attention_fwd_wgmma",
              flash_src + "flash_attention_fwd_wgmma.cu", flash_tpu,
@@ -2351,8 +2839,13 @@ def main(argv=None) -> int:
             # SMOKE model's f32 attention on the card launches it
             ("flash_attention_fwd", flash_src + "flash_attention_fwd.cu",
              flash_tpu, ("hd40",), launches_agree, "lm-agreement"),
+            ("flash_attention_bwd", flash_src + "flash_attention_bwd.cu",
+             flash_bwd_tpu, ("train", "ragged", "f32 hd16"), launches_train,
+             "train-lm"),
             ("expert_gemm_wgmma", gemm_src + "expert_gemm_wgmma.cu",
-             gemm_tpu, ("prefill gate", "prefill up", "prefill down"),
+             gemm_tpu, ("prefill gate", "prefill up", "prefill down",
+                        "train gate dX", "train gate dW", "train down dX",
+                        "train down dW"),
              launches_lm, "serve-lm"),
             ("expert_gemm_skinny", gemm_src + "expert_gemm_wgmma.cu",
              gemm_tpu, ("decode gate", "decode down"), launches_lm,
@@ -2373,6 +2866,8 @@ def main(argv=None) -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "by_shape": {lb: rows[(name, lb)] for lb in labels},
+            "launches_train": launches_train[name],
+            "launches_train_agreement": launches_train_agree[name],
         })
     say(f"serve summary: {json.dumps(serve)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")

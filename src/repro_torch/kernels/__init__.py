@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each with its plain PyTorch version.
 
 The ELL sweeps (`spmv_ell`), flash attention (`flash_attention`) and the
-grouped expert GEMM (`expert_gemm`); `build` compiles all six sources,
+grouped expert GEMM (`expert_gemm`), forward and, for the LM kernels,
+backward; `build` compiles all seven sources,
 and `measure` times them on a card.
 """

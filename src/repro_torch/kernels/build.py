@@ -4,7 +4,8 @@ Each kernel source (``<package>/csrc/*.cu``) has a plain C interface and
 compiles on its own, for ``sm_90a``, into a shared library under ``build/``
 next to this file (git-ignored). The library's name carries a hash of its
 source, of the headers it includes (``csrc/hopper.cuh``, shared by the
-TMA + wgmma kernels) and of the flags, so an edited source or header
+TMA + wgmma kernels; ``flash_attention/csrc/flash_mma.cuh``, shared by the
+first flash kernels) and of the flags, so an edited source or header
 builds anew and an unchanged one is reused. All missing libraries are
 compiled at once, one ``nvcc`` process per source, started together; the
 first use of any kernel builds them all, under one lock, so concurrent
@@ -42,14 +43,19 @@ KERNELS = {
     # cols, mask, perm, row_ptr, x, y, n, d, K, variant, stream
     "ell_reach": ("spmv_ell/csrc/ell_reach.cu", "ell_reach_f32",
                   [_P] * 6 + [_I] * 4 + [_P]),
-    # q, k, v, o, B, Sq, Sk, H, KV, hd, q_offset, causal, bf16, stream
+    # q, k, v, o, lse, B, Sq, Sk, H, KV, hd, q_offset, causal, bf16, stream
     "flash_attention_fwd": (
         "flash_attention/csrc/flash_attention_fwd.cu", "flash_attention_fwd",
-        [_P] * 4 + [_I] * 9 + [_P]),
-    # q, k, v, o, B, Sq, Sk, H, KV, hd, q_offset, causal, stream
+        [_P] * 5 + [_I] * 9 + [_P]),
+    # q, k, v, o, lse, B, Sq, Sk, H, KV, hd, q_offset, causal, stream
     "flash_attention_fwd_wgmma": (
         "flash_attention/csrc/flash_attention_fwd_wgmma.cu",
-        "flash_attention_fwd_wgmma", [_P] * 4 + [_I] * 8 + [_P]),
+        "flash_attention_fwd_wgmma", [_P] * 5 + [_I] * 8 + [_P]),
+    # q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,
+    # q_offset, causal, bf16, stream
+    "flash_attention_bwd": (
+        "flash_attention/csrc/flash_attention_bwd.cu", "flash_attention_bwd",
+        [_P] * 9 + [_I] * 9 + [_P]),
     # x, w, y, N, E, C, d, f, bf16, stream
     "expert_gemm": ("expert_gemm/csrc/expert_gemm.cu", "expert_gemm",
                     [_P] * 3 + [_I] * 6 + [_P]),

@@ -14,6 +14,12 @@ its inputs, then:
   prefill); everything else, f32 included, to ``csrc/expert_gemm.cu``;
 * on CPU tensors runs the plain version, :func:`.ref.expert_gemm_ref`.
 
+:class:`ExpertGemm` gives the product a gradient built on the same
+kernels: dX = dY·Wᵀ is ``expert_gemm(dY, Wᵀ)`` with Wᵀ a contiguous (E, f, d)
+copy, and dW[e] = Σ_g X[g, e]ᵀ·dY[g, e] is one ``expert_gemm`` over
+(E, d, G·C) × (E, G·C, f), the group sum inside the contraction (no
+separate sum, no atomics). The transposes are plain torch copies.
+
 :data:`LAUNCHES` counts launches per kernel, bumped only where the kernel
 is launched, so a run can show that its path went through the kernel.
 """
@@ -99,3 +105,31 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
     LAUNCHES[name] += 1
     return y
+
+
+class ExpertGemm(torch.autograd.Function):
+    """``expert_gemm`` with a gradient; both backward products go through
+    ``expert_gemm`` too (kernels on CUDA tensors, ``expert_gemm_ref`` on
+    CPU tensors), in the inputs' dtype with f32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return expert_gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        N, C, d = x.shape
+        E, _, f = w.shape
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = expert_gemm(dy, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            G = N // E
+            # (G, E, C, ·) → (E, ·, G·C): one contraction over G·C rows
+            xt = x.view(G, E, C, d).permute(1, 3, 0, 2).reshape(E, d, G * C)
+            dyt = dy.view(G, E, C, f).transpose(0, 1).reshape(E, G * C, f)
+            dw = expert_gemm(xt.contiguous(), dyt.contiguous())
+        return dx, dw

@@ -1,9 +1,11 @@
-"""Causal GQA flash attention: CUDA kernel (``csrc/``) + plain version."""
+"""Causal GQA flash attention: CUDA kernels (``csrc/``) + plain versions,
+forward and backward."""
 
-from repro_torch.kernels.flash_attention.ops import (LAUNCHES,
+from repro_torch.kernels.flash_attention.ops import (LAUNCHES, FlashAttention,
                                                      flash_attention,
+                                                     flash_attention_bwd,
                                                      flash_variant,
                                                      reset_launch_counts)
 
-__all__ = ["flash_attention", "flash_variant", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["flash_attention", "flash_attention_bwd", "FlashAttention",
+           "flash_variant", "LAUNCHES", "reset_launch_counts"]

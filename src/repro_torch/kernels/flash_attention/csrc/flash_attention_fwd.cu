@@ -43,6 +43,9 @@
 //  * masked scores are -inf and take p = 0; a row whose running max is
 //    still -inf takes m = 0 and corr = 0 (the guard of the model's
 //    blockwise attention). The output is acc / max(l, 1e-30).
+//  * on request (a non-null `lse`, f32 (B, H, Sq)) each row's log-sum-exp
+//    of its scaled scores, m + log(max(l, 1e-30)), is written beside O for
+//    the backward pass (flash_attention_bwd.cu); O is the same either way.
 //  * no atomics, fixed summation order: two launches give the same bits.
 //  * launches on the caller's stream, allocates nothing, returns
 //    cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -50,63 +53,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "flash_mma.cuh"
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+namespace {
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) or null
   int B, Sq, Sk, H, KV, hd, q_offset, causal, vec;
   float scale;
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Copy `rows` x HDP of a (rows_valid x hd) head slice whose rows sit
-// `stride` elements apart into shared memory [rows][ld]; zero past the edge.
-template <int HDP, int THREADS>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, int ld, int rows,
-                                               const bf16* src,
-                                               long long stride,
-                                               int rows_valid, int hd,
-                                               bool vec) {
-  if (vec) {  // hd % 8 == 0 and 16-byte aligned rows: one uint4 = 8 values
-    constexpr int VPR = HDP / 8;
-    for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
-      const int r = i / VPR, c = (i % VPR) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows_valid && c < hd)
-        val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * HDP; i += THREADS) {
-      const int r = i / HDP, c = i % HDP;
-      bf16 val = __float2bfloat16(0.f);
-      if (r < rows_valid && c < hd) val = src[r * stride + c];
-      dst[r * ld + c] = val;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor-core path (mma.sync m16n8k16, scores and output in registers)
@@ -122,36 +83,6 @@ struct TcLayout {
                                       // conflict-free fragment reads
   static constexpr size_t bytes = (size_t)(TC_BQ + 2 * TC_BK) * LD * 2;
 };
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragment of a 16 x 8 tile of V (rows: keys, columns: head dims) from
-// row-major shared memory, transposed on the way by ldmatrix
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const bf16* row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int HDP>
 __global__ void __launch_bounds__(TC_THREADS)
@@ -296,6 +227,12 @@ __global__ void __launch_bounds__(TC_THREADS)
     l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
     l[hi] = fmaxf(l[hi], 1e-30f);
   }
+  if (p.lse != nullptr && t == 0) {
+    float* lse = p.lse + ((long long)b * p.H + h) * p.Sq + q0;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+      if (q0 + r0 + 8 * hi < p.Sq) lse[r0 + 8 * hi] = m[hi] + logf(l[hi]);
+  }
   bf16* og = static_cast<bf16*>(p.o) + ((long long)b * p.Sq + q0) * q_stride +
              (long long)h * p.hd;
 #pragma unroll
@@ -427,6 +364,8 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
     const int row = warp * F_ROWS + r;
     if (row >= q_valid) break;  // warp-uniform
     const float lr = fmaxf(l[r], 1e-30f);
+    if (p.lse != nullptr && lane == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + q0 + row] = m[r] + logf(lr);
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int c = lane + 32 * j;
@@ -448,12 +387,13 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 }  // namespace
 
 // q, o: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); all contiguous, all bf16
-// (bf16 != 0) or all f32. hd <= 128, H % KV == 0. Returns a cudaError_t.
+// (bf16 != 0) or all f32. hd <= 128, H % KV == 0. lse: null, or f32
+// (B, H, Sq) for each row's log-sum-exp. Returns a cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Sq,
-                                   int Sk, int H, int KV, int hd,
-                                   int q_offset, int causal, int bf16_io,
-                                   void* stream) {
+                                   const void* v, void* o, void* lse,
+                                   int B, int Sq, int Sk, int H, int KV,
+                                   int hd, int q_offset, int causal,
+                                   int bf16_io, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || hd <= 0) return 0;
   if (hd > 128 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -462,6 +402,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.B = B;
   p.Sq = Sq;
   p.Sk = Sk;

@@ -49,6 +49,10 @@
 //    wgmma that reads it. The output acc / max(l, 1e-30) is rounded to bf16,
 //    staged (swizzled) in the warpgroup's own Q rows and written with
 //    16-byte stores, rows past Sq skipped.
+//  * on request (a non-null `lse`, f32 (B, H, Sq)) each row's natural
+//    log-sum-exp of its scaled scores, m * scale + log(max(l, 1e-30)), is
+//    written for the backward pass (flash_attention_bwd.cu); O is the same
+//    either way.
 //  * no atomics, fixed summation order: two launches give the same bits.
 //  * launches on the caller's stream, allocates nothing, returns a
 //    cudaError_t (or an encode failure) so the wrapper can raise.
@@ -69,6 +73,7 @@ constexpr int BN = 128;       // keys per K / V tile
 constexpr int STAGES = 2;     // K / V ring depth
 constexpr int THREADS = 384;  // warpgroup 0 produces, 1 and 2 consume
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shared memory, every tile 1024-byte aligned (the 128-byte swizzle atom):
 // Q [hd/64][BM][64], then STAGES x K [hd/64][BN][64], STAGES x V, barriers.
@@ -85,6 +90,7 @@ struct Smem {
 
 struct Params {
   void* o;
+  float* lse;  // (B, H, Sq) or null
   int Sq, Sk, H, KV, q_offset, causal;
   float scale_log2;  // log2(e) / sqrt(hd)
 };
@@ -308,6 +314,16 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = fmaxf(l[r], 1e-30f);
     }
+    if (p.lse != nullptr && t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = q0 + cw * 64 + row0 + 8 * r;
+        // m is the raw score max: m * sl is its scaled value in log2 units
+        if (q < p.Sq)
+          p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + q] =
+              m[r] * sl * LN2 + logf(l[r]);
+      }
+    }
     unsigned char* stage = smem + cw * 64 * 128;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -353,8 +369,8 @@ bool encode(CUtensorMap* map, const void* base, int B, int S, int NH, int HD,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int q_offset, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, int q_offset, int causal,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!encode(&tq, q, B, Sq, H, HD, BM) || !encode(&tk, k, B, Sk, KV, HD, BN) ||
@@ -362,6 +378,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = o;
+  p.lse = lse;
   p.Sq = Sq;
   p.Sk = Sk;
   p.H = H;
@@ -382,10 +399,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // q, o: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); contiguous bf16, hd 64 or
 // 128, every pointer 16-byte aligned, Sq, Sk >= 1, H % KV == 0 (the
-// wrapper's flash_variant checks all of it). Returns a cudaError_t.
+// wrapper's flash_variant checks all of it). lse: null, or f32 (B, H, Sq)
+// for each row's log-sum-exp. Returns a cudaError_t.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
-                                         const void* v, void* o, int B,
-                                         int Sq, int Sk, int H, int KV,
+                                         const void* v, void* o, void* lse,
+                                         int B, int Sq, int Sk, int H, int KV,
                                          int hd, int q_offset, int causal,
                                          void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
@@ -397,7 +415,8 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                         reinterpret_cast<uintptr_t>(o);
   if (any % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (hd == 64)
-    return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal, s);
-  return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, q_offset, causal, s);
+    return launch<64>(q, k, v, o, l, B, Sq, Sk, H, KV, q_offset, causal, s);
+  return launch<128>(q, k, v, o, l, B, Sq, Sk, H, KV, q_offset, causal, s);
 }

@@ -11,8 +11,16 @@ It checks its inputs, then:
   (TMA + wgmma), everything else to ``csrc/flash_attention_fwd.cu``;
 * on CPU tensors runs the plain version, :func:`.ref.flash_attention_ref`.
 
+With ``return_lse=True`` it also returns each row's log-sum-exp (f32,
+(B, H, Sq)), which both kernels write on request. The backward pass,
+``flash_attention_bwd``, launches ``csrc/flash_attention_bwd.cu`` (or runs
+:func:`.ref.flash_attention_bwd_ref` on CPU tensors) from the saved output
+and log-sum-exp, and :class:`FlashAttention` ties the two together as an
+autograd function: the path a loss is differentiated through.
+
 :data:`LAUNCHES` counts launches per kernel, bumped only where the kernel
-is launched, so a run can show that its path went through the kernel.
+is launched, so a run can show that its path went through the kernel (the
+backward's two passes are one launch of its entry point).
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ from typing import Dict, Iterable
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 
 WGMMA = "flash_attention_fwd_wgmma"
 FIRST = "flash_attention_fwd"
-LAUNCHES: Dict[str, int] = {FIRST: 0, WGMMA: 0}
+BWD = "flash_attention_bwd"
+LAUNCHES: Dict[str, int] = {FIRST: 0, WGMMA: 0, BWD: 0}
 MAX_HEAD_DIM = 128
 WGMMA_HEAD_DIMS = (64, 128)
 
@@ -74,23 +84,38 @@ def flash_variant(dtype: torch.dtype, hd: int, sq: int, sk: int,
     return FIRST
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """Softmax attention of q over k, v; query row i sits at position
-    ``q_offset + i`` for the causal mask."""
-    _check(q, k, v)
+def _device_ok(q: torch.Tensor, what: str) -> bool:
+    """True for CUDA tensors (launch a kernel), False for CPU tensors (run
+    the plain version); raises for any other device."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        return False
     if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention runs on CUDA or CPU tensors, "
-                           f"not {q.device}")
+        raise RuntimeError(f"{what} runs on CUDA or CPU tensors, not "
+                           f"{q.device}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {q.shape[-1]} > {MAX_HEAD_DIM}")
+    return True
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_offset: int = 0,
+                    return_lse: bool = False):
+    """Softmax attention of q over k, v; query row i sits at position
+    ``q_offset + i`` for the causal mask. With ``return_lse`` returns
+    (o, lse), lse f32 (B, H, Sq)."""
+    _check(q, k, v)
+    if not _device_ok(q, "flash_attention"):
+        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   return_lse=return_lse)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {hd} > {MAX_HEAD_DIM}")
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if o.numel() == 0:
-        return o
+        if lse is not None:
+            lse.fill_(float("-inf"))
+        return (o, lse) if return_lse else o
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     name = flash_variant(q.dtype, hd, Sq, Sk, ptrs)
     fn = build.kernel(name)
@@ -99,9 +124,71 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # the first kernel takes both types and is told which
         dtype_flag = (() if name == WGMMA
                       else (int(q.dtype == torch.bfloat16),))
-        rc = fn(*ptrs, B, Sq, Sk, H, KV, hd, q_offset, int(causal),
-                *dtype_flag, stream)
+        rc = fn(*ptrs, None if lse is None else lse.data_ptr(), B, Sq, Sk,
+                H, KV, hd, q_offset, int(causal), *dtype_flag, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
     LAUNCHES[name] += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True, q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` from its output ``o``, the
+    output's gradient ``do`` (both like q) and the forward's ``lse``.
+    D = rowsum(dO·O) is a plain f32 reduction here; both passes of the
+    kernel run in one launch of its entry point."""
+    _check(q, k, v)
+    for key, t in (("o", o), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {key} must be a "
+                             f"contiguous {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"float32 {(B, H, Sq)} on {q.device}")
+    if not _device_ok(q, "flash_attention_bwd"):
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                       q_offset=q_offset)
+    if Sq == 0 or Sk == 0 or B * H * hd == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = build.kernel(BWD)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd, q_offset,
+                int(causal), int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{BWD} kernel launch failed (cudaError {rc})")
+    LAUNCHES[BWD] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward runs the kernel
+    (or the plain version on the CPU) and saves q, k, v, O and the
+    log-sum-exp; the backward runs ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, q_offset: int = 0):
+        o, lse = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None

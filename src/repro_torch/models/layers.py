@@ -5,7 +5,11 @@ activations (B, S, d), attention tensors (B, S, H, hd) with H = KV·G
 (GQA), and the same casts in the same places (RMSNorm and RoPE in f32,
 attention statistics in f32). ``blockwise_attention`` is the serving path's
 prefill attention: on CUDA tensors it launches the flash-attention kernel,
-on CPU tensors it runs the plain online-softmax scan over KV blocks.
+on CPU tensors it runs the plain online-softmax scan over KV blocks; when a
+gradient is needed it goes through the autograd function
+``FlashAttention`` instead (the kernels forward and backward on CUDA, their
+plain versions on the CPU). ``softmax_xent_chunked`` and
+``softmax_xent_sharded`` are the training loss's cross entropy.
 """
 
 from __future__ import annotations
@@ -14,8 +18,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
@@ -60,7 +65,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors this is one launch of the flash-attention kernel (``block`` is
     the CPU scan's knob and does not reach it); on CPU tensors a scan over
     KV blocks keeps the running (max, denominator, accumulator) in f32.
+    When autograd needs a gradient of q, k or v, it is ``FlashAttention``
+    on either device (the forward also keeps each row's log-sum-exp).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, q_offset)
     if q.device.type != "cpu":
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal,
@@ -152,3 +163,57 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
     scale = (2.0 / (d_in + d_out)) ** 0.5
     return (torch.randn((d_in, d_out), generator=gen, device=gen.device)
             * scale).to(dtype)
+
+
+def softmax_xent_sharded(hidden: torch.Tensor, head_w: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of the logits ``hidden @ head_w`` over the labels
+    ≥ 0, with the target logit taken by a one-hot contraction, as the
+    reference's vocab-parallel loss does (here on one device: the
+    reference's sharding of V has no counterpart yet)."""
+    logits = (hidden @ head_w.to(hidden.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    V = logits.shape[-1]
+    onehot = labels[..., None] == torch.arange(V, device=labels.device)
+    tgt = torch.einsum("bsv,bsv->bs", logits, onehot.float())
+    valid = labels >= 0
+    tot = torch.where(valid, lse - tgt, 0.0).sum()
+    return tot / torch.clamp_min(valid.sum(), 1)
+
+
+def softmax_xent_chunked(logits_fn, x: torch.Tensor, labels: torch.Tensor,
+                         chunk: int = 512) -> torch.Tensor:
+    """Cross entropy over a huge vocab without materialising all logits.
+
+    ``logits_fn(x_chunk) -> (B, chunk, V)``; the sequence is padded to a
+    multiple of ``chunk`` (labels -1, which count nothing) and summed chunk
+    by chunk in order, as the reference's scan. When a gradient is needed
+    each chunk runs under ``torch.utils.checkpoint``, so its f32 logits are
+    recomputed in the backward pass instead of kept (the reference's scan
+    keeps them: the same values, more memory)."""
+    B, S, _ = x.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    xp = F.pad(x, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad), value=-1)
+
+    def body(xb, lb):
+        logits = logits_fn(xb).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        idx = torch.clamp_min(lb, 0)[..., None].long()
+        tgt = logits.gather(-1, idx)[..., 0]
+        valid = lb >= 0
+        return torch.where(valid, lse - tgt, 0.0).sum(), valid.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    remat = torch.is_grad_enabled() and x.requires_grad
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        if remat:
+            t, c = checkpoint(body, xp[:, sl], lp[:, sl], use_reentrant=False)
+        else:
+            t, c = body(xp[:, sl], lp[:, sl])
+        tot = tot + t
+        cnt = cnt + c
+    return tot / torch.clamp_min(cnt, 1)

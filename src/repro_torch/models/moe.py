@@ -4,9 +4,12 @@
 Tokens are split into groups; within each group, (token, expert) slots
 are sorted by expert id, truncated to a static per-expert capacity C and
 run through the grouped expert GEMM kernel over the whole (G, E, C, d)
-dispatch buffer (three launches: gate, up, down). Overflow slots beyond
-capacity are dropped (GShard/Switch semantics); the Switch load-balance
-aux loss is returned too.
+dispatch buffer (three launches: gate, up, down), as the autograd function
+``ExpertGemm``, whose backward is two more launches of the same kernels per
+product. The gradient reaches the router through the gates (the sorted
+values of ``top_k_stable``) and the aux loss's mean probabilities.
+Overflow slots beyond capacity are dropped (GShard/Switch semantics); the
+Switch load-balance aux loss is returned too.
 
 Order is kept where the JAX block fixes it: the top-k breaks ties toward
 the lower expert id (a stable descending sort), the slot sort is stable,
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
-from repro_torch.kernels.expert_gemm import expert_gemm
+from repro_torch.kernels.expert_gemm import ExpertGemm
 
 
 def moe_capacity(group_tokens: int, n_experts: int, top_k: int,
@@ -130,8 +133,9 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
     wg = params["wg"].to(x.dtype)                             # (E, d, f)
     wu = params["wu"].to(x.dtype)
     wd = params["wd"].to(x.dtype)                             # (E, f, d)
-    h = F.silu(expert_gemm(x_exp, wg)) * expert_gemm(x_exp, wu)
-    y_exp = expert_gemm(h, wd).view(G, E * C, d)
+    gemm = ExpertGemm.apply
+    h = F.silu(gemm(x_exp, wg)) * gemm(x_exp, wu)
+    y_exp = gemm(h, wd).view(G, E * C, d)
 
     # combine: sorted slot i feeds token r.tokens[i]; each token gathers its
     # k slots and adds them in ascending sorted position, starting from 0

@@ -1,16 +1,21 @@
-"""Decoder-only transformer LM, dense and MoE, for serving (PyTorch port of
-``repro.models.transformer``).
+"""Decoder-only transformer LM, dense and MoE, for serving and training
+(PyTorch port of ``repro.models.transformer``).
 
 GQA (+ optional QKV bias), RoPE, RMSNorm, SwiGLU or a routed MoE MLP.
 Parameters are a plain dictionary with one dictionary per layer in
 ``params["layers"]`` (the JAX package stacks them on a leading axis for its
-``lax.scan``; :func:`params_from_jax` unstacks). Weights are stored in the
-compute dtype: every use in the reference casts to it first, so that is
-exact and keeps the card's weights at 2 bytes each in bf16.
+``lax.scan``; :func:`params_from_jax` unstacks). Serving stores weights in
+the compute dtype: every use in the reference casts to it first, so that
+is exact and keeps the card's weights at 2 bytes each in bf16. Training
+keeps f32 masters, as the reference does (``init(..., dtype=float32)``),
+and casts at each use; ``cfg.remat == "full"`` recomputes each layer in
+the backward pass (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint``.
 
 Entry points:
-  init(generator)                        → params
+  init(generator, dtype)                 → params
   forward(params, tokens)                → (hidden, aux)
+  loss(params, tokens, labels)           → scalar
   logits(params, hidden)                 → logits
   prefill(params, tokens)                → (logits_last, kv_cache)
   decode_step(params, token, cache, cache_len) → (logits, cache)
@@ -27,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import TransformerConfig
 from repro_torch.models import layers as L
@@ -50,9 +56,10 @@ class TransformerLM:
 
     # -- init -----------------------------------------------------------------
 
-    def init_layer(self, gen: torch.Generator) -> Params:
+    def init_layer(self, gen: torch.Generator,
+                   dtype: Optional[torch.dtype] = None) -> Params:
         cfg = self.cfg
-        cd = self.compute_dtype
+        cd = self.compute_dtype if dtype is None else dtype
         d, hd = cfg.d_model, cfg.head_dim
         H, KV = cfg.n_heads, cfg.n_kv_heads
         dev = gen.device
@@ -81,10 +88,13 @@ class TransformerLM:
                 p["sd"] = L.init_linear(gen, f, d, cd)
         return p
 
-    def init(self, generator: torch.Generator) -> Params:
-        """Random weights on the generator's device, drawn from it."""
+    def init(self, generator: torch.Generator,
+             dtype: Optional[torch.dtype] = None) -> Params:
+        """Random weights on the generator's device, drawn from it in f32
+        and stored in ``dtype`` (default: the compute dtype, for serving;
+        training passes ``torch.float32`` for f32 masters)."""
         cfg = self.cfg
-        cd = self.compute_dtype
+        cd = self.compute_dtype if dtype is None else dtype
         dev = generator.device
         params: Params = {
             "embed": (torch.randn((cfg.vocab_size, cfg.d_model),
@@ -95,7 +105,7 @@ class TransformerLM:
         if not cfg.tie_embeddings:
             params["head"] = L.init_linear(generator, cfg.d_model,
                                            cfg.vocab_size, cd)
-        params["layers"] = [self.init_layer(generator)
+        params["layers"] = [self.init_layer(generator, cd)
                             for _ in range(cfg.n_layers)]
         return params
 
@@ -157,6 +167,11 @@ class TransformerLM:
                 y = y + L.swiglu(h, p["sg"], p["su"], p["sd"])
         return x + y, aux
 
+    def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, _ = self._attn(p, x, positions)
+        return self._mlp(p, x)
+
     # -- forward ---------------------------------------------------------------
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -170,11 +185,22 @@ class TransformerLM:
         if positions is None:
             positions = torch.arange(S, device=tokens.device)[None] \
                 .expand(B, S)
+        if cfg.remat == "dots":
+            raise NotImplementedError(
+                "TransformerLM: remat='dots' (jax.checkpoint_policies."
+                "checkpoint_dots_with_no_batch_dims) waits for the other LM "
+                "configs (ROADMAP queue 1, item 13.2)")
+        if cfg.remat not in ("full", "none"):
+            raise ValueError(f"TransformerLM: unknown remat {cfg.remat!r}")
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
         x = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for lp in params["layers"]:
-            x, _ = self._attn(lp, x, positions)
-            x, a = self._mlp(lp, x)
+            if remat:
+                x, a = checkpoint(self._layer, lp, x, positions,
+                                  use_reentrant=False)
+            else:
+                x, a = self._layer(lp, x, positions)
             aux = aux + a
         x = L.rms_norm(x, params["ln_f"].to(self.compute_dtype), cfg.rms_eps)
         return x, aux
@@ -186,6 +212,16 @@ class TransformerLM:
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ self._head_w(params).to(hidden.dtype)
+
+    def loss(self, params: Params, tokens: torch.Tensor,
+             labels: torch.Tensor, aux_coef: float = 0.01) -> torch.Tensor:
+        """Mean next-token cross entropy over the labels ≥ 0 (chunks of 512
+        positions) + ``aux_coef`` · the MoE aux loss / n_layers."""
+        hidden, aux = self.forward(params, tokens)
+        w = self._head_w(params)
+        xent = L.softmax_xent_chunked(lambda xc: xc @ w.to(xc.dtype),
+                                      hidden, labels)
+        return xent + aux_coef * aux / max(self.cfg.n_layers, 1)
 
     # -- serving ----------------------------------------------------------------
 
@@ -243,13 +279,16 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
-def params_from_jax(cfg: TransformerConfig, tree: Params,
-                    device="cuda") -> Params:
+def params_from_jax(cfg: TransformerConfig, tree: Params, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX package's ``TransformerLM.init`` tree (leaves as numpy
     arrays) as this port's parameters: the leading layer axis of
     ``tree["layers"]`` unstacked into one dictionary per layer, every
-    tensor cast to the compute dtype and placed on ``device``."""
-    cd = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    tensor cast to ``dtype`` (default: the compute dtype, for serving;
+    ``torch.float32`` for training's masters) and placed on ``device``."""
+    cd = dtype
+    if cd is None:
+        cd = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
     def conv(node):
         if isinstance(node, dict):
@@ -268,3 +307,29 @@ def params_from_jax(cfg: TransformerConfig, tree: Params,
                             for i in range(cfg.n_layers)]
     out["layers"] = layers
     return out
+
+
+def train_state_from_jax(cfg: TransformerConfig, tree, device="cuda"):
+    """The JAX package's LM ``TrainState(params, AdamWState(step, m, v))``
+    (leaves as numpy arrays, layers stacked) as this port's train state:
+    params, m and v unstacked per layer in f32 on ``device``, step an int32
+    scalar tensor there."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.state import TrainState
+    f32 = torch.float32
+    opt = tree.opt
+    return TrainState(
+        params_from_jax(cfg, tree.params, device, dtype=f32),
+        AdamWState(torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                                device=device),
+                   params_from_jax(cfg, opt.m, device, dtype=f32),
+                   params_from_jax(cfg, opt.v, device, dtype=f32)))
+
+
+def train_state_to_jax(state):
+    """This port's train state in the JAX package's layout: the same
+    ``TrainState(params, AdamWState(step, m, v))`` with numpy leaves and
+    each ``layers`` list stacked on a leading axis (the layout of the
+    reference's checkpoints)."""
+    from repro_torch.train.state import stack_layers
+    return stack_layers(state)

@@ -35,6 +35,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import expert_gemm as gemm_ops
 from repro_torch.kernels import flash_attention as flash_ops
+from repro_torch.kernels.expert_gemm import ExpertGemm
 from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_ref)
@@ -456,11 +457,13 @@ def test_lm_kernels_cpu_path_launches_no_kernel():
     flash_ops.reset_launch_counts()
     gemm_ops.reset_launch_counts()
     q = torch.ones((1, 4, 2, 8))
-    flash_ops.flash_attention(q, q[:, :, :1].contiguous(),
-                              q[:, :, :1].contiguous())
+    kv = q[:, :, :1].contiguous()
+    o, lse = flash_ops.flash_attention(q, kv, kv, return_lse=True)
+    flash_ops.flash_attention_bwd(q, kv, kv, o, torch.ones_like(o), lse)
     gemm_ops.expert_gemm(torch.ones((2, 3, 4)), torch.ones((1, 4, 5)))
     assert flash_ops.LAUNCHES == {"flash_attention_fwd": 0,
-                                  "flash_attention_fwd_wgmma": 0}
+                                  "flash_attention_fwd_wgmma": 0,
+                                  "flash_attention_bwd": 0}
     gemm_ops.expert_gemm(torch.ones((2, 8, 64), dtype=torch.bfloat16),
                          torch.ones((1, 64, 72), dtype=torch.bfloat16))
     assert gemm_ops.LAUNCHES == {"expert_gemm": 0, "expert_gemm_wgmma": 0,
@@ -844,3 +847,145 @@ def test_cuda_sharded_label_rwr_equals_replicated(cuda_device, partitioned):
     want = rwr_adaptive(g, e, max_iters=30, tol=1e-5, ell=rep.ell)
     got = sweeps.run_rwr(g, e, 30, tol=1e-5, ell=mesh.ell)
     assert got[1:] == want[1:] and torch.equal(got[0], want[0])
+
+
+# -- the LM kernels' backward (training) ----------------------------------------
+
+def _flash_inputs(S, Sk, H, KV, hd, dtype, device, seed):
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(shape).astype(
+        np.float32), device=device).to(tdt)
+        for shape in ((2, S, H, hd), (2, Sk, KV, hd), (2, Sk, KV, hd),
+                      (2, S, H, hd)))
+
+
+def _grad_allowance_used(got, want, dtype):
+    """The largest share of its allowance any element of ``got`` uses: 2e-2
+    (bf16: the kernel rounds P and dS before their products) or 1e-4 (f32)
+    of the element plus its row's RMS, plus 1e-4 of the tensor's RMS: a
+    row whose gradient cancels to zero (causal query row 0 sees one key,
+    so dS = dO·v − D = 0 and its dq is 0) keeps the f32 rounding noise of
+    that difference, whose scale is dO·v's, not the row's."""
+    share = 2e-2 if dtype == "bfloat16" else 1e-4
+    g, w = got.float(), want.float()
+    allow = (share * (w.abs() + w.pow(2).mean(-1, keepdim=True).sqrt())
+             + 1e-4 * w.pow(2).mean().sqrt())
+    return float(((g - w).abs() / allow).max())
+
+
+FLASH_BWD_CASES = [
+    # S, H, KV, hd, causal, q_offset
+    (300, 8, 2, 128, True, 0),    # GQA, S ragged against the tiles
+    (200, 8, 1, 64, True, 0),     # MQA
+    (130, 4, 4, 64, False, 0),    # MHA, not causal
+    (70, 4, 2, 40, True, 0),      # hd not a multiple of 8 (scalar loads)
+    (16, 4, 2, 16, True, 48),     # queries after a 48-key prefix
+    (33, 4, 2, 16, True, 0),      # the SMOKE model's head dim
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,KV,hd,causal,q_offset", FLASH_BWD_CASES)
+def test_cuda_flash_lse_leaves_o_unchanged(cuda_device, S, H, KV, hd, causal,
+                                           q_offset, dtype):
+    """Asking either forward kernel for the log-sum-exp changes no bit of O,
+    and the log-sum-exp is each row's logsumexp of its scaled scores."""
+    q, k, v, _ = _flash_inputs(S, S + q_offset, H, KV, hd, dtype,
+                               cuda_device, S + hd)
+    o = flash_ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    o2, lse = flash_ops.flash_attention(q, k, v, causal=causal,
+                                        q_offset=q_offset, return_lse=True)
+    assert torch.equal(o, o2)
+    _, want = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                  return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,KV,hd,causal,q_offset", FLASH_BWD_CASES)
+def test_cuda_flash_bwd_matches_plain_version(cuda_device, S, H, KV, hd,
+                                              causal, q_offset, dtype):
+    """``flash_attention_bwd.cu`` against ``flash_attention_bwd_ref`` on the
+    same q, k, v, O, dO and log-sum-exp: dq, dk and dv within
+    ``_grad_allowance_used``; one launch of its entry point; two launches
+    give the same bits."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    q, k, v, do = _flash_inputs(S, S + q_offset, H, KV, hd, dtype,
+                                cuda_device, S + hd + 1)
+    o, lse = flash_ops.flash_attention(q, k, v, causal=causal,
+                                       q_offset=q_offset, return_lse=True)
+    before = dict(flash_ops.LAUNCHES)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                        q_offset=q_offset)
+    assert flash_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert sum(flash_ops.LAUNCHES.values()) == sum(before.values()) + 1
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                   q_offset=q_offset)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        used = _grad_allowance_used(g, w, dtype)
+        assert used <= 1.0, f"{name}: {used:.2f} of the allowance"
+    again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                          q_offset=q_offset)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_autograd_matches_cpu(cuda_device, dtype):
+    """``FlashAttention`` on the card gives the forward kernel's O and the
+    backward kernel's gradients bit for bit, and agrees with the same
+    function on the CPU (both plain versions): within twice the backward
+    test's share in bf16, where the card's forward rounds P before P·V and
+    the backward's D = rowsum(dO·O) inherits that difference."""
+    q, k, v, do = _flash_inputs(96, 96, 4, 2, 64, dtype, cuda_device, 5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ins = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o = flash_ops.FlashAttention.apply(*ins, True, 0)
+        o.backward(do.to(dev))
+        out[dev] = [o.detach()] + [t.grad for t in ins]
+    o_k, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(out["cuda"][0], o_k)
+    want = flash_ops.flash_attention_bwd(q, k, v, o_k, do, lse)
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"][1:], want))
+    scale = 2.0 if dtype == "bfloat16" else 1.0
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert _grad_allowance_used(g.cpu(), w, dtype) <= scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,E,C,d,f", [(4, 8, 88, 64, 72),
+                                       (2, 4, 96, 200, 136),
+                                       (1, 2, 37, 45, 51)])
+def test_cuda_expert_gemm_backward_matches_plain_version(cuda_device, G, E,
+                                                         C, d, f, dtype):
+    """``ExpertGemm``'s dX and dW on the card (the kernels on transposed
+    operands) against the same backward on the CPU (the plain version):
+    bf16 to rtol / atol 2e-2 of outputs scaled to O(1), f32 to 1e-4."""
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    rng = np.random.default_rng(G + C + d)
+    x = rng.standard_normal((G * E, C, d)).astype(np.float32)
+    w = (rng.standard_normal((E, d, f)) / np.sqrt(d)).astype(np.float32)
+    dy = (rng.standard_normal((G * E, C, f)) / np.sqrt(G * C)).astype(
+        np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xt = torch.as_tensor(x, device=dev).to(tdt).requires_grad_()
+        wt = torch.as_tensor(w, device=dev).to(tdt).requires_grad_()
+        before = dict(gemm_ops.LAUNCHES)
+        ExpertGemm.apply(xt, wt).backward(torch.as_tensor(dy, device=dev)
+                                          .to(tdt))
+        out[dev] = (xt.grad, wt.grad, {n: gemm_ops.LAUNCHES[n] - before[n]
+                                       for n in before})
+    assert sum(out["cuda"][2].values()) == 3   # forward, dX, dW
+    assert sum(out["cpu"][2].values()) == 0
+    tol = _tol(dtype)
+    for g, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert g.dtype == tdt
+        torch.testing.assert_close(g.float().cpu(), want.float(), **tol)
