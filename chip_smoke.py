@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printed on its own lines:
 
-1. the card (``nvidia-smi``) and the build of all seven kernel sources
+1. the card (``nvidia-smi``) and the build of all eight kernel sources
    under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source,
    started together);
 2. the ELL kernels against their plain PyTorch versions on random ELL data
@@ -39,12 +39,14 @@ Phases, each printed on its own lines:
    forward kernels asked for each row's log-sum-exp (prefill, hd 40, f32
    hd 16) must give O bit for bit as without it and an LSE within 1e-5
    relative / 1e-4 absolute of a plain ``logsumexp``; the flash backward
-   kernel at the train shape (B 1, S 4,096, H 32, KV 4, hd 128, bf16), at
-   a ragged S 4,111 and in f32 at hd 16 against
+   at the train shape (B 1, S 4,096, H 32, KV 4, hd 128, bf16) and at a
+   ragged S 4,111 (both taken by the TMA + wgmma backward kernel), and at
+   bf16 hd 40 and in f32 at hd 16 (both the first backward kernel) against
    ``flash_attention_bwd_ref`` (dq, dk, dv within 2e-2 — 1e-4 in f32 — of
    each element plus its row's RMS, plus 1e-4 of the tensor's RMS; two
    launches bitwise equal), timed beside the backward of
-   ``scaled_dot_product_attention`` through autograd; the expert GEMM's
+   ``scaled_dot_product_attention`` through autograd, the bound and, for
+   the TMA kernel, its two-pass floor (7 products); the expert GEMM's
    backward products at the train shapes (dX = dY·Wᵀ and dW = Xᵀ·dY of
    the gate and down products, G 4, C 88) against the plain version, timed
    beside ``torch.matmul``, and the plain-torch transposes they need;
@@ -147,7 +149,8 @@ Phases, each printed on its own lines:
    tokens/s, the peak memory; finite losses, step 0 within 0.5 of ln V,
    the last below step 0's, and the launches counted exactly (per step
    and microbatch and layer: 2 flash forwards — the forward and its
-   recompute — on the TMA + wgmma kernel, 1 flash backward, 12 expert
+   recompute — on the TMA + wgmma kernel, 1 flash backward on the TMA +
+   wgmma backward kernel and none on the first one, 12 expert
    GEMMs of the tiles variant — 3 forward, 3 recompute, 6 backward);
 15. control (run after phase 12, on serve-adaptive's server, ``rwr_tol``
     set to 1e-4 so all seven actions are live; reset between runs, its
@@ -170,9 +173,8 @@ Phases, each printed on its own lines:
     beside ``stage_s["rwr"]``.
 
 Then a ``{"kernels": [...]}`` JSON line (every kernel with its serve and
-train launches, ``flash_attention_bwd`` among them), the card line, and as
-the last line
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
+train launches, both flash backward kernels among them), the card line,
+and as the last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line. ``--profile`` adds a device-time profile of one step of each
 served path.
 """
@@ -630,20 +632,26 @@ def phase_train_kernels(reps: int):
         torch.cuda.empty_cache()
 
     # the flash backward: the train shape (one sequence of the train
-    # microbatch), a ragged S, and the f32 path at the SMOKE head dim
-    for label, S, hd, dt in (("train", TRAIN_SEQ, FULL.head_dim, bf),
-                             ("ragged", TRAIN_SEQ + 15, FULL.head_dim, bf),
-                             ("f32 hd16", TRAIN_SEQ, 16, f32)):
+    # microbatch) and a ragged S on the TMA + wgmma kernel, then a head dim
+    # and the f32 path (the SMOKE head dim) that only the first one takes
+    for label, S, hd, dt, name in (
+            ("train", TRAIN_SEQ, FULL.head_dim, bf, flash_ops.BWD_WGMMA),
+            ("ragged", TRAIN_SEQ + 15, FULL.head_dim, bf,
+             flash_ops.BWD_WGMMA),
+            ("hd40", TRAIN_SEQ, 40, bf, flash_ops.BWD),
+            ("f32 hd16", TRAIN_SEQ, 16, f32, flash_ops.BWD)):
         q, do = randn(1, S, H, hd, dtype=dt), randn(1, S, H, hd, dtype=dt)
         k, v = randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
         o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
 
         def bwd():
             return flash_ops.flash_attention_bwd(q, k, v, o, do, lse)
-        before = flash_ops.LAUNCHES[flash_ops.BWD]
+        before = dict(flash_ops.LAUNCHES)
         got = bwd()
-        check(flash_ops.LAUNCHES[flash_ops.BWD] == before + 1,
-              f"flash bwd {label}: launch not counted")
+        check(flash_ops.LAUNCHES[name] == before[name] + 1
+              and sum(flash_ops.LAUNCHES.values())
+              == sum(before.values()) + 1,
+              f"flash bwd {label}: not taken by {name}")
         again = bwd()
         check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
               f"flash bwd {label}: two launches differ")
@@ -675,20 +683,25 @@ def phase_train_kernels(reps: int):
         del out, qs, ks, vs
         nbytes = sum(t.numel() * t.element_size()
                      for t in (q, k, v, o, do, lse, *got))
-        flops = 10 * H * hd * causal_pairs(S, S)
-        b_ms, b_by = bound(nbytes, flops,
-                           H100_BF16_FLOPS if dt == bf else H100_F32_FLOPS)
+        pairs = causal_pairs(S, S)
+        flops = 10 * H * hd * pairs
+        peak = H100_BF16_FLOPS if dt == bf else H100_F32_FLOPS
+        b_ms, b_by = bound(nbytes, flops, peak)
         tag = "bf16" if dt == bf else "f32"
-        say(f"  {flash_ops.BWD} {label}: q {tuple(q.shape)} k,v "
+        # the TMA kernel's two passes recompute S and dP: 7 products
+        wgmma = name == flash_ops.BWD_WGMMA
+        floor = 14 * H * hd * pairs / peak * 1e3 if wgmma else None
+        say(f"  {name} {label}: q {tuple(q.shape)} k,v "
             f"{tuple(k.shape)} {tag}: max_abs_err dq/dk/dv "
             f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} ({used:.3f}"
             f" of the allowance), run-to-run bitwise equal; {ms:.4f} ms "
-            f"(D = rowsum(dO·O) in torch included), plain {plain:.4f} ms, "
-            f"sdpa backward {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{nbytes} B, {flops} flop)")
-        rows[(flash_ops.BWD, label)] = dict(
+            f"(D = rowsum(dO·O) {'in the kernel' if wgmma else 'in torch'}"
+            f"), plain {plain:.4f} ms, sdpa backward {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)"
+            + (f", two-pass floor {floor:.4f} ms" if wgmma else ""))
+        rows[(name, label)] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-            bound_by=b_by, bytes=nbytes, flops=flops,
+            bound_by=b_by, bytes=nbytes, flops=flops, floor_ms=floor,
             max_abs_err=max(errs.values()), tol_used=used,
             shape=f"B=1 S={S} H={H} KV={KV} hd={hd} {tag} causal")
         del q, k, v, o, do, lse, got
@@ -1101,7 +1114,8 @@ def phase_train_lm(profile: bool = False):
     # expert products forward, again in the remat recompute, and their
     # backward passes (one flash backward, two GEMMs per product)
     per = TRAIN_STEPS * TRAIN_MICRO * TRAIN_LAYERS
-    want = {"flash_attention_fwd_wgmma": 2 * per, "flash_attention_bwd": per,
+    want = {"flash_attention_fwd_wgmma": 2 * per,
+            "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
             "flash_attention_fwd": 0, "expert_gemm_wgmma": 12 * per,
             "expert_gemm_skinny": 0, "expert_gemm": 0}
     got = {k: launches[k] for k in want}
@@ -1304,7 +1318,9 @@ class Capture:
 # the port's kernels as the profiler names them (csrc/*.cu)
 PORT_KERNELS = ("ell_spmm_rows", "ell_spmm_small", "ell_reach_rows",
                 "ell_reach_small", "flash_fwd_wgmma", "flash_fwd_bf16",
-                "flash_fwd_f32", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
+                "flash_fwd_f32", "flash_bwd_pre", "flash_bwd_dkdv_wgmma",
+                "flash_bwd_dq_wgmma", "flash_bwd_reduce",
+                "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
                 "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "gemm_tiles",
                 "gemm_skinny", "expert_gemm_bf16", "expert_gemm_f32")
 
@@ -2839,9 +2855,14 @@ def main(argv=None) -> int:
             # SMOKE model's f32 attention on the card launches it
             ("flash_attention_fwd", flash_src + "flash_attention_fwd.cu",
              flash_tpu, ("hd40",), launches_agree, "lm-agreement"),
+            ("flash_attention_bwd_wgmma",
+             flash_src + "flash_attention_bwd_wgmma.cu", flash_bwd_tpu,
+             ("train", "ragged"), launches_train, "train-lm"),
+            # the first backward kernel keeps f32 and the other head dims:
+            # the SMOKE model's f32 training on the card launches it
             ("flash_attention_bwd", flash_src + "flash_attention_bwd.cu",
-             flash_bwd_tpu, ("train", "ragged", "f32 hd16"), launches_train,
-             "train-lm"),
+             flash_bwd_tpu, ("f32 hd16", "hd40"), launches_train_agree,
+             "train-agreement"),
             ("expert_gemm_wgmma", gemm_src + "expert_gemm_wgmma.cu",
              gemm_tpu, ("prefill gate", "prefill up", "prefill down",
                         "train gate dX", "train gate dW", "train down dX",

@@ -56,6 +56,11 @@ KERNELS = {
     "flash_attention_bwd": (
         "flash_attention/csrc/flash_attention_bwd.cu", "flash_attention_bwd",
         [_P] * 9 + [_I] * 9 + [_P]),
+    # q, k, v, o, dout, lse, dq, dk, dv, stats, partials, B, Sq, Sk, H,
+    # KV, hd, q_offset, causal, stream
+    "flash_attention_bwd_wgmma": (
+        "flash_attention/csrc/flash_attention_bwd_wgmma.cu",
+        "flash_attention_bwd_wgmma", [_P] * 11 + [_I] * 8 + [_P]),
     # x, w, y, N, E, C, d, f, bf16, stream
     "expert_gemm": ("expert_gemm/csrc/expert_gemm.cu", "expert_gemm",
                     [_P] * 3 + [_I] * 6 + [_P]),

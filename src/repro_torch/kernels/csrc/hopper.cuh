@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma
-// kernels (flash_attention_fwd_wgmma.cu, expert_gemm_wgmma.cu): mbarriers,
-// TMA tile loads, shared-memory matrix descriptors for the 128-byte
-// swizzle, the wgmma instructions, and the host-side tensor-map encoder
-// found through the runtime (so no library links against libcuda).
+// kernels (flash_attention_fwd_wgmma.cu, flash_attention_bwd_wgmma.cu,
+// expert_gemm_wgmma.cu): mbarriers, TMA tile loads and bulk copies,
+// shared-memory matrix descriptors for the 128-byte swizzle, the wgmma
+// instructions, and the host-side tensor-map encoder found through the
+// runtime (so no library links against libcuda).
 //
 // Everything here sits in an anonymous namespace: each kernel source is
 // its own shared library and gets its own copy.
@@ -91,6 +92,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a contiguous run of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

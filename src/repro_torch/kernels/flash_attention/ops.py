@@ -13,14 +13,17 @@ It checks its inputs, then:
 
 With ``return_lse=True`` it also returns each row's log-sum-exp (f32,
 (B, H, Sq)), which both kernels write on request. The backward pass,
-``flash_attention_bwd``, launches ``csrc/flash_attention_bwd.cu`` (or runs
-:func:`.ref.flash_attention_bwd_ref` on CPU tensors) from the saved output
-and log-sum-exp, and :class:`FlashAttention` ties the two together as an
-autograd function: the path a loss is differentiated through.
+``flash_attention_bwd``, runs from the saved output and log-sum-exp: on CUDA
+tensors :func:`flash_bwd_variant` sends bf16 with hd 64 or 128 and 16-byte
+aligned tensors to ``csrc/flash_attention_bwd_wgmma.cu`` (TMA + wgmma),
+everything else to ``csrc/flash_attention_bwd.cu``; on CPU tensors it runs
+:func:`.ref.flash_attention_bwd_ref`. :class:`FlashAttention` ties the two
+together as an autograd function: the path a loss is differentiated
+through.
 
 :data:`LAUNCHES` counts launches per kernel, bumped only where the kernel
-is launched, so a run can show that its path went through the kernel (the
-backward's two passes are one launch of its entry point).
+is launched, so a run can show that its path went through the kernel (a
+backward's passes are one launch of its entry point).
 """
 
 from __future__ import annotations
@@ -36,9 +39,12 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
 WGMMA = "flash_attention_fwd_wgmma"
 FIRST = "flash_attention_fwd"
 BWD = "flash_attention_bwd"
-LAUNCHES: Dict[str, int] = {FIRST: 0, WGMMA: 0, BWD: 0}
+BWD_WGMMA = "flash_attention_bwd_wgmma"
+LAUNCHES: Dict[str, int] = {FIRST: 0, WGMMA: 0, BWD: 0, BWD_WGMMA: 0}
 MAX_HEAD_DIM = 128
 WGMMA_HEAD_DIMS = (64, 128)
+# the TMA backward's per-row lse and D scratch is padded to this many rows
+BWD_WGMMA_ROWS = 64
 
 
 def reset_launch_counts() -> None:
@@ -82,6 +88,19 @@ def flash_variant(dtype: torch.dtype, hd: int, sq: int, sk: int,
             and sk > 0 and all(p % 16 == 0 for p in ptrs)):
         return WGMMA
     return FIRST
+
+
+def flash_bwd_variant(dtype: torch.dtype, hd: int, sq: int, sk: int,
+                      ptrs: Iterable[int]) -> str:
+    """The backward kernel that takes a call, by shape alone: the TMA +
+    wgmma kernel for bf16 with hd 64 or 128, at least one query and one
+    key, and every pointer (q, k, v, O, dO, dq, dk, dv) 16-byte aligned;
+    the first backward kernel (mma.sync bf16, or f32) for everything
+    else."""
+    if (dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and sq > 0
+            and sk > 0 and all(p % 16 == 0 for p in ptrs)):
+        return BWD_WGMMA
+    return BWD
 
 
 def _device_ok(q: torch.Tensor, what: str) -> bool:
@@ -136,9 +155,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         causal: bool = True, q_offset: int = 0):
     """(dq, dk, dv) of ``flash_attention`` from its output ``o``, the
-    output's gradient ``do`` (both like q) and the forward's ``lse``.
-    D = rowsum(dO·O) is a plain f32 reduction here; both passes of the
-    kernel run in one launch of its entry point."""
+    output's gradient ``do`` (both like q) and the forward's ``lse``. The
+    TMA kernel computes D = rowsum(dO·O) itself and sums the G query
+    heads' dK, dV partials (f32 scratch made here) in a fixed order; for
+    the first kernel D is a plain f32 reduction here. Each kernel's passes
+    run in one launch of its entry point."""
     _check(q, k, v)
     for key, t in (("o", o), ("do", do)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -157,18 +178,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        q_offset=q_offset)
     if Sq == 0 or Sk == 0 or B * H * hd == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    fn = build.kernel(BWD)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv))
+    name = flash_bwd_variant(q.dtype, hd, Sq, Sk, ptrs)
+    if name == BWD_WGMMA:
+        sq_pad = -(-Sq // BWD_WGMMA_ROWS) * BWD_WGMMA_ROWS
+        stats = torch.empty((2, B, H, sq_pad), dtype=torch.float32,
+                            device=q.device)           # lse·log2(e), D
+        partials = torch.empty((2, B, Sk, H, hd), dtype=torch.float32,
+                               device=q.device)        # dK, dV per q head
+        args = (*ptrs[:5], lse.data_ptr(), *ptrs[5:], stats.data_ptr(),
+                partials.data_ptr(), B, Sq, Sk, H, KV, hd, q_offset,
+                int(causal))
+    else:
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd, q_offset,
-                int(causal), int(q.dtype == torch.bfloat16), stream)
+                int(causal), int(q.dtype == torch.bfloat16))
+    fn = build.kernel(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{BWD} kernel launch failed (cudaError {rc})")
-    LAUNCHES[BWD] += 1
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {rc})")
+    LAUNCHES[name] += 1
     return dq, dk, dv
 
 

@@ -20,8 +20,8 @@ bf16 before P·V, 2e-2 times the RMS of each output row of the plain
 version. The CUDA-vs-plain tests need a
 card and are skipped elsewhere; on the card two launches must also give
 the same bits. Which kernel variant takes a call is decided by shape in
-pure Python (``flash_variant``, ``ell_variant``, ``gemm_variant``),
-pinned here on the CPU. The JAX kernels are imported inside the tests that use
+pure Python (``flash_variant``, ``flash_bwd_variant``, ``ell_variant``,
+``gemm_variant``), pinned here on the CPU. The JAX kernels are imported inside the tests that use
 them, so that ``pytest --noconftest -m cuda`` runs this file on a machine
 with a card and no JAX.
 """
@@ -190,7 +190,8 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
     (tmp_path / "h.cuh").write_text("// two\n")
     assert build._target("k") != before
     shared = build.INCLUDE_DIR / "hopper.cuh"
-    for name in ("flash_attention_fwd_wgmma", "expert_gemm_wgmma"):
+    for name in ("flash_attention_fwd_wgmma", "flash_attention_bwd_wgmma",
+                 "expert_gemm_wgmma"):
         assert shared in build._sources(build._source(name))
 
 
@@ -463,7 +464,8 @@ def test_lm_kernels_cpu_path_launches_no_kernel():
     gemm_ops.expert_gemm(torch.ones((2, 3, 4)), torch.ones((1, 4, 5)))
     assert flash_ops.LAUNCHES == {"flash_attention_fwd": 0,
                                   "flash_attention_fwd_wgmma": 0,
-                                  "flash_attention_bwd": 0}
+                                  "flash_attention_bwd": 0,
+                                  "flash_attention_bwd_wgmma": 0}
     gemm_ops.expert_gemm(torch.ones((2, 8, 64), dtype=torch.bfloat16),
                          torch.ones((1, 64, 72), dtype=torch.bfloat16))
     assert gemm_ops.LAUNCHES == {"expert_gemm": 0, "expert_gemm_wgmma": 0,
@@ -487,6 +489,31 @@ def test_flash_variant_by_shape(dtype, hd, sq, sk, ptrs, want):
     name = flash_ops.flash_variant(getattr(torch, dtype), hd, sq, sk, ptrs)
     assert name == {"wgmma": "flash_attention_fwd_wgmma",
                     "first": "flash_attention_fwd"}[want]
+
+
+ALIGNED8 = (0, 512, 1024, 4096, 8192, 16384, 20480, 24576)
+
+
+@pytest.mark.parametrize("dtype,hd,sq,sk,ptrs,want", [
+    ("bfloat16", 128, 4096, 4096, ALIGNED8, "wgmma"),        # train shape
+    ("bfloat16", 128, 4111, 4111, (16,) * 8, "wgmma"),       # ragged
+    ("bfloat16", 64, 200, 200, (0,) * 8, "wgmma"),
+    ("bfloat16", 128, 1, 64, (0,) * 8, "wgmma"),             # one query
+    ("bfloat16", 40, 4096, 4096, (0,) * 8, "first"),         # hd not 64/128
+    ("bfloat16", 32, 200, 200, (0,) * 8, "first"),
+    ("bfloat16", 16, 33, 33, (0,) * 8, "first"),
+    ("float32", 128, 4096, 4096, (0,) * 8, "first"),         # f32
+    ("float32", 16, 33, 33, (0,) * 8, "first"),
+    ("bfloat16", 128, 300, 300, (0, 0, 0, 0, 2, 0, 0, 0), "first"),  # dO
+    ("bfloat16", 64, 300, 300, (0, 0, 0, 0, 0, 0, 0, 2), "first"),   # dv
+    ("bfloat16", 128, 300, 0, (0,) * 8, "first"),            # no keys
+])
+def test_flash_bwd_variant_by_shape(dtype, hd, sq, sk, ptrs, want):
+    """The backward's pointers are q, k, v, O, dO, dq, dk, dv."""
+    name = flash_ops.flash_bwd_variant(getattr(torch, dtype), hd, sq, sk,
+                                       ptrs)
+    assert name == {"wgmma": "flash_attention_bwd_wgmma",
+                    "first": "flash_attention_bwd"}[want]
 
 
 @pytest.mark.parametrize("dtype,C,d,f,ptrs,want", [
@@ -882,6 +909,8 @@ FLASH_BWD_CASES = [
     (70, 4, 2, 40, True, 0),      # hd not a multiple of 8 (scalar loads)
     (16, 4, 2, 16, True, 48),     # queries after a 48-key prefix
     (33, 4, 2, 16, True, 0),      # the SMOKE model's head dim
+    (257, 16, 2, 128, True, 0),   # G = 8, S ragged against the tiles
+    (100, 8, 2, 128, True, 48),   # hd 128 after a 48-key prefix
 ]
 
 
@@ -908,20 +937,27 @@ def test_cuda_flash_lse_leaves_o_unchanged(cuda_device, S, H, KV, hd, causal,
 @pytest.mark.parametrize("S,H,KV,hd,causal,q_offset", FLASH_BWD_CASES)
 def test_cuda_flash_bwd_matches_plain_version(cuda_device, S, H, KV, hd,
                                               causal, q_offset, dtype):
-    """``flash_attention_bwd.cu`` against ``flash_attention_bwd_ref`` on the
-    same q, k, v, O, dO and log-sum-exp: dq, dk and dv within
-    ``_grad_allowance_used``; one launch of its entry point; two launches
-    give the same bits."""
+    """The backward kernel that ``flash_bwd_variant`` picks (the TMA +
+    wgmma one for bf16 at hd 64 and 128, ``flash_attention_bwd.cu`` for the
+    rest) against ``flash_attention_bwd_ref`` on the same q, k, v, O, dO and
+    log-sum-exp: dq, dk and dv within ``_grad_allowance_used``; one launch
+    of its entry point; two launches give the same bits."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     q, k, v, do = _flash_inputs(S, S + q_offset, H, KV, hd, dtype,
                                 cuda_device, S + hd + 1)
     o, lse = flash_ops.flash_attention(q, k, v, causal=causal,
                                        q_offset=q_offset, return_lse=True)
+    name = flash_ops.flash_bwd_variant(
+        q.dtype, hd, S, S + q_offset,
+        [t.data_ptr() for t in (q, k, v, o, do)]
+        + [torch.empty_like(t).data_ptr() for t in (q, k, v)])
+    assert name == ("flash_attention_bwd_wgmma"
+                    if dtype == "bfloat16" and hd in (64, 128)
+                    else "flash_attention_bwd")
     before = dict(flash_ops.LAUNCHES)
     got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                         q_offset=q_offset)
-    assert flash_ops.LAUNCHES["flash_attention_bwd"] == \
-        before["flash_attention_bwd"] + 1
+    assert flash_ops.LAUNCHES[name] == before[name] + 1
     assert sum(flash_ops.LAUNCHES.values()) == sum(before.values()) + 1
     want = flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                    q_offset=q_offset)
@@ -932,6 +968,31 @@ def test_cuda_flash_bwd_matches_plain_version(cuda_device, S, H, KV, hd,
     again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                           q_offset=q_offset)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_misaligned_flash_bwd_takes_first_kernel(cuda_device, hd):
+    """bf16 at hd 64 or 128 with dO 2 bytes off a 16-byte boundary (TMA
+    cannot address it): the first backward kernel takes the call, within
+    the same allowance of the plain version."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    q, k, v, do = _flash_inputs(130, 130, 8, 2, hd, "bfloat16", cuda_device,
+                                hd + 7)
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda_device)
+    do_off = flat[1:].view(do.shape)
+    do_off.copy_(do)
+    assert do_off.data_ptr() % 16 == 2
+    before = dict(flash_ops.LAUNCHES)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, do_off, lse)
+    assert flash_ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert sum(flash_ops.LAUNCHES.values()) == sum(before.values()) + 1
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        used = _grad_allowance_used(g, w, "bfloat16")
+        assert used <= 1.0, f"{name}: {used:.2f} of the allowance"
 
 
 @pytest.mark.cuda
