@@ -49,7 +49,14 @@ Phases, each printed on its own lines:
    the TMA kernel, its two-pass floor (7 products); the expert GEMM's
    backward products at the train shapes (dX = dY·Wᵀ and dW = Xᵀ·dY of
    the gate and down products, G 4, C 88) against the plain version, timed
-   beside ``torch.matmul``, and the plain-torch transposes they need;
+   beside ``torch.matmul``, and the plain-torch transposes they need. Then
+   the same kernels at the other LM configs' shapes, held and timed the
+   same way: the flash forward at train-smollm's microbatch (B 4, S 4,096,
+   H 9, KV 3, hd 64) and deepseek-7b's prefill (B 2, H 32, KV 32, hd 128:
+   G 1), the flash backward at train-smollm's microbatch and at G 1
+   (deepseek-7b) and G 6 (dbrx-132b, H 48, KV 8), and dbrx-132b's gate, up
+   and down products (16 experts, d 6,144, f 10,752) at prefill (C 1,288,
+   tiles) and decode (C 8, skinny);
 4. a small-input check: the toy stream served on the card and on the CPU
    (plain versions) must give equal match deltas and stores;
 5. adaptive agreement: the toy stream served with the default
@@ -140,7 +147,15 @@ Phases, each printed on its own lines:
    kernel); then, with the MoE
    at a capacity that drops no slot, the prompt is served again and a
    prefill over it plus the 15 generated tokens must give the last decode
-   step's logits; then train-lm — qwen3-moe-30b-a3b ``FULL`` widths, depth
+   step's logits; then serve-lm-configs — smollm-135m (30 of 30 layers),
+   deepseek-7b (30 of 30), qwen2-72b (24 of 80) and dbrx-132b (8 of 40) at
+   their published widths, seeded bf16 weights, each serving the same
+   traffic with its counts set to 0 before and read after (flash: one
+   launch per layer, all on the TMA + wgmma kernel, at hd 64 for smollm and
+   hd 128 for the rest; dbrx's expert GEMM: tiles at prefill, skinny at
+   decode, the first kernel none), then the prefill-versus-decode
+   consistency check at a capacity that drops no slot (bf16), each model
+   freed before the next; then train-lm — qwen3-moe-30b-a3b ``FULL`` widths, depth
    cut to 2 layers, f32 masters from a seed, 5 ``TrainLoop`` steps
    (``TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=5)``,
    2 microbatches, ``remat="full"``, MoE groups of 1,024 tokens) on
@@ -151,7 +166,17 @@ Phases, each printed on its own lines:
    and microbatch and layer: 2 flash forwards — the forward and its
    recompute — on the TMA + wgmma kernel, 1 flash backward on the TMA +
    wgmma backward kernel and none on the first one, 12 expert
-   GEMMs of the tiles variant — 3 forward, 3 recompute, 6 backward);
+   GEMMs of the tiles variant — 3 forward, 3 recompute, 6 backward), and
+   the same 5 steps run again from the same seed without the loop (no
+   checkpoint): losses and grad norms must be bitwise equal; then
+   train-smollm — smollm-135m ``FULL`` at its whole depth (30 layers, tied
+   embeddings, ``remat="dots"``), f32 masters, 5 ``TrainLoop`` steps of
+   8 × 4,096 tokens in 2 microbatches on ``TokenPipeline(49152, 8, 4096,
+   seed=0)``: per step loss, grad norm, step time and tokens/s, the peak
+   memory; the loss must fall, every flash launch must be on the TMA +
+   wgmma kernels (2 forwards — the forward and the dots recompute — and 1
+   backward per step, microbatch and layer), and one more step's
+   gradients under ``"dots"`` and under ``"none"`` must be bitwise equal;
 15. control (run after phase 12, on serve-adaptive's server, ``rwr_tol``
     set to 1e-4 so all seven actions are live; reset between runs, its
     PEM state put back, its PEM reward fed one seeded elapsed schedule
@@ -220,6 +245,15 @@ TRAIN_LAYERS = 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 2, 4096, 2, 5
 TRAIN_GROUP = min(4096, max(64, TRAIN_BATCH * TRAIN_SEQ // 8))
 TRAIN_LOSS_BAND = 0.5  # step-0 loss within this of ln(vocab)
+# serve-lm-configs: the other LM configs at their published widths, each
+# serving serve-lm's traffic; depth cut where the bf16 weights would not
+# leave room on the card (qwen2-72b 1.76 GB a layer, dbrx-132b 6.52 GB)
+SERVE_CONFIGS = (("smollm-135m", 30), ("deepseek-7b", 30), ("qwen2-72b", 24),
+                 ("dbrx-132b", 8))
+# train-smollm: smollm-135m FULL (30 of 30 layers, tied embeddings,
+# remat "dots"), the train_4k shape's sequence with its global batch cut
+# from 256 to 8, two microbatches of four sequences, 5 steps
+SMOL_BATCH, SMOL_MICRO, SMOL_STEPS = 8, 2, 5
 # train-agreement: card against CPU, 3 steps of 2 microbatches
 AGREE_STEPS = 3
 AGREE_LOSS_RTOL = 1e-4
@@ -431,15 +465,107 @@ def lm_check(name: str, got, again, want, atol, rtol=LM_KERNEL_RTOL):
     return abs_err, used
 
 
-def phase_lm_kernels(reps: int):
+def flash_fwd_row(name: str, label: str, q, k, v, reps: int) -> dict:
+    """One flash forward call held against the plain version (taken by
+    kernel ``name``, two launches bitwise equal, within ``row_atol``),
+    timed beside ``scaled_dot_product_attention``, with its bound."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.measure import (H100_BF16_FLOPS, H100_F32_FLOPS,
-                                             cuda_ms)
-    from repro_torch.kernels.expert_gemm import ops as gemm_ops
-    from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.measure import H100_BF16_FLOPS, cuda_ms
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    before = dict(flash_ops.LAUNCHES)
+    o = flash_ops.flash_attention(q, k, v)
+    check(flash_ops.LAUNCHES[name] == before[name] + 1,
+          f"flash_attention {label}: not taken by {name} "
+          f"({flash_ops.LAUNCHES})")
+    o2 = flash_ops.flash_attention(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    err, used = lm_check(f"{name} {label}", o, o2, want, row_atol(want))
+    # the second half of the rows: outputs of a few hundredths
+    late = slice(S // 2, None)
+    late_err = float((o[:, late].float() - want[:, late].float())
+                     .abs().max())
+    late_rms = float(want[:, late].float().pow(2).mean().sqrt())
+    del want, o2
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v), reps)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v), 3, warmup=1)
+    torch.cuda.empty_cache()
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True), reps)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
+    flops = 4 * B * H * hd * causal_pairs(S, S)
+    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    say(f"  {name} {label}: q {tuple(q.shape)} k,v "
+        f"{tuple(k.shape)} bf16: max_abs_err={err:.3e} ({used:.3f} of "
+        f"the allowance; rows >= {S // 2}: {late_err:.3e} at output RMS"
+        f" {late_rms:.3e}) run-to-run "
+        f"bitwise equal; {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+        f"{flops} flop)")
+    del o
+    return dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
+        tol_used=used, late_max_abs_err=late_err, late_rms=late_rms,
+        shape=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal")
+
+
+def gemm_row(name: str, label: str, x, w, reps: int) -> dict:
+    """One expert GEMM call (G·E, C, d) × (E, d, f) held against the plain
+    version (taken by kernel ``name``, two launches bitwise equal), timed
+    beside batched ``torch.matmul``, with its bound."""
+    import torch
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
+    from repro_torch.kernels.measure import (H100_BF16_FLOPS, H100_F32_FLOPS,
+                                             cuda_ms)
+    N, C, depth = x.shape
+    E = w.shape[0]
+    G = N // E
+    before = dict(gemm_ops.LAUNCHES)
+    y = gemm_ops.expert_gemm(x, w)
+    check(gemm_ops.LAUNCHES[name] == before[name] + 1,
+          f"expert_gemm {label}: not taken by {name} "
+          f"({gemm_ops.LAUNCHES})")
+    y2 = gemm_ops.expert_gemm(x, w)
+    f32 = w.dtype == torch.float32
+    err, used = lm_check(f"{name} {label}", y, y2, expert_gemm_ref(x, w),
+                         LM_GEMM32_TOL if f32 else LM_GEMM_ATOL,
+                         rtol=LM_GEMM32_TOL if f32 else LM_KERNEL_RTOL)
+    del y2
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: gemm_ops.expert_gemm(x, w), reps)
+    plain = cuda_ms(lambda: expert_gemm_ref(x, w), 3, warmup=1)
+    torch.cuda.empty_cache()
+    x4 = x.view(G, E, C, depth)
+    lib = cuda_ms(lambda: torch.matmul(x4, w), reps)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, w, y))
+    flops = 2 * G * E * C * depth * w.shape[2]
+    b_ms, b_by = bound(nbytes, flops,
+                       H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
+    dt = "f32" if f32 else "bf16"
+    say(f"  {name} {label}: x {tuple(x.shape)} w {tuple(w.shape)}"
+        f" {dt}: max_abs_err={err:.3e} ({used:.3f} of the allowance) "
+        f"run-to-run bitwise equal; "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms,"
+        f" bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
+    del y
+    torch.cuda.empty_cache()
+    return dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
+        tol_used=used, shape=f"x {tuple(x.shape)} w {tuple(w.shape)} {dt}")
+
+
+def phase_lm_kernels(reps: int):
+    import torch
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.configs.qwen3_moe_30b_a3b import FULL
     from repro_torch.models.moe import moe_capacity
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -459,44 +585,8 @@ def phase_lm_kernels(reps: int):
              flash_ops.WGMMA),
             ("hd40", LM_PROMPT, 40, flash_ops.FIRST)):
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
-        before = dict(flash_ops.LAUNCHES)
-        o = flash_ops.flash_attention(q, k, v)
-        check(flash_ops.LAUNCHES[name] == before[name] + 1,
-              f"flash_attention {label}: not taken by {name} "
-              f"({flash_ops.LAUNCHES})")
-        o2 = flash_ops.flash_attention(q, k, v)
-        want = flash_attention_ref(q, k, v)
-        err, used = lm_check(f"{name} {label}", o, o2, want,
-                             row_atol(want))
-        # the second half of the rows: outputs of a few hundredths
-        late = slice(S // 2, None)
-        late_err = float((o[:, late].float() - want[:, late].float())
-                         .abs().max())
-        late_rms = float(want[:, late].float().pow(2).mean().sqrt())
-        del want, o2
-        torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v), reps)
-        plain = cuda_ms(lambda: flash_attention_ref(q, k, v), 3, warmup=1)
-        torch.cuda.empty_cache()
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True), reps)
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o))
-        flops = 4 * B * H * hd * causal_pairs(S, S)
-        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
-        say(f"  {name} {label}: q {tuple(q.shape)} k,v "
-            f"{tuple(k.shape)} bf16: max_abs_err={err:.3e} ({used:.3f} of "
-            f"the allowance; rows >= {S // 2}: {late_err:.3e} at output RMS"
-            f" {late_rms:.3e}) run-to-run "
-            f"bitwise equal; {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-            f"{flops} flop)")
-        rows[(name, label)] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-            bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
-            tol_used=used, late_max_abs_err=late_err, late_rms=late_rms,
-            shape=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal")
-        del q, k, v, o
+        rows[(name, label)] = flash_fwd_row(name, label, q, k, v, reps)
+        del q, k, v
         torch.cuda.empty_cache()
 
     # the dispatch buffers of serve-lm: one MoE group per sequence at
@@ -530,36 +620,9 @@ def phase_lm_kernels(reps: int):
         check(x.data_ptr() % 16 == shift * x.element_size(),
               f"expert_gemm {label}: x at {x.data_ptr() % 16} bytes past a "
               f"16-byte boundary, want {shift * x.element_size()}")
-        before = dict(gemm_ops.LAUNCHES)
-        y = gemm_ops.expert_gemm(x, w)
-        check(gemm_ops.LAUNCHES[name] == before[name] + 1,
-              f"expert_gemm {label}: not taken by {name} "
-              f"({gemm_ops.LAUNCHES})")
-        y2 = gemm_ops.expert_gemm(x, w)
-        f32 = w.dtype == torch.float32
-        err, used = lm_check(f"{name} {label}", y, y2, expert_gemm_ref(x, w),
-                             LM_GEMM32_TOL if f32 else LM_GEMM_ATOL,
-                             rtol=LM_GEMM32_TOL if f32 else LM_KERNEL_RTOL)
-        ms = cuda_ms(lambda: gemm_ops.expert_gemm(x, w), reps)
-        plain = cuda_ms(lambda: expert_gemm_ref(x, w), 3, warmup=1)
-        x4 = x.view(G, E, C, depth)
-        lib = cuda_ms(lambda: torch.matmul(x4, w), reps)
-        nbytes = sum(t.numel() * t.element_size() for t in (x, w, y))
-        flops = 2 * G * E * C * depth * w.shape[2]
-        b_ms, b_by = bound(nbytes, flops,
-                           H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
-        dt = "f32" if f32 else "bf16"
-        say(f"  {name} {label}: x {tuple(x.shape)} w {tuple(w.shape)}"
-            f" {dt}: max_abs_err={err:.3e} ({used:.3f} of the allowance) "
-            f"run-to-run bitwise equal; "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms,"
-            f" bound {b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)")
-        rows[(name, label)] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-            bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
-            tol_used=used, shape=f"x {tuple(x.shape)} w {tuple(w.shape)} {dt}")
-        del x, y, y2, x4
-        if f32:
+        rows[(name, label)] = gemm_row(name, label, x, w, reps)
+        del x
+        if w.dtype == torch.float32:
             del w
     del w_gate, w_up, w_down
     torch.cuda.synchronize()
@@ -580,20 +643,99 @@ def grad_allowance_used(got, want, share):
     return float(((g - w).abs() / allow).max())
 
 
+def flash_bwd_row(name: str, label: str, q, k, v, do, reps: int) -> dict:
+    """One flash backward call (from the forward kernel's O and
+    log-sum-exp) held against ``flash_attention_bwd_ref`` (taken by kernel
+    ``name``, two launches bitwise equal, within ``grad_allowance_used``),
+    timed beside SDPA's backward through autograd, with its bound and, for
+    the TMA kernel, its two-pass floor."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref)
+    from repro_torch.kernels.measure import (H100_BF16_FLOPS, H100_F32_FLOPS,
+                                             cuda_ms)
+    bf = torch.bfloat16
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    dt = q.dtype
+    o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+
+    def bwd():
+        return flash_ops.flash_attention_bwd(q, k, v, o, do, lse)
+    before = dict(flash_ops.LAUNCHES)
+    got = bwd()
+    check(flash_ops.LAUNCHES[name] == before[name] + 1
+          and sum(flash_ops.LAUNCHES.values())
+          == sum(before.values()) + 1,
+          f"flash bwd {label}: not taken by {name}")
+    again = bwd()
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+          f"flash bwd {label}: two launches differ")
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse)
+    share = LM_KERNEL_RTOL if dt == bf else LM_GEMM32_TOL
+    errs = {n: float((g.float() - w.float()).abs().max())
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    used_by = {n: grad_allowance_used(g, w, share)
+               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    used = max(used_by.values())
+    check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+          f"flash bwd {label}: non-finite gradient")
+    check(used <= 1.0, f"flash bwd {label}: {used_by} of the "
+                       f"allowance ({errs})")
+    del again, want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(bwd, reps)
+    plain = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse),
+                    3, warmup=1)
+    torch.cuda.empty_cache()
+    # the yardstick: SDPA's backward through autograd, same inputs
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    dos = do.transpose(1, 2)
+    lib = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                              retain_graph=True), reps)
+    del out, qs, ks, vs
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (q, k, v, o, do, lse, *got))
+    pairs = B * causal_pairs(S, S)
+    flops = 10 * H * hd * pairs
+    peak = H100_BF16_FLOPS if dt == bf else H100_F32_FLOPS
+    b_ms, b_by = bound(nbytes, flops, peak)
+    tag = "bf16" if dt == bf else "f32"
+    # the TMA kernel's two passes recompute S and dP: 7 products
+    wgmma = name == flash_ops.BWD_WGMMA
+    floor = 14 * H * hd * pairs / peak * 1e3 if wgmma else None
+    say(f"  {name} {label}: q {tuple(q.shape)} k,v "
+        f"{tuple(k.shape)} {tag}: max_abs_err dq/dk/dv "
+        f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} ({used:.3f}"
+        f" of the allowance), run-to-run bitwise equal; {ms:.4f} ms "
+        f"(D = rowsum(dO·O) {'in the kernel' if wgmma else 'in torch'}"
+        f"), plain {plain:.4f} ms, sdpa backward {lib:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)"
+        + (f", two-pass floor {floor:.4f} ms" if wgmma else ""))
+    del o, lse, got
+    return dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes, flops=flops, floor_ms=floor,
+        max_abs_err=max(errs.values()), tol_used=used,
+        shape=f"B={B} S={S} H={H} KV={KV} hd={hd} {tag} causal")
+
+
 def phase_train_kernels(reps: int):
     """The forward kernels' log-sum-exp, the flash backward kernel and the
     expert GEMM's backward products against their plain versions, timed,
     at the train-lm shapes."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs.qwen3_moe_30b_a3b import FULL
     from repro_torch.kernels.expert_gemm import ops as gemm_ops
     from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_bwd_ref, flash_attention_ref)
-    from repro_torch.kernels.measure import (H100_BF16_FLOPS, H100_F32_FLOPS,
-                                             cuda_ms)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.measure import H100_BF16_FLOPS, cuda_ms
     from repro_torch.models.moe import moe_capacity
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf, f32 = torch.bfloat16, torch.float32
@@ -642,69 +784,8 @@ def phase_train_kernels(reps: int):
             ("f32 hd16", TRAIN_SEQ, 16, f32, flash_ops.BWD)):
         q, do = randn(1, S, H, hd, dtype=dt), randn(1, S, H, hd, dtype=dt)
         k, v = randn(1, S, KV, hd, dtype=dt), randn(1, S, KV, hd, dtype=dt)
-        o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
-
-        def bwd():
-            return flash_ops.flash_attention_bwd(q, k, v, o, do, lse)
-        before = dict(flash_ops.LAUNCHES)
-        got = bwd()
-        check(flash_ops.LAUNCHES[name] == before[name] + 1
-              and sum(flash_ops.LAUNCHES.values())
-              == sum(before.values()) + 1,
-              f"flash bwd {label}: not taken by {name}")
-        again = bwd()
-        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
-              f"flash bwd {label}: two launches differ")
-        want = flash_attention_bwd_ref(q, k, v, o, do, lse)
-        share = LM_KERNEL_RTOL if dt == bf else LM_GEMM32_TOL
-        errs = {n: float((g.float() - w.float()).abs().max())
-                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-        used_by = {n: grad_allowance_used(g, w, share)
-                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-        used = max(used_by.values())
-        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
-              f"flash bwd {label}: non-finite gradient")
-        check(used <= 1.0, f"flash bwd {label}: {used_by} of the "
-                           f"allowance ({errs})")
-        del again, want
-        torch.cuda.empty_cache()
-        ms = cuda_ms(bwd, reps)
-        plain = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o, do, lse),
-                        3, warmup=1)
-        torch.cuda.empty_cache()
-        # the yardstick: SDPA's backward through autograd, same inputs
-        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                             enable_gqa=True)
-        dos = do.transpose(1, 2)
-        lib = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
-                                                  retain_graph=True), reps)
-        del out, qs, ks, vs
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (q, k, v, o, do, lse, *got))
-        pairs = causal_pairs(S, S)
-        flops = 10 * H * hd * pairs
-        peak = H100_BF16_FLOPS if dt == bf else H100_F32_FLOPS
-        b_ms, b_by = bound(nbytes, flops, peak)
-        tag = "bf16" if dt == bf else "f32"
-        # the TMA kernel's two passes recompute S and dP: 7 products
-        wgmma = name == flash_ops.BWD_WGMMA
-        floor = 14 * H * hd * pairs / peak * 1e3 if wgmma else None
-        say(f"  {name} {label}: q {tuple(q.shape)} k,v "
-            f"{tuple(k.shape)} {tag}: max_abs_err dq/dk/dv "
-            f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} ({used:.3f}"
-            f" of the allowance), run-to-run bitwise equal; {ms:.4f} ms "
-            f"(D = rowsum(dO·O) {'in the kernel' if wgmma else 'in torch'}"
-            f"), plain {plain:.4f} ms, sdpa backward {lib:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {flops} flop)"
-            + (f", two-pass floor {floor:.4f} ms" if wgmma else ""))
-        rows[(name, label)] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-            bound_by=b_by, bytes=nbytes, flops=flops, floor_ms=floor,
-            max_abs_err=max(errs.values()), tol_used=used,
-            shape=f"B=1 S={S} H={H} KV={KV} hd={hd} {tag} causal")
-        del q, k, v, o, do, lse, got
+        rows[(name, label)] = flash_bwd_row(name, label, q, k, v, do, reps)
+        del q, k, v, do
         torch.cuda.empty_cache()
 
     # the expert GEMM's backward products at the train shapes: groups of
@@ -759,6 +840,70 @@ def phase_train_kernels(reps: int):
             f"{label}: W^T {t_w:.4f} ms, X and dY for dW {t_xy:.4f} ms")
         rows[("gemm transposes", label)] = dict(w_ms=t_w, x_dy_ms=t_xy)
         del x, w, dy, wt, xt, dyt
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_config_kernels(reps: int):
+    """The flash forward and backward and the expert GEMM at the shapes the
+    other LM configs give them, against their plain versions, timed: flash
+    forward at train-smollm's microbatch (hd 64, G 3) and deepseek-7b's
+    prefill (hd 128, G 1); the backward at train-smollm's microbatch and at
+    G 1 (deepseek-7b) and G 6 (dbrx-132b); dbrx-132b's three expert
+    products at prefill (2 groups of 4,096 tokens, C 1,288: tiles) and at
+    decode (2 tokens, C 8: skinny)."""
+    import torch
+    from repro_torch.config.registry import get_arch
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.moe import moe_capacity
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    smol, deep, dbrx = (get_arch(a).model for a in
+                        ("smollm-135m", "deepseek-7b", "dbrx-132b"))
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    def heads(B, cfg):
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        return ((B, TRAIN_SEQ, H, hd), (B, TRAIN_SEQ, KV, hd),
+                (B, TRAIN_SEQ, KV, hd))
+
+    micro = SMOL_BATCH // SMOL_MICRO
+    for label, B, cfg in (("smollm train", micro, smol),
+                          ("deepseek prefill", LM_BATCH, deep)):
+        q, k, v = (randn(*sh) for sh in heads(B, cfg))
+        rows[(flash_ops.WGMMA, label)] = flash_fwd_row(
+            flash_ops.WGMMA, label, q, k, v, reps)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, B, cfg in (("smollm train", micro, smol),
+                          ("deepseek G1", 1, deep), ("dbrx G6", 1, dbrx)):
+        q, k, v = (randn(*sh) for sh in heads(B, cfg))
+        do = randn(*q.shape)
+        rows[(flash_ops.BWD_WGMMA, label)] = flash_bwd_row(
+            flash_ops.BWD_WGMMA, label, q, k, v, do, reps)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    moe = dbrx.moe
+    E, d, f = moe.n_experts, dbrx.d_model, moe.d_ff_expert
+    c_pre = moe_capacity(LM_PROMPT, E, moe.top_k)
+    c_dec = moe_capacity(LM_BATCH, E, moe.top_k)
+    s_in = (2.0 / (d + f)) ** 0.5
+    for prod, din, dout in (("gate", d, f), ("up", d, f), ("down", f, d)):
+        w = randn(E, din, dout, scale=s_in)
+        for phase, G, C, name in (("prefill", LM_BATCH, c_pre,
+                                   gemm_ops.TILES),
+                                  ("decode", 1, c_dec, gemm_ops.SKINNY)):
+            x = randn(G * E, C, din)
+            label = f"dbrx {phase} {prod}"
+            rows[(name, label)] = gemm_row(name, label, x, w, reps)
+            del x
+        del w
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return rows
@@ -924,6 +1069,104 @@ def phase_serve_lm(profile: bool = False):
                           consistency_bf16=bf, consistency_f32=f32)
 
 
+def phase_serve_lm_configs():
+    """smollm-135m, deepseek-7b, qwen2-72b and dbrx-132b at their published
+    widths (``SERVE_CONFIGS``: depth cut where the bf16 weights would not
+    fit), seeded weights, each serving serve-lm's traffic through
+    ``greedy_generate`` with the counts set to 0 before and read after,
+    then the prefill-versus-decode consistency check at a capacity that
+    drops no MoE slot. Each model is freed before the next is built."""
+    import dataclasses
+    import torch
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.transformer import TransformerLM
+    out, total = {}, {}
+    for arch_id, depth in SERVE_CONFIGS:
+        full = get_arch(arch_id).model
+        cfg = dataclasses.replace(full, n_layers=depth)
+        model = TransformerLM(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        # param_count leaves out the QKV biases
+        n_bias = (depth * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+                  if cfg.qkv_bias else 0)
+        check(n_params == cfg.param_count() + n_bias,
+              f"serve-lm-configs {arch_id}: {n_params} parameters, want "
+              f"param_count {cfg.param_count()} + {n_bias} QKV biases")
+        moe = cfg.moe
+        mlp = (f"{moe.n_experts} experts top-{moe.top_k}, d_ff "
+               f"{moe.d_ff_expert}" if moe else f"d_ff {cfg.d_ff}")
+        reduced = (f"n_layers {depth} of {full.n_layers}"
+                   if depth < full.n_layers else "none (whole depth)")
+        say(f"  {arch_id}: published widths (d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, hd {cfg.head_dim}, "
+            f"{mlp}, vocab {cfg.vocab_size}, qkv_bias {cfg.qkv_bias}, tied "
+            f"embeddings {cfg.tie_embeddings}); reduced: {reduced}; "
+            f"{n_params} params bf16 (param_count {cfg.param_count()} + "
+            f"{n_bias} QKV biases), init {init_s:.2f} s")
+        prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(1), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        gen = greedy_generate(model, params, prompt, LM_TOKENS)
+        launches = read_all_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_dec = LM_BATCH * (LM_TOKENS - 1)
+        decode_ms = gen.decode_s / (LM_TOKENS - 1) * 1e3
+        say(f"  {arch_id} prefill {LM_BATCH} x {LM_PROMPT}: "
+            f"{gen.prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / gen.prefill_s:.1f}"
+            f" tok/s); {LM_TOKENS - 1} decode steps: {gen.decode_s:.3f} s "
+            f"({n_dec / gen.decode_s:.2f} tok/s, {decode_ms:.2f} ms/step); "
+            f"peak memory {peak} B")
+        say(f"  {arch_id} launches: {launches}")
+        # every attention of the prefill on the TMA + wgmma kernel, at the
+        # config's head dim; decode attends in plain torch
+        hd_want = 64 if arch_id == "smollm-135m" else 128
+        want = {"flash_attention_fwd_wgmma": depth, "flash_attention_fwd": 0,
+                "flash_attention_bwd_wgmma": 0, "flash_attention_bwd": 0,
+                # the MoE's three products: tiles at prefill, skinny at
+                # each decode step, the first kernel none
+                "expert_gemm_wgmma": 3 * depth if moe else 0,
+                "expert_gemm_skinny": (3 * depth * (LM_TOKENS - 1) if moe
+                                       else 0),
+                "expert_gemm": 0}
+        got = {k: launches[k] for k in want}
+        check(cfg.head_dim == hd_want and got == want,
+              f"serve-lm-configs {arch_id}: hd {cfg.head_dim} (want "
+              f"{hd_want}), launches {got}, want {want}")
+        toks = gen.tokens
+        check(toks.shape == (LM_BATCH, LM_TOKENS)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+              and bool(torch.isfinite(gen.logits.float()).all()),
+              f"serve-lm-configs {arch_id}: tokens {tuple(toks.shape)} or "
+              f"logits out of range")
+        say(f"  {arch_id} greedy continuation (row 0): {toks[0].tolist()}")
+        prefill_s, decode_s = gen.prefill_s, gen.decode_s
+        del gen
+        res = consistency(cfg, params, prompt, f"{arch_id} bf16")
+        check(res["corr"] >= LM_CONSIST_CORR,
+              f"serve-lm-configs {arch_id}: prefill/decode logits "
+              f"correlation {res['corr']} < {LM_CONSIST_CORR}")
+        check(res["max_abs"] <= LM_CONSIST_ATOL,
+              f"serve-lm-configs {arch_id}: prefill/decode logits differ "
+              f"by {res['max_abs']} > {LM_CONSIST_ATOL}")
+        out[arch_id] = dict(n_layers=depth, n_layers_published=full.n_layers,
+                            n_params=n_params, init_s=init_s,
+                            prefill_s=prefill_s, decode_s=decode_s,
+                            decode_ms_per_step=decode_ms, peak_bytes=peak,
+                            launches=got, consistency_bf16=res)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del params, model, prompt
+        torch.cuda.empty_cache()
+    return total, out
+
+
 # -- train phases ------------------------------------------------------------
 
 def dense_smoke_cfg():
@@ -984,7 +1227,8 @@ def phase_train_agreement():
                 t.requires_grad_(False)
             grads = runs[0]
             if dev == "cuda":
-                # the MoE token gather's backward adds with atomics on the card
+                # two backward passes: every sum of the path, the MoE
+                # dispatch gather's backward included, in a fixed order
                 repeat = [i for i, (a, b) in enumerate(zip(*runs))
                           if not torch.equal(a, b)]
             step = make_train_step(model.loss, tcfg, microbatches=2)
@@ -1016,6 +1260,8 @@ def phase_train_agreement():
               f"train-agreement {name}: losses differ by {loss_rel:.3e}")
         check(grad_used <= 1.0,
               f"train-agreement {name}: step-0 gradients outside tolerance")
+        check(not repeat, f"train-agreement {name}: two card backward "
+                          f"passes differ in leaves {repeat}")
         out[name] = dict(losses_card=l_card, losses_cpu=l_cpu,
                          loss_max_rel=loss_rel, grad_max_abs=grad_err,
                          grad_tol_used=grad_used,
@@ -1125,6 +1371,23 @@ def phase_train_lm(profile: bool = False):
         parts = train_step_parts(model, loop, pipe)
     del loop, state, params
     torch.cuda.empty_cache()
+    # the same steps again from the same seed, without the loop's
+    # checkpoint: a card train step must repeat bit for bit
+    state = new_train_state(model.init(
+        torch.Generator(device="cuda").manual_seed(0), dtype=torch.float32))
+    first = [(loss, m["grad_norm"]) for loss, m in zip(losses, record)]
+    again = []
+    for i in range(TRAIN_STEPS):
+        state, m = inner(state, *(torch.as_tensor(a, device="cuda")
+                                  for a in pipe.batch_at(i)))
+        again.append((float(m["loss"]), float(m["grad_norm"])))
+    del state
+    torch.cuda.empty_cache()
+    say(f"  train-lm again from seed 0 (no checkpoint): (loss, grad_norm) "
+        f"per step {again}; bitwise equal to the first run: "
+        f"{again == first}")
+    check(again == first, f"train-lm: a second run from the same seed "
+                          f"gave {again}, the first {first}")
     phase_s = time.perf_counter() - t_phase
     say(f"phase train-lm: {phase_s:.1f} s wall")
     return launches, dict(
@@ -1134,7 +1397,147 @@ def phase_train_lm(profile: bool = False):
         lr=[m["lr"] for m in record],
         tokens_per_s=[tokens / dt for dt in metrics.step_times],
         peak_bytes=peak, run_s=run_s, checkpoint_and_batches_s=ckpt_s,
-        checkpoint_bytes=n_ckpt, phase_s=phase_s, profile_parts=parts)
+        checkpoint_bytes=n_ckpt, phase_s=phase_s, profile_parts=parts,
+        repeat_bitwise=again == first)
+
+
+def step_grads(model, params, batch, microbatches: int):
+    """One train step's gradients: each microbatch's loss differentiated
+    and accumulated in ``.grad`` in order, as ``make_train_step`` does."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    split = [torch.as_tensor(a, device="cuda")
+             .reshape((microbatches, -1) + a.shape[1:]) for a in batch]
+    for i in range(microbatches):
+        model.loss(params, *(x[i] for x in split)).backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    return grads
+
+
+def phase_train_smollm():
+    """smollm-135m ``FULL`` at its whole depth (30 layers, tied embeddings,
+    ``remat="dots"``), f32 masters from a seed, ``SMOL_STEPS`` steps of
+    ``TrainLoop`` on ``TokenPipeline`` (8 × 4,096 tokens in 2
+    microbatches), the final checkpoint under build/ (deleted after); then
+    one step's gradients under ``"dots"`` and under ``"none"``, which must
+    be bitwise equal."""
+    import dataclasses
+    import math
+    import shutil
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.configs.smollm_135m import FULL as cfg
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.train.state import make_train_step, new_train_state
+    t_phase = time.perf_counter()
+    model = TransformerLM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.float32)
+    state = new_train_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == cfg.param_count(), "train-smollm: parameter count")
+    say(f"  train-smollm model: smollm-135m FULL (n_layers {cfg.n_layers}, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, "
+        f"hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+        f"embeddings {cfg.tie_embeddings}, remat {cfg.remat}); reduced: "
+        f"train_4k's global batch 256 -> {SMOL_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{SMOL_MICRO} microbatches; {n_params} params, f32 masters + f32 "
+        f"grads, m, v ({16 * n_params} B); init {init_s:.2f} s")
+    ckpt_dir = ROOT / "build" / "train_smollm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=SMOL_STEPS, checkpoint_dir=str(ckpt_dir),
+                       keep_checkpoints=1)
+    pipe = TokenPipeline(cfg.vocab_size, SMOL_BATCH, TRAIN_SEQ, seed=0)
+    inner = make_train_step(model.loss, tcfg, microbatches=SMOL_MICRO)
+    record = []
+
+    def step_fn(st, *batch):
+        st, m = inner(st, *batch)
+        record.append({k: float(v) for k, v in m.items()})
+        return st, m
+
+    loop = TrainLoop(step_fn, state, pipe.batch_at, tcfg, log_every=10 ** 9,
+                     print_fn=say)
+    check(loop.start_step == 0, "train-smollm: a checkpoint was restored")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    metrics = loop.run()
+    run_s = time.perf_counter() - t0
+    launches = read_all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = SMOL_BATCH * TRAIN_SEQ
+    for i, (loss, dt, m) in enumerate(zip(metrics.losses, metrics.step_times,
+                                          record)):
+        say(f"  train-smollm step {i}: loss {loss:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} lr {m['lr']:.3e} step {dt:.3f} s "
+            f"({tokens / dt:.1f} tok/s)")
+    n_ckpt = sum(p.stat().st_size for p in ckpt_dir.rglob("*") if p.is_file())
+    say(f"  train-smollm peak memory {peak} B; run {run_s:.2f} s, of it the "
+        f"batches and the final checkpoint ({n_ckpt} B under build/) "
+        f"{run_s - sum(metrics.step_times):.2f} s")
+    say(f"  train-smollm launches ({SMOL_STEPS} steps): {launches}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = metrics.losses
+    ln_v = math.log(cfg.vocab_size)
+    check(len(losses) == SMOL_STEPS and all(map(math.isfinite, losses)),
+          f"train-smollm: losses {losses}")
+    check(abs(losses[0] - ln_v) <= TRAIN_LOSS_BAND,
+          f"train-smollm: step-0 loss {losses[0]:.4f} not within "
+          f"{TRAIN_LOSS_BAND} of ln V = {ln_v:.4f}")
+    check(losses[-1] < losses[0],
+          f"train-smollm: last loss {losses[-1]:.4f} not below step 0's "
+          f"{losses[0]:.4f}")
+    # per step, microbatch and layer: the flash forward twice (forward and
+    # the dots recompute) and its backward once, all at hd 64 on the TMA +
+    # wgmma kernels; a dense model runs no expert GEMM
+    per = SMOL_STEPS * SMOL_MICRO * cfg.n_layers
+    want = {"flash_attention_fwd_wgmma": 2 * per,
+            "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
+            "flash_attention_fwd": 0, "expert_gemm_wgmma": 0,
+            "expert_gemm_skinny": 0, "expert_gemm": 0}
+    got = {k: launches[k] for k in want}
+    check(cfg.head_dim == 64 and got == want,
+          f"train-smollm: hd {cfg.head_dim}, launches {got}, want {want}")
+    # one more step's gradients from the trained state, under the
+    # config's "dots" and under "none": the same bits
+    batch = pipe.batch_at(SMOL_STEPS)
+    t0 = time.perf_counter()
+    grads = {remat: step_grads(
+        TransformerLM(dataclasses.replace(cfg, remat=remat)),
+        loop.state.params, batch, SMOL_MICRO) for remat in ("dots", "none")}
+    differ = [i for i, (a, b) in enumerate(zip(grads["dots"], grads["none"]))
+              if not torch.equal(a, b)]
+    say(f"  train-smollm step gradients, remat dots against none: "
+        f"{len(grads['dots'])} leaves, bitwise equal: {not differ} (leaves "
+        f"that differ: {differ}; {time.perf_counter() - t0:.2f} s)")
+    check(not differ, f"train-smollm: dots and none gradients differ in "
+                      f"leaves {differ}")
+    del grads, loop, state, params
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase train-smollm: {phase_s:.1f} s wall")
+    return launches, dict(
+        n_layers=cfg.n_layers, n_params=n_params, init_s=init_s,
+        losses=losses, step_s=metrics.step_times,
+        grad_norm=[m["grad_norm"] for m in record],
+        lr=[m["lr"] for m in record],
+        tokens_per_s=[tokens / dt for dt in metrics.step_times],
+        peak_bytes=peak, run_s=run_s, checkpoint_bytes=n_ckpt,
+        dots_equals_none=not differ, phase_s=phase_s)
 
 
 def train_step_parts(model, loop, pipe):
@@ -2741,6 +3144,8 @@ def main(argv=None) -> int:
     say("phase lm-kernels:")
     rows.update(phase_lm_kernels(REPS))
     rows.update(phase_train_kernels(REPS))
+    say("phase config-kernels:")
+    rows.update(phase_config_kernels(REPS))
     phase_small_agreement()
     adapt_agree = phase_small_adaptive_agreement()
     ctl_agree = phase_control_agreement()
@@ -2797,14 +3202,19 @@ def main(argv=None) -> int:
     phase_cli()
     say("phase serve-lm:")
     launches_lm, lm = phase_serve_lm(args.profile)
+    say("phase serve-lm-configs:")
+    launches_configs, lm_configs = phase_serve_lm_configs()
     say("phase train-lm:")
     launches_train, train = phase_train_lm(args.profile)
+    say("phase train-smollm:")
+    launches_smol, train_smol = phase_train_smollm()
     serve = dict(inc_steps=inc_steps, batch_steps=batch_steps,
                  louvain_s=louvain_s, adaptive_steps=adapt_steps,
                  adaptive_louvain_s=adapt_louvain_s,
                  adaptive_agreement=adapt_agree, round_trips=round_trips,
                  traced=traced, runtime=runtime, control=control,
                  captured=cap, lm=lm, sharded=sharded, train=train,
+                 lm_configs=lm_configs, train_smollm=train_smol,
                  train_agreement=train_agree,
                  lse={lb: rows[("lse", lb)] for lb in
                       ("prefill", "hd40", "f32 hd16")},
@@ -2847,6 +3257,16 @@ def main(argv=None) -> int:
     gemm_tpu = "src/repro/kernels/expert_gemm/expert_gemm.py:44"
     flash_bwd_tpu = (f"backward of {flash_tpu}, XLA autodiff of "
                      f"src/repro/models/layers.py:43 in the reference")
+    # the shapes of the other LM configs (phase config-kernels), beside the
+    # qwen3-moe shapes each kernel is held at
+    config_labels = {
+        "flash_attention_fwd_wgmma": ("smollm train", "deepseek prefill"),
+        "flash_attention_bwd_wgmma": ("smollm train", "deepseek G1",
+                                      "dbrx G6"),
+        "expert_gemm_wgmma": tuple(f"dbrx prefill {p}"
+                                   for p in ("gate", "up", "down")),
+        "expert_gemm_skinny": tuple(f"dbrx decode {p}"
+                                    for p in ("gate", "up", "down"))}
     for name, src, line, labels, launches, path in (
             ("flash_attention_fwd_wgmma",
              flash_src + "flash_attention_fwd_wgmma.cu", flash_tpu,
@@ -2877,6 +3297,7 @@ def main(argv=None) -> int:
              ("decode gate f32", "decode gate bf16 misaligned"),
              launches_agree, "lm-agreement")):
         check(launches[name] > 0, f"{path} never launched {name}")
+        labels = labels + config_labels.get(name, ())
         head = rows[(name, labels[0])]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": line,
@@ -2889,6 +3310,8 @@ def main(argv=None) -> int:
             "by_shape": {lb: rows[(name, lb)] for lb in labels},
             "launches_train": launches_train[name],
             "launches_train_agreement": launches_train_agree[name],
+            "launches_serve_lm_configs": launches_configs.get(name, 0),
+            "launches_train_smollm": launches_smol[name],
         })
     say(f"serve summary: {json.dumps(serve)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")

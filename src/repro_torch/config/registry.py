@@ -19,13 +19,15 @@ from repro_torch.config.base import ArchConfig
 _PORTED = {
     "igpm-pem": "igpm_paper",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "smollm-135m": "smollm_135m",
+    "deepseek-7b": "deepseek_7b",
+    "qwen2-72b": "qwen2_72b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 # the JAX package's other archs (repro.config.registry), not ported yet,
 # with the ROADMAP item (queue 1) each waits for
 _WAITING = {
-    "dbrx-132b": "13.2", "deepseek-7b": "13.2", "qwen2-72b": "13.2",
-    "smollm-135m": "13.2",
     "dimenet": "13.3", "graphcast": "13.3", "meshgraphnet": "13.3",
     "schnet": "13.3",
     "bst": "13.4",

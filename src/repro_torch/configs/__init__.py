@@ -1,3 +1,4 @@
 """Configurations ported so far: the paper's system (``igpm_paper``) and
-qwen3-moe-30b-a3b (``qwen3_moe_30b_a3b``). ``repro_torch.config.registry``
-resolves ``--arch`` ids to them."""
+the LMs qwen3-moe-30b-a3b, smollm-135m, deepseek-7b, qwen2-72b and
+dbrx-132b (one module each). ``repro_torch.config.registry`` resolves
+``--arch`` ids to them."""

@@ -315,6 +315,16 @@ def updated_vertices(g: DynamicGraph, upd: UpdateBatch,
             torch.nn.functional.pad(mk, (0, pad)))
 
 
+def vertex_mask(ids: torch.Tensor, mask: torch.Tensor,
+                n_max: int) -> torch.Tensor:
+    """Boolean vertex mask (n_max,) from a padded id list: True at every id
+    whose ``mask`` is set."""
+    out = torch.zeros((n_max + 1,), dtype=torch.bool, device=ids.device)
+    idx = torch.where(mask, ids.to(torch.int64), n_max)
+    out[idx] = True
+    return out[:n_max]
+
+
 def transition_weights(g: DynamicGraph) -> torch.Tensor:
     """Per-arc random-walk weight 1/deg(sender), 0 for dead arcs."""
     safe = torch.clamp(g.degree, min=1.0)

@@ -86,6 +86,18 @@ def _masked_label_sum(logp: torch.Tensor, rows: Optional[torch.Tensor],
     return out
 
 
+def find_seeds(g: DynamicGraph, query: Query, r_lab: torch.Tensor, k: int,
+               seed_filter: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Seed-finder for one query: its top-k anchor candidates by
+    label-goodness → (ids int32[k], valid bool[k]); the bank's
+    :func:`_find_seeds_arrays` with a bank of one."""
+    ids, valid = _find_seeds_arrays(g, r_lab, k, seed_filter,
+                                    query.labels[None], query.mask[None],
+                                    query.anchor.reshape(1))
+    return ids[0], valid[0]
+
+
 def _find_seeds_arrays(g: DynamicGraph, r_lab: torch.Tensor, k: int,
                        seed_filter: Optional[torch.Tensor],
                        q_labels: torch.Tensor, q_mask: torch.Tensor,

@@ -84,7 +84,9 @@ class QueryBucket:
     ``g_shards > 1`` adds the graph axis: the storm/batch full-graph match
     runs on the 2-D ``(q, g)`` mesh against the shard-local ELL row blocks
     (``match(..., graph_sharded=True)``), while the induced-subgraph path
-    keeps the graph replicated. ``devices`` are the engine's mesh devices."""
+    keeps the graph replicated. ``devices`` are the engine's mesh devices.
+    The JAX package's ``trace_count`` is not ported: eager torch compiles
+    no trace to count."""
 
     def __init__(self, cfg: IGPMConfig, q_max: int, qe_max: int, b_pad: int,
                  shard: str = "auto", g_shards: int = 1,
@@ -127,6 +129,12 @@ class QueryBucket:
     @property
     def key(self) -> Tuple[int, int, int]:
         return (self.q_max, self.qe_max, self.b_pad)
+
+    @property
+    def dag_key(self) -> Tuple[int, int, int, int]:
+        """Bucket identity including the DAG node capacity: the shapes of
+        every tensor the bucket's match reads."""
+        return (self.q_max, self.qe_max, self.b_pad, self.node_cap)
 
     @property
     def n_live(self) -> int:

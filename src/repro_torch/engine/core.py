@@ -81,7 +81,11 @@ from repro_torch.obs import Obs
 
 
 class Engine:
-    """Functional-core match engine with bucketed dynamic query banks."""
+    """Functional-core match engine with bucketed dynamic query banks.
+
+    The JAX package's ``trace_count`` (compiled traces across the bucket
+    programs, pinned flat across register/retire) has no counterpart:
+    eager torch compiles nothing, so there is no trace to count."""
 
     def __init__(self, cfg: IGPMConfig, ecfg: Optional[EngineConfig] = None,
                  seed: int = 0, device="cuda", devices=None):
@@ -375,6 +379,14 @@ class Engine:
     def occupancy(self) -> Dict[Tuple[int, int, int], Tuple[int, int]]:
         """bucket key (q_max, qe_max, B_pad) → (live rows, padded rows)."""
         return {b.key: (b.n_live, b.b_pad) for b in self.buckets.values()}
+
+    def dag_occupancy(self) -> Dict[Tuple[int, int, int, int],
+                                    Tuple[int, int]]:
+        """DAG bucket key (q_max, qe_max, B_pad, node_cap) → (live
+        sub-pattern nodes, node capacity): the shared-table view of
+        :meth:`occupancy`."""
+        return {b.dag_key: (b.dag.n_nodes, b.node_cap)
+                for b in self.buckets.values()}
 
     def counters(self) -> Dict[str, int]:
         return {"rlab_cache_hits": self.rlab_hits,

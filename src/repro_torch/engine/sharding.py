@@ -143,7 +143,8 @@ class ShardedBankMatch:
     mesh row; ``graph_sharded=False`` (the induced-subgraph path, whose
     compact extraction is already the speedup) keeps the graph replicated
     and the sweeps collective-free. Query shard ``i`` runs on the devices
-    ``mesh[i]``, its expansion on ``mesh[i][0]``.
+    ``mesh[i]``, its expansion on ``mesh[i][0]``. The JAX package's
+    ``trace_count`` is not ported: eager torch compiles no trace to count.
     """
 
     def __init__(self, matcher, n_shards: int, g_shards: int,

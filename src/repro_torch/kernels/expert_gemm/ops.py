@@ -22,6 +22,11 @@ separate sum, no atomics). The transposes are plain torch copies.
 
 :data:`LAUNCHES` counts launches per kernel, bumped only where the kernel
 is launched, so a run can show that its path went through the kernel.
+
+The JAX wrapper's Pallas tile arguments ``block_c``, ``block_d`` and
+``block_f`` are not ported: each CUDA variant fixes its tiles (the tiles
+variant 128 × 192 output tiles over 64-wide k steps, the skinny one C
+rounded up to a wgmma N), so a caller has no tile to pick.
 """
 
 from __future__ import annotations

@@ -24,6 +24,10 @@ through.
 :data:`LAUNCHES` counts launches per kernel, bumped only where the kernel
 is launched, so a run can show that its path went through the kernel (a
 backward's passes are one launch of its entry point).
+
+The JAX wrapper's Pallas tile arguments ``block_q`` and ``block_k`` are
+not ported: each CUDA kernel fixes its tiles in its source, sized to its
+shared-memory and register budget, so a caller has no tile to pick.
 """
 
 from __future__ import annotations

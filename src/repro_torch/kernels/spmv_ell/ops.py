@@ -20,7 +20,10 @@ or scalar gathers for wider d).
 Both kernels walk a vertex's rows through the row index of
 :func:`~repro_torch.sparse.ell.build_row_index`; callers that sweep one
 mirror many times pass ``index=`` (``EllGraph.row_index()``) so it is built
-once.
+once. ``ell_spmm_graph`` and ``ell_reach_graph`` take an
+:class:`~repro_torch.sparse.ell.EllGraph` and pass its cached index;
+``ell_spmm_kernel`` and ``ell_reach_kernel`` keep the JAX package's
+signatures of the same names.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.spmv_ell.ref import ell_reach_ref, ell_spmm_ref
-from repro_torch.sparse.ell import build_row_index
+from repro_torch.sparse.ell import EllGraph, build_row_index
 
 LAUNCHES: Dict[str, int] = {"ell_spmm": 0, "ell_reach": 0}
 _COUNT_LOCK = threading.Lock()
@@ -158,3 +161,42 @@ def ell_reach(cols: torch.Tensor, mask: torch.Tensor, row_ids: torch.Tensor,
         raise RuntimeError(f"ell_reach kernel launch failed (cudaError {rc})")
     _count("ell_reach")
     return y
+
+
+def ell_spmm_kernel(cols: torch.Tensor, vals: torch.Tensor,
+                    mask: torch.Tensor, row_ids: torch.Tensor,
+                    x: torch.Tensor, n: int) -> torch.Tensor:
+    """``y = A_ell @ x``: (n, d) → (n, d), the JAX package's
+    ``ell_spmm_kernel``. There it is two phases — the Pallas kernel's
+    per-row partials, then a segment sum over ``row_ids`` in XLA — with a
+    Pallas tile size ``block_rows`` and RHS blocks sized for VMEM. The CUDA
+    kernel fuses both phases (each vertex's rows are walked and summed in
+    registers, so no row partial is ever stored) and picks its tiling by
+    variant, so this form has neither split nor tile argument; the
+    unreduced partials are :func:`.ref.ell_row_partials_ref`."""
+    return ell_spmm(cols, vals, mask, row_ids, x, n)
+
+
+def ell_spmm_graph(g: EllGraph, x: torch.Tensor) -> torch.Tensor:
+    """``ell_spmm`` over an :class:`EllGraph`, with its cached row index on
+    the card."""
+    index = g.row_index() if g.cols.device.type == "cuda" else None
+    return ell_spmm(g.cols, g.vals, g.mask, g.row_ids, x, g.n, index=index)
+
+
+def ell_reach_kernel(cols: torch.Tensor, mask: torch.Tensor,
+                     row_ids: torch.Tensor, x: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """``y[v] = max(0, max_{u in N(v)} x[u])``: (n, d) → (n, d), the JAX
+    package's ``ell_reach_kernel``. As :func:`ell_spmm_kernel`, the CUDA
+    kernel fuses the per-row maxima with the segment max over ``row_ids``
+    and has no ``block_rows`` tile argument; the unreduced maxima are
+    :func:`.ref.ell_row_maxima_ref`."""
+    return ell_reach(cols, mask, row_ids, x, n)
+
+
+def ell_reach_graph(g: EllGraph, x: torch.Tensor) -> torch.Tensor:
+    """``ell_reach`` over an :class:`EllGraph`, with its cached row index on
+    the card."""
+    index = g.row_index() if g.cols.device.type == "cuda" else None
+    return ell_reach(g.cols, g.mask, g.row_ids, x, g.n, index=index)

@@ -6,6 +6,8 @@ IGPM branches of the JAX package's ``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-30b-a3b --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch smollm-135m --tokens 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch igpm-pem \\
       --bank 8 --steps 12 --churn 0.25 --hotspot --policy-dir /tmp/pem
   PYTHONPATH=src python -m repro_torch.launch.serve --arch igpm-pem \\
@@ -17,7 +19,9 @@ IGPM branches of the JAX package's ``repro.launch.serve``.
 also writes ``PREFIX.jsonl`` (span stream), ``PREFIX.json`` (Perfetto),
 ``PREFIX.prom`` (Prometheus text) and flight dumps ``PREFIX.flight.*``.
 ``--control train|frozen`` attaches the RL serving controller to an
-``--async --closed-loop`` run. The BST branch is not ported.
+``--async --closed-loop`` run. Every LM arch of the registry serves
+(qwen3-moe-30b-a3b, smollm-135m, deepseek-7b, qwen2-72b, dbrx-132b); the
+BST branch is not ported (ROADMAP item 13.4).
 """
 
 from __future__ import annotations

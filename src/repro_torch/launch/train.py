@@ -13,8 +13,9 @@ sequence, ``moe_group_size = min(4096, max(64, B·S // 8))``, the default
 tokens and labels drawn with ``numpy.random.default_rng(0)`` as the cell's
 argument factory draws them, fed to every step. The reference's
 ``--dry-run`` lowering against the production mesh has no counterpart.
-GNN and BST archs wait for ROADMAP items 13.3 and 13.4; the other LM archs
-for 13.2.
+Every LM arch of the registry trains (qwen3-moe-30b-a3b, smollm-135m,
+deepseek-7b, qwen2-72b, dbrx-132b); GNN and BST archs wait for ROADMAP
+items 13.3 and 13.4.
 """
 
 from __future__ import annotations

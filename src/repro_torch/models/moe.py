@@ -16,7 +16,10 @@ the lower expert id (a stable descending sort), the slot sort is stable,
 and the combine is a gather in which each token sums its own kept slots
 in ascending sorted-slot order, starting from zero — the order of the
 reference's scatter-add, and free of atomics, so two runs on the card
-give the same bits.
+give the same bits. The dispatch's token gather has the transpose of that
+combine as its backward (:class:`DispatchGather`): autograd's own backward
+for a gather is ``scatter_add_``, which adds a token's k slot gradients
+with atomics on the card, in no fixed order.
 """
 
 from __future__ import annotations
@@ -121,12 +124,16 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
         / (G * S * k)
     aux = E * torch.sum(me * ce)
 
+    # each token's k sorted positions, ascending: the order in which the
+    # combine adds a token's slots, and the dispatch gather's backward
+    # adds their gradients
+    order = slot_order(r.perm, k)
     # dispatch: kept slots land in a flat (G·E·C, d) buffer; dropped ones in
     # one extra row past its end, cut off before the products
     g_base = (torch.arange(G, device=dev) * (E * C))[:, None]
     dst = torch.where(r.keep, g_base + r.rows, G * E * C)
     buf = torch.zeros((G * E * C + 1, d), dtype=x.dtype, device=dev)
-    src = x.reshape(G, S, d).gather(1, r.tokens[..., None].expand(G, N, d))
+    src = DispatchGather.apply(x.reshape(G, S, d), r.tokens, order)
     buf[dst.reshape(-1)] = src.reshape(G * N, d)
     x_exp = buf[:G * E * C].view(G * E, C, d)
 
@@ -142,15 +149,49 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
     picked = y_exp.gather(
         1, torch.clamp_max(r.rows, E * C - 1)[..., None].expand(G, N, d))
     picked = picked * (r.gates * r.keep).to(y_exp.dtype)[..., None]
-    inv = torch.empty_like(r.perm)                            # slot → sorted pos
-    inv.scatter_(1, r.perm, torch.arange(N, device=dev).expand(G, N))
-    order = torch.sort(inv.view(G, S, k), dim=-1).values
-    mine = picked.gather(1, order.reshape(G, N)[..., None].expand(G, N, d)) \
+    return sum_slots(picked, order).reshape(T, d), aux.float()
+
+
+def slot_order(perm: torch.Tensor, k: int) -> torch.Tensor:
+    """(G, S, k) sorted positions of each token's k slots, ascending, from
+    the (G, N) slot sort ``perm`` (slot t·k + j is token t's j-th)."""
+    G, N = perm.shape
+    inv = torch.empty_like(perm)                              # slot → sorted pos
+    inv.scatter_(1, perm, torch.arange(N, device=perm.device).expand(G, N))
+    return torch.sort(inv.view(G, N // k, k), dim=-1).values
+
+
+def sum_slots(v: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """(G, N, d) rows in sorted-slot order → (G, S, d): each token's k rows
+    (``order``, ascending) added from zero in that order, no atomics."""
+    G, S, k = order.shape
+    d = v.shape[-1]
+    mine = v.gather(1, order.reshape(G, S * k)[..., None].expand(G, S * k, d)) \
         .view(G, S, k, d)
-    y = torch.zeros((G, S, d), dtype=y_exp.dtype, device=dev)
+    y = torch.zeros((G, S, d), dtype=v.dtype, device=v.device)
     for j in range(k):
         y = y + mine[:, :, j]
-    return y.reshape(T, d), aux.float()
+    return y
+
+
+class DispatchGather(torch.autograd.Function):
+    """``x.gather(1, tokens)`` over (G, S, d) → (G, N, d) rows in
+    sorted-slot order, with a backward that sums each token's k slot
+    gradients from zero in ascending sorted-slot order (``sum_slots``, the
+    combine's order) instead of autograd's ``scatter_add_``, whose atomics
+    make the sum's order, and so its bits, vary from run to run on the
+    card."""
+
+    @staticmethod
+    def forward(ctx, x, tokens, order):
+        ctx.save_for_backward(order)
+        G, N = tokens.shape
+        return x.gather(1, tokens[..., None].expand(G, N, x.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        order, = ctx.saved_tensors
+        return sum_slots(grad, order), None, None
 
 
 def init_moe_params(gen: torch.Generator, cfg: MoEConfig, d_model: int,

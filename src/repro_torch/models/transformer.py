@@ -10,7 +10,16 @@ is exact and keeps the card's weights at 2 bytes each in bf16. Training
 keeps f32 masters, as the reference does (``init(..., dtype=float32)``),
 and casts at each use; ``cfg.remat == "full"`` recomputes each layer in
 the backward pass (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint``.
+``jax.checkpoint``. ``cfg.remat == "dots"`` is the reference's
+``checkpoint_dots_with_no_batch_dims`` policy as a selective checkpoint
+(:func:`dots_policy`): the outputs of the products with a 2-D weight
+(``aten.mm``/``aten.addmm``: the QKV and output projections, the dense
+SwiGLU's three products, the router) are saved, everything else in the
+layer is recomputed — attention and the expert GEMMs (batched products in
+the reference, so its policy saves neither), norms, RoPE, activations.
+The flash and expert-GEMM kernels launch from Python through the
+extension, not as dispatched ops, so the policy never sees them: they run
+again in the recompute, as the reference recomputes those products.
 
 Entry points:
   init(generator, dtype)                 → params
@@ -28,11 +37,13 @@ the cache in place (the reference returns an updated copy) and returns it.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import TransformerConfig
 from repro_torch.models import layers as L
@@ -40,6 +51,20 @@ from repro_torch.models.moe import init_moe_params, moe_block
 
 Params = Dict[str, Any]
 Cache = Tuple[torch.Tensor, torch.Tensor]
+
+# the products of a 2-D weight: what checkpoint_dots_with_no_batch_dims saves
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the outputs of products without a batch
+    dimension, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXTS = functools.partial(create_selective_checkpoint_contexts,
+                                   dots_policy)
 
 
 class TransformerLM:
@@ -185,20 +210,16 @@ class TransformerLM:
         if positions is None:
             positions = torch.arange(S, device=tokens.device)[None] \
                 .expand(B, S)
-        if cfg.remat == "dots":
-            raise NotImplementedError(
-                "TransformerLM: remat='dots' (jax.checkpoint_policies."
-                "checkpoint_dots_with_no_batch_dims) waits for the other LM "
-                "configs (ROADMAP queue 1, item 13.2)")
-        if cfg.remat not in ("full", "none"):
+        if cfg.remat not in ("full", "dots", "none"):
             raise ValueError(f"TransformerLM: unknown remat {cfg.remat!r}")
-        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        kw = {"context_fn": _DOTS_CONTEXTS} if cfg.remat == "dots" else {}
         x = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for lp in params["layers"]:
             if remat:
                 x, a = checkpoint(self._layer, lp, x, positions,
-                                  use_reentrant=False)
+                                  use_reentrant=False, **kw)
             else:
                 x, a = self._layer(lp, x, positions)
             aux = aux + a

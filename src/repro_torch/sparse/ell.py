@@ -21,6 +21,12 @@ Under the graph mesh axis the mirror is split into per-shard row blocks
 (:class:`EllBlocks`, :func:`build_ell_sharded`): block ``d`` holds the rows
 of vertex slice ``[d·n_loc, (d+1)·n_loc)`` with slice-local ``row_ids`` and
 global column ids, on shard ``d``'s device.
+
+:func:`ell_spmm`, :func:`ell_spmv` and :func:`ell_degree` are products with
+the adjacency; they run the SpMM kernel on the card and its plain version
+on the CPU (:func:`repro_torch.kernels.spmv_ell.ops.ell_spmm_graph`), so
+their sums have the kernel's fixed order. :func:`dense_adj` materialises
+the adjacency for tests.
 """
 
 from __future__ import annotations
@@ -50,6 +56,14 @@ class EllGraph:
     n: int
     _index: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default=None, repr=False)
+
+    @property
+    def k(self) -> int:
+        return self.cols.shape[1]
+
+    @property
+    def r(self) -> int:
+        return self.cols.shape[0]
 
     def row_index(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(perm int32[R_live], row_ptr int32[n+1])``: the rows holding at
@@ -209,3 +223,28 @@ def build_ell_sharded(senders: np.ndarray, receivers: np.ndarray, n: int,
                                 n_loc, weights=weights[sel], k=k,
                                 r_cap=r_cap_block, device=devices[d]))
     return EllBlocks(tuple(blocks))
+
+
+def ell_spmm(g: EllGraph, x: torch.Tensor) -> torch.Tensor:
+    """``y[v] = Σ_{u in N(v)} w(v,u)·x[u]`` for dense f32 x: (n, d) → (n, d)."""
+    from repro_torch.kernels.spmv_ell.ops import ell_spmm_graph
+    return ell_spmm_graph(g, x.contiguous())
+
+
+def ell_spmv(g: EllGraph, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` for a vector x: (n,) → (n,)."""
+    return ell_spmm(g, x[:, None])[:, 0]
+
+
+def ell_degree(g: EllGraph) -> torch.Tensor:
+    """Weighted out-degree per vertex, (n,) f32: the product with ones."""
+    return ell_spmv(g, torch.ones((g.n,), dtype=torch.float32,
+                                  device=g.cols.device))
+
+
+def dense_adj(g: EllGraph) -> torch.Tensor:
+    """Materialise the dense (n, n) adjacency (tests only — O(n²))."""
+    a = torch.zeros((g.n, g.n), dtype=g.vals.dtype, device=g.vals.device)
+    rows = g.row_ids.to(torch.int64)[:, None].expand(-1, g.k)
+    w = torch.where(g.mask, g.vals, torch.zeros_like(g.vals))
+    return a.index_put_((rows, g.cols.to(torch.int64)), w, accumulate=True)

@@ -1050,3 +1050,96 @@ def test_cuda_expert_gemm_backward_matches_plain_version(cuda_device, G, E,
     for g, want in zip(out["cuda"][:2], out["cpu"][:2]):
         assert g.dtype == tdt
         torch.testing.assert_close(g.float().cpu(), want.float(), **tol)
+
+
+# -- the other LM configs' shapes, and repeatable training ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,hd", [
+    (9, 3, 64),      # smollm-135m: hd 64, G 3
+    (32, 32, 128),   # deepseek-7b: MHA, G 1
+    (48, 8, 128),    # dbrx-132b: G 6
+])
+def test_cuda_flash_at_the_lm_configs_head_shapes(cuda_device, H, KV, hd):
+    """The TMA + wgmma forward and backward at the head layouts of the
+    other LM configs (S 1,024 and a ragged 1,000): O within
+    ``_assert_flash_close`` and dq, dk, dv within ``_grad_allowance_used``
+    of the plain versions, one launch of each TMA kernel, two launches
+    bitwise equal."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    for S in (1024, 1000):
+        q, k, v, do = _flash_inputs(S, S, H, KV, hd, "bfloat16",
+                                    cuda_device, S + H + hd)
+        before = dict(flash_ops.LAUNCHES)
+        o, lse = flash_ops.flash_attention(q, k, v, return_lse=True)
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse)
+        assert {n: flash_ops.LAUNCHES[n] - before[n] for n in before} == {
+            "flash_attention_fwd_wgmma": 1, "flash_attention_bwd_wgmma": 1,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+        _assert_flash_close(o, flash_attention_ref(q, k, v), "bfloat16")
+        want = flash_attention_bwd_ref(q, k, v, o, do, lse)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            used = _grad_allowance_used(g, w, "bfloat16")
+            assert used <= 1.0, f"S {S} {name}: {used:.2f} of the allowance"
+        assert torch.equal(o, flash_ops.flash_attention(q, k, v))
+        again = flash_ops.flash_attention_bwd(q, k, v, o, do, lse)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase,G,C,variant", [
+    ("prefill", 2, 1288, "expert_gemm_wgmma"),   # 2 × 4,096 tokens, C 1,288
+    ("decode", 1, 8, "expert_gemm_skinny"),      # 2 tokens, C 8
+])
+def test_cuda_expert_gemm_at_dbrx_shapes(cuda_device, phase, G, C, variant):
+    """dbrx-132b's three expert products (d 6,144, f 10,752, 16 experts) at
+    the served prefill and decode capacities, on the variant the shape
+    picks, against the plain version (bf16 to rtol / atol 2e-2, outputs
+    O(1)), two launches bitwise equal."""
+    E, d, f = 16, 6144, 10752
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
+    s_in = (2.0 / (d + f)) ** 0.5
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * scale).to(torch.bfloat16)
+    for din, dout in ((d, f), (d, f), (f, d)):     # gate, up, down
+        x, w = randn(G * E, C, din), randn(E, din, dout, scale=s_in)
+        before = dict(gemm_ops.LAUNCHES)
+        y = gemm_ops.expert_gemm(x, w)
+        assert {n: gemm_ops.LAUNCHES[n] - before[n] for n in before} == {
+            n: int(n == variant) for n in before}
+        torch.testing.assert_close(y.float(), expert_gemm_ref(x, w).float(),
+                                   **_tol("bfloat16"))
+        assert torch.equal(y, gemm_ops.expert_gemm(x, w))
+        del x, w, y
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_block_backward_repeats_bitwise(cuda_device):
+    """Two backward passes of ``moe_block`` at top-8 and train-lm's shape
+    (4 groups of 1,024 tokens, d 2,048, 128 experts of d_ff 768, capacity
+    88; bf16 activations, f32 master weights) give the same bits for dx
+    and every weight's gradient, the router's included: the dispatch
+    gather's backward adds each token's 8 slots in a fixed order."""
+    from repro_torch.config.base import MoEConfig
+    from repro_torch.models.moe import init_moe_params, moe_block, route
+    mcfg = MoEConfig(n_experts=128, top_k=8, d_ff_expert=768)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_moe_params(gen, mcfg, 2048, torch.float32)
+    x = torch.randn((4096, 2048), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    dy = torch.randn((4096, 2048), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    assert route(x, params["router"], mcfg, 4).C == 88
+    runs = []
+    for _ in range(2):
+        xi = x.detach().requires_grad_()
+        p = {n: t.detach().requires_grad_() for n, t in params.items()}
+        y, aux = moe_block(xi, p, mcfg, 4)
+        torch.autograd.backward((y, aux), (dy, torch.ones_like(aux)))
+        runs.append([xi.grad] + [p[n].grad for n in sorted(p)])
+    for a, b in zip(*runs):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)

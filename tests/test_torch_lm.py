@@ -456,7 +456,8 @@ def test_qwen3_configs_match_reference():
 
 def test_registry_lists_ported_archs_only():
     from repro.config.registry import get_arch as r_get_arch
-    assert list_archs() == ["igpm-pem", "qwen3-moe-30b-a3b"]
+    assert list_archs() == ["dbrx-132b", "deepseek-7b", "igpm-pem",
+                            "qwen2-72b", "qwen3-moe-30b-a3b", "smollm-135m"]
     for arch_id in list_archs():
         for smoke in (False, True):
             ours, theirs = get_arch(arch_id, smoke), r_get_arch(arch_id, smoke)
@@ -465,6 +466,6 @@ def test_registry_lists_ported_archs_only():
             assert dataclasses.asdict(ours.model) == \
                 dataclasses.asdict(theirs.model)
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("qwen2-72b")
+        get_arch("schnet")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")

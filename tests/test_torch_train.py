@@ -362,6 +362,36 @@ def test_expert_gemm_grad_matches_jax_grad(G, E, C, d, f):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("G,S,k,E,d", [(2, 16, 2, 4, 8), (1, 24, 8, 16, 16),
+                                       (4, 9, 3, 5, 5)])
+def test_dispatch_gather_backward_sums_slots_in_sorted_order(G, S, k, E, d):
+    """The MoE dispatch gather's backward adds each token's k slot
+    gradients from zero in ascending sorted-slot order: bit for bit an
+    explicit loop over the sorted slots (gradients spread over six
+    decades, so another order would round differently)."""
+    from repro_torch.models import moe as TM
+    rng = np.random.default_rng(G * S + k)
+    experts = torch.as_tensor(rng.integers(0, E, (G, S * k)))
+    perm = torch.sort(experts, dim=1, stable=True).indices
+    tokens = perm // k                 # slot t·k + j belongs to token t
+    order = TM.slot_order(perm, k)
+    x = torch.as_tensor(rng.standard_normal((G, S, d)).astype(np.float32))
+    x.requires_grad_()
+    y = TM.DispatchGather.apply(x, tokens, order)
+    assert torch.equal(y.detach(), x.detach().gather(
+        1, tokens[..., None].expand(G, S * k, d)))
+    g = torch.as_tensor((rng.standard_normal((G, S * k, d))
+                         * 10.0 ** rng.uniform(-3, 3, (G, S * k, 1)))
+                        .astype(np.float32))
+    y.backward(g)
+    want = torch.zeros((G, S, d))
+    for gi in range(G):
+        for i in range(S * k):         # ascending sorted position
+            t = int(tokens[gi, i])
+            want[gi, t] = want[gi, t] + g[gi, i]
+    assert torch.equal(x.grad, want)
+
+
 # -- the model's loss and gradients ------------------------------------------------
 
 def _batch(cfg, seed, B=2, S=16):
@@ -429,10 +459,23 @@ def test_remat_full_gives_bitwise_equal_grads_and_recomputes(monkeypatch):
 
 
 def test_remat_dots_waits_for_its_item():
-    model = TransformerLM(dataclasses.replace(DENSE, remat="dots"))
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="13.2"):
-        model.forward(params, torch.zeros((1, 4), dtype=torch.int32))
+    """Its item (ROADMAP 13.2) has landed: ``remat="dots"`` is accepted and
+    gives ``remat="none"``'s loss bit for bit (its gradients and recompute
+    are held per config in ``tests/test_torch_lm_configs.py``); an unknown
+    policy is still refused."""
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    losses = []
+    for remat in ("none", "dots"):
+        model = TransformerLM(dataclasses.replace(DENSE, remat=remat))
+        params = model.init(torch.Generator().manual_seed(0),
+                            dtype=torch.float32)
+        for p in TA.tree_leaves(params):
+            p.requires_grad_()
+        losses.append(model.loss(params, toks, toks))
+    assert torch.equal(losses[0].detach(), losses[1].detach())
+    model = TransformerLM(dataclasses.replace(DENSE, remat="some"))
+    with pytest.raises(ValueError, match="unknown remat"):
+        model.forward(params, toks)
 
 
 def test_init_keeps_f32_masters_on_request():
@@ -653,7 +696,7 @@ def test_train_cli_feeds_the_reference_cells_batch():
                                           ("schnet", "13.3"),
                                           ("graphcast", "13.3"),
                                           ("bst", "13.4"),
-                                          ("smollm-135m", "13.2")])
+                                          ("meshgraphnet", "13.3")])
 def test_train_cli_names_the_item_an_unported_arch_waits_for(arch_id, item):
     with pytest.raises(KeyError, match=item):
         ttrain.main(["--arch", arch_id, "--device", "cpu"])
