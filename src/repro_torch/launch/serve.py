@@ -1,11 +1,13 @@
 """Serving CLI, on the reduced config of the arch, on the card unless
 ``--device cpu`` is given: prefill + greedy decode with a KV cache (LM
-archs), or the continuous multi-query pattern-match server (IGPM),
-synchronous or under the async runtime, traced on request — the LM and
-IGPM branches of the JAX package's ``repro.launch.serve``.
+archs), batched click scoring (BST), or the continuous multi-query
+pattern-match server (IGPM), synchronous or under the async runtime,
+traced on request — the PyTorch port of the JAX package's
+``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-30b-a3b --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch bst
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch smollm-135m --tokens 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch igpm-pem \\
@@ -20,8 +22,8 @@ also writes ``PREFIX.jsonl`` (span stream), ``PREFIX.json`` (Perfetto),
 ``PREFIX.prom`` (Prometheus text) and flight dumps ``PREFIX.flight.*``.
 ``--control train|frozen`` attaches the RL serving controller to an
 ``--async --closed-loop`` run. Every LM arch of the registry serves
-(qwen3-moe-30b-a3b, smollm-135m, deepseek-7b, qwen2-72b, dbrx-132b); the
-BST branch is not ported (ROADMAP item 13.4).
+(qwen3-moe-30b-a3b, smollm-135m, deepseek-7b, qwen2-72b, dbrx-132b), and
+bst; the GNN archs have no serve path, as in the reference.
 """
 
 from __future__ import annotations
@@ -78,6 +80,26 @@ def greedy_generate(model: TransformerLM, params: Params,
     decode_s = time.perf_counter() - t0
     return Generation(torch.cat(out, dim=1), logits, (ks, vs), prefill_s,
                       decode_s)
+
+
+def serve_bst(arch, device="cuda") -> None:
+    """The reduced ``serve_p99`` cell scored once to warm up, then 20
+    times: ms per batch and the first four click probabilities."""
+    from repro_torch.launch.cells import bst_cell
+
+    device = torch.device(device)
+    reps = 20
+    cell = bst_cell(arch, "serve_p99", device, smoke=True)
+    with torch.no_grad():
+        probs = cell.step_fn(*cell.args)
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            probs = cell.step_fn(*cell.args)
+        _sync(device)
+    per = (time.perf_counter() - t0) / reps * 1e3
+    print(f"[serve] bst p99-path batch={probs.shape[0]}: {per:.2f} ms/batch; "
+          f"probs[:4]={probs[:4].cpu().numpy().round(3)}")
 
 
 def serve_lm(arch, tokens_out: int, batch: int = 2,
@@ -460,6 +482,8 @@ def main(argv=None) -> None:
     arch = get_arch(args.arch, smoke=True)
     if arch.family == "lm":
         serve_lm(arch, args.tokens, device=args.device)
+    elif arch.family == "recsys":
+        serve_bst(arch, device=args.device)
     elif arch.family == "igpm":
         obs = _obs_config(args)
         if args.use_async:
@@ -479,8 +503,7 @@ def main(argv=None) -> None:
                        policy_dir=args.policy_dir, register=args.register,
                        retire=args.retire, device=args.device, obs=obs)
     else:
-        raise SystemExit(f"{args.arch} ({arch.family}) has no serve path "
-                         f"in the port yet (see ROADMAP.md)")
+        raise SystemExit(f"{args.arch} ({arch.family}) has no serve path")
 
 
 if __name__ == "__main__":

@@ -1,21 +1,23 @@
-"""Training launcher: ``--arch <id>`` runs the reduced (smoke) config of an
-LM arch for a few steps, on the card unless ``--device cpu`` is given (the
-LM branch of the JAX package's ``repro.launch.train``).
+"""Training launcher: ``--arch <id>`` runs the reduced (smoke) config of
+an arch's train shape for a few steps, on the card unless ``--device cpu``
+is given (the PyTorch port of the JAX package's ``repro.launch.train``).
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch qwen3-moe-30b-a3b --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dimenet --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bst --device cpu
 
-The train cell is built here as the reference's ``launch/cells.py`` builds
-its smoke cell (``_LM_SMOKE_DIMS`` and ``_lm_cell``; ``cells.py`` itself is
-a TPU tool that waits for ROADMAP item 13.5): the shape's reduced batch and
+The LM train cell is built here as the reference's ``launch/cells.py``
+builds its smoke cell (``_LM_SMOKE_DIMS`` and ``_lm_cell``; the GNN and
+BST cells are ``repro_torch.launch.cells``): the shape's reduced batch and
 sequence, ``moe_group_size = min(4096, max(64, B·S // 8))``, the default
 ``TrainConfig()``, f32 master weights drawn from seed 0, and one batch of
 tokens and labels drawn with ``numpy.random.default_rng(0)`` as the cell's
-argument factory draws them, fed to every step. The reference's
-``--dry-run`` lowering against the production mesh has no counterpart.
-Every LM arch of the registry trains (qwen3-moe-30b-a3b, smollm-135m,
-deepseek-7b, qwen2-72b, dbrx-132b); GNN and BST archs wait for ROADMAP
-items 13.3 and 13.4.
+argument factory draws them, fed to every step. Every arch with a train
+shape trains: the five LMs, schnet, dimenet, meshgraphnet, graphcast and
+bst (the GNNs' first train shape is ``full_graph_sm``, BST's
+``train_batch``). The reference's ``--dry-run`` lowering against the
+production mesh waits for ROADMAP item 13.5.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.config.base import TrainConfig
 from repro_torch.config.registry import get_arch
+from repro_torch.launch.cells import build_cell
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.train.state import make_train_step, new_train_state
 
@@ -66,7 +69,7 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
     arch = get_arch(args.arch, smoke=True)
-    if arch.family != "lm":
+    if arch.family not in ("lm", "gnn", "recsys"):
         raise SystemExit(f"{args.arch} is a {arch.family} arch: it has no "
                          f"train shape")
     shape = args.shape or next(s.name for s in arch.shapes
@@ -75,14 +78,21 @@ def main(argv=None) -> None:
     if kind != "train":
         raise SystemExit(f"shape {shape} is {kind}, not train")
     device = torch.device(args.device)
-    model, state, tokens, labels = lm_train_cell(arch.model, shape, device)
-    step = make_train_step(model.loss, TrainConfig())
+    if arch.family == "lm":
+        model, state, tokens, labels = lm_train_cell(arch.model, shape,
+                                                     device)
+        step = make_train_step(model.loss, TrainConfig())
+        batch = (tokens, labels)
+    else:
+        cell = build_cell(arch, shape, device, smoke=True)
+        step = cell.step_fn
+        state, *batch = cell.args
     print(f"[train] {args.arch}/{shape} (reduced config) — {args.steps} "
           f"steps on {device}")
     t0 = time.time()
     m = None
     for i in range(args.steps):
-        state, m = step(state, tokens, labels)
+        state, m = step(state, *batch)
         if i % args.log_every == 0:
             print(f"  step {i:4d} loss {float(m['loss']):.4f} "
                   f"gnorm {float(m['grad_norm']):.3f}")

@@ -1,0 +1,167 @@
+"""BST — Behavior Sequence Transformer (Chen et al., arXiv:1905.06874);
+PyTorch port of ``repro.models.recsys.bst``.
+
+Assigned config: embed_dim=32, seq_len=20, 1 transformer block, 8 heads,
+MLP 1024-512-256, leaky-ReLU. The user behavior sequence (item + category
+embeddings + learned position) and the target item run through the
+transformer block (``models/layers.py:dense_attention``, not causal, as in
+the reference); the output concatenates with user-profile feature
+embeddings into the scoring MLP. ``retrieval_scores`` is the
+retrieval_cand path: one user embedding dotted against 10⁶ candidate
+embeddings (one ``torch.matmul``, as the reference's XLA product).
+
+The lookups are advanced indexing with ``jnp.take``'s semantics
+(:func:`take_rows`, :func:`take_along_fields`), whose backward is an
+accumulating ``index_put_`` that CUDA runs sorted — not ``index_select``
+or ``torch.gather``, whose CUDA backwards add with atomics — so two
+backward passes on the card give the same bits. Parameters are f32; keep
+TF32 off (PyTorch's default for matmuls) so that the card and the CPU
+agree in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.config.base import BSTConfig
+from repro_torch.models import layers as L
+from repro_torch.optim.adamw import tree_map
+from repro_torch.sparse.segment import take_along_fields, take_rows
+
+
+class BSTInputs(NamedTuple):
+    item_hist: torch.Tensor   # int32 (B, S)
+    cate_hist: torch.Tensor   # int32 (B, S)
+    target_item: torch.Tensor  # int32 (B,)
+    target_cate: torch.Tensor  # int32 (B,)
+    user_feats: torch.Tensor  # int32 (B, F)
+    labels: torch.Tensor      # f32 (B,) click labels
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: x where x ≥ 0 (so its gradient at 0 is 1)."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+class BST:
+    def __init__(self, cfg: BSTConfig):
+        self.cfg = cfg
+        self.d_model = 2 * cfg.embed_dim  # item ⊕ category per position
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """f32 weights on the generator's device, with the reference's
+        shapes and scales (the draws themselves are torch's)."""
+        cfg = self.cfg
+        d = self.d_model
+        e = cfg.embed_dim
+        dev = gen.device
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=dev) * 0.02
+
+        p: Dict[str, Any] = {
+            "item_emb": normal(cfg.n_items, e),
+            "cate_emb": normal(cfg.n_cates, e),
+            "pos_emb": normal(cfg.seq_len + 1, d),
+            "user_emb": normal(cfg.n_user_feats, cfg.user_feat_vocab, e),
+            "ln1": torch.ones((d,), device=dev),
+            "ln2": torch.ones((d,), device=dev),
+        }
+        for i in range(cfg.n_blocks):
+            p[f"blk{i}"] = {
+                "wq": L.init_linear(gen, d, d),
+                "wk": L.init_linear(gen, d, d),
+                "wv": L.init_linear(gen, d, d),
+                "wo": L.init_linear(gen, d, d),
+                "w1": L.init_linear(gen, d, 4 * d),
+                "w2": L.init_linear(gen, 4 * d, d),
+            }
+        mlp_in = (cfg.seq_len + 1) * d + cfg.n_user_feats * e
+        dims = (mlp_in,) + tuple(cfg.mlp_dims) + (1,)
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            p[f"mlp_w{i}"] = L.init_linear(gen, a, b)
+            p[f"mlp_b{i}"] = torch.zeros((b,), device=dev)
+        return p
+
+    # -- backbone -------------------------------------------------------------
+
+    def _seq_repr(self, params, item_hist, cate_hist, target_item,
+                  target_cate) -> torch.Tensor:
+        """(B, S+1, d) transformer output over [history ; target]."""
+        cfg = self.cfg
+        it = torch.cat([item_hist, target_item[:, None]], dim=1)
+        ct = torch.cat([cate_hist, target_cate[:, None]], dim=1)
+        x = torch.cat([take_rows(params["item_emb"], it),
+                       take_rows(params["cate_emb"], ct)], dim=-1)
+        x = x + params["pos_emb"][None]
+        B, S1, d = x.shape
+        H = cfg.n_heads
+        hd = d // H
+        for i in range(cfg.n_blocks):
+            bp = params[f"blk{i}"]
+            h = L.rms_norm(x, params["ln1"])
+            q = (h @ bp["wq"]).reshape(B, S1, H, hd)
+            k = (h @ bp["wk"]).reshape(B, S1, H, hd)
+            v = (h @ bp["wv"]).reshape(B, S1, H, hd)
+            o = L.dense_attention(q, k, v, causal=False)
+            x = x + o.reshape(B, S1, d) @ bp["wo"]
+            h = L.rms_norm(x, params["ln2"])
+            x = x + leaky_relu(h @ bp["w1"], cfg.leaky_slope) @ bp["w2"]
+        return x
+
+    def _user_feat_emb(self, params, user_feats) -> torch.Tensor:
+        """(B, F) ids → (B, F·e): per-field embedding tables."""
+        gathered = take_along_fields(params["user_emb"], user_feats)
+        return gathered.reshape(user_feats.shape[0], -1)
+
+    def forward(self, params, inputs: BSTInputs) -> torch.Tensor:
+        """Click logits (B,)."""
+        seq = self._seq_repr(params, inputs.item_hist, inputs.cate_hist,
+                             inputs.target_item, inputs.target_cate)
+        B = seq.shape[0]
+        x = torch.cat([seq.reshape(B, -1),
+                       self._user_feat_emb(params, inputs.user_feats)],
+                      dim=-1)
+        n_mlp = len(self.cfg.mlp_dims) + 1
+        for i in range(n_mlp):
+            x = x @ params[f"mlp_w{i}"] + params[f"mlp_b{i}"]
+            if i < n_mlp - 1:
+                x = leaky_relu(x, self.cfg.leaky_slope)
+        return x[:, 0]
+
+    def loss(self, params, inputs: BSTInputs) -> torch.Tensor:
+        logits = self.forward(params, inputs)
+        y = inputs.labels.float()
+        # jnp.maximum: a tie at 0 sends half the gradient each way
+        return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                          - logits * y
+                          + torch.log1p(torch.exp(-torch.abs(logits))))
+
+    # -- retrieval (retrieval_cand shape) --------------------------------------
+
+    def retrieval_scores(self, params, inputs: BSTInputs,
+                         cand_items: torch.Tensor,
+                         cand_cates: torch.Tensor) -> torch.Tensor:
+        """Score 10⁶ candidates against one user: (B, C) batched dot."""
+        seq = self._seq_repr(params, inputs.item_hist, inputs.cate_hist,
+                             inputs.target_item, inputs.target_cate)
+        user = seq.mean(dim=1)                                # (B, d)
+        cand = torch.cat([take_rows(params["item_emb"], cand_items),
+                          take_rows(params["cate_emb"], cand_cates)],
+                         dim=-1)
+        return user @ cand.T                                  # (B, C)
+
+
+def bst_params_from_jax(cfg: BSTConfig, tree, device="cuda"
+                        ) -> Dict[str, Any]:
+    """The JAX package's ``BST.init`` tree (leaves as numpy or JAX arrays)
+    as this port's f32 parameters on ``device``; ``cfg`` is checked
+    against the tree's shapes."""
+    if np.shape(tree["item_emb"]) != (cfg.n_items, cfg.embed_dim):
+        raise ValueError(f"item_emb {np.shape(tree['item_emb'])} is not "
+                         f"({cfg.n_items}, {cfg.embed_dim})")
+    return tree_map(lambda a: torch.as_tensor(
+        np.array(a, dtype=np.float32)).to(device), tree)

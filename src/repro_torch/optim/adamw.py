@@ -50,7 +50,10 @@ def reference_ndims(tree, extra: int = 0) -> List[int]:
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the matching leaves of the
-    trees in ``rest``), keeping the structure."""
+    trees in ``rest``), keeping the structure; ``None`` stays ``None``, as
+    an empty subtree does under ``jax.tree.map``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

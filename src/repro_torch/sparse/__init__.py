@@ -1,7 +1,24 @@
-"""Sparse layouts (ELL). The JAX package's segment, COO, embedding-bag
-and sampler modules wait for the GNNs and BST (ROADMAP items 13.3 and
-13.4)."""
+"""Sparse layouts and ops: segment reductions, ELL, COO, embedding bags
+and the neighbor sampler (PyTorch port of ``repro.sparse``)."""
 
+from repro_torch.sparse.segment import (segment_max, segment_mean,
+                                        segment_softmax, segment_sum)
 from repro_torch.sparse.ell import EllGraph, build_ell, ell_spmm, ell_spmv
+from repro_torch.sparse.coo import coo_spmm, scatter_add
+from repro_torch.sparse.embedding_bag import embedding_bag
+from repro_torch.sparse.sampler import NeighborSampler
 
-__all__ = ["EllGraph", "build_ell", "ell_spmv", "ell_spmm"]
+__all__ = [
+    "segment_sum",
+    "segment_max",
+    "segment_mean",
+    "segment_softmax",
+    "EllGraph",
+    "build_ell",
+    "ell_spmv",
+    "ell_spmm",
+    "coo_spmm",
+    "scatter_add",
+    "embedding_bag",
+    "NeighborSampler",
+]

@@ -21,7 +21,7 @@ import torch
 from repro_torch.checkpoint.checkpointer import _host_array
 from repro_torch.config.base import TrainConfig
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
-                                     tree_leaves)
+                                     tree_leaves, tree_map)
 from repro_torch.optim.schedules import warmup_cosine
 
 
@@ -36,9 +36,11 @@ def new_train_state(params) -> TrainState:
 
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
                     microbatches: int = 1) -> Callable:
-    """loss_fn(params, *batch) → scalar. Batch tensors have a leading
-    global-batch axis; with microbatches > 1 they are split as the
-    reference splits them (``reshape((microbatches, -1) + rest)``), the
+    """loss_fn(params, *batch) → scalar. Batch tensors (or named tuples,
+    tuples, lists and dicts of them, ``None`` fields passed through) have a
+    leading global-batch axis; with microbatches > 1 every tensor is split
+    as the reference's ``jax.tree.map`` splits it
+    (``reshape((microbatches, -1) + rest)``), the
     gradients summed in f32 in microbatch order and divided, and the loss
     sum divided too. ``step(state, *batch) → (state, metrics)`` with
     metrics ``loss``, ``grad_norm`` and ``lr`` (scalar tensors)."""
@@ -49,13 +51,14 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
             p.requires_grad_(True)
             p.grad = None
         if microbatches > 1:
-            split = [x.reshape((microbatches, -1) + tuple(x.shape[1:]))
-                     for x in batch]
+            split = tree_map(lambda x: x.reshape(
+                (microbatches, -1) + tuple(x.shape[1:])), batch)
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
             acc = [None] * len(leaves)  # f32 sums of non-f32 leaves' grads
             for i in range(microbatches):
-                mb_loss = loss_fn(state.params, *(x[i] for x in split))
+                mb_loss = loss_fn(state.params,
+                                  *tree_map(lambda x: x[i], split))
                 mb_loss.backward()
                 loss = loss + mb_loss.detach()
                 for j, p in enumerate(leaves):

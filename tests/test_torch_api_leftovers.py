@@ -170,12 +170,11 @@ def test_sparse_dense_adj_matches(ells):
 
 
 def test_sparse_package_exports_the_ported_names():
-    """The reference's ``sparse`` exports that are ported; the segment,
-    COO, embedding-bag and sampler exports wait for ROADMAP 13.3 / 13.4."""
-    waiting = {"segment_sum", "segment_max", "segment_mean",
-               "segment_softmax", "coo_spmm", "scatter_add",
-               "embedding_bag", "NeighborSampler"}
-    assert set(tsparse.__all__) == set(rsparse.__all__) - waiting
+    """Every export of the reference's ``sparse``: ELL, and since items
+    13.3 / 13.4 the segment, COO, embedding-bag and sampler ones."""
+    assert set(tsparse.__all__) == set(rsparse.__all__)
+    for name in rsparse.__all__:
+        assert getattr(tsparse, name) is not None
     assert tsparse.ell_spmm is tell.ell_spmm
     assert tsparse.EllGraph is tell.EllGraph
 

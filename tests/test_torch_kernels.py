@@ -1143,3 +1143,112 @@ def test_cuda_moe_block_backward_repeats_bitwise(cuda_device):
     for a, b in zip(*runs):
         assert torch.isfinite(a.float()).all()
         assert torch.equal(a, b)
+
+
+# -- the fixed-order segment sum on the card (GNN and BST paths) ----------------
+
+def _zipf_ids(rng, n_rows, n_seg):
+    """Heavy-tailed segment sizes: Zipf(1.3) ranks over shuffled ids."""
+    ids = np.minimum(rng.zipf(1.3, n_rows) - 1, n_seg - 1)
+    return rng.permutation(n_seg)[ids].astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 16, 128])
+def test_cuda_segment_sum_repeats_and_equals_the_cpu_sum(cuda_device, d):
+    """2^20 rows into 65,536 segments of heavy-tailed sizes (the largest
+    holds ~10 % of the rows): two card calls give the same bits, and the
+    f32 sums equal the CPU port's (ascending row order from zero) bit for
+    bit, at one column (the two-column path) and at 16 and 128."""
+    from repro_torch.sparse.segment import segment_sum
+    rng = np.random.default_rng(d)
+    n_rows, n_seg = 1 << 20, 1 << 16
+    ids = _zipf_ids(rng, n_rows, n_seg)
+    x = rng.standard_normal((n_rows, d) if d > 1 else n_rows) \
+        .astype(np.float32)
+    xc = torch.as_tensor(x, device=cuda_device)
+    ic = torch.as_tensor(ids, device=cuda_device)
+    a = segment_sum(xc, ic, n_seg)
+    b = segment_sum(xc, ic, n_seg)
+    assert torch.equal(a, b)
+    want = segment_sum(torch.as_tensor(x), torch.as_tensor(ids), n_seg)
+    assert torch.equal(a.cpu(), want)
+    xb = xc.to(torch.bfloat16)
+    assert torch.equal(segment_sum(xb, ic, n_seg), segment_sum(xb, ic, n_seg))
+
+
+@pytest.mark.cuda
+def test_cuda_segment_ops_drop_out_of_range_ids(cuda_device):
+    """Ids below 0 and at or past num_segments are dropped on the card as
+    JAX drops them, with no device-side assert: the card's results equal
+    the CPU port's."""
+    from repro_torch.sparse.segment import (gather_rows, segment_max,
+                                            segment_mean, segment_sum,
+                                            take_rows)
+    rng = np.random.default_rng(5)
+    n = 1000
+    ids = rng.integers(0, n, 50_000).astype(np.int32)
+    ids[::9] = rng.choice([-1, -n, n, n + 5, 3 * n], len(ids[::9]))
+    x = rng.standard_normal((50_000, 8)).astype(np.float32)
+    for fn in (segment_sum, segment_max, segment_mean):
+        got = fn(torch.as_tensor(x, device=cuda_device),
+                 torch.as_tensor(ids, device=cuda_device), n)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(),
+                           fn(torch.as_tensor(x), torch.as_tensor(ids), n))
+    table = torch.as_tensor(x[:n], device=cuda_device)
+    for fn in (gather_rows, take_rows):
+        got = fn(table, torch.as_tensor(ids, device=cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().isnan(),
+                           fn(table.cpu(), torch.as_tensor(ids)).isnan())
+
+
+def _grads_twice(loss_fn, params):
+    from repro_torch.optim.adamw import tree_leaves
+    leaves = tree_leaves(params)
+    runs = []
+    for _ in range(2):
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        loss_fn(params).backward()
+        runs.append([p.grad.clone() for p in leaves])
+    for p in leaves:
+        p.requires_grad_(False)
+        p.grad = None
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["meshgraphnet", "schnet", "dimenet",
+                                  "graphcast"])
+def test_cuda_gnn_layer_backward_repeats_bitwise(cuda_device, kind):
+    """One layer of each GNN at its FULL widths (bf16 message passing) on
+    the molecule cell's FULL sizes (N 3,840, E 16,384; DimeNet's 131,072
+    triplets; GraphCast's refinement-6 mesh): two backward passes give the
+    same bits in every gradient leaf."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch.cells import gnn_cell
+    arch = get_arch(kind).replace_model(n_layers=1)
+    cell = gnn_cell(arch, "molecule", cuda_device)
+    state, inputs = cell.args
+    runs = _grads_twice(lambda p: cell.model.loss(p, inputs), state.params)
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_bst_loss_backward_repeats_bitwise(cuda_device):
+    """BST FULL at train_batch's 65,536 rows (1,376,256 item and as many
+    category lookups into 16,384 categories): two backward passes of the
+    loss give the same bits in every gradient leaf."""
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch.cells import bst_cell
+    cell = bst_cell(get_arch("bst"), "train_batch", cuda_device)
+    state, inputs = cell.args
+    runs = _grads_twice(lambda p: cell.model.loss(p, inputs), state.params)
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)

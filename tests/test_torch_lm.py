@@ -455,9 +455,15 @@ def test_qwen3_configs_match_reference():
 
 
 def test_registry_lists_ported_archs_only():
+    """Every arch of the reference's registry is ported (the GNNs and BST
+    since items 13.3 and 13.4): the same ids, families, sources and FULL
+    and SMOKE configs field by field."""
     from repro.config.registry import get_arch as r_get_arch
-    assert list_archs() == ["dbrx-132b", "deepseek-7b", "igpm-pem",
-                            "qwen2-72b", "qwen3-moe-30b-a3b", "smollm-135m"]
+    from repro.config.registry import list_archs as r_list_archs
+    assert list_archs() == r_list_archs() == [
+        "bst", "dbrx-132b", "deepseek-7b", "dimenet", "graphcast",
+        "igpm-pem", "meshgraphnet", "qwen2-72b", "qwen3-moe-30b-a3b",
+        "schnet", "smollm-135m"]
     for arch_id in list_archs():
         for smoke in (False, True):
             ours, theirs = get_arch(arch_id, smoke), r_get_arch(arch_id, smoke)
@@ -465,7 +471,5 @@ def test_registry_lists_ported_archs_only():
                 (theirs.arch_id, theirs.family, theirs.source)
             assert dataclasses.asdict(ours.model) == \
                 dataclasses.asdict(theirs.model)
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("schnet")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
