@@ -47,9 +47,13 @@ Phases, each printed on its own lines:
    launches bitwise equal), timed beside the backward of
    ``scaled_dot_product_attention`` through autograd, the bound and, for
    the TMA kernel, its two-pass floor (7 products); the expert GEMM's
-   backward products at the train shapes (dX = dY·Wᵀ and dW = Xᵀ·dY of
-   the gate and down products, G 4, C 88) against the plain version, timed
-   beside ``torch.matmul``, and the plain-torch transposes they need. Then
+   backward products at the train shapes (dX = dY·Wᵀ on
+   ``expert_gemm_dx`` and dW = Σ_g Xᵀ·dY on ``expert_gemm_dw``, of the gate
+   and down products, G 4, C 88) against their plain versions (within
+   2e-2 of each element and of the output's RMS; two launches bitwise
+   equal), timed beside ``torch.bmm`` (dX: W as op T; dW: on transposed
+   copies), the first backward's route (the tiles variant on the copies)
+   and the plain-torch copies it needed. Then
    the same kernels at the other LM configs' shapes, held and timed the
    same way: the flash forward at train-smollm's microbatch (B 4, S 4,096,
    H 9, KV 3, hd 64) and deepseek-7b's prefill (B 2, H 32, KV 32, hd 128:
@@ -165,8 +169,9 @@ Phases, each printed on its own lines:
    the last below step 0's, and the launches counted exactly (per step
    and microbatch and layer: 2 flash forwards — the forward and its
    recompute — on the TMA + wgmma kernel, 1 flash backward on the TMA +
-   wgmma backward kernel and none on the first one, 12 expert
-   GEMMs of the tiles variant — 3 forward, 3 recompute, 6 backward), and
+   wgmma backward kernel and none on the first one, 6 expert GEMMs of
+   the tiles variant — 3 forward, 3 recompute — and 3 each of the
+   backward's ``expert_gemm_dx`` and ``expert_gemm_dw``), and
    the same 5 steps run again from the same seed without the loop (no
    checkpoint): losses and grad norms must be bitwise equal; then
    train-smollm — smollm-135m ``FULL`` at its whole depth (30 layers, tied
@@ -770,10 +775,11 @@ def phase_train_kernels(reps: int):
     import torch
     from repro_torch.configs.qwen3_moe_30b_a3b import FULL
     from repro_torch.kernels.expert_gemm import ops as gemm_ops
-    from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
+    from repro_torch.kernels.expert_gemm.ref import (expert_gemm_dw_ref,
+                                                     expert_gemm_dx_ref)
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.measure import H100_BF16_FLOPS, cuda_ms
+    from repro_torch.kernels.measure import cuda_ms
     from repro_torch.models.moe import moe_capacity
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf, f32 = torch.bfloat16, torch.float32
@@ -827,7 +833,8 @@ def phase_train_kernels(reps: int):
         torch.cuda.empty_cache()
 
     # the expert GEMM's backward products at the train shapes: groups of
-    # TRAIN_GROUP tokens of one microbatch, capacity 88
+    # TRAIN_GROUP tokens of one microbatch, capacity 88; each beside the
+    # first backward's route (the tiles variant on transposed copies)
     moe = FULL.moe
     E, d, f = moe.n_experts, FULL.d_model, moe.d_ff_expert
     G = TRAIN_SEQ // TRAIN_GROUP
@@ -837,50 +844,83 @@ def phase_train_kernels(reps: int):
         x = randn(G * E, C, din)
         w = randn(E, din, dout, scale=s_in)
         dy = randn(G * E, C, dout, scale=(G * C) ** -0.5)
+
+        def x_dy_copies():
+            return (x.view(G, E, C, din).permute(1, 3, 0, 2)
+                    .reshape(E, din, G * C),
+                    dy.view(G, E, C, dout).transpose(0, 1)
+                    .reshape(E, G * C, dout))
         t_w = cuda_ms(lambda: w.transpose(1, 2).contiguous(), reps)
-        t_xy = cuda_ms(lambda: (
-            x.view(G, E, C, din).permute(1, 3, 0, 2).reshape(E, din, G * C),
-            dy.view(G, E, C, dout).transpose(0, 1).reshape(E, G * C, dout)),
-            reps)
+        t_xy = cuda_ms(x_dy_copies, reps)
         wt = w.transpose(1, 2).contiguous()
-        xt = x.view(G, E, C, din).permute(1, 3, 0, 2).reshape(E, din, G * C)
-        dyt = dy.view(G, E, C, dout).transpose(0, 1).reshape(E, G * C, dout)
-        for prod, a, b, lib_a in (("dX", dy, wt, dy.view(G, E, C, dout)),
-                                  ("dW", xt, dyt, xt)):
-            before = dict(gemm_ops.LAUNCHES)
-            y = gemm_ops.expert_gemm(a, b)
-            check(gemm_ops.LAUNCHES[gemm_ops.TILES]
-                  == before[gemm_ops.TILES] + 1,
-                  f"expert_gemm train {label} {prod}: not the tiles variant")
-            want = expert_gemm_ref(a, b)
-            atol = LM_KERNEL_RTOL * float(want.float().pow(2).mean().sqrt())
-            err, used = lm_check(f"expert_gemm train {label} {prod}", y,
-                                 gemm_ops.expert_gemm(a, b), want, atol)
-            ms = cuda_ms(lambda: gemm_ops.expert_gemm(a, b), reps)
-            plain = cuda_ms(lambda: expert_gemm_ref(a, b), 3, warmup=1)
-            lib = cuda_ms(lambda: torch.matmul(lib_a, b), reps)
-            nbytes = sum(t.numel() * t.element_size() for t in (a, b, y))
-            flops = 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
-            b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
-            say(f"  expert_gemm_wgmma train {label} {prod}: "
-                f"{tuple(a.shape)} x {tuple(b.shape)} bf16: max_abs_err="
-                f"{err:.3e} ({used:.3f} of the allowance) run-to-run bitwise"
-                f" equal; {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
-                f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-                f"{flops} flop)")
-            rows[(gemm_ops.TILES, f"train {label} {prod}")] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, flops=flops, max_abs_err=err,
-                tol_used=used, shape=f"{tuple(a.shape)} x {tuple(b.shape)} "
-                                     f"bf16")
-            del y, want
-        say(f"  expert GEMM backward transposes (plain torch), train "
-            f"{label}: W^T {t_w:.4f} ms, X and dY for dW {t_xy:.4f} ms")
+        xt, dyt = x_dy_copies()
+        # the yardsticks: for dX, cuBLAS on dY as (E, G·C, f) with W read
+        # where it lies (op T); for dW, cuBLAS on the copies
+        for name, prod, inputs, fn, ref, lib, copies_route in (
+                (gemm_ops.DX, "dX", (dy, w),
+                 lambda: gemm_ops.expert_gemm_dx(dy, w),
+                 lambda: expert_gemm_dx_ref(dy, w),
+                 lambda: torch.bmm(dyt, w.mT),
+                 lambda: gemm_ops.expert_gemm(dy, wt)),
+                (gemm_ops.DW, "dW", (x, dy),
+                 lambda: gemm_ops.expert_gemm_dw(x, dy, E),
+                 lambda: expert_gemm_dw_ref(x, dy, E),
+                 lambda: torch.bmm(xt, dyt),
+                 lambda: gemm_ops.expert_gemm(xt, dyt))):
+            rows[(name, f"train {label}")] = gemm_bwd_row(
+                name, f"train {label} {prod}", fn, ref, lib, copies_route,
+                inputs, G * E * C * din * dout, reps)
+        say(f"  expert GEMM backward copies (plain torch, the first "
+            f"backward's route), train {label}: W^T {t_w:.4f} ms, X and dY "
+            f"for dW {t_xy:.4f} ms")
         rows[("gemm transposes", label)] = dict(w_ms=t_w, x_dy_ms=t_xy)
         del x, w, dy, wt, xt, dyt
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return rows
+
+
+def gemm_bwd_row(name: str, label: str, fn, ref, lib, copies_route, inputs,
+                 macs: int, reps: int) -> dict:
+    """One backward product ``fn()`` held against its plain version
+    ``ref()`` (one launch of kernel ``name`` and none other, two launches
+    bitwise equal, within ``LM_KERNEL_RTOL`` of each element and of the
+    output's RMS), timed beside one PyTorch call ``lib()``, the first
+    backward's route ``copies_route()`` (its copies not included), and its
+    bound over ``inputs`` and the output."""
+    import torch
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.measure import H100_BF16_FLOPS, cuda_ms
+    before = dict(gemm_ops.LAUNCHES)
+    y = fn()
+    check({k: gemm_ops.LAUNCHES[k] - before[k] for k in before}
+          == {k: int(k == name) for k in before},
+          f"{name} {label}: not one launch of {name} ({gemm_ops.LAUNCHES})")
+    want = ref()
+    atol = LM_KERNEL_RTOL * float(want.float().pow(2).mean().sqrt())
+    err, used = lm_check(f"{name} {label}", y, fn(), want, atol)
+    del want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(fn, reps)
+    plain = cuda_ms(ref, 3, warmup=1)
+    lib_ms = cuda_ms(lib, reps)
+    old_ms = cuda_ms(copies_route, reps)
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, y))
+    b_ms, b_by = bound(nbytes, 2 * macs, H100_BF16_FLOPS)
+    say(f"  {name} {label}: {tuple(inputs[0].shape)} x "
+        f"{tuple(inputs[1].shape)} -> {tuple(y.shape)} bf16: max_abs_err="
+        f"{err:.3e} ({used:.3f} of the allowance) run-to-run bitwise equal;"
+        f" {ms:.4f} ms, plain {plain:.4f} ms, torch.bmm {lib_ms:.4f} ms, "
+        f"first backward's product on the copies {old_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes} B, {2 * macs} flop)")
+    out = dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=2 * macs,
+               copies_route_ms=old_ms, max_abs_err=err, tol_used=used,
+               shape=f"{tuple(inputs[0].shape)} x {tuple(inputs[1].shape)} "
+                     f"bf16")
+    del y
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_config_kernels(reps: int):
@@ -1052,7 +1092,7 @@ def phase_serve_lm(profile: bool = False):
     # step's the skinny one, the first kernel none
     want_gemm = {"expert_gemm_wgmma": 3 * LM_LAYERS,
                  "expert_gemm_skinny": 3 * LM_LAYERS * (LM_TOKENS - 1),
-                 "expert_gemm": 0}
+                 "expert_gemm": 0, "expert_gemm_dx": 0, "expert_gemm_dw": 0}
     got_gemm = {k: launches[k] for k in want_gemm}
     check(got_gemm == want_gemm,
           f"serve-lm: expert GEMM launches {got_gemm}, want {want_gemm}")
@@ -1172,7 +1212,7 @@ def phase_serve_lm_configs():
                 "expert_gemm_wgmma": 3 * depth if moe else 0,
                 "expert_gemm_skinny": (3 * depth * (LM_TOKENS - 1) if moe
                                        else 0),
-                "expert_gemm": 0}
+                "expert_gemm": 0, "expert_gemm_dx": 0, "expert_gemm_dw": 0}
         got = {k: launches[k] for k in want}
         check(cfg.head_dim == hd_want and got == want,
               f"serve-lm-configs {arch_id}: hd {cfg.head_dim} (want "
@@ -1402,11 +1442,13 @@ def phase_train_lm(profile: bool = False):
           f"{losses[0]:.4f}")
     # per step and microbatch, each layer runs attention and the three
     # expert products forward, again in the remat recompute, and their
-    # backward passes (one flash backward, two GEMMs per product)
+    # backward passes (one flash backward; a dX and a dW per product, with
+    # no transposed copy and no tiles launch)
     per = TRAIN_STEPS * TRAIN_MICRO * TRAIN_LAYERS
     want = {"flash_attention_fwd_wgmma": 2 * per,
             "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
-            "flash_attention_fwd": 0, "expert_gemm_wgmma": 12 * per,
+            "flash_attention_fwd": 0, "expert_gemm_wgmma": 6 * per,
+            "expert_gemm_dx": 3 * per, "expert_gemm_dw": 3 * per,
             "expert_gemm_skinny": 0, "expert_gemm": 0}
     got = {k: launches[k] for k in want}
     check(got == want, f"train-lm launches {got}, want {want}")
@@ -1552,6 +1594,7 @@ def phase_train_smollm():
     want = {"flash_attention_fwd_wgmma": 2 * per,
             "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
             "flash_attention_fwd": 0, "expert_gemm_wgmma": 0,
+            "expert_gemm_dx": 0, "expert_gemm_dw": 0,
             "expert_gemm_skinny": 0, "expert_gemm": 0}
     got = {k: launches[k] for k in want}
     check(cfg.head_dim == 64 and got == want,
@@ -1769,7 +1812,8 @@ PORT_KERNELS = ("ell_spmm_rows", "ell_spmm_small", "ell_reach_rows",
                 "flash_bwd_dq_wgmma", "flash_bwd_reduce",
                 "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
                 "flash_bwd_dkdv_f32", "flash_bwd_dq_f32", "gemm_tiles",
-                "gemm_skinny", "expert_gemm_bf16", "expert_gemm_f32")
+                "gemm_skinny", "gemm_dw", "expert_gemm_bf16",
+                "expert_gemm_f32")
 
 
 class StepProfiler:
@@ -3699,6 +3743,8 @@ def main(argv=None) -> int:
     gemm_tpu = "src/repro/kernels/expert_gemm/expert_gemm.py:44"
     flash_bwd_tpu = (f"backward of {flash_tpu}, XLA autodiff of "
                      f"src/repro/models/layers.py:43 in the reference")
+    gemm_bwd_tpu = (f"backward of {gemm_tpu}, XLA autodiff of "
+                    f"src/repro/models/moe.py:103-105 in the reference")
     # the shapes of the other LM configs (phase config-kernels), beside the
     # qwen3-moe shapes each kernel is held at
     config_labels = {
@@ -3726,10 +3772,15 @@ def main(argv=None) -> int:
              flash_bwd_tpu, ("f32 hd16", "hd40"), launches_train_agree,
              "train-agreement"),
             ("expert_gemm_wgmma", gemm_src + "expert_gemm_wgmma.cu",
-             gemm_tpu, ("prefill gate", "prefill up", "prefill down",
-                        "train gate dX", "train gate dW", "train down dX",
-                        "train down dW"),
+             gemm_tpu, ("prefill gate", "prefill up", "prefill down"),
              launches_lm, "serve-lm"),
+            # the backward's products, variants of the same source
+            ("expert_gemm_dx", gemm_src + "expert_gemm_wgmma.cu",
+             gemm_bwd_tpu, ("train gate", "train down"), launches_train,
+             "train-lm"),
+            ("expert_gemm_dw", gemm_src + "expert_gemm_wgmma.cu",
+             gemm_bwd_tpu, ("train gate", "train down"), launches_train,
+             "train-lm"),
             ("expert_gemm_skinny", gemm_src + "expert_gemm_wgmma.cu",
              gemm_tpu, ("decode gate", "decode down"), launches_lm,
              "serve-lm"),

@@ -2,6 +2,6 @@
 
 The ELL sweeps (`spmv_ell`), flash attention (`flash_attention`) and the
 grouped expert GEMM (`expert_gemm`), forward and, for the LM kernels,
-backward; `build` compiles all seven sources,
+backward; `build` compiles all eight sources,
 and `measure` times them on a card.
 """

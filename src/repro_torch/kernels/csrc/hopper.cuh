@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma
 // kernels (flash_attention_fwd_wgmma.cu, flash_attention_bwd_wgmma.cu,
-// expert_gemm_wgmma.cu): mbarriers, TMA tile loads and bulk copies,
+// expert_gemm_wgmma.cu): mbarriers, TMA tile loads and stores, bulk copies,
 // shared-memory matrix descriptors for the 128-byte swizzle, the wgmma
 // instructions, and the host-side tensor-map encoder found through the
 // runtime (so no library links against libcuda).
@@ -93,6 +93,40 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// a 3-D tile from shared to global memory (elements outside the tensor are
+// not written), in the issuing thread's current bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared
+// memory (their source may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// make this thread's shared-memory writes visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // a contiguous run of `bytes` (a multiple of 16, both addresses 16-byte

@@ -5,8 +5,8 @@ Tokens are split into groups; within each group, (token, expert) slots
 are sorted by expert id, truncated to a static per-expert capacity C and
 run through the grouped expert GEMM kernel over the whole (G, E, C, d)
 dispatch buffer (three launches: gate, up, down), as the autograd function
-``ExpertGemm``, whose backward is two more launches of the same kernels per
-product. The gradient reaches the router through the gates (the sorted
+``ExpertGemm``, whose backward is two more launches per product (its dX
+and dW variants). The gradient reaches the router through the gates (the sorted
 values of ``top_k_stable``) and the aux loss's mean probabilities.
 Overflow slots beyond capacity are dropped (GShard/Switch semantics); the
 Switch load-balance aux loss is returned too.

@@ -21,7 +21,10 @@ version. The CUDA-vs-plain tests need a
 card and are skipped elsewhere; on the card two launches must also give
 the same bits. Which kernel variant takes a call is decided by shape in
 pure Python (``flash_variant``, ``flash_bwd_variant``, ``ell_variant``,
-``gemm_variant``), pinned here on the CPU. The JAX kernels are imported inside the tests that use
+``gemm_variant``, ``gemm_bwd_variant``), pinned here on the CPU. The
+expert GEMM's plain backward products (``expert_gemm_dx_ref``,
+``expert_gemm_dw_ref``) are held bit for bit to the route they replaced
+(``expert_gemm_ref`` on transposed copies). The JAX kernels are imported inside the tests that use
 them, so that ``pytest --noconftest -m cuda`` runs this file on a machine
 with a card and no JAX.
 """
@@ -36,7 +39,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels import expert_gemm as gemm_ops
 from repro_torch.kernels import flash_attention as flash_ops
 from repro_torch.kernels.expert_gemm import ExpertGemm
-from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
+from repro_torch.kernels.expert_gemm.ref import (expert_gemm_dw_ref,
+                                                 expert_gemm_dx_ref,
+                                                 expert_gemm_ref)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_attention_ref)
 from repro_torch.kernels.spmv_ell import ops
@@ -468,8 +473,13 @@ def test_lm_kernels_cpu_path_launches_no_kernel():
                                   "flash_attention_bwd_wgmma": 0}
     gemm_ops.expert_gemm(torch.ones((2, 8, 64), dtype=torch.bfloat16),
                          torch.ones((1, 64, 72), dtype=torch.bfloat16))
+    dy = torch.ones((2, 8, 72), dtype=torch.bfloat16)
+    gemm_ops.expert_gemm_dx(dy, torch.ones((1, 64, 72), dtype=torch.bfloat16))
+    gemm_ops.expert_gemm_dw(torch.ones((2, 8, 64), dtype=torch.bfloat16), dy,
+                            1)
     assert gemm_ops.LAUNCHES == {"expert_gemm": 0, "expert_gemm_wgmma": 0,
-                                 "expert_gemm_skinny": 0}
+                                 "expert_gemm_skinny": 0, "expert_gemm_dx": 0,
+                                 "expert_gemm_dw": 0}
 
 
 @pytest.mark.parametrize("dtype,hd,sq,sk,ptrs,want", [
@@ -538,6 +548,102 @@ def test_gemm_variant_by_shape(dtype, C, d, f, ptrs, want):
     assert gemm_ops.gemm_variant(getattr(torch, dtype), C, d, f, ptrs) == {
         "tiles": "expert_gemm_wgmma", "skinny": "expert_gemm_skinny",
         "first": "expert_gemm"}[want]
+
+
+@pytest.mark.parametrize("product", ["dx", "dw"])
+@pytest.mark.parametrize("dtype,d,f,ptrs,want", [
+    ("bfloat16", 2048, 768, (0, 512, 1024), "kernel"),   # train gate
+    ("bfloat16", 768, 2048, (0, 16, 32), "kernel"),      # train down
+    ("bfloat16", 64, 72, (0, 0, 0), "kernel"),
+    ("bfloat16", 8, 8, (0, 0, 0), "kernel"),
+    ("bfloat16", 2044, 768, (0, 0, 0), "copies"),        # d % 8 != 0
+    ("bfloat16", 2048, 764, (0, 0, 0), "copies"),        # f % 8 != 0
+    ("bfloat16", 0, 768, (0, 0, 0), "copies"),           # no width
+    ("bfloat16", 2048, 768, (2, 0, 0), "copies"),        # first operand
+    ("bfloat16", 2048, 768, (0, 8, 0), "copies"),        # second operand
+    ("bfloat16", 2048, 768, (0, 0, 4), "copies"),        # output
+    ("float32", 2048, 768, (0, 0, 0), "copies"),         # f32
+    ("float32", 64, 72, (0, 0, 0), "copies"),
+])
+def test_gemm_bwd_variant_by_shape(product, dtype, d, f, ptrs, want):
+    name = f"expert_gemm_{product}"
+    got = gemm_ops.gemm_bwd_variant(name, getattr(torch, dtype), d, f, ptrs)
+    assert got == (name if want == "kernel" else "copies")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,e,c,d,f", GEMM_SHAPES + [
+    pytest.param(4, 8, 88, 64, 72, id="g4-8-88-64-72"),  # train-like C 88
+    pytest.param(3, 2, 37, 45, 51, id="g3-2-37-45-51")])
+def test_plain_backward_products_equal_the_copies_route(g, e, c, d, f,
+                                                        dtype):
+    """The plain dX and dW give, bit for bit, what the CPU route gave
+    before they existed: ``expert_gemm_ref`` on a contiguous Wᵀ, and on X,
+    dY copied to (E, d, G·C) × (E, G·C, f)."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(g + e + c + d + f)
+    x = torch.as_tensor(rng.standard_normal((g * e, c, d)).astype(
+        np.float32)).to(tdt)
+    w = torch.as_tensor(rng.standard_normal((e, d, f)).astype(
+        np.float32)).to(tdt)
+    dy = torch.as_tensor(rng.standard_normal((g * e, c, f)).astype(
+        np.float32)).to(tdt)
+    assert torch.equal(expert_gemm_dx_ref(dy, w),
+                       expert_gemm_ref(dy, w.transpose(1, 2).contiguous()))
+    xt = x.view(g, e, c, d).permute(1, 3, 0, 2).reshape(e, d, g * c)
+    dyt = dy.view(g, e, c, f).transpose(0, 1).reshape(e, g * c, f)
+    assert torch.equal(expert_gemm_dw_ref(x, dy, e),
+                       expert_gemm_ref(xt.contiguous(), dyt.contiguous()))
+
+
+def test_backward_products_take_groups_of_experts():
+    """dX[n] = dY[n]·W[n mod E]ᵀ and dW[e] = Σ_g X[g·E + e]ᵀ·dY[g·E + e],
+    written out matrix by matrix."""
+    rng = np.random.default_rng(13)
+    G, E, C, d, f = 3, 2, 5, 7, 4
+    x = torch.as_tensor(rng.standard_normal((G * E, C, d)).astype(
+        np.float32))
+    w = torch.as_tensor(rng.standard_normal((E, d, f)).astype(np.float32))
+    dy = torch.as_tensor(rng.standard_normal((G * E, C, f)).astype(
+        np.float32))
+    dx = gemm_ops.expert_gemm_dx(dy, w)
+    dw = gemm_ops.expert_gemm_dw(x, dy, E)
+    assert dx.shape == (G * E, C, d) and dw.shape == (E, d, f)
+    for n in range(G * E):
+        torch.testing.assert_close(dx[n], dy[n] @ w[n % E].T, rtol=1e-5,
+                                   atol=1e-6)
+    for e in range(E):
+        want = sum(x[g * E + e].T @ dy[g * E + e] for g in range(G))
+        torch.testing.assert_close(dw[e], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mixed", "shape", "groups",
+                                 "rank", "noncontiguous"])
+@pytest.mark.parametrize("product", ["dx", "dw"])
+def test_expert_gemm_bwd_wrappers_reject_malformed_inputs(product, bad):
+    """dX takes dy (N, C, f), w (E, d, f); dW takes x (N, C, d), dy
+    (N, C, f) and E: both f32 or both bf16, contiguous, N % E == 0."""
+    x, w, dy = torch.ones((4, 3, 8)), torch.ones((2, 8, 5)), \
+        torch.ones((4, 3, 5))
+    n_experts = 2
+    if bad == "dtype":
+        x, w, dy = (t.to(torch.float16) for t in (x, w, dy))
+    elif bad == "mixed":
+        dy = dy.to(torch.bfloat16)
+    elif bad == "shape":                  # dx: f of dy and w; dw: C
+        dy = torch.ones((4, 3, 6)) if product == "dx" else \
+            torch.ones((4, 2, 5))
+    elif bad == "groups":
+        w, n_experts = torch.ones((3, 8, 5)), 3
+    elif bad == "rank":
+        w, x = torch.ones((8, 5)), torch.ones((1, 4, 3, 8))
+    else:
+        dy = torch.ones((4, 5, 3)).transpose(1, 2)
+    with pytest.raises(ValueError):
+        if product == "dx":
+            gemm_ops.expert_gemm_dx(dy, w)
+        else:
+            gemm_ops.expert_gemm_dw(x, dy, n_experts)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "kv_heads", "head_dim",
@@ -1023,12 +1129,19 @@ def test_cuda_flash_autograd_matches_cpu(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("G,E,C,d,f", [(4, 8, 88, 64, 72),
                                        (2, 4, 96, 200, 136),
-                                       (1, 2, 37, 45, 51)])
+                                       (1, 2, 37, 45, 51),
+                                       (2, 4, 40, 136, 200),
+                                       (3, 4, 24, 72, 64)])
 def test_cuda_expert_gemm_backward_matches_plain_version(cuda_device, G, E,
                                                          C, d, f, dtype):
-    """``ExpertGemm``'s dX and dW on the card (the kernels on transposed
-    operands) against the same backward on the CPU (the plain version):
-    bf16 to rtol / atol 2e-2 of outputs scaled to O(1), f32 to 1e-4."""
+    """``ExpertGemm``'s dX and dW on the card against the same backward on
+    the CPU (the plain versions): bf16 to rtol / atol 2e-2 of outputs
+    scaled to O(1), f32 to 1e-4. bf16 that TMA can address launches
+    ``expert_gemm_dx`` and ``expert_gemm_dw`` once each beside the
+    forward's variant; f32 and d, f off multiples of 8 take the
+    transposed copies into ``expert_gemm``. Two backward passes on the
+    card give the same bits. Shapes: C 88, 37, 40 and 24 (not multiples of
+    16), C ≤ 64, d and f off multiples of 64."""
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     rng = np.random.default_rng(G + C + d)
     x = rng.standard_normal((G * E, C, d)).astype(np.float32)
@@ -1036,20 +1149,105 @@ def test_cuda_expert_gemm_backward_matches_plain_version(cuda_device, G, E,
     dy = (rng.standard_normal((G * E, C, f)) / np.sqrt(G * C)).astype(
         np.float32)
     out = {}
-    for dev in ("cuda", "cpu"):
-        xt = torch.as_tensor(x, device=dev).to(tdt).requires_grad_()
-        wt = torch.as_tensor(w, device=dev).to(tdt).requires_grad_()
-        before = dict(gemm_ops.LAUNCHES)
-        ExpertGemm.apply(xt, wt).backward(torch.as_tensor(dy, device=dev)
-                                          .to(tdt))
-        out[dev] = (xt.grad, wt.grad, {n: gemm_ops.LAUNCHES[n] - before[n]
-                                       for n in before})
-    assert sum(out["cuda"][2].values()) == 3   # forward, dX, dW
-    assert sum(out["cpu"][2].values()) == 0
+    for dev, runs in (("cuda", 2), ("cpu", 1)):
+        for _ in range(runs):
+            xt = torch.as_tensor(x, device=dev).to(tdt).requires_grad_()
+            wt = torch.as_tensor(w, device=dev).to(tdt).requires_grad_()
+            before = dict(gemm_ops.LAUNCHES)
+            ExpertGemm.apply(xt, wt).backward(torch.as_tensor(dy, device=dev)
+                                              .to(tdt))
+            out.setdefault(dev, []).append(
+                (xt.grad, wt.grad, {n: gemm_ops.LAUNCHES[n] - before[n]
+                                    for n in before}))
+    launches = out["cuda"][0][2]
+    assert out["cuda"][1][2] == launches
+    assert sum(launches.values()) == 3   # forward, dX, dW
+    assert sum(out["cpu"][0][2].values()) == 0
+    if dtype == "bfloat16" and d % 8 == 0 and f % 8 == 0:
+        fwd = "expert_gemm_skinny" if C <= 64 else "expert_gemm_wgmma"
+        assert launches == {n: int(n in (fwd, "expert_gemm_dx",
+                                          "expert_gemm_dw"))
+                            for n in launches}
+    else:
+        assert launches["expert_gemm_dx"] == launches["expert_gemm_dw"] == 0
     tol = _tol(dtype)
-    for g, want in zip(out["cuda"][:2], out["cpu"][:2]):
+    for g, again, want in zip(out["cuda"][0][:2], out["cuda"][1][:2],
+                              out["cpu"][0][:2]):
         assert g.dtype == tdt
+        assert torch.equal(g, again)
         torch.testing.assert_close(g.float().cpu(), want.float(), **tol)
+
+
+def _rms_close(got, want):
+    """bf16 to rtol 2e-2 and atol 2e-2 of the plain version's RMS."""
+    atol = 2e-2 * float(want.float().pow(2).mean().sqrt())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(64, 72), (200, 136), (2048, 768),
+                                 (768, 2048)])
+@pytest.mark.parametrize("C", [1, 8, 40, 64, 88, 130])
+def test_cuda_gemm_bwd_variants_match_plain_versions(cuda_device, C, d, f):
+    """``expert_gemm_dx`` (the tiles variant reading W K-major) and
+    ``expert_gemm_dw`` (X and dY read MN-major, the four groups summed in
+    its k-loop) against their plain versions: a group's last 64-row step
+    holding 1, 8, 40, 64, 24 and 2 rows of C, widths off multiples of 64
+    and of the 128 × 192 tile, the train widths both ways; one launch
+    each, two launches bitwise equal."""
+    G, E = 4, 4
+    gen = torch.Generator(device=cuda_device).manual_seed(C + d + f)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * scale).to(torch.bfloat16)
+    x, w = randn(G * E, C, d), randn(E, d, f, scale=f ** -0.5)
+    dy = randn(G * E, C, f, scale=(G * C) ** -0.5)
+    for name, fn, want in (
+            ("expert_gemm_dx", lambda: gemm_ops.expert_gemm_dx(dy, w),
+             expert_gemm_dx_ref(dy, w)),
+            ("expert_gemm_dw", lambda: gemm_ops.expert_gemm_dw(x, dy, E),
+             expert_gemm_dw_ref(x, dy, E))):
+        before = dict(gemm_ops.LAUNCHES)
+        got = fn()
+        assert {n: gemm_ops.LAUNCHES[n] - before[n] for n in before} == {
+            n: int(n == name) for n in before}
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        _rms_close(got, want)
+        assert torch.equal(got, fn())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dy", "w", "x"])
+def test_cuda_misaligned_gemm_bwd_takes_the_copies(cuda_device, which):
+    """A backward product that reads a bf16 operand TMA cannot address
+    (2 bytes off a 16-byte boundary) takes the transposed copies into
+    ``expert_gemm``: one launch under that call's names and none of its
+    own; the product that does not read it takes its kernel. Both give
+    the plain version's result."""
+    G, E, C, d, f = 2, 4, 88, 64, 72
+    rng = np.random.default_rng(5)
+    xa = rng.standard_normal((G * E, C, d)).astype(np.float32)
+    wa = (rng.standard_normal((E, d, f)) / np.sqrt(f)).astype(np.float32)
+    dya = (rng.standard_normal((G * E, C, f)) / np.sqrt(G * C)).astype(
+        np.float32)
+    x, w, dy = (_misaligned_bf16(a, cuda_device) if n == which else
+                torch.as_tensor(a, device=cuda_device).to(torch.bfloat16)
+                for n, a in (("x", xa), ("w", wa), ("dy", dya)))
+    for name, reads, fn, want in (
+            ("expert_gemm_dx", ("dy", "w"),
+             lambda: gemm_ops.expert_gemm_dx(dy, w),
+             expert_gemm_dx_ref(dy, w)),
+            ("expert_gemm_dw", ("x", "dy"),
+             lambda: gemm_ops.expert_gemm_dw(x, dy, E),
+             expert_gemm_dw_ref(x, dy, E))):
+        before = dict(gemm_ops.LAUNCHES)
+        got = fn()
+        delta = {n: gemm_ops.LAUNCHES[n] - before[n] for n in before}
+        assert sum(delta.values()) == 1
+        assert delta[name] == int(which not in reads)
+        _rms_close(got, want)
 
 
 # -- the other LM configs' shapes, and repeatable training ------------------------

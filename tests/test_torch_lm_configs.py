@@ -161,17 +161,21 @@ def test_remat_dots_matches_reference_and_none(lm, monkeypatch):
     from repro.models.transformer import TransformerLM as RLM
     arch_id, cfg, _, rparams, _ = lm
     calls = {"flash": 0, "gemm": 0}
-    flash, gemm = flash_ops.flash_attention, gemm_ops.expert_gemm
+    flash = flash_ops.flash_attention
 
     def count_flash(*a, **kw):
         calls["flash"] += 1
         return flash(*a, **kw)
 
-    def count_gemm(*a, **kw):
-        calls["gemm"] += 1
-        return gemm(*a, **kw)
+    def counted(fn):
+        def count_gemm(*a, **kw):
+            calls["gemm"] += 1
+            return fn(*a, **kw)
+        return count_gemm
     monkeypatch.setattr(flash_ops, "flash_attention", count_flash)
-    monkeypatch.setattr(gemm_ops, "expert_gemm", count_gemm)
+    # the three products forward and their dX and dW backward
+    for name in ("expert_gemm", "expert_gemm_dx", "expert_gemm_dw"):
+        monkeypatch.setattr(gemm_ops, name, counted(getattr(gemm_ops, name)))
     toks, labels = _batch(cfg, 9)
     dots = dataclasses.replace(cfg, remat="dots")
     _, rgrads = jax.value_and_grad(RLM(_jax_cfg(dots)).loss)(rparams, toks,

@@ -362,6 +362,30 @@ def test_expert_gemm_grad_matches_jax_grad(G, E, C, d, f):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,E,C,d,f", [(2, 4, 6, 8, 5), (4, 8, 88, 64, 72),
+                                       (3, 2, 8, 12, 7)])
+def test_expert_gemm_grad_on_the_cpu_is_bitwise_the_copies_route(G, E, C, d,
+                                                                 f, dtype):
+    """``ExpertGemm``'s gradients on CPU tensors are, bit for bit, those of
+    the route before the backward had kernels of its own: ``expert_gemm``
+    on a contiguous Wᵀ for dX, and on X, dY copied to (E, d, G·C) ×
+    (E, G·C, f) for dW."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(G * E + C)
+    x = _t(rng.standard_normal((G * E, C, d)).astype(np.float32)).to(tdt)
+    w = _t(rng.standard_normal((E, d, f)).astype(np.float32)).to(tdt)
+    dy = _t(rng.standard_normal((G * E, C, f)).astype(np.float32)).to(tdt)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ExpertGemm.apply(xg, wg).backward(dy)
+    want_dx = gemm_ops.expert_gemm(dy, w.transpose(1, 2).contiguous())
+    xt = x.view(G, E, C, d).permute(1, 3, 0, 2).reshape(E, d, G * C)
+    dyt = dy.view(G, E, C, f).transpose(0, 1).reshape(E, G * C, f)
+    want_dw = gemm_ops.expert_gemm(xt.contiguous(), dyt.contiguous())
+    assert xg.grad.dtype == tdt and torch.equal(xg.grad, want_dx)
+    assert wg.grad.dtype == tdt and torch.equal(wg.grad, want_dw)
+
+
 @pytest.mark.parametrize("G,S,k,E,d", [(2, 16, 2, 4, 8), (1, 24, 8, 16, 16),
                                        (4, 9, 3, 5, 5)])
 def test_dispatch_gather_backward_sums_slots_in_sorted_order(G, S, k, E, d):
@@ -425,17 +449,21 @@ def test_remat_full_gives_bitwise_equal_grads_and_recomputes(monkeypatch):
     gives the same gradient bits as ``remat="none"``."""
     from repro.models.transformer import TransformerLM as RLM
     calls = {"flash": 0, "gemm": 0}
-    flash, gemm = flash_ops.flash_attention, gemm_ops.expert_gemm
+    flash = flash_ops.flash_attention
 
     def count_flash(*a, **kw):
         calls["flash"] += 1
         return flash(*a, **kw)
 
-    def count_gemm(*a, **kw):
-        calls["gemm"] += 1
-        return gemm(*a, **kw)
+    def counted(fn):
+        def count_gemm(*a, **kw):
+            calls["gemm"] += 1
+            return fn(*a, **kw)
+        return count_gemm
     monkeypatch.setattr(flash_ops, "flash_attention", count_flash)
-    monkeypatch.setattr(gemm_ops, "expert_gemm", count_gemm)
+    # the three products forward and their dX and dW backward
+    for name in ("expert_gemm", "expert_gemm_dx", "expert_gemm_dw"):
+        monkeypatch.setattr(gemm_ops, name, counted(getattr(gemm_ops, name)))
     cfg = qcfg.SMOKE
     rparams = RLM(_jax_cfg(cfg)).init(jax.random.PRNGKey(1))
     toks, labels = _batch(cfg, 8)

@@ -5,11 +5,13 @@ Run from the root of a checkout:
 
     python3 tools/kernel_sweep.py reach   # ell_reach: U, min blocks per width
     python3 tools/kernel_sweep.py gemm    # expert GEMM: tiles, skinny threshold
+    python3 tools/kernel_sweep.py gemm-bwd  # its dW: tile width, epilogue
     python3 tools/kernel_sweep.py all
 
 Each sweep compiles its kernel source once more with a ``-D<NAME>_SWEEP``
-define, which adds a tuning entry point (``ell_reach_sweep``,
-``expert_gemm_sweep``) beside the production one, into
+define, which adds tuning entry points (``ell_reach_sweep``,
+``expert_gemm_sweep``, ``expert_gemm_dw_sweep``) beside the production
+one, into
 ``src/repro_torch/kernels/build/sweep`` (git-ignored). Every setting is
 checked against the plain version before it is timed (reach bitwise, the
 GEMM to rtol/atol 2e-2), and times are medians of CUDA-event launches with
@@ -24,7 +26,11 @@ hand the kernel, one per width. The GEMM sweep times the tiles variant at
 BN 128, 192 and 256 (2 to 6 stages) on the serve-lm prefill products, and
 the skinny variant against the tiles variant at C 8 to 64 on the decode
 products: each variant timed ``SKINNY_ROUNDS`` times, alternating, so
-the gap between them can be set against the run-to-run spread.
+the gap between them can be set against the run-to-run spread. The
+GEMM backward sweep times dW at the train-lm shapes (G 4, C 88, gate and
+down) at the ``GEMM_DW`` settings (tile width, ring depth, rows of C per
+k-step, TMA store or 16-byte stores), alternating for ``SKINNY_ROUNDS``
+rounds, beside dX and cuBLAS (``torch.bmm``) on the same products.
 """
 
 from __future__ import annotations
@@ -47,10 +53,18 @@ REACH_MINB = (2, 3, 4, 6)
 GEMM_TILES = ((128, 4), (128, 6), (192, 3), (192, 4), (256, 2), (256, 3))
 GEMM_SKINNY_C = (8, 16, 32, 64)
 SKINNY_ROUNDS = 3
-# serve-lm's prompt batch (chip_smoke.py: LM_BATCH, LM_PROMPT) and the
-# serve-batch steps captured (chip_smoke.py: BATCH_STEPS)
+# (BN, STAGES, KS, TMA store) of the dW kernel: output tile width, ring
+# depth, rows of C per k-step, and its TMA-store epilogue (1) or the tiles
+# variant's 16-byte stores (0); csrc/expert_gemm_wgmma.cu: gemm_dw
+GEMM_DW = ((192, 4, 64, 1), (192, 2, 96, 1), (256, 3, 64, 1),
+           (128, 3, 128, 1), (128, 4, 96, 1), (128, 4, 96, 0),
+           (64, 5, 96, 1))
+# serve-lm's prompt batch (chip_smoke.py: LM_BATCH, LM_PROMPT), the
+# serve-batch steps captured (chip_smoke.py: BATCH_STEPS) and train-lm's
+# sequence and MoE group (chip_smoke.py: TRAIN_SEQ, TRAIN_GROUP)
 LM_BATCH, LM_PROMPT = 2, 4096
 BATCH_STEPS = 2
+TRAIN_SEQ, TRAIN_GROUP = 4096, 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -59,21 +73,26 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+_SWEEP_LIBS = {}  # kernel name → its sweep library, compiled once a run
+
+
 def build_sweep(name: str, define: str, fn_name: str, argtypes):
-    """Compile kernel ``name``'s source with ``-D<define>`` and return its
-    tuning entry point."""
+    """Compile kernel ``name``'s source with ``-D<define>`` (once a run)
+    and return its tuning entry point ``fn_name``."""
     from repro_torch.kernels import build
-    out = build.build_dir() / "sweep"
-    out.mkdir(parents=True, exist_ok=True)
-    lib_path = out / f"lib{name}_sweep.so"
-    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.INCLUDE_DIR),
-           f"-D{define}", "-o", str(lib_path),
-           str(build.build_dir().parent / build.KERNELS[name][0])]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}"
-                           f"{res.stderr}")
-    fn = getattr(ctypes.CDLL(str(lib_path)), fn_name)
+    if name not in _SWEEP_LIBS:
+        out = build.build_dir() / "sweep"
+        out.mkdir(parents=True, exist_ok=True)
+        lib_path = out / f"lib{name}_sweep.so"
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I",
+               str(build.INCLUDE_DIR), f"-D{define}", "-o", str(lib_path),
+               str(build.build_dir().parent / build.KERNELS[name][0])]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}"
+                               f"{res.stderr}")
+        _SWEEP_LIBS[name] = ctypes.CDLL(str(lib_path))
+    fn = getattr(_SWEEP_LIBS[name], fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -279,9 +298,85 @@ def sweep_gemm():
     return out
 
 
+def sweep_gemm_bwd():
+    import torch
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.kernels.expert_gemm import ops
+    from repro_torch.kernels.expert_gemm.ref import expert_gemm_dw_ref
+    from repro_torch.kernels.measure import cuda_ms
+    from repro_torch.models.moe import moe_capacity
+    fn = build_sweep("expert_gemm_wgmma", "EXPERT_GEMM_SWEEP",
+                     "expert_gemm_dw_sweep", [_P] * 3 + [_I] * 9 + [_P])
+    moe = FULL.moe
+    E, dm, ff = moe.n_experts, FULL.d_model, moe.d_ff_expert
+    G = TRAIN_SEQ // TRAIN_GROUP
+    C = moe_capacity(TRAIN_GROUP, E, moe.top_k)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    out = []
+    s_in = (2.0 / (dm + ff)) ** 0.5
+    for label, din, dout in (("gate", dm, ff), ("down", ff, dm)):
+        x, w = randn(G * E, C, din), randn(E, din, dout, scale=s_in)
+        dy = randn(G * E, C, dout, scale=(G * C) ** -0.5)
+        dw = torch.empty((E, din, dout), dtype=torch.bfloat16, device="cuda")
+        want = expert_gemm_dw_ref(x, dy, E).float()
+        atol = 2e-2 * float(want.pow(2).mean().sqrt())
+        runs = {}
+        for setting in GEMM_DW:
+            def run(setting=setting):
+                rc = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(), G * E, E,
+                        C, din, dout, *setting, stream_ptr())
+                if rc != 0:
+                    raise RuntimeError(f"expert_gemm_dw_sweep rc {rc}")
+            dw.zero_()
+            run()
+            ok = bool(((dw.float() - want).abs()
+                       <= atol + 2e-2 * want.abs()).all())
+            again = dw.clone()
+            run()
+            ok = ok and bool(torch.equal(dw, again))
+            runs[setting] = (run, ok)
+        times = {k: [] for k in runs}
+        for _ in range(SKINNY_ROUNDS):
+            for k, (run, _ok) in runs.items():
+                times[k].append(cuda_ms(run, REPS))
+        for (bn, stages, ks, store), (_run, ok) in runs.items():
+            ts = times[(bn, stages, ks, store)]
+            med = sorted(ts)[len(ts) // 2]
+            variant = (f"dW BN={bn} STAGES={stages} KS={ks} "
+                       f"{'TMA store' if store else '16-byte stores'}")
+            say(f"gemm-bwd train {label} {variant}: median of medians "
+                f"{med:.4f} ms, rounds {', '.join(f'{t:.4f}' for t in ts)}"
+                f" ok={ok}")
+            out.append(dict(case=f"train {label} dW", variant=variant,
+                            ms=med, rounds=ts, ok=ok))
+        xt = x.view(G, E, C, din).permute(1, 3, 0, 2).reshape(E, din, G * C)
+        dyt = dy.view(G, E, C, dout).transpose(0, 1).reshape(E, G * C, dout)
+        for case, variant, run in (
+                ("dW", "torch.bmm on the copies", lambda: torch.bmm(xt, dyt)),
+                ("dX", "expert_gemm_dx", lambda: ops.expert_gemm_dx(dy, w)),
+                ("dX", "torch.bmm, W as op T",
+                 lambda: torch.bmm(dyt, w.mT))):
+            ms = cuda_ms(run, REPS)
+            say(f"gemm-bwd train {label} {case} {variant}: {ms:.4f} ms")
+            out.append(dict(case=f"train {label} {case}", variant=variant,
+                            ms=ms, ok=True))
+        del x, w, dy, dw, want, xt, dyt
+        torch.cuda.empty_cache()
+    bad = [r for r in out if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"gemm-bwd sweep: outputs off the plain version: "
+                           f"{bad}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("which", choices=("reach", "gemm", "all"))
+    ap.add_argument("which", choices=("reach", "gemm", "gemm-bwd", "all"))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -293,6 +388,8 @@ def main(argv=None) -> int:
     summary = {"card": card}
     if args.which in ("gemm", "all"):
         summary["gemm"] = sweep_gemm()
+    if args.which in ("gemm-bwd", "all"):
+        summary["gemm_bwd"] = sweep_gemm_bwd()
     if args.which in ("reach", "all"):
         summary["reach"] = sweep_reach()
     say(json.dumps(summary))
