@@ -173,7 +173,24 @@ Phases, each printed on its own lines:
    the tiles variant — 3 forward, 3 recompute — and 3 each of the
    backward's ``expert_gemm_dx`` and ``expert_gemm_dw``), and
    the same 5 steps run again from the same seed without the loop (no
-   checkpoint): losses and grad norms must be bitwise equal; then
+   checkpoint): losses and grad norms must be bitwise equal, and the
+   first run's final state is kept as a 64-bit digest per leaf; then
+   train-sharded — the same model, batches and schedule on a 2 × 2
+   ("data", "model") mesh (the first four cards, or ``cuda:0`` four
+   times on one card) under the reference train cell's ``fsdp`` rules:
+   (a) ZeRO-3 (batch P("data", None)) for 2 steps, the elastic plan for 2
+   failed devices ((2, 2) → (1, 2), half the batch rows lost), the state
+   resharded onto the first two positions and 3 more steps — losses, grad
+   norms and every leaf's digest must equal train-lm's first run bit for
+   bit; (b) expert parallelism (``act_spec`` P("data", None, None): each
+   "model" shard computes its 64 experts where they live) for 2 steps on
+   the 2 × 2 mesh and on ``make_host_mesh()``, bitwise equal, their
+   losses within ``SHARD_LOSS_RTOL`` of train-lm's first two; per step
+   the time, tokens/s, peak memory, state bytes per mesh position and
+   the mesh's collective bytes, and the launches checked exactly (per
+   step 8 flash forwards and 4 backwards on the TMA + wgmma kernels; the
+   expert GEMM 24 tiles, 12 dX and 12 dW with the experts gathered, 48,
+   24 and 24 with 2 expert shards; the first kernels none); then
    train-smollm — smollm-135m ``FULL`` at its whole depth (30 layers, tied
    embeddings, ``remat="dots"``), f32 masters, 5 ``TrainLoop`` steps of
    8 × 4,096 tokens in 2 microbatches on ``TokenPipeline(49152, 8, 4096,
@@ -227,7 +244,8 @@ Phases, each printed on its own lines:
     0 after it.
 
 Then a ``{"kernels": [...]}`` JSON line (every kernel with its serve and
-train launches, both flash backward kernels among them), the card line,
+train launches, train-sharded's among them, both flash backward kernels
+too), the card line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line. ``--profile`` adds a device-time profile of one step of each
 served path.
@@ -283,6 +301,12 @@ SERVE_CONFIGS = (("smollm-135m", 30), ("deepseek-7b", 30), ("qwen2-72b", 24),
 # remat "dots"), the train_4k shape's sequence with its global batch cut
 # from 256 to 8, two microbatches of four sequences, 5 steps
 SMOL_BATCH, SMOL_MICRO, SMOL_STEPS = 8, 2, 5
+# train-sharded (b): losses against train-lm's first two, relative. The
+# parameters are train-lm's (step 0's lr is 0 under its warmup); only the
+# cross entropy differs: all logits in one product (the vocab-parallel
+# form) against 512-token chunks, bf16 logits rounded from sums in
+# another order
+SHARD_LOSS_RTOL = 1e-4
 # train-agreement: card against CPU, 3 steps of 2 microbatches
 AGREE_STEPS = 3
 AGREE_LOSS_RTOL = 1e-4
@@ -1452,6 +1476,12 @@ def phase_train_lm(profile: bool = False):
             "expert_gemm_skinny": 0, "expert_gemm": 0}
     got = {k: launches[k] for k in want}
     check(got == want, f"train-lm launches {got}, want {want}")
+    # the final state's bits, which train-sharded must reach across its
+    # mesh and its elastic re-mesh
+    t0 = time.perf_counter()
+    digests = state_digests(loop.state)
+    say(f"  train-lm final state: {len(digests)} leaf digests "
+        f"({time.perf_counter() - t0:.2f} s)")
     parts = None
     if profile:  # after the counts were read
         parts = train_step_parts(model, loop, pipe)
@@ -1484,7 +1514,40 @@ def phase_train_lm(profile: bool = False):
         tokens_per_s=[tokens / dt for dt in metrics.step_times],
         peak_bytes=peak, run_s=run_s, checkpoint_and_batches_s=ckpt_s,
         checkpoint_bytes=n_ckpt, phase_s=phase_s, profile_parts=parts,
-        repeat_bitwise=again == first)
+        repeat_bitwise=again == first, digests=digests)
+
+
+def leaf_digest(t) -> int:
+    """A 64-bit digest of a 4-byte tensor's bits, on its device: per chunk
+    of 2**24 elements Σ bits·w mod 2**64 with fixed odd pseudo-random
+    weights w, the chunk sums folded in order (acc·1,000,003 + sum). Equal
+    bits give equal digests; a changed bit changes the chunk's sum."""
+    import torch
+    bits = t.detach().reshape(-1).view(torch.int32)
+    chunk = 1 << 24
+    gen = torch.Generator(device=bits.device).manual_seed(1)
+    w = torch.randint(0, 1 << 62, (min(chunk, max(bits.numel(), 1)),),
+                      generator=gen, device=bits.device) * 2 + 1
+    acc = torch.zeros((), dtype=torch.int64, device=bits.device)
+    for lo in range(0, bits.numel(), chunk):
+        part = bits[lo:lo + chunk].to(torch.int64)
+        acc = acc * 1_000_003 + torch.sum(part * w[:part.numel()])
+    return int(acc) ^ bits.numel()
+
+
+def state_digests(state):
+    """``leaf_digest`` of every params, m and v leaf of a train state in
+    ``tree_leaves`` order, a sharded leaf gathered whole first (one leaf at
+    a time)."""
+    from repro_torch.distrib.sharding import ShardedTensor, gather
+    from repro_torch.optim.adamw import tree_leaves
+    out = []
+    for tree in (state.params, state.opt.m, state.opt.v):
+        for x in tree_leaves(tree):
+            whole = gather(x) if isinstance(x, ShardedTensor) else x
+            out.append(leaf_digest(whole))
+            del whole
+    return out
 
 
 def step_grads(model, params, batch, microbatches: int):
@@ -1505,6 +1568,204 @@ def step_grads(model, params, batch, microbatches: int):
         p.grad = None
         p.requires_grad_(False)
     return grads
+
+
+def sharded_launch_want(n_model: int) -> dict:
+    """Launches of one train-sharded step (2 microbatches of 2 layers,
+    ``remat="full"``): per microbatch and layer 2 flash forwards (forward
+    and recompute) and 1 backward on the TMA + wgmma kernels, and per
+    expert shard 6 tiles products (3 forward, 3 recompute), 3 dX and 3 dW;
+    ``n_model`` expert shards (1 when the experts are gathered whole)."""
+    per = TRAIN_MICRO * TRAIN_LAYERS
+    return {"flash_attention_fwd_wgmma": 2 * per,
+            "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
+            "flash_attention_fwd": 0,
+            "expert_gemm_wgmma": 6 * per * n_model,
+            "expert_gemm_dx": 3 * per * n_model,
+            "expert_gemm_dw": 3 * per * n_model,
+            "expert_gemm_skinny": 0, "expert_gemm": 0}
+
+
+def sharded_steps(tag, step, state, mesh, pipe, first: int, n: int,
+                  n_model: int, total: dict, prof=None):
+    """Run ``n`` sharded steps on batches ``first``, …: per step the
+    launches (set to 0 before, read after, checked exactly), loss, grad
+    norm, time, tokens/s, peak memory, bytes held per mesh position and
+    the collectives' bytes. Returns (state, rows)."""
+    import torch
+    from repro_torch.distrib.sharding import position_bytes
+    rows = []
+    want = sharded_launch_want(n_model)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i in range(first, first + n):
+        batch = [torch.as_tensor(a, device="cuda") for a in pipe.batch_at(i)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_bytes()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        if prof is not None and i == first + 1:
+            state, m = prof.step(1, lambda: step(state, *batch))
+        else:
+            state, m = step(state, *batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: v for k, v in read_all_counts().items() if k in want}
+        for k, v in read_all_counts().items():
+            total[k] = total.get(k, 0) + v
+        held = position_bytes(state)
+        row = dict(step=i, loss=loss, grad_norm=gnorm, step_s=dt,
+                   tokens_per_s=tokens / dt,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   position_bytes=held, collective_bytes=dict(mesh.bytes),
+                   launches=got)
+        rows.append(row)
+        say(f"  train-sharded {tag} step {i} on {mesh.shape}: loss "
+            f"{loss:.4f} grad_norm {gnorm:.4f} step {dt:.3f} s "
+            f"({tokens / dt:.1f} tok/s) peak {row['peak_bytes']} B; state "
+            f"bytes per position {held}; collective bytes "
+            f"{dict(mesh.bytes)}")
+        check(got == want, f"train-sharded {tag} step {i}: launches {got}, "
+                           f"want {want}")
+    return state, rows
+
+
+def phase_train_sharded(train_lm: dict, profile: bool = False):
+    """qwen3-moe-30b-a3b at train-lm's widths, depth, batches and
+    schedule on a 2 × 2 ("data", "model") mesh — the first four cards, or
+    ``cuda:0`` four times on one card — under the reference train cell's
+    ``fsdp`` rules. (a) ZeRO-3, batch P("data", None): 2 steps, the
+    elastic plan for 2 failed devices ((2, 2) → (1, 2)), the state
+    resharded onto the first 2 positions' devices, 3 more steps: losses,
+    grad norms and every gathered leaf's digest bitwise train-lm's.
+    (b) expert parallelism, ``act_spec`` P("data", None, None): 2 steps on
+    the 2 × 2 mesh and on ``make_host_mesh()``, bitwise equal, and their
+    losses within ``SHARD_LOSS_RTOL`` of train-lm's first two (only the
+    cross entropy's route differs). Launches checked exactly per step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distrib.fault import plan_elastic, reshard
+    from repro_torch.distrib.sharding import (P, lm_param_specs,
+                                              state_specs_like)
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.state import (make_sharded_train_step,
+                                         new_sharded_train_state)
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(FULL, n_layers=TRAIN_LAYERS)
+    # train-lm's schedule (TrainConfig() would not give its bits)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=TRAIN_STEPS)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    n_cards = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(4)] if n_cards >= 4
+               else ["cuda:0"] * 4)
+    mesh = Mesh((2, 2), ("data", "model"), devices)
+    bspec = P("data", None)
+    total = {}
+    out = dict(mesh=str(mesh))
+
+    def fresh(model, on):
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            dtype=torch.float32)
+        specs = state_specs_like(lm_param_specs(params, cfg, "fsdp"))
+        state = new_sharded_train_state(params, on, specs)
+        del params
+        torch.cuda.empty_cache()
+        return specs, state
+
+    # (a) ZeRO-3 across the elastic re-mesh
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, moe_group_size=TRAIN_GROUP)
+    specs, state = fresh(model, mesh)
+    say(f"  train-sharded (a): {mesh}, fsdp specs: embed "
+        f"{specs.params['embed']!r}, head {specs.params['head']!r}, "
+        f"layer wq {specs.params['layers'][0]['wq']!r}, experts "
+        f"{specs.params['layers'][0]['moe']['wg']!r}; placed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    step = make_sharded_train_step(model.loss, tcfg, mesh, specs, bspec,
+                                   TRAIN_MICRO)
+    prof = CollectiveProfiler("train-sharded (a) 2x2") if profile else None
+    state, rows_a = sharded_steps("(a)", step, state, mesh, pipe, 0, 2, 1,
+                                  total, prof)
+    if prof is not None:
+        out["profile_a"] = prof.spans
+    plan = plan_elastic(mesh.shape, mesh.axis_names, failed_devices=2)
+    check(plan.new_shape == (1, 2) and plan.lost_batch_fraction == 0.5,
+          f"train-sharded: elastic plan {plan}")
+    small = Mesh(plan.new_shape, plan.axes,
+                 mesh.devices[:plan.new_shape[0] * plan.new_shape[1]])
+    t0 = time.perf_counter()
+    mesh.reset_bytes()
+    state = reshard(state, small, specs, donate=True)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    say(f"  train-sharded (a): {plan}; resharded onto {small} in "
+        f"{reshard_s:.2f} s, {dict(mesh.bytes)} B moved")
+    step = make_sharded_train_step(model.loss, tcfg, small, specs, bspec,
+                                   TRAIN_MICRO)
+    state, rows_a2 = sharded_steps("(a)", step, state, small, pipe, 2,
+                                   TRAIN_STEPS - 2, 1, total)
+    rows_a += rows_a2
+    got = [(r["loss"], r["grad_norm"]) for r in rows_a]
+    want = list(zip(train_lm["losses"], train_lm["grad_norm"]))
+    digests = state_digests(state)
+    same = [i for i, (a, b) in enumerate(zip(digests, train_lm["digests"]))
+            if a != b]
+    say(f"  train-sharded (a): (loss, grad_norm) {got}; bitwise train-lm's: "
+        f"{got == want}; leaf digests equal: {len(digests) - len(same)} of "
+        f"{len(digests)}")
+    check(got == want, f"train-sharded (a): {got}, train-lm {want}")
+    check(len(digests) == len(train_lm["digests"]) and not same,
+          f"train-sharded (a): leaves {same} differ from train-lm's")
+    del state, step
+    torch.cuda.empty_cache()
+    out.update(a=rows_a, plan=dict(new_shape=plan.new_shape,
+                                   lost_batch_fraction=plan.
+                                   lost_batch_fraction),
+               reshard_s=reshard_s, bitwise_train_lm=True)
+
+    # (b) expert parallelism against the host mesh
+    model = TransformerLM(cfg, moe_group_size=TRAIN_GROUP,
+                          act_spec=P("data", None, None))
+    runs = {}
+    for name, on, n_model in (("2x2", mesh, 2),
+                              ("host", make_host_mesh("cuda:0"), 1)):
+        specs, state = fresh(model, on)
+        step = make_sharded_train_step(model.loss, tcfg, on, specs, bspec,
+                                       TRAIN_MICRO)
+        prof = (CollectiveProfiler(f"train-sharded (b) {name}")
+                if profile and name == "2x2" else None)
+        state, rows = sharded_steps(f"(b) {name}", step, state, on, pipe, 0,
+                                    2, n_model, total, prof)
+        if prof is not None:
+            out["profile_b"] = prof.spans
+        runs[name] = (rows, state_digests(state))
+        del state, step
+        torch.cuda.empty_cache()
+    (rows_ep, dig_ep), (rows_host, dig_host) = runs["2x2"], runs["host"]
+    ep = [(r["loss"], r["grad_norm"]) for r in rows_ep]
+    host = [(r["loss"], r["grad_norm"]) for r in rows_host]
+    rel = max(abs(r["loss"] - w) / abs(w)
+              for r, w in zip(rows_ep, train_lm["losses"]))
+    say(f"  train-sharded (b): 2x2 {ep}; host mesh {host}; bitwise equal: "
+        f"{ep == host and dig_ep == dig_host}; losses against train-lm's "
+        f"first two: largest relative difference {rel:.3e} (tolerance "
+        f"{SHARD_LOSS_RTOL})")
+    check(ep == host and dig_ep == dig_host,
+          "train-sharded (b): the 2x2 expert-parallel run differs from the "
+          "host mesh's")
+    check(rel <= SHARD_LOSS_RTOL,
+          f"train-sharded (b): losses {rel:.3e} from train-lm's")
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase train-sharded: {phase_s:.1f} s wall")
+    out.update(b_2x2=rows_ep, b_host=rows_host, b_loss_max_rel=rel,
+               phase_s=phase_s)
+    return total, out
 
 
 def phase_train_smollm():
@@ -1837,12 +2098,19 @@ class StepProfiler:
             out = fn()
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
+        self.report(prof, i, wall_s)
+        return out
+
+    def report(self, prof, i: int, wall_s: float) -> None:
         from torch.autograd import DeviceType
+        from repro_torch.distrib.collectives import SPANS
         rows = []
         for ev in prof.key_averages():
             # device-side events only (kernels, copies): an aten op's own
-            # device time repeats that of the kernels it launched
-            if getattr(ev, "device_type", None) == DeviceType.CPU:
+            # device time repeats that of the kernels it launched, and so
+            # does a profiler range's (the sharded step's SPANS)
+            if getattr(ev, "device_type", None) == DeviceType.CPU or \
+                    ev.key in SPANS:
                 continue
             dev_us = getattr(ev, "self_device_time_total",
                              getattr(ev, "self_cuda_time_total", 0.0))
@@ -1866,7 +2134,28 @@ class StepProfiler:
         say("    port kernels: " + (", ".join(
             f"{name} {ms:.3f} ms ({n}x)" for name, (ms, n) in
             sorted(port.items(), key=lambda kv: -kv[1][0])) or "none"))
-        return out
+
+
+class CollectiveProfiler(StepProfiler):
+    """``StepProfiler`` that also reports the device time under each
+    collective's profiler range (``distrib.collectives.SPANS``) and keeps
+    it in ``spans``."""
+
+    def __init__(self, label: str):
+        super().__init__(True, label)
+        self.spans = {}
+
+    def report(self, prof, i: int, wall_s: float) -> None:
+        from repro_torch.distrib.collectives import SPANS
+        super().report(prof, i, wall_s)
+        for ev in prof.key_averages():
+            if ev.key in SPANS:
+                ms = getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0)) / 1e3
+                self.spans[ev.key] = (ms, ev.count)
+        say(f"  profile {self.label}: device time under each range: "
+            + ", ".join(f"{k} {ms:.3f} ms ({n}x)"
+                        for k, (ms, n) in sorted(self.spans.items())))
 
 
 def check_results(stats_deltas, where: str) -> int:
@@ -3679,6 +3968,8 @@ def main(argv=None) -> int:
     launches_configs, lm_configs = phase_serve_lm_configs()
     say("phase train-lm:")
     launches_train, train = phase_train_lm(args.profile)
+    say("phase train-sharded:")
+    launches_sharded, train_sharded = phase_train_sharded(train, args.profile)
     say("phase train-smollm:")
     launches_smol, train_smol = phase_train_smollm()
     bst_agree = phase_bst_agreement()
@@ -3696,6 +3987,7 @@ def main(argv=None) -> int:
                  traced=traced, runtime=runtime, control=control,
                  captured=cap, lm=lm, sharded=sharded, train=train,
                  lm_configs=lm_configs, train_smollm=train_smol,
+                 train_sharded=train_sharded,
                  train_agreement=train_agree, bst_agreement=bst_agree,
                  serve_bst=serve_bst, train_bst=train_bst,
                  gnn_agreement=gnn_agree, train_gnn=train_gnn,
@@ -3805,6 +4097,7 @@ def main(argv=None) -> int:
             "launches_train_agreement": launches_train_agree[name],
             "launches_serve_lm_configs": launches_configs.get(name, 0),
             "launches_train_smollm": launches_smol[name],
+            "launches_train_sharded": launches_sharded.get(name, 0),
         })
     say(f"serve summary: {json.dumps(serve)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")

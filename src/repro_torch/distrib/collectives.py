@@ -1,0 +1,327 @@
+"""The collectives of the sharded train step, and the reference's
+``sparse_allreduce`` / ``hierarchical_psum`` (PyTorch port of
+``repro.distrib.collectives``).
+
+One process drives every mesh position, so a collective is an explicit
+copy or sum over the positions' tensors in a fixed order, with no float
+atomics: the results do not depend on how many devices the mesh names.
+Each one adds the bytes it moves between positions to ``mesh.bytes``
+under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
+``grad_psum``, ``grad_send``, ``norm_gather``, ``reshard``,
+``sparse_allreduce``, ``hierarchical_psum``), so a dry run can read the
+collective bytes from the mesh.
+The step's collectives (and its AdamW) also run under
+``torch.profiler.record_function`` ranges named in :data:`SPANS`, so a
+profile attributes device time to them.
+
+The step's view of one leaf for one batch shard is a :class:`ShardView`:
+its blocks as leaves that collect that batch shard's gradient (they share
+the shards' storage). ``full()`` all-gathers them onto the batch shard's
+device; the gather's backward hands each block its slice of the gradient.
+``blocks()`` leaves an expert weight where it lives (:class:`Blocks`):
+``moe_block`` sends each expert shard's slice of the dispatch buffer there
+(:func:`send`) and brings the products back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from repro_torch.distrib.sharding import (Layout, ShardedTensor, assemble,
+                                          entry_axes)
+from repro_torch.sparse.segment import segment_sum
+
+
+# profiler ranges of the sharded train step
+SPANS = ("all_gather", "all_gather_grad", "expert_send", "grad_psum",
+         "norm_gather", "adamw")
+span = torch.profiler.record_function
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _AllGather(torch.autograd.Function):
+    """Blocks (one tensor per block of ``layout``, in ``layout.blocks()``
+    order, held at ``sources``) → the whole tensor at position ``dst``; the
+    backward sends each block its slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, layout: Layout, sources: Tuple[int, ...], dst: int,
+                *parts):
+        mesh = layout.mesh
+        blocks = layout.blocks()
+        for src, part in zip(sources, parts):
+            if src != dst:
+                mesh.count("all_gather", _nbytes(part))
+        ctx.layout, ctx.sources, ctx.dst = layout, sources, dst
+        ctx.devices = [p.device for p in parts]
+        with span("all_gather"):
+            return assemble(layout, dict(zip(blocks, parts)),
+                            mesh.device(dst), parts[0].dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lay, mesh = ctx.layout, ctx.layout.mesh
+        out = []
+        with span("all_gather_grad"):
+            for block, src, dev in zip(lay.blocks(), ctx.sources,
+                                       ctx.devices):
+                g = grad[lay.slices(block)]
+                if src != ctx.dst:
+                    mesh.count("all_gather_grad", _nbytes(g))
+                # a contiguous slice on the block's device is handed over
+                # as it is (no second copy of a gathered leaf's gradient)
+                if g.device != dev or not g.is_contiguous():
+                    g = torch.empty(g.shape, dtype=g.dtype,
+                                    device=dev).copy_(g)
+                out.append(g)
+        return (None, None, None, *out)
+
+
+class _Send(torch.autograd.Function):
+    """A contiguous copy of ``x`` from position ``src`` to ``dst``; the
+    backward sends the gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, src: int, dst: int):
+        ctx.mesh, ctx.src, ctx.dst, ctx.device = mesh, src, dst, x.device
+        if src != dst:
+            mesh.count("expert_send", _nbytes(x))
+        with span("expert_send"):
+            return torch.empty(x.shape, dtype=x.dtype,
+                               device=mesh.device(dst)).copy_(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.src != ctx.dst:
+            ctx.mesh.count("expert_send", _nbytes(grad))
+        with span("expert_send"):
+            return (torch.empty(grad.shape, dtype=grad.dtype,
+                                device=ctx.device).copy_(grad),
+                    None, None, None)
+
+
+class _SendSlices(torch.autograd.Function):
+    """Consecutive slices of ``x`` along dimension 1 (``sizes``), each
+    copied from position ``src`` to its position in ``dsts``; the backward
+    copies each slice's gradient back into its place (no sum, so a −0
+    stays −0)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, src: int, dsts: Tuple[int, ...],
+                sizes: Tuple[int, ...]):
+        ctx.mesh, ctx.src, ctx.dsts, ctx.sizes = mesh, src, dsts, sizes
+        ctx.shape, ctx.device = x.shape, x.device
+        outs, lo = [], 0
+        with span("expert_send"):
+            for dst, n in zip(dsts, sizes):
+                part = x.narrow(1, lo, n)
+                if dst != src:
+                    mesh.count("expert_send", _nbytes(part))
+                outs.append(torch.empty(part.shape, dtype=x.dtype,
+                                        device=mesh.device(dst)).copy_(part))
+                lo += n
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = None
+        lo = 0
+        with span("expert_send"):
+            for dst, n, gi in zip(ctx.dsts, ctx.sizes, grads):
+                if g is None:
+                    g = torch.empty(ctx.shape, dtype=gi.dtype,
+                                    device=ctx.device)
+                if dst != ctx.src:
+                    ctx.mesh.count("expert_send", _nbytes(gi))
+                g.narrow(1, lo, n).copy_(gi)
+                lo += n
+        return g, None, None, None, None
+
+
+def send_slices(x: torch.Tensor, mesh, src: int, dsts: Sequence[int],
+                sizes: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """``x`` (at position ``src``) cut along dimension 1 into slices of
+    ``sizes``, each copied, contiguous, to its position in ``dsts``;
+    differentiable."""
+    return _SendSlices.apply(x, mesh, src, tuple(dsts), tuple(sizes))
+
+
+def send(x: torch.Tensor, mesh, src: int, dst: int) -> torch.Tensor:
+    """``x`` (at position ``src``) copied, contiguous, to position
+    ``dst``'s device; differentiable."""
+    return _Send.apply(x, mesh, src, dst)
+
+
+class Blocks(NamedTuple):
+    """A leaf split along dimension 0 into equal blocks, each on the
+    device of the mesh position that holds it; ``home`` is the position
+    whose batch shard uses them."""
+    parts: List[torch.Tensor]
+    positions: List[int]
+    home: int
+    mesh: object
+
+
+class ShardView:
+    """One batch shard's handle on a sharded leaf in the sharded train
+    step. Each block is taken from a position of the batch shard's own
+    group (``group``) where one holds it, else from the first holder;
+    ``proxies`` are those shards as leaves that require grad, so one
+    batch shard's microbatches add their gradients into them (autograd's
+    accumulation, in microbatch order) apart from every other batch
+    shard's."""
+
+    def __init__(self, x: ShardedTensor, home: int, group: Sequence[int]):
+        lay = x.layout
+        self.x, self.home = x, home
+        self.sources: Dict[Tuple[int, ...], int] = {}
+        for block in lay.blocks():
+            holders = lay.holders(block)
+            mine = [p for p in holders if p in group]
+            self.sources[block] = mine[0] if mine else holders[0]
+        self.proxies = {block: x.shards[pos].detach().requires_grad_(True)
+                        for block, pos in self.sources.items()}
+
+    def full(self) -> torch.Tensor:
+        """The whole leaf on the home position's device."""
+        blocks = self.x.layout.blocks()
+        if len(blocks) == 1 and self.sources[blocks[0]] == self.home:
+            return self.proxies[blocks[0]]
+        return _AllGather.apply(self.x.layout,
+                                tuple(self.sources[b] for b in blocks),
+                                self.home,
+                                *(self.proxies[b] for b in blocks))
+
+    def blocks(self) -> Blocks:
+        """The leaf's blocks along dimension 0 where they live (an expert
+        weight under expert parallelism); every other dimension must be
+        whole."""
+        lay = self.x.layout
+        if any(c != 1 for c in lay.counts[1:]):
+            raise ValueError(f"blocks(): {self.x!r} is split past dim 0")
+        order = sorted(self.proxies)
+        return Blocks([self.proxies[b] for b in order],
+                      [self.sources[b] for b in order], self.home,
+                      self.x.mesh)
+
+    def grads(self):
+        """(block, source position, gradient) per block; zeros where the
+        loss did not reach it."""
+        for block, proxy in self.proxies.items():
+            g = proxy.grad
+            yield (block, self.sources[block],
+                   g if g is not None else torch.zeros_like(proxy))
+
+
+def local(x, experts: bool = False):
+    """A batch shard's tensor for a parameter leaf: a :class:`ShardView`'s
+    whole leaf (or, with ``experts``, its blocks where they live); a plain
+    tensor as it is."""
+    if isinstance(x, ShardView):
+        return x.blocks() if experts else x.full()
+    return x
+
+
+# -- the reference's collectives, over per-position tensors -------------------
+
+def _axis_groups(mesh, axis: str) -> List[List[int]]:
+    """The positions of ``mesh`` grouped by every coordinate but
+    ``axis``'s, each group in ascending ``axis`` coordinate."""
+    groups: Dict[Tuple, List[int]] = {}
+    for pos in range(mesh.size):
+        c = mesh.coords(pos)
+        key = tuple(v for a, v in c.items() if a != axis)
+        groups.setdefault(key, []).append(pos)
+    return list(groups.values())
+
+
+def _psum(mesh, xs: List[torch.Tensor], axis: str,
+          collective: str) -> List[torch.Tensor]:
+    """``jax.lax.psum`` over ``axis``: each group's tensors summed from
+    the lowest coordinate up and the sum handed to every member."""
+    out = list(xs)
+    for group in _axis_groups(mesh, axis):
+        dst = group[0]
+        total = xs[dst]
+        for p in group[1:]:
+            mesh.count(collective, _nbytes(xs[p]))
+            total = total + xs[p].to(mesh.device(dst))
+        for p in group:
+            if p != dst:
+                mesh.count(collective, _nbytes(total))
+            out[p] = total.to(mesh.device(p), copy=True)
+    return out
+
+
+def sparse_allreduce(mesh, values: Sequence[torch.Tensor],
+                     indices: Sequence[torch.Tensor], size: int,
+                     axis_name: str) -> List[torch.Tensor]:
+    """Sum per-position sparse contributions into a dense vector.
+
+    values/indices: one (k,) pair per mesh position. Each is densified
+    by ``sparse.segment.segment_sum`` (entries at one index added in
+    ascending k from zero, out-of-range indices dropped as JAX drops
+    them; no atomics) and the dense
+    vectors are summed over ``axis_name`` in ascending coordinate order;
+    returns the (size,) sum per position."""
+    dense = [segment_sum(v, i, size) for v, i in zip(values, indices)]
+    return _psum(mesh, dense, axis_name, "sparse_allreduce")
+
+
+def hierarchical_psum(mesh, xs: Sequence[torch.Tensor], inner_axis: str,
+                      outer_axis: str) -> List[torch.Tensor]:
+    """Reduce-scatter over ``inner_axis``, all-reduce over ``outer_axis``,
+    all-gather over ``inner_axis``: the 2-level gradient reduction. Shard
+    j of the inner reduce-scatter is the sum, from the lowest inner
+    coordinate up, of every member's j-th slice (of ``n_inner`` equal
+    slices of the flattened tensor)."""
+    n_inner = mesh.axis_size(inner_axis)
+    scattered: List[torch.Tensor] = [None] * mesh.size
+    for group in _axis_groups(mesh, inner_axis):
+        for j, dst in enumerate(group):
+            total = None
+            for p in group:
+                part = xs[p].reshape(n_inner, -1)[j]
+                if p != dst:
+                    mesh.count("hierarchical_psum", _nbytes(part))
+                part = part.to(mesh.device(dst))
+                total = part if total is None else total + part
+            scattered[dst] = total
+    reduced = _psum(mesh, scattered, outer_axis, "hierarchical_psum")
+    out: List[torch.Tensor] = [None] * mesh.size
+    for group in _axis_groups(mesh, inner_axis):
+        for dst in group:
+            parts = []
+            for p in group:
+                if p != dst:
+                    mesh.count("hierarchical_psum", _nbytes(reduced[p]))
+                parts.append(reduced[p].to(mesh.device(dst)))
+            out[dst] = torch.stack(parts).reshape(xs[dst].shape)
+    return out
+
+
+def batch_groups(mesh, spec_entry) -> Tuple[List[int], List[List[int]]]:
+    """For the batch axes of ``spec_entry``: each batch shard's home
+    position (its first position) and its group (every position with its
+    batch coordinates), batch shards in mixed-radix order, first axis
+    major."""
+    axes = entry_axes(spec_entry)
+    n = 1
+    for a in axes:
+        n *= mesh.axis_size(a)
+    homes, groups = [], []
+    for d in range(n):
+        want, r = {}, d
+        for a in reversed(axes):
+            want[a] = r % mesh.axis_size(a)
+            r //= mesh.axis_size(a)
+        group = [p for p in range(mesh.size)
+                 if all(mesh.coords(p)[a] == v for a, v in want.items())]
+        homes.append(group[0])
+        groups.append(group)
+    return homes, groups

@@ -1,11 +1,12 @@
-"""Cell builder for the GNN and BST archs: one (architecture × input
-shape) pair → a step function and its concrete arguments on one device
-(the concrete part of the JAX package's ``repro.launch.cells``).
+"""Cells: one (architecture × input shape) pair → a step function
+and its arguments (PyTorch port of the JAX package's
+``repro.launch.cells``).
 
 A :class:`Cell` bundles the model, ``step_fn(*args)`` (a train step for
-the train shapes; sigmoid scores or retrieval scores for BST's serve
-shapes) and ``args``, tensors on the requested device. Inputs are drawn
-by :class:`ArgFactory` from ``numpy.random.default_rng(0)`` in the
+the train shapes; prefill, decode, sigmoid or retrieval scores for the
+serve shapes), ``args``, and for an LM cell ``in_shardings``: the spec
+tree of the arguments under the reference's policies. Inputs are drawn by
+:class:`ArgFactory` from ``numpy.random.default_rng(0)`` in the
 reference's order, so a cell's inputs equal the reference's concrete
 cell's bit for bit; weights come from ``torch.Generator(device)`` seeded
 0 (random draws do not cross frameworks). ``smoke=True`` takes the
@@ -13,25 +14,36 @@ reference's reduced dims; ``smoke=False`` the shape's published dims, with
 edge counts and ``retrieval_cand``'s candidates padded to a multiple of
 512 as the reference pads them.
 
-The reference's shardings (``in_shardings`` over the production mesh),
-its ``ShapeDtypeStruct`` stand-ins and the dry-run that lowers them wait
-for ROADMAP item 13.5 (the distributed layers); the LM train cell lives in
-``repro_torch.launch.train`` (``lm_train_cell``).
+LM cells: with ``concrete=False`` the arguments are meta tensors (the
+reference's ``ShapeDtypeStruct`` stand-ins: shapes and dtypes, nothing
+allocated), which :func:`input_specs` returns. With a ``mesh`` a train
+cell's step is the sharded step (``train.state.make_sharded_train_step``)
+and its concrete state is placed on the mesh; the prefill and decode cells
+carry their specs, and run unsharded (sharded serving is a later slice,
+ROADMAP item 13.5). The GNN and BST cells are concrete only, on one
+device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+import os
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import (ArchConfig, BSTConfig, GNNConfig,
-                                     TrainConfig)
+                                     TrainConfig, TransformerConfig)
+from repro_torch.distrib.collectives import batch_groups
+from repro_torch.distrib.sharding import (P, batch_axes, lm_cache_specs,
+                                          lm_param_specs, state_specs_like)
 from repro_torch.models.gnn.common import GraphInputs, make_model
 from repro_torch.models.gnn.graphcast import mesh_sizes
 from repro_torch.models.recsys.bst import BST, BSTInputs
-from repro_torch.train.state import make_train_step, new_train_state
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.train.state import (make_sharded_train_step,
+                                     make_train_step, new_sharded_train_state,
+                                     new_train_state)
 
 
 class Cell(NamedTuple):
@@ -42,6 +54,7 @@ class Cell(NamedTuple):
     step_fn: Callable
     args: Tuple[Any, ...]
     meta: dict
+    in_shardings: Optional[Tuple[Any, ...]] = None
 
 
 TCFG = TrainConfig()
@@ -68,6 +81,99 @@ class ArgFactory:
 
 def _generator(device) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(0)
+
+
+# ---------------------------------------------------------------------------
+# LM cells
+# ---------------------------------------------------------------------------
+
+LM_SMOKE_DIMS = {
+    "train_4k": {"seq_len": 32, "global_batch": 2},
+    "prefill_32k": {"seq_len": 64, "global_batch": 1},
+    "decode_32k": {"seq_len": 64, "global_batch": 2},
+    "long_500k": {"seq_len": 128, "global_batch": 1},
+}
+
+
+def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
+            multi_pod: bool = False, concrete: bool = True,
+            smoke: bool = False) -> Cell:
+    """An LM cell. Train: ``step_fn(state, tokens, labels)``; prefill:
+    ``model.prefill(params, tokens)``; decode: ``model.decode_step(params,
+    token, cache, cache_len)``. The batch shards over the batch axes when
+    B ≥ their production shard count (16, 32 with ``multi_pod``), and only
+    then does the model take ``act_spec``; train shards the parameters
+    under ``REPRO_LM_POLICY`` (default ``fsdp``), prefill under
+    ``REPRO_LM_PREFILL_POLICY`` (default ``fsdp``), decode under
+    ``tp2d``, as the reference's cells do."""
+    cfg: TransformerConfig = arch.model
+    shape = arch.shape(shape_name)
+    dims = LM_SMOKE_DIMS[shape.name] if smoke else shape.dims
+    B, S = dims["global_batch"], dims["seq_len"]
+    ba = batch_axes(multi_pod)
+    n_batch_shards = (2 * 16) if multi_pod else 16
+    wide = B >= n_batch_shards
+    bspec = P(ba, None) if (wide or mesh is None) else P(None, None)
+    act_spec = P(ba, None, None) if (mesh is not None and wide) else None
+    model = TransformerLM(cfg, moe_group_size=min(4096, max(64, B * S // 8)),
+                          act_spec=act_spec)
+    dev = torch.device(device) if concrete else torch.device("meta")
+    fac = ArgFactory(dev)
+    gen = torch.Generator().manual_seed(0) if not concrete \
+        else _generator(dev)
+
+    def ints(shape_, high):
+        if concrete:
+            return fac(shape_, np.int32, high)
+        return torch.empty(shape_, dtype=torch.int32, device=dev)
+
+    if shape.kind == "train":
+        params = model.init(gen, dtype=torch.float32, device=dev)
+        tokens = ints((B, S), cfg.vocab_size)
+        labels = ints((B, S), cfg.vocab_size)
+        policy = os.environ.get("REPRO_LM_POLICY", "fsdp")
+        specs = state_specs_like(lm_param_specs(params, cfg, policy))
+        in_sh = None if mesh is None else (specs, bspec, bspec)
+        if mesh is not None and concrete:
+            # one microbatch per batch shard: the reference's one step
+            # over the whole batch, split where it lives
+            D = len(batch_groups(mesh, bspec[0])[0])
+            step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
+                                           bspec, microbatches=D)
+            state = new_sharded_train_state(params, mesh, specs)
+        else:
+            step = make_train_step(model.loss, TCFG)
+            state = new_train_state(params)
+        return Cell(arch.arch_id, shape.name, "train", model, step,
+                    (state, tokens, labels), {"tokens_per_step": B * S},
+                    in_sh)
+
+    params = model.init(gen, dtype=torch.bfloat16, device=dev)
+    if shape.kind == "prefill":
+        tokens = ints((B, S), cfg.vocab_size)
+        policy = os.environ.get("REPRO_LM_PREFILL_POLICY", "fsdp")
+        pspec = lm_param_specs(params, cfg, policy=policy)
+        in_sh = None if mesh is None else (pspec, bspec)
+        return Cell(arch.arch_id, shape.name, "prefill", model,
+                    model.prefill, (params, tokens),
+                    {"tokens_per_step": B * S}, in_sh)
+
+    # decode (decode_32k / long_500k): one token against an S-long cache
+    token = ints((B, 1), cfg.vocab_size)
+    cache_shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    if concrete:   # standard-normal draws, rounded to the cache's bf16
+        cache = tuple(fac(cache_shape, np.float32).to(torch.bfloat16)
+                      for _ in range(2))
+    else:
+        cache = tuple(torch.empty(cache_shape, dtype=torch.bfloat16,
+                                  device=dev) for _ in range(2))
+    cache_len = torch.tensor(S // 2, dtype=torch.int32, device=dev)
+    pspec = lm_param_specs(params, cfg)
+    cspec = lm_cache_specs(multi_pod, B if mesh is not None else 0)
+    in_sh = None if mesh is None else (pspec, bspec, (cspec, cspec), P())
+    return Cell(arch.arch_id, shape.name, "decode", model,
+                model.decode_step, (params, token, cache, cache_len),
+                {"tokens_per_step": B, "kv_tokens": B * S}, in_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -202,9 +308,25 @@ def bst_cell(arch: ArchConfig, shape_name: str, device="cuda",
 
 
 def build_cell(arch: ArchConfig, shape_name: str, device="cuda",
-               smoke: bool = False) -> Cell:
+               smoke: bool = False, mesh=None, multi_pod: bool = False,
+               concrete: bool = True) -> Cell:
+    if arch.family == "lm":
+        return lm_cell(arch, shape_name, device, mesh, multi_pod, concrete,
+                       smoke)
+    if not concrete or mesh is not None:
+        raise ValueError(f"the {arch.family} cells are concrete and "
+                         f"unsharded (their shardings are a later slice "
+                         f"of ROADMAP item 13.5)")
     if arch.family == "gnn":
         return gnn_cell(arch, shape_name, device, smoke)
     if arch.family == "recsys":
         return bst_cell(arch, shape_name, device, smoke)
     raise ValueError(f"no cells here for family {arch.family!r}")
+
+
+def input_specs(arch: ArchConfig, shape_name: str, mesh=None,
+                multi_pod: bool = False) -> Tuple[Any, ...]:
+    """Meta-tensor stand-ins for every model input of an LM cell (the
+    reference's ``ShapeDtypeStruct`` dry-run contract)."""
+    return build_cell(arch, shape_name, mesh=mesh, multi_pod=multi_pod,
+                      concrete=False).args

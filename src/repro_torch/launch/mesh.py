@@ -1,0 +1,112 @@
+"""The device mesh of the LM's distributed layers (PyTorch port of
+``repro.launch.mesh``).
+
+A :class:`Mesh` names its axes, gives each a size and lays a device list
+over the positions in row-major order, as ``jax.make_mesh`` does. One
+process drives every position (the JAX package is single-controller too):
+a sharded tensor keeps one shard per position on that position's device,
+and every collective is an explicit copy or sum in a fixed order
+(``repro_torch.distrib``). A device list may repeat a device: the CPU
+tests run ``["cpu"] * 4``, and ``["cuda:0"] * 4`` runs a 2 × 2 mesh on one
+card, every shard at its real shape.
+
+Each axis size must divide the production size of the axis with that name
+(``distrib.sharding.AXIS_SIZE``: pod 2, data 16, model 16). The sharding
+rules degrade a spec until every dimension divides its production shard
+count, so on such a mesh no shard is uneven.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.graph import canonical_device
+from repro_torch.distrib.sharding import AXIS_SIZE
+
+
+class Mesh:
+    """``shape`` positions named by ``axis_names``, each on one device of
+    ``devices`` (row-major). ``bytes`` counts what the collectives move
+    between positions, by collective."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 devices: Sequence):
+        self.shape: Tuple[int, ...] = tuple(int(n) for n in shape)
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} and axes "
+                             f"{self.axis_names} differ in length")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"mesh axes {self.axis_names} repeat a name")
+        for name, n in zip(self.axis_names, self.shape):
+            if name not in AXIS_SIZE:
+                raise ValueError(f"mesh axis {name!r} is none of the "
+                                 f"production axes {sorted(AXIS_SIZE)}")
+            if n < 1 or AXIS_SIZE[name] % n:
+                raise ValueError(
+                    f"mesh axis {name!r} of size {n} does not divide its "
+                    f"production size {AXIS_SIZE[name]}")
+        self.devices: List[torch.device] = [canonical_device(d)
+                                            for d in devices]
+        if len(self.devices) != math.prod(self.shape):
+            raise ValueError(f"a {self.shape} mesh needs "
+                             f"{math.prod(self.shape)} devices, got "
+                             f"{len(self.devices)}")
+        kinds = {d.type for d in self.devices}
+        if len(kinds) != 1:
+            raise ValueError(f"mesh devices of more than one type: "
+                             f"{sorted(kinds)}")
+        self.bytes: Dict[str, int] = collections.Counter()
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{a}={n}" for a, n in zip(self.axis_names,
+                                                    self.shape))
+        return f"Mesh({axes}; {[str(d) for d in self.devices]})"
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def axis_size(self, name: str) -> int:
+        if name not in self.axis_names:
+            raise ValueError(f"{self!r} has no axis {name!r}")
+        return self.shape[self.axis_names.index(name)]
+
+    def coords(self, pos: int) -> Dict[str, int]:
+        """Position ``pos`` (row-major) as {axis: coordinate}."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names), reversed(self.shape)):
+            out[name] = pos % n
+            pos //= n
+        return out
+
+    def device(self, pos: int) -> torch.device:
+        return self.devices[pos]
+
+    def count(self, collective: str, nbytes: int) -> None:
+        self.bytes[collective] += int(nbytes)
+
+    def reset_bytes(self) -> None:
+        self.bytes.clear()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The reference's pod mesh: 16 × 16 (data, model), or 2 × 16 × 16
+    (pod, data, model) with ``multi_pod``, over ``devices`` (a list may
+    repeat a device; default: every visible card)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    return Mesh(shape, axes, devices)
+
+
+def make_host_mesh(device="cuda") -> Mesh:
+    """The 1 × 1 mesh with the production axis names, on ``device``."""
+    return Mesh((1, 1), ("data", "model"), [device])

@@ -7,10 +7,9 @@ is given (the PyTorch port of the JAX package's ``repro.launch.train``).
   PYTHONPATH=src python -m repro_torch.launch.train --arch dimenet --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch bst --device cpu
 
-The LM train cell is built here as the reference's ``launch/cells.py``
-builds its smoke cell (``_LM_SMOKE_DIMS`` and ``_lm_cell``; the GNN and
-BST cells are ``repro_torch.launch.cells``): the shape's reduced batch and
-sequence, ``moe_group_size = min(4096, max(64, B·S // 8))``, the default
+Every cell comes from ``repro_torch.launch.cells.build_cell``, as the
+reference's launcher builds its smoke cell; the LM's: the shape's reduced
+batch and sequence, ``moe_group_size = min(4096, max(64, B·S // 8))``, the default
 ``TrainConfig()``, f32 master weights drawn from seed 0, and one batch of
 tokens and labels drawn with ``numpy.random.default_rng(0)`` as the cell's
 argument factory draws them, fed to every step. Every arch with a train
@@ -25,32 +24,19 @@ from __future__ import annotations
 import argparse
 import time
 
-import numpy as np
 import torch
 
-from repro_torch.config.base import TrainConfig
+from repro_torch.config.base import LM_SHAPES, ArchConfig
 from repro_torch.config.registry import get_arch
 from repro_torch.launch.cells import build_cell
-from repro_torch.models.transformer import TransformerLM
-from repro_torch.train.state import make_train_step, new_train_state
-
-# the reference's launch/cells.py:_LM_SMOKE_DIMS, train shape
-LM_SMOKE_TRAIN_DIMS = {"train_4k": {"seq_len": 32, "global_batch": 2}}
 
 
 def lm_train_cell(cfg, shape: str, device):
-    """(model, state, tokens, labels) of the reduced LM train cell."""
-    dims = LM_SMOKE_TRAIN_DIMS[shape]
-    B, S = dims["global_batch"], dims["seq_len"]
-    model = TransformerLM(cfg, moe_group_size=min(4096, max(64, B * S // 8)))
-    params = model.init(torch.Generator(device=device).manual_seed(0),
-                        dtype=torch.float32)
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
-    labels = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
-    return (model, new_train_state(params),
-            torch.as_tensor(tokens, device=device),
-            torch.as_tensor(labels, device=device))
+    """(model, state, tokens, labels) of the reduced LM train cell
+    (``launch.cells.build_cell`` on an arch of ``cfg``)."""
+    arch = ArchConfig("lm", "lm", cfg, LM_SHAPES)
+    cell = build_cell(arch, shape, device, smoke=True)
+    return (cell.model, *cell.args)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -78,15 +64,9 @@ def main(argv=None) -> None:
     if kind != "train":
         raise SystemExit(f"shape {shape} is {kind}, not train")
     device = torch.device(args.device)
-    if arch.family == "lm":
-        model, state, tokens, labels = lm_train_cell(arch.model, shape,
-                                                     device)
-        step = make_train_step(model.loss, TrainConfig())
-        batch = (tokens, labels)
-    else:
-        cell = build_cell(arch, shape, device, smoke=True)
-        step = cell.step_fn
-        state, *batch = cell.args
+    cell = build_cell(arch, shape, device, smoke=True)
+    step = cell.step_fn
+    state, *batch = cell.args
     print(f"[train] {args.arch}/{shape} (reduced config) — {args.steps} "
           f"steps on {device}")
     t0 = time.time()

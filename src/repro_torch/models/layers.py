@@ -158,10 +158,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,
-                dtype=torch.float32) -> torch.Tensor:
-    """Glorot-normal (d_in, d_out) weight on the generator's device."""
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """Glorot-normal (d_in, d_out) weight on ``device`` (default: the
+    generator's; ``"meta"`` draws nothing)."""
     scale = (2.0 / (d_in + d_out)) ** 0.5
-    return (torch.randn((d_in, d_out), generator=gen, device=gen.device)
+    dev = gen.device if device is None else device
+    return (torch.randn((d_in, d_out), generator=gen, device=dev)
             * scale).to(dtype)
 
 

@@ -20,6 +20,16 @@ give the same bits. The dispatch's token gather has the transpose of that
 combine as its backward (:class:`DispatchGather`): autograd's own backward
 for a gather is ``scatter_add_``, which adds a token's k slot gradients
 with atomics on the card, in no fixed order.
+
+With ``exp_spec`` (expert parallelism, the reference's
+``models/moe.py:88-109``) the expert weights may come as
+:class:`~repro_torch.distrib.collectives.Blocks`, E / M experts on each
+"model" shard's device: the dispatch buffer stays with its batch shard,
+each shard's E slice of it is sent where its experts live, the three
+products run there on E / M experts, and the outputs come back and are
+concatenated along E in shard order before the combine. Each expert's
+products, and the backward's dX and dW, read only that expert's rows, so
+the result is bitwise the unsharded one, forward and backward.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
+from repro_torch.distrib.collectives import Blocks, send, send_slices
 from repro_torch.kernels.expert_gemm import ExpertGemm
 
 
@@ -105,12 +116,10 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
               exp_spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d) → (y: (T, d), aux_loss scalar).
 
-    params: router (d, E); wg/wu (E, d, f); wd (E, f, d).
+    params: router (d, E); wg/wu (E, d, f); wd (E, f, d), each a tensor
+    or, with ``exp_spec``, :class:`Blocks` of it along E (the experts
+    where they live).
     """
-    if exp_spec is not None:
-        raise NotImplementedError(
-            "moe_block: exp_spec (expert-parallel sharding) waits for the "
-            "LM's multi-GPU layers (ROADMAP queue 1, item 13)")
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     r = route(x, params["router"], cfg, n_groups, capacity_factor)
@@ -137,12 +146,11 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
     buf[dst.reshape(-1)] = src.reshape(G * N, d)
     x_exp = buf[:G * E * C].view(G * E, C, d)
 
-    wg = params["wg"].to(x.dtype)                             # (E, d, f)
-    wu = params["wu"].to(x.dtype)
-    wd = params["wd"].to(x.dtype)                             # (E, f, d)
-    gemm = ExpertGemm.apply
-    h = F.silu(gemm(x_exp, wg)) * gemm(x_exp, wu)
-    y_exp = gemm(h, wd).view(G, E * C, d)
+    if exp_spec is not None and isinstance(params["wg"], Blocks):
+        y_exp = _experts_where_they_live(x_exp.view(G, E, C, d), params)
+    else:
+        y_exp = _experts(x_exp, params["wg"], params["wu"], params["wd"])
+    y_exp = y_exp.view(G, E * C, d)
 
     # combine: sorted slot i feeds token r.tokens[i]; each token gathers its
     # k slots and adds them in ascending sorted position, starting from 0
@@ -150,6 +158,36 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
         1, torch.clamp_max(r.rows, E * C - 1)[..., None].expand(G, N, d))
     picked = picked * (r.gates * r.keep).to(y_exp.dtype)[..., None]
     return sum_slots(picked, order).reshape(T, d), aux.float()
+
+
+def _experts(x_exp: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """The three expert products over a (G·E, C, d) dispatch buffer."""
+    gemm = ExpertGemm.apply
+    dt = x_exp.dtype
+    h = F.silu(gemm(x_exp, wg.to(dt))) * gemm(x_exp, wu.to(dt))
+    return gemm(h, wd.to(dt))
+
+
+def _experts_where_they_live(x4: torch.Tensor, params) -> torch.Tensor:
+    """(G, E, C, d) dispatch buffer at its batch shard's position → the
+    (G, E, C, d) expert outputs there: each expert shard's E slice is sent
+    to the shard's device, multiplied there by its E / M experts, and sent
+    back; the slices are concatenated along E in shard order."""
+    G, E, C, d = x4.shape
+    wg, wu, wd = params["wg"], params["wu"], params["wd"]
+    mesh, home = wg.mesh, wg.home
+    if len(wg.parts) == 1 and wg.positions[0] == home:
+        return _experts(x4.reshape(G * E, C, d), wg.parts[0], wu.parts[0],
+                        wd.parts[0]).view(G, E, C, d)
+    sizes = [pg.shape[0] for pg in wg.parts]
+    xs = send_slices(x4, mesh, home, wg.positions, sizes)
+    outs = []
+    for xm, pg, pu, pd, pos in zip(xs, wg.parts, wu.parts, wd.parts,
+                                   wg.positions):
+        Em = pg.shape[0]
+        ym = _experts(xm.view(G * Em, C, d), pg, pu, pd).view(G, Em, C, d)
+        outs.append(send(ym, mesh, pos, home))
+    return torch.cat(outs, dim=1)
 
 
 def slot_order(perm: torch.Tensor, k: int) -> torch.Tensor:
@@ -195,14 +233,16 @@ class DispatchGather(torch.autograd.Function):
 
 
 def init_moe_params(gen: torch.Generator, cfg: MoEConfig, d_model: int,
-                    dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """Router and expert weights on the generator's device, drawn in f32
-    and stored in ``dtype``."""
+                    dtype=torch.float32,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """Router and expert weights on ``device`` (default: the generator's;
+    ``"meta"`` draws nothing), drawn in f32 and stored in ``dtype``."""
     E, f = cfg.n_experts, cfg.d_ff_expert
     s_in = (2.0 / (d_model + f)) ** 0.5
+    dev = gen.device if device is None else device
 
     def normal(shape, scale):
-        return (torch.randn(shape, generator=gen, device=gen.device)
+        return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
     return {

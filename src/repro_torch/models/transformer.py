@@ -30,6 +30,18 @@ Entry points:
   decode_step(params, token, cache, cache_len) → (logits, cache)
   make_cache(batch, seq_len)             → zero kv_cache
 
+With ``act_spec`` (a PartitionSpec such as ``P("data", None, None)``)
+the loss takes the vocab-parallel cross entropy
+(``layers.softmax_xent_sharded``) and, when ``moe_shard == "expert"``,
+the MoE layers pass ``exp_spec = P(batch_axes, "model", None, None)`` to
+``moe_block``, as the reference's model does. The port has no GSPMD to
+pin activations to: the sharded train step (``train.state.
+make_sharded_train_step``) runs each batch shard's activations on its own
+device, and hands the model its parameters as per-batch-shard views
+(``distrib.collectives.ShardView``) that each layer gathers where it uses
+them (and, under ``remat="full"``, again in the recompute); with
+``exp_spec`` the expert weights stay where they live.
+
 The KV cache is (L, B, S, KV, hd) ×2 in bf16, as in the reference, even for
 f32 configs. ``decode_step`` writes the new token's keys and values into
 the cache in place (the reference returns an updated copy) and returns it.
@@ -46,6 +58,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import TransformerConfig
+from repro_torch.distrib.collectives import local
+from repro_torch.distrib.sharding import P
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe_params, moe_block
 
@@ -70,57 +84,79 @@ _DOTS_CONTEXTS = functools.partial(create_selective_checkpoint_contexts,
 class TransformerLM:
     def __init__(self, cfg: TransformerConfig, moe_group_size: int = 4096,
                  act_spec=None):
-        if act_spec is not None:
-            raise NotImplementedError(
-                "TransformerLM: act_spec (activation sharding) waits for the "
-                "LM's multi-GPU layers (ROADMAP queue 1, item 13)")
         self.cfg = cfg
         self.compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                               else torch.float32)
         self.moe_group_size = moe_group_size
+        self.act_spec = act_spec
+        # the dispatch buffer's spec under expert parallelism
+        self.exp_spec = None
+        if (act_spec is not None and cfg.moe is not None
+                and cfg.moe.moe_shard == "expert"):
+            self.exp_spec = P(act_spec[0], "model", None, None)
+
+    def _local(self, params: Params) -> Params:
+        """The top-level leaves (embed, head, ln_f) of ``params`` as this
+        batch shard's tensors (``distrib.collectives.local``)."""
+        return {k: (v if k == "layers" else local(v))
+                for k, v in params.items()}
+
+    def _local_layer(self, p: Params) -> Params:
+        """One layer's leaves as this batch shard's tensors, the expert
+        weights left where they live under ``exp_spec``."""
+        out = {k: local(v) for k, v in p.items() if k != "moe"}
+        if "moe" in p:
+            ep = self.exp_spec is not None
+            out["moe"] = {k: local(v, experts=ep and k != "router")
+                          for k, v in p["moe"].items()}
+        return out
 
     # -- init -----------------------------------------------------------------
 
     def init_layer(self, gen: torch.Generator,
-                   dtype: Optional[torch.dtype] = None) -> Params:
+                   dtype: Optional[torch.dtype] = None,
+                   device=None) -> Params:
         cfg = self.cfg
         cd = self.compute_dtype if dtype is None else dtype
         d, hd = cfg.d_model, cfg.head_dim
         H, KV = cfg.n_heads, cfg.n_kv_heads
-        dev = gen.device
+        dev = gen.device if device is None else torch.device(device)
+        lin = functools.partial(L.init_linear, gen, dtype=cd, device=dev)
         p: Params = {
             "ln1": torch.ones((d,), dtype=cd, device=dev),
             "ln2": torch.ones((d,), dtype=cd, device=dev),
-            "wq": L.init_linear(gen, d, H * hd, cd),
-            "wk": L.init_linear(gen, d, KV * hd, cd),
-            "wv": L.init_linear(gen, d, KV * hd, cd),
-            "wo": L.init_linear(gen, H * hd, d, cd),
+            "wq": lin(d, H * hd),
+            "wk": lin(d, KV * hd),
+            "wv": lin(d, KV * hd),
+            "wo": lin(H * hd, d),
         }
         if cfg.qkv_bias:
             p["bq"] = torch.zeros((H * hd,), dtype=cd, device=dev)
             p["bk"] = torch.zeros((KV * hd,), dtype=cd, device=dev)
             p["bv"] = torch.zeros((KV * hd,), dtype=cd, device=dev)
         if cfg.moe is None:
-            p["wg"] = L.init_linear(gen, d, cfg.d_ff, cd)
-            p["wu"] = L.init_linear(gen, d, cfg.d_ff, cd)
-            p["wd"] = L.init_linear(gen, cfg.d_ff, d, cd)
+            p["wg"] = lin(d, cfg.d_ff)
+            p["wu"] = lin(d, cfg.d_ff)
+            p["wd"] = lin(cfg.d_ff, d)
         else:
-            p["moe"] = init_moe_params(gen, cfg.moe, d, cd)
+            p["moe"] = init_moe_params(gen, cfg.moe, d, cd, device=dev)
             if cfg.moe.n_shared_experts:
                 f = cfg.moe.n_shared_experts * cfg.moe.d_ff_expert
-                p["sg"] = L.init_linear(gen, d, f, cd)
-                p["su"] = L.init_linear(gen, d, f, cd)
-                p["sd"] = L.init_linear(gen, f, d, cd)
+                p["sg"] = lin(d, f)
+                p["su"] = lin(d, f)
+                p["sd"] = lin(f, d)
         return p
 
     def init(self, generator: torch.Generator,
-             dtype: Optional[torch.dtype] = None) -> Params:
+             dtype: Optional[torch.dtype] = None, device=None) -> Params:
         """Random weights on the generator's device, drawn from it in f32
         and stored in ``dtype`` (default: the compute dtype, for serving;
-        training passes ``torch.float32`` for f32 masters)."""
+        training passes ``torch.float32`` for f32 masters). ``device="meta"``
+        gives the shapes and dtypes only, with nothing allocated and no
+        draw taken (the counterpart of ``jax.eval_shape``)."""
         cfg = self.cfg
         cd = self.compute_dtype if dtype is None else dtype
-        dev = generator.device
+        dev = generator.device if device is None else torch.device(device)
         params: Params = {
             "embed": (torch.randn((cfg.vocab_size, cfg.d_model),
                                   generator=generator, device=dev)
@@ -129,8 +165,8 @@ class TransformerLM:
         }
         if not cfg.tie_embeddings:
             params["head"] = L.init_linear(generator, cfg.d_model,
-                                           cfg.vocab_size, cd)
-        params["layers"] = [self.init_layer(generator, cd)
+                                           cfg.vocab_size, cd, device=dev)
+        params["layers"] = [self.init_layer(generator, cd, dev)
                             for _ in range(cfg.n_layers)]
         return params
 
@@ -186,7 +222,7 @@ class TransformerLM:
             T = B * S
             n_groups = max(1, T // self.moe_group_size)
             y2d, aux = moe_block(h.reshape(T, d), p["moe"], cfg.moe,
-                                 n_groups)
+                                 n_groups, exp_spec=self.exp_spec)
             y = y2d.reshape(B, S, d)
             if cfg.moe.n_shared_experts:
                 y = y + L.swiglu(h, p["sg"], p["su"], p["sd"])
@@ -194,6 +230,7 @@ class TransformerLM:
 
     def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        p = self._local_layer(p)
         x, _ = self._attn(p, x, positions)
         return self._mlp(p, x)
 
@@ -212,6 +249,7 @@ class TransformerLM:
                 .expand(B, S)
         if cfg.remat not in ("full", "dots", "none"):
             raise ValueError(f"TransformerLM: unknown remat {cfg.remat!r}")
+        params = self._local(params)
         remat = cfg.remat != "none" and torch.is_grad_enabled()
         kw = {"context_fn": _DOTS_CONTEXTS} if cfg.remat == "dots" else {}
         x = self._embed(params, tokens)
@@ -237,11 +275,16 @@ class TransformerLM:
     def loss(self, params: Params, tokens: torch.Tensor,
              labels: torch.Tensor, aux_coef: float = 0.01) -> torch.Tensor:
         """Mean next-token cross entropy over the labels ≥ 0 (chunks of 512
-        positions) + ``aux_coef`` · the MoE aux loss / n_layers."""
+        positions; with ``act_spec`` the vocab-parallel form over all
+        logits at once) + ``aux_coef`` · the MoE aux loss / n_layers."""
+        params = self._local(params)
         hidden, aux = self.forward(params, tokens)
         w = self._head_w(params)
-        xent = L.softmax_xent_chunked(lambda xc: xc @ w.to(xc.dtype),
-                                      hidden, labels)
+        if self.act_spec is not None:
+            xent = L.softmax_xent_sharded(hidden, w, labels)
+        else:
+            xent = L.softmax_xent_chunked(lambda xc: xc @ w.to(xc.dtype),
+                                          hidden, labels)
         return xent + aux_coef * aux / max(self.cfg.n_layers, 1)
 
     # -- serving ----------------------------------------------------------------

@@ -109,18 +109,25 @@ def adamw_update(grads, state: AdamWState, params, lr,
     bc1 = 1.0 - b1 ** t
     bc2 = 1.0 - b2 ** t
     lr = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
-    with torch.no_grad():
-        for p, ndim, g, m, v in zip(tree_leaves(params),
-                                    reference_ndims(params),
-                                    tree_leaves(grads), tree_leaves(state.m),
-                                    tree_leaves(state.v)):
-            g = g.float()
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * torch.square(g))
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            # decoupled weight decay on matrices only (norms/bias by ndim,
-            # in the reference's stacked layout)
-            wd = weight_decay if ndim >= 2 else 0.0
-            pf = p.float()
-            p.copy_((pf - lr * (u + wd * pf)).to(p.dtype))
+    for p, ndim, g, m, v in zip(tree_leaves(params), reference_ndims(params),
+                                tree_leaves(grads), tree_leaves(state.m),
+                                tree_leaves(state.v)):
+        # decoupled weight decay on matrices only (norms/bias by ndim, in
+        # the reference's stacked layout)
+        adamw_leaf(p, g, m, v, lr, bc1, bc2, b1, b2, eps,
+                   weight_decay if ndim >= 2 else 0.0)
     return params, AdamWState(step, state.m, state.v), gnorm
+
+
+@torch.no_grad()
+def adamw_leaf(p, g, m, v, lr, bc1, bc2, b1: float, b2: float, eps: float,
+               wd: float) -> None:
+    """One leaf's AdamW update in place (``lr``, ``bc1``, ``bc2``: f32
+    tensors on the leaf's device); elementwise, so a shard of a leaf
+    updates to the bits of its slice of the whole leaf."""
+    g = g.float()
+    m.copy_(b1 * m + (1 - b1) * g)
+    v.copy_(b2 * v + (1 - b2) * torch.square(g))
+    u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    pf = p.float()
+    p.copy_((pf - lr * (u + wd * pf)).to(p.dtype))

@@ -20,7 +20,12 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import _host_array
 from repro_torch.config.base import TrainConfig
-from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
+from repro_torch.distrib.collectives import ShardView, batch_groups, span
+from repro_torch.distrib.sharding import (P, ShardedTensor, assemble,
+                                          device_put, map_with_specs,
+                                          sharded_zeros)
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_leaf,
+                                     adamw_update, reference_ndims,
                                      tree_leaves, tree_map)
 from repro_torch.optim.schedules import warmup_cosine
 
@@ -86,6 +91,162 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
             weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
         return TrainState(params, opt), {"loss": loss, "grad_norm": gnorm,
                                          "lr": lr}
+
+    return step
+
+
+def new_sharded_train_state(params, mesh, state_specs) -> TrainState:
+    """``new_train_state(params)`` placed on ``mesh`` by ``state_specs``
+    (``distrib.sharding.state_specs_like``): the parameters split by their
+    specs, the moments zeros allocated shard by shard, the step a
+    replicated int32 zero."""
+    specs = state_specs.opt
+    return TrainState(
+        map_with_specs(lambda x, s: device_put(x, mesh, s), params,
+                       state_specs.params),
+        AdamWState(
+            sharded_zeros(mesh, P(), (), torch.int32),
+            map_with_specs(lambda x, s: sharded_zeros(mesh, s, x.shape),
+                           params, specs.m),
+            map_with_specs(lambda x, s: sharded_zeros(mesh, s, x.shape),
+                           params, specs.v)))
+
+
+def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
+                            state_specs, batch_spec,
+                            microbatches: int = 1) -> Callable:
+    """The train step over ``mesh``: the counterpart of
+    ``jax.jit(make_train_step(loss_fn, tcfg), in_shardings=…)`` on a cell.
+    ``step(state, *batch) → (state, metrics)`` takes a state placed by
+    ``state_specs`` (:func:`new_sharded_train_state`, or ``distrib.fault.
+    reshard``) and whole batch tensors, and returns the state updated in
+    place with ``loss``, ``grad_norm`` and ``lr`` on position 0's device.
+
+    The batch splits as ``make_train_step`` splits it, into
+    ``microbatches`` (M) along its leading axis; the axes of
+    ``batch_spec[0]`` make D batch shards, and batch shard d takes
+    microbatches d·M/D … (d+1)·M/D − 1 on its home position's device (M
+    must divide by D). Each batch shard sees the parameters through
+    :class:`~repro_torch.distrib.collectives.ShardView` s, which the model
+    gathers layer by layer where it uses them (ZeRO-3: only the state is
+    stored sharded). Gradients are summed per block: over a batch shard's
+    microbatches by autograd's accumulation, then over the batch shards in
+    ascending order, then divided by M, as ``make_train_step`` divides.
+    The clip's global norm gathers one leaf's gradient at a time and sums
+    its squares in ``global_norm``'s leaf order, so it keeps that
+    function's bits; AdamW then updates every position's shards, with the
+    weight decay of each whole leaf's reference ndim.
+
+    When M / D = 1 or D = 1 the step is ``make_train_step(loss_fn, tcfg,
+    microbatches=M)`` bit for bit (loss, grad norm, every gathered leaf):
+    the sums run in the same order. Otherwise the gradient sum's order
+    differs."""
+    homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
+                                 else None)
+    D = len(homes)
+    if microbatches % D:
+        raise ValueError(f"{microbatches} microbatches do not split over "
+                         f"{D} batch shards")
+    per = microbatches // D
+    dev0 = mesh.device(0)
+
+    def step(state: TrainState, *batch) -> Tuple[TrainState, dict]:
+        leaves = tree_leaves(state.params)
+        for x in leaves:
+            if not isinstance(x, ShardedTensor) or x.mesh is not mesh:
+                raise ValueError("make_sharded_train_step: the state is "
+                                 "not placed on the step's mesh")
+        split = tree_map(lambda x: x.reshape(
+            (microbatches, -1) + tuple(x.shape[1:])), batch)
+        loss = None
+        sums = [dict() for _ in leaves]  # block → summed gradient
+        for d in range(D):
+            home = mesh.device(homes[d])
+            views = tree_map(lambda x: ShardView(x, homes[d], groups[d]),
+                             state.params)
+            loss_d = None
+            for i in range(d * per, (d + 1) * per):
+                mb_loss = loss_fn(views, *tree_map(lambda x: x[i].to(home),
+                                                   split))
+                mb_loss.backward()
+                mb_loss = mb_loss.detach()
+                loss_d = mb_loss if loss_d is None else loss_d + mb_loss
+            loss_d = loss_d.to(dev0)
+            loss = loss_d if loss is None else loss + loss_d
+            with span("grad_psum"):
+                for j, view in enumerate(tree_leaves(views)):
+                    x = view.x
+                    for block, src, g in view.grads():
+                        owner = x.layout.holders(block)[0]
+                        if src != owner:
+                            mesh.count("grad_psum",
+                                       g.numel() * g.element_size())
+                        g = g.to(mesh.device(owner))
+                        prev = sums[j].get(block)
+                        sums[j][block] = g if prev is None else prev + g
+            del views
+        loss = loss / microbatches
+        for blocks in sums:
+            for block in blocks:
+                blocks[block] = blocks[block] / microbatches
+
+        # the global norm in global_norm's order: whole leaves, in order
+        total = 0
+        for x, blocks in zip(leaves, sums):
+            parts = {}
+            for block, g in blocks.items():
+                if 0 not in x.layout.holders(block):
+                    mesh.count("norm_gather", g.numel() * g.element_size())
+                parts[block] = g
+            with span("norm_gather"):
+                whole = assemble(x.layout, parts, dev0, g.dtype)
+            total = total + torch.sum(torch.square(whole.float()))
+            del whole, parts
+        gnorm = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+        scale = None
+        if tcfg.grad_clip > 0:
+            scale = torch.clamp(tcfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
+                                max=1.0)
+
+        step0 = state.opt.step.shards[0]
+        lr = warmup_cosine(step0, tcfg.learning_rate, tcfg.warmup_steps,
+                           tcfg.total_steps)
+        t = (step0 + 1).to(torch.float32)
+        bc1 = 1.0 - tcfg.b1 ** t
+        bc2 = 1.0 - tcfg.b2 ** t
+        lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
+        on = {}  # device → (lr, bc1, bc2, scale) there
+
+        def consts(dev):
+            if dev not in on:
+                on[dev] = tuple(None if c is None else c.to(dev)
+                                for c in (lr_t, bc1, bc2, scale))
+            return on[dev]
+
+        opt = state.opt
+        with span("adamw"):
+            for j, (p, ndim, m, v) in enumerate(zip(
+                    leaves, reference_ndims(state.params),
+                    tree_leaves(opt.m), tree_leaves(opt.v))):
+                wd = tcfg.weight_decay if ndim >= 2 else 0.0
+                for block, g in sums[j].items():
+                    holders = p.layout.holders(block)
+                    if scale is not None:
+                        g = g * consts(g.device)[3].to(g.dtype)
+                    for pos in holders:
+                        dev = mesh.device(pos)
+                        if pos != holders[0]:
+                            mesh.count("grad_send",
+                                       g.numel() * g.element_size())
+                        c_lr, c_bc1, c_bc2, _ = consts(dev)
+                        adamw_leaf(p.shards[pos], g.to(dev), m.shards[pos],
+                                   v.shards[pos], c_lr, c_bc1, c_bc2,
+                                   tcfg.b1, tcfg.b2, tcfg.eps, wd)
+                sums[j] = None
+        new_step = ShardedTensor(opt.step.layout, opt.step.dtype,
+                                 [s + 1 for s in opt.step.shards])
+        return (TrainState(state.params, AdamWState(new_step, opt.m, opt.v)),
+                {"loss": loss, "grad_norm": gnorm, "lr": lr})
 
     return step
 

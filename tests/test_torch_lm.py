@@ -262,11 +262,27 @@ def test_top_k_ties_go_to_the_lower_index():
 
 
 def test_unported_sharding_knobs_raise():
+    """The sharding knobs have landed (ROADMAP item 13.5): ``exp_spec``
+    with whole expert weights gives the block without it bit for bit, and
+    ``act_spec`` takes the vocab-parallel cross entropy (the expert
+    shards' own parity is ``tests/test_torch_sharded_train.py``)."""
+    from repro_torch.distrib.sharding import P
     mcfg = MoEConfig(n_experts=2, top_k=1, d_ff_expert=8)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TM.moe_block(torch.zeros((4, 4)), {}, mcfg, 1, exp_spec=("data",))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TransformerLM(DENSE, act_spec=("data",))
+    g = torch.Generator().manual_seed(0)
+    params = TM.init_moe_params(g, mcfg, 4)
+    x = torch.randn((8, 4), generator=g)
+    y0, a0 = TM.moe_block(x, params, mcfg, 1)
+    y1, a1 = TM.moe_block(x, params, mcfg, 1,
+                          exp_spec=P("data", "model", None, None))
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
+    model = TransformerLM(DENSE, act_spec=P("data", None, None))
+    params = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    hidden, aux = model.forward(params, toks)
+    want = TL.softmax_xent_sharded(hidden, params["head"], toks) \
+        + 0.01 * aux / DENSE.n_layers
+    assert torch.equal(model.loss(params, toks, toks), want)
 
 
 # -- the model -------------------------------------------------------------------

@@ -745,14 +745,12 @@ def test_train_cli_refuses_an_arch_without_a_train_shape():
 # -- package re-exports ------------------------------------------------------------
 
 @pytest.mark.parametrize("pkg", ["config", "optim", "train", "models",
-                                 "data"])
+                                 "data", "distrib"])
 def test_packages_export_what_the_reference_exports(pkg):
     import importlib
     ref = importlib.import_module(f"repro.{pkg}")
     ours = importlib.import_module(f"repro_torch.{pkg}")
-    # gradient compression waits for the distributed layers (item 13.5)
-    skip = {"CompressionState", "compress_grads", "compression_init"}
-    want = [n for n in ref.__all__ if n not in skip]
+    want = list(ref.__all__)
     assert want and set(want) <= set(ours.__all__)
     for name in want:
         assert getattr(ours, name) is not None
