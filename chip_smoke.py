@@ -242,6 +242,40 @@ Phases, each printed on its own lines:
     equal, step s, arcs/s, peak memory. No kernel of the port lies on
     these paths: every launch count set to 0 before each phase must read
     0 after it.
+18. serve-sharded-lm (after serve-lm-configs) — qwen3-moe-30b-a3b at its
+    published widths, serve-lm's 8 layers and seeded bf16 weights, on a
+    2 × 2 ("data", "model") mesh (the first four cards, or ``cuda:0`` four
+    times: a check, not a speedup): prefill under the reference prefill
+    cell's ``fsdp`` rules, decode under ``tp2d``, the KV cache placed by
+    ``lm_cache_specs`` and never gathered (``distrib/serving.py``).
+    (i) serve-lm's 2 × 4,096 prompt and 16 tokens (batch whole, cache
+    sequence-split over all four positions); (ii) 16 × 2,048 and 8 tokens
+    (batch over "data", sequence over "model", experts where they live).
+    Against the model on one card: prefill logits bitwise in (i), within
+    serve-lm's bf16 consistency bounds (``LM_CONSIST_ATOL``,
+    ``LM_CONSIST_CORR``) in (ii); decode teacher-forced with the one-card
+    run's tokens within them at every step; greedy tokens
+    agreeing printed; two mesh runs bitwise equal; the decode tokens whose
+    top-8 experts differ from one card's, per layer; the flash and expert
+    GEMM inputs of the second run captured (one per kernel and shape) and
+    held against their plain versions within LM_KERNEL_RTOL, as phase 3
+    holds serve-lm's; wall times, bytes per
+    collective, launches (flash and both GEMM variants must launch) and
+    the step's roofline (``launch/roofline.py``: ``lm_model_flops`` /
+    ``lm_memory_bytes`` at the run's batch, length and depth over the
+    H100's rates) with the measured time's share of it;
+19. igpm-cells (after the CLI) — the paper's own cell at the four Table
+    III shapes' published sizes (friends2008: 224,879 vertices, 7,744,000
+    arcs; L 4, 5 sweeps): the label-RWR refresh on one card through an ELL
+    mirror and ``ell_spmm`` (3 runs, bitwise equal), the arc-sharded
+    refresh on the 2 × 2 mesh (two arc blocks, one mirror each) and the
+    plain COO refresh on the CPU; card ≡ CPU and mesh ≡ card within
+    ``IGPM_RWR_TOL`` of the largest entry; ELL build s, refresh ms, the
+    mesh's bytes, launches (checked exactly), the refresh's bound by the
+    kernel table's rule (per sweep the mirror, the iterate and the sum once
+    each: ``spmm_bound``) with its gather floor and share, and the
+    reference's analytic roofline (``igpm_model_flops`` /
+    ``igpm_memory_bytes``) with its share.
 
 Then a ``{"kernels": [...]}`` JSON line (every kernel with its serve and
 train launches, train-sharded's among them, both flash backward kernels
@@ -337,6 +371,21 @@ BATCH_STEPS = 2    # serve-batch steps
 # the ring holds replay_batch = 16 at step 16 and steps 16-19 learn
 ADAPT_STEPS = 20
 LOSS_RTOL = 1e-5   # TD losses, card against CPU (adaptive agreement)
+# serve-sharded-lm: traffic (ii), the batch split over "data"
+SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT, SHARD_SERVE_TOKENS = 16, 2048, 8
+# sharded logits against one card's: serve-lm's bf16 consistency bounds
+# (LM_CONSIST_ATOL on |diff|, LM_CONSIST_CORR on the correlation), which
+# hold one function computed in two orders in bf16. The split decode
+# attention adds its slices' partials in f32 in another order and rounds to
+# bf16; through 8 layers the logits moved by up to 0.0332 in (i), 0.0576
+# in (ii) (an H100 80GB HBM3 at 700 W; PERF.md §6). The phase prints the
+# decode tokens whose top-8 experts differ per layer, and holds the flash
+# and both GEMM variants against their plain versions at the run's shapes.
+# igpm-cells: refreshes timed per shape on one card; card vs CPU and mesh
+# vs card as a share of the table's largest entry (f32 sums of a vertex's
+# messages in another order: tens of terms, a few ulps each)
+IGPM_REPS = 3
+IGPM_RWR_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -3868,6 +3917,560 @@ def phase_train_gnn(profile: bool = False):
     return out
 
 
+
+# -- phase 18: LM serving on the device mesh ------------------------------------
+
+def logits_diff(got, want) -> dict:
+    import torch
+    a, b = got.float(), want.float()
+    return dict(max_abs=float((a - b).abs().max()),
+                max_logit=float(b.abs().max()),
+                rel=float((a - b).abs().max() / b.abs().max()),
+                corr=float(torch.corrcoef(torch.stack([a.ravel(),
+                                                       b.ravel()]))[0, 1]),
+                same_argmax=int((a.argmax(-1) == b.argmax(-1)).sum()))
+
+
+def lm_roofline(cfg, kind: str, batch: int, seq: int) -> dict:
+    """``lm_model_flops`` / ``lm_memory_bytes`` of one prefill or decode
+    step at the run's batch, length and depth over the H100's rates."""
+    from repro_torch.launch import roofline as RF
+    flops = RF.lm_model_flops(cfg, kind, batch, seq)
+    nbytes = RF.lm_memory_bytes(cfg, kind, batch, seq)
+    terms = RF.roofline_terms(flops, nbytes, 0.0)
+    return dict(model_flops=flops, memory_bytes=nbytes,
+                roofline_s=terms["roofline_s"], dominant=terms["dominant"])
+
+
+class LmCapture:
+    """Wrap the flash and expert-GEMM wrappers on the served path
+    (``models.layers.flash_attention``, ``expert_gemm.ops.expert_gemm``)
+    to keep copies of the first inputs that each kernel takes at each
+    shape: the flash forward's (q, k, v) and keywords per variant and q
+    shape, the expert GEMM's (x, w) per variant and weight shape (gate
+    and up share one, down another). Captures are taken only while
+    ``armed``."""
+
+    def __init__(self):
+        from repro_torch.kernels.expert_gemm import ops as gemm_ops
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.models import layers
+        self.layers, self.flash_ops, self.gemm_ops = layers, flash_ops, \
+            gemm_ops
+        self._flash, self._gemm = layers.flash_attention, gemm_ops.expert_gemm
+        self.inputs = {}
+        self.armed = False
+
+    @staticmethod
+    def _launched(before, after):
+        names = [k for k in after if after[k] != before.get(k, 0)]
+        return names[0] if len(names) == 1 else None
+
+    def __enter__(self):
+        cap, flash, gemm = self, self._flash, self._gemm
+
+        def spy_flash(q, k, v, **kw):
+            before = dict(cap.flash_ops.LAUNCHES)
+            o = flash(q, k, v, **kw)
+            name = cap._launched(before, cap.flash_ops.LAUNCHES)
+            key = ("flash", name, tuple(q.shape))
+            if cap.armed and name and key not in cap.inputs:
+                cap.inputs[key] = (q.clone(), k.clone(), v.clone(), kw)
+            return o
+
+        def spy_gemm(x, w):
+            before = dict(cap.gemm_ops.LAUNCHES)
+            y = gemm(x, w)
+            name = cap._launched(before, cap.gemm_ops.LAUNCHES)
+            key = ("gemm", name, tuple(w.shape))
+            if cap.armed and name and key not in cap.inputs:
+                cap.inputs[key] = (x.clone(), w.clone())
+            return y
+
+        self.layers.flash_attention = spy_flash
+        self.gemm_ops.expert_gemm = spy_gemm
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.flash_attention = self._flash
+        self.gemm_ops.expert_gemm = self._gemm
+        return False
+
+
+def hold_captured_lm(inputs, tag: str) -> list:
+    """Each captured flash and expert-GEMM input held against its plain
+    version (``flash_attention_ref`` within ``row_atol`` + LM_KERNEL_RTOL,
+    ``expert_gemm_ref`` within LM_GEMM_ATOL + LM_KERNEL_RTOL), taken by the
+    kernel that took it on the served path, two launches bitwise equal."""
+    import torch
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    out = []
+    for key in sorted(inputs, key=str):
+        kind, name, _ = key
+        args = inputs[key]
+        label = f"serve-sharded-lm ({tag}) captured {name}"
+        if kind == "flash":
+            q, k, v, kw = args
+            ops, call = flash_ops, lambda: flash_ops.flash_attention(
+                q, k, v, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
+            atol = row_atol(want)
+            shapes = f"q {tuple(q.shape)} k,v {tuple(k.shape)}"
+        else:
+            x, w = args
+            ops, call = gemm_ops, lambda: gemm_ops.expert_gemm(x, w)
+            want = expert_gemm_ref(x, w)
+            atol = LM_GEMM_ATOL
+            shapes = f"x {tuple(x.shape)} w {tuple(w.shape)}"
+        before = dict(ops.LAUNCHES)
+        got = call()
+        check(ops.LAUNCHES[name] == before[name] + 1,
+              f"{label}: not taken by {name} ({ops.LAUNCHES})")
+        err, used = lm_check(label, got, call(), want, atol)
+        say(f"  {label} {shapes} {str(got.dtype)[6:]}: max_abs_err="
+            f"{err:.3e} ({used:.3f} of the allowance), two launches "
+            f"bitwise equal")
+        out.append(dict(kernel=name, shapes=shapes, max_abs_err=err,
+                        tol_used=used))
+        del got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+class RouteSpy:
+    """Wrap ``models.moe.route`` to keep each call's top-k expert ids
+    ((tokens, k), on the card) while ``armed``, in call order."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self._route = moe, moe.route
+        self.calls = []
+        self.armed = False
+
+    def __enter__(self):
+        spy, route = self, self._route
+
+        def spy_route(*args, **kw):
+            r = route(*args, **kw)
+            if spy.armed:
+                spy.calls.append(r.expert_idx.reshape(-1, r.expert_idx
+                                                      .shape[-1]).clone())
+            return r
+
+        self.moe.route = spy_route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self._route
+        return False
+
+
+def routing_flips(plain_calls, mesh_calls, n_layers: int, n_shards: int,
+                  n_steps: int) -> list:
+    """Per MoE layer, the tokens of the decode steps whose top-k expert
+    set differs between the one-card run (one route call per layer and
+    step) and the mesh run (one per batch shard, layer and step, shard
+    after shard; its rows concatenated in batch order)."""
+    import torch
+    check(len(plain_calls) == n_layers * n_steps
+          and len(mesh_calls) == n_shards * n_layers * n_steps,
+          f"route calls: {len(plain_calls)} one card, {len(mesh_calls)} "
+          f"on the mesh for {n_steps} steps of {n_layers} layers")
+    flips = [0] * n_layers
+    for s in range(n_steps):
+        base = s * n_shards * n_layers
+        for i in range(n_layers):
+            want = plain_calls[s * n_layers + i].sort(-1).values
+            got = torch.cat([mesh_calls[base + d * n_layers + i]
+                             for d in range(n_shards)]).sort(-1).values
+            flips[i] += int((got != want).any(-1).sum())
+    return flips
+
+
+def unsharded_serve(model, params, prompt, n_tokens: int, spy=None):
+    """Prefill ``prompt``, then greedy decode: per step the logits (the
+    prefill's first), the tokens, and the wall times."""
+    import torch
+    import torch.nn.functional as F
+    B, S = prompt.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, (ks, vs) = model.prefill(params, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        ks = F.pad(ks, (0, 0, 0, 0, 0, n_tokens))
+        vs = F.pad(vs, (0, 0, 0, 0, 0, n_tokens))
+        logits = [lg[:, -1:]]
+        tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        toks = [tok]
+        if spy is not None:
+            spy.armed = True
+        t0 = time.perf_counter()
+        for i in range(n_tokens - 1):
+            lg, _ = model.decode_step(params, tok, (ks, vs), S + i)
+            logits.append(lg)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        if spy is not None:
+            spy.armed = False
+    return dict(logits=logits, tokens=toks, prefill_s=prefill_s,
+                decode_s=decode_s)
+
+
+def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
+                  bspec, want_tokens, capture=None, spy=None):
+    """Prefill on ``mesh`` under ``fsdp`` (cache placed by
+    ``lm_cache_specs``), then decode under ``tp2d``, teacher-forced with
+    ``want_tokens`` (the unsharded run's): per step the logits, the tokens
+    the run would have picked, wall times, bytes per collective, the
+    launches. ``capture`` (:class:`LmCapture`) is armed over prefill and
+    decode, ``spy`` (:class:`RouteSpy`) over decode."""
+    import torch
+    from repro_torch.distrib.serving import (make_sharded_decode,
+                                             make_sharded_prefill,
+                                             place_params)
+    from repro_torch.distrib.sharding import lm_cache_specs, lm_param_specs
+    B, S = prompt.shape
+    out = {}
+    mesh.reset_bytes()
+    placed = place_params(params, mesh, lm_param_specs(params, cfg, "fsdp"))
+    prefill = make_sharded_prefill(model, mesh, bspec,
+                                   lm_cache_specs(False, B),
+                                   capacity=S + n_tokens)
+    torch.cuda.synchronize()
+    mesh.reset_bytes()
+    reset_all_counts()
+    if capture is not None:
+        capture.armed = True
+    t0 = time.perf_counter()
+    lg, cache = prefill(placed, prompt)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_bytes"] = dict(mesh.bytes)
+    del placed
+    torch.cuda.empty_cache()
+    placed = place_params(params, mesh, lm_param_specs(params, cfg))
+    decode = make_sharded_decode(model, mesh, bspec)
+    logits, picked = [lg[:, -1:]], [torch.argmax(lg[:, -1:], dim=-1)]
+    torch.cuda.synchronize()
+    mesh.reset_bytes()
+    if spy is not None:
+        spy.armed = True
+    t0 = time.perf_counter()
+    for i in range(n_tokens - 1):
+        lg, cache = decode(placed, want_tokens[i], cache, S + i)
+        logits.append(lg)
+        picked.append(torch.argmax(lg, dim=-1))
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    for c in (capture, spy):
+        if c is not None:
+            c.armed = False
+    out["decode_bytes"] = dict(mesh.bytes)
+    out["launches"] = read_all_counts()
+    out["logits"], out["picked"] = logits, picked
+    out["cache_spec"] = repr(cache[0].spec)
+    del placed, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_sharded_lm():
+    """qwen3-moe-30b-a3b at its published widths, serve-lm's 8 of 48
+    layers and seeded bf16 weights, served on a 2 × 2 ("data", "model")
+    mesh (the first four cards, or ``cuda:0`` four times): prefill under
+    the reference prefill cell's ``fsdp`` rules, decode under ``tp2d``,
+    the KV cache placed by ``lm_cache_specs`` (``distrib/serving.py``).
+    (i) serve-lm's 2 × 4,096 prompt and 16 tokens: the batch whole, the
+    cache split along the sequence over all four positions; (ii) 16 ×
+    2,048 and 8 tokens: the batch split over "data", the cache's sequence
+    over "model", the experts where they live. Each against the unsharded
+    model on one card: prefill logits bitwise in (i), within serve-lm's
+    bf16 consistency bounds in (ii); decode teacher-forced with the
+    unsharded run's tokens, within those bounds at every step; the
+    greedy tokens that agree printed; two runs on the mesh bitwise
+    equal. Flash and the expert GEMM (tiles and skinny) must launch, and
+    the inputs each takes in the second mesh run (each kernel at each
+    shape, prefill and decode) are held against the plain versions
+    (:func:`hold_captured_lm`). The decode tokens whose top-8 experts
+    differ from the one-card run's are counted per layer."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.distrib.sharding import P
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import TransformerLM
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(FULL, n_layers=LM_LAYERS)
+    n_cards = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(4)] if n_cards >= 4
+               else ["cuda:0"] * 4)
+    mesh = Mesh((2, 2), ("data", "model"), devices)
+    params = TransformerLM(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    total = {}
+    res = {"mesh": str(mesh)}
+    for tag, B, S, n_tok in (("i", LM_BATCH, LM_PROMPT, LM_TOKENS),
+                             ("ii", SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT,
+                              SHARD_SERVE_TOKENS)):
+        wide = B >= 16
+        group = min(4096, max(64, B * S // 8))
+        plain = TransformerLM(cfg, moe_group_size=group)
+        model = TransformerLM(cfg, moe_group_size=group,
+                              act_spec=P("data", None, None) if wide
+                              else None)
+        bspec = P("data", None) if wide else P(None, None)
+        prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                               generator=torch.Generator(device="cuda")
+                               .manual_seed(1), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with RouteSpy() as plain_routes:
+            want = unsharded_serve(plain, params, prompt, n_tok,
+                                   spy=plain_routes)
+        a = sharded_serve(model, cfg, params, prompt, n_tok, mesh, bspec,
+                          want["tokens"])
+        # the second run also keeps the kernels' inputs and the routing
+        with LmCapture() as cap, RouteSpy() as mesh_routes:
+            b = sharded_serve(model, cfg, params, prompt, n_tok, mesh, bspec,
+                              want["tokens"], capture=cap, spy=mesh_routes)
+        peak = torch.cuda.max_memory_allocated()
+        n_shards = mesh.shape[0] if wide else 1
+        flips = routing_flips(plain_routes.calls, mesh_routes.calls,
+                              cfg.n_layers, n_shards, n_tok - 1)
+        del plain_routes, mesh_routes
+        held = hold_captured_lm(cap.inputs, tag)
+        del cap
+        torch.cuda.empty_cache()
+        repeat = all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                       b["logits"]))
+        diffs = [logits_diff(g, w) for g, w in zip(a["logits"],
+                                                    want["logits"])]
+        agree = sum(int(torch.equal(p.to(t.dtype), t))
+                    for p, t in zip(a["picked"], want["tokens"]))
+        launches = {k: v for k, v in a["launches"].items() if v}
+        for k, v in a["launches"].items():
+            total[k] = total.get(k, 0) + v + b["launches"][k]
+        pre = lm_roofline(cfg, "prefill", B, S)
+        dec = lm_roofline(cfg, "decode", B, S + n_tok // 2)
+        dec_step = a["decode_s"] / (n_tok - 1)
+        say(f"  serve-sharded-lm ({tag}) {B} x {S}, {n_tok} tokens on "
+            f"{mesh}, batch {bspec!r}, cache {a['cache_spec']}: prefill "
+            f"{a['prefill_s']:.3f} s (one card {want['prefill_s']:.3f} s), "
+            f"decode {dec_step * 1e3:.2f} ms/step (one card "
+            f"{want['decode_s'] / (n_tok - 1) * 1e3:.2f}); peak {peak} B")
+        say(f"  serve-sharded-lm ({tag}) bytes: prefill "
+            f"{a['prefill_bytes']}; decode ({n_tok - 1} steps) "
+            f"{a['decode_bytes']}; launches {launches}")
+        say(f"  serve-sharded-lm ({tag}) against one card: prefill logits "
+            f"bitwise {torch.equal(a['logits'][0], want['logits'][0])}, "
+            f"max |diff| per step {[round(d['max_abs'], 6) for d in diffs]}"
+            f" (largest relative {max(d['rel'] for d in diffs):.3e}, "
+            f"least correlation {min(d['corr'] for d in diffs):.6f}; bounds "
+            f"{LM_CONSIST_ATOL}, {LM_CONSIST_CORR}); greedy tokens agreeing "
+            f"{agree} of {n_tok} steps; two mesh runs bitwise {repeat}")
+        say(f"  serve-sharded-lm ({tag}) routing: decode tokens whose top-"
+            f"{cfg.moe.top_k} experts differ from one card's, per MoE layer "
+            f"{flips} of {B * (n_tok - 1)} each; kernels held at the run's "
+            f"shapes: {len(held)}")
+        say(f"  serve-sharded-lm ({tag}) roofline (H100 data sheet): "
+            f"prefill {pre['model_flops']:.4e} flop, {pre['memory_bytes']:.4e}"
+            f" B, {pre['roofline_s'] * 1e3:.3f} ms ({pre['dominant']}), "
+            f"measured share {pre['roofline_s'] / a['prefill_s']:.4f}; "
+            f"decode step {dec['model_flops']:.4e} flop, "
+            f"{dec['memory_bytes']:.4e} B, {dec['roofline_s'] * 1e3:.4f} ms"
+            f" ({dec['dominant']}), measured share "
+            f"{dec['roofline_s'] / dec_step:.4f}")
+        if tag == "i":
+            check(torch.equal(a["logits"][0], want["logits"][0]),
+                  "serve-sharded-lm (i): prefill logits differ from one "
+                  "card's")
+        check(all(d["max_abs"] <= LM_CONSIST_ATOL
+                  and d["corr"] >= LM_CONSIST_CORR for d in diffs),
+              f"serve-sharded-lm ({tag}): logits {diffs} beyond "
+              f"{LM_CONSIST_ATOL} / {LM_CONSIST_CORR}")
+        check(repeat, f"serve-sharded-lm ({tag}): two runs on the mesh "
+                      f"differ")
+        check(all(bool(torch.isfinite(x.float()).all()) for x in a["logits"]),
+              f"serve-sharded-lm ({tag}): non-finite logits")
+        for k in ("flash_attention_fwd_wgmma", "expert_gemm_wgmma",
+                  "expert_gemm_skinny"):
+            check(a["launches"][k] > 0,
+                  f"serve-sharded-lm ({tag}) never launched {k}")
+            check(any(h["kernel"] == k for h in held),
+                  f"serve-sharded-lm ({tag}): no input of {k} captured")
+        res[tag] = dict(batch=B, prompt=S, tokens=n_tok,
+                        prefill_s=a["prefill_s"],
+                        prefill_s_again=b["prefill_s"],
+                        one_card_prefill_s=want["prefill_s"],
+                        decode_ms_per_step=dec_step * 1e3,
+                        decode_ms_per_step_again=b["decode_s"]
+                        / (n_tok - 1) * 1e3,
+                        one_card_decode_ms_per_step=want["decode_s"]
+                        / (n_tok - 1) * 1e3,
+                        prefill_bytes=a["prefill_bytes"],
+                        decode_bytes=a["decode_bytes"], launches=launches,
+                        max_abs=max(d["max_abs"] for d in diffs),
+                        max_rel=max(d["rel"] for d in diffs),
+                        min_corr=min(d["corr"] for d in diffs),
+                        tokens_agree=agree, repeat_bitwise=repeat,
+                        routing_flips_per_layer=flips, kernels_held=held,
+                        peak_bytes=peak, roofline_prefill=pre,
+                        roofline_decode_step=dec)
+        del want, a, b
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase serve-sharded-lm: {res['phase_s']:.1f} s wall")
+    return total, res
+
+
+# -- phase 19: the paper's IGPM cells at Table III sizes --------------------------
+
+def phase_igpm_cells():
+    """The IGPM cell (``launch/cells.py:igpm_cell``) at each Table III
+    shape's published size: the label-RWR refresh (5 sweeps, L 4) on one
+    card through an ELL mirror and ``ell_spmm``, the arc-sharded refresh
+    on the 2 × 2 mesh (two arc blocks over "data", one mirror each), and
+    the plain COO refresh on the CPU. Card ≡ CPU and mesh ≡ one card
+    within ``IGPM_RWR_TOL`` of the table's largest entry, two card runs
+    bitwise equal; ELL build s, refresh times, launches, the mesh's bytes,
+    the refresh's bound and gather floor from the mirror's slots, and the
+    reference's analytic roofline printed."""
+    import torch
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch import roofline as RF
+    from repro_torch.kernels.measure import gather_floor
+    from repro_torch.launch.cells import IgpmRefresh, build_cell
+    from repro_torch.launch.mesh import Mesh
+    t_phase = time.perf_counter()
+    arch = get_arch("igpm-pem")
+    devices, _ = smoke_mesh()
+    mesh = Mesh((2, 2), ("data", "model"), devices[:4] if len(devices) >= 4
+                else ["cuda:0"] * 4)
+    total, res = {}, {}
+    for shape in arch.shapes:
+        t0 = time.perf_counter()
+        cell = build_cell(arch, shape.name, "cuda")
+        g, r0 = cell.args
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        step = cell.step_fn
+        t0 = time.perf_counter()
+        ell = step.mirrors(g)
+        torch.cuda.synchronize()
+        ell_s = time.perf_counter() - t0
+        # the table's rule, per sweep: the mirror, the iterate and the sum
+        # once each (spmm_bound), and the live entries' gather floor
+        sweep_ms, _, sweep_bytes, _ = spmm_bound(ell.mask, r0, ell.n, True)
+        sweep_floor = gather_floor(ell.mask, r0.shape[1])
+        slots, nnz = ell.mask.numel(), int(ell.mask.sum())
+        del ell
+        reset_all_counts()
+        times, outs = [], []
+        for _ in range(IGPM_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(step(g, r0))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = read_all_counts()
+        card = outs[0]
+        repeat = all(torch.equal(card, o) for o in outs[1:])
+        t0 = time.perf_counter()
+        cpu = IgpmRefresh(arch.model)(type(g)(*(x.cpu() for x in g)),
+                                      r0.cpu())
+        cpu_s = time.perf_counter() - t0
+        scale = float(cpu.abs().max())
+        err_cpu = float((card.cpu() - cpu).abs().max())
+        del outs
+        # the arc-sharded refresh on the mesh
+        t0 = time.perf_counter()
+        mcell = build_cell(arch, shape.name, "cuda", mesh=mesh)
+        mg, mr0 = mcell.args
+        mstep = mcell.step_fn
+        mstep.mirrors(mg)
+        torch.cuda.synchronize()
+        mesh_build_s = time.perf_counter() - t0
+        mesh.reset_bytes()
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_mesh = mstep(mg, mr0)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        mesh_launches = read_all_counts()
+        mesh_bytes = dict(mesh.bytes)
+        err_mesh = float((on_mesh - card).abs().max())
+        meta = cell.meta
+        flops, nbytes = RF.igpm_model_flops(meta), RF.igpm_memory_bytes(meta)
+        roof = RF.roofline_terms(flops, nbytes, 0.0)
+        warm = min(times[1:]) if len(times) > 1 else times[0]
+        sweeps = meta["rwr_iters"]
+        bound_ms, floor_ms = sweeps * sweep_ms, sweeps * sweep_floor
+        say(f"  igpm-cells {shape.name}: n {meta['n_nodes']}, arcs "
+            f"{meta['n_edges']} (pad512 of 2 x {shape.dims['n_edges']}), L "
+            f"{meta['n_labels']}, {meta['rwr_iters']} sweeps; draw "
+            f"{draw_s:.2f} s, ELL build {ell_s:.2f} s (host), refresh on "
+            f"one card {[round(t * 1e3, 3) for t in times]} ms, CPU COO "
+            f"{cpu_s:.3f} s; on the 2x2 mesh {mesh_s * 1e3:.3f} ms (build "
+            f"and mirrors {mesh_build_s:.2f} s), bytes {mesh_bytes}")
+        say(f"  igpm-cells {shape.name}: card vs CPU max |diff| {err_cpu:.3e},"
+            f" mesh vs card {err_mesh:.3e} (max |r| {scale:.4e}, tolerance "
+            f"{IGPM_RWR_TOL} of it); two card runs bitwise {repeat}; "
+            f"launches one card {launches['ell_spmm']} ell_spmm, mesh "
+            f"{mesh_launches['ell_spmm']}")
+        say(f"  igpm-cells {shape.name} bound (H100 data sheet): {sweeps} "
+            f"sweeps x (mirror of {slots} slots, {nnz} live, the iterate "
+            f"and the sum once: {sweep_bytes} B) = {bound_ms:.4f} ms "
+            f"(bytes), gather floor {floor_ms:.4f} ms; measured share "
+            f"{bound_ms / (warm * 1e3):.4f} of the warm refresh")
+        say(f"  igpm-cells {shape.name} the reference's analytic roofline "
+            f"(igpm_model_flops / igpm_memory_bytes, H100 data sheet): "
+            f"{flops:.4e} flop, {nbytes:.4e} B, {roof['roofline_s'] * 1e3:.4f}"
+            f" ms ({roof['dominant']}); measured share "
+            f"{roof['roofline_s'] / warm:.4f} of the warm refresh")
+        check(torch.isfinite(card).all() and card.shape == (meta["n_nodes"],
+                                                            4),
+              f"igpm-cells {shape.name}: refresh shape or values")
+        check(err_cpu <= IGPM_RWR_TOL * scale,
+              f"igpm-cells {shape.name}: card vs CPU {err_cpu}")
+        check(err_mesh <= IGPM_RWR_TOL * scale,
+              f"igpm-cells {shape.name}: mesh vs card {err_mesh}")
+        check(repeat, f"igpm-cells {shape.name}: card runs differ")
+        want_l = meta["rwr_iters"] * IGPM_REPS
+        check(launches["ell_spmm"] == want_l
+              and mesh_launches["ell_spmm"] == 2 * meta["rwr_iters"],
+              f"igpm-cells {shape.name}: ell_spmm launches "
+              f"{launches['ell_spmm']} / {mesh_launches['ell_spmm']}")
+        for k in ("ell_spmm",):
+            total[k] = total.get(k, 0) + launches[k] + mesh_launches[k]
+        res[shape.name] = dict(n=meta["n_nodes"], arcs=meta["n_edges"],
+                               draw_s=draw_s, ell_build_s=ell_s,
+                               refresh_ms=[t * 1e3 for t in times],
+                               cpu_s=cpu_s, mesh_ms=mesh_s * 1e3,
+                               mesh_build_s=mesh_build_s,
+                               mesh_bytes=mesh_bytes, err_cpu=err_cpu,
+                               err_mesh=err_mesh, max_r=scale,
+                               slots=slots, nnz=nnz, bound_ms=bound_ms,
+                               bound_share=bound_ms / (warm * 1e3),
+                               gather_floor_ms=floor_ms,
+                               analytic_roofline_ms=roof["roofline_s"] * 1e3,
+                               analytic_roofline_share=roof["roofline_s"]
+                               / warm)
+        del cell, g, r0, step, mcell, mg, mr0, mstep, card, cpu, on_mesh
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase igpm-cells: {res['phase_s']:.1f} s wall")
+    return total, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3962,10 +4565,14 @@ def main(argv=None) -> int:
     del srv, stream
     torch.cuda.empty_cache()
     phase_cli()
+    say("phase igpm-cells:")
+    launches_igpm, igpm_cells = phase_igpm_cells()
     say("phase serve-lm:")
     launches_lm, lm = phase_serve_lm(args.profile)
     say("phase serve-lm-configs:")
     launches_configs, lm_configs = phase_serve_lm_configs()
+    say("phase serve-sharded-lm:")
+    launches_ssl, serve_sharded_lm = phase_serve_sharded_lm()
     say("phase train-lm:")
     launches_train, train = phase_train_lm(args.profile)
     say("phase train-sharded:")
@@ -3991,6 +4598,7 @@ def main(argv=None) -> int:
                  train_agreement=train_agree, bst_agreement=bst_agree,
                  serve_bst=serve_bst, train_bst=train_bst,
                  gnn_agreement=gnn_agree, train_gnn=train_gnn,
+                 serve_sharded_lm=serve_sharded_lm, igpm_cells=igpm_cells,
                  lse={lb: rows[("lse", lb)] for lb in
                       ("prefill", "hd40", "f32 hd16")},
                  gemm_transposes={lb: rows[("gemm transposes", lb)]
@@ -4017,6 +4625,7 @@ def main(argv=None) -> int:
             "launches_control": launches_ctl[name],
             "launches_sharded": {run: r["launches"][name]
                                  for run, r in sharded["runs"].items()},
+            "launches_igpm_cells": launches_igpm.get(name, 0),
             "max_abs_err": max(head["max_abs_err"], served["max_abs_err"],
                                *(block_rows[(name, d)]["max_abs_err"]
                                  for d in (4, 160))),
@@ -4098,6 +4707,7 @@ def main(argv=None) -> int:
             "launches_serve_lm_configs": launches_configs.get(name, 0),
             "launches_train_smollm": launches_smol[name],
             "launches_train_sharded": launches_sharded.get(name, 0),
+            "launches_serve_sharded_lm": launches_ssl.get(name, 0),
         })
     say(f"serve summary: {json.dumps(serve)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")

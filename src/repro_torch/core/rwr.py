@@ -20,6 +20,9 @@ slices, and ``part=`` (:class:`~repro_torch.core.graph.PartitionedEdges`)
 sweeps each shard's receiver-sliced arcs into its slice. Either way every
 vertex's sum is formed in the replicated order and ``_combine`` runs once,
 on the gathered table, so sharded sweeps are bitwise the replicated ones.
+A graph placed on a mesh with its arcs in contiguous blocks (the IGPM
+cell's ``P(batch axes)``) sweeps block by block instead, its partial sums
+added at position 0 (:func:`_sweep_arcs`; within rounding of one device).
 
 Many restart vectors run as one ``(n, S)`` dense block, and the
 *incremental* variant warm-starts from the previous fixed point and needs
@@ -32,12 +35,13 @@ stragglers keep sweeping, and the retired column-sweeps are counted
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.graph import (DynamicGraph, GraphAxis,
                                     PartitionedEdges, transition_weights)
+from repro_torch.distrib.sharding import ShardedTensor
 from repro_torch.kernels.spmv_ell import ops as ell_ops
 from repro_torch.sparse.ell import EllBlocks, EllGraph
 
@@ -144,11 +148,81 @@ def _coo_shards(g: DynamicGraph, w: torch.Tensor, axis: GraphAxis) -> list:
             for d, dv in enumerate(axis.devices)]
 
 
+def _sweep_arcs(g: DynamicGraph, e: torch.Tensor, c: float,
+                ell: Optional[Sequence[EllGraph]]):
+    """The sweep of a graph whose arcs are sharded over a device mesh: the
+    reference's distributed IGPM (its cell's arcs ``P(batch axes)``, the
+    iterate replicated, each sweep's segment sum a ``psum`` across the arc
+    shards).
+
+    ``g``'s fields are ``ShardedTensor`` s on one mesh: senders, receivers
+    and edge mask split into contiguous arc blocks, the vertex arrays
+    replicated. The iterate and ``e`` lie at block 0's home, position 0.
+    Per sweep the iterate goes to every other block's home (its first
+    holder), each home sums its own block's messages into an (n, L)
+    partial — ``index_add_`` over the block's arcs, or with ``ell`` (one
+    :class:`EllGraph` per block, on its home's device: the card's route,
+    which takes no float atomics) the ELL kernel over the block's mirror
+    on the prescaled iterate — and the partials come back and add at
+    position 0 in ascending block order before ``_combine``: per sweep
+    2·(D − 1)·n·L·4 bytes, counted in ``mesh.bytes["arc_psum"]``. The sums
+    run in another order than one device's, so the result differs from the
+    unsharded sweep's by rounding (bitwise with one block)."""
+    mesh = g.senders.mesh
+    lay = g.senders.layout
+    homes = [lay.holders(b)[0] for b in lay.blocks()]
+    if ell is not None and len(ell) != len(homes):
+        raise ValueError(f"{len(ell)} ELL mirrors for {len(homes)} arc "
+                         f"blocks")
+    blocks = []
+    for d, h in enumerate(homes):
+        with mesh.at(h):
+            deg = g.degree.shards[h]
+            if ell is None:
+                snd = g.senders.shards[h].to(torch.int64)
+                rcv = g.receivers.shards[h].to(torch.int64)
+                w = 1.0 / torch.clamp(deg, min=1.0)[snd]
+                w = torch.where(g.edge_mask.shards[h], w, torch.zeros_like(w))
+                blocks.append(lambda r, s=snd, t=rcv, w=w: torch.zeros_like(
+                    r).index_add_(0, t, r[s] * w[:, None]))
+            else:
+                inv = 1.0 / torch.clamp(deg, min=1.0)
+                blocks.append(lambda r, m=ell[d], inv=inv: ell_ops.ell_spmm(
+                    m.cols, m.vals, m.mask, m.row_ids, r * inv[:, None],
+                    m.n, index=m.row_index()))
+    nbytes = e.numel() * e.element_size()
+    h0 = homes[0]
+
+    def sweep(r: torch.Tensor) -> torch.Tensor:
+        parts = []
+        for h, block in zip(homes, blocks):
+            r_h = r
+            if h != h0:
+                mesh.count("arc_psum", nbytes, to=h)
+                with mesh.at(h), mesh.moving():
+                    r_h = r.to(mesh.device(h), copy=True)
+            with mesh.at(h):
+                parts.append(block(r_h))
+        with mesh.at(h0):
+            total = parts[0]
+            for p in parts[1:]:
+                mesh.count("arc_psum", nbytes, to=h0)
+                with mesh.moving():
+                    p = p.to(mesh.device(h0))
+                total = total + p
+            return _combine(e, total, c)
+
+    return sweep
+
+
 def _sweep_fn(g: DynamicGraph, e: torch.Tensor, c: float,
               ell, axis: Optional[GraphAxis] = None,
               part: Optional[PartitionedEdges] = None):
-    """The per-iteration sweep closure for either backend, replicated or
-    split over ``axis``."""
+    """The per-iteration sweep closure for either backend, replicated,
+    split over ``axis``, or over the arc blocks of a graph placed on a
+    mesh (:func:`_sweep_arcs`; ``ell`` then one mirror per block)."""
+    if isinstance(g.senders, ShardedTensor):
+        return _sweep_arcs(g, e, c, ell)
     if part is not None:
         assert axis is not None, "partitioned sweeps need a graph axis"
         ws = _part_weights(part, g, axis)
@@ -240,11 +314,22 @@ def restart_onehot(ids: torch.Tensor, n_max: int) -> torch.Tensor:
 
 
 def label_restarts(g: DynamicGraph, n_labels: int) -> torch.Tensor:
-    """(n_max, L) restart matrix: column ℓ uniform over live label-ℓ."""
-    onehot = (g.labels[:, None].to(torch.int64)
-              == torch.arange(n_labels, device=g.labels.device)[None, :]
+    """(n_max, L) restart matrix: column ℓ uniform over live label-ℓ. For
+    a graph placed on a mesh, from position 0's copies of the replicated
+    vertex arrays, there."""
+    if isinstance(g.labels, ShardedTensor):
+        with g.labels.mesh.at(0):
+            return _label_restarts(g.labels.shards[0], g.node_mask.shards[0],
+                                   n_labels)
+    return _label_restarts(g.labels, g.node_mask, n_labels)
+
+
+def _label_restarts(labels: torch.Tensor, node_mask: torch.Tensor,
+                    n_labels: int) -> torch.Tensor:
+    onehot = (labels[:, None].to(torch.int64)
+              == torch.arange(n_labels, device=labels.device)[None, :]
               ).to(torch.float32)
-    onehot = onehot * g.node_mask[:, None]
+    onehot = onehot * node_mask[:, None]
     counts = torch.clamp(onehot.sum(dim=0, keepdim=True), min=1.0)
     return onehot / counts
 
@@ -258,7 +343,10 @@ def label_rwr(g: DynamicGraph, n_labels: int, iters: int = 30,
 
     Column ℓ is the RWR fixed point whose restart distribution is uniform
     over live vertices with label ℓ; r_lab[v, ℓ] is the proximity between v
-    and the label-ℓ population — the seed-finder goodness input.
+    and the label-ℓ population — the seed-finder goodness input. For a
+    graph placed on a mesh with its arcs in blocks (the IGPM cell's),
+    ``r0`` is the warm start at position 0 and ``ell`` one mirror per
+    block; the table comes back at position 0.
     """
     e = label_restarts(g, n_labels)
     return rwr(g, e, iters=iters, c=c, r0=r0, ell=ell, axis=axis, part=part)

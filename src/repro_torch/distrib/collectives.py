@@ -20,7 +20,12 @@ the shards' storage). ``full()`` all-gathers them onto the batch shard's
 device; the gather's backward hands each block its slice of the gradient.
 ``blocks()`` leaves an expert weight where it lives (:class:`Blocks`):
 ``moe_block`` sends each expert shard's slice of the dispatch buffer there
-(:func:`send`) and brings the products back.
+(:func:`send`) and brings the products back. With ``grad=False`` (the
+sharded serving steps) a view reads the shards as they are.
+
+Each collective's copies run inside ``Mesh.moving()``, and a send's
+backward moves the working position (``Mesh.shift``) to where the
+gradient goes, so a dry run charges every op to the position doing it.
 """
 
 from __future__ import annotations
@@ -56,10 +61,10 @@ class _AllGather(torch.autograd.Function):
         blocks = layout.blocks()
         for src, part in zip(sources, parts):
             if src != dst:
-                mesh.count("all_gather", _nbytes(part))
+                mesh.count("all_gather", _nbytes(part), to=dst)
         ctx.layout, ctx.sources, ctx.dst = layout, sources, dst
         ctx.devices = [p.device for p in parts]
-        with span("all_gather"):
+        with span("all_gather"), mesh.moving():
             return assemble(layout, dict(zip(blocks, parts)),
                             mesh.device(dst), parts[0].dtype)
 
@@ -67,17 +72,18 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, grad):
         lay, mesh = ctx.layout, ctx.layout.mesh
         out = []
-        with span("all_gather_grad"):
+        with span("all_gather_grad"), mesh.moving():
             for block, src, dev in zip(lay.blocks(), ctx.sources,
                                        ctx.devices):
                 g = grad[lay.slices(block)]
                 if src != ctx.dst:
-                    mesh.count("all_gather_grad", _nbytes(g))
+                    mesh.count("all_gather_grad", _nbytes(g), to=src)
                 # a contiguous slice on the block's device is handed over
                 # as it is (no second copy of a gathered leaf's gradient)
                 if g.device != dev or not g.is_contiguous():
-                    g = torch.empty(g.shape, dtype=g.dtype,
-                                    device=dev).copy_(g)
+                    with mesh.at(src):
+                        g = torch.empty(g.shape, dtype=g.dtype,
+                                        device=dev).copy_(g)
                 out.append(g)
         return (None, None, None, *out)
 
@@ -90,16 +96,17 @@ class _Send(torch.autograd.Function):
     def forward(ctx, x, mesh, src: int, dst: int):
         ctx.mesh, ctx.src, ctx.dst, ctx.device = mesh, src, dst, x.device
         if src != dst:
-            mesh.count("expert_send", _nbytes(x))
-        with span("expert_send"):
+            mesh.count("expert_send", _nbytes(x), to=dst)
+        with span("expert_send"), mesh.moving():
             return torch.empty(x.shape, dtype=x.dtype,
                                device=mesh.device(dst)).copy_(x)
 
     @staticmethod
     def backward(ctx, grad):
         if ctx.src != ctx.dst:
-            ctx.mesh.count("expert_send", _nbytes(grad))
-        with span("expert_send"):
+            ctx.mesh.count("expert_send", _nbytes(grad), to=ctx.src)
+        ctx.mesh.shift(ctx.src)
+        with span("expert_send"), ctx.mesh.moving():
             return (torch.empty(grad.shape, dtype=grad.dtype,
                                 device=ctx.device).copy_(grad),
                     None, None, None)
@@ -117,11 +124,11 @@ class _SendSlices(torch.autograd.Function):
         ctx.mesh, ctx.src, ctx.dsts, ctx.sizes = mesh, src, dsts, sizes
         ctx.shape, ctx.device = x.shape, x.device
         outs, lo = [], 0
-        with span("expert_send"):
+        with span("expert_send"), mesh.moving():
             for dst, n in zip(dsts, sizes):
                 part = x.narrow(1, lo, n)
                 if dst != src:
-                    mesh.count("expert_send", _nbytes(part))
+                    mesh.count("expert_send", _nbytes(part), to=dst)
                 outs.append(torch.empty(part.shape, dtype=x.dtype,
                                         device=mesh.device(dst)).copy_(part))
                 lo += n
@@ -131,13 +138,14 @@ class _SendSlices(torch.autograd.Function):
     def backward(ctx, *grads):
         g = None
         lo = 0
-        with span("expert_send"):
+        ctx.mesh.shift(ctx.src)
+        with span("expert_send"), ctx.mesh.moving():
             for dst, n, gi in zip(ctx.dsts, ctx.sizes, grads):
                 if g is None:
                     g = torch.empty(ctx.shape, dtype=gi.dtype,
                                     device=ctx.device)
                 if dst != ctx.src:
-                    ctx.mesh.count("expert_send", _nbytes(gi))
+                    ctx.mesh.count("expert_send", _nbytes(gi), to=ctx.src)
                 g.narrow(1, lo, n).copy_(gi)
                 lo += n
         return g, None, None, None, None
@@ -169,14 +177,15 @@ class Blocks(NamedTuple):
 
 class ShardView:
     """One batch shard's handle on a sharded leaf in the sharded train
-    step. Each block is taken from a position of the batch shard's own
-    group (``group``) where one holds it, else from the first holder;
-    ``proxies`` are those shards as leaves that require grad, so one
-    batch shard's microbatches add their gradients into them (autograd's
-    accumulation, in microbatch order) apart from every other batch
-    shard's."""
+    and serving steps. Each block is taken from a position of the batch
+    shard's own group (``group``) where one holds it, else from the first
+    holder; ``proxies`` are those shards as leaves that require grad, so
+    one batch shard's microbatches add their gradients into them
+    (autograd's accumulation, in microbatch order) apart from every other
+    batch shard's; with ``grad=False`` the shards themselves."""
 
-    def __init__(self, x: ShardedTensor, home: int, group: Sequence[int]):
+    def __init__(self, x: ShardedTensor, home: int, group: Sequence[int],
+                 grad: bool = True):
         lay = x.layout
         self.x, self.home = x, home
         self.sources: Dict[Tuple[int, ...], int] = {}
@@ -184,7 +193,8 @@ class ShardView:
             holders = lay.holders(block)
             mine = [p for p in holders if p in group]
             self.sources[block] = mine[0] if mine else holders[0]
-        self.proxies = {block: x.shards[pos].detach().requires_grad_(True)
+        self.proxies = {block: (x.shards[pos].detach().requires_grad_(True)
+                                if grad else x.shards[pos])
                         for block, pos in self.sources.items()}
 
     def full(self) -> torch.Tensor:
@@ -249,11 +259,11 @@ def _psum(mesh, xs: List[torch.Tensor], axis: str,
         dst = group[0]
         total = xs[dst]
         for p in group[1:]:
-            mesh.count(collective, _nbytes(xs[p]))
+            mesh.count(collective, _nbytes(xs[p]), to=dst)
             total = total + xs[p].to(mesh.device(dst))
         for p in group:
             if p != dst:
-                mesh.count(collective, _nbytes(total))
+                mesh.count(collective, _nbytes(total), to=p)
             out[p] = total.to(mesh.device(p), copy=True)
     return out
 
@@ -288,7 +298,7 @@ def hierarchical_psum(mesh, xs: Sequence[torch.Tensor], inner_axis: str,
             for p in group:
                 part = xs[p].reshape(n_inner, -1)[j]
                 if p != dst:
-                    mesh.count("hierarchical_psum", _nbytes(part))
+                    mesh.count("hierarchical_psum", _nbytes(part), to=dst)
                 part = part.to(mesh.device(dst))
                 total = part if total is None else total + part
             scattered[dst] = total
@@ -299,7 +309,8 @@ def hierarchical_psum(mesh, xs: Sequence[torch.Tensor], inner_axis: str,
             parts = []
             for p in group:
                 if p != dst:
-                    mesh.count("hierarchical_psum", _nbytes(reduced[p]))
+                    mesh.count("hierarchical_psum", _nbytes(reduced[p]),
+                               to=dst)
                 parts.append(reduced[p].to(mesh.device(dst)))
             out[dst] = torch.stack(parts).reshape(xs[dst].shape)
     return out

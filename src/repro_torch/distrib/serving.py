@@ -1,0 +1,218 @@
+"""The LM's serving steps over a device mesh: prefill under the ``fsdp``
+rules, decode under ``tp2d``, the KV cache placed by ``lm_cache_specs``.
+
+The reference's prefill and decode cells are ``jax.jit`` over
+``model.prefill`` / ``model.decode_step`` with ``in_shardings`` from the
+same rules; XLA's SPMD partitioner then splits the compute (Megatron's
+split under ``tp2d``). The single-controller mesh has no partitioner, so
+these steps make the ZeRO-style choice the sharded train step made
+(``train.state.make_sharded_train_step``): parameters are *stored* by their
+specs and gathered layer by layer at each batch shard's home position
+(``ShardView`` / ``local``, read-only here), and with ``act_spec`` and
+expert-sharded MoE the experts stay where they live. The batch splits
+over the batch axes of ``batch_spec`` (one batch shard when the spec
+leaves it whole); batch shard d runs on its home, inside
+``Mesh.at``.
+
+The KV cache is a pair of ``ShardedTensor`` s (L, B, S, KV, hd) placed by
+``lm_cache_specs``: ``P(None, ba, "model", None, None)`` for B ≥ the
+production batch shards, else ``P(None, None, (*ba, "model"), None,
+None)``, the flash-decoding layout. The cache is never gathered whole:
+the prefill sends each block of its cache to the position that holds it
+(``cache_scatter``); a decode step writes the new token's keys and values
+in place into the one slice that holds position ``cache_len``
+(``kv_write``), sends the query to every slice of its batch shard
+(``q_send``), where ``layers.decode_attention_partial`` gives the
+slice's unnormalised (m, l, o), and adds the partials back at the home
+(``attn_partial``) in ascending slice order with the log-sum-exp rescale
+(``layers.combine_attention_partials``). Every move is counted in
+``mesh.bytes`` under the name in parentheses; the logits come to position
+0 (``logits_gather``). The split attention sums in another order than
+``decode_attention``, so decode logits differ from one device's by
+rounding; with one batch shard the prefill is one device's bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+
+from repro_torch.distrib.collectives import ShardView, batch_groups
+from repro_torch.distrib.sharding import (Layout, ShardedTensor, device_put,
+                                          map_with_specs)
+from repro_torch.models import layers as L
+from repro_torch.optim.adamw import tree_map
+
+Cache = Tuple[ShardedTensor, ShardedTensor]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def place_params(params: Any, mesh, specs: Any) -> Any:
+    """``params`` placed on ``mesh`` by ``specs`` (the serving weights
+    stay in their dtype)."""
+    return map_with_specs(lambda x, s: device_put(x, mesh, s), params, specs)
+
+
+def _views(params, home: int, group) -> Any:
+    return tree_map(lambda x: ShardView(x, home, group, grad=False)
+                    if isinstance(x, ShardedTensor) else x, params)
+
+
+def _to_position_0(mesh, parts: List[torch.Tensor], homes: List[int]
+                   ) -> torch.Tensor:
+    """The batch shards' rows, concatenated in order on position 0."""
+    dev0 = mesh.device(0)
+    with mesh.at(0), mesh.moving():
+        out = []
+        for t, h in zip(parts, homes):
+            if h != 0:
+                mesh.count("logits_gather", _nbytes(t), to=0)
+            out.append(t.to(dev0))
+        return torch.cat(out, dim=0)
+
+
+def place_cache(mesh, spec, parts: List[Tuple[torch.Tensor, torch.Tensor]],
+                homes: List[int], capacity: int) -> Cache:
+    """The batch shards' prefill caches (each (L, B/D, S, KV, hd) at its
+    home, in batch order) as a cache of ``capacity`` ≥ S positions laid out
+    by ``spec``: each position's block allocated there, zeros past S,
+    the prompt's part copied from the home that computed it."""
+    k0 = parts[0][0]
+    Lyr, Bd, S, KV, hd = k0.shape
+    shape = (Lyr, Bd * len(parts), capacity, KV, hd)
+    lay = Layout(mesh, spec, shape)
+    Bb, Sb = lay.block_shape[1], lay.block_shape[2]
+    out = ([], [])
+    for pos in range(mesh.size):
+        block = lay.block_of(pos)
+        b0, s0 = block[1] * Bb, block[2] * Sb
+        d = b0 // Bd
+        if (b0 + Bb - 1) // Bd != d:
+            raise ValueError(f"cache block rows {b0}..{b0 + Bb - 1} span "
+                             f"two batch shards of {Bd} rows")
+        r0, s1 = b0 - d * Bd, min(s0 + Sb, S)
+        for which in (0, 1):
+            with mesh.at(pos), mesh.moving():
+                blk = torch.zeros(lay.block_shape, dtype=k0.dtype,
+                                  device=mesh.device(pos))
+                if s1 > s0:
+                    src = parts[d][which][:, r0:r0 + Bb, s0:s1]
+                    if pos != homes[d]:
+                        mesh.count("cache_scatter", _nbytes(src), to=pos)
+                    blk[:, :, :s1 - s0].copy_(src)
+            out[which].append(blk)
+    return (ShardedTensor(lay, k0.dtype, out[0]),
+            ShardedTensor(lay, k0.dtype, out[1]))
+
+
+def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
+                         capacity: Optional[int] = None) -> Callable:
+    """``prefill(params, tokens) → (logits, (k_cache, v_cache))``:
+    ``model.prefill`` once per batch shard at its home over ``params``
+    placed by their specs (:func:`place_params`), the logits (B, 1, V) on
+    position 0 and the cache placed by ``cache_spec`` with room for
+    ``capacity`` positions (default: the prompt's)."""
+    homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
+                                 else None)
+    D = len(homes)
+
+    def prefill(params, tokens: torch.Tensor):
+        B, S = tokens.shape
+        if B % D:
+            raise ValueError(f"batch {B} does not split over {D} shards")
+        Bd = B // D
+        logits, caches = [], []
+        with torch.no_grad():
+            for d in range(D):
+                home = homes[d]
+                with mesh.at(home):
+                    views = _views(params, home, groups[d])
+                    tok = tokens[d * Bd:(d + 1) * Bd].to(mesh.device(home))
+                    lg, kv = model.prefill(views, tok)
+                logits.append(lg)
+                caches.append(kv)
+            cache = place_cache(mesh, cache_spec, caches, homes,
+                                S if capacity is None else capacity)
+            del caches
+            return _to_position_0(mesh, logits, homes), cache
+
+    return prefill
+
+
+def make_sharded_decode(model, mesh, batch_spec) -> Callable:
+    """``decode(params, token, cache, cache_len) → (logits, cache)``: one
+    token per sequence (B, 1) at position ``cache_len`` (a Python int)
+    against ``cache`` placed by ``lm_cache_specs`` (written in place),
+    over ``params`` placed by their specs; the logits (B, 1, V) on
+    position 0. Each batch shard runs ``model.decode_step`` at its home
+    with the split attention as its ``attend``."""
+    homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
+                                 else None)
+    D = len(homes)
+    cd = model.compute_dtype
+
+    def attend(i, q, k, v, cache, n, *, home, r0, slices):
+        """Layer ``i``'s attention for batch shard rows r0:r0+Bd of the
+        cache blocks in ``slices`` ((S block, holder), ascending)."""
+        ks, vs = cache
+        Bd, Sb = q.shape[0], ks.layout.block_shape[2]
+        j_new = n // Sb
+        for (j, h) in slices:
+            if j != j_new:
+                continue
+            for src, kv in ((k, ks), (v, vs)):
+                src = src.to(kv.dtype)
+                if h != home:
+                    mesh.count("kv_write", _nbytes(src), to=h)
+                with mesh.moving():
+                    off = n - j * Sb
+                    kv.shards[h][i, r0:r0 + Bd, off:off + 1].copy_(src)
+        parts = []
+        for (j, h) in slices:
+            if h != home:
+                mesh.count("q_send", _nbytes(q), to=h)
+            with mesh.moving():
+                qh = q.to(mesh.device(h))
+            with mesh.at(h):
+                valid = min(max(n + 1 - j * Sb, 0), Sb)
+                kc = ks.shards[h][i, r0:r0 + Bd].to(cd)
+                vc = vs.shards[h][i, r0:r0 + Bd].to(cd)
+                part = L.decode_attention_partial(qh, kc, vc, valid)
+            if h != home:
+                mesh.count("attn_partial", sum(_nbytes(t) for t in part),
+                           to=home)
+            with mesh.moving():
+                parts.append(tuple(t.to(mesh.device(home)) for t in part))
+        return L.combine_attention_partials(parts, q.dtype)
+
+    def decode(params, token: torch.Tensor, cache: Cache, cache_len: int):
+        lay = cache[0].layout
+        n = int(cache_len)
+        B = token.shape[0]
+        if B % D:
+            raise ValueError(f"batch {B} does not split over {D} shards")
+        Bd = B // D
+        Bb = lay.block_shape[1]
+        outs = []
+        with torch.no_grad():
+            for d in range(D):
+                home = homes[d]
+                b = d * Bd // Bb
+                slices = sorted((blk[2], lay.holders(blk)[0])
+                                for blk in lay.blocks() if blk[1] == b)
+                with mesh.at(home):
+                    tok = token[d * Bd:(d + 1) * Bd].to(mesh.device(home))
+                    lg, _ = model.decode_step(
+                        _views(params, home, groups[d]), tok, cache, n,
+                        attend=functools.partial(attend, home=home,
+                                                 r0=d * Bd - b * Bb,
+                                                 slices=slices))
+                outs.append(lg)
+            return _to_position_0(mesh, outs, homes), cache
+
+    return decode

@@ -286,6 +286,17 @@ class Layout:
                 raise ValueError(f"dim {n} of {shape} does not split into "
                                  f"{c} shards ({spec!r} on {mesh!r})")
         self.block_shape = tuple(n // c for n, c in zip(shape, self.counts))
+        self._holders: Optional[Dict[Tuple[int, ...], List[int]]] = None
+
+    def _by_block(self) -> Dict[Tuple[int, ...], List[int]]:
+        """Block → its holders, ascending, in row-major block order (made
+        once: a layout does not change)."""
+        if self._holders is None:
+            by: Dict[Tuple[int, ...], List[int]] = {}
+            for pos in range(self.mesh.size):
+                by.setdefault(self.block_of(pos), []).append(pos)
+            self._holders = dict(sorted(by.items()))
+        return self._holders
 
     def block_of(self, pos: int) -> Tuple[int, ...]:
         """The block position ``pos`` holds: per dimension the mixed-radix
@@ -301,17 +312,11 @@ class Layout:
 
     def blocks(self) -> List[Tuple[int, ...]]:
         """Every block once, in row-major block order."""
-        out, seen = [], set()
-        for pos in range(self.mesh.size):
-            b = self.block_of(pos)
-            if b not in seen:
-                seen.add(b)
-                out.append(b)
-        return sorted(out)
+        return list(self._by_block())
 
     def holders(self, block: Tuple[int, ...]) -> List[int]:
         """The positions that hold ``block``, ascending."""
-        return [p for p in range(self.mesh.size) if self.block_of(p) == block]
+        return list(self._by_block().get(tuple(block), ()))
 
     def slices(self, block: Tuple[int, ...]) -> Tuple[slice, ...]:
         return tuple(slice(i * n, (i + 1) * n)
@@ -362,8 +367,11 @@ def device_put(x: torch.Tensor, mesh, spec: P) -> ShardedTensor:
 def assemble(layout: Layout, parts: Dict[Tuple[int, ...], torch.Tensor],
              device, dtype) -> torch.Tensor:
     """The whole tensor from one tensor per block, on ``device``: each
-    block copied into its slice, in shard order."""
+    block copied into its slice, in shard order (on meta tensors, which
+    hold no values, only the result is made)."""
     out = torch.empty(layout.shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for block in layout.blocks():
         out[layout.slices(block)].copy_(parts[block])
     return out
@@ -382,7 +390,7 @@ def gather(x: ShardedTensor, pos: int = 0,
         parts[block] = x.shards[src]
         if collective is not None and src != pos:
             x.mesh.count(collective, parts[block].numel()
-                         * parts[block].element_size())
+                         * parts[block].element_size(), to=pos)
     return assemble(lay, parts, x.mesh.device(pos), x.dtype)
 
 

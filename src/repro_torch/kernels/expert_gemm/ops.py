@@ -45,7 +45,7 @@ from typing import Dict, Iterable
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import PLAIN_DEVICES, build
 from repro_torch.kernels.expert_gemm.ref import (expert_gemm_dw_ref,
                                                  expert_gemm_dx_ref,
                                                  expert_gemm_ref)
@@ -136,10 +136,10 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(N, C, d) × (E, d, f) → (N, C, f), f32 accumulation over d."""
     _check(x, w)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return expert_gemm_ref(x, w)
     if x.device.type != "cuda":
-        raise RuntimeError(f"expert_gemm runs on CUDA or CPU tensors, not "
+        raise RuntimeError(f"expert_gemm runs on CUDA, CPU or meta tensors, not "
                            f"{x.device}")
     N, C, d = x.shape
     E, _, f = w.shape
@@ -166,10 +166,10 @@ def expert_gemm_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.shape[0] == 0 or dy.shape[0] % w.shape[0] != 0:
         raise ValueError(f"{DX}: N={dy.shape[0]} is not a multiple of "
                          f"E={w.shape[0]}")
-    if dy.device.type == "cpu":
+    if dy.device.type in PLAIN_DEVICES:
         return expert_gemm_dx_ref(dy, w)
     if dy.device.type != "cuda":
-        raise RuntimeError(f"{DX} runs on CUDA or CPU tensors, not "
+        raise RuntimeError(f"{DX} runs on CUDA, CPU or meta tensors, not "
                            f"{dy.device}")
     N, C, f = dy.shape
     E, d, _ = w.shape
@@ -195,10 +195,10 @@ def expert_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
     if n_experts <= 0 or x.shape[0] % n_experts != 0:
         raise ValueError(f"{DW}: N={x.shape[0]} is not a multiple of "
                          f"E={n_experts}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return expert_gemm_dw_ref(x, dy, n_experts)
     if x.device.type != "cuda":
-        raise RuntimeError(f"{DW} runs on CUDA or CPU tensors, not "
+        raise RuntimeError(f"{DW} runs on CUDA, CPU or meta tensors, not "
                            f"{x.device}")
     N, C, d = x.shape
     f = dy.shape[2]

@@ -36,7 +36,7 @@ from typing import Dict, Iterable
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import PLAIN_DEVICES, build
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
@@ -108,12 +108,13 @@ def flash_bwd_variant(dtype: torch.dtype, hd: int, sq: int, sk: int,
 
 
 def _device_ok(q: torch.Tensor, what: str) -> bool:
-    """True for CUDA tensors (launch a kernel), False for CPU tensors (run
-    the plain version); raises for any other device."""
-    if q.device.type == "cpu":
+    """True for CUDA tensors (launch a kernel), False for CPU and meta
+    tensors (run the plain version: on meta, its shapes only); raises for
+    any other device."""
+    if q.device.type in PLAIN_DEVICES:
         return False
     if q.device.type != "cuda":
-        raise RuntimeError(f"{what} runs on CUDA or CPU tensors, not "
+        raise RuntimeError(f"{what} runs on CUDA, CPU or meta tensors, not "
                            f"{q.device}")
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"{what}: head dim {q.shape[-1]} > {MAX_HEAD_DIM}")

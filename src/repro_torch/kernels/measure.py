@@ -1,7 +1,8 @@
 """Measurement helpers for the kernels on a CUDA card.
 
-Shared by ``chip_smoke.py`` and ``tools/kernel_sweep.py``: the H100's
-data-sheet rates that the bounds are computed from, the card's name and
+Shared by ``chip_smoke.py``, ``tools/kernel_sweep.py`` and
+``launch/roofline.py``: the H100's data-sheet rates that the bounds are
+computed from, the card's name and
 power limit, a CUDA-event timer that keeps the wrapper's host time out of
 the measurement, and the synthetic full-mirror ELL tile with its gather
 floor. Nothing in the port's serving path imports this module.
@@ -15,6 +16,9 @@ import subprocess
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # fp32 outside the tensor cores, data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 on the tensor cores, data sheet
+# NVLink 4: 900 GB/s per GPU in total, 450 GB/s in each direction, H100
+# SXM data sheet
+H100_NVLINK_BYTES_PER_S = 450e9
 SPIN_CYCLES = 2_000_000  # card clock cycles spun before each timed run
 
 

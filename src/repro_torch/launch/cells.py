@@ -14,14 +14,17 @@ reference's reduced dims; ``smoke=False`` the shape's published dims, with
 edge counts and ``retrieval_cand``'s candidates padded to a multiple of
 512 as the reference pads them.
 
-LM cells: with ``concrete=False`` the arguments are meta tensors (the
-reference's ``ShapeDtypeStruct`` stand-ins: shapes and dtypes, nothing
-allocated), which :func:`input_specs` returns. With a ``mesh`` a train
-cell's step is the sharded step (``train.state.make_sharded_train_step``)
-and its concrete state is placed on the mesh; the prefill and decode cells
-carry their specs, and run unsharded (sharded serving is a later slice,
-ROADMAP item 13.5). The GNN and BST cells are concrete only, on one
-device.
+LM and IGPM cells: with ``concrete=False`` the arguments are meta
+tensors (the reference's ``ShapeDtypeStruct`` stand-ins: shapes and
+dtypes, nothing allocated), which :func:`input_specs` returns. With a
+``mesh`` every cell carries its spec tree (``in_shardings``); concrete
+arguments, or meta ones on a meta mesh (``["meta"] * 256``, the dry
+run's), are placed on it by those specs and the step is the sharded one:
+the train step ``train.state.make_sharded_train_step``, prefill and
+decode ``distrib.serving``'s, the IGPM refresh ``core.rwr.label_rwr``
+over the graph's arc blocks. The GNN and BST cells are concrete
+only, on one device (their shardings are ROADMAP 13.5 part 2, items 3
+and 4).
 """
 
 from __future__ import annotations
@@ -33,14 +36,22 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import (ArchConfig, BSTConfig, GNNConfig,
-                                     TrainConfig, TransformerConfig)
+                                     IGPMConfig, TrainConfig,
+                                     TransformerConfig)
+from repro_torch.core.graph import DynamicGraph
+from repro_torch.core.rwr import label_rwr
 from repro_torch.distrib.collectives import batch_groups
-from repro_torch.distrib.sharding import (P, batch_axes, lm_cache_specs,
-                                          lm_param_specs, state_specs_like)
+from repro_torch.distrib.serving import (make_sharded_decode,
+                                         make_sharded_prefill, place_params)
+from repro_torch.distrib.sharding import (P, ShardedTensor, batch_axes,
+                                          device_put, lm_cache_specs,
+                                          lm_param_specs, map_with_specs,
+                                          state_specs_like)
 from repro_torch.models.gnn.common import GraphInputs, make_model
 from repro_torch.models.gnn.graphcast import mesh_sizes
 from repro_torch.models.recsys.bst import BST, BSTInputs
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.sparse.ell import build_ell, ell_row_capacity
 from repro_torch.train.state import (make_sharded_train_step,
                                      make_train_step, new_sharded_train_state,
                                      new_train_state)
@@ -79,6 +90,14 @@ class ArgFactory:
         return torch.from_numpy(a).to(self.device)
 
 
+def _placed(mesh, concrete: bool) -> bool:
+    """Whether a cell places its arguments on ``mesh`` and runs the sharded
+    step: concrete arguments, or meta ones on a meta mesh (meta stand-ins
+    on a mesh of real devices only carry the specs)."""
+    return mesh is not None and (concrete or all(
+        d.type == "meta" for d in mesh.devices))
+
+
 def _generator(device) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(0)
 
@@ -105,7 +124,10 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     then does the model take ``act_spec``; train shards the parameters
     under ``REPRO_LM_POLICY`` (default ``fsdp``), prefill under
     ``REPRO_LM_PREFILL_POLICY`` (default ``fsdp``), decode under
-    ``tp2d``, as the reference's cells do."""
+    ``tp2d``, as the reference's cells do. Placed on a mesh, prefill and
+    decode are ``distrib.serving``'s steps (the cache placed by
+    ``lm_cache_specs``); decode takes ``cache_len`` as a Python int, its
+    build-time value S // 2 where the tensor is a meta stand-in."""
     cfg: TransformerConfig = arch.model
     shape = arch.shape(shape_name)
     dims = LM_SMOKE_DIMS[shape.name] if smoke else shape.dims
@@ -134,7 +156,7 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
         policy = os.environ.get("REPRO_LM_POLICY", "fsdp")
         specs = state_specs_like(lm_param_specs(params, cfg, policy))
         in_sh = None if mesh is None else (specs, bspec, bspec)
-        if mesh is not None and concrete:
+        if _placed(mesh, concrete):
             # one microbatch per batch shard: the reference's one step
             # over the whole batch, split where it lives
             D = len(batch_groups(mesh, bspec[0])[0])
@@ -154,8 +176,13 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
         policy = os.environ.get("REPRO_LM_PREFILL_POLICY", "fsdp")
         pspec = lm_param_specs(params, cfg, policy=policy)
         in_sh = None if mesh is None else (pspec, bspec)
+        step = model.prefill
+        if _placed(mesh, concrete):
+            params = place_params(params, mesh, pspec)
+            step = make_sharded_prefill(model, mesh, bspec,
+                                        lm_cache_specs(multi_pod, B))
         return Cell(arch.arch_id, shape.name, "prefill", model,
-                    model.prefill, (params, tokens),
+                    step, (params, tokens),
                     {"tokens_per_step": B * S}, in_sh)
 
     # decode (decode_32k / long_500k): one token against an S-long cache
@@ -171,8 +198,18 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     pspec = lm_param_specs(params, cfg)
     cspec = lm_cache_specs(multi_pod, B if mesh is not None else 0)
     in_sh = None if mesh is None else (pspec, bspec, (cspec, cspec), P())
+    step = model.decode_step
+    if _placed(mesh, concrete):
+        params = place_params(params, mesh, pspec)
+        cache = tuple(device_put(c, mesh, cspec) for c in cache)
+        decode = make_sharded_decode(model, mesh, bspec)
+        n = S // 2   # the length as a Python int: a meta tensor has no value
+
+        def step(params, token, cache, cache_len):
+            return decode(params, token, cache,
+                          n if cache_len.is_meta else int(cache_len))
     return Cell(arch.arch_id, shape.name, "decode", model,
-                model.decode_step, (params, token, cache, cache_len),
+                step, (params, token, cache, cache_len),
                 {"tokens_per_step": B, "kv_tokens": B * S}, in_sh)
 
 
@@ -307,16 +344,140 @@ def bst_cell(arch: ArchConfig, shape_name: str, device="cuda",
                 (params, inputs), {"batch": B})
 
 
+# ---------------------------------------------------------------------------
+# IGPM (the paper's own system) — the label-RWR refresh at Table III sizes
+# ---------------------------------------------------------------------------
+
+IGPM_SMOKE_DIMS = {"n_vertices": 64, "n_edges": 256}
+
+
+class IgpmRefresh:
+    """The IGPM cell's step, ``step(graph, r0) → r_lab`` (n, L): the
+    incremental label-RWR refresh, ``cfg.rwr_iters_incremental`` sweeps
+    warm-started from ``r0`` (the reference's ``rwr_refresh``).
+
+    Without a mesh: on the CPU and on meta tensors the COO sweep
+    (``index_add_``); on the card ``index_add_`` adds with float atomics,
+    which the port's deterministic sums forbid, so the sweep goes through
+    an ELL mirror of the arcs (``ell_width`` wide) and the ELL kernel.
+    With a mesh (the graph placed by the cell's specs) the sweeps run over
+    the arc blocks (``core.rwr``), on the card with one mirror per block.
+    A mirror is built on the host at the first refresh of a graph and
+    kept while the graph's arc tensors are the same objects with the same
+    version counters (an edit in place bumps them, and the next refresh
+    builds anew); :meth:`mirrors` builds it ahead, and times apart."""
+
+    def __init__(self, cfg: IGPMConfig):
+        self.cfg = cfg
+        self._arcs = ()
+        self._versions = ()
+        self._mirrors = None
+
+    def mirrors(self, g: DynamicGraph):
+        """The ELL mirror (one per arc block on a mesh) of ``g``'s live
+        arcs, on the card; ``None`` off the card."""
+        sharded = isinstance(g.senders, ShardedTensor)
+        arcs = (g.senders, g.receivers, g.edge_mask)
+        if sharded:
+            arcs = tuple(s for t in arcs for s in t.shards)
+        if arcs[0].device.type != "cuda":
+            return None
+        versions = tuple(t._version for t in arcs)
+        if (len(arcs) != len(self._arcs) or versions != self._versions
+                or any(a is not b for a, b in zip(arcs, self._arcs))):
+            k = self.cfg.ell_width
+            if sharded:
+                lay = g.senders.layout
+                homes = [lay.holders(b)[0] for b in lay.blocks()]
+                self._mirrors = [self._mirror(
+                    g.senders.shards[h], g.receivers.shards[h],
+                    g.edge_mask.shards[h], g.n_max, k) for h in homes]
+            else:
+                self._mirrors = self._mirror(g.senders, g.receivers,
+                                             g.edge_mask, g.n_max, k)
+            self._arcs, self._versions = arcs, versions
+        return self._mirrors
+
+    @staticmethod
+    def _mirror(senders, receivers, edge_mask, n: int, k: int):
+        em = edge_mask.cpu().numpy()
+        s = senders.cpu().numpy()[em]
+        r = receivers.cpu().numpy()[em]
+        # rows owned by receivers, columns the senders: the sweep's gather
+        return build_ell(r, s, n, k=k,
+                         r_cap=ell_row_capacity(n, int(em.size), k),
+                         device=senders.device)
+
+    def __call__(self, g: DynamicGraph, r0: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if isinstance(r0, ShardedTensor):
+            r0 = r0.shards[0]    # replicated: position 0, block 0's home
+        return label_rwr(g, cfg.n_labels, iters=cfg.rwr_iters_incremental,
+                         c=cfg.restart_prob, r0=r0, ell=self.mirrors(g))
+
+
+def igpm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
+              multi_pod: bool = False, concrete: bool = True,
+              smoke: bool = False) -> Cell:
+    """The label-RWR refresh — IGPM's data-plane hot loop — at the
+    published Table III sizes: n vertices and e = pad512(2 · edges) arcs
+    (``smoke``: 64 and 512), drawn as the reference draws them (senders,
+    receivers, labels, a standard-normal ``degree``, ``n_edges``, ``r0``;
+    every arc and vertex live). With a mesh the arcs split over the batch
+    axes, ``P(ba)``, and the vertex arrays and ``r0`` are replicated."""
+    cfg: IGPMConfig = arch.model
+    shape = arch.shape(shape_name)
+    dims = IGPM_SMOKE_DIMS if smoke else shape.dims
+    n = dims["n_vertices"]
+    e = 2 * dims["n_edges"]
+    e = e if smoke else pad512(e)
+    L = cfg.n_labels
+    dev = torch.device(device) if concrete else torch.device("meta")
+    if concrete:
+        fac = ArgFactory(dev)
+    else:
+        def fac(shape_, dtype, high=2):
+            return torch.empty(shape_, dtype=torch.from_numpy(
+                np.zeros((), dtype)).dtype, device=dev)
+
+    senders = fac((e,), np.int32, n)
+    receivers = fac((e,), np.int32, n)
+    edge_mask = torch.ones((e,), dtype=torch.bool, device=dev)
+    labels = fac((n,), np.int32, L)
+    node_mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    degree = fac((n,), np.float32)
+    n_edges = fac((), np.int32)
+    graph = DynamicGraph(senders, receivers, edge_mask, labels, node_mask,
+                         degree, n_edges)
+    r0 = fac((n, L), np.float32)
+
+    ba = batch_axes(multi_pod)
+    gspec = DynamicGraph(P(ba), P(ba), P(ba), P(None), P(None), P(None), P())
+    rspec = P(None, None)
+    in_sh = None if mesh is None else (gspec, rspec)
+    if _placed(mesh, concrete):
+        graph = map_with_specs(lambda x, s: device_put(x, mesh, s), graph,
+                               gspec)
+        r0 = device_put(r0, mesh, rspec)
+    return Cell(arch.arch_id, shape.name, "stream", None, IgpmRefresh(cfg),
+                (graph, r0), {"n_nodes": n, "n_edges": e,
+                              "rwr_iters": cfg.rwr_iters_incremental,
+                              "n_labels": L}, in_sh)
+
+
 def build_cell(arch: ArchConfig, shape_name: str, device="cuda",
                smoke: bool = False, mesh=None, multi_pod: bool = False,
                concrete: bool = True) -> Cell:
     if arch.family == "lm":
         return lm_cell(arch, shape_name, device, mesh, multi_pod, concrete,
                        smoke)
+    if arch.family == "igpm":
+        return igpm_cell(arch, shape_name, device, mesh, multi_pod, concrete,
+                         smoke)
     if not concrete or mesh is not None:
         raise ValueError(f"the {arch.family} cells are concrete and "
-                         f"unsharded (their shardings are a later slice "
-                         f"of ROADMAP item 13.5)")
+                         f"unsharded (their shardings are ROADMAP 13.5 "
+                         f"part 2, items 3 and 4)")
     if arch.family == "gnn":
         return gnn_cell(arch, shape_name, device, smoke)
     if arch.family == "recsys":
@@ -326,7 +487,8 @@ def build_cell(arch: ArchConfig, shape_name: str, device="cuda",
 
 def input_specs(arch: ArchConfig, shape_name: str, mesh=None,
                 multi_pod: bool = False) -> Tuple[Any, ...]:
-    """Meta-tensor stand-ins for every model input of an LM cell (the
-    reference's ``ShapeDtypeStruct`` dry-run contract)."""
+    """Meta-tensor stand-ins for every model input of an LM or IGPM cell
+    (the reference's ``ShapeDtypeStruct`` dry-run contract; placed on
+    ``mesh`` when one is given)."""
     return build_cell(arch, shape_name, mesh=mesh, multi_pod=multi_pod,
                       concrete=False).args

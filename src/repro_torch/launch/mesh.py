@@ -14,13 +14,29 @@ Each axis size must divide the production size of the axis with that name
 (``distrib.sharding.AXIS_SIZE``: pod 2, data 16, model 16). The sharding
 rules degrade a spec until every dimension divides its production shard
 count, so on such a mesh no shard is uneven.
+
+The single-controller steps do not run every position alike: each batch
+shard's home position computes, a "model" position stores state (and, under
+expert parallelism, runs its experts). So that a dry run
+(``launch/dryrun.py``) can charge each op to the position doing it, the
+sharded steps run each position's work inside ``Mesh.at(pos)``; an
+autograd node that carries a tensor back across positions moves the
+working position with it (``Mesh.shift``), so a backward pass is charged
+where it runs. A collective's own copies run inside ``Mesh.moving()``:
+their traffic is counted in ``Mesh.bytes``, not as the position's op
+bytes. On a mesh of more than one position the dry run's tracker refuses
+an op that runs outside every ``Mesh.at``. Outside a dry run the contexts
+only push and pop.
+A meta device list (``["meta"] * 256``) lays the production mesh out with
+nothing allocated.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,7 +47,8 @@ from repro_torch.distrib.sharding import AXIS_SIZE
 class Mesh:
     """``shape`` positions named by ``axis_names``, each on one device of
     ``devices`` (row-major). ``bytes`` counts what the collectives move
-    between positions, by collective."""
+    between positions, by collective; ``received`` the bytes each position
+    receives, where the collective names its receiver."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  devices: Sequence):
@@ -61,11 +78,17 @@ class Mesh:
             raise ValueError(f"mesh devices of more than one type: "
                              f"{sorted(kinds)}")
         self.bytes: Dict[str, int] = collections.Counter()
+        self.received: Dict[int, int] = collections.Counter()
+        self._working: List[int] = []   # the working position, innermost last
+        self._moving = 0                # depth of nested collective copies
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={n}" for a, n in zip(self.axis_names,
                                                     self.shape))
-        return f"Mesh({axes}; {[str(d) for d in self.devices]})"
+        names = [str(d) for d in self.devices]
+        if len(set(names)) == 1 and len(names) > 1:
+            return f"Mesh({axes}; [{names[0]!r}] * {len(names)})"
+        return f"Mesh({axes}; {names})"
 
     @property
     def size(self) -> int:
@@ -87,11 +110,51 @@ class Mesh:
     def device(self, pos: int) -> torch.device:
         return self.devices[pos]
 
-    def count(self, collective: str, nbytes: int) -> None:
+    @contextlib.contextmanager
+    def at(self, pos: int) -> Iterator[None]:
+        """Run the body as position ``pos``'s work."""
+        self._working.append(int(pos))
+        try:
+            yield
+        finally:
+            self._working.pop()
+
+    @property
+    def position(self) -> Optional[int]:
+        """The position whose work runs now (``None`` outside every
+        :meth:`at`)."""
+        return self._working[-1] if self._working else None
+
+    def shift(self, pos: int) -> None:
+        """Make ``pos`` the working position until the innermost :meth:`at`
+        ends: an autograd node calls it where its backward hands a gradient
+        to another position, whose backward runs next."""
+        if self._working:
+            self._working[-1] = int(pos)
+
+    @contextlib.contextmanager
+    def moving(self) -> Iterator[None]:
+        """Run the body as a collective's copies between positions."""
+        self._moving += 1
+        try:
+            yield
+        finally:
+            self._moving -= 1
+
+    @property
+    def is_moving(self) -> bool:
+        return self._moving > 0
+
+    def count(self, collective: str, nbytes: int,
+              to: Optional[int] = None) -> None:
+        """Count ``nbytes`` moved by ``collective`` (to position ``to``)."""
         self.bytes[collective] += int(nbytes)
+        if to is not None:
+            self.received[int(to)] += int(nbytes)
 
     def reset_bytes(self) -> None:
         self.bytes.clear()
+        self.received.clear()
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -14,12 +14,13 @@ plain versions on the CPU). ``softmax_xent_chunked`` and
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 
 
@@ -66,31 +67,33 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the CPU scan's knob and does not reach it); on CPU tensors a scan over
     KV blocks keeps the running (max, denominator, accumulator) in f32.
     When autograd needs a gradient of q, k or v, it is ``FlashAttention``
-    on either device (the forward also keeps each row's log-sum-exp).
+    on either device (the forward also keeps each row's log-sum-exp). Meta
+    tensors take the CPU's scan (shapes only).
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal, q_offset)
-    if q.device.type != "cpu":
+    if q.device.type not in PLAIN_DEVICES:
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal,
                                q_offset=q_offset)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qf = q.reshape(B, Sq, KV, G, hd).float() * _scale(hd, q.device)
-    q_pos = q_offset + torch.arange(Sq)
-    neg_inf = torch.tensor(float("-inf"))
-    m = torch.full((B, KV, G, Sq), float("-inf"))
-    l = torch.zeros((B, KV, G, Sq))
-    acc = torch.zeros((B, KV, G, Sq, hd))
+    dev = q.device
+    qf = q.reshape(B, Sq, KV, G, hd).float() * _scale(hd, dev)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    m = torch.full((B, KV, G, Sq), float("-inf"), device=dev)
+    l = torch.zeros((B, KV, G, Sq), device=dev)
+    acc = torch.zeros((B, KV, G, Sq, hd), device=dev)
     for lo in range(0, Sk, block):
         hi = min(lo + block, Sk)
         kf = k[:, lo:hi].float()
         s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf)           # (B,KV,G,Sq,blk)
         if causal:
-            kv_pos = torch.arange(lo, hi)
+            kv_pos = torch.arange(lo, hi, device=dev)
             valid = kv_pos[None, :] <= q_pos[:, None]
             s = torch.where(valid[None, None, None], s, neg_inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -148,6 +151,51 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp_min(l, 1e-30),
                        v_cache.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, valid: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """:func:`decode_attention` over one slice of the cache, unnormalised:
+    the slots ``[0, valid)`` of ``k_cache``/``v_cache`` (B, S_slice, KV,
+    hd) count, the rest are masked. Returns f32 (m, l, o): m (B, KV, G) the
+    slice's largest scaled score (−inf where no slot counts), l the sum of
+    exp(s − m) and o (B, KV, G, hd) the sum of exp(s − m)·v, both 0 where
+    no slot counts. :func:`combine_attention_partials` joins the slices
+    (flash-decoding's split)."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qf = q.reshape(B, KV, G, hd).float() * _scale(hd, q.device)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    counts = torch.arange(S, device=q.device) < valid
+    s = s.masked_fill(~counts, float("-inf"))
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return m, l, o
+
+
+def combine_attention_partials(parts, dtype: torch.dtype) -> torch.Tensor:
+    """The attention output (B, 1, H, hd) in ``dtype`` from the slices'
+    (m, l, o) of :func:`decode_attention_partial`, on one device, added in
+    the order given: each slice rescaled by exp(m_j − max_j m_j) (0 for a
+    slice with no slot), in f32."""
+    m = parts[0][0]
+    for mj, _, _ in parts[1:]:
+        m = torch.maximum(m, mj)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    l = o = None
+    for mj, lj, oj in parts:
+        a = torch.where(torch.isfinite(mj), torch.exp(mj - m_safe), 0.0)
+        l = a * lj if l is None else l + a * lj
+        o = a[..., None] * oj if o is None else o + a[..., None] * oj
+    out = o / torch.clamp_min(l, 1e-30)[..., None]
+    B, KV, G, hd = out.shape
+    return out.reshape(B, 1, KV * G, hd).to(dtype)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

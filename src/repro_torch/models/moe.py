@@ -129,8 +129,11 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
 
     # Switch aux loss: E * mean(fraction routed to e) * mean(router prob e)
     me = r.probs.mean(dim=(0, 1))                             # (E,)
-    ce = torch.bincount(r.expert_idx.reshape(-1), minlength=E).float() \
-        / (G * S * k)
+    # slots per expert: an integer count (exact in any order), as a
+    # scatter-add of fixed length so meta tensors take it too
+    idx = r.expert_idx.reshape(-1)
+    ce = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, idx, torch.ones_like(idx)).float() / (G * S * k)
     aux = E * torch.sum(me * ce)
 
     # each token's k sorted positions, ascending: the order in which the
@@ -185,7 +188,9 @@ def _experts_where_they_live(x4: torch.Tensor, params) -> torch.Tensor:
     for xm, pg, pu, pd, pos in zip(xs, wg.parts, wu.parts, wd.parts,
                                    wg.positions):
         Em = pg.shape[0]
-        ym = _experts(xm.view(G * Em, C, d), pg, pu, pd).view(G, Em, C, d)
+        with mesh.at(pos):
+            ym = _experts(xm.view(G * Em, C, d), pg, pu, pd) \
+                .view(G, Em, C, d)
         outs.append(send(ym, mesh, pos, home))
     return torch.cat(outs, dim=1)
 

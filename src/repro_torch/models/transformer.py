@@ -27,7 +27,7 @@ Entry points:
   loss(params, tokens, labels)           → scalar
   logits(params, hidden)                 → logits
   prefill(params, tokens)                → (logits_last, kv_cache)
-  decode_step(params, token, cache, cache_len) → (logits, cache)
+  decode_step(params, token, cache, cache_len[, attend]) → (logits, cache)
   make_cache(batch, seq_len)             → zero kv_cache
 
 With ``act_spec`` (a PartitionSpec such as ``P("data", None, None)``)
@@ -50,7 +50,7 @@ the cache in place (the reference returns an updated copy) and returns it.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -172,11 +172,10 @@ class TransformerLM:
 
     # -- layer body -------------------------------------------------------------
 
-    def _attn(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
-              kv: Optional[Cache] = None, cache_len: int = 0
-              ) -> Tuple[torch.Tensor, Cache]:
-        """kv: this layer's (k_cache, v_cache) for decode, written in place
-        at ``cache_len``."""
+    def _qkv(self, p: Params, x: torch.Tensor, positions: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The layer's queries (B, S, H, hd) and keys and values
+        (B, S, KV, hd), RoPE applied."""
         cfg = self.cfg
         B, S, d = x.shape
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -194,20 +193,39 @@ class TransformerLM:
         v = v.reshape(B, S, KV, hd)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-        if kv is None:
-            o = L.blockwise_attention(q, k, v, causal=True)
-            new_kv = (k, v)
-        else:
-            k_cache, v_cache = kv
-            k_cache[:, cache_len:cache_len + S] = k.to(k_cache.dtype)
-            v_cache[:, cache_len:cache_len + S] = v.to(v_cache.dtype)
-            o = L.decode_attention(
-                q, k_cache.to(cd), v_cache.to(cd),
-                cache_len=torch.full((B,), cache_len + 1, dtype=torch.int32,
-                                     device=x.device))
-            new_kv = (k_cache, v_cache)
-        o = o.reshape(B, S, H * hd) @ p["wo"].to(cd)
-        return x + o, new_kv
+        return q, k, v
+
+    def _attn_out(self, p: Params, x: torch.Tensor,
+                  o: torch.Tensor) -> torch.Tensor:
+        """The residual stream after the output projection of attention
+        output ``o`` (B, S, H, hd)."""
+        B, S, _ = x.shape
+        o = o.reshape(B, S, -1) @ p["wo"].to(self.compute_dtype)
+        return x + o
+
+    def _attn(self, p: Params, x: torch.Tensor, positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, Cache]:
+        """Causal attention over the whole sequence: the residual stream
+        after it, and the layer's (k, v)."""
+        q, k, v = self._qkv(p, x, positions)
+        o = L.blockwise_attention(q, k, v, causal=True)
+        return self._attn_out(p, x, o), (k, v)
+
+    def _cache_attend(self, i: int, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, cache: Cache, cache_len: int
+                      ) -> torch.Tensor:
+        """Decode attention of layer ``i``: the new token's k, v written in
+        place into ``cache`` at ``cache_len``, then q against the cache's
+        first ``cache_len + 1`` positions."""
+        B, S = q.shape[:2]
+        cd = self.compute_dtype
+        k_cache, v_cache = cache[0][i], cache[1][i]
+        k_cache[:, cache_len:cache_len + S] = k.to(k_cache.dtype)
+        v_cache[:, cache_len:cache_len + S] = v.to(v_cache.dtype)
+        return L.decode_attention(
+            q, k_cache.to(cd), v_cache.to(cd),
+            cache_len=torch.full((B,), cache_len + 1, dtype=torch.int32,
+                                 device=q.device))
 
     def _mlp(self, p: Params, x: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -298,11 +316,13 @@ class TransformerLM:
         cfg = self.cfg
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        params = self._local(params)
         x = self._embed(params, tokens)
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
         ks = torch.empty(shape, dtype=torch.bfloat16, device=tokens.device)
         vs = torch.empty(shape, dtype=torch.bfloat16, device=tokens.device)
         for i, lp in enumerate(params["layers"]):
+            lp = self._local_layer(lp)
             x, (k, v) = self._attn(lp, x, positions)
             x, _ = self._mlp(lp, x)
             ks[i] = k.to(torch.bfloat16)
@@ -311,21 +331,27 @@ class TransformerLM:
         return self.logits(params, x[:, -1:]), (ks, vs)
 
     def decode_step(self, params: Params, token: torch.Tensor, cache: Cache,
-                    cache_len: int) -> Tuple[torch.Tensor, Cache]:
+                    cache_len: int, attend: Optional[Callable] = None
+                    ) -> Tuple[torch.Tensor, Cache]:
         """One-token decode. token: (B, 1); cache: (L, B, S, KV, hd) ×2,
-        written in place at position ``cache_len``."""
+        written in place at position ``cache_len``. ``attend(i, q, k, v,
+        cache, cache_len) → o`` replaces layer ``i``'s cache attention
+        (default :meth:`_cache_attend`): a cache laid out over a mesh
+        brings its own (``distrib.serving``)."""
         cfg = self.cfg
         B = token.shape[0]
         cache_len = int(cache_len)
+        attend = attend or self._cache_attend
         positions = torch.full((B, 1), cache_len, device=token.device)
+        params = self._local(params)
         x = self._embed(params, token)
-        ks, vs = cache
         for i, lp in enumerate(params["layers"]):
-            x, _ = self._attn(lp, x, positions, kv=(ks[i], vs[i]),
-                              cache_len=cache_len)
+            lp = self._local_layer(lp)
+            q, k, v = self._qkv(lp, x, positions)
+            x = self._attn_out(lp, x, attend(i, q, k, v, cache, cache_len))
             x, _ = self._mlp(lp, x)
         x = L.rms_norm(x, params["ln_f"].to(self.compute_dtype), cfg.rms_eps)
-        return self.logits(params, x), (ks, vs)
+        return self.logits(params, x), cache
 
     def make_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,
                    device="cuda") -> Cache:

@@ -164,15 +164,21 @@ def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
             home = mesh.device(homes[d])
             views = tree_map(lambda x: ShardView(x, homes[d], groups[d]),
                              state.params)
-            loss_d = None
+            losses = []
             for i in range(d * per, (d + 1) * per):
-                mb_loss = loss_fn(views, *tree_map(lambda x: x[i].to(home),
-                                                   split))
-                mb_loss.backward()
-                mb_loss = mb_loss.detach()
-                loss_d = mb_loss if loss_d is None else loss_d + mb_loss
-            loss_d = loss_d.to(dev0)
-            loss = loss_d if loss is None else loss + loss_d
+                with mesh.at(homes[d]):
+                    mb_loss = loss_fn(views, *tree_map(
+                        lambda x: x[i].to(home), split))
+                    # a send's backward moves the working position on
+                    mb_loss.backward()
+                losses.append(mb_loss.detach())
+            with mesh.at(homes[d]):
+                loss_d = losses[0]
+                for mb_loss in losses[1:]:
+                    loss_d = loss_d + mb_loss
+            with mesh.at(0):
+                loss_d = loss_d.to(dev0)
+                loss = loss_d if loss is None else loss + loss_d
             with span("grad_psum"):
                 for j, view in enumerate(tree_leaves(views)):
                     x = view.x
@@ -180,41 +186,48 @@ def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                         owner = x.layout.holders(block)[0]
                         if src != owner:
                             mesh.count("grad_psum",
-                                       g.numel() * g.element_size())
-                        g = g.to(mesh.device(owner))
-                        prev = sums[j].get(block)
-                        sums[j][block] = g if prev is None else prev + g
+                                       g.numel() * g.element_size(), to=owner)
+                        with mesh.at(owner):
+                            with mesh.moving():
+                                g = g.to(mesh.device(owner))
+                            prev = sums[j].get(block)
+                            sums[j][block] = g if prev is None else prev + g
             del views
-        loss = loss / microbatches
-        for blocks in sums:
-            for block in blocks:
-                blocks[block] = blocks[block] / microbatches
-
-        # the global norm in global_norm's order: whole leaves, in order
-        total = 0
+        with mesh.at(0):
+            loss = loss / microbatches
         for x, blocks in zip(leaves, sums):
-            parts = {}
-            for block, g in blocks.items():
-                if 0 not in x.layout.holders(block):
-                    mesh.count("norm_gather", g.numel() * g.element_size())
-                parts[block] = g
-            with span("norm_gather"):
-                whole = assemble(x.layout, parts, dev0, g.dtype)
-            total = total + torch.sum(torch.square(whole.float()))
-            del whole, parts
-        gnorm = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
-        scale = None
-        if tcfg.grad_clip > 0:
-            scale = torch.clamp(tcfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
-                                max=1.0)
+            for block in blocks:
+                with mesh.at(x.layout.holders(block)[0]):
+                    blocks[block] = blocks[block] / microbatches
 
-        step0 = state.opt.step.shards[0]
-        lr = warmup_cosine(step0, tcfg.learning_rate, tcfg.warmup_steps,
-                           tcfg.total_steps)
-        t = (step0 + 1).to(torch.float32)
-        bc1 = 1.0 - tcfg.b1 ** t
-        bc2 = 1.0 - tcfg.b2 ** t
-        lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
+        # position 0's own work: the global norm, the clip scale, lr
+        with mesh.at(0):
+            # the global norm in global_norm's order: whole leaves, in order
+            total = 0
+            for x, blocks in zip(leaves, sums):
+                parts = {}
+                for block, g in blocks.items():
+                    if 0 not in x.layout.holders(block):
+                        mesh.count("norm_gather",
+                                   g.numel() * g.element_size(), to=0)
+                    parts[block] = g
+                with span("norm_gather"), mesh.moving():
+                    whole = assemble(x.layout, parts, dev0, g.dtype)
+                total = total + torch.sum(torch.square(whole.float()))
+                del whole, parts
+            gnorm = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+            scale = None
+            if tcfg.grad_clip > 0:
+                scale = torch.clamp(
+                    tcfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
+
+            step0 = state.opt.step.shards[0]
+            lr = warmup_cosine(step0, tcfg.learning_rate, tcfg.warmup_steps,
+                               tcfg.total_steps)
+            t = (step0 + 1).to(torch.float32)
+            bc1 = 1.0 - tcfg.b1 ** t
+            bc2 = 1.0 - tcfg.b2 ** t
+            lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
         on = {}  # device → (lr, bc1, bc2, scale) there
 
         def consts(dev):
@@ -232,19 +245,27 @@ def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                 for block, g in sums[j].items():
                     holders = p.layout.holders(block)
                     if scale is not None:
-                        g = g * consts(g.device)[3].to(g.dtype)
+                        with mesh.at(holders[0]):
+                            g = g * consts(g.device)[3].to(g.dtype)
                     for pos in holders:
                         dev = mesh.device(pos)
                         if pos != holders[0]:
                             mesh.count("grad_send",
-                                       g.numel() * g.element_size())
-                        c_lr, c_bc1, c_bc2, _ = consts(dev)
-                        adamw_leaf(p.shards[pos], g.to(dev), m.shards[pos],
-                                   v.shards[pos], c_lr, c_bc1, c_bc2,
-                                   tcfg.b1, tcfg.b2, tcfg.eps, wd)
+                                       g.numel() * g.element_size(), to=pos)
+                        with mesh.at(pos):
+                            c_lr, c_bc1, c_bc2, _ = consts(dev)
+                            with mesh.moving():
+                                g_pos = g.to(dev)
+                            adamw_leaf(p.shards[pos], g_pos, m.shards[pos],
+                                       v.shards[pos], c_lr, c_bc1, c_bc2,
+                                       tcfg.b1, tcfg.b2, tcfg.eps, wd)
                 sums[j] = None
+        step_shards = []
+        for pos, s in enumerate(opt.step.shards):
+            with mesh.at(pos):
+                step_shards.append(s + 1)
         new_step = ShardedTensor(opt.step.layout, opt.step.dtype,
-                                 [s + 1 for s in opt.step.shards])
+                                 step_shards)
         return (TrainState(state.params, AdamWState(new_step, opt.m, opt.v)),
                 {"loss": loss, "grad_norm": gnorm, "lr": lr})
 

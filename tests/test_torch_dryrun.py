@@ -1,0 +1,244 @@
+"""The port's roofline and dry run (``launch/roofline.py``,
+``launch/dryrun.py``) on the CPU.
+
+The analytic model FLOPs and minimum bytes must equal the reference's
+(``repro.launch.roofline``) exactly on each of the 44 cells' published
+dims; ``roofline_terms`` takes the H100's rates. The reference's
+``repro.launch.dryrun`` is never imported: its first lines set
+``XLA_FLAGS``.
+
+The dry run of a reduced cell on a 2 × 2 meta mesh must count exactly
+what the same step counts when it runs on ``["cpu"] * 4`` with values:
+collective bytes by name and by receiving position, and per position the
+FLOPs, the op bytes and the peak of the storage the step creates. The
+concrete run is repeated under ``FlopCounterMode`` (``check_flops``), whose
+total must equal the tracker's FLOPs; the meta runs count each AdamW leaf
+update once per shape and charge the repeats (``Tracker.replay``, which
+takes ``train.state``'s ``adamw_leaf`` while the tracker runs), so the
+equality also checks that replay. On a mesh of more than one position the
+tracker refuses an op that runs outside every ``Mesh.at``.
+"""
+
+import contextlib
+import json
+
+import pytest
+import torch
+
+from repro_torch.config.registry import get_arch, list_archs
+from repro_torch.launch import dryrun
+from repro_torch.launch import roofline as RF
+from repro_torch.launch.mesh import Mesh
+
+torch.set_num_threads(1)
+
+CELLS = dryrun.cell_list()
+
+
+def _ref_meta(arch_id, shape):
+    """The reference cell's ``meta`` for the analytic models (the GNN
+    sizes padded as its cells pad them, the IGPM refresh's sizes)."""
+    from repro.launch.cells import _pad512, gnn_cell_sizes
+    from repro.config.registry import get_arch as rget
+    arch = rget(arch_id)
+    dims = shape.dims
+    if arch.family == "gnn":
+        n, e = gnn_cell_sizes(shape.name, dims, padded=True)
+        return {"n_nodes": n, "n_edges": e}
+    if arch.family == "igpm":
+        return {"n_nodes": dims["n_vertices"],
+                "n_edges": _pad512(2 * dims["n_edges"]),
+                "rwr_iters": arch.model.rwr_iters_incremental,
+                "n_labels": arch.model.n_labels}
+    return {}
+
+
+def test_cell_list_is_the_references():
+    assert len(CELLS) == 44
+    fams = [get_arch(a).family for a, _ in CELLS]
+    assert fams.count("lm") == 20 and fams.count("igpm") == 4
+    assert fams.count("gnn") == 16 and fams.count("recsys") == 4
+    assert sorted({a for a, _ in CELLS}) == list_archs()
+
+
+@pytest.mark.parametrize("arch_id,shape_name", CELLS,
+                         ids=[f"{a}-{s}" for a, s in CELLS])
+def test_analytic_models_equal_the_references(arch_id, shape_name):
+    from repro.config.registry import get_arch as rget
+    from repro.launch import roofline as R
+    arch, rarch = get_arch(arch_id), rget(arch_id)
+    shape, rshape = arch.shape(shape_name), rarch.shape(shape_name)
+    meta = _ref_meta(arch_id, rshape)
+    got = RF.analytic_model_flops(arch, shape, meta)
+    want = R.analytic_model_flops(rarch, rshape, meta)
+    assert got == want and got > 0
+    assert RF.analytic_memory_bytes(arch, shape, meta) == \
+        R.analytic_memory_bytes(rarch, rshape, meta)
+    assert RF.remat_multiplier(arch, shape.kind) == \
+        R.remat_multiplier(rarch, rshape.kind)
+    if arch.family == "lm":
+        for kind in ("train", "prefill", "decode"):
+            assert RF.lm_model_flops(arch.model, kind, 3, 17) == \
+                R.lm_model_flops(rarch.model, kind, 3, 17)
+    if arch.family == "igpm":
+        assert meta["n_edges"] % 512 == 0
+
+
+@pytest.mark.parametrize("case", ["compute", "memory", "collective",
+                                  "analytic_floor", "analytic_memory"])
+def test_roofline_terms_on_the_h100(case):
+    """One second of each resource at the H100's data-sheet rates; the
+    analytic FLOPs floor the counted ones, the analytic bytes replace the
+    op-level ones."""
+    peak, hbm, link = 989e12, 3.35e12, 450e9
+    if case == "compute":
+        t = RF.roofline_terms(peak, 0, 0)
+        assert t["dominant"] == "compute" and abs(t["compute_s"] - 1) < 1e-12
+    elif case == "memory":
+        t = RF.roofline_terms(0, hbm, 0)
+        assert t["dominant"] == "memory" and abs(t["memory_s"] - 1) < 1e-12
+    elif case == "collective":
+        t = RF.roofline_terms(0, 0, link)
+        assert t["dominant"] == "collective"
+        assert abs(t["collective_s"] - 1) < 1e-12
+    elif case == "analytic_floor":
+        t = RF.roofline_terms(1.0, 0, 0, analytic_flops_per_chip=peak)
+        assert abs(t["compute_s"] - 1) < 1e-12 and t["compute_s_hlo"] < 1e-12
+    else:
+        t = RF.roofline_terms(0, 2 * hbm, 0, analytic_mem_per_chip=hbm)
+        assert abs(t["memory_s"] - 1) < 1e-12
+        assert abs(t["memory_s_oplevel"] - 2) < 1e-12
+    assert t["roofline_s"] == max(t["compute_s"], t["memory_s"],
+                                  t["collective_s"])
+    assert set(t) == {"compute_s", "compute_s_hlo", "memory_s",
+                      "memory_s_oplevel", "collective_s", "dominant",
+                      "roofline_s", "compute_fraction"}
+
+
+RUNS = [("qwen3-moe-30b-a3b", "train_4k"), ("qwen3-moe-30b-a3b", "prefill_32k"),
+        ("qwen3-moe-30b-a3b", "decode_32k"), ("smollm-135m", "long_500k"),
+        ("deepseek-7b", "train_4k"), ("igpm-pem", "friends2008")]
+
+
+@pytest.mark.parametrize("arch_id,shape_name", RUNS,
+                         ids=[f"{a}-{s}" for a, s in RUNS])
+def test_meta_run_counts_what_a_concrete_run_counts(arch_id, shape_name):
+    recs = []
+    for dev, check in (("meta", False), ("cpu", False), ("cpu", True)):
+        mesh = Mesh((2, 2), ("data", "model"), [dev] * 4)
+        recs.append(dryrun.run_cell(arch_id, shape_name, smoke=True,
+                                    mesh=mesh, concrete=dev == "cpu",
+                                    check_flops=check))
+    meta, conc, counted = recs
+    assert meta["collectives"] == conc["collectives"]
+    assert meta["collectives"], "the step moved nothing between positions"
+    for key in ("flops", "op_bytes", "temp_peak_bytes", "output_bytes",
+                "argument_bytes", "collective_bytes_received"):
+        assert meta["per_position"][key] == conc["per_position"][key], key
+    # FlopCounterMode's own total (it decomposes some ops, so its run is
+    # held on FLOPs only)
+    assert counted["cost"]["flop_counter_total"] == \
+        counted["cost"]["flops_total"] == conc["cost"]["flops_total"]
+    if shape_name == "train_4k":
+        assert meta["cost"]["replayed_calls"] > 0
+    # the IGPM sweep's index_add_ counts one FLOP per message
+    assert meta["cost"]["flops_total"] > 0
+
+
+@pytest.mark.parametrize("where", ["outside", "inside", "one-position"])
+def test_tracker_refuses_an_op_outside_every_position(where):
+    mesh = Mesh((1, 1) if where == "one-position" else (2, 2),
+                ("data", "model"), ["meta"] * (1 if where == "one-position"
+                                               else 4))
+    x = torch.empty((8, 8), device="meta")
+    tracker = dryrun.Tracker(mesh)
+    with tracker:
+        if where == "outside":
+            with pytest.raises(RuntimeError, match="outside every Mesh.at"):
+                x @ x
+            return
+        with (mesh.at(3) if where == "inside" else contextlib.nullcontext()):
+            x @ x
+    pos = 3 if where == "inside" else 0
+    assert tracker.flops[pos] == 2 * 8 ** 3 == sum(tracker.flops)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_meta_run_counts_the_recompute(remat, monkeypatch):
+    """The reduced MoE config trained with the published configs' remat
+    policies: the meta run counts the recompute as the concrete run does,
+    and the counted FLOPs grow by it."""
+    from repro_torch.config import registry
+    arch = get_arch("qwen3-moe-30b-a3b", smoke=True).replace_model(
+        remat=remat)
+    name = f"qwen3-moe-smoke-remat-{remat}"
+    monkeypatch.setitem(registry._REGISTERED, name, lambda: arch)
+    monkeypatch.setitem(registry._REGISTERED_SMOKE, name, lambda: arch)
+    recs = []
+    for dev in ("meta", "cpu"):
+        mesh = Mesh((2, 2), ("data", "model"), [dev] * 4)
+        recs.append(dryrun.run_cell(name, "train_4k", smoke=True, mesh=mesh,
+                                    concrete=dev == "cpu"))
+    meta, conc = recs
+    for key in ("flops", "op_bytes", "temp_peak_bytes"):
+        assert meta["per_position"][key] == conc["per_position"][key], key
+    plain = dryrun.run_cell("qwen3-moe-30b-a3b", "train_4k", smoke=True,
+                            mesh=Mesh((2, 2), ("data", "model"),
+                                      ["meta"] * 4))
+    assert meta["cost"]["flops_total"] > plain["cost"]["flops_total"]
+    assert meta["model_flops_ratio"] == {"full": 0.75, "dots": 0.8571}[remat]
+
+
+def test_record_keys():
+    mesh = Mesh((2, 2), ("data", "model"), ["meta"] * 4)
+    rec = dryrun.run_cell("qwen3-moe-30b-a3b", "train_4k", smoke=True,
+                          mesh=mesh)
+    for key in ("arch", "shape", "kind", "mesh", "n_chips", "meta",
+                "memory", "cost", "collectives", "collective_bytes_per_chip",
+                "analytic_memory_bytes_total", "roofline",
+                "model_flops_total", "model_flops_ratio", "run_s",
+                "per_position", "per_chip"):
+        assert key in rec, key
+    for key in ("argument_bytes", "output_bytes", "temp_bytes",
+                "peak_per_chip_gb"):
+        assert key in rec["memory"]
+    assert set(rec["cost"]) >= {"flops_per_chip", "bytes_per_chip"}
+    assert rec["kind"] == "train" and rec["n_chips"] == 4
+    # the step updates the state in place: its outputs are the metrics,
+    # the state counts as aliased arguments, not as new storage
+    assert rec["memory"]["output_bytes"] <= 16
+    assert rec["memory"]["alias_bytes"] > rec["memory"]["argument_bytes"]
+    assert rec["model_flops_ratio"] == 1.0     # the SMOKE config: no remat
+    pp = rec["per_position"]
+    assert rec["cost"]["flops_per_chip"] == max(pp["flops"])
+    assert rec["collective_bytes_per_chip"] == \
+        max(pp["collective_bytes_received"])
+    assert sum(rec["collectives"].values()) == \
+        sum(pp["collective_bytes_received"])
+    assert "busiest" in rec["per_chip"]
+    json.dumps(rec)
+
+
+def test_all_lists_the_pending_cells_and_exits_0(tmp_path, capsys):
+    rc = dryrun.main(["--all", "--smoke", "--mesh", "2x2", "--out",
+                      str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "20 cells pending" in out and "24 dry-run cells ran OK" in out
+    recs = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
+    pending = [r for r in recs if "pending" in r]
+    assert len(recs) == 44 and len(pending) == 20
+    assert {r["pending"] for r in pending} == set(dryrun.PENDING.values())
+    assert all("roofline" in r for r in recs if "pending" not in r)
+
+
+def test_a_cell_that_raises_exits_1(tmp_path, monkeypatch, capsys):
+    def boom(*a, **k):
+        raise RuntimeError("no step")
+    monkeypatch.setattr(dryrun, "run_cell", boom)
+    rc = dryrun.main(["--arch", "igpm-pem", "--shape", "friends2008",
+                      "--smoke", "--mesh", "2x2", "--out", str(tmp_path)])
+    assert rc == 1 and "1 FAILURES" in capsys.readouterr().out
+    # a pending cell is listed, not run, and fails nothing
+    assert dryrun.main(["--arch", "bst", "--shape", "serve_p99", "--smoke",
+                        "--out", str(tmp_path)]) == 0
