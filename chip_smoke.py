@@ -356,12 +356,26 @@ BST_AGREE_TOL = 1e-5
 BST_REPS = 20          # serve-bst warm calls per shape
 BST_TRAIN_STEPS = 3    # train-bst steps per run (two runs, bitwise)
 # train-gnn: (arch, cell) at FULL widths and the published cell sizes;
-# ogb_products (61,859,328 arcs) waits for edge sharding (ROADMAP 13.5)
+# ogb_products (61,859,328 arcs) runs in the dry run only: MeshGraphNet's
+# edge-MLP input alone is 47.5 GB a layer, more than one card holds
+# (ROADMAP item 5)
 GNN_TRAIN_CELLS = (("schnet", "minibatch_lg"), ("schnet", "molecule"),
                    ("dimenet", "minibatch_lg"), ("dimenet", "molecule"),
                    ("meshgraphnet", "minibatch_lg"),
                    ("graphcast", "minibatch_lg"))
 GNN_TRAIN_STEPS = 3    # per run (two runs, bitwise)
+# train-sharded-gnn: the four GNNs of train-gnn on minibatch_lg over a 2 × 2
+# mesh, the edge arrays in 2 blocks. The blocks' bf16 partial sums fold in
+# block order where one card adds every edge in one serial sum, so each fold
+# on the path to the loss may move it by one more bf16 rounding: step 0's
+# loss is held to FOLDS[kind] · 2^-7 (one bf16 ulp, relative, per fold: one
+# per layer, DimeNet's triplet scatter per block plus its output sum),
+# written before the first card run
+GNN_FOLDS = {"schnet": 3, "dimenet": 7, "meshgraphnet": 15, "graphcast": 16}
+GNN_FOLD_ULP = 2.0 ** -7
+# train-sharded-bst: the mesh's serve outputs against one card's, as a share
+# of the largest |value| (f32: a row subset may take another GEMM kernel)
+BST_MESH_TOL = 1e-5
 # LSE of the forward kernels against a plain logsumexp (f32 statistics)
 LSE_RTOL, LSE_ATOL = 1e-5, 1e-4
 REPS = 20          # timed launches per kernel measurement
@@ -3918,6 +3932,267 @@ def phase_train_gnn(profile: bool = False):
 
 
 
+def mesh_train_run(cell, steps: int, fresh_state, mesh, prof=None):
+    """``steps`` steps of a placed cell's sharded step from ``cell.args``
+    and, with ``fresh_state``, the same steps again from
+    ``fresh_state()``: per run the losses, grad norms, step seconds, and
+    the collective bytes of each step; the peak memory and the bytes each
+    position stores after the first run. Under ``--profile`` step 1 of the
+    first run is profiled."""
+    import torch
+    from repro_torch.distrib.sharding import position_bytes
+    state, batch = cell.args
+    runs, peak, held = [], None, None
+    for run in range(2 if fresh_state else 1):
+        if run:
+            del state
+            torch.cuda.empty_cache()
+            state = fresh_state()
+        else:
+            torch.cuda.reset_peak_memory_stats()
+        losses, gnorms, secs, coll = [], [], [], []
+        for i in range(steps):
+            mesh.reset_bytes()
+            t0 = time.perf_counter()
+            if run == 0 and prof is not None:
+                state, m = prof.step(i, lambda: cell.step_fn(state, batch))
+            else:
+                state, m = cell.step_fn(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            coll.append(dict(mesh.bytes))
+        if peak is None:
+            peak = torch.cuda.max_memory_allocated()
+            held = position_bytes(state)
+        runs.append((losses, gnorms, secs, coll))
+    return state, runs, peak, held
+
+
+def phase_train_sharded_gnn(train_gnn: dict, profile: bool = False):
+    """The four GNNs of train-gnn (``FULL`` widths, bf16 message passing,
+    f32 masters) on minibatch_lg (N 169,984, E 168,960; DimeNet's
+    1,351,680 triplets; GraphCast's 245,760 mesh arcs) trained by the
+    cells' edge-sharded step: the edge arrays split over "data". On a 2 ×
+    2 mesh (``cuda:0`` × 4 on one card) ``GNN_TRAIN_STEPS`` steps, then
+    the same steps from the seed, which must repeat bitwise; step 0's loss
+    within ``GNN_FOLDS[kind] · GNN_FOLD_ULP`` of train-gnn's one-card loss
+    (an inf grad norm on both sides agrees, a NaN is a fault). On a (1, 2)
+    mesh, one edge block: losses and grad norms bitwise train-gnn's.
+    Bytes per collective, step s, arcs/s and the peak are printed; launch
+    counts set to 0 before and read after."""
+    import math
+    import torch
+    from repro_torch.config.registry import get_arch
+    from repro_torch.distrib.sharding import state_specs_like
+    from repro_torch.launch.cells import gnn_cell
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.gnn.graphcast import mesh_sizes
+    from repro_torch.train.state import new_sharded_train_state
+    t_phase = time.perf_counter()
+    devices, how = smoke_mesh()
+    reset_all_counts()
+    out = {}
+    for kind in GNN_KINDS:
+        arch = get_arch(kind)
+        one = train_gnn[f"{kind}/minibatch_lg"]
+        res = {}
+        for shape in ((2, 2), (1, 2)):
+            mesh = Mesh(shape, ("data", "model"),
+                        devices[:shape[0] * shape[1]])
+            t0 = time.perf_counter()
+            cell = gnn_cell(arch, "minibatch_lg", "cuda", mesh=mesh)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            d_feat = cell.args[1].node_feat.shape[1]
+            specs = cell.in_shardings[0]
+
+            def fresh(cell=cell, mesh=mesh, specs=specs):
+                return new_sharded_train_state(cell.model.init(
+                    torch.Generator(device="cuda").manual_seed(0),
+                    d_feat=d_feat), mesh, specs)
+
+            mesh2 = shape == (2, 2)
+            state, runs, peak, held = mesh_train_run(
+                cell, GNN_TRAIN_STEPS, fresh if mesh2 else None, mesh,
+                StepProfiler(profile and mesh2,
+                             f"train-sharded-gnn {kind}"))
+            res[shape] = dict(runs=runs, peak=peak, held=held,
+                              build_s=build_s)
+            del cell, state
+            torch.cuda.empty_cache()
+        (l1, g1, s1, c1), (l2, g2, s2, _) = res[(2, 2)]["runs"]
+        (lo, go, so, co), = res[(1, 2)]["runs"]
+        arcs = one["arcs"]
+        same = (l1 == l2) and (g1 == g2)
+        one_block = (lo == one["losses"]) and (go == one["grad_norm"])
+        bound = GNN_FOLDS[kind] * GNN_FOLD_ULP
+        rel = abs(l1[0] - one["losses"][0]) / abs(one["losses"][0])
+        norm_ok = (math.isinf(g1[0]) and math.isinf(one["grad_norm"][0])) \
+            or (math.isfinite(g1[0]) and math.isfinite(one["grad_norm"][0]))
+        warm = s1[1:] + s2[1:]
+        say(f"  train-sharded-gnn {kind}/minibatch_lg on 2 x 2 ({how}): "
+            f"losses {l1} grad norms {g1}; second run bitwise equal: "
+            f"{same}; step 0 loss against one card's {one['losses'][0]!r}: "
+            f"relative {rel:.3e}, {rel / bound:.3f} of the bound "
+            f"{bound:.4f} ({GNN_FOLDS[kind]} folds x 2^-7); steps "
+            f"{[f'{x:.4f}' for x in s1]} then {[f'{x:.4f}' for x in s2]} s "
+            f"({arcs / min(warm):.1f} arcs/s at the fastest warm step; one "
+            f"card {max(one['arcs_per_s']):.1f}); peak "
+            f"{res[(2, 2)]['peak']} B; bytes per position "
+            f"{res[(2, 2)]['held']}; collective bytes per step {c1[0]}; "
+            f"cell built in {res[(2, 2)]['build_s']:.2f} s")
+        say(f"  train-sharded-gnn {kind}/minibatch_lg on 1 x 2 (one edge "
+            f"block): losses {lo} grad norms {go}; bitwise train-gnn's: "
+            f"{one_block}; steps {[f'{x:.4f}' for x in so]} s; collective "
+            f"bytes per step {co[0]}")
+        check(all(map(math.isfinite, l1))
+              and not any(map(math.isnan, g1 + go)),
+              f"train-sharded-gnn {kind}: losses {l1} grad norms {g1} {go}")
+        check(same, f"train-sharded-gnn {kind}: the second run gave losses "
+                    f"{l2} grad norms {g2}, the first {l1} {g1}")
+        check(rel <= bound, f"train-sharded-gnn {kind}: step 0 loss "
+                            f"{l1[0]!r} is {rel:.3e} from one card's "
+                            f"{one['losses'][0]!r} (bound {bound:.4f})")
+        check(norm_ok, f"train-sharded-gnn {kind}: grad norm {g1[0]!r}, "
+                       f"one card {one['grad_norm'][0]!r}")
+        check(one_block, f"train-sharded-gnn {kind}: one edge block gave "
+                         f"losses {lo} grad norms {go}, one card "
+                         f"{one['losses']} {one['grad_norm']}")
+        out[kind] = dict(
+            losses=l1, grad_norm=g1, loss_rel=rel, bound=bound,
+            bound_used=rel / bound, bitwise_repeat=same,
+            one_block_bitwise=one_block, step_s=s1 + s2,
+            arcs_per_s=[arcs / dt for dt in s1 + s2],
+            peak_bytes=res[(2, 2)]["peak"],
+            position_bytes=res[(2, 2)]["held"], collective_bytes=c1[0],
+            one_block_step_s=so)
+    counts = read_all_counts()
+    check_no_launches(counts, "train-sharded-gnn")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase train-sharded-gnn: {out['phase_s']:.1f} s wall; launches "
+        f"{counts}")
+    return out
+
+
+def phase_train_sharded_bst(profile: bool = False):
+    """BST ``FULL`` at train_batch's published batch (65,536 users) on a 2
+    × 2 mesh (``cuda:0`` × 4 on one card) under the reference's training
+    rules: the item table's rows split over "model", looked up where they
+    lie. ``BST_TRAIN_STEPS`` steps of the cell's sharded step (one
+    microbatch per batch shard): losses, grad norms and every leaf's
+    digest bitwise ``make_train_step(model.loss, TrainConfig(),
+    microbatches=2)`` on one card; no ``all_gather`` byte of the item
+    table. Then serve_p99, serve_bulk and retrieval_cand on the mesh
+    (serving replicates the item table): within ``BST_MESH_TOL`` of one
+    card's outputs, each repeating bitwise, p50 over ``BST_REPS`` warm
+    calls. Launch counts set to 0 before and read after."""
+    import math
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.config.registry import get_arch
+    from repro_torch.launch.cells import bst_cell
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.state import make_train_step
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = get_arch("bst")
+    cfg = arch.model
+    devices, how = smoke_mesh()
+    reset_all_counts()
+    # one card, two microbatches
+    cell = bst_cell(arch, "train_batch", "cuda")
+    B = cell.meta["batch"]
+    step = make_train_step(cell.model.loss, TrainConfig(), microbatches=2)
+    state, batch = cell.args
+    one_l, one_g, one_s = [], [], []
+    for _ in range(BST_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+        one_l.append(float(m["loss"]))
+        one_g.append(float(m["grad_norm"]))
+    one_d = state_digests(state)
+    del cell, state, batch, step
+    torch.cuda.empty_cache()
+    # the 2 x 2 mesh
+    mesh = Mesh((2, 2), ("data", "model"), devices[:4])
+    cell = bst_cell(arch, "train_batch", "cuda", mesh=mesh)
+    state, runs, peak, held = mesh_train_run(
+        cell, BST_TRAIN_STEPS, None, mesh,
+        StepProfiler(profile, "train-sharded-bst"))
+    (ml, mg, ms, mc), = runs
+    mesh_d = state_digests(state)
+    del cell, state
+    torch.cuda.empty_cache()
+    table = cfg.n_items * cfg.embed_dim * 4
+    emb = {k: v for k, v in mc[0].items() if k.startswith("emb_")}
+    same = (ml == one_l) and (mg == one_g) and (mesh_d == one_d)
+    for i, (loss, gn, dt) in enumerate(zip(ml, mg, ms)):
+        say(f"  train-sharded-bst step {i} on 2 x 2 ({how}): loss {loss!r} "
+            f"grad_norm {gn!r} step {dt:.4f} s ({B / dt:.1f} samples/s; "
+            f"one card at 2 microbatches {one_s[i]:.4f} s); collective "
+            f"bytes {mc[i]}")
+    say(f"  train-sharded-bst: emb_* bytes per step {emb} "
+        f"({sum(emb.values())} B) against {table} B that gathering the "
+        f"item table whole would move to each of 2 homes; bytes each "
+        f"position stores {held}; peak {peak} B; losses, grad norms and "
+        f"{len(one_d)} leaf digests bitwise one card's at 2 microbatches: "
+        f"{same}")
+    check(all(map(math.isfinite, ml + mg)), f"train-sharded-bst: {ml} {mg}")
+    check(same, f"train-sharded-bst: the mesh gave losses {ml} grad norms "
+                f"{mg}, one card {one_l} {one_g}; leaf digests equal: "
+                f"{mesh_d == one_d}")
+    gathered = mc[0].get("all_gather", 0)
+    check(0 < gathered < table, f"train-sharded-bst: all_gather moved "
+                                f"{gathered} B, the item table is {table} B")
+    out = dict(batch=B, losses=ml, grad_norm=mg, step_s=ms, one_card_s=one_s,
+               bitwise=same, emb_bytes=emb, table_bytes=table,
+               collective_bytes=mc[0], position_bytes=held, peak_bytes=peak)
+    # serving on the mesh against one card
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        ys = {}
+        for where in ("card", "mesh"):
+            mesh = (Mesh((2, 2), ("data", "model"), devices[:4])
+                    if where == "mesh" else None)
+            cell = bst_cell(arch, shape, "cuda", mesh=mesh)
+            got = {}
+
+            def call():
+                with torch.no_grad():
+                    got["y"] = cell.step_fn(*cell.args)
+
+            call()
+            first = got["y"].clone()
+            moved = dict(mesh.bytes) if mesh is not None else {}
+            secs = timed_calls(call, BST_REPS)
+            ys[where] = (first, got.pop("y"), ms_stats(secs), moved)
+            del cell
+            torch.cuda.empty_cache()
+        (a, a2, sa, _), (b, b2, sb, cb) = ys["card"], ys["mesh"]
+        err = float((a - b).abs().max())
+        top = float(a.abs().max())
+        repeat = torch.equal(b, b2) and torch.equal(a, a2)
+        say(f"  train-sharded-bst {shape} on 2 x 2: p50 {sb['p50']:.4f} ms "
+            f"(one card {sa['p50']:.4f} ms); largest difference from one "
+            f"card {err:.3e} of largest |value| {top:.4e} "
+            f"({err / (BST_MESH_TOL * top):.3f} of the bound); repeats "
+            f"bitwise: {repeat}; collective bytes of one call {cb}")
+        check(err <= BST_MESH_TOL * top,
+              f"train-sharded-bst {shape}: the mesh differs by {err:.3e}")
+        check(repeat, f"train-sharded-bst {shape}: a call did not repeat")
+        out[shape] = dict(p50_ms=sb["p50"], one_card_p50_ms=sa["p50"],
+                          max_abs=err, repeat_bitwise=repeat)
+    counts = read_all_counts()
+    check_no_launches(counts, "train-sharded-bst")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase train-sharded-bst: {out['phase_s']:.1f} s wall; launches "
+        f"{counts}")
+    return out
+
+
 # -- phase 18: LM serving on the device mesh ------------------------------------
 
 def logits_diff(got, want) -> dict:
@@ -4587,6 +4862,10 @@ def main(argv=None) -> int:
     gnn_agree = phase_gnn_agreement()
     say("phase train-gnn:")
     train_gnn = phase_train_gnn(args.profile)
+    say("phase train-sharded-gnn:")
+    train_sharded_gnn = phase_train_sharded_gnn(train_gnn, args.profile)
+    say("phase train-sharded-bst:")
+    train_sharded_bst = phase_train_sharded_bst(args.profile)
     serve = dict(inc_steps=inc_steps, batch_steps=batch_steps,
                  louvain_s=louvain_s, adaptive_steps=adapt_steps,
                  adaptive_louvain_s=adapt_louvain_s,
@@ -4598,6 +4877,8 @@ def main(argv=None) -> int:
                  train_agreement=train_agree, bst_agreement=bst_agree,
                  serve_bst=serve_bst, train_bst=train_bst,
                  gnn_agreement=gnn_agree, train_gnn=train_gnn,
+                 train_sharded_gnn=train_sharded_gnn,
+                 train_sharded_bst=train_sharded_bst,
                  serve_sharded_lm=serve_sharded_lm, igpm_cells=igpm_cells,
                  lse={lb: rows[("lse", lb)] for lb in
                       ("prefill", "hd40", "f32 hd16")},

@@ -7,7 +7,9 @@ copy or sum over the positions' tensors in a fixed order, with no float
 atomics: the results do not depend on how many devices the mesh names.
 Each one adds the bytes it moves between positions to ``mesh.bytes``
 under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
-``grad_psum``, ``grad_send``, ``norm_gather``, ``reshard``,
+``node_send``, ``user_send``, ``grad_psum``, ``grad_send``,
+``norm_gather``, ``reshard``, ``edge_psum``, ``edge_gather``,
+``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``,
 ``sparse_allreduce``, ``hierarchical_psum``), so a dry run can read the
 collective bytes from the mesh.
 The step's collectives (and its AdamW) also run under
@@ -20,8 +22,16 @@ the shards' storage). ``full()`` all-gathers them onto the batch shard's
 device; the gather's backward hands each block its slice of the gradient.
 ``blocks()`` leaves an expert weight where it lives (:class:`Blocks`):
 ``moe_block`` sends each expert shard's slice of the dispatch buffer there
-(:func:`send`) and brings the products back. With ``grad=False`` (the
-sharded serving steps) a view reads the shards as they are.
+(:func:`send`) and brings the products back. ``take_rows`` and
+``take_along_fields`` look rows up in a table split along its rows (BST's
+item table) or its vocab axis (its user tables) where the rows lie, so the
+table is never gathered whole. With ``grad=False`` (the sharded serving
+steps) a view reads the shards as they are.
+
+A graph whose edge arrays are split into blocks (the GNNs' edge sharding)
+folds its per-block partial sums in block order (:func:`edge_psum`), reads
+an edge table whole where it needs it (:func:`edge_gather`) and splits a
+scatter into the edge table back into its blocks (:func:`edge_scatter`).
 
 Each collective's copies run inside ``Mesh.moving()``, and a send's
 backward moves the working position (``Mesh.shift``) to where the
@@ -36,12 +46,14 @@ import torch
 
 from repro_torch.distrib.sharding import (Layout, ShardedTensor, assemble,
                                           entry_axes)
-from repro_torch.sparse.segment import segment_sum
+from repro_torch.sparse.segment import (from_end, segment_sum,
+                                       take_along_fields, take_rows)
 
 
-# profiler ranges of the sharded train step
-SPANS = ("all_gather", "all_gather_grad", "expert_send", "grad_psum",
-         "norm_gather", "adamw")
+# profiler ranges of the sharded train steps
+SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
+         "user_send", "grad_psum", "norm_gather", "adamw", "edge_psum",
+         "edge_gather", "edge_scatter", "emb_ids", "emb_rows", "emb_grad")
 span = torch.profiler.record_function
 
 
@@ -90,26 +102,27 @@ class _AllGather(torch.autograd.Function):
 
 class _Send(torch.autograd.Function):
     """A contiguous copy of ``x`` from position ``src`` to ``dst``; the
-    backward sends the gradient back."""
+    backward sends the gradient back. Both count under ``name``."""
 
     @staticmethod
-    def forward(ctx, x, mesh, src: int, dst: int):
+    def forward(ctx, x, mesh, src: int, dst: int, name: str):
         ctx.mesh, ctx.src, ctx.dst, ctx.device = mesh, src, dst, x.device
+        ctx.name = name
         if src != dst:
-            mesh.count("expert_send", _nbytes(x), to=dst)
-        with span("expert_send"), mesh.moving():
+            mesh.count(name, _nbytes(x), to=dst)
+        with span(name), mesh.moving():
             return torch.empty(x.shape, dtype=x.dtype,
                                device=mesh.device(dst)).copy_(x)
 
     @staticmethod
     def backward(ctx, grad):
         if ctx.src != ctx.dst:
-            ctx.mesh.count("expert_send", _nbytes(grad), to=ctx.src)
+            ctx.mesh.count(ctx.name, _nbytes(grad), to=ctx.src)
         ctx.mesh.shift(ctx.src)
-        with span("expert_send"), ctx.mesh.moving():
+        with span(ctx.name), ctx.mesh.moving():
             return (torch.empty(grad.shape, dtype=grad.dtype,
                                 device=ctx.device).copy_(grad),
-                    None, None, None)
+                    None, None, None, None)
 
 
 class _SendSlices(torch.autograd.Function):
@@ -159,10 +172,94 @@ def send_slices(x: torch.Tensor, mesh, src: int, dsts: Sequence[int],
     return _SendSlices.apply(x, mesh, src, tuple(dsts), tuple(sizes))
 
 
-def send(x: torch.Tensor, mesh, src: int, dst: int) -> torch.Tensor:
+def send(x: torch.Tensor, mesh, src: int, dst: int,
+         name: str = "expert_send") -> torch.Tensor:
     """``x`` (at position ``src``) copied, contiguous, to position
-    ``dst``'s device; differentiable."""
-    return _Send.apply(x, mesh, src, dst)
+    ``dst``'s device; differentiable; counted under ``name``."""
+    return _Send.apply(x, mesh, src, dst, name)
+
+
+class _Lookup(torch.autograd.Function):
+    """Rows of a table split into K equal blocks along ``dim`` (0: rows,
+    ``take_rows``; 1: the vocab axis of (F, V, e) tables,
+    ``take_along_fields``), looked up where they lie. The home sends the
+    ids to each block's holder (``emb_ids``); the holder gathers, for every
+    id, the row of its block at the id's offset there (clamped into the
+    block) and sends them back (``emb_rows``); the home keeps, for each id,
+    the row of the block that owns it — a select, never a sum, so a −0.0
+    row stays −0.0 — and an id outside ``[-n, n)`` gives a NaN row. The
+    backward sends each holder the gradient rows in the home's order
+    (``emb_grad``); the holder sums them by :func:`segment_sum` over the
+    ids' offsets in its block: the sorted accumulating ``index_put_`` (on
+    the CPU, ``index_add``) that the unsharded lookup's backward runs, over
+    the same rows in the same order. The ids of other blocks go to rows of
+    their own past the block, which are dropped: routed to one row they
+    would be that row's duplicates, which CUDA's sorted ``index_put_`` adds
+    one after another. Every id goes to every holder, so the traffic does
+    not depend on the ids' values and a meta run counts what a run with
+    values does."""
+
+    @staticmethod
+    def forward(ctx, mesh, home: int, dim: int, n: int, ids, sources,
+                *parts):
+        rows = parts[0].shape[dim]
+        j = from_end(ids, n)
+        ctx.mesh, ctx.home, ctx.dim, ctx.rows = mesh, home, dim, rows
+        ctx.sources = sources
+        ctx.devices = [p.device for p in parts]
+        ctx.part_shapes = [p.shape for p in parts]
+        ctx.shape = ids.shape
+        offsets, out = [], None
+        for k, (src, part) in enumerate(zip(sources, parts)):
+            with span("emb_ids"), mesh.at(src), mesh.moving():
+                if src != home:
+                    mesh.count("emb_ids", _nbytes(ids), to=src)
+                j_k = ids.to(part.device)
+            with mesh.at(src):
+                local = from_end(j_k, n) - k * rows
+                offsets.append(local)
+                at = local.clamp(0, rows - 1)
+                if dim == 0:
+                    r_k = part[at]
+                else:
+                    fields = torch.arange(part.shape[0],
+                                          device=part.device)[None, :]
+                    r_k = part[fields, at]
+            with span("emb_rows"), mesh.at(home), mesh.moving():
+                if src != home:
+                    mesh.count("emb_rows", _nbytes(r_k), to=home)
+                r_k = r_k.to(ids.device)
+            with mesh.at(home):
+                out = r_k if out is None else torch.where(
+                    (j // rows == k)[..., None], r_k, out)
+        with mesh.at(home):
+            valid = (j >= 0) & (j < n)
+            out = out.masked_fill(~valid[..., None], float("nan"))
+        ctx.offsets = offsets
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, rows, dim = ctx.mesh, ctx.rows, ctx.dim
+        flat = grad.reshape(-1, grad.shape[-1])
+        out = []
+        for src, dev, local in zip(ctx.sources, ctx.devices, ctx.offsets):
+            with span("emb_grad"), mesh.at(src), mesh.moving():
+                if src != ctx.home:
+                    mesh.count("emb_grad", _nbytes(flat), to=src)
+                g = flat.to(dev)
+            with mesh.at(src):
+                inside = (local >= 0) & (local < rows)
+                n = rows if dim == 0 else local.shape[-1] * rows
+                if dim == 1:
+                    fields = torch.arange(local.shape[-1], device=dev)
+                    local = fields * rows + local
+                spread = n + torch.arange(local.numel(), device=dev)
+                ids = torch.where(inside.reshape(-1), local.reshape(-1),
+                                  spread)
+                g = segment_sum(g, ids, n + local.numel())[:n]
+                out.append(g.reshape(ctx.part_shapes[len(out)]))
+        return (None, None, None, None, None, None, *out)
 
 
 class Blocks(NamedTuple):
@@ -220,12 +317,34 @@ class ShardView:
                       self.x.mesh)
 
     def grads(self):
-        """(block, source position, gradient) per block; zeros where the
+        """(block, source position, gradient) per block; ``None`` where the
         loss did not reach it."""
         for block, proxy in self.proxies.items():
-            g = proxy.grad
-            yield (block, self.sources[block],
-                   g if g is not None else torch.zeros_like(proxy))
+            yield block, self.sources[block], proxy.grad
+
+    def take_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """``sparse.segment.take_rows`` of the leaf at ``ids`` (at the
+        home), the rows looked up where they lie when the leaf is split
+        along its rows only; otherwise of the whole leaf."""
+        return self._lookup(ids, 0)
+
+    def take_along_fields(self, ids: torch.Tensor) -> torch.Tensor:
+        """``sparse.segment.take_along_fields`` of the (F, V, e) leaf at
+        ``ids`` (B, F), the rows looked up where they lie when the leaf is
+        split along V only; otherwise of the whole leaf."""
+        return self._lookup(ids, 1)
+
+    def _lookup(self, ids: torch.Tensor, dim: int) -> torch.Tensor:
+        lay = self.x.layout
+        if lay.counts[dim] == 1 or any(
+                c != 1 for i, c in enumerate(lay.counts) if i != dim):
+            whole = self.full()
+            return (take_rows(whole, ids) if dim == 0
+                    else take_along_fields(whole, ids))
+        order = sorted(self.proxies)
+        return _Lookup.apply(self.x.mesh, self.home, dim, lay.shape[dim],
+                             ids, tuple(self.sources[b] for b in order),
+                             *(self.proxies[b] for b in order))
 
 
 def local(x, experts: bool = False):
@@ -235,6 +354,146 @@ def local(x, experts: bool = False):
     if isinstance(x, ShardView):
         return x.blocks() if experts else x.full()
     return x
+
+
+# -- a graph's edge blocks (the GNNs' edge sharding) ---------------------------
+#
+# ``homes`` lists each edge block's home position in block order, position 0
+# first (``batch_groups``); block b of an (E, …) edge table is rows
+# b·E/B … (b+1)·E/B − 1. With one block every function hands its input back.
+
+def _gather_blocks(mesh, homes, blocks, name: str) -> List[torch.Tensor]:
+    """The whole table at each home: its blocks copied there and joined in
+    block order."""
+    out = []
+    for dst in homes:
+        dev = mesh.device(dst)
+        with span(name), mesh.at(dst), mesh.moving():
+            parts = []
+            for src, b in zip(homes, blocks):
+                if src != dst:
+                    mesh.count(name, _nbytes(b), to=dst)
+                parts.append(b.to(dev))
+            out.append(torch.cat(parts, dim=0))
+    return out
+
+
+def _reduce_scatter(mesh, homes, wholes, name: str) -> List[torch.Tensor]:
+    """Block b of the sum of ``wholes`` (one whole table per home) at
+    block b's home: the tables' slices added in block order there."""
+    n = wholes[0].shape[0] // len(homes)
+    out = []
+    for b, dst in enumerate(homes):
+        dev = mesh.device(dst)
+        total = None
+        for src, w in zip(homes, wholes):
+            part = w[b * n:(b + 1) * n]
+            if src != dst:
+                mesh.count(name, _nbytes(part), to=dst)
+            with span(name), mesh.at(dst), mesh.moving():
+                part = part.to(dev)
+            with mesh.at(dst):
+                total = part if total is None else total + part
+        out.append(total)
+    return out
+
+
+class _EdgePsum(torch.autograd.Function):
+    """The per-block partials added in block order at position 0; the
+    backward hands the gradient to every home."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, *partials):
+        ctx.mesh, ctx.homes = mesh, homes
+        ctx.devices = [p.device for p in partials]
+        dev0 = mesh.device(0)
+        total = partials[0]
+        for p in partials[1:]:
+            with span("edge_psum"), mesh.at(0), mesh.moving():
+                mesh.count("edge_psum", _nbytes(p), to=0)
+                p = p.to(dev0)
+            with mesh.at(0):
+                total = total + p
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, out = ctx.mesh, []
+        for h, dev in zip(ctx.homes, ctx.devices):
+            if h == 0:
+                out.append(grad)
+                continue
+            mesh.count("edge_psum", _nbytes(grad), to=h)
+            with span("edge_psum"), mesh.at(h), mesh.moving():
+                out.append(torch.empty(grad.shape, dtype=grad.dtype,
+                                       device=dev).copy_(grad))
+        return (None, None, *out)
+
+
+class _EdgeGather(torch.autograd.Function):
+    """An edge table's blocks → the whole table at each home; the backward
+    adds the homes' gradients of each block in home order at its home."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, *blocks):
+        ctx.mesh, ctx.homes = mesh, homes
+        return tuple(_gather_blocks(mesh, homes, blocks, "edge_gather"))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_reduce_scatter(ctx.mesh, ctx.homes, grads,
+                                             "edge_gather"))
+
+
+class _EdgeScatter(torch.autograd.Function):
+    """Per-home partial sums into the whole edge table → each block's slice
+    of their sum, added in block order at its home; the backward hands each
+    home the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, *partials):
+        ctx.mesh, ctx.homes = mesh, homes
+        return tuple(_reduce_scatter(mesh, homes, partials, "edge_scatter"))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_gather_blocks(ctx.mesh, ctx.homes, grads,
+                                            "edge_scatter"))
+
+
+def edge_psum(mesh, homes: Sequence[int],
+              partials: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One (n, …) partial sum per edge block, each at its home → their sum
+    at position 0, added in block order as :func:`_psum` adds (counted
+    under ``edge_psum``); differentiable. The reference's psum hands the
+    sum to every device, which then runs the node-level work; here that
+    work runs at position 0 and the node tables it makes go to the homes
+    by :func:`send` (``node_send``): the same bytes a layer."""
+    if len(partials) == 1:
+        return partials[0]
+    return _EdgePsum.apply(mesh, tuple(homes), *partials)
+
+
+def edge_gather(mesh, homes: Sequence[int],
+                blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """An edge table's blocks, each at its home → the whole table at every
+    home, joined in block order (``edge_gather``); differentiable: each
+    block's gradient is the sum, in home order, of its slices."""
+    if len(blocks) == 1:
+        return list(blocks)
+    return list(_EdgeGather.apply(mesh, tuple(homes), *blocks))
+
+
+def edge_scatter(mesh, homes: Sequence[int],
+                 partials: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """A scatter into the whole (E, …) edge table, one partial per home →
+    each block's slice of their sum at its home (``edge_scatter``). Each
+    slice adds the partials in block order, as folding them at position 0
+    and handing each block its slice would, with one hop fewer;
+    differentiable."""
+    if len(partials) == 1:
+        return list(partials)
+    return list(_EdgeScatter.apply(mesh, tuple(homes), *partials))
 
 
 # -- the reference's collectives, over per-position tensors -------------------

@@ -30,6 +30,11 @@ slice's unnormalised (m, l, o), and adds the partials back at the home
 0 (``logits_gather``). The split attention sums in another order than
 ``decode_attention``, so decode logits differ from one device's by
 rounding; with one batch shard the prefill is one device's bit for bit.
+
+BST's serve cells (:func:`make_sharded_click`, :func:`make_sharded_retrieval`)
+take the same single-controller shape: the forward per batch shard at its
+home, or the candidates per block at theirs, the outputs joined at
+position 0.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distrib.collectives import ShardView, batch_groups
+from repro_torch.distrib.collectives import ShardView, batch_groups, send
 from repro_torch.distrib.sharding import (Layout, ShardedTensor, device_put,
                                           map_with_specs)
 from repro_torch.models import layers as L
@@ -216,3 +221,56 @@ def make_sharded_decode(model, mesh, batch_spec) -> Callable:
             return _to_position_0(mesh, outs, homes), cache
 
     return decode
+
+
+def make_sharded_click(model, mesh, batch_spec) -> Callable:
+    """BST's ``serve(params, inputs)`` over ``mesh`` (``models.recsys.bst``):
+    batch shard d's rows through ``model.forward`` at its home, the
+    parameters read through ``ShardView`` s (the replicated item table
+    where it is, the user tables' rows where they lie, ``mlp_w0``
+    gathered), the sigmoid there, the probabilities joined in batch order
+    at position 0."""
+    homes, groups = batch_groups(mesh, batch_spec[0])
+    D = len(homes)
+
+    def serve(params, inputs):
+        parts = []
+        with torch.no_grad():
+            for d, (h, grp) in enumerate(zip(homes, groups)):
+                with mesh.at(h):
+                    mine = tree_map(lambda x: x.reshape(
+                        (D, -1) + tuple(x.shape[1:]))[d].to(
+                            mesh.device(h)), inputs)
+                    parts.append(torch.sigmoid(model.forward(
+                        _views(params, h, grp), mine)))
+            return _to_position_0(mesh, parts, homes)
+
+    return serve
+
+
+def make_sharded_retrieval(model, mesh, cand_spec) -> Callable:
+    """BST's ``retrieval(params, inputs, cand_items, cand_cates)`` over
+    ``mesh``: the user representation (B = 1) at position 0, sent to each
+    candidate block's home (``user_send``), which scores its block of
+    candidates; the (B, C) scores joined in block order at position 0."""
+    homes, groups = batch_groups(mesh, cand_spec[0])
+    D = len(homes)
+
+    def retrieval(params, inputs, cand_items, cand_cates):
+        parts = []
+        with torch.no_grad():
+            with mesh.at(0):
+                user = model.user_repr(_views(params, 0, groups[0]),
+                                       tree_map(lambda x: x.to(
+                                           mesh.device(0)), inputs))
+            for d, (h, grp) in enumerate(zip(homes, groups)):
+                with mesh.at(h):
+                    u = send(user, mesh, 0, h, "user_send")
+                    ci, cc = (c.reshape(D, -1)[d].to(mesh.device(h))
+                              for c in (cand_items, cand_cates))
+                    parts.append(model.candidate_scores(
+                        _views(params, h, grp), u, ci, cc))
+            # the scores (B, C/D) joined along the candidates
+            return _to_position_0(mesh, [p.T for p in parts], homes).T
+
+    return retrieval

@@ -14,17 +14,17 @@ reference's reduced dims; ``smoke=False`` the shape's published dims, with
 edge counts and ``retrieval_cand``'s candidates padded to a multiple of
 512 as the reference pads them.
 
-LM and IGPM cells: with ``concrete=False`` the arguments are meta
-tensors (the reference's ``ShapeDtypeStruct`` stand-ins: shapes and
-dtypes, nothing allocated), which :func:`input_specs` returns. With a
-``mesh`` every cell carries its spec tree (``in_shardings``); concrete
-arguments, or meta ones on a meta mesh (``["meta"] * 256``, the dry
-run's), are placed on it by those specs and the step is the sharded one:
-the train step ``train.state.make_sharded_train_step``, prefill and
-decode ``distrib.serving``'s, the IGPM refresh ``core.rwr.label_rwr``
-over the graph's arc blocks. The GNN and BST cells are concrete
-only, on one device (their shardings are ROADMAP 13.5 part 2, items 3
-and 4).
+With ``concrete=False`` the arguments are meta tensors (the reference's
+``ShapeDtypeStruct`` stand-ins: shapes and dtypes, nothing allocated),
+which :func:`input_specs` returns. With a ``mesh`` every cell carries its
+spec tree (``in_shardings``, the reference cell's); concrete arguments, or
+meta ones on a meta mesh (``["meta"] * 256``, the dry run's), are placed
+on it by those specs and the step is the sharded one: the LM and BST
+train steps ``train.state.make_sharded_train_step``, the GNN train step
+``make_edge_sharded_train_step`` (the edge arrays split over the batch
+axes), prefill and decode ``distrib.serving``'s, BST serving per batch
+shard (retrieval per candidate block), the IGPM refresh
+``core.rwr.label_rwr`` over the graph's arc blocks.
 """
 
 from __future__ import annotations
@@ -41,18 +41,24 @@ from repro_torch.config.base import (ArchConfig, BSTConfig, GNNConfig,
 from repro_torch.core.graph import DynamicGraph
 from repro_torch.core.rwr import label_rwr
 from repro_torch.distrib.collectives import batch_groups
-from repro_torch.distrib.serving import (make_sharded_decode,
-                                         make_sharded_prefill, place_params)
+from repro_torch.distrib.serving import (make_sharded_click,
+                                         make_sharded_decode,
+                                         make_sharded_prefill,
+                                         make_sharded_retrieval,
+                                         place_params)
 from repro_torch.distrib.sharding import (P, ShardedTensor, batch_axes,
-                                          device_put, lm_cache_specs,
+                                          bst_param_specs, device_put,
+                                          gnn_param_specs, lm_cache_specs,
                                           lm_param_specs, map_with_specs,
                                           state_specs_like)
 from repro_torch.models.gnn.common import GraphInputs, make_model
 from repro_torch.models.gnn.graphcast import mesh_sizes
 from repro_torch.models.recsys.bst import BST, BSTInputs
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.optim.adamw import tree_map
 from repro_torch.sparse.ell import build_ell, ell_row_capacity
-from repro_torch.train.state import (make_sharded_train_step,
+from repro_torch.train.state import (make_edge_sharded_train_step,
+                                     make_sharded_train_step,
                                      make_train_step, new_sharded_train_state,
                                      new_train_state)
 
@@ -88,6 +94,18 @@ class ArgFactory:
         else:
             a = self.rng.standard_normal(shape).astype(dtype)
         return torch.from_numpy(a).to(self.device)
+
+
+def _factory(device, concrete: bool):
+    """``fac(shape, dtype, high)``: an :class:`ArgFactory` on ``device``,
+    or, with ``concrete=False``, meta tensors of that shape and dtype."""
+    if concrete:
+        return ArgFactory(device)
+
+    def fac(shape, dtype, high: int = 2) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.from_numpy(
+            np.zeros((), dtype)).dtype, device="meta")
+    return fac
 
 
 def _placed(mesh, concrete: bool) -> bool:
@@ -249,44 +267,65 @@ def gnn_cell_sizes(shape_name: str, dims: dict,
     return n, (pad512(e) if padded else e)
 
 
-def gnn_cell(arch: ArchConfig, shape_name: str, device="cuda",
+def gnn_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
+             multi_pod: bool = False, concrete: bool = True,
              smoke: bool = False) -> Cell:
-    """A GNN train cell: ``step_fn(state, inputs)`` is
-    ``make_train_step(model.loss, TrainConfig())``."""
+    """A GNN train cell: ``step_fn(state, inputs)``. The parameters are
+    replicated; with a mesh the senders and receivers (DimeNet's triplets
+    too, GraphCast's mesh arcs but not its grid↔mesh maps) split over the
+    batch axes, ``P(ba)``, and the node tables are replicated, as the
+    reference's cell lays them out. Placed, the step is
+    ``make_edge_sharded_train_step``; otherwise ``make_train_step(
+    model.loss, TrainConfig())``."""
     cfg: GNNConfig = arch.model
     shape = arch.shape(shape_name)
     dims = GNN_SMOKE_DIMS[shape.name] if smoke else shape.dims
     N, E = gnn_cell_sizes(shape.name, dims, padded=not smoke)
     d_feat = dims["d_feat"]
-    fac = ArgFactory(device)
+    ba = batch_axes(multi_pod)
+    fac = _factory(device, concrete)
     model = make_model(cfg)
 
     fields = {
-        "node_feat": fac((N, d_feat), np.float32),
-        "senders": fac((E,), np.int32, N),
-        "receivers": fac((E,), np.int32, N),
-        "targets": fac((N, cfg.d_out), np.float32),
+        "node_feat": (fac((N, d_feat), np.float32), P(None, None)),
+        "senders": (fac((E,), np.int32, N), P(ba)),
+        "receivers": (fac((E,), np.int32, N), P(ba)),
+        "targets": (fac((N, cfg.d_out), np.float32), P(None, None)),
     }
     if cfg.kind in ("schnet", "dimenet"):
-        fields["positions"] = fac((N, 3), np.float32)
+        fields["positions"] = (fac((N, 3), np.float32), P(None, None))
     if cfg.kind == "dimenet":
         T = E * cfg.triplets_per_edge
-        fields["trip_kj"] = fac((T,), np.int32, E)
-        fields["trip_ji"] = fac((T,), np.int32, E)
+        fields["trip_kj"] = (fac((T,), np.int32, E), P(ba))
+        fields["trip_ji"] = (fac((T,), np.int32, E), P(ba))
     if cfg.kind == "graphcast":
         msz = mesh_sizes(cfg.mesh_refinement)
-        # mesh arcs replace the data-graph arcs as senders/receivers
+        # mesh arcs replace the data-graph arcs as senders/receivers; the
+        # grid↔mesh maps are as long as the grid → replicated
         ma, mn = msz["mesh_arcs"], msz["mesh_nodes"]
-        fields["senders"] = fac((ma,), np.int32, mn)
-        fields["receivers"] = fac((ma,), np.int32, mn)
-        fields["trip_kj"] = fac((N * model.G2M,), np.int32, mn)
-        fields["trip_ji"] = fac((N * model.M2G,), np.int32, mn)
-    inputs = GraphInputs(**fields)
+        fields["senders"] = (fac((ma,), np.int32, mn), P(ba))
+        fields["receivers"] = (fac((ma,), np.int32, mn), P(ba))
+        fields["trip_kj"] = (fac((N * model.G2M,), np.int32, mn), P(None))
+        fields["trip_ji"] = (fac((N * model.M2G,), np.int32, mn), P(None))
+    inputs = GraphInputs(**{k: v[0] for k, v in fields.items()})
+    ispecs = GraphInputs(**{k: v[1] for k, v in fields.items()})
 
-    state = new_train_state(model.init(_generator(device), d_feat=d_feat))
-    step = make_train_step(model.loss, TCFG)
+    dev = torch.device(device) if concrete else torch.device("meta")
+    gen = _generator(dev) if concrete else torch.Generator().manual_seed(0)
+    params = model.init(gen, d_feat=d_feat, device=dev)
+    specs = state_specs_like(gnn_param_specs(params))
+    in_sh = None if mesh is None else (specs, ispecs)
+    if _placed(mesh, concrete):
+        inputs = tree_map(lambda x, s: device_put(x, mesh, s), inputs,
+                          ispecs)
+        state = new_sharded_train_state(params, mesh, specs)
+        step = make_edge_sharded_train_step(model.loss, TCFG, mesh, specs,
+                                            ispecs)
+    else:
+        state = new_train_state(params)
+        step = make_train_step(model.loss, TCFG)
     return Cell(arch.arch_id, shape.name, "train", model, step,
-                (state, inputs), {"n_nodes": N, "n_edges": E})
+                (state, inputs), {"n_nodes": N, "n_edges": E}, in_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -301,18 +340,34 @@ BST_SMOKE_DIMS = {
 }
 
 
-def bst_cell(arch: ArchConfig, shape_name: str, device="cuda",
+def bst_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
+             multi_pod: bool = False, concrete: bool = True,
              smoke: bool = False) -> Cell:
     """A BST cell: ``train_batch`` → ``step_fn(state, inputs)``, the train
     step; ``retrieval_cand`` → ``step_fn(params, inputs, cand_items,
     cand_cates)``, the (B, C) scores; the other serve shapes →
     ``step_fn(params, inputs)``, the click probabilities. The labels are
-    standard-normal draws, as the reference's (``fac((B,), f32)``)."""
+    standard-normal draws, as the reference's (``fac((B,), f32)``).
+
+    The specs are the reference's: training row-shards the item table over
+    "model" (``bst_param_specs``), serving replicates it; the batch splits
+    over the batch axes when B ≥ their production shard count (16, 32 with
+    ``multi_pod``), and ``retrieval_cand``'s candidates always do. Placed,
+    ``train_batch`` is ``make_sharded_train_step`` with one microbatch per
+    batch shard; a serve shape runs the forward per batch shard at its
+    home and joins the probabilities at position 0; ``retrieval_cand``
+    computes the user at position 0, sends it to each candidate block's
+    home, which scores its block, and joins the scores at position 0."""
     cfg: BSTConfig = arch.model
     shape = arch.shape(shape_name)
     dims = BST_SMOKE_DIMS[shape.name] if smoke else shape.dims
     B = dims["batch"]
-    fac = ArgFactory(device)
+    ba = batch_axes(multi_pod)
+    n_batch_shards = (2 * 16) if multi_pod else 16
+    wide = B >= n_batch_shards or mesh is None
+    b1 = P(ba) if wide else P(None)
+    b2 = P(ba, None) if wide else P(None, None)
+    fac = _factory(device, concrete)
     model = BST(cfg)
 
     inputs = BSTInputs(
@@ -322,26 +377,51 @@ def bst_cell(arch: ArchConfig, shape_name: str, device="cuda",
         target_cate=fac((B,), np.int32, cfg.n_cates),
         user_feats=fac((B, cfg.n_user_feats), np.int32, cfg.user_feat_vocab),
         labels=fac((B,), np.float32))
+    ispecs = BSTInputs(b2, b2, b1, b1, b2, b1)
 
-    params = model.init(_generator(device))
+    dev = torch.device(device) if concrete else torch.device("meta")
+    gen = _generator(dev) if concrete else torch.Generator().manual_seed(0)
+    params = model.init(gen, device=dev)
+    placed = _placed(mesh, concrete)
     if shape.name == "train_batch":
-        step = make_train_step(model.loss, TCFG)
+        specs = state_specs_like(bst_param_specs(params, cfg))
+        in_sh = None if mesh is None else (specs, ispecs)
+        if placed:
+            # one microbatch per batch shard, as the LM train cell
+            D = len(batch_groups(mesh, b1[0])[0])
+            step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
+                                           b2, microbatches=D)
+            state = new_sharded_train_state(params, mesh, specs)
+        else:
+            step = make_train_step(model.loss, TCFG)
+            state = new_train_state(params)
         return Cell(arch.arch_id, shape.name, "train", model, step,
-                    (new_train_state(params), inputs), {"batch": B})
+                    (state, inputs), {"batch": B}, in_sh)
 
+    pspec = bst_param_specs(params, cfg, serve=True)
+    if placed:
+        params = place_params(params, mesh, pspec)
     if shape.name == "retrieval_cand":
         C = dims["n_candidates"] if smoke else pad512(dims["n_candidates"])
         cand_i = fac((C,), np.int32, cfg.n_items)
         cand_c = fac((C,), np.int32, cfg.n_cates)
-        return Cell(arch.arch_id, shape.name, "serve", model,
-                    model.retrieval_scores, (params, inputs, cand_i, cand_c),
-                    {"batch": B, "candidates": C})
+        cspec = P(ba) if mesh is not None else P(None)
+        in_sh = None if mesh is None else (pspec, ispecs, cspec, cspec)
+        step = model.retrieval_scores
+        if placed:
+            step = make_sharded_retrieval(model, mesh, cspec)
+        return Cell(arch.arch_id, shape.name, "serve", model, step,
+                    (params, inputs, cand_i, cand_c),
+                    {"batch": B, "candidates": C}, in_sh)
 
     def serve(params, inputs):
         return torch.sigmoid(model.forward(params, inputs))
 
+    in_sh = None if mesh is None else (pspec, ispecs)
+    if placed:
+        serve = make_sharded_click(model, mesh, b1)
     return Cell(arch.arch_id, shape.name, "serve", model, serve,
-                (params, inputs), {"batch": B})
+                (params, inputs), {"batch": B}, in_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -433,12 +513,7 @@ def igpm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     e = e if smoke else pad512(e)
     L = cfg.n_labels
     dev = torch.device(device) if concrete else torch.device("meta")
-    if concrete:
-        fac = ArgFactory(dev)
-    else:
-        def fac(shape_, dtype, high=2):
-            return torch.empty(shape_, dtype=torch.from_numpy(
-                np.zeros((), dtype)).dtype, device=dev)
+    fac = _factory(dev, concrete)
 
     senders = fac((e,), np.int32, n)
     receivers = fac((e,), np.int32, n)
@@ -468,27 +543,18 @@ def igpm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
 def build_cell(arch: ArchConfig, shape_name: str, device="cuda",
                smoke: bool = False, mesh=None, multi_pod: bool = False,
                concrete: bool = True) -> Cell:
-    if arch.family == "lm":
-        return lm_cell(arch, shape_name, device, mesh, multi_pod, concrete,
-                       smoke)
-    if arch.family == "igpm":
-        return igpm_cell(arch, shape_name, device, mesh, multi_pod, concrete,
-                         smoke)
-    if not concrete or mesh is not None:
-        raise ValueError(f"the {arch.family} cells are concrete and "
-                         f"unsharded (their shardings are ROADMAP 13.5 "
-                         f"part 2, items 3 and 4)")
-    if arch.family == "gnn":
-        return gnn_cell(arch, shape_name, device, smoke)
-    if arch.family == "recsys":
-        return bst_cell(arch, shape_name, device, smoke)
-    raise ValueError(f"no cells here for family {arch.family!r}")
+    cells = {"lm": lm_cell, "igpm": igpm_cell, "gnn": gnn_cell,
+             "recsys": bst_cell}
+    if arch.family not in cells:
+        raise ValueError(f"no cells here for family {arch.family!r}")
+    return cells[arch.family](arch, shape_name, device, mesh, multi_pod,
+                              concrete, smoke)
 
 
 def input_specs(arch: ArchConfig, shape_name: str, mesh=None,
                 multi_pod: bool = False) -> Tuple[Any, ...]:
-    """Meta-tensor stand-ins for every model input of an LM or IGPM cell
-    (the reference's ``ShapeDtypeStruct`` dry-run contract; placed on
-    ``mesh`` when one is given)."""
+    """Meta-tensor stand-ins for every model input of a cell (the
+    reference's ``ShapeDtypeStruct`` dry-run contract; placed on ``mesh``
+    when one is given)."""
     return build_cell(arch, shape_name, mesh=mesh, multi_pod=multi_pod,
                       concrete=False).args

@@ -46,11 +46,12 @@ lists. The roofline's compute term takes max(counted FLOPs, analytic model
 FLOPs × remat) per chip as the reference does; the analytic terms per
 chip divide the totals by the chip count.
 
-The 16 GNN and 4 BST cells get a record with ``pending`` naming the
-ROADMAP item their shardings wait for (13.5 part 2, items 3 and 4); they
-are listed apart and do not fail ``--all``. Records are written to
-``reports/dryrun_torch/`` (one JSON file per cell × mesh). Figures from a
-dry run are host meta runs, not card times.
+The GNN cells run the edge-sharded step (one backward over every edge
+block's home: ``Mesh.charge_backward`` lets each autograd node charge its
+backward to the position that made it) and the BST cells the row-sharded
+item table's train step and the per-shard serving steps. Records are
+written to ``reports/dryrun_torch/`` (one JSON file per cell × mesh).
+Figures from a dry run are host meta runs, not card times.
 """
 
 from __future__ import annotations
@@ -83,10 +84,6 @@ from repro_torch.train import state as train_state
 
 REPORT_DIR = Path(__file__).resolve().parents[3] / "reports" / "dryrun_torch"
 
-PENDING = {
-    "gnn": "ROADMAP 13.5 part 2, item 3 (GNN edge sharding)",
-    "recsys": "ROADMAP 13.5 part 2, item 4 (BST's row-sharded table)",
-}
 PER_CHIP = ("the busiest mesh position's value: one process drives every "
             "position, each batch shard's home computes and the other "
             "positions store state, so positions differ")
@@ -218,12 +215,14 @@ class Tracker(TorchDispatchMode):
                                           device=_META) for m in hit[1])
 
     def __enter__(self):
+        self.mesh.tracked = True
         self._adamw_leaf = train_state.adamw_leaf
         train_state.adamw_leaf = lambda *args: self.replay(self._adamw_leaf,
                                                            args)
         return super().__enter__()
 
     def __exit__(self, *exc):
+        self.mesh.tracked = False
         train_state.adamw_leaf = self._adamw_leaf
         return super().__exit__(*exc)
 
@@ -358,17 +357,13 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
              concrete: bool = False, device="cpu",
              check_flops: bool = False) -> dict:
     """Build one cell on ``mesh`` (default: the meta production mesh) and
-    run its step once under the counters; returns the record. A GNN or BST
-    cell returns a ``pending`` record without running."""
+    run its step once under the counters; returns the record."""
     arch = get_arch(arch_id, smoke=smoke)
     shape = arch.shape(shape_name)
     if mesh is None:
         mesh = meta_mesh(multi_pod)
     rec = {"arch": arch_id, "shape": shape_name, "kind": shape.kind,
            "mesh": "x".join(map(str, mesh.shape))}
-    if arch.family in PENDING:
-        rec["pending"] = PENDING[arch.family]
-        return rec
     n = mesh.size
     cell = build_cell(arch, shape_name, device=device, smoke=smoke,
                       mesh=mesh, multi_pod=multi_pod, concrete=concrete)
@@ -495,21 +490,15 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = cell_list() if args.all else [(args.arch, args.shape)]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    tasks, pending = [], []
+    tasks = []
+
     def name(mp):
         return "x".join(map(str, shape)) if shape else mesh_name(mp)
 
     for arch_id, shape_name in todo:
-        family = get_arch(arch_id).family
         for mp in meshes:
             tag = f"{arch_id}_{shape_name}_{name(mp)}"
             out = out_dir / f"{tag}.json"
-            if family in PENDING:
-                rec = {"arch": arch_id, "shape": shape_name,
-                       "mesh": name(mp), "pending": PENDING[family]}
-                out.write_text(json.dumps(rec, indent=1))
-                pending.append((tag, PENDING[family]))
-                continue
             if out.exists() and not args.force:
                 print(f"[cached] {tag}")
                 continue
@@ -541,10 +530,6 @@ def main(argv=None) -> int:
                   flush=True)
             report(*_job(task))
 
-    if pending:
-        print(f"\n{len(pending)} cells pending (not run):")
-        for tag, why in pending:
-            print(f"  {tag}: {why}")
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for tag, err in failures:

@@ -27,6 +27,11 @@ their traffic is counted in ``Mesh.bytes``, not as the position's op
 bytes. On a mesh of more than one position the dry run's tracker refuses
 an op that runs outside every ``Mesh.at``. Outside a dry run the contexts
 only push and pop.
+A step whose one backward pass runs the work of several positions (the
+GNNs' edge-sharded step) makes its forward inside
+``Mesh.charge_backward()``: while a dry run tracks the mesh (``tracked``),
+each autograd node made there runs its backward as the work of the
+position that made it.
 A meta device list (``["meta"] * 256``) lays the production mesh out with
 nothing allocated.
 """
@@ -39,6 +44,7 @@ import math
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.core.graph import canonical_device
 from repro_torch.distrib.sharding import AXIS_SIZE
@@ -81,6 +87,7 @@ class Mesh:
         self.received: Dict[int, int] = collections.Counter()
         self._working: List[int] = []   # the working position, innermost last
         self._moving = 0                # depth of nested collective copies
+        self.tracked = False            # a dry run's tracker is counting
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={n}" for a, n in zip(self.axis_names,
@@ -133,6 +140,18 @@ class Mesh:
             self._working[-1] = int(pos)
 
     @contextlib.contextmanager
+    def charge_backward(self) -> Iterator[None]:
+        """While ``tracked``: each autograd node an op in the body makes
+        runs its backward as the work of the position working when it was
+        made (a pre-hook moves the working position there). Otherwise the
+        body runs as it is."""
+        if not self.tracked:
+            yield
+            return
+        with _NodePositions(self):
+            yield
+
+    @contextlib.contextmanager
     def moving(self) -> Iterator[None]:
         """Run the body as a collective's copies between positions."""
         self._moving += 1
@@ -155,6 +174,29 @@ class Mesh:
     def reset_bytes(self) -> None:
         self.bytes.clear()
         self.received.clear()
+
+
+class _NodePositions(TorchFunctionMode):
+    """Tags the autograd node of every op's outputs with the working
+    position (:meth:`Mesh.charge_backward`)."""
+
+    def __init__(self, mesh: Mesh):
+        super().__init__()
+        self.mesh = mesh
+        self._tagged = {}       # id → node, held so that no id is reused
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        pos = self.mesh.position
+        if pos is None or not torch.is_grad_enabled():
+            return out
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            node = getattr(t, "grad_fn", None)
+            if node is not None and id(node) not in self._tagged:
+                self._tagged[id(node)] = node
+                node.register_prehook(
+                    lambda grads, p=pos: self.mesh.shift(p))
+        return out
 
 
 def make_production_mesh(*, multi_pod: bool = False,

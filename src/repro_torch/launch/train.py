@@ -16,7 +16,9 @@ argument factory draws them, fed to every step. Every arch with a train
 shape trains: the five LMs, schnet, dimenet, meshgraphnet, graphcast and
 bst (the GNNs' first train shape is ``full_graph_sm``, BST's
 ``train_batch``). The reference's ``--dry-run`` lowering against the
-production mesh waits for ROADMAP item 13.5.
+production mesh is ``python -m repro_torch.launch.dryrun`` here, which runs
+every cell — the GNNs' edge-sharded step and BST's row-sharded table
+included — on a meta production mesh.
 """
 
 from __future__ import annotations

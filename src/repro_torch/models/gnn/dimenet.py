@@ -13,6 +13,12 @@ the nb slices weighted by ``a``, so no (T, d, nb, e) tensor is formed.
 ``arccos``, ``sin`` and ``cos`` round differently from XLA's by a few
 ulps, and the sums run in another order, so the port agrees with the
 reference within a tolerance (``tests/test_torch_gnn.py``), not bitwise.
+
+On a mesh (``common.EdgeBlocks``) the triplets split like the edges, and
+both index the whole edge list: a triplet block reads the senders,
+receivers, distances and each layer's ``mt`` whole (``edge_table``, an
+``edge_gather``), and its sums into the edges come back to their blocks
+(``edge_sums``, an ``edge_scatter``).
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.gnn.common import (GNNBase, GraphInputs,
-                                           edge_distances, init_mlp, mlp)
-from repro_torch.sparse.segment import gather_rows, segment_sum
+                                           edge_distances, graph_view,
+                                           init_mlp, mlp)
+from repro_torch.sparse.segment import gather_rows
 
 
 def _radial_basis(d: torch.Tensor, n_radial: int,
@@ -53,14 +60,15 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 
 class DimeNet(GNNBase):
-    def init(self, gen: torch.Generator, d_feat: int) -> Dict[str, Any]:
+    def init(self, gen: torch.Generator, d_feat: int,
+             device=None) -> Dict[str, Any]:
         cfg = self.cfg
         d, nb = cfg.d_hidden, cfg.n_bilinear
         sbf = cfg.n_spherical * cfg.n_radial
-        dev = gen.device
+        dev = gen.device if device is None else device
         p: Dict[str, Any] = {
-            "embed_edge": init_mlp(gen, [2 * d_feat + cfg.n_radial, d]),
-            "out": init_mlp(gen, [d, d, cfg.d_out]),
+            "embed_edge": init_mlp(gen, [2 * d_feat + cfg.n_radial, d], dev),
+            "out": init_mlp(gen, [d, d, cfg.d_out], dev),
         }
         for i in range(cfg.n_layers):
             p[f"blk{i}"] = {
@@ -68,55 +76,73 @@ class DimeNet(GNNBase):
                                      device=dev) * 0.1,
                 "bilinear": torch.randn((d, nb, d), generator=gen,
                                         device=dev) * (1.0 / d),
-                "msg": init_mlp(gen, [d, d]),
-                "rbf_w": init_mlp(gen, [cfg.n_radial, d]),
-                "update": init_mlp(gen, [d, d, d]),
+                "msg": init_mlp(gen, [d, d], dev),
+                "rbf_w": init_mlp(gen, [cfg.n_radial, d], dev),
+                "update": init_mlp(gen, [d, d, d], dev),
             }
         return p
 
     def forward(self, params, inputs: GraphInputs) -> torch.Tensor:
         cfg = self.cfg
         cutoff = 10.0
+        cd = self.compute_dtype
         n, e = inputs.n_nodes, inputs.n_edges
+        g = graph_view(params)
         pos = inputs.positions
         s, r = inputs.senders, inputs.receivers
-        dist = edge_distances(pos, s, r)
-        rbf = _radial_basis(dist, cfg.n_radial, cutoff)
-
-        # edge embedding from endpoint features + rbf
-        h0 = torch.cat([gather_rows(inputs.node_feat, s),
-                        gather_rows(inputs.node_feat, r), rbf],
-                       dim=-1).to(self.compute_dtype)
-        m = mlp(params["embed_edge"], h0, 1)                 # (E, d)
-
-        # triplet geometry: angle between edge kj and edge ji at shared j
         kj, ji = inputs.trip_kj, inputs.trip_ji
-        s_kj, r_kj = gather_rows(s, kj), gather_rows(r, kj)
-        s_ji, r_ji = gather_rows(s, ji), gather_rows(r, ji)
-        v_kj = gather_rows(pos, r_kj) - gather_rows(pos, s_kj)
-        v_ji = gather_rows(pos, r_ji) - gather_rows(pos, s_ji)
-        cosang = (v_kj * v_ji).sum(-1) / torch.clamp_min(
-            _norm(v_kj) * _norm(v_ji), 1e-9)
-        angle = torch.arccos(torch.clamp(cosang, -1.0 + 1e-6, 1.0 - 1e-6))
-        sbf = _spherical_basis(angle, gather_rows(dist, kj),
-                               cfg.n_spherical, cfg.n_radial, cutoff)
-        sbf = sbf.to(self.compute_dtype)                      # (T, S·R)
-        T = kj.shape[0]
         d, nb = cfg.d_hidden, cfg.n_bilinear
 
+        def embed(q, pos, nf, s, r):
+            dist = edge_distances(pos, s, r)
+            rbf = _radial_basis(dist, cfg.n_radial, cutoff)
+            # edge embedding from endpoint features + rbf
+            h0 = torch.cat([gather_rows(nf, s), gather_rows(nf, r), rbf],
+                           dim=-1).to(cd)
+            return dist, rbf, mlp(q["embed_edge"], h0, 1)    # m: (E, d)
+
+        dist, rbf, m = g.map(embed, pos, inputs.node_feat, s, r)
+
+        # triplet geometry: angle between edge kj and edge ji at shared j
+        def angles(q, pos, s, r, dist, kj, ji):
+            s_kj, r_kj = gather_rows(s, kj), gather_rows(r, kj)
+            s_ji, r_ji = gather_rows(s, ji), gather_rows(r, ji)
+            v_kj = gather_rows(pos, r_kj) - gather_rows(pos, s_kj)
+            v_ji = gather_rows(pos, r_ji) - gather_rows(pos, s_ji)
+            cosang = (v_kj * v_ji).sum(-1) / torch.clamp_min(
+                _norm(v_kj) * _norm(v_ji), 1e-9)
+            angle = torch.arccos(torch.clamp(cosang, -1.0 + 1e-6,
+                                             1.0 - 1e-6))
+            sbf = _spherical_basis(angle, gather_rows(dist, kj),
+                                   cfg.n_spherical, cfg.n_radial, cutoff)
+            return sbf.to(cd)                                 # (T, S·R)
+
+        sbf = g.map(angles, pos, g.edge_table(s), g.edge_table(r),
+                    g.edge_table(dist), kj, ji)
+
         for i in range(cfg.n_layers):
-            bp = params[f"blk{i}"]
-            mt = mlp(bp["msg"], m, 1)                         # (E, d)
+            blk = f"blk{i}"
+            mt = g.map(lambda q, m: mlp(q[blk]["msg"], m, 1), m)  # (E, d)
+
             # directional message: bilinear over spherical basis (T triplets)
-            a = sbf @ bp["sbf_w"].to(m.dtype)                 # (T, nb)
-            x_kj = gather_rows(mt, kj)                        # (T, d)
-            w = bp["bilinear"].to(m.dtype).reshape(d, nb * d)
-            y = (x_kj @ w).reshape(T, nb, d)                  # (T, nb, d)
-            t_msg = (y * a[:, :, None]).sum(dim=1)            # (T, d)
-            agg = segment_sum(t_msg, ji, e)
-            gate = mlp(bp["rbf_w"], rbf.to(m.dtype), 1)
-            m = m + mlp(bp["update"], agg * gate, 2)
+            def bilinear(q, sbf, mt, kj):
+                bp = q[blk]
+                a = sbf @ bp["sbf_w"].to(cd)                  # (T, nb)
+                x_kj = gather_rows(mt, kj)                    # (T, d)
+                w = bp["bilinear"].to(cd).reshape(d, nb * d)
+                T = kj.shape[0]
+                y = (x_kj @ w).reshape(T, nb, d)              # (T, nb, d)
+                return (y * a[:, :, None]).sum(dim=1)         # (T, d)
+
+            t_msg = g.map(bilinear, sbf, g.edge_table(mt), kj)
+            agg = g.edge_sums(t_msg, ji, e)
+
+            def update(q, m, agg, rbf):
+                gate = mlp(q[blk]["rbf_w"], rbf.to(cd), 1)
+                return m + mlp(q[blk]["update"], agg * gate, 2)
+
+            m = g.map(update, m, agg, rbf)
 
         # output: edge → node scatter
-        node = segment_sum(m, r, n)
-        return mlp(params["out"], node, 2)
+        node = g.aggregate(m, r, n)
+        return mlp(g.params["out"], node, 2)

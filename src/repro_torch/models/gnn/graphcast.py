@@ -8,6 +8,10 @@ undirected edges (r=6 → 40,962 nodes / 122,880 edges → 245,760 arcs).
 grid2mesh connects each grid node to 4 mesh nodes; mesh2grid connects each
 grid node to 3 (containing-triangle) mesh nodes — both are input index
 arrays so the data pipeline owns the geometry.
+
+On a mesh (``common.EdgeBlocks``) only the processor's mesh arcs are split
+into blocks; the encoder and decoder are node-level work and read the
+replicated grid↔mesh maps whole.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.gnn.common import GNNBase, GraphInputs, init_mlp, mlp
+from repro_torch.models.gnn.common import (GNNBase, GraphInputs, graph_view,
+                                           init_mlp, mlp, node_input)
 from repro_torch.sparse.segment import gather_rows, segment_sum
 
 
@@ -35,20 +40,21 @@ class GraphCast(GNNBase):
 
     G2M, M2G = 4, 3
 
-    def init(self, gen: torch.Generator, d_feat: int) -> Dict[str, Any]:
+    def init(self, gen: torch.Generator, d_feat: int,
+             device=None) -> Dict[str, Any]:
         cfg = self.cfg
         d = cfg.d_hidden
         p: Dict[str, Any] = {
-            "enc_grid": init_mlp(gen, [d_feat, d, d]),
-            "g2m": init_mlp(gen, [2 * d, d, d]),
-            "m2g": init_mlp(gen, [2 * d, d, d]),
-            "dec": init_mlp(gen, [2 * d, d, cfg.d_out]),
-            "mesh0": init_mlp(gen, [d, d]),
+            "enc_grid": init_mlp(gen, [d_feat, d, d], device),
+            "g2m": init_mlp(gen, [2 * d, d, d], device),
+            "m2g": init_mlp(gen, [2 * d, d, d], device),
+            "dec": init_mlp(gen, [2 * d, d, cfg.d_out], device),
+            "mesh0": init_mlp(gen, [d, d], device),
         }
         for i in range(cfg.n_layers):
             p[f"proc{i}"] = {
-                "edge": init_mlp(gen, [2 * d, d, d]),
-                "node": init_mlp(gen, [2 * d, d, d]),
+                "edge": init_mlp(gen, [2 * d, d, d], device),
+                "node": init_mlp(gen, [2 * d, d, d], device),
             }
         return p
 
@@ -56,35 +62,37 @@ class GraphCast(GNNBase):
         cfg = self.cfg
         n_grid = inputs.n_nodes
         n_mesh = mesh_sizes(cfg.mesh_refinement)["mesh_nodes"]
+        g = graph_view(params)
+        p = g.params
         ms, mr = inputs.senders, inputs.receivers          # mesh arcs
-        g2m = inputs.trip_kj                               # (n_grid·4,)
-        m2g = inputs.trip_ji                               # (n_grid·3,)
-        dev = inputs.node_feat.device
+        g2m = node_input(inputs.trip_kj)                   # (n_grid·4,)
+        m2g = node_input(inputs.trip_ji)                   # (n_grid·3,)
+        node_feat = node_input(inputs.node_feat)
+        dev = node_feat.device
 
         # encoder: grid features → latent; grid2mesh aggregation
-        xg = mlp(params["enc_grid"], inputs.node_feat.to(self.compute_dtype),
-                 2)
+        xg = mlp(p["enc_grid"], node_feat.to(self.compute_dtype), 2)
         src_grid = torch.arange(n_grid, device=dev).repeat_interleave(
             self.G2M)
         x_src = gather_rows(xg, src_grid)
-        msg = mlp(params["g2m"],
+        msg = mlp(p["g2m"],
                   torch.cat([x_src, torch.zeros_like(x_src)], -1), 2)
         xm = segment_sum(msg, g2m, n_mesh)
-        xm = mlp(params["mesh0"], xm, 1)
+        xm = mlp(p["mesh0"], xm, 1)
 
         # processor: interaction network on the multimesh
         for i in range(cfg.n_layers):
-            pp = params[f"proc{i}"]
-            e = mlp(pp["edge"], torch.cat([gather_rows(xm, ms),
-                                           gather_rows(xm, mr)], -1), 2)
-            agg = segment_sum(e, mr, n_mesh)
-            xm = xm + mlp(pp["node"], torch.cat([xm, agg], -1), 2)
+            proc = f"proc{i}"
+            e = g.map(lambda q, xs, xr: mlp(q[proc]["edge"], torch.cat(
+                [xs, xr], -1), 2), g.node_rows(xm, ms), g.node_rows(xm, mr))
+            agg = g.aggregate(e, mr, n_mesh)
+            xm = xm + mlp(p[proc]["node"], torch.cat([xm, agg], -1), 2)
 
         # decoder: mesh2grid
         dst_grid = torch.arange(n_grid, device=dev).repeat_interleave(
             self.M2G)
-        back = mlp(params["m2g"],
+        back = mlp(p["m2g"],
                    torch.cat([gather_rows(xm, m2g),
                               gather_rows(xg, dst_grid)], -1), 2)
         xg_out = segment_sum(back, dst_grid, n_grid)
-        return mlp(params["dec"], torch.cat([xg, xg_out], -1), 2)
+        return mlp(p["dec"], torch.cat([xg, xg_out], -1), 2)

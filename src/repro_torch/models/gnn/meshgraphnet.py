@@ -13,52 +13,59 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.gnn.common import GNNBase, GraphInputs, init_mlp, mlp
-from repro_torch.sparse.segment import gather_rows, segment_sum
+from repro_torch.models.gnn.common import (GNNBase, GraphInputs, graph_view,
+                                           init_mlp, mlp, node_input)
+from repro_torch.sparse.segment import gather_rows
 
 
 class MeshGraphNet(GNNBase):
     def init(self, gen: torch.Generator, d_feat: int,
-             d_edge: int = 4) -> Dict[str, Any]:
+             d_edge: int = 4, device=None) -> Dict[str, Any]:
         cfg = self.cfg
         d = cfg.d_hidden
         ml = cfg.mlp_layers
         p: Dict[str, Any] = {
-            "enc_node": init_mlp(gen, [d_feat] + [d] * ml),
-            "enc_edge": init_mlp(gen, [d_edge] + [d] * ml),
-            "dec": init_mlp(gen, [d] * ml + [cfg.d_out]),
+            "enc_node": init_mlp(gen, [d_feat] + [d] * ml, device),
+            "enc_edge": init_mlp(gen, [d_edge] + [d] * ml, device),
+            "dec": init_mlp(gen, [d] * ml + [cfg.d_out], device),
         }
         for i in range(cfg.n_layers):
             p[f"proc{i}"] = {
-                "edge": init_mlp(gen, [3 * d] + [d] * ml),
-                "node": init_mlp(gen, [2 * d] + [d] * ml),
+                "edge": init_mlp(gen, [3 * d] + [d] * ml, device),
+                "node": init_mlp(gen, [2 * d] + [d] * ml, device),
             }
         return p
 
-    def _edge_feat(self, inputs: GraphInputs) -> torch.Tensor:
-        if inputs.edge_feat is not None:
-            return inputs.edge_feat
-        if inputs.positions is not None:
-            rel = (gather_rows(inputs.positions, inputs.receivers)
-                   - gather_rows(inputs.positions, inputs.senders))
+    @staticmethod
+    def _edge_feat(s, r, positions, edge_feat, dtype) -> torch.Tensor:
+        """One edge block's features."""
+        if edge_feat is not None:
+            return edge_feat
+        if positions is not None:
+            rel = gather_rows(positions, r) - gather_rows(positions, s)
             dist = torch.sqrt((rel * rel).sum(-1, keepdim=True))
             return torch.cat([rel, dist], dim=-1)
         # featureless edges: degree-ish placeholder
-        return torch.ones((inputs.n_edges, 4), dtype=inputs.node_feat.dtype,
-                          device=inputs.node_feat.device)
+        return torch.ones((s.shape[0], 4), dtype=dtype, device=s.device)
 
     def forward(self, params, inputs: GraphInputs) -> torch.Tensor:
         cfg = self.cfg
         ml = cfg.mlp_layers
         n = inputs.n_nodes
+        g = graph_view(params)
         s, r = inputs.senders, inputs.receivers
         cd = self.compute_dtype
-        x = mlp(params["enc_node"], inputs.node_feat.to(cd), ml)
-        e = mlp(params["enc_edge"], self._edge_feat(inputs).to(cd), ml)
+        nf = node_input(inputs.node_feat)
+        x = mlp(g.params["enc_node"], nf.to(cd), ml)
+        e = g.map(lambda q, s, r, pos, ef: mlp(
+            q["enc_edge"], self._edge_feat(s, r, pos, ef, nf.dtype).to(cd),
+            ml), s, r, inputs.positions, inputs.edge_feat)
         for i in range(cfg.n_layers):
-            pp = params[f"proc{i}"]
-            e = e + mlp(pp["edge"], torch.cat(
-                [e, gather_rows(x, s), gather_rows(x, r)], dim=-1), ml)
-            agg = segment_sum(e, r, n)
-            x = x + mlp(pp["node"], torch.cat([x, agg], dim=-1), ml)
-        return mlp(params["dec"], x, ml)
+            proc = f"proc{i}"
+            e = g.map(lambda q, e, xs, xr: e + mlp(q[proc]["edge"], torch.cat(
+                [e, xs, xr], dim=-1), ml), e, g.node_rows(x, s),
+                g.node_rows(x, r))
+            agg = g.aggregate(e, r, n)
+            x = x + mlp(g.params[proc]["node"], torch.cat([x, agg], dim=-1),
+                        ml)
+        return mlp(g.params["dec"], x, ml)

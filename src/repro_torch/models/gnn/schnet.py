@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.models.gnn.common import (GNNBase, GraphInputs,
                                            cosine_cutoff, edge_distances,
-                                           gaussian_rbf, init_mlp, mlp)
-from repro_torch.sparse.segment import gather_rows, segment_sum
+                                           gaussian_rbf, graph_view,
+                                           init_mlp, mlp, node_input)
 
 
 def _ssp(x):
@@ -28,35 +28,49 @@ def _ssp(x):
 
 
 class SchNet(GNNBase):
-    def init(self, gen: torch.Generator, d_feat: int) -> Dict[str, Any]:
+    def init(self, gen: torch.Generator, d_feat: int,
+             device=None) -> Dict[str, Any]:
         cfg = self.cfg
         d = cfg.d_hidden
         p: Dict[str, Any] = {
-            "embed": init_mlp(gen, [d_feat, d]),
-            "out": init_mlp(gen, [d, d // 2, cfg.d_out]),
+            "embed": init_mlp(gen, [d_feat, d], device),
+            "out": init_mlp(gen, [d, d // 2, cfg.d_out], device),
         }
         for i in range(cfg.n_layers):
             p[f"int{i}"] = {
-                "filt": init_mlp(gen, [cfg.n_rbf, d, d]),
-                "in": init_mlp(gen, [d, d]),
-                "post": init_mlp(gen, [d, d, d]),
+                "filt": init_mlp(gen, [cfg.n_rbf, d, d], device),
+                "in": init_mlp(gen, [d, d], device),
+                "post": init_mlp(gen, [d, d, d], device),
             }
         return p
 
     def forward(self, params, inputs: GraphInputs) -> torch.Tensor:
         cfg = self.cfg
         n = inputs.n_nodes
-        x = mlp(params["embed"], inputs.node_feat.to(self.compute_dtype), 1)
-        dist = edge_distances(inputs.positions, inputs.senders,
-                              inputs.receivers)
-        rbf = gaussian_rbf(dist, cfg.n_rbf, cfg.cutoff).to(x.dtype)
-        cut = cosine_cutoff(dist, cfg.cutoff).to(x.dtype)
+        g = graph_view(params)
+        p = g.params
+        s, r = inputs.senders, inputs.receivers
+        x = mlp(p["embed"], node_input(inputs.node_feat).to(
+            self.compute_dtype), 1)
+        cd = x.dtype
+
+        def geometry(q, pos, s, r):
+            dist = edge_distances(pos, s, r)
+            return (gaussian_rbf(dist, cfg.n_rbf, cfg.cutoff).to(cd),
+                    cosine_cutoff(dist, cfg.cutoff).to(cd))
+
+        rbf, cut = g.map(geometry, inputs.positions, s, r)
         for i in range(cfg.n_layers):
-            ip = params[f"int{i}"]
-            w = mlp(ip["filt"], rbf, 2, act=_ssp, final_act=False)
-            w = w * cut[:, None]
+            ip = p[f"int{i}"]
+
+            def filt(q, rbf, cut, i=i):
+                w = mlp(q[f"int{i}"]["filt"], rbf, 2, act=_ssp,
+                        final_act=False)
+                return w * cut[:, None]
+
+            w = g.map(filt, rbf, cut)
             h = mlp(ip["in"], x, 1)
-            msg = gather_rows(h, inputs.senders) * w
-            agg = segment_sum(msg, inputs.receivers, n)
+            msg = g.map(lambda q, hs, w: hs * w, g.node_rows(h, s), w)
+            agg = g.aggregate(msg, r, n)
             x = x + mlp(ip["post"], agg, 2, act=_ssp)
-        return mlp(params["out"], x, 2, act=_ssp)
+        return mlp(p["out"], x, 2, act=_ssp)

@@ -17,6 +17,15 @@ or ``torch.gather``, whose CUDA backwards add with atomics — so two
 backward passes on the card give the same bits. Parameters are f32; keep
 TF32 off (PyTorch's default for matmuls) so that the card and the CPU
 agree in f32.
+
+On a mesh the parameters come as ``ShardView`` s (the sharded train and
+serving steps). Every lookup goes through :func:`lookup_rows` /
+:func:`lookup_fields`: on a view of a table split along its rows (the
+trained item table) or its vocab axis (the user tables) the rows are
+looked up where they lie (``ShardView.take_rows`` /
+``take_along_fields``), so the item table is never gathered whole; every
+other leaf, ``mlp_w0`` included, is read whole at the batch shard's home
+(``distrib.collectives.local``).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import BSTConfig
+from repro_torch.distrib.collectives import ShardView, local
 from repro_torch.models import layers as L
 from repro_torch.optim.adamw import tree_map
 from repro_torch.sparse.segment import take_along_fields, take_rows
@@ -46,21 +56,40 @@ def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 
 
+def lookup_rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """``take_rows`` of a table, or of a ``ShardView`` where its rows lie."""
+    if isinstance(table, ShardView):
+        return table.take_rows(ids)
+    return take_rows(table, ids)
+
+
+def lookup_fields(tables, ids: torch.Tensor) -> torch.Tensor:
+    """``take_along_fields`` of (F, V, e) tables, or of a ``ShardView``
+    where their rows lie."""
+    if isinstance(tables, ShardView):
+        return tables.take_along_fields(ids)
+    return take_along_fields(tables, ids)
+
+
 class BST:
     def __init__(self, cfg: BSTConfig):
         self.cfg = cfg
         self.d_model = 2 * cfg.embed_dim  # item ⊕ category per position
 
-    def init(self, gen: torch.Generator) -> Dict[str, Any]:
-        """f32 weights on the generator's device, with the reference's
-        shapes and scales (the draws themselves are torch's)."""
+    def init(self, gen: torch.Generator, device=None) -> Dict[str, Any]:
+        """f32 weights on ``device`` (default: the generator's; ``"meta"``
+        draws nothing), with the reference's shapes and scales (the draws
+        themselves are torch's)."""
         cfg = self.cfg
         d = self.d_model
         e = cfg.embed_dim
-        dev = gen.device
+        dev = gen.device if device is None else device
 
         def normal(*shape):
             return torch.randn(shape, generator=gen, device=dev) * 0.02
+
+        def linear(a, b):
+            return L.init_linear(gen, a, b, device=dev)
 
         p: Dict[str, Any] = {
             "item_emb": normal(cfg.n_items, e),
@@ -72,17 +101,17 @@ class BST:
         }
         for i in range(cfg.n_blocks):
             p[f"blk{i}"] = {
-                "wq": L.init_linear(gen, d, d),
-                "wk": L.init_linear(gen, d, d),
-                "wv": L.init_linear(gen, d, d),
-                "wo": L.init_linear(gen, d, d),
-                "w1": L.init_linear(gen, d, 4 * d),
-                "w2": L.init_linear(gen, 4 * d, d),
+                "wq": linear(d, d),
+                "wk": linear(d, d),
+                "wv": linear(d, d),
+                "wo": linear(d, d),
+                "w1": linear(d, 4 * d),
+                "w2": linear(4 * d, d),
             }
         mlp_in = (cfg.seq_len + 1) * d + cfg.n_user_feats * e
         dims = (mlp_in,) + tuple(cfg.mlp_dims) + (1,)
         for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-            p[f"mlp_w{i}"] = L.init_linear(gen, a, b)
+            p[f"mlp_w{i}"] = linear(a, b)
             p[f"mlp_b{i}"] = torch.zeros((b,), device=dev)
         return p
 
@@ -94,27 +123,27 @@ class BST:
         cfg = self.cfg
         it = torch.cat([item_hist, target_item[:, None]], dim=1)
         ct = torch.cat([cate_hist, target_cate[:, None]], dim=1)
-        x = torch.cat([take_rows(params["item_emb"], it),
-                       take_rows(params["cate_emb"], ct)], dim=-1)
-        x = x + params["pos_emb"][None]
+        x = torch.cat([lookup_rows(params["item_emb"], it),
+                       lookup_rows(params["cate_emb"], ct)], dim=-1)
+        x = x + local(params["pos_emb"])[None]
         B, S1, d = x.shape
         H = cfg.n_heads
         hd = d // H
         for i in range(cfg.n_blocks):
-            bp = params[f"blk{i}"]
-            h = L.rms_norm(x, params["ln1"])
+            bp = tree_map(local, params[f"blk{i}"])
+            h = L.rms_norm(x, local(params["ln1"]))
             q = (h @ bp["wq"]).reshape(B, S1, H, hd)
             k = (h @ bp["wk"]).reshape(B, S1, H, hd)
             v = (h @ bp["wv"]).reshape(B, S1, H, hd)
             o = L.dense_attention(q, k, v, causal=False)
             x = x + o.reshape(B, S1, d) @ bp["wo"]
-            h = L.rms_norm(x, params["ln2"])
+            h = L.rms_norm(x, local(params["ln2"]))
             x = x + leaky_relu(h @ bp["w1"], cfg.leaky_slope) @ bp["w2"]
         return x
 
     def _user_feat_emb(self, params, user_feats) -> torch.Tensor:
         """(B, F) ids → (B, F·e): per-field embedding tables."""
-        gathered = take_along_fields(params["user_emb"], user_feats)
+        gathered = lookup_fields(params["user_emb"], user_feats)
         return gathered.reshape(user_feats.shape[0], -1)
 
     def forward(self, params, inputs: BSTInputs) -> torch.Tensor:
@@ -127,7 +156,8 @@ class BST:
                       dim=-1)
         n_mlp = len(self.cfg.mlp_dims) + 1
         for i in range(n_mlp):
-            x = x @ params[f"mlp_w{i}"] + params[f"mlp_b{i}"]
+            x = (x @ local(params[f"mlp_w{i}"])
+                 + local(params[f"mlp_b{i}"]))
             if i < n_mlp - 1:
                 x = leaky_relu(x, self.cfg.leaky_slope)
         return x[:, 0]
@@ -146,13 +176,25 @@ class BST:
                          cand_items: torch.Tensor,
                          cand_cates: torch.Tensor) -> torch.Tensor:
         """Score 10⁶ candidates against one user: (B, C) batched dot."""
-        seq = self._seq_repr(params, inputs.item_hist, inputs.cate_hist,
-                             inputs.target_item, inputs.target_cate)
-        user = seq.mean(dim=1)                                # (B, d)
-        cand = torch.cat([take_rows(params["item_emb"], cand_items),
-                          take_rows(params["cate_emb"], cand_cates)],
+        return self.candidate_scores(params, self.user_repr(params, inputs),
+                                     cand_items, cand_cates)
+
+    def user_repr(self, params, inputs: BSTInputs) -> torch.Tensor:
+        """(B, d): the mean of the transformer's outputs."""
+        seq = self._seq_repr(params, inputs.item_hist,
+                             inputs.cate_hist, inputs.target_item,
+                             inputs.target_cate)
+        return seq.mean(dim=1)
+
+    def candidate_scores(self, params, user: torch.Tensor,
+                         cand_items: torch.Tensor,
+                         cand_cates: torch.Tensor) -> torch.Tensor:
+        """(B, C): ``user`` dotted with each candidate's item ⊕ category
+        embedding."""
+        cand = torch.cat([lookup_rows(params["item_emb"], cand_items),
+                          lookup_rows(params["cate_emb"], cand_cates)],
                          dim=-1)
-        return user @ cand.T                                  # (B, C)
+        return user @ cand.T
 
 
 def bst_params_from_jax(cfg: BSTConfig, tree, device="cuda"

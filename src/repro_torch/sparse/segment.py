@@ -11,10 +11,12 @@ one element, whose order is fixed but not ascending, so a 1-D sum is taken
 as the first column of a two-column sum. On a CPU tensor it is
 ``index_add``, a serial loop over the rows (the CPU's accumulating
 ``index_put_`` splits rows over threads), so f32 sums are the card's bit
-for bit, and the reference's. The backward of the sum is a gather, and the
-backward of the gathers below (advanced indexing) is again an accumulating
-``index_put_``: no ``index_add_``, ``scatter_add_``, ``torch.gather`` or
-``index_select`` is differentiated on CUDA on these paths.
+for bit, and the reference's; a meta tensor (the dry run's) takes the same
+route, so a dry run counts one add per element. The backward of the sum is
+a gather, and the backward of the gathers below (advanced indexing) is
+again an accumulating ``index_put_``: no ``index_add_``, ``scatter_add_``,
+``torch.gather`` or ``index_select`` is differentiated on CUDA on these
+paths.
 
 JAX's index semantics, which the reference relies on (``sparse/coo.py``
 routes masked arcs to a dump row ``n``; padded cells carry id ``n``):
@@ -51,9 +53,10 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     ascending ``i`` from zero; ids outside ``[0, num_segments)`` dropped."""
     ids = _kept(segment_ids, num_segments)
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
-    if data.device.type == "cpu":
+    if data.device.type in ("cpu", "meta"):
         # a serial loop over the rows in order; the CPU's accumulating
-        # index_put_ splits the rows over threads
+        # index_put_ splits the rows over threads (on meta tensors, the
+        # dry run's, the same route: one add per element, as the CPU's)
         return out.index_add(0, ids, data)[:num_segments]
     if data.dim() == 1:
         two = torch.stack([data, torch.zeros_like(data)], dim=1)
@@ -99,7 +102,8 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     return expd / torch.clamp_min(gather_rows(denom, segment_ids), 1e-30)
 
 
-def _from_end(idx: torch.Tensor, n: int) -> torch.Tensor:
+def from_end(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Ids as int64, a negative one counted from the end (``idx + n``)."""
     idx = idx.long()
     return torch.where(idx < 0, idx + n, idx)
 
@@ -108,14 +112,14 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[idx]`` as JAX indexes: a negative id counts from the end, then
     every id is clamped into ``[0, len(x))``."""
     n = x.shape[0]
-    return x[_from_end(idx, n).clamp(0, n - 1)]
+    return x[from_end(idx, n).clamp(0, n - 1)]
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, idx, axis=0)``: rows of ``table``; a negative id
     ≥ -n counts from the end, an id outside ``[-n, n)`` gives a NaN row."""
     n = table.shape[0]
-    j = _from_end(idx, n)
+    j = from_end(idx, n)
     valid = (j >= 0) & (j < n)
     rows = table[j.clamp(0, n - 1)]
     return rows.masked_fill(~valid.reshape(valid.shape + (1,) * (
@@ -128,7 +132,7 @@ def take_along_fields(tables: torch.Tensor, ids: torch.Tensor
     ``tables`` (F, V, e), ``ids`` (B, F) → (B, F, e), row ``ids[b, f]`` of
     table ``f``, with :func:`take_rows`' semantics for ids out of range."""
     F, V = tables.shape[:2]
-    j = _from_end(ids, V)
+    j = from_end(ids, V)
     valid = (j >= 0) & (j < V)
     fields = torch.arange(F, device=ids.device)[None, :]
     rows = tables[fields, j.clamp(0, V - 1)]

@@ -20,10 +20,12 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import _host_array
 from repro_torch.config.base import TrainConfig
-from repro_torch.distrib.collectives import ShardView, batch_groups, span
+from repro_torch.distrib.collectives import (ShardView, batch_groups, local,
+                                             span)
 from repro_torch.distrib.sharding import (P, ShardedTensor, assemble,
                                           device_put, map_with_specs,
                                           sharded_zeros)
+from repro_torch.models.gnn.common import EdgeHomes
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_leaf,
                                      adamw_update, reference_ndims,
                                      tree_leaves, tree_map)
@@ -112,6 +114,121 @@ def new_sharded_train_state(params, mesh, state_specs) -> TrainState:
                            params, specs.v)))
 
 
+def _add_grads(mesh, views, sums) -> None:
+    """Add one batch shard's (or edge home's) gradients, block by block, to
+    ``sums`` at each block's owner (its first holder), after what is there:
+    called in ascending shard order, it adds the shards in that order. A
+    block the shard's loss did not reach adds nothing (as autograd's
+    accumulation over microbatches adds nothing: no zeros, so a −0.0
+    stays); :func:`_zeros_where_unreached` fills a block no shard
+    reached."""
+    with span("grad_psum"):
+        for j, view in enumerate(tree_leaves(views)):
+            x = view.x
+            for block, src, g in view.grads():
+                if g is None:
+                    continue
+                owner = x.layout.holders(block)[0]
+                if src != owner:
+                    mesh.count("grad_psum",
+                               g.numel() * g.element_size(), to=owner)
+                with mesh.at(owner):
+                    with mesh.moving():
+                        g = g.to(mesh.device(owner))
+                    prev = sums[j].get(block)
+                    sums[j][block] = g if prev is None else prev + g
+
+
+def _zeros_where_unreached(mesh, leaves, sums) -> None:
+    """Zeros, at its owner, for each block no shard's loss reached."""
+    for x, blocks in zip(leaves, sums):
+        for block in x.layout.blocks():
+            if block not in blocks:
+                owner = x.layout.holders(block)[0]
+                with mesh.at(owner):
+                    blocks[block] = torch.zeros_like(x.shards[owner])
+
+
+def _sharded_update(state: TrainState, sums, loss, tcfg: TrainConfig,
+                    mesh) -> Tuple[TrainState, dict]:
+    """The sharded steps' tail, from each leaf's summed gradient blocks
+    (``sums``, at their owners): the clip's global norm, gathered one leaf
+    at a time and summed in ``global_norm``'s leaf order (so it keeps that
+    function's bits), the clip scale and lr at position 0, AdamW on every
+    position's shards with the weight decay of each whole leaf's reference
+    ndim, and the step counter; the state is updated in place."""
+    leaves = tree_leaves(state.params)
+    dev0 = mesh.device(0)
+    # position 0's own work: the global norm, the clip scale, lr
+    with mesh.at(0):
+        # the global norm in global_norm's order: whole leaves, in order
+        total = 0
+        for x, blocks in zip(leaves, sums):
+            parts = {}
+            for block, g in blocks.items():
+                if 0 not in x.layout.holders(block):
+                    mesh.count("norm_gather",
+                               g.numel() * g.element_size(), to=0)
+                parts[block] = g
+            with span("norm_gather"), mesh.moving():
+                whole = assemble(x.layout, parts, dev0, g.dtype)
+            total = total + torch.sum(torch.square(whole.float()))
+            del whole, parts
+        gnorm = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+        scale = None
+        if tcfg.grad_clip > 0:
+            scale = torch.clamp(
+                tcfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
+
+        step0 = state.opt.step.shards[0]
+        lr = warmup_cosine(step0, tcfg.learning_rate, tcfg.warmup_steps,
+                           tcfg.total_steps)
+        t = (step0 + 1).to(torch.float32)
+        bc1 = 1.0 - tcfg.b1 ** t
+        bc2 = 1.0 - tcfg.b2 ** t
+        lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
+    on = {}  # device → (lr, bc1, bc2, scale) there
+
+    def consts(dev):
+        if dev not in on:
+            on[dev] = tuple(None if c is None else c.to(dev)
+                            for c in (lr_t, bc1, bc2, scale))
+        return on[dev]
+
+    opt = state.opt
+    with span("adamw"):
+        for j, (p, ndim, m, v) in enumerate(zip(
+                leaves, reference_ndims(state.params),
+                tree_leaves(opt.m), tree_leaves(opt.v))):
+            wd = tcfg.weight_decay if ndim >= 2 else 0.0
+            for block, g in sums[j].items():
+                holders = p.layout.holders(block)
+                if scale is not None:
+                    with mesh.at(holders[0]):
+                        g = g * consts(g.device)[3].to(g.dtype)
+                for pos in holders:
+                    dev = mesh.device(pos)
+                    if pos != holders[0]:
+                        mesh.count("grad_send",
+                                   g.numel() * g.element_size(), to=pos)
+                    with mesh.at(pos):
+                        c_lr, c_bc1, c_bc2, _ = consts(dev)
+                        with mesh.moving():
+                            g_pos = g.to(dev)
+                        adamw_leaf(p.shards[pos], g_pos, m.shards[pos],
+                                   v.shards[pos], c_lr, c_bc1, c_bc2,
+                                   tcfg.b1, tcfg.b2, tcfg.eps, wd)
+            sums[j] = None
+    step_shards = []
+    for pos, s in enumerate(opt.step.shards):
+        with mesh.at(pos):
+            step_shards.append(s + 1)
+    new_step = ShardedTensor(opt.step.layout, opt.step.dtype,
+                             step_shards)
+    return (TrainState(state.params, AdamWState(new_step, opt.m, opt.v)),
+            {"loss": loss, "grad_norm": gnorm, "lr": lr})
+
+
 def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                             state_specs, batch_spec,
                             microbatches: int = 1) -> Callable:
@@ -179,95 +296,73 @@ def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
             with mesh.at(0):
                 loss_d = loss_d.to(dev0)
                 loss = loss_d if loss is None else loss + loss_d
-            with span("grad_psum"):
-                for j, view in enumerate(tree_leaves(views)):
-                    x = view.x
-                    for block, src, g in view.grads():
-                        owner = x.layout.holders(block)[0]
-                        if src != owner:
-                            mesh.count("grad_psum",
-                                       g.numel() * g.element_size(), to=owner)
-                        with mesh.at(owner):
-                            with mesh.moving():
-                                g = g.to(mesh.device(owner))
-                            prev = sums[j].get(block)
-                            sums[j][block] = g if prev is None else prev + g
+            _add_grads(mesh, views, sums)
             del views
+        _zeros_where_unreached(mesh, leaves, sums)
         with mesh.at(0):
             loss = loss / microbatches
         for x, blocks in zip(leaves, sums):
             for block in blocks:
                 with mesh.at(x.layout.holders(block)[0]):
                     blocks[block] = blocks[block] / microbatches
+        return _sharded_update(state, sums, loss, tcfg, mesh)
 
-        # position 0's own work: the global norm, the clip scale, lr
+    return step
+
+
+def make_edge_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig,
+                                 mesh, state_specs, input_specs) -> Callable:
+    """The train step of one graph whose edge arrays are split into blocks
+    over ``mesh`` (the GNN cells): the counterpart of ``jax.jit(
+    make_train_step(loss_fn, tcfg), in_shardings=(state_specs,
+    input_specs))``. ``step(state, inputs) → (state, metrics)`` takes a
+    state placed by ``state_specs`` (replicated parameters,
+    :func:`new_sharded_train_state`) and inputs placed by ``input_specs``:
+    the edge arrays split along their first axis over the batch axes of
+    the first spec that splits one, one block per batch shard.
+
+    A graph has one loss, so there are no microbatches: one forward and
+    one backward run over every block's home. ``loss_fn`` gets a
+    ``models.gnn.common.EdgeHomes`` — the homes and each home's own
+    replica of the parameters, read through a ``ShardView`` of its group —
+    and runs each block's edge work at its home and the node-level work and
+    the loss at position 0 (``models/gnn/common.py``). The gradients of the
+    homes' replicas are added in ascending home order at each leaf's owner;
+    the norm, clip and AdamW are the tail of
+    :func:`make_sharded_train_step`.
+
+    With one edge block the step is ``make_train_step(loss_fn, tcfg)`` bit
+    for bit (loss, grad norm, every leaf): the same ops in the same order.
+    With more, the blocks' partial sums are added in block order (the
+    reference's psum), not in one serial sum, so the loss and gradients
+    differ by rounding."""
+    axes = next((spec[0] for spec in input_specs
+                 if spec is not None and len(spec) and spec[0] is not None),
+                None)
+    homes, groups = batch_groups(mesh, axes)
+
+    def step(state: TrainState, inputs) -> Tuple[TrainState, dict]:
+        leaves = tree_leaves(state.params)
+        for x in leaves:
+            if not isinstance(x, ShardedTensor) or x.mesh is not mesh:
+                raise ValueError("make_edge_sharded_train_step: the state "
+                                 "is not placed on the step's mesh")
+        views = [tree_map(lambda x: ShardView(x, h, g), state.params)
+                 for h, g in zip(homes, groups)]
+        params = EdgeHomes(mesh, tuple(homes),
+                           tuple(tree_map(local, v) for v in views))
         with mesh.at(0):
-            # the global norm in global_norm's order: whole leaves, in order
-            total = 0
-            for x, blocks in zip(leaves, sums):
-                parts = {}
-                for block, g in blocks.items():
-                    if 0 not in x.layout.holders(block):
-                        mesh.count("norm_gather",
-                                   g.numel() * g.element_size(), to=0)
-                    parts[block] = g
-                with span("norm_gather"), mesh.moving():
-                    whole = assemble(x.layout, parts, dev0, g.dtype)
-                total = total + torch.sum(torch.square(whole.float()))
-                del whole, parts
-            gnorm = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
-            scale = None
-            if tcfg.grad_clip > 0:
-                scale = torch.clamp(
-                    tcfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
-
-            step0 = state.opt.step.shards[0]
-            lr = warmup_cosine(step0, tcfg.learning_rate, tcfg.warmup_steps,
-                               tcfg.total_steps)
-            t = (step0 + 1).to(torch.float32)
-            bc1 = 1.0 - tcfg.b1 ** t
-            bc2 = 1.0 - tcfg.b2 ** t
-            lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
-        on = {}  # device → (lr, bc1, bc2, scale) there
-
-        def consts(dev):
-            if dev not in on:
-                on[dev] = tuple(None if c is None else c.to(dev)
-                                for c in (lr_t, bc1, bc2, scale))
-            return on[dev]
-
-        opt = state.opt
-        with span("adamw"):
-            for j, (p, ndim, m, v) in enumerate(zip(
-                    leaves, reference_ndims(state.params),
-                    tree_leaves(opt.m), tree_leaves(opt.v))):
-                wd = tcfg.weight_decay if ndim >= 2 else 0.0
-                for block, g in sums[j].items():
-                    holders = p.layout.holders(block)
-                    if scale is not None:
-                        with mesh.at(holders[0]):
-                            g = g * consts(g.device)[3].to(g.dtype)
-                    for pos in holders:
-                        dev = mesh.device(pos)
-                        if pos != holders[0]:
-                            mesh.count("grad_send",
-                                       g.numel() * g.element_size(), to=pos)
-                        with mesh.at(pos):
-                            c_lr, c_bc1, c_bc2, _ = consts(dev)
-                            with mesh.moving():
-                                g_pos = g.to(dev)
-                            adamw_leaf(p.shards[pos], g_pos, m.shards[pos],
-                                       v.shards[pos], c_lr, c_bc1, c_bc2,
-                                       tcfg.b1, tcfg.b2, tcfg.eps, wd)
-                sums[j] = None
-        step_shards = []
-        for pos, s in enumerate(opt.step.shards):
-            with mesh.at(pos):
-                step_shards.append(s + 1)
-        new_step = ShardedTensor(opt.step.layout, opt.step.dtype,
-                                 step_shards)
-        return (TrainState(state.params, AdamWState(new_step, opt.m, opt.v)),
-                {"loss": loss, "grad_norm": gnorm, "lr": lr})
+            with mesh.charge_backward():
+                loss = loss_fn(params, inputs)
+            loss.backward()
+            loss = loss.detach()
+        del params
+        sums = [dict() for _ in leaves]  # block → summed gradient
+        for v in views:
+            _add_grads(mesh, v, sums)
+        del views
+        _zeros_where_unreached(mesh, leaves, sums)
+        return _sharded_update(state, sums, loss, tcfg, mesh)
 
     return step
 

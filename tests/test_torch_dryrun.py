@@ -7,8 +7,10 @@ dims; ``roofline_terms`` takes the H100's rates. The reference's
 ``repro.launch.dryrun`` is never imported: its first lines set
 ``XLA_FLAGS``.
 
-The dry run of a reduced cell on a 2 × 2 meta mesh must count exactly
-what the same step counts when it runs on ``["cpu"] * 4`` with values:
+The dry run of a reduced cell (an LM, the IGPM refresh, DimeNet's
+edge-sharded step, BST's row-sharded train step) on a 2 × 2 meta mesh must
+count exactly what the same step counts when it runs on ``["cpu"] * 4``
+with values:
 collective bytes by name and by receiving position, and per position the
 FLOPs, the op bytes and the peak of the storage the step creates. The
 concrete run is repeated under ``FlopCounterMode`` (``check_flops``), whose
@@ -117,7 +119,8 @@ def test_roofline_terms_on_the_h100(case):
 
 RUNS = [("qwen3-moe-30b-a3b", "train_4k"), ("qwen3-moe-30b-a3b", "prefill_32k"),
         ("qwen3-moe-30b-a3b", "decode_32k"), ("smollm-135m", "long_500k"),
-        ("deepseek-7b", "train_4k"), ("igpm-pem", "friends2008")]
+        ("deepseek-7b", "train_4k"), ("igpm-pem", "friends2008"),
+        ("dimenet", "full_graph_sm"), ("bst", "train_batch")]
 
 
 @pytest.mark.parametrize("arch_id,shape_name", RUNS,
@@ -143,6 +146,15 @@ def test_meta_run_counts_what_a_concrete_run_counts(arch_id, shape_name):
         assert meta["cost"]["replayed_calls"] > 0
     # the IGPM sweep's index_add_ counts one FLOP per message
     assert meta["cost"]["flops_total"] > 0
+    if arch_id == "dimenet":
+        # one backward over both edge homes: each home's edge work, forward
+        # and backward, is charged to it (Mesh.charge_backward)
+        flops = meta["per_position"]["flops"]
+        assert flops[2] > 0 and flops[1] == flops[3] == 0
+        assert {"edge_psum", "edge_gather", "edge_scatter"} <= \
+            set(meta["collectives"])
+    if arch_id == "bst":
+        assert {"emb_ids", "emb_rows", "emb_grad"} <= set(meta["collectives"])
 
 
 @pytest.mark.parametrize("where", ["outside", "inside", "one-position"])
@@ -220,16 +232,19 @@ def test_record_keys():
 
 
 def test_all_lists_the_pending_cells_and_exits_0(tmp_path, capsys):
+    """``--all`` runs every cell, the GNN and BST cells included: none is
+    pending, and each record carries its roofline terms."""
     rc = dryrun.main(["--all", "--smoke", "--mesh", "2x2", "--out",
                       str(tmp_path)])
     out = capsys.readouterr().out
     assert rc == 0
-    assert "20 cells pending" in out and "24 dry-run cells ran OK" in out
+    assert "44 dry-run cells ran OK" in out and "pending" not in out
     recs = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
-    pending = [r for r in recs if "pending" in r]
-    assert len(recs) == 44 and len(pending) == 20
-    assert {r["pending"] for r in pending} == set(dryrun.PENDING.values())
-    assert all("roofline" in r for r in recs if "pending" not in r)
+    assert len(recs) == 44
+    assert not any("pending" in r for r in recs)
+    assert all("roofline" in r and "collectives" in r for r in recs)
+    fams = [get_arch(r["arch"]).family for r in recs]
+    assert fams.count("gnn") == 16 and fams.count("recsys") == 4
 
 
 def test_a_cell_that_raises_exits_1(tmp_path, monkeypatch, capsys):
@@ -239,6 +254,8 @@ def test_a_cell_that_raises_exits_1(tmp_path, monkeypatch, capsys):
     rc = dryrun.main(["--arch", "igpm-pem", "--shape", "friends2008",
                       "--smoke", "--mesh", "2x2", "--out", str(tmp_path)])
     assert rc == 1 and "1 FAILURES" in capsys.readouterr().out
-    # a pending cell is listed, not run, and fails nothing
+    # a cell that runs exits 0
+    monkeypatch.undo()
     assert dryrun.main(["--arch", "bst", "--shape", "serve_p99", "--smoke",
-                        "--out", str(tmp_path)]) == 0
+                        "--mesh", "2x2", "--out", str(tmp_path)]) == 0
+    assert "1 dry-run cells ran OK" in capsys.readouterr().out
