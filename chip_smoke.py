@@ -242,26 +242,34 @@ Phases, each printed on its own lines:
     equal, step s, arcs/s, peak memory. No kernel of the port lies on
     these paths: every launch count set to 0 before each phase must read
     0 after it.
-18. serve-sharded-lm (after serve-lm-configs) — qwen3-moe-30b-a3b at its
-    published widths, serve-lm's 8 layers and seeded bf16 weights, on a
-    2 × 2 ("data", "model") mesh (the first four cards, or ``cuda:0`` four
-    times: a check, not a speedup): prefill under the reference prefill
-    cell's ``fsdp`` rules, decode under ``tp2d``, the KV cache placed by
-    ``lm_cache_specs`` and never gathered (``distrib/serving.py``).
-    (i) serve-lm's 2 × 4,096 prompt and 16 tokens (batch whole, cache
-    sequence-split over all four positions); (ii) 16 × 2,048 and 8 tokens
-    (batch over "data", sequence over "model", experts where they live).
+18. serve-sharded-lm (after serve-lm-configs) — on a 2 × 2 ("data",
+    "model") mesh (the first four cards, or ``cuda:0`` four times: a
+    check, not a speedup), decode under ``tp2d`` with the weights where
+    they lie: every product on its weight blocks' holders, ``embed``
+    looked up where its blocks lie, the experts where they live whether or
+    not the batch is split, the KV cache placed by ``lm_cache_specs`` and
+    never gathered (``distrib/serving.py``). qwen3-moe-30b-a3b at its
+    published widths, serve-lm's 8 layers and seeded bf16 weights, prefill
+    under the reference prefill cell's ``fsdp`` rules: (i) serve-lm's 2 ×
+    4,096 prompt and 16 tokens (batch whole, cache sequence-split over all
+    four positions); (ii) 16 × 2,048 and 8 tokens (batch over "data",
+    sequence over "model"). (iii) deepseek-7b at its published widths and
+    all 30 layers, 16 × 1,024 and 8 tokens, prefill under ``tp2d`` too
+    (its one-card run first, its caches freed before the mesh is placed).
     Against the model on one card: prefill logits bitwise in (i), within
     serve-lm's bf16 consistency bounds (``LM_CONSIST_ATOL``,
-    ``LM_CONSIST_CORR``) in (ii); decode teacher-forced with the one-card
-    run's tokens within them at every step; greedy tokens
-    agreeing printed; two mesh runs bitwise equal; the decode tokens whose
-    top-8 experts differ from one card's, per layer; the flash and expert
-    GEMM inputs of the second run captured (one per kernel and shape) and
-    held against their plain versions within LM_KERNEL_RTOL, as phase 3
-    holds serve-lm's; wall times, bytes per
-    collective, launches (flash and both GEMM variants must launch) and
-    the step's roofline (``launch/roofline.py``: ``lm_model_flops`` /
+    ``LM_CONSIST_CORR``) in (ii) and (iii); decode teacher-forced with the
+    one-card run's tokens within them at every step; greedy tokens
+    agreeing printed; two mesh runs bitwise equal; one decode step's bytes
+    per collective and per receiving position, with no parameter moved
+    (no ``all_gather``; ``emb_*`` the batch's ids and rows only); the
+    launches exactly ``sharded_lm_launches``' (in (i) each of the 2
+    expert shards launches its own products); for qwen3-moe the decode
+    tokens whose top-8 experts differ from one card's, per layer; the
+    flash and expert GEMM inputs of the second run captured (one per
+    kernel and shape) and held against their plain versions within
+    LM_KERNEL_RTOL, as phase 3 holds serve-lm's; wall times and the step's
+    roofline (``launch/roofline.py``: ``lm_model_flops`` /
     ``lm_memory_bytes`` at the run's batch, length and depth over the
     H100's rates) with the measured time's share of it;
 19. igpm-cells (after the CLI) — the paper's own cell at the four Table
@@ -387,14 +395,18 @@ ADAPT_STEPS = 20
 LOSS_RTOL = 1e-5   # TD losses, card against CPU (adaptive agreement)
 # serve-sharded-lm: traffic (ii), the batch split over "data"
 SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT, SHARD_SERVE_TOKENS = 16, 2048, 8
+# serve-sharded-lm (iii): deepseek-7b whole, prefill and decode under tp2d
+TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_TOKENS = 16, 1024, 8
 # sharded logits against one card's: serve-lm's bf16 consistency bounds
 # (LM_CONSIST_ATOL on |diff|, LM_CONSIST_CORR on the correlation), which
 # hold one function computed in two orders in bf16. The split decode
 # attention adds its slices' partials in f32 in another order and rounds to
-# bf16; through 8 layers the logits moved by up to 0.0332 in (i), 0.0576
-# in (ii) (an H100 80GB HBM3 at 700 W; PERF.md §6). The phase prints the
-# decode tokens whose top-8 experts differ per layer, and holds the flash
-# and both GEMM variants against their plain versions at the run's shapes.
+# bf16, and each block product rounds its bf16 partials before the home adds
+# them in f32; through 8 layers the logits moved by up to 0.0752 in (i),
+# 0.0636 in (ii), 0.0236 in (iii) (an H100 80GB HBM3 at 700 W; PERF.md §6).
+# The phase prints the decode tokens whose top-8 experts differ per layer,
+# and holds the flash and both GEMM variants against their plain versions
+# at the run's shapes.
 # igpm-cells: refreshes timed per shape on one card; card vs CPU and mesh
 # vs card as a share of the table's largest entry (f32 sums of a vertex's
 # messages in another order: tens of terms, a few ulps each)
@@ -2183,7 +2195,8 @@ class StepProfiler:
         busy_us = sum(r[0] for r in rows)
         say(f"  profile {self.label} step {i}: wall {wall_s * 1e3:.1f} ms "
             f"(profiled), device busy {busy_us / 1e3:.1f} ms "
-            f"({100 * busy_us / 1e6 / wall_s:.1f} %)")
+            f"({100 * busy_us / 1e6 / wall_s:.1f} %) in "
+            f"{sum(r[1] for r in rows)} device ops")
         for dev_us, count, key in rows[:12]:
             say(f"    {dev_us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
         # the port's own kernels, summed by function over all instances
@@ -2202,23 +2215,27 @@ class StepProfiler:
 class CollectiveProfiler(StepProfiler):
     """``StepProfiler`` that also reports the device time under each
     collective's profiler range (``distrib.collectives.SPANS``) and keeps
-    it in ``spans``."""
+    it in ``spans``, and the host time under each range."""
 
-    def __init__(self, label: str):
-        super().__init__(True, label)
+    def __init__(self, label: str, enabled: bool = True):
+        super().__init__(enabled, label)
         self.spans = {}
 
     def report(self, prof, i: int, wall_s: float) -> None:
         from repro_torch.distrib.collectives import SPANS
         super().report(prof, i, wall_s)
+        host = {}
         for ev in prof.key_averages():
             if ev.key in SPANS:
                 ms = getattr(ev, "device_time_total",
                              getattr(ev, "cuda_time_total", 0.0)) / 1e3
                 self.spans[ev.key] = (ms, ev.count)
+                host[ev.key] = ev.cpu_time_total / 1e3
         say(f"  profile {self.label}: device time under each range: "
             + ", ".join(f"{k} {ms:.3f} ms ({n}x)"
                         for k, (ms, n) in sorted(self.spans.items())))
+        say(f"  profile {self.label}: host time under each range: "
+            + ", ".join(f"{k} {ms:.3f} ms" for k, ms in sorted(host.items())))
 
 
 def check_results(stats_deltas, where: str) -> int:
@@ -4316,51 +4333,52 @@ def hold_captured_lm(inputs, tag: str) -> list:
 
 
 class RouteSpy:
-    """Wrap ``models.moe.route`` to keep each call's top-k expert ids
+    """Wrap ``models.moe.routing`` (the one-card ``route`` and the mesh's
+    per-home MoE block both call it) to keep each call's top-k expert ids
     ((tokens, k), on the card) while ``armed``, in call order."""
 
     def __init__(self):
         from repro_torch.models import moe
-        self.moe, self._route = moe, moe.route
+        self.moe, self._routing = moe, moe.routing
         self.calls = []
         self.armed = False
 
     def __enter__(self):
-        spy, route = self, self._route
+        spy, routing = self, self._routing
 
-        def spy_route(*args, **kw):
-            r = route(*args, **kw)
+        def spy_routing(*args, **kw):
+            r = routing(*args, **kw)
             if spy.armed:
                 spy.calls.append(r.expert_idx.reshape(-1, r.expert_idx
                                                       .shape[-1]).clone())
             return r
 
-        self.moe.route = spy_route
+        self.moe.routing = spy_routing
         return self
 
     def __exit__(self, *exc):
-        self.moe.route = self._route
+        self.moe.routing = self._routing
         return False
 
 
 def routing_flips(plain_calls, mesh_calls, n_layers: int, n_shards: int,
                   n_steps: int) -> list:
     """Per MoE layer, the tokens of the decode steps whose top-k expert
-    set differs between the one-card run (one route call per layer and
-    step) and the mesh run (one per batch shard, layer and step, shard
-    after shard; its rows concatenated in batch order)."""
+    set differs between the one-card run (one routing call per layer and
+    step) and the mesh run (one per layer and batch shard and step, the
+    batch shards of a layer one after another; its rows concatenated in
+    batch order)."""
     import torch
     check(len(plain_calls) == n_layers * n_steps
           and len(mesh_calls) == n_shards * n_layers * n_steps,
-          f"route calls: {len(plain_calls)} one card, {len(mesh_calls)} "
+          f"routing calls: {len(plain_calls)} one card, {len(mesh_calls)} "
           f"on the mesh for {n_steps} steps of {n_layers} layers")
     flips = [0] * n_layers
     for s in range(n_steps):
-        base = s * n_shards * n_layers
         for i in range(n_layers):
+            base = (s * n_layers + i) * n_shards
             want = plain_calls[s * n_layers + i].sort(-1).values
-            got = torch.cat([mesh_calls[base + d * n_layers + i]
-                             for d in range(n_shards)]).sort(-1).values
+            got = torch.cat(mesh_calls[base:base + n_shards]).sort(-1).values
             flips[i] += int((got != want).any(-1).sum())
     return flips
 
@@ -4399,13 +4417,18 @@ def unsharded_serve(model, params, prompt, n_tokens: int, spy=None):
 
 
 def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
-                  bspec, want_tokens, capture=None, spy=None):
-    """Prefill on ``mesh`` under ``fsdp`` (cache placed by
-    ``lm_cache_specs``), then decode under ``tp2d``, teacher-forced with
+                  bspec, want_tokens, capture=None, spy=None, placed=None,
+                  prof=None):
+    """Prefill on ``mesh`` (cache placed by ``lm_cache_specs``), then decode
+    under ``tp2d`` with the weights where they lie, teacher-forced with
     ``want_tokens`` (the unsharded run's): per step the logits, the tokens
-    the run would have picked, wall times, bytes per collective, the
-    launches. ``capture`` (:class:`LmCapture`) is armed over prefill and
-    decode, ``spy`` (:class:`RouteSpy`) over decode."""
+    the run would have picked, wall times, bytes per collective (in all
+    and of the first decode step, with the bytes each position received),
+    the launches. The prefill runs under ``fsdp`` over ``params`` placed
+    for it, or, given ``placed`` (``params`` placed by the ``tp2d``
+    rules), under ``tp2d`` over those. ``capture`` (:class:`LmCapture`) is
+    armed over prefill and decode, ``spy`` (:class:`RouteSpy`) over
+    decode; ``prof`` (:class:`StepProfiler`) records decode step 1."""
     import torch
     from repro_torch.distrib.serving import (make_sharded_decode,
                                              make_sharded_prefill,
@@ -4413,24 +4436,26 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
     from repro_torch.distrib.sharding import lm_cache_specs, lm_param_specs
     B, S = prompt.shape
     out = {}
-    mesh.reset_bytes()
-    placed = place_params(params, mesh, lm_param_specs(params, cfg, "fsdp"))
+    policy = "fsdp" if placed is None else "tp2d"
+    pre = (place_params(params, mesh, lm_param_specs(params, cfg, "fsdp"))
+           if placed is None else placed)
     prefill = make_sharded_prefill(model, mesh, bspec,
                                    lm_cache_specs(False, B),
-                                   capacity=S + n_tokens)
+                                   capacity=S + n_tokens, policy=policy)
     torch.cuda.synchronize()
     mesh.reset_bytes()
     reset_all_counts()
     if capture is not None:
         capture.armed = True
     t0 = time.perf_counter()
-    lg, cache = prefill(placed, prompt)
+    lg, cache = prefill(pre, prompt)
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
     out["prefill_bytes"] = dict(mesh.bytes)
-    del placed
+    del pre
     torch.cuda.empty_cache()
-    placed = place_params(params, mesh, lm_param_specs(params, cfg))
+    if placed is None:
+        placed = place_params(params, mesh, lm_param_specs(params, cfg))
     decode = make_sharded_decode(model, mesh, bspec)
     logits, picked = [lg[:, -1:]], [torch.argmax(lg[:, -1:], dim=-1)]
     torch.cuda.synchronize()
@@ -4439,7 +4464,12 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
         spy.armed = True
     t0 = time.perf_counter()
     for i in range(n_tokens - 1):
-        lg, cache = decode(placed, want_tokens[i], cache, S + i)
+        step = (lambda: decode(placed, want_tokens[i], cache, S + i))
+        lg, cache = step() if prof is None else prof.step(i, step)
+        if i == 0:
+            out["step_bytes"] = dict(mesh.bytes)
+            out["step_received"] = [mesh.received.get(p, 0)
+                                    for p in range(mesh.size)]
         logits.append(lg)
         picked.append(torch.argmax(lg, dim=-1))
     torch.cuda.synchronize()
@@ -4451,50 +4481,124 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
     out["launches"] = read_all_counts()
     out["logits"], out["picked"] = logits, picked
     out["cache_spec"] = repr(cache[0].spec)
+    out["lookup_bytes"] = lookup_bytes(placed["embed"], mesh, bspec, B)
     del placed, cache
     torch.cuda.empty_cache()
     return out
 
 
-def phase_serve_sharded_lm():
-    """qwen3-moe-30b-a3b at its published widths, serve-lm's 8 of 48
-    layers and seeded bf16 weights, served on a 2 × 2 ("data", "model")
-    mesh (the first four cards, or ``cuda:0`` four times): prefill under
-    the reference prefill cell's ``fsdp`` rules, decode under ``tp2d``,
+# a tp2d decode step moves activations, the batch's ids and looked-up rows,
+# the KV cache's new entries and the logits; a parameter never
+TP_ACTIVATIONS = {"tp_act", "tp_partial", "emb_ids", "emb_rows",
+                  "expert_send", "kv_write", "q_send", "attn_partial",
+                  "logits_gather"}
+
+
+def lookup_bytes(embed, mesh, bspec, B: int) -> dict:
+    """``emb_ids`` and ``emb_rows`` of one decode step's lookup of B int32
+    tokens in the placed (V, d) table: each batch shard's ids go to every
+    block held away from its home, which sends back its column block of
+    the rows. A block serves a home from the holder that shares the
+    home's coordinates on the mesh axes the table's spec leaves out
+    (worked out here from the mesh's coordinates, not by the port)."""
+    from repro_torch.distrib.collectives import batch_groups
+    homes, _ = batch_groups(mesh, bspec[0])
+    lay = embed.layout
+    used = {a for axes in lay.axes for a in axes}
+    free = [a for a in mesh.axis_names if a not in used]
+
+    def server(block, home):
+        c = mesh.coords(home)
+        (p,) = [p for p in lay.holders(block)
+                if all(mesh.coords(p)[a] == c[a] for a in free)]
+        return p
+    remote = sum(server(b, h) != h for h in homes for b in lay.blocks())
+    Bd = B // len(homes)
+    return {"emb_ids": remote * Bd * 4,
+            "emb_rows": remote * Bd * lay.block_shape[1]
+            * embed.shards[0].element_size()}
+
+
+def sharded_lm_launches(cfg, mesh, B: int, n_tok: int, wide: bool,
+                        policy: str) -> dict:
+    """The kernel launches of one serve-sharded-lm run: flash once per
+    layer and batch shard at prefill (the decode attention is split over
+    the cache slices in plain torch); the expert GEMM's three products per
+    layer, batch shard and expert shard — at prefill with the tiles
+    variant (C 88 at a 1,024-token group), on the experts gathered at the
+    home under ``fsdp`` with the batch whole and where they live
+    otherwise; at each decode step with the skinny variant (C 8), where
+    they live (``tp2d``: M expert shards whether or not the batch is
+    split)."""
+    D = mesh.axis_size("data") if wide else 1
+    M = mesh.axis_size("model")
+    L = cfg.n_layers
+    want = {"flash_attention_fwd_wgmma": L * D}
+    if cfg.moe is not None:
+        pre = 1 if (policy == "fsdp" and not wide) else M
+        want["expert_gemm_wgmma"] = 3 * L * D * pre
+        want["expert_gemm_skinny"] = 3 * L * D * M * (n_tok - 1)
+    return want
+
+
+def phase_serve_sharded_lm(profile: bool = False):
+    """serve-lm's model on a 2 × 2 ("data", "model") mesh (the first four
+    cards, or ``cuda:0`` four times), decode under ``tp2d`` with every
+    product on its weight blocks' holders and the experts where they live,
     the KV cache placed by ``lm_cache_specs`` (``distrib/serving.py``).
-    (i) serve-lm's 2 × 4,096 prompt and 16 tokens: the batch whole, the
-    cache split along the sequence over all four positions; (ii) 16 ×
-    2,048 and 8 tokens: the batch split over "data", the cache's sequence
-    over "model", the experts where they live. Each against the unsharded
-    model on one card: prefill logits bitwise in (i), within serve-lm's
-    bf16 consistency bounds in (ii); decode teacher-forced with the
-    unsharded run's tokens, within those bounds at every step; the
-    greedy tokens that agree printed; two runs on the mesh bitwise
-    equal. Flash and the expert GEMM (tiles and skinny) must launch, and
-    the inputs each takes in the second mesh run (each kernel at each
-    shape, prefill and decode) are held against the plain versions
-    (:func:`hold_captured_lm`). The decode tokens whose top-8 experts
-    differ from the one-card run's are counted per layer."""
+    qwen3-moe-30b-a3b at its published widths, serve-lm's 8 of 48 layers
+    and seeded bf16 weights, prefill under the reference prefill cell's
+    ``fsdp`` rules: (i) serve-lm's 2 × 4,096 prompt and 16 tokens, the
+    batch whole, the cache split along the sequence over all four
+    positions; (ii) 16 × 2,048 and 8 tokens: the batch split over "data",
+    the cache's sequence over "model". (iii) deepseek-7b at its published
+    widths, all 30 layers: 16 × 1,024 and 8 tokens, prefill under
+    ``tp2d`` too (its one-card run goes first and its caches are freed
+    before the mesh is placed). Each against the unsharded model on one
+    card: prefill logits bitwise in (i), within serve-lm's bf16
+    consistency bounds in (ii) and (iii); decode teacher-forced with the
+    unsharded run's tokens, within those bounds at every step; the greedy
+    tokens that agree printed; two runs on the mesh bitwise equal. One
+    decode step's bytes per collective and per receiving position are
+    printed: no parameter moves (no ``all_gather``; ``emb_*`` the batch's
+    ids and rows only). The launches must be :func:`sharded_lm_launches`'
+    exactly, and the inputs each kernel takes in the second mesh run (each
+    at each shape) are held against the plain versions
+    (:func:`hold_captured_lm`). For qwen3-moe the decode tokens whose
+    top-8 experts differ from the one-card run's are counted per layer.
+    With ``profile``, the first mesh run's decode step 1 is profiled."""
     import dataclasses
     import torch
+    from repro_torch.config.registry import get_arch
     from repro_torch.configs.qwen3_moe_30b_a3b import FULL
-    from repro_torch.distrib.sharding import P
+    from repro_torch.distrib.serving import place_params
+    from repro_torch.distrib.sharding import P, lm_param_specs
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.transformer import TransformerLM
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(FULL, n_layers=LM_LAYERS)
     n_cards = torch.cuda.device_count()
     devices = ([f"cuda:{i}" for i in range(4)] if n_cards >= 4
                else ["cuda:0"] * 4)
     mesh = Mesh((2, 2), ("data", "model"), devices)
-    params = TransformerLM(cfg).init(
-        torch.Generator(device="cuda").manual_seed(0))
     total = {}
     res = {"mesh": str(mesh)}
-    for tag, B, S, n_tok in (("i", LM_BATCH, LM_PROMPT, LM_TOKENS),
-                             ("ii", SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT,
-                              SHARD_SERVE_TOKENS)):
+    qwen = dataclasses.replace(FULL, n_layers=LM_LAYERS)
+    cases = (("i", "qwen3-moe-30b-a3b", qwen, LM_BATCH, LM_PROMPT,
+              LM_TOKENS, "fsdp"),
+             ("ii", "qwen3-moe-30b-a3b", qwen, SHARD_SERVE_BATCH,
+              SHARD_SERVE_PROMPT, SHARD_SERVE_TOKENS, "fsdp"),
+             ("iii", "deepseek-7b", get_arch("deepseek-7b").model,
+              TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_TOKENS, "tp2d"))
+    params = params_cfg = None
+    for tag, arch, cfg, B, S, n_tok, policy in cases:
+        if params is None or params_cfg is not cfg:
+            del params
+            torch.cuda.empty_cache()
+            params = TransformerLM(cfg).init(
+                torch.Generator(device="cuda").manual_seed(0))
+            params_cfg = cfg
         wide = B >= 16
+        moe = cfg.moe is not None
         group = min(4096, max(64, B * S // 8))
         plain = TransformerLM(cfg, moe_group_size=group)
         model = TransformerLM(cfg, moe_group_size=group,
@@ -4508,16 +4612,29 @@ def phase_serve_sharded_lm():
         with RouteSpy() as plain_routes:
             want = unsharded_serve(plain, params, prompt, n_tok,
                                    spy=plain_routes)
+        torch.cuda.empty_cache()
+        placed = None
+        if policy == "tp2d":
+            placed = place_params(params, mesh, lm_param_specs(params, cfg))
+            del params
+            params = None
+            torch.cuda.empty_cache()
         a = sharded_serve(model, cfg, params, prompt, n_tok, mesh, bspec,
-                          want["tokens"])
+                          want["tokens"], placed=placed,
+                          prof=CollectiveProfiler(f"serve-sharded-lm ({tag}) "
+                                                  f"decode", profile))
         # the second run also keeps the kernels' inputs and the routing
         with LmCapture() as cap, RouteSpy() as mesh_routes:
             b = sharded_serve(model, cfg, params, prompt, n_tok, mesh, bspec,
-                              want["tokens"], capture=cap, spy=mesh_routes)
+                              want["tokens"], capture=cap, spy=mesh_routes,
+                              placed=placed)
+        del placed
         peak = torch.cuda.max_memory_allocated()
-        n_shards = mesh.shape[0] if wide else 1
-        flips = routing_flips(plain_routes.calls, mesh_routes.calls,
-                              cfg.n_layers, n_shards, n_tok - 1)
+        flips = None
+        if moe:
+            n_shards = mesh.shape[0] if wide else 1
+            flips = routing_flips(plain_routes.calls, mesh_routes.calls,
+                                  cfg.n_layers, n_shards, n_tok - 1)
         del plain_routes, mesh_routes
         held = hold_captured_lm(cap.inputs, tag)
         del cap
@@ -4531,17 +4648,25 @@ def phase_serve_sharded_lm():
         launches = {k: v for k, v in a["launches"].items() if v}
         for k, v in a["launches"].items():
             total[k] = total.get(k, 0) + v + b["launches"][k]
+        want_launches = sharded_lm_launches(cfg, mesh, B, n_tok, wide,
+                                            policy)
         pre = lm_roofline(cfg, "prefill", B, S)
         dec = lm_roofline(cfg, "decode", B, S + n_tok // 2)
         dec_step = a["decode_s"] / (n_tok - 1)
-        say(f"  serve-sharded-lm ({tag}) {B} x {S}, {n_tok} tokens on "
-            f"{mesh}, batch {bspec!r}, cache {a['cache_spec']}: prefill "
-            f"{a['prefill_s']:.3f} s (one card {want['prefill_s']:.3f} s), "
-            f"decode {dec_step * 1e3:.2f} ms/step (one card "
+        step = a["step_bytes"]
+        say(f"  serve-sharded-lm ({tag}) {arch} {cfg.n_layers} layers, d "
+            f"{cfg.d_model}, {B} x {S}, {n_tok} "
+            f"tokens on {mesh}, batch {bspec!r}, prefill {policy}, cache "
+            f"{a['cache_spec']}: prefill {a['prefill_s']:.3f} s (again "
+            f"{b['prefill_s']:.3f}; one card {want['prefill_s']:.3f} s), "
+            f"decode {dec_step * 1e3:.2f} ms/step (again "
+            f"{b['decode_s'] / (n_tok - 1) * 1e3:.2f}; one card "
             f"{want['decode_s'] / (n_tok - 1) * 1e3:.2f}); peak {peak} B")
         say(f"  serve-sharded-lm ({tag}) bytes: prefill "
             f"{a['prefill_bytes']}; decode ({n_tok - 1} steps) "
-            f"{a['decode_bytes']}; launches {launches}")
+            f"{a['decode_bytes']}; one decode step {step} = "
+            f"{sum(step.values())} B, received per position "
+            f"{a['step_received']}; launches {launches}")
         say(f"  serve-sharded-lm ({tag}) against one card: prefill logits "
             f"bitwise {torch.equal(a['logits'][0], want['logits'][0])}, "
             f"max |diff| per step {[round(d['max_abs'], 6) for d in diffs]}"
@@ -4549,13 +4674,14 @@ def phase_serve_sharded_lm():
             f"least correlation {min(d['corr'] for d in diffs):.6f}; bounds "
             f"{LM_CONSIST_ATOL}, {LM_CONSIST_CORR}); greedy tokens agreeing "
             f"{agree} of {n_tok} steps; two mesh runs bitwise {repeat}")
-        say(f"  serve-sharded-lm ({tag}) routing: decode tokens whose top-"
-            f"{cfg.moe.top_k} experts differ from one card's, per MoE layer "
-            f"{flips} of {B * (n_tok - 1)} each; kernels held at the run's "
-            f"shapes: {len(held)}")
-        say(f"  serve-sharded-lm ({tag}) roofline (H100 data sheet): "
-            f"prefill {pre['model_flops']:.4e} flop, {pre['memory_bytes']:.4e}"
-            f" B, {pre['roofline_s'] * 1e3:.3f} ms ({pre['dominant']}), "
+        if moe:
+            say(f"  serve-sharded-lm ({tag}) routing: decode tokens whose "
+                f"top-{cfg.moe.top_k} experts differ from one card's, per "
+                f"MoE layer {flips} of {B * (n_tok - 1)} each")
+        say(f"  serve-sharded-lm ({tag}) kernels held at the run's shapes: "
+            f"{len(held)}; roofline (H100 data sheet): prefill "
+            f"{pre['model_flops']:.4e} flop, {pre['memory_bytes']:.4e} B, "
+            f"{pre['roofline_s'] * 1e3:.3f} ms ({pre['dominant']}), "
             f"measured share {pre['roofline_s'] / a['prefill_s']:.4f}; "
             f"decode step {dec['model_flops']:.4e} flop, "
             f"{dec['memory_bytes']:.4e} B, {dec['roofline_s'] * 1e3:.4f} ms"
@@ -4573,13 +4699,23 @@ def phase_serve_sharded_lm():
                       f"differ")
         check(all(bool(torch.isfinite(x.float()).all()) for x in a["logits"]),
               f"serve-sharded-lm ({tag}): non-finite logits")
-        for k in ("flash_attention_fwd_wgmma", "expert_gemm_wgmma",
-                  "expert_gemm_skinny"):
-            check(a["launches"][k] > 0,
-                  f"serve-sharded-lm ({tag}) never launched {k}")
+        check(set(step) <= TP_ACTIVATIONS and step.get("tp_act", 0) > 0,
+              f"serve-sharded-lm ({tag}): a decode step moved {step}, not "
+              f"activations only")
+        check(all(step[k] == v for k, v in a["lookup_bytes"].items()),
+              f"serve-sharded-lm ({tag}): the lookup moved {step}, not "
+              f"the batch's ids and rows {a['lookup_bytes']}")
+        for run in (a, b):
+            got = {k: v for k, v in run["launches"].items() if v}
+            check(got == want_launches,
+                  f"serve-sharded-lm ({tag}): launches {got}, expected "
+                  f"{want_launches}")
+        for k in want_launches:
             check(any(h["kernel"] == k for h in held),
                   f"serve-sharded-lm ({tag}): no input of {k} captured")
-        res[tag] = dict(batch=B, prompt=S, tokens=n_tok,
+        res[tag] = dict(arch=arch, layers=cfg.n_layers,
+                        batch=B, prompt=S, tokens=n_tok,
+                        prefill_policy=policy,
                         prefill_s=a["prefill_s"],
                         prefill_s_again=b["prefill_s"],
                         one_card_prefill_s=want["prefill_s"],
@@ -4589,7 +4725,10 @@ def phase_serve_sharded_lm():
                         one_card_decode_ms_per_step=want["decode_s"]
                         / (n_tok - 1) * 1e3,
                         prefill_bytes=a["prefill_bytes"],
-                        decode_bytes=a["decode_bytes"], launches=launches,
+                        decode_bytes=a["decode_bytes"],
+                        decode_step_bytes=step,
+                        decode_step_received=a["step_received"],
+                        launches=launches,
                         max_abs=max(d["max_abs"] for d in diffs),
                         max_rel=max(d["rel"] for d in diffs),
                         min_corr=min(d["corr"] for d in diffs),
@@ -4847,7 +4986,7 @@ def main(argv=None) -> int:
     say("phase serve-lm-configs:")
     launches_configs, lm_configs = phase_serve_lm_configs()
     say("phase serve-sharded-lm:")
-    launches_ssl, serve_sharded_lm = phase_serve_sharded_lm()
+    launches_ssl, serve_sharded_lm = phase_serve_sharded_lm(args.profile)
     say("phase train-lm:")
     launches_train, train = phase_train_lm(args.profile)
     say("phase train-sharded:")

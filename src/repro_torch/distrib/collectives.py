@@ -9,9 +9,9 @@ Each one adds the bytes it moves between positions to ``mesh.bytes``
 under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``node_send``, ``user_send``, ``grad_psum``, ``grad_send``,
 ``norm_gather``, ``reshard``, ``edge_psum``, ``edge_gather``,
-``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``,
-``sparse_allreduce``, ``hierarchical_psum``), so a dry run can read the
-collective bytes from the mesh.
+``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``, ``tp_act``,
+``tp_partial``, ``sparse_allreduce``, ``hierarchical_psum``), so a dry run
+can read the collective bytes from the mesh.
 The step's collectives (and its AdamW) also run under
 ``torch.profiler.record_function`` ranges named in :data:`SPANS`, so a
 profile attributes device time to them.
@@ -25,8 +25,16 @@ device; the gather's backward hands each block its slice of the gradient.
 (:func:`send`) and brings the products back. ``take_rows`` and
 ``take_along_fields`` look rows up in a table split along its rows (BST's
 item table) or its vocab axis (its user tables) where the rows lie, so the
-table is never gathered whole. With ``grad=False`` (the sharded serving
-steps) a view reads the shards as they are.
+table is never gathered whole; a table split on its rows and its columns
+(the LM's ``embed`` under ``tp2d``) is looked up where its blocks lie too,
+without a backward yet. With ``grad=False`` (the sharded serving steps
+under ``fsdp``) a view reads the shards as they are.
+
+The serving steps under ``tp2d`` move no parameter (:class:`StationaryView`,
+:class:`Rows`, :func:`block_matmul`): the activations of every batch shard
+stay at its home as :class:`Rows`, each product runs on the positions that
+hold the weight's blocks, and :func:`each` runs the rest of the model at
+each home.
 
 A graph whose edge arrays are split into blocks (the GNNs' edge sharding)
 folds its per-block partial sums in block order (:func:`edge_psum`), reads
@@ -53,7 +61,8 @@ from repro_torch.sparse.segment import (from_end, segment_sum,
 # profiler ranges of the sharded train steps
 SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "user_send", "grad_psum", "norm_gather", "adamw", "edge_psum",
-         "edge_gather", "edge_scatter", "emb_ids", "emb_rows", "emb_grad")
+         "edge_gather", "edge_scatter", "emb_ids", "emb_rows", "emb_grad",
+         "tp_act", "tp_partial")
 span = torch.profiler.record_function
 
 
@@ -179,6 +188,60 @@ def send(x: torch.Tensor, mesh, src: int, dst: int,
     return _Send.apply(x, mesh, src, dst, name)
 
 
+def _select_rows(mesh, home: int, dim: int, n: int, ids, sources,
+                 parts) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """:class:`_Lookup`'s forward: the rows of ``ids`` (at ``home``) from K
+    equal blocks along ``dim`` (block k at position ``sources[k]``), and
+    each block's offsets of the ids."""
+    rows = parts[0].shape[dim]
+    with mesh.at(home):
+        j = from_end(ids, n)
+    offsets, out = [], None
+    for k, (src, part) in enumerate(zip(sources, parts)):
+        with span("emb_ids"), mesh.at(src), mesh.moving():
+            if src != home:
+                mesh.count("emb_ids", _nbytes(ids), to=src)
+            j_k = ids.to(part.device)
+        with mesh.at(src):
+            local = from_end(j_k, n) - k * rows
+            offsets.append(local)
+            at = local.clamp(0, rows - 1)
+            if dim == 0:
+                r_k = part[at]
+            else:
+                fields = torch.arange(part.shape[0],
+                                      device=part.device)[None, :]
+                r_k = part[fields, at]
+        with span("emb_rows"), mesh.at(home), mesh.moving():
+            if src != home:
+                mesh.count("emb_rows", _nbytes(r_k), to=home)
+            r_k = r_k.to(ids.device)
+        with mesh.at(home):
+            out = r_k if out is None else torch.where(
+                (j // rows == k)[..., None], r_k, out)
+    with mesh.at(home):
+        valid = (j >= 0) & (j < n)
+        out = out.masked_fill(~valid[..., None], float("nan"))
+    return out, offsets
+
+
+def take_rows_2d(mesh, home: int, n: int, ids: torch.Tensor,
+                 grid: Sequence[Tuple[Sequence[int], Sequence[torch.Tensor]]]
+                 ) -> torch.Tensor:
+    """``sparse.segment.take_rows`` of an (n, e) table split into K row
+    blocks and C column blocks, where the blocks lie: ``grid[c]`` holds
+    column block c's K blocks and their positions, in row order. For each
+    column block the ids go to its row blocks' holders (``emb_ids``), which
+    send back their column block of the rows (``emb_rows``); the home
+    selects each row from its row block (never by a sum, so a −0.0 row
+    stays −0.0) and joins the column blocks in order: the whole table's
+    ``take_rows`` bit for bit. Forward only (serving)."""
+    cols = [_select_rows(mesh, home, 0, n, ids, tuple(sources), parts)[0]
+            for sources, parts in grid]
+    with mesh.at(home):
+        return cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
+
+
 class _Lookup(torch.autograd.Function):
     """Rows of a table split into K equal blocks along ``dim`` (0: rows,
     ``take_rows``; 1: the vocab axis of (F, V, e) tables,
@@ -202,40 +265,13 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, home: int, dim: int, n: int, ids, sources,
                 *parts):
-        rows = parts[0].shape[dim]
-        j = from_end(ids, n)
-        ctx.mesh, ctx.home, ctx.dim, ctx.rows = mesh, home, dim, rows
+        ctx.mesh, ctx.home, ctx.dim = mesh, home, dim
+        ctx.rows = parts[0].shape[dim]
         ctx.sources = sources
         ctx.devices = [p.device for p in parts]
         ctx.part_shapes = [p.shape for p in parts]
-        ctx.shape = ids.shape
-        offsets, out = [], None
-        for k, (src, part) in enumerate(zip(sources, parts)):
-            with span("emb_ids"), mesh.at(src), mesh.moving():
-                if src != home:
-                    mesh.count("emb_ids", _nbytes(ids), to=src)
-                j_k = ids.to(part.device)
-            with mesh.at(src):
-                local = from_end(j_k, n) - k * rows
-                offsets.append(local)
-                at = local.clamp(0, rows - 1)
-                if dim == 0:
-                    r_k = part[at]
-                else:
-                    fields = torch.arange(part.shape[0],
-                                          device=part.device)[None, :]
-                    r_k = part[fields, at]
-            with span("emb_rows"), mesh.at(home), mesh.moving():
-                if src != home:
-                    mesh.count("emb_rows", _nbytes(r_k), to=home)
-                r_k = r_k.to(ids.device)
-            with mesh.at(home):
-                out = r_k if out is None else torch.where(
-                    (j // rows == k)[..., None], r_k, out)
-        with mesh.at(home):
-            valid = (j >= 0) & (j < n)
-            out = out.masked_fill(~valid[..., None], float("nan"))
-        ctx.offsets = offsets
+        out, ctx.offsets = _select_rows(mesh, home, dim, n, ids, sources,
+                                        parts)
         return out
 
     @staticmethod
@@ -336,12 +372,20 @@ class ShardView:
 
     def _lookup(self, ids: torch.Tensor, dim: int) -> torch.Tensor:
         lay = self.x.layout
+        order = sorted(self.proxies)
+        if dim == 0 and len(lay.counts) == 2 and lay.counts[1] > 1:
+            _no_backward(self.proxies.values(), "a lookup split on two axes")
+            K, C = lay.counts
+            grid = [([self.sources[(k, c)] for k in range(K)],
+                     [self.proxies[(k, c)] for k in range(K)])
+                    for c in range(C)]
+            return take_rows_2d(self.x.mesh, self.home, lay.shape[0], ids,
+                                grid)
         if lay.counts[dim] == 1 or any(
                 c != 1 for i, c in enumerate(lay.counts) if i != dim):
             whole = self.full()
             return (take_rows(whole, ids) if dim == 0
                     else take_along_fields(whole, ids))
-        order = sorted(self.proxies)
         return _Lookup.apply(self.x.mesh, self.home, dim, lay.shape[dim],
                              ids, tuple(self.sources[b] for b in order),
                              *(self.proxies[b] for b in order))
@@ -350,10 +394,259 @@ class ShardView:
 def local(x, experts: bool = False):
     """A batch shard's tensor for a parameter leaf: a :class:`ShardView`'s
     whole leaf (or, with ``experts``, its blocks where they live); a plain
-    tensor as it is."""
+    tensor, or a :class:`StationaryView`, as it is."""
     if isinstance(x, ShardView):
         return x.blocks() if experts else x.full()
     return x
+
+
+# -- the weights where they lie (serving under ``tp2d``) ----------------------
+
+def _no_backward(tensors, what: str) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{what} has no backward: it serves only")
+
+
+class Rows(NamedTuple):
+    """The activations of every batch shard, each on its home position's
+    device, in batch order."""
+    parts: List[torch.Tensor]
+    homes: List[int]
+    mesh: object
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        """Each batch shard's shape (the shards are equal)."""
+        return self.parts[0].shape
+
+
+class StationaryView:
+    """A placed parameter leaf whose blocks stay where they lie. The batch
+    shards read a 2-D weight through :func:`block_matmul` (``.T`` is the
+    transposed weight, the blocks transposed where they lie), a table
+    through :meth:`take_rows`, and any other leaf through :meth:`part`."""
+
+    def __init__(self, x: ShardedTensor, transposed: bool = False):
+        self.x, self.transposed = x, transposed
+        used = {a for axes in x.layout.axes for a in axes}
+        self._free = [a for a in x.mesh.axis_names if a not in used]
+
+    @property
+    def T(self) -> "StationaryView":
+        return StationaryView(self.x, not self.transposed)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        s = tuple(self.x.shape)
+        return s[::-1] if self.transposed else s
+
+    @property
+    def counts(self) -> Tuple[int, ...]:
+        c = tuple(self.x.layout.counts)
+        return c[::-1] if self.transposed else c
+
+    def holder(self, block: Tuple[int, ...], home: int) -> int:
+        """The position that serves ``block`` to the batch shard at
+        ``home``: of the block's holders, the one whose coordinates on the
+        mesh axes the leaf's spec leaves out are the home's."""
+        return self._home_part(home) + self._block_part(block)
+
+    def _home_part(self, home: int) -> int:
+        """``home``'s row-major position counted on the axes the spec
+        leaves out only (a position is the sum of its axes' parts)."""
+        mesh, pos, stride = self.x.mesh, 0, 1
+        coords = mesh.coords(home)
+        for a, n in zip(reversed(mesh.axis_names), reversed(mesh.shape)):
+            if a in self._free:
+                pos += coords[a] * stride
+            stride *= n
+        return pos
+
+    def _block_part(self, block: Tuple[int, ...]) -> int:
+        """``block``'s row-major position counted on the axes the spec
+        names."""
+        mesh, lay = self.x.mesh, self.x.layout
+        if self.transposed:
+            block = tuple(block)[::-1]
+        want = {}
+        for axes, i in zip(lay.axes, block):
+            for a in reversed(axes):
+                want[a] = i % mesh.axis_size(a)
+                i //= mesh.axis_size(a)
+        pos, stride = 0, 1
+        for a, n in zip(reversed(mesh.axis_names), reversed(mesh.shape)):
+            pos += want.get(a, 0) * stride
+            stride *= n
+        return pos
+
+    def block_at(self, pos: int) -> torch.Tensor:
+        """The block position ``pos`` holds, transposed with the view."""
+        shard = self.x.shards[pos]
+        return shard.T if self.transposed else shard
+
+    def part(self, home: int):
+        """The leaf as the batch shard at ``home`` reads it without a move:
+        the home's own copy of a leaf it holds whole, or a leaf split along
+        dimension 0 only (an expert weight) as :class:`Blocks` on the
+        positions that serve them."""
+        lay = self.x.layout
+        if all(c == 1 for c in lay.counts):
+            return self.x.shards[home]
+        if self.transposed or any(c != 1 for c in lay.counts[1:]):
+            raise ValueError(f"{self.x!r} is split past dim 0: read it "
+                             f"through block_matmul or take_rows")
+        pos = [self.holder(b, home) for b in lay.blocks()]
+        return Blocks([self.x.shards[p] for p in pos], pos, home,
+                      self.x.mesh)
+
+    def take_rows(self, ids: Rows) -> Rows:
+        """``sparse.segment.take_rows`` of the (n, e) table at each batch
+        shard's ids, the rows looked up where the blocks lie
+        (:func:`take_rows_2d`)."""
+        lay = self.x.layout
+        if self.transposed or len(lay.counts) != 2:
+            raise ValueError(f"take_rows of {self.x!r}: not an (n, e) table")
+        K, C = lay.counts
+        out = []
+        for idx, home in zip(ids.parts, ids.homes):
+            grid = []
+            for c in range(C):
+                pos = [self.holder((k, c), home) for k in range(K)]
+                grid.append((pos, [self.x.shards[p] for p in pos]))
+            out.append(take_rows_2d(ids.mesh, home, lay.shape[0], idx, grid))
+        return Rows(out, ids.homes, ids.mesh)
+
+    def columns_at(self, pos: int, j: int, width: int) -> torch.Tensor:
+        """Entries ``j·width … (j+1)·width − 1`` of this 1-D leaf from the
+        block position ``pos`` holds, which must cover them."""
+        lay = self.x.layout
+        n = lay.block_shape[0]
+        lo = j * width - lay.block_of(pos)[0] * n
+        if lo < 0 or lo + width > n:
+            raise ValueError(f"position {pos} does not hold entries "
+                             f"{j * width}..{(j + 1) * width - 1} of "
+                             f"{self.x!r}")
+        return self.x.shards[pos].narrow(0, lo, width)
+
+
+def each(fn, *args):
+    """``fn(*args)`` once per batch shard at its home (``Mesh.at``) where an
+    argument is :class:`Rows` (its shard's tensor) or a
+    :class:`StationaryView` (:meth:`StationaryView.part` at the home): the
+    results as Rows, a tuple of results as a tuple of Rows. Without Rows,
+    ``fn(*args)``."""
+    rows = next((a for a in args if isinstance(a, Rows)), None)
+    if rows is None:
+        return fn(*args)
+    outs = []
+    for d, home in enumerate(rows.homes):
+        with rows.mesh.at(home):
+            outs.append(fn(*(a.parts[d] if isinstance(a, Rows)
+                             else a.part(home)
+                             if isinstance(a, StationaryView) else a
+                             for a in args)))
+    if isinstance(outs[0], tuple):
+        return tuple(Rows(list(o), rows.homes, rows.mesh)
+                     for o in zip(*outs))
+    return Rows(outs, rows.homes, rows.mesh)
+
+
+def block_matmul(x: Rows, w: StationaryView, dtype: torch.dtype,
+                 bias: StationaryView = None) -> Rows:
+    """``x @ w.to(dtype) + bias`` for the rows of every batch shard, each
+    at its home, with the (n_in, n_out) weight ``w`` split into D_in ×
+    D_out blocks that stay where they lie. The slice of each home's rows
+    that block (i, j) contracts goes to the block's holder for that home
+    (:meth:`StationaryView.holder`; ``tp_act``), which multiplies the
+    slices of all the homes it serves, stacked, by its block in one
+    product (the bias's entries of column block j added to the products
+    of i = 0, where the holder keeps them). The partial products, in f32
+    when D_in > 1, go back to their homes (``tp_partial``), which join the
+    column blocks of each i in ascending j, add the i in ascending order in
+    f32 and cast the sum once to ``dtype``. A block served at the home
+    itself moves nothing, and
+    with D_in = D_out = 1 at the home it is ``x @ w.to(dtype)`` bit for
+    bit. Forward only (serving)."""
+    mesh, homes = x.mesh, x.homes
+    _no_backward(x.parts, "block_matmul")
+    n_in, n_out = w.shape
+    D_in, D_out = w.counts
+    b_in, b_out = n_in // D_in, n_out // D_out
+    cut = []
+    for xd, home in zip(x.parts, homes):
+        with mesh.at(home):
+            flat = xd.reshape(-1, n_in)
+            cut.append(torch.split(flat, b_in, dim=1) if D_in > 1
+                       else (flat,))
+    rows = [len(c[0]) for c in cut]
+    # the homes each holder serves: those whose part on the spec's free
+    # axes is the same (StationaryView.holder)
+    by_part: Dict[int, List[int]] = {}
+    for d, home in enumerate(homes):
+        by_part.setdefault(w._home_part(home), []).append(d)
+    plan = [((i, j), part + w._block_part((i, j)), ds)
+            for i in range(D_in) for j in range(D_out)
+            for part, ds in by_part.items()]
+    ins = []
+    with span("tp_act"), mesh.moving():
+        for (i, _), h, ds in plan:
+            moved = sum(rows[d] for d in ds if homes[d] != h)
+            if moved:
+                mesh.count("tp_act", moved * b_in * cut[ds[0]][i]
+                           .element_size(), to=h)
+            with mesh.at(h):
+                ins.append([cut[d][i].to(mesh.device(h)) for d in ds])
+    # with D_in > 1 the holders' partials are f32, so that the sum is
+    # rounded to ``dtype`` once, as one product's f32 accumulator is
+    pd = dtype if D_in == 1 else torch.float32
+    outs = []
+    for ((i, j), h, ds), xs in zip(plan, ins):
+        with mesh.at(h):
+            p = _mm(xs[0] if len(xs) == 1 else torch.cat(xs),
+                    w.block_at(h).to(dtype), pd)
+            if bias is not None and i == 0:
+                p = p + bias.columns_at(h, j, b_out).to(pd)
+            outs.append(torch.split(p, [rows[d] for d in ds])
+                        if len(ds) > 1 else (p,))
+    del ins
+    got = [[[None] * D_out for _ in range(D_in)] for _ in homes]
+    moved = [0] * len(homes)
+    with span("tp_partial"), mesh.moving():
+        for ((i, j), h, ds), ps in zip(plan, outs):
+            for d, p in zip(ds, ps):
+                if homes[d] != h:
+                    moved[d] += rows[d] * b_out * pd.itemsize
+                with mesh.at(homes[d]):
+                    got[d][i][j] = p.to(mesh.device(homes[d]))
+    del outs
+    out = []
+    for xd, home, parts, nbytes in zip(x.parts, homes, got, moved):
+        if nbytes:
+            mesh.count("tp_partial", nbytes, to=home)
+        with mesh.at(home):
+            cols = [g[0] if D_out == 1 else torch.cat(g, dim=1)
+                    for g in parts]
+            y = cols[0]
+            for c in cols[1:]:
+                y = y + c
+            out.append(y.to(dtype).reshape(*xd.shape[:-1], n_out))
+    return Rows(out, homes, mesh)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, out: torch.dtype) -> torch.Tensor:
+    """``a @ b`` with the result in ``out``: the card's and meta's f32
+    output of a bf16/f16 product (``torch.mm``'s ``out_dtype``), the
+    operands widened on the CPU, which has no such product; the products
+    of two bf16 or f16 entries are exact in f32 either way."""
+    if out == a.dtype:
+        return a @ b
+    if a.device.type == "cpu":
+        return a.to(out) @ b.to(out)
+    return torch.mm(a, b, out_dtype=out)
 
 
 # -- a graph's edge blocks (the GNNs' edge sharding) ---------------------------

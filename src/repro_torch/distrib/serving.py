@@ -1,18 +1,33 @@
 """The LM's serving steps over a device mesh: prefill under the ``fsdp``
-rules, decode under ``tp2d``, the KV cache placed by ``lm_cache_specs``.
+rules (the prefill cell's default) or ``tp2d``, decode under ``tp2d``, the
+KV cache placed by ``lm_cache_specs``.
 
 The reference's prefill and decode cells are ``jax.jit`` over
 ``model.prefill`` / ``model.decode_step`` with ``in_shardings`` from the
-same rules; XLA's SPMD partitioner then splits the compute (Megatron's
-split under ``tp2d``). The single-controller mesh has no partitioner, so
-these steps make the ZeRO-style choice the sharded train step made
-(``train.state.make_sharded_train_step``): parameters are *stored* by their
-specs and gathered layer by layer at each batch shard's home position
-(``ShardView`` / ``local``, read-only here), and with ``act_spec`` and
-expert-sharded MoE the experts stay where they live. The batch splits
-over the batch axes of ``batch_spec`` (one batch shard when the spec
-leaves it whole); batch shard d runs on its home, inside
-``Mesh.at``.
+same rules; XLA's SPMD partitioner then runs each product where the weight
+blocks lie and moves activations (Megatron's split under ``tp2d``, which
+the reference keeps for decode because per-token parameter gathers would
+destroy latency). The single-controller mesh has no partitioner, so these
+steps say where each piece of work runs. The batch splits over the batch
+axes of ``batch_spec`` (one batch shard when the spec leaves it whole);
+batch shard d's activations live on its home position.
+
+* Under ``tp2d`` no parameter moves: the model gets a
+  ``collectives.StationaryView`` of every placed leaf and the tokens of
+  every batch shard as ``collectives.Rows``. Each product runs on the
+  positions that hold the weight's blocks, on the rows of every batch
+  shard at once (``collectives.block_matmul``: the activations go to the
+  holders as ``tp_act``, the partial products come back as
+  ``tp_partial``), ``embed`` is looked up where its blocks lie
+  (``emb_ids``, ``emb_rows``; the tied head multiplies by its transposed
+  blocks), and the experts stay where they live whether or not the batch
+  is split (``expert_send``). The norms, RoPE, attention and the residual
+  stream run at each home.
+* Under ``fsdp`` (prefill) each batch shard runs ``model.prefill`` at its
+  home over parameters *stored* by their specs and gathered layer by layer
+  there (``ShardView`` / ``local``, read-only here; ``all_gather``), the
+  ZeRO-style choice of the sharded train step; with ``act_spec`` and
+  expert-sharded MoE the experts stay where they live.
 
 The KV cache is a pair of ``ShardedTensor`` s (L, B, S, KV, hd) placed by
 ``lm_cache_specs``: ``P(None, ba, "model", None, None)`` for B ≥ the
@@ -27,24 +42,25 @@ slice's unnormalised (m, l, o), and adds the partials back at the home
 (``attn_partial``) in ascending slice order with the log-sum-exp rescale
 (``layers.combine_attention_partials``). Every move is counted in
 ``mesh.bytes`` under the name in parentheses; the logits come to position
-0 (``logits_gather``). The split attention sums in another order than
-``decode_attention``, so decode logits differ from one device's by
-rounding; with one batch shard the prefill is one device's bit for bit.
+0 (``logits_gather``). The split attention and the block products sum in
+another order than one device, so decode logits (and ``tp2d`` prefill
+logits) differ from one device's by rounding; under ``fsdp`` with one
+batch shard the prefill is one device's bit for bit.
 
 BST's serve cells (:func:`make_sharded_click`, :func:`make_sharded_retrieval`)
-take the same single-controller shape: the forward per batch shard at its
-home, or the candidates per block at theirs, the outputs joined at
+take the per-batch-shard shape of ``fsdp``: the forward per batch shard at
+its home, or the candidates per block at theirs, the outputs joined at
 position 0.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distrib.collectives import ShardView, batch_groups, send
+from repro_torch.distrib.collectives import (Rows, ShardView, StationaryView,
+                                             batch_groups, send)
 from repro_torch.distrib.sharding import (Layout, ShardedTensor, device_put,
                                           map_with_specs)
 from repro_torch.models import layers as L
@@ -66,6 +82,22 @@ def place_params(params: Any, mesh, specs: Any) -> Any:
 def _views(params, home: int, group) -> Any:
     return tree_map(lambda x: ShardView(x, home, group, grad=False)
                     if isinstance(x, ShardedTensor) else x, params)
+
+
+def _stationary(params) -> Any:
+    return tree_map(lambda x: StationaryView(x)
+                    if isinstance(x, ShardedTensor) else x, params)
+
+
+def _rows(mesh, t: torch.Tensor, homes: List[int]) -> Rows:
+    """``t``'s rows cut into one equal batch shard per home, each copied
+    there."""
+    Bd = t.shape[0] // len(homes)
+    parts = []
+    for d, home in enumerate(homes):
+        with mesh.at(home):
+            parts.append(t[d * Bd:(d + 1) * Bd].to(mesh.device(home)))
+    return Rows(parts, homes, mesh)
 
 
 def _to_position_0(mesh, parts: List[torch.Tensor], homes: List[int]
@@ -116,12 +148,17 @@ def place_cache(mesh, spec, parts: List[Tuple[torch.Tensor, torch.Tensor]],
 
 
 def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
-                         capacity: Optional[int] = None) -> Callable:
+                         capacity: Optional[int] = None,
+                         policy: str = "fsdp") -> Callable:
     """``prefill(params, tokens) → (logits, (k_cache, v_cache))``:
-    ``model.prefill`` once per batch shard at its home over ``params``
-    placed by their specs (:func:`place_params`), the logits (B, 1, V) on
+    ``model.prefill`` over ``params`` placed by the ``policy`` rules
+    (:func:`place_params`) — under ``tp2d`` over every batch shard at once
+    with the weights where they lie, under ``fsdp`` once per batch shard at
+    its home with each layer gathered there — the logits (B, 1, V) on
     position 0 and the cache placed by ``cache_spec`` with room for
     ``capacity`` positions (default: the prompt's)."""
+    if policy not in ("fsdp", "tp2d"):
+        raise ValueError(f"make_sharded_prefill: unknown policy {policy!r}")
     homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
                                  else None)
     D = len(homes)
@@ -131,16 +168,23 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
         if B % D:
             raise ValueError(f"batch {B} does not split over {D} shards")
         Bd = B // D
-        logits, caches = [], []
         with torch.no_grad():
-            for d in range(D):
-                home = homes[d]
-                with mesh.at(home):
-                    views = _views(params, home, groups[d])
-                    tok = tokens[d * Bd:(d + 1) * Bd].to(mesh.device(home))
-                    lg, kv = model.prefill(views, tok)
-                logits.append(lg)
-                caches.append(kv)
+            if policy == "tp2d":
+                lg, (ks, vs) = model.prefill(_stationary(params),
+                                             _rows(mesh, tokens, homes))
+                logits, caches = lg.parts, list(zip(ks.parts, vs.parts))
+                del ks, vs
+            else:
+                logits, caches = [], []
+                for d in range(D):
+                    home = homes[d]
+                    with mesh.at(home):
+                        views = _views(params, home, groups[d])
+                        tok = tokens[d * Bd:(d + 1) * Bd].to(
+                            mesh.device(home))
+                        lg, kv = model.prefill(views, tok)
+                    logits.append(lg)
+                    caches.append(kv)
             cache = place_cache(mesh, cache_spec, caches, homes,
                                 S if capacity is None else capacity)
             del caches
@@ -154,10 +198,11 @@ def make_sharded_decode(model, mesh, batch_spec) -> Callable:
     token per sequence (B, 1) at position ``cache_len`` (a Python int)
     against ``cache`` placed by ``lm_cache_specs`` (written in place),
     over ``params`` placed by their specs; the logits (B, 1, V) on
-    position 0. Each batch shard runs ``model.decode_step`` at its home
-    with the split attention as its ``attend``."""
-    homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
-                                 else None)
+    position 0. ``model.decode_step`` runs over every batch shard at once
+    with the weights where they lie, each batch shard's attention split
+    over its cache slices."""
+    homes, _ = batch_groups(mesh, batch_spec[0] if len(batch_spec)
+                            else None)
     D = len(homes)
     cd = model.compute_dtype
 
@@ -203,22 +248,26 @@ def make_sharded_decode(model, mesh, batch_spec) -> Callable:
             raise ValueError(f"batch {B} does not split over {D} shards")
         Bd = B // D
         Bb = lay.block_shape[1]
-        outs = []
+        plans = []
+        for d in range(D):
+            b = d * Bd // Bb
+            plans.append(dict(home=homes[d], r0=d * Bd - b * Bb, slices=sorted(
+                (blk[2], lay.holders(blk)[0])
+                for blk in lay.blocks() if blk[1] == b)))
+
+        def attend_rows(i, q, k, v, cache, n):
+            out = []
+            for d, plan in enumerate(plans):
+                with mesh.at(plan["home"]):
+                    out.append(attend(i, q.parts[d], k.parts[d], v.parts[d],
+                                      cache, n, **plan))
+            return Rows(out, homes, mesh)
+
         with torch.no_grad():
-            for d in range(D):
-                home = homes[d]
-                b = d * Bd // Bb
-                slices = sorted((blk[2], lay.holders(blk)[0])
-                                for blk in lay.blocks() if blk[1] == b)
-                with mesh.at(home):
-                    tok = token[d * Bd:(d + 1) * Bd].to(mesh.device(home))
-                    lg, _ = model.decode_step(
-                        _views(params, home, groups[d]), tok, cache, n,
-                        attend=functools.partial(attend, home=home,
-                                                 r0=d * Bd - b * Bb,
-                                                 slices=slices))
-                outs.append(lg)
-            return _to_position_0(mesh, outs, homes), cache
+            lg, _ = model.decode_step(_stationary(params),
+                                      _rows(mesh, token, homes), cache, n,
+                                      attend=attend_rows)
+            return _to_position_0(mesh, lg.parts, homes), cache
 
     return decode
 

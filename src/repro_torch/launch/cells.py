@@ -144,8 +144,11 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     ``REPRO_LM_PREFILL_POLICY`` (default ``fsdp``), decode under
     ``tp2d``, as the reference's cells do. Placed on a mesh, prefill and
     decode are ``distrib.serving``'s steps (the cache placed by
-    ``lm_cache_specs``); decode takes ``cache_len`` as a Python int, its
-    build-time value S // 2 where the tensor is a meta stand-in."""
+    ``lm_cache_specs``): under ``tp2d`` every product runs where its
+    weight blocks lie and no parameter moves, under ``fsdp`` each layer is
+    gathered at each batch shard's home; decode takes ``cache_len`` as a
+    Python int, its build-time value S // 2 where the tensor is a meta
+    stand-in."""
     cfg: TransformerConfig = arch.model
     shape = arch.shape(shape_name)
     dims = LM_SMOKE_DIMS[shape.name] if smoke else shape.dims
@@ -198,7 +201,8 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
         if _placed(mesh, concrete):
             params = place_params(params, mesh, pspec)
             step = make_sharded_prefill(model, mesh, bspec,
-                                        lm_cache_specs(multi_pod, B))
+                                        lm_cache_specs(multi_pod, B),
+                                        policy=policy)
         return Cell(arch.arch_id, shape.name, "prefill", model,
                     step, (params, tokens),
                     {"tokens_per_step": B * S}, in_sh)

@@ -39,10 +39,13 @@ formula added to the table, which FlopCounterMode then uses too).
 Argument bytes per position come from the placed arguments
 (``distrib.sharding.position_bytes``; whole tensors count at position 0).
 
-The single controller's layout is not symmetric: each batch shard's home
-computes, the other positions store state. So every ``*_per_chip`` value
-of the record is the busiest position's, and ``per_position`` keeps the
-lists. The roofline's compute term takes max(counted FLOPs, analytic model
+The single controller's layout is not symmetric. Under ``fsdp`` (the
+train and prefill cells) each batch shard's home computes and the other
+positions store state (and run their experts); under ``tp2d`` (the decode
+cells) every position multiplies its own weight blocks for the homes it
+serves, and the homes run the norms, attention and the residual stream.
+So every ``*_per_chip`` value of the record is the busiest position's, and
+``per_position`` keeps the lists. The roofline's compute term takes max(counted FLOPs, analytic model
 FLOPs × remat) per chip as the reference does; the analytic terms per
 chip divide the totals by the chip count.
 
@@ -85,8 +88,10 @@ from repro_torch.train import state as train_state
 REPORT_DIR = Path(__file__).resolve().parents[3] / "reports" / "dryrun_torch"
 
 PER_CHIP = ("the busiest mesh position's value: one process drives every "
-            "position, each batch shard's home computes and the other "
-            "positions store state, so positions differ")
+            "position; under fsdp each batch shard's home computes and the "
+            "other positions store state, under tp2d every position "
+            "multiplies its weight blocks and the homes run the rest, so "
+            "positions differ")
 
 _ALLOC = {torch.ops.aten.empty.memory_format,
           torch.ops.aten.empty_strided.default,
@@ -517,7 +522,8 @@ def main(argv=None) -> int:
         print(f"[dryrun] {tag}: ok run={rec['run_s']}s "
               f"compute={r['compute_s']:.4g}s mem={r['memory_s']:.4g}s "
               f"coll={r['collective_s']:.4g}s dominant={r['dominant']} "
-              f"peak={rec['memory']['peak_per_chip_gb']} GB", flush=True)
+              f"peak={rec['memory']['peak_per_chip_gb']} GB "
+              f"collectives={rec['collectives']}", flush=True)
 
     if args.jobs > 1 and len(tasks) > 1:
         import multiprocessing as mp_

@@ -10,6 +10,11 @@ gradient is needed it goes through the autograd function
 ``FlashAttention`` instead (the kernels forward and backward on CUDA, their
 plain versions on the CPU). ``softmax_xent_chunked`` and
 ``softmax_xent_sharded`` are the training loss's cross entropy.
+
+Every product with a weight goes through :func:`linear`, which multiplies
+on the positions that hold the weight's blocks when it is handed a
+``distrib.collectives.StationaryView`` (serving on a mesh under ``tp2d``,
+the activations :class:`~repro_torch.distrib.collectives.Rows`).
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distrib.collectives import (StationaryView, block_matmul,
+                                             each)
 from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 
@@ -198,11 +205,24 @@ def combine_attention_partials(parts, dtype: torch.dtype) -> torch.Tensor:
     return out.reshape(B, 1, KV * G, hd).to(dtype)
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    g = x @ w_gate.to(x.dtype)
-    u = x @ w_up.to(x.dtype)
-    return (F.silu(g) * u) @ w_down.to(x.dtype)
+def linear(x, w, dtype: torch.dtype, bias=None):
+    """``x @ w.to(dtype)`` (+ ``bias.to(dtype)``); with a
+    :class:`StationaryView` weight (and bias) ``block_matmul`` of the
+    batch shards' rows ``x``."""
+    if isinstance(w, StationaryView):
+        return block_matmul(x, w, dtype, bias)
+    y = x @ w.to(dtype)
+    return y if bias is None else y + bias.to(dtype)
+
+
+def _gated(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    return F.silu(g) * u
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = linear(x, w_gate, x.dtype)
+    u = linear(x, w_up, x.dtype)
+    return linear(each(_gated, g, u), w_down, x.dtype)
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,

@@ -21,15 +21,19 @@ combine as its backward (:class:`DispatchGather`): autograd's own backward
 for a gather is ``scatter_add_``, which adds a token's k slot gradients
 with atomics on the card, in no fixed order.
 
-With ``exp_spec`` (expert parallelism, the reference's
-``models/moe.py:88-109``) the expert weights may come as
-:class:`~repro_torch.distrib.collectives.Blocks`, E / M experts on each
-"model" shard's device: the dispatch buffer stays with its batch shard,
+The expert weights may come as
+:class:`~repro_torch.distrib.collectives.Blocks` (expert parallelism, the
+reference's ``models/moe.py:88-109`` under ``exp_spec``; in the serving
+steps under ``tp2d`` whether or not the batch is split), E / M experts on
+each "model" shard's device: the dispatch buffer stays with its batch shard,
 each shard's E slice of it is sent where its experts live, the three
 products run there on E / M experts, and the outputs come back and are
 concatenated along E in shard order before the combine. Each expert's
 products, and the backward's dX and dW, read only that expert's rows, so
-the result is bitwise the unsharded one, forward and backward.
+the result is bitwise the unsharded one, forward and backward. Handed
+every batch shard's tokens as ``Rows`` (serving under ``tp2d``), the block
+takes the router's logits from one ``layers.linear`` over all of them and
+runs the rest at each home.
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
-from repro_torch.distrib.collectives import Blocks, send, send_slices
+from repro_torch.distrib.collectives import (Blocks, Rows, each, send,
+                                             send_slices)
 from repro_torch.kernels.expert_gemm import ExpertGemm
+from repro_torch.models.layers import linear
 
 
 def moe_capacity(group_tokens: int, n_experts: int, top_k: int,
@@ -74,19 +80,32 @@ class Routing(NamedTuple):
     rows: torch.Tensor        # (G, N) dispatch row e·C + rank, E·C if dropped
 
 
+def _groups(T: int, n_groups: int) -> Tuple[int, int]:
+    """(G, S): ``n_groups`` groups of T / G tokens, one group when
+    ``n_groups`` does not divide T."""
+    G = n_groups if T % n_groups == 0 else 1
+    return G, T // G
+
+
 def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
           n_groups: int, capacity_factor: float = 1.25) -> Routing:
     """Top-k routing and the per-group sort-based slot assignment of
     ``moe_block`` for x: (T, d)."""
     T, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    G = n_groups if T % n_groups == 0 else 1
-    S = T // G
-    C = moe_capacity(S, E, k, capacity_factor)
-    dev = x.device
+    G, S = _groups(T, n_groups)
+    return routing(x.reshape(G, S, d) @ router.to(x.dtype), cfg,
+                   capacity_factor)
 
-    logits = (x.reshape(G, S, d) @ router.to(x.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)                     # (G, S, E)
+
+def routing(logits: torch.Tensor, cfg: MoEConfig,
+            capacity_factor: float = 1.25) -> Routing:
+    """:func:`route` from the router's (G, S, E) logits."""
+    G, S, _ = logits.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = moe_capacity(S, E, k, capacity_factor)
+    dev = logits.device
+
+    probs = torch.softmax(logits.float(), dim=-1)             # (G, S, E)
     gate_vals, expert_idx = top_k_stable(probs, k)            # (G, S, k)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)                # renormalize
@@ -110,19 +129,36 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
                    keep, rows)
 
 
-def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
+def moe_block(x, params: Dict[str, torch.Tensor],
               cfg: MoEConfig, n_groups: int,
-              capacity_factor: float = 1.25,
-              exp_spec=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float = 1.25
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d) → (y: (T, d), aux_loss scalar).
 
     params: router (d, E); wg/wu (E, d, f); wd (E, f, d), each a tensor
-    or, with ``exp_spec``, :class:`Blocks` of it along E (the experts
-    where they live).
+    or, for the experts, :class:`Blocks` of it along E (the experts where
+    they live, as the reference's ``exp_spec`` places them). With x as
+    ``Rows`` (and the leaves as ``StationaryView`` s) y and aux come as
+    Rows.
     """
+    if isinstance(x, Rows):
+        G, S = _groups(x.shape[0], n_groups)
+        logits = linear(x, params["router"], x.dtype)
+
+        def block(xd, lg, wg, wu, wd):
+            r = routing(lg.reshape(G, S, -1), cfg, capacity_factor)
+            return _routed(xd, r, wg, wu, wd, cfg)
+        return each(block, x, logits, params["wg"], params["wu"],
+                    params["wd"])
+    r = route(x, params["router"], cfg, n_groups, capacity_factor)
+    return _routed(x, r, params["wg"], params["wu"], params["wd"], cfg)
+
+
+def _routed(x: torch.Tensor, r: Routing, wg, wu, wd, cfg: MoEConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_block` after the routing ``r``."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    r = route(x, params["router"], cfg, n_groups, capacity_factor)
     G, S, C = r.G, r.S, r.C
     N = S * k
     dev = x.device
@@ -149,10 +185,10 @@ def moe_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
     buf[dst.reshape(-1)] = src.reshape(G * N, d)
     x_exp = buf[:G * E * C].view(G * E, C, d)
 
-    if exp_spec is not None and isinstance(params["wg"], Blocks):
-        y_exp = _experts_where_they_live(x_exp.view(G, E, C, d), params)
+    if isinstance(wg, Blocks):
+        y_exp = _experts_where_they_live(x_exp.view(G, E, C, d), wg, wu, wd)
     else:
-        y_exp = _experts(x_exp, params["wg"], params["wu"], params["wd"])
+        y_exp = _experts(x_exp, wg, wu, wd)
     y_exp = y_exp.view(G, E * C, d)
 
     # combine: sorted slot i feeds token r.tokens[i]; each token gathers its
@@ -171,13 +207,13 @@ def _experts(x_exp: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     return gemm(h, wd.to(dt))
 
 
-def _experts_where_they_live(x4: torch.Tensor, params) -> torch.Tensor:
+def _experts_where_they_live(x4: torch.Tensor, wg: Blocks, wu: Blocks,
+                             wd: Blocks) -> torch.Tensor:
     """(G, E, C, d) dispatch buffer at its batch shard's position → the
     (G, E, C, d) expert outputs there: each expert shard's E slice is sent
     to the shard's device, multiplied there by its E / M experts, and sent
     back; the slices are concatenated along E in shard order."""
     G, E, C, d = x4.shape
-    wg, wu, wd = params["wg"], params["wu"], params["wd"]
     mesh, home = wg.mesh, wg.home
     if len(wg.parts) == 1 and wg.positions[0] == home:
         return _experts(x4.reshape(G * E, C, d), wg.parts[0], wu.parts[0],

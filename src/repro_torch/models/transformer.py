@@ -33,14 +33,23 @@ Entry points:
 With ``act_spec`` (a PartitionSpec such as ``P("data", None, None)``)
 the loss takes the vocab-parallel cross entropy
 (``layers.softmax_xent_sharded``) and, when ``moe_shard == "expert"``,
-the MoE layers pass ``exp_spec = P(batch_axes, "model", None, None)`` to
-``moe_block``, as the reference's model does. The port has no GSPMD to
-pin activations to: the sharded train step (``train.state.
-make_sharded_train_step``) runs each batch shard's activations on its own
-device, and hands the model its parameters as per-batch-shard views
-(``distrib.collectives.ShardView``) that each layer gathers where it uses
-them (and, under ``remat="full"``, again in the recompute); with
-``exp_spec`` the expert weights stay where they live.
+the MoE layers keep the expert weights where they live, as the
+reference's model does under ``exp_spec = P(batch_axes, "model", None,
+None)``. The port has no GSPMD to
+pin activations to. The sharded train step (``train.state.
+make_sharded_train_step``) and the serving steps under ``fsdp`` run each
+batch shard's activations on its own device and hand the model its
+parameters as per-batch-shard views (``distrib.collectives.ShardView``)
+that each layer gathers where it uses them (and, under ``remat="full"``,
+again in the recompute); with ``exp_spec`` the expert weights stay where
+they live. The serving steps under ``tp2d`` (``distrib.serving``) move no
+parameter: they hand the model ``StationaryView`` s of every leaf and the
+tokens of every batch shard as ``Rows``. Each product then runs on the
+positions that hold the weight's blocks (``layers.linear``), the table is
+looked up where its rows lie, the experts stay where they live, and the
+norms, RoPE, attention and the residual stream run at each batch shard's
+home (``collectives.each``, which calls the function as it is when no
+argument is ``Rows``).
 
 The KV cache is (L, B, S, KV, hd) ×2 in bf16, as in the reference, even for
 f32 configs. ``decode_step`` writes the new token's keys and values into
@@ -58,7 +67,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import TransformerConfig
-from repro_torch.distrib.collectives import local
+from repro_torch.distrib.collectives import StationaryView, each, local
 from repro_torch.distrib.sharding import P
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe_params, moe_block
@@ -172,22 +181,23 @@ class TransformerLM:
 
     # -- layer body -------------------------------------------------------------
 
-    def _qkv(self, p: Params, x: torch.Tensor, positions: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return L.rms_norm(x, w.to(self.compute_dtype), self.cfg.rms_eps)
+
+    def _qkv(self, p: Params, x, positions):
         """The layer's queries (B, S, H, hd) and keys and values
         (B, S, KV, hd), RoPE applied."""
-        cfg = self.cfg
-        B, S, d = x.shape
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         cd = self.compute_dtype
-        h = L.rms_norm(x, p["ln1"].to(cd), cfg.rms_eps)
-        q = h @ p["wq"].to(cd)
-        k = h @ p["wk"].to(cd)
-        v = h @ p["wv"].to(cd)
-        if cfg.qkv_bias:
-            q = q + p["bq"].to(cd)
-            k = k + p["bk"].to(cd)
-            v = v + p["bv"].to(cd)
+        h = each(self._norm, x, p["ln1"])
+        q, k, v = (L.linear(h, p[w], cd, p.get(b))
+                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        return each(self._rope, q, k, v, positions)
+
+    def _rope(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              positions: torch.Tensor):
+        cfg = self.cfg
+        B, S = q.shape[:2]
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q = q.reshape(B, S, H, hd)
         k = k.reshape(B, S, KV, hd)
         v = v.reshape(B, S, KV, hd)
@@ -195,20 +205,17 @@ class TransformerLM:
         k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _attn_out(self, p: Params, x: torch.Tensor,
-                  o: torch.Tensor) -> torch.Tensor:
+    def _attn_out(self, p: Params, x, o):
         """The residual stream after the output projection of attention
         output ``o`` (B, S, H, hd)."""
-        B, S, _ = x.shape
-        o = o.reshape(B, S, -1) @ p["wo"].to(self.compute_dtype)
-        return x + o
+        o = L.linear(each(torch.flatten, o, 2), p["wo"], self.compute_dtype)
+        return each(torch.add, x, o)
 
-    def _attn(self, p: Params, x: torch.Tensor, positions: torch.Tensor
-              ) -> Tuple[torch.Tensor, Cache]:
+    def _attn(self, p: Params, x, positions):
         """Causal attention over the whole sequence: the residual stream
         after it, and the layer's (k, v)."""
         q, k, v = self._qkv(p, x, positions)
-        o = L.blockwise_attention(q, k, v, causal=True)
+        o = each(L.blockwise_attention, q, k, v)
         return self._attn_out(p, x, o), (k, v)
 
     def _cache_attend(self, i: int, q: torch.Tensor, k: torch.Tensor,
@@ -227,24 +234,22 @@ class TransformerLM:
             cache_len=torch.full((B,), cache_len + 1, dtype=torch.int32,
                                  device=q.device))
 
-    def _mlp(self, p: Params, x: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _mlp(self, p: Params, x):
         cfg = self.cfg
-        cd = self.compute_dtype
-        B, S, d = x.shape
-        h = L.rms_norm(x, p["ln2"].to(cd), cfg.rms_eps)
+        h = each(self._norm, x, p["ln2"])
         if cfg.moe is None:
             y = L.swiglu(h, p["wg"], p["wu"], p["wd"])
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = each(_no_aux, x)
         else:
-            T = B * S
-            n_groups = max(1, T // self.moe_group_size)
-            y2d, aux = moe_block(h.reshape(T, d), p["moe"], cfg.moe,
-                                 n_groups, exp_spec=self.exp_spec)
-            y = y2d.reshape(B, S, d)
+            B, S, d = h.shape
+            n_groups = max(1, B * S // self.moe_group_size)
+            y, aux = moe_block(each(torch.reshape, h, (B * S, d)), p["moe"],
+                               cfg.moe, n_groups)
+            y = each(torch.reshape, y, (B, S, d))
             if cfg.moe.n_shared_experts:
-                y = y + L.swiglu(h, p["sg"], p["su"], p["sd"])
-        return x + y, aux
+                y = each(torch.add, y,
+                         L.swiglu(h, p["sg"], p["su"], p["sd"]))
+        return each(torch.add, x, y), aux
 
     def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -254,17 +259,19 @@ class TransformerLM:
 
     # -- forward ---------------------------------------------------------------
 
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"].to(self.compute_dtype)[tokens.long()]
+    def _embed(self, params: Params, tokens):
+        emb = params["embed"]
+        if isinstance(emb, StationaryView):
+            return each(torch.Tensor.to, emb.take_rows(tokens),
+                        self.compute_dtype)
+        return emb.to(self.compute_dtype)[tokens.long()]
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        B, S = tokens.shape
         if positions is None:
-            positions = torch.arange(S, device=tokens.device)[None] \
-                .expand(B, S)
+            positions = _prompt_positions(tokens)
         if cfg.remat not in ("full", "dots", "none"):
             raise ValueError(f"TransformerLM: unknown remat {cfg.remat!r}")
         params = self._local(params)
@@ -279,16 +286,15 @@ class TransformerLM:
             else:
                 x, a = self._layer(lp, x, positions)
             aux = aux + a
-        x = L.rms_norm(x, params["ln_f"].to(self.compute_dtype), cfg.rms_eps)
-        return x, aux
+        return self._norm(x, params["ln_f"]), aux
 
     def _head_w(self, params: Params) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return params["embed"].T
         return params["head"]
 
-    def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ self._head_w(params).to(hidden.dtype)
+    def logits(self, params: Params, hidden):
+        return L.linear(hidden, self._head_w(params), hidden.dtype)
 
     def loss(self, params: Params, tokens: torch.Tensor,
              labels: torch.Tensor, aux_coef: float = 0.01) -> torch.Tensor:
@@ -307,30 +313,31 @@ class TransformerLM:
 
     # -- serving ----------------------------------------------------------------
 
-    def prefill(self, params: Params, tokens: torch.Tensor
-                ) -> Tuple[torch.Tensor, Cache]:
+    def prefill(self, params: Params, tokens) -> Tuple[torch.Tensor, Cache]:
         """Full-sequence forward returning last-position logits + KV cache.
 
         Cache layout: (L, B, S, KV, hd) ×2, bf16.
         """
-        cfg = self.cfg
-        B, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        positions = each(_prompt_positions, tokens)
         params = self._local(params)
         x = self._embed(params, tokens)
-        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-        ks = torch.empty(shape, dtype=torch.bfloat16, device=tokens.device)
-        vs = torch.empty(shape, dtype=torch.bfloat16, device=tokens.device)
+        ks, vs = each(self._empty_cache, tokens)
         for i, lp in enumerate(params["layers"]):
             lp = self._local_layer(lp)
             x, (k, v) = self._attn(lp, x, positions)
             x, _ = self._mlp(lp, x)
-            ks[i] = k.to(torch.bfloat16)
-            vs[i] = v.to(torch.bfloat16)
-        x = L.rms_norm(x, params["ln_f"].to(self.compute_dtype), cfg.rms_eps)
-        return self.logits(params, x[:, -1:]), (ks, vs)
+            each(_store_kv, ks, vs, k, v, i)
+        x = each(self._norm, x, params["ln_f"])
+        return self.logits(params, each(_last, x)), (ks, vs)
 
-    def decode_step(self, params: Params, token: torch.Tensor, cache: Cache,
+    def _empty_cache(self, tokens: torch.Tensor) -> Cache:
+        cfg = self.cfg
+        B, S = tokens.shape
+        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+        return (torch.empty(shape, dtype=torch.bfloat16, device=tokens.device),
+                torch.empty(shape, dtype=torch.bfloat16, device=tokens.device))
+
+    def decode_step(self, params: Params, token, cache: Cache,
                     cache_len: int, attend: Optional[Callable] = None
                     ) -> Tuple[torch.Tensor, Cache]:
         """One-token decode. token: (B, 1); cache: (L, B, S, KV, hd) ×2,
@@ -338,11 +345,9 @@ class TransformerLM:
         cache, cache_len) → o`` replaces layer ``i``'s cache attention
         (default :meth:`_cache_attend`): a cache laid out over a mesh
         brings its own (``distrib.serving``)."""
-        cfg = self.cfg
-        B = token.shape[0]
         cache_len = int(cache_len)
         attend = attend or self._cache_attend
-        positions = torch.full((B, 1), cache_len, device=token.device)
+        positions = each(_decode_positions, token, cache_len)
         params = self._local(params)
         x = self._embed(params, token)
         for i, lp in enumerate(params["layers"]):
@@ -350,7 +355,7 @@ class TransformerLM:
             q, k, v = self._qkv(lp, x, positions)
             x = self._attn_out(lp, x, attend(i, q, k, v, cache, cache_len))
             x, _ = self._mlp(lp, x)
-        x = L.rms_norm(x, params["ln_f"].to(self.compute_dtype), cfg.rms_eps)
+        x = each(self._norm, x, params["ln_f"])
         return self.logits(params, x), cache
 
     def make_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,
@@ -359,6 +364,29 @@ class TransformerLM:
         shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
         return (torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _prompt_positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+
+def _decode_positions(token: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.full((token.shape[0], 1), n, device=token.device)
+
+
+def _store_kv(ks: torch.Tensor, vs: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, i: int) -> None:
+    ks[i] = k.to(torch.bfloat16)
+    vs[i] = v.to(torch.bfloat16)
+
+
+def _last(x: torch.Tensor) -> torch.Tensor:
+    return x[:, -1:]
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:

@@ -23,6 +23,7 @@ tracker refuses an op that runs outside every ``Mesh.at``.
 
 import contextlib
 import json
+import math
 
 import pytest
 import torch
@@ -259,3 +260,40 @@ def test_a_cell_that_raises_exits_1(tmp_path, monkeypatch, capsys):
     assert dryrun.main(["--arch", "bst", "--shape", "serve_p99", "--smoke",
                         "--mesh", "2x2", "--out", str(tmp_path)]) == 0
     assert "1 dry-run cells ran OK" in capsys.readouterr().out
+
+
+def test_tp2d_decode_cell_moves_no_parameter():
+    """qwen3-moe decode_32k (B 128) on the 16 × 16 meta mesh runs the
+    ``tp2d`` path: no parameter byte moves (no ``all_gather``; the embed
+    lookup moves each home's 8 ids to the 255 blocks it does not hold and
+    their rows back), the busiest position holds its share of the
+    parameters under the reference's specs (each leaf's bytes over its
+    block count: 256 for the dense matrices and ``embed``, 16 for the
+    experts, the router and the head, which the specs split over one axis)
+    plus its cache block, within 5 %, and its peak is within 5 % of that:
+    no weight is gathered into its temporaries."""
+    from repro_torch.distrib.sharding import (Layout, lm_param_specs,
+                                              map_with_specs)
+    from repro_torch.models.transformer import TransformerLM
+    rec = dryrun.run_cell("qwen3-moe-30b-a3b", "decode_32k")
+    coll = rec["collectives"]
+    assert "all_gather" not in coll
+    assert coll["tp_act"] > 0 and coll["tp_partial"] > 0
+    d = get_arch("qwen3-moe-30b-a3b").model.d_model
+    assert coll["emb_ids"] == 16 * 255 * 8 * 4
+    assert coll["emb_rows"] == 16 * 255 * 8 * (d // 16) * 2
+    cfg = get_arch("qwen3-moe-30b-a3b").model
+    params = TransformerLM(cfg).init(torch.Generator(), device="meta")
+    mesh = dryrun.meta_mesh(False)
+    shares = []
+    map_with_specs(lambda x, s: shares.append(
+        x.numel() * x.element_size()
+        // math.prod(Layout(mesh, s, x.shape).counts)),
+        params, lm_param_specs(params, cfg))
+    share = sum(shares)
+    cache = 2 * cfg.n_layers * (128 // 16) * (32768 // 16) \
+        * cfg.n_kv_heads * cfg.head_dim * 2
+    mem = rec["memory"]
+    assert abs(mem["argument_bytes"] - (share + cache)) <= 0.05 * (share
+                                                                   + cache)
+    assert mem["peak_per_chip_gb"] * 1e9 <= 1.05 * mem["argument_bytes"]

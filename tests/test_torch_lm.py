@@ -262,18 +262,23 @@ def test_top_k_ties_go_to_the_lower_index():
 
 
 def test_unported_sharding_knobs_raise():
-    """The sharding knobs have landed (ROADMAP item 13.5): ``exp_spec``
-    with whole expert weights gives the block without it bit for bit, and
-    ``act_spec`` takes the vocab-parallel cross entropy (the expert
-    shards' own parity is ``tests/test_torch_sharded_train.py``)."""
+    """The sharding knobs have landed (ROADMAP item 13.5): the expert
+    weights where they live (the reference's ``exp_spec``), whole in one
+    block at the home, give the block bit for bit, and ``act_spec`` takes
+    the vocab-parallel cross entropy (the expert shards' own parity is
+    ``tests/test_torch_sharded_train.py``)."""
+    from repro_torch.distrib.collectives import Blocks
     from repro_torch.distrib.sharding import P
+    from repro_torch.launch.mesh import Mesh
     mcfg = MoEConfig(n_experts=2, top_k=1, d_ff_expert=8)
     g = torch.Generator().manual_seed(0)
     params = TM.init_moe_params(g, mcfg, 4)
     x = torch.randn((8, 4), generator=g)
     y0, a0 = TM.moe_block(x, params, mcfg, 1)
-    y1, a1 = TM.moe_block(x, params, mcfg, 1,
-                          exp_spec=P("data", "model", None, None))
+    mesh = Mesh((1, 1), ("data", "model"), ["cpu"])
+    placed = {k: v if k == "router" else Blocks([v], [0], 0, mesh)
+              for k, v in params.items()}
+    y1, a1 = TM.moe_block(x, placed, mcfg, 1)
     assert torch.equal(y0, y1) and torch.equal(a0, a1)
     model = TransformerLM(DENSE, act_spec=P("data", None, None))
     params = model.init(torch.Generator().manual_seed(0),

@@ -111,14 +111,14 @@ def test_moe_block_with_exp_spec_is_bitwise_the_unsharded_block(n_model, E,
     x = torch.randn((G * 24, 16), generator=g)
     dy = torch.randn((G * 24, 16), generator=g)
 
-    def run(exp_spec, wrap):
+    def run(wrap):
         xs = x.clone().requires_grad_(True)
         ps = {n: t.clone().requires_grad_(True) for n, t in params.items()}
-        y, aux = TM.moe_block(xs, wrap(ps), cfg, G, exp_spec=exp_spec)
+        y, aux = TM.moe_block(xs, wrap(ps), cfg, G)
         (y * dy).sum().add(aux).backward()
         return y.detach(), aux.detach(), xs.grad, ps
 
-    y0, a0, gx0, p0 = run(None, lambda ps: ps)
+    y0, a0, gx0, p0 = run(lambda ps: ps)
     mesh = Mesh((1, n_model), ("data", "model"), ["cpu"] * n_model)
     blocks = {}
 
@@ -130,7 +130,7 @@ def test_moe_block_with_exp_spec_is_bitwise_the_unsharded_block(n_model, E,
             blocks[n] = parts
             out[n] = Blocks(parts, list(range(n_model)), 0, mesh)
         return out
-    y1, a1, gx1, p1 = run(P("data", "model", None, None), wrap)
+    y1, a1, gx1, p1 = run(wrap)
     assert torch.equal(y0, y1) and torch.equal(a0, a1)
     assert torch.equal(gx0, gx1)
     assert torch.equal(p0["router"].grad, p1["router"].grad)
