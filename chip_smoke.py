@@ -199,6 +199,28 @@ Phases, each printed on its own lines:
    wgmma kernels (2 forwards — the forward and the dots recompute — and 1
    backward per step, microbatch and layer), and one more step's
    gradients under ``"dots"`` and under ``"none"`` must be bitwise equal;
+   then train-sharded-tp2d — training on the 2 × 2 mesh under the
+   reference's ``tp2d`` rules with the weights where they lie
+   (``train.state.make_tp2d_train_step``: every product on its weight
+   blocks' holders forward and backward, ``embed`` looked up and its
+   gradient summed where its blocks lie, the cross entropy per vocab
+   block where the head's blocks lie with only per-row statistics moving):
+   (i) train-lm's model, batches and schedule (``act_spec``, batch over
+   "data"), 2 steps, then 2 more from the seed, bitwise equal; (ii)
+   smollm-135m whole with its tied head (d over "data", V over "model"),
+   train-smollm's batches, 2 steps; each step's loss within
+   ``TP_TRAIN_LOSS_RTOL`` and grad norm within ``TP_TRAIN_NORM_RTOL`` of the
+   one-card run's, no ``all_gather`` or ``all_gather_grad``, the peak under
+   ``TP_TRAIN_PEAK``, the launches exactly (train-sharded's per step with
+   2 expert shards in (i); 120 flash forwards and 60 backwards in (ii));
+   per step the bytes by collective, time, tokens/s, peak and state bytes
+   per position, and for (i) step 0's top-8 choices that differ from one
+   card's per layer; each leaf's AdamW first moment after the 2 steps (a
+   sum of gradients of the initial weights) within ``TP_LEAF_FACTOR``
+   times an f32 one-card run's gap from the bf16 one-card run's; and the
+   first input that each kernel took at each shape ((i)'s second run:
+   flash forward and backward, the expert GEMM's tiles, dX and dW; (ii):
+   flash) held against its plain version;
 15. control (run after phase 12, on serve-adaptive's server, ``rwr_tol``
     set to 1e-4 so all seven actions are live; reset between runs, its
     PEM state put back, its PEM reward fed one seeded elapsed schedule
@@ -286,8 +308,8 @@ Phases, each printed on its own lines:
     ``igpm_memory_bytes``) with its share.
 
 Then a ``{"kernels": [...]}`` JSON line (every kernel with its serve and
-train launches, train-sharded's among them, both flash backward kernels
-too), the card line,
+train launches, train-sharded's and train-sharded-tp2d's among them, both
+flash backward kernels too), the card line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line. ``--profile`` adds a device-time profile of one step of each
 served path.
@@ -349,6 +371,21 @@ SMOL_BATCH, SMOL_MICRO, SMOL_STEPS = 8, 2, 5
 # form) against 512-token chunks, bf16 logits rounded from sums in
 # another order
 SHARD_LOSS_RTOL = 1e-4
+# train-sharded-tp2d: the tp2d step's losses and grad norms against the
+# one-card runs' first two steps (train-lm's, train-smollm's), relative:
+# every product's partials and the vocab blocks' statistics fold in block
+# order, and the router, a D_in = 2 block product on 2 x 2, may flip a
+# near-tie among the top 8; the peak allowed on the card
+TP_TRAIN_LOSS_RTOL, TP_TRAIN_NORM_RTOL = 1e-3, 1e-2
+TP_TRAIN_STEPS = 2
+TP_TRAIN_PEAK = 75e9
+# train-sharded-tp2d's leaf check: per leaf, ||m - m_card|| / ||m_card||
+# of AdamW's first moment after TP_TRAIN_STEPS steps (a sum of both steps'
+# clipped gradients, all of the initial weights), mesh against one card,
+# at most this many times the same gap of an f32 one-card run (the
+# control: what bf16 rounding and the router flips it causes do to that
+# leaf)
+TP_LEAF_FACTOR = 2.0
 # train-agreement: card against CPU, 3 steps of 2 microbatches
 AGREE_STEPS = 3
 AGREE_LOSS_RTOL = 1e-4
@@ -1572,6 +1609,8 @@ def phase_train_lm(profile: bool = False):
         state, m = inner(state, *(torch.as_tensor(a, device="cuda")
                                   for a in pipe.batch_at(i)))
         again.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == TP_TRAIN_STEPS - 1:   # for train-sharded-tp2d's leaf check
+            moments = host_moments(state)
     del state
     torch.cuda.empty_cache()
     say(f"  train-lm again from seed 0 (no checkpoint): (loss, grad_norm) "
@@ -1589,7 +1628,8 @@ def phase_train_lm(profile: bool = False):
         tokens_per_s=[tokens / dt for dt in metrics.step_times],
         peak_bytes=peak, run_s=run_s, checkpoint_and_batches_s=ckpt_s,
         checkpoint_bytes=n_ckpt, phase_s=phase_s, profile_parts=parts,
-        repeat_bitwise=again == first, digests=digests)
+        repeat_bitwise=again == first, digests=digests,
+        moments=moments)
 
 
 def leaf_digest(t) -> int:
@@ -1662,16 +1702,18 @@ def sharded_launch_want(n_model: int) -> dict:
 
 
 def sharded_steps(tag, step, state, mesh, pipe, first: int, n: int,
-                  n_model: int, total: dict, prof=None):
+                  n_model: int, total: dict, prof=None, want=None,
+                  label: str = "train-sharded",
+                  tokens: int = TRAIN_BATCH * TRAIN_SEQ):
     """Run ``n`` sharded steps on batches ``first``, …: per step the
-    launches (set to 0 before, read after, checked exactly), loss, grad
+    launches (set to 0 before, read after, checked exactly against
+    ``want``, by default ``sharded_launch_want(n_model)``), loss, grad
     norm, time, tokens/s, peak memory, bytes held per mesh position and
     the collectives' bytes. Returns (state, rows)."""
     import torch
     from repro_torch.distrib.sharding import position_bytes
     rows = []
-    want = sharded_launch_want(n_model)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    want = sharded_launch_want(n_model) if want is None else want
     for i in range(first, first + n):
         batch = [torch.as_tensor(a, device="cuda") for a in pipe.batch_at(i)]
         torch.cuda.synchronize()
@@ -1696,12 +1738,12 @@ def sharded_steps(tag, step, state, mesh, pipe, first: int, n: int,
                    position_bytes=held, collective_bytes=dict(mesh.bytes),
                    launches=got)
         rows.append(row)
-        say(f"  train-sharded {tag} step {i} on {mesh.shape}: loss "
+        say(f"  {label} {tag} step {i} on {mesh.shape}: loss "
             f"{loss:.4f} grad_norm {gnorm:.4f} step {dt:.3f} s "
             f"({tokens / dt:.1f} tok/s) peak {row['peak_bytes']} B; state "
             f"bytes per position {held}; collective bytes "
             f"{dict(mesh.bytes)}")
-        check(got == want, f"train-sharded {tag} step {i}: launches {got}, "
+        check(got == want, f"{label} {tag} step {i}: launches {got}, "
                            f"want {want}")
     return state, rows
 
@@ -1885,11 +1927,13 @@ def phase_train_smollm():
                        keep_checkpoints=1)
     pipe = TokenPipeline(cfg.vocab_size, SMOL_BATCH, TRAIN_SEQ, seed=0)
     inner = make_train_step(model.loss, tcfg, microbatches=SMOL_MICRO)
-    record = []
+    record, moments = [], []
 
     def step_fn(st, *batch):
         st, m = inner(st, *batch)
         record.append({k: float(v) for k, v in m.items()})
+        if len(record) == TP_TRAIN_STEPS:  # train-sharded-tp2d's leaf check
+            moments.append(host_moments(st))
         return st, m
 
     loop = TrainLoop(step_fn, state, pipe.batch_at, tcfg, log_every=10 ** 9,
@@ -1960,7 +2004,529 @@ def phase_train_smollm():
         lr=[m["lr"] for m in record],
         tokens_per_s=[tokens / dt for dt in metrics.step_times],
         peak_bytes=peak, run_s=run_s, checkpoint_bytes=n_ckpt,
-        dots_equals_none=not differ, phase_s=phase_s)
+        dots_equals_none=not differ, phase_s=phase_s, moments=moments[0])
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The path of every leaf of a params tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, node in enumerate(tree)
+                for n in leaf_names(node, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def host_moments(state) -> list:
+    """A one-card train state's AdamW first moments, each leaf copied to
+    the host, in ``tree_leaves`` order."""
+    from repro_torch.optim.adamw import tree_leaves
+    return [t.detach().cpu() for t in tree_leaves(state.opt.m)]
+
+
+def moment_gaps(state, ref) -> list:
+    """Per leaf, in ``tree_leaves`` order: ||m - m_ref|| / ||m_ref|| of a
+    train state's AdamW first moment m (a sharded leaf gathered whole
+    first, one leaf at a time) against ``ref`` (``host_moments``); 0 where
+    both are 0."""
+    from repro_torch.distrib.sharding import ShardedTensor, gather
+    from repro_torch.optim.adamw import tree_leaves
+    out = []
+    for x, r in zip(tree_leaves(state.opt.m), ref):
+        whole = gather(x) if isinstance(x, ShardedTensor) else x
+        r = r.to(whole.device)
+        diff, norm = float((whole - r).norm()), float(r.norm())
+        out.append(diff / norm if norm else (0.0 if diff == 0 else
+                                             float("inf")))
+        del whole, r
+    return out
+
+
+def f32_control(cfg, model_kw: dict, tcfg, pipe, micro: int, ref) -> dict:
+    """The control of train-sharded-tp2d's leaf check: ``cfg``'s one-card
+    step in f32 compute (masters, seed and batches as the bf16 run's),
+    ``TP_TRAIN_STEPS`` steps; per leaf ``moment_gaps`` against the bf16
+    one-card run's moments ``ref`` — the size of a rounding-only
+    difference in each leaf's gradients, router flips included."""
+    import dataclasses
+    import torch
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.state import make_train_step, new_train_state
+    model = TransformerLM(dataclasses.replace(cfg, dtype="float32"),
+                          **model_kw)
+    state = new_train_state(model.init(
+        torch.Generator(device="cuda").manual_seed(0), dtype=torch.float32))
+    step = make_train_step(model.loss, tcfg, microbatches=micro)
+    losses = []
+    for i in range(TP_TRAIN_STEPS):
+        state, m = step(state, *(torch.as_tensor(a, device="cuda")
+                                 for a in pipe.batch_at(i)))
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+    gaps = moment_gaps(state, ref)
+    del state, step, model
+    torch.cuda.empty_cache()
+    return dict(losses=losses, gaps=gaps)
+
+
+class KernelCapture:
+    """Wrap the flash and expert-GEMM wrappers a path calls to keep copies
+    of the first inputs each kernel takes at each shape while ``armed``:
+    ``inputs[(wrapper, kernel, shapes)] = (args, keywords)``. ``path``
+    "serve": the flash forward as ``models.layers`` calls it and the expert
+    GEMM; "train": the names the autograd functions ``FlashAttention``
+    (forward and backward) and ``ExpertGemm`` (forward, dX, dW) look up in
+    the ``ops`` modules when they run."""
+
+    def __init__(self, path: str):
+        from repro_torch.kernels.expert_gemm import ops as gemm_ops
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.models import layers
+        if path == "serve":
+            self.wrappers = [(layers, "flash_attention", flash_ops),
+                             (gemm_ops, "expert_gemm", gemm_ops)]
+        else:
+            self.wrappers = (
+                [(flash_ops, n, flash_ops)
+                 for n in ("flash_attention", "flash_attention_bwd")]
+                + [(gemm_ops, n, gemm_ops) for n in
+                   ("expert_gemm", "expert_gemm_dx", "expert_gemm_dw")])
+        self._orig = [getattr(m, n) for m, n, _ in self.wrappers]
+        self.inputs = {}
+        self.armed = False
+
+    @staticmethod
+    def _launched(before, after):
+        names = [k for k in after if after[k] != before.get(k, 0)]
+        return names[0] if len(names) == 1 else None
+
+    def __enter__(self):
+        import torch
+        cap = self
+
+        def spy(fn, ops, orig):
+            def wrapped(*args, **kw):
+                before = dict(ops.LAUNCHES)
+                out = orig(*args, **kw)
+                name = cap._launched(before, ops.LAUNCHES)
+                key = (fn, name, tuple(tuple(a.shape) for a in args
+                                       if torch.is_tensor(a)))
+                if cap.armed and name and key not in cap.inputs:
+                    cap.inputs[key] = (tuple(a.clone() if torch.is_tensor(a)
+                                             else a for a in args), dict(kw))
+                return out
+            return wrapped
+
+        for (mod, fn, ops), orig in zip(self.wrappers, self._orig):
+            setattr(mod, fn, spy(fn, ops, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, fn, _), orig in zip(self.wrappers, self._orig):
+            setattr(mod, fn, orig)
+        return False
+
+    def check_complete(self, label: str) -> None:
+        """Fail unless every wrapper took at least one input."""
+        got = {k[0] for k in self.inputs}
+        want = {fn for _, fn, _ in self.wrappers}
+        check(got == want, f"{label}: no input of {sorted(want - got)} "
+                           f"captured")
+
+
+def flash_bwd_terms(q, k, v, o, do, lse, causal: bool = True,
+                    q_offset: int = 0):
+    """For each element of the flash backward's dq, dk, dv (f32, the model
+    layout), the magnitude its rounding error scales with, from the terms
+    ``flash_attention_bwd_ref`` computes: scale·W |k|, scale·Wᵀ |q| and
+    Pᵀ |dO|, summed over the G query heads of a KV head, where W = |dS| +
+    hd·2⁻¹⁶·P·(|dO| |v|ᵀ + rowsum(|dO·O|)). A bf16 flash backward rounds P
+    and dS to bf16 (one bf16 step, 2⁻⁸, of |dS| and P) after computing
+    dS = P·(dP − D) in f32 from sums over hd that cancel (hd f32 steps,
+    2⁻²⁴ = 2⁻¹⁶ bf16 steps each, of their terms' magnitudes), so its error
+    is a few bf16 steps of this magnitude however much the result cancels
+    (each row of dS sums to 0, so dq cancels k's common component; query
+    0's dq is 0)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import causal_mask
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    mask = (causal_mask(Sq, Sk, q_offset, q.device) if causal
+            else torch.ones((Sq, Sk), dtype=torch.bool, device=q.device))
+    tq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    tk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    tv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for kv in range(KV):
+            heads = slice(kv * G, (kv + 1) * G)
+            qg = q[b, :, heads].float().transpose(0, 1)         # (G, Sq, hd)
+            dog = do[b, :, heads].float().transpose(0, 1)
+            og = o[b, :, heads].float().transpose(0, 1)
+            kf, vf = k[b, :, kv].float(), v[b, :, kv].float()
+            s = torch.einsum("gqd,kd->gqk", qg, kf) * scale
+            p = torch.where(mask, torch.exp(s - lse[b, heads, :, None]), 0.0)
+            dp = torch.einsum("gqd,kd->gqk", dog, vf)
+            ds = (p * (dp - (dog * og).sum(-1)[..., None])).abs()
+            del dp
+            ds += hd * 2.0 ** -16 * p * (
+                torch.einsum("gqd,kd->gqk", dog.abs(), vf.abs())
+                + (dog * og).abs().sum(-1)[..., None])
+            tv[b, :, kv] = torch.einsum("gqk,gqd->kd", p, dog.abs())
+            tk[b, :, kv] = torch.einsum("gqk,gqd->kd", ds, qg.abs()) * scale
+            tq[b, :, heads] = (torch.einsum("gqk,kd->gqd", ds, kf.abs())
+                               * scale).transpose(0, 1)
+    return tq, tk, tv
+
+
+def terms_used(got, want, terms, share=LM_KERNEL_RTOL) -> float:
+    """The largest share of its allowance ``share`` · ``terms`` that any
+    element of ``got`` uses against ``want`` (an element whose terms are
+    all 0 must equal ``want``)."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    allow = share * terms
+    return float(torch.where(allow > 0, err / allow,
+                             torch.where(err > 0, float("inf"), 0.0)).max())
+
+
+def sdpa_backward(q, k, v, do):
+    """(dq, dk, dv) of causal ``scaled_dot_product_attention`` (GQA) for
+    the output gradient ``do``, in the model layout (B, S, H, hd)."""
+    import torch
+    import torch.nn.functional as F
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    return [g.transpose(1, 2) for g in
+            torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2))]
+
+
+def hold_captured(inputs, tag: str) -> list:
+    """Each input ``KernelCapture`` kept, run again by the kernel that took
+    it (one launch of that kernel, two launches bitwise equal) and held
+    against its plain version: the flash forward's O within ``row_atol``
+    + LM_KERNEL_RTOL and its log-sum-exp within LSE_ATOL + LSE_RTOL; the
+    expert GEMM within LM_GEMM_ATOL + LM_KERNEL_RTOL; its dX and dW within
+    LM_KERNEL_RTOL of each element and of the output's RMS
+    (``gemm_bwd_row``'s rule: a train step's gradients are far below
+    LM_GEMM_ATOL); the flash backward's dq, dk, dv within LM_KERNEL_RTOL
+    of each element's sum of term magnitudes (``flash_bwd_terms``), with
+    ``flash_bwd_row``'s row rule and SDPA's backward's readings printed
+    beside it."""
+    import torch
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.expert_gemm.ref import (expert_gemm_dw_ref,
+                                                     expert_gemm_dx_ref,
+                                                     expert_gemm_ref)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    refs = {"flash_attention": flash_attention_ref,
+            "flash_attention_bwd": flash_attention_bwd_ref,
+            "expert_gemm": expert_gemm_ref,
+            "expert_gemm_dx": expert_gemm_dx_ref,
+            "expert_gemm_dw": expert_gemm_dw_ref}
+    out = []
+    for key in sorted(inputs, key=str):
+        fn, name, shapes = key
+        args, kw = inputs[key]
+        ops = flash_ops if fn.startswith("flash") else gemm_ops
+        label = f"{tag} captured {fn} ({name})"
+        before = dict(ops.LAUNCHES)
+        got = getattr(ops, fn)(*args, **kw)
+        check({k: ops.LAUNCHES[k] - before[k] for k in before}
+              == {k: int(k == name) for k in before},
+              f"{label}: not one launch of {name} ({ops.LAUNCHES})")
+        again = getattr(ops, fn)(*args, **kw)
+        want = refs[fn](*args, **kw)
+        if fn == "flash_attention":
+            got, lse = got if kw.get("return_lse") else (got, None)
+            again = again[0] if lse is not None else again
+            if lse is not None:
+                want, want_lse = want
+                lse_used = float(((lse - want_lse).abs()
+                                  / (LSE_ATOL + LSE_RTOL * want_lse.abs()))
+                                 .max())
+                check(lse_used <= 1.0, f"{label}: LSE off its plain "
+                                       f"version ({lse_used:.2f})")
+            err, used = lm_check(label, got, again, want, row_atol(want))
+        elif fn == "flash_attention_bwd":
+            check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                  f"{label}: two launches differ")
+            check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+                  f"{label}: non-finite gradient")
+            terms = flash_bwd_terms(*args, **kw)
+            err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+            used = max(terms_used(g, w, t)
+                       for g, w, t in zip(got, want, terms))
+            # beside it: flash_bwd_row's row rule, and both readings of
+            # the library's backward on the same inputs
+            lib = sdpa_backward(*args[:3], args[4])
+            row = [max(grad_allowance_used(g, w, LM_KERNEL_RTOL)
+                       for g, w in zip(got, want)),
+                   max(grad_allowance_used(g, w, LM_KERNEL_RTOL)
+                       for g, w in zip(lib, want)),
+                   max(terms_used(g, w, t)
+                       for g, w, t in zip(lib, want, terms))]
+            del lib, terms
+            say(f"  {label}: {used:.3f} of LM_KERNEL_RTOL times each "
+                f"element's sum of term magnitudes (SDPA's backward on the "
+                f"same inputs {row[2]:.3f}); by flash_bwd_row's row rule "
+                f"{row[0]:.3f} (SDPA's {row[1]:.3f})")
+            check(used <= 1.0, f"{label}: {used:.2f} of the allowance")
+        else:
+            atol = (LM_GEMM_ATOL if fn == "expert_gemm" else LM_KERNEL_RTOL
+                    * float(want.float().pow(2).mean().sqrt()))
+            err, used = lm_check(label, got, again, want, atol)
+        say(f"  {label} {shapes}: max_abs_err={err:.3e} ({used:.3f} of the "
+            f"allowance), two launches bitwise equal")
+        out.append(dict(wrapper=fn, kernel=name, shapes=str(shapes),
+                        max_abs_err=err, tol_used=used))
+        if fn == "flash_attention_bwd":
+            out[-1].update(row_rule_used=row[0], sdpa_row_rule_used=row[1],
+                           sdpa_tol_used=row[2])
+        del got, again, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp2d_flips(plain_calls, mesh_calls, n_layers: int, n_homes: int
+               ) -> list:
+    """Per MoE layer, the tokens of step 0 whose top-k expert set differs
+    between one card (one routing call per microbatch and layer, in that
+    order) and the ``tp2d`` mesh (one per layer and home, in that order;
+    home d runs microbatch d)."""
+    check(len(plain_calls) == n_layers * n_homes
+          and len(mesh_calls) >= n_layers * n_homes,
+          f"routing calls: {len(plain_calls)} one card, {len(mesh_calls)} "
+          f"on the mesh for {n_layers} layers of {n_homes} homes")
+    flips = [0] * n_layers
+    for i in range(n_layers):
+        for d in range(n_homes):
+            want = plain_calls[d * n_layers + i].sort(-1).values
+            got = mesh_calls[i * n_homes + d].sort(-1).values
+            flips[i] += int((got != want).any(-1).sum())
+    return flips
+
+
+def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
+                             profile: bool = False):
+    """LM training on a 2 × 2 ("data", "model") mesh (the first four cards,
+    or ``cuda:0`` four times) under the reference's ``tp2d`` rules with the
+    weights where they lie (``train.state.make_tp2d_train_step``): every
+    product on its weight blocks' holders forward and backward, ``embed``
+    looked up and its gradient summed where its blocks lie, the cross
+    entropy per vocab block where the head's blocks lie with only per-row
+    statistics moving, the experts where they live. (i) qwen3-moe-30b-a3b
+    at train-lm's widths, depth, batches and schedule (``act_spec``
+    P("data", None, None), batch P("data", None): one microbatch per home),
+    2 steps, then 2 more from the same seed, which must repeat bit for bit;
+    (ii) smollm-135m whole (30 layers, tied head: d over "data", V over
+    "model"; ``remat="dots"``) on train-smollm's batches, 2 steps. Each
+    step's loss within ``TP_TRAIN_LOSS_RTOL`` and grad norm within
+    ``TP_TRAIN_NORM_RTOL`` of the one-card run's (train-lm's, train-
+    smollm's); no ``all_gather`` or ``all_gather_grad``; the peak under
+    ``TP_TRAIN_PEAK``; the launches exactly; the router's top-8 choices at
+    step 0 that differ from one card's, per layer, printed. Each leaf's
+    AdamW first moment after the 2 steps against the one-card run's,
+    within ``TP_LEAF_FACTOR`` times the gap of an f32 one-card run
+    (``f32_control``); the kernels' first inputs at each shape, kept by
+    ``KernelCapture`` in (i)'s second run and in (ii), held against their
+    plain versions (``hold_captured``)."""
+    import dataclasses
+    import torch
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.configs.smollm_135m import FULL as SMOL
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distrib.sharding import (P, lm_param_specs,
+                                              state_specs_like)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.state import (make_tp2d_train_step,
+                                         new_sharded_train_state)
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(4)] if n_cards >= 4
+               else ["cuda:0"] * 4)
+    mesh = Mesh((2, 2), ("data", "model"), devices)
+    bspec, act = P("data", None), P("data", None, None)
+    D = mesh.axis_size("data")
+    total, out = {}, dict(mesh=str(mesh))
+
+    def run(tag, cfg, model, tcfg, pipe, micro, want, tokens, prof=None,
+            ref=None):
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            dtype=torch.float32)
+        specs = state_specs_like(lm_param_specs(params, cfg, "tp2d"))
+        state = new_sharded_train_state(params, mesh, specs)
+        names = leaf_names(params)
+        del params
+        torch.cuda.empty_cache()
+        step = make_tp2d_train_step(model.loss, tcfg, mesh, specs, bspec,
+                                    micro)
+        state, rows = sharded_steps(tag, step, state, mesh, pipe, 0,
+                                    TP_TRAIN_STEPS, 0, total, prof, want,
+                                    "train-sharded-tp2d", tokens)
+        digests = state_digests(state)
+        gaps = None if ref is None else moment_gaps(state, ref)
+        del state, step
+        torch.cuda.empty_cache()
+        return rows, digests, (names, gaps)
+
+    def hold_leaves(tag, names, gaps, control):
+        """Each leaf's gradients after the steps: the mesh's AdamW first
+        moment against one card's (every term a gradient of the initial
+        weights: step 0's lr is 0), within TP_LEAF_FACTOR times the f32
+        control's gap."""
+        ratio = [g / c if c else (0.0 if g == 0 else float("inf"))
+                 for g, c in zip(gaps, control["gaps"])]
+        worst = sorted(range(len(names)), key=lambda k: -ratio[k])[:3]
+        say(f"  train-sharded-tp2d {tag} leaves: AdamW first moment after "
+            f"{TP_TRAIN_STEPS} steps against one card's, ||m - m_card|| / "
+            f"||m_card|| over {len(names)} leaves: max {max(gaps):.3e} "
+            f"({names[max(range(len(gaps)), key=gaps.__getitem__)]}), "
+            f"median {sorted(gaps)[len(gaps) // 2]:.3e}; the f32 one-card "
+            f"control's (losses, grad norms {control['losses']}): max "
+            f"{max(control['gaps']):.3e}, median "
+            f"{sorted(control['gaps'])[len(gaps) // 2]:.3e}; largest ratios "
+            f"mesh / control "
+            + ", ".join(f"{names[k]} {gaps[k]:.3e} / "
+                        f"{control['gaps'][k]:.3e} = {ratio[k]:.3f}"
+                        for k in worst)
+            + f" (bound {TP_LEAF_FACTOR})")
+        check(max(ratio) <= TP_LEAF_FACTOR,
+              f"train-sharded-tp2d {tag}: leaf {names[worst[0]]}'s moment "
+              f"{ratio[worst[0]]:.3f} times the f32 control's gap")
+        return dict(names=names, gaps=gaps, control=control, ratio=ratio)
+
+    def hold(tag, rows, one_card):
+        got = [(r["loss"], r["grad_norm"]) for r in rows]
+        want = list(zip(one_card["losses"], one_card["grad_norm"]))
+        rel = [(abs(a - c) / abs(c), abs(b - d) / abs(d))
+               for (a, b), (c, d) in zip(got, want)]
+        gathered = [r["collective_bytes"].get(k, 0) for r in rows
+                    for k in ("all_gather", "all_gather_grad")]
+        peak = max(r["peak_bytes"] for r in rows)
+        busiest = max(max(r["position_bytes"]) for r in rows)
+        warm, card = rows[-1], one_card["step_s"][1]
+        say(f"  train-sharded-tp2d {tag}: (loss, grad_norm) {got}; one card "
+            f"{want[:len(got)]}; relative differences {rel} (bounds "
+            f"{TP_TRAIN_LOSS_RTOL}, {TP_TRAIN_NORM_RTOL}); warm step "
+            f"{warm['step_s']:.3f} s ({warm['tokens_per_s']:.1f} tok/s) "
+            f"against one card's {card:.3f} s "
+            f"({one_card['tokens_per_s'][1]:.1f} tok/s); peak {peak} B; "
+            f"busiest position's state {busiest} B; parameter bytes "
+            f"gathered {sum(gathered)}")
+        check(not any(gathered), f"train-sharded-tp2d {tag}: a parameter "
+                                 f"was gathered")
+        check(peak <= TP_TRAIN_PEAK,
+              f"train-sharded-tp2d {tag}: peak {peak} B")
+        check(all(a <= TP_TRAIN_LOSS_RTOL and b <= TP_TRAIN_NORM_RTOL
+                  for a, b in rel),
+              f"train-sharded-tp2d {tag}: {got} against one card's {want}")
+        return dict(steps=rows, rel=rel, peak_bytes=peak,
+                    busiest_state_bytes=busiest)
+
+    # (i) qwen3-moe at train-lm's shape
+    cfg = dataclasses.replace(FULL, n_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=TRAIN_STEPS)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    ref = train_lm.pop("moments")
+    control = f32_control(cfg, dict(moe_group_size=TRAIN_GROUP), tcfg, pipe,
+                          TRAIN_MICRO, ref)
+    # one card's routing of step 0's microbatches, from the same weights
+    one = TransformerLM(cfg, moe_group_size=TRAIN_GROUP)
+    params = one.init(torch.Generator(device="cuda").manual_seed(0),
+                      dtype=torch.float32)
+    tokens = torch.as_tensor(pipe.batch_at(0)[0], device="cuda")
+    with torch.no_grad(), RouteSpy() as plain:
+        plain.armed = True
+        for m in tokens.chunk(TRAIN_MICRO):
+            one.forward(params, m)
+    del params, one
+    torch.cuda.empty_cache()
+    model = TransformerLM(cfg, moe_group_size=TRAIN_GROUP, act_spec=act)
+    prof = (CollectiveProfiler("train-sharded-tp2d (i) 2x2") if profile
+            else None)
+    want = sharded_launch_want(mesh.axis_size("model"))
+    with RouteSpy() as spy:
+        spy.armed = True
+        rows_i, dig_i, (names, gaps) = run(
+            "(i)", cfg, model, tcfg, pipe, TRAIN_MICRO, want,
+            TRAIN_BATCH * TRAIN_SEQ, prof, ref)
+    del ref
+    flips = tp2d_flips(plain.calls, spy.calls, cfg.n_layers, D)
+    if prof is not None:
+        out["profile_i"] = prof.spans
+    # the second run also keeps each kernel's first input at each shape
+    with KernelCapture("train") as cap:
+        cap.armed = True
+        rows_again, dig_again, _ = run("(i) again", cfg, model, tcfg, pipe,
+                                       TRAIN_MICRO, want,
+                                       TRAIN_BATCH * TRAIN_SEQ)
+    first = [(r["loss"], r["grad_norm"]) for r in rows_i]
+    again = [(r["loss"], r["grad_norm"]) for r in rows_again]
+    same = first == again and dig_i == dig_again
+    say(f"  train-sharded-tp2d (i): qwen3-moe-30b-a3b FULL widths, "
+        f"{cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{TRAIN_MICRO} microbatches on {mesh}; second run from the seed "
+        f"bitwise equal (losses, grad norms, {len(dig_i)} leaf digests): "
+        f"{same}; step 0 tokens whose top-{cfg.moe.top_k} experts differ "
+        f"from one card's, per layer: {flips} of "
+        f"{TRAIN_BATCH * TRAIN_SEQ}")
+    check(same, f"train-sharded-tp2d (i): the second run gave {again}, "
+                f"the first {first}")
+    out["i"] = hold("(i)", rows_i, train_lm)
+    out["i"].update(repeat_bitwise=same, flips=flips,
+                    leaves=hold_leaves("(i)", names, gaps, control),
+                    kernels=hold_captured(cap.inputs,
+                                          "train-sharded-tp2d (i)"))
+    cap.check_complete("train-sharded-tp2d (i)")
+    del cap
+    torch.cuda.empty_cache()
+
+    # (ii) smollm-135m whole, the tied head
+    cfg = SMOL
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=SMOL_STEPS)
+    pipe = TokenPipeline(cfg.vocab_size, SMOL_BATCH, TRAIN_SEQ, seed=0)
+    per = SMOL_MICRO * cfg.n_layers
+    want = {"flash_attention_fwd_wgmma": 2 * per,
+            "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
+            "flash_attention_fwd": 0, "expert_gemm_wgmma": 0,
+            "expert_gemm_dx": 0, "expert_gemm_dw": 0,
+            "expert_gemm_skinny": 0, "expert_gemm": 0}
+    ref = train_smol.pop("moments")
+    control = f32_control(cfg, {}, tcfg, pipe, SMOL_MICRO, ref)
+    model = TransformerLM(cfg, act_spec=act)
+    with KernelCapture("train") as cap:
+        cap.armed = True
+        rows_ii, _, (names, gaps) = run("(ii)", cfg, model, tcfg, pipe,
+                                        SMOL_MICRO, want,
+                                        SMOL_BATCH * TRAIN_SEQ, ref=ref)
+    del ref
+    say(f"  train-sharded-tp2d (ii): smollm-135m FULL, {cfg.n_layers} "
+        f"layers, tied head, remat {cfg.remat}, {SMOL_BATCH} x {TRAIN_SEQ} "
+        f"tokens in {SMOL_MICRO} microbatches")
+    out["ii"] = hold("(ii)", rows_ii, train_smol)
+    out["ii"].update(leaves=hold_leaves("(ii)", names, gaps, control),
+                     kernels=hold_captured(cap.inputs,
+                                           "train-sharded-tp2d (ii)"))
+    check({k[0] for k in cap.inputs} == {"flash_attention",
+                                         "flash_attention_bwd"},
+          f"train-sharded-tp2d (ii): captured {sorted(cap.inputs)}")
+    del cap
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase train-sharded-tp2d: {phase_s:.1f} s wall")
+    out["phase_s"] = phase_s
+    return total, out
 
 
 def train_step_parts(model, loop, pipe):
@@ -4234,104 +4800,6 @@ def lm_roofline(cfg, kind: str, batch: int, seq: int) -> dict:
                 roofline_s=terms["roofline_s"], dominant=terms["dominant"])
 
 
-class LmCapture:
-    """Wrap the flash and expert-GEMM wrappers on the served path
-    (``models.layers.flash_attention``, ``expert_gemm.ops.expert_gemm``)
-    to keep copies of the first inputs that each kernel takes at each
-    shape: the flash forward's (q, k, v) and keywords per variant and q
-    shape, the expert GEMM's (x, w) per variant and weight shape (gate
-    and up share one, down another). Captures are taken only while
-    ``armed``."""
-
-    def __init__(self):
-        from repro_torch.kernels.expert_gemm import ops as gemm_ops
-        from repro_torch.kernels.flash_attention import ops as flash_ops
-        from repro_torch.models import layers
-        self.layers, self.flash_ops, self.gemm_ops = layers, flash_ops, \
-            gemm_ops
-        self._flash, self._gemm = layers.flash_attention, gemm_ops.expert_gemm
-        self.inputs = {}
-        self.armed = False
-
-    @staticmethod
-    def _launched(before, after):
-        names = [k for k in after if after[k] != before.get(k, 0)]
-        return names[0] if len(names) == 1 else None
-
-    def __enter__(self):
-        cap, flash, gemm = self, self._flash, self._gemm
-
-        def spy_flash(q, k, v, **kw):
-            before = dict(cap.flash_ops.LAUNCHES)
-            o = flash(q, k, v, **kw)
-            name = cap._launched(before, cap.flash_ops.LAUNCHES)
-            key = ("flash", name, tuple(q.shape))
-            if cap.armed and name and key not in cap.inputs:
-                cap.inputs[key] = (q.clone(), k.clone(), v.clone(), kw)
-            return o
-
-        def spy_gemm(x, w):
-            before = dict(cap.gemm_ops.LAUNCHES)
-            y = gemm(x, w)
-            name = cap._launched(before, cap.gemm_ops.LAUNCHES)
-            key = ("gemm", name, tuple(w.shape))
-            if cap.armed and name and key not in cap.inputs:
-                cap.inputs[key] = (x.clone(), w.clone())
-            return y
-
-        self.layers.flash_attention = spy_flash
-        self.gemm_ops.expert_gemm = spy_gemm
-        return self
-
-    def __exit__(self, *exc):
-        self.layers.flash_attention = self._flash
-        self.gemm_ops.expert_gemm = self._gemm
-        return False
-
-
-def hold_captured_lm(inputs, tag: str) -> list:
-    """Each captured flash and expert-GEMM input held against its plain
-    version (``flash_attention_ref`` within ``row_atol`` + LM_KERNEL_RTOL,
-    ``expert_gemm_ref`` within LM_GEMM_ATOL + LM_KERNEL_RTOL), taken by the
-    kernel that took it on the served path, two launches bitwise equal."""
-    import torch
-    from repro_torch.kernels.expert_gemm import ops as gemm_ops
-    from repro_torch.kernels.expert_gemm.ref import expert_gemm_ref
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    out = []
-    for key in sorted(inputs, key=str):
-        kind, name, _ = key
-        args = inputs[key]
-        label = f"serve-sharded-lm ({tag}) captured {name}"
-        if kind == "flash":
-            q, k, v, kw = args
-            ops, call = flash_ops, lambda: flash_ops.flash_attention(
-                q, k, v, **kw)
-            want = flash_attention_ref(q, k, v, **kw)
-            atol = row_atol(want)
-            shapes = f"q {tuple(q.shape)} k,v {tuple(k.shape)}"
-        else:
-            x, w = args
-            ops, call = gemm_ops, lambda: gemm_ops.expert_gemm(x, w)
-            want = expert_gemm_ref(x, w)
-            atol = LM_GEMM_ATOL
-            shapes = f"x {tuple(x.shape)} w {tuple(w.shape)}"
-        before = dict(ops.LAUNCHES)
-        got = call()
-        check(ops.LAUNCHES[name] == before[name] + 1,
-              f"{label}: not taken by {name} ({ops.LAUNCHES})")
-        err, used = lm_check(label, got, call(), want, atol)
-        say(f"  {label} {shapes} {str(got.dtype)[6:]}: max_abs_err="
-            f"{err:.3e} ({used:.3f} of the allowance), two launches "
-            f"bitwise equal")
-        out.append(dict(kernel=name, shapes=shapes, max_abs_err=err,
-                        tol_used=used))
-        del got, want
-        torch.cuda.empty_cache()
-    return out
-
-
 class RouteSpy:
     """Wrap ``models.moe.routing`` (the one-card ``route`` and the mesh's
     per-home MoE block both call it) to keep each call's top-k expert ids
@@ -4426,7 +4894,7 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
     and of the first decode step, with the bytes each position received),
     the launches. The prefill runs under ``fsdp`` over ``params`` placed
     for it, or, given ``placed`` (``params`` placed by the ``tp2d``
-    rules), under ``tp2d`` over those. ``capture`` (:class:`LmCapture`) is
+    rules), under ``tp2d`` over those. ``capture`` (:class:`KernelCapture`) is
     armed over prefill and decode, ``spy`` (:class:`RouteSpy`) over
     decode; ``prof`` (:class:`StepProfiler`) records decode step 1."""
     import torch
@@ -4564,7 +5032,7 @@ def phase_serve_sharded_lm(profile: bool = False):
     ids and rows only). The launches must be :func:`sharded_lm_launches`'
     exactly, and the inputs each kernel takes in the second mesh run (each
     at each shape) are held against the plain versions
-    (:func:`hold_captured_lm`). For qwen3-moe the decode tokens whose
+    (:func:`hold_captured`). For qwen3-moe the decode tokens whose
     top-8 experts differ from the one-card run's are counted per layer.
     With ``profile``, the first mesh run's decode step 1 is profiled."""
     import dataclasses
@@ -4624,7 +5092,7 @@ def phase_serve_sharded_lm(profile: bool = False):
                           prof=CollectiveProfiler(f"serve-sharded-lm ({tag}) "
                                                   f"decode", profile))
         # the second run also keeps the kernels' inputs and the routing
-        with LmCapture() as cap, RouteSpy() as mesh_routes:
+        with KernelCapture("serve") as cap, RouteSpy() as mesh_routes:
             b = sharded_serve(model, cfg, params, prompt, n_tok, mesh, bspec,
                               want["tokens"], capture=cap, spy=mesh_routes,
                               placed=placed)
@@ -4636,7 +5104,7 @@ def phase_serve_sharded_lm(profile: bool = False):
             flips = routing_flips(plain_routes.calls, mesh_routes.calls,
                                   cfg.n_layers, n_shards, n_tok - 1)
         del plain_routes, mesh_routes
-        held = hold_captured_lm(cap.inputs, tag)
+        held = hold_captured(cap.inputs, f"serve-sharded-lm ({tag})")
         del cap
         torch.cuda.empty_cache()
         repeat = all(torch.equal(x, y) for x, y in zip(a["logits"],
@@ -4993,6 +5461,9 @@ def main(argv=None) -> int:
     launches_sharded, train_sharded = phase_train_sharded(train, args.profile)
     say("phase train-smollm:")
     launches_smol, train_smol = phase_train_smollm()
+    say("phase train-sharded-tp2d:")
+    launches_tp2d, train_tp2d = phase_train_sharded_tp2d(train, train_smol,
+                                                         args.profile)
     bst_agree = phase_bst_agreement()
     say("phase serve-bst:")
     serve_bst = phase_serve_bst(args.profile)
@@ -5013,6 +5484,7 @@ def main(argv=None) -> int:
                  captured=cap, lm=lm, sharded=sharded, train=train,
                  lm_configs=lm_configs, train_smollm=train_smol,
                  train_sharded=train_sharded,
+                 train_sharded_tp2d=train_tp2d,
                  train_agreement=train_agree, bst_agreement=bst_agree,
                  serve_bst=serve_bst, train_bst=train_bst,
                  gnn_agreement=gnn_agree, train_gnn=train_gnn,
@@ -5127,6 +5599,7 @@ def main(argv=None) -> int:
             "launches_serve_lm_configs": launches_configs.get(name, 0),
             "launches_train_smollm": launches_smol[name],
             "launches_train_sharded": launches_sharded.get(name, 0),
+            "launches_train_sharded_tp2d": launches_tp2d.get(name, 0),
             "launches_serve_sharded_lm": launches_ssl.get(name, 0),
         })
     say(f"serve summary: {json.dumps(serve)}")

@@ -10,8 +10,9 @@ under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``node_send``, ``user_send``, ``grad_psum``, ``grad_send``,
 ``norm_gather``, ``reshard``, ``edge_psum``, ``edge_gather``,
 ``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``, ``tp_act``,
-``tp_partial``, ``sparse_allreduce``, ``hierarchical_psum``), so a dry run
-can read the collective bytes from the mesh.
+``tp_partial``, ``tp_grad_act``, ``tp_grad_partial``, ``xent_stats``,
+``sparse_allreduce``, ``hierarchical_psum``), so a dry run can read the
+collective bytes from the mesh.
 The step's collectives (and its AdamW) also run under
 ``torch.profiler.record_function`` ranges named in :data:`SPANS`, so a
 profile attributes device time to them.
@@ -26,15 +27,20 @@ device; the gather's backward hands each block its slice of the gradient.
 ``take_along_fields`` look rows up in a table split along its rows (BST's
 item table) or its vocab axis (its user tables) where the rows lie, so the
 table is never gathered whole; a table split on its rows and its columns
-(the LM's ``embed`` under ``tp2d``) is looked up where its blocks lie too,
-without a backward yet. With ``grad=False`` (the sharded serving steps
-under ``fsdp``) a view reads the shards as they are.
+(the LM's ``embed`` under ``tp2d``) is looked up where its blocks lie too.
+With ``grad=False`` (the sharded serving steps under ``fsdp``) a view reads
+the shards as they are.
 
-The serving steps under ``tp2d`` move no parameter (:class:`StationaryView`,
-:class:`Rows`, :func:`block_matmul`): the activations of every batch shard
-stay at its home as :class:`Rows`, each product runs on the positions that
-hold the weight's blocks, and :func:`each` runs the rest of the model at
-each home.
+Under ``tp2d`` no parameter moves (:class:`StationaryView`, :class:`Rows`,
+:func:`block_matmul`): the activations of every batch shard stay at its
+home as :class:`Rows`, each product runs on the positions that hold the
+weight's blocks, forward and backward, and :func:`each` runs the rest of
+the model at each home. With ``grad=True`` (the ``tp2d`` train step) a
+:class:`StationaryView` gives each position's block as a leaf that
+collects the gradient of the work done there. :func:`vocab_parallel_xent`
+is the loss over a split head: each holder computes its logits block and
+sends home only per-row statistics; its holders take the block product's
+backward as :func:`block_matmul`'s do (:func:`_holder_grads`).
 
 A graph whose edge arrays are split into blocks (the GNNs' edge sharding)
 folds its per-block partial sums in block order (:func:`edge_psum`), reads
@@ -62,7 +68,8 @@ from repro_torch.sparse.segment import (from_end, segment_sum,
 SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "user_send", "grad_psum", "norm_gather", "adamw", "edge_psum",
          "edge_gather", "edge_scatter", "emb_ids", "emb_rows", "emb_grad",
-         "tp_act", "tp_partial")
+         "tp_act", "tp_partial", "tp_grad_act", "tp_grad_partial",
+         "xent_stats")
 span = torch.profiler.record_function
 
 
@@ -230,13 +237,16 @@ def take_rows_2d(mesh, home: int, n: int, ids: torch.Tensor,
                  ) -> torch.Tensor:
     """``sparse.segment.take_rows`` of an (n, e) table split into K row
     blocks and C column blocks, where the blocks lie: ``grid[c]`` holds
-    column block c's K blocks and their positions, in row order. For each
-    column block the ids go to its row blocks' holders (``emb_ids``), which
-    send back their column block of the rows (``emb_rows``); the home
-    selects each row from its row block (never by a sum, so a −0.0 row
-    stays −0.0) and joins the column blocks in order: the whole table's
-    ``take_rows`` bit for bit. Forward only (serving)."""
-    cols = [_select_rows(mesh, home, 0, n, ids, tuple(sources), parts)[0]
+    column block c's K blocks and their positions, in row order. Each
+    column block is one :class:`_Lookup` of its K row blocks: the ids go to
+    the row blocks' holders (``emb_ids``), which send back their column
+    block of the rows (``emb_rows``); the home selects each row from its
+    row block (never by a sum, so a −0.0 row stays −0.0) and joins the
+    column blocks in order: the whole table's ``take_rows`` bit for bit.
+    The backward sends each holder its column block of the gradient rows
+    (``emb_grad``), summed there as the unsharded lookup's backward sums
+    them."""
+    cols = [_Lookup.apply(mesh, home, 0, n, ids, tuple(sources), *parts)
             for sources, parts in grid]
     with mesh.at(home):
         return cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
@@ -270,8 +280,8 @@ class _Lookup(torch.autograd.Function):
         ctx.sources = sources
         ctx.devices = [p.device for p in parts]
         ctx.part_shapes = [p.shape for p in parts]
-        out, ctx.offsets = _select_rows(mesh, home, dim, n, ids, sources,
-                                        parts)
+        out, offsets = _select_rows(mesh, home, dim, n, ids, sources, parts)
+        ctx.save_for_backward(*offsets)
         return out
 
     @staticmethod
@@ -279,7 +289,8 @@ class _Lookup(torch.autograd.Function):
         mesh, rows, dim = ctx.mesh, ctx.rows, ctx.dim
         flat = grad.reshape(-1, grad.shape[-1])
         out = []
-        for src, dev, local in zip(ctx.sources, ctx.devices, ctx.offsets):
+        for src, dev, local in zip(ctx.sources, ctx.devices,
+                                   ctx.saved_tensors):
             with span("emb_grad"), mesh.at(src), mesh.moving():
                 if src != ctx.home:
                     mesh.count("emb_grad", _nbytes(flat), to=src)
@@ -374,7 +385,6 @@ class ShardView:
         lay = self.x.layout
         order = sorted(self.proxies)
         if dim == 0 and len(lay.counts) == 2 and lay.counts[1] > 1:
-            _no_backward(self.proxies.values(), "a lookup split on two axes")
             K, C = lay.counts
             grid = [([self.sources[(k, c)] for k in range(K)],
                      [self.proxies[(k, c)] for k in range(K)])
@@ -400,12 +410,7 @@ def local(x, experts: bool = False):
     return x
 
 
-# -- the weights where they lie (serving under ``tp2d``) ----------------------
-
-def _no_backward(tensors, what: str) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{what} has no backward: it serves only")
-
+# -- the weights where they lie (``tp2d``) -------------------------------------
 
 class Rows(NamedTuple):
     """The activations of every batch shard, each on its home position's
@@ -428,16 +433,26 @@ class StationaryView:
     """A placed parameter leaf whose blocks stay where they lie. The batch
     shards read a 2-D weight through :func:`block_matmul` (``.T`` is the
     transposed weight, the blocks transposed where they lie), a table
-    through :meth:`take_rows`, and any other leaf through :meth:`part`."""
+    through :meth:`take_rows`, and any other leaf through :meth:`part`.
+    ``leaves[pos]`` is the block position ``pos`` holds: with ``grad`` a
+    leaf that requires grad and shares the shard's storage (as
+    ``ShardView.proxies``), so it collects the gradient of the work done
+    there; otherwise the shard itself. ``.T`` shares the leaves."""
 
-    def __init__(self, x: ShardedTensor, transposed: bool = False):
+    def __init__(self, x: ShardedTensor, transposed: bool = False,
+                 grad: bool = False, leaves=None):
         self.x, self.transposed = x, transposed
         used = {a for axes in x.layout.axes for a in axes}
         self._free = [a for a in x.mesh.axis_names if a not in used]
+        if leaves is None:
+            leaves = [s.detach().requires_grad_(True) if grad else s
+                      for s in x.shards]
+        self.leaves: List[torch.Tensor] = leaves
 
     @property
     def T(self) -> "StationaryView":
-        return StationaryView(self.x, not self.transposed)
+        return StationaryView(self.x, not self.transposed,
+                              leaves=self.leaves)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -454,6 +469,15 @@ class StationaryView:
         ``home``: of the block's holders, the one whose coordinates on the
         mesh axes the leaf's spec leaves out are the home's."""
         return self._home_part(home) + self._block_part(block)
+
+    def served(self, pos: int, homes: Sequence[int]) -> List[int]:
+        """The indices of the batch shards in ``homes`` that position
+        ``pos`` serves its block to, ascending."""
+        block = self.x.layout.block_of(pos)
+        if self.transposed:
+            block = block[::-1]
+        return [d for d, home in enumerate(homes)
+                if self.holder(block, home) == pos]
 
     def _home_part(self, home: int) -> int:
         """``home``'s row-major position counted on the axes the spec
@@ -485,8 +509,8 @@ class StationaryView:
 
     def block_at(self, pos: int) -> torch.Tensor:
         """The block position ``pos`` holds, transposed with the view."""
-        shard = self.x.shards[pos]
-        return shard.T if self.transposed else shard
+        leaf = self.leaves[pos]
+        return leaf.T if self.transposed else leaf
 
     def part(self, home: int):
         """The leaf as the batch shard at ``home`` reads it without a move:
@@ -495,12 +519,12 @@ class StationaryView:
         positions that serve them."""
         lay = self.x.layout
         if all(c == 1 for c in lay.counts):
-            return self.x.shards[home]
+            return self.leaves[home]
         if self.transposed or any(c != 1 for c in lay.counts[1:]):
             raise ValueError(f"{self.x!r} is split past dim 0: read it "
                              f"through block_matmul or take_rows")
         pos = [self.holder(b, home) for b in lay.blocks()]
-        return Blocks([self.x.shards[p] for p in pos], pos, home,
+        return Blocks([self.leaves[p] for p in pos], pos, home,
                       self.x.mesh)
 
     def take_rows(self, ids: Rows) -> Rows:
@@ -516,13 +540,13 @@ class StationaryView:
             grid = []
             for c in range(C):
                 pos = [self.holder((k, c), home) for k in range(K)]
-                grid.append((pos, [self.x.shards[p] for p in pos]))
+                grid.append((pos, [self.leaves[p] for p in pos]))
             out.append(take_rows_2d(ids.mesh, home, lay.shape[0], idx, grid))
         return Rows(out, ids.homes, ids.mesh)
 
-    def columns_at(self, pos: int, j: int, width: int) -> torch.Tensor:
-        """Entries ``j·width … (j+1)·width − 1`` of this 1-D leaf from the
-        block position ``pos`` holds, which must cover them."""
+    def _columns(self, pos: int, j: int, width: int) -> int:
+        """Where entries ``j·width … (j+1)·width − 1`` of this 1-D leaf
+        start in the block position ``pos`` holds, which must cover them."""
         lay = self.x.layout
         n = lay.block_shape[0]
         lo = j * width - lay.block_of(pos)[0] * n
@@ -530,7 +554,7 @@ class StationaryView:
             raise ValueError(f"position {pos} does not hold entries "
                              f"{j * width}..{(j + 1) * width - 1} of "
                              f"{self.x!r}")
-        return self.x.shards[pos].narrow(0, lo, width)
+        return lo
 
 
 def each(fn, *args):
@@ -555,6 +579,22 @@ def each(fn, *args):
     return Rows(outs, rows.homes, rows.mesh)
 
 
+def block_plan(w: StationaryView, homes: Sequence[int]
+               ) -> List[Tuple[Tuple[int, int], int, List[int]]]:
+    """The work of a product with the (n_in, n_out) weight ``w`` for the
+    batch shards at ``homes``: per block (i, j), in row-major block order,
+    and per group of batch shards one holder serves (those whose part on
+    the spec's free axes is the same: :meth:`StationaryView.holder`),
+    ``((i, j), holder, batch shard indices)``. Each holder appears once."""
+    D_in, D_out = w.counts
+    by_part: Dict[int, List[int]] = {}
+    for d, home in enumerate(homes):
+        by_part.setdefault(w._home_part(home), []).append(d)
+    return [((i, j), part + w._block_part((i, j)), ds)
+            for i in range(D_in) for j in range(D_out)
+            for part, ds in by_part.items()]
+
+
 def block_matmul(x: Rows, w: StationaryView, dtype: torch.dtype,
                  bias: StationaryView = None) -> Rows:
     """``x @ w.to(dtype) + bias`` for the rows of every batch shard, each
@@ -568,73 +608,418 @@ def block_matmul(x: Rows, w: StationaryView, dtype: torch.dtype,
     when D_in > 1, go back to their homes (``tp_partial``), which join the
     column blocks of each i in ascending j, add the i in ascending order in
     f32 and cast the sum once to ``dtype``. A block served at the home
-    itself moves nothing, and
-    with D_in = D_out = 1 at the home it is ``x @ w.to(dtype)`` bit for
-    bit. Forward only (serving)."""
-    mesh, homes = x.mesh, x.homes
-    _no_backward(x.parts, "block_matmul")
-    n_in, n_out = w.shape
-    D_in, D_out = w.counts
-    b_in, b_out = n_in // D_in, n_out // D_out
+    itself moves nothing, and with D_in = D_out = 1 at the home it is
+    ``x @ w.to(dtype)`` bit for bit.
+
+    The backward (:class:`_BlockMatmul`) is the forward with i and j
+    swapped: column block j of each home's dY goes to every holder of a
+    block (i, j) that served it (``tp_grad_act``); the holder's dX partial
+    dY_j @ W_ijᵀ (f32 when D_out > 1) comes home (``tp_grad_partial``),
+    where the partials are added in ascending j and cast once to X's
+    dtype. The holder computes each home's dW_ij as its own product,
+    rounded as autograd rounds the one-device product (in ``dtype``, then
+    widened to the leaf's dtype), and adds them in ascending batch order
+    into its block's leaf; the bias's gradient is dY_j's column sums at the
+    holder of (0, j). On one position with one home and one block it is
+    autograd's backward of ``x @ w.to(dtype) + bias`` bit for bit."""
+    plan = block_plan(w, x.homes)
+    wpos = tuple(h for _, h, _ in plan)
+    bpos = (tuple(h for (i, _), h, _ in plan if i == 0)
+            if bias is not None else ())
+    outs = _BlockMatmul.apply(
+        x.mesh, tuple(x.homes), w, bias, dtype, plan, len(x.parts),
+        *x.parts, *(w.leaves[h] for h in wpos),
+        *(bias.leaves[h] for h in bpos))
+    return Rows(list(outs), x.homes, x.mesh)
+
+
+class _BlockMatmul(torch.autograd.Function):
+    """:func:`block_matmul`'s forward and backward; the inputs are the
+    homes' rows, then the weight's leaf at each plan entry's holder, then
+    the bias's leaf at each holder of an i = 0 block."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, w, bias, dtype, plan, n_x, *tensors):
+        xparts = tensors[:n_x]
+        wl = dict(zip((h for _, h, _ in plan),
+                      tensors[n_x:n_x + len(plan)]))
+        bl = dict(zip((h for (i, _), h, _ in plan if i == 0),
+                      tensors[n_x + len(plan):]))
+        n_in, n_out = w.shape
+        D_in, D_out = w.counts
+        b_out = n_out // D_out
+        cut = _cut_rows(mesh, homes, xparts, n_in, D_in)
+        rows = [len(c[0]) for c in cut]
+        # with D_in > 1 the holders' partials are f32, so that the sum is
+        # rounded to ``dtype`` once, as one product's f32 accumulator is
+        pd = dtype if D_in == 1 else torch.float32
+        saved = []
+        ys = [None] * len(homes)
+        # block row by block row: each home adds row i's partials (its
+        # column blocks joined in ascending j) to its running sum
+        for i in range(D_in):
+            got = [[None] * D_out for _ in homes]
+            for (bi, j), h, ds in plan:
+                if bi != i:
+                    continue
+                xs = _move(mesh, [cut[d][i] for d in ds],
+                           [homes[d] for d in ds], h, "tp_act")
+                with mesh.at(h):
+                    xin = xs[0] if len(xs) == 1 else torch.cat(xs)
+                    del xs
+                    wc = _compute_block(w, wl[h], dtype)
+                    saved += [xin, wc]
+                    p = _mm(xin, wc, pd)
+                    if bias is not None and i == 0:
+                        lo = bias._columns(h, j, b_out)
+                        p = p + bl[h].narrow(0, lo, b_out).to(pd)
+                    ps = (torch.split(p, [rows[d] for d in ds])
+                          if len(ds) > 1 else (p,))
+                del p
+                for d, q in zip(ds, ps):
+                    got[d][j], = _move(mesh, [q], [h], homes[d],
+                                       "tp_partial")
+                del ps
+            for d, home in enumerate(homes):
+                with mesh.at(home):
+                    c = got[d][0] if D_out == 1 else torch.cat(got[d], dim=1)
+                    got[d] = None
+                    ys[d] = c if ys[d] is None else ys[d] + c
+                del c
+        out = []
+        for xd, home, y in zip(xparts, homes, ys):
+            with mesh.at(home):
+                out.append(y.to(dtype).reshape(*xd.shape[:-1], n_out))
+        del ys
+        ctx.save_for_backward(*saved)
+        ctx.mesh, ctx.homes, ctx.w, ctx.bias = mesh, homes, w, bias
+        ctx.dtype, ctx.plan, ctx.pd = dtype, plan, pd
+        ctx.x_meta = [(xd.shape, xd.dtype) for xd in xparts]
+        ctx.w_dtypes = {h: t.dtype for h, t in wl.items()}
+        ctx.b_meta = {h: (t.shape, t.dtype) for h, t in bl.items()}
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, homes, w, plan = ctx.mesh, ctx.homes, ctx.w, ctx.plan
+        dtype, pd = ctx.dtype, ctx.pd
+        saved = ctx.saved_tensors
+        n_in, n_out = w.shape
+        D_in, D_out = w.counts
+        b_out = n_out // D_out
+        dys = []
+        for g, home in zip(grads, homes):
+            with mesh.at(home):
+                dys.append(g.reshape(-1, n_out).to(dtype))
+        # the dX partials: f32 when D_out > 1, added at the home in
+        # ascending j as they come and cast there once
+        gpd = dtype if D_out == 1 else torch.float32
+        acc = [[None] * D_in for _ in homes]
+        gw, gb = {}, {}
+        order = sorted(range(len(plan)), key=lambda k: plan[k][0][::-1])
+        for k in order:
+            (i, j), h, ds = plan[k]
+            xin, wc = saved[2 * k], saved[2 * k + 1]
+            dyh = _move(mesh, [dys[d] if D_out == 1
+                               else dys[d].narrow(1, j * b_out, b_out)
+                               for d in ds], [homes[d] for d in ds], h,
+                        "tp_grad_act")
+            with mesh.at(h):
+                gxs, g_w = _holder_grads(xin, dyh, wc, gpd, ctx.w_dtypes[h])
+                gw[k] = g_w.t() if w.transposed else g_w
+                if ctx.bias is not None and i == 0:
+                    shape, bdt = ctx.b_meta[h]
+                    g_b = None
+                    for dyd in dyh:
+                        t = dyd.to(pd).sum(0).to(bdt)
+                        g_b = t if g_b is None else g_b + t
+                    lo = ctx.bias._columns(h, j, b_out)
+                    if g_b.shape != shape:
+                        whole = torch.zeros(shape, dtype=bdt,
+                                            device=g_b.device)
+                        whole.narrow(0, lo, b_out).copy_(g_b)
+                        g_b = whole
+                    gb[k] = g_b
+            del dyh
+            for d, p in zip(ds, gxs):
+                p, = _move(mesh, [p], [h], homes[d], "tp_grad_partial")
+                with mesh.at(homes[d]):
+                    acc[d][i] = p if acc[d][i] is None else acc[d][i] + p
+            del gxs, p
+        gxs = [_join_home(mesh, home, parts, xdt, shape)
+               for (shape, xdt), home, parts in zip(ctx.x_meta, homes, acc)]
+        del acc
+        return (None,) * 7 + (*gxs, *(gw[k] for k in range(len(plan))),
+                              *(gb[k] for k in sorted(gb)))
+
+
+def _cut_rows(mesh, homes, parts, n_in: int, D_in: int):
+    """Each home's rows as (rows, n_in), split at the home into the D_in
+    column slices the weight's block rows contract."""
     cut = []
-    for xd, home in zip(x.parts, homes):
+    for xd, home in zip(parts, homes):
         with mesh.at(home):
             flat = xd.reshape(-1, n_in)
-            cut.append(torch.split(flat, b_in, dim=1) if D_in > 1
+            cut.append(torch.split(flat, n_in // D_in, dim=1) if D_in > 1
                        else (flat,))
-    rows = [len(c[0]) for c in cut]
-    # the homes each holder serves: those whose part on the spec's free
-    # axes is the same (StationaryView.holder)
-    by_part: Dict[int, List[int]] = {}
-    for d, home in enumerate(homes):
-        by_part.setdefault(w._home_part(home), []).append(d)
-    plan = [((i, j), part + w._block_part((i, j)), ds)
-            for i in range(D_in) for j in range(D_out)
-            for part, ds in by_part.items()]
-    ins = []
-    with span("tp_act"), mesh.moving():
-        for (i, _), h, ds in plan:
-            moved = sum(rows[d] for d in ds if homes[d] != h)
-            if moved:
-                mesh.count("tp_act", moved * b_in * cut[ds[0]][i]
-                           .element_size(), to=h)
-            with mesh.at(h):
-                ins.append([cut[d][i].to(mesh.device(h)) for d in ds])
-    # with D_in > 1 the holders' partials are f32, so that the sum is
-    # rounded to ``dtype`` once, as one product's f32 accumulator is
-    pd = dtype if D_in == 1 else torch.float32
-    outs = []
-    for ((i, j), h, ds), xs in zip(plan, ins):
-        with mesh.at(h):
-            p = _mm(xs[0] if len(xs) == 1 else torch.cat(xs),
-                    w.block_at(h).to(dtype), pd)
-            if bias is not None and i == 0:
-                p = p + bias.columns_at(h, j, b_out).to(pd)
-            outs.append(torch.split(p, [rows[d] for d in ds])
-                        if len(ds) > 1 else (p,))
-    del ins
-    got = [[[None] * D_out for _ in range(D_in)] for _ in homes]
-    moved = [0] * len(homes)
-    with span("tp_partial"), mesh.moving():
-        for ((i, j), h, ds), ps in zip(plan, outs):
-            for d, p in zip(ds, ps):
-                if homes[d] != h:
-                    moved[d] += rows[d] * b_out * pd.itemsize
-                with mesh.at(homes[d]):
-                    got[d][i][j] = p.to(mesh.device(homes[d]))
-    del outs
-    out = []
-    for xd, home, parts, nbytes in zip(x.parts, homes, got, moved):
-        if nbytes:
-            mesh.count("tp_partial", nbytes, to=home)
-        with mesh.at(home):
-            cols = [g[0] if D_out == 1 else torch.cat(g, dim=1)
-                    for g in parts]
-            y = cols[0]
-            for c in cols[1:]:
-                y = y + c
-            out.append(y.to(dtype).reshape(*xd.shape[:-1], n_out))
-    return Rows(out, homes, mesh)
+    return cut
+
+
+def _compute_block(w: StationaryView, leaf: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """A holder's block of ``w`` as the product reads it: transposed with
+    the view, in the compute dtype."""
+    return (leaf.T if w.transposed else leaf).to(dtype)
+
+
+def _move(mesh, parts, srcs, dst: int, name: str) -> List[torch.Tensor]:
+    """``parts[k]`` (at position ``srcs[k]``) at position ``dst``, in
+    order; the bytes of those that move counted under ``name``. Not a node
+    of autograd: the functions here move the gradients themselves."""
+    with span(name), mesh.moving():
+        n = sum(_nbytes(p) for p, src in zip(parts, srcs) if src != dst)
+        if n:
+            mesh.count(name, n, to=dst)
+        with mesh.at(dst):
+            return [p.to(mesh.device(dst)) for p in parts]
+
+
+def _holder_grads(x: torch.Tensor, dys: List[torch.Tensor],
+                  wc: torch.Tensor, gpd: torch.dtype, wdt: torch.dtype):
+    """A holder's backward of its block product ``x @ wc``, where ``x``
+    stacks the rows of the homes it serves and ``dys`` holds each home's
+    dY block, in batch order: each home's dX partial in ``gpd``, from one
+    product over the stacked rows, and the block's dW, each home's its own
+    product rounded as autograd rounds the one-device product (in ``wc``'s
+    dtype, then widened to the leaf's ``wdt``) and added in batch order."""
+    rows = [len(t) for t in dys]
+    dy = dys[0] if len(dys) == 1 else torch.cat(dys)
+    gx = _input_grad(dy, wc, x, gpd)
+    del dy
+    gxs = torch.split(gx, rows) if len(rows) > 1 else (gx,)
+    xs = torch.split(x, rows) if len(rows) > 1 else (x,)
+    g_w = None
+    for xd, dyd in zip(xs, dys):
+        t = _weight_grad(xd, wc, dyd).to(wdt)
+        g_w = t if g_w is None else g_w + t
+    return gxs, g_w
+
+
+def _join_home(mesh, home: int, parts, dtype: torch.dtype, shape):
+    """A home's column blocks ``parts`` (its gradient's f32 or compute-
+    dtype sums) cast to ``dtype`` and joined in order, as ``shape``."""
+    with mesh.at(home):
+        cols = [g.to(dtype) for g in parts]
+        g = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+        return g.reshape(shape)
+
+
+# -- the vocab-parallel cross entropy ------------------------------------------
+
+def vocab_parallel_xent(hidden: Rows, head: StationaryView,
+                        labels: Rows) -> Rows:
+    """Each home's mean cross entropy of the logits ``hidden @ head`` over
+    its labels ≥ 0 (``models.layers.softmax_xent_sharded``), over the
+    (d, V) head's blocks where they lie: the logits are never assembled
+    and only per-row statistics travel (:class:`_VocabParallelXent`)."""
+    plan = block_plan(head, hidden.homes)
+    out = _VocabParallelXent.apply(
+        hidden.mesh, tuple(hidden.homes), head, plan, len(hidden.parts),
+        *hidden.parts, *labels.parts, *(head.leaves[h] for _, h, _ in plan))
+    return Rows(list(out), hidden.homes, hidden.mesh)
+
+
+def _xent_groups(plan):
+    """:func:`block_plan` of the (d, V) head regrouped: per column block j
+    and group of batch shards, the holders of (0, j) … (D_in − 1, j)."""
+    groups = {}
+    for (i, j), h, ds in plan:
+        groups.setdefault((j, tuple(ds)), []).append(h)
+    return [(j, list(ds), hs) for (j, ds), hs in groups.items()]
+
+
+def _onehot(labels: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """The one-hot rows of ``labels`` over vocab entries ``lo … lo + n − 1``
+    (a label elsewhere, or −1, gives a zero row)."""
+    return (labels - lo)[..., None] == torch.arange(n, device=labels.device)
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """The vocab-parallel cross entropy (Megatron's) over a (d, V) head
+    split into D_in × D_out blocks that stay where they lie: the inputs are
+    the homes' hidden rows, their labels, then the head's leaf at each
+    :func:`block_plan` holder.
+
+    Forward: each home's hidden slice i goes to the holder of (i, j)
+    (``tp_act``), which computes that home's logits block, each home its
+    own product, in the compute dtype when D_in = 1 (then widened, as the
+    one-device loss widens its logits); with D_in > 1 (a head whose d is
+    split: the tied head) the partials are f32, go to the holder of
+    (0, j) (``tp_partial``) and are added there in ascending i and rounded
+    once. With the home's labels (``xent_stats``) that holder takes per row
+    the block's max m_j, s_j = Σ exp(logit − m_j) and the target logit t_j
+    by the one-hot contraction over its vocab range, and sends (m_j, s_j,
+    t_j) home (``xent_stats``). The home folds the blocks in ascending j:
+    m = max m_j, lse = m + log Σ_j s_j · exp(m_j − m), t = Σ_j t_j, and the
+    loss is Σ_valid (lse − t) / max(count, 1). With one block the fold is
+    ``torch.logsumexp``'s own (log s + m).
+
+    Backward: each home sends (lse, g / count) per row to the holders of
+    (0, j) (``xent_stats``), which compute softmax − one-hot for their
+    block as autograd does on one device, cast to the compute dtype; with
+    D_in > 1 that goes on to the holders of (i > 0, j) (``tp_grad_act``).
+    Each holder takes the block product's backward as
+    :class:`_BlockMatmul`'s holders do (:func:`_holder_grads`): the
+    hidden's partial goes home (f32 when D_out > 1; ``tp_grad_partial``),
+    added there in ascending j and cast once, and each home's head
+    gradient is added in ascending batch order into the holder's leaf. The
+    logits never leave their holder."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, head, plan, n_h, *tensors):
+        hs, labels = tensors[:n_h], tensors[n_h:2 * n_h]
+        wl = dict(zip((h for _, h, _ in plan), tensors[2 * n_h:]))
+        d_model, V = head.shape
+        D_in, D_out = head.counts
+        b_out = V // D_out
+        cd = hs[0].dtype
+        pd = cd if D_in == 1 else torch.float32
+        cut = _cut_rows(mesh, homes, hs, d_model, D_in)
+        stats = [[None] * D_out for _ in homes]
+        saved = []
+        for j, ds, holders in _xent_groups(plan):
+            wcs = []
+            for h in holders:
+                with mesh.at(h):
+                    wcs.append(_compute_block(head, wl[h], cd))
+            saved += wcs
+            h0 = holders[0]
+            for d in ds:
+                p = None
+                for i, (h, wc) in enumerate(zip(holders, wcs)):
+                    xin, = _move(mesh, [cut[d][i]], [homes[d]], h, "tp_act")
+                    saved.append(xin)
+                    with mesh.at(h):
+                        q = _mm(xin, wc, pd)
+                    q, = _move(mesh, [q], [h], h0, "tp_partial")
+                    with mesh.at(h0):
+                        p = q if p is None else p + q
+                lab, = _move(mesh, [labels[d]], [homes[d]], h0, "xent_stats")
+                with mesh.at(h0):
+                    # the logits rounded as one product rounds them, kept
+                    # in the compute dtype (widened again in the backward)
+                    p = p.to(cd)
+                    logits = p.float().reshape(*lab.shape, b_out)
+                    m = logits.amax(dim=-1)
+                    s = torch.exp(logits - m[..., None]).sum(dim=-1)
+                    onehot = _onehot(lab, j * b_out, b_out)
+                    t = torch.einsum("bsv,bsv->bs", logits, onehot.float())
+                saved += [p, lab]
+                del logits, p
+                stats[d][j] = _move(mesh, [m, s, t], [h0] * 3, homes[d],
+                                    "xent_stats")
+        out, home_saved = [], []
+        for d, home in enumerate(homes):
+            with mesh.at(home):
+                m = stats[d][0][0]
+                for mj, _, _ in stats[d][1:]:
+                    m = torch.maximum(m, mj)
+                tot = t = None
+                for mj, sj, tj in stats[d]:
+                    a = sj * torch.exp(mj - m)
+                    tot = a if tot is None else tot + a
+                    t = tj if t is None else t + tj
+                lse = m + torch.log(tot)
+                valid = labels[d] >= 0
+                count = torch.clamp_min(valid.sum(), 1)
+                out.append(torch.where(valid, lse - t, 0.0).sum() / count)
+            home_saved += [lse, valid, count]
+        ctx.save_for_backward(*saved, *home_saved)
+        ctx.n_saved = len(saved)
+        ctx.mesh, ctx.homes, ctx.head, ctx.plan = mesh, homes, head, plan
+        ctx.cd = cd
+        ctx.h_meta = [(hd.shape, hd.dtype) for hd in hs]
+        ctx.w_dtypes = {h: t.dtype for h, t in wl.items()}
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, homes, head, cd = ctx.mesh, ctx.homes, ctx.head, ctx.cd
+        tensors = ctx.saved_tensors
+        saved, home_saved = tensors[:ctx.n_saved], tensors[ctx.n_saved:]
+        D_in, D_out = head.counts
+        b_out = head.shape[1] // D_out
+        rows = []
+        for d, home in enumerate(homes):
+            lse, valid, count = home_saved[3 * d:3 * d + 3]
+            with mesh.at(home):
+                # the one-device backward of Σ where(valid, lse − t, 0) / n
+                g = torch.where(valid, grads[d] / count, 0.0)
+            rows.append((lse, g))
+        gpd = cd if D_out == 1 else torch.float32
+        # the hidden's partials, added at the home in ascending j (the
+        # groups come in ascending j) as they come
+        got = [[None] * D_in for _ in homes]
+        gw = {}
+        k = 0
+        for j, ds, holders in _xent_groups(ctx.plan):
+            h0 = holders[0]
+            wcs = saved[k:k + len(holders)]
+            k += len(holders)
+            acc = [None] * len(holders)
+            for d in ds:
+                xins = saved[k:k + len(holders)]
+                p, lab = saved[k + len(holders):k + len(holders) + 2]
+                k += len(holders) + 2
+                lse, g = _move(mesh, list(rows[d]), [homes[d]] * 2, h0,
+                               "xent_stats")
+                with mesh.at(h0):
+                    logits = p.float().reshape(*lab.shape, b_out)
+                    # logsumexp's backward, then the one-hot contraction's
+                    dl = g[..., None] * torch.exp(logits - lse[..., None])
+                    del logits
+                    dl = dl - _onehot(lab, j * b_out, b_out).float() \
+                        * g[..., None]
+                    dl = dl.to(cd).reshape(-1, b_out)
+                for i, (h, wc, xin) in enumerate(zip(holders, wcs, xins)):
+                    dli, = _move(mesh, [dl], [h0], h, "tp_grad_act")
+                    with mesh.at(h):
+                        (q,), t = _holder_grads(xin, [dli], wc, gpd,
+                                                ctx.w_dtypes[h])
+                        acc[i] = t if acc[i] is None else acc[i] + t
+                    q, = _move(mesh, [q], [h], homes[d], "tp_grad_partial")
+                    with mesh.at(homes[d]):
+                        got[d][i] = q if got[d][i] is None else got[d][i] + q
+                    del q
+                del dl
+            for h, g_w in zip(holders, acc):
+                gw[h] = g_w.t() if head.transposed else g_w
+        ghs = [_join_home(mesh, home, parts, hdt, shape)
+               for (shape, hdt), home, parts in zip(ctx.h_meta, homes, got)]
+        return ((None,) * 5 + tuple(ghs) + (None,) * len(homes)
+                + tuple(gw[h] for _, h, _ in ctx.plan))
+
+
+def _weight_grad(x: torch.Tensor, w: torch.Tensor,
+                 dy: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``w`` in ``x @ w`` for ``dy``, computed as autograd's
+    ``mm`` backward computes it (a column-major ``w`` gets its gradient
+    as ``(dyᵀ x)ᵀ``)."""
+    if w.stride(0) == 1 and w.stride(1) == w.shape[0]:
+        return dy.t().mm(x).t()
+    return x.t().mm(dy)
+
+
+def _input_grad(dy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                out: torch.dtype) -> torch.Tensor:
+    """The gradient of ``x`` in ``x @ w`` for ``dy``, in ``out``: as
+    autograd's ``mm`` backward computes it where ``out`` is ``dy``'s dtype,
+    else through :func:`_mm`."""
+    if out != dy.dtype:
+        return _mm(dy, w.t(), out)
+    if x.stride(0) == 1 and x.stride(1) == x.shape[0]:
+        return w.mm(dy.t()).t()
+    return dy.mm(w.t())
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, out: torch.dtype) -> torch.Tensor:

@@ -20,7 +20,8 @@ which :func:`input_specs` returns. With a ``mesh`` every cell carries its
 spec tree (``in_shardings``, the reference cell's); concrete arguments, or
 meta ones on a meta mesh (``["meta"] * 256``, the dry run's), are placed
 on it by those specs and the step is the sharded one: the LM and BST
-train steps ``train.state.make_sharded_train_step``, the GNN train step
+train steps ``train.state.make_sharded_train_step`` (the LM's under
+``REPRO_LM_POLICY=tp2d``: ``make_tp2d_train_step``), the GNN train step
 ``make_edge_sharded_train_step`` (the edge arrays split over the batch
 axes), prefill and decode ``distrib.serving``'s, BST serving per batch
 shard (retrieval per candidate block), the IGPM refresh
@@ -59,6 +60,7 @@ from repro_torch.optim.adamw import tree_map
 from repro_torch.sparse.ell import build_ell, ell_row_capacity
 from repro_torch.train.state import (make_edge_sharded_train_step,
                                      make_sharded_train_step,
+                                     make_tp2d_train_step,
                                      make_train_step, new_sharded_train_state,
                                      new_train_state)
 
@@ -140,7 +142,10 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     token, cache, cache_len)``. The batch shards over the batch axes when
     B ≥ their production shard count (16, 32 with ``multi_pod``), and only
     then does the model take ``act_spec``; train shards the parameters
-    under ``REPRO_LM_POLICY`` (default ``fsdp``), prefill under
+    under ``REPRO_LM_POLICY`` (default ``fsdp``; placed on a mesh,
+    ``make_sharded_train_step`` gathers each layer at each batch shard's
+    home, ``tp2d`` is ``make_tp2d_train_step``, which moves no
+    parameter), prefill under
     ``REPRO_LM_PREFILL_POLICY`` (default ``fsdp``), decode under
     ``tp2d``, as the reference's cells do. Placed on a mesh, prefill and
     decode are ``distrib.serving``'s steps (the cache placed by
@@ -181,8 +186,9 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
             # one microbatch per batch shard: the reference's one step
             # over the whole batch, split where it lives
             D = len(batch_groups(mesh, bspec[0])[0])
-            step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
-                                           bspec, microbatches=D)
+            make = (make_tp2d_train_step if policy == "tp2d"
+                    else make_sharded_train_step)
+            step = make(model.loss, TCFG, mesh, specs, bspec, microbatches=D)
             state = new_sharded_train_state(params, mesh, specs)
         else:
             step = make_train_step(model.loss, TCFG)

@@ -9,12 +9,16 @@ on CPU tensors it runs the plain online-softmax scan over KV blocks; when a
 gradient is needed it goes through the autograd function
 ``FlashAttention`` instead (the kernels forward and backward on CUDA, their
 plain versions on the CPU). ``softmax_xent_chunked`` and
-``softmax_xent_sharded`` are the training loss's cross entropy.
+``softmax_xent_sharded`` are the training loss's cross entropy; handed a
+``StationaryView`` head, the latter is the vocab-parallel loss over the
+head's blocks where they lie
+(``distrib.collectives.vocab_parallel_xent``).
 
 Every product with a weight goes through :func:`linear`, which multiplies
 on the positions that hold the weight's blocks when it is handed a
-``distrib.collectives.StationaryView`` (serving on a mesh under ``tp2d``,
-the activations :class:`~repro_torch.distrib.collectives.Rows`).
+``distrib.collectives.StationaryView`` (serving and training on a mesh
+under ``tp2d``, the activations
+:class:`~repro_torch.distrib.collectives.Rows`).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distrib.collectives import (StationaryView, block_matmul,
-                                             each)
+                                             each, vocab_parallel_xent)
 from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 
@@ -235,12 +239,16 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
             * scale).to(dtype)
 
 
-def softmax_xent_sharded(hidden: torch.Tensor, head_w: torch.Tensor,
-                         labels: torch.Tensor) -> torch.Tensor:
+def softmax_xent_sharded(hidden, head_w, labels):
     """Mean cross entropy of the logits ``hidden @ head_w`` over the labels
     ≥ 0, with the target logit taken by a one-hot contraction, as the
-    reference's vocab-parallel loss does (here on one device: the
-    reference's sharding of V has no counterpart yet)."""
+    reference's vocab-parallel loss does. On plain tensors, on one device.
+    With ``hidden`` and ``labels`` as ``Rows`` and ``head_w`` a
+    ``StationaryView``, over the head's blocks where they lie, the logits
+    never assembled (``distrib.collectives.vocab_parallel_xent``): each
+    home's loss as Rows."""
+    if isinstance(head_w, StationaryView):
+        return vocab_parallel_xent(hidden, head_w, labels)
     logits = (hidden @ head_w.to(hidden.dtype)).float()
     lse = torch.logsumexp(logits, dim=-1)
     V = logits.shape[-1]

@@ -49,7 +49,14 @@ positions that hold the weight's blocks (``layers.linear``), the table is
 looked up where its rows lie, the experts stay where they live, and the
 norms, RoPE, attention and the residual stream run at each batch shard's
 home (``collectives.each``, which calls the function as it is when no
-argument is ``Rows``).
+argument is ``Rows``). The train step under ``tp2d``
+(``train.state.make_tp2d_train_step``) hands ``loss`` the same views with
+``grad=True`` and the tokens and labels as ``Rows``: every product and the
+lookup differentiate where the blocks lie, the cross entropy is taken per
+vocab block where the head's blocks lie, and each home's loss comes back
+as Rows. Under ``remat`` the layer's checkpoint repeats the block
+products' moves in the recompute; under ``"dots"`` the holders' products
+are the saved ops, as the one-device products are.
 
 The KV cache is (L, B, S, KV, hd) ×2 in bf16, as in the reference, even for
 f32 configs. ``decode_step`` writes the new token's keys and values into
@@ -76,7 +83,11 @@ Params = Dict[str, Any]
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
 # the products of a 2-D weight: what checkpoint_dots_with_no_batch_dims saves
-_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# (``mm.dtype``: a block product's f32 partial under ``tp2d``, on the card)
+_SAVED_PRODUCTS = tuple(
+    op for op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                  getattr(torch.ops.aten.mm, "dtype", None))
+    if op is not None)
 
 
 def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -271,22 +282,22 @@ class TransformerLM:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         if positions is None:
-            positions = _prompt_positions(tokens)
+            positions = each(_prompt_positions, tokens)
         if cfg.remat not in ("full", "dots", "none"):
             raise ValueError(f"TransformerLM: unknown remat {cfg.remat!r}")
         params = self._local(params)
         remat = cfg.remat != "none" and torch.is_grad_enabled()
         kw = {"context_fn": _DOTS_CONTEXTS} if cfg.remat == "dots" else {}
         x = self._embed(params, tokens)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        aux = each(_no_aux, tokens)
         for lp in params["layers"]:
             if remat:
                 x, a = checkpoint(self._layer, lp, x, positions,
                                   use_reentrant=False, **kw)
             else:
                 x, a = self._layer(lp, x, positions)
-            aux = aux + a
-        return self._norm(x, params["ln_f"]), aux
+            aux = each(torch.add, aux, a)
+        return each(self._norm, x, params["ln_f"]), aux
 
     def _head_w(self, params: Params) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -296,20 +307,24 @@ class TransformerLM:
     def logits(self, params: Params, hidden):
         return L.linear(hidden, self._head_w(params), hidden.dtype)
 
-    def loss(self, params: Params, tokens: torch.Tensor,
-             labels: torch.Tensor, aux_coef: float = 0.01) -> torch.Tensor:
+    def loss(self, params: Params, tokens, labels,
+             aux_coef: float = 0.01):
         """Mean next-token cross entropy over the labels ≥ 0 (chunks of 512
         positions; with ``act_spec`` the vocab-parallel form over all
-        logits at once) + ``aux_coef`` · the MoE aux loss / n_layers."""
+        logits at once) + ``aux_coef`` · the MoE aux loss / n_layers. With
+        the tokens and labels of every batch shard as ``Rows`` (the
+        ``tp2d`` train step) each home's loss as Rows, the cross entropy
+        the vocab-parallel form over the head's blocks where they lie."""
         params = self._local(params)
         hidden, aux = self.forward(params, tokens)
         w = self._head_w(params)
-        if self.act_spec is not None:
+        if self.act_spec is not None or isinstance(w, StationaryView):
             xent = L.softmax_xent_sharded(hidden, w, labels)
         else:
             xent = L.softmax_xent_chunked(lambda xc: xc @ w.to(xc.dtype),
                                           hidden, labels)
-        return xent + aux_coef * aux / max(self.cfg.n_layers, 1)
+        n = max(self.cfg.n_layers, 1)
+        return each(lambda xe, a: xe + aux_coef * a / n, xent, aux)
 
     # -- serving ----------------------------------------------------------------
 

@@ -20,8 +20,8 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import _host_array
 from repro_torch.config.base import TrainConfig
-from repro_torch.distrib.collectives import (ShardView, batch_groups, local,
-                                             span)
+from repro_torch.distrib.collectives import (Rows, ShardView, StationaryView,
+                                             batch_groups, local, span)
 from repro_torch.distrib.sharding import (P, ShardedTensor, assemble,
                                           device_put, map_with_specs,
                                           sharded_zeros)
@@ -308,6 +308,132 @@ def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
         return _sharded_update(state, sums, loss, tcfg, mesh)
 
     return step
+
+
+def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
+                         state_specs, batch_spec,
+                         microbatches: int = 1) -> Callable:
+    """The LM train step over ``mesh`` under the ``tp2d`` rules with the
+    weights where they lie: the counterpart of ``jax.jit(make_train_step(
+    model.loss, tcfg), in_shardings=…)`` on a ``tp2d`` cell, where XLA's
+    partitioner runs each product where the weight blocks lie.
+    ``step(state, tokens, labels) → (state, metrics)`` as
+    :func:`make_sharded_train_step`'s, and no parameter moves, forward or
+    backward.
+
+    The batch splits as that step splits it: M microbatches, batch shard d
+    of D (``batch_spec[0]``'s axes) taking microbatches d·M/D … (d+1)·M/D −
+    1 at its home. Round r runs microbatch d·M/D + r of every batch shard
+    together: ``loss_fn`` gets a ``StationaryView`` (``grad=True``) of
+    every leaf and the tokens and labels as ``Rows``, and returns each
+    home's loss as Rows (``TransformerLM.loss``), whose backward runs at
+    once, each loss seeded with 1 as ``make_train_step`` seeds each
+    microbatch's. Each product runs on its weight blocks' holders, the
+    table is looked up and its gradient summed where its blocks lie, and
+    the cross entropy is taken per vocab block where the head's blocks
+    lie (``collectives.block_matmul``, ``take_rows_2d``,
+    ``layers.softmax_xent_sharded``). A holder's leaf collects the terms
+    of the homes it serves, in batch order within a round and in round
+    order across rounds; the replicas of a block (the router's, the
+    experts' over the batch axes, ``ln`` weights at each home) are added
+    at the block's owner in the order of the first batch shard each
+    serves (``grad_psum``). That is ``make_train_step(microbatches=M)``'s
+    order when M / D = 1 or D = 1. The sums are divided by M, the losses
+    come to position 0 and are added in microbatch order, and the norm,
+    clip and AdamW are :func:`make_sharded_train_step`'s tail.
+
+    On a mesh of one position the step is ``make_train_step(loss_fn, tcfg,
+    microbatches=M)`` bit for bit (the model with ``act_spec``, so that the
+    one-device loss is the vocab-parallel form). With more blocks the
+    block products' partial sums and the loss's per-block statistics fold
+    in block order, so the loss and gradients differ by rounding."""
+    homes, _ = batch_groups(mesh, batch_spec[0] if len(batch_spec)
+                            else None)
+    D = len(homes)
+    if microbatches % D:
+        raise ValueError(f"{microbatches} microbatches do not split over "
+                         f"{D} batch shards")
+    per = microbatches // D
+    dev0 = mesh.device(0)
+
+    def step(state: TrainState, *batch) -> Tuple[TrainState, dict]:
+        leaves = tree_leaves(state.params)
+        for x in leaves:
+            if not isinstance(x, ShardedTensor) or x.mesh is not mesh:
+                raise ValueError("make_tp2d_train_step: the state is not "
+                                 "placed on the step's mesh")
+        split = [x.reshape((microbatches, -1) + tuple(x.shape[1:]))
+                 for x in batch]
+        views = tree_map(lambda x: StationaryView(x, grad=True),
+                         state.params)
+        losses = [None] * microbatches
+        for r in range(per):
+            mbs = [d * per + r for d in range(D)]
+            args = []
+            for x in split:
+                parts = []
+                for d, home in enumerate(homes):
+                    with mesh.at(home):
+                        parts.append(x[mbs[d]].to(mesh.device(home)))
+                args.append(Rows(parts, homes, mesh))
+            with mesh.at(0):
+                with mesh.charge_backward():
+                    out = loss_fn(views, *args)
+                # a holder's backward runs at the holder
+                torch.autograd.backward(out.parts)
+            for d, m in enumerate(mbs):
+                losses[m] = out.parts[d].detach()
+            del out, args
+        with mesh.at(0):
+            loss = None
+            for mb_loss in losses:
+                with mesh.moving():
+                    mb_loss = mb_loss.to(dev0)
+                loss = mb_loss if loss is None else loss + mb_loss
+            loss = loss / microbatches
+        sums = _stationary_grads(mesh, tree_leaves(views), homes)
+        del views
+        _zeros_where_unreached(mesh, leaves, sums)
+        for x, blocks in zip(leaves, sums):
+            for block in blocks:
+                with mesh.at(x.layout.holders(block)[0]):
+                    blocks[block] = blocks[block] / microbatches
+        return _sharded_update(state, sums, loss, tcfg, mesh)
+
+    return step
+
+
+def _stationary_grads(mesh, views, homes):
+    """Each leaf's gradient blocks at their owners (the first holder) from
+    the ``StationaryView`` leaves of every holder: a block's replicas
+    added at the owner in the order of the first batch shard each serves,
+    the first as it is (no zeros, so a −0.0 stays); a block no replica's
+    work reached is left out (:func:`_zeros_where_unreached`)."""
+    sums = []
+    with span("grad_psum"):
+        for view in views:
+            lay = view.x.layout
+            blocks = {}
+            for block in lay.blocks():
+                holders = lay.holders(block)
+                owner = holders[0]
+                terms = sorted((view.served(h, homes), h) for h in holders
+                               if view.leaves[h].grad is not None)
+                total = None
+                for _, h in terms:
+                    g = view.leaves[h].grad
+                    view.leaves[h].grad = None
+                    if h != owner:
+                        mesh.count("grad_psum",
+                                   g.numel() * g.element_size(), to=owner)
+                    with mesh.at(owner):
+                        with mesh.moving():
+                            g = g.to(mesh.device(owner))
+                        total = g if total is None else total + g
+                if total is not None:
+                    blocks[block] = total
+            sums.append(blocks)
+    return sums
 
 
 def make_edge_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig,

@@ -297,3 +297,55 @@ def test_tp2d_decode_cell_moves_no_parameter():
     assert abs(mem["argument_bytes"] - (share + cache)) <= 0.05 * (share
                                                                    + cache)
     assert mem["peak_per_chip_gb"] * 1e9 <= 1.05 * mem["argument_bytes"]
+
+
+@pytest.mark.parametrize("arch_id", ["qwen3-moe-30b-a3b", "smollm-135m"])
+def test_tp2d_train_cell_moves_no_parameter(arch_id, monkeypatch):
+    """The reduced train cell under ``REPRO_LM_POLICY=tp2d`` on a 2 × 2 mesh
+    runs ``make_tp2d_train_step``: no ``all_gather`` (forward) or
+    ``all_gather_grad`` (backward), the backward's block moves
+    (``tp_grad_act``) and the loss's per-row statistics (``xent_stats``)
+    counted; the meta run counts what the run on ``["cpu"] * 4`` counts;
+    each position holds its share of the state under the reference's
+    ``tp2d`` specs (each leaf's bytes over its block count, for params, m
+    and v), and no position's temporaries reach the gathering step's (the
+    same cell and specs through ``make_sharded_train_step``, which gathers
+    each layer at the home)."""
+    from repro_torch.distrib.sharding import (Layout, lm_param_specs,
+                                              map_with_specs)
+    from repro_torch.launch import cells
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.state import make_sharded_train_step
+    monkeypatch.setenv("REPRO_LM_POLICY", "tp2d")
+    recs = []
+    for dev in ("meta", "cpu"):
+        mesh = Mesh((2, 2), ("data", "model"), [dev] * 4)
+        recs.append(dryrun.run_cell(arch_id, "train_4k", smoke=True,
+                                    mesh=mesh, concrete=dev == "cpu"))
+    meta, conc = recs
+    assert meta["collectives"] == conc["collectives"]
+    for key in ("flops", "op_bytes", "temp_peak_bytes", "output_bytes",
+                "argument_bytes", "collective_bytes_received"):
+        assert meta["per_position"][key] == conc["per_position"][key], key
+    coll = meta["collectives"]
+    assert not {"all_gather", "all_gather_grad"} & set(coll)
+    assert coll["tp_grad_act"] > 0 and coll["xent_stats"] > 0
+    cfg = get_arch(arch_id, smoke=True).model
+    params = TransformerLM(cfg).init(torch.Generator(), dtype=torch.float32,
+                                     device="meta")
+    mesh = Mesh((2, 2), ("data", "model"), ["meta"] * 4)
+    shares = []
+    map_with_specs(lambda x, s: shares.append(
+        x.numel() * 4 // math.prod(Layout(mesh, s, x.shape).counts)),
+        params, lm_param_specs(params, cfg, "tp2d"))
+    share = 3 * sum(shares) + 4            # params, m, v and the step
+    batch = 2 * 2 * 32 * 4                 # tokens and labels, at 0
+    assert meta["per_position"]["argument_bytes"] == \
+        [share + batch] + [share] * 3
+    monkeypatch.setattr(cells, "make_tp2d_train_step",
+                        make_sharded_train_step)
+    gathering = dryrun.run_cell(arch_id, "train_4k", smoke=True, mesh=mesh)
+    assert gathering["collectives"]["all_gather"] > 0
+    for ours, theirs in zip(meta["per_position"]["temp_peak_bytes"],
+                            gathering["per_position"]["temp_peak_bytes"]):
+        assert ours < theirs

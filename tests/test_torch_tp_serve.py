@@ -16,7 +16,8 @@ lie (``distrib/collectives.py``: ``StationaryView``, ``Rows``,
   bitwise ``take_rows`` of the whole table, negative, out-of-range and
   −0.0 rows included, through ``StationaryView.take_rows`` and
   ``ShardView.take_rows``; ``emb_ids`` / ``emb_rows`` the ids and rows
-  each remote block sends.
+  each remote block sends; its backward sums each block's rows
+  (``tests/test_torch_tp_train.py`` holds it bitwise).
 * ``tp2d`` prefill and decode for the SMOKE configs of qwen3-moe with 16
   experts (GQA, experts over "model"), deepseek-7b (MHA, dense), qwen2-72b
   (QKV bias), smollm-135m (tied head, 3 heads over 2 "model" blocks) and
@@ -210,12 +211,21 @@ def test_two_axis_lookup_is_take_rows(shape):
     assert "all_gather" not in mesh.bytes
 
 
-def test_two_axis_lookup_has_no_backward():
+def test_two_axis_lookup_has_a_backward():
+    """The lookup of a table split on two axes differentiates (its backward
+    landed with the ``tp2d`` train step; ``tests/test_torch_tp_train.py``
+    holds it bitwise against ``take_rows``'s): each block's gradient is
+    the sum of its rows' gradients, and nothing is gathered."""
     mesh = _mesh((2, 2))
-    placed = device_put(torch.randn(8, 4), mesh, P("model", "data"))
+    table = torch.randn(8, 4, generator=torch.Generator().manual_seed(4))
+    placed = device_put(table, mesh, P("model", "data"))
     view = ShardView(placed, 0, [0, 1, 2, 3])
-    with pytest.raises(NotImplementedError, match="no backward"):
-        view.take_rows(torch.tensor([1, 2]))
+    view.take_rows(torch.tensor([1, 2, 2, 7])).sum().backward()
+    want = torch.zeros(8, 4)
+    want[1], want[2], want[7] = 1.0, 2.0, 1.0
+    for block, _, grad in view.grads():
+        assert torch.equal(grad, want[placed.layout.slices(block)])
+    assert set(mesh.bytes) == {"emb_ids", "emb_rows", "emb_grad"}
 
 
 # -- tp2d prefill and decode -------------------------------------------------------

@@ -1,0 +1,546 @@
+"""LM training on the device mesh under ``tp2d`` with the weights where they
+lie (``distrib/collectives.py``: ``block_matmul``'s and ``take_rows_2d``'s
+backward; ``models/layers.py``: the vocab-parallel cross entropy;
+``train/state.py``: ``make_tp2d_train_step``), on the CPU (meshes of
+``["cpu"] * n``, f32 SMOKE configs).
+
+* ``block_matmul``'s gradients of x, the weight and the bias against
+  autograd of the unsharded ``x @ w + b``, on the meshes and specs of
+  ``test_torch_tp_serve.test_block_matmul``: bitwise on one position
+  (either layout of the weight), within ``GRAD_RTOL`` (1e-6 of the largest
+  entry) otherwise, where the f32 partial sums and the homes' terms add in
+  another order; the backward's bytes are the forward's with i and j
+  swapped (``tp_grad_act`` = ``tp_partial``, ``tp_grad_partial`` =
+  ``tp_act``).
+* The two-axis lookup's gradient (``embed`` under P("model", "data"))
+  bitwise the unsharded ``take_rows`` backward, ids out of range and
+  repeated included.
+* The vocab-parallel loss and its gradients (hidden, head) against the
+  one-device ``softmax_xent_sharded``, labels −1 included: a head split
+  over V only and the tied head (``embed.T``, d and V split), on one
+  position bitwise, otherwise within ``LOSS_RTOL`` (1e-6) and
+  ``GRAD_RTOL``; ``xent_stats`` is per-row data only.
+* The ``tp2d`` train step against ``make_train_step`` (the same model with
+  ``act_spec``) for the SMOKE qwen3-moe (8 experts, and 16, which split
+  over "model") and smollm-135m (tied head): on one position bit for bit
+  (loss, grad norm, every leaf), on (1, 2), (2, 1), (2, 2) and (1, 4) with
+  the batch whole and split, loss and grad norm within 1e-5 relative and
+  every leaf after 2 steps within rtol 1e-4, atol 2 · lr · steps
+  (``test_torch_sharded_train``'s bound); no ``all_gather`` and no
+  ``all_gather_grad``; two runs bitwise; ``remat="full"`` and ``"dots"``
+  bitwise ``"none"`` on the mesh, with the dots recompute running no
+  block product again.
+* In bf16 compute on 2 × 2 each leaf's AdamW first moment after 2 steps
+  no farther from the unsharded bf16 step's than ``LEAF_FACTOR`` (2)
+  times the unsharded f32 step's distance from it (``chip_smoke.py``'s
+  leaf check at SMOKE widths).
+* The step against the reference's ``jax.jit(make_train_step)`` under a
+  2 × 2 JAX mesh with the ``tp2d`` ``in_shardings`` (a child process with
+  four host devices), weights through ``params_from_jax``, to rtol 1e-4.
+
+JAX is imported only inside the tests that compare with it.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.config.base import TrainConfig
+from repro_torch.config.registry import get_arch
+from repro_torch.configs import qwen3_moe_30b_a3b as qcfg
+from repro_torch.data.lm import TokenPipeline
+from repro_torch.distrib.collectives import (Rows, ShardView, StationaryView,
+                                             batch_groups, block_matmul)
+from repro_torch.distrib.sharding import (P, ShardedTensor, device_put,
+                                          gather, lm_param_specs,
+                                          state_specs_like)
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.sparse.segment import take_rows
+from repro_torch.train.state import (make_train_step, make_tp2d_train_step,
+                                     new_sharded_train_state,
+                                     new_train_state)
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GRAD_RTOL = 1e-6
+LOSS_RTOL = 1e-6
+STEP_RTOL = 1e-5
+LEAF_FACTOR = 2.0
+TCFG = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10)
+N_STEPS = 2
+MOE16 = dataclasses.replace(
+    qcfg.SMOKE, moe=dataclasses.replace(qcfg.SMOKE.moe, n_experts=16))
+MODELS = {"qwen3-moe": qcfg.SMOKE, "qwen3-moe-e16": MOE16,
+          "smollm-135m": get_arch("smollm-135m", smoke=True).model}
+GATHERS = {"all_gather", "all_gather_grad"}
+
+
+def _mesh(shape):
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return Mesh(shape, axes, ["cpu"] * int(np.prod(shape)))
+
+
+def _split(t, n):
+    return [p.clone() for p in t.chunk(n)]
+
+
+def _block_sum(view):
+    """The whole gradient of a ``StationaryView``'s leaf: each block's
+    holders' leaf gradients added."""
+    lay = view.x.layout
+    out = torch.zeros(view.x.shape)
+    for block in lay.blocks():
+        total = None
+        for h in lay.holders(block):
+            g = view.leaves[h].grad
+            if g is not None:
+                total = g if total is None else total + g
+        if total is not None:
+            out[lay.slices(block)] = total
+    return out
+
+
+def _close(got, want, rtol):
+    err = float((got - want).abs().max())
+    assert err <= rtol * float(want.abs().max()), (err, float(
+        want.abs().max()))
+
+
+# -- block_matmul's backward ---------------------------------------------------------
+
+def _matmul_grads(shape, batch, spec, bias, seed):
+    mesh = _mesh(shape)
+    ba = ("pod", "data") if len(shape) == 3 else "data"
+    homes, _ = batch_groups(mesh, ba if batch == "split" else None)
+    rng = np.random.default_rng(seed)
+    B, S, n_in, n_out = 8, 3, 32, 48
+    x, w, dy = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                for s in ((B, S, n_in), (n_in, n_out), (B, S, n_out)))
+    b = torch.from_numpy(rng.standard_normal(n_out).astype(np.float32))
+    xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = xr @ wr
+    if bias:
+        y = y + br
+    (y * dy).sum().backward()
+    view = StationaryView(device_put(w, mesh, spec), grad=True)
+    bview = (StationaryView(device_put(b, mesh, P(spec[1])), grad=True)
+             if bias else None)
+    xs = [t.requires_grad_(True) for t in _split(x, len(homes))]
+    out = block_matmul(Rows(xs, homes, mesh), view, torch.float32, bview)
+    torch.autograd.backward(out.parts, _split(dy, len(homes)))
+    got = [torch.cat([t.grad for t in xs]), _block_sum(view)]
+    want = [xr.grad, wr.grad]
+    if bias:
+        got.append(_block_sum(bview))
+        want.append(br.grad)
+    return got, want, dict(mesh.bytes)
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["plain", "bias"])
+@pytest.mark.parametrize("spec", [P("data", "model"), P("model", "data")],
+                         ids=["wq", "wo"])
+@pytest.mark.parametrize("batch", ["whole", "split"])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 2), (2, 1), (1, 4),
+                                   (2, 2, 2)],
+                         ids=["2x2", "1x2", "2x1", "1x4", "2x2x2"])
+def test_block_matmul_gradients(shape, batch, spec, bias):
+    got, want, nbytes = _matmul_grads(shape, batch, spec, bias,
+                                      sum(shape) + len(batch))
+    for g, w in zip(got, want):
+        _close(g, w, GRAD_RTOL)
+    again, _, _ = _matmul_grads(shape, batch, spec, bias,
+                                sum(shape) + len(batch))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the backward moves the forward's bytes with i and j swapped (f32)
+    assert nbytes.get("tp_grad_act", 0) == nbytes.get("tp_partial", 0)
+    assert nbytes.get("tp_grad_partial", 0) == nbytes.get("tp_act", 0)
+    assert not set(nbytes) & GATHERS
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["plain", "bias"])
+@pytest.mark.parametrize("transposed", [False, True],
+                         ids=["row-major", "column-major"])
+def test_block_matmul_gradients_on_one_position_are_autograds(transposed,
+                                                              bias):
+    """One position, one home, one block: autograd's backward of ``x @ w +
+    b`` bit for bit, the weight read as it lies or transposed (the tied
+    head's layout, whose gradient autograd takes as (dyᵀ x)ᵀ)."""
+    mesh = _mesh((1, 1))
+    g = torch.Generator().manual_seed(5)
+    x, dy = torch.randn((4, 5, 24), generator=g), torch.randn((4, 5, 40),
+                                                              generator=g)
+    w = torch.randn((40, 24) if transposed else (24, 40), generator=g)
+    b = torch.randn((40,), generator=g)
+    xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = xr @ (wr.T if transposed else wr)
+    if bias:
+        y = y + br
+    (y * dy).sum().backward()
+    view = StationaryView(device_put(w, mesh, P("data", "model")),
+                          grad=True)
+    bview = (StationaryView(device_put(b, mesh, P("model")), grad=True)
+             if bias else None)
+    xs = x.clone().requires_grad_(True)
+    out = block_matmul(Rows([xs], [0], mesh), view.T if transposed else view,
+                       torch.float32, bview)
+    torch.autograd.backward(out.parts, [dy])
+    assert torch.equal(xs.grad, xr.grad)
+    assert torch.equal(view.leaves[0].grad, wr.grad)
+    if bias:
+        assert torch.equal(bview.leaves[0].grad, br.grad)
+    assert not mesh.bytes
+
+
+# -- the two-axis lookup's backward ---------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)],
+                         ids=["2x2", "1x4", "4x1"])
+def test_two_axis_lookup_gradient_is_take_rows_backward(shape):
+    mesh = _mesh(shape)
+    V, e = 24, 8
+    g = torch.Generator().manual_seed(2)
+    table = torch.randn((V, e), generator=g)
+    ids = torch.tensor([[0, 5, 23, -1, -24, 24, -25, 11],
+                        [7, 12, 6, 18, 3, 5, 0, 100],
+                        [-5, 1, 2, 22, 17, 9, 13, -100],
+                        [4, 4, 19, 20, 21, 8, 10, 4]], dtype=torch.int32)
+    dy = torch.randn(ids.shape + (e,), generator=g)
+    tr = table.clone().requires_grad_(True)
+    want = take_rows(tr, ids)
+    (torch.nan_to_num(want) * dy).sum().backward()
+    placed = device_put(table, mesh, P("model", "data"))
+    homes, _ = batch_groups(mesh, "data")
+    view = StationaryView(placed, grad=True)
+    got = view.take_rows(Rows(ids.chunk(len(homes)), homes, mesh))
+    torch.autograd.backward([torch.nan_to_num(p) for p in got.parts],
+                            dy.chunk(len(homes)))
+    assert torch.equal(_block_sum(view), tr.grad)
+    assert mesh.bytes["emb_grad"] == mesh.bytes["emb_rows"]
+    # through a ShardView (the fsdp steps' handle) too
+    mesh.reset_bytes()
+    sv = ShardView(placed, 0, list(range(mesh.size)))
+    rows = sv.take_rows(ids)
+    (torch.nan_to_num(rows) * dy).sum().backward()
+    whole = torch.zeros((V, e))
+    for block, _, grad in sv.grads():
+        whole[placed.layout.slices(block)] = grad
+    assert torch.equal(whole, tr.grad)
+    assert not set(mesh.bytes) & GATHERS
+
+
+# -- the vocab-parallel cross entropy -------------------------------------------------
+
+def _labels(B, S, V, seed):
+    g = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, V, (B, S), generator=g, dtype=torch.int32)
+    labels[0, :3] = -1
+    labels[-1, -1] = -1
+    return labels
+
+
+@pytest.mark.parametrize("batch", ["whole", "split"])
+@pytest.mark.parametrize("head", ["vocab", "tied"])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (1, 2), (2, 1), (1, 4)],
+                         ids=["1x1", "2x2", "1x2", "2x1", "1x4"])
+def test_vocab_parallel_loss(shape, head, batch):
+    """A head split over V only (P(None, ("data", "model"))), or the tied
+    head ``embed.T`` with ``embed`` under P("model", "data"): d over "data",
+    V over "model"."""
+    mesh = _mesh(shape)
+    homes, _ = batch_groups(mesh, "data" if batch == "split" else None)
+    B, S, d, V = 4, 6, 32, 64
+    g = torch.Generator().manual_seed(sum(shape))
+    hidden = torch.randn((B, S, d), generator=g)
+    labels = _labels(B, S, V, 3)
+    if head == "tied":
+        w = torch.randn((V, d), generator=g) * 0.3
+        view = StationaryView(device_put(w, mesh, P("model", "data")),
+                              grad=True).T
+    else:
+        w = torch.randn((d, V), generator=g) * 0.3
+        view = StationaryView(device_put(w, mesh, P(None, ("data", "model"))),
+                              grad=True)
+    hr, wr = hidden.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    want = [L.softmax_xent_sharded(part, wr.T if head == "tied" else wr, lab)
+            for part, lab in zip(hr.chunk(len(homes)),
+                                 labels.chunk(len(homes)))]
+    torch.autograd.backward(want)
+    hs = [t.requires_grad_(True) for t in _split(hidden, len(homes))]
+    got = L.softmax_xent_sharded(Rows(hs, homes, mesh), view,
+                                 Rows(labels.chunk(len(homes)), homes, mesh))
+    torch.autograd.backward(got.parts)
+    gh, gw = torch.cat([t.grad for t in hs]), _block_sum(view)
+    if mesh.size == 1:
+        assert all(torch.equal(a, b) for a, b in zip(got.parts, want))
+        assert torch.equal(gh, hr.grad) and torch.equal(gw, wr.grad)
+        assert not mesh.bytes
+        return
+    for a, b in zip(got.parts, want):
+        a, b = float(a.detach()), float(b.detach())
+        assert abs(a - b) <= LOSS_RTOL * abs(b)
+    _close(gh, hr.grad, GRAD_RTOL)
+    _close(gw, wr.grad, GRAD_RTOL)
+    # per row: the labels to the holders, (m, s, t) back, (lse, g) out
+    rows = B * S // len(homes)
+    n = mesh.bytes.get("xent_stats", 0)
+    assert n % (rows * 4) == 0 and n <= len(homes) * mesh.size * 6 * rows * 4
+    assert not set(mesh.bytes) & GATHERS
+    if head == "tied" and view.counts[0] > 1:
+        assert mesh.bytes["tp_partial"] > 0
+
+
+# -- the tp2d train step ----------------------------------------------------------------
+
+def _batches(cfg, B=8, S=16, n=N_STEPS):
+    pipe = TokenPipeline(cfg.vocab_size, B, S, seed=0)
+    return [[torch.as_tensor(a) for a in pipe.batch_at(i)] for i in range(n)]
+
+
+def _run(cfg, shape, micro, bspec, steps=N_STEPS, reference=True):
+    """(unsharded metrics, mesh metrics, unsharded state, mesh state, the
+    bytes of each mesh step)."""
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    params = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+    mesh = _mesh(shape)
+    specs = state_specs_like(lm_param_specs(params, cfg, "tp2d"))
+    state = new_sharded_train_state(params, mesh, specs)
+    step = make_tp2d_train_step(model.loss, TCFG, mesh, specs, bspec,
+                                microbatches=micro)
+    ref = rstep = None
+    if reference:
+        ref = new_train_state(model.init(torch.Generator().manual_seed(0),
+                                         dtype=torch.float32))
+        rstep = make_train_step(model.loss, TCFG, microbatches=micro)
+    want, got, nbytes = [], [], []
+    for b in _batches(cfg)[:steps]:
+        if reference:
+            ref, rm = rstep(ref, *b)
+            want.append((float(rm["loss"]), float(rm["grad_norm"])))
+        mesh.reset_bytes()
+        state, m = step(state, *b)
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+        nbytes.append(dict(mesh.bytes))
+    return want, got, ref, state, nbytes
+
+
+def _whole(state):
+    return [gather(x) if isinstance(x, ShardedTensor) else x
+            for x in tree_leaves(state)]
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_tp2d_step_on_one_position_is_the_unsharded_step(name):
+    want, got, ref, state, nbytes = _run(MODELS[name], (1, 1), 2,
+                                         P("data", None))
+    assert got == want
+    for a, b in zip(tree_leaves(ref), _whole(state)):
+        assert torch.equal(a, b)
+    assert not any(nbytes)
+
+
+@pytest.mark.parametrize("batch", ["whole", "split"])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), (1, 4)],
+                         ids=["1x2", "2x1", "2x2", "1x4"])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_tp2d_step_against_the_unsharded_step(name, shape, batch):
+    cfg = MODELS[name]
+    bspec = P("data", None) if batch == "split" else P(None, None)
+    want, got, ref, state, nbytes = _run(cfg, shape, 2, bspec)
+    for (l0, n0), (l1, n1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=STEP_RTOL)
+        assert n1 == pytest.approx(n0, rel=STEP_RTOL)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    for a, b in zip(tree_leaves(ref.params), _whole(state.params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=flips)
+    for step in nbytes:
+        assert not set(step) & GATHERS, step
+        assert step["tp_act"] > 0 and step["tp_grad_partial"] > 0
+    if cfg.moe is not None and cfg.moe.n_experts % 16 == 0 and shape[1] > 1:
+        assert all(step["expert_send"] > 0 for step in nbytes)
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-e16", "smollm-135m"])
+def test_tp2d_step_repeats_bitwise(name):
+    runs = [_run(MODELS[name], (2, 2), 4, P("data", None), reference=False)
+            for _ in range(2)]
+    assert runs[0][1] == runs[1][1]
+    assert runs[0][4] == runs[1][4]
+    for a, b in zip(_whole(runs[0][3]), _whole(runs[1][3])):
+        assert torch.equal(a, b)
+
+
+def _moment_gaps(state, ref):
+    """Per leaf: ||m - m_ref|| / ||m_ref|| of the AdamW first moments."""
+    out = []
+    for x, r in zip(tree_leaves(state.opt.m), tree_leaves(ref.opt.m)):
+        whole = gather(x) if isinstance(x, ShardedTensor) else x
+        out.append(float((whole - r).norm() / r.norm()))
+    return out
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe", "smollm-135m"])
+def test_tp2d_bf16_leaves_within_the_f32_control(name):
+    """bf16 compute, the card's (the dX partials of a D_out > 1 product
+    are f32 through ``_mm``, a branch the f32 tests never take): after 2
+    steps on 2 × 2 each leaf's AdamW first moment, a sum of both steps'
+    gradients, is no farther from the unsharded bf16 step's than
+    ``LEAF_FACTOR`` times the unsharded f32 step's distance from it (the
+    control: what bf16 rounding alone does to that leaf)."""
+    cfg = dataclasses.replace(MODELS[name], dtype="bfloat16")
+    _, _, ref, state, _ = _run(cfg, (2, 2), 2, P("data", None))
+    f32 = _run(dataclasses.replace(cfg, dtype="float32"), (1, 1), 2,
+               P("data", None))[2]
+    gaps, control = _moment_gaps(state, ref), _moment_gaps(f32, ref)
+    ratio = [g / c for g, c in zip(gaps, control)]
+    assert max(ratio) <= LEAF_FACTOR, (gaps, control)
+
+
+class _CountMM(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-e16", "smollm-135m"])
+def test_tp2d_remat_is_bitwise_none(name):
+    """``remat="full"`` and ``"dots"`` on the 2 × 2 mesh: bitwise the
+    ``"none"`` step; the full recompute runs the block products again,
+    the dots recompute does not (their outputs are saved, as on one
+    device), and both repeat the forward's moves."""
+    out, counts = {}, {}
+    for remat in ("none", "full", "dots"):
+        cfg = dataclasses.replace(MODELS[name], remat=remat)
+        with _CountMM() as mm:
+            out[remat] = _run(cfg, (2, 2), 2, P("data", None), steps=1,
+                              reference=False)
+        counts[remat] = mm.n
+    for remat in ("full", "dots"):
+        assert out[remat][1] == out["none"][1]
+        for a, b in zip(_whole(out[remat][3]), _whole(out["none"][3])):
+            assert torch.equal(a, b)
+        assert out[remat][4][0]["tp_act"] > out["none"][4][0]["tp_act"]
+    assert counts["dots"] == counts["none"] < counts["full"]
+
+
+# -- against the reference's jitted tp2d step ---------------------------------------------
+
+_CHILD = r'''
+import json, sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.config.base import MoEConfig, TrainConfig, TransformerConfig
+from repro.distrib.sharding import lm_param_specs, state_specs_like
+from repro.models.transformer import TransformerLM
+from repro.train.state import make_train_step, new_train_state
+
+args = json.loads(sys.argv[1])
+kw = args["cfg"]
+if kw.get("moe"):
+    kw["moe"] = MoEConfig(**kw["moe"])
+cfg = TransformerConfig(**kw)
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+model = TransformerLM(cfg, moe_group_size=16, act_spec=P("data", None, None))
+state = new_train_state(model.init(jax.random.PRNGKey(0)))
+specs = state_specs_like(lm_param_specs(state.params, cfg, "tp2d"))
+ns = lambda s: NamedSharding(mesh, s)
+bs = ns(P("data", None))
+step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"]),
+                               microbatches=args["micro"]),
+               in_shardings=(jax.tree.map(ns, specs), bs, bs))
+metrics = []
+with mesh:
+    for tokens, labels in args["batches"]:
+        state, m = step(state, jnp.asarray(np.array(tokens, np.int32)),
+                        jnp.asarray(np.array(labels, np.int32)))
+        metrics.append([float(m["loss"]), float(m["grad_norm"])])
+leaves = {}
+for path, leaf in jax.tree_util.tree_flatten_with_path(state.params)[0]:
+    key = ":".join(str(getattr(p, "key", getattr(p, "name", p)))
+                   for p in path)
+    leaves[key] = np.asarray(leaf, np.float32)
+np.savez(args["out"], **leaves)
+print(json.dumps(metrics))
+'''
+
+
+def test_tp2d_step_matches_the_reference_jitted_step(tmp_path):
+    """The reference's jitted step under a 2 × 2 JAX mesh with the ``tp2d``
+    ``in_shardings`` (XLA's partitioner places each product) against the
+    port's ``make_tp2d_train_step`` on 2 × 2, the qwen3-moe SMOKE model
+    with 16 experts, 2 steps of 2 microbatches split over "data", one set
+    of weights: losses, grad norms and every leaf to rtol 1e-4."""
+    jax = pytest.importorskip("jax")
+    from repro.models.transformer import TransformerLM as RLM
+    from repro_torch.models.transformer import params_from_jax
+    from test_torch_lm import _jax_cfg
+    from test_torch_train import _leaves_ref_layout
+    cfg = MOE16
+    batches = _batches(cfg)
+    out = tmp_path / "ref.npz"
+    payload = json.dumps({
+        "cfg": dataclasses.asdict(cfg), "micro": 2, "out": str(out),
+        "tcfg": {k: getattr(TCFG, k) for k in ("learning_rate",
+                                                "warmup_steps",
+                                                "total_steps")},
+        "batches": [[t.tolist() for t in b] for b in batches]})
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    res = subprocess.run([sys.executable, "-c", textwrap.dedent(_CHILD),
+                          payload], env=env, capture_output=True, text=True,
+                         cwd=REPO, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    want = json.loads(res.stdout.strip().splitlines()[-1])
+    rparams = RLM(_jax_cfg(cfg)).init(jax.random.PRNGKey(0))
+    params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
+                                                         rparams),
+                             device="cpu", dtype=torch.float32)
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    mesh = _mesh((2, 2))
+    specs = state_specs_like(lm_param_specs(params, cfg, "tp2d"))
+    state = new_sharded_train_state(params, mesh, specs)
+    step = make_tp2d_train_step(model.loss, TCFG, mesh, specs,
+                                P("data", None), microbatches=2)
+    for b, (loss, gnorm) in zip(batches, want):
+        state, m = step(state, *b)
+        assert float(m["loss"]) == pytest.approx(loss, rel=1e-4)
+        assert float(m["grad_norm"]) == pytest.approx(gnorm, rel=1e-4)
+    assert not set(mesh.bytes) & GATHERS
+    whole = {k: gather(v) if isinstance(v, ShardedTensor) else v
+             for k, v in state.params.items() if k != "layers"}
+    whole["layers"] = [{k: (gather(v) if isinstance(v, ShardedTensor)
+                            else {n: gather(t) for n, t in v.items()})
+                        for k, v in lay.items()}
+                       for lay in state.params["layers"]]
+    got = _leaves_ref_layout(whole)
+    ref = np.load(out)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    assert sorted(k.replace(":", "/") for k in ref.files) == sorted(got)
+    for key in ref.files:
+        np.testing.assert_allclose(got[key.replace(":", "/")], ref[key],
+                                   rtol=1e-4, atol=flips)
