@@ -200,27 +200,33 @@ Phases, each printed on its own lines:
    backward per step, microbatch and layer), and one more step's
    gradients under ``"dots"`` and under ``"none"`` must be bitwise equal;
    then train-sharded-tp2d — training on the 2 × 2 mesh under the
-   reference's ``tp2d`` rules with the weights where they lie
-   (``train.state.make_tp2d_train_step``: every product on its weight
-   blocks' holders forward and backward, ``embed`` looked up and its
-   gradient summed where its blocks lie, the cross entropy per vocab
-   block where the head's blocks lie with only per-row statistics moving):
-   (i) train-lm's model, batches and schedule (``act_spec``, batch over
-   "data"), 2 steps, then 2 more from the seed, bitwise equal; (ii)
-   smollm-135m whole with its tied head (d over "data", V over "model"),
-   train-smollm's batches, 2 steps; each step's loss within
-   ``TP_TRAIN_LOSS_RTOL`` and grad norm within ``TP_TRAIN_NORM_RTOL`` of the
-   one-card run's, no ``all_gather`` or ``all_gather_grad``, the peak under
-   ``TP_TRAIN_PEAK``, the launches exactly (train-sharded's per step with
-   2 expert shards in (i); 120 flash forwards and 60 backwards in (ii));
-   per step the bytes by collective, time, tokens/s, peak and state bytes
-   per position, and for (i) step 0's top-8 choices that differ from one
-   card's per layer; each leaf's AdamW first moment after the 2 steps (a
-   sum of gradients of the initial weights) within ``TP_LEAF_FACTOR``
-   times an f32 one-card run's gap from the bf16 one-card run's; and the
-   first input that each kernel took at each shape ((i)'s second run:
-   flash forward and backward, the expert GEMM's tiles, dX and dW; (ii):
-   flash) held against its plain version;
+   reference's ``tp2d`` rules, split as its partitioner splits them
+   (``train.state.make_tp2d_train_step``: Megatron over "model" × ZeRO
+   over "data" — each weight's "model" block gathered along "data" and
+   multiplied at every position, a row block's partials and a column
+   block's dX partials summed over "model", the heads and the experts
+   split over "model", the cross entropy per vocab block with only
+   per-row statistics crossing "model"): (i) train-lm's model, batches and
+   schedule (``act_spec``, batch over "data"), 2 steps, then 2 more from
+   the seed, bitwise equal; (iii) (i) with ``moe_shard="ffn"`` (each
+   expert's d_ff over "model"), 2 steps; (ii) smollm-135m whole with its
+   tied head (d over "data", V over "model"; its 9 heads gathered at both
+   "model" positions), train-smollm's batches, 2 steps; each step's loss
+   within ``TP_TRAIN_LOSS_RTOL`` and grad norm within
+   ``TP_TRAIN_NORM_RTOL`` of the one-card run's, every collective's bytes
+   equal to ``tp2d_bytes_want`` (none of ``block_matmul``'s), the peak
+   under ``TP_TRAIN_PEAK``, the launches exactly ``tp2d_launch_want``'s
+   (per position, layer and round a flash forward, again in the
+   recompute, and a backward; 3 expert products, 3 dX, 3 dW); per step
+   the bytes by collective, time, tokens/s, peak and state bytes per
+   position, and for (i) and (iii) step 0's top-8 choices that differ
+   from one card's per layer; each leaf's AdamW first moment after the 2
+   steps (a sum of gradients of the initial weights) within
+   ``TP_LEAF_FACTOR`` times an f32 one-card run's gap from the bf16
+   one-card run's; and the first input that each kernel took at each
+   shape ((i)'s second run and (iii): flash forward and backward, the
+   expert GEMM's tiles, dX and dW; (ii): flash) held against its plain
+   version and timed beside SDPA or cuBLAS, with its bound;
 15. control (run after phase 12, on serve-adaptive's server, ``rwr_tol``
     set to 1e-4 so all seven actions are live; reset between runs, its
     PEM state put back, its PEM reward fed one seeded elapsed schedule
@@ -373,8 +379,8 @@ SMOL_BATCH, SMOL_MICRO, SMOL_STEPS = 8, 2, 5
 SHARD_LOSS_RTOL = 1e-4
 # train-sharded-tp2d: the tp2d step's losses and grad norms against the
 # one-card runs' first two steps (train-lm's, train-smollm's), relative:
-# every product's partials and the vocab blocks' statistics fold in block
-# order, and the router, a D_in = 2 block product on 2 x 2, may flip a
+# the row blocks' partials and the vocab blocks' statistics fold over
+# "model" in another order than one product, so the router may flip a
 # near-tie among the top 8; the peak allowed on the card
 TP_TRAIN_LOSS_RTOL, TP_TRAIN_NORM_RTOL = 1e-3, 1e-2
 TP_TRAIN_STEPS = 2
@@ -2204,7 +2210,73 @@ def sdpa_backward(q, k, v, do):
             torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2))]
 
 
-def hold_captured(inputs, tag: str) -> list:
+def captured_times(fn: str, args, kw, got) -> dict:
+    """One captured call timed (``cuda_ms``) beside one PyTorch call on the
+    same inputs — SDPA forward or backward for flash, batched
+    ``torch.matmul`` for the GEMM's tiles, ``torch.bmm`` on (E, G·C, ·)
+    copies for dX and dW (the copies not timed) — with its bound (the
+    inputs read once, the outputs written once; the products' bf16
+    operations)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.expert_gemm import ops as gemm_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.measure import H100_BF16_FLOPS, cuda_ms
+    ops = flash_ops if fn.startswith("flash") else gemm_ops
+    ms = cuda_ms(lambda: getattr(ops, fn)(*args, **kw), REPS)
+    outs = got if isinstance(got, (tuple, list)) else (got,)
+    tensors = [a for a in args if torch.is_tensor(a)] + list(outs)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    if fn.startswith("flash"):
+        q, k, v = args[:3]
+        B, S, H, hd = q.shape
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        if fn == "flash_attention":
+            flops = 4 * B * H * hd * causal_pairs(S, S)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), REPS)
+        else:
+            flops = 10 * B * H * hd * causal_pairs(S, S)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, vs))
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 enable_gqa=True)
+            dos = args[4].transpose(1, 2)
+            lib = cuda_ms(lambda: torch.autograd.grad(
+                out, (qs, ks, vs), dos, retain_graph=True), REPS)
+            del out
+    else:
+        if fn == "expert_gemm":
+            x, w = args
+            E = w.shape[0]
+            G, C = x.shape[0] // E, x.shape[1]
+            x4 = x.view(G, E, C, x.shape[2])
+            lib = cuda_ms(lambda: torch.matmul(x4, w), REPS)
+            macs = x.numel() * w.shape[2]
+        elif fn == "expert_gemm_dx":
+            dy, w = args
+            E = w.shape[0]
+            G, C = dy.shape[0] // E, dy.shape[1]
+            dyt = dy.view(G, E, C, -1).transpose(0, 1).reshape(E, G * C, -1)
+            lib = cuda_ms(lambda: torch.bmm(dyt, w.mT), REPS)
+            macs = dy.numel() * w.shape[1]
+            del dyt
+        else:
+            x, dy, E = args
+            G, C = x.shape[0] // E, x.shape[1]
+            xt = (x.view(G, E, C, -1).permute(1, 3, 0, 2)
+                  .reshape(E, -1, G * C))
+            dyt = dy.view(G, E, C, -1).transpose(0, 1).reshape(E, G * C, -1)
+            lib = cuda_ms(lambda: torch.bmm(xt, dyt), REPS)
+            macs = x.numel() * dy.shape[2]
+            del xt, dyt
+        flops = 2 * macs
+    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+    return dict(ms=ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, flops=flops)
+
+
+def hold_captured(inputs, tag: str,
+                  timed: bool = False) -> list:
     """Each input ``KernelCapture`` kept, run again by the kernel that took
     it (one launch of that kernel, two launches bitwise equal) and held
     against its plain version: the flash forward's O within ``row_atol``
@@ -2282,10 +2354,20 @@ def hold_captured(inputs, tag: str) -> list:
             atol = (LM_GEMM_ATOL if fn == "expert_gemm" else LM_KERNEL_RTOL
                     * float(want.float().pow(2).mean().sqrt()))
             err, used = lm_check(label, got, again, want, atol)
+        times = {}
+        if timed:
+            times = captured_times(fn, args, kw, got)
+            lib = ("sdpa" if fn == "flash_attention" else "sdpa backward"
+                   if fn.startswith("flash") else "torch.bmm"
+                   if fn != "expert_gemm" else "torch.matmul")
+            say(f"  {label} {shapes}: {times['ms']:.4f} ms, {lib} "
+                f"{times['library_ms']:.4f} ms, bound "
+                f"{times['bound_ms']:.4f} ms ({times['bound_by']}: "
+                f"{times['bytes']} B, {times['flops']} flop)")
         say(f"  {label} {shapes}: max_abs_err={err:.3e} ({used:.3f} of the "
             f"allowance), two launches bitwise equal")
         out.append(dict(wrapper=fn, kernel=name, shapes=str(shapes),
-                        max_abs_err=err, tol_used=used))
+                        max_abs_err=err, tol_used=used, **times))
         if fn == "flash_attention_bwd":
             out[-1].update(row_rule_used=row[0], sdpa_row_rule_used=row[1],
                            sdpa_tol_used=row[2])
@@ -2294,21 +2376,167 @@ def hold_captured(inputs, tag: str) -> list:
     return out
 
 
-def tp2d_flips(plain_calls, mesh_calls, n_layers: int, n_homes: int
-               ) -> list:
+def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
+    """Every collective's bytes of one ``make_tp2d_train_step`` step on a
+    ("data", "model") mesh of ``shape``, the batch split over "data", each
+    position holding ``rows`` rows in each of ``rounds`` rounds, from the
+    config and the ``tp2d`` rules (each leaf's blocks from its spec on a
+    meta mesh of that shape): per round the weights gathered along "data"
+    in the compute dtype and reduce-scattered back in f32, the sums over
+    "model" (a reduce-scatter of the partial, an all-gather of the rounded
+    sum), the heads and experts over "model", the loss's statistics and
+    the two-axis lookup at each batch shard's first position, its rows
+    delivered to the shard's other positions, the forward's moves inside a
+    layer again in
+    ``remat``'s recompute; per step the replicas' sums, the norm's gather
+    and AdamW's sends (f32)."""
+    import collections
+    import math
+    import torch
+    from repro_torch.distrib.sharding import Layout, lm_param_specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.moe import _groups, moe_capacity
+    from repro_torch.models.transformer import TransformerLM
+    D, M = shape
+    N = D * M
+    mesh = Mesh(shape, ("data", "model"), ["meta"] * N)
+    params = TransformerLM(cfg).init(torch.Generator(), dtype=torch.float32,
+                                     device="meta")
+    specs = lm_param_specs(params, cfg, "tp2d")
+    c = 2 if cfg.dtype == "bfloat16" else 4
+    R, d, hd = rows, cfg.d_model, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    again = 2 if cfg.remat in ("full", "dots") else 1
+    out = collections.Counter()
+
+    def lay(x, s):
+        return Layout(mesh, s, x.shape)
+
+    def on(layout, axis):
+        return math.prod(mesh.axis_size(a) for axes in layout.axes
+                         for a in axes if a == axis)
+
+    def allreduce(n, p):                 # N / M groups of M
+        return N // M * (M - 1) * n * (p + c)
+
+    def gathered(x, s, times):
+        ly = lay(x, s)
+        Dw, Mw = on(ly, "data"), on(ly, "model")
+        out["tp_zero_gather"] += (rounds * times * N * (Dw - 1)
+                                  * x.numel() // (Dw * Mw) * c)
+        out["tp_zero_scatter"] += rounds * (D - 1) * 4 * x.numel()
+        return ly
+
+    direct = 0                           # leaves read where they lie
+    for lp, sp in zip(params["layers"], specs["layers"]):
+        direct += lp["ln1"].numel() + lp["ln2"].numel()
+        for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "sg", "su",
+                     "sd"):
+            if name not in lp:
+                continue
+            ly = gathered(lp[name], sp[name], again)
+            if M > 1 and "model" in ly.axes[0]:      # a row block's sum
+                out["tp_model_sum"] += rounds * again * allreduce(R * d, 4)
+            if M > 1 and "model" in ly.axes[1]:      # a column block's dX
+                out["tp_model_sum"] += rounds * allreduce(R * d, 4)
+        for name in ("bq", "bk", "bv"):
+            direct += lp[name].numel() if name in lp else 0
+        q = lay(lp["wq"], sp["wq"])
+        if M > 1 and "model" in q.axes[1] and not (H % M == 0
+                                                   and KV % M == 0):
+            per, g = H // M, H // KV
+            if H % M == 0 and g % per == 0:  # each position's k, v head
+                w = KV * hd // M
+                fwd = 0
+                for m in range(M):
+                    lo = m * per // g * hd
+                    fwd += 2 * (hd - max(0, min(lo + hd, (m + 1) * w)
+                                         - max(lo, m * w))) * R * c
+                fwd *= D
+                out["tp_heads_gather"] += rounds * (again + 1) * fwd
+            else:                            # q, k, v whole; o's part back
+                share = N * (M - 1) * R * hd * c // M
+                out["tp_heads_gather"] += rounds * (
+                    again * share * (H + 2 * KV) + share * H)
+        if "moe" in lp:
+            moe, mp, ms = cfg.moe, lp["moe"], sp["moe"]
+            gathered(mp["router"], ms["router"], again)
+            direct += sum(mp[k].numel() for k in ("wg", "wu", "wd"))
+            E = moe.n_experts
+            G, S = _groups(R, max(1, R // group))
+            n = G * E * moe_capacity(S, E, moe.top_k) * d
+            wg = lay(mp["wg"], ms["wg"])
+            if M > 1 and wg.counts[0] > 1:   # the experts over "model"
+                out["expert_gather"] += (rounds * (again + 1) * N * (M - 1)
+                                         * n * c // M)
+            elif M > 1 and wg.counts[2] > 1:  # their d_ff over "model"
+                out["tp_model_sum"] += rounds * (again + 1) * allreduce(n, c)
+    direct += params["ln_f"].numel()
+    head = specs["embed"] if cfg.tie_embeddings else specs["head"]
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    ly = gathered(w, head, 1)
+    vocab_dim = 0 if cfg.tie_embeddings else 1
+    if M > 1 and "model" in ly.axes[vocab_dim]:
+        out["xent_stats"] += rounds * N * (M - 1) * 12 * R
+        out["tp_model_sum"] += rounds * allreduce(R * d, 4)
+    emb = lay(params["embed"], specs["embed"])
+    K, C = emb.counts
+    out["emb_ids"] += rounds * D * (K * C - 1) * R * 4
+    out["emb_rows"] += rounds * D * ((K * C - 1) * R * d // C
+                                     + (M - 1) * R * d) * 4
+    out["emb_grad"] += rounds * D * (K * C - 1) * R * d // C * 4
+    out["grad_psum"] += (D - 1) * 4 * direct
+
+    def leaves(p, s):
+        if isinstance(p, dict):
+            for k in p:
+                yield from leaves(p[k], s[k])
+        elif isinstance(p, list):
+            for a, b in zip(p, s):
+                yield from leaves(a, b)
+        else:
+            yield p, lay(p, s)
+    for x, ly in leaves(params, specs):
+        blocks = math.prod(ly.counts)
+        out["norm_gather"] += x.numel() * 4 - x.numel() * 4 // blocks
+        out["grad_send"] += x.numel() * 4 * (N - blocks) // blocks
+    return {k: v for k, v in out.items() if v}
+
+
+def tp2d_launch_want(cfg, n_positions: int, rounds: int) -> dict:
+    """Launches of one ``make_tp2d_train_step`` step in bf16: per position,
+    layer and round a flash forward (again in ``remat``'s recompute) and a
+    backward on the TMA + wgmma kernels, and per MoE layer three expert
+    products on the tiles kernel (again in the recompute), three dX and
+    three dW: every position attends over its heads and runs its experts
+    (its E / M, or all of them on its d_ff columns, or all)."""
+    per = n_positions * cfg.n_layers * rounds
+    again = 2 if cfg.remat in ("full", "dots") else 1
+    experts = 3 * per if cfg.moe is not None else 0
+    return {"flash_attention_fwd_wgmma": again * per,
+            "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
+            "flash_attention_fwd": 0, "expert_gemm_wgmma": again * experts,
+            "expert_gemm_dx": experts, "expert_gemm_dw": experts,
+            "expert_gemm_skinny": 0, "expert_gemm": 0}
+
+
+def tp2d_flips(plain_calls, mesh_calls, n_layers: int, n_homes: int,
+               n_positions: int) -> list:
     """Per MoE layer, the tokens of step 0 whose top-k expert set differs
     between one card (one routing call per microbatch and layer, in that
-    order) and the ``tp2d`` mesh (one per layer and home, in that order;
-    home d runs microbatch d)."""
+    order) and the ``tp2d`` mesh (one per layer and position, in that
+    order; batch shard d runs microbatch d at its positions, the first of
+    which is read)."""
     check(len(plain_calls) == n_layers * n_homes
-          and len(mesh_calls) >= n_layers * n_homes,
+          and len(mesh_calls) >= n_layers * n_positions,
           f"routing calls: {len(plain_calls)} one card, {len(mesh_calls)} "
-          f"on the mesh for {n_layers} layers of {n_homes} homes")
+          f"on the mesh for {n_layers} layers of {n_positions} positions")
     flips = [0] * n_layers
+    per = n_positions // n_homes
     for i in range(n_layers):
         for d in range(n_homes):
             want = plain_calls[d * n_layers + i].sort(-1).values
-            got = mesh_calls[i * n_homes + d].sort(-1).values
+            got = mesh_calls[i * n_positions + d * per].sort(-1).values
             flips[i] += int((got != want).any(-1).sum())
     return flips
 
@@ -2316,27 +2544,33 @@ def tp2d_flips(plain_calls, mesh_calls, n_layers: int, n_homes: int
 def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
                              profile: bool = False):
     """LM training on a 2 × 2 ("data", "model") mesh (the first four cards,
-    or ``cuda:0`` four times) under the reference's ``tp2d`` rules with the
-    weights where they lie (``train.state.make_tp2d_train_step``): every
-    product on its weight blocks' holders forward and backward, ``embed``
-    looked up and its gradient summed where its blocks lie, the cross
-    entropy per vocab block where the head's blocks lie with only per-row
-    statistics moving, the experts where they live. (i) qwen3-moe-30b-a3b
-    at train-lm's widths, depth, batches and schedule (``act_spec``
-    P("data", None, None), batch P("data", None): one microbatch per home),
-    2 steps, then 2 more from the same seed, which must repeat bit for bit;
+    or ``cuda:0`` four times) under the reference's ``tp2d`` rules, split as
+    its partitioner splits them (``train.state.make_tp2d_train_step``):
+    Megatron over "model" × ZeRO over "data" — each weight gathered along
+    "data" into the position's "model" block and multiplied there, the
+    heads and the experts split over "model", the partial products and the
+    dX partials summed over "model", ``embed`` looked up where its blocks
+    lie, the cross entropy per vocab block. (i) qwen3-moe-30b-a3b at
+    train-lm's widths, depth, batches and schedule (``act_spec`` P("data",
+    None, None), batch P("data", None): one microbatch per batch shard), 2
+    steps, then 2 more from the same seed, which must repeat bit for bit;
     (ii) smollm-135m whole (30 layers, tied head: d over "data", V over
-    "model"; ``remat="dots"``) on train-smollm's batches, 2 steps. Each
+    "model"; 9 heads on 2 "model" positions, so q, k and v are gathered and
+    every position attends over all of them; ``remat="dots"``) on
+    train-smollm's batches, 2 steps; (iii) (i)'s model with
+    ``moe_shard="ffn"`` (each expert's d_ff over "model"), 2 steps. Each
     step's loss within ``TP_TRAIN_LOSS_RTOL`` and grad norm within
     ``TP_TRAIN_NORM_RTOL`` of the one-card run's (train-lm's, train-
-    smollm's); no ``all_gather`` or ``all_gather_grad``; the peak under
-    ``TP_TRAIN_PEAK``; the launches exactly; the router's top-8 choices at
-    step 0 that differ from one card's, per layer, printed. Each leaf's
-    AdamW first moment after the 2 steps against the one-card run's,
-    within ``TP_LEAF_FACTOR`` times the gap of an f32 one-card run
+    smollm's: ``moe_shard`` changes only the placement); every
+    collective's bytes equal to ``tp2d_bytes_want``, none of
+    ``block_matmul``'s; the peak under ``TP_TRAIN_PEAK``; the launches
+    exactly (``tp2d_launch_want``); the router's top-8 choices at step 0
+    that differ from one card's, per layer, printed. Each leaf's AdamW
+    first moment after the 2 steps against the one-card run's, within
+    ``TP_LEAF_FACTOR`` times the gap of an f32 one-card run
     (``f32_control``); the kernels' first inputs at each shape, kept by
-    ``KernelCapture`` in (i)'s second run and in (ii), held against their
-    plain versions (``hold_captured``)."""
+    ``KernelCapture`` in (i)'s second run, (ii) and (iii), held against
+    their plain versions and timed (``hold_captured``)."""
     import dataclasses
     import torch
     from repro_torch.config.base import TrainConfig
@@ -2356,9 +2590,10 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     mesh = Mesh((2, 2), ("data", "model"), devices)
     bspec, act = P("data", None), P("data", None, None)
     D = mesh.axis_size("data")
+    stationary = ("tp_act", "tp_partial", "tp_grad_act", "tp_grad_partial")
     total, out = {}, dict(mesh=str(mesh))
 
-    def run(tag, cfg, model, tcfg, pipe, micro, want, tokens, prof=None,
+    def run(tag, cfg, model, tcfg, pipe, micro, tokens, prof=None,
             ref=None):
         params = model.init(torch.Generator(device="cuda").manual_seed(0),
                             dtype=torch.float32)
@@ -2369,6 +2604,7 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
         torch.cuda.empty_cache()
         step = make_tp2d_train_step(model.loss, tcfg, mesh, specs, bspec,
                                     micro)
+        want = tp2d_launch_want(cfg, mesh.size, micro // D)
         state, rows = sharded_steps(tag, step, state, mesh, pipe, 0,
                                     TP_TRAIN_STEPS, 0, total, prof, want,
                                     "train-sharded-tp2d", tokens)
@@ -2404,13 +2640,19 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
               f"{ratio[worst[0]]:.3f} times the f32 control's gap")
         return dict(names=names, gaps=gaps, control=control, ratio=ratio)
 
-    def hold(tag, rows, one_card):
+    def hold(tag, rows, one_card, cfg, micro, rows_per_position):
         got = [(r["loss"], r["grad_norm"]) for r in rows]
         want = list(zip(one_card["losses"], one_card["grad_norm"]))
         rel = [(abs(a - c) / abs(c), abs(b - d) / abs(d))
                for (a, b), (c, d) in zip(got, want)]
-        gathered = [r["collective_bytes"].get(k, 0) for r in rows
-                    for k in ("all_gather", "all_gather_grad")]
+        moved = sum(r["collective_bytes"].get(k, 0) for r in rows
+                    for k in stationary)
+        bytes_want = tp2d_bytes_want(cfg, mesh.shape, rows_per_position,
+                                     micro // D, TRAIN_GROUP)
+        off = [{k: (r["collective_bytes"].get(k), bytes_want.get(k))
+                for k in set(r["collective_bytes"]) | set(bytes_want)
+                if r["collective_bytes"].get(k) != bytes_want.get(k)}
+               for r in rows]
         peak = max(r["peak_bytes"] for r in rows)
         busiest = max(max(r["position_bytes"]) for r in rows)
         warm, card = rows[-1], one_card["step_s"][1]
@@ -2420,17 +2662,20 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
             f"{warm['step_s']:.3f} s ({warm['tokens_per_s']:.1f} tok/s) "
             f"against one card's {card:.3f} s "
             f"({one_card['tokens_per_s'][1]:.1f} tok/s); peak {peak} B; "
-            f"busiest position's state {busiest} B; parameter bytes "
-            f"gathered {sum(gathered)}")
-        check(not any(gathered), f"train-sharded-tp2d {tag}: a parameter "
-                                 f"was gathered")
+            f"busiest position's state {busiest} B; bytes a step by the "
+            f"formula {bytes_want}, steps off it {off}; block_matmul's "
+            f"bytes {moved}")
+        check(not moved, f"train-sharded-tp2d {tag}: block_matmul's moves "
+                         f"ran")
+        check(not any(off), f"train-sharded-tp2d {tag}: bytes off the "
+                            f"formula (got, want): {off}")
         check(peak <= TP_TRAIN_PEAK,
               f"train-sharded-tp2d {tag}: peak {peak} B")
         check(all(a <= TP_TRAIN_LOSS_RTOL and b <= TP_TRAIN_NORM_RTOL
                   for a, b in rel),
               f"train-sharded-tp2d {tag}: {got} against one card's {want}")
         return dict(steps=rows, rel=rel, peak_bytes=peak,
-                    busiest_state_bytes=busiest)
+                    busiest_state_bytes=busiest, bytes_want=bytes_want)
 
     # (i) qwen3-moe at train-lm's shape
     cfg = dataclasses.replace(FULL, n_layers=TRAIN_LAYERS)
@@ -2454,22 +2699,20 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     model = TransformerLM(cfg, moe_group_size=TRAIN_GROUP, act_spec=act)
     prof = (CollectiveProfiler("train-sharded-tp2d (i) 2x2") if profile
             else None)
-    want = sharded_launch_want(mesh.axis_size("model"))
+    rows_lm = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
     with RouteSpy() as spy:
         spy.armed = True
         rows_i, dig_i, (names, gaps) = run(
-            "(i)", cfg, model, tcfg, pipe, TRAIN_MICRO, want,
+            "(i)", cfg, model, tcfg, pipe, TRAIN_MICRO,
             TRAIN_BATCH * TRAIN_SEQ, prof, ref)
-    del ref
-    flips = tp2d_flips(plain.calls, spy.calls, cfg.n_layers, D)
+    flips = tp2d_flips(plain.calls, spy.calls, cfg.n_layers, D, mesh.size)
     if prof is not None:
         out["profile_i"] = prof.spans
     # the second run also keeps each kernel's first input at each shape
     with KernelCapture("train") as cap:
         cap.armed = True
         rows_again, dig_again, _ = run("(i) again", cfg, model, tcfg, pipe,
-                                       TRAIN_MICRO, want,
-                                       TRAIN_BATCH * TRAIN_SEQ)
+                                       TRAIN_MICRO, TRAIN_BATCH * TRAIN_SEQ)
     first = [(r["loss"], r["grad_norm"]) for r in rows_i]
     again = [(r["loss"], r["grad_norm"]) for r in rows_again]
     same = first == again and dig_i == dig_again
@@ -2482,13 +2725,40 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
         f"{TRAIN_BATCH * TRAIN_SEQ}")
     check(same, f"train-sharded-tp2d (i): the second run gave {again}, "
                 f"the first {first}")
-    out["i"] = hold("(i)", rows_i, train_lm)
+    out["i"] = hold("(i)", rows_i, train_lm, cfg, TRAIN_MICRO, rows_lm)
     out["i"].update(repeat_bitwise=same, flips=flips,
                     leaves=hold_leaves("(i)", names, gaps, control),
                     kernels=hold_captured(cap.inputs,
-                                          "train-sharded-tp2d (i)"))
+                                          "train-sharded-tp2d (i)",
+                                          timed=True))
     cap.check_complete("train-sharded-tp2d (i)")
     del cap
+    torch.cuda.empty_cache()
+
+    # (iii) the same model with each expert's d_ff over "model"
+    cfg_ffn = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, moe_shard="ffn"))
+    model = TransformerLM(cfg_ffn, moe_group_size=TRAIN_GROUP, act_spec=act)
+    with KernelCapture("train") as cap, RouteSpy() as spy:
+        cap.armed = spy.armed = True
+        rows_iii, _, (names, gaps) = run(
+            "(iii)", cfg_ffn, model, tcfg, pipe, TRAIN_MICRO,
+            TRAIN_BATCH * TRAIN_SEQ, ref=ref)
+    del ref
+    flips = tp2d_flips(plain.calls, spy.calls, cfg.n_layers, D, mesh.size)
+    say(f"  train-sharded-tp2d (iii): (i)'s model with moe_shard ffn (d_ff "
+        f"{cfg.moe.d_ff_expert} over 'model'); step 0 tokens whose "
+        f"top-{cfg.moe.top_k} experts differ from one card's, per layer: "
+        f"{flips}")
+    out["iii"] = hold("(iii)", rows_iii, train_lm, cfg_ffn, TRAIN_MICRO,
+                      rows_lm)
+    out["iii"].update(flips=flips,
+                      leaves=hold_leaves("(iii)", names, gaps, control),
+                      kernels=hold_captured(cap.inputs,
+                                            "train-sharded-tp2d (iii)",
+                                            timed=True))
+    cap.check_complete("train-sharded-tp2d (iii)")
+    del cap, plain, spy, model
     torch.cuda.empty_cache()
 
     # (ii) smollm-135m whole, the tied head
@@ -2496,28 +2766,24 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
                        total_steps=SMOL_STEPS)
     pipe = TokenPipeline(cfg.vocab_size, SMOL_BATCH, TRAIN_SEQ, seed=0)
-    per = SMOL_MICRO * cfg.n_layers
-    want = {"flash_attention_fwd_wgmma": 2 * per,
-            "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
-            "flash_attention_fwd": 0, "expert_gemm_wgmma": 0,
-            "expert_gemm_dx": 0, "expert_gemm_dw": 0,
-            "expert_gemm_skinny": 0, "expert_gemm": 0}
     ref = train_smol.pop("moments")
     control = f32_control(cfg, {}, tcfg, pipe, SMOL_MICRO, ref)
     model = TransformerLM(cfg, act_spec=act)
     with KernelCapture("train") as cap:
         cap.armed = True
         rows_ii, _, (names, gaps) = run("(ii)", cfg, model, tcfg, pipe,
-                                        SMOL_MICRO, want,
-                                        SMOL_BATCH * TRAIN_SEQ, ref=ref)
+                                        SMOL_MICRO, SMOL_BATCH * TRAIN_SEQ,
+                                        ref=ref)
     del ref
     say(f"  train-sharded-tp2d (ii): smollm-135m FULL, {cfg.n_layers} "
         f"layers, tied head, remat {cfg.remat}, {SMOL_BATCH} x {TRAIN_SEQ} "
         f"tokens in {SMOL_MICRO} microbatches")
-    out["ii"] = hold("(ii)", rows_ii, train_smol)
+    out["ii"] = hold("(ii)", rows_ii, train_smol, cfg, SMOL_MICRO,
+                     SMOL_BATCH // SMOL_MICRO * TRAIN_SEQ)
     out["ii"].update(leaves=hold_leaves("(ii)", names, gaps, control),
                      kernels=hold_captured(cap.inputs,
-                                           "train-sharded-tp2d (ii)"))
+                                           "train-sharded-tp2d (ii)",
+                                           timed=True))
     check({k[0] for k in cap.inputs} == {"flash_attention",
                                          "flash_attention_bwd"},
           f"train-sharded-tp2d (ii): captured {sorted(cap.inputs)}")

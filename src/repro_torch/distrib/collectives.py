@@ -11,8 +11,11 @@ under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``norm_gather``, ``reshard``, ``edge_psum``, ``edge_gather``,
 ``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``, ``tp_act``,
 ``tp_partial``, ``tp_grad_act``, ``tp_grad_partial``, ``xent_stats``,
-``sparse_allreduce``, ``hierarchical_psum``), so a dry run can read the
-collective bytes from the mesh.
+``tp_zero_gather``, ``tp_zero_scatter``, ``tp_model_sum``,
+``tp_heads_gather``, ``expert_gather``, ``sparse_allreduce``,
+``hierarchical_psum``), and, where it names both ends, under its source and
+receiver (``Mesh.moves``), so a dry run can read the collective bytes from
+the mesh.
 The step's collectives (and its AdamW) also run under
 ``torch.profiler.record_function`` ranges named in :data:`SPANS`, so a
 profile attributes device time to them.
@@ -31,16 +34,25 @@ table is never gathered whole; a table split on its rows and its columns
 With ``grad=False`` (the sharded serving steps under ``fsdp``) a view reads
 the shards as they are.
 
-Under ``tp2d`` no parameter moves (:class:`StationaryView`, :class:`Rows`,
-:func:`block_matmul`): the activations of every batch shard stay at its
-home as :class:`Rows`, each product runs on the positions that hold the
-weight's blocks, forward and backward, and :func:`each` runs the rest of
-the model at each home. With ``grad=True`` (the ``tp2d`` train step) a
-:class:`StationaryView` gives each position's block as a leaf that
-collects the gradient of the work done there. :func:`vocab_parallel_xent`
-is the loss over a split head: each holder computes its logits block and
-sends home only per-row statistics; its holders take the block product's
-backward as :func:`block_matmul`'s do (:func:`_holder_grads`).
+Serving under ``tp2d`` moves no parameter (:class:`StationaryView`,
+:class:`Rows`, :func:`block_matmul`): the activations of every batch shard
+stay at its home as :class:`Rows`, each product runs on the positions that
+hold the weight's blocks, and :func:`each` runs the rest of the model at
+each home. ``block_matmul``'s backward and :func:`vocab_parallel_xent` (the
+loss over a head whose blocks stay where they lie, only per-row statistics
+sent home) differentiate that pattern; no step calls them now.
+
+The train step under ``tp2d`` splits the work as the reference's
+partitioner does, Megatron over "model" × ZeRO over "data" (:class:`TPView`,
+:func:`tp_linear`, :func:`split_heads`, :func:`tp_vocab_xent`): every
+position holds its batch shard's rows (``Rows`` over all the positions,
+the same at each position of a "model" group), gathers each weight's
+"model" block along "data" (``tp_zero_gather``; the backward a
+reduce-scatter, ``tp_zero_scatter``) and multiplies there; a row block's
+partial products, and a column block's dX partials, are summed over
+"model" in f32 and rounded once (``tp_model_sum``); the heads and the
+experts split over "model" (``tp_heads_gather``, ``expert_gather``), and
+the loss's per-row statistics cross "model" (``xent_stats``).
 
 A graph whose edge arrays are split into blocks (the GNNs' edge sharding)
 folds its per-block partial sums in block order (:func:`edge_psum`), reads
@@ -54,6 +66,8 @@ gradient goes, so a dry run charges every op to the position doing it.
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -69,7 +83,8 @@ SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "user_send", "grad_psum", "norm_gather", "adamw", "edge_psum",
          "edge_gather", "edge_scatter", "emb_ids", "emb_rows", "emb_grad",
          "tp_act", "tp_partial", "tp_grad_act", "tp_grad_partial",
-         "xent_stats")
+         "xent_stats", "tp_zero_gather", "tp_zero_scatter", "tp_model_sum",
+         "tp_heads_gather", "expert_gather")
 span = torch.profiler.record_function
 
 
@@ -207,7 +222,7 @@ def _select_rows(mesh, home: int, dim: int, n: int, ids, sources,
     for k, (src, part) in enumerate(zip(sources, parts)):
         with span("emb_ids"), mesh.at(src), mesh.moving():
             if src != home:
-                mesh.count("emb_ids", _nbytes(ids), to=src)
+                mesh.count("emb_ids", _nbytes(ids), frm=home, to=src)
             j_k = ids.to(part.device)
         with mesh.at(src):
             local = from_end(j_k, n) - k * rows
@@ -221,7 +236,7 @@ def _select_rows(mesh, home: int, dim: int, n: int, ids, sources,
                 r_k = part[fields, at]
         with span("emb_rows"), mesh.at(home), mesh.moving():
             if src != home:
-                mesh.count("emb_rows", _nbytes(r_k), to=home)
+                mesh.count("emb_rows", _nbytes(r_k), frm=src, to=home)
             r_k = r_k.to(ids.device)
         with mesh.at(home):
             out = r_k if out is None else torch.where(
@@ -293,7 +308,8 @@ class _Lookup(torch.autograd.Function):
                                    ctx.saved_tensors):
             with span("emb_grad"), mesh.at(src), mesh.moving():
                 if src != ctx.home:
-                    mesh.count("emb_grad", _nbytes(flat), to=src)
+                    mesh.count("emb_grad", _nbytes(flat), frm=ctx.home,
+                               to=src)
                 g = flat.to(dev)
             with mesh.at(src):
                 inside = (local >= 0) & (local < rows)
@@ -469,15 +485,6 @@ class StationaryView:
         ``home``: of the block's holders, the one whose coordinates on the
         mesh axes the leaf's spec leaves out are the home's."""
         return self._home_part(home) + self._block_part(block)
-
-    def served(self, pos: int, homes: Sequence[int]) -> List[int]:
-        """The indices of the batch shards in ``homes`` that position
-        ``pos`` serves its block to, ascending."""
-        block = self.x.layout.block_of(pos)
-        if self.transposed:
-            block = block[::-1]
-        return [d for d, home in enumerate(homes)
-                if self.holder(block, home) == pos]
 
     def _home_part(self, home: int) -> int:
         """``home``'s row-major position counted on the axes the spec
@@ -1032,6 +1039,817 @@ def _mm(a: torch.Tensor, b: torch.Tensor, out: torch.dtype) -> torch.Tensor:
     if a.device.type == "cpu":
         return a.to(out) @ b.to(out)
     return torch.mm(a, b, out_dtype=out)
+
+
+# -- Megatron over "model" × ZeRO over "data" (the tp2d train step) -----------
+#
+# The train step under ``tp2d`` splits the work as the reference's partitioner
+# does under ``act_spec = P("data", None, None)``: every position of the mesh
+# holds its batch shard's activations (``Rows`` over all the positions), the
+# same at every position of the shard's "model" group, except where a layer
+# splits them by "model" (the heads, a column block, the experts). A weight is
+# read through a :class:`TPView`: each position gathers, along "data", the
+# blocks of its own "model" column (``tp_zero_gather``) and multiplies there
+# (:func:`tp_linear`); a row block's f32 partial products are summed over
+# "model" (``tp_model_sum``). Every collective's backward is its conjugate (a
+# gather ↔ a reduce-scatter, a sum ↔ the identity, a slice of replicated work
+# ↔ a gather of the slices' gradients).
+
+
+def _model_of(mesh, pos: int) -> int:
+    """``pos``'s "model" coordinate (0 on a mesh without that axis)."""
+    return mesh.coords(pos).get("model", 0)
+
+
+def _model_size(mesh) -> int:
+    return mesh.axis_size("model") if "model" in mesh.axis_names else 1
+
+
+def _position(mesh, coords: Dict[str, int]) -> int:
+    """The row-major position of ``coords``."""
+    pos = 0
+    for a, n in zip(mesh.axis_names, mesh.shape):
+        pos = pos * n + coords[a]
+    return pos
+
+
+class _GatherPlan(NamedTuple):
+    """Where each position's gathered tensor of a leaf comes from
+    (:meth:`TPView.gathered`): per position, its shape, and per block it
+    reads ``(block, holder, slices in the gathered tensor)``; per block,
+    its owner (first holder) and the collector of each batch shard that
+    reads it, in batch order."""
+    shape: Tuple[Tuple[int, ...], ...]
+    reads: Tuple[Tuple[Tuple[Tuple[int, ...], int, Tuple[slice, ...]], ...],
+                 ...]
+    owners: Dict[Tuple[int, ...], int]
+    collectors: Dict[Tuple[int, ...], Tuple[int, ...]]
+
+
+@functools.lru_cache(maxsize=4096)
+def _gather_plan(mesh, spec, shape: Tuple[int, ...],
+                 groups: Tuple[Tuple[int, ...], ...]) -> _GatherPlan:
+    """The :class:`_GatherPlan` of a ``shape`` leaf under ``spec`` on
+    ``mesh`` with batch shards ``groups`` (made once per layout: a dry run
+    on 256 positions reads it for every leaf of every layer)."""
+    lay = Layout(mesh, spec, shape)
+    reads, shapes = [], []
+    firsts: Dict[Tuple[int, ...], Dict[int, int]] = {}
+    shard = {p: d for d, g in enumerate(groups) for p in g}
+    for pos in range(mesh.size):
+        coords = mesh.coords(pos)
+        m = coords.get("model", 0)
+        # per dimension, the block indices whose "model" digit is m
+        wanted = []
+        for axes, n in zip(lay.axes, lay.counts):
+            keep = []
+            for k in range(n):
+                digits, r = {}, k
+                for a in reversed(axes):
+                    digits[a] = r % mesh.axis_size(a)
+                    r //= mesh.axis_size(a)
+                if digits.get("model", m) == m:
+                    keep.append((k, digits))
+            wanted.append(keep)
+        shapes.append(tuple(len(w) * b
+                            for w, b in zip(wanted, lay.block_shape)))
+        mine = []
+        for combo in itertools.product(*(enumerate(w) for w in wanted)):
+            block = tuple(k for _, (k, _) in combo)
+            at = dict(coords)
+            for _, (_, digits) in combo:
+                at.update(digits)
+            holder = _position(mesh, at)
+            sl = tuple(slice(i * b, (i + 1) * b)
+                       for (i, _), b in zip(combo, lay.block_shape))
+            mine.append((block, holder, sl))
+            # the first position of a batch shard that reads this block
+            firsts.setdefault(block, {}).setdefault(shard[pos], pos)
+        reads.append(tuple(mine))
+    owners = {b: lay.holders(b)[0] for b in lay.blocks()}
+    collectors = {b: tuple(by[d] for d in sorted(by))
+                  for b, by in firsts.items()}
+    return _GatherPlan(tuple(shapes), tuple(reads), owners, collectors)
+
+
+class TPView(StationaryView):
+    """A placed parameter leaf as the ``tp2d`` train step reads it, on a
+    mesh whose batch shards are ``groups`` (``batch_groups``'s). Position
+    ``pos`` reads the blocks whose "model" part is its "model" coordinate,
+    gathered whole along the other axes (:meth:`gathered`); a leaf split
+    over "model" only, or not at all, is read where it lies
+    (:meth:`part`); a table is looked up where its blocks lie
+    (:meth:`take_rows`). ``leaves[pos]`` is the block ``pos`` holds, a leaf
+    that collects gradients. Where the positions of a batch shard repeat
+    one another's work (the same blocks read at each position of a "model"
+    group, or of a group that spans more than "model"), only the first of
+    them, the block's *collector* for that shard, reads it as a leaf that
+    takes gradients; the others read it detached, so no gradient is taken
+    twice."""
+
+    def __init__(self, x: ShardedTensor, groups: Sequence[Sequence[int]],
+                 transposed: bool = False, leaves=None):
+        super().__init__(x, transposed, grad=leaves is None, leaves=leaves)
+        self.groups = tuple(tuple(g) for g in groups)
+        self.shard = {p: d for d, g in enumerate(self.groups) for p in g}
+
+    @property
+    def T(self) -> "TPView":
+        return TPView(self.x, self.groups, not self.transposed, self.leaves)
+
+    @property
+    def by_model(self) -> bool:
+        """Whether the leaf's spec splits a dimension over "model"."""
+        return any("model" in axes for axes in self.x.layout.axes)
+
+    def kind(self) -> str:
+        """As the (n_in, n_out) weight of a product: "column" when its
+        output dimension splits over "model", "row" when its input
+        dimension does, else "whole"."""
+        axes = self.x.layout.axes[::-1] if self.transposed \
+            else self.x.layout.axes
+        if "model" in axes[1]:
+            return "column"
+        return "row" if "model" in axes[0] else "whole"
+
+    def collects(self, pos: int) -> bool:
+        """Whether ``pos`` is the first position of its batch shard's group
+        (with its "model" coordinate, where the leaf splits over "model")
+        and so takes the gradients of its reads."""
+        mesh, by_model = self.x.mesh, self.by_model
+        m = _model_of(mesh, pos)
+        return pos == next(q for q in self.groups[self.shard[pos]]
+                           if not by_model or _model_of(mesh, q) == m)
+
+    def part(self, home: int) -> torch.Tensor:
+        """The block ``home`` holds of a leaf split over "model" only or not
+        at all (a norm weight, a bias, the experts), read where it lies;
+        detached unless ``home`` collects its gradient."""
+        if any(a != "model" for axes in self.x.layout.axes for a in axes):
+            raise ValueError(f"{self.x!r} is split over another axis than "
+                             f"'model': read it through gathered()")
+        leaf = self.leaves[home]
+        return leaf if self.collects(home) else leaf.detach()
+
+    def gathered(self, dtype: torch.dtype) -> List[torch.Tensor]:
+        """Per position, the blocks whose "model" part is the position's
+        "model" coordinate, in ``dtype`` (each holder casts its block once:
+        the cast is elementwise, so these are the cast leaf's bits), copied
+        from the holders that share the position's coordinates on the axes
+        the spec leaves out (``tp_zero_gather``) and joined in block order;
+        transposed with the view. Only a collector's tensor is
+        differentiable; the backward adds at each block's owner (its first
+        holder) the block's slice of each batch shard's collector's
+        gradient, in batch order and the leaf's dtype, the first as it is
+        (``tp_zero_scatter``): a reduce-scatter along "data"."""
+        outs = _ZeroGather.apply(self, dtype, *self.leaves)
+        return [o.T if self.transposed else o for o in outs]
+
+    def segments(self) -> List[List[Tuple[int, int]]]:
+        """Per position, the entries of the view's output dimension its
+        gathered tensor holds, as (first, count) runs in their order there
+        (a vocab block of the head split over ("data", "model") is not one
+        run)."""
+        lay = self.x.layout
+        dim = 0 if self.transposed else 1
+        plan = self._plan()
+        b = lay.block_shape[dim]
+        out = []
+        for reads in plan.reads:
+            ks = sorted({block[dim] for block, _, _ in reads})
+            runs: List[Tuple[int, int]] = []
+            for k in ks:
+                if runs and runs[-1][0] + runs[-1][1] == k * b:
+                    runs[-1] = (runs[-1][0], runs[-1][1] + b)
+                else:
+                    runs.append((k * b, b))
+            out.append(runs)
+        return out
+
+    def _plan(self) -> _GatherPlan:
+        return _gather_plan(self.x.mesh, self.x.spec, tuple(self.x.shape),
+                            self.groups)
+
+    def take_rows(self, ids: Rows) -> Rows:
+        """``sparse.segment.take_rows`` of the (n, e) table at each
+        position's ids: each batch shard's first position looks its rows up
+        where the blocks lie (:func:`take_rows_2d`) and delivers them to the
+        other positions of its group (``emb_rows``), whose copies take no
+        gradient (their work repeats the first position's)."""
+        lay, mesh = self.x.layout, ids.mesh
+        if self.transposed or len(lay.counts) != 2:
+            raise ValueError(f"take_rows of {self.x!r}: not an (n, e) table")
+        K, C = lay.counts
+        at = {h: i for i, h in enumerate(ids.homes)}
+        out = [None] * len(ids.parts)
+        for group in self.groups:
+            home = group[0]
+            grid = []
+            for c in range(C):
+                pos = [self.holder((k, c), home) for k in range(K)]
+                grid.append((pos, [self.leaves[p] for p in pos]))
+            rows = take_rows_2d(mesh, home, lay.shape[0],
+                                ids.parts[at[home]], grid)
+            out[at[home]] = rows
+            for p in group[1:]:
+                with span("emb_rows"), mesh.at(p), mesh.moving():
+                    mesh.count("emb_rows", _nbytes(rows), frm=home, to=p)
+                    out[at[p]] = rows.detach().to(mesh.device(p), copy=True)
+        return Rows(out, ids.homes, mesh)
+
+
+class _ZeroGather(torch.autograd.Function):
+    """:meth:`TPView.gathered` (in the leaf's own orientation); the inputs
+    are every position's leaf."""
+
+    @staticmethod
+    def forward(ctx, view: TPView, dtype, *leaves):
+        mesh, plan = view.x.mesh, view._plan()
+        cast = {}
+        outs = []
+        for pos, (shape, reads) in enumerate(zip(plan.shape, plan.reads)):
+            with mesh.at(pos):
+                out = torch.empty(shape, dtype=dtype, device=mesh.device(pos))
+            for _, holder, sl in reads:
+                if holder not in cast:
+                    with mesh.at(holder):
+                        cast[holder] = leaves[holder].to(dtype)
+                src = cast[holder]
+                with span("tp_zero_gather"), mesh.at(pos), mesh.moving():
+                    if holder != pos:
+                        mesh.count("tp_zero_gather", _nbytes(src),
+                                   frm=holder, to=pos)
+                    out[sl].copy_(src)
+            outs.append(out)
+        del cast
+        ctx.mark_non_differentiable(*(o for p, o in enumerate(outs)
+                                      if not view.collects(p)))
+        ctx.set_materialize_grads(False)
+        ctx.view, ctx.plan = view, plan
+        ctx.dtypes = [t.dtype for t in leaves]
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, plan = ctx.view.x.mesh, ctx.plan
+        slices = [{b: sl for b, _, sl in reads} for reads in plan.reads]
+        out = [None] * mesh.size
+        with span("tp_zero_scatter"):
+            for block, owner in plan.owners.items():
+                wdt, total = ctx.dtypes[owner], None
+                for r in plan.collectors.get(block, ()):
+                    if grads[r] is None:
+                        continue
+                    with mesh.at(owner), mesh.moving():
+                        piece = grads[r][slices[r][block]].to(
+                            device=mesh.device(owner), dtype=wdt)
+                        if r != owner:
+                            mesh.count("tp_zero_scatter", _nbytes(piece),
+                                       frm=r, to=owner)
+                    with mesh.at(owner):
+                        total = piece if total is None else total + piece
+                if total is not None:
+                    out[owner] = total.contiguous()
+        return (None, None, *out)
+
+
+def _model_allreduce(mesh, homes: Sequence[int], parts, dtype: torch.dtype,
+                     name: str = "tp_model_sum") -> list:
+    """Per position of ``homes``, the sum of ``parts`` over its "model"
+    group, added in ascending "model" coordinate in f32 and rounded once
+    to ``dtype``: a reduce-scatter (member j adds chunk j of every member's
+    flattened part, the first as it is, and rounds it) and an all-gather of
+    the rounded chunks, both counted under ``name``. A group whose parts
+    are ``None`` (it takes no gradient) gives ``None``."""
+    at = {h: i for i, h in enumerate(homes)}
+    out = list(parts)
+    with span(name):
+        for group in _axis_groups(mesh, "model"):
+            idx = [at[p] for p in group]
+            if parts[idx[0]] is None:
+                continue
+            shape = parts[idx[0]].shape
+            if len(group) == 1:
+                with mesh.at(group[0]):
+                    out[idx[0]] = parts[idx[0]].to(dtype)
+                continue
+            M = len(group)
+            flats = [parts[i].reshape(-1) for i in idx]
+            n = flats[0].numel()
+            if n % M:
+                raise ValueError(f"{n} entries do not split into {M} chunks")
+            c = n // M
+            chunks = []
+            for j, dst in enumerate(group):
+                total = None
+                for src, f in zip(group, flats):
+                    with mesh.at(dst), mesh.moving():
+                        piece = f.narrow(0, j * c, c)
+                        if src != dst:
+                            mesh.count(name, _nbytes(piece), frm=src, to=dst)
+                        piece = piece.to(mesh.device(dst))
+                    with mesh.at(dst):
+                        piece = piece.float()
+                        total = piece if total is None else total + piece
+                with mesh.at(dst):
+                    chunks.append(total.to(dtype))
+                del total, piece
+            del flats
+            for dst, i in zip(group, idx):
+                with mesh.at(dst), mesh.moving():
+                    got = []
+                    for src, ch in zip(group, chunks):
+                        if src != dst:
+                            mesh.count(name, _nbytes(ch), frm=src, to=dst)
+                        got.append(ch.to(mesh.device(dst)))
+                    out[i] = torch.cat(got).reshape(shape)
+    return out
+
+
+def tp_linear(x: Rows, w: TPView, dtype: torch.dtype,
+              bias: TPView = None) -> Rows:
+    """``x @ w.to(dtype) (+ bias.to(dtype))`` for every position's rows,
+    the weight gathered along "data" (:meth:`TPView.gathered`). A column
+    block ("column": the output split over "model") multiplies the whole
+    rows into the position's column block, the bias's own entries added;
+    a row block ("row") multiplies the position's slice of the rows into
+    an f32 partial of the whole output, summed over "model" in ascending
+    "model" coordinate and rounded once to ``dtype`` (``tp_model_sum``: the
+    one-device product's f32 accumulation in another order); "whole"
+    multiplies at each position. Backward (:class:`_TPMatmul`): a column
+    block's f32 dX partials are summed over "model" the same way (the
+    rows are the same at every position of the group), a row block's dX
+    is the position's own product; dW is each position's product, rounded
+    as autograd rounds it, for :class:`_ZeroGather`'s reduce-scatter. With
+    one "model" position the products are autograd's, bit for bit."""
+    ws = w.gathered(dtype)
+    outs = _TPMatmul.apply(x.mesh, tuple(x.homes), w.kind(), dtype,
+                           len(x.parts), *x.parts, *(ws[h] for h in x.homes))
+    y = Rows(list(outs), x.homes, x.mesh)
+    if bias is None:
+        return y
+    return each(lambda t, b: t + b.to(dtype), y, bias)
+
+
+class _TPMatmul(torch.autograd.Function):
+    """:func:`tp_linear`'s products; the inputs are every position's rows,
+    then its gathered weight."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, kind, dtype, n, *tensors):
+        xs, ws = tensors[:n], tensors[n:]
+        M = _model_size(mesh)
+        row = kind == "row" and M > 1
+        pd = torch.float32 if row else dtype
+        flats, ys = [], []
+        for x, w, h in zip(xs, ws, homes):
+            with mesh.at(h):
+                xf = x.reshape(-1, x.shape[-1])
+                ys.append(_mm(xf, w, pd))
+            flats.append(xf)
+        if row:
+            ys = _model_allreduce(mesh, homes, ys, dtype)
+        out = []
+        for x, y, h in zip(xs, ys, homes):
+            with mesh.at(h):
+                out.append(y.reshape(*x.shape[:-1], y.shape[-1]))
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*flats, *ws)
+        ctx.mesh, ctx.homes, ctx.n = mesh, homes, n
+        ctx.sum_dx = kind == "column" and M > 1
+        ctx.x_meta = [(x.shape, x.dtype) for x in xs]
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, homes, n = ctx.mesh, ctx.homes, ctx.n
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[5:]
+        # a column block's dX partial counts toward every position's sum,
+        # whether or not its own rows take a gradient
+        any_x = ctx.sum_dx and any(need[:n])
+        gxs, gws = [None] * n, [None] * n
+        for i, (h, g) in enumerate(zip(homes, grads)):
+            if g is None:
+                continue
+            xf, w = saved[i], saved[n + i]
+            with mesh.at(h):
+                g = g.reshape(-1, g.shape[-1])
+                if need[n + i]:
+                    gws[i] = _weight_grad(xf, w, g)
+                if need[i] or any_x:
+                    gxs[i] = _input_grad(g, w, xf, torch.float32
+                                         if ctx.sum_dx else xf.dtype)
+        if ctx.sum_dx:
+            gxs = _model_allreduce(mesh, homes, gxs, ctx.x_meta[0][1])
+        for i, (h, (shape, _)) in enumerate(zip(homes, ctx.x_meta)):
+            if gxs[i] is not None:
+                with mesh.at(h):
+                    gxs[i] = gxs[i].reshape(shape)
+        return (None,) * 5 + tuple(gxs) + tuple(gws)
+
+
+class _ModelSum(torch.autograd.Function):
+    """Each position's partials summed over its "model" group
+    (:func:`_model_allreduce`); backward: the identity (every position's
+    gradient of the replicated sum is the whole one)."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, dtype, *parts):
+        ctx.dtypes = [p.dtype for p in parts]
+        ctx.set_materialize_grads(False)
+        return tuple(_model_allreduce(mesh, homes, parts, dtype))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, *(None if g is None else g.to(dt)
+                                    for g, dt in zip(grads, ctx.dtypes)))
+
+
+class _ModelSumGrad(torch.autograd.Function):
+    """The identity on a tensor replicated over each "model" group, whose
+    positions multiply it by their own blocks; backward: the positions'
+    gradients summed over the group (:func:`_model_allreduce`)."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, *parts):
+        ctx.mesh, ctx.homes = mesh, homes
+        ctx.dtypes = [p.dtype for p in parts]
+        ctx.set_materialize_grads(False)
+        return tuple(p.view_as(p) for p in parts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_model_allreduce(ctx.mesh, ctx.homes, grads,
+                                              ctx.dtypes[0]))
+
+
+def model_sum(x: Rows, dtype: torch.dtype) -> Rows:
+    """Each position's partials (the experts' d_ff blocks' outputs) summed
+    over its "model" group in f32, rounded once to ``dtype``
+    (``tp_model_sum``); differentiable (the identity backward)."""
+    return Rows(list(_ModelSum.apply(x.mesh, tuple(x.homes), dtype,
+                                     *x.parts)), x.homes, x.mesh)
+
+
+def model_sum_grad(x: Rows) -> Rows:
+    """``x`` as it is; its gradient the positions' gradients summed over
+    each "model" group in f32 and rounded once (``tp_model_sum``)."""
+    if _model_size(x.mesh) == 1:
+        return x
+    return Rows(list(_ModelSumGrad.apply(x.mesh, tuple(x.homes), *x.parts)),
+                x.homes, x.mesh)
+
+
+class _ModelGather(torch.autograd.Function):
+    """Per position, its "model" group's tensors joined along ``dim`` in
+    ascending "model" coordinate (``name``), for work that every position
+    of the group then repeats; backward: each position's own slice of its
+    gradient (the whole gradient at every position of replicated
+    work)."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, dim, name, *parts):
+        at = {h: i for i, h in enumerate(homes)}
+        out = [None] * len(parts)
+        with span(name):
+            for group in _axis_groups(mesh, "model"):
+                for dst in group:
+                    with mesh.at(dst), mesh.moving():
+                        got = []
+                        for src in group:
+                            t = parts[at[src]]
+                            if src != dst:
+                                mesh.count(name, _nbytes(t), frm=src, to=dst)
+                            got.append(t.to(mesh.device(dst)))
+                        out[at[dst]] = torch.cat(got, dim)
+        ctx.mesh, ctx.homes, ctx.dim = mesh, homes, dim
+        ctx.width = parts[0].shape[dim]
+        ctx.set_materialize_grads(False)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, w = ctx.mesh, ctx.width
+        out = []
+        for h, g in zip(ctx.homes, grads):
+            if g is None:
+                out.append(None)
+                continue
+            with mesh.at(h):
+                out.append(g.narrow(ctx.dim, _model_of(mesh, h) * w,
+                                    w).contiguous())
+        return (None, None, None, None, *out)
+
+
+class _ModelSlice(torch.autograd.Function):
+    """Per position, its own slice along ``dim`` of a tensor that is the
+    same at every position of its "model" group; backward: the slices'
+    gradients gathered along "model" (``name``): the whole gradient of the
+    replicated tensor at every position."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, dim, name, *parts):
+        M = _model_size(mesh)
+        ctx.mesh, ctx.homes, ctx.dim, ctx.name = mesh, homes, dim, name
+        ctx.set_materialize_grads(False)
+        out = []
+        for h, t in zip(homes, parts):
+            w = t.shape[dim] // M
+            with mesh.at(h):
+                out.append(t.narrow(dim, _model_of(mesh, h) * w,
+                                    w).contiguous())
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, homes = ctx.mesh, ctx.homes
+        at = {h: i for i, h in enumerate(homes)}
+        out = [None] * len(grads)
+        with span(ctx.name):
+            for group in _axis_groups(mesh, "model"):
+                if grads[at[group[0]]] is None:
+                    continue
+                for dst in group:
+                    with mesh.at(dst), mesh.moving():
+                        got = []
+                        for src in group:
+                            g = grads[at[src]]
+                            if src != dst:
+                                mesh.count(ctx.name, _nbytes(g), frm=src,
+                                           to=dst)
+                            got.append(g.to(mesh.device(dst)))
+                        out[at[dst]] = torch.cat(got, ctx.dim)
+        return (None, None, None, None, *out)
+
+
+class _ModelTake(torch.autograd.Function):
+    """Per position p, entries ``ranges[p]`` = [lo, hi) of the last
+    dimension of its "model" group's tensors joined in ascending "model"
+    coordinate, copied from the members that hold them (``name``);
+    backward: each member's entries take the sum, over the positions that
+    took them in ascending "model" coordinate, of their gradients, in f32
+    and rounded once, the first as it is (an entry no position took gets
+    0)."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, ranges, name, *parts):
+        at = {h: i for i, h in enumerate(homes)}
+        w = parts[0].shape[-1]
+        out = [None] * len(parts)
+        with span(name):
+            for group in _axis_groups(mesh, "model"):
+                for dst in group:
+                    lo, hi = ranges[at[dst]]
+                    with mesh.at(dst), mesh.moving():
+                        got = []
+                        for j, src in enumerate(group):
+                            a, b = max(lo, j * w), min(hi, (j + 1) * w)
+                            if a >= b:
+                                continue
+                            t = parts[at[src]][..., a - j * w:b - j * w]
+                            if src != dst:
+                                mesh.count(name, _nbytes(t), frm=src, to=dst)
+                            got.append(t.to(mesh.device(dst)))
+                        out[at[dst]] = torch.cat(got, -1)
+        ctx.mesh, ctx.homes, ctx.ranges, ctx.name = mesh, homes, ranges, name
+        ctx.width, ctx.dtypes = w, [p.dtype for p in parts]
+        ctx.set_materialize_grads(False)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, homes, ranges, w = ctx.mesh, ctx.homes, ctx.ranges, ctx.width
+        at = {h: i for i, h in enumerate(homes)}
+        out = [None] * len(grads)
+        with span(ctx.name):
+            for group in _axis_groups(mesh, "model"):
+                if grads[at[group[0]]] is None:
+                    continue
+                for j, dst in enumerate(group):
+                    lo_j, hi_j = j * w, (j + 1) * w
+                    cuts = sorted({lo_j, hi_j} | {
+                        e for src in group for e in ranges[at[src]]
+                        if lo_j < e < hi_j})
+                    cols = []
+                    for a, b in zip(cuts[:-1], cuts[1:]):
+                        total = None
+                        for src in group:
+                            lo, hi = ranges[at[src]]
+                            if not (lo <= a and b <= hi):
+                                continue
+                            with mesh.at(dst), mesh.moving():
+                                g = grads[at[src]][..., a - lo:b - lo]
+                                if src != dst:
+                                    mesh.count(ctx.name, _nbytes(g),
+                                               frm=src, to=dst)
+                                g = g.to(mesh.device(dst))
+                            with mesh.at(dst):
+                                g = g.float()
+                                total = g if total is None else total + g
+                        with mesh.at(dst):
+                            if total is None:
+                                shape = grads[at[dst]].shape[:-1] + (b - a,)
+                                total = torch.zeros(shape,
+                                                    device=mesh.device(dst))
+                            cols.append(total.to(ctx.dtypes[at[dst]]))
+                    with mesh.at(dst):
+                        out[at[dst]] = torch.cat(cols, -1)
+        return (None, None, None, None, *out)
+
+
+def model_gather(x: Rows, dim: int, name: str) -> Rows:
+    """:class:`_ModelGather` over every position's tensor; ``x`` itself on
+    a mesh with one "model" position."""
+    if _model_size(x.mesh) == 1:
+        return x
+    return Rows(list(_ModelGather.apply(x.mesh, tuple(x.homes), dim, name,
+                                        *x.parts)), x.homes, x.mesh)
+
+
+def model_slice(x: Rows, dim: int, name: str) -> Rows:
+    """:class:`_ModelSlice` over every position's tensor; ``x`` itself on
+    a mesh with one "model" position."""
+    if _model_size(x.mesh) == 1:
+        return x
+    return Rows(list(_ModelSlice.apply(x.mesh, tuple(x.homes), dim, name,
+                                       *x.parts)), x.homes, x.mesh)
+
+
+def model_take(x: Rows, ranges: Sequence[Tuple[int, int]],
+               name: str) -> Rows:
+    """:class:`_ModelTake`: each position's ``ranges[i]`` of the last
+    dimension of its "model" group's tensors joined."""
+    return Rows(list(_ModelTake.apply(x.mesh, tuple(x.homes), tuple(ranges),
+                                      name, *x.parts)), x.homes, x.mesh)
+
+
+def split_heads(q: Rows, k: Rows, v: Rows, n_heads: int, n_kv: int,
+                hd: int):
+    """The attention heads over "model", from the column blocks of q, k
+    and v (B, S, width) each position's column products made, RoPE not
+    yet applied. With H and KV both divisible by the "model" size M each
+    position keeps its H / M query heads and KV / M key-value heads (GQA's
+    h → h // G stays within the block). With only H divisible, q stays
+    split and each position takes, from k and v gathered along "model",
+    the key-value head its query heads use (``tp_heads_gather``; their
+    gradients summed back over the positions that took them). Otherwise q,
+    k and v are gathered along "model" and every position attends over
+    all heads; ``own`` then takes each position's column block of the
+    attention output for its row block of the output projection (the
+    gradients gathered back along "model"). Returns (q, k, v, own)."""
+    M = _model_size(q.mesh)
+    if M == 1 or q.shape[-1] == n_heads * hd:
+        return q, k, v, None
+    if n_heads % M == 0 and n_kv % M == 0:
+        return q, k, v, None
+    G = n_heads // n_kv
+    per = n_heads // M
+    if n_heads % M == 0 and G % per == 0:
+        ranges = []
+        for h in q.homes:
+            j = _model_of(q.mesh, h) * per // G
+            ranges.append((j * hd, (j + 1) * hd))
+        return (q, model_take(k, ranges, "tp_heads_gather"),
+                model_take(v, ranges, "tp_heads_gather"), None)
+    q, k, v = (model_gather(t, -1, "tp_heads_gather") for t in (q, k, v))
+    return q, k, v, lambda o: model_slice(o, -1, "tp_heads_gather")
+
+
+def tp_vocab_xent(hidden: Rows, head: TPView, labels: Rows) -> Rows:
+    """Each position's mean cross entropy of the logits ``hidden @ head``
+    over its labels ≥ 0 (``models.layers.softmax_xent_sharded``), the
+    (d, V) head gathered along "data" (:meth:`TPView.gathered`): each
+    position takes the statistics of its own vocab columns, and only the
+    per-row statistics cross "model" (``xent_stats``,
+    :class:`_TPXent`)."""
+    ws = head.gathered(hidden.dtype)
+    segs = head.segments()
+    out = _TPXent.apply(hidden.mesh, tuple(hidden.homes),
+                        tuple(tuple(segs[h]) for h in hidden.homes),
+                        head.kind() == "column", len(hidden.parts),
+                        *hidden.parts, *labels.parts,
+                        *(ws[h] for h in hidden.homes))
+    return Rows(list(out), hidden.homes, hidden.mesh)
+
+
+def _onehots(labels: torch.Tensor, runs) -> torch.Tensor:
+    """The one-hot rows of ``labels`` over the vocab entries of ``runs``
+    ((first, count) each, joined in order)."""
+    hots = [_onehot(labels, lo, n) for lo, n in runs]
+    return hots[0] if len(hots) == 1 else torch.cat(hots, -1)
+
+
+class _TPXent(torch.autograd.Function):
+    """:func:`tp_vocab_xent`; the inputs are every position's hidden rows,
+    labels and gathered head.
+
+    Forward at each position: its logits block in the compute dtype
+    (widened, as the one-device loss widens its logits), the block's per-row
+    max m_j, s_j = Σ exp(logit − m_j) and target logit t_j by the one-hot
+    contraction over its vocab entries; (m, s, t) gathered over "model"
+    (``xent_stats``) and folded in ascending "model" coordinate: m = max
+    m_j, lse = m + log Σ_j s_j · exp(m_j − m), t = Σ_j t_j, the loss Σ_valid
+    (lse − t) / max(count, 1). With one block the fold is
+    ``torch.logsumexp``'s own (log s + m). A head whose vocab is not split
+    over "model" (``split`` false) is whole at every position: each folds
+    its own statistics only.
+
+    Backward at each position: softmax − one-hot for its block as autograd
+    takes it on one device, cast to the compute dtype; the hidden's partial
+    (f32 with more than one "model" position) summed over "model"
+    (``tp_model_sum``) and rounded once, where the vocab is split; the head
+    block's gradient the position's own product, for :class:`_ZeroGather`'s
+    reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, segs, split, n, *tensors):
+        hs, labels, ws = tensors[:n], tensors[n:2 * n], tensors[2 * n:]
+        cd = hs[0].dtype
+        stats, saved = [], []
+        for h, hd, lab, w, runs in zip(homes, hs, labels, ws, segs):
+            with mesh.at(h):
+                xin = hd.reshape(-1, hd.shape[-1])
+                # the logits rounded as one product rounds them, kept in the
+                # compute dtype (widened again in the backward)
+                p = _mm(xin, w, cd)
+                logits = p.float().reshape(*lab.shape, w.shape[1])
+                m = logits.amax(dim=-1)
+                s = torch.exp(logits - m[..., None]).sum(dim=-1)
+                t = torch.einsum("bsv,bsv->bs", logits,
+                                 _onehots(lab, runs).float())
+            stats.append((m, s, t))
+            saved += [xin, w, p, lab]
+            del logits, p
+        at = {h: i for i, h in enumerate(homes)}
+        out, home_saved = [None] * n, [None] * n
+        groups = (_axis_groups(mesh, "model") if split
+                  else [[h] for h in homes])
+        with span("xent_stats"):
+            for group in groups:
+                for dst in group:
+                    with mesh.at(dst), mesh.moving():
+                        got = []
+                        for src in group:
+                            if src != dst:
+                                mesh.count("xent_stats", sum(
+                                    _nbytes(t) for t in stats[at[src]]),
+                                    frm=src, to=dst)
+                            got.append([t.to(mesh.device(dst))
+                                        for t in stats[at[src]]])
+                    i = at[dst]
+                    with mesh.at(dst):
+                        m = got[0][0]
+                        for mj, _, _ in got[1:]:
+                            m = torch.maximum(m, mj)
+                        tot = t = None
+                        for mj, sj, tj in got:
+                            a = sj * torch.exp(mj - m)
+                            tot = a if tot is None else tot + a
+                            t = tj if t is None else t + tj
+                        lse = m + torch.log(tot)
+                        valid = labels[i] >= 0
+                        count = torch.clamp_min(valid.sum(), 1)
+                        out[i] = torch.where(valid, lse - t,
+                                             0.0).sum() / count
+                    home_saved[i] = (lse, valid, count)
+        ctx.save_for_backward(*saved, *(t for hs_ in home_saved
+                                         for t in hs_))
+        ctx.mesh, ctx.homes, ctx.segs, ctx.n, ctx.cd = mesh, homes, segs, n, cd
+        ctx.split = split and _model_size(mesh) > 1
+        ctx.h_meta = [(hd.shape, hd.dtype) for hd in hs]
+        ctx.set_materialize_grads(False)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, homes, n, cd = ctx.mesh, ctx.homes, ctx.n, ctx.cd
+        tensors = ctx.saved_tensors
+        gpd = torch.float32 if ctx.split else cd
+        ghs, gws = [None] * n, [None] * n
+        for i, (h, runs) in enumerate(zip(homes, ctx.segs)):
+            if grads[i] is None:
+                continue
+            xin, w, p, lab = tensors[4 * i:4 * i + 4]
+            lse, valid, count = tensors[4 * n + 3 * i:4 * n + 3 * i + 3]
+            with mesh.at(h):
+                # the one-device backward of Σ where(valid, lse − t, 0) / n
+                g = torch.where(valid, grads[i] / count, 0.0)
+                logits = p.float().reshape(*lab.shape, w.shape[1])
+                # logsumexp's backward, then the one-hot contraction's
+                dl = g[..., None] * torch.exp(logits - lse[..., None])
+                del logits
+                dl = dl - _onehots(lab, runs).float() * g[..., None]
+                dl = dl.to(cd).reshape(-1, w.shape[1])
+                ghs[i] = _input_grad(dl, w, xin, gpd)
+                gws[i] = _weight_grad(xin, w, dl)
+        if ctx.split:
+            ghs = _model_allreduce(mesh, homes, ghs, ctx.h_meta[0][1])
+        for i, (h, (shape, _)) in enumerate(zip(homes, ctx.h_meta)):
+            if ghs[i] is not None:
+                with mesh.at(h):
+                    ghs[i] = ghs[i].reshape(shape)
+        return (None,) * 5 + tuple(ghs) + (None,) * n + tuple(gws)
 
 
 # -- a graph's edge blocks (the GNNs' edge sharding) ---------------------------

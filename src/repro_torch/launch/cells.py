@@ -144,8 +144,8 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     then does the model take ``act_spec``; train shards the parameters
     under ``REPRO_LM_POLICY`` (default ``fsdp``; placed on a mesh,
     ``make_sharded_train_step`` gathers each layer at each batch shard's
-    home, ``tp2d`` is ``make_tp2d_train_step``, which moves no
-    parameter), prefill under
+    home, ``tp2d`` is ``make_tp2d_train_step``, the reference's split:
+    Megatron over "model" × ZeRO over "data"), prefill under
     ``REPRO_LM_PREFILL_POLICY`` (default ``fsdp``), decode under
     ``tp2d``, as the reference's cells do. Placed on a mesh, prefill and
     decode are ``distrib.serving``'s steps (the cache placed by

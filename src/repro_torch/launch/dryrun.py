@@ -41,17 +41,25 @@ Argument bytes per position come from the placed arguments
 
 The single controller's layout is not symmetric. Under ``fsdp`` (the
 train and prefill cells) each batch shard's home computes and the other
-positions store state (and run their experts); under ``tp2d`` (the decode
-cells) every position multiplies its own weight blocks for the homes it
-serves, and the homes run the norms, attention and the residual stream.
+positions store state (and run their experts); under ``tp2d`` the decode
+cells' positions multiply their own weight blocks for the homes they
+serve, and the homes run the norms, attention and the residual stream,
+while the train step (``REPRO_LM_POLICY=tp2d``) runs every position alike:
+each holds its batch shard's rows, multiplies its "model" block of each
+weight gathered along "data", and repeats the norms and the residual
+stream of its "model" group, as the reference's partitioner does.
 So every ``*_per_chip`` value of the record is the busiest position's, and
 ``per_position`` keeps the lists. The roofline's compute term takes max(counted FLOPs, analytic model
 FLOPs × remat) per chip as the reference does; the analytic terms per
 chip divide the totals by the chip count.
 
-The GNN cells run the edge-sharded step (one backward over every edge
-block's home: ``Mesh.charge_backward`` lets each autograd node charge its
-backward to the position that made it) and the BST cells the row-sharded
+The GNN cells and the LM train cells under ``tp2d`` run one backward over
+every position: ``Mesh.charge_backward`` lets each autograd node charge
+its backward to the position that made it (an autograd function's node,
+a kernel's, to the position of the first op that reads its output), and
+the autograd engine's own work between two nodes (the sum of a tensor's
+gradients, a leaf's copy of its gradient) is charged to the position that
+made its first input. The BST cells run the row-sharded
 item table's train step and the per-shard serving steps. Records are
 written to ``reports/dryrun_torch/`` (one JSON file per cell × mesh).
 Figures from a dry run are host meta runs, not card times.
@@ -89,9 +97,9 @@ REPORT_DIR = Path(__file__).resolve().parents[3] / "reports" / "dryrun_torch"
 
 PER_CHIP = ("the busiest mesh position's value: one process drives every "
             "position; under fsdp each batch shard's home computes and the "
-            "other positions store state, under tp2d every position "
-            "multiplies its weight blocks and the homes run the rest, so "
-            "positions differ")
+            "other positions store state, under tp2d decode every "
+            "position multiplies its weight blocks and the homes run the "
+            "rest, so positions differ")
 
 _ALLOC = {torch.ops.aten.empty.memory_format,
           torch.ops.aten.empty_strided.default,
@@ -155,6 +163,7 @@ class Tracker(TorchDispatchMode):
         self.live = [0] * n_positions
         self.peak = [0] * n_positions
         self._ids = set()
+        self._where = {}        # storage id → the position it was made at
         self._kinds = {}
         self._cache = {}
         self._replays = {}
@@ -275,6 +284,7 @@ class Tracker(TorchDispatchMode):
 
     def _free(self, key: int, pos: int, nbytes: int) -> None:
         self._ids.discard(key)
+        self._where.pop(key, None)
         self.live[pos] -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -299,6 +309,13 @@ class Tracker(TorchDispatchMode):
                 self._kinds[func] = "view"
                 return out
         pos = self._position(func)
+        if self.mesh.shifted:
+            # the autograd engine's work between two nodes (the sum of a
+            # tensor's gradients, a leaf's copy of its gradient): charged
+            # where its first input was made
+            pos = next((self._where[k] for k in (
+                id(x.untyped_storage()) for x in ins) if k in self._where),
+                pos)
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             self.flops[pos] += count(*args, **kwargs, out_val=out)
@@ -314,6 +331,7 @@ class Tracker(TorchDispatchMode):
                 continue
             n = st.nbytes()
             self._ids.add(key)
+            self._where[key] = pos
             self.live[pos] += n
             if self.live[pos] > self.peak[pos]:
                 self.peak[pos] = self.live[pos]

@@ -54,7 +54,8 @@ class Mesh:
     """``shape`` positions named by ``axis_names``, each on one device of
     ``devices`` (row-major). ``bytes`` counts what the collectives move
     between positions, by collective; ``received`` the bytes each position
-    receives, where the collective names its receiver."""
+    receives, where the collective names its receiver; ``moves`` the bytes
+    by (collective, source, receiver), where it names both."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  devices: Sequence):
@@ -85,7 +86,9 @@ class Mesh:
                              f"{sorted(kinds)}")
         self.bytes: Dict[str, int] = collections.Counter()
         self.received: Dict[int, int] = collections.Counter()
+        self.moves: Dict[Tuple[str, int, int], int] = collections.Counter()
         self._working: List[int] = []   # the working position, innermost last
+        self._shifted: List[bool] = []  # whether ``shift`` set each entry
         self._moving = 0                # depth of nested collective copies
         self.tracked = False            # a dry run's tracker is counting
 
@@ -121,10 +124,12 @@ class Mesh:
     def at(self, pos: int) -> Iterator[None]:
         """Run the body as position ``pos``'s work."""
         self._working.append(int(pos))
+        self._shifted.append(False)
         try:
             yield
         finally:
             self._working.pop()
+            self._shifted.pop()
 
     @property
     def position(self) -> Optional[int]:
@@ -138,6 +143,14 @@ class Mesh:
         to another position, whose backward runs next."""
         if self._working:
             self._working[-1] = int(pos)
+            self._shifted[-1] = True
+
+    @property
+    def shifted(self) -> bool:
+        """Whether the working position is one an autograd node's ``shift``
+        set (between the nodes of a backward pass, where the autograd
+        engine's own sums and copies run), not one a :meth:`at` named."""
+        return bool(self._shifted) and self._shifted[-1]
 
     @contextlib.contextmanager
     def charge_backward(self) -> Iterator[None]:
@@ -164,21 +177,28 @@ class Mesh:
     def is_moving(self) -> bool:
         return self._moving > 0
 
-    def count(self, collective: str, nbytes: int,
-              to: Optional[int] = None) -> None:
-        """Count ``nbytes`` moved by ``collective`` (to position ``to``)."""
+    def count(self, collective: str, nbytes: int, to: Optional[int] = None,
+              frm: Optional[int] = None) -> None:
+        """Count ``nbytes`` moved by ``collective`` (from position ``frm``
+        to position ``to``)."""
         self.bytes[collective] += int(nbytes)
         if to is not None:
             self.received[int(to)] += int(nbytes)
+            if frm is not None:
+                self.moves[(collective, int(frm), int(to))] += int(nbytes)
 
     def reset_bytes(self) -> None:
         self.bytes.clear()
         self.received.clear()
+        self.moves.clear()
 
 
 class _NodePositions(TorchFunctionMode):
     """Tags the autograd node of every op's outputs with the working
-    position (:meth:`Mesh.charge_backward`)."""
+    position (:meth:`Mesh.charge_backward`), and every untagged node it
+    reaches: an autograd function's node (a kernel's, whose ``apply`` this
+    mode does not see) takes the position of the first op that reads its
+    output, so its backward is charged where its forward ran."""
 
     def __init__(self, mesh: Mesh):
         super().__init__()
@@ -190,12 +210,17 @@ class _NodePositions(TorchFunctionMode):
         pos = self.mesh.position
         if pos is None or not torch.is_grad_enabled():
             return out
-        for t in (out if isinstance(out, (tuple, list)) else (out,)):
-            node = getattr(t, "grad_fn", None)
-            if node is not None and id(node) not in self._tagged:
-                self._tagged[id(node)] = node
+        todo = [getattr(t, "grad_fn", None)
+                for t in (out if isinstance(out, (tuple, list)) else (out,))]
+        while todo:
+            node = todo.pop()
+            if node is None or id(node) in self._tagged:
+                continue
+            self._tagged[id(node)] = node
+            if type(node).__name__ != "AccumulateGrad":
                 node.register_prehook(
                     lambda grads, p=pos: self.mesh.shift(p))
+            todo.extend(n for n, _ in node.next_functions)
         return out
 
 

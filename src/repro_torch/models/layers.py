@@ -10,15 +10,17 @@ gradient is needed it goes through the autograd function
 ``FlashAttention`` instead (the kernels forward and backward on CUDA, their
 plain versions on the CPU). ``softmax_xent_chunked`` and
 ``softmax_xent_sharded`` are the training loss's cross entropy; handed a
-``StationaryView`` head, the latter is the vocab-parallel loss over the
-head's blocks where they lie
-(``distrib.collectives.vocab_parallel_xent``).
+``TPView`` head (the ``tp2d`` train step), the latter is the
+vocab-parallel loss over each position's vocab block
+(``distrib.collectives.tp_vocab_xent``).
 
-Every product with a weight goes through :func:`linear`, which multiplies
-on the positions that hold the weight's blocks when it is handed a
-``distrib.collectives.StationaryView`` (serving and training on a mesh
-under ``tp2d``, the activations
-:class:`~repro_torch.distrib.collectives.Rows`).
+Every product with a weight goes through :func:`linear`: handed a
+``distrib.collectives.TPView`` (training on a mesh under ``tp2d``) it
+multiplies each position's rows by the weight's column or row block
+gathered along "data"; handed a ``StationaryView`` (serving under
+``tp2d``) it multiplies on the positions that hold the weight's blocks;
+the activations are then
+:class:`~repro_torch.distrib.collectives.Rows`.
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distrib.collectives import (StationaryView, block_matmul,
-                                             each, vocab_parallel_xent)
+from repro_torch.distrib.collectives import (StationaryView, TPView,
+                                             block_matmul, each, tp_linear,
+                                             tp_vocab_xent,
+                                             vocab_parallel_xent)
 from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 
@@ -210,9 +214,13 @@ def combine_attention_partials(parts, dtype: torch.dtype) -> torch.Tensor:
 
 
 def linear(x, w, dtype: torch.dtype, bias=None):
-    """``x @ w.to(dtype)`` (+ ``bias.to(dtype)``); with a
-    :class:`StationaryView` weight (and bias) ``block_matmul`` of the
-    batch shards' rows ``x``."""
+    """``x @ w.to(dtype)`` (+ ``bias.to(dtype)``); with a ``TPView`` weight
+    (the ``tp2d`` train step) ``tp_linear`` of every position's rows ``x``:
+    a column or row block of the weight gathered along "data" at each
+    position; with a :class:`StationaryView` weight (serving under
+    ``tp2d``) ``block_matmul`` of the batch shards' rows ``x``."""
+    if isinstance(w, TPView):
+        return tp_linear(x, w, dtype, bias)
     if isinstance(w, StationaryView):
         return block_matmul(x, w, dtype, bias)
     y = x @ w.to(dtype)
@@ -243,10 +251,15 @@ def softmax_xent_sharded(hidden, head_w, labels):
     """Mean cross entropy of the logits ``hidden @ head_w`` over the labels
     ≥ 0, with the target logit taken by a one-hot contraction, as the
     reference's vocab-parallel loss does. On plain tensors, on one device.
-    With ``hidden`` and ``labels`` as ``Rows`` and ``head_w`` a
-    ``StationaryView``, over the head's blocks where they lie, the logits
-    never assembled (``distrib.collectives.vocab_parallel_xent``): each
+    With ``hidden`` and ``labels`` as ``Rows`` and ``head_w`` a ``TPView``
+    (the ``tp2d`` train step), over each position's vocab block gathered
+    along "data", only per-row statistics crossing "model"
+    (``distrib.collectives.tp_vocab_xent``); a ``StationaryView``, over the
+    head's blocks where they lie, the logits never assembled
+    (``distrib.collectives.vocab_parallel_xent``): each position's or
     home's loss as Rows."""
+    if isinstance(head_w, TPView):
+        return tp_vocab_xent(hidden, head_w, labels)
     if isinstance(head_w, StationaryView):
         return vocab_parallel_xent(hidden, head_w, labels)
     logits = (hidden @ head_w.to(hidden.dtype)).float()

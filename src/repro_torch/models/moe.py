@@ -33,7 +33,12 @@ products, and the backward's dX and dW, read only that expert's rows, so
 the result is bitwise the unsharded one, forward and backward. Handed
 every batch shard's tokens as ``Rows`` (serving under ``tp2d``), the block
 takes the router's logits from one ``layers.linear`` over all of them and
-runs the rest at each home.
+runs the rest at each home. In the ``tp2d`` train step (the leaves as
+``TPView`` s, the rows at every position) each position routes its rows
+and runs its "model" block of the experts: its E / M experts
+(``moe_shard="expert"``, the outputs gathered along "model") or every
+expert's d_ff / M columns (``"ffn"``, the down products' partials summed
+over "model").
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
-from repro_torch.distrib.collectives import (Blocks, Rows, each, send,
+from repro_torch.distrib.collectives import (Blocks, Rows, TPView, each,
+                                             model_gather, model_slice,
+                                             model_sum, model_sum_grad, send,
                                              send_slices)
 from repro_torch.kernels.expert_gemm import ExpertGemm
 from repro_torch.models.layers import linear
@@ -138,9 +145,11 @@ def moe_block(x, params: Dict[str, torch.Tensor],
     params: router (d, E); wg/wu (E, d, f); wd (E, f, d), each a tensor
     or, for the experts, :class:`Blocks` of it along E (the experts where
     they live, as the reference's ``exp_spec`` places them). With x as
-    ``Rows`` (and the leaves as ``StationaryView`` s) y and aux come as
-    Rows.
+    ``Rows`` (and the leaves as ``StationaryView`` s, or ``TPView`` s in the
+    ``tp2d`` train step: :func:`_moe_over_model`) y and aux come as Rows.
     """
+    if isinstance(params["router"], TPView):
+        return _moe_over_model(x, params, cfg, n_groups, capacity_factor)
     if isinstance(x, Rows):
         G, S = _groups(x.shape[0], n_groups)
         logits = linear(x, params["router"], x.dtype)
@@ -154,9 +163,56 @@ def moe_block(x, params: Dict[str, torch.Tensor],
     return _routed(x, r, params["wg"], params["wu"], params["wd"], cfg)
 
 
-def _routed(x: torch.Tensor, r: Routing, wg, wu, wd, cfg: MoEConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`moe_block` after the routing ``r``."""
+def _moe_over_model(x: Rows, params, cfg: MoEConfig, n_groups: int,
+                    capacity_factor: float):
+    """:func:`moe_block` in the ``tp2d`` train step, every position's rows
+    (the same at each position of a "model" group) as ``Rows``: the router
+    gathered along "data" and the routing, dispatch and combine repeated
+    at every position, as the reference's partitioner repeats them under
+    ``exp_spec = P(batch, "model", None, None)``. Experts split over
+    "model" (``moe_shard="expert"``): each position takes its E / M
+    experts' slice of its own dispatch buffer, runs them, and the outputs
+    are gathered along "model" for the combine (``expert_gather``; the
+    backward gathers the slices' input gradients the same way). Each
+    expert's d_ff split over "model" (``moe_shard="ffn"``): every position
+    runs all experts on its f / M columns, the down products' partials
+    summed over "model" in f32 and rounded once before the combine
+    (``tp_model_sum``; the dispatch buffer's gradient partials likewise).
+    Experts on no "model" axis run whole at every position."""
+    G, S = _groups(x.shape[0], n_groups)
+    logits = linear(x, params["router"], x.dtype)
+
+    def dispatch(xd, lg):
+        r = routing(lg.reshape(G, S, -1), cfg, capacity_factor)
+        x_exp, aux, order = _dispatch(xd, r, cfg)
+        return x_exp, aux, r, order
+    x_exp, aux, r, order = each(dispatch, x, logits)
+    wg, wu, wd = params["wg"], params["wu"], params["wd"]
+    E, d = cfg.n_experts, x.shape[-1]
+    C = x_exp.shape[1]
+    counts = wg.x.layout.counts
+    if counts[0] > 1:                   # the experts over "model"
+        mine = model_slice(each(torch.Tensor.view, x_exp, (G, E, C, d)), 1,
+                           "expert_gather")
+        y = each(lambda xm, pg, pu, pd: _experts(
+            xm.view(-1, C, d), pg, pu, pd).view(G, -1, C, d),
+            mine, wg, wu, wd)
+        y_exp = model_gather(y, 1, "expert_gather")
+    elif counts[2] > 1:                 # each expert's d_ff over "model"
+        xs = model_sum_grad(x_exp)
+        h = each(lambda xe, pg, pu: _gated_experts(xe, pg, pu), xs, wg, wu)
+        y_exp = model_sum(each(lambda hm, pd: ExpertGemm.apply(
+            hm, pd.to(hm.dtype)), h, wd), x.dtype)
+    else:
+        y_exp = each(_experts, x_exp, wg, wu, wd)
+    y = each(lambda ye, rd, od: _combine(ye.reshape(G, E * C, d), rd, od),
+             y_exp, r, order)
+    return y, aux
+
+
+def _dispatch(x: torch.Tensor, r: Routing, cfg: MoEConfig):
+    """The Switch aux loss and the (G·E, C, d) dispatch buffer of
+    ``moe_block`` after the routing ``r``, and each token's slot order."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     G, S, C = r.G, r.S, r.C
@@ -183,28 +239,45 @@ def _routed(x: torch.Tensor, r: Routing, wg, wu, wd, cfg: MoEConfig
     buf = torch.zeros((G * E * C + 1, d), dtype=x.dtype, device=dev)
     src = DispatchGather.apply(x.reshape(G, S, d), r.tokens, order)
     buf[dst.reshape(-1)] = src.reshape(G * N, d)
-    x_exp = buf[:G * E * C].view(G * E, C, d)
+    return buf[:G * E * C].view(G * E, C, d), aux.float(), order
 
+
+def _combine(y_exp: torch.Tensor, r: Routing, order: torch.Tensor
+             ) -> torch.Tensor:
+    """The (T, d) output from the (G, E·C, d) expert outputs: sorted slot i
+    feeds token r.tokens[i]; each token gathers its k slots and adds them
+    in ascending sorted position, starting from 0."""
+    G, EC, d = y_exp.shape
+    N = r.rows.shape[1]
+    picked = y_exp.gather(
+        1, torch.clamp_max(r.rows, EC - 1)[..., None].expand(G, N, d))
+    picked = picked * (r.gates * r.keep).to(y_exp.dtype)[..., None]
+    return sum_slots(picked, order).reshape(G * r.S, d)
+
+
+def _routed(x: torch.Tensor, r: Routing, wg, wu, wd, cfg: MoEConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_block` after the routing ``r``."""
+    x_exp, aux, order = _dispatch(x, r, cfg)
+    G, E, C, d = r.G, cfg.n_experts, r.C, x.shape[1]
     if isinstance(wg, Blocks):
         y_exp = _experts_where_they_live(x_exp.view(G, E, C, d), wg, wu, wd)
     else:
         y_exp = _experts(x_exp, wg, wu, wd)
-    y_exp = y_exp.view(G, E * C, d)
+    return _combine(y_exp.view(G, E * C, d), r, order), aux
 
-    # combine: sorted slot i feeds token r.tokens[i]; each token gathers its
-    # k slots and adds them in ascending sorted position, starting from 0
-    picked = y_exp.gather(
-        1, torch.clamp_max(r.rows, E * C - 1)[..., None].expand(G, N, d))
-    picked = picked * (r.gates * r.keep).to(y_exp.dtype)[..., None]
-    return sum_slots(picked, order).reshape(T, d), aux.float()
+
+def _gated_experts(x_exp: torch.Tensor, wg, wu) -> torch.Tensor:
+    """silu(x·wg) · (x·wu) over a (G·E, C, d) dispatch buffer."""
+    gemm = ExpertGemm.apply
+    dt = x_exp.dtype
+    return F.silu(gemm(x_exp, wg.to(dt))) * gemm(x_exp, wu.to(dt))
 
 
 def _experts(x_exp: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     """The three expert products over a (G·E, C, d) dispatch buffer."""
-    gemm = ExpertGemm.apply
-    dt = x_exp.dtype
-    h = F.silu(gemm(x_exp, wg.to(dt))) * gemm(x_exp, wu.to(dt))
-    return gemm(h, wd.to(dt))
+    h = _gated_experts(x_exp, wg, wu)
+    return ExpertGemm.apply(h, wd.to(x_exp.dtype))
 
 
 def _experts_where_they_live(x4: torch.Tensor, wg: Blocks, wu: Blocks,

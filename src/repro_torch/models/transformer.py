@@ -50,13 +50,19 @@ looked up where its rows lie, the experts stay where they live, and the
 norms, RoPE, attention and the residual stream run at each batch shard's
 home (``collectives.each``, which calls the function as it is when no
 argument is ``Rows``). The train step under ``tp2d``
-(``train.state.make_tp2d_train_step``) hands ``loss`` the same views with
-``grad=True`` and the tokens and labels as ``Rows``: every product and the
-lookup differentiate where the blocks lie, the cross entropy is taken per
-vocab block where the head's blocks lie, and each home's loss comes back
-as Rows. Under ``remat`` the layer's checkpoint repeats the block
-products' moves in the recompute; under ``"dots"`` the holders' products
-are the saved ops, as the one-device products are.
+(``train.state.make_tp2d_train_step``) hands ``loss`` a ``TPView`` of
+every leaf and the tokens and labels of every position as ``Rows``, the
+reference's split: each product multiplies the position's rows by the
+weight's "model" block gathered along "data" (``layers.linear``), the
+heads split over "model" (``collectives.split_heads``: by heads where H
+and KV divide, q split and the key-value heads taken where only H does,
+else q, k and v gathered and each position's part of the output taken
+for ``wo``), the experts over "model" (``moe.moe_block``), the cross
+entropy per vocab block (``layers.softmax_xent_sharded``); every
+position's loss comes back as Rows. Under ``remat`` the layer's checkpoint
+repeats the forward's gathers and sums in the recompute; under ``"dots"``
+the positions' products are the saved ops, as the one-device products
+are.
 
 The KV cache is (L, B, S, KV, hd) ×2 in bf16, as in the reference, even for
 f32 configs. ``decode_step`` writes the new token's keys and values into
@@ -74,7 +80,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import TransformerConfig
-from repro_torch.distrib.collectives import StationaryView, each, local
+from repro_torch.distrib.collectives import (StationaryView, TPView, each,
+                                             local, split_heads)
 from repro_torch.distrib.sharding import P
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe_params, moe_block
@@ -197,37 +204,51 @@ class TransformerLM:
 
     def _qkv(self, p: Params, x, positions):
         """The layer's queries (B, S, H, hd) and keys and values
-        (B, S, KV, hd), RoPE applied."""
-        cd = self.compute_dtype
+        (B, S, KV, hd), RoPE applied; in the ``tp2d`` train step each
+        position's heads (``collectives.split_heads``) and the function
+        that takes its part of the attention output for ``wo``."""
+        cfg, cd = self.cfg, self.compute_dtype
         h = each(self._norm, x, p["ln1"])
         q, k, v = (L.linear(h, p[w], cd, p.get(b))
                    for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-        return each(self._rope, q, k, v, positions)
+        own = None
+        if isinstance(p["wq"], TPView):
+            q, k, v, own = split_heads(q, k, v, cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.head_dim)
+        q, k, v = each(self._rope, q, k, v, positions)
+        return q, k, v, own
 
     def _rope(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               positions: torch.Tensor):
+        """q (B, S, H·hd), k and v (B, S, KV·hd) as heads, RoPE applied
+        (the head counts read from the widths: a position's heads in the
+        ``tp2d`` train step)."""
         cfg = self.cfg
         B, S = q.shape[:2]
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = q.reshape(B, S, H, hd)
-        k = k.reshape(B, S, KV, hd)
-        v = v.reshape(B, S, KV, hd)
+        hd = cfg.head_dim
+        q = q.reshape(B, S, q.shape[-1] // hd, hd)
+        k = k.reshape(B, S, k.shape[-1] // hd, hd)
+        v = v.reshape(B, S, v.shape[-1] // hd, hd)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _attn_out(self, p: Params, x, o):
+    def _attn_out(self, p: Params, x, o, own=None):
         """The residual stream after the output projection of attention
-        output ``o`` (B, S, H, hd)."""
-        o = L.linear(each(torch.flatten, o, 2), p["wo"], self.compute_dtype)
+        output ``o`` (B, S, H, hd), ``own`` taking each position's part of
+        it first where every position attended over all heads."""
+        o = each(torch.flatten, o, 2)
+        if own is not None:
+            o = own(o)
+        o = L.linear(o, p["wo"], self.compute_dtype)
         return each(torch.add, x, o)
 
     def _attn(self, p: Params, x, positions):
         """Causal attention over the whole sequence: the residual stream
         after it, and the layer's (k, v)."""
-        q, k, v = self._qkv(p, x, positions)
+        q, k, v, own = self._qkv(p, x, positions)
         o = each(L.blockwise_attention, q, k, v)
-        return self._attn_out(p, x, o), (k, v)
+        return self._attn_out(p, x, o, own), (k, v)
 
     def _cache_attend(self, i: int, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, cache: Cache, cache_len: int
@@ -367,7 +388,7 @@ class TransformerLM:
         x = self._embed(params, token)
         for i, lp in enumerate(params["layers"]):
             lp = self._local_layer(lp)
-            q, k, v = self._qkv(lp, x, positions)
+            q, k, v, _ = self._qkv(lp, x, positions)
             x = self._attn_out(lp, x, attend(i, q, k, v, cache, cache_len))
             x, _ = self._mlp(lp, x)
         x = each(self._norm, x, params["ln_f"])

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import _host_array
 from repro_torch.config.base import TrainConfig
-from repro_torch.distrib.collectives import (Rows, ShardView, StationaryView,
+from repro_torch.distrib.collectives import (Rows, ShardView, TPView,
                                              batch_groups, local, span)
 from repro_torch.distrib.sharding import (P, ShardedTensor, assemble,
                                           device_put, map_with_specs,
@@ -130,8 +130,8 @@ def _add_grads(mesh, views, sums) -> None:
                     continue
                 owner = x.layout.holders(block)[0]
                 if src != owner:
-                    mesh.count("grad_psum",
-                               g.numel() * g.element_size(), to=owner)
+                    mesh.count("grad_psum", g.numel() * g.element_size(),
+                               frm=src, to=owner)
                 with mesh.at(owner):
                     with mesh.moving():
                         g = g.to(mesh.device(owner))
@@ -167,8 +167,8 @@ def _sharded_update(state: TrainState, sums, loss, tcfg: TrainConfig,
             parts = {}
             for block, g in blocks.items():
                 if 0 not in x.layout.holders(block):
-                    mesh.count("norm_gather",
-                               g.numel() * g.element_size(), to=0)
+                    mesh.count("norm_gather", g.numel() * g.element_size(),
+                               frm=x.layout.holders(block)[0], to=0)
                 parts[block] = g
             with span("norm_gather"), mesh.moving():
                 whole = assemble(x.layout, parts, dev0, g.dtype)
@@ -210,7 +210,8 @@ def _sharded_update(state: TrainState, sums, loss, tcfg: TrainConfig,
                     dev = mesh.device(pos)
                     if pos != holders[0]:
                         mesh.count("grad_send",
-                                   g.numel() * g.element_size(), to=pos)
+                                   g.numel() * g.element_size(),
+                                   frm=holders[0], to=pos)
                     with mesh.at(pos):
                         c_lr, c_bc1, c_bc2, _ = consts(dev)
                         with mesh.moving():
@@ -313,48 +314,58 @@ def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
 def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                          state_specs, batch_spec,
                          microbatches: int = 1) -> Callable:
-    """The LM train step over ``mesh`` under the ``tp2d`` rules with the
-    weights where they lie: the counterpart of ``jax.jit(make_train_step(
-    model.loss, tcfg), in_shardings=…)`` on a ``tp2d`` cell, where XLA's
-    partitioner runs each product where the weight blocks lie.
-    ``step(state, tokens, labels) → (state, metrics)`` as
-    :func:`make_sharded_train_step`'s, and no parameter moves, forward or
-    backward.
+    """The LM train step over ``mesh`` under the ``tp2d`` rules, split as the
+    reference's partitioner splits ``jax.jit(make_train_step(model.loss,
+    tcfg), in_shardings=…)`` on a ``tp2d`` cell: Megatron over "model" ×
+    ZeRO over "data". ``step(state, tokens, labels) → (state, metrics)`` as
+    :func:`make_sharded_train_step`'s.
 
     The batch splits as that step splits it: M microbatches, batch shard d
     of D (``batch_spec[0]``'s axes) taking microbatches d·M/D … (d+1)·M/D −
-    1 at its home. Round r runs microbatch d·M/D + r of every batch shard
-    together: ``loss_fn`` gets a ``StationaryView`` (``grad=True``) of
-    every leaf and the tokens and labels as ``Rows``, and returns each
-    home's loss as Rows (``TransformerLM.loss``), whose backward runs at
-    once, each loss seeded with 1 as ``make_train_step`` seeds each
-    microbatch's. Each product runs on its weight blocks' holders, the
-    table is looked up and its gradient summed where its blocks lie, and
-    the cross entropy is taken per vocab block where the head's blocks
-    lie (``collectives.block_matmul``, ``take_rows_2d``,
-    ``layers.softmax_xent_sharded``). A holder's leaf collects the terms
-    of the homes it serves, in batch order within a round and in round
-    order across rounds; the replicas of a block (the router's, the
-    experts' over the batch axes, ``ln`` weights at each home) are added
-    at the block's owner in the order of the first batch shard each
-    serves (``grad_psum``). That is ``make_train_step(microbatches=M)``'s
-    order when M / D = 1 or D = 1. The sums are divided by M, the losses
-    come to position 0 and are added in microbatch order, and the norm,
-    clip and AdamW are :func:`make_sharded_train_step`'s tail.
+    1. Round r runs microbatch d·M/D + r of every batch shard together, at
+    every position of the shard's group (``act_spec``: the rows whole and
+    the same at each position of a "model" group): ``loss_fn`` gets a
+    ``collectives.TPView`` of every leaf and the tokens and labels as
+    ``Rows`` over all the positions, and returns each position's loss as
+    Rows (``TransformerLM.loss``). Each weight is gathered along "data"
+    into the position's "model" block and multiplied there
+    (``collectives.tp_linear``), the heads and the experts split over
+    "model", a row block's partials and a column block's dX partials summed
+    over "model"; the table is looked up where its blocks lie and the cross
+    entropy taken per vocab block (``collectives.tp_vocab_xent``). The
+    backward runs at once from the losses of the positions that collect
+    gradients (the first of each batch shard's positions with a "model"
+    coordinate), each seeded with 1 as ``make_train_step`` seeds each
+    microbatch's: a gathered block's gradient is reduce-scattered along
+    "data" to its owner, a block read where it lies (norm weights, biases,
+    experts) takes the gradient of each batch shard's collector, added at
+    the block's owner in batch order (``grad_psum``). Within a round the
+    batch shards add in ascending order, across rounds in round order:
+    ``make_train_step(microbatches=M)``'s order when M / D = 1 or D = 1.
+    The sums are divided by M, the losses come to position 0 and are added
+    in microbatch order, and the norm, clip and AdamW are
+    :func:`make_sharded_train_step`'s tail.
 
     On a mesh of one position the step is ``make_train_step(loss_fn, tcfg,
     microbatches=M)`` bit for bit (the model with ``act_spec``, so that the
-    one-device loss is the vocab-parallel form). With more blocks the
-    block products' partial sums and the loss's per-block statistics fold
-    in block order, so the loss and gradients differ by rounding."""
-    homes, _ = batch_groups(mesh, batch_spec[0] if len(batch_spec)
-                            else None)
+    one-device loss is the vocab-parallel form). With more than one "model"
+    position the partials add in another order, so the loss and gradients
+    differ by rounding."""
+    homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
+                                 else None)
     D = len(homes)
     if microbatches % D:
         raise ValueError(f"{microbatches} microbatches do not split over "
                          f"{D} batch shards")
     per = microbatches // D
     dev0 = mesh.device(0)
+    shard = {p: d for d, g in enumerate(groups) for p in g}
+    positions = list(range(mesh.size))
+    # the positions whose work collects gradients: the first of each batch
+    # shard's positions with a "model" coordinate (the others repeat it)
+    model = [mesh.coords(p).get("model", 0) for p in positions]
+    seeds = [p for p in positions
+             if p == next(q for q in groups[shard[p]] if model[q] == model[p])]
 
     def step(state: TrainState, *batch) -> Tuple[TrainState, dict]:
         leaves = tree_leaves(state.params)
@@ -364,25 +375,24 @@ def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                                  "placed on the step's mesh")
         split = [x.reshape((microbatches, -1) + tuple(x.shape[1:]))
                  for x in batch]
-        views = tree_map(lambda x: StationaryView(x, grad=True),
-                         state.params)
+        views = tree_map(lambda x: TPView(x, groups), state.params)
         losses = [None] * microbatches
         for r in range(per):
             mbs = [d * per + r for d in range(D)]
             args = []
             for x in split:
                 parts = []
-                for d, home in enumerate(homes):
-                    with mesh.at(home):
-                        parts.append(x[mbs[d]].to(mesh.device(home)))
-                args.append(Rows(parts, homes, mesh))
+                for p in positions:
+                    with mesh.at(p):
+                        parts.append(x[mbs[shard[p]]].to(mesh.device(p)))
+                args.append(Rows(parts, positions, mesh))
             with mesh.at(0):
                 with mesh.charge_backward():
                     out = loss_fn(views, *args)
-                # a holder's backward runs at the holder
-                torch.autograd.backward(out.parts)
+                # each position's backward runs at the position
+                torch.autograd.backward([out.parts[p] for p in seeds])
             for d, m in enumerate(mbs):
-                losses[m] = out.parts[d].detach()
+                losses[m] = out.parts[homes[d]].detach()
             del out, args
         with mesh.at(0):
             loss = None
@@ -391,7 +401,7 @@ def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                     mb_loss = mb_loss.to(dev0)
                 loss = mb_loss if loss is None else loss + mb_loss
             loss = loss / microbatches
-        sums = _stationary_grads(mesh, tree_leaves(views), homes)
+        sums = _view_grads(mesh, tree_leaves(views))
         del views
         _zeros_where_unreached(mesh, leaves, sums)
         for x, blocks in zip(leaves, sums):
@@ -403,12 +413,13 @@ def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
     return step
 
 
-def _stationary_grads(mesh, views, homes):
+def _view_grads(mesh, views):
     """Each leaf's gradient blocks at their owners (the first holder) from
-    the ``StationaryView`` leaves of every holder: a block's replicas
-    added at the owner in the order of the first batch shard each serves,
-    the first as it is (no zeros, so a −0.0 stays); a block no replica's
-    work reached is left out (:func:`_zeros_where_unreached`)."""
+    the ``TPView`` leaves of every holder: a gathered block's gradient is
+    its owner's already; a block read where it lies has one term per batch
+    shard, at that shard's collector, added at the owner in batch order,
+    the first as it is (no zeros, so a −0.0 stays); a block no term
+    reached is left out (:func:`_zeros_where_unreached`)."""
     sums = []
     with span("grad_psum"):
         for view in views:
@@ -417,7 +428,7 @@ def _stationary_grads(mesh, views, homes):
             for block in lay.blocks():
                 holders = lay.holders(block)
                 owner = holders[0]
-                terms = sorted((view.served(h, homes), h) for h in holders
+                terms = sorted((view.shard[h], h) for h in holders
                                if view.leaves[h].grad is not None)
                 total = None
                 for _, h in terms:
@@ -425,7 +436,8 @@ def _stationary_grads(mesh, views, homes):
                     view.leaves[h].grad = None
                     if h != owner:
                         mesh.count("grad_psum",
-                                   g.numel() * g.element_size(), to=owner)
+                                   g.numel() * g.element_size(), frm=h,
+                                   to=owner)
                     with mesh.at(owner):
                         with mesh.moving():
                             g = g.to(mesh.device(owner))

@@ -300,22 +300,19 @@ def test_tp2d_decode_cell_moves_no_parameter():
 
 
 @pytest.mark.parametrize("arch_id", ["qwen3-moe-30b-a3b", "smollm-135m"])
-def test_tp2d_train_cell_moves_no_parameter(arch_id, monkeypatch):
+def test_tp2d_train_cell_splits_as_the_reference(arch_id, monkeypatch):
     """The reduced train cell under ``REPRO_LM_POLICY=tp2d`` on a 2 × 2 mesh
-    runs ``make_tp2d_train_step``: no ``all_gather`` (forward) or
-    ``all_gather_grad`` (backward), the backward's block moves
-    (``tp_grad_act``) and the loss's per-row statistics (``xent_stats``)
-    counted; the meta run counts what the run on ``["cpu"] * 4`` counts;
-    each position holds its share of the state under the reference's
-    ``tp2d`` specs (each leaf's bytes over its block count, for params, m
-    and v), and no position's temporaries reach the gathering step's (the
-    same cell and specs through ``make_sharded_train_step``, which gathers
-    each layer at the home)."""
+    runs ``make_tp2d_train_step``, split as the reference's partitioner
+    splits it: each weight gathered along "data" (``tp_zero_gather``) and
+    reduce-scattered back (``tp_zero_scatter``), the partial products
+    summed over "model" (``tp_model_sum``), none of ``block_matmul``'s
+    moves; the meta run counts what the run on ``["cpu"] * 4`` counts, by
+    name and by receiving position; each position holds its share of the
+    state under the reference's ``tp2d`` specs (each leaf's bytes over its
+    block count, for params, m and v)."""
     from repro_torch.distrib.sharding import (Layout, lm_param_specs,
                                               map_with_specs)
-    from repro_torch.launch import cells
     from repro_torch.models.transformer import TransformerLM
-    from repro_torch.train.state import make_sharded_train_step
     monkeypatch.setenv("REPRO_LM_POLICY", "tp2d")
     recs = []
     for dev in ("meta", "cpu"):
@@ -328,8 +325,10 @@ def test_tp2d_train_cell_moves_no_parameter(arch_id, monkeypatch):
                 "argument_bytes", "collective_bytes_received"):
         assert meta["per_position"][key] == conc["per_position"][key], key
     coll = meta["collectives"]
-    assert not {"all_gather", "all_gather_grad"} & set(coll)
-    assert coll["tp_grad_act"] > 0 and coll["xent_stats"] > 0
+    assert not {"all_gather", "all_gather_grad", "tp_act", "tp_partial",
+                "tp_grad_act", "tp_grad_partial"} & set(coll)
+    assert coll["tp_zero_gather"] > 0 and coll["tp_zero_scatter"] > 0
+    assert coll["tp_model_sum"] > 0 and coll["xent_stats"] > 0
     cfg = get_arch(arch_id, smoke=True).model
     params = TransformerLM(cfg).init(torch.Generator(), dtype=torch.float32,
                                      device="meta")
@@ -342,10 +341,3 @@ def test_tp2d_train_cell_moves_no_parameter(arch_id, monkeypatch):
     batch = 2 * 2 * 32 * 4                 # tokens and labels, at 0
     assert meta["per_position"]["argument_bytes"] == \
         [share + batch] + [share] * 3
-    monkeypatch.setattr(cells, "make_tp2d_train_step",
-                        make_sharded_train_step)
-    gathering = dryrun.run_cell(arch_id, "train_4k", smoke=True, mesh=mesh)
-    assert gathering["collectives"]["all_gather"] > 0
-    for ours, theirs in zip(meta["per_position"]["temp_peak_bytes"],
-                            gathering["per_position"]["temp_peak_bytes"]):
-        assert ours < theirs

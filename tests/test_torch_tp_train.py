@@ -20,23 +20,37 @@ backward; ``models/layers.py``: the vocab-parallel cross entropy;
   over V only and the tied head (``embed.T``, d and V split), on one
   position bitwise, otherwise within ``LOSS_RTOL`` (1e-6) and
   ``GRAD_RTOL``; ``xent_stats`` is per-row data only.
-* The ``tp2d`` train step against ``make_train_step`` (the same model with
-  ``act_spec``) for the SMOKE qwen3-moe (8 experts, and 16, which split
-  over "model") and smollm-135m (tied head): on one position bit for bit
-  (loss, grad norm, every leaf), on (1, 2), (2, 1), (2, 2) and (1, 4) with
-  the batch whole and split, loss and grad norm within 1e-5 relative and
-  every leaf after 2 steps within rtol 1e-4, atol 2 · lr · steps
-  (``test_torch_sharded_train``'s bound); no ``all_gather`` and no
-  ``all_gather_grad``; two runs bitwise; ``remat="full"`` and ``"dots"``
-  bitwise ``"none"`` on the mesh, with the dots recompute running no
-  block product again.
+* The ``tp2d`` train step (Megatron over "model" × ZeRO over "data":
+  ``collectives.TPView``, ``tp_linear``, ``split_heads``,
+  ``tp_vocab_xent``, ``models/moe.py:_moe_over_model``) against
+  ``make_train_step`` (the same model with ``act_spec``) for the SMOKE
+  qwen3-moe (8 experts, whose spec degrades to replicated; 16, which split
+  over "model"; and ``moe_shard="ffn"``, each expert's d_ff over "model")
+  and smollm-135m (tied head): on one position bit for bit (loss, grad
+  norm, every leaf), on (1, 2), (2, 1), (2, 2) and (1, 4) with the batch
+  whole and split, loss and grad norm within 1e-5 relative and every leaf
+  after 2 steps within rtol 1e-4, atol 2 · lr · steps
+  (``test_torch_sharded_train``'s bound); none of ``block_matmul``'s
+  bytes (``tp_act``, ``tp_partial``, ``tp_grad_act``,
+  ``tp_grad_partial``); every collective's bytes a step equal to
+  :func:`tp2d_step_bytes`, a formula from the config and the mesh; every
+  weight byte moving between positions with one "model" coordinate and
+  every activation sum between positions with one "data" coordinate; the
+  three attention branches of ``split_heads`` against the unsplit
+  attention, forward and backward; two runs bitwise; ``remat="full"`` and
+  ``"dots"`` bitwise ``"none"`` on the mesh, with the dots recompute
+  running no product again and both repeating the forward's gathers.
 * In bf16 compute on 2 × 2 each leaf's AdamW first moment after 2 steps
   no farther from the unsharded bf16 step's than ``LEAF_FACTOR`` (2)
   times the unsharded f32 step's distance from it (``chip_smoke.py``'s
   leaf check at SMOKE widths).
 * The step against the reference's ``jax.jit(make_train_step)`` under a
   2 × 2 JAX mesh with the ``tp2d`` ``in_shardings`` (a child process with
-  four host devices), weights through ``params_from_jax``, to rtol 1e-4.
+  four host devices), weights through ``params_from_jax``, to rtol 1e-4,
+  for ``moe_shard`` "expert" and "ffn"; the child also reads the compiled
+  HLO's collective bytes by kind and by the mesh axis of their replica
+  groups (``repro.launch.roofline.collective_bytes``), printed beside the
+  port's bytes by name and axis.
 
 JAX is imported only inside the tests that compare with it.
 """
@@ -82,9 +96,17 @@ TCFG = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10)
 N_STEPS = 2
 MOE16 = dataclasses.replace(
     qcfg.SMOKE, moe=dataclasses.replace(qcfg.SMOKE.moe, n_experts=16))
+FFN = dataclasses.replace(
+    qcfg.SMOKE, moe=dataclasses.replace(qcfg.SMOKE.moe, moe_shard="ffn"))
+SMOL = get_arch("smollm-135m", smoke=True).model
 MODELS = {"qwen3-moe": qcfg.SMOKE, "qwen3-moe-e16": MOE16,
-          "smollm-135m": get_arch("smollm-135m", smoke=True).model}
+          "qwen3-moe-ffn": FFN, "smollm-135m": SMOL}
 GATHERS = {"all_gather", "all_gather_grad"}
+# block_matmul's bytes, which the tp2d train step never moves
+STATIONARY = {"tp_act", "tp_partial", "tp_grad_act", "tp_grad_partial"}
+# the bytes of weights (gathered along "data") and of activation sums
+WEIGHT_MOVES = {"tp_zero_gather", "tp_zero_scatter"}
+SUM_MOVES = {"tp_model_sum"}
 
 
 def _mesh(shape):
@@ -308,9 +330,11 @@ def _batches(cfg, B=8, S=16, n=N_STEPS):
     return [[torch.as_tensor(a) for a in pipe.batch_at(i)] for i in range(n)]
 
 
-def _run(cfg, shape, micro, bspec, steps=N_STEPS, reference=True):
+def _run(cfg, shape, micro, bspec, steps=N_STEPS, reference=True,
+         moves=None):
     """(unsharded metrics, mesh metrics, unsharded state, mesh state, the
-    bytes of each mesh step)."""
+    bytes of each mesh step); each step's ``Mesh.moves`` appended to
+    ``moves`` when it is a list."""
     model = TransformerLM(cfg, moe_group_size=16,
                           act_spec=P("data", None, None))
     params = model.init(torch.Generator().manual_seed(0),
@@ -334,6 +358,8 @@ def _run(cfg, shape, micro, bspec, steps=N_STEPS, reference=True):
         state, m = step(state, *b)
         got.append((float(m["loss"]), float(m["grad_norm"])))
         nbytes.append(dict(mesh.bytes))
+        if moves is not None:
+            moves.append(dict(mesh.moves))
     return want, got, ref, state, nbytes
 
 
@@ -367,11 +393,206 @@ def test_tp2d_step_against_the_unsharded_step(name, shape, batch):
     for a, b in zip(tree_leaves(ref.params), _whole(state.params)):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
                                    atol=flips)
+    D, M = shape
     for step in nbytes:
-        assert not set(step) & GATHERS, step
-        assert step["tp_act"] > 0 and step["tp_grad_partial"] > 0
-    if cfg.moe is not None and cfg.moe.n_experts % 16 == 0 and shape[1] > 1:
-        assert all(step["expert_send"] > 0 for step in nbytes)
+        assert not set(step) & (GATHERS | STATIONARY), step
+        # the weights gathered along "data", the sums over "model"
+        assert (step.get("tp_zero_gather", 0) > 0) == (D > 1)
+        assert (step.get("tp_model_sum", 0) > 0) == (M > 1)
+        assert step["emb_rows"] > 0
+    if cfg.moe is not None and cfg.moe.n_experts % 16 == 0 and M > 1:
+        assert all(step["expert_gather"] > 0 for step in nbytes)
+
+
+def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
+    """Every collective's bytes of one ``make_tp2d_train_step`` step
+    (``remat="none"``, the batch split over "data", the SMOKE widths, which
+    divide every production axis size) on a (D, M) mesh, from the config
+    alone: per round of microbatches the gathers along "data" (compute
+    dtype) and their reduce-scatters (f32), the sums over "model"
+    (reduce-scatter of the partial, all-gather of the rounded sum), the
+    heads and experts over "model", the loss's statistics and the two-axis
+    lookup; per step the replicas' sums, the norm's gather and AdamW's
+    sends (f32)."""
+    D, M = shape
+    N = D * M
+    rounds = micro // D
+    R = B // micro * S                       # rows a position holds
+    c = 4 if cfg.dtype == "float32" else 2   # the compute dtype's bytes
+    d, H, KV, hd, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.n_layers, cfg.vocab_size)
+    moe = cfg.moe
+    attn = [d * H * hd, d * KV * hd, d * KV * hd, H * hd * d]
+    if moe is None:
+        mlp_col, mlp_row = [d * cfg.d_ff] * 2, [cfg.d_ff * d]
+        experts = router = E = Ce = G = 0
+    else:
+        mlp_col, mlp_row = [], []
+        E, k, fe = moe.n_experts, moe.top_k, moe.d_ff_expert
+        experts, router = 3 * E * d * fe, d * E
+        G = max(1, R // group)
+        Ce = max(8, -(-(int(R // G * k * 1.25 / E) + 1) // 8) * 8)
+    split = [*attn, *mlp_col, *mlp_row]      # over "data" and "model"
+    out = {}
+    # the weights gathered along "data" and reduce-scattered back; the
+    # router is split over "data" only, so every "model" position gathers it
+    gathered = L * sum(split) + V * d        # the layers and the head
+    out["tp_zero_gather"] = rounds * (D - 1) * c * (gathered + M * L * router)
+    out["tp_zero_scatter"] = rounds * (D - 1) * 4 * (gathered + L * router)
+
+    def allreduce(n, p):                     # over D groups of M
+        return D * (M - 1) * n * (p + c)
+    per_layer = allreduce(R * d, 4) * (1 + len(mlp_row))        # wo, wd
+    per_layer += allreduce(R * d, 4) * (3 + len(mlp_col))       # dX: q k v g u
+    if moe is not None and moe.moe_shard == "ffn" and M > 1:
+        per_layer += 2 * allreduce(G * E * Ce * d, c)          # down, its dX
+    out["tp_model_sum"] = rounds * (L * per_layer + allreduce(R * d, 4))
+    out["xent_stats"] = rounds * N * (M - 1) * 12 * R
+    heads = 0
+    if M > 1 and not (H % M == 0 and KV % M == 0):
+        per, g = H // M, H // KV
+        if H % M == 0 and g % per == 0:      # k, v heads taken, both ways
+            w = KV * hd // M
+            for m in range(M):
+                lo = m * per // g * hd
+                mine = max(0, min(lo + hd, (m + 1) * w) - max(lo, m * w))
+                heads += 2 * 2 * (hd - mine) * R * c
+            heads *= D
+        else:                                # q, k, v gathered, o's back
+            heads = N * (M - 1) * R * (2 * H + 2 * KV) * hd * c // M
+    out["tp_heads_gather"] = rounds * L * heads
+    if moe is not None and moe.moe_shard == "expert" and E % 16 == 0:
+        out["expert_gather"] = (rounds * L * 2 * N * (M - 1) * G * E * Ce
+                                * d * c // M)
+    # the lookup at each batch shard's first position: ids out, rows back
+    # from the N − 1 blocks it does not hold, the rows delivered to the
+    # shard's M − 1 other positions; the gradient rows back to the blocks
+    out["emb_ids"] = rounds * D * (N - 1) * R * 4
+    out["emb_rows"] = rounds * D * ((N - 1) * R * d // D + (M - 1) * R * d) * 4
+    out["emb_grad"] = rounds * D * (N - 1) * R * d // D * 4
+    ex_blocks = 1 if moe is None else (
+        M if moe.moe_shard == "ffn" or E % 16 == 0 else 1)
+    out["grad_psum"] = (D - 1) * 4 * (L * (2 * d + experts) + d)
+    # (numel, blocks) of every leaf, for the norm's gather and AdamW's sends
+    leaves = [(n, N) for n in split for _ in range(L)] + [(V * d, N)]
+    leaves += [(router, D)] * L if moe else []
+    leaves += [(experts, ex_blocks)] * L + [(d, 1)] * (2 * L + 1)
+    if not cfg.tie_embeddings:
+        leaves.append((V * d, N))            # the head beside the embed
+    out["norm_gather"] = sum(n * 4 - n * 4 // b for n, b in leaves)
+    out["grad_send"] = sum(n * 4 * (N - b) // b for n, b in leaves)
+    return {k: v for k, v in out.items() if v}
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), (1, 4)],
+                         ids=["1x2", "2x1", "2x2", "1x4"])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_tp2d_step_bytes_by_formula(name, shape):
+    """Each collective's bytes a step, by name, equal to
+    :func:`tp2d_step_bytes`."""
+    _, _, _, _, nbytes = _run(MODELS[name], shape, 2, P("data", None),
+                              steps=1, reference=False)
+    assert nbytes[0] == tp2d_step_bytes(MODELS[name], shape)
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_tp2d_moves_run_along_their_axes(name):
+    """On 2 × 2, every weight byte (``tp_zero_gather``, ``tp_zero_scatter``)
+    moves between positions of one "model" coordinate (along "data") and
+    every activation sum (``tp_model_sum``) between positions of one "data"
+    coordinate (along "model"), as the reference's HLO groups its weight
+    all-gathers and its activation all-reduces (``Mesh.moves`` names each
+    move's source and receiver)."""
+    moves = []
+    _, _, _, _, nbytes = _run(MODELS[name], (2, 2), 2, P("data", None),
+                              steps=1, reference=False, moves=moves)
+    mesh = _mesh((2, 2))
+    seen = dict.fromkeys(WEIGHT_MOVES | SUM_MOVES, 0)
+    for (what, frm, to), n in moves[0].items():
+        a, b = mesh.coords(frm), mesh.coords(to)
+        if what in WEIGHT_MOVES:
+            assert a["model"] == b["model"] and a["data"] != b["data"]
+        if what in SUM_MOVES:
+            assert a["data"] == b["data"] and a["model"] != b["model"]
+        if what in seen:
+            seen[what] += n
+    assert seen == {w: nbytes[0][w] for w in seen}
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_tp2d_step_with_the_head_whole_over_model(shape):
+    """A vocab that splits over "data" but not over ("data", "model")
+    (528 entries: qwen3-moe-30b-a3b's 151,936 on the production mesh
+    likewise) degrades the head's spec to P(None, "data"): every "model"
+    position then takes the loss over the whole vocab, folding only its
+    own statistics (no ``xent_stats``), and the step still matches the
+    unsharded one."""
+    cfg = dataclasses.replace(qcfg.SMOKE, vocab_size=528)
+    assert lm_param_specs(TransformerLM(cfg).init(
+        torch.Generator(), dtype=torch.float32, device="meta"), cfg,
+        "tp2d")["head"] == P(None, "data")
+    want, got, ref, state, nbytes = _run(cfg, shape, 2, P("data", None))
+    for (l0, n0), (l1, n1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=STEP_RTOL)
+        assert n1 == pytest.approx(n0, rel=STEP_RTOL)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    for a, b in zip(tree_leaves(ref.params), _whole(state.params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=flips)
+    assert all("xent_stats" not in step for step in nbytes)
+
+
+@pytest.mark.parametrize("name,shape,branch", [
+    ("qwen3-moe", (1, 2), "heads"), ("qwen3-moe", (1, 4), "kv-taken"),
+    ("smollm-135m", (1, 2), "all-gathered")])
+def test_split_heads_branches(name, shape, branch):
+    """``split_heads`` on the column blocks of q, k and v, attention at
+    each position and each position's part of the output against the
+    unsplit attention, forward and backward (f32, the CPU's plain
+    versions): qwen3-moe's 4 / 2 heads split on (1, 2); on (1, 4) each
+    position takes the key-value head of its one query head (gradients of
+    a head two positions take added back); smollm-135m's 3 / 1 heads on
+    (1, 2) gathered whole, every position attending over all of them."""
+    from repro_torch.distrib.collectives import each, split_heads
+    cfg = MODELS[name]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mesh = _mesh(shape)
+    M = shape[1]
+    g = torch.Generator().manual_seed(7)
+    B, S = 2, 24
+    q, k, v = (torch.randn((B, S, n * hd), generator=g)
+               for n in (H, KV, KV))
+    do = torch.randn((B, S, H * hd), generator=g)
+    full = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def attend(qt, kt, vt):
+        b, s = qt.shape[:2]
+        o = L.blockwise_attention(*(t.reshape(b, s, -1, hd)
+                                    for t in (qt, kt, vt)))
+        return o.flatten(2)
+    want = attend(*full)
+    (want * do).sum().backward()
+    homes = list(range(mesh.size))
+    blocks = [[t.chunk(M, -1)[h].clone().requires_grad_(True)
+               for h in homes] for t in (q, k, v)]
+    qs, ks, vs, own = split_heads(*(Rows(b, homes, mesh) for b in blocks),
+                                  H, KV, hd)
+    o = each(attend, qs, ks, vs)
+    if own is not None:
+        o = own(o)
+    got = torch.cat(o.parts, -1)
+    torch.autograd.backward(o.parts, list(do.chunk(M, -1)))
+    _close(got.detach(), want.detach(), 1e-6)
+    for b, w in zip(blocks, full):
+        _close(torch.cat([t.grad for t in b], -1), w.grad, 1e-6)
+    moved = mesh.bytes.get("tp_heads_gather", 0)
+    assert (moved > 0) == (branch != "heads")
+    assert (own is not None) == (branch == "all-gathered")
+    if branch == "kv-taken":
+        # one key-value head a position, both ways, for k and v
+        w = KV * hd // M
+        assert all(t.shape[-1] == hd for t in ks.parts + vs.parts)
+        assert moved == 2 * 2 * sum(hd - w for _ in range(M)) * B * S * 4
 
 
 @pytest.mark.parametrize("name", ["qwen3-moe-e16", "smollm-135m"])
@@ -395,12 +616,12 @@ def _moment_gaps(state, ref):
 
 @pytest.mark.parametrize("name", ["qwen3-moe", "smollm-135m"])
 def test_tp2d_bf16_leaves_within_the_f32_control(name):
-    """bf16 compute, the card's (the dX partials of a D_out > 1 product
-    are f32 through ``_mm``, a branch the f32 tests never take): after 2
-    steps on 2 × 2 each leaf's AdamW first moment, a sum of both steps'
-    gradients, is no farther from the unsharded bf16 step's than
-    ``LEAF_FACTOR`` times the unsharded f32 step's distance from it (the
-    control: what bf16 rounding alone does to that leaf)."""
+    """bf16 compute, the card's (a column block's dX partials and a row
+    block's partials are f32 through ``_mm``, a branch the f32 tests never
+    take): after 2 steps on 2 × 2 each leaf's AdamW first moment, a sum of
+    both steps' gradients, is no farther from the unsharded bf16 step's
+    than ``LEAF_FACTOR`` times the unsharded f32 step's distance from it
+    (the control: what bf16 rounding alone does to that leaf)."""
     cfg = dataclasses.replace(MODELS[name], dtype="bfloat16")
     _, _, ref, state, _ = _run(cfg, (2, 2), 2, P("data", None))
     f32 = _run(dataclasses.replace(cfg, dtype="float32"), (1, 1), 2,
@@ -424,9 +645,9 @@ class _CountMM(TorchDispatchMode):
 @pytest.mark.parametrize("name", ["qwen3-moe-e16", "smollm-135m"])
 def test_tp2d_remat_is_bitwise_none(name):
     """``remat="full"`` and ``"dots"`` on the 2 × 2 mesh: bitwise the
-    ``"none"`` step; the full recompute runs the block products again,
-    the dots recompute does not (their outputs are saved, as on one
-    device), and both repeat the forward's moves."""
+    ``"none"`` step; the full recompute runs the products again, the dots
+    recompute does not (their outputs are saved, as on one device), and
+    both repeat the forward's gathers along "data" (``tp_zero_gather``)."""
     out, counts = {}, {}
     for remat in ("none", "full", "dots"):
         cfg = dataclasses.replace(MODELS[name], remat=remat)
@@ -438,20 +659,22 @@ def test_tp2d_remat_is_bitwise_none(name):
         assert out[remat][1] == out["none"][1]
         for a, b in zip(_whole(out[remat][3]), _whole(out["none"][3])):
             assert torch.equal(a, b)
-        assert out[remat][4][0]["tp_act"] > out["none"][4][0]["tp_act"]
+        assert out[remat][4][0]["tp_zero_gather"] > \
+            out["none"][4][0]["tp_zero_gather"]
     assert counts["dots"] == counts["none"] < counts["full"]
 
 
 # -- against the reference's jitted tp2d step ---------------------------------------------
 
 _CHILD = r'''
-import json, sys
+import json, re, sys
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.config.base import MoEConfig, TrainConfig, TransformerConfig
 from repro.distrib.sharding import lm_param_specs, state_specs_like
+from repro.launch.roofline import _COLLECTIVE_RE, collective_bytes
 from repro.models.transformer import TransformerLM
 from repro.train.state import make_train_step, new_train_state
 
@@ -469,6 +692,44 @@ bs = ns(P("data", None))
 step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"]),
                                microbatches=args["micro"]),
                in_shardings=(jax.tree.map(ns, specs), bs, bs))
+
+
+def axis(line):
+    # the mesh axis a collective's groups run along (device i at data
+    # i // 2, model i % 2): "data", "model", "both" or "none"
+    m = re.search(r"replica_groups=\[(\d+),(\d+)\]<=\[([\d,]+)\]"
+                  r"(?:T\(([\d,]+)\))?", line)
+    if m:
+        dims = [int(x) for x in m.group(3).split(",")]
+        ids = np.arange(int(np.prod(dims))).reshape(dims)
+        if m.group(4):
+            ids = ids.transpose([int(x) for x in m.group(4).split(",")])
+        groups = ids.reshape(int(m.group(1)), int(m.group(2))).tolist()
+    else:
+        m = re.search(r"(?:replica_groups|source_target_pairs)="
+                      r"\{((?:\{[\d,]*\},?)*)\}", line)
+        groups = [[int(x) for x in g.split(",") if x]
+                  for g in re.findall(r"\{([\d,]*)\}", m.group(1))]
+    same_d = all(len({i // 2 for i in g}) == 1 for g in groups)
+    same_m = all(len({i % 2 for i in g}) == 1 for g in groups)
+    if same_d and same_m:
+        return "none"
+    return "model" if same_d else "data" if same_m else "both"
+
+
+tokens, labels = (jnp.asarray(np.array(t, np.int32))
+                  for t in args["batches"][0])
+with mesh:
+    hlo = step.lower(state, tokens, labels).compile().as_text()
+lines = hlo.splitlines()
+tags = [axis(l) if _COLLECTIVE_RE.search(l) else None for l in lines]
+read = {}
+for ax in ("data", "model", "both", "none"):
+    keep = "\n".join(l for l, t in zip(lines, tags) if t in (None, ax))
+    for kind, n in collective_bytes(keep).items():
+        if n:
+            read[f"{kind} {ax}"] = n
+print("HLO " + json.dumps(read))
 metrics = []
 with mesh:
     for tokens, labels in args["batches"]:
@@ -485,18 +746,37 @@ print(json.dumps(metrics))
 '''
 
 
-def test_tp2d_step_matches_the_reference_jitted_step(tmp_path):
+def _by_axis(mesh, moves):
+    """A step's bytes by ``"name axis"``: each move's source and receiver
+    along "data" (one "model" coordinate), "model" or "both"."""
+    out = {}
+    for (name, frm, to), n in moves.items():
+        a, b = mesh.coords(frm), mesh.coords(to)
+        ax = ("data" if a["model"] == b["model"] else
+              "model" if a["data"] == b["data"] else "both")
+        out[f"{name} {ax}"] = out.get(f"{name} {ax}", 0) + n
+    return dict(sorted(out.items()))
+
+
+@pytest.mark.parametrize("moe_shard", ["expert", "ffn"])
+def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
     """The reference's jitted step under a 2 × 2 JAX mesh with the ``tp2d``
     ``in_shardings`` (XLA's partitioner places each product) against the
     port's ``make_tp2d_train_step`` on 2 × 2, the qwen3-moe SMOKE model
-    with 16 experts, 2 steps of 2 microbatches split over "data", one set
-    of weights: losses, grad norms and every leaf to rtol 1e-4."""
+    with 16 experts split over "model" (``moe_shard="expert"``) or their
+    d_ff split (``"ffn"``), 2 steps of 2 microbatches split over "data",
+    one set of weights: losses, grad norms and every leaf to rtol 1e-4.
+    The child reads its compiled HLO's collective bytes by kind and the
+    axis of their groups: its weight all-gathers run along "data" and its
+    activation all-reduces along "model", as the port's gathers and sums
+    do; both printed (``-s``) by name and axis."""
     jax = pytest.importorskip("jax")
     from repro.models.transformer import TransformerLM as RLM
     from repro_torch.models.transformer import params_from_jax
     from test_torch_lm import _jax_cfg
     from test_torch_train import _leaves_ref_layout
-    cfg = MOE16
+    cfg = dataclasses.replace(
+        MOE16, moe=dataclasses.replace(MOE16.moe, moe_shard=moe_shard))
     batches = _batches(cfg)
     out = tmp_path / "ref.npz"
     payload = json.dumps({
@@ -514,7 +794,11 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path):
                           payload], env=env, capture_output=True, text=True,
                          cwd=REPO, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    want = json.loads(res.stdout.strip().splitlines()[-1])
+    lines = res.stdout.strip().splitlines()
+    want = json.loads(lines[-1])
+    hlo = json.loads(next(ln[4:] for ln in lines if ln.startswith("HLO ")))
+    assert hlo.get("all-gather data", 0) > 0
+    assert hlo.get("all-reduce model", 0) > 0
     rparams = RLM(_jax_cfg(cfg)).init(jax.random.PRNGKey(0))
     params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
                                                          rparams),
@@ -526,11 +810,16 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path):
     state = new_sharded_train_state(params, mesh, specs)
     step = make_tp2d_train_step(model.loss, TCFG, mesh, specs,
                                 P("data", None), microbatches=2)
-    for b, (loss, gnorm) in zip(batches, want):
+    for i, (b, (loss, gnorm)) in enumerate(zip(batches, want)):
+        mesh.reset_bytes()
         state, m = step(state, *b)
         assert float(m["loss"]) == pytest.approx(loss, rel=1e-4)
         assert float(m["grad_norm"]) == pytest.approx(gnorm, rel=1e-4)
-    assert not set(mesh.bytes) & GATHERS
+        if i == 0:
+            print(f"\nreference HLO ({moe_shard}), bytes a chip by kind and "
+                  f"axis: {hlo}\nthe port's step, bytes by name and axis: "
+                  f"{_by_axis(mesh, mesh.moves)}")
+            assert not set(mesh.bytes) & (GATHERS | STATIONARY)
     whole = {k: gather(v) if isinstance(v, ShardedTensor) else v
              for k, v in state.params.items() if k != "layers"}
     whole["layers"] = [{k: (gather(v) if isinstance(v, ShardedTensor)
