@@ -272,31 +272,51 @@ Phases, each printed on its own lines:
     0 after it.
 18. serve-sharded-lm (after serve-lm-configs) — on a 2 × 2 ("data",
     "model") mesh (the first four cards, or ``cuda:0`` four times: a
-    check, not a speedup), decode under ``tp2d`` with the weights where
-    they lie: every product on its weight blocks' holders, ``embed``
-    looked up where its blocks lie, the experts where they live whether or
-    not the batch is split, the KV cache placed by ``lm_cache_specs`` and
-    never gathered (``distrib/serving.py``). qwen3-moe-30b-a3b at its
-    published widths, serve-lm's 8 layers and seeded bf16 weights, prefill
-    under the reference prefill cell's ``fsdp`` rules: (i) serve-lm's 2 ×
-    4,096 prompt and 16 tokens (batch whole, cache sequence-split over all
-    four positions); (ii) 16 × 2,048 and 8 tokens (batch over "data",
-    sequence over "model"). (iii) deepseek-7b at its published widths and
-    all 30 layers, 16 × 1,024 and 8 tokens, prefill under ``tp2d`` too
-    (its one-card run first, its caches freed before the mesh is placed).
+    check, not a speedup), the KV cache placed by ``lm_cache_specs`` and
+    never gathered (``distrib/serving.py``), split as the reference's
+    partitioner splits its jitted steps. (i) qwen3-moe-30b-a3b at its
+    published widths, serve-lm's 8 layers and seeded bf16 weights,
+    serve-lm's 2 × 4,096 prompt and 16 tokens, the batch whole: prefill
+    under the reference prefill cell's ``fsdp`` rules, decode with the
+    weights where they lie (every product on its weight blocks' holders,
+    ``embed`` looked up where its blocks lie, the experts where they
+    live; cache sequence-split over all four positions). (ii) the same
+    model, 16 × 2,048 and 8 tokens, the batch over "data" (the cache's
+    sequence over "model"): prefill under ``fsdp`` (the prefill cell's
+    default: each batch shard's home gathers each layer from its group,
+    ``all_gather``, the experts where they live, ``expert_send``; the
+    cache assembled from both homes), decode under ``tp2d`` as the
+    reference's HLO splits it: each position holds its batch shard's
+    rows, gathers the column weights' "model" blocks along "data"
+    (``tp_zero_gather``), moves the rows to the row blocks and the head
+    where they lie (``tp_rows_gather``, ``tp_rows_scatter``), sums over
+    "model" (``tp_model_sum``), the heads and experts over "model", the
+    attention split over the cache's sequence slices. (iii) deepseek-7b
+    at its published widths and all 30 layers, 16 × 1,024 and 8 tokens,
+    the prefill too under ``tp2d`` split as the reference's HLO splits it
+    (every weight's "model" block gathered along "data" but the head's)
+    (its one-card run first, its caches freed before the mesh is
+    placed). (iv) qwen3-moe as (ii) with ``moe_shard="ffn"`` (every
+    expert's d_ff over "model"), the prefill under ``tp2d`` as in (iii).
     Against the model on one card: prefill logits bitwise in (i), within
     serve-lm's bf16 consistency bounds (``LM_CONSIST_ATOL``,
-    ``LM_CONSIST_CORR``) in (ii) and (iii); decode teacher-forced with the
+    ``LM_CONSIST_CORR``) in (ii)–(iv); decode teacher-forced with the
     one-card run's tokens within them at every step; greedy tokens
-    agreeing printed; two mesh runs bitwise equal; one decode step's bytes
-    per collective and per receiving position, with no parameter moved
-    (no ``all_gather``; ``emb_*`` the batch's ids and rows only); the
+    agreeing printed; two mesh runs bitwise equal; the bytes per
+    collective and per receiving position: in (i) a decode step moves no
+    parameter (no ``all_gather``; ``emb_*`` the batch's ids and rows
+    only), in (ii)–(iv) a decode step's bytes and the ``tp2d`` prefills'
+    equal ``serve_tp2d_bytes_want`` by name, (ii)'s ``fsdp`` prefill's
+    ``serve_fsdp_bytes_want``, the weights move along "data" only
+    and the sums along "model" only (by axis, from ``Mesh.moves``); the
     launches exactly ``sharded_lm_launches``' (in (i) each of the 2
-    expert shards launches its own products); for qwen3-moe the decode
+    expert shards launches its own products, in (ii)–(iv) every position
+    its heads and experts); for qwen3-moe the decode
     tokens whose top-8 experts differ from one card's, per layer; the
     flash and expert GEMM inputs of the second run captured (one per
     kernel and shape) and held against their plain versions within
-    LM_KERNEL_RTOL, as phase 3 holds serve-lm's; wall times and the step's
+    LM_KERNEL_RTOL, as phase 3 holds serve-lm's, and timed in (ii)–(iv)
+    beside SDPA and batched ``torch.matmul``; wall times and the step's
     roofline (``launch/roofline.py``: ``lm_model_flops`` /
     ``lm_memory_bytes`` at the run's batch, length and depth over the
     H100's rates) with the measured time's share of it;
@@ -436,7 +456,7 @@ BATCH_STEPS = 2    # serve-batch steps
 # the ring holds replay_batch = 16 at step 16 and steps 16-19 learn
 ADAPT_STEPS = 20
 LOSS_RTOL = 1e-5   # TD losses, card against CPU (adaptive agreement)
-# serve-sharded-lm: traffic (ii), the batch split over "data"
+# serve-sharded-lm: traffic (ii) and (iv), the batch split over "data"
 SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT, SHARD_SERVE_TOKENS = 16, 2048, 8
 # serve-sharded-lm (iii): deepseek-7b whole, prefill and decode under tp2d
 TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_TOKENS = 16, 1024, 8
@@ -2503,6 +2523,225 @@ def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
     return {k: v for k, v in out.items() if v}
 
 
+def serve_tp2d_bytes_want(cfg, shape, batch: int, seq: int, kind: str,
+                          group: int, capacity: int = 0,
+                          id_bytes: int = 4) -> dict:
+    """Every collective's bytes of one ``tp2d`` prefill (``kind``
+    "prefill", ``seq`` prompt positions, the cache placed with room for
+    ``capacity``) or decode step ("decode", one token against a cache of
+    ``capacity`` positions) with the batch of ``batch`` sequences split
+    over "data" on a ("data", "model") mesh of ``shape``
+    (``distrib/serving.py``), from the config and the ``tp2d`` rules (each
+    leaf's blocks from its spec on a meta mesh of that shape) in the
+    compute dtype: every position holds its batch shard's rows; a product
+    gathers its weight's "model" block along "data" (``tp_zero_gather``)
+    unless the weight splits over "data" on its output dimension only — a
+    decode step's ``wo`` / ``wd`` and the untied head, in a prefill the
+    head alone — where each position gathers the batch line's rows
+    instead (``tp_rows_gather``), the f32 partials of an input split over
+    "model" are summed over "model", and each position takes its batch
+    shard's rows of the other column blocks (``tp_rows_scatter``); the sums
+    over "model" reduce-scatter the partial and all-gather the rounded sum
+    (``tp_model_sum``); the heads over "model" as the train step splits
+    them in a prefill and gathered whole in a decode step
+    (``tp_heads_gather``), the tied head's vocab blocks joined over "model"
+    (``tp_logits_gather``), the experts' outputs gathered along "model"
+    (``expert_gather``) or the ``ffn`` down products summed; the lookup at
+    each batch shard's first position, its rows delivered to the group; a
+    decode step's attention partials crossing "model" (``attn_partial``);
+    a prefill's cache blocks filled with the heads their position did not
+    compute (``cache_scatter``); the batch shards' logits to position 0
+    (``logits_gather``). The token ids take ``id_bytes`` each."""
+    import collections
+    import math
+    import torch
+    from repro_torch.distrib.sharding import (Layout, lm_cache_specs,
+                                              lm_param_specs)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.moe import _groups, moe_capacity
+    from repro_torch.models.transformer import TransformerLM
+    D, M = shape
+    N = D * M
+    decode = kind == "decode"
+    mesh = Mesh(shape, ("data", "model"), ["meta"] * N)
+    params = TransformerLM(cfg).init(torch.Generator(), device="meta")
+    specs = lm_param_specs(params, cfg, "tp2d")
+    c = 2 if cfg.dtype == "bfloat16" else 4
+    Bd = batch // D
+    R = Bd * (1 if decode else seq)     # rows a position holds
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    H, KV, V = cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size
+    out = collections.Counter()
+
+    def on(ly, dim, model):
+        return math.prod(mesh.axis_size(a) for a in ly.axes[dim]
+                         if (a == "model") == model)
+
+    def allreduce(n, p):                 # N / M groups of M
+        return N // M * (M - 1) * n * (p + c)
+
+    def product(x, s, rows, moves, transposed=False):
+        """One product with the (n_in, n_out) weight ``x`` placed by
+        ``s``."""
+        ly = Layout(mesh, s, x.shape)
+        i, o = (1, 0) if transposed else (0, 1)
+        n_in, n_out = x.shape[i], x.shape[o]
+        Dw = on(ly, 0, False) * on(ly, 1, False)
+        data = any(a != "model" for axes in ly.axes for a in axes)
+        if not moves or not data or any(a != "model" for a in ly.axes[i]):
+            Mw = on(ly, 0, True) * on(ly, 1, True)
+            out["tp_zero_gather"] += N * (Dw - 1) * x.numel() // (Dw * Mw) * c
+            if M > 1 and on(ly, i, True) > 1:          # a row block's sum
+                out["tp_model_sum"] += allreduce(rows * n_out, 4)
+            return ly
+        D_in, D_out = on(ly, i, True) * on(ly, i, False), \
+            on(ly, o, True) * on(ly, o, False)
+        out["tp_rows_gather"] += N * (D - 1) * rows * n_in // D_in * c
+        if D_in > 1:
+            out["tp_model_sum"] += allreduce(D * rows * n_out // D_out, 4)
+        out["tp_rows_scatter"] += N * (D_out - 1) * rows * n_out // D_out * c
+        return ly
+
+    for lp, sp in zip(params["layers"], specs["layers"]):
+        q = None
+        for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "sg", "su",
+                     "sd"):
+            if name in lp:
+                ly = product(lp[name], sp[name], R, decode)
+                q = ly if name == "wq" else q
+        if M > 1 and "model" in q.axes[1]:
+            per, g = H // M, H // KV
+            if decode or not (H % M == 0 and (KV % M == 0
+                                              or g % per == 0)):
+                # q, k and v gathered whole along "model"
+                out["tp_heads_gather"] += (N * (M - 1) * R * hd * c // M
+                                           * (H + 2 * KV))
+            elif KV % M:                     # each position's k, v head
+                w = KV * hd // M
+                for m in range(M):
+                    lo = m * per // g * hd
+                    out["tp_heads_gather"] += D * 2 * (hd - max(
+                        0, min(lo + hd, (m + 1) * w) - max(lo, m * w))) \
+                        * R * c
+        if "moe" in lp:
+            moe, mp, ms = cfg.moe, lp["moe"], sp["moe"]
+            product(mp["router"], ms["router"], R, decode)
+            E = moe.n_experts
+            G, S = _groups(R, max(1, R // group))
+            n = G * E * moe_capacity(S, E, moe.top_k) * d
+            wg = Layout(mesh, ms["wg"], mp["wg"].shape)
+            if M > 1 and wg.counts[0] > 1:   # the experts over "model"
+                out["expert_gather"] += N * (M - 1) * n * c // M
+            elif M > 1 and wg.counts[2] > 1:  # their d_ff over "model"
+                out["tp_model_sum"] += allreduce(n, c)
+    # the head (its last rows in a prefill), the tied head's vocab blocks
+    # joined over "model"
+    if cfg.tie_embeddings:
+        ly = product(params["embed"], specs["embed"], Bd, True, True)
+        if M > 1 and on(ly, 0, True) > 1:
+            out["tp_logits_gather"] += N * (M - 1) * Bd * V // M * c
+    else:
+        product(params["head"], specs["head"], Bd, True)
+    out["logits_gather"] += (D - 1) * Bd * V * c
+    emb = Layout(mesh, specs["embed"], params["embed"].shape)
+    K, C = emb.counts
+    out["emb_ids"] += D * (K * C - 1) * R * id_bytes
+    out["emb_rows"] += D * ((K * C - 1) * R * d // C + (M - 1) * R * d) * c
+    cache = Layout(mesh, lm_cache_specs(False, 16), (L, batch, capacity, KV,
+                                                     hd))
+    Sb = cache.block_shape[2]
+    Ms = cache.counts[2]
+    if decode and Ms > 1:                # the slices' (m, l, o), f32
+        out["attn_partial"] += L * N * (Ms - 1) * Bd * H * (2 + hd) * 4
+    if not decode and M > 1 and "model" in q.axes[1]:
+        lo_hi = []                       # the heads each position computed
+        for m in range(M):
+            per, g = H // M, H // KV
+            if H % M == 0 and KV % M == 0:
+                lo_hi.append((m * KV // M, (m + 1) * KV // M))
+            elif H % M == 0 and g % per == 0:
+                lo_hi.append((m * per // g, m * per // g + 1))
+            else:
+                lo_hi.append((0, KV))
+        for m in range(Ms):
+            held = set(range(*lo_hi[m]))
+            valid = max(0, min(Sb, seq - m * Sb))
+            out["cache_scatter"] += (D * 2 * (KV - len(held)) * L * Bd
+                                     * valid * hd * 2)
+    return {k: v for k, v in out.items() if v}
+
+
+def serve_fsdp_bytes_want(cfg, shape, batch: int, seq: int, group: int,
+                          capacity: int) -> dict:
+    """Every collective's bytes of one ``fsdp`` prefill of ``batch``
+    sequences of ``seq`` tokens split over "data" on a ("data", "model")
+    mesh of ``shape`` (``distrib/serving.py``), the cache placed with room
+    for ``capacity``, from the config and the ``fsdp`` rules (each leaf's
+    blocks from its spec on a meta mesh of that shape): each batch shard's
+    home gathers every leaf whole, each block from a position of its group
+    that holds it, else from the block's first holder (``all_gather``),
+    but for the experts under ``moe_shard="expert"``, which stay where
+    they live: each remote expert block gets its slice of the home's
+    dispatch buffer (``group`` tokens a routing group) and sends its
+    outputs back (``expert_send``); the cache blocks of the group's other
+    positions are filled from the home (``cache_scatter``, bf16); the
+    batch shards' last logits go to position 0 (``logits_gather``)."""
+    import collections
+    import torch
+    from repro_torch.distrib.collectives import batch_groups
+    from repro_torch.distrib.sharding import (Layout, lm_cache_specs,
+                                              lm_param_specs, map_with_specs)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.moe import _groups, moe_capacity
+    from repro_torch.models.transformer import TransformerLM
+    D, M = shape
+    mesh = Mesh(shape, ("data", "model"), ["meta"] * (D * M))
+    params = TransformerLM(cfg).init(torch.Generator(), device="meta")
+    homes, groups = batch_groups(mesh, "data")
+    c = 2 if cfg.dtype == "bfloat16" else 4
+    Bd = batch // D
+    moved = collections.Counter()
+
+    def remote(ly):
+        """Per home, the blocks of ``ly`` that it reads from elsewhere."""
+        return [block for home, grp in zip(homes, groups)
+                for block in ly.blocks()
+                if ([p for p in ly.holders(block) if p in grp]
+                    or ly.holders(block))[0] != home]
+
+    def gathered(x, s):
+        ly = Layout(mesh, s, x.shape)
+        moved["all_gather"] += (len(remote(ly)) * x.numel()
+                                // len(ly.blocks()) * c)
+    specs = lm_param_specs(params, cfg, "fsdp")
+    kept = cfg.moe is not None and cfg.moe.moe_shard == "expert"
+    for lp, sp in zip(params["layers"], specs["layers"]):
+        if kept:                         # the experts where they live
+            ly = Layout(mesh, sp["moe"]["wg"], lp["moe"]["wg"].shape)
+            E, d = cfg.moe.n_experts, cfg.d_model
+            G, S = _groups(Bd * seq, max(1, Bd * seq // group))
+            C = moe_capacity(S, E, cfg.moe.top_k)
+            moved["expert_send"] += (2 * len(remote(ly)) * G
+                                     * ly.block_shape[0] * C * d * c)
+            lp = {**lp, "moe": {"router": lp["moe"]["router"]}}
+            sp = {**sp, "moe": {"router": sp["moe"]["router"]}}
+        map_with_specs(gathered, lp, sp)
+    map_with_specs(gathered,
+                   {k: v for k, v in params.items() if k != "layers"},
+                   {k: v for k, v in specs.items() if k != "layers"})
+    cache = Layout(mesh, lm_cache_specs(False, batch),
+                   (cfg.n_layers, batch, capacity, cfg.n_kv_heads,
+                    cfg.head_dim))
+    Bb, Sb = cache.block_shape[1], cache.block_shape[2]
+    for pos in range(mesh.size):
+        if pos not in homes:
+            valid = max(0, min(Sb, seq - cache.block_of(pos)[2] * Sb))
+            moved["cache_scatter"] += (2 * cfg.n_layers * Bb * valid
+                                       * cfg.n_kv_heads * cfg.head_dim * 2)
+    moved["logits_gather"] += (D - 1) * Bd * cfg.vocab_size * c
+    return {k: v for k, v in moved.items() if v}
+
+
 def tp2d_launch_want(cfg, n_positions: int, rounds: int) -> dict:
     """Launches of one ``make_tp2d_train_step`` step in bf16: per position,
     layer and round a flash forward (again in ``remat``'s recompute) and a
@@ -2988,11 +3227,12 @@ class StepProfiler:
     """With ``enabled``, record step 1 (the first warm step) under
     ``torch.profiler`` and report device time by op, the port's kernels
     summed by function, and the device busy share of that step's wall
-    time. A no-op otherwise."""
+    time (kept in ``record``). A no-op otherwise."""
 
     def __init__(self, enabled: bool, label: str):
         self.enabled = enabled
         self.label = label
+        self.record = {}
 
     def step(self, i: int, fn):
         import torch
@@ -3025,6 +3265,9 @@ class StepProfiler:
                 rows.append((dev_us, ev.count, ev.key))
         rows.sort(reverse=True)
         busy_us = sum(r[0] for r in rows)
+        self.record.update(step=i, wall_ms=wall_s * 1e3,
+                           busy_ms=busy_us / 1e3,
+                           busy_share=busy_us / 1e6 / wall_s)
         say(f"  profile {self.label} step {i}: wall {wall_s * 1e3:.1f} ms "
             f"(profiled), device busy {busy_us / 1e3:.1f} ms "
             f"({100 * busy_us / 1e6 / wall_s:.1f} %) in "
@@ -3045,29 +3288,46 @@ class StepProfiler:
 
 
 class CollectiveProfiler(StepProfiler):
-    """``StepProfiler`` that also reports the device time under each
-    collective's profiler range (``distrib.collectives.SPANS``) and keeps
-    it in ``spans``, and the host time under each range."""
+    """``StepProfiler`` that also reports, for each collective's profiler
+    range (``distrib.collectives.SPANS``), the device time of the kernels
+    and copies launched inside it (kept in ``spans``), the host time inside
+    it, and the device timeline's interval from the first to the last of
+    them, idle gaps included (the range's GPU annotation; all three also
+    in ``record``)."""
 
     def __init__(self, label: str, enabled: bool = True):
         super().__init__(enabled, label)
         self.spans = {}
 
     def report(self, prof, i: int, wall_s: float) -> None:
+        from torch.autograd import DeviceType
         from repro_torch.distrib.collectives import SPANS
         super().report(prof, i, wall_s)
-        host = {}
+        host, interval = {}, {}
         for ev in prof.key_averages():
-            if ev.key in SPANS:
-                ms = getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0)) / 1e3
+            if ev.key not in SPANS:
+                continue
+            ms = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0)) / 1e3
+            # a range appears twice: on the host, with the device time of
+            # what it launched, and as its annotation on the device
+            if getattr(ev, "device_type", DeviceType.CPU) == DeviceType.CPU:
                 self.spans[ev.key] = (ms, ev.count)
                 host[ev.key] = ev.cpu_time_total / 1e3
+            else:
+                interval[ev.key] = ms
+        self.record["device_ms"] = {k: ms for k, (ms, _) in
+                                    self.spans.items()}
+        self.record["host_ms"] = host
+        self.record["interval_ms"] = interval
         say(f"  profile {self.label}: device time under each range: "
             + ", ".join(f"{k} {ms:.3f} ms ({n}x)"
                         for k, (ms, n) in sorted(self.spans.items())))
         say(f"  profile {self.label}: host time under each range: "
             + ", ".join(f"{k} {ms:.3f} ms" for k, ms in sorted(host.items())))
+        say(f"  profile {self.label}: each range's device interval (gaps "
+            f"included): " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in
+                                       sorted(interval.items())))
 
 
 def check_results(stats_deltas, where: str) -> int:
@@ -5095,24 +5355,26 @@ class RouteSpy:
         return False
 
 
-def routing_flips(plain_calls, mesh_calls, n_layers: int, n_shards: int,
-                  n_steps: int) -> list:
+def routing_flips(plain_calls, mesh_calls, n_layers: int, per_layer: int,
+                  picks, n_steps: int) -> list:
     """Per MoE layer, the tokens of the decode steps whose top-k expert
     set differs between the one-card run (one routing call per layer and
-    step) and the mesh run (one per layer and batch shard and step, the
-    batch shards of a layer one after another; its rows concatenated in
-    batch order)."""
+    step) and the mesh run (``per_layer`` calls per layer and step, one
+    per position that routes, in order; ``picks`` the calls of the batch
+    shards' first positions, whose rows are concatenated in batch
+    order)."""
     import torch
     check(len(plain_calls) == n_layers * n_steps
-          and len(mesh_calls) == n_shards * n_layers * n_steps,
+          and len(mesh_calls) == per_layer * n_layers * n_steps,
           f"routing calls: {len(plain_calls)} one card, {len(mesh_calls)} "
           f"on the mesh for {n_steps} steps of {n_layers} layers")
     flips = [0] * n_layers
     for s in range(n_steps):
         for i in range(n_layers):
-            base = (s * n_layers + i) * n_shards
+            base = (s * n_layers + i) * per_layer
             want = plain_calls[s * n_layers + i].sort(-1).values
-            got = torch.cat(mesh_calls[base:base + n_shards]).sort(-1).values
+            got = torch.cat([mesh_calls[base + k] for k in picks]) \
+                .sort(-1).values
             flips[i] += int((got != want).any(-1).sum())
     return flips
 
@@ -5154,11 +5416,13 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
                   bspec, want_tokens, capture=None, spy=None, placed=None,
                   prof=None):
     """Prefill on ``mesh`` (cache placed by ``lm_cache_specs``), then decode
-    under ``tp2d`` with the weights where they lie, teacher-forced with
-    ``want_tokens`` (the unsharded run's): per step the logits, the tokens
-    the run would have picked, wall times, bytes per collective (in all
-    and of the first decode step, with the bytes each position received),
-    the launches. The prefill runs under ``fsdp`` over ``params`` placed
+    under ``tp2d`` (``distrib/serving.py``: the weights where they lie with
+    the batch whole, the reference's split with it split over
+    ``bspec``), teacher-forced with ``want_tokens`` (the unsharded run's):
+    per step the logits, the tokens the run would have picked, wall
+    times, bytes per collective (the prefill's, in all and of the first
+    decode step, with the bytes each position received and by axis), the
+    launches. The prefill runs under ``fsdp`` over ``params`` placed
     for it, or, given ``placed`` (``params`` placed by the ``tp2d``
     rules), under ``tp2d`` over those. ``capture`` (:class:`KernelCapture`) is
     armed over prefill and decode, ``spy`` (:class:`RouteSpy`) over
@@ -5186,6 +5450,7 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
     out["prefill_bytes"] = dict(mesh.bytes)
+    out["prefill_axes"] = moves_by_axis(mesh)
     del pre
     torch.cuda.empty_cache()
     if placed is None:
@@ -5202,6 +5467,7 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
         lg, cache = step() if prof is None else prof.step(i, step)
         if i == 0:
             out["step_bytes"] = dict(mesh.bytes)
+            out["step_axes"] = moves_by_axis(mesh)
             out["step_received"] = [mesh.received.get(p, 0)
                                     for p in range(mesh.size)]
         logits.append(lg)
@@ -5221,11 +5487,28 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
     return out
 
 
-# a tp2d decode step moves activations, the batch's ids and looked-up rows,
-# the KV cache's new entries and the logits; a parameter never
+# a tp2d decode step with the batch whole moves activations, the batch's
+# ids and looked-up rows, the KV cache's new entries and the logits; a
+# parameter never
 TP_ACTIVATIONS = {"tp_act", "tp_partial", "emb_ids", "emb_rows",
                   "expert_send", "kv_write", "q_send", "attn_partial",
                   "logits_gather"}
+# with the batch split: weights along "data", sums along "model"
+TP_WEIGHT_MOVES, TP_SUM_MOVES = {"tp_zero_gather"}, {"tp_model_sum"}
+
+
+def moves_by_axis(mesh) -> dict:
+    """The mesh's bytes since its last reset by ``"name axis"``: each
+    move's source and receiver along "data" (one "model" coordinate),
+    "model" (one "data" coordinate) or "both" (the moves that name both
+    ends)."""
+    out = {}
+    for (name, frm, to), n in mesh.moves.items():
+        a, b = mesh.coords(frm), mesh.coords(to)
+        ax = ("data" if a["model"] == b["model"] else
+              "model" if a["data"] == b["data"] else "both")
+        out[f"{name} {ax}"] = out.get(f"{name} {ax}", 0) + n
+    return dict(sorted(out.items()))
 
 
 def lookup_bytes(embed, mesh, bspec, B: int) -> dict:
@@ -5253,58 +5536,74 @@ def lookup_bytes(embed, mesh, bspec, B: int) -> dict:
             * embed.shards[0].element_size()}
 
 
-def sharded_lm_launches(cfg, mesh, B: int, n_tok: int, wide: bool,
+def sharded_lm_launches(cfg, mesh, n_tok: int, wide: bool,
                         policy: str) -> dict:
-    """The kernel launches of one serve-sharded-lm run: flash once per
-    layer and batch shard at prefill (the decode attention is split over
-    the cache slices in plain torch); the expert GEMM's three products per
-    layer, batch shard and expert shard — at prefill with the tiles
-    variant (C 88 at a 1,024-token group), on the experts gathered at the
-    home under ``fsdp`` with the batch whole and where they live
-    otherwise; at each decode step with the skinny variant (C 8), where
-    they live (``tp2d``: M expert shards whether or not the batch is
-    split)."""
+    """The kernel launches of one serve-sharded-lm run (the decode
+    attention is split over the cache slices in plain torch). A prefill
+    under ``fsdp`` runs flash once per layer and batch shard at its home,
+    and the expert GEMM's three products on the tiles variant per layer
+    and batch shard: on the experts gathered at the home, or, with the
+    batch split and ``moe_shard="expert"``, per expert shard where they
+    live. A prefill under ``tp2d`` with the batch split attends at every
+    position over its heads and runs its "model" block of the experts
+    (its E / M, or all of them on its d_ff / M columns): three tiles
+    products per layer and position. A decode step runs three skinny
+    products (C 8) per layer: per expert shard where they live with the
+    batch whole, per position with it split."""
     D = mesh.axis_size("data") if wide else 1
     M = mesh.axis_size("model")
     L = cfg.n_layers
-    want = {"flash_attention_fwd_wgmma": L * D}
+    pre = L * mesh.size if wide and policy == "tp2d" else L * D
+    want = {"flash_attention_fwd_wgmma": pre}
     if cfg.moe is not None:
-        pre = 1 if (policy == "fsdp" and not wide) else M
-        want["expert_gemm_wgmma"] = 3 * L * D * pre
-        want["expert_gemm_skinny"] = 3 * L * D * M * (n_tok - 1)
+        kept = wide and policy == "fsdp" and cfg.moe.moe_shard == "expert"
+        want["expert_gemm_wgmma"] = 3 * pre * (M if kept else 1)
+        want["expert_gemm_skinny"] = 3 * (L * mesh.size if wide else L * M) \
+            * (n_tok - 1)
     return want
 
 
 def phase_serve_sharded_lm(profile: bool = False):
     """serve-lm's model on a 2 × 2 ("data", "model") mesh (the first four
-    cards, or ``cuda:0`` four times), decode under ``tp2d`` with every
-    product on its weight blocks' holders and the experts where they live,
-    the KV cache placed by ``lm_cache_specs`` (``distrib/serving.py``).
-    qwen3-moe-30b-a3b at its published widths, serve-lm's 8 of 48 layers
-    and seeded bf16 weights, prefill under the reference prefill cell's
-    ``fsdp`` rules: (i) serve-lm's 2 × 4,096 prompt and 16 tokens, the
-    batch whole, the cache split along the sequence over all four
-    positions; (ii) 16 × 2,048 and 8 tokens: the batch split over "data",
-    the cache's sequence over "model". (iii) deepseek-7b at its published
-    widths, all 30 layers: 16 × 1,024 and 8 tokens, prefill under
-    ``tp2d`` too (its one-card run goes first and its caches are freed
-    before the mesh is placed). Each against the unsharded model on one
-    card: prefill logits bitwise in (i), within serve-lm's bf16
-    consistency bounds in (ii) and (iii); decode teacher-forced with the
-    unsharded run's tokens, within those bounds at every step; the greedy
-    tokens that agree printed; two runs on the mesh bitwise equal. One
-    decode step's bytes per collective and per receiving position are
-    printed: no parameter moves (no ``all_gather``; ``emb_*`` the batch's
-    ids and rows only). The launches must be :func:`sharded_lm_launches`'
-    exactly, and the inputs each kernel takes in the second mesh run (each
-    at each shape) are held against the plain versions
-    (:func:`hold_captured`). For qwen3-moe the decode tokens whose
-    top-8 experts differ from the one-card run's are counted per layer.
-    With ``profile``, the first mesh run's decode step 1 is profiled."""
+    cards, or ``cuda:0`` four times), the KV cache placed by
+    ``lm_cache_specs`` (``distrib/serving.py``). qwen3-moe-30b-a3b at its
+    published widths, serve-lm's 8 of 48 layers and seeded bf16 weights:
+    (i) serve-lm's 2 × 4,096 prompt and 16 tokens, the batch whole, the
+    cache split along the sequence over all four positions, prefill under
+    the reference prefill cell's ``fsdp`` rules, decode under ``tp2d``
+    with every product on its weight blocks' holders and the experts where
+    they live; (ii) 16 × 2,048 and 8 tokens: the batch split over "data",
+    the cache's sequence over "model", prefill under ``fsdp`` (each batch
+    shard's home gathering each layer from its group, the experts where
+    they live), decode under ``tp2d`` as the reference's partitioner
+    splits it (the column weights' "model" blocks gathered along "data",
+    the rows moved to the row blocks and the head, the sums over "model").
+    (iii) deepseek-7b at its published widths, all 30 layers: 16 × 1,024
+    and 8 tokens, prefill and decode under ``tp2d`` split as in (ii)'s
+    decode (its one-card run goes first and its caches are freed before
+    the mesh is placed). (iv) qwen3-moe as (ii) with ``moe_shard="ffn"``,
+    the prefill as (iii)'s. Each against the
+    unsharded model on one card: prefill logits bitwise in (i), within
+    serve-lm's bf16 consistency bounds in (ii)–(iv); decode teacher-forced
+    with the unsharded run's tokens, within those bounds at every step;
+    the greedy tokens that agree printed; two runs on the mesh bitwise
+    equal. The prefill's and one decode step's bytes per collective, by
+    axis and per receiving position are printed: in (i) no parameter
+    moves (no ``all_gather``; ``emb_*`` the batch's ids and rows only); in
+    (ii)–(iv) they equal :func:`serve_tp2d_bytes_want` by name (the
+    ``fsdp`` prefill of (ii) :func:`serve_fsdp_bytes_want`), the weights
+    move along "data" only and the sums along "model" only. The
+    launches must be :func:`sharded_lm_launches`' exactly, and the inputs
+    each kernel takes in the second mesh run (each at each shape) are held
+    against the plain versions (:func:`hold_captured`; timed in
+    (ii)–(iv)). For qwen3-moe the decode tokens whose top-8 experts differ
+    from the one-card run's are counted per layer. With ``profile``, the
+    first mesh run's decode step 1 is profiled."""
     import dataclasses
     import torch
     from repro_torch.config.registry import get_arch
     from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.distrib.collectives import batch_groups
     from repro_torch.distrib.serving import place_params
     from repro_torch.distrib.sharding import P, lm_param_specs
     from repro_torch.launch.mesh import Mesh
@@ -5317,10 +5616,14 @@ def phase_serve_sharded_lm(profile: bool = False):
     total = {}
     res = {"mesh": str(mesh)}
     qwen = dataclasses.replace(FULL, n_layers=LM_LAYERS)
+    ffn = dataclasses.replace(qwen, moe=dataclasses.replace(
+        qwen.moe, moe_shard="ffn"))
     cases = (("i", "qwen3-moe-30b-a3b", qwen, LM_BATCH, LM_PROMPT,
               LM_TOKENS, "fsdp"),
              ("ii", "qwen3-moe-30b-a3b", qwen, SHARD_SERVE_BATCH,
               SHARD_SERVE_PROMPT, SHARD_SERVE_TOKENS, "fsdp"),
+             ("iv", "qwen3-moe-30b-a3b", ffn, SHARD_SERVE_BATCH,
+              SHARD_SERVE_PROMPT, SHARD_SERVE_TOKENS, "tp2d"),
              ("iii", "deepseek-7b", get_arch("deepseek-7b").model,
               TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_TOKENS, "tp2d"))
     params = params_cfg = None
@@ -5353,10 +5656,10 @@ def phase_serve_sharded_lm(profile: bool = False):
             del params
             params = None
             torch.cuda.empty_cache()
+        prof = CollectiveProfiler(f"serve-sharded-lm ({tag}) decode",
+                                  profile)
         a = sharded_serve(model, cfg, params, prompt, n_tok, mesh, bspec,
-                          want["tokens"], placed=placed,
-                          prof=CollectiveProfiler(f"serve-sharded-lm ({tag}) "
-                                                  f"decode", profile))
+                          want["tokens"], placed=placed, prof=prof)
         # the second run also keeps the kernels' inputs and the routing
         with KernelCapture("serve") as cap, RouteSpy() as mesh_routes:
             b = sharded_serve(model, cfg, params, prompt, n_tok, mesh, bspec,
@@ -5366,11 +5669,17 @@ def phase_serve_sharded_lm(profile: bool = False):
         peak = torch.cuda.max_memory_allocated()
         flips = None
         if moe:
-            n_shards = mesh.shape[0] if wide else 1
+            # with the batch split every position routes its rows; the
+            # first of each batch shard's positions is read
+            homes, _ = batch_groups(mesh, bspec[0])
             flips = routing_flips(plain_routes.calls, mesh_routes.calls,
-                                  cfg.n_layers, n_shards, n_tok - 1)
+                                  cfg.n_layers,
+                                  mesh.size if wide else len(homes),
+                                  homes if wide else range(len(homes)),
+                                  n_tok - 1)
         del plain_routes, mesh_routes
-        held = hold_captured(cap.inputs, f"serve-sharded-lm ({tag})")
+        held = hold_captured(cap.inputs, f"serve-sharded-lm ({tag})",
+                             timed=wide)
         del cap
         torch.cuda.empty_cache()
         repeat = all(torch.equal(x, y) for x, y in zip(a["logits"],
@@ -5382,8 +5691,19 @@ def phase_serve_sharded_lm(profile: bool = False):
         launches = {k: v for k, v in a["launches"].items() if v}
         for k, v in a["launches"].items():
             total[k] = total.get(k, 0) + v + b["launches"][k]
-        want_launches = sharded_lm_launches(cfg, mesh, B, n_tok, wide,
-                                            policy)
+        want_launches = sharded_lm_launches(cfg, mesh, n_tok, wide, policy)
+        want_bytes = None
+        if wide:
+            want_bytes = {"decode": serve_tp2d_bytes_want(
+                cfg, mesh.shape, B, S, "decode", group, S + n_tok,
+                want["tokens"][0].element_size())}
+            want_bytes["prefill"] = (
+                serve_tp2d_bytes_want(cfg, mesh.shape, B, S, "prefill",
+                                      group, S + n_tok,
+                                      prompt.element_size())
+                if policy == "tp2d" else
+                serve_fsdp_bytes_want(cfg, mesh.shape, B, S, group,
+                                      S + n_tok))
         pre = lm_roofline(cfg, "prefill", B, S)
         dec = lm_roofline(cfg, "decode", B, S + n_tok // 2)
         dec_step = a["decode_s"] / (n_tok - 1)
@@ -5401,6 +5721,12 @@ def phase_serve_sharded_lm(profile: bool = False):
             f"{a['decode_bytes']}; one decode step {step} = "
             f"{sum(step.values())} B, received per position "
             f"{a['step_received']}; launches {launches}")
+        say(f"  serve-sharded-lm ({tag}) bytes by name and axis (the moves "
+            f"that name both ends): prefill {a['prefill_axes']}; one decode "
+            f"step {a['step_axes']}"
+            + (f"; formula (serve_{policy}_bytes_want): prefill "
+               f"{want_bytes['prefill']}, decode step (serve_tp2d_bytes_"
+               f"want) {want_bytes['decode']}" if wide else ""))
         say(f"  serve-sharded-lm ({tag}) against one card: prefill logits "
             f"bitwise {torch.equal(a['logits'][0], want['logits'][0])}, "
             f"max |diff| per step {[round(d['max_abs'], 6) for d in diffs]}"
@@ -5433,12 +5759,26 @@ def phase_serve_sharded_lm(profile: bool = False):
                       f"differ")
         check(all(bool(torch.isfinite(x.float()).all()) for x in a["logits"]),
               f"serve-sharded-lm ({tag}): non-finite logits")
-        check(set(step) <= TP_ACTIVATIONS and step.get("tp_act", 0) > 0,
-              f"serve-sharded-lm ({tag}): a decode step moved {step}, not "
-              f"activations only")
-        check(all(step[k] == v for k, v in a["lookup_bytes"].items()),
-              f"serve-sharded-lm ({tag}): the lookup moved {step}, not "
-              f"the batch's ids and rows {a['lookup_bytes']}")
+        if wide:
+            check(a["prefill_bytes"] == want_bytes["prefill"]
+                  and step == want_bytes["decode"],
+                  f"serve-sharded-lm ({tag}): bytes {a['prefill_bytes']}, "
+                  f"{step}, expected {want_bytes}")
+            for axes in (a["prefill_axes"], a["step_axes"]):
+                check(all(k.endswith(" data") for k in axes
+                          if k.split()[0] in TP_WEIGHT_MOVES)
+                      and all(k.endswith(" model") for k in axes
+                              if k.split()[0] in TP_SUM_MOVES),
+                      f"serve-sharded-lm ({tag}): weights off \"data\" or "
+                      f"sums off \"model\": {axes}")
+        else:
+            check(set(step) <= TP_ACTIVATIONS
+                  and step.get("tp_act", 0) > 0,
+                  f"serve-sharded-lm ({tag}): a decode step moved {step}, "
+                  f"not activations only")
+            check(all(step[k] == v for k, v in a["lookup_bytes"].items()),
+                  f"serve-sharded-lm ({tag}): the lookup moved {step}, not "
+                  f"the batch's ids and rows {a['lookup_bytes']}")
         for run in (a, b):
             got = {k: v for k, v in run["launches"].items() if v}
             check(got == want_launches,
@@ -5459,6 +5799,8 @@ def phase_serve_sharded_lm(profile: bool = False):
                         one_card_decode_ms_per_step=want["decode_s"]
                         / (n_tok - 1) * 1e3,
                         prefill_bytes=a["prefill_bytes"],
+                        prefill_bytes_by_axis=a["prefill_axes"],
+                        decode_step_bytes_by_axis=a["step_axes"],
                         decode_bytes=a["decode_bytes"],
                         decode_step_bytes=step,
                         decode_step_received=a["step_received"],
@@ -5469,7 +5811,8 @@ def phase_serve_sharded_lm(profile: bool = False):
                         tokens_agree=agree, repeat_bitwise=repeat,
                         routing_flips_per_layer=flips, kernels_held=held,
                         peak_bytes=peak, roofline_prefill=pre,
-                        roofline_decode_step=dec)
+                        roofline_decode_step=dec,
+                        decode_profile=prof.record or None)
         del want, a, b
         torch.cuda.empty_cache()
     del params

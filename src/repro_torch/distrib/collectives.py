@@ -12,7 +12,8 @@ under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``, ``tp_act``,
 ``tp_partial``, ``tp_grad_act``, ``tp_grad_partial``, ``xent_stats``,
 ``tp_zero_gather``, ``tp_zero_scatter``, ``tp_model_sum``,
-``tp_heads_gather``, ``expert_gather``, ``sparse_allreduce``,
+``tp_heads_gather``, ``expert_gather``, ``tp_rows_gather``,
+``tp_rows_scatter``, ``tp_logits_gather``, ``sparse_allreduce``,
 ``hierarchical_psum``), and, where it names both ends, under its source and
 receiver (``Mesh.moves``), so a dry run can read the collective bytes from
 the mesh.
@@ -34,13 +35,14 @@ table is never gathered whole; a table split on its rows and its columns
 With ``grad=False`` (the sharded serving steps under ``fsdp``) a view reads
 the shards as they are.
 
-Serving under ``tp2d`` moves no parameter (:class:`StationaryView`,
-:class:`Rows`, :func:`block_matmul`): the activations of every batch shard
-stay at its home as :class:`Rows`, each product runs on the positions that
-hold the weight's blocks, and :func:`each` runs the rest of the model at
-each home. ``block_matmul``'s backward and :func:`vocab_parallel_xent` (the
-loss over a head whose blocks stay where they lie, only per-row statistics
-sent home) differentiate that pattern; no step calls them now.
+Serving under ``tp2d`` with the batch whole moves no parameter
+(:class:`StationaryView`, :class:`Rows`, :func:`block_matmul`): the
+activations stay at the home as :class:`Rows`, each product runs on the
+positions that hold the weight's blocks, and :func:`each` runs the rest of
+the model at the home. ``block_matmul``'s backward and
+:func:`vocab_parallel_xent` (the loss over a head whose blocks stay where
+they lie, only per-row statistics sent home) differentiate that pattern;
+no step calls them now.
 
 The train step under ``tp2d`` splits the work as the reference's
 partitioner does, Megatron over "model" × ZeRO over "data" (:class:`TPView`,
@@ -52,7 +54,14 @@ reduce-scatter, ``tp_zero_scatter``) and multiplies there; a row block's
 partial products, and a column block's dX partials, are summed over
 "model" in f32 and rounded once (``tp_model_sum``); the heads and the
 experts split over "model" (``tp_heads_gather``, ``expert_gather``), and
-the loss's per-row statistics cross "model" (``xent_stats``).
+the loss's per-row statistics cross "model" (``xent_stats``). Serving under
+``tp2d`` with the batch split reads the same views without gradients
+(:meth:`TPView.serving`) and splits as the reference's partitioner splits
+its jitted prefill and decode: where a weight splits over "data" on its
+output dimension only (a decode step's ``wo`` / ``wd``, the untied head)
+the rows move to its blocks instead of the blocks to the rows
+(:func:`tp_rows_linear`: ``tp_rows_gather``, ``tp_model_sum``,
+``tp_rows_scatter``).
 
 A graph whose edge arrays are split into blocks (the GNNs' edge sharding)
 folds its per-block partial sums in block order (:func:`edge_psum`), reads
@@ -84,7 +93,8 @@ SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "edge_gather", "edge_scatter", "emb_ids", "emb_rows", "emb_grad",
          "tp_act", "tp_partial", "tp_grad_act", "tp_grad_partial",
          "xent_stats", "tp_zero_gather", "tp_zero_scatter", "tp_model_sum",
-         "tp_heads_gather", "expert_gather")
+         "tp_heads_gather", "expert_gather", "tp_rows_gather",
+         "tp_rows_scatter", "tp_logits_gather")
 span = torch.profiler.record_function
 
 
@@ -326,13 +336,14 @@ class _Lookup(torch.autograd.Function):
 
 
 class Blocks(NamedTuple):
-    """A leaf split along dimension 0 into equal blocks, each on the
-    device of the mesh position that holds it; ``home`` is the position
-    whose batch shard uses them."""
+    """A leaf split along dimension ``dim`` (0 unless said) into equal
+    blocks, each on the device of the mesh position that holds it;
+    ``home`` is the position whose batch shard uses them."""
     parts: List[torch.Tensor]
     positions: List[int]
     home: int
     mesh: object
+    dim: int = 0
 
 
 class ShardView:
@@ -521,18 +532,21 @@ class StationaryView:
 
     def part(self, home: int):
         """The leaf as the batch shard at ``home`` reads it without a move:
-        the home's own copy of a leaf it holds whole, or a leaf split along
-        dimension 0 only (an expert weight) as :class:`Blocks` on the
-        positions that serve them."""
+        the home's own copy of a leaf it holds whole, or a 3-D leaf split
+        along one dimension (an expert weight: along its experts, or along
+        d_ff under ``moe_shard="ffn"``) as :class:`Blocks` on the positions
+        that serve them."""
         lay = self.x.layout
         if all(c == 1 for c in lay.counts):
             return self.leaves[home]
-        if self.transposed or any(c != 1 for c in lay.counts[1:]):
-            raise ValueError(f"{self.x!r} is split past dim 0: read it "
-                             f"through block_matmul or take_rows")
+        split = [i for i, c in enumerate(lay.counts) if c != 1]
+        if self.transposed or len(split) != 1 or len(lay.counts) != 3:
+            raise ValueError(f"{self.x!r} is not an expert weight split "
+                             f"along one dimension: read it through "
+                             f"block_matmul or take_rows")
         pos = [self.holder(b, home) for b in lay.blocks()]
         return Blocks([self.leaves[p] for p in pos], pos, home,
-                      self.x.mesh)
+                      self.x.mesh, split[0])
 
     def take_rows(self, ids: Rows) -> Rows:
         """``sparse.segment.take_rows`` of the (n, e) table at each batch
@@ -1148,14 +1162,51 @@ class TPView(StationaryView):
     twice."""
 
     def __init__(self, x: ShardedTensor, groups: Sequence[Sequence[int]],
-                 transposed: bool = False, leaves=None):
+                 transposed: bool = False, leaves=None,
+                 move_rows: bool = False):
         super().__init__(x, transposed, grad=leaves is None, leaves=leaves)
         self.groups = tuple(tuple(g) for g in groups)
         self.shard = {p: d for d, g in enumerate(self.groups) for p in g}
+        self.move_rows = move_rows
 
     @property
     def T(self) -> "TPView":
-        return TPView(self.x, self.groups, not self.transposed, self.leaves)
+        return TPView(self.x, self.groups, not self.transposed, self.leaves,
+                      self.move_rows)
+
+    @classmethod
+    def serving(cls, x: ShardedTensor, groups: Sequence[Sequence[int]],
+                step: str, head: bool = False) -> "TPView":
+        """A view that reads the shards as they are (no leaf takes
+        gradients), for a serving ``step`` ("prefill" or "decode") with the
+        batch split over ``groups``. As the reference's HLO splits them, a
+        decode step moves the rows to every weight split over the batch
+        axes on its output dimension only, and a prefill only to the
+        ``head``'s, whose product takes the last rows (:meth:`gathers`);
+        every other product gathers its weight."""
+        if step not in ("prefill", "decode"):
+            raise ValueError(f"TPView.serving: unknown step {step!r}")
+        return cls(x, groups, leaves=list(x.shards),
+                   move_rows=step == "decode" or head)
+
+    def gathers(self) -> bool:
+        """Whether a product with this (n_in, n_out) weight gathers the
+        weight along the batch axes (:func:`tp_linear`) rather than moving
+        the rows to its blocks (:func:`tp_rows_linear`): unless
+        ``move_rows``, always; with it, where the input dimension is split
+        over an axis other than "model" or no dimension is."""
+        axes = self.x.layout.axes[::-1] if self.transposed \
+            else self.x.layout.axes
+        batch = [a for dim in axes for a in dim if a != "model"]
+        return (not self.move_rows or not batch
+                or any(a != "model" for a in axes[0]))
+
+    def splits_output(self) -> bool:
+        """Whether a product with this (n_in, n_out) weight leaves each
+        position its "model" block of the output columns: the weight
+        gathered (:meth:`gathers`) and a column block (:meth:`kind`). Moved
+        rows come back whole."""
+        return self.gathers() and self.kind() == "column"
 
     @property
     def by_model(self) -> bool:
@@ -1391,6 +1442,93 @@ def tp_linear(x: Rows, w: TPView, dtype: torch.dtype,
     return each(lambda t, b: t + b.to(dtype), y, bias)
 
 
+def tp_rows_linear(x: Rows, w: TPView, dtype: torch.dtype) -> Rows:
+    """``x @ w.to(dtype)`` for every position's rows with the weight's
+    blocks where they lie, the rows moved to them (serving only: no
+    backward), as the reference's partitioner runs a decode step's row
+    blocks (``wo``, ``wd``) and the head with the batch split: each
+    position gathers, along the batch axes, every batch shard's rows of
+    the input entries its block contracts (``tp_rows_gather``: the rows of
+    the positions with its coordinates on the other axes, in batch order)
+    and multiplies them by its block; where the input dimension splits
+    over "model", the f32 partials are summed over "model" in ascending
+    "model" coordinate and rounded once to ``dtype`` (``tp_model_sum``);
+    each position then takes its own batch shard's rows of every column
+    block from a position that made it (``tp_rows_scatter``: itself, else
+    one on its batch line, else the first), joined in ascending column
+    block. On one position it is ``x @ w.to(dtype)`` bit for bit."""
+    mesh, homes = x.mesh, list(x.homes)
+    at = {h: i for i, h in enumerate(homes)}
+    lay = w.x.layout
+    D_in, D_out = w.counts
+    n_in, n_out = w.shape
+    if sorted(homes) != list(range(mesh.size)):
+        raise ValueError("tp_rows_linear: the rows must lie at every "
+                         "position")
+    if x.shape[-1] * D_in != n_in:
+        raise ValueError(f"tp_rows_linear: rows of width {x.shape[-1]} for "
+                         f"{D_in} input blocks of {n_in}")
+
+    def block(pos):
+        b = lay.block_of(pos)
+        return tuple(b[::-1]) if w.transposed else tuple(b)
+
+    # each position's batch line: the positions with its coordinates on the
+    # axes the batch does not split, one per batch shard, in batch order
+    index = {p: g.index(p) for g in w.groups for p in g}
+    lines = {p: [g[index[p]] for g in w.groups] for p in homes}
+    R = x.shape[0]
+    ys = []
+    for p in homes:
+        got = []
+        with span("tp_rows_gather"):
+            for q in lines[p]:
+                t = x.parts[at[q]]
+                with mesh.at(p), mesh.moving():
+                    if q != p:
+                        mesh.count("tp_rows_gather", _nbytes(t), frm=q, to=p)
+                    got.append(t.to(mesh.device(p)))
+            with mesh.at(p):
+                xa = got[0] if len(got) == 1 else torch.cat(got)
+        with mesh.at(p):
+            blk = w.block_at(p).to(dtype)
+            if D_in > 1:     # f32 partials, summed over "model"
+                y = _mm(xa.reshape(-1, xa.shape[-1]), blk, torch.float32)
+                ys.append(y.reshape(*xa.shape[:-1], y.shape[-1]))
+            else:
+                ys.append(xa @ blk)
+        del got, xa
+    if D_in > 1:
+        for group in _axis_groups(mesh, "model"):
+            if len({block(p)[1] for p in group}) != 1:
+                raise ValueError(f"tp_rows_linear: the positions {group} "
+                                 f"hold different column blocks of {w.x!r}")
+        ys = _model_allreduce(mesh, homes, ys, dtype)
+    # after the sum every position holds its column block for all the rows
+    made: Dict[int, List[int]] = {}
+    for p in homes:
+        made.setdefault(block(p)[1], []).append(p)
+    out = []
+    with span("tp_rows_scatter"):
+        for p in homes:
+            d = w.shard[p]
+            pieces = []
+            for j in range(D_out):
+                srcs = made[j]
+                q = (p if p in srcs else
+                     next((r for r in lines[p] if r in srcs), srcs[0]))
+                t = ys[at[q]][d * R:(d + 1) * R]
+                with mesh.at(p), mesh.moving():
+                    if q != p:
+                        mesh.count("tp_rows_scatter", _nbytes(t), frm=q,
+                                   to=p)
+                    pieces.append(t.to(mesh.device(p)))
+            with mesh.at(p):
+                out.append(pieces[0] if len(pieces) == 1
+                           else torch.cat(pieces, -1))
+    return Rows(out, homes, mesh)
+
+
 class _TPMatmul(torch.autograd.Function):
     """:func:`tp_linear`'s products; the inputs are every position's rows,
     then its gathered weight."""
@@ -1405,7 +1543,9 @@ class _TPMatmul(torch.autograd.Function):
         for x, w, h in zip(xs, ws, homes):
             with mesh.at(h):
                 xf = x.reshape(-1, x.shape[-1])
-                ys.append(_mm(xf, w, pd))
+                # x as it is where it can: a strided view of the rows (the
+                # last position's) multiplies as the one-device product does
+                ys.append(x @ w if pd == x.dtype else _mm(xf, w, pd))
             flats.append(xf)
         if row:
             ys = _model_allreduce(mesh, homes, ys, dtype)
@@ -1685,7 +1825,7 @@ def model_take(x: Rows, ranges: Sequence[Tuple[int, int]],
 
 
 def split_heads(q: Rows, k: Rows, v: Rows, n_heads: int, n_kv: int,
-                hd: int):
+                hd: int, whole: bool = False):
     """The attention heads over "model", from the column blocks of q, k
     and v (B, S, width) each position's column products made, RoPE not
     yet applied. With H and KV both divisible by the "model" size M each
@@ -1693,27 +1833,50 @@ def split_heads(q: Rows, k: Rows, v: Rows, n_heads: int, n_kv: int,
     h → h // G stays within the block). With only H divisible, q stays
     split and each position takes, from k and v gathered along "model",
     the key-value head its query heads use (``tp_heads_gather``; their
-    gradients summed back over the positions that took them). Otherwise q,
-    k and v are gathered along "model" and every position attends over
-    all heads; ``own`` then takes each position's column block of the
-    attention output for its row block of the output projection (the
-    gradients gathered back along "model"). Returns (q, k, v, own)."""
+    gradients summed back over the positions that took them). Otherwise,
+    or with ``whole`` (a decode step: every position attends over all
+    heads, each over its slice of the cache), q, k and v are gathered along
+    "model" and every position attends over all heads; ``own`` then takes
+    each position's column block of the attention output for its row block
+    of the output projection (the gradients gathered back along "model").
+    Returns (q, k, v, own)."""
     M = _model_size(q.mesh)
     if M == 1 or q.shape[-1] == n_heads * hd:
         return q, k, v, None
-    if n_heads % M == 0 and n_kv % M == 0:
+    branch = kv_heads(q.mesh, 0, n_heads, n_kv, whole)[2]
+    if branch == "split":
         return q, k, v, None
-    G = n_heads // n_kv
-    per = n_heads // M
-    if n_heads % M == 0 and G % per == 0:
+    if branch == "take":
         ranges = []
         for h in q.homes:
-            j = _model_of(q.mesh, h) * per // G
-            ranges.append((j * hd, (j + 1) * hd))
+            lo, hi, _ = kv_heads(q.mesh, h, n_heads, n_kv)
+            ranges.append((lo * hd, hi * hd))
         return (q, model_take(k, ranges, "tp_heads_gather"),
                 model_take(v, ranges, "tp_heads_gather"), None)
     q, k, v = (model_gather(t, -1, "tp_heads_gather") for t in (q, k, v))
     return q, k, v, lambda o: model_slice(o, -1, "tp_heads_gather")
+
+
+def kv_heads(mesh, pos: int, n_heads: int, n_kv: int, whole: bool = False
+             ) -> Tuple[int, int, str]:
+    """The key-value heads [lo, hi) that position ``pos`` attends with
+    after :func:`split_heads` (whose column blocks split the heads over
+    "model"), and the branch it takes: "split" (H and KV both divide over
+    the M "model" positions), "take" (only H does, and each position's
+    query heads share one key-value head) or "gather" (all heads)."""
+    M = _model_size(mesh)
+    m = _model_of(mesh, pos)
+    G = n_heads // n_kv
+    per = n_heads // M
+    if whole or M == 1:
+        return 0, n_kv, "gather"
+    if n_heads % M == 0 and n_kv % M == 0:
+        w = n_kv // M
+        return m * w, (m + 1) * w, "split"
+    if n_heads % M == 0 and G % per == 0:
+        j = m * per // G
+        return j, j + 1, "take"
+    return 0, n_kv, "gather"
 
 
 def tp_vocab_xent(hidden: Rows, head: TPView, labels: Rows) -> Rows:

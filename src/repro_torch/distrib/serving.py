@@ -4,25 +4,46 @@ KV cache placed by ``lm_cache_specs``.
 
 The reference's prefill and decode cells are ``jax.jit`` over
 ``model.prefill`` / ``model.decode_step`` with ``in_shardings`` from the
-same rules; XLA's SPMD partitioner then runs each product where the weight
-blocks lie and moves activations (Megatron's split under ``tp2d``, which
-the reference keeps for decode because per-token parameter gathers would
-destroy latency). The single-controller mesh has no partitioner, so these
-steps say where each piece of work runs. The batch splits over the batch
-axes of ``batch_spec`` (one batch shard when the spec leaves it whole);
-batch shard d's activations live on its home position.
+same rules; XLA's SPMD partitioner then decides what moves. Its compiled
+HLO (read by ``tests/test_torch_tp_serve.py::
+test_tp2d_serving_splits_as_the_reference_jitted_steps``) splits a
+``tp2d`` step by the batch's layout, and so do these steps. The
+single-controller mesh has no partitioner, so they say where each piece
+of work runs.
 
-* Under ``tp2d`` no parameter moves: the model gets a
+* The batch split over the batch axes of ``batch_spec`` (decode_32k,
+  prefill_32k): Megatron over "model" × ZeRO over "data", the ``tp2d``
+  train step's split at serving time. Every position holds its batch
+  shard's rows (``Rows`` over all the positions) and the model gets a
+  ``collectives.TPView`` of every leaf (no gradients). A product gathers
+  its weight's "model" block along "data" (``tp_zero_gather``) and
+  multiplies there; a row block's f32 partials are summed over "model"
+  (``tp_model_sum``). Where the weight splits over "data" on its output
+  dimension only — a decode step's ``wo`` and ``wd`` and the untied head,
+  in a prefill the head alone (its last rows) — the rows move instead, as
+  the HLO shows: each position gathers the batch's rows along "data"
+  (``tp_rows_gather``), multiplies them by its block where it lies, sums
+  over "model" and takes its batch shard's rows of the other column
+  blocks (``tp_rows_scatter``). ``embed`` is looked up where its blocks
+  lie by each batch shard's first position, which delivers the rows to
+  its group (``emb_ids``, ``emb_rows``); the tied head's vocab blocks are
+  joined over "model" (``tp_logits_gather``). A prefill splits the heads
+  over "model" as the train step does (``tp_heads_gather`` where they do
+  not divide); a decode step gathers q, k and v whole along "model"
+  (``tp_heads_gather``). The experts split over "model" (E / M each,
+  ``expert_gather``, or every expert's d_ff / M, summed over "model").
+  Each layer's gathered blocks live only while its product runs.
+* The batch whole (long_500k): no parameter moves. The model gets a
   ``collectives.StationaryView`` of every placed leaf and the tokens of
-  every batch shard as ``collectives.Rows``. Each product runs on the
-  positions that hold the weight's blocks, on the rows of every batch
-  shard at once (``collectives.block_matmul``: the activations go to the
-  holders as ``tp_act``, the partial products come back as
-  ``tp_partial``), ``embed`` is looked up where its blocks lie
-  (``emb_ids``, ``emb_rows``; the tied head multiplies by its transposed
-  blocks), and the experts stay where they live whether or not the batch
-  is split (``expert_send``). The norms, RoPE, attention and the residual
-  stream run at each home.
+  the batch as ``collectives.Rows`` at its home. Each product runs on the
+  positions that hold the weight's blocks (``collectives.block_matmul``:
+  the activations go to the holders as ``tp_act``, the partial products
+  come back as ``tp_partial``), ``embed`` is looked up where its blocks
+  lie (``emb_ids``, ``emb_rows``; the tied head multiplies by its
+  transposed blocks), and the experts stay where they live
+  (``expert_send``: the dispatch buffer's slices to the experts, or the
+  whole buffer to each d_ff block). The norms, RoPE, attention and the
+  residual stream run at the home.
 * Under ``fsdp`` (prefill) each batch shard runs ``model.prefill`` at its
   home over parameters *stored* by their specs and gathered layer by layer
   there (``ShardView`` / ``local``, read-only here; ``all_gather``), the
@@ -33,19 +54,27 @@ The KV cache is a pair of ``ShardedTensor`` s (L, B, S, KV, hd) placed by
 ``lm_cache_specs``: ``P(None, ba, "model", None, None)`` for B ≥ the
 production batch shards, else ``P(None, None, (*ba, "model"), None,
 None)``, the flash-decoding layout. The cache is never gathered whole:
-the prefill sends each block of its cache to the position that holds it
-(``cache_scatter``); a decode step writes the new token's keys and values
-in place into the one slice that holds position ``cache_len``
-(``kv_write``), sends the query to every slice of its batch shard
-(``q_send``), where ``layers.decode_attention_partial`` gives the
-slice's unnormalised (m, l, o), and adds the partials back at the home
-(``attn_partial``) in ascending slice order with the log-sum-exp rescale
-(``layers.combine_attention_partials``). Every move is counted in
-``mesh.bytes`` under the name in parentheses; the logits come to position
-0 (``logits_gather``). The split attention and the block products sum in
-another order than one device, so decode logits (and ``tp2d`` prefill
-logits) differ from one device's by rounding; under ``fsdp`` with one
-batch shard the prefill is one device's bit for bit.
+the prefill copies each head's part of each block of its cache to the
+position that holds the block (``cache_scatter``: from the batch shard's
+home, or, with the batch split, from the position of its group that
+computed that head). With the batch split, each position writes a decode
+step's keys and values into its own block where its sequence slice holds
+``cache_len`` and attends over its slice with all heads; the slices'
+(m, l, o) cross "model" (``attn_partial``) and every position adds them in
+ascending slice order with the log-sum-exp rescale
+(``layers.combine_attention_partials``). With it whole, a step writes the
+new token's keys and values in place into the one slice that holds
+position ``cache_len`` (``kv_write``), sends the query to every slice
+(``q_send``), where ``layers.decode_attention_partial`` gives the slice's
+unnormalised (m, l, o), and adds the partials back at the home
+(``attn_partial``) the same way. Every move is counted in ``mesh.bytes``
+under the name in parentheses (and, where it names both ends, in
+``mesh.moves``); the logits come to position 0 (``logits_gather``). The
+split attention and the block products sum in another order than one
+device, so decode logits (and ``tp2d`` prefill logits) differ from one
+device's by rounding; on one position the split path is the model's own
+prefill and decode step bit for bit, and under ``fsdp`` with one batch
+shard the prefill is one device's bit for bit.
 
 BST's serve cells (:func:`make_sharded_click`, :func:`make_sharded_retrieval`)
 take the per-batch-shard shape of ``fsdp``: the forward per batch shard at
@@ -60,7 +89,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.distrib.collectives import (Rows, ShardView, StationaryView,
-                                             batch_groups, send)
+                                             TPView, batch_groups, kv_heads,
+                                             send)
 from repro_torch.distrib.sharding import (Layout, ShardedTensor, device_put,
                                           map_with_specs)
 from repro_torch.models import layers as L
@@ -108,22 +138,56 @@ def _to_position_0(mesh, parts: List[torch.Tensor], homes: List[int]
         out = []
         for t, h in zip(parts, homes):
             if h != 0:
-                mesh.count("logits_gather", _nbytes(t), to=0)
+                mesh.count("logits_gather", _nbytes(t), to=0, frm=h)
             out.append(t.to(dev0))
         return torch.cat(out, dim=0)
 
 
-def place_cache(mesh, spec, parts: List[Tuple[torch.Tensor, torch.Tensor]],
-                homes: List[int], capacity: int) -> Cache:
-    """The batch shards' prefill caches (each (L, B/D, S, KV, hd) at its
-    home, in batch order) as a cache of ``capacity`` ≥ S positions laid out
-    by ``spec``: each position's block allocated there, zeros past S,
-    the prompt's part copied from the home that computed it."""
-    k0 = parts[0][0]
-    Lyr, Bd, S, KV, hd = k0.shape
+def _split(batch_spec) -> bool:
+    """Whether ``batch_spec`` splits the batch over mesh axes."""
+    return len(batch_spec) > 0 and batch_spec[0] is not None
+
+
+def _tp_views(params, groups, step: str) -> Any:
+    """``collectives.TPView.serving`` views of every placed leaf for a
+    serving ``step`` with the batch split over ``groups``."""
+    def views(key, tree):
+        return tree_map(lambda x: TPView.serving(x, groups, step,
+                                                 head=key == "head")
+                        if isinstance(x, ShardedTensor) else x, tree)
+    return {k: views(k, v) for k, v in params.items()}
+
+
+def _all_rows(mesh, t: torch.Tensor, groups) -> Rows:
+    """``t``'s rows cut into one equal batch shard per group, each copied
+    to every position of its group: ``Rows`` over all the positions."""
+    Bd = t.shape[0] // len(groups)
+    parts = [None] * mesh.size
+    for d, group in enumerate(groups):
+        for pos in group:
+            with mesh.at(pos):
+                parts[pos] = t[d * Bd:(d + 1) * Bd].to(mesh.device(pos))
+    return Rows(parts, list(range(mesh.size)), mesh)
+
+
+def place_cache(mesh, spec, parts, capacity: int) -> Cache:
+    """The batch shards' prefill caches as a cache of ``capacity`` ≥ S
+    positions laid out by ``spec``. ``parts[d]`` lists where batch shard
+    d's keys and values lie, as ``(position, first key-value head, k,
+    v)`` with k and v (L, B/D, S, heads, hd) (one entry at the shard's
+    home holding every head, or one per position of its group holding its
+    heads under ``tp2d`` with the batch split). Each position's block is
+    allocated there, zeros past S, and each head's part of the prompt is
+    copied from the position itself where it holds that head, else from
+    the first that does (``cache_scatter``)."""
+    _, _, k0, _ = parts[0][0]
+    Lyr, Bd, S, _, hd = k0.shape
+    KV = max(lo + k.shape[3] for _, lo, k, _ in parts[0])
     shape = (Lyr, Bd * len(parts), capacity, KV, hd)
     lay = Layout(mesh, spec, shape)
     Bb, Sb = lay.block_shape[1], lay.block_shape[2]
+    if lay.block_shape[3:] != (KV, hd):
+        raise ValueError(f"cache spec {spec!r} splits the heads")
     out = ([], [])
     for pos in range(mesh.size):
         block = lay.block_of(pos)
@@ -133,18 +197,46 @@ def place_cache(mesh, spec, parts: List[Tuple[torch.Tensor, torch.Tensor]],
             raise ValueError(f"cache block rows {b0}..{b0 + Bb - 1} span "
                              f"two batch shards of {Bd} rows")
         r0, s1 = b0 - d * Bd, min(s0 + Sb, S)
+        srcs = sorted(parts[d], key=lambda e: e[0] != pos)
         for which in (0, 1):
             with mesh.at(pos), mesh.moving():
                 blk = torch.zeros(lay.block_shape, dtype=k0.dtype,
                                   device=mesh.device(pos))
-                if s1 > s0:
-                    src = parts[d][which][:, r0:r0 + Bb, s0:s1]
-                    if pos != homes[d]:
-                        mesh.count("cache_scatter", _nbytes(src), to=pos)
-                    blk[:, :, :s1 - s0].copy_(src)
+                h = 0
+                while s1 > s0 and h < KV:
+                    frm, lo, *kv = next(e for e in srcs
+                                        if e[1] <= h < e[1] + e[2].shape[3])
+                    t = kv[which]
+                    hi = lo + t.shape[3]
+                    src = t[:, r0:r0 + Bb, s0:s1, h - lo:]
+                    if frm != pos:
+                        mesh.count("cache_scatter", _nbytes(src), to=pos,
+                                   frm=frm)
+                    blk[:, :, :s1 - s0, h:hi].copy_(src)
+                    h = hi
             out[which].append(blk)
     return (ShardedTensor(lay, k0.dtype, out[0]),
             ShardedTensor(lay, k0.dtype, out[1]))
+
+
+def _prefill_split(model, mesh, groups, params, tokens):
+    """A ``tp2d`` prefill with the batch split (see the module's
+    docstring): the logits at each batch shard's home, and per batch
+    shard the positions of its group with the key-value heads each
+    computed."""
+    cfg = model.cfg
+    lg, (ks, vs) = model.prefill(_tp_views(params, groups, "prefill"),
+                                 _all_rows(mesh, tokens, groups))
+    parts = []
+    for group in groups:
+        mine = []
+        for pos in group:
+            k = ks.parts[pos]
+            lo = (0 if k.shape[3] == cfg.n_kv_heads else
+                  kv_heads(mesh, pos, cfg.n_heads, cfg.n_kv_heads)[0])
+            mine.append((pos, lo, k, vs.parts[pos]))
+        parts.append(mine)
+    return [lg.parts[g[0]] for g in groups], parts
 
 
 def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
@@ -152,8 +244,9 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
                          policy: str = "fsdp") -> Callable:
     """``prefill(params, tokens) → (logits, (k_cache, v_cache))``:
     ``model.prefill`` over ``params`` placed by the ``policy`` rules
-    (:func:`place_params`) — under ``tp2d`` over every batch shard at once
-    with the weights where they lie, under ``fsdp`` once per batch shard at
+    (:func:`place_params`) — under ``tp2d`` over every batch shard at once,
+    the weights gathered along the batch axes with the batch split and
+    where they lie with it whole, under ``fsdp`` once per batch shard at
     its home with each layer gathered there — the logits (B, 1, V) on
     position 0 and the cache placed by ``cache_spec`` with room for
     ``capacity`` positions (default: the prompt's)."""
@@ -169,28 +262,102 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
             raise ValueError(f"batch {B} does not split over {D} shards")
         Bd = B // D
         with torch.no_grad():
-            if policy == "tp2d":
+            if policy == "tp2d" and _split(batch_spec):
+                logits, parts = _prefill_split(model, mesh, groups, params,
+                                               tokens)
+            elif policy == "tp2d":
                 lg, (ks, vs) = model.prefill(_stationary(params),
                                              _rows(mesh, tokens, homes))
-                logits, caches = lg.parts, list(zip(ks.parts, vs.parts))
+                logits = lg.parts
+                parts = [[(h, 0, k, v)]
+                         for h, k, v in zip(homes, ks.parts, vs.parts)]
                 del ks, vs
             else:
-                logits, caches = [], []
+                logits, parts = [], []
                 for d in range(D):
                     home = homes[d]
                     with mesh.at(home):
                         views = _views(params, home, groups[d])
                         tok = tokens[d * Bd:(d + 1) * Bd].to(
                             mesh.device(home))
-                        lg, kv = model.prefill(views, tok)
+                        lg, (k, v) = model.prefill(views, tok)
                     logits.append(lg)
-                    caches.append(kv)
-            cache = place_cache(mesh, cache_spec, caches, homes,
+                    parts.append([(home, 0, k, v)])
+            cache = place_cache(mesh, cache_spec, parts,
                                 S if capacity is None else capacity)
-            del caches
+            del parts
             return _to_position_0(mesh, logits, homes), cache
 
     return prefill
+
+
+def _attend_split(model, mesh, groups, lay) -> Callable:
+    """A decode step's attention with the batch split and every position
+    holding all heads (``TPView`` s): each position writes the new token's
+    keys and values into its block of the cache where its sequence slice
+    holds ``cache_len`` and attends over its slice; the slices' (m, l, o)
+    cross "model" (``attn_partial``) and every position adds them in
+    ascending slice order with the log-sum-exp rescale. A cache whose
+    sequence is not split is :meth:`TransformerLM._cache_attend`'s."""
+    cd = model.compute_dtype
+    shard = {p: d for d, g in enumerate(groups) for p in g}
+    Bb, Sb = lay.block_shape[1], lay.block_shape[2]
+    # each position's slice group: the positions holding its cache block's
+    # rows, in ascending sequence slice
+    key, slices = {}, {}
+    for pos in range(mesh.size):
+        block = lay.block_of(pos)
+        if block[1] != shard[pos] or Bb * len(groups) != lay.shape[1]:
+            raise ValueError(f"cache {lay.spec!r}: position {pos} holds "
+                             f"batch block {block[1]}, not its batch shard "
+                             f"{shard[pos]}")
+        key[pos] = block[:2] + block[3:]
+        slices.setdefault(key[pos], []).append((block[2], pos))
+    order = {pos: [p for _, p in sorted(slices[key[pos]])]
+             for pos in range(mesh.size)}
+
+    def attend(i, q, k, v, cache, n):
+        ks, vs = cache
+        parts = {}
+        for pos in range(mesh.size):
+            s = lay.block_of(pos)[2]
+            with mesh.at(pos):
+                if s * Sb <= n < (s + 1) * Sb:
+                    for src, kv in ((k, ks), (v, vs)):
+                        kv.shards[pos][i, :, n - s * Sb].copy_(
+                            src.parts[pos][:, 0].to(kv.dtype))
+                kc = ks.shards[pos][i].to(cd)
+                vc = vs.shards[pos][i].to(cd)
+                qp = q.parts[pos]
+                if len(order[pos]) == 1:
+                    parts[pos] = L.decode_attention(
+                        qp, kc, vc, cache_len=torch.full(
+                            (qp.shape[0],), n + 1, dtype=torch.int32,
+                            device=qp.device))
+                else:
+                    valid = min(max(n + 1 - s * Sb, 0), Sb)
+                    parts[pos] = L.decode_attention_partial(qp, kc, vc,
+                                                            valid)
+        out = []
+        for pos in range(mesh.size):
+            if len(order[pos]) == 1:
+                out.append(parts[pos])
+                continue
+            got = []
+            with mesh.at(pos), mesh.moving():
+                for src in order[pos]:
+                    if src != pos:
+                        mesh.count("attn_partial", sum(
+                            _nbytes(t) for t in parts[src]), frm=src,
+                            to=pos)
+                    got.append(tuple(t.to(mesh.device(pos))
+                                     for t in parts[src]))
+            with mesh.at(pos):
+                out.append(L.combine_attention_partials(
+                    got, q.parts[pos].dtype))
+        return Rows(out, list(range(mesh.size)), mesh)
+
+    return attend
 
 
 def make_sharded_decode(model, mesh, batch_spec) -> Callable:
@@ -198,22 +365,32 @@ def make_sharded_decode(model, mesh, batch_spec) -> Callable:
     token per sequence (B, 1) at position ``cache_len`` (a Python int)
     against ``cache`` placed by ``lm_cache_specs`` (written in place),
     over ``params`` placed by their specs; the logits (B, 1, V) on
-    position 0. ``model.decode_step`` runs over every batch shard at once
-    with the weights where they lie, each batch shard's attention split
-    over its cache slices."""
-    homes, _ = batch_groups(mesh, batch_spec[0] if len(batch_spec)
-                            else None)
+    position 0. With the batch split, ``model.decode_step`` runs at every
+    position of each batch shard's group (the column blocks gathered along
+    the batch axes, the rows moved to the row blocks and the head, the
+    heads gathered over "model", the attention split over the group's
+    cache slices); with it whole, at its home with the weights where they
+    lie, the attention split over the cache's slices."""
+    homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
+                                 else None)
     D = len(homes)
+    home = homes[0]
     cd = model.compute_dtype
 
-    def attend(i, q, k, v, cache, n, *, home, r0, slices):
-        """Layer ``i``'s attention for batch shard rows r0:r0+Bd of the
-        cache blocks in ``slices`` ((S block, holder), ascending)."""
+    def attend(i, q, k, v, cache, n):
+        with mesh.at(home):
+            return Rows([attend_home(i, q.parts[0], k.parts[0], v.parts[0],
+                                     cache, n)], homes, mesh)
+
+    def attend_home(i, q, k, v, cache, n):
+        """Layer ``i``'s attention for the whole batch at ``home`` over the
+        cache's sequence slices, each at its holder."""
         ks, vs = cache
-        Bd, Sb = q.shape[0], ks.layout.block_shape[2]
-        j_new = n // Sb
+        lay = ks.layout
+        Sb = lay.block_shape[2]
+        slices = sorted((blk[2], lay.holders(blk)[0]) for blk in lay.blocks())
         for (j, h) in slices:
-            if j != j_new:
+            if j != n // Sb:
                 continue
             for src, kv in ((k, ks), (v, vs)):
                 src = src.to(kv.dtype)
@@ -221,7 +398,7 @@ def make_sharded_decode(model, mesh, batch_spec) -> Callable:
                     mesh.count("kv_write", _nbytes(src), to=h)
                 with mesh.moving():
                     off = n - j * Sb
-                    kv.shards[h][i, r0:r0 + Bd, off:off + 1].copy_(src)
+                    kv.shards[h][i, :, off:off + 1].copy_(src)
         parts = []
         for (j, h) in slices:
             if h != home:
@@ -230,8 +407,8 @@ def make_sharded_decode(model, mesh, batch_spec) -> Callable:
                 qh = q.to(mesh.device(h))
             with mesh.at(h):
                 valid = min(max(n + 1 - j * Sb, 0), Sb)
-                kc = ks.shards[h][i, r0:r0 + Bd].to(cd)
-                vc = vs.shards[h][i, r0:r0 + Bd].to(cd)
+                kc = ks.shards[h][i].to(cd)
+                vc = vs.shards[h][i].to(cd)
                 part = L.decode_attention_partial(qh, kc, vc, valid)
             if h != home:
                 mesh.count("attn_partial", sum(_nbytes(t) for t in part),
@@ -241,32 +418,22 @@ def make_sharded_decode(model, mesh, batch_spec) -> Callable:
         return L.combine_attention_partials(parts, q.dtype)
 
     def decode(params, token: torch.Tensor, cache: Cache, cache_len: int):
-        lay = cache[0].layout
         n = int(cache_len)
-        B = token.shape[0]
-        if B % D:
-            raise ValueError(f"batch {B} does not split over {D} shards")
-        Bd = B // D
-        Bb = lay.block_shape[1]
-        plans = []
-        for d in range(D):
-            b = d * Bd // Bb
-            plans.append(dict(home=homes[d], r0=d * Bd - b * Bb, slices=sorted(
-                (blk[2], lay.holders(blk)[0])
-                for blk in lay.blocks() if blk[1] == b)))
-
-        def attend_rows(i, q, k, v, cache, n):
-            out = []
-            for d, plan in enumerate(plans):
-                with mesh.at(plan["home"]):
-                    out.append(attend(i, q.parts[d], k.parts[d], v.parts[d],
-                                      cache, n, **plan))
-            return Rows(out, homes, mesh)
-
+        if token.shape[0] % D:
+            raise ValueError(f"batch {token.shape[0]} does not split over "
+                             f"{D} shards")
         with torch.no_grad():
+            if _split(batch_spec):
+                lg, _ = model.decode_step(
+                    _tp_views(params, groups, "decode"),
+                    _all_rows(mesh, token, groups), cache, n,
+                    attend=_attend_split(model, mesh, groups,
+                                         cache[0].layout))
+                return _to_position_0(mesh, [lg.parts[h] for h in homes],
+                                      homes), cache
             lg, _ = model.decode_step(_stationary(params),
                                       _rows(mesh, token, homes), cache, n,
-                                      attend=attend_rows)
+                                      attend=attend)
             return _to_position_0(mesh, lg.parts, homes), cache
 
     return decode

@@ -149,11 +149,14 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     ``REPRO_LM_PREFILL_POLICY`` (default ``fsdp``), decode under
     ``tp2d``, as the reference's cells do. Placed on a mesh, prefill and
     decode are ``distrib.serving``'s steps (the cache placed by
-    ``lm_cache_specs``): under ``tp2d`` every product runs where its
-    weight blocks lie and no parameter moves, under ``fsdp`` each layer is
-    gathered at each batch shard's home; decode takes ``cache_len`` as a
-    Python int, its build-time value S // 2 where the tensor is a meta
-    stand-in."""
+    ``lm_cache_specs``): under ``tp2d`` with the batch split (decode_32k,
+    prefill_32k) as the reference's partitioner splits them (the column
+    weights' "model" blocks gathered along "data", the rows moved to the
+    row blocks and the head, the sums over "model"), with it whole
+    (long_500k) every product where its weight blocks lie and no
+    parameter moved; under ``fsdp`` each layer is gathered at each batch
+    shard's home; decode takes ``cache_len`` as a Python int, its
+    build-time value S // 2 where the tensor is a meta stand-in."""
     cfg: TransformerConfig = arch.model
     shape = arch.shape(shape_name)
     dims = LM_SMOKE_DIMS[shape.name] if smoke else shape.dims

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distrib.collectives import (StationaryView, TPView,
                                              block_matmul, each, tp_linear,
-                                             tp_vocab_xent,
+                                             tp_rows_linear, tp_vocab_xent,
                                              vocab_parallel_xent)
 from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
@@ -215,12 +215,21 @@ def combine_attention_partials(parts, dtype: torch.dtype) -> torch.Tensor:
 
 def linear(x, w, dtype: torch.dtype, bias=None):
     """``x @ w.to(dtype)`` (+ ``bias.to(dtype)``); with a ``TPView`` weight
-    (the ``tp2d`` train step) ``tp_linear`` of every position's rows ``x``:
-    a column or row block of the weight gathered along "data" at each
-    position; with a :class:`StationaryView` weight (serving under
-    ``tp2d``) ``block_matmul`` of the batch shards' rows ``x``."""
+    (the ``tp2d`` train step, and serving under ``tp2d`` with the batch
+    split) ``tp_linear`` of every position's rows ``x``: a column or row
+    block of the weight gathered along "data" at each position, or, where
+    the view says so (``TPView.gathers``: a decode step's row blocks, the
+    head), ``tp_rows_linear``: the rows moved to the blocks where they
+    lie; with a :class:`StationaryView` weight (serving under ``tp2d``
+    with the batch whole) ``block_matmul`` of the batch shards' rows
+    ``x``."""
     if isinstance(w, TPView):
-        return tp_linear(x, w, dtype, bias)
+        if w.gathers():
+            return tp_linear(x, w, dtype, bias)
+        if bias is not None:
+            raise ValueError("linear: a bias beside a weight whose rows "
+                             "move to its blocks")
+        return tp_rows_linear(x, w, dtype)
     if isinstance(w, StationaryView):
         return block_matmul(x, w, dtype, bias)
     y = x @ w.to(dtype)

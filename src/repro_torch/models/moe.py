@@ -30,7 +30,10 @@ each shard's E slice of it is sent where its experts live, the three
 products run there on E / M experts, and the outputs come back and are
 concatenated along E in shard order before the combine. Each expert's
 products, and the backward's dX and dW, read only that expert's rows, so
-the result is bitwise the unsharded one, forward and backward. Handed
+the result is bitwise the unsharded one, forward and backward. Every
+expert's d_ff split into blocks (``moe_shard="ffn"``, serving with the
+batch whole) takes the whole buffer to each block and adds the down
+products' partials at home in block order (f32, rounded once). Handed
 every batch shard's tokens as ``Rows`` (serving under ``tp2d``), the block
 takes the router's logits from one ``layers.linear`` over all of them and
 runs the rest at each home. In the ``tp2d`` train step (the leaves as
@@ -260,7 +263,9 @@ def _routed(x: torch.Tensor, r: Routing, wg, wu, wd, cfg: MoEConfig
     """:func:`moe_block` after the routing ``r``."""
     x_exp, aux, order = _dispatch(x, r, cfg)
     G, E, C, d = r.G, cfg.n_experts, r.C, x.shape[1]
-    if isinstance(wg, Blocks):
+    if isinstance(wg, Blocks) and wg.dim != 0:
+        y_exp = _ffn_where_they_live(x_exp, wg, wu, wd)
+    elif isinstance(wg, Blocks):
         y_exp = _experts_where_they_live(x_exp.view(G, E, C, d), wg, wu, wd)
     else:
         y_exp = _experts(x_exp, wg, wu, wd)
@@ -302,6 +307,30 @@ def _experts_where_they_live(x4: torch.Tensor, wg: Blocks, wu: Blocks,
                 .view(G, Em, C, d)
         outs.append(send(ym, mesh, pos, home))
     return torch.cat(outs, dim=1)
+
+
+def _ffn_where_they_live(x_exp: torch.Tensor, wg: Blocks, wu: Blocks,
+                         wd: Blocks) -> torch.Tensor:
+    """(G·E, C, d) dispatch buffer at its batch shard's position → the
+    expert outputs there, every expert's d_ff split into blocks where they
+    live (``moe_shard="ffn"``): the buffer is sent to each block's position,
+    which runs all experts on its d_ff columns, and the down products'
+    partials come back and are added in block order in f32, rounded once
+    (as the ``tp2d`` train step's ``model_sum``). One block at the home is
+    :func:`_experts` itself."""
+    mesh, home = wg.mesh, wg.home
+    if len(wg.parts) == 1 and wg.positions[0] == home:
+        return _experts(x_exp, wg.parts[0], wu.parts[0], wd.parts[0])
+    total = None
+    for pg, pu, pd, pos in zip(wg.parts, wu.parts, wd.parts, wg.positions):
+        xm = send(x_exp, mesh, home, pos)
+        with mesh.at(pos):
+            ym = _experts(xm, pg, pu, pd)
+        ym = send(ym, mesh, pos, home)
+        with mesh.at(home):
+            total = ym.float() if total is None else total + ym.float()
+    with mesh.at(home):
+        return total.to(x_exp.dtype)
 
 
 def slot_order(perm: torch.Tensor, k: int) -> torch.Tensor:

@@ -42,14 +42,18 @@ batch shard's activations on its own device and hand the model its
 parameters as per-batch-shard views (``distrib.collectives.ShardView``)
 that each layer gathers where it uses them (and, under ``remat="full"``,
 again in the recompute); with ``exp_spec`` the expert weights stay where
-they live. The serving steps under ``tp2d`` (``distrib.serving``) move no
-parameter: they hand the model ``StationaryView`` s of every leaf and the
-tokens of every batch shard as ``Rows``. Each product then runs on the
-positions that hold the weight's blocks (``layers.linear``), the table is
-looked up where its rows lie, the experts stay where they live, and the
-norms, RoPE, attention and the residual stream run at each batch shard's
-home (``collectives.each``, which calls the function as it is when no
-argument is ``Rows``). The train step under ``tp2d``
+they live. The serving steps under ``tp2d`` with the batch whole
+(``distrib.serving``) move no parameter: they hand the model
+``StationaryView`` s of every leaf and the batch's tokens as ``Rows``.
+Each product then runs on the positions that hold the weight's blocks
+(``layers.linear``), the table is looked up where its rows lie, the
+experts stay where they live, and the norms, RoPE, attention and the
+residual stream run at the home (``collectives.each``, which calls the
+function as it is when no argument is ``Rows``). With the batch split
+they hand the model ``TPView`` s and the tokens of every position, as the
+train step below does, and ``decode_step`` attends with every head at
+each position (``_qkv(..., whole=True)``), over its slice of the cache.
+The train step under ``tp2d``
 (``train.state.make_tp2d_train_step``) hands ``loss`` a ``TPView`` of
 every leaf and the tokens and labels of every position as ``Rows``, the
 reference's split: each product multiplies the position's rows by the
@@ -81,7 +85,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.config.base import TransformerConfig
 from repro_torch.distrib.collectives import (StationaryView, TPView, each,
-                                             local, split_heads)
+                                             local, model_gather,
+                                             split_heads)
 from repro_torch.distrib.sharding import P
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe_params, moe_block
@@ -202,11 +207,12 @@ class TransformerLM:
     def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return L.rms_norm(x, w.to(self.compute_dtype), self.cfg.rms_eps)
 
-    def _qkv(self, p: Params, x, positions):
+    def _qkv(self, p: Params, x, positions, whole: bool = False):
         """The layer's queries (B, S, H, hd) and keys and values
-        (B, S, KV, hd), RoPE applied; in the ``tp2d`` train step each
-        position's heads (``collectives.split_heads``) and the function
-        that takes its part of the attention output for ``wo``."""
+        (B, S, KV, hd), RoPE applied; over ``TPView`` s each position's
+        heads (``collectives.split_heads``; with ``whole``, all of them, as
+        a decode step attends) and the function that takes its part of the
+        attention output for ``wo``."""
         cfg, cd = self.cfg, self.compute_dtype
         h = each(self._norm, x, p["ln1"])
         q, k, v = (L.linear(h, p[w], cd, p.get(b))
@@ -214,7 +220,7 @@ class TransformerLM:
         own = None
         if isinstance(p["wq"], TPView):
             q, k, v, own = split_heads(q, k, v, cfg.n_heads, cfg.n_kv_heads,
-                                       cfg.head_dim)
+                                       cfg.head_dim, whole)
         q, k, v = each(self._rope, q, k, v, positions)
         return q, k, v, own
 
@@ -326,7 +332,14 @@ class TransformerLM:
         return params["head"]
 
     def logits(self, params: Params, hidden):
-        return L.linear(hidden, self._head_w(params), hidden.dtype)
+        """``hidden @ head``; over a ``TPView`` head gathered along "data"
+        (the tied head under ``tp2d``) each position's vocab block, joined
+        over "model" (``tp_logits_gather``)."""
+        w = self._head_w(params)
+        y = L.linear(hidden, w, hidden.dtype)
+        if isinstance(w, TPView) and w.splits_output():
+            y = model_gather(y, -1, "tp_logits_gather")
+        return y
 
     def loss(self, params: Params, tokens, labels,
              aux_coef: float = 0.01):
@@ -357,21 +370,22 @@ class TransformerLM:
         positions = each(_prompt_positions, tokens)
         params = self._local(params)
         x = self._embed(params, tokens)
-        ks, vs = each(self._empty_cache, tokens)
         for i, lp in enumerate(params["layers"]):
             lp = self._local_layer(lp)
             x, (k, v) = self._attn(lp, x, positions)
             x, _ = self._mlp(lp, x)
+            if i == 0:   # each position's heads under ``tp2d``
+                ks, vs = each(self._empty_cache, k)
             each(_store_kv, ks, vs, k, v, i)
         x = each(self._norm, x, params["ln_f"])
         return self.logits(params, each(_last, x)), (ks, vs)
 
-    def _empty_cache(self, tokens: torch.Tensor) -> Cache:
-        cfg = self.cfg
-        B, S = tokens.shape
-        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-        return (torch.empty(shape, dtype=torch.bfloat16, device=tokens.device),
-                torch.empty(shape, dtype=torch.bfloat16, device=tokens.device))
+    def _empty_cache(self, k: torch.Tensor) -> Cache:
+        """The (L, B, S, KV, hd) cache of the keys ``k`` (B, S, KV, hd) of
+        every layer."""
+        shape = (self.cfg.n_layers,) + tuple(k.shape)
+        return (torch.empty(shape, dtype=torch.bfloat16, device=k.device),
+                torch.empty(shape, dtype=torch.bfloat16, device=k.device))
 
     def decode_step(self, params: Params, token, cache: Cache,
                     cache_len: int, attend: Optional[Callable] = None
@@ -388,8 +402,9 @@ class TransformerLM:
         x = self._embed(params, token)
         for i, lp in enumerate(params["layers"]):
             lp = self._local_layer(lp)
-            q, k, v, _ = self._qkv(lp, x, positions)
-            x = self._attn_out(lp, x, attend(i, q, k, v, cache, cache_len))
+            q, k, v, own = self._qkv(lp, x, positions, whole=True)
+            x = self._attn_out(lp, x, attend(i, q, k, v, cache, cache_len),
+                               own)
             x, _ = self._mlp(lp, x)
         x = each(self._norm, x, params["ln_f"])
         return self.logits(params, x), cache

@@ -256,8 +256,13 @@ def test_sharded_prefill_and_decode(name, B, S):
                                        w[:, :, S:n + 1].float().numpy(),
                                        rtol=2.0 ** -7, atol=1e-6)
     hold_alone(got[1:], alone)
-    for key in ("all_gather", "cache_scatter", "kv_write", "q_send",
-                "attn_partial", "tp_act", "tp_partial"):
+    # decode with the batch whole: the products where the weight blocks
+    # lie; with it split, the reference's split (weights gathered along
+    # "data", the rows moved to the row blocks, sums over "model")
+    moved = (("kv_write", "q_send", "tp_act", "tp_partial") if B < 16 else
+             ("tp_zero_gather", "tp_model_sum", "tp_rows_gather",
+              "tp_rows_scatter"))
+    for key in ("all_gather", "cache_scatter", "attn_partial") + moved:
         assert nbytes.get(key, 0) > 0, key
 
 

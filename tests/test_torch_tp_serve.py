@@ -1,7 +1,9 @@
-"""LM serving on the device mesh under ``tp2d`` with the weights where they
-lie (``distrib/collectives.py``: ``StationaryView``, ``Rows``,
-``block_matmul``, ``take_rows_2d``; ``distrib/serving.py``), on the CPU
-(meshes of ``["cpu"] * 4``, f32 SMOKE configs).
+"""LM serving on the device mesh under ``tp2d``, on the CPU (meshes of
+``["cpu"] * 4``, f32 SMOKE configs): with the batch whole, the weights
+where they lie (``distrib/collectives.py``: ``StationaryView``, ``Rows``,
+``block_matmul``, ``take_rows_2d``; ``distrib/serving.py``); with it split
+over "data", as the reference's partitioner splits its jitted steps
+(``TPView.serving``, ``tp_rows_linear``).
 
 * ``block_matmul`` on 2 × 2, 1 × 2, 2 × 1, 1 × 4 (and 2 × 2 × 2 with
   "pod"), the batch whole and split over the batch axes, the weight split
@@ -30,19 +32,39 @@ lie (``distrib/collectives.py``: ``StationaryView``, ``Rows``,
   entries (``tests/test_torch_lm.py``'s bound); an independent one-device
   decode of the same tokens on its own cache within
   ``test_torch_sharded_serve.ALONE_TOL`` (2^-8 of the largest logit, one
-  bf16 step) and the same cache bound; two runs bitwise; no
-  parameter byte moved (no ``all_gather``; the lookup moves the batch's
-  ids and rows only). Against the reference's JAX ``prefill`` /
+  bf16 step) and the same cache bound; two runs bitwise; with the batch
+  whole no parameter byte moved (no ``all_gather``; the lookup moves the
+  batch's ids and rows only), with it split the bytes of the reference's
+  split (below). Against the reference's JAX ``prefill`` /
   ``decode_step`` (weights through ``params_from_jax``) to
   ``tests/test_torch_lm.py``'s tolerances (logits rtol / atol 1e-4, bf16
   caches within one bf16 step on at most 0.5 % of entries).
 * ``moe_block`` over ``Rows`` with the experts where they live and the
   batch whole: bitwise the unsharded block.
+* With the batch split (B 16 above, B 4 below): every collective's bytes
+  of a prefill and each decode step equal
+  ``chip_smoke.serve_tp2d_bytes_want`` on (1, 2), (2, 1), (2, 2) and
+  (1, 4) for the 16-expert qwen3-moe (``expert`` and ``ffn``) and smollm
+  (an ``fsdp`` prefill's, the experts where they live under ``expert``,
+  ``chip_smoke.serve_fsdp_bytes_want`` on (2, 2), (4, 1), (1, 4), (2, 1));
+  the weights move along "data" only and the sums along "model" only; on
+  one position the path is ``TransformerLM.prefill`` / ``decode_step``
+  bit for bit; two runs bitwise. Against the reference's jitted
+  ``prefill`` and ``decode_step`` under the ``tp2d`` ``in_shardings`` on a
+  2 × 2 JAX mesh of four host devices (one child process), the batch
+  split (B 4) and whole (B 1): logits to rtol 1e-4, the HLO's collective
+  bytes read by kind and axis (weights gathered along "data" with the
+  batch split, none with it whole) and printed beside the port's.
 
 JAX is imported inside the tests that need it.
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -63,7 +85,9 @@ from repro_torch.models import moe as TM
 from repro_torch.models.transformer import TransformerLM, params_from_jax
 from repro_torch.sparse.segment import take_rows
 
+import chip_smoke
 from test_torch_sharded_serve import bf16_close, hold_alone, reading
+from test_torch_tp_train import HLO_AXES, REPO, _by_axis
 
 torch.set_num_threads(1)
 
@@ -75,11 +99,26 @@ CONFIGS = {"qwen3-moe-e16": MOE16,
            **{a: get_arch(a, smoke=True).model
               for a in ("deepseek-7b", "qwen2-72b", "smollm-135m",
                         "dbrx-132b")}}
-# the collectives a tp2d serving step may count: activations, ids, the
-# looked-up rows, the KV cache and the logits; never a parameter
+# the collectives a tp2d serving step with the batch whole may count:
+# activations, ids, the looked-up rows, the KV cache and the logits; never
+# a parameter
 ACTIVATIONS = {"tp_act", "tp_partial", "emb_ids", "emb_rows", "expert_send",
                "cache_scatter", "kv_write", "q_send", "attn_partial",
                "logits_gather"}
+# with the batch split: the weights gathered along "data", the rows moved
+# to the blocks that stay, the sums over "model", the heads, experts and
+# attention partials over "model", the lookup, the cache and the logits
+WEIGHT_MOVES = {"tp_zero_gather"}
+SUM_MOVES = {"tp_model_sum"}
+SPLIT = WEIGHT_MOVES | SUM_MOVES | {
+    "tp_rows_gather", "tp_rows_scatter", "tp_heads_gather",
+    "tp_logits_gather", "expert_gather", "emb_ids", "emb_rows",
+    "cache_scatter", "attn_partial", "logits_gather"}
+MOE16_FFN = dataclasses.replace(
+    MOE16, moe=dataclasses.replace(MOE16.moe, moe_shard="ffn"))
+# the models the reference's serving HLO is read for, and the formula held
+SPLIT_MODELS = {"qwen3-moe-e16": MOE16, "qwen3-moe-e16-ffn": MOE16_FFN,
+                "smollm-135m": CONFIGS["smollm-135m"]}
 
 
 def _mesh(shape):
@@ -243,9 +282,10 @@ def _cfg_with_bias(cfg, params, seed=11):
 def _tp_served(cfg, params, B, S, tokens_out=4):
     """(one-device (logits, k, v) per step, each decode step reading the
     mesh's cache; the mesh's two runs, each (logits, k, v) per step and
-    the bytes per step; the independent one-device run's (logits, k, v)
-    per decode step, on its own cache) of a tp2d prefill and
-    ``tokens_out`` teacher-forced decode steps."""
+    the bytes and the moves by (name, source, receiver) per step; the
+    independent one-device run's (logits, k, v) per decode step, on its
+    own cache) of a tp2d prefill and ``tokens_out`` teacher-forced decode
+    steps."""
     mesh = _mesh((2, 2))
     wide = B >= 16
     bspec = P("data", None) if wide else P(None, None)
@@ -269,12 +309,12 @@ def _tp_served(cfg, params, B, S, tokens_out=4):
         mesh.reset_bytes()
         glg, cache = prefill(placed, tokens)
         got = [(glg, gather(cache[0])[:, :, :S], gather(cache[1])[:, :, :S])]
-        nbytes = [dict(mesh.bytes)]
+        nbytes = [(dict(mesh.bytes), dict(mesh.moves))]
         tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
         for i in range(tokens_out):
             mesh.reset_bytes()
             glg, cache = decode(placed, tok, cache, S + i)
-            nbytes.append(dict(mesh.bytes))
+            nbytes.append((dict(mesh.bytes), dict(mesh.moves)))
             gk, gv = gather(cache[0]), gather(cache[1])
             if not runs:
                 wlg, _ = plain.decode_step(params, tok, None, S + i,
@@ -296,9 +336,22 @@ def _lookup_bytes(cfg, n):
     return {"emb_ids": 3 * n * 4, "emb_rows": 3 * n * cfg.d_model // 2 * 4}
 
 
+def _along(mesh, moves, names, axis):
+    """Whether every move of ``names`` runs between positions that differ
+    on ``axis`` only."""
+    other = "model" if axis == "data" else "data"
+    return all(mesh.coords(a)[other] == mesh.coords(b)[other]
+               and mesh.coords(a)[axis] != mesh.coords(b)[axis]
+               for (n, a, b) in moves if n in names)
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 @pytest.mark.parametrize("B,S", [(2, 16), (16, 8)], ids=["whole", "split"])
 def test_tp2d_prefill_and_decode(name, B, S):
+    """The batch whole: no parameter byte moves. The batch split over
+    "data" (B 16): the reference's split, each step's bytes by name equal
+    to ``chip_smoke.serve_tp2d_bytes_want``, the weights moving along
+    "data" only and the sums along "model" only."""
     cfg = CONFIGS[name]
     params = _cfg_with_bias(cfg, TransformerLM(cfg).init(
         torch.Generator().manual_seed(0)))
@@ -313,13 +366,24 @@ def test_tp2d_prefill_and_decode(name, B, S):
     hold_alone(got[1:], alone)
     for a, b in zip(got, again):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
-    for i, step in enumerate(nbytes):
-        assert set(step) <= ACTIVATIONS, step
-        assert step["tp_act"] > 0 and step["tp_partial"] > 0
-        for k, v in _lookup_bytes(cfg, B * S if i == 0 else B).items():
-            assert step[k] == v, (k, step[k], v)
-    if cfg.moe is not None and cfg.moe.n_experts % 16 == 0:
-        assert all(step["expert_send"] > 0 for step in nbytes)
+    if B < 16:
+        for i, (step, _) in enumerate(nbytes):
+            assert set(step) <= ACTIVATIONS, step
+            assert step["tp_act"] > 0 and step["tp_partial"] > 0
+            for k, v in _lookup_bytes(cfg, B * S if i == 0 else B).items():
+                assert step[k] == v, (k, step[k], v)
+        if cfg.moe is not None and cfg.moe.n_experts % 16 == 0:
+            assert all(step["expert_send"] > 0 for step, _ in nbytes)
+        return
+    mesh = _mesh((2, 2))
+    gs = min(4096, max(64, B * S // 8))
+    for i, (step, moves) in enumerate(nbytes):
+        kind = "prefill" if i == 0 else "decode"
+        assert step == chip_smoke.serve_tp2d_bytes_want(
+            cfg, (2, 2), B, S, kind, gs, S + 4), (kind, step)
+        assert set(step) <= SPLIT and step["tp_zero_gather"] > 0
+        assert _along(mesh, moves, WEIGHT_MOVES, "data")
+        assert _along(mesh, moves, SUM_MOVES, "model")
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -389,3 +453,268 @@ def test_moe_block_over_rows_is_the_unsharded_block(shape):
     y1, a1 = TM.moe_block(Rows([x], [0], mesh), views, cfg, 2)
     assert torch.equal(y1.parts[0], y0) and torch.equal(a1.parts[0], a0)
     assert set(mesh.bytes) == {"expert_send"}
+
+
+# -- with the batch split: the reference's split ------------------------------------
+
+def _split_run(cfg, shape, B=4, S=16, tokens_out=4, params=None):
+    """A tp2d prefill and ``tokens_out`` decode steps with the batch split
+    over "data" on a ``shape`` mesh (the cache's sequence over "model"):
+    the logits of each step, the cache after the prefill and after the
+    last step (gathered), each step's bytes by name. The decode steps feed
+    the one-device model's greedy tokens of the prompt's prefill, then
+    token 0."""
+    mesh = _mesh(shape)
+    if params is None:
+        params = TransformerLM(cfg).init(torch.Generator().manual_seed(0))
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    placed = place_params(params, mesh, lm_param_specs(params, cfg, "tp2d"))
+    cspec = P(None, "data", "model", None, None)
+    prefill = make_sharded_prefill(model, mesh, P("data", None), cspec,
+                                   capacity=S + tokens_out, policy="tp2d")
+    decode = make_sharded_decode(model, mesh, P("data", None))
+    lg, cache = prefill(placed, tokens)
+    logits, nbytes = [lg], [dict(mesh.bytes)]
+    caches = [tuple(gather(c) for c in cache)]
+    tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+    for i in range(tokens_out):
+        mesh.reset_bytes()
+        lg, cache = decode(placed, tok, cache, S + i)
+        logits.append(lg)
+        nbytes.append(dict(mesh.bytes))
+        tok = torch.zeros_like(tok)
+    caches.append(tuple(gather(c) for c in cache))
+    return tokens, logits, caches, nbytes
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), (1, 4)],
+                         ids=["1x2", "2x1", "2x2", "1x4"])
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
+def test_tp2d_serve_bytes_by_formula(name, shape):
+    """A prefill's and each decode step's bytes by name equal to
+    ``chip_smoke.serve_tp2d_bytes_want`` (the formula chip_smoke.py holds
+    the card's runs to)."""
+    cfg = SPLIT_MODELS[name]
+    _, _, _, nbytes = _split_run(cfg, shape)
+    for i, step in enumerate(nbytes):
+        kind = "prefill" if i == 0 else "decode"
+        assert step == chip_smoke.serve_tp2d_bytes_want(
+            cfg, shape, 4, 16, kind, 16, 20), (kind, step)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4), (2, 1)],
+                         ids=["2x2", "4x1", "1x4", "2x1"])
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
+def test_fsdp_prefill_bytes_by_formula(name, shape):
+    """An ``fsdp`` prefill with the batch split over "data" (the prefill
+    cell's default, serve-sharded-lm (ii)'s prefill): its bytes by name
+    equal to ``chip_smoke.serve_fsdp_bytes_want``."""
+    cfg = SPLIT_MODELS[name]
+    mesh = _mesh(shape)
+    B, S = 16, 8
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1))
+    prefill = make_sharded_prefill(model, mesh, P("data", None),
+                                   lm_cache_specs(False, B), capacity=S + 4)
+    prefill(place_params(params, mesh, lm_param_specs(params, cfg, "fsdp")),
+            tokens)
+    assert dict(mesh.bytes) == chip_smoke.serve_fsdp_bytes_want(
+        cfg, shape, B, S, 16, S + 4)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
+def test_tp2d_split_serving_on_one_position_is_the_model(name):
+    """On a (1, 1) mesh the split path is ``TransformerLM.prefill`` and
+    ``decode_step`` bit for bit: logits and caches."""
+    cfg = SPLIT_MODELS[name]
+    params = TransformerLM(cfg).init(torch.Generator().manual_seed(0))
+    tokens, logits, caches, nbytes = _split_run(cfg, (1, 1), params=params)
+    plain = TransformerLM(cfg, moe_group_size=16)
+    lg, (ks, vs) = plain.prefill(params, tokens)
+    assert torch.equal(logits[0], lg)
+    assert torch.equal(caches[0][0][:, :, :16], ks)
+    assert torch.equal(caches[0][1][:, :, :16], vs)
+    ks, vs = (F.pad(c, (0, 0, 0, 0, 0, 4)) for c in (ks, vs))
+    tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+    for i, got in enumerate(logits[1:]):
+        want, (ks, vs) = plain.decode_step(params, tok, (ks, vs), 16 + i)
+        assert torch.equal(got, want), i
+        tok = torch.zeros_like(tok)
+    assert torch.equal(caches[1][0], ks) and torch.equal(caches[1][1], vs)
+    assert not any(nbytes)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
+def test_tp2d_split_serving_repeats_bitwise(name):
+    """Two runs of the split path on 2 × 2: logits, caches and bytes bit
+    for bit the same."""
+    cfg = SPLIT_MODELS[name]
+    a, b = (_split_run(cfg, (2, 2)) for _ in range(2))
+    for x, y in zip(a[1], b[1]):
+        assert torch.equal(x, y)
+    for x, y in zip(a[2], b[2]):
+        assert all(torch.equal(p, q) for p, q in zip(x, y))
+    assert a[3] == b[3]
+
+
+# -- against the reference's jitted prefill and decode -------------------------------
+
+_SERVE_CHILD = HLO_AXES + r'''
+import json, sys
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.config.base import MoEConfig, TransformerConfig
+from repro.distrib.sharding import lm_param_specs
+from repro.models.transformer import TransformerLM
+
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+ns = lambda s: NamedSharding(mesh, s)
+out = {}
+for case in json.loads(sys.argv[1]):
+    kw = dict(case["cfg"])
+    if kw.get("moe"):
+        kw["moe"] = MoEConfig(**kw["moe"])
+    cfg = TransformerConfig(**kw)
+    split = case["split"]
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None) if split else None)
+    params = model.init(jax.random.PRNGKey(0))
+    psh = jax.tree.map(ns, lm_param_specs(params, cfg, "tp2d"))
+    bs = ns(P("data", None) if split else P(None, None))
+    cs = ns(P(None, "data", "model", None, None) if split
+            else P(None, None, ("data", "model"), None, None))
+    prefill = jax.jit(model.prefill, in_shardings=(psh, bs))
+    decode = jax.jit(model.decode_step,
+                     in_shardings=(psh, bs, (cs, cs), ns(P())))
+    tokens = np.array(case["tokens"], np.int32)
+    token = np.array(case["token"], np.int32)
+    S = tokens.shape[1]
+    with mesh:
+        lg, (k, v) = prefill(params, tokens)
+        pad = ((0, 0), (0, 0), (0, case["extra"]), (0, 0), (0, 0))
+        cache = tuple(np.pad(np.asarray(c), pad) for c in (k, v))
+        n = jnp.asarray(S, jnp.int32)
+        dlg, _ = decode(params, token, cache, n)
+        hlo = {"prefill": read_hlo(prefill.lower(params, tokens).compile()
+                                   .as_text()),
+               "decode": read_hlo(decode.lower(params, token, cache, n)
+                                  .compile().as_text())}
+    out[case["id"]] = {"prefill": np.asarray(lg, np.float32).tolist(),
+                       "decode": np.asarray(dlg, np.float32).tolist(),
+                       "hlo": hlo}
+print("OUT " + json.dumps(out))
+'''
+
+
+def _serve_case(name, batch):
+    cfg = SPLIT_MODELS[name]
+    B = 4 if batch == "split" else 1
+    rng = np.random.default_rng(5)
+    return {"id": f"{name}-{batch}", "cfg": dataclasses.asdict(cfg),
+            "split": batch == "split", "extra": 4,
+            "tokens": rng.integers(0, cfg.vocab_size, (B, 16)).tolist(),
+            "token": rng.integers(0, cfg.vocab_size, (B, 1)).tolist()}
+
+
+@pytest.fixture(scope="module")
+def reference_serving():
+    """The reference's jitted ``prefill`` and ``decode_step`` of every case
+    under the ``tp2d`` ``in_shardings`` on a 2 × 2 JAX mesh of four host
+    devices (one child process): logits and the compiled HLO's collective
+    bytes a chip by kind and axis, per case id."""
+    pytest.importorskip("jax")
+    cases = [_serve_case(n, b) for n in sorted(SPLIT_MODELS)
+             for b in ("split", "whole")]
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    res = subprocess.run([sys.executable, "-c",
+                          textwrap.dedent(_SERVE_CHILD), json.dumps(cases)],
+                         env=env, capture_output=True, text=True, cwd=REPO,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    line = next(ln for ln in res.stdout.splitlines()
+                if ln.startswith("OUT "))
+    return {c["id"]: c for c in cases}, json.loads(line[4:])
+
+
+@pytest.mark.parametrize("batch", ["split", "whole"])
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
+def test_tp2d_serving_splits_as_the_reference_jitted_steps(
+        reference_serving, name, batch):
+    """The reference's jitted ``prefill`` and ``decode_step`` under a 2 × 2
+    JAX mesh with the ``tp2d`` ``in_shardings`` (XLA's partitioner places
+    each product) against the port's ``make_sharded_prefill(policy=
+    "tp2d")`` and ``make_sharded_decode`` on 2 × 2 with the same weights:
+    the prefill's and one decode step's logits to rtol 1e-4 (f32). With
+    the batch split over "data" (B 4) the reference's HLO gathers weights
+    along "data" and the port's weight bytes move along "data" only and
+    its sums along "model" only (none of the stationary products' moves);
+    with it whole (B 1) neither moves a weight: the reference gathers
+    nothing along "data" but the rows, and the port moves no parameter
+    byte. Both sides' bytes by kind or name and axis are printed
+    (``-s``)."""
+    import jax
+    from repro.models.transformer import TransformerLM as RLM
+    from test_torch_lm import _jax_cfg
+    cases, ref = reference_serving
+    case, want = cases[f"{name}-{batch}"], ref[f"{name}-{batch}"]
+    cfg = SPLIT_MODELS[name]
+    split = batch == "split"
+    tree = jax.tree_util.tree_map(np.asarray, RLM(_jax_cfg(cfg)).init(
+        jax.random.PRNGKey(0)))
+    params = params_from_jax(cfg, tree, device="cpu")
+    mesh = _mesh((2, 2))
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None) if split else None)
+    bspec = P("data", None) if split else P(None, None)
+    cspec = (P(None, "data", "model", None, None) if split
+             else P(None, None, ("data", "model"), None, None))
+    placed = place_params(params, mesh, lm_param_specs(params, cfg, "tp2d"))
+    tokens = torch.tensor(case["tokens"], dtype=torch.int32)
+    token = torch.tensor(case["token"], dtype=torch.int32)
+    S = tokens.shape[1]
+    prefill = make_sharded_prefill(model, mesh, bspec, cspec,
+                                   capacity=S + case["extra"],
+                                   policy="tp2d")
+    decode = make_sharded_decode(model, mesh, bspec)
+    lg, cache = prefill(placed, tokens)
+    pre = _by_axis(mesh, mesh.moves)
+    pre_bytes = dict(mesh.bytes)
+    mesh.reset_bytes()
+    dlg, _ = decode(placed, token, cache, S)
+    dec = _by_axis(mesh, mesh.moves)
+    dec_bytes = dict(mesh.bytes)
+    print(f"\n{name}, batch {batch}: reference HLO, bytes a chip by kind "
+          f"and axis: prefill {want['hlo']['prefill']}; decode "
+          f"{want['hlo']['decode']}\nthe port, bytes by name: prefill "
+          f"{pre_bytes}; decode {dec_bytes}; by name and axis (the moves "
+          f"that name both ends): prefill {pre}; decode {dec}")
+    np.testing.assert_allclose(lg.numpy(), np.array(want["prefill"]),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dlg.numpy(), np.array(want["decode"]),
+                               rtol=1e-4, atol=1e-4)
+    params_bytes = sum(int(np.asarray(x).nbytes)
+                       for x in jax.tree_util.tree_leaves(tree))
+    for hlo, moved, by_axis in ((want["hlo"]["prefill"], pre_bytes, pre),
+                                (want["hlo"]["decode"], dec_bytes, dec)):
+        if split:
+            assert hlo.get("all-gather data", 0) > 0
+            assert set(moved) <= SPLIT and moved["tp_zero_gather"] > 0
+            assert all(k.endswith(" data") for k in by_axis
+                       if k.split()[0] in WEIGHT_MOVES)
+            assert all(k.endswith(" model") for k in by_axis
+                       if k.split()[0] in SUM_MOVES)
+        else:
+            # the reference's "data" gathers move rows, not weights
+            assert hlo.get("all-gather data", 0) < params_bytes / 1000
+            assert set(moved) <= ACTIVATIONS, moved

@@ -666,32 +666,13 @@ def test_tp2d_remat_is_bitwise_none(name):
 
 # -- against the reference's jitted tp2d step ---------------------------------------------
 
-_CHILD = r'''
-import json, re, sys
+# the HLO's collective bytes a chip by kind and by the mesh axis of their
+# groups (four host devices as a 2 x 2 ("data", "model") mesh); shared with
+# ``test_torch_tp_serve.py``'s child
+HLO_AXES = r'''
+import re
 import numpy as np
-import jax
-import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from repro.config.base import MoEConfig, TrainConfig, TransformerConfig
-from repro.distrib.sharding import lm_param_specs, state_specs_like
 from repro.launch.roofline import _COLLECTIVE_RE, collective_bytes
-from repro.models.transformer import TransformerLM
-from repro.train.state import make_train_step, new_train_state
-
-args = json.loads(sys.argv[1])
-kw = args["cfg"]
-if kw.get("moe"):
-    kw["moe"] = MoEConfig(**kw["moe"])
-cfg = TransformerConfig(**kw)
-mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-model = TransformerLM(cfg, moe_group_size=16, act_spec=P("data", None, None))
-state = new_train_state(model.init(jax.random.PRNGKey(0)))
-specs = state_specs_like(lm_param_specs(state.params, cfg, "tp2d"))
-ns = lambda s: NamedSharding(mesh, s)
-bs = ns(P("data", None))
-step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"]),
-                               microbatches=args["micro"]),
-               in_shardings=(jax.tree.map(ns, specs), bs, bs))
 
 
 def axis(line):
@@ -717,19 +698,48 @@ def axis(line):
     return "model" if same_d else "data" if same_m else "both"
 
 
+def read_hlo(hlo):
+    # {"kind axis": operand bytes a chip} of a compiled module's text
+    lines = hlo.splitlines()
+    tags = [axis(l) if _COLLECTIVE_RE.search(l) else None for l in lines]
+    read = {}
+    for ax in ("data", "model", "both", "none"):
+        keep = "\n".join(l for l, t in zip(lines, tags) if t in (None, ax))
+        for kind, n in collective_bytes(keep).items():
+            if n:
+                read[f"{kind} {ax}"] = n
+    return read
+'''
+
+_CHILD = HLO_AXES + r'''
+import json, sys
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.config.base import MoEConfig, TrainConfig, TransformerConfig
+from repro.distrib.sharding import lm_param_specs, state_specs_like
+from repro.models.transformer import TransformerLM
+from repro.train.state import make_train_step, new_train_state
+
+args = json.loads(sys.argv[1])
+kw = args["cfg"]
+if kw.get("moe"):
+    kw["moe"] = MoEConfig(**kw["moe"])
+cfg = TransformerConfig(**kw)
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+model = TransformerLM(cfg, moe_group_size=16, act_spec=P("data", None, None))
+state = new_train_state(model.init(jax.random.PRNGKey(0)))
+specs = state_specs_like(lm_param_specs(state.params, cfg, "tp2d"))
+ns = lambda s: NamedSharding(mesh, s)
+bs = ns(P("data", None))
+step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"]),
+                               microbatches=args["micro"]),
+               in_shardings=(jax.tree.map(ns, specs), bs, bs))
 tokens, labels = (jnp.asarray(np.array(t, np.int32))
                   for t in args["batches"][0])
 with mesh:
     hlo = step.lower(state, tokens, labels).compile().as_text()
-lines = hlo.splitlines()
-tags = [axis(l) if _COLLECTIVE_RE.search(l) else None for l in lines]
-read = {}
-for ax in ("data", "model", "both", "none"):
-    keep = "\n".join(l for l, t in zip(lines, tags) if t in (None, ax))
-    for kind, n in collective_bytes(keep).items():
-        if n:
-            read[f"{kind} {ax}"] = n
-print("HLO " + json.dumps(read))
+print("HLO " + json.dumps(read_hlo(hlo)))
 metrics = []
 with mesh:
     for tokens, labels in args["batches"]:
