@@ -319,7 +319,14 @@ Phases, each printed on its own lines:
     beside SDPA and batched ``torch.matmul``; wall times and the step's
     roofline (``launch/roofline.py``: ``lm_model_flops`` /
     ``lm_memory_bytes`` at the run's batch, length and depth over the
-    H100's rates) with the measured time's share of it;
+    H100's rates) with the measured time's share of it. (v) fault 6's
+    input: the qwen3-moe SMOKE config with 16 experts in f32,
+    ``moe_group_size`` 16, 16 × 16 tokens with every row row 0's, so one
+    decode step's MoE group spans both batch shards and the reference
+    drops the second shard's slots: the split prefill and one decode step
+    within 1e-5 of the largest logit of one card's ``prefill`` /
+    ``decode_step``, the step's bytes ``serve_tp2d_bytes_want``'s with the
+    group's exchange (``moe_group_probs``, ``moe_group_dispatch``);
 19. igpm-cells (after the CLI) — the paper's own cell at the four Table
     III shapes' published sizes (friends2008: 224,879 vertices, 7,744,000
     arcs; L 4, 5 sweeps): the label-RWR refresh on one card through an ELL
@@ -332,6 +339,27 @@ Phases, each printed on its own lines:
     each: ``spmm_bound``) with its gather floor and share, and the
     reference's analytic roofline (``igpm_model_flops`` /
     ``igpm_memory_bytes``) with its share.
+20. examples (after the CLI) — the port's three example entry points
+    (``src/repro_torch/examples``) on the card. quickstart at its own
+    settings (the friends2008 twin at 0.01: 2,248 vertices, 38,719 edges;
+    Batch, Inc and Adaptive, a warm and a measured pass of 8 steps each;
+    the sweeps on ``ell_spmm`` / ``ell_reach``): Batch's and Inc's
+    per-step counts and stores after every step equal a CPU run of the
+    same function with ``backend="ell"`` (keys and exact flags, goodness
+    within 1e-4, ``phase_small_agreement``'s rule), the ELL launches
+    counted and the first input of each sweep kind held against the plain
+    versions; pipeline and wall time per matcher and the speed-ups
+    printed. dynamic_gnn_serving (2,048 nodes, 16,384 edges, 6 steps; the
+    encoder's weights, the features and the DQN drawn on the CPU and
+    copied): recompute masks, fractions and c equal a CPU run's under one
+    seeded reward time, embeddings within 1e-5 of their largest entry, no
+    port kernel launched. train_lm: ``tiny`` 60 steps whole, and 50 steps
+    then a restart from the step-49 checkpoint to 60 whose steps 50–59
+    and final state are bitwise the whole run's; the f32 flash forward
+    and backward (``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``)
+    launched once per layer and step and their captured inputs held
+    against the plain versions; ``smollm`` 10 steps with a finite, falling
+    loss.
 
 Then a ``{"kernels": [...]}`` JSON line (every kernel with its serve and
 train launches, train-sharded's and train-sharded-tp2d's among them, both
@@ -2535,7 +2563,10 @@ def serve_tp2d_bytes_want(cfg, shape, batch: int, seq: int, kind: str,
     leaf's blocks from its spec on a meta mesh of that shape) in the
     compute dtype: every position holds its batch shard's rows; a product
     gathers its weight's "model" block along "data" (``tp_zero_gather``)
-    unless the weight splits over "data" on its output dimension only — a
+    unless, at a decode step, it is the router (split over "data" on its
+    input dimension only), re-split over "model" where it lies
+    (``tp_resplit``) with its logits' partials summed over "model", or the
+    weight splits over "data" on its output dimension only — a
     decode step's ``wo`` / ``wd`` and the untied head, in a prefill the
     head alone — where each position gathers the batch line's rows
     instead (``tp_rows_gather``), the f32 partials of an input split over
@@ -2546,7 +2577,12 @@ def serve_tp2d_bytes_want(cfg, shape, batch: int, seq: int, kind: str,
     them in a prefill and gathered whole in a decode step
     (``tp_heads_gather``), the tied head's vocab blocks joined over "model"
     (``tp_logits_gather``), the experts' outputs gathered along "model"
-    (``expert_gather``) or the ``ffn`` down products summed; the lookup at
+    (``expert_gather``) or the ``ffn`` down products summed, with ``group``
+    tokens a MoE group over the whole batch: where a group spans batch
+    shards, each position's router probabilities gathered along its
+    line of the group's shards (``moe_group_probs``, f32) and the dispatch
+    rows its experts read taken from the other shards' buffers
+    (``moe_group_dispatch``); the lookup at
     each batch shard's first position, its rows delivered to the group; a
     decode step's attention partials crossing "model" (``attn_partial``);
     a prefill's cache blocks filled with the heads their position did not
@@ -2558,7 +2594,7 @@ def serve_tp2d_bytes_want(cfg, shape, batch: int, seq: int, kind: str,
     from repro_torch.distrib.sharding import (Layout, lm_cache_specs,
                                               lm_param_specs)
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.models.moe import _groups, moe_capacity
+    from repro_torch.models.moe import moe_capacity, shard_groups
     from repro_torch.models.transformer import TransformerLM
     D, M = shape
     N = D * M
@@ -2625,12 +2661,31 @@ def serve_tp2d_bytes_want(cfg, shape, batch: int, seq: int, kind: str,
                         * R * c
         if "moe" in lp:
             moe, mp, ms = cfg.moe, lp["moe"], sp["moe"]
-            product(mp["router"], ms["router"], R, decode)
             E = moe.n_experts
-            G, S = _groups(R, max(1, R // group))
+            rl = Layout(mesh, ms["router"], mp["router"].shape)
+            if decode and rl.axes[0] and not rl.axes[1] \
+                    and "model" not in rl.axes[0]:
+                # the router re-split over "model" where it lies: each
+                # position's d / M input rows from the data blocks it
+                # lacks, the logits' f32 partials summed over "model"
+                b_in, b_out = d // rl.counts[0], d // M
+                for pos in range(N):
+                    lo = mesh.coords(pos)["model"] * b_out
+                    own = mesh.coords(pos)["data"] * b_in
+                    keep = max(0, min(lo + b_out, own + b_in) - max(lo, own))
+                    out["tp_resplit"] += (b_out - keep) * E * c
+                if M > 1:
+                    out["tp_model_sum"] += allreduce(R * E, 4)
+            else:
+                product(mp["router"], ms["router"], R, decode)
+            G, S, span = shard_groups(R, max(1, D * R // group), D)
             n = G * E * moe_capacity(S, E, moe.top_k) * d
             wg = Layout(mesh, ms["wg"], mp["wg"].shape)
-            if M > 1 and wg.counts[0] > 1:   # the experts over "model"
+            Me = M if M > 1 and wg.counts[0] > 1 else 1
+            if span > 1:       # one group over span batch shards
+                out["moe_group_probs"] += N * (span - 1) * R * E * 4
+                out["moe_group_dispatch"] += N * (span - 1) * n * c // Me
+            if Me > 1:                       # the experts over "model"
                 out["expert_gather"] += N * (M - 1) * n * c // M
             elif M > 1 and wg.counts[2] > 1:  # their d_ff over "model"
                 out["tp_model_sum"] += allreduce(n, c)
@@ -4655,6 +4710,269 @@ def phase_cli():
 
 
 
+# -- phase 20: the examples (src/repro_torch/examples) on the card --------------
+
+EX_GOOD_ATOL = 1e-4    # stored goodness, card against CPU (small-stream's)
+EX_EMB_RTOL = 1e-5     # served embeddings, card against CPU
+EX_TRAIN_STEPS = 60    # train_lm tiny, whole and restarted
+EX_TRAIN_KILL = 50     # the restarted run's first part (its checkpoint 49)
+EX_SMOLLM_STEPS = 10
+
+
+def store_records(matcher) -> list:
+    """The matcher's store ({key: (goodness, exact)}) after every
+    ``step`` call."""
+    seen, step = [], matcher.step
+
+    def recorded(g, upd):
+        out = step(g, upd)
+        seen.append(dict(matcher.store._patterns))
+        return out
+    matcher.step = recorded
+    return seen
+
+
+def seeded_time(seed: int = 3):
+    """A seeded reward-time schedule (the examples' ``reward_time``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return lambda elapsed: float(rng.uniform(0.02, 0.2))
+
+
+def step_counts(st) -> tuple:
+    return (st.n_new_patterns, st.n_patterns_total, st.n_exact_total,
+            st.n_recompute, st.community_size)
+
+
+def hold_ell(inputs, path: str) -> dict:
+    """Each captured ELL sweep (``Capture``) held against its plain
+    version and timed beside its bound: the SpMM within SPMM_RTOL
+    (``compare_spmm``), the reach bitwise (``time_captured_bfs``)."""
+    import torch
+    from repro_torch.kernels.measure import cuda_ms, gather_floor
+    from repro_torch.kernels.spmv_ell import ops, ref
+    from repro_torch.sparse.ell import build_row_index
+    out = {}
+    for key in ("label_rwr", "expansion_rwr"):
+        if key not in inputs:
+            continue
+        cols, vals, mask, row_ids, x, n = inputs[key]
+        index = build_row_index(mask, row_ids, n)
+        abs_err, rel_err = compare_spmm(ops, ref, cols, vals, mask, row_ids,
+                                        x, n, index, f"captured {path} {key}")
+        ms = cuda_ms(lambda: ops.ell_spmm(cols, vals, mask, row_ids, x, n,
+                                          index=index), REPS)
+        plain = cuda_ms(lambda: ref.ell_spmm_ref(cols, vals, mask, row_ids,
+                                                 x, n), REPS)
+        csr = spmm_csr(cols, vals, mask, row_ids, n, x.shape[0])
+        lib = cuda_ms(lambda: torch.sparse.mm(csr, x), REPS)
+        b_ms, b_by, nbytes, _ = spmm_bound(mask, x, n, True)
+        floor = gather_floor(mask, x.shape[1])
+        say(f"  ell_spmm captured {path} {key}: nnz={int(mask.sum())} "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.sparse.mm(csr) "
+            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B), "
+            f"gather floor {floor:.4f} ms")
+        out[key] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms,
+                        plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                        bound_by=b_by, gather_floor_ms=floor,
+                        nnz=int(mask.sum()), R=cols.shape[0], n=n,
+                        d=x.shape[1])
+    if "bfs" in inputs:
+        out["bfs"] = time_captured_bfs(inputs["bfs"], path)
+    return out
+
+
+def phase_examples():
+    """Phase 20: ``src/repro_torch/examples`` on the card (the module
+    docstring)."""
+    import dataclasses
+    import math
+    import shutil
+    import torch
+    from repro_torch.examples import dynamic_gnn_serving as EG
+    from repro_torch.examples import quickstart as EQ
+    from repro_torch.examples import train_lm as ET
+    from repro_torch.kernels.spmv_ell import ops as ell_ops
+    from repro_torch.optim.adamw import tree_leaves
+    t_phase = time.perf_counter()
+    total, res = {}, {}
+    quiet = lambda *a, **k: None  # noqa: E731
+
+    # quickstart at its own settings, each matcher on the card and (Batch,
+    # Inc) on the CPU with the ELL sweeps' plain versions
+    spec, cfg, query = EQ.stream_config()
+    say(f"  quickstart: stream {spec.n_vertices} vertices, {spec.n_edges} "
+        f"edges ({spec.kind}); query {query.name}")
+    qs = {}
+    for name in EQ.MATCHERS:
+        m = EQ.build(name, query, cfg, "cuda")
+        stores = store_records(m)
+        reset_all_counts()
+        with Capture(ell_ops, cfg.n_labels) as cap:
+            t0 = time.perf_counter()
+            r = EQ.run(m, spec, "cuda")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in read_all_counts().items() if v}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(set(launches) <= {"ell_spmm", "ell_reach"}
+              and launches.get("ell_spmm", 0) > 0
+              and launches.get("ell_reach", 0) > 0,
+              f"examples quickstart {name}: launches {launches}")
+        check({"label_rwr", "bfs"} <= set(cap.inputs),
+              f"examples quickstart {name}: captured {sorted(cap.inputs)}")
+        held = hold_ell(cap.inputs, f"quickstart {name}")
+        row = dict(igpm_s=r["elapsed"], wall_s=r["wall"], run_s=run_s,
+                   patterns=r["patterns"], exact=r["exact"],
+                   step_s=[s.elapsed for s in r["steps"]],
+                   last_recompute=r["steps"][-1].n_recompute,
+                   launches=launches, held=held)
+        say(f"  {name:9s} igpm={r['elapsed']:7.3f}s wall={r['wall']:6.1f}s "
+            f"patterns={r['patterns']:4d} (exact={r['exact']}) last-step "
+            f"recompute={r['steps'][-1].n_recompute}; per step "
+            f"{[round(t * 1e3, 2) for t in row['step_s']]} ms; launches "
+            f"{launches}")
+        if name != "adaptive":
+            cm = EQ.build(name, query, dataclasses.replace(cfg, backend="ell"),
+                          "cpu")
+            cpu_stores = store_records(cm)
+            t0 = time.perf_counter()
+            cr = EQ.run(cm, spec, "cpu")
+            row["cpu_s"] = time.perf_counter() - t0
+            check([step_counts(s) for s in r["steps"]]
+                  == [step_counts(s) for s in cr["steps"]],
+                  f"examples quickstart {name}: card and CPU step counts "
+                  f"differ")
+            worst = 0.0
+            for a, b in zip(stores, cpu_stores, strict=True):
+                check(sorted(a) == sorted(b), f"examples quickstart {name}: "
+                                              f"card and CPU stores differ")
+                for key, (good, exact) in a.items():
+                    check(exact == b[key][1],
+                          f"examples quickstart {name}: exact flags differ")
+                    worst = max(worst, abs(good - b[key][0]))
+            check(worst <= EX_GOOD_ATOL, f"examples quickstart {name}: "
+                                         f"goodness differs by {worst}")
+            row["max_goodness_diff"] = worst
+            say(f"  quickstart {name}: card == CPU (backend ell) on "
+                f"{len(stores)} steps, {r['patterns']} patterns, max "
+                f"goodness diff {worst:.3e}; CPU run {row['cpu_s']:.1f} s")
+            del cm, cr
+        qs[name] = row
+        del m, r, cap
+    b, i = qs["batch"]["igpm_s"], qs["inc"]["igpm_s"]
+    qs["speedup_inc_vs_batch"] = b / max(i, 1e-9)
+    qs["speedup_adaptive_vs_inc"] = i / max(qs["adaptive"]["igpm_s"], 1e-9)
+    say(f"  quickstart: incremental speedup vs batch "
+        f"{qs['speedup_inc_vs_batch']:.2f}x, adaptive vs inc "
+        f"{qs['speedup_adaptive_vs_inc']:.2f}x (at scale 0.01, one card); "
+        f"patterns batch={qs['batch']['patterns']} "
+        f"adaptive={qs['adaptive']['patterns']}")
+    res["quickstart"] = qs
+    torch.cuda.empty_cache()
+
+    # dynamic_gnn_serving: the CPU draws the weights, features and agent
+    cpu = EG.build("cpu")
+    card = EG.build("cuda", params=tree_to(cpu["params"], "cuda"),
+                    feats=cpu["feats"].to("cuda"),
+                    agent=cpu["pem"].agent.state_dict())
+    reset_all_counts()
+    t0 = time.perf_counter()
+    got = EG.run(card, reward_time=seeded_time(),
+                 print_fn=lambda line: say(f"  gnn: {line}"))
+    gnn_s = time.perf_counter() - t0
+    check_no_launches(read_all_counts(), "examples dynamic_gnn_serving")
+    want = EG.run(cpu, reward_time=seeded_time(), print_fn=quiet)
+    for a, w in zip(got, want, strict=True):
+        check(bool((a["mask"] == w["mask"]).all()) and a["frac"] == w["frac"]
+              and a["c"] == w["c"], "examples dynamic_gnn_serving: card and "
+                                    "CPU recompute sets or c differ")
+        err = float((a["emb"].cpu() - w["emb"]).abs().max())
+        check(err <= EX_EMB_RTOL * float(w["emb"].abs().max()),
+              f"examples dynamic_gnn_serving: embeddings differ by {err}")
+    res["dynamic_gnn_serving"] = dict(
+        run_s=gnn_s, c=[a["c"] for a in got],
+        recompute=[int(a["mask"].sum()) for a in got],
+        drift=[a["drift"] for a in got],
+        t_full_ms=[a["t_full"] * 1e3 for a in got],
+        t_pem_ms=[a["t_pem"] * 1e3 for a in got])
+    say(f"  dynamic_gnn_serving: card == CPU recompute sets and c over "
+        f"{len(got)} steps, no port kernel; t_full "
+        f"{[round(a['t_full'] * 1e3, 2) for a in got]} ms, t_pem "
+        f"{[round(a['t_pem'] * 1e3, 2) for a in got]} ms")
+    del cpu, card, got, want
+
+    # train_lm: tiny whole, tiny killed at 50 and restarted, smollm
+    base = ROOT / "build" / "examples_train_lm"
+    shutil.rmtree(base, ignore_errors=True)
+    tiny, batch, seq = ET.preset_config("tiny", 8, 128)
+    try:
+        reset_all_counts()
+        with KernelCapture("train") as kcap:
+            kcap.armed = True
+            whole = ET.build(tiny, EX_TRAIN_STEPS, batch, seq,
+                             str(base / "whole"), "cuda", print_fn=quiet)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mw = ET.run(whole, EX_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            tiny_s = time.perf_counter() - t0
+        launches = {k: v for k, v in read_all_counts().items() if v}
+        want_l = {k: tiny.n_layers * EX_TRAIN_STEPS
+                  for k in ("flash_attention_fwd", "flash_attention_bwd")}
+        check(launches == want_l, f"examples train_lm tiny: launches "
+                                  f"{launches}, expected {want_l}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        held = hold_captured(kcap.inputs, "examples train_lm", timed=True)
+        for k in want_l:
+            check(any(h["kernel"] == k for h in held),
+                  f"examples train_lm: no input of {k} captured")
+        first = ET.build(tiny, EX_TRAIN_STEPS, batch, seq,
+                         str(base / "restart"), "cuda", print_fn=quiet)
+        ET.run(first, EX_TRAIN_KILL)
+        again = ET.build(tiny, EX_TRAIN_STEPS, batch, seq,
+                         str(base / "restart"), "cuda", print_fn=quiet)
+        check(again.start_step == EX_TRAIN_KILL,
+              f"examples train_lm: restarted at {again.start_step}")
+        rest = ET.run(again, EX_TRAIN_STEPS)
+        check(rest.losses == mw.losses[EX_TRAIN_KILL:]
+              and all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(whole.state), tree_leaves(again.state))),
+              "examples train_lm: the restarted run is not bitwise the "
+              "whole run's")
+        smol, sb, ss = ET.preset_config("smollm", 8, 128)
+        loop = ET.build(smol, EX_SMOLLM_STEPS, sb, ss, str(base / "smollm"),
+                        "cuda", learning_rate=6e-4, print_fn=quiet)
+        t0 = time.perf_counter()
+        ms = ET.run(loop, EX_SMOLLM_STEPS)
+        torch.cuda.synchronize()
+        smol_s = time.perf_counter() - t0
+        check(all(math.isfinite(x) for x in ms.losses)
+              and ms.losses[-1] < ms.losses[0],
+              f"examples train_lm smollm: losses {ms.losses}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    res["train_lm"] = dict(
+        tiny_losses=mw.losses, tiny_s=tiny_s,
+        tiny_step_ms=[t * 1e3 for t in mw.step_times],
+        restart_bitwise=True, launches=launches, held=held,
+        smollm_losses=ms.losses, smollm_s=smol_s,
+        smollm_step_ms=[t * 1e3 for t in ms.step_times])
+    say(f"  train_lm tiny: {EX_TRAIN_STEPS} steps in {tiny_s:.2f} s, loss "
+        f"{mw.losses[0]:.4f} -> {mw.losses[-1]:.4f}; restarted at "
+        f"{EX_TRAIN_KILL}, steps {EX_TRAIN_KILL}-{EX_TRAIN_STEPS - 1} "
+        f"bitwise the whole run's; launches {launches}")
+    say(f"  train_lm smollm: {EX_SMOLLM_STEPS} steps in {smol_s:.2f} s, "
+        f"losses {[round(x, 4) for x in ms.losses]}")
+    del whole, first, again, loop
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase examples: {res['phase_s']:.1f} s wall")
+    return total, res
+
+
 # -- phases 16-20: BST and the GNNs (no Pallas kernel lies on these paths) ------
 
 def grads_against(card, cpu):
@@ -5669,14 +5987,17 @@ def phase_serve_sharded_lm(profile: bool = False):
         peak = torch.cuda.max_memory_allocated()
         flips = None
         if moe:
-            # with the batch split every position routes its rows; the
-            # first of each batch shard's positions is read
+            # with the batch split every position routes its group's rows
+            # (the whole batch at a decode step whose group spans the
+            # batch shards); the first position of each group's first
+            # batch shard is read
             homes, _ = batch_groups(mesh, bspec[0])
+            span = model.moe_span(B, 1, len(homes)) if wide else 1
             flips = routing_flips(plain_routes.calls, mesh_routes.calls,
                                   cfg.n_layers,
                                   mesh.size if wide else len(homes),
-                                  homes if wide else range(len(homes)),
-                                  n_tok - 1)
+                                  homes[::span] if wide
+                                  else range(len(homes)), n_tok - 1)
         del plain_routes, mesh_routes
         held = hold_captured(cap.inputs, f"serve-sharded-lm ({tag})",
                              timed=wide)
@@ -5817,9 +6138,64 @@ def phase_serve_sharded_lm(profile: bool = False):
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+    res["v"] = serve_sharded_fault6(mesh)
     res["phase_s"] = time.perf_counter() - t_phase
     say(f"phase serve-sharded-lm: {res['phase_s']:.1f} s wall")
     return total, res
+
+
+def serve_sharded_fault6(mesh) -> dict:
+    """serve-sharded-lm (v) (the module docstring): fault 6's input on the
+    mesh against one card."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.qwen3_moe_30b_a3b import SMOKE
+    from repro_torch.distrib.serving import (make_sharded_decode,
+                                             make_sharded_prefill,
+                                             place_params)
+    from repro_torch.distrib.sharding import P, lm_param_specs
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(SMOKE, moe=dataclasses.replace(
+        SMOKE.moe, n_experts=16))
+    B = S = group = 16
+    plain = TransformerLM(cfg, moe_group_size=group)
+    params = plain.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device="cuda", dtype=torch.int32).expand(B, S)
+    token = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                          device="cuda", dtype=torch.int32).expand(B, 1)
+    model = TransformerLM(cfg, moe_group_size=group,
+                          act_spec=P("data", None, None))
+    placed = place_params(params, mesh, lm_param_specs(params, cfg, "tp2d"))
+    prefill = make_sharded_prefill(model, mesh, P("data", None),
+                                   P(None, "data", "model", None, None),
+                                   capacity=S + 4, policy="tp2d")
+    decode = make_sharded_decode(model, mesh, P("data", None))
+    with torch.no_grad():
+        lg1, (ks, vs) = plain.prefill(params, tokens)
+        ks, vs = (F.pad(c, (0, 0, 0, 0, 0, 4)) for c in (ks, vs))
+        dlg1, _ = plain.decode_step(params, token, (ks, vs), S)
+    lg, cache = prefill(placed, tokens)
+    mesh.reset_bytes()
+    dlg, _ = decode(placed, token, cache, S)
+    step = dict(mesh.bytes)
+    want = serve_tp2d_bytes_want(cfg, mesh.shape, B, S, "decode", group,
+                                 S + 4, token.element_size())
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in ((lg, lg1), (dlg, dlg1))]
+    second = float((dlg[B // 2:] - dlg1[B // 2:]).abs().max())
+    say(f"  serve-sharded-lm (v) fault 6, qwen3-moe SMOKE 16 experts f32, "
+        f"{B} x {S}, every row row 0's, moe_group_size {group}: prefill and "
+        f"decode logits within {errs[0]:.3e} / {errs[1]:.3e} of one card's "
+        f"largest (bound 1e-5; the second batch shard's rows {second:.3e});"
+        f" decode step bytes {step}")
+    check(max(errs) <= 1e-5, f"serve-sharded-lm (v): logits {errs} off "
+                             f"one card's")
+    check(step == want and step.get("moe_group_dispatch", 0) > 0,
+          f"serve-sharded-lm (v): bytes {step}, expected {want}")
+    return dict(rel_err=errs, second_shard_max_abs=second, step_bytes=step)
 
 
 # -- phase 19: the paper's IGPM cells at Table III sizes --------------------------
@@ -6056,6 +6432,8 @@ def main(argv=None) -> int:
     del srv, stream
     torch.cuda.empty_cache()
     phase_cli()
+    say("phase examples:")
+    launches_ex, examples = phase_examples()
     say("phase igpm-cells:")
     launches_igpm, igpm_cells = phase_igpm_cells()
     say("phase serve-lm:")
@@ -6100,6 +6478,7 @@ def main(argv=None) -> int:
                  train_sharded_gnn=train_sharded_gnn,
                  train_sharded_bst=train_sharded_bst,
                  serve_sharded_lm=serve_sharded_lm, igpm_cells=igpm_cells,
+                 examples=examples,
                  lse={lb: rows[("lse", lb)] for lb in
                       ("prefill", "hd40", "f32 hd16")},
                  gemm_transposes={lb: rows[("gemm transposes", lb)]
@@ -6127,6 +6506,7 @@ def main(argv=None) -> int:
             "launches_sharded": {run: r["launches"][name]
                                  for run, r in sharded["runs"].items()},
             "launches_igpm_cells": launches_igpm.get(name, 0),
+            "launches_examples": launches_ex.get(name, 0),
             "max_abs_err": max(head["max_abs_err"], served["max_abs_err"],
                                *(block_rows[(name, d)]["max_abs_err"]
                                  for d in (4, 160))),
@@ -6210,6 +6590,7 @@ def main(argv=None) -> int:
             "launches_train_sharded": launches_sharded.get(name, 0),
             "launches_train_sharded_tp2d": launches_tp2d.get(name, 0),
             "launches_serve_sharded_lm": launches_ssl.get(name, 0),
+            "launches_examples": launches_ex.get(name, 0),
         })
     say(f"serve summary: {json.dumps(serve)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")

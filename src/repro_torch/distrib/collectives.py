@@ -13,7 +13,8 @@ under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``tp_partial``, ``tp_grad_act``, ``tp_grad_partial``, ``xent_stats``,
 ``tp_zero_gather``, ``tp_zero_scatter``, ``tp_model_sum``,
 ``tp_heads_gather``, ``expert_gather``, ``tp_rows_gather``,
-``tp_rows_scatter``, ``tp_logits_gather``, ``sparse_allreduce``,
+``tp_rows_scatter``, ``tp_logits_gather``, ``tp_resplit``,
+``moe_group_probs``, ``moe_group_dispatch``, ``sparse_allreduce``,
 ``hierarchical_psum``), and, where it names both ends, under its source and
 receiver (``Mesh.moves``), so a dry run can read the collective bytes from
 the mesh.
@@ -61,7 +62,13 @@ its jitted prefill and decode: where a weight splits over "data" on its
 output dimension only (a decode step's ``wo`` / ``wd``, the untied head)
 the rows move to its blocks instead of the blocks to the rows
 (:func:`tp_rows_linear`: ``tp_rows_gather``, ``tp_model_sum``,
-``tp_rows_scatter``).
+``tp_rows_scatter``); a decode step's router, split over "data" on its
+input dimension only, is re-split over "model" where it lies and its
+partials summed over "model" (:func:`tp_resplit_linear`: ``tp_resplit``,
+``tp_model_sum``). Where one MoE group spans several batch shards, the
+group's router probabilities and dispatch rows cross "data"
+(:func:`span_gather`, :func:`span_select`: ``moe_group_probs``,
+``moe_group_dispatch``).
 
 A graph whose edge arrays are split into blocks (the GNNs' edge sharding)
 folds its per-block partial sums in block order (:func:`edge_psum`), reads
@@ -94,7 +101,8 @@ SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "tp_act", "tp_partial", "tp_grad_act", "tp_grad_partial",
          "xent_stats", "tp_zero_gather", "tp_zero_scatter", "tp_model_sum",
          "tp_heads_gather", "expert_gather", "tp_rows_gather",
-         "tp_rows_scatter", "tp_logits_gather")
+         "tp_rows_scatter", "tp_logits_gather", "tp_resplit",
+         "moe_group_probs", "moe_group_dispatch")
 span = torch.profiler.record_function
 
 
@@ -1163,16 +1171,19 @@ class TPView(StationaryView):
 
     def __init__(self, x: ShardedTensor, groups: Sequence[Sequence[int]],
                  transposed: bool = False, leaves=None,
-                 move_rows: bool = False):
+                 move_rows: bool = False, one_batch: bool = False):
         super().__init__(x, transposed, grad=leaves is None, leaves=leaves)
         self.groups = tuple(tuple(g) for g in groups)
         self.shard = {p: d for d, g in enumerate(self.groups) for p in g}
         self.move_rows = move_rows
+        # the batch shards split one batch (serving), rather than each
+        # holding a microbatch of its own (the train step)
+        self.one_batch = one_batch
 
     @property
     def T(self) -> "TPView":
         return TPView(self.x, self.groups, not self.transposed, self.leaves,
-                      self.move_rows)
+                      self.move_rows, self.one_batch)
 
     @classmethod
     def serving(cls, x: ShardedTensor, groups: Sequence[Sequence[int]],
@@ -1183,23 +1194,40 @@ class TPView(StationaryView):
         decode step moves the rows to every weight split over the batch
         axes on its output dimension only, and a prefill only to the
         ``head``'s, whose product takes the last rows (:meth:`gathers`);
-        every other product gathers its weight."""
+        a decode step re-splits a weight split over the batch axes on its
+        input dimension only (the router) over "model" where it lies
+        (:meth:`resplits`); every other product gathers its weight."""
         if step not in ("prefill", "decode"):
             raise ValueError(f"TPView.serving: unknown step {step!r}")
         return cls(x, groups, leaves=list(x.shards),
-                   move_rows=step == "decode" or head)
+                   move_rows=step == "decode" or head, one_batch=True)
 
     def gathers(self) -> bool:
         """Whether a product with this (n_in, n_out) weight gathers the
         weight along the batch axes (:func:`tp_linear`) rather than moving
-        the rows to its blocks (:func:`tp_rows_linear`): unless
-        ``move_rows``, always; with it, where the input dimension is split
-        over an axis other than "model" or no dimension is."""
+        the rows to its blocks (:func:`tp_rows_linear`) or re-splitting it
+        over "model" (:meth:`resplits`): unless ``move_rows``, always; with
+        it, where the input dimension is split over an axis other than
+        "model" or no dimension is, but for a weight that
+        :meth:`resplits`."""
         axes = self.x.layout.axes[::-1] if self.transposed \
             else self.x.layout.axes
         batch = [a for dim in axes for a in dim if a != "model"]
         return (not self.move_rows or not batch
-                or any(a != "model" for a in axes[0]))
+                or any(a != "model" for a in axes[0])) \
+            and not self.resplits()
+
+    def resplits(self) -> bool:
+        """Whether a product with this (n_in, n_out) weight re-splits it
+        over "model" where it lies (:func:`tp_resplit_linear`): at a
+        decode step (``move_rows``), a weight whose input dimension splits
+        over the batch axes only and whose output dimension is whole — the
+        router, P("data", None), as the reference's decode HLO permutes
+        its blocks and sums the partials over "model"."""
+        axes = self.x.layout.axes[::-1] if self.transposed \
+            else self.x.layout.axes
+        return (self.move_rows and len(axes) == 2 and not axes[1]
+                and bool(axes[0]) and "model" not in axes[0])
 
     def splits_output(self) -> bool:
         """Whether a product with this (n_in, n_out) weight leaves each
@@ -1526,6 +1554,117 @@ def tp_rows_linear(x: Rows, w: TPView, dtype: torch.dtype) -> Rows:
             with mesh.at(p):
                 out.append(pieces[0] if len(pieces) == 1
                            else torch.cat(pieces, -1))
+    return Rows(out, homes, mesh)
+
+
+def tp_resplit_linear(x: Rows, w: TPView, dtype: torch.dtype) -> Rows:
+    """``x @ w.to(dtype)`` for every position's rows with a weight split
+    over the batch axes on its input dimension only (a decode step's
+    router, P("data", None); serving only: no backward), as the
+    reference's decode HLO runs it: the weight is re-split over "model" —
+    position p takes the input entries of its "model" block (n_in / M of
+    them) from the blocks that hold them, its own where it holds them,
+    else from the holder whose "model" coordinate is p's batch shard index
+    modulo M (``tp_resplit``: on a 2 × 2 mesh the reference's
+    collective-permute between the two off-diagonal positions) — and
+    multiplies its rows' entries of that block into an f32 partial of the
+    whole output, summed over "model" in ascending "model" coordinate and
+    rounded once to ``dtype`` (``tp_model_sum``). With one "model"
+    position the weight comes whole and the product is ``x @ w`` as
+    :func:`tp_linear` takes it."""
+    mesh, homes = x.mesh, list(x.homes)
+    lay = w.x.layout
+    n_in = w.shape[0]
+    D_in = w.counts[0]
+    M = _model_size(mesh)
+    if w.transposed or n_in % M or n_in % D_in:
+        raise ValueError(f"tp_resplit_linear: {w.x!r} does not re-split "
+                         f"over {M} 'model' positions")
+    b_in, b_out = n_in // D_in, n_in // M
+    ys = []
+    with span("tp_resplit"):
+        for p in homes:
+            lo = _model_of(mesh, p) * b_out
+            pieces = []
+            for j in range(lo // b_in, (lo + b_out - 1) // b_in + 1):
+                holders = lay.holders((j, 0))
+                q = (p if p in holders else next(
+                    (h for h in holders
+                     if _model_of(mesh, h) == w.shard[p] % M), holders[0]))
+                a, b = max(lo, j * b_in), min(lo + b_out, (j + 1) * b_in)
+                t = w.leaves[q][a - j * b_in:b - j * b_in]
+                with mesh.at(p), mesh.moving():
+                    if q != p:
+                        mesh.count("tp_resplit", _nbytes(t), frm=q, to=p)
+                    pieces.append(t.to(mesh.device(p)))
+            with mesh.at(p):
+                blk = (pieces[0] if len(pieces) == 1
+                       else torch.cat(pieces)).to(dtype)
+                xp = x.parts[homes.index(p)]
+                if M == 1:
+                    ys.append(xp @ blk)
+                else:
+                    xf = xp.reshape(-1, n_in)[:, lo:lo + b_out]
+                    y = _mm(xf, blk, torch.float32)
+                    ys.append(y.reshape(*xp.shape[:-1], y.shape[-1]))
+            del pieces
+    if M > 1:
+        ys = _model_allreduce(mesh, homes, ys, dtype)
+    return Rows(ys, homes, mesh)
+
+
+def _span_line(w: TPView, pos: int, shards: int) -> List[int]:
+    """The positions ``pos`` reads from when a group spans ``shards`` batch
+    shards: in each of its group's batch shards, in batch order, the
+    position with ``pos``'s place in that shard's positions."""
+    d = w.shard[pos]
+    i = w.groups[d].index(pos)
+    first = d - d % shards
+    return [w.groups[e][i] for e in range(first, first + shards)]
+
+
+def span_gather(x: Rows, w: TPView, shards: int, name: str) -> Rows:
+    """Per position, its line's tensors (:func:`_span_line`: one per
+    batch shard of its ``shards``-shard group) joined along dim 0 in batch
+    order, each copied from where it lies (``name``); serving only."""
+    mesh, homes = x.mesh, list(x.homes)
+    at = {h: i for i, h in enumerate(homes)}
+    out = []
+    with span(name):
+        for p in homes:
+            got = []
+            with mesh.at(p), mesh.moving():
+                for q in _span_line(w, p, shards):
+                    t = x.parts[at[q]]
+                    if q != p:
+                        mesh.count(name, _nbytes(t), frm=q, to=p)
+                    got.append(t.to(mesh.device(p)))
+            with mesh.at(p):
+                out.append(torch.cat(got))
+    return Rows(out, homes, mesh)
+
+
+def span_select(x: Rows, owner: Rows, w: TPView, shards: int,
+                name: str) -> Rows:
+    """Per position, row i of the tensor its line's position number
+    ``owner[i]`` holds (:func:`_span_line`; each row has one owner, so
+    this is a select, not a sum of zero partials: −0.0 stays), every row
+    a position reads from another copied (``name``); serving only."""
+    mesh, homes = x.mesh, list(x.homes)
+    at = {h: i for i, h in enumerate(homes)}
+    out = []
+    with span(name):
+        for p in homes:
+            got = []
+            with mesh.at(p), mesh.moving():
+                for q in _span_line(w, p, shards):
+                    t = x.parts[at[q]]
+                    if q != p:
+                        mesh.count(name, _nbytes(t), frm=q, to=p)
+                    got.append(t.to(mesh.device(p)))
+            with mesh.at(p):
+                rows = torch.arange(got[0].shape[0], device=mesh.device(p))
+                out.append(torch.stack(got)[owner.parts[at[p]], rows])
     return Rows(out, homes, mesh)
 
 

@@ -30,9 +30,17 @@ of work runs.
   joined over "model" (``tp_logits_gather``). A prefill splits the heads
   over "model" as the train step does (``tp_heads_gather`` where they do
   not divide); a decode step gathers q, k and v whole along "model"
-  (``tp_heads_gather``). The experts split over "model" (E / M each,
-  ``expert_gather``, or every expert's d_ff / M, summed over "model").
-  Each layer's gathered blocks live only while its product runs.
+  (``tp_heads_gather``). A decode step re-splits the router over
+  "model" where it lies (``tp_resplit``) and sums its logits' partials
+  over "model", as the reference's decode HLO does. MoE groups are the
+  reference's, over the whole batch: where one group spans several batch
+  shards (every decode step with B below ``moe_group_size``), each
+  position gathers the group's router probabilities along "data"
+  (``moe_group_probs``), routes the whole group, and takes each dispatch
+  row from the one shard that owns its token (``moe_group_dispatch``).
+  The experts split over "model" (E / M each, ``expert_gather``, or every
+  expert's d_ff / M, summed over "model"). Each layer's gathered blocks
+  live only while its product runs.
 * The batch whole (long_500k): no parameter moves. The model gets a
   ``collectives.StationaryView`` of every placed leaf and the tokens of
   the batch as ``collectives.Rows`` at its home. Each product runs on the
@@ -48,7 +56,9 @@ of work runs.
   home over parameters *stored* by their specs and gathered layer by layer
   there (``ShardView`` / ``local``, read-only here; ``all_gather``), the
   ZeRO-style choice of the sharded train step; with ``act_spec`` and
-  expert-sharded MoE the experts stay where they live.
+  expert-sharded MoE the experts stay where they live. Each batch shard
+  routes its own tokens there, so a prefill whose MoE group would span
+  batch shards is refused (run it under ``tp2d``).
 
 The KV cache is a pair of ``ShardedTensor`` s (L, B, S, KV, hd) placed by
 ``lm_cache_specs``: ``P(None, ba, "model", None, None)`` for B ≥ the
@@ -261,6 +271,12 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
         if B % D:
             raise ValueError(f"batch {B} does not split over {D} shards")
         Bd = B // D
+        if policy == "fsdp" and model.moe_span(B, S, D) > 1:
+            raise NotImplementedError(
+                f"make_sharded_prefill: under fsdp each batch shard of "
+                f"{Bd} x {S} tokens routes alone, but a MoE group of "
+                f"{model.moe_group_size} tokens spans "
+                f"{model.moe_span(B, S, D)} shards; prefill under tp2d")
         with torch.no_grad():
             if policy == "tp2d" and _split(batch_spec):
                 logits, parts = _prefill_split(model, mesh, groups, params,

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distrib.collectives import (StationaryView, TPView,
                                              block_matmul, each, tp_linear,
+                                             tp_resplit_linear,
                                              tp_rows_linear, tp_vocab_xent,
                                              vocab_parallel_xent)
 from repro_torch.kernels import PLAIN_DEVICES
@@ -220,7 +221,9 @@ def linear(x, w, dtype: torch.dtype, bias=None):
     block of the weight gathered along "data" at each position, or, where
     the view says so (``TPView.gathers``: a decode step's row blocks, the
     head), ``tp_rows_linear``: the rows moved to the blocks where they
-    lie; with a :class:`StationaryView` weight (serving under ``tp2d``
+    lie, or, for a decode step's router (``TPView.resplits``),
+    ``tp_resplit_linear``: the weight re-split over "model" where it lies
+    and the partials summed; with a :class:`StationaryView` weight (serving under ``tp2d``
     with the batch whole) ``block_matmul`` of the batch shards' rows
     ``x``."""
     if isinstance(w, TPView):
@@ -229,6 +232,8 @@ def linear(x, w, dtype: torch.dtype, bias=None):
         if bias is not None:
             raise ValueError("linear: a bias beside a weight whose rows "
                              "move to its blocks")
+        if w.resplits():
+            return tp_resplit_linear(x, w, dtype)
         return tp_rows_linear(x, w, dtype)
     if isinstance(w, StationaryView):
         return block_matmul(x, w, dtype, bias)

@@ -42,6 +42,21 @@ and runs its "model" block of the experts: its E / M experts
 (``moe_shard="expert"``, the outputs gathered along "model") or every
 expert's d_ff / M columns (``"ffn"``, the down products' partials summed
 over "model").
+
+Groups are formed as the reference forms them: ``n_groups`` counts the
+groups over every batch shard's tokens together, and group g holds tokens
+[g·T/G, (g+1)·T/G) of the whole batch in (batch, position) order. Where
+that puts whole groups in each batch shard, each shard routes its own. Where
+one group spans several batch shards (a serving step with the batch split
+over "data" and fewer tokens than a group: every decode step with B below
+the group size), it is routed once over all its rows
+(:func:`_moe_across_shards`): each position gathers the group's router
+probabilities along "data" and routes the whole group (the same top-k and
+stable slot sort at every position), fills the group's dispatch buffer with
+its own tokens, takes each slot's row from the one batch shard that owns it
+(``moe_group_dispatch``, a select), runs its experts as the split step
+does, and combines its own tokens. (The train steps hand each batch shard
+a microbatch of its own, which the reference groups alone.)
 """
 
 from __future__ import annotations
@@ -52,10 +67,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
-from repro_torch.distrib.collectives import (Blocks, Rows, TPView, each,
-                                             model_gather, model_slice,
-                                             model_sum, model_sum_grad, send,
-                                             send_slices)
+from repro_torch.distrib.collectives import (Blocks, Rows, TPView,
+                                             _model_of, each, model_gather,
+                                             model_slice, model_sum,
+                                             model_sum_grad, send,
+                                             send_slices, span_gather,
+                                             span_select)
 from repro_torch.kernels.expert_gemm import ExpertGemm
 from repro_torch.models.layers import linear
 
@@ -97,6 +114,33 @@ def _groups(T: int, n_groups: int) -> Tuple[int, int]:
     return G, T // G
 
 
+def batch_shards(x, router) -> int:
+    """The shards of one batch whose tokens ``x`` holds, which the
+    reference groups together: a serving ``TPView`` router's batch shards
+    (the rows at every position), each home of ``Rows``, else one (the
+    ``tp2d`` train step's shards each hold a microbatch of their own,
+    which the reference's step groups alone)."""
+    if isinstance(router, TPView):
+        return len(router.groups) if router.one_batch else 1
+    return len(x.parts) if isinstance(x, Rows) else 1
+
+
+def shard_groups(tokens: int, n_groups: int, shards: int
+                 ) -> Tuple[int, int, int]:
+    """For ``shards`` batch shards of ``tokens`` tokens each and
+    ``n_groups`` groups over all of them (:func:`_groups` of the whole
+    batch): (groups in each shard, tokens a group, shards a group
+    spans). A group spans more than one shard only where it holds more
+    tokens than a shard."""
+    G, S = _groups(tokens * shards, n_groups)
+    if G % shards == 0:
+        return G // shards, S, 1
+    if shards % G == 0:
+        return 1, S, shards // G
+    raise ValueError(f"{G} MoE groups of {S} tokens neither fit into nor "
+                     f"span whole batch shards of {tokens} tokens")
+
+
 def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
           n_groups: int, capacity_factor: float = 1.25) -> Routing:
     """Top-k routing and the per-group sort-based slot assignment of
@@ -108,14 +152,16 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
 
 
 def routing(logits: torch.Tensor, cfg: MoEConfig,
-            capacity_factor: float = 1.25) -> Routing:
-    """:func:`route` from the router's (G, S, E) logits."""
-    G, S, _ = logits.shape
+            capacity_factor: float = 1.25, probs=None) -> Routing:
+    """:func:`route` from the router's (G, S, E) logits, or from their
+    softmax ``probs`` where given (``logits`` then unused)."""
+    if probs is None:
+        probs = torch.softmax(logits.float(), dim=-1)         # (G, S, E)
+    G, S, _ = probs.shape
     E, k = cfg.n_experts, cfg.top_k
     C = moe_capacity(S, E, k, capacity_factor)
-    dev = logits.device
+    dev = probs.device
 
-    probs = torch.softmax(logits.float(), dim=-1)             # (G, S, E)
     gate_vals, expert_idx = top_k_stable(probs, k)            # (G, S, k)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)                # renormalize
@@ -149,12 +195,18 @@ def moe_block(x, params: Dict[str, torch.Tensor],
     or, for the experts, :class:`Blocks` of it along E (the experts where
     they live, as the reference's ``exp_spec`` places them). With x as
     ``Rows`` (and the leaves as ``StationaryView`` s, or ``TPView`` s in the
-    ``tp2d`` train step: :func:`_moe_over_model`) y and aux come as Rows.
+    ``tp2d`` steps: :func:`_moe_over_model`) y and aux come as Rows, and
+    ``n_groups`` counts the groups over every batch shard's tokens
+    (:func:`shard_groups`).
     """
     if isinstance(params["router"], TPView):
         return _moe_over_model(x, params, cfg, n_groups, capacity_factor)
     if isinstance(x, Rows):
-        G, S = _groups(x.shape[0], n_groups)
+        G, S, shards = shard_groups(x.shape[0], n_groups, len(x.parts))
+        if shards > 1:
+            raise NotImplementedError(
+                f"moe_block: a group of {S} tokens spans {shards} batch "
+                f"shards whose weights stay where they lie")
         logits = linear(x, params["router"], x.dtype)
 
         def block(xd, lg, wg, wu, wd):
@@ -181,8 +233,12 @@ def _moe_over_model(x: Rows, params, cfg: MoEConfig, n_groups: int,
     runs all experts on its f / M columns, the down products' partials
     summed over "model" in f32 and rounded once before the combine
     (``tp_model_sum``; the dispatch buffer's gradient partials likewise).
-    Experts on no "model" axis run whole at every position."""
-    G, S = _groups(x.shape[0], n_groups)
+    Experts on no "model" axis run whole at every position. A group that
+    spans batch shards is routed once (:func:`_moe_across_shards`)."""
+    G, S, shards = shard_groups(x.shape[0], n_groups,
+                                batch_shards(x, params["router"]))
+    if shards > 1:
+        return _moe_across_shards(x, params, cfg, shards, capacity_factor)
     logits = linear(x, params["router"], x.dtype)
 
     def dispatch(xd, lg):
@@ -213,6 +269,100 @@ def _moe_over_model(x: Rows, params, cfg: MoEConfig, n_groups: int,
     return y, aux
 
 
+def _moe_across_shards(x: Rows, params, cfg: MoEConfig, shards: int,
+                       capacity_factor: float):
+    """:func:`_moe_over_model` at a serving step where each group spans
+    ``shards`` batch shards (one group per position's rows; no backward),
+    routed once as the reference routes it. Each position's router logits
+    for its own
+    rows (:func:`linear`: at a decode step the router re-split over
+    "model") become probabilities there, which are gathered along its line
+    of the group's shards in batch order (``moe_group_probs``), so every
+    position routes the whole group alike. Each position fills the group's
+    (E·C, d) dispatch buffer with its own tokens' kept slots; the rows a
+    position's experts read (its E / M experts' under
+    ``moe_shard="expert"``, else all) are each taken from the one batch
+    shard that owns the slot's token (``moe_group_dispatch``, a select:
+    the one-device buffer's bits). The experts run as
+    :func:`_moe_over_model` runs them, and each position combines its own
+    tokens in sorted-slot order. ``aux`` is the group's."""
+    view = params["router"]
+    E, k, d = cfg.n_experts, cfg.top_k, x.shape[-1]
+    T = x.shape[0]
+    probs = each(lambda lg: torch.softmax(lg.float(), dim=-1),
+                 linear(x, view, x.dtype))
+    probs = span_gather(probs, view, shards, "moe_group_probs")
+    mesh = x.mesh
+    rs = []                             # a Routing is a tuple: no each()
+    for p, pr in zip(x.homes, probs.parts):
+        with mesh.at(p):
+            rs.append(routing(None, cfg, capacity_factor, probs=pr[None]))
+    lo = {p: view.shard[p] % shards * T for p in x.homes}
+    C = rs[0].C
+    wg, wu, wd = params["wg"], params["wu"], params["wd"]
+    counts = wg.x.layout.counts
+    M = counts[0] if counts[0] > 1 else 1     # the experts over "model"
+
+    # each position's dispatch rows (its share of the experts) filled with
+    # its own tokens' kept slots, and each row's owning shard in the group
+    # (its own where no token fills the row)
+    bufs, owners = [], []
+    for p, xd, rp in zip(x.homes, x.parts, rs):
+        keep, tok, rows = rp.keep[0], rp.tokens[0], rp.rows[0]
+        m = _model_of(mesh, p) if M > 1 else 0
+        a, b = m * (E // M) * C, (m + 1) * (E // M) * C
+        with mesh.at(p):
+            mine = keep & (tok >= lo[p]) & (tok < lo[p] + T)
+            buf = torch.zeros((E * C + 1, d), dtype=xd.dtype,
+                              device=xd.device)
+            buf[torch.where(mine, rows, E * C)] = xd[
+                torch.clamp(tok - lo[p], 0, T - 1)]
+            owner = torch.full((E * C + 1,), lo[p] // T, dtype=torch.int64,
+                               device=xd.device)
+            owner[torch.where(keep, rows, E * C)] = tok // T
+            bufs.append(buf[a:b])
+            owners.append(owner[a:b])
+    x_exp = span_select(Rows(bufs, x.homes, mesh),
+                        Rows(owners, x.homes, mesh), view, shards,
+                        "moe_group_dispatch")
+    del bufs, owners
+    if M > 1:
+        y = each(lambda xm, pg, pu, pd: _experts(
+            xm.view(-1, C, d), pg, pu, pd).view(1, -1, C, d),
+            x_exp, wg, wu, wd)
+        y_exp = model_gather(y, 1, "expert_gather")
+    elif counts[2] > 1:                 # each expert's d_ff over "model"
+        xs = each(lambda xe: xe.view(E, C, d), x_exp)
+        h = each(lambda xe, pg, pu: _gated_experts(xe, pg, pu), xs, wg, wu)
+        y_exp = model_sum(each(lambda hm, pd: ExpertGemm.apply(
+            hm, pd.to(hm.dtype)), h, wd), x.dtype)
+    else:
+        y_exp = each(lambda xe, pg, pu, pd: _experts(
+            xe.view(E, C, d), pg, pu, pd), x_exp, wg, wu, wd)
+    out = []
+    for p, ye, rp in zip(x.homes, y_exp.parts, rs):
+        with mesh.at(p):
+            order = slot_order(rp.perm, k)
+            out.append((_combine(ye.reshape(1, E * C, d), rp,
+                                 order[:, lo[p]:lo[p] + T]),
+                        _aux(rp, cfg)))
+    return (Rows([y for y, _ in out], x.homes, mesh),
+            Rows([a for _, a in out], x.homes, mesh))
+
+
+def _aux(r: Routing, cfg: MoEConfig) -> torch.Tensor:
+    """The Switch aux loss of the routing ``r``: E · mean(fraction routed
+    to e) · mean(router probability of e)."""
+    E, k = cfg.n_experts, cfg.top_k
+    me = r.probs.mean(dim=(0, 1))                             # (E,)
+    # slots per expert: an integer count (exact in any order), as a
+    # scatter-add of fixed length so meta tensors take it too
+    idx = r.expert_idx.reshape(-1)
+    ce = torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx)).float() / (r.G * r.S * k)
+    return E * torch.sum(me * ce)
+
+
 def _dispatch(x: torch.Tensor, r: Routing, cfg: MoEConfig):
     """The Switch aux loss and the (G·E, C, d) dispatch buffer of
     ``moe_block`` after the routing ``r``, and each token's slot order."""
@@ -221,15 +371,7 @@ def _dispatch(x: torch.Tensor, r: Routing, cfg: MoEConfig):
     G, S, C = r.G, r.S, r.C
     N = S * k
     dev = x.device
-
-    # Switch aux loss: E * mean(fraction routed to e) * mean(router prob e)
-    me = r.probs.mean(dim=(0, 1))                             # (E,)
-    # slots per expert: an integer count (exact in any order), as a
-    # scatter-add of fixed length so meta tensors take it too
-    idx = r.expert_idx.reshape(-1)
-    ce = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
-        0, idx, torch.ones_like(idx)).float() / (G * S * k)
-    aux = E * torch.sum(me * ce)
+    aux = _aux(r, cfg)
 
     # each token's k sorted positions, ascending: the order in which the
     # combine adds a token's slots, and the dispatch gather's backward
@@ -249,13 +391,14 @@ def _combine(y_exp: torch.Tensor, r: Routing, order: torch.Tensor
              ) -> torch.Tensor:
     """The (T, d) output from the (G, E·C, d) expert outputs: sorted slot i
     feeds token r.tokens[i]; each token gathers its k slots and adds them
-    in ascending sorted position, starting from 0."""
+    in ascending sorted position, starting from 0. ``order`` may hold a
+    run of each group's tokens only, whose outputs come alone."""
     G, EC, d = y_exp.shape
     N = r.rows.shape[1]
     picked = y_exp.gather(
         1, torch.clamp_max(r.rows, EC - 1)[..., None].expand(G, N, d))
     picked = picked * (r.gates * r.keep).to(y_exp.dtype)[..., None]
-    return sum_slots(picked, order).reshape(G * r.S, d)
+    return sum_slots(picked, order).reshape(G * order.shape[1], d)
 
 
 def _routed(x: torch.Tensor, r: Routing, wg, wu, wd, cfg: MoEConfig

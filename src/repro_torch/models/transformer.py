@@ -89,7 +89,8 @@ from repro_torch.distrib.collectives import (StationaryView, TPView, each,
                                              split_heads)
 from repro_torch.distrib.sharding import P
 from repro_torch.models import layers as L
-from repro_torch.models.moe import init_moe_params, moe_block
+from repro_torch.models.moe import (batch_shards, init_moe_params,
+                                    moe_block, shard_groups)
 
 Params = Dict[str, Any]
 Cache = Tuple[torch.Tensor, torch.Tensor]
@@ -279,8 +280,10 @@ class TransformerLM:
             y = L.swiglu(h, p["wg"], p["wu"], p["wd"])
             aux = each(_no_aux, x)
         else:
+            # the reference's groups: over every batch shard's tokens
             B, S, d = h.shape
-            n_groups = max(1, B * S // self.moe_group_size)
+            T = B * S * batch_shards(h, p["moe"]["router"])
+            n_groups = max(1, T // self.moe_group_size)
             y, aux = moe_block(each(torch.reshape, h, (B * S, d)), p["moe"],
                                cfg.moe, n_groups)
             y = each(torch.reshape, y, (B, S, d))
@@ -288,6 +291,16 @@ class TransformerLM:
                 y = each(torch.add, y,
                          L.swiglu(h, p["sg"], p["su"], p["sd"]))
         return each(torch.add, x, y), aux
+
+    def moe_span(self, batch: int, seq: int, shards: int) -> int:
+        """How many of ``shards`` equal batch shards of a (batch, seq)
+        batch one MoE group spans: 1 without MoE layers or where the
+        reference's groups lie inside the shards."""
+        if self.cfg.moe is None:
+            return 1
+        T = batch * seq
+        return shard_groups(T // shards, max(1, T // self.moe_group_size),
+                            shards)[2]
 
     def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -270,13 +270,16 @@ def test_tp2d_decode_cell_splits_as_the_reference():
     ``chip_smoke.serve_tp2d_bytes_want`` — among them the lookup's, each
     batch shard's first position sending its 32 ids to the 15 blocks it
     does not hold and delivering the rows to the 3 other positions of its
-    group — every weight byte moves along "data" (between positions of one
-    "model" coordinate) and every sum along "model"; the busiest
+    group — every gathered weight byte and the MoE group's exchange (one
+    group of 128 tokens spans the 4 batch shards) move along "data"
+    (between positions of one "model" coordinate) and every sum along
+    "model"; the busiest
     position holds its share of the parameters under the reference's
     specs (each leaf's bytes over its block count) plus its cache block
     within 5 %, and its peak is within 5 % of that plus one layer's
-    gathered "model" blocks (the reference's scan gathers inside its loop
-    body: one layer's blocks are live at a time). smollm-135m's long_500k
+    gathered "model" blocks and the router's rows of the position's
+    "model" block (the reference's scan gathers inside its loop body: one
+    layer's blocks are live at a time). smollm-135m's long_500k
     (B 1, the batch whole) still moves no parameter."""
     import chip_smoke
     from repro_torch.distrib.sharding import (Layout, lm_param_specs,
@@ -292,9 +295,11 @@ def test_tp2d_decode_cell_splits_as_the_reference():
     assert coll["emb_ids"] == 4 * 15 * 32 * 4
     assert coll["emb_rows"] == 4 * (15 * 32 * d // 4 + 3 * 32 * d) * 2
     assert coll["tp_zero_gather"] > 0 and "all_gather" not in coll
+    assert coll["moe_group_dispatch"] > 0
     for (name, a, b) in mesh.moves:
         ca, cb = mesh.coords(a), mesh.coords(b)
-        if name == "tp_zero_gather":
+        if name in ("tp_zero_gather", "moe_group_probs",
+                    "moe_group_dispatch"):
             assert ca["model"] == cb["model"] and ca["data"] != cb["data"]
         if name == "tp_model_sum":
             assert ca["data"] == cb["data"] and ca["model"] != cb["model"]
@@ -308,16 +313,19 @@ def test_tp2d_decode_cell_splits_as_the_reference():
     share = sum(shares)
     cache = 2 * cfg.n_layers * (128 // 4) * (32768 // 4) \
         * cfg.n_kv_heads * cfg.head_dim * 2
-    # one layer's gathered blocks: each column weight's (and the
-    # router's) "model" block, whole along "data"
+    # one layer's gathered blocks: each column weight's "model" block,
+    # whole along "data", and the router's rows of the position's "model"
+    # block (re-split over "model", ``tp_resplit``)
     lp, sp = params["layers"][0], specs["layers"][0]
     layer = 0
-    for x, s in [(lp[k], sp[k]) for k in ("wq", "wk", "wv")] + [
-            (lp["moe"]["router"], sp["moe"]["router"])]:
+    for x, s in [(lp[k], sp[k]) for k in ("wq", "wk", "wv")]:
         lay = Layout(mesh, s, x.shape)
         model = math.prod(mesh.axis_size(a) for axes in lay.axes
                           for a in axes if a == "model")
         layer += x.numel() * x.element_size() // model
+    router = lp["moe"]["router"]
+    layer += router.numel() * router.element_size() // mesh.axis_size(
+        "model")
     mem = rec["memory"]
     assert abs(mem["argument_bytes"] - (share + cache)) <= 0.05 * (share
                                                                    + cache)

@@ -113,7 +113,8 @@ SUM_MOVES = {"tp_model_sum"}
 SPLIT = WEIGHT_MOVES | SUM_MOVES | {
     "tp_rows_gather", "tp_rows_scatter", "tp_heads_gather",
     "tp_logits_gather", "expert_gather", "emb_ids", "emb_rows",
-    "cache_scatter", "attn_partial", "logits_gather"}
+    "cache_scatter", "attn_partial", "logits_gather", "tp_resplit",
+    "moe_group_probs", "moe_group_dispatch"}
 MOE16_FFN = dataclasses.replace(
     MOE16, moe=dataclasses.replace(MOE16.moe, moe_shard="ffn"))
 # the models the reference's serving HLO is read for, and the formula held
@@ -566,6 +567,27 @@ def test_tp2d_split_serving_repeats_bitwise(name):
 # -- against the reference's jitted prefill and decode -------------------------------
 
 _SERVE_CHILD = HLO_AXES + r'''
+from repro.launch.roofline import _COLLECTIVE_RE
+
+
+def weight_gathers(hlo):
+    # operand bytes a chip of the all-gathers along "data" of rank-2
+    # operands, the weights' blocks: the rows a product gathers are
+    # (B, S, ·) and the routing's probabilities (G, S, E); the routing's
+    # sorted ids (G, N) are told apart by their op (top_k, sort)
+    keep = []
+    for l in hlo.splitlines():
+        m = _COLLECTIVE_RE.search(l)
+        if m:
+            shape = re.match(r"[a-z0-9]+\[([0-9,]*)\]", m.group(2) or "")
+            if not (m.group(3) == "all-gather" and axis(l) == "data"
+                    and shape and len(shape.group(1).split(",")) == 2
+                    and "top_k" not in l and "sort" not in l):
+                continue
+        keep.append(l)
+    return collective_bytes("\n".join(keep)).get("all-gather", 0)
+
+
 import json, sys
 import jax
 import jax.numpy as jnp
@@ -602,10 +624,12 @@ for case in json.loads(sys.argv[1]):
         cache = tuple(np.pad(np.asarray(c), pad) for c in (k, v))
         n = jnp.asarray(S, jnp.int32)
         dlg, _ = decode(params, token, cache, n)
-        hlo = {"prefill": read_hlo(prefill.lower(params, tokens).compile()
-                                   .as_text()),
-               "decode": read_hlo(decode.lower(params, token, cache, n)
-                                  .compile().as_text())}
+        texts = {"prefill": prefill.lower(params, tokens).compile()
+                 .as_text(),
+                 "decode": decode.lower(params, token, cache, n).compile()
+                 .as_text()}
+        hlo = {k: read_hlo(t) for k, t in texts.items()}
+        hlo["weights"] = {k: weight_gathers(t) for k, t in texts.items()}
     out[case["id"]] = {"prefill": np.asarray(lg, np.float32).tolist(),
                        "decode": np.asarray(dlg, np.float32).tolist(),
                        "hlo": hlo}
@@ -623,15 +647,39 @@ def _serve_case(name, batch):
             "token": rng.integers(0, cfg.vocab_size, (B, 1)).tolist()}
 
 
+# fault 6's input: B 16 with the batch split over "data" on 2 × 2, one MoE
+# group of 16 tokens at a decode step spanning both batch shards; every row
+# row 0's tokens (the two shards' tokens pick the same experts, so each
+# expert's 8 slots overflow), or distinct random rows
+FAULT6 = {"expert-same": ("qwen3-moe-e16", True),
+          "ffn-same": ("qwen3-moe-e16-ffn", True),
+          "expert-random": ("qwen3-moe-e16", False)}
+
+
+def _fault6_case(key):
+    name, same = FAULT6[key]
+    cfg = SPLIT_MODELS[name]
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, cfg.vocab_size, (16, 16))
+    token = rng.integers(0, cfg.vocab_size, (16, 1))
+    if same:
+        tokens[:], token[:] = tokens[0], token[0]
+    return {"id": f"fault6-{key}", "cfg": dataclasses.asdict(cfg),
+            "split": True, "extra": 4, "tokens": tokens.tolist(),
+            "token": token.tolist()}
+
+
 @pytest.fixture(scope="module")
 def reference_serving():
     """The reference's jitted ``prefill`` and ``decode_step`` of every case
     under the ``tp2d`` ``in_shardings`` on a 2 × 2 JAX mesh of four host
-    devices (one child process): logits and the compiled HLO's collective
-    bytes a chip by kind and axis, per case id."""
+    devices (one child process): logits, the compiled HLO's collective
+    bytes a chip by kind and axis, and its weight gathers along "data" a
+    chip (``weights``), per case id."""
     pytest.importorskip("jax")
     cases = [_serve_case(n, b) for n in sorted(SPLIT_MODELS)
-             for b in ("split", "whole")]
+             for b in ("split", "whole")] + [_fault6_case(k)
+                                             for k in sorted(FAULT6)]
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["JAX_PLATFORMS"] = "cpu"
@@ -705,6 +753,15 @@ def test_tp2d_serving_splits_as_the_reference_jitted_steps(
                                rtol=1e-4, atol=1e-4)
     params_bytes = sum(int(np.asarray(x).nbytes)
                        for x in jax.tree_util.tree_leaves(tree))
+    if split:
+        # the decode step's weight bytes along "data" a position: the
+        # reference's all-gathers of weight blocks (its router is permuted
+        # between the off-diagonal positions, the port's re-split as
+        # ``tp_resplit``, neither along "data")
+        assert dec_bytes["tp_zero_gather"] // 4 == \
+            want["hlo"]["weights"]["decode"], (dec_bytes, want["hlo"])
+        assert dec_bytes.get("tp_resplit", 0) == (
+            2 * 2 * 32 * 16 * 4 if cfg.moe else 0)
     for hlo, moved, by_axis in ((want["hlo"]["prefill"], pre_bytes, pre),
                                 (want["hlo"]["decode"], dec_bytes, dec)):
         if split:
@@ -718,3 +775,58 @@ def test_tp2d_serving_splits_as_the_reference_jitted_steps(
             # the reference's "data" gathers move rows, not weights
             assert hlo.get("all-gather data", 0) < params_bytes / 1000
             assert set(moved) <= ACTIVATIONS, moved
+
+
+@pytest.mark.parametrize("key", sorted(FAULT6))
+def test_split_decode_routes_one_group_over_the_batch(reference_serving,
+                                                      key):
+    """Fault 6: with the batch split over "data" a decode step's MoE group
+    (16 tokens, ``moe_group_size`` 16, B 16) spans both batch shards, and
+    the reference routes it once over the whole batch. With every row row
+    0's tokens each picked expert gets 16 slots for its capacity of 8, so
+    the reference drops the second shard's, which routing each shard alone
+    would keep. The 2 × 2 split prefill and one ``make_sharded_decode``
+    step (16 × 16 tokens, f32) within ``LOGIT_RTOL`` (1e-5 of the largest
+    logit) of the one-device ``prefill`` / ``decode_step`` on the same
+    tokens, and within rtol / atol 1e-4 of the reference's jitted steps;
+    the decode step's bytes ``chip_smoke.serve_tp2d_bytes_want``'s, the
+    group's exchange (``moe_group_probs``, ``moe_group_dispatch``) along
+    "data" only."""
+    import jax
+    from repro.models.transformer import TransformerLM as RLM
+    from test_torch_lm import _jax_cfg
+    cases, ref = reference_serving
+    case, want = cases[f"fault6-{key}"], ref[f"fault6-{key}"]
+    cfg = SPLIT_MODELS[FAULT6[key][0]]
+    tree = jax.tree_util.tree_map(np.asarray, RLM(_jax_cfg(cfg)).init(
+        jax.random.PRNGKey(0)))
+    params = params_from_jax(cfg, tree, device="cpu")
+    tokens = torch.tensor(case["tokens"], dtype=torch.int32)
+    token = torch.tensor(case["token"], dtype=torch.int32)
+    B, S = tokens.shape
+    plain = TransformerLM(cfg, moe_group_size=16)
+    lg1, (ks, vs) = plain.prefill(params, tokens)
+    ks, vs = (F.pad(c, (0, 0, 0, 0, 0, 4)) for c in (ks, vs))
+    dlg1, _ = plain.decode_step(params, token, (ks, vs), S)
+    mesh = _mesh((2, 2))
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    placed = place_params(params, mesh, lm_param_specs(params, cfg, "tp2d"))
+    prefill = make_sharded_prefill(model, mesh, P("data", None),
+                                   P(None, "data", "model", None, None),
+                                   capacity=S + 4, policy="tp2d")
+    decode = make_sharded_decode(model, mesh, P("data", None))
+    lg, cache = prefill(placed, tokens)
+    mesh.reset_bytes()
+    dlg, _ = decode(placed, token, cache, S)
+    for got, one, ref_lg in ((lg, lg1, want["prefill"]),
+                             (dlg, dlg1, want["decode"])):
+        err = float((got - one).abs().max())
+        assert err <= LOGIT_RTOL * float(one.abs().max()), err
+        np.testing.assert_allclose(got.numpy(), np.array(ref_lg),
+                                   rtol=1e-4, atol=1e-4)
+    assert dict(mesh.bytes) == chip_smoke.serve_tp2d_bytes_want(
+        cfg, (2, 2), B, S, "decode", 16, S + 4)
+    assert mesh.bytes["moe_group_dispatch"] > 0
+    assert _along(mesh, mesh.moves, {"moe_group_probs",
+                                     "moe_group_dispatch"}, "data")
