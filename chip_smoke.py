@@ -206,14 +206,19 @@ Phases, each printed on its own lines:
    multiplied at every position, a row block's partials and a column
    block's dX partials summed over "model", the heads and the experts
    split over "model", the cross entropy per vocab block with only
-   per-row statistics crossing "model"): (i) train-lm's model, batches and
-   schedule (``act_spec``, batch over "data"), 2 steps, then 2 more from
-   the seed, bitwise equal; (iii) (i) with ``moe_shard="ffn"`` (each
-   expert's d_ff over "model"), 2 steps; (ii) smollm-135m whole with its
-   tied head (d over "data", V over "model"; its 9 heads gathered at both
-   "model" positions), train-smollm's batches, 2 steps; each step's loss
+   per-row statistics crossing "model"; one round per microbatch, its
+   rows split over "data"; the clip's norm one scalar all-reduce): (i)
+   train-lm's model, batches and schedule (``act_spec``, batch over
+   "data") at the reference train cell's one microbatch, 2 steps, then 2
+   more from the seed, bitwise equal; (iii) (i) with ``moe_shard="ffn"``
+   (each expert's d_ff over "model"), 2 steps; (ii) smollm-135m whole with
+   its tied head (d over "data", V over "model"; its 9 heads gathered at
+   both "model" positions), train-smollm's batches in its 2 microbatches,
+   2 steps; each step's loss
    within ``TP_TRAIN_LOSS_RTOL`` and grad norm within
-   ``TP_TRAIN_NORM_RTOL`` of the one-card run's, every collective's bytes
+   ``TP_TRAIN_NORM_RTOL`` of a bf16 one-card run at the same
+   microbatches ((i), (iii): one made in the phase at the mesh's one
+   microbatch; (ii): train-smollm's), every collective's bytes
    equal to ``tp2d_bytes_want`` (none of ``block_matmul``'s), the peak
    under ``TP_TRAIN_PEAK``, the launches exactly ``tp2d_launch_want``'s
    (per position, layer and round a flash forward, again in the
@@ -222,8 +227,8 @@ Phases, each printed on its own lines:
    position, and for (i) and (iii) step 0's top-8 choices that differ
    from one card's per layer; each leaf's AdamW first moment after the 2
    steps (a sum of gradients of the initial weights) within
-   ``TP_LEAF_FACTOR`` times an f32 one-card run's gap from the bf16
-   one-card run's; and the first input that each kernel took at each
+   ``TP_LEAF_FACTOR`` times an f32 one-card run's gap from that bf16
+   one-card run's, at the same microbatches; and the first input that each kernel took at each
    shape ((i)'s second run and (iii): flash forward and backward, the
    expert GEMM's tiles, dX and dW; (ii): flash) held against its plain
    version and timed beside SDPA or cuBLAS, with its bound;
@@ -326,7 +331,16 @@ Phases, each printed on its own lines:
     drops the second shard's slots: the split prefill and one decode step
     within 1e-5 of the largest logit of one card's ``prefill`` /
     ``decode_step``, the step's bytes ``serve_tp2d_bytes_want``'s with the
-    group's exchange (``moe_group_probs``, ``moe_group_dispatch``);
+    group's exchange (``moe_group_probs``, ``moe_group_dispatch``). (vi)
+    fault 7's case: qwen3-moe-30b-a3b at its published widths, serve-lm's
+    8 layers, an ``fsdp`` prefill of 16 × 256 tokens with the batch over
+    "data" and ``moe_group_size`` 4,096, so one group spans both batch
+    shards: both shards' rows run at the first home and the second's logits
+    and keys and values go to its home (``prefill_span``); logits within
+    serve-lm's bf16 consistency bounds of one card's (bitwise printed),
+    bytes ``serve_fsdp_bytes_want``'s, launches exactly (flash once a
+    layer, the expert products at both expert shards), the flash and tiles
+    inputs held and timed (``hold_captured``);
 19. igpm-cells (after the CLI) — the paper's own cell at the four Table
     III shapes' published sizes (friends2008: 224,879 vertices, 7,744,000
     arcs; L 4, 5 sweeps): the label-RWR refresh on one card through an ELL
@@ -433,6 +447,10 @@ SHARD_LOSS_RTOL = 1e-4
 TP_TRAIN_LOSS_RTOL, TP_TRAIN_NORM_RTOL = 1e-3, 1e-2
 TP_TRAIN_STEPS = 2
 TP_TRAIN_PEAK = 75e9
+# train-sharded-tp2d (i), (iii): the reference train cell's microbatches
+# (``make_train_step(model.loss, TCFG)``), the rows of each split over
+# "data"; (ii) takes train-smollm's SMOL_MICRO
+TP_MICRO = 1
 # train-sharded-tp2d's leaf check: per leaf, ||m - m_card|| / ||m_card||
 # of AdamW's first moment after TP_TRAIN_STEPS steps (a sum of both steps'
 # clipped gradients, all of the initial weights), mesh against one card,
@@ -488,6 +506,11 @@ LOSS_RTOL = 1e-5   # TD losses, card against CPU (adaptive agreement)
 SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT, SHARD_SERVE_TOKENS = 16, 2048, 8
 # serve-sharded-lm (iii): deepseek-7b whole, prefill and decode under tp2d
 TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_TOKENS = 16, 1024, 8
+# serve-sharded-lm (vi), fault 7: an fsdp prefill of 16 prompts of 256
+# tokens with the batch over "data" (the cells' rule at B >= 16) and MoE
+# groups of 4,096 tokens (the cells' cap), so one group spans both batch
+# shards of 8 x 256
+FAULT7_BATCH, FAULT7_PROMPT, FAULT7_GROUP = 16, 256, 4096
 # sharded logits against one card's: serve-lm's bf16 consistency bounds
 # (LM_CONSIST_ATOL on |diff|, LM_CONSIST_CORR on the correlation), which
 # hold one function computed in two orders in bf16. The split decode
@@ -1663,8 +1686,6 @@ def phase_train_lm(profile: bool = False):
         state, m = inner(state, *(torch.as_tensor(a, device="cuda")
                                   for a in pipe.batch_at(i)))
         again.append((float(m["loss"]), float(m["grad_norm"])))
-        if i == TP_TRAIN_STEPS - 1:   # for train-sharded-tp2d's leaf check
-            moments = host_moments(state)
     del state
     torch.cuda.empty_cache()
     say(f"  train-lm again from seed 0 (no checkpoint): (loss, grad_norm) "
@@ -1682,8 +1703,7 @@ def phase_train_lm(profile: bool = False):
         tokens_per_s=[tokens / dt for dt in metrics.step_times],
         peak_bytes=peak, run_s=run_s, checkpoint_and_batches_s=ckpt_s,
         checkpoint_bytes=n_ckpt, phase_s=phase_s, profile_parts=parts,
-        repeat_bitwise=again == first, digests=digests,
-        moments=moments)
+        repeat_bitwise=again == first, digests=digests)
 
 
 def leaf_digest(t) -> int:
@@ -2097,30 +2117,43 @@ def moment_gaps(state, ref) -> list:
     return out
 
 
-def f32_control(cfg, model_kw: dict, tcfg, pipe, micro: int, ref) -> dict:
-    """The control of train-sharded-tp2d's leaf check: ``cfg``'s one-card
-    step in f32 compute (masters, seed and batches as the bf16 run's),
-    ``TP_TRAIN_STEPS`` steps; per leaf ``moment_gaps`` against the bf16
-    one-card run's moments ``ref`` — the size of a rounding-only
-    difference in each leaf's gradients, router flips included."""
-    import dataclasses
+def one_card_steps(cfg, model_kw: dict, tcfg, pipe, micro: int,
+                   ref=None) -> dict:
+    """``cfg``'s one-card step (``make_train_step`` at ``micro``
+    microbatches; masters, seed and batches as the mesh's),
+    ``TP_TRAIN_STEPS`` steps: each step's loss, grad norm and time. Without
+    ``ref``, the AdamW first moments after the steps (``host_moments``):
+    the reference that train-sharded-tp2d's mesh is held to at its own
+    microbatches. With ``ref`` (such a run's moments), per leaf
+    ``moment_gaps`` against it instead: run in f32 compute, the control of
+    the leaf check — the size of a rounding-only difference in each leaf's
+    gradients, router flips included."""
     import torch
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.train.state import make_train_step, new_train_state
-    model = TransformerLM(dataclasses.replace(cfg, dtype="float32"),
-                          **model_kw)
+    model = TransformerLM(cfg, **model_kw)
     state = new_train_state(model.init(
         torch.Generator(device="cuda").manual_seed(0), dtype=torch.float32))
     step = make_train_step(model.loss, tcfg, microbatches=micro)
-    losses = []
+    losses, norms, times = [], [], []
     for i in range(TP_TRAIN_STEPS):
-        state, m = step(state, *(torch.as_tensor(a, device="cuda")
-                                 for a in pipe.batch_at(i)))
-        losses.append((float(m["loss"]), float(m["grad_norm"])))
-    gaps = moment_gaps(state, ref)
+        batch = [torch.as_tensor(a, device="cuda") for a in pipe.batch_at(i)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    tokens = pipe.batch * pipe.seq_len
+    out = dict(losses=losses, grad_norm=norms, step_s=times,
+               tokens_per_s=[tokens / t for t in times])
+    if ref is None:
+        out["moments"] = host_moments(state)
+    else:
+        out["gaps"] = moment_gaps(state, ref)
     del state, step, model
     torch.cuda.empty_cache()
-    return dict(losses=losses, gaps=gaps)
+    return out
 
 
 class KernelCapture:
@@ -2426,18 +2459,22 @@ def hold_captured(inputs, tag: str,
 
 def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
     """Every collective's bytes of one ``make_tp2d_train_step`` step on a
-    ("data", "model") mesh of ``shape``, the batch split over "data", each
-    position holding ``rows`` rows in each of ``rounds`` rounds, from the
-    config and the ``tp2d`` rules (each leaf's blocks from its spec on a
-    meta mesh of that shape): per round the weights gathered along "data"
-    in the compute dtype and reduce-scattered back in f32, the sums over
-    "model" (a reduce-scatter of the partial, an all-gather of the rounded
-    sum), the heads and experts over "model", the loss's statistics and
-    the two-axis lookup at each batch shard's first position, its rows
-    delivered to the shard's other positions, the forward's moves inside a
-    layer again in
-    ``remat``'s recompute; per step the replicas' sums, the norm's gather
-    and AdamW's sends (f32)."""
+    ("data", "model") mesh of ``shape``, the batch split over "data", one
+    round per microbatch (``rounds`` of them), each position holding
+    ``rows`` of the microbatch's rows (B/(M·D)·S), from the config and the
+    ``tp2d`` rules (each leaf's blocks from its spec on a meta mesh of that
+    shape): per round the weights gathered along "data" in the compute
+    dtype and reduce-scattered back in f32, the sums over "model" (a
+    reduce-scatter of the partial, an all-gather of the rounded sum), the
+    heads and experts over "model", the loss's statistics, its sum and
+    count over "data" (a 4-byte f32 and a 4-byte int32 from each other
+    batch shard, ``loss_sum``), each MoE layer's aux terms over "data" (E
+    f32 means and E int32 counts, ``moe_aux_sum``) and the two-axis lookup
+    at each batch shard's first position, its rows delivered to the
+    shard's other positions, the forward's moves inside a layer again in
+    ``remat``'s recompute; per step the replicas' sums, the norm's 4-byte
+    scalar from every position to every other (``norm_sum``) and AdamW's
+    sends (f32)."""
     import collections
     import math
     import torch
@@ -2519,6 +2556,7 @@ def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
                                          * n * c // M)
             elif M > 1 and wg.counts[2] > 1:  # their d_ff over "model"
                 out["tp_model_sum"] += rounds * (again + 1) * allreduce(n, c)
+            out["moe_aux_sum"] += rounds * again * N * (D - 1) * 8 * E
     direct += params["ln_f"].numel()
     head = specs["embed"] if cfg.tie_embeddings else specs["head"]
     w = params["embed"] if cfg.tie_embeddings else params["head"]
@@ -2534,6 +2572,8 @@ def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
                                      + (M - 1) * R * d) * 4
     out["emb_grad"] += rounds * D * (K * C - 1) * R * d // C * 4
     out["grad_psum"] += (D - 1) * 4 * direct
+    out["loss_sum"] += rounds * N * (D - 1) * 8
+    out["norm_sum"] += N * (N - 1) * 4
 
     def leaves(p, s):
         if isinstance(p, dict):
@@ -2546,7 +2586,6 @@ def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
             yield p, lay(p, s)
     for x, ly in leaves(params, specs):
         blocks = math.prod(ly.counts)
-        out["norm_gather"] += x.numel() * 4 - x.numel() * 4 // blocks
         out["grad_send"] += x.numel() * 4 * (N - blocks) // blocks
     return {k: v for k, v in out.items() if v}
 
@@ -2740,7 +2779,11 @@ def serve_fsdp_bytes_want(cfg, shape, batch: int, seq: int, group: int,
     dispatch buffer (``group`` tokens a routing group) and sends its
     outputs back (``expert_send``); the cache blocks of the group's other
     positions are filled from the home (``cache_scatter``, bf16); the
-    batch shards' last logits go to position 0 (``logits_gather``)."""
+    batch shards' last logits go to position 0 (``logits_gather``). Where
+    a routing group spans several batch shards, each run of them is
+    computed at its first home over the run's rows, and the run's other
+    shards get their last logits and their keys and values from there
+    (``prefill_span``)."""
     import collections
     import torch
     from repro_torch.distrib.collectives import batch_groups
@@ -2755,11 +2798,13 @@ def serve_fsdp_bytes_want(cfg, shape, batch: int, seq: int, group: int,
     homes, groups = batch_groups(mesh, "data")
     c = 2 if cfg.dtype == "bfloat16" else 4
     Bd = batch // D
+    span = TransformerLM(cfg, moe_group_size=group).moe_span(batch, seq, D)
     moved = collections.Counter()
 
     def remote(ly):
-        """Per home, the blocks of ``ly`` that it reads from elsewhere."""
-        return [block for home, grp in zip(homes, groups)
+        """Per run's home, the blocks of ``ly`` that it reads from
+        elsewhere."""
+        return [block for home, grp in zip(homes[::span], groups[::span])
                 for block in ly.blocks()
                 if ([p for p in ly.holders(block) if p in grp]
                     or ly.holders(block))[0] != home]
@@ -2774,7 +2819,7 @@ def serve_fsdp_bytes_want(cfg, shape, batch: int, seq: int, group: int,
         if kept:                         # the experts where they live
             ly = Layout(mesh, sp["moe"]["wg"], lp["moe"]["wg"].shape)
             E, d = cfg.moe.n_experts, cfg.d_model
-            G, S = _groups(Bd * seq, max(1, Bd * seq // group))
+            G, S = _groups(span * Bd * seq, max(1, span * Bd * seq // group))
             C = moe_capacity(S, E, cfg.moe.top_k)
             moved["expert_send"] += (2 * len(remote(ly)) * G
                                      * ly.block_shape[0] * C * d * c)
@@ -2794,6 +2839,9 @@ def serve_fsdp_bytes_want(cfg, shape, batch: int, seq: int, group: int,
             moved["cache_scatter"] += (2 * cfg.n_layers * Bb * valid
                                        * cfg.n_kv_heads * cfg.head_dim * 2)
     moved["logits_gather"] += (D - 1) * Bd * cfg.vocab_size * c
+    moved["prefill_span"] += (D - D // span) * (
+        Bd * cfg.vocab_size * c
+        + 2 * cfg.n_layers * Bd * seq * cfg.n_kv_heads * cfg.head_dim * 2)
     return {k: v for k, v in moved.items() if v}
 
 
@@ -2818,8 +2866,9 @@ def tp2d_flips(plain_calls, mesh_calls, n_layers: int, n_homes: int,
                n_positions: int) -> list:
     """Per MoE layer, the tokens of step 0 whose top-k expert set differs
     between one card (one routing call per microbatch and layer, in that
-    order) and the ``tp2d`` mesh (one per layer and position, in that
-    order; batch shard d runs microbatch d at its positions, the first of
+    order, each microbatch one batch shard's rows) and the ``tp2d`` mesh
+    (one per layer and position, in that order; batch shard d takes rows
+    block d of the mesh's one microbatch at its positions, the first of
     which is read)."""
     check(len(plain_calls) == n_layers * n_homes
           and len(mesh_calls) >= n_layers * n_positions,
@@ -2835,8 +2884,7 @@ def tp2d_flips(plain_calls, mesh_calls, n_layers: int, n_homes: int,
     return flips
 
 
-def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
-                             profile: bool = False):
+def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
     """LM training on a 2 × 2 ("data", "model") mesh (the first four cards,
     or ``cuda:0`` four times) under the reference's ``tp2d`` rules, split as
     its partitioner splits them (``train.state.make_tp2d_train_step``):
@@ -2846,23 +2894,28 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     dX partials summed over "model", ``embed`` looked up where its blocks
     lie, the cross entropy per vocab block. (i) qwen3-moe-30b-a3b at
     train-lm's widths, depth, batches and schedule (``act_spec`` P("data",
-    None, None), batch P("data", None): one microbatch per batch shard), 2
-    steps, then 2 more from the same seed, which must repeat bit for bit;
+    None, None), batch P("data", None)) at the reference train cell's one
+    microbatch (``TP_MICRO``), its rows split over "data", 2 steps, then 2
+    more from the same seed, which must repeat bit for bit;
     (ii) smollm-135m whole (30 layers, tied head: d over "data", V over
     "model"; 9 heads on 2 "model" positions, so q, k and v are gathered and
     every position attends over all of them; ``remat="dots"``) on
-    train-smollm's batches, 2 steps; (iii) (i)'s model with
+    train-smollm's batches in its 2 microbatches, each split over "data",
+    2 steps; (iii) (i)'s model with
     ``moe_shard="ffn"`` (each expert's d_ff over "model"), 2 steps. Each
     step's loss within ``TP_TRAIN_LOSS_RTOL`` and grad norm within
-    ``TP_TRAIN_NORM_RTOL`` of the one-card run's (train-lm's, train-
-    smollm's: ``moe_shard`` changes only the placement); every
+    ``TP_TRAIN_NORM_RTOL`` of a one-card run at the same microbatches
+    ((i), (iii): ``one_card_steps`` at ``TP_MICRO``, run here, since
+    train-lm's 2 microbatches take the aux loss over other groups; (ii):
+    train-smollm's; ``moe_shard`` changes only the placement); every
     collective's bytes equal to ``tp2d_bytes_want``, none of
     ``block_matmul``'s; the peak under ``TP_TRAIN_PEAK``; the launches
     exactly (``tp2d_launch_want``); the router's top-8 choices at step 0
     that differ from one card's, per layer, printed. Each leaf's AdamW
     first moment after the 2 steps against the one-card run's, within
-    ``TP_LEAF_FACTOR`` times the gap of an f32 one-card run
-    (``f32_control``); the kernels' first inputs at each shape, kept by
+    ``TP_LEAF_FACTOR`` times the gap of an f32 one-card run from it at
+    the same microbatches (``one_card_steps``); the kernels' first inputs
+    at each shape, kept by
     ``KernelCapture`` in (i)'s second run, (ii) and (iii), held against
     their plain versions and timed (``hold_captured``)."""
     import dataclasses
@@ -2898,7 +2951,7 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
         torch.cuda.empty_cache()
         step = make_tp2d_train_step(model.loss, tcfg, mesh, specs, bspec,
                                     micro)
-        want = tp2d_launch_want(cfg, mesh.size, micro // D)
+        want = tp2d_launch_want(cfg, mesh.size, micro)
         state, rows = sharded_steps(tag, step, state, mesh, pipe, 0,
                                     TP_TRAIN_STEPS, 0, total, prof, want,
                                     "train-sharded-tp2d", tokens)
@@ -2921,7 +2974,7 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
             f"||m_card|| over {len(names)} leaves: max {max(gaps):.3e} "
             f"({names[max(range(len(gaps)), key=gaps.__getitem__)]}), "
             f"median {sorted(gaps)[len(gaps) // 2]:.3e}; the f32 one-card "
-            f"control's (losses, grad norms {control['losses']}): max "
+            f"control's (losses {control['losses']}): max "
             f"{max(control['gaps']):.3e}, median "
             f"{sorted(control['gaps'])[len(gaps) // 2]:.3e}; largest ratios "
             f"mesh / control "
@@ -2942,7 +2995,7 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
         moved = sum(r["collective_bytes"].get(k, 0) for r in rows
                     for k in stationary)
         bytes_want = tp2d_bytes_want(cfg, mesh.shape, rows_per_position,
-                                     micro // D, TRAIN_GROUP)
+                                     micro, TRAIN_GROUP)
         off = [{k: (r["collective_bytes"].get(k), bytes_want.get(k))
                 for k in set(r["collective_bytes"]) | set(bytes_want)
                 if r["collective_bytes"].get(k) != bytes_want.get(k)}
@@ -2976,9 +3029,19 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
                        total_steps=TRAIN_STEPS)
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    ref = train_lm.pop("moments")
-    control = f32_control(cfg, dict(moe_group_size=TRAIN_GROUP), tcfg, pipe,
-                          TRAIN_MICRO, ref)
+    # one card at the mesh's microbatches, bf16 and f32: the aux loss is
+    # taken over a microbatch's groups, so train-lm's two microbatches give
+    # another function than the mesh's one, not another rounding
+    kw = dict(moe_group_size=TRAIN_GROUP)
+    card = one_card_steps(cfg, kw, tcfg, pipe, TP_MICRO)
+    ref = card.pop("moments")
+    control = one_card_steps(dataclasses.replace(cfg, dtype="float32"), kw,
+                             tcfg, pipe, TP_MICRO, ref)
+    say(f"  train-sharded-tp2d one card at {TP_MICRO} microbatch (the "
+        f"mesh's): bf16 (loss, grad_norm) "
+        f"{list(zip(card['losses'], card['grad_norm']))}, steps "
+        f"{card['step_s']} s; f32 {control['losses']} (losses), "
+        f"{control['grad_norm']} (grad norms)")
     # one card's routing of step 0's microbatches, from the same weights
     one = TransformerLM(cfg, moe_group_size=TRAIN_GROUP)
     params = one.init(torch.Generator(device="cuda").manual_seed(0),
@@ -2993,11 +3056,11 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     model = TransformerLM(cfg, moe_group_size=TRAIN_GROUP, act_spec=act)
     prof = (CollectiveProfiler("train-sharded-tp2d (i) 2x2") if profile
             else None)
-    rows_lm = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+    rows_lm = TRAIN_BATCH // TP_MICRO // D * TRAIN_SEQ
     with RouteSpy() as spy:
         spy.armed = True
         rows_i, dig_i, (names, gaps) = run(
-            "(i)", cfg, model, tcfg, pipe, TRAIN_MICRO,
+            "(i)", cfg, model, tcfg, pipe, TP_MICRO,
             TRAIN_BATCH * TRAIN_SEQ, prof, ref)
     flips = tp2d_flips(plain.calls, spy.calls, cfg.n_layers, D, mesh.size)
     if prof is not None:
@@ -3006,20 +3069,21 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     with KernelCapture("train") as cap:
         cap.armed = True
         rows_again, dig_again, _ = run("(i) again", cfg, model, tcfg, pipe,
-                                       TRAIN_MICRO, TRAIN_BATCH * TRAIN_SEQ)
+                                       TP_MICRO, TRAIN_BATCH * TRAIN_SEQ)
     first = [(r["loss"], r["grad_norm"]) for r in rows_i]
     again = [(r["loss"], r["grad_norm"]) for r in rows_again]
     same = first == again and dig_i == dig_again
     say(f"  train-sharded-tp2d (i): qwen3-moe-30b-a3b FULL widths, "
         f"{cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
-        f"{TRAIN_MICRO} microbatches on {mesh}; second run from the seed "
+        f"{TP_MICRO} microbatch split over \"data\" on {mesh}; second run "
+        f"from the seed "
         f"bitwise equal (losses, grad norms, {len(dig_i)} leaf digests): "
         f"{same}; step 0 tokens whose top-{cfg.moe.top_k} experts differ "
         f"from one card's, per layer: {flips} of "
         f"{TRAIN_BATCH * TRAIN_SEQ}")
     check(same, f"train-sharded-tp2d (i): the second run gave {again}, "
                 f"the first {first}")
-    out["i"] = hold("(i)", rows_i, train_lm, cfg, TRAIN_MICRO, rows_lm)
+    out["i"] = hold("(i)", rows_i, card, cfg, TP_MICRO, rows_lm)
     out["i"].update(repeat_bitwise=same, flips=flips,
                     leaves=hold_leaves("(i)", names, gaps, control),
                     kernels=hold_captured(cap.inputs,
@@ -3036,7 +3100,7 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     with KernelCapture("train") as cap, RouteSpy() as spy:
         cap.armed = spy.armed = True
         rows_iii, _, (names, gaps) = run(
-            "(iii)", cfg_ffn, model, tcfg, pipe, TRAIN_MICRO,
+            "(iii)", cfg_ffn, model, tcfg, pipe, TP_MICRO,
             TRAIN_BATCH * TRAIN_SEQ, ref=ref)
     del ref
     flips = tp2d_flips(plain.calls, spy.calls, cfg.n_layers, D, mesh.size)
@@ -3044,7 +3108,7 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
         f"{cfg.moe.d_ff_expert} over 'model'); step 0 tokens whose "
         f"top-{cfg.moe.top_k} experts differ from one card's, per layer: "
         f"{flips}")
-    out["iii"] = hold("(iii)", rows_iii, train_lm, cfg_ffn, TRAIN_MICRO,
+    out["iii"] = hold("(iii)", rows_iii, card, cfg_ffn, TP_MICRO,
                       rows_lm)
     out["iii"].update(flips=flips,
                       leaves=hold_leaves("(iii)", names, gaps, control),
@@ -3061,7 +3125,8 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
                        total_steps=SMOL_STEPS)
     pipe = TokenPipeline(cfg.vocab_size, SMOL_BATCH, TRAIN_SEQ, seed=0)
     ref = train_smol.pop("moments")
-    control = f32_control(cfg, {}, tcfg, pipe, SMOL_MICRO, ref)
+    control = one_card_steps(dataclasses.replace(cfg, dtype="float32"), {},
+                             tcfg, pipe, SMOL_MICRO, ref)
     model = TransformerLM(cfg, act_spec=act)
     with KernelCapture("train") as cap:
         cap.armed = True
@@ -3071,9 +3136,9 @@ def phase_train_sharded_tp2d(train_lm: dict, train_smol: dict,
     del ref
     say(f"  train-sharded-tp2d (ii): smollm-135m FULL, {cfg.n_layers} "
         f"layers, tied head, remat {cfg.remat}, {SMOL_BATCH} x {TRAIN_SEQ} "
-        f"tokens in {SMOL_MICRO} microbatches")
+        f"tokens in {SMOL_MICRO} microbatches, each split over \"data\"")
     out["ii"] = hold("(ii)", rows_ii, train_smol, cfg, SMOL_MICRO,
-                     SMOL_BATCH // SMOL_MICRO * TRAIN_SEQ)
+                     SMOL_BATCH // SMOL_MICRO // D * TRAIN_SEQ)
     out["ii"].update(leaves=hold_leaves("(ii)", names, gaps, control),
                      kernels=hold_captured(cap.inputs,
                                            "train-sharded-tp2d (ii)",
@@ -6139,6 +6204,7 @@ def phase_serve_sharded_lm(profile: bool = False):
     del params
     torch.cuda.empty_cache()
     res["v"] = serve_sharded_fault6(mesh)
+    res["vi"] = serve_sharded_fault7(mesh, total)
     res["phase_s"] = time.perf_counter() - t_phase
     say(f"phase serve-sharded-lm: {res['phase_s']:.1f} s wall")
     return total, res
@@ -6196,6 +6262,89 @@ def serve_sharded_fault6(mesh) -> dict:
     check(step == want and step.get("moe_group_dispatch", 0) > 0,
           f"serve-sharded-lm (v): bytes {step}, expected {want}")
     return dict(rel_err=errs, second_shard_max_abs=second, step_bytes=step)
+
+
+def serve_sharded_fault7(mesh, total: dict) -> dict:
+    """serve-sharded-lm (vi) (the module docstring): fault 7's case, an
+    ``fsdp`` prefill whose MoE group spans both batch shards, on the mesh
+    against one card; its launches added to ``total``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.qwen3_moe_30b_a3b import FULL
+    from repro_torch.distrib.serving import make_sharded_prefill, place_params
+    from repro_torch.distrib.sharding import P, lm_cache_specs, lm_param_specs
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(FULL, n_layers=LM_LAYERS)
+    B, S, group = FAULT7_BATCH, FAULT7_PROMPT, FAULT7_GROUP
+    plain = TransformerLM(cfg, moe_group_size=group)
+    params = plain.init(torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda")
+    model = TransformerLM(cfg, moe_group_size=group,
+                          act_spec=P("data", None, None))
+    span = model.moe_span(B, S, mesh.axis_size("data"))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = plain.prefill(params, prompt)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+    placed = place_params(params, mesh, lm_param_specs(params, cfg, "fsdp"))
+    del params
+    torch.cuda.empty_cache()
+    prefill = make_sharded_prefill(model, mesh, P("data", None),
+                                   lm_cache_specs(False, B), capacity=S)
+    mesh.reset_bytes()
+    reset_all_counts()
+    with KernelCapture("serve") as cap:
+        cap.armed = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(placed, prompt)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        cap.armed = False
+    launches = {k: v for k, v in read_all_counts().items() if v}
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    got_bytes = dict(mesh.bytes)
+    del cache, placed
+    torch.cuda.empty_cache()
+    bytes_want = serve_fsdp_bytes_want(cfg, mesh.shape, B, S, group, S)
+    # one run of both batch shards at the first home: flash once a layer,
+    # the experts' three products at each of the 2 expert shards
+    M = mesh.axis_size("model")
+    launch_want = {"flash_attention_fwd_wgmma": cfg.n_layers,
+                   "expert_gemm_wgmma": 3 * cfg.n_layers * M}
+    held = hold_captured(cap.inputs, "serve-sharded-lm (vi)", timed=True)
+    diff = logits_diff(lg[:, -1:], want[:, -1:])
+    bitwise = torch.equal(lg, want)
+    say(f"  serve-sharded-lm (vi) fault 7, qwen3-moe-30b-a3b "
+        f"{cfg.n_layers} layers, {B} x {S}, moe_group_size {group} (a "
+        f"group spans {span} batch shards of {B // 2} x {S}), prefill fsdp "
+        f"on {mesh}: {mesh_s:.3f} s (one card {one_s:.3f} s); logits "
+        f"against one card's bitwise {bitwise}, max |diff| "
+        f"{diff['max_abs']:.6f}, correlation {diff['corr']:.6f} (bounds "
+        f"{LM_CONSIST_ATOL}, {LM_CONSIST_CORR}); bytes {got_bytes}, formula "
+        f"(serve_fsdp_bytes_want) {bytes_want}; launches {launches}, "
+        f"expected {launch_want}; kernels held {len(held)}")
+    check(span == 2, f"serve-sharded-lm (vi): a group spans {span} shards")
+    check(diff["max_abs"] <= LM_CONSIST_ATOL
+          and diff["corr"] >= LM_CONSIST_CORR
+          and bool(torch.isfinite(lg.float()).all()),
+          f"serve-sharded-lm (vi): logits {diff} off one card's")
+    check(got_bytes == bytes_want and got_bytes.get("prefill_span", 0) > 0,
+          f"serve-sharded-lm (vi): bytes {got_bytes}, expected {bytes_want}")
+    check(launches == launch_want,
+          f"serve-sharded-lm (vi): launches {launches}, expected "
+          f"{launch_want}")
+    for k in ("flash_attention_fwd_wgmma", "expert_gemm_wgmma"):
+        check(any(h["kernel"] == k for h in held),
+              f"serve-sharded-lm (vi): no input of {k} captured")
+    return dict(span=span, prefill_s=mesh_s, one_card_prefill_s=one_s,
+                bitwise=bitwise, max_abs=diff["max_abs"], corr=diff["corr"],
+                bytes=got_bytes, launches=launches, kernels_held=held)
 
 
 # -- phase 19: the paper's IGPM cells at Table III sizes --------------------------
@@ -6449,7 +6598,7 @@ def main(argv=None) -> int:
     say("phase train-smollm:")
     launches_smol, train_smol = phase_train_smollm()
     say("phase train-sharded-tp2d:")
-    launches_tp2d, train_tp2d = phase_train_sharded_tp2d(train, train_smol,
+    launches_tp2d, train_tp2d = phase_train_sharded_tp2d(train_smol,
                                                          args.profile)
     bst_agree = phase_bst_agreement()
     say("phase serve-bst:")

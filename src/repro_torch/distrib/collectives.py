@@ -14,7 +14,8 @@ under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``tp_zero_gather``, ``tp_zero_scatter``, ``tp_model_sum``,
 ``tp_heads_gather``, ``expert_gather``, ``tp_rows_gather``,
 ``tp_rows_scatter``, ``tp_logits_gather``, ``tp_resplit``,
-``moe_group_probs``, ``moe_group_dispatch``, ``sparse_allreduce``,
+``moe_group_probs``, ``moe_group_dispatch``, ``loss_sum``,
+``moe_aux_sum``, ``norm_sum``, ``prefill_span``, ``sparse_allreduce``,
 ``hierarchical_psum``), and, where it names both ends, under its source and
 receiver (``Mesh.moves``), so a dry run can read the collective bytes from
 the mesh.
@@ -48,14 +49,17 @@ no step calls them now.
 The train step under ``tp2d`` splits the work as the reference's
 partitioner does, Megatron over "model" × ZeRO over "data" (:class:`TPView`,
 :func:`tp_linear`, :func:`split_heads`, :func:`tp_vocab_xent`): every
-position holds its batch shard's rows (``Rows`` over all the positions,
-the same at each position of a "model" group), gathers each weight's
-"model" block along "data" (``tp_zero_gather``; the backward a
-reduce-scatter, ``tp_zero_scatter``) and multiplies there; a row block's
-partial products, and a column block's dX partials, are summed over
-"model" in f32 and rounded once (``tp_model_sum``); the heads and the
-experts split over "model" (``tp_heads_gather``, ``expert_gather``), and
-the loss's per-row statistics cross "model" (``xent_stats``). Serving under
+position holds its batch shard's rows of a microbatch (``Rows`` over all
+the positions, the same at each position of a "model" group), gathers
+each weight's "model" block along "data" (``tp_zero_gather``; the
+backward a reduce-scatter, ``tp_zero_scatter``) and multiplies there; a
+row block's partial products, and a column block's dX partials, are
+summed over "model" in f32 and rounded once (``tp_model_sum``); the heads
+and the experts split over "model" (``tp_heads_gather``,
+``expert_gather``), the loss's per-row statistics cross "model"
+(``xent_stats``), and the partials of one microbatch's sums (the loss's
+sums and counts, the MoE aux loss's means and counts) are added over
+"data" (:func:`batch_sum`: ``loss_sum``, ``moe_aux_sum``). Serving under
 ``tp2d`` with the batch split reads the same views without gradients
 (:meth:`TPView.serving`) and splits as the reference's partitioner splits
 its jitted prefill and decode: where a weight splits over "data" on its
@@ -102,7 +106,8 @@ SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "xent_stats", "tp_zero_gather", "tp_zero_scatter", "tp_model_sum",
          "tp_heads_gather", "expert_gather", "tp_rows_gather",
          "tp_rows_scatter", "tp_logits_gather", "tp_resplit",
-         "moe_group_probs", "moe_group_dispatch")
+         "moe_group_probs", "moe_group_dispatch", "loss_sum", "moe_aux_sum",
+         "norm_sum", "prefill_span")
 span = torch.profiler.record_function
 
 
@@ -1162,28 +1167,27 @@ class TPView(StationaryView):
     over "model" only, or not at all, is read where it lies
     (:meth:`part`); a table is looked up where its blocks lie
     (:meth:`take_rows`). ``leaves[pos]`` is the block ``pos`` holds, a leaf
-    that collects gradients. Where the positions of a batch shard repeat
-    one another's work (the same blocks read at each position of a "model"
-    group, or of a group that spans more than "model"), only the first of
+    that collects gradients, unless the view is a serving step's
+    (:meth:`serving`; ``training`` False). Where the positions of a batch
+    shard repeat one another's work (the same blocks read at each position
+    of a "model" group, or of a group that spans more than "model"), only
+    the first of
     them, the block's *collector* for that shard, reads it as a leaf that
     takes gradients; the others read it detached, so no gradient is taken
     twice."""
 
     def __init__(self, x: ShardedTensor, groups: Sequence[Sequence[int]],
                  transposed: bool = False, leaves=None,
-                 move_rows: bool = False, one_batch: bool = False):
+                 move_rows: bool = False, training: bool = True):
         super().__init__(x, transposed, grad=leaves is None, leaves=leaves)
         self.groups = tuple(tuple(g) for g in groups)
         self.shard = {p: d for d, g in enumerate(self.groups) for p in g}
-        self.move_rows = move_rows
-        # the batch shards split one batch (serving), rather than each
-        # holding a microbatch of its own (the train step)
-        self.one_batch = one_batch
+        self.move_rows, self.training = move_rows, training
 
     @property
     def T(self) -> "TPView":
         return TPView(self.x, self.groups, not self.transposed, self.leaves,
-                      self.move_rows, self.one_batch)
+                      self.move_rows, self.training)
 
     @classmethod
     def serving(cls, x: ShardedTensor, groups: Sequence[Sequence[int]],
@@ -1200,7 +1204,7 @@ class TPView(StationaryView):
         if step not in ("prefill", "decode"):
             raise ValueError(f"TPView.serving: unknown step {step!r}")
         return cls(x, groups, leaves=list(x.shards),
-                   move_rows=step == "decode" or head, one_batch=True)
+                   move_rows=step == "decode" or head, training=False)
 
     def gathers(self) -> bool:
         """Whether a product with this (n_in, n_out) weight gathers the
@@ -1668,6 +1672,51 @@ def span_select(x: Rows, owner: Rows, w: TPView, shards: int,
     return Rows(out, homes, mesh)
 
 
+def batch_sum(x: Rows, w: TPView, name: str) -> Rows:
+    """Per position, the sum of its line's tensors (:func:`_span_line`
+    over all of ``w``'s batch shards: one per shard, each copied from where
+    it lies, ``name``), added in batch order from the first as it is, so
+    the positions of a line hold the same bits: an all-reduce along the
+    batch axes of per-shard partials of one batch (the loss's sums and
+    counts, the MoE aux loss's terms). Differentiable; the backward is the
+    identity, each position's gradient its own partial's, as the gradient
+    of a sum every position holds whole. With one batch shard ``x``
+    itself."""
+    if len(w.groups) == 1:
+        return x
+    return Rows(list(_BatchSum.apply(x.mesh, tuple(x.homes), w, name,
+                                     *x.parts)), x.homes, x.mesh)
+
+
+class _BatchSum(torch.autograd.Function):
+    """:func:`batch_sum`; the inputs are every position's partial."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, w, name, *parts):
+        at = {h: i for i, h in enumerate(homes)}
+        out = []
+        with span(name):
+            for p in homes:
+                got = []
+                with mesh.at(p), mesh.moving():
+                    for q in _span_line(w, p, len(w.groups)):
+                        t = parts[at[q]]
+                        if q != p:
+                            mesh.count(name, _nbytes(t), frm=q, to=p)
+                        got.append(t.to(mesh.device(p)))
+                with mesh.at(p):
+                    total = got[0]
+                    for t in got[1:]:
+                        total = total + t
+                out.append(total)
+        ctx.set_materialize_grads(False)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * 4 + grads
+
+
 class _TPMatmul(torch.autograd.Function):
     """:func:`tp_linear`'s products; the inputs are every position's rows,
     then its gathered weight."""
@@ -2020,19 +2069,29 @@ def kv_heads(mesh, pos: int, n_heads: int, n_kv: int, whole: bool = False
 
 def tp_vocab_xent(hidden: Rows, head: TPView, labels: Rows) -> Rows:
     """Each position's mean cross entropy of the logits ``hidden @ head``
-    over its labels ≥ 0 (``models.layers.softmax_xent_sharded``), the
-    (d, V) head gathered along "data" (:meth:`TPView.gathered`): each
-    position takes the statistics of its own vocab columns, and only the
-    per-row statistics cross "model" (``xent_stats``,
-    :class:`_TPXent`)."""
+    over the labels ≥ 0 of the batch its batch shards split
+    (``models.layers.softmax_xent_sharded``), the (d, V) head gathered
+    along "data" (:meth:`TPView.gathered`): each position takes the
+    statistics of its own vocab columns, and only the per-row statistics
+    cross "model" (``xent_stats``, :class:`_TPXent`). Each position's sum
+    over its rows and its count of labels are added over its line of the
+    batch shards in batch order (:func:`batch_sum`, ``loss_sum``: a 4-byte
+    f32 and a 4-byte int32 scalar from each other shard) and divided once,
+    so every position holds the batch's mean; with one batch shard that is
+    the one-device loss, bit for bit."""
     ws = head.gathered(hidden.dtype)
     segs = head.segments()
+    n = len(hidden.parts)
     out = _TPXent.apply(hidden.mesh, tuple(hidden.homes),
                         tuple(tuple(segs[h]) for h in hidden.homes),
-                        head.kind() == "column", len(hidden.parts),
+                        head.kind() == "column", n,
                         *hidden.parts, *labels.parts,
                         *(ws[h] for h in hidden.homes))
-    return Rows(list(out), hidden.homes, hidden.mesh)
+    tot = batch_sum(Rows(list(out[:n]), hidden.homes, hidden.mesh), head,
+                    "loss_sum")
+    count = batch_sum(Rows(list(out[n:]), hidden.homes, hidden.mesh), head,
+                      "loss_sum")
+    return each(lambda t, c: t / torch.clamp_min(c, 1), tot, count)
 
 
 def _onehots(labels: torch.Tensor, runs) -> torch.Tensor:
@@ -2057,8 +2116,9 @@ class _TPXent(torch.autograd.Function):
     over "model" (``split`` false) is whole at every position: each folds
     its own statistics only.
 
-    Backward at each position: softmax − one-hot for its block as autograd
-    takes it on one device, cast to the compute dtype; the hidden's partial
+    Backward at each position: the sum's gradient (1 / count of the
+    batch's mean) on each valid row, softmax − one-hot for its block as
+    autograd takes it on one device, cast to the compute dtype; the hidden's partial
     (f32 with more than one "model" position) summed over "model"
     (``tp_model_sum``) and rounded once, where the vocab is split; the head
     block's gradient the position's own product, for :class:`_ZeroGather`'s
@@ -2084,7 +2144,7 @@ class _TPXent(torch.autograd.Function):
             saved += [xin, w, p, lab]
             del logits, p
         at = {h: i for i, h in enumerate(homes)}
-        out, home_saved = [None] * n, [None] * n
+        out, counts, home_saved = [None] * n, [None] * n, [None] * n
         groups = (_axis_groups(mesh, "model") if split
                   else [[h] for h in homes])
         with span("xent_stats"):
@@ -2111,17 +2171,17 @@ class _TPXent(torch.autograd.Function):
                             t = tj if t is None else t + tj
                         lse = m + torch.log(tot)
                         valid = labels[i] >= 0
-                        count = torch.clamp_min(valid.sum(), 1)
-                        out[i] = torch.where(valid, lse - t,
-                                             0.0).sum() / count
-                    home_saved[i] = (lse, valid, count)
+                        out[i] = torch.where(valid, lse - t, 0.0).sum()
+                        counts[i] = valid.sum().to(torch.int32)
+                    home_saved[i] = (lse, valid)
         ctx.save_for_backward(*saved, *(t for hs_ in home_saved
                                          for t in hs_))
         ctx.mesh, ctx.homes, ctx.segs, ctx.n, ctx.cd = mesh, homes, segs, n, cd
         ctx.split = split and _model_size(mesh) > 1
         ctx.h_meta = [(hd.shape, hd.dtype) for hd in hs]
+        ctx.mark_non_differentiable(*counts)
         ctx.set_materialize_grads(False)
-        return tuple(out)
+        return tuple(out) + tuple(counts)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -2133,10 +2193,10 @@ class _TPXent(torch.autograd.Function):
             if grads[i] is None:
                 continue
             xin, w, p, lab = tensors[4 * i:4 * i + 4]
-            lse, valid, count = tensors[4 * n + 3 * i:4 * n + 3 * i + 3]
+            lse, valid = tensors[4 * n + 2 * i:4 * n + 2 * i + 2]
             with mesh.at(h):
-                # the one-device backward of Σ where(valid, lse − t, 0) / n
-                g = torch.where(valid, grads[i] / count, 0.0)
+                # the one-device backward of Σ where(valid, lse − t, 0)
+                g = torch.where(valid, grads[i], 0.0)
                 logits = p.float().reshape(*lab.shape, w.shape[1])
                 # logsumexp's backward, then the one-hot contraction's
                 dl = g[..., None] * torch.exp(logits - lse[..., None])

@@ -56,9 +56,12 @@ of work runs.
   home over parameters *stored* by their specs and gathered layer by layer
   there (``ShardView`` / ``local``, read-only here; ``all_gather``), the
   ZeRO-style choice of the sharded train step; with ``act_spec`` and
-  expert-sharded MoE the experts stay where they live. Each batch shard
-  routes its own tokens there, so a prefill whose MoE group would span
-  batch shards is refused (run it under ``tp2d``).
+  expert-sharded MoE the experts stay where they live. Where one MoE
+  group spans several batch shards (fewer tokens a shard than a group),
+  each run of the shards it spans is computed at the run's first home over
+  all the run's rows, so the groups are the reference's, and the other
+  shards' logits and keys and values then go to their homes
+  (``prefill_span``).
 
 The KV cache is a pair of ``ShardedTensor`` s (L, B, S, KV, hd) placed by
 ``lm_cache_specs``: ``P(None, ba, "model", None, None)`` for B ≥ the
@@ -249,6 +252,40 @@ def _prefill_split(model, mesh, groups, params, tokens):
     return [lg.parts[g[0]] for g in groups], parts
 
 
+def _prefill_fsdp(model, mesh, homes, groups, params, tokens, run: int):
+    """An ``fsdp`` prefill: ``model.prefill`` at a home over its rows, the
+    parameters gathered layer by layer there. Each run of ``run``
+    consecutive batch shards (the shards one MoE group spans; one where
+    the groups lie inside the shards) is computed at the run's first home
+    over all its rows, so the reference's groups are formed over the same
+    tokens; each other shard's last logits and keys and values then go to
+    its own home (``prefill_span``). The logits and, per batch shard, where
+    its keys and values lie (:func:`place_cache`'s ``parts``)."""
+    D = len(homes)
+    Bd = tokens.shape[0] // D
+    logits, parts = [], []
+    for r in range(0, D, run):
+        home = homes[r]
+        with mesh.at(home):
+            views = _views(params, home, groups[r])
+            tok = tokens[r * Bd:(r + run) * Bd].to(mesh.device(home))
+            lg, (k, v) = model.prefill(views, tok)
+        for j in range(run):
+            mine = (lg[j * Bd:(j + 1) * Bd], k[:, j * Bd:(j + 1) * Bd],
+                    v[:, j * Bd:(j + 1) * Bd])
+            to = homes[r + j]
+            if to != home:
+                with mesh.at(to), mesh.moving():
+                    for t in mine:
+                        mesh.count("prefill_span", _nbytes(t), frm=home,
+                                   to=to)
+                    mine = tuple(t.to(mesh.device(to), copy=True)
+                                 for t in mine)
+            logits.append(mine[0])
+            parts.append([(to, 0, mine[1], mine[2])])
+    return logits, parts
+
+
 def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
                          capacity: Optional[int] = None,
                          policy: str = "fsdp") -> Callable:
@@ -257,7 +294,9 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
     (:func:`place_params`) — under ``tp2d`` over every batch shard at once,
     the weights gathered along the batch axes with the batch split and
     where they lie with it whole, under ``fsdp`` once per batch shard at
-    its home with each layer gathered there — the logits (B, 1, V) on
+    its home with each layer gathered there (once per run of the shards a
+    MoE group spans, at the run's first home: :func:`_prefill_fsdp`) — the
+    logits (B, 1, V) on
     position 0 and the cache placed by ``cache_spec`` with room for
     ``capacity`` positions (default: the prompt's)."""
     if policy not in ("fsdp", "tp2d"):
@@ -270,13 +309,9 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
         B, S = tokens.shape
         if B % D:
             raise ValueError(f"batch {B} does not split over {D} shards")
-        Bd = B // D
-        if policy == "fsdp" and model.moe_span(B, S, D) > 1:
-            raise NotImplementedError(
-                f"make_sharded_prefill: under fsdp each batch shard of "
-                f"{Bd} x {S} tokens routes alone, but a MoE group of "
-                f"{model.moe_group_size} tokens spans "
-                f"{model.moe_span(B, S, D)} shards; prefill under tp2d")
+        # the batch shards a MoE group spans (raises where the groups
+        # neither fit into nor span whole shards)
+        run = model.moe_span(B, S, D) if policy == "fsdp" else 1
         with torch.no_grad():
             if policy == "tp2d" and _split(batch_spec):
                 logits, parts = _prefill_split(model, mesh, groups, params,
@@ -289,16 +324,8 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
                          for h, k, v in zip(homes, ks.parts, vs.parts)]
                 del ks, vs
             else:
-                logits, parts = [], []
-                for d in range(D):
-                    home = homes[d]
-                    with mesh.at(home):
-                        views = _views(params, home, groups[d])
-                        tok = tokens[d * Bd:(d + 1) * Bd].to(
-                            mesh.device(home))
-                        lg, (k, v) = model.prefill(views, tok)
-                    logits.append(lg)
-                    parts.append([(home, 0, k, v)])
+                logits, parts = _prefill_fsdp(model, mesh, homes, groups,
+                                              params, tokens, run)
             cache = place_cache(mesh, cache_spec, parts,
                                 S if capacity is None else capacity)
             del parts

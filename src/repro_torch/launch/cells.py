@@ -144,8 +144,10 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     then does the model take ``act_spec``; train shards the parameters
     under ``REPRO_LM_POLICY`` (default ``fsdp``; placed on a mesh,
     ``make_sharded_train_step`` gathers each layer at each batch shard's
-    home, ``tp2d`` is ``make_tp2d_train_step``, the reference's split:
-    Megatron over "model" × ZeRO over "data"), prefill under
+    home, one microbatch per batch shard; ``tp2d`` is
+    ``make_tp2d_train_step`` at the reference cell's one microbatch, its
+    rows split over the batch shards: Megatron over "model" × ZeRO over
+    "data"), prefill under
     ``REPRO_LM_PREFILL_POLICY`` (default ``fsdp``), decode under
     ``tp2d``, as the reference's cells do. Placed on a mesh, prefill and
     decode are ``distrib.serving``'s steps (the cache placed by
@@ -185,20 +187,27 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
         policy = os.environ.get("REPRO_LM_POLICY", "fsdp")
         specs = state_specs_like(lm_param_specs(params, cfg, policy))
         in_sh = None if mesh is None else (specs, bspec, bspec)
+        meta = {"tokens_per_step": B * S}
         if _placed(mesh, concrete):
-            # one microbatch per batch shard: the reference's one step
-            # over the whole batch, split where it lives
-            D = len(batch_groups(mesh, bspec[0])[0])
-            make = (make_tp2d_train_step if policy == "tp2d"
-                    else make_sharded_train_step)
-            step = make(model.loss, TCFG, mesh, specs, bspec, microbatches=D)
+            if policy == "tp2d":
+                # the reference cell's step: one microbatch, its rows split
+                # over the batch shards
+                micro = 1
+                make = make_tp2d_train_step
+            else:
+                # one microbatch per batch shard: the reference's one step
+                # over the whole batch, split where it lives
+                micro = len(batch_groups(mesh, bspec[0])[0])
+                make = make_sharded_train_step
+            step = make(model.loss, TCFG, mesh, specs, bspec,
+                        microbatches=micro)
+            meta["microbatches"] = micro
             state = new_sharded_train_state(params, mesh, specs)
         else:
             step = make_train_step(model.loss, TCFG)
             state = new_train_state(params)
         return Cell(arch.arch_id, shape.name, "train", model, step,
-                    (state, tokens, labels), {"tokens_per_step": B * S},
-                    in_sh)
+                    (state, tokens, labels), meta, in_sh)
 
     params = model.init(gen, dtype=torch.bfloat16, device=dev)
     if shape.kind == "prefill":

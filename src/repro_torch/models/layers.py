@@ -11,8 +11,8 @@ gradient is needed it goes through the autograd function
 plain versions on the CPU). ``softmax_xent_chunked`` and
 ``softmax_xent_sharded`` are the training loss's cross entropy; handed a
 ``TPView`` head (the ``tp2d`` train step), the latter is the
-vocab-parallel loss over each position's vocab block
-(``distrib.collectives.tp_vocab_xent``).
+vocab-parallel loss over each position's vocab block, its sums and counts
+added over the batch shards (``distrib.collectives.tp_vocab_xent``).
 
 Every product with a weight goes through :func:`linear`: handed a
 ``distrib.collectives.TPView`` (training on a mesh under ``tp2d``) it
@@ -267,11 +267,12 @@ def softmax_xent_sharded(hidden, head_w, labels):
     reference's vocab-parallel loss does. On plain tensors, on one device.
     With ``hidden`` and ``labels`` as ``Rows`` and ``head_w`` a ``TPView``
     (the ``tp2d`` train step), over each position's vocab block gathered
-    along "data", only per-row statistics crossing "model"
-    (``distrib.collectives.tp_vocab_xent``); a ``StationaryView``, over the
-    head's blocks where they lie, the logits never assembled
-    (``distrib.collectives.vocab_parallel_xent``): each position's or
-    home's loss as Rows."""
+    along "data", only per-row statistics crossing "model", the sums and
+    counts added over "data": the mean over the rows of every batch shard,
+    at each position (``distrib.collectives.tp_vocab_xent``); a
+    ``StationaryView``, over the head's blocks where they lie, the logits
+    never assembled (``distrib.collectives.vocab_parallel_xent``): each
+    home's mean over its rows. Either as Rows."""
     if isinstance(head_w, TPView):
         return tp_vocab_xent(hidden, head_w, labels)
     if isinstance(head_w, StationaryView):

@@ -44,19 +44,21 @@ expert's d_ff / M columns (``"ffn"``, the down products' partials summed
 over "model").
 
 Groups are formed as the reference forms them: ``n_groups`` counts the
-groups over every batch shard's tokens together, and group g holds tokens
+groups over every batch shard's tokens together (a serving step's batch,
+a ``tp2d`` train step's microbatch), and group g holds tokens
 [g·T/G, (g+1)·T/G) of the whole batch in (batch, position) order. Where
-that puts whole groups in each batch shard, each shard routes its own. Where
-one group spans several batch shards (a serving step with the batch split
-over "data" and fewer tokens than a group: every decode step with B below
-the group size), it is routed once over all its rows
-(:func:`_moe_across_shards`): each position gathers the group's router
-probabilities along "data" and routes the whole group (the same top-k and
-stable slot sort at every position), fills the group's dispatch buffer with
-its own tokens, takes each slot's row from the one batch shard that owns it
-(``moe_group_dispatch``, a select), runs its experts as the split step
-does, and combines its own tokens. (The train steps hand each batch shard
-a microbatch of its own, which the reference groups alone.)
+that puts whole groups in each batch shard, each shard routes its own, and
+in the ``tp2d`` train step the aux loss is taken over all the shards'
+groups (:func:`_batch_aux`). Where one group spans several batch shards (a
+serving step with the batch split over "data" and fewer tokens than a
+group: every decode step with B below the group size), it is routed once
+over all its rows (:func:`_moe_across_shards`): each position gathers the
+group's router probabilities along "data" and routes the whole group (the
+same top-k and stable slot sort at every position), fills the group's
+dispatch buffer with its own tokens, takes each slot's row from the one
+batch shard that owns it (``moe_group_dispatch``, a select), runs its
+experts as the split step does, and combines its own tokens. That routing
+has no backward: a train step whose group would span batch shards raises.
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
 from repro_torch.distrib.collectives import (Blocks, Rows, TPView,
-                                             _model_of, each, model_gather,
+                                             _model_of, batch_sum, each,
+                                             model_gather,
                                              model_slice, model_sum,
                                              model_sum_grad, send,
                                              send_slices, span_gather,
@@ -116,12 +119,12 @@ def _groups(T: int, n_groups: int) -> Tuple[int, int]:
 
 def batch_shards(x, router) -> int:
     """The shards of one batch whose tokens ``x`` holds, which the
-    reference groups together: a serving ``TPView`` router's batch shards
-    (the rows at every position), each home of ``Rows``, else one (the
-    ``tp2d`` train step's shards each hold a microbatch of their own,
-    which the reference's step groups alone)."""
+    reference groups together: a ``TPView`` router's batch shards (the
+    rows at every position: a serving step's batch, or a ``tp2d`` train
+    step's microbatch, split over them), each home of ``Rows``, else
+    one."""
     if isinstance(router, TPView):
-        return len(router.groups) if router.one_batch else 1
+        return len(router.groups)
     return len(x.parts) if isinstance(x, Rows) else 1
 
 
@@ -233,19 +236,33 @@ def _moe_over_model(x: Rows, params, cfg: MoEConfig, n_groups: int,
     runs all experts on its f / M columns, the down products' partials
     summed over "model" in f32 and rounded once before the combine
     (``tp_model_sum``; the dispatch buffer's gradient partials likewise).
-    Experts on no "model" axis run whole at every position. A group that
-    spans batch shards is routed once (:func:`_moe_across_shards`)."""
-    G, S, shards = shard_groups(x.shape[0], n_groups,
-                                batch_shards(x, params["router"]))
+    Experts on no "model" axis run whole at every position. In a train
+    step with the batch split over D batch shards the aux loss is the
+    reference's over all their groups: each position's mean router
+    probabilities and slot counts per expert are added over its line of
+    the shards (:func:`_batch_aux`; a serving step discards the aux loss
+    and each shard keeps its own). A group that spans batch shards is
+    routed once (:func:`_moe_across_shards`) at a serving step; a train
+    step raises there (that routing has no backward)."""
+    view = params["router"]
+    D = batch_shards(x, view)
+    G, S, shards = shard_groups(x.shape[0], n_groups, D)
     if shards > 1:
+        if view.training:
+            raise NotImplementedError(
+                f"moe_block: a MoE group of {S} tokens spans {shards} batch "
+                f"shards of {x.shape[0]} tokens each ({D} shards, "
+                f"{n_groups} groups); routing across shards has no backward")
         return _moe_across_shards(x, params, cfg, shards, capacity_factor)
-    logits = linear(x, params["router"], x.dtype)
+    logits = linear(x, view, x.dtype)
 
     def dispatch(xd, lg):
         r = routing(lg.reshape(G, S, -1), cfg, capacity_factor)
         x_exp, aux, order = _dispatch(xd, r, cfg)
         return x_exp, aux, r, order
     x_exp, aux, r, order = each(dispatch, x, logits)
+    if D > 1 and view.training:
+        aux = _batch_aux(r, view, cfg)
     wg, wu, wd = params["wg"], params["wu"], params["wd"]
     E, d = cfg.n_experts, x.shape[-1]
     C = x_exp.shape[1]
@@ -350,17 +367,41 @@ def _moe_across_shards(x: Rows, params, cfg: MoEConfig, shards: int,
             Rows([a for _, a in out], x.homes, mesh))
 
 
+def _slot_counts(r: Routing, E: int) -> torch.Tensor:
+    """The routing's slots per expert (E,): an integer count (exact in any
+    order), as a scatter-add of fixed length so meta tensors take it too."""
+    idx = r.expert_idx.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def _aux(r: Routing, cfg: MoEConfig) -> torch.Tensor:
     """The Switch aux loss of the routing ``r``: E · mean(fraction routed
     to e) · mean(router probability of e)."""
     E, k = cfg.n_experts, cfg.top_k
     me = r.probs.mean(dim=(0, 1))                             # (E,)
-    # slots per expert: an integer count (exact in any order), as a
-    # scatter-add of fixed length so meta tensors take it too
-    idx = r.expert_idx.reshape(-1)
-    ce = torch.zeros(E, dtype=torch.int64, device=idx.device).scatter_add_(
-        0, idx, torch.ones_like(idx)).float() / (r.G * r.S * k)
+    ce = _slot_counts(r, E).float() / (r.G * r.S * k)
     return E * torch.sum(me * ce)
+
+
+def _batch_aux(r: Rows, view: TPView, cfg: MoEConfig) -> Rows:
+    """:func:`_aux` over the groups of every batch shard of ``view`` at
+    once, from each position's routing ``r`` (its shard's groups, the
+    shards equal): each position's mean probabilities and slot counts
+    (int32) per expert are added over its line of the shards
+    (``collectives.batch_sum``, ``moe_aux_sum``), the means divided by the
+    shard count; the gradient reaches each shard's probabilities through
+    its own mean."""
+    E, k, D = cfg.n_experts, cfg.top_k, len(view.groups)
+    me = batch_sum(each(lambda rd: rd.probs.mean(dim=(0, 1)), r), view,
+                   "moe_aux_sum")
+    ce = batch_sum(each(lambda rd: _slot_counts(rd, E).to(torch.int32), r),
+                   view, "moe_aux_sum")
+    n = D * r.parts[0].G * r.parts[0].S * k
+
+    def aux(m, c):
+        return (E * torch.sum(m / D * (c.float() / n))).float()
+    return each(aux, me, ce)
 
 
 def _dispatch(x: torch.Tensor, r: Routing, cfg: MoEConfig):

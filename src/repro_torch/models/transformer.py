@@ -55,15 +55,18 @@ train step below does, and ``decode_step`` attends with every head at
 each position (``_qkv(..., whole=True)``), over its slice of the cache.
 The train step under ``tp2d``
 (``train.state.make_tp2d_train_step``) hands ``loss`` a ``TPView`` of
-every leaf and the tokens and labels of every position as ``Rows``, the
-reference's split: each product multiplies the position's rows by the
+every leaf and, one microbatch at a time, the tokens and labels of every
+position as ``Rows`` (the microbatch's rows split over the batch shards),
+the reference's split: each product multiplies the position's rows by the
 weight's "model" block gathered along "data" (``layers.linear``), the
 heads split over "model" (``collectives.split_heads``: by heads where H
 and KV divide, q split and the key-value heads taken where only H does,
 else q, k and v gathered and each position's part of the output taken
-for ``wo``), the experts over "model" (``moe.moe_block``), the cross
-entropy per vocab block (``layers.softmax_xent_sharded``); every
-position's loss comes back as Rows. Under ``remat`` the layer's checkpoint
+for ``wo``), the experts over "model" (``moe.moe_block``: the groups and
+the aux loss over the whole microbatch), the cross entropy per vocab
+block, its sums and counts added over "data"
+(``layers.softmax_xent_sharded``); every position's loss, the
+microbatch's, comes back as Rows. Under ``remat`` the layer's checkpoint
 repeats the forward's gathers and sums in the recompute; under ``"dots"``
 the positions' products are the saved ops, as the one-device products
 are.
@@ -280,7 +283,8 @@ class TransformerLM:
             y = L.swiglu(h, p["wg"], p["wu"], p["wd"])
             aux = each(_no_aux, x)
         else:
-            # the reference's groups: over every batch shard's tokens
+            # the reference's groups: over every batch shard's tokens (a
+            # serving step's batch, a tp2d train step's microbatch)
             B, S, d = h.shape
             T = B * S * batch_shards(h, p["moe"]["router"])
             n_groups = max(1, T // self.moe_group_size)
@@ -295,7 +299,8 @@ class TransformerLM:
     def moe_span(self, batch: int, seq: int, shards: int) -> int:
         """How many of ``shards`` equal batch shards of a (batch, seq)
         batch one MoE group spans: 1 without MoE layers or where the
-        reference's groups lie inside the shards."""
+        reference's groups lie inside the shards (raises where the groups
+        neither fit into nor span whole shards)."""
         if self.cfg.moe is None:
             return 1
         T = batch * seq
@@ -359,9 +364,12 @@ class TransformerLM:
         """Mean next-token cross entropy over the labels ≥ 0 (chunks of 512
         positions; with ``act_spec`` the vocab-parallel form over all
         logits at once) + ``aux_coef`` · the MoE aux loss / n_layers. With
-        the tokens and labels of every batch shard as ``Rows`` (the
-        ``tp2d`` train step) each home's loss as Rows, the cross entropy
-        the vocab-parallel form over the head's blocks where they lie."""
+        the tokens and labels of every position as ``Rows`` and the
+        leaves as ``TPView`` s (the ``tp2d`` train step) the loss of the
+        batch the batch shards split, at every position as Rows: the cross
+        entropy the vocab-parallel form over each position's vocab block,
+        its sums and counts added over "data"; the aux loss over all the
+        shards' groups."""
         params = self._local(params)
         hidden, aux = self.forward(params, tokens)
         w = self._head_w(params)

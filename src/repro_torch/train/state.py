@@ -175,26 +175,46 @@ def _sharded_update(state: TrainState, sums, loss, tcfg: TrainConfig,
             total = total + torch.sum(torch.square(whole.float()))
             del whole, parts
         gnorm = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
-        scale = None
-        if tcfg.grad_clip > 0:
-            scale = torch.clamp(
-                tcfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
-
-        step0 = state.opt.step.shards[0]
-        lr = warmup_cosine(step0, tcfg.learning_rate, tcfg.warmup_steps,
-                           tcfg.total_steps)
-        t = (step0 + 1).to(torch.float32)
-        bc1 = 1.0 - tcfg.b1 ** t
-        bc2 = 1.0 - tcfg.b2 ** t
-        lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
+        lr, consts0 = _update_consts(state.opt.step.shards[0], gnorm, tcfg)
     on = {}  # device → (lr, bc1, bc2, scale) there
 
-    def consts(dev):
+    def consts(pos):
+        dev = mesh.device(pos)
         if dev not in on:
             on[dev] = tuple(None if c is None else c.to(dev)
-                            for c in (lr_t, bc1, bc2, scale))
+                            for c in consts0)
         return on[dev]
 
+    return _adamw_blocks(state, sums, tcfg, mesh, consts), \
+        {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+
+def _update_consts(step, gnorm, tcfg: TrainConfig):
+    """lr at ``step`` (the schedule's value, as the metrics report it) and
+    the update's constants on its device: lr, the bias corrections, the
+    clip scale (``None`` without a clip)."""
+    scale = None
+    if tcfg.grad_clip > 0:
+        scale = torch.clamp(tcfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
+                            max=1.0)
+    lr = warmup_cosine(step, tcfg.learning_rate, tcfg.warmup_steps,
+                       tcfg.total_steps)
+    t = (step + 1).to(torch.float32)
+    bc1 = 1.0 - tcfg.b1 ** t
+    bc2 = 1.0 - tcfg.b2 ** t
+    lr_t = torch.as_tensor(lr, dtype=torch.float32, device=t.device)
+    return lr, (lr_t, bc1, bc2, scale)
+
+
+def _adamw_blocks(state: TrainState, sums, tcfg: TrainConfig, mesh,
+                  consts) -> TrainState:
+    """AdamW on every position's shards from each leaf's gradient blocks
+    at their owners (``sums``), with the weight decay of each whole leaf's
+    reference ndim: each block scaled by the clip at its owner and sent to
+    its other holders (``grad_send``), ``consts(pos)`` the update's
+    constants (lr, bias corrections, clip scale) on ``pos``'s device; then
+    the step counter. The state is updated in place."""
+    leaves = tree_leaves(state.params)
     opt = state.opt
     with span("adamw"):
         for j, (p, ndim, m, v) in enumerate(zip(
@@ -203,9 +223,10 @@ def _sharded_update(state: TrainState, sums, loss, tcfg: TrainConfig,
             wd = tcfg.weight_decay if ndim >= 2 else 0.0
             for block, g in sums[j].items():
                 holders = p.layout.holders(block)
-                if scale is not None:
-                    with mesh.at(holders[0]):
-                        g = g * consts(g.device)[3].to(g.dtype)
+                with mesh.at(holders[0]):
+                    scale = consts(holders[0])[3]
+                    if scale is not None:
+                        g = g * scale.to(g.dtype)
                 for pos in holders:
                     dev = mesh.device(pos)
                     if pos != holders[0]:
@@ -213,7 +234,7 @@ def _sharded_update(state: TrainState, sums, loss, tcfg: TrainConfig,
                                    g.numel() * g.element_size(),
                                    frm=holders[0], to=pos)
                     with mesh.at(pos):
-                        c_lr, c_bc1, c_bc2, _ = consts(dev)
+                        c_lr, c_bc1, c_bc2, _ = consts(pos)
                         with mesh.moving():
                             g_pos = g.to(dev)
                         adamw_leaf(p.shards[pos], g_pos, m.shards[pos],
@@ -226,8 +247,52 @@ def _sharded_update(state: TrainState, sums, loss, tcfg: TrainConfig,
             step_shards.append(s + 1)
     new_step = ShardedTensor(opt.step.layout, opt.step.dtype,
                              step_shards)
-    return (TrainState(state.params, AdamWState(new_step, opt.m, opt.v)),
-            {"loss": loss, "grad_norm": gnorm, "lr": lr})
+    return TrainState(state.params, AdamWState(new_step, opt.m, opt.v))
+
+
+def _tp2d_update(state: TrainState, sums, loss, tcfg: TrainConfig,
+                 mesh) -> Tuple[TrainState, dict]:
+    """The ``tp2d`` step's tail, from each leaf's summed gradient blocks
+    (``sums``, at their owners): each position folds the squares of the
+    blocks it owns (a replicated block once, at its first holder) into
+    one f32 scalar, leaves in ``global_norm``'s order and each leaf's
+    blocks in block order; the scalars are added over all the positions in
+    ascending order at each of them (``norm_sum``: an all-reduce of 4-byte
+    scalars), so every position holds the same norm; each position takes
+    the clip scale, lr and the bias corrections from its own copy and its
+    own step counter; then AdamW as :func:`_sharded_update`'s. On one
+    position the norm is ``global_norm``'s, bit for bit."""
+    leaves = tree_leaves(state.params)
+    folds = [0] * mesh.size
+    for x, blocks in zip(leaves, sums):
+        for block in x.layout.blocks():
+            owner = x.layout.holders(block)[0]
+            with mesh.at(owner):
+                folds[owner] = folds[owner] + torch.sum(
+                    torch.square(blocks[block].float()))
+    for pos in range(mesh.size):
+        with mesh.at(pos):
+            folds[pos] = torch.as_tensor(folds[pos], dtype=torch.float32,
+                                         device=mesh.device(pos))
+    per = []                    # (norm, lr, constants) at each position
+    with span("norm_sum"):
+        for pos in range(mesh.size):
+            dev = mesh.device(pos)
+            with mesh.at(pos), mesh.moving():
+                got = []
+                for q, f in enumerate(folds):
+                    if q != pos:
+                        mesh.count("norm_sum", 4, frm=q, to=pos)
+                    got.append(f.to(dev))
+            with mesh.at(pos):
+                total = got[0]
+                for f in got[1:]:
+                    total = total + f
+                gnorm = torch.sqrt(total)
+                per.append((gnorm,) + _update_consts(
+                    state.opt.step.shards[pos], gnorm, tcfg))
+    new = _adamw_blocks(state, sums, tcfg, mesh, lambda pos: per[pos][2])
+    return new, {"loss": loss, "grad_norm": per[0][0], "lr": per[0][1]}
 
 
 def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
@@ -316,49 +381,51 @@ def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                          microbatches: int = 1) -> Callable:
     """The LM train step over ``mesh`` under the ``tp2d`` rules, split as the
     reference's partitioner splits ``jax.jit(make_train_step(model.loss,
-    tcfg), in_shardings=…)`` on a ``tp2d`` cell: Megatron over "model" ×
-    ZeRO over "data". ``step(state, tokens, labels) → (state, metrics)`` as
-    :func:`make_sharded_train_step`'s.
+    tcfg, microbatches=M), in_shardings=…)`` on a ``tp2d`` cell: Megatron
+    over "model" × ZeRO over "data". ``step(state, tokens, labels) →
+    (state, metrics)`` as :func:`make_sharded_train_step`'s.
 
-    The batch splits as that step splits it: M microbatches, batch shard d
-    of D (``batch_spec[0]``'s axes) taking microbatches d·M/D … (d+1)·M/D −
-    1. Round r runs microbatch d·M/D + r of every batch shard together, at
-    every position of the shard's group (``act_spec``: the rows whole and
-    the same at each position of a "model" group): ``loss_fn`` gets a
+    The batch splits as ``make_train_step`` splits it, into M microbatches
+    along its leading axis (microbatch i: rows i·B/M … (i+1)·B/M − 1), and
+    the step runs one round per microbatch, in order. In round i each of
+    the D batch shards (``batch_spec[0]``'s axes) takes B/(M·D) of the
+    microbatch's rows in batch order, at every position of its group
+    (``act_spec``: the rows whole and the same at each position of a
+    "model" group); B/M must divide by D. ``loss_fn`` gets a
     ``collectives.TPView`` of every leaf and the tokens and labels as
-    ``Rows`` over all the positions, and returns each position's loss as
-    Rows (``TransformerLM.loss``). Each weight is gathered along "data"
-    into the position's "model" block and multiplied there
-    (``collectives.tp_linear``), the heads and the experts split over
-    "model", a row block's partials and a column block's dX partials summed
-    over "model"; the table is looked up where its blocks lie and the cross
-    entropy taken per vocab block (``collectives.tp_vocab_xent``). The
+    ``Rows`` over all the positions, and returns the microbatch's loss at
+    every position as Rows (``TransformerLM.loss``): each weight is
+    gathered along "data" into the position's "model" block and multiplied
+    there (``collectives.tp_linear``; so once a microbatch), the heads and
+    the experts split over "model", a row block's partials and a column
+    block's dX partials summed over "model"; the table is looked up where
+    its blocks lie and the cross entropy taken per vocab block, each
+    shard's token sums and counts added over "data" and divided once
+    (``collectives.tp_vocab_xent``); the MoE groups are formed over the
+    whole microbatch and its aux loss taken over all of them
+    (``models/moe.py``; a group that would span batch shards raises). The
     backward runs at once from the losses of the positions that collect
     gradients (the first of each batch shard's positions with a "model"
     coordinate), each seeded with 1 as ``make_train_step`` seeds each
-    microbatch's: a gathered block's gradient is reduce-scattered along
-    "data" to its owner, a block read where it lies (norm weights, biases,
+    microbatch's: the loss's sums over "data" pass each position's
+    gradient to its own partial, so the gradients are the microbatch
+    mean's. A gathered block's gradient is reduce-scattered along "data"
+    to its owner, a block read where it lies (norm weights, biases,
     experts) takes the gradient of each batch shard's collector, added at
-    the block's owner in batch order (``grad_psum``). Within a round the
-    batch shards add in ascending order, across rounds in round order:
-    ``make_train_step(microbatches=M)``'s order when M / D = 1 or D = 1.
-    The sums are divided by M, the losses come to position 0 and are added
-    in microbatch order, and the norm, clip and AdamW are
-    :func:`make_sharded_train_step`'s tail.
+    the block's owner in batch order (``grad_psum``); a leaf's gradients
+    accumulate over the rounds. The sums are divided by M, the losses
+    added at position 0 in microbatch order and divided by M, and the
+    norm, clip and AdamW are :func:`_tp2d_update`'s: one scalar all-reduce
+    for the norm, no gradient moved for it.
 
-    On a mesh of one position the step is ``make_train_step(loss_fn, tcfg,
-    microbatches=M)`` bit for bit (the model with ``act_spec``, so that the
-    one-device loss is the vocab-parallel form). With more than one "model"
-    position the partials add in another order, so the loss and gradients
+    On a mesh of one position the step is ``make_train_step(loss_fn,
+    tcfg, microbatches=M)`` bit for bit (the model with ``act_spec``, so that the one-device loss is the
+    vocab-parallel form). With more than one batch shard or "model"
+    position the sums add in another order, so the loss and gradients
     differ by rounding."""
     homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
                                  else None)
     D = len(homes)
-    if microbatches % D:
-        raise ValueError(f"{microbatches} microbatches do not split over "
-                         f"{D} batch shards")
-    per = microbatches // D
-    dev0 = mesh.device(0)
     shard = {p: d for d, g in enumerate(groups) for p in g}
     positions = list(range(mesh.size))
     # the positions whose work collects gradients: the first of each batch
@@ -373,33 +440,38 @@ def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
             if not isinstance(x, ShardedTensor) or x.mesh is not mesh:
                 raise ValueError("make_tp2d_train_step: the state is not "
                                  "placed on the step's mesh")
+        B = batch[0].shape[0]
+        if B % microbatches or B // microbatches % D:
+            raise ValueError(
+                f"make_tp2d_train_step: a batch of {B} rows in "
+                f"{microbatches} microbatches does not split over {D} "
+                f"batch shards (B/M must divide by D)")
+        b = B // microbatches // D           # a batch shard's rows a round
         split = [x.reshape((microbatches, -1) + tuple(x.shape[1:]))
                  for x in batch]
         views = tree_map(lambda x: TPView(x, groups), state.params)
-        losses = [None] * microbatches
-        for r in range(per):
-            mbs = [d * per + r for d in range(D)]
+        losses = []
+        for i in range(microbatches):
             args = []
             for x in split:
                 parts = []
                 for p in positions:
+                    lo = shard[p] * b
                     with mesh.at(p):
-                        parts.append(x[mbs[shard[p]]].to(mesh.device(p)))
+                        parts.append(x[i][lo:lo + b].to(mesh.device(p)))
                 args.append(Rows(parts, positions, mesh))
             with mesh.at(0):
                 with mesh.charge_backward():
                     out = loss_fn(views, *args)
                 # each position's backward runs at the position
                 torch.autograd.backward([out.parts[p] for p in seeds])
-            for d, m in enumerate(mbs):
-                losses[m] = out.parts[homes[d]].detach()
+            # every position holds the microbatch's loss; position 0's
+            losses.append(out.parts[0].detach())
             del out, args
         with mesh.at(0):
-            loss = None
-            for mb_loss in losses:
-                with mesh.moving():
-                    mb_loss = mb_loss.to(dev0)
-                loss = mb_loss if loss is None else loss + mb_loss
+            loss = losses[0]
+            for mb_loss in losses[1:]:
+                loss = loss + mb_loss
             loss = loss / microbatches
         sums = _view_grads(mesh, tree_leaves(views))
         del views
@@ -408,7 +480,7 @@ def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
             for block in blocks:
                 with mesh.at(x.layout.holders(block)[0]):
                     blocks[block] = blocks[block] / microbatches
-        return _sharded_update(state, sums, loss, tcfg, mesh)
+        return _tp2d_update(state, sums, loss, tcfg, mesh)
 
     return step
 

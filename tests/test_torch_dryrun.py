@@ -341,11 +341,11 @@ def test_tp2d_decode_cell_splits_as_the_reference():
 @pytest.mark.parametrize("arch_id", ["qwen3-moe-30b-a3b", "smollm-135m"])
 def test_tp2d_train_cell_splits_as_the_reference(arch_id, monkeypatch):
     """The reduced train cell under ``REPRO_LM_POLICY=tp2d`` on a 2 × 2 mesh
-    runs ``make_tp2d_train_step``, split as the reference's partitioner
-    splits it: each weight gathered along "data" (``tp_zero_gather``) and
-    reduce-scattered back (``tp_zero_scatter``), the partial products
-    summed over "model" (``tp_model_sum``), none of ``block_matmul``'s
-    moves; the meta run counts what the run on ``["cpu"] * 4`` counts, by
+    runs ``make_tp2d_train_step`` at the reference cell's one microbatch,
+    split as the reference's partitioner splits it: each weight gathered
+    along "data" (``tp_zero_gather``) and reduce-scattered back
+    (``tp_zero_scatter``), the partial products summed over "model"
+    (``tp_model_sum``), none of ``block_matmul``'s moves; the meta run counts what the run on ``["cpu"] * 4`` counts, by
     name and by receiving position; each position holds its share of the
     state under the reference's ``tp2d`` specs (each leaf's bytes over its
     block count, for params, m and v)."""
@@ -359,6 +359,8 @@ def test_tp2d_train_cell_splits_as_the_reference(arch_id, monkeypatch):
         recs.append(dryrun.run_cell(arch_id, "train_4k", smoke=True,
                                     mesh=mesh, concrete=dev == "cpu"))
     meta, conc = recs
+    # the reference cell's one microbatch, its rows split over the shards
+    assert meta["meta"]["microbatches"] == conc["meta"]["microbatches"] == 1
     assert meta["collectives"] == conc["collectives"]
     for key in ("flops", "op_bytes", "temp_peak_bytes", "output_bytes",
                 "argument_bytes", "collective_bytes_received"):

@@ -55,6 +55,12 @@ over "data", as the reference's partitioner splits its jitted steps
   split (B 4) and whole (B 1): logits to rtol 1e-4, the HLO's collective
   bytes read by kind and axis (weights gathered along "data" with the
   batch split, none with it whole) and printed beside the port's.
+* Fault 7: an ``fsdp`` prefill on 2 × 2 whose MoE group (64 tokens, B 4 ×
+  16) spans both batch shards runs both shards' rows at the first home:
+  logits and cache bitwise the one-device prefill, within 1e-4 of the
+  reference's jitted ``fsdp`` prefill (the same child), bytes
+  ``chip_smoke.serve_fsdp_bytes_want``'s (``prefill_span``); groups that
+  neither fit into nor span whole shards raise.
 
 JAX is imported inside the tests that need it.
 """
@@ -567,27 +573,6 @@ def test_tp2d_split_serving_repeats_bitwise(name):
 # -- against the reference's jitted prefill and decode -------------------------------
 
 _SERVE_CHILD = HLO_AXES + r'''
-from repro.launch.roofline import _COLLECTIVE_RE
-
-
-def weight_gathers(hlo):
-    # operand bytes a chip of the all-gathers along "data" of rank-2
-    # operands, the weights' blocks: the rows a product gathers are
-    # (B, S, ·) and the routing's probabilities (G, S, E); the routing's
-    # sorted ids (G, N) are told apart by their op (top_k, sort)
-    keep = []
-    for l in hlo.splitlines():
-        m = _COLLECTIVE_RE.search(l)
-        if m:
-            shape = re.match(r"[a-z0-9]+\[([0-9,]*)\]", m.group(2) or "")
-            if not (m.group(3) == "all-gather" and axis(l) == "data"
-                    and shape and len(shape.group(1).split(",")) == 2
-                    and "top_k" not in l and "sort" not in l):
-                continue
-        keep.append(l)
-    return collective_bytes("\n".join(keep)).get("all-gather", 0)
-
-
 import json, sys
 import jax
 import jax.numpy as jnp
@@ -605,10 +590,11 @@ for case in json.loads(sys.argv[1]):
         kw["moe"] = MoEConfig(**kw["moe"])
     cfg = TransformerConfig(**kw)
     split = case["split"]
-    model = TransformerLM(cfg, moe_group_size=16,
+    model = TransformerLM(cfg, moe_group_size=case.get("group", 16),
                           act_spec=P("data", None, None) if split else None)
     params = model.init(jax.random.PRNGKey(0))
-    psh = jax.tree.map(ns, lm_param_specs(params, cfg, "tp2d"))
+    psh = jax.tree.map(ns, lm_param_specs(params, cfg,
+                                          case.get("policy", "tp2d")))
     bs = ns(P("data", None) if split else P(None, None))
     cs = ns(P(None, "data", "model", None, None) if split
             else P(None, None, ("data", "model"), None, None))
@@ -616,8 +602,16 @@ for case in json.loads(sys.argv[1]):
     decode = jax.jit(model.decode_step,
                      in_shardings=(psh, bs, (cs, cs), ns(P())))
     tokens = np.array(case["tokens"], np.int32)
-    token = np.array(case["token"], np.int32)
     S = tokens.shape[1]
+    if "token" not in case:             # a prefill alone
+        with mesh:
+            lg, _ = prefill(params, tokens)
+            text = prefill.lower(params, tokens).compile().as_text()
+        out[case["id"]] = {"prefill": np.asarray(lg, np.float32).tolist(),
+                           "hlo": {"prefill": read_hlo(text), "weights": {
+                               "prefill": weight_gathers(text)}}}
+        continue
+    token = np.array(case["token"], np.int32)
     with mesh:
         lg, (k, v) = prefill(params, tokens)
         pad = ((0, 0), (0, 0), (0, case["extra"]), (0, 0), (0, 0))
@@ -669,17 +663,40 @@ def _fault6_case(key):
             "token": token.tolist()}
 
 
+# fault 7's input: an ``fsdp`` prefill of B 4 × 16 with the batch split over
+# "data" on 2 × 2 and ``moe_group_size`` 64, so one group of 64 tokens
+# spans both batch shards (32 tokens each); every row row 0's (each picked
+# expert's 16 slots overflow) or distinct random rows
+FAULT7 = {"expert-same": ("qwen3-moe-e16", True),
+          "ffn-same": ("qwen3-moe-e16-ffn", True),
+          "expert-random": ("qwen3-moe-e16", False)}
+FAULT7_GROUP = 64
+
+
+def _fault7_case(key):
+    name, same = FAULT7[key]
+    cfg = SPLIT_MODELS[name]
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 16))
+    if same:
+        tokens[:] = tokens[0]
+    return {"id": f"fault7-{key}", "cfg": dataclasses.asdict(cfg),
+            "split": True, "policy": "fsdp", "group": FAULT7_GROUP,
+            "extra": 4, "tokens": tokens.tolist()}
+
+
 @pytest.fixture(scope="module")
 def reference_serving():
     """The reference's jitted ``prefill`` and ``decode_step`` of every case
-    under the ``tp2d`` ``in_shardings`` on a 2 × 2 JAX mesh of four host
-    devices (one child process): logits, the compiled HLO's collective
-    bytes a chip by kind and axis, and its weight gathers along "data" a
-    chip (``weights``), per case id."""
+    under the ``tp2d`` ``in_shardings`` (fault 7's prefill alone, under the
+    ``fsdp`` ones) on a 2 × 2 JAX mesh of four host devices (one child
+    process): logits, the compiled HLO's collective bytes a chip by kind
+    and axis, and its weight gathers along "data" a chip (``weights``),
+    per case id."""
     pytest.importorskip("jax")
-    cases = [_serve_case(n, b) for n in sorted(SPLIT_MODELS)
-             for b in ("split", "whole")] + [_fault6_case(k)
-                                             for k in sorted(FAULT6)]
+    cases = ([_serve_case(n, b) for n in sorted(SPLIT_MODELS)
+              for b in ("split", "whole")]
+             + [_fault6_case(k) for k in sorted(FAULT6)]
+             + [_fault7_case(k) for k in sorted(FAULT7)])
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["JAX_PLATFORMS"] = "cpu"
@@ -830,3 +847,72 @@ def test_split_decode_routes_one_group_over_the_batch(reference_serving,
     assert mesh.bytes["moe_group_dispatch"] > 0
     assert _along(mesh, mesh.moves, {"moe_group_probs",
                                      "moe_group_dispatch"}, "data")
+
+
+@pytest.mark.parametrize("key", sorted(FAULT7))
+def test_fsdp_prefill_routes_one_group_over_the_batch(reference_serving,
+                                                      key):
+    """Fault 7: an ``fsdp`` prefill on 2 × 2 with the batch split over
+    "data" whose MoE group (64 tokens, ``moe_group_size`` 64, B 4 × 16)
+    spans both batch shards, as the reference groups it. The run of the two
+    shards is computed at the first home over both shards' rows, and the
+    second shard's logits and keys and values go to its home
+    (``prefill_span``). The logits and the cache bitwise the one-device
+    ``prefill``'s (f32; with every row row 0's, each picked expert's slots
+    overflow, and the second shard's are dropped as the reference drops
+    them), within rtol / atol 1e-4 of the reference's jitted ``fsdp``
+    prefill; the bytes ``chip_smoke.serve_fsdp_bytes_want``'s. The
+    port's bytes by name and axis are printed beside the reference HLO's
+    (``-s``)."""
+    import jax
+    from repro.models.transformer import TransformerLM as RLM
+    from test_torch_lm import _jax_cfg
+    cases, ref = reference_serving
+    case, want = cases[f"fault7-{key}"], ref[f"fault7-{key}"]
+    cfg = SPLIT_MODELS[FAULT7[key][0]]
+    tree = jax.tree_util.tree_map(np.asarray, RLM(_jax_cfg(cfg)).init(
+        jax.random.PRNGKey(0)))
+    params = params_from_jax(cfg, tree, device="cpu")
+    tokens = torch.tensor(case["tokens"], dtype=torch.int32)
+    B, S = tokens.shape
+    plain = TransformerLM(cfg, moe_group_size=FAULT7_GROUP)
+    lg1, (ks, vs) = plain.prefill(params, tokens)
+    mesh = _mesh((2, 2))
+    model = TransformerLM(cfg, moe_group_size=FAULT7_GROUP,
+                          act_spec=P("data", None, None))
+    assert model.moe_span(B, S, 2) == 2
+    placed = place_params(params, mesh, lm_param_specs(params, cfg, "fsdp"))
+    prefill = make_sharded_prefill(model, mesh, P("data", None),
+                                   P(None, "data", "model", None, None),
+                                   capacity=S + 4)
+    lg, cache = prefill(placed, tokens)
+    print(f"\nfault 7 ({key}): reference HLO, bytes a chip by kind and "
+          f"axis: {want['hlo']['prefill']}, weight gathers along \"data\" "
+          f"{want['hlo']['weights']['prefill']}\nthe port, bytes by name: "
+          f"{dict(mesh.bytes)}; by name and axis: "
+          f"{_by_axis(mesh, mesh.moves)}")
+    assert torch.equal(lg, lg1)
+    assert torch.equal(gather(cache[0])[:, :, :S], ks)
+    assert torch.equal(gather(cache[1])[:, :, :S], vs)
+    np.testing.assert_allclose(lg.numpy(), np.array(want["prefill"]),
+                               rtol=1e-4, atol=1e-4)
+    assert dict(mesh.bytes) == chip_smoke.serve_fsdp_bytes_want(
+        cfg, (2, 2), B, S, FAULT7_GROUP, S + 4)
+    assert mesh.bytes["prefill_span"] > 0
+
+
+def test_fsdp_prefill_refuses_groups_across_uneven_shards():
+    """Where the MoE groups neither fit into the batch shards nor span
+    whole runs of them (3 groups of 16 tokens over 4 shards of 12), the
+    ``fsdp`` prefill raises and names the shapes."""
+    cfg = SPLIT_MODELS["qwen3-moe-e16"]
+    mesh = _mesh((4, 1))
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    params = model.init(torch.Generator().manual_seed(0))
+    prefill = make_sharded_prefill(model, mesh, P("data", None),
+                                   P(None, "data", None, None, None))
+    tokens = torch.zeros((4, 12), dtype=torch.int32)
+    with pytest.raises(ValueError, match="3 MoE groups of 16 tokens"):
+        prefill(place_params(params, mesh,
+                             lm_param_specs(params, cfg, "fsdp")), tokens)

@@ -44,13 +44,27 @@ backward; ``models/layers.py``: the vocab-parallel cross entropy;
   no farther from the unsharded bf16 step's than ``LEAF_FACTOR`` (2)
   times the unsharded f32 step's distance from it (``chip_smoke.py``'s
   leaf check at SMOKE widths).
+* Microbatches as ``make_train_step``'s: M ∈ {1, 2, 4} on 2 × 2 and 2 × 1
+  (each microbatch's rows split over "data", so M = 1 runs on a mesh with
+  "data" > 1) within ``STEP_RTOL`` of the unsharded step, the weights
+  gathered once a microbatch, and M = 1 on one position bit for bit; every
+  collective's bytes equal to ``chip_smoke.tp2d_bytes_want`` on 2 × 2 with
+  ``remat`` none, full and dots; a clip that bites (``grad_clip`` 0.05):
+  the grad norm, one scalar all-reduce (``norm_sum``, no gradient moved),
+  within 1e-5 of ``global_norm``'s on 2 × 2 and bit for bit on one
+  position; a MoE group that would span the batch shards in training, and
+  a microbatch that does not split over them, raise.
 * The step against the reference's ``jax.jit(make_train_step)`` under a
   2 × 2 JAX mesh with the ``tp2d`` ``in_shardings`` (a child process with
   four host devices), weights through ``params_from_jax``, to rtol 1e-4,
   for ``moe_shard`` "expert" and "ffn"; the child also reads the compiled
   HLO's collective bytes by kind and by the mesh axis of their replica
   groups (``repro.launch.roofline.collective_bytes``), printed beside the
-  port's bytes by name and axis.
+  port's bytes by name and axis, its all-gathers along "data" by what
+  they gather (weights, rows, ids) and its gradient all-reduces along
+  "data" that a dynamic-slice reads: the port's ``tp_zero_gather`` a
+  position equals the float all-gathers along "data" a chip, the weights'
+  are each attention block's twice a microbatch.
 
 JAX is imported only inside the tests that compare with it.
 """
@@ -331,7 +345,7 @@ def _batches(cfg, B=8, S=16, n=N_STEPS):
 
 
 def _run(cfg, shape, micro, bspec, steps=N_STEPS, reference=True,
-         moves=None):
+         moves=None, tcfg=TCFG):
     """(unsharded metrics, mesh metrics, unsharded state, mesh state, the
     bytes of each mesh step); each step's ``Mesh.moves`` appended to
     ``moves`` when it is a list."""
@@ -342,13 +356,13 @@ def _run(cfg, shape, micro, bspec, steps=N_STEPS, reference=True,
     mesh = _mesh(shape)
     specs = state_specs_like(lm_param_specs(params, cfg, "tp2d"))
     state = new_sharded_train_state(params, mesh, specs)
-    step = make_tp2d_train_step(model.loss, TCFG, mesh, specs, bspec,
+    step = make_tp2d_train_step(model.loss, tcfg, mesh, specs, bspec,
                                 microbatches=micro)
     ref = rstep = None
     if reference:
         ref = new_train_state(model.init(torch.Generator().manual_seed(0),
                                          dtype=torch.float32))
-        rstep = make_train_step(model.loss, TCFG, microbatches=micro)
+        rstep = make_train_step(model.loss, tcfg, microbatches=micro)
     want, got, nbytes = [], [], []
     for b in _batches(cfg)[:steps]:
         if reference:
@@ -404,20 +418,110 @@ def test_tp2d_step_against_the_unsharded_step(name, shape, batch):
         assert all(step["expert_gather"] > 0 for step in nbytes)
 
 
+@pytest.mark.parametrize("micro", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(2, 2), (2, 1)], ids=["2x2", "2x1"])
+@pytest.mark.parametrize("name", ["qwen3-moe-e16", "smollm-135m"])
+def test_tp2d_microbatches_split_as_make_train_steps(name, shape, micro):
+    """``microbatches`` M as ``make_train_step``'s: M rounds, microbatch i's
+    rows split over the two batch shards (so M = 1 runs with "data" > 1),
+    the MoE groups and aux loss over each microbatch's tokens, the loss
+    each microbatch's mean over its tokens: loss and grad norm within
+    ``STEP_RTOL`` of the unsharded step's, every leaf after 2 steps within
+    rtol 1e-4, atol 2 · lr · steps; the weights gathered once a
+    microbatch (``tp_zero_gather`` M times one round's)."""
+    cfg = MODELS[name]
+    want, got, ref, state, nbytes = _run(cfg, shape, micro, P("data", None))
+    for (l0, n0), (l1, n1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=STEP_RTOL)
+        assert n1 == pytest.approx(n0, rel=STEP_RTOL)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    for a, b in zip(tree_leaves(ref.params), _whole(state.params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=flips)
+    one = tp2d_step_bytes(cfg, shape, micro=1, B=8 // micro)
+    assert nbytes[0]["tp_zero_gather"] == micro * one["tp_zero_gather"]
+    assert nbytes[0] == tp2d_step_bytes(cfg, shape, micro=micro)
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-e16", "smollm-135m"])
+def test_tp2d_one_microbatch_on_one_position_is_the_unsharded_step(name):
+    want, got, ref, state, nbytes = _run(MODELS[name], (1, 1), 1,
+                                         P("data", None))
+    assert got == want
+    for a, b in zip(tree_leaves(ref), _whole(state)):
+        assert torch.equal(a, b)
+    assert not any(nbytes)
+
+
+CLIP = dataclasses.replace(TCFG, grad_clip=0.05)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+@pytest.mark.parametrize("name", ["qwen3-moe-e16", "smollm-135m"])
+def test_tp2d_clip_norm_is_one_scalar_allreduce(name, shape):
+    """A clip that bites (``grad_clip`` 0.05, below every step's norm): the
+    grad norm within 1e-5 of ``global_norm``'s (the unsharded step's) on
+    2 × 2, bit for bit on one position, and every leaf after 2 clipped
+    steps as the unsharded step's; the norm moves no gradient, only each
+    position's 4-byte scalar to every other (``norm_sum``)."""
+    want, got, ref, state, nbytes = _run(MODELS[name], shape, 2,
+                                         P("data", None), tcfg=CLIP)
+    assert all(n > CLIP.grad_clip for _, n in want)
+    N = shape[0] * shape[1]
+    if N == 1:
+        assert got == want
+        for a, b in zip(tree_leaves(ref), _whole(state)):
+            assert torch.equal(a, b)
+        return
+    for (l0, n0), (l1, n1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=STEP_RTOL)
+        assert n1 == pytest.approx(n0, rel=1e-5)
+    flips = 2 * CLIP.learning_rate * N_STEPS
+    for a, b in zip(tree_leaves(ref.params), _whole(state.params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=flips)
+    for step in nbytes:
+        assert step["norm_sum"] == N * (N - 1) * 4
+        assert "norm_gather" not in step
+
+
+def test_tp2d_group_across_batch_shards_raises():
+    """A MoE group that would span the batch shards of a microbatch in
+    training (``moe_group_size`` 64 over 2 shards of 32 tokens) raises and
+    names the shapes: routing across shards has no backward."""
+    model = TransformerLM(MOE16, moe_group_size=64,
+                          act_spec=P("data", None, None))
+    params = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+    mesh = _mesh((2, 2))
+    specs = state_specs_like(lm_param_specs(params, MOE16, "tp2d"))
+    state = new_sharded_train_state(params, mesh, specs)
+    step = make_tp2d_train_step(model.loss, TCFG, mesh, specs,
+                                P("data", None), microbatches=2)
+    with pytest.raises(NotImplementedError,
+                       match="group of 64 tokens spans 2 batch shards"):
+        step(state, *_batches(MOE16)[0])
+    with pytest.raises(ValueError, match="B/M must divide by D"):
+        make_tp2d_train_step(model.loss, TCFG, mesh, specs, P("data", None),
+                             microbatches=8)(state, *_batches(MOE16)[0])
+
+
 def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
     """Every collective's bytes of one ``make_tp2d_train_step`` step
     (``remat="none"``, the batch split over "data", the SMOKE widths, which
     divide every production axis size) on a (D, M) mesh, from the config
-    alone: per round of microbatches the gathers along "data" (compute
-    dtype) and their reduce-scatters (f32), the sums over "model"
-    (reduce-scatter of the partial, all-gather of the rounded sum), the
-    heads and experts over "model", the loss's statistics and the two-axis
-    lookup; per step the replicas' sums, the norm's gather and AdamW's
-    sends (f32)."""
+    alone: per microbatch (a round, each batch shard B/(micro·D) of its
+    rows) the gathers along "data" (compute dtype) and their
+    reduce-scatters (f32), the sums over "model" (reduce-scatter of the
+    partial, all-gather of the rounded sum), the heads and experts over
+    "model", the loss's statistics, its sum and count over "data" (4-byte
+    scalars), the MoE aux loss's means and counts over "data" and the
+    two-axis lookup; per step the replicas' sums, the norm's scalars over
+    every position and AdamW's sends (f32)."""
     D, M = shape
     N = D * M
-    rounds = micro // D
-    R = B // micro * S                       # rows a position holds
+    rounds = micro
+    R = B // micro // D * S                  # rows a position holds
     c = 4 if cfg.dtype == "float32" else 2   # the compute dtype's bytes
     d, H, KV, hd, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, cfg.n_layers, cfg.vocab_size)
@@ -438,6 +542,9 @@ def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
     # router is split over "data" only, so every "model" position gathers it
     gathered = L * sum(split) + V * d        # the layers and the head
     out["tp_zero_gather"] = rounds * (D - 1) * c * (gathered + M * L * router)
+    # a batch shard's partials from each other shard, at every position
+    out["loss_sum"] = rounds * N * (D - 1) * (4 + 4)
+    out["moe_aux_sum"] = rounds * L * N * (D - 1) * (4 + 4) * E
     out["tp_zero_scatter"] = rounds * (D - 1) * 4 * (gathered + L * router)
 
     def allreduce(n, p):                     # over D groups of M
@@ -473,13 +580,13 @@ def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
     ex_blocks = 1 if moe is None else (
         M if moe.moe_shard == "ffn" or E % 16 == 0 else 1)
     out["grad_psum"] = (D - 1) * 4 * (L * (2 * d + experts) + d)
-    # (numel, blocks) of every leaf, for the norm's gather and AdamW's sends
+    # (numel, blocks) of every leaf, for AdamW's sends
     leaves = [(n, N) for n in split for _ in range(L)] + [(V * d, N)]
     leaves += [(router, D)] * L if moe else []
     leaves += [(experts, ex_blocks)] * L + [(d, 1)] * (2 * L + 1)
     if not cfg.tie_embeddings:
         leaves.append((V * d, N))            # the head beside the embed
-    out["norm_gather"] = sum(n * 4 - n * 4 // b for n, b in leaves)
+    out["norm_sum"] = N * (N - 1) * 4
     out["grad_send"] = sum(n * 4 * (N - b) // b for n, b in leaves)
     return {k: v for k, v in out.items() if v}
 
@@ -493,6 +600,23 @@ def test_tp2d_step_bytes_by_formula(name, shape):
     _, _, _, _, nbytes = _run(MODELS[name], shape, 2, P("data", None),
                               steps=1, reference=False)
     assert nbytes[0] == tp2d_step_bytes(MODELS[name], shape)
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("name", ["qwen3-moe-e16", "qwen3-moe-ffn",
+                                  "smollm-135m"])
+def test_tp2d_step_bytes_by_chip_smoke_formula(name, remat, micro):
+    """On 2 × 2 every collective's bytes a step equal to
+    ``chip_smoke.tp2d_bytes_want`` (the formula the card's
+    train-sharded-tp2d runs are held to: the generic one from the ``tp2d``
+    specs, with ``remat``'s recompute), one round per microbatch."""
+    import chip_smoke
+    cfg = dataclasses.replace(MODELS[name], remat=remat)
+    _, _, _, _, nbytes = _run(cfg, (2, 2), micro, P("data", None), steps=1,
+                              reference=False)
+    assert nbytes[0] == chip_smoke.tp2d_bytes_want(
+        cfg, (2, 2), 8 // micro // 2 * 16, micro, 16)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
@@ -709,6 +833,81 @@ def read_hlo(hlo):
             if n:
                 read[f"{kind} {ax}"] = n
     return read
+
+
+def data_gathers(hlo):
+    # operand bytes a chip of the all-gathers along "data" by what they
+    # gather: "weights" (float operands of rank 2: weight blocks; the
+    # routing's sorted ids (G, N) told apart by their op, top_k or sort),
+    # "rows" (float operands of rank 3 or more: activations, the router's
+    # probabilities), "ids" (integer operands: tokens, routing ids)
+    kinds = []
+    for l in hlo.splitlines():
+        m = _COLLECTIVE_RE.search(l)
+        kind = None
+        if m and m.group(3) == "all-gather" and axis(l) == "data":
+            shape = re.match(r"([a-z]+)\d*\[([0-9,]*)\]", m.group(2) or "")
+            if shape and shape.group(1) in ("s", "u", "pred"):
+                kind = "ids"
+            elif shape and shape.group(2).count(",") == 1 and \
+                    "top_k" not in l and "sort" not in l:
+                kind = "weights"
+            else:
+                kind = "rows"
+        kinds.append(kind if m else "")
+    out = {}
+    for want in ("weights", "rows", "ids"):
+        keep = "\n".join(l for l, k in zip(hlo.splitlines(), kinds)
+                         if k in ("", want))
+        out[want] = collective_bytes(keep).get("all-gather", 0)
+    return out
+
+
+def weight_gathers(hlo):
+    return data_gathers(hlo)["weights"]
+
+
+def reduce_then_slice(hlo):
+    # the all-reduces along "data" of tensors of rank 2 or more: how many
+    # outputs, and how many of them a dynamic-slice reads (itself, or
+    # inside the fusion that reads them): a reduce-scatter written as an
+    # all-reduce and a slice
+    bodies, cur = {}, None
+    for l in hlo.splitlines():
+        h = re.match(r"^(?:ENTRY )?(%[^ ]+) \(.*\{\s*$", l)
+        if h:
+            cur = h.group(1)
+            bodies[cur] = []
+        elif cur:
+            bodies[cur].append(l)
+    users = {}
+    for l in hlo.splitlines():
+        for v in re.findall(r"[(,] ?(%[\w.\-]+)(?=[,)])",
+                            l.split(" = ", 1)[-1]):
+            users.setdefault(v, []).append(l)
+    outputs = sliced = 0
+    for l in hlo.splitlines():
+        m = _COLLECTIVE_RE.search(l)
+        if not m or m.group(3) != "all-reduce" or axis(l) != "data":
+            continue
+        name = l.strip().split(" = ")[0]
+        for i, dims in enumerate(re.findall(r"\[([0-9,]*)\]",
+                                            m.group(1) or m.group(2))):
+            if "," not in dims:
+                continue
+            outputs += 1
+            vals = [name]
+            if m.group(1):
+                vals = [u.strip().split(" = ")[0] for u in users.get(name, [])
+                        if "get-tuple-element(" in u
+                        and re.search(r"index=%d\b" % i, u)]
+            reads = [u for v in vals for u in users.get(v, [])]
+            calls = [re.search(r"calls=(%[\w.\-]+)", u) for u in reads]
+            if any(" dynamic-slice(" in u for u in reads) or any(
+                    "dynamic-slice(" in "\n".join(bodies.get(c.group(1), []))
+                    for c in calls if c):
+                sliced += 1
+    return {"outputs": outputs, "sliced": sliced}
 '''
 
 _CHILD = HLO_AXES + r'''
@@ -739,7 +938,9 @@ tokens, labels = (jnp.asarray(np.array(t, np.int32))
                   for t in args["batches"][0])
 with mesh:
     hlo = step.lower(state, tokens, labels).compile().as_text()
-print("HLO " + json.dumps(read_hlo(hlo)))
+print("HLO " + json.dumps({"kinds": read_hlo(hlo),
+                           "gathers": data_gathers(hlo),
+                           "slices": reduce_then_slice(hlo)}))
 metrics = []
 with mesh:
     for tokens, labels in args["batches"]:
@@ -774,12 +975,24 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
     ``in_shardings`` (XLA's partitioner places each product) against the
     port's ``make_tp2d_train_step`` on 2 × 2, the qwen3-moe SMOKE model
     with 16 experts split over "model" (``moe_shard="expert"``) or their
-    d_ff split (``"ffn"``), 2 steps of 2 microbatches split over "data",
-    one set of weights: losses, grad norms and every leaf to rtol 1e-4.
-    The child reads its compiled HLO's collective bytes by kind and the
-    axis of their groups: its weight all-gathers run along "data" and its
-    activation all-reduces along "model", as the port's gathers and sums
-    do; both printed (``-s``) by name and axis."""
+    d_ff split (``"ffn"``), 2 steps of 2 microbatches, each split over
+    "data", one set of weights: losses, grad norms and every leaf to rtol
+    1e-4. The child reads its compiled HLO's collective bytes by kind and
+    the axis of their groups: its weight all-gathers run along "data" and
+    its activation all-reduces along "model", as the port's gathers and
+    sums do; both printed (``-s``) by name and axis.
+
+    The port gathers each weight once a microbatch (its ``tp_zero_gather``
+    as :func:`tp2d_step_bytes` counts it). The HLO gathers each attention
+    weight's block twice a microbatch (the forward's product and the
+    backward's), never the router or the head, whose products take the
+    rows instead (the head's input rows and the router's probabilities,
+    gathered along "data"); each kind is held to its own count. Only at
+    these widths do the totals agree: the port's a position equals the
+    HLO's float all-gathers along "data" a chip (122,880 B). Its weights'
+    gradients along "data" are all-reduced and then dynamic-sliced to each
+    chip's block (the CPU pipeline forms no reduce-scatter), where the
+    port reduce-scatters (``tp_zero_scatter``)."""
     jax = pytest.importorskip("jax")
     from repro.models.transformer import TransformerLM as RLM
     from repro_torch.models.transformer import params_from_jax
@@ -787,10 +1000,11 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
     from test_torch_train import _leaves_ref_layout
     cfg = dataclasses.replace(
         MOE16, moe=dataclasses.replace(MOE16.moe, moe_shard=moe_shard))
+    micro = 2
     batches = _batches(cfg)
     out = tmp_path / "ref.npz"
     payload = json.dumps({
-        "cfg": dataclasses.asdict(cfg), "micro": 2, "out": str(out),
+        "cfg": dataclasses.asdict(cfg), "micro": micro, "out": str(out),
         "tcfg": {k: getattr(TCFG, k) for k in ("learning_rate",
                                                 "warmup_steps",
                                                 "total_steps")},
@@ -806,9 +1020,16 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
     assert res.returncode == 0, res.stderr[-4000:]
     lines = res.stdout.strip().splitlines()
     want = json.loads(lines[-1])
-    hlo = json.loads(next(ln[4:] for ln in lines if ln.startswith("HLO ")))
+    read = json.loads(next(ln[4:] for ln in lines if ln.startswith("HLO ")))
+    hlo, gathers, slices = read["kinds"], read["gathers"], read["slices"]
     assert hlo.get("all-gather data", 0) > 0
     assert hlo.get("all-reduce model", 0) > 0
+    # the attention weights' blocks (f32, whole along "data" at each of
+    # the 2 x 2 positions), forward and backward, every microbatch
+    attn = 4 * (2 * cfg.d_model * cfg.n_heads * cfg.head_dim
+                + 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim) // 4
+    assert gathers["weights"] == 2 * micro * cfg.n_layers * attn, gathers
+    assert slices["sliced"] >= 4 and "reduce-scatter data" not in hlo
     rparams = RLM(_jax_cfg(cfg)).init(jax.random.PRNGKey(0))
     params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
                                                          rparams),
@@ -819,7 +1040,7 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
     specs = state_specs_like(lm_param_specs(params, cfg, "tp2d"))
     state = new_sharded_train_state(params, mesh, specs)
     step = make_tp2d_train_step(model.loss, TCFG, mesh, specs,
-                                P("data", None), microbatches=2)
+                                P("data", None), microbatches=micro)
     for i, (b, (loss, gnorm)) in enumerate(zip(batches, want)):
         mesh.reset_bytes()
         state, m = step(state, *b)
@@ -827,9 +1048,28 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
         assert float(m["grad_norm"]) == pytest.approx(gnorm, rel=1e-4)
         if i == 0:
             print(f"\nreference HLO ({moe_shard}), bytes a chip by kind and "
-                  f"axis: {hlo}\nthe port's step, bytes by name and axis: "
-                  f"{_by_axis(mesh, mesh.moves)}")
+                  f"axis: {hlo}; all-gathers along \"data\" by what they "
+                  f"gather: {gathers}; gradients all-reduced along "
+                  f"\"data\", then sliced: {slices}\nthe port's step, bytes "
+                  f"by name and axis: {_by_axis(mesh, mesh.moves)}")
             assert not set(mesh.bytes) & (GATHERS | STATIONARY)
+            # each side by what it gathers: the port every weight's
+            # "model" block once a microbatch (the formula) ...
+            port = mesh.bytes["tp_zero_gather"]
+            assert port == tp2d_step_bytes(cfg, (2, 2), micro)[
+                "tp_zero_gather"]
+            # ... the HLO, besides the attention blocks above, a chip's
+            # rows: each microbatch's head input and each layer's router
+            # probabilities
+            R = 8 // micro // 2 * 16
+            assert gathers["rows"] == micro * 4 * R * (
+                cfg.d_model + cfg.n_layers * cfg.moe.n_experts)
+            # the totals agree at these SMOKE widths only: the HLO gathers
+            # rows where the port gathers the router's and the head's
+            # weights, so at other widths they differ
+            assert port // 4 == gathers["weights"] + gathers["rows"] \
+                == 122_880
+            assert "norm_gather" not in mesh.bytes
     whole = {k: gather(v) if isinstance(v, ShardedTensor) else v
              for k, v in state.params.items() if k != "layers"}
     whole["layers"] = [{k: (gather(v) if isinstance(v, ShardedTensor)
