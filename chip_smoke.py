@@ -451,6 +451,10 @@ TP_TRAIN_PEAK = 75e9
 # (``make_train_step(model.loss, TCFG)``), the rows of each split over
 # "data"; (ii) takes train-smollm's SMOL_MICRO
 TP_MICRO = 1
+# train-sharded (d) and train-sharded-tp2d (iv): train-lm's model on 2 x
+# 2,048 tokens with MoE groups of 4,096 (the cells' cap), so one group
+# spans both batch shards of the 2 x 2 mesh (fault 8 under tp2d)
+SPAN_BATCH, SPAN_SEQ, SPAN_GROUP = 2, 2048, 4096
 # train-sharded-tp2d's leaf check: per leaf, ||m - m_card|| / ||m_card||
 # of AdamW's first moment after TP_TRAIN_STEPS steps (a sum of both steps'
 # clipped gradients, all of the initial weights), mesh against one card,
@@ -493,6 +497,11 @@ GNN_FOLD_ULP = 2.0 ** -7
 # train-sharded-bst: the mesh's serve outputs against one card's, as a share
 # of the largest |value| (f32: a row subset may take another GEMM kernel)
 BST_MESH_TOL = 1e-5
+# train-sharded-bst: the cell's step at its one microbatch over the two
+# batch shards against one card's at one microbatch, loss and grad norm
+# relative (f32, TF32 off: the loss a sum of two half-batch sums, each
+# half's products perhaps on another GEMM kernel)
+BST_M1_RTOL = 1e-5
 # LSE of the forward kernels against a plain logsumexp (f32 statistics)
 LSE_RTOL, LSE_ATOL = 1e-5, 1e-4
 REPS = 20          # timed launches per kernel measurement
@@ -1759,13 +1768,15 @@ def step_grads(model, params, batch, microbatches: int):
     return grads
 
 
-def sharded_launch_want(n_model: int) -> dict:
-    """Launches of one train-sharded step (2 microbatches of 2 layers,
-    ``remat="full"``): per microbatch and layer 2 flash forwards (forward
-    and recompute) and 1 backward on the TMA + wgmma kernels, and per
-    expert shard 6 tiles products (3 forward, 3 recompute), 3 dX and 3 dW;
-    ``n_model`` expert shards (1 when the experts are gathered whole)."""
-    per = TRAIN_MICRO * TRAIN_LAYERS
+def sharded_launch_want(n_model: int,
+                        forwards: int = TRAIN_MICRO) -> dict:
+    """Launches of one train-sharded step (``forwards`` forwards of 2
+    layers, one a microbatch at a home, ``remat="full"``): per forward and
+    layer 2 flash forwards (forward and recompute) and 1 backward on the
+    TMA + wgmma kernels, and per expert shard 6 tiles products (3 forward,
+    3 recompute), 3 dX and 3 dW; ``n_model`` expert shards (1 when the
+    experts are gathered whole)."""
+    per = forwards * TRAIN_LAYERS
     return {"flash_attention_fwd_wgmma": 2 * per,
             "flash_attention_bwd_wgmma": per, "flash_attention_bwd": 0,
             "flash_attention_fwd": 0,
@@ -1833,7 +1844,18 @@ def phase_train_sharded(train_lm: dict, profile: bool = False):
     (b) expert parallelism, ``act_spec`` P("data", None, None): 2 steps on
     the 2 × 2 mesh and on ``make_host_mesh()``, bitwise equal, and their
     losses within ``SHARD_LOSS_RTOL`` of train-lm's first two (only the
-    cross entropy's route differs). Launches checked exactly per step."""
+    cross entropy's route differs). (c) the LM cell's step: (b)'s model at
+    the reference cell's one microbatch, its rows over the two batch
+    shards, 2 steps, against a one-card ``make_train_step`` at one
+    microbatch run here from the same seed, batches and schedule: losses
+    within ``SHARD_LOSS_RTOL``; grad norms and each leaf's AdamW first
+    moment within ``TP_LEAF_FACTOR`` times an f32 one-card control's gap;
+    bytes (b)'s at M = D plus the sums over the homes (``loss_sum``,
+    ``moe_aux_sum``), exactly; the peak printed. (d) (b)'s model on
+    ``SPAN_BATCH`` x ``SPAN_SEQ`` tokens with MoE groups of
+    ``SPAN_GROUP``: one group spans both batch shards, which run at the
+    first home (``train_span``): bitwise one card's step at one
+    microbatch. Launches checked exactly per step."""
     import dataclasses
     import torch
     from repro_torch.configs.qwen3_moe_30b_a3b import FULL
@@ -1952,10 +1974,105 @@ def phase_train_sharded(train_lm: dict, profile: bool = False):
           "host mesh's")
     check(rel <= SHARD_LOSS_RTOL,
           f"train-sharded (b): losses {rel:.3e} from train-lm's")
+    out.update(b_2x2=rows_ep, b_host=rows_host, b_loss_max_rel=rel)
+
+    # (c) the cell's step: the reference cell's one microbatch, its rows
+    # over the two batch shards, one forward over both homes
+    act = P("data", None, None)
+    kw = dict(moe_group_size=TRAIN_GROUP, act_spec=act)
+    card = one_card_steps(cfg, kw, tcfg, pipe, 1)
+    ref = card.pop("moments")
+    control = one_card_steps(dataclasses.replace(cfg, dtype="float32"), kw,
+                             tcfg, pipe, 1, ref)
+    specs, state = fresh(model, mesh)
+    names = leaf_names(state.params)
+    step = make_sharded_train_step(model.loss, tcfg, mesh, specs, bspec, 1,
+                                   moe_span=model.moe_span)
+    state, rows_c = sharded_steps("(c)", step, state, mesh, pipe, 0,
+                                  TP_TRAIN_STEPS, 2, total)
+    gaps = moment_gaps(state, ref)
+    del state, step, ref
+    torch.cuda.empty_cache()
+    E, L = cfg.moe.n_experts, cfg.n_layers
+    again = 2 if cfg.remat in ("full", "dots") else 1
+    # (b)'s moves at M = D, and the sums over the two homes: each home's
+    # loss sum and count, each layer's E aux means and E counts (again in
+    # remat's recompute)
+    bytes_want = dict(rows_ep[0]["collective_bytes"])
+    bytes_want.update(loss_sum=2 * 8, moe_aux_sum=again * L * 2 * 8 * E)
+    off = [{k: (r["collective_bytes"].get(k), bytes_want.get(k))
+            for k in set(r["collective_bytes"]) | set(bytes_want)
+            if r["collective_bytes"].get(k) != bytes_want.get(k)}
+           for r in rows_c]
+    got = [(r["loss"], r["grad_norm"]) for r in rows_c]
+    want = list(zip(card["losses"], card["grad_norm"]))
+    rel = [abs(a / c - 1) for (a, _), (c, _) in zip(got, want)]
+    norm = [abs(b / d - 1) for (_, b), (_, d) in zip(got, want)]
+    norm_f32 = [abs(f / d - 1)
+                for f, (_, d) in zip(control["grad_norm"], want)]
+    peak = max(r["peak_bytes"] for r in rows_c)
+    say(f"  train-sharded (c): the cell's step at 1 microbatch on {mesh}, "
+        f"its rows over the 2 batch shards: (loss, grad_norm) {got}; one "
+        f"card at 1 microbatch {want}; losses' relative differences {rel} "
+        f"(bound {SHARD_LOSS_RTOL}); grad norms' {norm} against the f32 "
+        f"control's {norm_f32} (bound {TP_LEAF_FACTOR} times); peak {peak} "
+        f"B ((b) at 2 microbatches: "
+        f"{max(r['peak_bytes'] for r in rows_ep)} B); bytes a step by the "
+        f"formula {bytes_want}, steps off it {off}; warm step "
+        f"{rows_c[-1]['step_s']:.3f} s against one card's "
+        f"{card['step_s'][-1]:.3f} s")
+    check(max(rel) <= SHARD_LOSS_RTOL,
+          f"train-sharded (c): losses {got}, one card {want}")
+    check(all(a <= TP_LEAF_FACTOR * b for a, b in zip(norm, norm_f32)),
+          f"train-sharded (c): grad norms {norm} from one card's, the f32 "
+          f"control's {norm_f32}")
+    check(not any(off), f"train-sharded (c): bytes off the formula (got, "
+                        f"want): {off}")
+    out["c"] = dict(steps=rows_c, rel=rel, norm_rel=norm,
+                    norm_rel_f32=norm_f32, peak_bytes=peak,
+                    bytes_want=bytes_want,
+                    leaves=hold_leaves("train-sharded (c)", names, gaps,
+                                       control))
+
+    # (d) a MoE group over both batch shards: the shards it spans computed
+    # at the first one's home, the other's rows sent there
+    model = TransformerLM(cfg, moe_group_size=SPAN_GROUP, act_spec=act)
+    pipe_d = TokenPipeline(cfg.vocab_size, SPAN_BATCH, SPAN_SEQ, seed=0)
+    card = one_card_steps(cfg, dict(moe_group_size=SPAN_GROUP,
+                                    act_spec=act), tcfg, pipe_d, 1)
+    ref = card.pop("moments")
+    specs, state = fresh(model, mesh)
+    step = make_sharded_train_step(model.loss, tcfg, mesh, specs, bspec, 1,
+                                   moe_span=model.moe_span)
+    state, rows_d = sharded_steps(
+        "(d)", step, state, mesh, pipe_d, 0, TP_TRAIN_STEPS, 2, total,
+        want=sharded_launch_want(2, forwards=1),
+        tokens=SPAN_BATCH * SPAN_SEQ)
+    gaps = moment_gaps(state, ref)
+    del state, step, ref
+    torch.cuda.empty_cache()
+    got = [(r["loss"], r["grad_norm"]) for r in rows_d]
+    want = list(zip(card["losses"], card["grad_norm"]))
+    span_bytes = SPAN_BATCH // 2 * SPAN_SEQ * 4 * 2   # tokens and labels
+    moved = [(r["collective_bytes"].get("train_span"),
+              r["collective_bytes"].get("loss_sum"),
+              r["collective_bytes"].get("moe_aux_sum")) for r in rows_d]
+    say(f"  train-sharded (d): {SPAN_BATCH} x {SPAN_SEQ} tokens in MoE "
+        f"groups of {SPAN_GROUP}: one group over both batch shards, both "
+        f"computed at the first home; (loss, grad_norm) {got}; one card "
+        f"{want}; bitwise: {got == want}; AdamW first moments' gaps from "
+        f"one card's: max {max(gaps):.3e}; (train_span, loss_sum, "
+        f"moe_aux_sum) bytes a step {moved} (want {span_bytes}, none, "
+        f"none); peak {max(r['peak_bytes'] for r in rows_d)} B")
+    check(got == want and max(gaps) == 0,
+          f"train-sharded (d): {got} against one card's {want}, moments "
+          f"off by up to {max(gaps):.3e}")
+    check(all(m == (span_bytes, None, None) for m in moved),
+          f"train-sharded (d): moves {moved}")
+    out["d"] = dict(steps=rows_d, bitwise=True, span_bytes=span_bytes)
     phase_s = time.perf_counter() - t_phase
     say(f"phase train-sharded: {phase_s:.1f} s wall")
-    out.update(b_2x2=rows_ep, b_host=rows_host, b_loss_max_rel=rel,
-               phase_s=phase_s)
+    out["phase_s"] = phase_s
     return total, out
 
 
@@ -2457,6 +2574,33 @@ def hold_captured(inputs, tag: str,
     return out
 
 
+def hold_leaves(label, names, gaps, control):
+    """Each leaf's gradients after the steps: the mesh's AdamW first
+    moment against one card's (every term a gradient of the initial
+    weights: step 0's lr is 0), within TP_LEAF_FACTOR times the f32
+    control's gap."""
+    ratio = [g / c if c else (0.0 if g == 0 else float("inf"))
+             for g, c in zip(gaps, control["gaps"])]
+    worst = sorted(range(len(names)), key=lambda k: -ratio[k])[:3]
+    say(f"  {label} leaves: AdamW first moment after "
+        f"{TP_TRAIN_STEPS} steps against one card's, ||m - m_card|| / "
+        f"||m_card|| over {len(names)} leaves: max {max(gaps):.3e} "
+        f"({names[max(range(len(gaps)), key=gaps.__getitem__)]}), "
+        f"median {sorted(gaps)[len(gaps) // 2]:.3e}; the f32 one-card "
+        f"control's (losses {control['losses']}): max "
+        f"{max(control['gaps']):.3e}, median "
+        f"{sorted(control['gaps'])[len(gaps) // 2]:.3e}; largest ratios "
+        f"mesh / control "
+        + ", ".join(f"{names[k]} {gaps[k]:.3e} / "
+                    f"{control['gaps'][k]:.3e} = {ratio[k]:.3f}"
+                    for k in worst)
+        + f" (bound {TP_LEAF_FACTOR})")
+    check(max(ratio) <= TP_LEAF_FACTOR,
+          f"{label}: leaf {names[worst[0]]}'s moment "
+          f"{ratio[worst[0]]:.3f} times the f32 control's gap")
+    return dict(names=names, gaps=gaps, control=control, ratio=ratio)
+
+
 def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
     """Every collective's bytes of one ``make_tp2d_train_step`` step on a
     ("data", "model") mesh of ``shape``, the batch split over "data", one
@@ -2469,7 +2613,11 @@ def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
     heads and experts over "model", the loss's statistics, its sum and
     count over "data" (a 4-byte f32 and a 4-byte int32 from each other
     batch shard, ``loss_sum``), each MoE layer's aux terms over "data" (E
-    f32 means and E int32 counts, ``moe_aux_sum``) and the two-axis lookup
+    f32 means and E int32 counts, ``moe_aux_sum``), where a MoE group of
+    ``group`` tokens spans batch shards its probabilities along "data"
+    (``moe_group_probs``, their gradients back: ``moe_group_probs_grad``)
+    and each position's dispatch rows from the others
+    (``moe_group_dispatch``), and the two-axis lookup
     at each batch shard's first position, its rows delivered to the
     shard's other positions, the forward's moves inside a layer again in
     ``remat``'s recompute; per step the replicas' sums, the norm's 4-byte
@@ -2548,14 +2696,23 @@ def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
             gathered(mp["router"], ms["router"], again)
             direct += sum(mp[k].numel() for k in ("wg", "wu", "wd"))
             E = moe.n_experts
-            G, S = _groups(R, max(1, R // group))
+            spans = max(1, group // R)       # batch shards a group spans
+            G, S = (1, group) if spans > 1 else _groups(R, max(1, R // group))
             n = G * E * moe_capacity(S, E, moe.top_k) * d
             wg = lay(mp["wg"], ms["wg"])
-            if M > 1 and wg.counts[0] > 1:   # the experts over "model"
+            by_model = M > 1 and wg.counts[0] > 1
+            if by_model:                     # the experts over "model"
                 out["expert_gather"] += (rounds * (again + 1) * N * (M - 1)
                                          * n * c // M)
             elif M > 1 and wg.counts[2] > 1:  # their d_ff over "model"
                 out["tp_model_sum"] += rounds * (again + 1) * allreduce(n, c)
+            if spans > 1:    # the group's probabilities and dispatch rows
+                probs = rounds * N * (spans - 1) * R * E * 4
+                out["moe_group_probs"] += again * probs
+                out["moe_group_probs_grad"] += probs
+                out["moe_group_dispatch"] += (rounds * again * N
+                                              * (spans - 1) * n * c
+                                              // (M if by_model else 1))
             out["moe_aux_sum"] += rounds * again * N * (D - 1) * 8 * E
     direct += params["ln_f"].numel()
     head = specs["embed"] if cfg.tie_embeddings else specs["head"]
@@ -2902,12 +3059,15 @@ def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
     every position attends over all of them; ``remat="dots"``) on
     train-smollm's batches in its 2 microbatches, each split over "data",
     2 steps; (iii) (i)'s model with
-    ``moe_shard="ffn"`` (each expert's d_ff over "model"), 2 steps. Each
+    ``moe_shard="ffn"`` (each expert's d_ff over "model"), 2 steps; (iv)
+    fault 8: (i)'s model on ``SPAN_BATCH`` x ``SPAN_SEQ`` tokens in one
+    microbatch with MoE groups of ``SPAN_GROUP``, each group spanning both
+    batch shards and routed once over them, 2 steps. Each
     step's loss within ``TP_TRAIN_LOSS_RTOL`` and grad norm within
     ``TP_TRAIN_NORM_RTOL`` of a one-card run at the same microbatches
-    ((i), (iii): ``one_card_steps`` at ``TP_MICRO``, run here, since
-    train-lm's 2 microbatches take the aux loss over other groups; (ii):
-    train-smollm's; ``moe_shard`` changes only the placement); every
+    ((i), (iii), (iv): ``one_card_steps`` at one microbatch, run here,
+    since train-lm's 2 microbatches take the aux loss over other groups;
+    (ii): train-smollm's; ``moe_shard`` changes only the placement); every
     collective's bytes equal to ``tp2d_bytes_want``, none of
     ``block_matmul``'s; the peak under ``TP_TRAIN_PEAK``; the launches
     exactly (``tp2d_launch_want``); the router's top-8 choices at step 0
@@ -2916,8 +3076,8 @@ def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
     ``TP_LEAF_FACTOR`` times the gap of an f32 one-card run from it at
     the same microbatches (``one_card_steps``); the kernels' first inputs
     at each shape, kept by
-    ``KernelCapture`` in (i)'s second run, (ii) and (iii), held against
-    their plain versions and timed (``hold_captured``)."""
+    ``KernelCapture`` in (i)'s second run, (ii), (iii) and (iv), held
+    against their plain versions and timed (``hold_captured``)."""
     import dataclasses
     import torch
     from repro_torch.config.base import TrainConfig
@@ -2961,33 +3121,8 @@ def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
         torch.cuda.empty_cache()
         return rows, digests, (names, gaps)
 
-    def hold_leaves(tag, names, gaps, control):
-        """Each leaf's gradients after the steps: the mesh's AdamW first
-        moment against one card's (every term a gradient of the initial
-        weights: step 0's lr is 0), within TP_LEAF_FACTOR times the f32
-        control's gap."""
-        ratio = [g / c if c else (0.0 if g == 0 else float("inf"))
-                 for g, c in zip(gaps, control["gaps"])]
-        worst = sorted(range(len(names)), key=lambda k: -ratio[k])[:3]
-        say(f"  train-sharded-tp2d {tag} leaves: AdamW first moment after "
-            f"{TP_TRAIN_STEPS} steps against one card's, ||m - m_card|| / "
-            f"||m_card|| over {len(names)} leaves: max {max(gaps):.3e} "
-            f"({names[max(range(len(gaps)), key=gaps.__getitem__)]}), "
-            f"median {sorted(gaps)[len(gaps) // 2]:.3e}; the f32 one-card "
-            f"control's (losses {control['losses']}): max "
-            f"{max(control['gaps']):.3e}, median "
-            f"{sorted(control['gaps'])[len(gaps) // 2]:.3e}; largest ratios "
-            f"mesh / control "
-            + ", ".join(f"{names[k]} {gaps[k]:.3e} / "
-                        f"{control['gaps'][k]:.3e} = {ratio[k]:.3f}"
-                        for k in worst)
-            + f" (bound {TP_LEAF_FACTOR})")
-        check(max(ratio) <= TP_LEAF_FACTOR,
-              f"train-sharded-tp2d {tag}: leaf {names[worst[0]]}'s moment "
-              f"{ratio[worst[0]]:.3f} times the f32 control's gap")
-        return dict(names=names, gaps=gaps, control=control, ratio=ratio)
-
-    def hold(tag, rows, one_card, cfg, micro, rows_per_position):
+    def hold(tag, rows, one_card, cfg, micro, rows_per_position,
+             group=TRAIN_GROUP):
         got = [(r["loss"], r["grad_norm"]) for r in rows]
         want = list(zip(one_card["losses"], one_card["grad_norm"]))
         rel = [(abs(a - c) / abs(c), abs(b - d) / abs(d))
@@ -2995,7 +3130,7 @@ def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
         moved = sum(r["collective_bytes"].get(k, 0) for r in rows
                     for k in stationary)
         bytes_want = tp2d_bytes_want(cfg, mesh.shape, rows_per_position,
-                                     micro, TRAIN_GROUP)
+                                     micro, group)
         off = [{k: (r["collective_bytes"].get(k), bytes_want.get(k))
                 for k in set(r["collective_bytes"]) | set(bytes_want)
                 if r["collective_bytes"].get(k) != bytes_want.get(k)}
@@ -3085,7 +3220,8 @@ def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
                 f"the first {first}")
     out["i"] = hold("(i)", rows_i, card, cfg, TP_MICRO, rows_lm)
     out["i"].update(repeat_bitwise=same, flips=flips,
-                    leaves=hold_leaves("(i)", names, gaps, control),
+                    leaves=hold_leaves("train-sharded-tp2d (i)", names,
+                                       gaps, control),
                     kernels=hold_captured(cap.inputs,
                                           "train-sharded-tp2d (i)",
                                           timed=True))
@@ -3111,12 +3247,37 @@ def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
     out["iii"] = hold("(iii)", rows_iii, card, cfg_ffn, TP_MICRO,
                       rows_lm)
     out["iii"].update(flips=flips,
-                      leaves=hold_leaves("(iii)", names, gaps, control),
+                      leaves=hold_leaves("train-sharded-tp2d (iii)",
+                                         names, gaps, control),
                       kernels=hold_captured(cap.inputs,
                                             "train-sharded-tp2d (iii)",
                                             timed=True))
     cap.check_complete("train-sharded-tp2d (iii)")
     del cap, plain, spy, model
+    torch.cuda.empty_cache()
+
+    # (iv) fault 8: one MoE group over both batch shards, routed once
+    pipe_iv = TokenPipeline(cfg.vocab_size, SPAN_BATCH, SPAN_SEQ, seed=0)
+    card_iv = one_card_steps(cfg, dict(moe_group_size=SPAN_GROUP), tcfg,
+                             pipe_iv, 1)
+    card_iv.pop("moments")
+    model = TransformerLM(cfg, moe_group_size=SPAN_GROUP, act_spec=act)
+    with KernelCapture("train") as cap:
+        cap.armed = True
+        rows_iv, _, _ = run("(iv)", cfg, model, tcfg, pipe_iv, 1,
+                            SPAN_BATCH * SPAN_SEQ)
+    say(f"  train-sharded-tp2d (iv): (i)'s model on {SPAN_BATCH} x "
+        f"{SPAN_SEQ} tokens in one microbatch, MoE groups of {SPAN_GROUP} "
+        f"tokens, so each group spans both batch shards (fault 8); one "
+        f"card at one microbatch: (loss, grad_norm) "
+        f"{list(zip(card_iv['losses'], card_iv['grad_norm']))}")
+    out["iv"] = hold("(iv)", rows_iv, card_iv, cfg, 1,
+                     SPAN_BATCH // D * SPAN_SEQ, SPAN_GROUP)
+    out["iv"].update(kernels=hold_captured(cap.inputs,
+                                           "train-sharded-tp2d (iv)",
+                                           timed=True))
+    cap.check_complete("train-sharded-tp2d (iv)")
+    del cap, model
     torch.cuda.empty_cache()
 
     # (ii) smollm-135m whole, the tied head
@@ -3139,7 +3300,8 @@ def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
         f"tokens in {SMOL_MICRO} microbatches, each split over \"data\"")
     out["ii"] = hold("(ii)", rows_ii, train_smol, cfg, SMOL_MICRO,
                      SMOL_BATCH // SMOL_MICRO // D * TRAIN_SEQ)
-    out["ii"].update(leaves=hold_leaves("(ii)", names, gaps, control),
+    out["ii"].update(leaves=hold_leaves("train-sharded-tp2d (ii)", names,
+                                        gaps, control),
                      kernels=hold_captured(cap.inputs,
                                            "train-sharded-tp2d (ii)",
                                            timed=True))
@@ -5572,49 +5734,82 @@ def phase_train_sharded_bst(profile: bool = False):
     """BST ``FULL`` at train_batch's published batch (65,536 users) on a 2
     × 2 mesh (``cuda:0`` × 4 on one card) under the reference's training
     rules: the item table's rows split over "model", looked up where they
-    lie. ``BST_TRAIN_STEPS`` steps of the cell's sharded step (one
-    microbatch per batch shard): losses, grad norms and every leaf's
-    digest bitwise ``make_train_step(model.loss, TrainConfig(),
-    microbatches=2)`` on one card; no ``all_gather`` byte of the item
-    table. Then serve_p99, serve_bulk and retrieval_cand on the mesh
+    lie. ``BST_TRAIN_STEPS`` steps of the cell's sharded step (the
+    reference cell's one microbatch, its rows over the two batch shards):
+    losses and grad norms within ``BST_M1_RTOL`` of ``make_train_step(
+    model.loss, TCFG)`` on one card, each home's loss sum and count
+    crossing once (``loss_sum``); then the same cell's step at two
+    microbatches, one a batch shard: losses, grad norms and every leaf's
+    digest bitwise ``make_train_step(model.loss, TCFG, microbatches=2)``
+    on one card; no ``all_gather`` byte of the item table. Then serve_p99, serve_bulk and retrieval_cand on the mesh
     (serving replicates the item table): within ``BST_MESH_TOL`` of one
     card's outputs, each repeating bitwise, p50 over ``BST_REPS`` warm
     calls. Launch counts set to 0 before and read after."""
     import math
     import torch
-    from repro_torch.config.base import TrainConfig
     from repro_torch.config.registry import get_arch
-    from repro_torch.launch.cells import bst_cell
+    from repro_torch.launch.cells import TCFG, bst_cell
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.train.state import make_train_step
+    from repro_torch.train.state import (make_sharded_train_step,
+                                         make_train_step)
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     arch = get_arch("bst")
     cfg = arch.model
     devices, how = smoke_mesh()
     reset_all_counts()
-    # one card, two microbatches
-    cell = bst_cell(arch, "train_batch", "cuda")
-    B = cell.meta["batch"]
-    step = make_train_step(cell.model.loss, TrainConfig(), microbatches=2)
-    state, batch = cell.args
-    one_l, one_g, one_s = [], [], []
-    for _ in range(BST_TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        one_s.append(time.perf_counter() - t0)
-        one_l.append(float(m["loss"]))
-        one_g.append(float(m["grad_norm"]))
-    one_d = state_digests(state)
-    del cell, state, batch, step
-    torch.cuda.empty_cache()
-    # the 2 x 2 mesh
+    # one card at one microbatch (the reference cell's) and at two
+    one = {}
+    for micro in (1, 2):
+        cell = bst_cell(arch, "train_batch", "cuda")
+        B = cell.meta["batch"]
+        step = make_train_step(cell.model.loss, TCFG, microbatches=micro)
+        state, batch = cell.args
+        one_l, one_g, one_s = [], [], []
+        for _ in range(BST_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            one_s.append(time.perf_counter() - t0)
+            one_l.append(float(m["loss"]))
+            one_g.append(float(m["grad_norm"]))
+        one[micro] = (one_l, one_g, one_s, state_digests(state))
+        del cell, state, batch, step
+        torch.cuda.empty_cache()
+    # the 2 x 2 mesh: the cell's step (one microbatch, its rows over the
+    # two batch shards), then two microbatches, one a shard
     mesh = Mesh((2, 2), ("data", "model"), devices[:4])
     cell = bst_cell(arch, "train_batch", "cuda", mesh=mesh)
-    state, runs, peak, held = mesh_train_run(
+    check(cell.meta["microbatches"] == 1,
+          f"train-sharded-bst: the cell runs {cell.meta['microbatches']} "
+          f"microbatches")
+    _, runs, peak1, _ = mesh_train_run(
         cell, BST_TRAIN_STEPS, None, mesh,
         StepProfiler(profile, "train-sharded-bst"))
+    (l1, g1, s1, c1), = runs
+    del cell, runs
+    torch.cuda.empty_cache()
+    rel1 = [max(abs(a / b - 1), abs(c / d - 1))
+            for a, b, c, d in zip(l1, one[1][0], g1, one[1][1])]
+    say(f"  train-sharded-bst: the cell's step at 1 microbatch on 2 x 2 "
+        f"({how}): losses {l1}, grad norms {g1}; one card at 1 "
+        f"microbatch: {one[1][0]}, {one[1][1]}; largest relative "
+        f"difference per step {rel1} (bound {BST_M1_RTOL}); steps {s1} s "
+        f"(one card {one[1][2]} s); peak {peak1} B; collective bytes "
+        f"{c1[0]}")
+    check(max(rel1) <= BST_M1_RTOL,
+          f"train-sharded-bst: at 1 microbatch {l1} {g1}, one card "
+          f"{one[1][0]} {one[1][1]}")
+    check(c1[0].get("loss_sum") == 2 * 8,
+          f"train-sharded-bst: loss_sum {c1[0].get('loss_sum')} B")
+    one_l, one_g, one_s, one_d = one[2]
+    cell = bst_cell(arch, "train_batch", "cuda", mesh=mesh)
+    specs, ispecs = cell.in_shardings
+    cell = cell._replace(step_fn=make_sharded_train_step(
+        cell.model.loss, TCFG, mesh, specs, ispecs.item_hist,
+        microbatches=2))
+    state, runs, peak, held = mesh_train_run(cell, BST_TRAIN_STEPS, None,
+                                             mesh)
     (ml, mg, ms, mc), = runs
     mesh_d = state_digests(state)
     del cell, state
@@ -5642,7 +5837,10 @@ def phase_train_sharded_bst(profile: bool = False):
                                 f"{gathered} B, the item table is {table} B")
     out = dict(batch=B, losses=ml, grad_norm=mg, step_s=ms, one_card_s=one_s,
                bitwise=same, emb_bytes=emb, table_bytes=table,
-               collective_bytes=mc[0], position_bytes=held, peak_bytes=peak)
+               collective_bytes=mc[0], position_bytes=held, peak_bytes=peak,
+               one_microbatch=dict(losses=l1, grad_norm=g1, step_s=s1,
+                                   one_card_s=one[1][2], rel=rel1,
+                                   collective_bytes=c1[0], peak_bytes=peak1))
     # serving on the mesh against one card
     for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
         ys = {}

@@ -14,11 +14,11 @@ under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``tp_zero_gather``, ``tp_zero_scatter``, ``tp_model_sum``,
 ``tp_heads_gather``, ``expert_gather``, ``tp_rows_gather``,
 ``tp_rows_scatter``, ``tp_logits_gather``, ``tp_resplit``,
-``moe_group_probs``, ``moe_group_dispatch``, ``loss_sum``,
-``moe_aux_sum``, ``norm_sum``, ``prefill_span``, ``sparse_allreduce``,
-``hierarchical_psum``), and, where it names both ends, under its source and
-receiver (``Mesh.moves``), so a dry run can read the collective bytes from
-the mesh.
+``moe_group_probs``, ``moe_group_probs_grad``, ``moe_group_dispatch``,
+``loss_sum``, ``moe_aux_sum``, ``norm_sum``, ``prefill_span``,
+``train_span``, ``sparse_allreduce``, ``hierarchical_psum``), and,
+where it names both ends, under its source and receiver (``Mesh.moves``),
+so a dry run can read the collective bytes from the mesh.
 The step's collectives (and its AdamW) also run under
 ``torch.profiler.record_function`` ranges named in :data:`SPANS`, so a
 profile attributes device time to them.
@@ -72,7 +72,10 @@ partials summed over "model" (:func:`tp_resplit_linear`: ``tp_resplit``,
 ``tp_model_sum``). Where one MoE group spans several batch shards, the
 group's router probabilities and dispatch rows cross "data"
 (:func:`span_gather`, :func:`span_select`: ``moe_group_probs``,
-``moe_group_dispatch``).
+``moe_group_dispatch``), at a serving step and in the train step alike:
+the probabilities' gradients go back to the shards that own them
+(``moe_group_probs_grad``), and each dispatch row's gradient is its
+owner's own.
 
 A graph whose edge arrays are split into blocks (the GNNs' edge sharding)
 folds its per-block partial sums in block order (:func:`edge_psum`), reads
@@ -106,8 +109,8 @@ SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "xent_stats", "tp_zero_gather", "tp_zero_scatter", "tp_model_sum",
          "tp_heads_gather", "expert_gather", "tp_rows_gather",
          "tp_rows_scatter", "tp_logits_gather", "tp_resplit",
-         "moe_group_probs", "moe_group_dispatch", "loss_sum", "moe_aux_sum",
-         "norm_sum", "prefill_span")
+         "moe_group_probs", "moe_group_probs_grad", "moe_group_dispatch",
+         "loss_sum", "moe_aux_sum", "norm_sum", "prefill_span", "train_span")
 span = torch.profiler.record_function
 
 
@@ -441,12 +444,36 @@ class ShardView:
                              *(self.proxies[b] for b in order))
 
 
+class HomeViews:
+    """A leaf as the homes of one microbatch that spans several batch
+    shards read it in the ``fsdp`` train step
+    (``train.state.make_sharded_train_step`` with fewer microbatches than
+    batch shards): each home's :class:`ShardView`, homes in batch order.
+    :func:`local` makes it :class:`Rows` of each home's whole leaf (or its
+    blocks), gathered at that home; :func:`each` and :func:`each_home` hand
+    each home its own view."""
+
+    def __init__(self, views: Sequence[ShardView], homes: Sequence[int],
+                 mesh):
+        self.views, self.homes, self.mesh = list(views), list(homes), mesh
+
+    def part(self, home: int) -> ShardView:
+        return self.views[self.homes.index(home)]
+
+
 def local(x, experts: bool = False):
     """A batch shard's tensor for a parameter leaf: a :class:`ShardView`'s
-    whole leaf (or, with ``experts``, its blocks where they live); a plain
-    tensor, or a :class:`StationaryView`, as it is."""
+    whole leaf (or, with ``experts``, its blocks where they live), each
+    home's as :class:`Rows` for :class:`HomeViews`; a plain tensor, or a
+    :class:`StationaryView`, as it is."""
     if isinstance(x, ShardView):
         return x.blocks() if experts else x.full()
+    if isinstance(x, HomeViews):
+        out = []
+        for view, home in zip(x.views, x.homes):
+            with x.mesh.at(home):
+                out.append(local(view, experts))
+        return Rows(out, x.homes, x.mesh)
     return x
 
 
@@ -593,10 +620,10 @@ class StationaryView:
 
 def each(fn, *args):
     """``fn(*args)`` once per batch shard at its home (``Mesh.at``) where an
-    argument is :class:`Rows` (its shard's tensor) or a
-    :class:`StationaryView` (:meth:`StationaryView.part` at the home): the
-    results as Rows, a tuple of results as a tuple of Rows. Without Rows,
-    ``fn(*args)``."""
+    argument is :class:`Rows` (its shard's tensor), a
+    :class:`StationaryView` (:meth:`StationaryView.part` at the home) or
+    :class:`HomeViews` (the home's view): the results as Rows, a tuple of
+    results as a tuple of Rows. Without Rows, ``fn(*args)``."""
     rows = next((a for a in args if isinstance(a, Rows)), None)
     if rows is None:
         return fn(*args)
@@ -605,12 +632,28 @@ def each(fn, *args):
         with rows.mesh.at(home):
             outs.append(fn(*(a.parts[d] if isinstance(a, Rows)
                              else a.part(home)
-                             if isinstance(a, StationaryView) else a
-                             for a in args)))
+                             if isinstance(a, (StationaryView, HomeViews))
+                             else a for a in args)))
     if isinstance(outs[0], tuple):
         return tuple(Rows(list(o), rows.homes, rows.mesh)
                      for o in zip(*outs))
     return Rows(outs, rows.homes, rows.mesh)
+
+
+def each_home(fn, params, *args):
+    """:func:`each` of ``fn(params, *args)`` where ``params`` is a tree
+    (dicts, lists) whose :class:`HomeViews` leaves each home reads as its
+    own :class:`ShardView`."""
+    rows = next(a for a in args if isinstance(a, Rows))
+
+    def at(tree, home):
+        if isinstance(tree, dict):
+            return {k: at(v, home) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [at(v, home) for v in tree]
+        return tree.part(home) if isinstance(tree, HomeViews) else tree
+    return each(lambda home, *a: fn(at(params, home), *a),
+                Rows(list(rows.homes), rows.homes, rows.mesh), *args)
 
 
 def block_plan(w: StationaryView, homes: Sequence[int]
@@ -1627,25 +1670,81 @@ def _span_line(w: TPView, pos: int, shards: int) -> List[int]:
     return [w.groups[e][i] for e in range(first, first + shards)]
 
 
+def _lines(x: Rows, w, shards: int) -> Tuple[Tuple[int, ...], ...]:
+    """Per position of ``x``, its line: :func:`_span_line` over ``shards``
+    of ``w``'s batch shards, or, with ``w`` None, every home of ``x`` (one
+    batch shard each). A line is the same at each of its positions."""
+    if w is None:
+        return (tuple(x.homes),) * len(x.homes)
+    return tuple(tuple(_span_line(w, p, shards)) for p in x.homes)
+
+
+def _line_copies(mesh, p: int, line, parts, at, name: str):
+    """The tensors of ``line``'s positions, each copied to ``p`` from where
+    it lies (``name``), in line order."""
+    got = []
+    with mesh.at(p), mesh.moving():
+        for q in line:
+            t = parts[at[q]]
+            if q != p:
+                mesh.count(name, _nbytes(t), frm=q, to=p)
+            got.append(t.to(mesh.device(p)))
+    return got
+
+
 def span_gather(x: Rows, w: TPView, shards: int, name: str) -> Rows:
     """Per position, its line's tensors (:func:`_span_line`: one per
     batch shard of its ``shards``-shard group) joined along dim 0 in batch
-    order, each copied from where it lies (``name``); serving only."""
-    mesh, homes = x.mesh, list(x.homes)
-    at = {h: i for i, h in enumerate(homes)}
-    out = []
-    with span(name):
-        for p in homes:
-            got = []
-            with mesh.at(p), mesh.moving():
-                for q in _span_line(w, p, shards):
-                    t = x.parts[at[q]]
-                    if q != p:
-                        mesh.count(name, _nbytes(t), frm=q, to=p)
-                    got.append(t.to(mesh.device(p)))
-            with mesh.at(p):
-                out.append(torch.cat(got))
-    return Rows(out, homes, mesh)
+    order, each copied from where it lies (``name``). Differentiable: each
+    position's gradient is the sum, over its line's positions in batch
+    order, of the slice of their gradient that its tensor became, each
+    copied to it (``name`` + ``"_grad"``) and added from the first as it
+    is (no zeros, so a −0.0 stays)."""
+    return Rows(list(_SpanGather.apply(x.mesh, tuple(x.homes),
+                                       _lines(x, w, shards), name,
+                                       *x.parts)), x.homes, x.mesh)
+
+
+class _SpanGather(torch.autograd.Function):
+    """:func:`span_gather`; the inputs are every position's tensor."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, lines, name, *parts):
+        at = {h: i for i, h in enumerate(homes)}
+        out = []
+        with span(name):
+            for p, line in zip(homes, lines):
+                got = _line_copies(mesh, p, line, parts, at, name)
+                with mesh.at(p):
+                    out.append(torch.cat(got))
+        ctx.mesh, ctx.homes, ctx.lines, ctx.name = mesh, homes, lines, name
+        ctx.rows = [t.shape[0] for t in parts]
+        ctx.set_materialize_grads(False)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, homes, lines = ctx.mesh, ctx.homes, ctx.lines
+        name = ctx.name + "_grad"
+        at = {h: i for i, h in enumerate(homes)}
+        out = [None] * len(homes)
+        with span(name):
+            for q, line in zip(homes, lines):
+                n, total = ctx.rows[at[q]], None
+                for p in line:        # q's line: the positions that read q
+                    g = grads[at[p]]
+                    if g is None:
+                        continue
+                    j = lines[at[p]].index(q)
+                    piece = g[j * n:(j + 1) * n]
+                    with mesh.at(q), mesh.moving():
+                        if p != q:
+                            mesh.count(name, _nbytes(piece), frm=p, to=q)
+                        piece = piece.to(mesh.device(q))
+                    with mesh.at(q):
+                        total = piece if total is None else total + piece
+                out[at[q]] = total
+        return (None,) * 4 + tuple(out)
 
 
 def span_select(x: Rows, owner: Rows, w: TPView, shards: int,
@@ -1653,57 +1752,93 @@ def span_select(x: Rows, owner: Rows, w: TPView, shards: int,
     """Per position, row i of the tensor its line's position number
     ``owner[i]`` holds (:func:`_span_line`; each row has one owner, so
     this is a select, not a sum of zero partials: −0.0 stays), every row
-    a position reads from another copied (``name``); serving only."""
-    mesh, homes = x.mesh, list(x.homes)
-    at = {h: i for i, h in enumerate(homes)}
-    out = []
-    with span(name):
-        for p in homes:
-            got = []
-            with mesh.at(p), mesh.moving():
-                for q in _span_line(w, p, shards):
-                    t = x.parts[at[q]]
-                    if q != p:
-                        mesh.count(name, _nbytes(t), frm=q, to=p)
-                    got.append(t.to(mesh.device(p)))
+    a position reads from another copied (``name``). Differentiable for
+    work in which only a row's owner reads the output it feeds (the MoE
+    dispatch across shards: each position combines its own tokens, so the
+    other positions' gradients of the row are zeros): each row's gradient
+    is its owner's own, a select too, and nothing moves."""
+    n = len(x.parts)
+    return Rows(list(_SpanSelect.apply(x.mesh, tuple(x.homes),
+                                       _lines(x, w, shards), name, n,
+                                       *x.parts, *owner.parts)),
+                x.homes, x.mesh)
+
+
+class _SpanSelect(torch.autograd.Function):
+    """:func:`span_select`; the inputs are every position's tensor, then
+    its rows' owners."""
+
+    @staticmethod
+    def forward(ctx, mesh, homes, lines, name, n, *tensors):
+        parts, owners = tensors[:n], tensors[n:]
+        at = {h: i for i, h in enumerate(homes)}
+        out = []
+        with span(name):
+            for p, line in zip(homes, lines):
+                got = _line_copies(mesh, p, line, parts, at, name)
+                with mesh.at(p):
+                    rows = torch.arange(got[0].shape[0],
+                                        device=mesh.device(p))
+                    out.append(torch.stack(got)[owners[at[p]], rows])
+        ctx.mesh, ctx.homes, ctx.n = mesh, homes, n
+        ctx.mine = [line.index(p) for p, line in zip(homes, lines)]
+        ctx.save_for_backward(*owners)
+        ctx.set_materialize_grads(False)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, owners = ctx.mesh, ctx.saved_tensors
+        out = []
+        for p, g, own, mine in zip(ctx.homes, grads, owners, ctx.mine):
+            if g is None:
+                out.append(None)
+                continue
             with mesh.at(p):
-                rows = torch.arange(got[0].shape[0], device=mesh.device(p))
-                out.append(torch.stack(got)[owner.parts[at[p]], rows])
-    return Rows(out, homes, mesh)
+                keep = (own == mine).view(-1, *(1,) * (g.dim() - 1))
+                out.append(torch.where(keep, g, torch.zeros(
+                    (), dtype=g.dtype, device=g.device)))
+        return (None,) * 5 + tuple(out) + (None,) * ctx.n
 
 
-def batch_sum(x: Rows, w: TPView, name: str) -> Rows:
-    """Per position, the sum of its line's tensors (:func:`_span_line`
-    over all of ``w``'s batch shards: one per shard, each copied from where
-    it lies, ``name``), added in batch order from the first as it is, so
-    the positions of a line hold the same bits: an all-reduce along the
-    batch axes of per-shard partials of one batch (the loss's sums and
-    counts, the MoE aux loss's terms). Differentiable; the backward is the
-    identity, each position's gradient its own partial's, as the gradient
-    of a sum every position holds whole. With one batch shard ``x``
-    itself."""
-    if len(w.groups) == 1:
+def batch_sum(x: Rows, w, name: str) -> Rows:
+    """Per position, the sum of its line's tensors (:func:`_lines` over
+    all of ``w``'s batch shards, or over every home of ``x`` with ``w``
+    None: one per shard, each copied from where it lies, ``name``), added
+    in batch order from the first as it is, so the positions of a line
+    hold the same bits: an all-reduce along the batch axes of per-shard
+    partials of one batch (the loss's sums and counts, the MoE aux loss's
+    terms). Differentiable; the backward is the identity, each position's
+    gradient its own partial's, as the gradient of a sum every position
+    holds whole. With one batch shard ``x`` itself."""
+    if len(x.homes if w is None else w.groups) == 1:
         return x
-    return Rows(list(_BatchSum.apply(x.mesh, tuple(x.homes), w, name,
+    lines = _lines(x, w, len(w.groups) if w is not None else 1)
+    return Rows(list(_BatchSum.apply(x.mesh, tuple(x.homes), lines, name,
                                      *x.parts)), x.homes, x.mesh)
+
+
+def batch_mean(total: Rows, count: Rows, w) -> Rows:
+    """Per position, the mean of one batch that its batch shards split
+    (``w``'s, or every home of ``total`` with ``w`` None): each shard's sum
+    and its count of terms added over them in batch order (:func:`batch_sum`,
+    ``loss_sum``: an f32 and an int32 scalar from each other shard) and
+    divided once, so every position holds the batch's mean."""
+    tot = batch_sum(total, w, "loss_sum")
+    cnt = batch_sum(count, w, "loss_sum")
+    return each(lambda t, c: t / torch.clamp_min(c, 1), tot, cnt)
 
 
 class _BatchSum(torch.autograd.Function):
     """:func:`batch_sum`; the inputs are every position's partial."""
 
     @staticmethod
-    def forward(ctx, mesh, homes, w, name, *parts):
+    def forward(ctx, mesh, homes, lines, name, *parts):
         at = {h: i for i, h in enumerate(homes)}
         out = []
         with span(name):
-            for p in homes:
-                got = []
-                with mesh.at(p), mesh.moving():
-                    for q in _span_line(w, p, len(w.groups)):
-                        t = parts[at[q]]
-                        if q != p:
-                            mesh.count(name, _nbytes(t), frm=q, to=p)
-                        got.append(t.to(mesh.device(p)))
+            for p, line in zip(homes, lines):
+                got = _line_copies(mesh, p, line, parts, at, name)
                 with mesh.at(p):
                     total = got[0]
                     for t in got[1:]:
@@ -2087,11 +2222,8 @@ def tp_vocab_xent(hidden: Rows, head: TPView, labels: Rows) -> Rows:
                         head.kind() == "column", n,
                         *hidden.parts, *labels.parts,
                         *(ws[h] for h in hidden.homes))
-    tot = batch_sum(Rows(list(out[:n]), hidden.homes, hidden.mesh), head,
-                    "loss_sum")
-    count = batch_sum(Rows(list(out[n:]), hidden.homes, hidden.mesh), head,
-                      "loss_sum")
-    return each(lambda t, c: t / torch.clamp_min(c, 1), tot, count)
+    return batch_mean(Rows(list(out[:n]), hidden.homes, hidden.mesh),
+                      Rows(list(out[n:]), hidden.homes, hidden.mesh), head)
 
 
 def _onehots(labels: torch.Tensor, runs) -> torch.Tensor:

@@ -41,7 +41,6 @@ from repro_torch.config.base import (ArchConfig, BSTConfig, GNNConfig,
                                      TransformerConfig)
 from repro_torch.core.graph import DynamicGraph
 from repro_torch.core.rwr import label_rwr
-from repro_torch.distrib.collectives import batch_groups
 from repro_torch.distrib.serving import (make_sharded_click,
                                          make_sharded_decode,
                                          make_sharded_prefill,
@@ -142,12 +141,13 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     token, cache, cache_len)``. The batch shards over the batch axes when
     B ≥ their production shard count (16, 32 with ``multi_pod``), and only
     then does the model take ``act_spec``; train shards the parameters
-    under ``REPRO_LM_POLICY`` (default ``fsdp``; placed on a mesh,
-    ``make_sharded_train_step`` gathers each layer at each batch shard's
-    home, one microbatch per batch shard; ``tp2d`` is
-    ``make_tp2d_train_step`` at the reference cell's one microbatch, its
-    rows split over the batch shards: Megatron over "model" × ZeRO over
-    "data"), prefill under
+    under ``REPRO_LM_POLICY`` and, placed on a mesh, runs the reference
+    cell's one microbatch, its rows split over the batch shards (default
+    ``fsdp``: ``make_sharded_train_step``, each layer gathered at each
+    batch shard's home, the loss's sums and the MoE aux loss's statistics
+    added over the homes, a MoE group that spans shards computed at its
+    first shard's home; ``tp2d``: ``make_tp2d_train_step``, Megatron over
+    "model" × ZeRO over "data"), prefill under
     ``REPRO_LM_PREFILL_POLICY`` (default ``fsdp``), decode under
     ``tp2d``, as the reference's cells do. Placed on a mesh, prefill and
     decode are ``distrib.serving``'s steps (the cache placed by
@@ -189,19 +189,16 @@ def lm_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
         in_sh = None if mesh is None else (specs, bspec, bspec)
         meta = {"tokens_per_step": B * S}
         if _placed(mesh, concrete):
+            # the reference cell's step: one microbatch, its rows split over
+            # the batch shards
             if policy == "tp2d":
-                # the reference cell's step: one microbatch, its rows split
-                # over the batch shards
-                micro = 1
-                make = make_tp2d_train_step
+                step = make_tp2d_train_step(model.loss, TCFG, mesh, specs,
+                                            bspec, microbatches=1)
             else:
-                # one microbatch per batch shard: the reference's one step
-                # over the whole batch, split where it lives
-                micro = len(batch_groups(mesh, bspec[0])[0])
-                make = make_sharded_train_step
-            step = make(model.loss, TCFG, mesh, specs, bspec,
-                        microbatches=micro)
-            meta["microbatches"] = micro
+                step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
+                                               bspec, microbatches=1,
+                                               moe_span=model.moe_span)
+            meta["microbatches"] = 1
             state = new_sharded_train_state(params, mesh, specs)
         else:
             step = make_train_step(model.loss, TCFG)
@@ -375,8 +372,9 @@ def bst_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     "model" (``bst_param_specs``), serving replicates it; the batch splits
     over the batch axes when B ≥ their production shard count (16, 32 with
     ``multi_pod``), and ``retrieval_cand``'s candidates always do. Placed,
-    ``train_batch`` is ``make_sharded_train_step`` with one microbatch per
-    batch shard; a serve shape runs the forward per batch shard at its
+    ``train_batch`` is ``make_sharded_train_step`` at the reference cell's
+    one microbatch, its rows split over the batch shards (each home's loss
+    sum and count added over the homes); a serve shape runs the forward per batch shard at its
     home and joins the probabilities at position 0; ``retrieval_cand``
     computes the user at position 0, sends it to each candidate block's
     home, which scores its block, and joins the scores at position 0."""
@@ -408,17 +406,19 @@ def bst_cell(arch: ArchConfig, shape_name: str, device="cuda", mesh=None,
     if shape.name == "train_batch":
         specs = state_specs_like(bst_param_specs(params, cfg))
         in_sh = None if mesh is None else (specs, ispecs)
+        meta = {"batch": B}
         if placed:
-            # one microbatch per batch shard, as the LM train cell
-            D = len(batch_groups(mesh, b1[0])[0])
+            # the reference cell's one microbatch, its rows split over the
+            # batch shards, as the LM train cell
             step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
-                                           b2, microbatches=D)
+                                           b2, microbatches=1)
             state = new_sharded_train_state(params, mesh, specs)
+            meta["microbatches"] = 1
         else:
             step = make_train_step(model.loss, TCFG)
             state = new_train_state(params)
         return Cell(arch.arch_id, shape.name, "train", model, step,
-                    (state, inputs), {"batch": B}, in_sh)
+                    (state, inputs), meta, in_sh)
 
     pspec = bst_param_specs(params, cfg, serve=True)
     if placed:

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distrib.collectives import (StationaryView, TPView,
+from repro_torch.distrib.collectives import (Rows, StationaryView, TPView,
                                              block_matmul, each, tp_linear,
                                              tp_resplit_linear,
                                              tp_rows_linear, tp_vocab_xent,
@@ -223,9 +223,13 @@ def linear(x, w, dtype: torch.dtype, bias=None):
     head), ``tp_rows_linear``: the rows moved to the blocks where they
     lie, or, for a decode step's router (``TPView.resplits``),
     ``tp_resplit_linear``: the weight re-split over "model" where it lies
-    and the partials summed; with a :class:`StationaryView` weight (serving under ``tp2d``
-    with the batch whole) ``block_matmul`` of the batch shards' rows
-    ``x``."""
+    and the partials summed; with a :class:`StationaryView` weight (serving
+    under ``tp2d`` with the batch whole) ``block_matmul`` of the batch
+    shards' rows ``x``; with the weight as ``Rows`` (the ``fsdp`` train
+    step's microbatch over several homes, each home's leaf gathered there)
+    each home's product."""
+    if isinstance(w, Rows):         # each home's own whole weight
+        return each(linear, x, w, dtype, bias)
     if isinstance(w, TPView):
         if w.gathers():
             return tp_linear(x, w, dtype, bias)
@@ -261,10 +265,11 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
             * scale).to(dtype)
 
 
-def softmax_xent_sharded(hidden, head_w, labels):
+def softmax_xent_sharded(hidden, head_w, labels, sums: bool = False):
     """Mean cross entropy of the logits ``hidden @ head_w`` over the labels
     ≥ 0, with the target logit taken by a one-hot contraction, as the
-    reference's vocab-parallel loss does. On plain tensors, on one device.
+    reference's vocab-parallel loss does. On plain tensors, on one device
+    (with ``sums``, the sum of the terms and their int32 count instead).
     With ``hidden`` and ``labels`` as ``Rows`` and ``head_w`` a ``TPView``
     (the ``tp2d`` train step), over each position's vocab block gathered
     along "data", only per-row statistics crossing "model", the sums and
@@ -284,12 +289,15 @@ def softmax_xent_sharded(hidden, head_w, labels):
     tgt = torch.einsum("bsv,bsv->bs", logits, onehot.float())
     valid = labels >= 0
     tot = torch.where(valid, lse - tgt, 0.0).sum()
+    if sums:
+        return tot, valid.sum().to(torch.int32)
     return tot / torch.clamp_min(valid.sum(), 1)
 
 
 def softmax_xent_chunked(logits_fn, x: torch.Tensor, labels: torch.Tensor,
-                         chunk: int = 512) -> torch.Tensor:
-    """Cross entropy over a huge vocab without materialising all logits.
+                         chunk: int = 512, sums: bool = False):
+    """Cross entropy over a huge vocab without materialising all logits
+    (with ``sums``, the sum of the terms and their int32 count).
 
     ``logits_fn(x_chunk) -> (B, chunk, V)``; the sequence is padded to a
     multiple of ``chunk`` (labels -1, which count nothing) and summed chunk
@@ -322,4 +330,6 @@ def softmax_xent_chunked(logits_fn, x: torch.Tensor, labels: torch.Tensor,
             t, c = body(xp[:, sl], lp[:, sl])
         tot = tot + t
         cnt = cnt + c
+    if sums:
+        return tot, cnt.to(torch.int32)
     return tot / torch.clamp_min(cnt, 1)

@@ -45,20 +45,25 @@ over "model").
 
 Groups are formed as the reference forms them: ``n_groups`` counts the
 groups over every batch shard's tokens together (a serving step's batch,
-a ``tp2d`` train step's microbatch), and group g holds tokens
-[g·T/G, (g+1)·T/G) of the whole batch in (batch, position) order. Where
-that puts whole groups in each batch shard, each shard routes its own, and
-in the ``tp2d`` train step the aux loss is taken over all the shards'
-groups (:func:`_batch_aux`). Where one group spans several batch shards (a
-serving step with the batch split over "data" and fewer tokens than a
-group: every decode step with B below the group size), it is routed once
-over all its rows (:func:`_moe_across_shards`): each position gathers the
-group's router probabilities along "data" and routes the whole group (the
-same top-k and stable slot sort at every position), fills the group's
-dispatch buffer with its own tokens, takes each slot's row from the one
-batch shard that owns it (``moe_group_dispatch``, a select), runs its
-experts as the split step does, and combines its own tokens. That routing
-has no backward: a train step whose group would span batch shards raises.
+a train step's microbatch), and group g holds tokens [g·T/G, (g+1)·T/G)
+of the whole batch in (batch, position) order. Where that puts whole
+groups in each batch shard, each shard routes its own, and in a train
+step the aux loss is taken over all the shards' groups
+(:func:`_batch_aux`). Where one group spans several batch shards under
+``tp2d`` (a serving step with the batch split over "data" and fewer
+tokens than a group: every decode step with B below the group size; a
+train step whose microbatch holds fewer tokens a shard than a group), it
+is routed once over all its rows (:func:`_moe_across_shards`): each
+position gathers the group's router probabilities along "data" and
+routes the whole group (the same top-k and stable slot sort at every
+position), fills the group's dispatch buffer with its own tokens, takes
+each slot's row from the one batch shard that owns it
+(``moe_group_dispatch``, a select), runs its experts as the split step
+does, and combines its own tokens; the backward sends the probabilities'
+gradients back to their shards and keeps each dispatch row's at its
+owner. The ``fsdp`` train step never hands this block a group that spans
+its homes: it computes such a group's shards at the first one's home
+(``train.state.make_sharded_train_step``).
 """
 
 from __future__ import annotations
@@ -197,10 +202,12 @@ def moe_block(x, params: Dict[str, torch.Tensor],
     params: router (d, E); wg/wu (E, d, f); wd (E, f, d), each a tensor
     or, for the experts, :class:`Blocks` of it along E (the experts where
     they live, as the reference's ``exp_spec`` places them). With x as
-    ``Rows`` (and the leaves as ``StationaryView`` s, or ``TPView`` s in the
-    ``tp2d`` steps: :func:`_moe_over_model`) y and aux come as Rows, and
-    ``n_groups`` counts the groups over every batch shard's tokens
-    (:func:`shard_groups`).
+    ``Rows`` (and the leaves as ``StationaryView`` s; ``TPView`` s in the
+    ``tp2d`` steps: :func:`_moe_over_model`; or each home's own tensors as
+    Rows in the ``fsdp`` train step's microbatch over several homes, whose
+    aux loss is then taken over all their groups, :func:`_batch_aux`) y
+    and aux come as Rows, and ``n_groups`` counts the groups over every
+    batch shard's tokens (:func:`shard_groups`).
     """
     if isinstance(params["router"], TPView):
         return _moe_over_model(x, params, cfg, n_groups, capacity_factor)
@@ -209,14 +216,17 @@ def moe_block(x, params: Dict[str, torch.Tensor],
         if shards > 1:
             raise NotImplementedError(
                 f"moe_block: a group of {S} tokens spans {shards} batch "
-                f"shards whose weights stay where they lie")
+                f"shards whose weights each home reads alone")
         logits = linear(x, params["router"], x.dtype)
 
         def block(xd, lg, wg, wu, wd):
             r = routing(lg.reshape(G, S, -1), cfg, capacity_factor)
-            return _routed(xd, r, wg, wu, wd, cfg)
-        return each(block, x, logits, params["wg"], params["wu"],
-                    params["wd"])
+            return _routed(xd, r, wg, wu, wd, cfg) + (r,)
+        y, aux, r = each(block, x, logits, params["wg"], params["wu"],
+                         params["wd"])
+        if isinstance(params["router"], Rows):  # the fsdp train step's
+            aux = _batch_aux(r, None, cfg)      # homes: over all groups
+        return y, aux
     r = route(x, params["router"], cfg, n_groups, capacity_factor)
     return _routed(x, r, params["wg"], params["wu"], params["wd"], cfg)
 
@@ -242,17 +252,12 @@ def _moe_over_model(x: Rows, params, cfg: MoEConfig, n_groups: int,
     probabilities and slot counts per expert are added over its line of
     the shards (:func:`_batch_aux`; a serving step discards the aux loss
     and each shard keeps its own). A group that spans batch shards is
-    routed once (:func:`_moe_across_shards`) at a serving step; a train
-    step raises there (that routing has no backward)."""
+    routed once over them (:func:`_moe_across_shards`), at a serving step
+    and in the train step alike."""
     view = params["router"]
     D = batch_shards(x, view)
     G, S, shards = shard_groups(x.shape[0], n_groups, D)
     if shards > 1:
-        if view.training:
-            raise NotImplementedError(
-                f"moe_block: a MoE group of {S} tokens spans {shards} batch "
-                f"shards of {x.shape[0]} tokens each ({D} shards, "
-                f"{n_groups} groups); routing across shards has no backward")
         return _moe_across_shards(x, params, cfg, shards, capacity_factor)
     logits = linear(x, view, x.dtype)
 
@@ -288,21 +293,33 @@ def _moe_over_model(x: Rows, params, cfg: MoEConfig, n_groups: int,
 
 def _moe_across_shards(x: Rows, params, cfg: MoEConfig, shards: int,
                        capacity_factor: float):
-    """:func:`_moe_over_model` at a serving step where each group spans
-    ``shards`` batch shards (one group per position's rows; no backward),
-    routed once as the reference routes it. Each position's router logits
-    for its own
-    rows (:func:`linear`: at a decode step the router re-split over
-    "model") become probabilities there, which are gathered along its line
-    of the group's shards in batch order (``moe_group_probs``), so every
-    position routes the whole group alike. Each position fills the group's
-    (E·C, d) dispatch buffer with its own tokens' kept slots; the rows a
-    position's experts read (its E / M experts' under
-    ``moe_shard="expert"``, else all) are each taken from the one batch
-    shard that owns the slot's token (``moe_group_dispatch``, a select:
-    the one-device buffer's bits). The experts run as
-    :func:`_moe_over_model` runs them, and each position combines its own
-    tokens in sorted-slot order. ``aux`` is the group's."""
+    """:func:`_moe_over_model` where each group spans ``shards`` batch
+    shards (one group per position's rows), routed once as the reference
+    routes it. Each position's router logits for its own rows
+    (:func:`linear`: at a decode step the router re-split over "model")
+    become probabilities there, which are gathered along its line of the
+    group's shards in batch order (``moe_group_probs``), so every position
+    routes the whole group alike. Each position fills the group's (E·C, d)
+    dispatch buffer with its own tokens' kept slots, taking them in sorted
+    slot order (``DispatchGather``: the backward adds each token's k slot
+    gradients in that order, no atomics); the rows a position's experts
+    read (its E / M experts' under ``moe_shard="expert"``, else all) are
+    each taken from the one batch shard that owns the slot's token
+    (``moe_group_dispatch``, a select: the one-device buffer's bits). The
+    experts run as :func:`_moe_over_model` runs them (the backward makes
+    each position's dispatch gradient whole again over "model": the E / M
+    experts' slices gathered, ``expert_gather``, or under
+    ``moe_shard="ffn"`` the d_ff blocks' partials summed), and each
+    position combines its own tokens in sorted-slot order.
+
+    The backward follows the forward's moves: each position's probability
+    gradients go back to the shards whose rows they are
+    (``moe_group_probs_grad``, added in batch order), and each dispatch
+    row's gradient is the one its owner computed (only the owner combines
+    the row's token). ``aux`` is the group's: in a train step the group's
+    statistics are counted once, at its first shard, and added over
+    "data" with the other groups' (:func:`_batch_aux`); at a serving step
+    each position's own."""
     view = params["router"]
     E, k, d = cfg.n_experts, cfg.top_k, x.shape[-1]
     T = x.shape[0]
@@ -310,10 +327,11 @@ def _moe_across_shards(x: Rows, params, cfg: MoEConfig, shards: int,
                  linear(x, view, x.dtype))
     probs = span_gather(probs, view, shards, "moe_group_probs")
     mesh = x.mesh
-    rs = []                             # a Routing is a tuple: no each()
+    rs, orders = [], []                 # a Routing is a tuple: no each()
     for p, pr in zip(x.homes, probs.parts):
         with mesh.at(p):
             rs.append(routing(None, cfg, capacity_factor, probs=pr[None]))
+            orders.append(slot_order(rs[-1].perm, k))
     lo = {p: view.shard[p] % shards * T for p in x.homes}
     C = rs[0].C
     wg, wu, wd = params["wg"], params["wu"], params["wd"]
@@ -324,23 +342,27 @@ def _moe_across_shards(x: Rows, params, cfg: MoEConfig, shards: int,
     # its own tokens' kept slots, and each row's owning shard in the group
     # (its own where no token fills the row)
     bufs, owners = [], []
-    for p, xd, rp in zip(x.homes, x.parts, rs):
+    for p, xd, rp, order in zip(x.homes, x.parts, rs, orders):
         keep, tok, rows = rp.keep[0], rp.tokens[0], rp.rows[0]
         m = _model_of(mesh, p) if M > 1 else 0
         a, b = m * (E // M) * C, (m + 1) * (E // M) * C
         with mesh.at(p):
             mine = keep & (tok >= lo[p]) & (tok < lo[p] + T)
+            src = DispatchGather.apply(
+                xd[None], torch.clamp(tok - lo[p], 0, T - 1)[None],
+                order[:, lo[p]:lo[p] + T])[0]
             buf = torch.zeros((E * C + 1, d), dtype=xd.dtype,
                               device=xd.device)
-            buf[torch.where(mine, rows, E * C)] = xd[
-                torch.clamp(tok - lo[p], 0, T - 1)]
+            buf[torch.where(mine, rows, E * C)] = src
             owner = torch.full((E * C + 1,), lo[p] // T, dtype=torch.int64,
                                device=xd.device)
             owner[torch.where(keep, rows, E * C)] = tok // T
-            bufs.append(buf[a:b])
+            bufs.append(buf[:E * C])
             owners.append(owner[a:b])
-    x_exp = span_select(Rows(bufs, x.homes, mesh),
-                        Rows(owners, x.homes, mesh), view, shards,
+    bufs = Rows(bufs, x.homes, mesh)
+    if M > 1:   # its E / M experts' rows; the backward gathers the slices'
+        bufs = model_slice(bufs, 0, "expert_gather")    # gradients
+    x_exp = span_select(bufs, Rows(owners, x.homes, mesh), view, shards,
                         "moe_group_dispatch")
     del bufs, owners
     if M > 1:
@@ -349,7 +371,7 @@ def _moe_across_shards(x: Rows, params, cfg: MoEConfig, shards: int,
             x_exp, wg, wu, wd)
         y_exp = model_gather(y, 1, "expert_gather")
     elif counts[2] > 1:                 # each expert's d_ff over "model"
-        xs = each(lambda xe: xe.view(E, C, d), x_exp)
+        xs = model_sum_grad(each(lambda xe: xe.view(E, C, d), x_exp))
         h = each(lambda xe, pg, pu: _gated_experts(xe, pg, pu), xs, wg, wu)
         y_exp = model_sum(each(lambda hm, pd: ExpertGemm.apply(
             hm, pd.to(hm.dtype)), h, wd), x.dtype)
@@ -357,14 +379,16 @@ def _moe_across_shards(x: Rows, params, cfg: MoEConfig, shards: int,
         y_exp = each(lambda xe, pg, pu, pd: _experts(
             xe.view(E, C, d), pg, pu, pd), x_exp, wg, wu, wd)
     out = []
-    for p, ye, rp in zip(x.homes, y_exp.parts, rs):
+    for p, ye, rp, order in zip(x.homes, y_exp.parts, rs, orders):
         with mesh.at(p):
-            order = slot_order(rp.perm, k)
-            out.append((_combine(ye.reshape(1, E * C, d), rp,
-                                 order[:, lo[p]:lo[p] + T]),
-                        _aux(rp, cfg)))
-    return (Rows([y for y, _ in out], x.homes, mesh),
-            Rows([a for _, a in out], x.homes, mesh))
+            out.append(_combine(ye.reshape(1, E * C, d), rp,
+                                order[:, lo[p]:lo[p] + T]))
+    r = Rows(rs, x.homes, mesh)
+    if view.training:
+        aux = _batch_aux(r, view, cfg, shards)
+    else:
+        aux = each(lambda rd: _aux(rd, cfg), r)
+    return Rows(out, x.homes, mesh), aux
 
 
 def _slot_counts(r: Routing, E: int) -> torch.Tensor:
@@ -384,19 +408,33 @@ def _aux(r: Routing, cfg: MoEConfig) -> torch.Tensor:
     return E * torch.sum(me * ce)
 
 
-def _batch_aux(r: Rows, view: TPView, cfg: MoEConfig) -> Rows:
-    """:func:`_aux` over the groups of every batch shard of ``view`` at
-    once, from each position's routing ``r`` (its shard's groups, the
-    shards equal): each position's mean probabilities and slot counts
-    (int32) per expert are added over its line of the shards
-    (``collectives.batch_sum``, ``moe_aux_sum``), the means divided by the
-    shard count; the gradient reaches each shard's probabilities through
-    its own mean."""
-    E, k, D = cfg.n_experts, cfg.top_k, len(view.groups)
-    me = batch_sum(each(lambda rd: rd.probs.mean(dim=(0, 1)), r), view,
-                   "moe_aux_sum")
-    ce = batch_sum(each(lambda rd: _slot_counts(rd, E).to(torch.int32), r),
-                   view, "moe_aux_sum")
+def _batch_aux(r: Rows, view, cfg: MoEConfig, shards: int = 1) -> Rows:
+    """:func:`_aux` over the groups of every batch shard of ``view`` (or,
+    with ``view`` None, of every home of ``r``: the ``fsdp`` train step's
+    microbatch over several homes) at once, from each position's routing
+    ``r`` (its shard's groups, the shards equal): each position's mean
+    probabilities and slot counts (int32) per expert are added over its
+    line of the shards (``collectives.batch_sum``, ``moe_aux_sum``), the
+    means divided by the number of terms; the gradient reaches each
+    shard's probabilities through its own mean. Where a group spans
+    ``shards`` shards every position of it routes the whole group, so the
+    group's statistics come from its first shard only and the others add
+    zeros: each group is counted once."""
+    E, k = cfg.n_experts, cfg.top_k
+    mesh = r.mesh
+    me, ce = [], []
+    for p, rd in zip(r.homes, r.parts):
+        with mesh.at(p):
+            if view is None or view.shard[p] % shards == 0:
+                me.append(rd.probs.mean(dim=(0, 1)))
+                ce.append(_slot_counts(rd, E).to(torch.int32))
+            else:
+                me.append(torch.zeros((E,), device=rd.probs.device))
+                ce.append(torch.zeros((E,), dtype=torch.int32,
+                                      device=rd.probs.device))
+    me = batch_sum(Rows(me, r.homes, mesh), view, "moe_aux_sum")
+    ce = batch_sum(Rows(ce, r.homes, mesh), view, "moe_aux_sum")
+    D = (len(r.homes) if view is None else len(view.groups)) // shards
     n = D * r.parts[0].G * r.parts[0].S * k
 
     def aux(m, c):

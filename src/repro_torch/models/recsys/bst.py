@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import BSTConfig
-from repro_torch.distrib.collectives import ShardView, local
+from repro_torch.distrib.collectives import (Rows, ShardView, batch_mean,
+                                             each_home, local)
 from repro_torch.models import layers as L
 from repro_torch.optim.adamw import tree_map
 from repro_torch.sparse.segment import take_along_fields, take_rows
@@ -163,12 +164,27 @@ class BST:
         return x[:, 0]
 
     def loss(self, params, inputs: BSTInputs) -> torch.Tensor:
+        """The mean binary cross entropy of the click logits. With the
+        inputs as ``Rows`` over several homes and the leaves as
+        ``HomeViews`` (the ``fsdp`` train step's microbatch over several
+        batch shards): each home's sum and count of terms added over the
+        homes and divided once, the microbatch's mean at every home."""
+        if isinstance(inputs, Rows):
+            return batch_mean(*each_home(
+                lambda p, x: (self._terms(p, x).sum(),
+                              torch.tensor(x.labels.shape[0],
+                                           dtype=torch.int32,
+                                           device=x.labels.device)),
+                params, inputs), None)
+        return torch.mean(self._terms(params, inputs))
+
+    def _terms(self, params, inputs: BSTInputs) -> torch.Tensor:
+        """Each row's binary cross entropy (B,)."""
         logits = self.forward(params, inputs)
         y = inputs.labels.float()
         # jnp.maximum: a tie at 0 sends half the gradient each way
-        return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
-                          - logits * y
-                          + torch.log1p(torch.exp(-torch.abs(logits))))
+        return (torch.maximum(logits, torch.zeros_like(logits))
+                - logits * y + torch.log1p(torch.exp(-torch.abs(logits))))
 
     # -- retrieval (retrieval_cand shape) --------------------------------------
 

@@ -42,7 +42,12 @@ batch shard's activations on its own device and hand the model its
 parameters as per-batch-shard views (``distrib.collectives.ShardView``)
 that each layer gathers where it uses them (and, under ``remat="full"``,
 again in the recompute); with ``exp_spec`` the expert weights stay where
-they live. The serving steps under ``tp2d`` with the batch whole
+they live. Where one microbatch lies on several batch shards (the
+reference cell's one microbatch) the train step hands the model every
+home's views at once (``collectives.HomeViews``) and the tokens and labels
+as ``Rows``: each home runs its own rows with its own gathered leaves, and
+the cross entropy's sums and counts and the MoE aux statistics are added
+over the homes (``collectives.batch_mean``, ``moe._batch_aux``). The serving steps under ``tp2d`` with the batch whole
 (``distrib.serving``) move no parameter: they hand the model
 ``StationaryView`` s of every leaf and the batch's tokens as ``Rows``.
 Each product then runs on the positions that hold the weight's blocks
@@ -87,9 +92,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import TransformerConfig
-from repro_torch.distrib.collectives import (StationaryView, TPView, each,
-                                             local, model_gather,
-                                             split_heads)
+from repro_torch.distrib.collectives import (Rows, StationaryView, TPView,
+                                             batch_mean, each, local,
+                                             model_gather, split_heads)
 from repro_torch.distrib.sharding import P
 from repro_torch.models import layers as L
 from repro_torch.models.moe import (batch_shards, init_moe_params,
@@ -320,7 +325,8 @@ class TransformerLM:
         if isinstance(emb, StationaryView):
             return each(torch.Tensor.to, emb.take_rows(tokens),
                         self.compute_dtype)
-        return emb.to(self.compute_dtype)[tokens.long()]
+        return each(lambda e, t: e.to(self.compute_dtype)[t.long()], emb,
+                    tokens)
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None
@@ -346,7 +352,8 @@ class TransformerLM:
 
     def _head_w(self, params: Params) -> torch.Tensor:
         if self.cfg.tie_embeddings:
-            return params["embed"].T
+            emb = params["embed"]
+            return each(torch.t, emb) if isinstance(emb, Rows) else emb.T
         return params["head"]
 
     def logits(self, params: Params, hidden):
@@ -369,15 +376,28 @@ class TransformerLM:
         batch the batch shards split, at every position as Rows: the cross
         entropy the vocab-parallel form over each position's vocab block,
         its sums and counts added over "data"; the aux loss over all the
-        shards' groups."""
+        shards' groups. With them as Rows over several homes and the leaves
+        as ``HomeViews`` (the ``fsdp`` train step's microbatch over several
+        batch shards) likewise: each home's cross entropy sum and count
+        added over the homes and divided once, the aux loss over all their
+        groups."""
         params = self._local(params)
         hidden, aux = self.forward(params, tokens)
         w = self._head_w(params)
-        if self.act_spec is not None or isinstance(w, StationaryView):
+        sharded = self.act_spec is not None
+
+        def xent(h, wd, lab, sums=False):
+            if sharded:
+                return L.softmax_xent_sharded(h, wd, lab, sums)
+            return L.softmax_xent_chunked(lambda xc: xc @ wd.to(xc.dtype),
+                                          h, lab, sums=sums)
+        if isinstance(w, Rows):   # each home's sums, the microbatch's mean
+            xent = batch_mean(*each(lambda h, wd, lab: xent(h, wd, lab, True),
+                                    hidden, w, labels), None)
+        elif isinstance(w, StationaryView):
             xent = L.softmax_xent_sharded(hidden, w, labels)
         else:
-            xent = L.softmax_xent_chunked(lambda xc: xc @ w.to(xc.dtype),
-                                          hidden, labels)
+            xent = xent(hidden, w, labels)
         n = max(self.cfg.n_layers, 1)
         return each(lambda xe, a: xe + aux_coef * a / n, xent, aux)
 

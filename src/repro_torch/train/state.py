@@ -13,15 +13,16 @@ in which checkpoints are written.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import _host_array
 from repro_torch.config.base import TrainConfig
-from repro_torch.distrib.collectives import (Rows, ShardView, TPView,
-                                             batch_groups, local, span)
+from repro_torch.distrib.collectives import (HomeViews, Rows, ShardView,
+                                             TPView, batch_groups, local,
+                                             span)
 from repro_torch.distrib.sharding import (P, ShardedTensor, assemble,
                                           device_put, map_with_specs,
                                           sharded_zeros)
@@ -297,56 +298,75 @@ def _tp2d_update(state: TrainState, sums, loss, tcfg: TrainConfig,
 
 def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                             state_specs, batch_spec,
-                            microbatches: int = 1) -> Callable:
+                            microbatches: int = 1,
+                            moe_span: Optional[Callable] = None) -> Callable:
     """The train step over ``mesh``: the counterpart of
-    ``jax.jit(make_train_step(loss_fn, tcfg), in_shardings=…)`` on a cell.
-    ``step(state, *batch) → (state, metrics)`` takes a state placed by
-    ``state_specs`` (:func:`new_sharded_train_state`, or ``distrib.fault.
-    reshard``) and whole batch tensors, and returns the state updated in
-    place with ``loss``, ``grad_norm`` and ``lr`` on position 0's device.
+    ``jax.jit(make_train_step(loss_fn, tcfg, microbatches=M),
+    in_shardings=…)`` on a cell. ``step(state, *batch) → (state,
+    metrics)`` takes a state placed by ``state_specs``
+    (:func:`new_sharded_train_state`, or ``distrib.fault.reshard``) and
+    whole batch tensors, and returns the state updated in place with
+    ``loss``, ``grad_norm`` and ``lr`` on position 0's device.
 
-    The batch splits as ``make_train_step`` splits it, into
-    ``microbatches`` (M) along its leading axis; the axes of
-    ``batch_spec[0]`` make D batch shards, and batch shard d takes
-    microbatches d·M/D … (d+1)·M/D − 1 on its home position's device (M
-    must divide by D). Each batch shard sees the parameters through
-    :class:`~repro_torch.distrib.collectives.ShardView` s, which the model
-    gathers layer by layer where it uses them (ZeRO-3: only the state is
-    stored sharded). Gradients are summed per block: over a batch shard's
-    microbatches by autograd's accumulation, then over the batch shards in
-    ascending order, then divided by M, as ``make_train_step`` divides.
-    The clip's global norm gathers one leaf's gradient at a time and sums
-    its squares in ``global_norm``'s leaf order, so it keeps that
-    function's bits; AdamW then updates every position's shards, with the
-    weight decay of each whole leaf's reference ndim.
+    The batch splits as ``make_train_step`` splits it: microbatch i is rows
+    i·B/M … (i+1)·B/M − 1. The axes of ``batch_spec[0]`` make D batch
+    shards, and batch shard d holds rows d·B/D … (d+1)·B/D − 1 at its home
+    position's device; M must divide by D or D by M. Each batch shard sees
+    the parameters through :class:`~repro_torch.distrib.collectives.
+    ShardView` s, which the model gathers layer by layer where it uses them
+    (ZeRO-3: only the state is stored sharded).
 
-    When M / D = 1 or D = 1 the step is ``make_train_step(loss_fn, tcfg,
-    microbatches=M)`` bit for bit (loss, grad norm, every gathered leaf):
-    the sums run in the same order. Otherwise the gradient sum's order
-    differs."""
+    Where D divides M, each batch shard runs its M/D whole microbatches in
+    order, autograd adding their gradients into its views. Where M divides
+    D, microbatch i lies on the D/M consecutive shards that hold its rows
+    (M = 1 is the reference cell's step), and they run it together: one
+    forward over their homes, each on its own rows through its own views
+    (``collectives.HomeViews``), the loss the microbatch's mean (each
+    home's cross entropy sum and count, and the MoE aux loss's statistics,
+    added over the homes: ``loss_sum``, ``moe_aux_sum``), and one backward
+    from every home's loss, each seeded with 1 (the sums' backward is the
+    identity, so the gradients are the mean's). Where a MoE group spans
+    batch shards (``moe_span(B/M, S, D/M)``: the model's ``moe_span``, for
+    a batch whose first tensor is (B, S)), each run of the shards it spans
+    is computed at the run's first home over all the run's rows, which go
+    there (``train_span``); a microbatch that is one such run is the model's
+    plain loss at that home.
+
+    Gradients are summed per block at each block's owner, over the batch
+    shards in ascending order (``grad_psum``), and divided by M, as
+    ``make_train_step`` divides; the losses are added at position 0 in
+    microbatch order and divided by M. The clip's global norm gathers one
+    leaf's gradient at a time and sums its squares in ``global_norm``'s
+    leaf order, so it keeps that function's bits; AdamW then updates every
+    position's shards, with the weight decay of each whole leaf's
+    reference ndim.
+
+    When M / D = 1 or D = 1, or a microbatch's shards are one run, the step
+    is ``make_train_step(loss_fn, tcfg, microbatches=M)`` bit for bit (loss,
+    grad norm, every gathered leaf): the sums run in the same order.
+    Otherwise the sums run in another order, so the loss and gradients
+    differ by rounding. The reference's ``act_spec`` splits each of M > 1
+    microbatches over all of "data"; this step keeps whole microbatches
+    per shard where D divides M (the same values, another rounding and
+    per-shard peak)."""
     homes, groups = batch_groups(mesh, batch_spec[0] if len(batch_spec)
                                  else None)
-    D = len(homes)
-    if microbatches % D:
-        raise ValueError(f"{microbatches} microbatches do not split over "
-                         f"{D} batch shards")
-    per = microbatches // D
+    D, M = len(homes), microbatches
+    if M % D and D % M:
+        raise ValueError(f"{M} microbatches do not split over {D} batch "
+                         f"shards, nor {D} batch shards into {M} "
+                         f"microbatches")
     dev0 = mesh.device(0)
 
-    def step(state: TrainState, *batch) -> Tuple[TrainState, dict]:
-        leaves = tree_leaves(state.params)
-        for x in leaves:
-            if not isinstance(x, ShardedTensor) or x.mesh is not mesh:
-                raise ValueError("make_sharded_train_step: the state is "
-                                 "not placed on the step's mesh")
-        split = tree_map(lambda x: x.reshape(
-            (microbatches, -1) + tuple(x.shape[1:])), batch)
-        loss = None
-        sums = [dict() for _ in leaves]  # block → summed gradient
+    def views_at(params, d):
+        return tree_map(lambda x: ShardView(x, homes[d], groups[d]), params)
+
+    def whole(state, split, sums):
+        """Each batch shard's M/D microbatches: the shards' loss sums."""
+        per, loss = M // D, None
         for d in range(D):
             home = mesh.device(homes[d])
-            views = tree_map(lambda x: ShardView(x, homes[d], groups[d]),
-                             state.params)
+            views = views_at(state.params, d)
             losses = []
             for i in range(d * per, (d + 1) * per):
                 with mesh.at(homes[d]):
@@ -364,6 +384,71 @@ def make_sharded_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                 loss = loss_d if loss is None else loss + loss_d
             _add_grads(mesh, views, sums)
             del views
+        return loss
+
+    def spread(state, mb, i, sums):
+        """Microbatch ``mb`` over the D/M shards from i·D/M: its loss."""
+        per = D // M
+        first = i * per
+        lead = tree_leaves(mb)[0]
+        run = 1 if moe_span is None else moe_span(
+            lead.shape[0], lead.shape[1], per)
+        b = lead.shape[0] // per         # a shard's rows
+        runs = list(range(first, first + per, run))
+        views = [views_at(state.params, d) for d in runs]
+
+        def rows(x, d):
+            """The rows of the run from shard ``d`` at its home; the other
+            shards' rows go there."""
+            lo = (d - first) * b
+            part = x[lo:lo + run * b]
+            with span("train_span"), mesh.at(homes[d]), mesh.moving():
+                for e in range(d + 1, d + run):
+                    mesh.count("train_span", part[:b].numel()
+                               * part.element_size(), frm=homes[e],
+                               to=homes[d])
+                return part.to(mesh.device(homes[d]))
+        if len(runs) == 1:
+            d = runs[0]
+            with mesh.at(homes[d]):
+                mb_loss = loss_fn(views[0], *tree_map(
+                    lambda x: rows(x, d), mb))
+                mb_loss.backward()
+            loss = mb_loss.detach()
+        else:
+            at = [homes[d] for d in runs]
+            params = tree_map(lambda *vs: HomeViews(vs, at, mesh), *views)
+            args = [Rows([tree_map(lambda x: rows(x, d), a) for d in runs],
+                         at, mesh) for a in mb]
+            with mesh.at(at[0]):
+                with mesh.charge_backward():
+                    out = loss_fn(params, *args)
+                torch.autograd.backward(out.parts)
+            loss = out.parts[0].detach()
+            del out, args, params
+        for v in views:
+            _add_grads(mesh, v, sums)
+        with mesh.at(0):
+            return loss.to(dev0)
+
+    def step(state: TrainState, *batch) -> Tuple[TrainState, dict]:
+        leaves = tree_leaves(state.params)
+        for x in leaves:
+            if not isinstance(x, ShardedTensor) or x.mesh is not mesh:
+                raise ValueError("make_sharded_train_step: the state is "
+                                 "not placed on the step's mesh")
+        split = tree_map(lambda x: x.reshape(
+            (microbatches, -1) + tuple(x.shape[1:])), batch)
+        sums = [dict() for _ in leaves]  # block → summed gradient
+        if M % D == 0:
+            loss = whole(state, split, sums)
+        else:
+            loss = None
+            for i in range(M):
+                mb_loss = spread(state, tree_map(lambda x: x[i], split), i,
+                                 sums)
+                with mesh.at(0):
+                    loss = mb_loss if loss is None else loss + mb_loss
         _zeros_where_unreached(mesh, leaves, sums)
         with mesh.at(0):
             loss = loss / microbatches
@@ -403,7 +488,8 @@ def make_tp2d_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
     shard's token sums and counts added over "data" and divided once
     (``collectives.tp_vocab_xent``); the MoE groups are formed over the
     whole microbatch and its aux loss taken over all of them
-    (``models/moe.py``; a group that would span batch shards raises). The
+    (``models/moe.py``; a group that spans batch shards is routed once over
+    them, its backward through the same moves). The
     backward runs at once from the losses of the positions that collect
     gradients (the first of each batch shard's positions with a "model"
     coordinate), each seeded with 1 as ``make_train_step`` seeds each

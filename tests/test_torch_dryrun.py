@@ -382,3 +382,67 @@ def test_tp2d_train_cell_splits_as_the_reference(arch_id, monkeypatch):
     batch = 2 * 2 * 32 * 4                 # tokens and labels, at 0
     assert meta["per_position"]["argument_bytes"] == \
         [share + batch] + [share] * 3
+
+
+@pytest.mark.parametrize("arch_id,shape_name,dims", [
+    ("qwen3-moe-30b-a3b", "train_4k", {"seq_len": 32, "global_batch": 16}),
+    ("bst", "train_batch", {"batch": 32})], ids=["lm", "bst"])
+def test_fsdp_train_cells_run_one_microbatch(arch_id, shape_name, dims,
+                                             monkeypatch):
+    """The ``fsdp`` LM train cell and BST's train cell, their SMOKE batch
+    raised to 16 / 32 rows so that it splits over "data" (the cells' rule
+    at B ≥ 16), on a 2 × 2 mesh: the reference cell's one microbatch, its
+    rows over the 2 batch shards, run at once over both homes. The meta run
+    counts what the run on ``["cpu"] * 4`` counts, by name and by
+    receiving position, per position FLOPs, op bytes and peak; the loss's
+    sum and count cross the homes (``loss_sum``: two 4-byte scalars each
+    way), the LM's aux statistics too (``moe_aux_sum``: E f32 and E int32
+    a layer each way); each position holds its share of the state under
+    the ``fsdp`` specs, and position 0 the batch."""
+    from repro_torch.distrib.sharding import (Layout, bst_param_specs,
+                                              lm_param_specs,
+                                              map_with_specs)
+    from repro_torch.launch import cells
+    table = (cells.LM_SMOKE_DIMS if arch_id != "bst"
+             else cells.BST_SMOKE_DIMS)
+    monkeypatch.setitem(table, shape_name, dims)
+    monkeypatch.setenv("REPRO_LM_POLICY", "fsdp")
+    recs = []
+    for dev in ("meta", "cpu"):
+        mesh = Mesh((2, 2), ("data", "model"), [dev] * 4)
+        recs.append(dryrun.run_cell(arch_id, shape_name, smoke=True,
+                                    mesh=mesh, concrete=dev == "cpu"))
+    meta, conc = recs
+    assert meta["meta"]["microbatches"] == conc["meta"]["microbatches"] == 1
+    assert meta["collectives"] == conc["collectives"]
+    for key in ("flops", "op_bytes", "temp_peak_bytes", "output_bytes",
+                "argument_bytes", "collective_bytes_received"):
+        assert meta["per_position"][key] == conc["per_position"][key], key
+    coll = meta["collectives"]
+    assert coll["loss_sum"] == 2 * 8
+    cfg = get_arch(arch_id, smoke=True).model
+    mesh = Mesh((2, 2), ("data", "model"), ["meta"] * 4)
+    if arch_id == "bst":
+        from repro_torch.models.recsys.bst import BST
+        params = BST(cfg).init(torch.Generator(), device="meta")
+        specs = bst_param_specs(params, cfg)
+        batch = dims["batch"] * (2 * cfg.seq_len + 2 + cfg.n_user_feats
+                                 + 1) * 4
+    else:
+        from repro_torch.models.transformer import TransformerLM
+        params = TransformerLM(cfg).init(torch.Generator(),
+                                         dtype=torch.float32, device="meta")
+        specs = lm_param_specs(params, cfg, "fsdp")
+        batch = 2 * dims["global_batch"] * dims["seq_len"] * 4
+        assert coll["moe_aux_sum"] == \
+            cfg.n_layers * 2 * 8 * cfg.moe.n_experts
+    shares = []
+    map_with_specs(lambda x, s: shares.append(
+        x.numel() * 4 // math.prod(Layout(mesh, s, x.shape).counts)),
+        params, specs)
+    share = 3 * sum(shares) + 4            # params, m, v and the step
+    assert meta["per_position"]["argument_bytes"] == \
+        [share + batch] + [share] * 3
+    print(f"\n{arch_id} {shape_name} at one microbatch on 2 x 2: per "
+          f"position peak {meta['per_position']['temp_peak_bytes']}, "
+          f"collectives {coll}")

@@ -197,6 +197,41 @@ def test_bst_sharded_step_is_two_microbatches_bitwise():
     assert mesh.bytes["emb_rows"] > 0 and mesh.bytes["emb_grad"] > 0
 
 
+def test_bst_sharded_step_at_one_microbatch():
+    """The reference cell's one microbatch on 2 × 2, its rows over the two
+    batch shards: one forward over both homes, the loss the batch's mean
+    (each home's sum and count of terms added over the homes,
+    ``loss_sum``), one backward. Against ``make_train_step`` at M = 1: the
+    loss a mean of two half-batch sums rather than one, so f32 rounding
+    alone: loss and grad norm within 1e-6 relative, every leaf after 3
+    steps within rtol 1e-5, atol 2 · lr · steps; the same lookups' bytes
+    as the two-microbatch step and ``mlp_w0`` gathered once a home."""
+    arch = get_arch("bst", smoke=True)
+    one = bst_cell(arch, "train_batch", "cpu", smoke=True)
+    model = one.model
+    state, inputs = one.args
+    params = _copy(state.params)
+    state, want = _run(make_train_step(model.loss, TCFG), state, inputs)
+    mesh = _mesh((2, 2))
+    specs = state_specs_like(bst_param_specs(params, arch.model))
+    step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
+                                   P("data", None), microbatches=1)
+    sstate, got = _run(step, new_sharded_train_state(params, mesh, specs),
+                       inputs)
+    for (l0, n0), (l1, n1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=1e-6)
+        assert n1 == pytest.approx(n0, rel=1e-6)
+    flips = 2 * TCFG.learning_rate * STEPS
+    for x, y in zip(tree_leaves(sstate.params), tree_leaves(state.params)):
+        np.testing.assert_allclose(gather(x).numpy(), y.numpy(), rtol=1e-5,
+                                   atol=flips)
+    w0 = params["mlp_w0"]
+    assert mesh.bytes["all_gather"] == \
+        STEPS * 2 * w0.numel() * w0.element_size() // 2
+    assert mesh.bytes["loss_sum"] == STEPS * 2 * 8
+    assert mesh.bytes["emb_rows"] > 0 and mesh.bytes["emb_grad"] > 0
+
+
 def _lookup_case(case):
     """(table, ids for two batch shards, split dim) of one edge case."""
     g = torch.Generator().manual_seed(3)

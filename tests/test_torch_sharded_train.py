@@ -8,7 +8,15 @@ losses, grad norms and every gathered leaf equal the unsharded step's.
 Where M / D > 1 the gradient sums run in another order, and the test
 holds the step to ``test_torch_train.py``'s tolerances for the port
 against JAX: losses and grad norms to rtol 1e-4, parameters within 1e-4
-relative plus 2·lr per step absolute. ``moe_block`` with its experts on
+relative plus 2·lr per step absolute. Where D / M > 1 (the reference
+cell's one microbatch, its rows over the batch shards) the loss's sums and
+the MoE aux statistics cross the homes: within 1e-5 of the unsharded step
+at the same M, and within 1e-4 of the reference's jitted cell step under
+the ``fsdp`` specs (a child process with four host devices), labels
+masked in one shard and one shard's rows all row 0's included, which the
+parent's one-microbatch-a-shard step gets wrong by more than rounding; a
+MoE group that spans the shards runs at its first home, bitwise the
+unsharded step. ``moe_block`` with its experts on
 other mesh positions is bitwise the unsharded block, forward and
 backward. The host-mesh step with ``act_spec`` is held against the
 reference's step of that model under a one-device mesh to the same
@@ -62,10 +70,12 @@ def _batches(cfg, n=N_STEPS, B=4, S=16):
     return [[torch.as_tensor(a) for a in pipe.batch_at(i)] for i in range(n)]
 
 
-def _run(cfg, mesh, micro, act_spec=None, batches=None, steps=N_STEPS):
+def _run(cfg, mesh, micro, act_spec=None, batches=None, steps=N_STEPS,
+         group=16, nbytes=None):
     """(unsharded losses+norms, sharded losses+norms, unsharded state,
-    sharded state) over ``steps`` steps from one seed."""
-    model = TransformerLM(cfg, moe_group_size=16, act_spec=act_spec)
+    sharded state) over ``steps`` steps from one seed; each mesh step's
+    bytes appended to ``nbytes`` when it is a list."""
+    model = TransformerLM(cfg, moe_group_size=group, act_spec=act_spec)
     batches = batches or _batches(cfg, steps)
     ref = new_train_state(model.init(torch.Generator().manual_seed(0),
                                      dtype=torch.float32))
@@ -75,11 +85,15 @@ def _run(cfg, mesh, micro, act_spec=None, batches=None, steps=N_STEPS):
     state = new_sharded_train_state(params, mesh, specs)
     ref_step = make_train_step(model.loss, TCFG, microbatches=micro)
     step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
-                                   P("data", None), microbatches=micro)
+                                   P("data", None), microbatches=micro,
+                                   moe_span=model.moe_span)
     want, got = [], []
     for b in batches[:steps]:
         ref, rm = ref_step(ref, *b)
+        mesh.reset_bytes()
         state, m = step(state, *b)
+        if nbytes is not None:
+            nbytes.append(dict(mesh.bytes))
         want.append((float(rm["loss"]), float(rm["grad_norm"]),
                      float(rm["lr"])))
         got.append((float(m["loss"]), float(m["grad_norm"]),
@@ -182,6 +196,280 @@ def test_expert_parallel_step_is_bitwise_the_unsharded_step(shape):
     assert got == want
     _assert_state_equal(ref, state)
     assert mesh.bytes["expert_send"] > 0
+
+
+# -- the reference cell's one microbatch, its rows over the batch shards -----------
+
+def _close_to(want, got, rtol):
+    for (l0, n0, lr0), (l1, n1, lr1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=rtol)
+        assert n1 == pytest.approx(n0, rel=rtol)
+        assert lr1 == lr0
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (2, 1), (4, 1)],
+                         ids=["1x1", "2x2", "2x1", "4x1"])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_one_microbatch_over_the_batch_shards(name, shape):
+    """M = 1, the reference cell's step, with D = 2 or 4 batch shards: one
+    forward over the shards' homes, each on its own rows, the loss the
+    batch's mean (each home's cross entropy sum and count added over the
+    homes, ``loss_sum``: two 4-byte scalars from each other home) and the
+    MoE aux loss over all the groups (``moe_aux_sum``: E f32 means and E
+    int32 counts a layer from each other home). Loss and grad norm within
+    1e-5 of ``make_train_step`` at M = 1, every leaf after 3 steps within
+    rtol 1e-4, atol 2 · lr · steps; each home gathers each layer once, the
+    ``all_gather`` bytes of the M = D step. On one position bit for
+    bit."""
+    cfg = MODELS[name]
+    n = shape[0] * shape[1]
+    mesh = Mesh(shape, ("data", "model"), CPU4[:n])
+    nbytes = []
+    want, got, ref, state = _run(cfg, mesh, 1, nbytes=nbytes)
+    if n == 1:
+        assert got == want
+        _assert_state_equal(ref, state)
+        return
+    _close_to(want, got, 1e-5)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    for a, b in zip(tree_leaves(ref.params), tree_leaves(state.params)):
+        np.testing.assert_allclose(gather(b).numpy(), a.numpy(), rtol=1e-4,
+                                   atol=flips)
+    D = shape[0]
+    per_d = []
+    _run(cfg, Mesh(shape, ("data", "model"), CPU4[:n]), D, steps=1,
+         nbytes=per_d)
+    L = cfg.n_layers
+    E = cfg.moe.n_experts if cfg.moe else 0
+    for step in nbytes:
+        assert step["all_gather"] == per_d[0]["all_gather"]
+        assert step["loss_sum"] == D * (D - 1) * 8
+        assert step.get("moe_aux_sum", 0) == L * D * (D - 1) * 8 * E
+        assert "train_span" not in step
+    assert "loss_sum" not in per_d[0]
+
+
+@pytest.mark.parametrize("shape,micro", [((2, 2), 1), ((2, 1), 1),
+                                         ((4, 1), 1), ((4, 1), 2)],
+                         ids=["2x2-M1", "2x1-M1", "4x1-M1", "4x1-M2"])
+def test_group_across_batch_shards_runs_at_its_first_home(shape, micro):
+    """A MoE group that spans the batch shards of a microbatch
+    (``moe_group_size`` 64; shards of 32 or 16 tokens): the shards it spans
+    are computed at the first one's home over all their rows, the others'
+    rows sent there (``train_span``), so the step is ``make_train_step``'s
+    at the same M bit for bit, with and without ``act_spec``."""
+    n = shape[0] * shape[1]
+    for act in (None, P("data", None, None)):
+        mesh = Mesh(shape, ("data", "model"), CPU4[:n])
+        nbytes = []
+        want, got, ref, state = _run(MOE16, mesh, micro, act_spec=act,
+                                     group=64, nbytes=nbytes)
+        assert got == want
+        _assert_state_equal(ref, state)
+        rows = 4 // shape[0]                 # a shard's rows of B = 4
+        others = shape[0] - micro            # shards whose rows move
+        assert all(st["train_span"] == others * rows * 16 * 4 * 2
+                   for st in nbytes)
+        assert "loss_sum" not in nbytes[0]
+
+
+@pytest.mark.parametrize("D,M", [(2, 3), (4, 3), (4, 6)])
+def test_microbatches_that_neither_split_nor_gather_shards_raise(D, M):
+    """M must divide by D or D by M; otherwise the step refuses, naming
+    both."""
+    model = TransformerLM(DENSE)
+    params = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+    specs = state_specs_like(lm_param_specs(params, DENSE, "fsdp"))
+    mesh = Mesh((D, 4 // D), ("data", "model"), CPU4)
+    with pytest.raises(ValueError, match=f"{M} microbatches do not split "
+                                         f"over {D} batch shards"):
+        make_sharded_train_step(model.loss, TCFG, mesh, specs,
+                                P("data", None), microbatches=M)
+
+
+_REF_CHILD = r'''
+import json, sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.config.base import MoEConfig, TrainConfig, TransformerConfig
+from repro.distrib.sharding import lm_param_specs, state_specs_like
+from repro.models.transformer import TransformerLM
+from repro.train.state import make_train_step, new_train_state
+
+args = json.loads(open(sys.argv[1]).read())
+kw = dict(args["cfg"])
+kw["moe"] = MoEConfig(**kw["moe"]) if kw.get("moe") else None
+cfg = TransformerConfig(**kw)
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+ns = lambda s: NamedSharding(mesh, s)
+bs = ns(P("data", None))
+model = TransformerLM(cfg, moe_group_size=args["group"],
+                      act_spec=P("data", None, None))
+params = model.init(jax.random.PRNGKey(0))
+specs = state_specs_like(lm_param_specs(params, cfg, "fsdp"))
+step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"])),
+               in_shardings=(jax.tree.map(ns, specs), bs, bs))
+for i, case in enumerate(args["cases"]):
+    state = new_train_state(params)
+    metrics = []
+    with mesh:
+        for tokens, labels in case["batches"]:
+            state, m = step(state, jnp.asarray(np.array(tokens, np.int32)),
+                            jnp.asarray(np.array(labels, np.int32)))
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+    leaves = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(state.params)[0]:
+        key = ":".join(str(getattr(p, "key", getattr(p, "name", p)))
+                       for p in path)
+        leaves[key] = np.asarray(leaf, np.float32)
+    np.savez(case["out"], **leaves)
+    print(f"CASE {i} " + json.dumps(metrics), flush=True)
+'''
+
+# the reference cell's step on the fsdp specs against the port's: random
+# batches, and two that a mean of per-shard means gets wrong
+FSDP_CASES = ("random", "masked", "skewed")
+
+
+def _fsdp_batches(kind):
+    """``_batches(MOE16)`` with, for "masked", labels −1 past position 4 in
+    batch shard 1's rows (2 and 3) only, and for "skewed", shard 1's rows
+    row 0's (its router sees one sequence twice)."""
+    out = []
+    for tokens, labels in _batches(MOE16):
+        tokens, labels = tokens.clone(), labels.clone()
+        if kind == "masked":
+            labels[2:, 4:] = -1
+        if kind == "skewed":
+            tokens[2:], labels[2:] = tokens[0], labels[0]
+        out.append([tokens, labels])
+    return out
+
+
+@pytest.fixture(scope="module")
+def fsdp_reference(tmp_path_factory):
+    """kind → (the reference's losses and grad norms, its leaves' file):
+    ``jax.jit(make_train_step(model.loss, TCFG))`` under the ``fsdp``
+    ``in_shardings`` on a 2 × 2 mesh of host devices, one child process."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    import dataclasses as dc
+    pytest.importorskip("jax")
+    tmp = tmp_path_factory.mktemp("fsdp_reference")
+    cases = [{"out": str(tmp / f"{k}.npz"),
+              "batches": [[t.tolist() for t in b]
+                          for b in _fsdp_batches(k)]} for k in FSDP_CASES]
+    payload = tmp / "cases.json"
+    payload.write_text(json.dumps({
+        "cfg": dc.asdict(MOE16), "group": 16, "cases": cases,
+        "tcfg": {k: getattr(TCFG, k) for k in ("learning_rate",
+                                                "warmup_steps",
+                                                "total_steps")}}))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(repo, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    res = subprocess.run([sys.executable, "-c", textwrap.dedent(_REF_CHILD),
+                          str(payload)], env=env, capture_output=True,
+                         text=True, cwd=repo, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    outs = {}
+    for line in res.stdout.splitlines():
+        if line.startswith("CASE "):
+            i, body = line[5:].split(" ", 1)
+            outs[FSDP_CASES[int(i)]] = (json.loads(body),
+                                        cases[int(i)]["out"])
+    assert len(outs) == len(FSDP_CASES), res.stdout[-2000:]
+    return outs
+
+
+def _fsdp_from_reference(micro, kind):
+    """The port's ``fsdp`` step on 2 × 2 at ``micro`` microbatches from the
+    reference's weights (MOE16, ``act_spec``, groups of 16): per step
+    (loss, grad norm), and the final state."""
+    import jax
+    from repro.models.transformer import TransformerLM as RLM
+    from repro_torch.models.transformer import params_from_jax
+    from test_torch_lm import _jax_cfg
+    rparams = RLM(_jax_cfg(MOE16)).init(jax.random.PRNGKey(0))
+    params = params_from_jax(MOE16, jax.tree_util.tree_map(np.asarray,
+                                                           rparams),
+                             device="cpu", dtype=torch.float32)
+    model = TransformerLM(MOE16, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    mesh = Mesh((2, 2), ("data", "model"), CPU4)
+    specs = state_specs_like(lm_param_specs(params, MOE16, "fsdp"))
+    state = new_sharded_train_state(params, mesh, specs)
+    step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
+                                   P("data", None), microbatches=micro,
+                                   moe_span=model.moe_span)
+    got = []
+    for b in _fsdp_batches(kind):
+        state, m = step(state, *b)
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+    return got, state
+
+
+@pytest.mark.parametrize("kind", FSDP_CASES)
+def test_one_microbatch_matches_the_reference_cell_step(fsdp_reference,
+                                                        kind):
+    """The reference's jitted cell step (``make_train_step(model.loss,
+    TCFG)``, one microbatch) under the ``fsdp`` ``in_shardings`` on a 2 × 2
+    JAX mesh, against the port's step at M = 1 on 2 × 2, MOE16 with
+    ``act_spec`` from one set of weights, 3 steps: losses, grad norms and
+    every leaf within 1e-4 (atol 2 · lr · steps on the leaves). "masked"
+    (labels −1 in one shard only) and "skewed" (one shard's rows all row
+    0's) are cases that the parent's cell step, one microbatch per batch
+    shard (M = D = 2), gets wrong by more than rounding: a mean of the
+    shards' cross entropy means, and a mean of the shards' aux losses, are
+    not the batch's; the test shows that difference too (``-s`` prints
+    it)."""
+    from test_torch_train import _leaves_ref_layout
+    want, path = fsdp_reference[kind]
+    got, state = _fsdp_from_reference(1, kind)
+    for (l0, n0), (l1, n1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=1e-4)
+        assert n1 == pytest.approx(n0, rel=1e-4)
+    whole = {k: gather(v) if isinstance(v, ShardedTensor) else v
+             for k, v in state.params.items() if k != "layers"}
+    whole["layers"] = [{k: (gather(v) if isinstance(v, ShardedTensor)
+                            else {n: gather(t) for n, t in v.items()})
+                        for k, v in lay.items()}
+                       for lay in state.params["layers"]]
+    leaves = _leaves_ref_layout(whole)
+    ref = np.load(path)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    for key in ref.files:
+        np.testing.assert_allclose(leaves[key.replace(":", "/")], ref[key],
+                                   rtol=1e-4, atol=flips)
+    per_shard, _ = _fsdp_from_reference(2, kind)
+
+    def gaps(run):       # step 0's relative loss and grad-norm gaps
+        return [abs(a / b - 1) for a, b in zip(run[0], want[0])]
+    print(f"\n{kind}: the reference's (loss, grad norm) {want}; M = 1 "
+          f"{got}, step 0's gaps {gaps(got)}; M = D = 2 (the parent's cell "
+          f"step) {per_shard}, step 0's gaps {gaps(per_shard)}")
+    if kind != "random":
+        assert max(gaps(per_shard)) > max(1e-5, 20 * max(gaps(got)))
+
+
+def test_lm_train_cell_runs_one_microbatch():
+    """The ``fsdp`` train cell on a 2 × 2 meta mesh at its published batch
+    (256 rows over the 2 "data" shards) runs the reference cell's one
+    microbatch."""
+    mesh = Mesh((2, 2), ("data", "model"), ["meta"] * 4)
+    cell = build_cell(get_arch("smollm-135m"), "train_4k", "cpu",
+                      mesh=mesh, concrete=False)
+    assert cell.args[1].shape[0] >= 16
+    assert cell.meta["microbatches"] == 1
 
 
 def test_step_refuses_a_state_of_another_mesh_and_uneven_microbatches():

@@ -52,11 +52,20 @@ backward; ``models/layers.py``: the vocab-parallel cross entropy;
   ``remat`` none, full and dots; a clip that bites (``grad_clip`` 0.05):
   the grad norm, one scalar all-reduce (``norm_sum``, no gradient moved),
   within 1e-5 of ``global_norm``'s on 2 × 2 and bit for bit on one
-  position; a MoE group that would span the batch shards in training, and
-  a microbatch that does not split over them, raise.
+  position; a microbatch that does not split over the batch shards
+  raises.
+* Fault 8: a MoE group that spans the batch shards of a microbatch
+  (``moe_group_size`` 64 over 2 shards of 32 tokens, 16 experts, both
+  ``moe_shard`` values, every row row 0's and random rows) routed once over
+  them (``models/moe.py:_moe_across_shards``, its backward through
+  ``span_gather`` / ``span_select``): within ``STEP_RTOL`` of the
+  unsharded step on 2 × 2 and 2 × 1, two runs bitwise, bytes by formula
+  (``tp2d_step_bytes``, ``chip_smoke.tp2d_bytes_want`` with each remat),
+  and within 1e-4 of the reference's jitted step.
 * The step against the reference's ``jax.jit(make_train_step)`` under a
-  2 × 2 JAX mesh with the ``tp2d`` ``in_shardings`` (a child process with
-  four host devices), weights through ``params_from_jax``, to rtol 1e-4,
+  2 × 2 JAX mesh with the ``tp2d`` ``in_shardings`` (one child process
+  with four host devices for every reference case of the file), weights
+  through ``params_from_jax``, to rtol 1e-4,
   for ``moe_shard`` "expert" and "ffn"; the child also reads the compiled
   HLO's collective bytes by kind and by the mesh axis of their replica
   groups (``repro.launch.roofline.collective_bytes``), printed beside the
@@ -345,11 +354,11 @@ def _batches(cfg, B=8, S=16, n=N_STEPS):
 
 
 def _run(cfg, shape, micro, bspec, steps=N_STEPS, reference=True,
-         moves=None, tcfg=TCFG):
+         moves=None, tcfg=TCFG, group=16, batches=None):
     """(unsharded metrics, mesh metrics, unsharded state, mesh state, the
     bytes of each mesh step); each step's ``Mesh.moves`` appended to
     ``moves`` when it is a list."""
-    model = TransformerLM(cfg, moe_group_size=16,
+    model = TransformerLM(cfg, moe_group_size=group,
                           act_spec=P("data", None, None))
     params = model.init(torch.Generator().manual_seed(0),
                         dtype=torch.float32)
@@ -364,7 +373,7 @@ def _run(cfg, shape, micro, bspec, steps=N_STEPS, reference=True,
                                          dtype=torch.float32))
         rstep = make_train_step(model.loss, tcfg, microbatches=micro)
     want, got, nbytes = [], [], []
-    for b in _batches(cfg)[:steps]:
+    for b in (batches or _batches(cfg))[:steps]:
         if reference:
             ref, rm = rstep(ref, *b)
             want.append((float(rm["loss"]), float(rm["grad_norm"])))
@@ -485,10 +494,53 @@ def test_tp2d_clip_norm_is_one_scalar_allreduce(name, shape):
         assert "norm_gather" not in step
 
 
-def test_tp2d_group_across_batch_shards_raises():
-    """A MoE group that would span the batch shards of a microbatch in
-    training (``moe_group_size`` 64 over 2 shards of 32 tokens) raises and
-    names the shapes: routing across shards has no backward."""
+def _same_rows(batches):
+    """Every row of each batch row 0's: one token sequence, so every group
+    routes alike and the experts' capacity overflows."""
+    return [[t[:1].expand_as(t).clone() for t in b] for b in batches]
+
+
+def _moe_shard(cfg, moe_shard):
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, moe_shard=moe_shard))
+
+
+@pytest.mark.parametrize("rows", ["same", "random"])
+@pytest.mark.parametrize("moe_shard", ["expert", "ffn"])
+@pytest.mark.parametrize("shape", [(2, 2), (2, 1)], ids=["2x2", "2x1"])
+def test_tp2d_group_across_batch_shards(shape, moe_shard, rows):
+    """Fault 8: a MoE group that spans the batch shards of a microbatch in
+    training (``moe_group_size`` 64 over 2 shards of 32 tokens, 16
+    experts) is routed once over them, as the reference routes it: loss
+    and grad norm within ``STEP_RTOL`` of the unsharded step at the same
+    microbatches, every leaf after 2 steps within rtol 1e-4, atol
+    2 · lr · steps; every row row 0's (capacity overflows, so per-shard
+    groups would keep other slots) and random rows; two runs bitwise;
+    every collective's bytes :func:`tp2d_step_bytes`'s."""
+    cfg = _moe_shard(MOE16, moe_shard)
+    batches = _batches(cfg)
+    if rows == "same":
+        batches = _same_rows(batches)
+    runs = [_run(cfg, shape, 2, P("data", None), group=64, batches=batches,
+                 reference=i == 0) for i in range(2)]
+    want, got, ref, state, nbytes = runs[0]
+    for (l0, n0), (l1, n1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=STEP_RTOL)
+        assert n1 == pytest.approx(n0, rel=STEP_RTOL)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    for a, b in zip(tree_leaves(ref.params), _whole(state.params)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=flips)
+    assert runs[1][1] == got and runs[1][4] == nbytes
+    for a, b in zip(_whole(state), _whole(runs[1][3])):
+        assert torch.equal(a, b)
+    assert nbytes[0] == tp2d_step_bytes(cfg, shape, group=64)
+    assert nbytes[0]["moe_group_probs_grad"] > 0
+
+
+def test_tp2d_microbatch_that_does_not_split_raises():
+    """A microbatch whose rows do not split over the batch shards (B/M
+    not divisible by D) raises and says so."""
     model = TransformerLM(MOE16, moe_group_size=64,
                           act_spec=P("data", None, None))
     params = model.init(torch.Generator().manual_seed(0),
@@ -496,11 +548,6 @@ def test_tp2d_group_across_batch_shards_raises():
     mesh = _mesh((2, 2))
     specs = state_specs_like(lm_param_specs(params, MOE16, "tp2d"))
     state = new_sharded_train_state(params, mesh, specs)
-    step = make_tp2d_train_step(model.loss, TCFG, mesh, specs,
-                                P("data", None), microbatches=2)
-    with pytest.raises(NotImplementedError,
-                       match="group of 64 tokens spans 2 batch shards"):
-        step(state, *_batches(MOE16)[0])
     with pytest.raises(ValueError, match="B/M must divide by D"):
         make_tp2d_train_step(model.loss, TCFG, mesh, specs, P("data", None),
                              microbatches=8)(state, *_batches(MOE16)[0])
@@ -527,6 +574,7 @@ def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
                           cfg.head_dim, cfg.n_layers, cfg.vocab_size)
     moe = cfg.moe
     attn = [d * H * hd, d * KV * hd, d * KV * hd, H * hd * d]
+    spans = 1                                # batch shards a group spans
     if moe is None:
         mlp_col, mlp_row = [d * cfg.d_ff] * 2, [cfg.d_ff * d]
         experts = router = E = Ce = G = 0
@@ -535,7 +583,8 @@ def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
         E, k, fe = moe.n_experts, moe.top_k, moe.d_ff_expert
         experts, router = 3 * E * d * fe, d * E
         G = max(1, R // group)
-        Ce = max(8, -(-(int(R // G * k * 1.25 / E) + 1) // 8) * 8)
+        spans = max(1, group // R)
+        Ce = max(8, -(-(int(R * spans // G * k * 1.25 / E) + 1) // 8) * 8)
     split = [*attn, *mlp_col, *mlp_row]      # over "data" and "model"
     out = {}
     # the weights gathered along "data" and reduce-scattered back; the
@@ -568,9 +617,17 @@ def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
         else:                                # q, k, v gathered, o's back
             heads = N * (M - 1) * R * (2 * H + 2 * KV) * hd * c // M
     out["tp_heads_gather"] = rounds * L * heads
-    if moe is not None and moe.moe_shard == "expert" and E % 16 == 0:
+    by_model = moe is not None and moe.moe_shard == "expert" and E % 16 == 0
+    if by_model:
         out["expert_gather"] = (rounds * L * 2 * N * (M - 1) * G * E * Ce
                                 * d * c // M)
+    if spans > 1:
+        # a group over the shards: its probabilities along "data" and their
+        # gradients back, each position's dispatch rows from the others
+        out["moe_group_probs"] = rounds * L * N * (spans - 1) * R * E * 4
+        out["moe_group_probs_grad"] = out["moe_group_probs"]
+        out["moe_group_dispatch"] = (rounds * L * N * (spans - 1) * E * Ce
+                                     * d * c // (M if by_model else 1))
     # the lookup at each batch shard's first position: ids out, rows back
     # from the N − 1 blocks it does not hold, the rows delivered to the
     # shard's M − 1 other positions; the gradient rows back to the blocks
@@ -596,10 +653,14 @@ def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_tp2d_step_bytes_by_formula(name, shape):
     """Each collective's bytes a step, by name, equal to
-    :func:`tp2d_step_bytes`."""
-    _, _, _, _, nbytes = _run(MODELS[name], shape, 2, P("data", None),
-                              steps=1, reference=False)
-    assert nbytes[0] == tp2d_step_bytes(MODELS[name], shape)
+    :func:`tp2d_step_bytes`; with MoE layers also where a group spans the
+    batch shards (``moe_group_size`` 64: fault 8's routing)."""
+    groups = [16] + ([64] if MODELS[name].moe and shape[0] > 1 else [])
+    for group in groups:
+        _, _, _, _, nbytes = _run(MODELS[name], shape, 2, P("data", None),
+                                  steps=1, reference=False, group=group)
+        assert nbytes[0] == tp2d_step_bytes(MODELS[name], shape,
+                                            group=group), group
 
 
 @pytest.mark.parametrize("micro", [1, 2])
@@ -617,6 +678,22 @@ def test_tp2d_step_bytes_by_chip_smoke_formula(name, remat, micro):
                               reference=False)
     assert nbytes[0] == chip_smoke.tp2d_bytes_want(
         cfg, (2, 2), 8 // micro // 2 * 16, micro, 16)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("moe_shard", ["expert", "ffn"])
+def test_tp2d_spanning_bytes_by_chip_smoke_formula(moe_shard, remat):
+    """Fault 8's routing on 2 × 2 (``moe_group_size`` 64 over the two batch
+    shards' 32 tokens, 16 experts): every collective's bytes a step equal
+    to ``chip_smoke.tp2d_bytes_want``, the formula train-sharded-tp2d (iv)
+    is held to on the card (the group's probabilities and dispatch rows
+    again in ``remat``'s recompute, the probabilities' gradients once)."""
+    import chip_smoke
+    cfg = dataclasses.replace(_moe_shard(MOE16, moe_shard), remat=remat)
+    _, _, _, _, nbytes = _run(cfg, (2, 2), 2, P("data", None), steps=1,
+                              reference=False, group=64)
+    assert nbytes[0]["moe_group_probs"] > 0
+    assert nbytes[0] == chip_smoke.tp2d_bytes_want(cfg, (2, 2), 32, 2, 64)
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
@@ -920,41 +997,124 @@ from repro.distrib.sharding import lm_param_specs, state_specs_like
 from repro.models.transformer import TransformerLM
 from repro.train.state import make_train_step, new_train_state
 
-args = json.loads(sys.argv[1])
-kw = args["cfg"]
-if kw.get("moe"):
-    kw["moe"] = MoEConfig(**kw["moe"])
-cfg = TransformerConfig(**kw)
+args = json.loads(open(sys.argv[1]).read())
 mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-model = TransformerLM(cfg, moe_group_size=16, act_spec=P("data", None, None))
-state = new_train_state(model.init(jax.random.PRNGKey(0)))
-specs = state_specs_like(lm_param_specs(state.params, cfg, "tp2d"))
 ns = lambda s: NamedSharding(mesh, s)
 bs = ns(P("data", None))
-step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"]),
-                               microbatches=args["micro"]),
-               in_shardings=(jax.tree.map(ns, specs), bs, bs))
-tokens, labels = (jnp.asarray(np.array(t, np.int32))
-                  for t in args["batches"][0])
-with mesh:
-    hlo = step.lower(state, tokens, labels).compile().as_text()
-print("HLO " + json.dumps({"kinds": read_hlo(hlo),
-                           "gathers": data_gathers(hlo),
-                           "slices": reduce_then_slice(hlo)}))
-metrics = []
-with mesh:
-    for tokens, labels in args["batches"]:
-        state, m = step(state, jnp.asarray(np.array(tokens, np.int32)),
-                        jnp.asarray(np.array(labels, np.int32)))
-        metrics.append([float(m["loss"]), float(m["grad_norm"])])
-leaves = {}
-for path, leaf in jax.tree_util.tree_flatten_with_path(state.params)[0]:
-    key = ":".join(str(getattr(p, "key", getattr(p, "name", p)))
-                   for p in path)
-    leaves[key] = np.asarray(leaf, np.float32)
-np.savez(args["out"], **leaves)
-print(json.dumps(metrics))
+steps = {}
+for i, case in enumerate(args["cases"]):
+    kw = dict(case["cfg"])
+    if kw.get("moe"):
+        kw["moe"] = MoEConfig(**kw["moe"])
+    cfg = TransformerConfig(**kw)
+    model = TransformerLM(cfg, moe_group_size=case["group"],
+                          act_spec=P("data", None, None))
+    state = new_train_state(model.init(jax.random.PRNGKey(0)))
+    key = json.dumps([case["cfg"], case["group"], case["micro"]])
+    if key not in steps:
+        specs = state_specs_like(lm_param_specs(state.params, cfg, "tp2d"))
+        steps[key] = jax.jit(
+            make_train_step(model.loss, TrainConfig(**args["tcfg"]),
+                            microbatches=case["micro"]),
+            in_shardings=(jax.tree.map(ns, specs), bs, bs))
+    step = steps[key]
+    out = {}
+    if case["hlo"]:
+        tokens, labels = (jnp.asarray(np.array(t, np.int32))
+                          for t in case["batches"][0])
+        with mesh:
+            hlo = step.lower(state, tokens, labels).compile().as_text()
+        out.update(kinds=read_hlo(hlo), gathers=data_gathers(hlo),
+                   slices=reduce_then_slice(hlo))
+    metrics = []
+    with mesh:
+        for tokens, labels in case["batches"]:
+            state, m = step(state, jnp.asarray(np.array(tokens, np.int32)),
+                            jnp.asarray(np.array(labels, np.int32)))
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+    out["metrics"] = metrics
+    leaves = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(state.params)[0]:
+        key = ":".join(str(getattr(p, "key", getattr(p, "name", p)))
+                       for p in path)
+        leaves[key] = np.asarray(leaf, np.float32)
+    np.savez(case["out"], **leaves)
+    print(f"CASE {i} " + json.dumps(out), flush=True)
 '''
+
+# the reference runs of this file, one child process for all of them: the
+# ``tp2d`` step for both ``moe_shard`` values (group 16, its HLO read) and
+# fault 8's groups across the batch shards (group 64, both row kinds)
+REFERENCE_CASES = ([("expert", 16, "random"), ("ffn", 16, "random")]
+                   + [(ms, 64, rows) for ms in ("expert", "ffn")
+                      for rows in ("same", "random")])
+
+
+@pytest.fixture(scope="module")
+def reference_runs(tmp_path_factory):
+    "(moe_shard, group, rows) → (the child's output, its leaves' file)."
+    pytest.importorskip("jax")
+    tmp = tmp_path_factory.mktemp("tp2d_reference")
+    cases = []
+    for moe_shard, group, rows in REFERENCE_CASES:
+        cfg = _moe_shard(MOE16, moe_shard)
+        batches = _batches(cfg)
+        if rows == "same":
+            batches = _same_rows(batches)
+        cases.append({"cfg": dataclasses.asdict(cfg), "micro": 2,
+                      "group": group, "hlo": group == 16,
+                      "out": str(tmp / f"{moe_shard}_{group}_{rows}.npz"),
+                      "batches": [[t.tolist() for t in b] for b in batches]})
+    payload = tmp / "cases.json"
+    payload.write_text(json.dumps({"cases": cases, "tcfg": {
+        k: getattr(TCFG, k) for k in ("learning_rate", "warmup_steps",
+                                      "total_steps")}}))
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    res = subprocess.run([sys.executable, "-c", textwrap.dedent(_CHILD),
+                          str(payload)], env=env, capture_output=True,
+                         text=True, cwd=REPO, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    outs = {}
+    for line in res.stdout.splitlines():
+        if line.startswith("CASE "):
+            i, body = line[5:].split(" ", 1)
+            outs[REFERENCE_CASES[int(i)]] = (json.loads(body),
+                                             cases[int(i)]["out"])
+    assert len(outs) == len(REFERENCE_CASES), res.stdout[-2000:]
+    return outs
+
+
+def _leaves_against_reference(state, path):
+    "Every leaf of the mesh state against the reference's saved ones."
+    from test_torch_train import _leaves_ref_layout
+    whole = {k: gather(v) if isinstance(v, ShardedTensor) else v
+             for k, v in state.params.items() if k != "layers"}
+    whole["layers"] = [{k: (gather(v) if isinstance(v, ShardedTensor)
+                            else {n: gather(t) for n, t in v.items()})
+                        for k, v in lay.items()}
+                       for lay in state.params["layers"]]
+    got = _leaves_ref_layout(whole)
+    ref = np.load(path)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    assert sorted(k.replace(":", "/") for k in ref.files) == sorted(got)
+    for key in ref.files:
+        np.testing.assert_allclose(got[key.replace(":", "/")], ref[key],
+                                   rtol=1e-4, atol=flips)
+
+
+def _reference_params(cfg):
+    "The reference's initial weights (its PRNG key 0) as the port's."
+    import jax
+    from repro.models.transformer import TransformerLM as RLM
+    from repro_torch.models.transformer import params_from_jax
+    from test_torch_lm import _jax_cfg
+    rparams = RLM(_jax_cfg(cfg)).init(jax.random.PRNGKey(0))
+    return params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, rparams),
+                           device="cpu", dtype=torch.float32)
 
 
 def _by_axis(mesh, moves):
@@ -970,7 +1130,8 @@ def _by_axis(mesh, moves):
 
 
 @pytest.mark.parametrize("moe_shard", ["expert", "ffn"])
-def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
+def test_tp2d_step_matches_the_reference_jitted_step(reference_runs,
+                                                     moe_shard):
     """The reference's jitted step under a 2 × 2 JAX mesh with the ``tp2d``
     ``in_shardings`` (XLA's partitioner places each product) against the
     port's ``make_tp2d_train_step`` on 2 × 2, the qwen3-moe SMOKE model
@@ -993,34 +1154,11 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
     gradients along "data" are all-reduced and then dynamic-sliced to each
     chip's block (the CPU pipeline forms no reduce-scatter), where the
     port reduce-scatters (``tp_zero_scatter``)."""
-    jax = pytest.importorskip("jax")
-    from repro.models.transformer import TransformerLM as RLM
-    from repro_torch.models.transformer import params_from_jax
-    from test_torch_lm import _jax_cfg
-    from test_torch_train import _leaves_ref_layout
-    cfg = dataclasses.replace(
-        MOE16, moe=dataclasses.replace(MOE16.moe, moe_shard=moe_shard))
+    cfg = _moe_shard(MOE16, moe_shard)
     micro = 2
     batches = _batches(cfg)
-    out = tmp_path / "ref.npz"
-    payload = json.dumps({
-        "cfg": dataclasses.asdict(cfg), "micro": micro, "out": str(out),
-        "tcfg": {k: getattr(TCFG, k) for k in ("learning_rate",
-                                                "warmup_steps",
-                                                "total_steps")},
-        "batches": [[t.tolist() for t in b] for b in batches]})
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["JAX_PLATFORMS"] = "cpu"
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    res = subprocess.run([sys.executable, "-c", textwrap.dedent(_CHILD),
-                          payload], env=env, capture_output=True, text=True,
-                         cwd=REPO, timeout=300)
-    assert res.returncode == 0, res.stderr[-4000:]
-    lines = res.stdout.strip().splitlines()
-    want = json.loads(lines[-1])
-    read = json.loads(next(ln[4:] for ln in lines if ln.startswith("HLO ")))
+    read, out = reference_runs[(moe_shard, 16, "random")]
+    want = read["metrics"]
     hlo, gathers, slices = read["kinds"], read["gathers"], read["slices"]
     assert hlo.get("all-gather data", 0) > 0
     assert hlo.get("all-reduce model", 0) > 0
@@ -1030,10 +1168,7 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
                 + 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim) // 4
     assert gathers["weights"] == 2 * micro * cfg.n_layers * attn, gathers
     assert slices["sliced"] >= 4 and "reduce-scatter data" not in hlo
-    rparams = RLM(_jax_cfg(cfg)).init(jax.random.PRNGKey(0))
-    params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
-                                                         rparams),
-                             device="cpu", dtype=torch.float32)
+    params = _reference_params(cfg)
     model = TransformerLM(cfg, moe_group_size=16,
                           act_spec=P("data", None, None))
     mesh = _mesh((2, 2))
@@ -1070,16 +1205,34 @@ def test_tp2d_step_matches_the_reference_jitted_step(tmp_path, moe_shard):
             assert port // 4 == gathers["weights"] + gathers["rows"] \
                 == 122_880
             assert "norm_gather" not in mesh.bytes
-    whole = {k: gather(v) if isinstance(v, ShardedTensor) else v
-             for k, v in state.params.items() if k != "layers"}
-    whole["layers"] = [{k: (gather(v) if isinstance(v, ShardedTensor)
-                            else {n: gather(t) for n, t in v.items()})
-                        for k, v in lay.items()}
-                       for lay in state.params["layers"]]
-    got = _leaves_ref_layout(whole)
-    ref = np.load(out)
-    flips = 2 * TCFG.learning_rate * N_STEPS
-    assert sorted(k.replace(":", "/") for k in ref.files) == sorted(got)
-    for key in ref.files:
-        np.testing.assert_allclose(got[key.replace(":", "/")], ref[key],
-                                   rtol=1e-4, atol=flips)
+    _leaves_against_reference(state, out)
+
+
+@pytest.mark.parametrize("rows", ["same", "random"])
+@pytest.mark.parametrize("moe_shard", ["expert", "ffn"])
+def test_tp2d_group_across_batch_shards_matches_the_reference(
+        reference_runs, moe_shard, rows):
+    """Fault 8 against the reference's jitted ``tp2d`` step (the same
+    child): a MoE group of 64 tokens over the 2 shards of 32 of each
+    microbatch, routed once over them, 2 steps on 2 × 2 from the
+    reference's weights; losses, grad norms and every leaf to rtol
+    1e-4."""
+    cfg = _moe_shard(MOE16, moe_shard)
+    batches = _batches(cfg)
+    if rows == "same":
+        batches = _same_rows(batches)
+    read, out = reference_runs[(moe_shard, 64, rows)]
+    params = _reference_params(cfg)
+    model = TransformerLM(cfg, moe_group_size=64,
+                          act_spec=P("data", None, None))
+    mesh = _mesh((2, 2))
+    specs = state_specs_like(lm_param_specs(params, cfg, "tp2d"))
+    state = new_sharded_train_state(params, mesh, specs)
+    step = make_tp2d_train_step(model.loss, TCFG, mesh, specs,
+                                P("data", None), microbatches=2)
+    for b, (loss, gnorm) in zip(batches, read["metrics"]):
+        state, m = step(state, *b)
+        assert float(m["loss"]) == pytest.approx(loss, rel=1e-4)
+        assert float(m["grad_norm"]) == pytest.approx(gnorm, rel=1e-4)
+    assert mesh.bytes["moe_group_probs_grad"] > 0
+    _leaves_against_reference(state, out)
