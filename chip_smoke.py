@@ -309,9 +309,12 @@ Phases, each printed on its own lines:
     one-card run's tokens within them at every step; greedy tokens
     agreeing printed; two mesh runs bitwise equal; the bytes per
     collective and per receiving position: in (i) a decode step moves no
-    parameter (no ``all_gather``; ``emb_*`` the batch's ids and rows
-    only), in (ii)–(iv) a decode step's bytes and the ``tp2d`` prefills'
-    equal ``serve_tp2d_bytes_want`` by name, (ii)'s ``fsdp`` prefill's
+    parameter (no ``all_gather``; the lookup's looked-up rows only,
+    ``emb_rows_model`` and ``emb_rows_home`` as ``lookup_bytes`` works
+    them out), in (ii)–(iv) a decode step's bytes and the ``tp2d``
+    prefills' equal ``serve_tp2d_bytes_want`` by name (the lookup as the
+    reference's partitioner forms it, ``lookup_want``; one line a case
+    prints its bytes by name and axis), (ii)'s ``fsdp`` prefill's
     ``serve_fsdp_bytes_want``, the weights move along "data" only
     and the sums along "model" only (by axis, from ``Mesh.moves``); the
     launches exactly ``sharded_lm_launches``' (in (i) each of the 2
@@ -380,7 +383,9 @@ train launches, train-sharded's and train-sharded-tp2d's among them, both
 flash backward kernels too), the card line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line. ``--profile`` adds a device-time profile of one step of each
-served path.
+served path (on the mesh, the device and host time under each
+collective's range, the lookup's ``emb_*`` ranges summed on a line of
+their own).
 """
 
 from __future__ import annotations
@@ -1821,7 +1826,7 @@ def sharded_steps(tag, step, state, mesh, pipe, first: int, n: int,
                    tokens_per_s=tokens / dt,
                    peak_bytes=torch.cuda.max_memory_allocated(),
                    position_bytes=held, collective_bytes=dict(mesh.bytes),
-                   launches=got)
+                   lookup=lookup_by_axis(mesh), launches=got)
         rows.append(row)
         say(f"  {label} {tag} step {i} on {mesh.shape}: loss "
             f"{loss:.4f} grad_norm {gnorm:.4f} step {dt:.3f} s "
@@ -2601,6 +2606,40 @@ def hold_leaves(label, names, gaps, control):
     return dict(names=names, gaps=gaps, control=control, ratio=ratio)
 
 
+def lookup_want(shape, counts, rows: int, d: int, c: int, id_bytes: int,
+                kind: str) -> dict:
+    """The two-axis lookup's bytes (``embed``, blocks ``counts`` = (K, C)
+    over "model" and "data") of one batch split over "data" on a ("data",
+    "model") mesh of ``shape``, each position holding ``rows`` ids of its
+    batch shard (``id_bytes`` each), the rows ``d`` wide in a ``c``-byte
+    dtype, as the reference's partitioner forms it: on a square mesh the
+    ids permuted from (d, m) to (m, d) (``emb_ids_permute``), then every
+    position's ids gathered from the D − 1 other shards
+    (``emb_ids_gather``: along "model" after the permute, else along
+    "data"); each position's partial rows of its line's D shards in its
+    (V/K, d/C) block reduce-scattered and all-gathered over the K vocab
+    blocks' holders, 2(K − 1)/K of them into each (``emb_rows_model``);
+    its shard's rows of the C − 1 column blocks it does not hold from
+    their holders (``kind`` "train" or "prefill":
+    ``emb_rows_data``, the reference's all-to-all; "decode": the port's
+    re-layout, ``emb_rows_relayout``); in training the gradient rows
+    the same way back (``emb_grad_data``)."""
+    D, M = shape
+    N = D * M
+    K, C = counts
+    need = D if C > 1 else 1             # the shards a position looks up
+    out = {}
+    if D == M > 1 and C > 1:
+        out["emb_ids_permute"] = D * (M - 1) * rows * id_bytes
+    out["emb_ids_gather"] = N * (need - 1) * rows * id_bytes
+    out["emb_rows_model"] = N // K * 2 * (K - 1) * need * rows * d // C * c
+    name = "emb_rows_relayout" if kind == "decode" else "emb_rows_data"
+    out[name] = N * (C - 1) * rows * d // C * c
+    if kind == "train":
+        out["emb_grad_data"] = out[name]
+    return {k: v for k, v in out.items() if v}
+
+
 def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
     """Every collective's bytes of one ``make_tp2d_train_step`` step on a
     ("data", "model") mesh of ``shape``, the batch split over "data", one
@@ -2617,9 +2656,9 @@ def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
     ``group`` tokens spans batch shards its probabilities along "data"
     (``moe_group_probs``, their gradients back: ``moe_group_probs_grad``)
     and each position's dispatch rows from the others
-    (``moe_group_dispatch``), and the two-axis lookup
-    at each batch shard's first position, its rows delivered to the
-    shard's other positions, the forward's moves inside a layer again in
+    (``moe_group_dispatch``), and the two-axis lookup as the
+    reference's partitioner forms it (:func:`lookup_want`, the rows in the
+    compute dtype), the forward's moves inside a layer again in
     ``remat``'s recompute; per step the replicas' sums, the norm's 4-byte
     scalar from every position to every other (``norm_sum``) and AdamW's
     sends (f32)."""
@@ -2723,11 +2762,8 @@ def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
         out["xent_stats"] += rounds * N * (M - 1) * 12 * R
         out["tp_model_sum"] += rounds * allreduce(R * d, 4)
     emb = lay(params["embed"], specs["embed"])
-    K, C = emb.counts
-    out["emb_ids"] += rounds * D * (K * C - 1) * R * 4
-    out["emb_rows"] += rounds * D * ((K * C - 1) * R * d // C
-                                     + (M - 1) * R * d) * 4
-    out["emb_grad"] += rounds * D * (K * C - 1) * R * d // C * 4
+    for k, v in lookup_want(shape, emb.counts, R, d, c, 4, "train").items():
+        out[k] += rounds * v
     out["grad_psum"] += (D - 1) * 4 * direct
     out["loss_sum"] += rounds * N * (D - 1) * 8
     out["norm_sum"] += N * (N - 1) * 4
@@ -2778,8 +2814,9 @@ def serve_tp2d_bytes_want(cfg, shape, batch: int, seq: int, kind: str,
     shards, each position's router probabilities gathered along its
     line of the group's shards (``moe_group_probs``, f32) and the dispatch
     rows its experts read taken from the other shards' buffers
-    (``moe_group_dispatch``); the lookup at
-    each batch shard's first position, its rows delivered to the group; a
+    (``moe_group_dispatch``); the lookup as the reference's partitioner
+    forms it (:func:`lookup_want`; a decode step's rows re-laid out into
+    the port's batch shards, ``emb_rows_relayout``); a
     decode step's attention partials crossing "model" (``attn_partial``);
     a prefill's cache blocks filled with the heads their position did not
     compute (``cache_scatter``); the batch shards' logits to position 0
@@ -2895,9 +2932,7 @@ def serve_tp2d_bytes_want(cfg, shape, batch: int, seq: int, kind: str,
         product(params["head"], specs["head"], Bd, True)
     out["logits_gather"] += (D - 1) * Bd * V * c
     emb = Layout(mesh, specs["embed"], params["embed"].shape)
-    K, C = emb.counts
-    out["emb_ids"] += D * (K * C - 1) * R * id_bytes
-    out["emb_rows"] += D * ((K * C - 1) * R * d // C + (M - 1) * R * d) * c
+    out.update(lookup_want(shape, emb.counts, R, d, c, id_bytes, kind))
     cache = Layout(mesh, lm_cache_specs(False, 16), (L, batch, capacity, KV,
                                                      hd))
     Sb = cache.block_shape[2]
@@ -3138,6 +3173,8 @@ def phase_train_sharded_tp2d(train_smol: dict, profile: bool = False):
         peak = max(r["peak_bytes"] for r in rows)
         busiest = max(max(r["position_bytes"]) for r in rows)
         warm, card = rows[-1], one_card["step_s"][1]
+        say(f"  train-sharded-tp2d {tag}: the lookup's bytes a step by "
+            f"name and axis {rows[0]['lookup']}")
         say(f"  train-sharded-tp2d {tag}: (loss, grad_norm) {got}; one card "
             f"{want[:len(got)]}; relative differences {rel} (bounds "
             f"{TP_TRAIN_LOSS_RTOL}, {TP_TRAIN_NORM_RTOL}); warm step "
@@ -3610,6 +3647,14 @@ class CollectiveProfiler(StepProfiler):
         say(f"  profile {self.label}: each range's device interval (gaps "
             f"included): " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in
                                        sorted(interval.items())))
+        emb = [k for k in self.spans if k.startswith("emb_")]
+        self.record["lookup_ms"] = dict(
+            host=sum(host[k] for k in emb),
+            device=sum(self.spans[k][0] for k in emb))
+        say(f"  profile {self.label}: the lookup's ranges "
+            f"({', '.join(sorted(emb)) or 'none'}): host "
+            f"{self.record['lookup_ms']['host']:.3f} ms, device "
+            f"{self.record['lookup_ms']['device']:.3f} ms")
 
 
 def check_results(stats_deltas, where: str) -> int:
@@ -6032,6 +6077,7 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
     out["prefill_s"] = time.perf_counter() - t0
     out["prefill_bytes"] = dict(mesh.bytes)
     out["prefill_axes"] = moves_by_axis(mesh)
+    out["prefill_lookup"] = lookup_by_axis(mesh)
     del pre
     torch.cuda.empty_cache()
     if placed is None:
@@ -6049,6 +6095,7 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
         if i == 0:
             out["step_bytes"] = dict(mesh.bytes)
             out["step_axes"] = moves_by_axis(mesh)
+            out["step_lookup"] = lookup_by_axis(mesh)
             out["step_received"] = [mesh.received.get(p, 0)
                                     for p in range(mesh.size)]
         logits.append(lg)
@@ -6062,16 +6109,17 @@ def sharded_serve(model, cfg, params, prompt, n_tokens: int, mesh,
     out["launches"] = read_all_counts()
     out["logits"], out["picked"] = logits, picked
     out["cache_spec"] = repr(cache[0].spec)
-    out["lookup_bytes"] = lookup_bytes(placed["embed"], mesh, bspec, B)
+    out["lookup_bytes"] = lookup_bytes(
+        placed["embed"], mesh, bspec, B,
+        torch.empty((), dtype=model.compute_dtype).element_size())
     del placed, cache
     torch.cuda.empty_cache()
     return out
 
 
-# a tp2d decode step with the batch whole moves activations, the batch's
-# ids and looked-up rows, the KV cache's new entries and the logits; a
-# parameter never
-TP_ACTIVATIONS = {"tp_act", "tp_partial", "emb_ids", "emb_rows",
+# a tp2d decode step with the batch whole moves activations, the looked-up
+# rows, the KV cache's new entries and the logits; a parameter never
+TP_ACTIVATIONS = {"tp_act", "tp_partial", "emb_rows_model", "emb_rows_home",
                   "expert_send", "kv_write", "q_send", "attn_partial",
                   "logits_gather"}
 # with the batch split: weights along "data", sums along "model"
@@ -6092,29 +6140,45 @@ def moves_by_axis(mesh) -> dict:
     return dict(sorted(out.items()))
 
 
-def lookup_bytes(embed, mesh, bspec, B: int) -> dict:
-    """``emb_ids`` and ``emb_rows`` of one decode step's lookup of B int32
-    tokens in the placed (V, d) table: each batch shard's ids go to every
-    block held away from its home, which sends back its column block of
-    the rows. A block serves a home from the holder that shares the
-    home's coordinates on the mesh axes the table's spec leaves out
-    (worked out here from the mesh's coordinates, not by the port)."""
+def lookup_by_axis(mesh) -> dict:
+    """The lookup's bytes (the ``emb_*`` collectives) since the mesh's last
+    reset by ``"name axis"``: the mesh axes its source and receiver differ
+    on, joined by "+" (the moves that name both ends)."""
+    out = {}
+    for (name, frm, to), n in mesh.moves.items():
+        if name.startswith("emb_"):
+            a, b = mesh.coords(frm), mesh.coords(to)
+            ax = "+".join(x for x in mesh.axis_names if a[x] != b[x])
+            out[f"{name} {ax}"] = out.get(f"{name} {ax}", 0) + n
+    return dict(sorted(out.items()))
+
+
+def lookup_bytes(embed, mesh, bspec, B: int, c: int) -> dict:
+    """``emb_rows_model`` and ``emb_rows_home`` of one decode step's lookup
+    of B tokens in the placed (V, d) table with the batch whole, the rows
+    in a ``c``-byte dtype: every position looks the batch up in its block,
+    and each "model" line of K vocab blocks reduce-scatters and
+    all-gathers the partial rows (2(K − 1) positions' worth in all); each
+    home takes its rows of each column block it does not hold from its
+    "data" line (worked out here from the mesh's coordinates, not by the
+    port)."""
     from repro_torch.distrib.collectives import batch_groups
     homes, _ = batch_groups(mesh, bspec[0])
     lay = embed.layout
-    used = {a for axes in lay.axes for a in axes}
-    free = [a for a in mesh.axis_names if a not in used]
+    e = lay.block_shape[1]
 
-    def server(block, home):
-        c = mesh.coords(home)
-        (p,) = [p for p in lay.holders(block)
-                if all(mesh.coords(p)[a] == c[a] for a in free)]
-        return p
-    remote = sum(server(b, h) != h for h in homes for b in lay.blocks())
-    Bd = B // len(homes)
-    return {"emb_ids": remote * Bd * 4,
-            "emb_rows": remote * Bd * lay.block_shape[1]
-            * embed.shards[0].element_size()}
+    def line(p, axis):
+        c0 = mesh.coords(p)
+        return [q for q in range(mesh.size)
+                if all(mesh.coords(q)[a] == c0[a] for a in mesh.axis_names
+                       if a != axis)]
+    lines = {tuple(line(p, "model")) for p in range(mesh.size)}
+    model = sum(2 * (len({lay.block_of(q)[0] for q in ln}) - 1)
+                for ln in lines) * B * e * c
+    home = sum(len({lay.block_of(q)[1] for q in line(h, "data")}) - 1
+               for h in homes) * (B // len(homes)) * e * c
+    return {k: v for k, v in (("emb_rows_model", model),
+                              ("emb_rows_home", home)) if v}
 
 
 def sharded_lm_launches(cfg, mesh, n_tok: int, wide: bool,
@@ -6170,7 +6234,7 @@ def phase_serve_sharded_lm(profile: bool = False):
     the greedy tokens that agree printed; two runs on the mesh bitwise
     equal. The prefill's and one decode step's bytes per collective, by
     axis and per receiving position are printed: in (i) no parameter
-    moves (no ``all_gather``; ``emb_*`` the batch's ids and rows only); in
+    moves (no ``all_gather``; the lookup's rows only); in
     (ii)–(iv) they equal :func:`serve_tp2d_bytes_want` by name (the
     ``fsdp`` prefill of (ii) :func:`serve_fsdp_bytes_want`), the weights
     move along "data" only and the sums along "model" only. The
@@ -6305,6 +6369,9 @@ def phase_serve_sharded_lm(profile: bool = False):
             f"{a['decode_bytes']}; one decode step {step} = "
             f"{sum(step.values())} B, received per position "
             f"{a['step_received']}; launches {launches}")
+        say(f"  serve-sharded-lm ({tag}) the lookup's bytes by name and "
+            f"axis: prefill {a['prefill_lookup']}; one decode step "
+            f"{a['step_lookup']}")
         say(f"  serve-sharded-lm ({tag}) bytes by name and axis (the moves "
             f"that name both ends): prefill {a['prefill_axes']}; one decode "
             f"step {a['step_axes']}"
@@ -6360,9 +6427,10 @@ def phase_serve_sharded_lm(profile: bool = False):
                   and step.get("tp_act", 0) > 0,
                   f"serve-sharded-lm ({tag}): a decode step moved {step}, "
                   f"not activations only")
-            check(all(step[k] == v for k, v in a["lookup_bytes"].items()),
-                  f"serve-sharded-lm ({tag}): the lookup moved {step}, not "
-                  f"the batch's ids and rows {a['lookup_bytes']}")
+            got = {k: v for k, v in step.items() if k.startswith("emb_")}
+            check(got == a["lookup_bytes"],
+                  f"serve-sharded-lm ({tag}): the lookup moved {got}, not "
+                  f"the batch's rows {a['lookup_bytes']}")
         for run in (a, b):
             got = {k: v for k, v in run["launches"].items() if v}
             check(got == want_launches,
@@ -6445,6 +6513,8 @@ def serve_sharded_fault6(mesh) -> dict:
     mesh.reset_bytes()
     dlg, _ = decode(placed, token, cache, S)
     step = dict(mesh.bytes)
+    say(f"  serve-sharded-lm (v) the lookup's bytes by name and axis: "
+        f"decode step {lookup_by_axis(mesh)}")
     want = serve_tp2d_bytes_want(cfg, mesh.shape, B, S, "decode", group,
                                  S + 4, token.element_size())
     errs = [float((a - b).abs().max() / b.abs().max())
@@ -6507,6 +6577,9 @@ def serve_sharded_fault7(mesh, total: dict) -> dict:
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
     got_bytes = dict(mesh.bytes)
+    say(f"  serve-sharded-lm (vi) the lookup's bytes by name and axis "
+        f"(the fsdp prefill gathers its table whole: none expected): "
+        f"prefill {lookup_by_axis(mesh)}")
     del cache, placed
     torch.cuda.empty_cache()
     bytes_want = serve_fsdp_bytes_want(cfg, mesh.shape, B, S, group, S)

@@ -9,7 +9,10 @@ Each one adds the bytes it moves between positions to ``mesh.bytes``
 under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``node_send``, ``user_send``, ``grad_psum``, ``grad_send``,
 ``norm_gather``, ``reshard``, ``edge_psum``, ``edge_gather``,
-``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``, ``tp_act``,
+``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``,
+``emb_ids_permute``, ``emb_ids_gather``, ``emb_rows_model``,
+``emb_rows_data``, ``emb_rows_relayout``, ``emb_rows_home``,
+``emb_grad_data``, ``emb_grad_home``, ``tp_act``,
 ``tp_partial``, ``tp_grad_act``, ``tp_grad_partial``, ``xent_stats``,
 ``tp_zero_gather``, ``tp_zero_scatter``, ``tp_model_sum``,
 ``tp_heads_gather``, ``expert_gather``, ``tp_rows_gather``,
@@ -32,8 +35,10 @@ device; the gather's backward hands each block its slice of the gradient.
 (:func:`send`) and brings the products back. ``take_rows`` and
 ``take_along_fields`` look rows up in a table split along its rows (BST's
 item table) or its vocab axis (its user tables) where the rows lie, so the
-table is never gathered whole; a table split on its rows and its columns
-(the LM's ``embed`` under ``tp2d``) is looked up where its blocks lie too.
+table is never gathered whole. The LM's ``embed`` under ``tp2d``, split on
+its rows over "model" and its columns over "data", is looked up as the
+reference's partitioner forms the lookup (:func:`take_rows_two_axis`,
+through ``TPView.take_rows`` and ``StationaryView.take_rows``).
 With ``grad=False`` (the sharded serving steps under ``fsdp``) a view reads
 the shards as they are.
 
@@ -105,6 +110,9 @@ from repro_torch.sparse.segment import (from_end, segment_sum,
 SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "user_send", "grad_psum", "norm_gather", "adamw", "edge_psum",
          "edge_gather", "edge_scatter", "emb_ids", "emb_rows", "emb_grad",
+         "emb_ids_permute", "emb_ids_gather", "emb_rows_model",
+         "emb_rows_data", "emb_rows_relayout", "emb_rows_home",
+         "emb_grad_data", "emb_grad_home",
          "tp_act", "tp_partial", "tp_grad_act", "tp_grad_partial",
          "xent_stats", "tp_zero_gather", "tp_zero_scatter", "tp_model_sum",
          "tp_heads_gather", "expert_gather", "tp_rows_gather",
@@ -273,26 +281,6 @@ def _select_rows(mesh, home: int, dim: int, n: int, ids, sources,
     return out, offsets
 
 
-def take_rows_2d(mesh, home: int, n: int, ids: torch.Tensor,
-                 grid: Sequence[Tuple[Sequence[int], Sequence[torch.Tensor]]]
-                 ) -> torch.Tensor:
-    """``sparse.segment.take_rows`` of an (n, e) table split into K row
-    blocks and C column blocks, where the blocks lie: ``grid[c]`` holds
-    column block c's K blocks and their positions, in row order. Each
-    column block is one :class:`_Lookup` of its K row blocks: the ids go to
-    the row blocks' holders (``emb_ids``), which send back their column
-    block of the rows (``emb_rows``); the home selects each row from its
-    row block (never by a sum, so a −0.0 row stays −0.0) and joins the
-    column blocks in order: the whole table's ``take_rows`` bit for bit.
-    The backward sends each holder its column block of the gradient rows
-    (``emb_grad``), summed there as the unsharded lookup's backward sums
-    them."""
-    cols = [_Lookup.apply(mesh, home, 0, n, ids, tuple(sources), *parts)
-            for sources, parts in grid]
-    with mesh.at(home):
-        return cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
-
-
 class _Lookup(torch.autograd.Function):
     """Rows of a table split into K equal blocks along ``dim`` (0: rows,
     ``take_rows``; 1: the vocab axis of (F, V, e) tables,
@@ -303,15 +291,11 @@ class _Lookup(torch.autograd.Function):
     the row of the block that owns it — a select, never a sum, so a −0.0
     row stays −0.0 — and an id outside ``[-n, n)`` gives a NaN row. The
     backward sends each holder the gradient rows in the home's order
-    (``emb_grad``); the holder sums them by :func:`segment_sum` over the
-    ids' offsets in its block: the sorted accumulating ``index_put_`` (on
-    the CPU, ``index_add``) that the unsharded lookup's backward runs, over
-    the same rows in the same order. The ids of other blocks go to rows of
-    their own past the block, which are dropped: routed to one row they
-    would be that row's duplicates, which CUDA's sorted ``index_put_`` adds
-    one after another. Every id goes to every holder, so the traffic does
-    not depend on the ids' values and a meta run counts what a run with
-    values does."""
+    (``emb_grad``); the holder sums them into its block
+    (:func:`_block_grad`), over the same rows in the same order as the
+    unsharded lookup's backward. Every id goes to every holder, so the
+    traffic does not depend on the ids' values and a meta run counts what
+    a run with values does."""
 
     @staticmethod
     def forward(ctx, mesh, home: int, dim: int, n: int, ids, sources,
@@ -343,12 +327,341 @@ class _Lookup(torch.autograd.Function):
                 if dim == 1:
                     fields = torch.arange(local.shape[-1], device=dev)
                     local = fields * rows + local
-                spread = n + torch.arange(local.numel(), device=dev)
-                ids = torch.where(inside.reshape(-1), local.reshape(-1),
-                                  spread)
-                g = segment_sum(g, ids, n + local.numel())[:n]
+                g = _block_grad(g, local, inside, n)
                 out.append(g.reshape(ctx.part_shapes[len(out)]))
         return (None, None, None, None, None, None, *out)
+
+
+def _block_grad(g: torch.Tensor, local: torch.Tensor, inside: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """The gradient of a block of ``n`` table rows from the gradient rows
+    ``g`` of ids at ``local`` offsets in it: one :func:`segment_sum` in
+    the rows' order, the sorted accumulating ``index_put_`` (on the CPU,
+    ``index_add``) of the unsharded lookup's backward. The ids not
+    ``inside`` the block go to rows of their own past it, which are
+    dropped: routed to one row they would be that row's duplicates, which
+    CUDA's sorted ``index_put_`` adds one after another."""
+    local = local.reshape(-1)
+    spread = n + torch.arange(local.numel(), device=local.device)
+    return segment_sum(g.reshape(-1, g.shape[-1]),
+                       torch.where(inside.reshape(-1), local, spread),
+                       n + local.numel())[:n]
+
+
+# -- the two-axis lookup as the reference's partitioner forms it --------------
+#
+# ``embed`` under ``tp2d`` lies as P("model", "data"): vocab block k and column
+# block c at the position with "model" coordinate k and "data" coordinate c.
+# The reference looks it up as ``params["embed"].astype(cd)[tokens]``, pinned
+# to the batch's layout in the forward and the prefill, not pinned at a decode
+# step. Its compiled HLO on a 2 x 2 ("data", "model") mesh, and the train
+# step's on 4 x 4 and 1 x 4 (read by ``tests/test_torch_tp_train.py`` and
+# ``tests/test_torch_tp_serve.py``, the lookup's collectives told apart by
+# their op and source line) forms it so:
+#
+# * the batch split over "data", pinned (the train step's forward, a
+#   prefill): the ids permuted from (d, m) to (m, d) (collective-permute),
+#   then gathered along "model" (all-gather), so every position holds the
+#   whole microbatch's ids; each position takes the rows of its own (V/M,
+#   d/D) block, masked, in the compute dtype; the partial rows all-reduced
+#   over "model" (here a reduce-scatter and an all-gather, each entry
+#   selected from the block that owns its row); the rows exchanged along
+#   "data" (all-to-all), after which each batch shard holds its own rows
+#   whole. The backward: the gradient rows exchanged along "data"
+#   (all-to-all), then a scatter-add into each position's own block, no
+#   other collective. On a 2 x 1 mesh the ids are gathered along "data"
+#   instead (no permute, no all-reduce); on 1 x M only the all-reduce over
+#   "model" is left.
+# * the batch split, not pinned (a decode step): the same ids and
+#   all-reduce, no all-to-all: each position is left with the whole batch's
+#   rows of its column block.
+# * the batch whole: the ids are every chip's already; only the all-reduce
+#   over "model", the columns left split over "data".
+
+
+class _LookupPlan(NamedTuple):
+    """Where :class:`_TwoAxisLookup` moves what, per position: the batch
+    shards whose ids it looks up (``need``, in batch order), where each
+    needed shard's ids come from as hops ``(name, from, to)``
+    (``ids``), the position of each vocab block its fold selects from
+    (``fold``, in vocab block order), and per output position, the
+    position that serves each column block of its rows (``serve``)."""
+    need: Tuple[Tuple[int, ...], ...]
+    ids: Tuple[Tuple[Tuple[Tuple[str, int, int], ...], ...], ...]
+    fold: Tuple[Tuple[int, ...], ...]
+    serve: Dict[int, Tuple[int, ...]]
+
+
+def _line(mesh, pos: int, axis: str) -> List[int]:
+    """The positions that differ from ``pos`` on ``axis`` only, in
+    ascending ``axis`` coordinate (``pos`` alone without that axis)."""
+    if axis not in mesh.axis_names:
+        return [pos]
+    c = dict(mesh.coords(pos))
+    out = []
+    for i in range(mesh.axis_size(axis)):
+        c[axis] = i
+        out.append(_position(mesh, c))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _lookup_plan(mesh, spec, shape: Tuple[int, ...],
+                 shard: Tuple[int, ...], outs: Tuple[int, ...],
+                 whole: bool) -> _LookupPlan:
+    """The :class:`_LookupPlan` of a table ``shape`` under ``spec`` on
+    ``mesh``, position p holding batch shard ``shard[p]``'s ids (with
+    ``whole``, every shard's, placed by the step), the rows wanted at
+    ``outs``. A position looks up the shards of its "data" line (with
+    ``whole``, all of them), which a position then serves to the outputs
+    on that line; the ids come the reference's way: permuted and gathered
+    along "model" on a square ("data", "model") mesh with the batch over
+    "data", else gathered along "data"."""
+    lay = Layout(mesh, spec, shape)
+    n_shards = max(shard) + 1
+    own = [lay.block_of(p) for p in range(mesh.size)]
+    C = lay.counts[1]
+    need, ids, fold = [], [], []
+    square = (mesh.axis_names == ("data", "model") and not whole
+              and mesh.shape[0] == mesh.shape[1] > 1 and C > 1
+              and all(shard[p] == mesh.coords(p)["data"]
+                      for p in range(mesh.size)))
+    for p in range(mesh.size):
+        if whole:
+            mine = tuple(range(n_shards))
+        elif C > 1:
+            mine = tuple(sorted({shard[q] for q in _line(mesh, p, "data")}))
+        else:
+            mine = (shard[p],)
+        need.append(mine)
+        hops = []
+        for s in mine:
+            if whole or (s == shard[p] and not square):
+                hops.append(())
+            elif square:
+                # (d, m) holds shard m after the permute; shard s comes
+                # from (d, s), which took it from (s, d)
+                c = mesh.coords(p)
+                mid = _position(mesh, {"data": c["data"], "model": s})
+                src = _position(mesh, {"data": s, "model": c["data"]})
+                hops.append(tuple(h for h in (
+                    ("emb_ids_permute", src, mid),
+                    ("emb_ids_gather", mid, p)) if h[1] != h[2]))
+            else:
+                src = next(q for q in _line(mesh, p, "data")
+                           if shard[q] == s)
+                hops.append((("emb_ids_gather", src, p),))
+        ids.append(tuple(hops))
+        peers = _line(mesh, p, "model")
+        fold.append(tuple(
+            p if own[p][0] == k else
+            next(q for q in peers if own[q] == (k, own[p][1]))
+            for k in range(lay.counts[0])))
+    serve = {}
+    for o in outs:
+        line = _line(mesh, o, "data")
+        serve[o] = tuple(o if own[o][1] == c else
+                         next(q for q in line if own[q][1] == c)
+                         for c in range(C))
+        if any(shard[o] not in need[q] for q in serve[o]):
+            raise ValueError(f"lookup: position {o}'s rows are not looked "
+                             f"up on its 'data' line")
+    return _LookupPlan(tuple(need), tuple(ids), tuple(fold), serve)
+
+
+class _TwoAxisLookup(torch.autograd.Function):
+    """:func:`take_rows_two_axis`; the inputs are every position's
+    block."""
+
+    @staticmethod
+    def forward(ctx, mesh, lay, plan: _LookupPlan, held, dtype,
+                names: Tuple[str, str], grad_outs, *leaves):
+        n, rows = lay.shape[0], lay.block_shape[0]
+        own = [lay.block_of(p) for p in range(mesh.size)]
+        # the ids each position looks up, moved along their hops (a hop
+        # that several positions' ids share, the permute, moves once)
+        at: Dict[Tuple[int, int], torch.Tensor] = {}
+        moved: Dict[Tuple[str, int, int, int], torch.Tensor] = {}
+        for p, hops_p in enumerate(plan.ids):
+            for s, hops in zip(plan.need[p], hops_p):
+                t = held[hops[0][1] if hops else p][s]
+                for name, frm, to in hops:
+                    key = (name, s, frm, to)
+                    if key not in moved:
+                        with span(name), mesh.at(to), mesh.moving():
+                            mesh.count(name, _nbytes(t), frm=frm, to=to)
+                            moved[key] = t.to(mesh.device(to), copy=True)
+                    t = moved[key]
+                at[(s, p)] = t
+        del moved
+        j, parts, local = [], [], []
+        for p in range(mesh.size):
+            with mesh.at(p):
+                idx = torch.cat([at[(s, p)] for s in plan.need[p]])
+                j.append(from_end(idx, n))
+                local.append(j[p] - own[p][0] * rows)
+                parts.append(leaves[p][local[p].clamp(0, rows - 1)]
+                             .to(dtype))
+        del at
+        # the fold over "model", formed as an all-reduce's reduce-scatter
+        # and all-gather: the flattened partial rows cut into K chunks,
+        # chunk k folded at vocab block k's holder from every block's
+        # chunk (each entry from the block that owns its row: a select,
+        # never a sum, so a −0.0 row stays −0.0), then every folded chunk
+        # sent to the line's other positions
+        folded = [None] * mesh.size
+        for srcs in dict.fromkeys(plan.fold):
+            K, T = len(srcs), parts[srcs[0]].numel()
+            cut = [k * T // K for k in range(K + 1)]
+            flat = [parts[q].reshape(-1) for q in srcs]
+            chunks = []
+            for k, dst in enumerate(srcs):
+                lo, size = cut[k], cut[k + 1] - cut[k]
+                with mesh.at(dst):
+                    e = parts[dst].shape[-1]
+                    owner = (j[dst] // rows).reshape(-1, 1).expand(-1, e) \
+                        .reshape(-1).narrow(0, lo, size)
+                    out = flat[k].narrow(0, lo, size)
+                for i, q in enumerate(srcs):
+                    if q == dst or not size:
+                        continue
+                    with span("emb_rows_model"), mesh.at(dst), \
+                            mesh.moving():
+                        piece = flat[i].narrow(0, lo, size)
+                        mesh.count("emb_rows_model", _nbytes(piece), frm=q,
+                                   to=dst)
+                        piece = piece.to(mesh.device(dst))
+                    with mesh.at(dst):
+                        out = torch.where(owner == i, piece, out)
+                chunks.append(out)
+            for p in srcs:
+                pieces = []
+                for q, ch in zip(srcs, chunks):
+                    if q != p and ch.numel():
+                        with span("emb_rows_model"), mesh.at(p), \
+                                mesh.moving():
+                            mesh.count("emb_rows_model", _nbytes(ch), frm=q,
+                                       to=p)
+                            ch = ch.to(mesh.device(p))
+                    pieces.append(ch)
+                with mesh.at(p):
+                    out = torch.cat(pieces).reshape(parts[p].shape)
+                    valid = (j[p] >= 0) & (j[p] < n)
+                    folded[p] = out.masked_fill(~valid[..., None],
+                                                float("nan"))
+        del parts, flat, chunks
+        # each output's batch shard, its column blocks from the positions
+        # of its "data" line that hold them
+        name = names[0]
+        results = []
+        for o, srcs in plan.serve.items():
+            s = _shard_of(plan, held, o)
+            pieces = []
+            for q in srcs:
+                b = folded[q].shape[0] // len(plan.need[q])
+                lo = plan.need[q].index(s) * b
+                piece = folded[q].narrow(0, lo, b)
+                if q != o:
+                    with span(name), mesh.at(o), mesh.moving():
+                        mesh.count(name, _nbytes(piece), frm=q, to=o)
+                        piece = piece.to(mesh.device(o))
+                pieces.append(piece)
+            with mesh.at(o):
+                results.append(pieces[0].clone() if len(pieces) == 1
+                               else torch.cat(pieces, dim=-1))
+        ctx.mesh, ctx.lay, ctx.plan, ctx.grad_name = mesh, lay, plan, \
+            names[1]
+        ctx.shards = [_shard_of(plan, held, o) for o in plan.serve]
+        ctx.leaf_dtypes = [t.dtype for t in leaves]
+        ctx.save_for_backward(*local)
+        ctx.mark_non_differentiable(*(r for o, r in zip(plan.serve, results)
+                                      if o not in grad_outs))
+        ctx.set_materialize_grads(False)
+        return tuple(results)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, lay, plan = ctx.mesh, ctx.lay, ctx.plan
+        rows, e = lay.block_shape
+        outs = list(plan.serve)
+        local = ctx.saved_tensors
+        need = ctx.needs_input_grad[7:]
+        result = [None] * mesh.size
+        name = ctx.grad_name
+        for p in range(mesh.size):
+            if not need[p]:
+                continue
+            c = lay.block_of(p)[1]
+            line = set(_line(mesh, p, "data"))
+            pieces, any_grad = [], False
+            for s in plan.need[p]:
+                mine = [o for o, so, g in zip(outs, ctx.shards, grads)
+                        if so == s and g is not None]
+                near = [o for o in mine if o in line]
+                o = (near or mine or [None])[0]
+                if o is None:
+                    pieces.append(None)
+                    continue
+                g = grads[outs.index(o)].narrow(-1, c * e, e)
+                with span(name), mesh.at(p), mesh.moving():
+                    if o != p:
+                        mesh.count(name, _nbytes(g), frm=o, to=p)
+                    g = g.to(mesh.device(p), copy=True)
+                pieces.append(g)
+                any_grad = True
+            if not any_grad:
+                continue
+            with mesh.at(p):
+                like = next(g for g in pieces if g is not None)
+                g = torch.cat([torch.zeros_like(like) if g is None
+                               else g for g in pieces])
+                inside = (local[p] >= 0) & (local[p] < rows)
+                result[p] = _block_grad(g, local[p], inside, rows).to(
+                    ctx.leaf_dtypes[p]).reshape(lay.block_shape)
+        return (None,) * 7 + tuple(result)
+
+
+def _shard_of(plan: _LookupPlan, held, o: int) -> int:
+    """The batch shard whose rows output position ``o`` takes: the one
+    its ids are, or with every shard at every position, ``o``'s place
+    among the outputs."""
+    if len(held[o]) == 1:
+        return next(iter(held[o]))
+    return list(plan.serve).index(o)
+
+
+def take_rows_two_axis(x: ShardedTensor, leaves, held, shard, outs,
+                       dtype, names: Tuple[str, str], grad_outs=(),
+                       whole: bool = False) -> List[torch.Tensor]:
+    """``sparse.segment.take_rows`` of the (n, e) table ``x`` in ``dtype``
+    (the cast table's rows, bit for bit), formed as the reference's
+    partitioner forms its lookup (see above): ``held[p]`` maps the batch
+    shards whose ids position p holds to them (``shard[p]`` its own; with
+    ``whole`` every shard, placed there by the step). The ids move to the
+    positions that look them up (``emb_ids_permute``,
+    ``emb_ids_gather``); each position takes its own block's rows
+    (``leaves[p]``) of the whole batch of its "data" line; the partial
+    rows cross "model" as an all-reduce's reduce-scatter and all-gather
+    move them (``emb_rows_model``: 2(K − 1)/K of a position's partial rows
+    into each position of a line of K vocab blocks), each entry selected
+    at its chunk's owner from the block that owns its row (an id outside
+    ``[-n, n)`` gives a NaN row); each output position in ``outs`` takes
+    its shard's rows of each column block from the position of its "data"
+    line that holds it (``names[0]``). The rows at ``outs``, in order.
+
+    The backward (from the outputs in ``grad_outs``; the others take no
+    gradient): each block's holder takes its column block of every
+    looked-up shard's gradient rows from that shard's output on its
+    "data" line (``names[1]``; else the shard's first output), in batch
+    order, and sums them by one :func:`segment_sum` into its block in
+    ``dtype`` (then the leaf's dtype): the order of one device's
+    ``take_rows`` backward over the same batch, not a sum per batch
+    shard."""
+    mesh = x.mesh
+    plan = _lookup_plan(mesh, x.spec, tuple(x.shape), tuple(shard),
+                        tuple(outs), whole)
+    return list(_TwoAxisLookup.apply(mesh, x.layout, plan, held, dtype,
+                                     names, frozenset(grad_outs), *leaves))
 
 
 class Blocks(NamedTuple):
@@ -427,13 +740,6 @@ class ShardView:
     def _lookup(self, ids: torch.Tensor, dim: int) -> torch.Tensor:
         lay = self.x.layout
         order = sorted(self.proxies)
-        if dim == 0 and len(lay.counts) == 2 and lay.counts[1] > 1:
-            K, C = lay.counts
-            grid = [([self.sources[(k, c)] for k in range(K)],
-                     [self.proxies[(k, c)] for k in range(K)])
-                    for c in range(C)]
-            return take_rows_2d(self.x.mesh, self.home, lay.shape[0], ids,
-                                grid)
         if lay.counts[dim] == 1 or any(
                 c != 1 for i, c in enumerate(lay.counts) if i != dim):
             whole = self.full()
@@ -507,8 +813,8 @@ class StationaryView:
     there; otherwise the shard itself. ``.T`` shares the leaves."""
 
     def __init__(self, x: ShardedTensor, transposed: bool = False,
-                 grad: bool = False, leaves=None):
-        self.x, self.transposed = x, transposed
+                 grad: bool = False, leaves=None, ids=None):
+        self.x, self.transposed, self.ids = x, transposed, ids
         used = {a for axes in x.layout.axes for a in axes}
         self._free = [a for a in x.mesh.axis_names if a not in used]
         if leaves is None:
@@ -588,22 +894,38 @@ class StationaryView:
         return Blocks([self.leaves[p] for p in pos], pos, home,
                       self.x.mesh, split[0])
 
-    def take_rows(self, ids: Rows) -> Rows:
-        """``sparse.segment.take_rows`` of the (n, e) table at each batch
-        shard's ids, the rows looked up where the blocks lie
-        (:func:`take_rows_2d`)."""
+    def take_rows(self, ids: Rows, dtype: torch.dtype = None) -> Rows:
+        """``sparse.segment.take_rows`` of the (n, e) table in ``dtype``
+        (default the table's) at each batch shard's ids, formed as the
+        reference's partitioner forms its lookup with the batch whole
+        (:func:`take_rows_two_axis`): every position looks the whole batch
+        up in its own block (the batch's ids at every position, placed by
+        the step: ``ids`` at construction, as the reference's
+        ``in_shardings`` replicate them), the partial rows cross "model"
+        (``emb_rows_model``), and each home takes its rows of each column
+        block from the position of its "data" line that holds it
+        (``emb_rows_home``: the port's rows live at the homes, where the
+        reference leaves the columns split over "data"; the backward's
+        gradient rows go the other way, ``emb_grad_home``)."""
         lay = self.x.layout
         if self.transposed or len(lay.counts) != 2:
             raise ValueError(f"take_rows of {self.x!r}: not an (n, e) table")
-        K, C = lay.counts
-        out = []
-        for idx, home in zip(ids.parts, ids.homes):
-            grid = []
-            for c in range(C):
-                pos = [self.holder((k, c), home) for k in range(K)]
-                grid.append((pos, [self.leaves[p] for p in pos]))
-            out.append(take_rows_2d(ids.mesh, home, lay.shape[0], idx, grid))
-        return Rows(out, ids.homes, ids.mesh)
+        if self.ids is None:
+            raise ValueError(f"take_rows of {self.x!r}: the step places the "
+                             f"batch's ids at every position "
+                             f"(StationaryView(..., ids=...))")
+        mesh, D = ids.mesh, len(ids.homes)
+        Bd = ids.parts[0].shape[0]
+        held = [{s: t[s * Bd:(s + 1) * Bd] for s in range(D)}
+                for t in self.ids]
+        shard = [0] * mesh.size
+        for s, h in enumerate(ids.homes):
+            shard[h] = s
+        out = take_rows_two_axis(
+            self.x, self.leaves, held, shard, ids.homes,
+            dtype or self.x.dtype, ("emb_rows_home", "emb_grad_home"),
+            ids.homes, whole=True)
+        return Rows(out, ids.homes, mesh)
 
     def _columns(self, pos: int, j: int, width: int) -> int:
         """Where entries ``j·width … (j+1)·width − 1`` of this 1-D leaf
@@ -1221,16 +1543,18 @@ class TPView(StationaryView):
 
     def __init__(self, x: ShardedTensor, groups: Sequence[Sequence[int]],
                  transposed: bool = False, leaves=None,
-                 move_rows: bool = False, training: bool = True):
+                 move_rows: bool = False, training: bool = True,
+                 pinned: bool = True):
         super().__init__(x, transposed, grad=leaves is None, leaves=leaves)
         self.groups = tuple(tuple(g) for g in groups)
         self.shard = {p: d for d, g in enumerate(self.groups) for p in g}
         self.move_rows, self.training = move_rows, training
+        self.pinned = pinned
 
     @property
     def T(self) -> "TPView":
         return TPView(self.x, self.groups, not self.transposed, self.leaves,
-                      self.move_rows, self.training)
+                      self.move_rows, self.training, self.pinned)
 
     @classmethod
     def serving(cls, x: ShardedTensor, groups: Sequence[Sequence[int]],
@@ -1243,11 +1567,14 @@ class TPView(StationaryView):
         ``head``'s, whose product takes the last rows (:meth:`gathers`);
         a decode step re-splits a weight split over the batch axes on its
         input dimension only (the router) over "model" where it lies
-        (:meth:`resplits`); every other product gathers its weight."""
+        (:meth:`resplits`); every other product gathers its weight. A
+        decode step's lookup is not pinned to the batch's layout, as the
+        reference's is not (:meth:`take_rows`)."""
         if step not in ("prefill", "decode"):
             raise ValueError(f"TPView.serving: unknown step {step!r}")
         return cls(x, groups, leaves=list(x.shards),
-                   move_rows=step == "decode" or head, training=False)
+                   move_rows=step == "decode" or head, training=False,
+                   pinned=step != "decode")
 
     def gathers(self) -> bool:
         """Whether a product with this (n_in, n_out) weight gathers the
@@ -1356,31 +1683,35 @@ class TPView(StationaryView):
         return _gather_plan(self.x.mesh, self.x.spec, tuple(self.x.shape),
                             self.groups)
 
-    def take_rows(self, ids: Rows) -> Rows:
-        """``sparse.segment.take_rows`` of the (n, e) table at each
-        position's ids: each batch shard's first position looks its rows up
-        where the blocks lie (:func:`take_rows_2d`) and delivers them to the
-        other positions of its group (``emb_rows``), whose copies take no
-        gradient (their work repeats the first position's)."""
+    def take_rows(self, ids: Rows, dtype: torch.dtype = None) -> Rows:
+        """``sparse.segment.take_rows`` of the (n, e) table in ``dtype``
+        (default the table's) at each position's ids, formed as the
+        reference's partitioner forms its lookup with the batch split
+        (:func:`take_rows_two_axis`): the ids of the positions' "data"
+        lines to every position (``emb_ids_permute``, ``emb_ids_gather``),
+        each position's own block's rows of them, the partial rows across
+        "model" (``emb_rows_model``), then each position's batch shard's
+        rows of every column block along "data": pinned (the train step,
+        a prefill) as the reference's all-to-all (``emb_rows_data``; the
+        backward's ``emb_grad_data``), at a decode step, which the
+        reference does not pin, as the port's own re-layout into the rows
+        its next layer reads (``emb_rows_relayout``). Only the rows of a
+        position that collects gradients (:meth:`collects`) take them."""
         lay, mesh = self.x.layout, ids.mesh
         if self.transposed or len(lay.counts) != 2:
             raise ValueError(f"take_rows of {self.x!r}: not an (n, e) table")
-        K, C = lay.counts
-        at = {h: i for i, h in enumerate(ids.homes)}
-        out = [None] * len(ids.parts)
-        for group in self.groups:
-            home = group[0]
-            grid = []
-            for c in range(C):
-                pos = [self.holder((k, c), home) for k in range(K)]
-                grid.append((pos, [self.leaves[p] for p in pos]))
-            rows = take_rows_2d(mesh, home, lay.shape[0],
-                                ids.parts[at[home]], grid)
-            out[at[home]] = rows
-            for p in group[1:]:
-                with span("emb_rows"), mesh.at(p), mesh.moving():
-                    mesh.count("emb_rows", _nbytes(rows), frm=home, to=p)
-                    out[at[p]] = rows.detach().to(mesh.device(p), copy=True)
+        if list(ids.homes) != list(range(mesh.size)):
+            raise ValueError("TPView.take_rows: the ids are not Rows over "
+                             "every position")
+        shard = [self.shard[p] for p in range(mesh.size)]
+        held = [{shard[p]: t} for p, t in enumerate(ids.parts)]
+        names = ("emb_rows_data" if self.pinned else "emb_rows_relayout",
+                 "emb_grad_data")
+        grad_outs = [p for p in range(mesh.size)
+                     if self.training and self.collects(p)]
+        out = take_rows_two_axis(self.x, self.leaves, held, shard,
+                                 range(mesh.size), dtype or self.x.dtype,
+                                 names, grad_outs)
         return Rows(out, ids.homes, mesh)
 
 

@@ -24,12 +24,18 @@ of work runs.
   the HLO shows: each position gathers the batch's rows along "data"
   (``tp_rows_gather``), multiplies them by its block where it lies, sums
   over "model" and takes its batch shard's rows of the other column
-  blocks (``tp_rows_scatter``). ``embed`` is looked up where its blocks
-  lie by each batch shard's first position, which delivers the rows to
-  its group (``emb_ids``, ``emb_rows``); the tied head's vocab blocks are
-  joined over "model" (``tp_logits_gather``). A prefill splits the heads
-  over "model" as the train step does (``tp_heads_gather`` where they do
-  not divide); a decode step gathers q, k and v whole along "model"
+  blocks (``tp_rows_scatter``). ``embed`` is looked up as the
+  reference's HLO forms the lookup (``TPView.take_rows``): the ids
+  permuted and gathered along "model" (``emb_ids_permute``,
+  ``emb_ids_gather``), each position's block's rows of its "data" line's
+  batch, the partial rows across "model" (``emb_rows_model``), then each
+  batch shard's rows of every column block along "data"
+  (``emb_rows_data``; a decode step, whose lookup the reference does not
+  pin, re-lays them out so, ``emb_rows_relayout``); the tied head's
+  vocab blocks are joined over "model" (``tp_logits_gather``). A
+  prefill splits the heads over "model" as the train step does
+  (``tp_heads_gather`` where they do not divide); a decode step gathers
+  q, k and v whole along "model"
   (``tp_heads_gather``). A decode step re-splits the router over
   "model" where it lies (``tp_resplit``) and sums its logits' partials
   over "model", as the reference's decode HLO does. MoE groups are the
@@ -46,9 +52,12 @@ of work runs.
   the batch as ``collectives.Rows`` at its home. Each product runs on the
   positions that hold the weight's blocks (``collectives.block_matmul``:
   the activations go to the holders as ``tp_act``, the partial products
-  come back as ``tp_partial``), ``embed`` is looked up where its blocks
-  lie (``emb_ids``, ``emb_rows``; the tied head multiplies by its
-  transposed blocks), and the experts stay where they live
+  come back as ``tp_partial``), ``embed`` is looked up as the
+  reference's HLO forms it with the batch whole (the tokens at every
+  position from the host, each position's block's rows, the partial rows
+  across "model", ``emb_rows_model``; the home takes its rows of the
+  column blocks it lacks, ``emb_rows_home``; the tied head multiplies by
+  its transposed blocks), and the experts stay where they live
   (``expert_send``: the dispatch buffer's slices to the experts, or the
   whole buffer to each d_ff block). The norms, RoPE, attention and the
   residual stream run at the home.
@@ -127,9 +136,19 @@ def _views(params, home: int, group) -> Any:
                     if isinstance(x, ShardedTensor) else x, params)
 
 
-def _stationary(params) -> Any:
-    return tree_map(lambda x: StationaryView(x)
-                    if isinstance(x, ShardedTensor) else x, params)
+def _stationary(params, mesh, tokens: torch.Tensor) -> Any:
+    """``collectives.StationaryView`` s of every placed leaf; the table's
+    holds the batch's ids at every position, each copied there from the
+    host (as the reference's ``in_shardings`` replicate them)."""
+    views = tree_map(lambda x: StationaryView(x)
+                     if isinstance(x, ShardedTensor) else x, params)
+    if isinstance(params.get("embed"), ShardedTensor):
+        ids = []
+        for pos in range(mesh.size):
+            with mesh.at(pos):
+                ids.append(tokens.to(mesh.device(pos)))
+        views["embed"] = StationaryView(params["embed"], ids=ids)
+    return views
 
 
 def _rows(mesh, t: torch.Tensor, homes: List[int]) -> Rows:
@@ -317,8 +336,9 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
                 logits, parts = _prefill_split(model, mesh, groups, params,
                                                tokens)
             elif policy == "tp2d":
-                lg, (ks, vs) = model.prefill(_stationary(params),
-                                             _rows(mesh, tokens, homes))
+                lg, (ks, vs) = model.prefill(
+                    _stationary(params, mesh, tokens),
+                    _rows(mesh, tokens, homes))
                 logits = lg.parts
                 parts = [[(h, 0, k, v)]
                          for h, k, v in zip(homes, ks.parts, vs.parts)]
@@ -474,7 +494,7 @@ def make_sharded_decode(model, mesh, batch_spec) -> Callable:
                                          cache[0].layout))
                 return _to_position_0(mesh, [lg.parts[h] for h in homes],
                                       homes), cache
-            lg, _ = model.decode_step(_stationary(params),
+            lg, _ = model.decode_step(_stationary(params, mesh, token),
                                       _rows(mesh, token, homes), cache, n,
                                       attend=attend)
             return _to_position_0(mesh, lg.parts, homes), cache

@@ -323,8 +323,7 @@ class TransformerLM:
     def _embed(self, params: Params, tokens):
         emb = params["embed"]
         if isinstance(emb, StationaryView):
-            return each(torch.Tensor.to, emb.take_rows(tokens),
-                        self.compute_dtype)
+            return emb.take_rows(tokens, self.compute_dtype)
         return each(lambda e, t: e.to(self.compute_dtype)[t.long()], emb,
                     tokens)
 

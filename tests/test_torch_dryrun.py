@@ -267,10 +267,13 @@ def test_tp2d_decode_cell_splits_as_the_reference():
     mesh (the production specs; 16 × 16 takes ≈ 15 min on the CPU: its
     copies and sums run per position, 256 of them) runs the reference's
     split: every collective's bytes by name equal
-    ``chip_smoke.serve_tp2d_bytes_want`` — among them the lookup's, each
-    batch shard's first position sending its 32 ids to the 15 blocks it
-    does not hold and delivering the rows to the 3 other positions of its
-    group — every gathered weight byte and the MoE group's exchange (one
+    ``chip_smoke.serve_tp2d_bytes_want`` — among them the lookup's as the
+    reference's partitioner forms it: the 12 positions off the diagonal
+    permuting their 32 ids, every position gathering the 3 other shards'
+    ids along "model", taking its (V/4, d/4) block's rows of all 128 and
+    receiving the 3 other vocab blocks' partial rows, then the port's
+    re-layout of its shard's 32 rows from the 3 column blocks it lacks —
+    every gathered weight byte and the MoE group's exchange (one
     group of 128 tokens spans the 4 batch shards) move along "data"
     (between positions of one "model" coordinate) and every sum along
     "model"; the busiest
@@ -292,8 +295,10 @@ def test_tp2d_decode_cell_splits_as_the_reference():
     assert coll == chip_smoke.serve_tp2d_bytes_want(
         cfg, mesh.shape, 128, 32768, "decode", 4096, 32768)
     d = cfg.d_model
-    assert coll["emb_ids"] == 4 * 15 * 32 * 4
-    assert coll["emb_rows"] == 4 * (15 * 32 * d // 4 + 3 * 32 * d) * 2
+    assert coll["emb_ids_permute"] == 4 * 3 * 32 * 4
+    assert coll["emb_ids_gather"] == 16 * 3 * 32 * 4
+    assert coll["emb_rows_model"] == 4 * 2 * 3 * 4 * 32 * d // 4 * 2
+    assert coll["emb_rows_relayout"] == 16 * 3 * 32 * d // 4 * 2
     assert coll["tp_zero_gather"] > 0 and "all_gather" not in coll
     assert coll["moe_group_dispatch"] > 0
     for (name, a, b) in mesh.moves:
@@ -334,7 +339,8 @@ def test_tp2d_decode_cell_splits_as_the_reference():
     assert abs(peak - want) <= 0.05 * want, (peak, want)
     long = dryrun.run_cell("smollm-135m", "long_500k")
     assert set(long["collectives"]) <= {
-        "tp_act", "tp_partial", "emb_ids", "emb_rows", "kv_write", "q_send",
+        "tp_act", "tp_partial", "emb_rows_model", "emb_rows_home",
+        "kv_write", "q_send",
         "attn_partial", "logits_gather"}, long["collectives"]
 
 

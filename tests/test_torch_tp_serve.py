@@ -1,8 +1,8 @@
 """LM serving on the device mesh under ``tp2d``, on the CPU (meshes of
 ``["cpu"] * 4``, f32 SMOKE configs): with the batch whole, the weights
 where they lie (``distrib/collectives.py``: ``StationaryView``, ``Rows``,
-``block_matmul``, ``take_rows_2d``; ``distrib/serving.py``); with it split
-over "data", as the reference's partitioner splits its jitted steps
+``block_matmul``, ``take_rows_two_axis``; ``distrib/serving.py``); with
+it split over "data", as the reference's partitioner splits its jitted steps
 (``TPView.serving``, ``tp_rows_linear``).
 
 * ``block_matmul`` on 2 × 2, 1 × 2, 2 × 1, 1 × 4 (and 2 × 2 × 2 with
@@ -16,10 +16,17 @@ over "data", as the reference's partitioner splits its jitted steps
   ``x @ w + b`` bit for bit.
 * The two-axis lookup (``embed`` under ``tp2d``, P("model", "data")):
   bitwise ``take_rows`` of the whole table, negative, out-of-range and
-  −0.0 rows included, through ``StationaryView.take_rows`` and
-  ``ShardView.take_rows``; ``emb_ids`` / ``emb_rows`` the ids and rows
-  each remote block sends; its backward sums each block's rows
-  (``tests/test_torch_tp_train.py`` holds it bitwise).
+  −0.0 rows included, through ``StationaryView.take_rows`` (the batch
+  whole: ``emb_rows_model`` the partial rows reduce-scattered and
+  all-gathered over each "model" line, ``emb_rows_home`` each home's rows
+  of the column blocks it lacks) and the train step's ``TPView``; its
+  backward sums each block's rows
+  (``tests/test_torch_tp_train.py`` holds it bitwise, and each form's
+  rows and −0.0 entries). The prefill's and decode step's lookup bytes
+  by kind and axis a chip equal the reference's HLO collectives of the
+  embedding's gather, to the byte, with the batch split and whole
+  (``test_tp2d_lookup_moves_as_the_reference``), the port's own
+  re-layouts (``emb_rows_relayout``, ``emb_rows_home``) apart.
 * ``tp2d`` prefill and decode for the SMOKE configs of qwen3-moe with 16
   experts (GQA, experts over "model"), deepseek-7b (MHA, dense), qwen2-72b
   (QKV bias), smollm-135m (tied head, 3 heads over 2 "model" blocks) and
@@ -80,7 +87,7 @@ import torch.nn.functional as F
 from repro_torch.config.base import MoEConfig
 from repro_torch.config.registry import get_arch
 from repro_torch.configs import qwen3_moe_30b_a3b as qcfg
-from repro_torch.distrib.collectives import (Rows, ShardView, StationaryView,
+from repro_torch.distrib.collectives import (Rows, StationaryView,
                                              batch_groups, block_matmul)
 from repro_torch.distrib.serving import (make_sharded_decode,
                                          make_sharded_prefill, place_params)
@@ -93,7 +100,8 @@ from repro_torch.sparse.segment import take_rows
 
 import chip_smoke
 from test_torch_sharded_serve import bf16_close, hold_alone, reading
-from test_torch_tp_train import HLO_AXES, REPO, _by_axis
+from test_torch_tp_train import (HLO_AXES, REPO, _block_sum, _by_axis,
+                                 _lookup, whole_lookup_bytes)
 
 torch.set_num_threads(1)
 
@@ -108,7 +116,8 @@ CONFIGS = {"qwen3-moe-e16": MOE16,
 # the collectives a tp2d serving step with the batch whole may count:
 # activations, ids, the looked-up rows, the KV cache and the logits; never
 # a parameter
-ACTIVATIONS = {"tp_act", "tp_partial", "emb_ids", "emb_rows", "expert_send",
+ACTIVATIONS = {"tp_act", "tp_partial", "emb_rows_model", "emb_rows_home",
+               "expert_send",
                "cache_scatter", "kv_write", "q_send", "attn_partial",
                "logits_gather"}
 # with the batch split: the weights gathered along "data", the rows moved
@@ -118,7 +127,8 @@ WEIGHT_MOVES = {"tp_zero_gather"}
 SUM_MOVES = {"tp_model_sum"}
 SPLIT = WEIGHT_MOVES | SUM_MOVES | {
     "tp_rows_gather", "tp_rows_scatter", "tp_heads_gather",
-    "tp_logits_gather", "expert_gather", "emb_ids", "emb_rows",
+    "tp_logits_gather", "expert_gather", "emb_ids_permute", "emb_ids_gather",
+    "emb_rows_model", "emb_rows_data", "emb_rows_relayout",
     "cache_scatter", "attn_partial", "logits_gather", "tp_resplit",
     "moe_group_probs", "moe_group_dispatch"}
 MOE16_FFN = dataclasses.replace(
@@ -236,42 +246,36 @@ def test_two_axis_lookup_is_take_rows(shape):
         assert torch.equal(torch.signbit(got), torch.signbit(want))
 
     homes, _ = batch_groups(mesh, "data")
-    got = StationaryView(placed).take_rows(_rows(mesh, ids, homes))
+    got = StationaryView(placed, ids=[ids] * mesh.size).take_rows(
+        _rows(mesh, ids, homes))
     same(torch.cat(got.parts))
-    # the ids go to every block's server, its column block of the rows
-    # comes back
-    lay = placed.layout
-    K, C = lay.counts
-    n_ids, rows = 0, 0
-    for home in homes:
-        for block in lay.blocks():
-            if _server(mesh, lay, block, home) != home:
-                n_ids += ids.numel() // len(homes) * 4
-                rows += ids.numel() // len(homes) * e // C * 4
-    assert dict(mesh.bytes) == {k: v for k, v in (("emb_ids", n_ids),
-                                                  ("emb_rows", rows)) if v}
-    mesh.reset_bytes()
-    group = list(range(mesh.size))
-    with torch.no_grad():
-        same(ShardView(placed, 0, group, grad=False).take_rows(ids))
-    assert "all_gather" not in mesh.bytes
+    # every position looks the whole batch up in its block, each "model"
+    # line reduce-scatters and all-gathers the partial rows, and each home
+    # takes its rows of each column block it lacks
+    assert dict(mesh.bytes) == whole_lookup_bytes(mesh, placed.layout,
+                                                  homes, ids.numel(), 4)
 
 
 def test_two_axis_lookup_has_a_backward():
     """The lookup of a table split on two axes differentiates (its backward
     landed with the ``tp2d`` train step; ``tests/test_torch_tp_train.py``
-    holds it bitwise against ``take_rows``'s): each block's gradient is
-    the sum of its rows' gradients, and nothing is gathered."""
+    holds it bitwise against ``take_rows``'s): through the train step's
+    ``TPView`` each block's gradient is the sum of its rows' gradients,
+    and only the lookup's own collectives move bytes, nothing gathered."""
     mesh = _mesh((2, 2))
     table = torch.randn(8, 4, generator=torch.Generator().manual_seed(4))
-    placed = device_put(table, mesh, P("model", "data"))
-    view = ShardView(placed, 0, [0, 1, 2, 3])
-    view.take_rows(torch.tensor([1, 2, 2, 7])).sum().backward()
+    ids = torch.tensor([[1, 2], [2, 7]])
+    view, got, _ = _lookup(mesh, table, ids, "pinned")
+    torch.autograd.backward([got.parts[p] for p in range(mesh.size)
+                             if view.collects(p)],
+                            [torch.ones_like(got.parts[p])
+                             for p in range(mesh.size) if view.collects(p)])
     want = torch.zeros(8, 4)
     want[1], want[2], want[7] = 1.0, 2.0, 1.0
-    for block, _, grad in view.grads():
-        assert torch.equal(grad, want[placed.layout.slices(block)])
-    assert set(mesh.bytes) == {"emb_ids", "emb_rows", "emb_grad"}
+    assert torch.equal(_block_sum(view), want)
+    assert set(mesh.bytes) == {"emb_ids_permute", "emb_ids_gather",
+                               "emb_rows_model", "emb_rows_data",
+                               "emb_grad_data"}
 
 
 # -- tp2d prefill and decode -------------------------------------------------------
@@ -337,10 +341,16 @@ def _tp_served(cfg, params, B, S, tokens_out=4):
 
 
 def _lookup_bytes(cfg, n):
-    """``emb_ids`` and ``emb_rows`` of one lookup of n int32 ids in the
-    (V, d) f32 table on the 2 × 2 mesh (P("model", "data"): four blocks,
-    one of them at each home)."""
-    return {"emb_ids": 3 * n * 4, "emb_rows": 3 * n * cfg.d_model // 2 * 4}
+    """``emb_rows_model`` and ``emb_rows_home`` of one lookup of n ids with
+    the batch whole in the (V, d) table on the 2 × 2 mesh (P("model",
+    "data"): four blocks), the rows in the compute dtype: each of the 4
+    positions receives, in the reduce-scatter and the all-gather over its
+    "model" line of 2, half of the other vocab block's partial rows of all
+    n ids (d / 2 wide) each time, the home the other column block's n
+    rows."""
+    c = 2 if cfg.dtype == "bfloat16" else 4
+    return {"emb_rows_model": 4 * n * cfg.d_model // 2 * c,
+            "emb_rows_home": n * cfg.d_model // 2 * c}
 
 
 def _along(mesh, moves, names, axis):
@@ -609,7 +619,9 @@ for case in json.loads(sys.argv[1]):
             text = prefill.lower(params, tokens).compile().as_text()
         out[case["id"]] = {"prefill": np.asarray(lg, np.float32).tolist(),
                            "hlo": {"prefill": read_hlo(text), "weights": {
-                               "prefill": weight_gathers(text)}}}
+                               "prefill": weight_gathers(text)},
+                               "lookup": {
+                                   "prefill": lookup_collectives(text)}}}
         continue
     token = np.array(case["token"], np.int32)
     with mesh:
@@ -624,6 +636,7 @@ for case in json.loads(sys.argv[1]):
                  .as_text()}
         hlo = {k: read_hlo(t) for k, t in texts.items()}
         hlo["weights"] = {k: weight_gathers(t) for k, t in texts.items()}
+        hlo["lookup"] = {k: lookup_collectives(t) for k, t in texts.items()}
     out[case["id"]] = {"prefill": np.asarray(lg, np.float32).tolist(),
                        "decode": np.asarray(dlg, np.float32).tolist(),
                        "hlo": hlo}
@@ -792,6 +805,60 @@ def test_tp2d_serving_splits_as_the_reference_jitted_steps(
             # the reference's "data" gathers move rows, not weights
             assert hlo.get("all-gather data", 0) < params_bytes / 1000
             assert set(moved) <= ACTIVATIONS, moved
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+@pytest.mark.parametrize("batch", ["split", "whole"])
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
+def test_tp2d_lookup_moves_as_the_reference(reference_serving, name, batch,
+                                            step):
+    """The serving steps' lookup against the reference's jitted
+    ``prefill`` and ``decode_step`` on the 2 × 2 mesh (B 4 split over
+    "data", B 1 whole; 16 prompt positions): the port's lookup bytes by
+    kind and axis a chip (``test_torch_tp_train.lookup_by_kind``) equal,
+    to the byte, the HLO's collectives of the embedding's gather. With the
+    batch split: the ids permuted and gathered along "model", the partial
+    rows all-reduced over "model", and in the prefill, which the
+    reference pins, the rows' all-to-all along "data"; a decode step's
+    rows are left split by column, and the port re-lays them out into its
+    batch shards (``emb_rows_relayout``, along "data", its own). With the
+    batch whole only the all-reduce over "model"; the port's home then
+    takes its rows of the other column block (``emb_rows_home``)."""
+    from test_torch_tp_train import lookup_by_kind
+    cases, ref = reference_serving
+    case, want = cases[f"{name}-{batch}"], ref[f"{name}-{batch}"]
+    cfg = SPLIT_MODELS[name]
+    split = batch == "split"
+    params = TransformerLM(cfg).init(torch.Generator().manual_seed(0))
+    mesh = _mesh((2, 2))
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None) if split else None)
+    bspec = P("data", None) if split else P(None, None)
+    cspec = (P(None, "data", "model", None, None) if split
+             else P(None, None, ("data", "model"), None, None))
+    placed = place_params(params, mesh, lm_param_specs(params, cfg, "tp2d"))
+    tokens = torch.tensor(case["tokens"], dtype=torch.int32)
+    token = torch.tensor(case["token"], dtype=torch.int32)
+    S = tokens.shape[1]
+    prefill = make_sharded_prefill(model, mesh, bspec, cspec,
+                                   capacity=S + case["extra"],
+                                   policy="tp2d")
+    _, cache = prefill(placed, tokens)
+    if step == "decode":
+        mesh.reset_bytes()
+        make_sharded_decode(model, mesh, bspec)(placed, token, cache, S)
+    got, own = lookup_by_kind(mesh, mesh.moves)
+    print(f"\n{name}, batch {batch}, {step}: the reference HLO's lookup "
+          f"{want['hlo']['lookup'][step]}; the port {got}, its own "
+          f"re-layout {own}")
+    assert got == want["hlo"]["lookup"][step]
+    c, d = 2 if cfg.dtype == "bfloat16" else 4, cfg.d_model
+    rows = (4 // 2 if split else 1) * (S if step == "prefill" else 1)
+    if split and step == "prefill":
+        assert not own
+    else:
+        assert own == {"emb_rows_relayout" if split else "emb_rows_home":
+                       (4 if split else 1) * rows * d // 2 * c}
 
 
 @pytest.mark.parametrize("key", sorted(FAULT6))

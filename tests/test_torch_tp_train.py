@@ -1,6 +1,7 @@
 """LM training on the device mesh under ``tp2d`` with the weights where they
-lie (``distrib/collectives.py``: ``block_matmul``'s and ``take_rows_2d``'s
-backward; ``models/layers.py``: the vocab-parallel cross entropy;
+lie (``distrib/collectives.py``: ``block_matmul``'s backward, the two-axis
+lookup ``take_rows_two_axis``; ``models/layers.py``: the vocab-parallel
+cross entropy;
 ``train/state.py``: ``make_tp2d_train_step``), on the CPU (meshes of
 ``["cpu"] * n``, f32 SMOKE configs).
 
@@ -12,9 +13,19 @@ backward; ``models/layers.py``: the vocab-parallel cross entropy;
   another order; the backward's bytes are the forward's with i and j
   swapped (``tp_grad_act`` = ``tp_partial``, ``tp_grad_partial`` =
   ``tp_act``).
-* The two-axis lookup's gradient (``embed`` under P("model", "data"))
-  bitwise the unsharded ``take_rows`` backward, ids out of range and
-  repeated included.
+* The two-axis lookup (``embed`` under P("model", "data")) in its three
+  forms (pinned: the train step and a prefill; not pinned: a decode step;
+  the batch whole): its rows bitwise one device's ``take_rows`` on 2 × 2
+  and 2 × 1, in f32 and bf16, NaN rows and −0.0 entries included; its
+  gradient bitwise the unsharded ``take_rows`` backward, ids out of range
+  and repeated included, summed in one device's order (one pass over the
+  microbatch in batch order, not per batch shard); the train step's
+  lookup bytes by kind and axis a chip equal the reference's HLO
+  collectives of the embedding's gather and its transpose, to the byte
+  (``moe_shard`` "expert" and "ffn", 1 and 2 microbatches on 2 × 2; 1 on
+  4 × 4 and 1 × 4), and on a meta mesh of 16 × 16, 2 × 4 and 4 × 2
+  ``chip_smoke.lookup_want``'s; the batch-whole form's bytes worked out
+  from the mesh's coordinates.
 * The vocab-parallel loss and its gradients (hidden, head) against the
   one-device ``softmax_xent_sharded``, labels −1 included: a head split
   over V only and the tied head (``embed.T``, d and V split), on one
@@ -79,6 +90,7 @@ JAX is imported only inside the tests that compare with it.
 """
 
 import dataclasses
+from fractions import Fraction
 import json
 import os
 import subprocess
@@ -94,8 +106,9 @@ from repro_torch.config.base import TrainConfig
 from repro_torch.config.registry import get_arch
 from repro_torch.configs import qwen3_moe_30b_a3b as qcfg
 from repro_torch.data.lm import TokenPipeline
-from repro_torch.distrib.collectives import (Rows, ShardView, StationaryView,
-                                             batch_groups, block_matmul)
+from repro_torch.distrib.collectives import (Rows, StationaryView,
+                                             TPView, batch_groups,
+                                             block_matmul)
 from repro_torch.distrib.sharding import (P, ShardedTensor, device_put,
                                           gather, lm_param_specs,
                                           state_specs_like)
@@ -250,39 +263,182 @@ def test_block_matmul_gradients_on_one_position_are_autograds(transposed,
 
 # -- the two-axis lookup's backward ---------------------------------------------------
 
+IDS = torch.tensor([[0, 5, 23, -1, -24, 24, -25, 11],
+                    [7, 12, 6, 18, 3, 5, 0, 100],
+                    [-5, 1, 2, 22, 17, 9, 13, -100],
+                    [4, 4, 19, 20, 21, 8, 10, 4]], dtype=torch.int32)
+
+
+def _lookup(mesh, table, ids, form, grad=False):
+    """The two-axis lookup of ``table`` (placed by P("model", "data")) at
+    ``ids`` in one of its forms: "pinned" (the train step's
+    ``TPView.take_rows``, the batch over "data"), "unpinned" (a decode
+    step's ``TPView``) or "whole" (``StationaryView.take_rows``, the
+    batch's ids at every position, the rows at the homes of the batch
+    over "data"). (the view, each output's batch shard rows as Rows, each
+    output's shard index)."""
+    placed = device_put(table, mesh, P("model", "data"))
+    homes, groups = batch_groups(mesh, "data")
+    D = len(homes)
+    if form == "whole":
+        view = StationaryView(placed, grad=grad, ids=[ids] * mesh.size)
+        rows = view.take_rows(Rows(list(ids.chunk(D)), homes, mesh))
+        return view, rows, list(range(D))
+    view = (TPView(placed, groups) if form == "pinned"
+            else TPView.serving(placed, groups, "decode"))
+    shard = [view.shard[p] for p in range(mesh.size)]
+    rows = view.take_rows(Rows([ids.chunk(D)[d] for d in shard],
+                               list(range(mesh.size)), mesh))
+    return view, rows, shard
+
+
+def _same_rows_as(got, want):
+    "Bitwise, NaN rows and the sign of zeros included."
+    assert got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+def whole_lookup_bytes(mesh, lay, homes, n: int, c: int,
+                       grad: bool = False) -> dict:
+    """The bytes of the two-axis lookup with the batch whole
+    (``StationaryView.take_rows``) of ``n`` ids, split evenly over the
+    ``homes``, in a table of layout ``lay`` (P("model", "data")), the
+    rows in a ``c``-byte dtype, worked out from the mesh's coordinates:
+    on each "model" line of K vocab blocks the reduce-scatter and
+    all-gather of every position's n · e/C partial entries, 2(K − 1)
+    positions' worth in all (``emb_rows_model``); each home's rows of
+    each column block it lacks, from its "data" line (``emb_rows_home``);
+    with ``grad``, every position's column block of each home's gradient
+    rows but its own (``emb_grad_home``)."""
+    e = lay.block_shape[1]
+
+    def line(p, axis):
+        at = mesh.coords(p)
+        return tuple(q for q in range(mesh.size)
+                     if all(mesh.coords(q)[a] == at[a]
+                            for a in mesh.axis_names if a != axis))
+    lines = {line(p, "model") for p in range(mesh.size)}
+    rows = n // len(homes) * e * c
+    out = {"emb_rows_model": sum(
+               2 * (len({lay.block_of(q)[0] for q in ln}) - 1)
+               for ln in lines) * n * e * c,
+           "emb_rows_home": sum(
+               len({lay.block_of(q)[1] for q in line(h, "data")}) - 1
+               for h in homes) * rows}
+    if grad:
+        out["emb_grad_home"] = sum(h != p for p in range(mesh.size)
+                                   for h in homes) * rows
+    return {k: v for k, v in out.items() if v}
+
+
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)],
                          ids=["2x2", "1x4", "4x1"])
 def test_two_axis_lookup_gradient_is_take_rows_backward(shape):
+    """The lookup's gradient bitwise ``take_rows``'s backward over the
+    whole batch, ids out of range and repeated included: through the
+    train step's ``TPView`` (each block's holder sums the gradient rows
+    of every batch shard of its "data" line, moved there along "data",
+    ``emb_grad_data``, the bytes of the forward's ``emb_rows_data``) and
+    through ``StationaryView`` (the batch whole, its bytes
+    :func:`whole_lookup_bytes`' to the byte)."""
     mesh = _mesh(shape)
     V, e = 24, 8
     g = torch.Generator().manual_seed(2)
     table = torch.randn((V, e), generator=g)
-    ids = torch.tensor([[0, 5, 23, -1, -24, 24, -25, 11],
-                        [7, 12, 6, 18, 3, 5, 0, 100],
-                        [-5, 1, 2, 22, 17, 9, 13, -100],
-                        [4, 4, 19, 20, 21, 8, 10, 4]], dtype=torch.int32)
+    ids = IDS
     dy = torch.randn(ids.shape + (e,), generator=g)
     tr = table.clone().requires_grad_(True)
     want = take_rows(tr, ids)
     (torch.nan_to_num(want) * dy).sum().backward()
-    placed = device_put(table, mesh, P("model", "data"))
-    homes, _ = batch_groups(mesh, "data")
-    view = StationaryView(placed, grad=True)
-    got = view.take_rows(Rows(ids.chunk(len(homes)), homes, mesh))
-    torch.autograd.backward([torch.nan_to_num(p) for p in got.parts],
-                            dy.chunk(len(homes)))
+    homes = batch_groups(mesh, "data")[0]
+    D = len(homes)
+    view, got, shard = _lookup(mesh, table, ids, "pinned")
+    seeds = [p for p in range(mesh.size) if view.collects(p)]
+    torch.autograd.backward([torch.nan_to_num(got.parts[p]) for p in seeds],
+                            [dy.chunk(D)[shard[p]] for p in seeds])
     assert torch.equal(_block_sum(view), tr.grad)
-    assert mesh.bytes["emb_grad"] == mesh.bytes["emb_rows"]
-    # through a ShardView (the fsdp steps' handle) too
+    assert mesh.bytes.get("emb_grad_data", 0) == \
+        mesh.bytes.get("emb_rows_data", 0)
+    assert (mesh.bytes.get("emb_rows_data", 0) > 0) == (shape[0] > 1)
     mesh.reset_bytes()
-    sv = ShardView(placed, 0, list(range(mesh.size)))
-    rows = sv.take_rows(ids)
-    (torch.nan_to_num(rows) * dy).sum().backward()
-    whole = torch.zeros((V, e))
-    for block, _, grad in sv.grads():
-        whole[placed.layout.slices(block)] = grad
-    assert torch.equal(whole, tr.grad)
-    assert not set(mesh.bytes) & GATHERS
+    view, got, _ = _lookup(mesh, table, ids, "whole", grad=True)
+    torch.autograd.backward([torch.nan_to_num(p) for p in got.parts],
+                            list(dy.chunk(D)))
+    assert torch.equal(_block_sum(view), tr.grad)
+    assert dict(mesh.bytes) == whole_lookup_bytes(
+        mesh, view.x.layout, homes, ids.numel(), 4, grad=True)
+
+
+@pytest.mark.parametrize("form", ["pinned", "unpinned", "whole"])
+@pytest.mark.parametrize("shape", [(2, 2), (2, 1)], ids=["2x2", "2x1"])
+def test_tp2d_lookup_rows_are_one_devices_take_rows(shape, form):
+    """Each form's rows at every output position bitwise one device's
+    ``take_rows`` of the table at that position's batch shard, NaN rows
+    (ids outside [-V, V)) and −0.0 entries included, in f32 and cast to
+    bf16 inside the lookup (the cast table's rows)."""
+    mesh = _mesh(shape)
+    table = torch.randn((24, 8), generator=torch.Generator().manual_seed(1))
+    table[5] = -0.0
+    table[11, :3] = -0.0
+    D = len(batch_groups(mesh, "data")[0])
+    for dtype in (torch.float32, torch.bfloat16):
+        want = take_rows(table.to(dtype), IDS).chunk(D)
+        view, got, shard = _lookup(mesh, table, IDS, form)
+        if dtype != torch.float32:
+            got = (view.take_rows(Rows(
+                [IDS.chunk(D)[d] for d in shard], list(range(mesh.size)),
+                mesh), dtype) if form != "whole" else
+                view.take_rows(Rows(list(IDS.chunk(D)),
+                                    batch_groups(mesh, "data")[0], mesh),
+                               dtype))
+        for part, d in zip(got.parts, shard):
+            assert part.dtype == dtype
+            _same_rows_as(part, want[d])
+
+
+@pytest.mark.parametrize("form", ["pinned", "unpinned", "whole"])
+def test_tp2d_lookup_keeps_negative_zero(form):
+    """An entry of −0.0 stays −0.0 through each form on 2 × 2: the fold
+    over "model" selects each row from the block that owns it, never adds
+    it to the other blocks' masked zeros (the reference's all-reduce
+    would give +0.0)."""
+    mesh = _mesh((2, 2))
+    table = torch.ones((8, 4))
+    table[2] = -0.0
+    table[6, 1] = -0.0
+    ids = torch.tensor([[2, 6, 2, 1], [6, 6, 2, 0]], dtype=torch.int32)
+    _, got, shard = _lookup(mesh, table, ids, form)
+    for part, d in zip(got.parts, shard):
+        rows = ids[d:d + 1]
+        assert torch.equal(torch.signbit(part), torch.signbit(table[rows]))
+        assert bool(torch.signbit(part[rows == 2]).all())
+
+
+def test_tp2d_lookup_gradient_takes_one_devices_order():
+    """The pinned form's backward sums each block's gradient rows in one
+    pass over the whole microbatch in batch order, the order of one
+    device's ``take_rows`` backward, not per batch shard with the shards'
+    sums added afterwards (the parent form's order). Row 3 is looked up
+    once in each of the four rows of the batch, the 2 × 2 mesh's two
+    shards, with gradient rows 1, 2^24, 1 and −2^24: one pass gives
+    ((1 + 2^24) + 1) − 2^24 = 0 in f32, the shards' sums (1 + 2^24) +
+    (1 − 2^24) = 1. The ``embed`` gradient is bitwise one device's."""
+    mesh = _mesh((2, 2))
+    table = torch.randn((8, 4), generator=torch.Generator().manual_seed(3))
+    ids = torch.tensor([[3, 0], [3, 1], [3, 4], [3, 7]], dtype=torch.int32)
+    dy = torch.zeros(ids.shape + (4,))
+    g = torch.tensor([1.0, 2.0 ** 24, 1.0, -2.0 ** 24])
+    dy[:, 0] = g[:, None]
+    tr = table.clone().requires_grad_(True)
+    (take_rows(tr, ids) * dy).sum().backward()
+    per_shard = (g[0] + g[1]) + (g[2] + g[3])
+    assert float(tr.grad[3, 0]) == 0.0 and float(per_shard) == 1.0
+    view, got, shard = _lookup(mesh, table, ids, "pinned")
+    torch.autograd.backward(got.parts, [dy.chunk(2)[d] for d in shard])
+    assert torch.equal(_block_sum(view), tr.grad)
 
 
 # -- the vocab-parallel cross entropy -------------------------------------------------
@@ -422,7 +578,9 @@ def test_tp2d_step_against_the_unsharded_step(name, shape, batch):
         # the weights gathered along "data", the sums over "model"
         assert (step.get("tp_zero_gather", 0) > 0) == (D > 1)
         assert (step.get("tp_model_sum", 0) > 0) == (M > 1)
-        assert step["emb_rows"] > 0
+        # the lookup's partial rows over "model", its rows along "data"
+        assert (step.get("emb_rows_model", 0) > 0) == (M > 1)
+        assert (step.get("emb_rows_data", 0) > 0) == (D > 1)
     if cfg.moe is not None and cfg.moe.n_experts % 16 == 0 and M > 1:
         assert all(step["expert_gather"] > 0 for step in nbytes)
 
@@ -628,12 +786,20 @@ def tp2d_step_bytes(cfg, shape, micro=2, B=8, S=16, group=16):
         out["moe_group_probs_grad"] = out["moe_group_probs"]
         out["moe_group_dispatch"] = (rounds * L * N * (spans - 1) * E * Ce
                                      * d * c // (M if by_model else 1))
-    # the lookup at each batch shard's first position: ids out, rows back
-    # from the N − 1 blocks it does not hold, the rows delivered to the
-    # shard's M − 1 other positions; the gradient rows back to the blocks
-    out["emb_ids"] = rounds * D * (N - 1) * R * 4
-    out["emb_rows"] = rounds * D * ((N - 1) * R * d // D + (M - 1) * R * d) * 4
-    out["emb_grad"] = rounds * D * (N - 1) * R * d // D * 4
+    # the lookup as the reference's partitioner forms it: on a square mesh
+    # the ids permuted (d, m) -> (m, d) from the D (M - 1) positions off
+    # the diagonal, then each position's ids of the D - 1 other shards
+    # gathered; each position's partial rows of all D shards in its (V/M,
+    # d/D) block reduce-scattered and all-gathered over its "model" line,
+    # 2 (M - 1) / M of them into each position; its shard's rows of the
+    # D - 1 column blocks it lacks along "data", and the gradient rows the
+    # same way back (the compute dtype)
+    if D == M > 1:
+        out["emb_ids_permute"] = rounds * D * (M - 1) * R * 4
+    out["emb_ids_gather"] = rounds * N * (D - 1) * R * 4
+    out["emb_rows_model"] = rounds * D * 2 * (M - 1) * R * d * c
+    out["emb_rows_data"] = rounds * N * (D - 1) * R * d // D * c
+    out["emb_grad_data"] = out["emb_rows_data"]
     ex_blocks = 1 if moe is None else (
         M if moe.moe_shard == "ffn" or E % 16 == 0 else 1)
     out["grad_psum"] = (D - 1) * 4 * (L * (2 * d + experts) + d)
@@ -868,17 +1034,19 @@ def test_tp2d_remat_is_bitwise_none(name):
 # -- against the reference's jitted tp2d step ---------------------------------------------
 
 # the HLO's collective bytes a chip by kind and by the mesh axis of their
-# groups (four host devices as a 2 x 2 ("data", "model") mesh); shared with
-# ``test_torch_tp_serve.py``'s child
+# groups (host devices as a (D, MODEL) ("data", "model") mesh, 2 x 2 unless
+# a case sets MODEL); shared with ``test_torch_tp_serve.py``'s child
 HLO_AXES = r'''
 import re
 import numpy as np
 from repro.launch.roofline import _COLLECTIVE_RE, collective_bytes
 
+MODEL = 2                       # the mesh's "model" size
+
 
 def axis(line):
     # the mesh axis a collective's groups run along (device i at data
-    # i // 2, model i % 2): "data", "model", "both" or "none"
+    # i // MODEL, model i % MODEL): "data", "model", "both" or "none"
     m = re.search(r"replica_groups=\[(\d+),(\d+)\]<=\[([\d,]+)\]"
                   r"(?:T\(([\d,]+)\))?", line)
     if m:
@@ -892,8 +1060,8 @@ def axis(line):
                       r"\{((?:\{[\d,]*\},?)*)\}", line)
         groups = [[int(x) for x in g.split(",") if x]
                   for g in re.findall(r"\{([\d,]*)\}", m.group(1))]
-    same_d = all(len({i // 2 for i in g}) == 1 for g in groups)
-    same_m = all(len({i % 2 for i in g}) == 1 for g in groups)
+    same_d = all(len({i // MODEL for i in g}) == 1 for g in groups)
+    same_m = all(len({i % MODEL for i in g}) == 1 for g in groups)
     if same_d and same_m:
         return "none"
     return "model" if same_d else "data" if same_m else "both"
@@ -903,6 +1071,54 @@ def read_hlo(hlo):
     # {"kind axis": operand bytes a chip} of a compiled module's text
     lines = hlo.splitlines()
     tags = [axis(l) if _COLLECTIVE_RE.search(l) else None for l in lines]
+    read = {}
+    for ax in ("data", "model", "both", "none"):
+        keep = "\n".join(l for l, t in zip(lines, tags) if t in (None, ax))
+        for kind, n in collective_bytes(keep).items():
+            if n:
+                read[f"{kind} {ax}"] = n
+    return read
+
+
+def lookup_collectives(hlo):
+    # {"kind axis": operand bytes a chip} of the embedding lookup's
+    # collectives: those whose op is the gather (or its transpose's
+    # scatter-add) and whose source line, from the module's stack frame
+    # tables, is one of models/transformer.py that indexes params["embed"]
+    import linecache
+    tables, cur = {}, None
+    for l in hlo.splitlines():
+        if l in ("FileNames", "FunctionNames", "FileLocations",
+                 "StackFrames"):
+            cur = tables.setdefault(l, {})
+            continue
+        m = re.match(r"^(\d+) (.*)$", l)
+        if cur is not None and m:
+            cur[int(m.group(1))] = m.group(2)
+        else:
+            cur = None
+
+    def source(frame):
+        loc = re.search(r"file_location_id=(\d+)",
+                        tables["StackFrames"][frame])
+        f = tables["FileLocations"][int(loc.group(1))]
+        name = tables["FileNames"][int(re.search(r"file_name_id=(\d+)",
+                                                 f).group(1))].strip('"')
+        return name, int(re.search(r"line=(\d+)", f).group(1))
+
+    def looks_up(line):
+        op = re.search(r'op_name="([^"]*)"', line)
+        frame = re.search(r"stack_frame_id=(\d+)", line)
+        if not op or not frame or not (
+                op.group(1).endswith("/gather")
+                or op.group(1).endswith("transpose(jvp())/scatter-add")):
+            return False
+        name, n = source(int(frame.group(1)))
+        return name.endswith("models/transformer.py") and \
+            '["embed"].astype(cd)[token' in linecache.getline(name, n)
+    lines = hlo.splitlines()
+    tags = [axis(l) if _COLLECTIVE_RE.search(l) and looks_up(l) else
+            "other" if _COLLECTIVE_RE.search(l) else None for l in lines]
     read = {}
     for ax in ("data", "model", "both", "none"):
         keep = "\n".join(l for l, t in zip(lines, tags) if t in (None, ax))
@@ -998,11 +1214,13 @@ from repro.models.transformer import TransformerLM
 from repro.train.state import make_train_step, new_train_state
 
 args = json.loads(open(sys.argv[1]).read())
-mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-ns = lambda s: NamedSharding(mesh, s)
-bs = ns(P("data", None))
 steps = {}
 for i, case in enumerate(args["cases"]):
+    D, MODEL = case["mesh"]
+    mesh = Mesh(np.array(jax.devices()[:D * MODEL]).reshape(D, MODEL),
+                ("data", "model"))
+    ns = lambda s: NamedSharding(mesh, s)
+    bs = ns(P("data", None))
     kw = dict(case["cfg"])
     if kw.get("moe"):
         kw["moe"] = MoEConfig(**kw["moe"])
@@ -1010,7 +1228,8 @@ for i, case in enumerate(args["cases"]):
     model = TransformerLM(cfg, moe_group_size=case["group"],
                           act_spec=P("data", None, None))
     state = new_train_state(model.init(jax.random.PRNGKey(0)))
-    key = json.dumps([case["cfg"], case["group"], case["micro"]])
+    key = json.dumps([case["cfg"], case["group"], case["micro"],
+                      case["mesh"]])
     if key not in steps:
         specs = state_specs_like(lm_param_specs(state.params, cfg, "tp2d"))
         steps[key] = jax.jit(
@@ -1025,7 +1244,11 @@ for i, case in enumerate(args["cases"]):
         with mesh:
             hlo = step.lower(state, tokens, labels).compile().as_text()
         out.update(kinds=read_hlo(hlo), gathers=data_gathers(hlo),
-                   slices=reduce_then_slice(hlo))
+                   slices=reduce_then_slice(hlo),
+                   lookup=lookup_collectives(hlo))
+    if not case["batches"][1:]:             # the HLO alone
+        print(f"CASE {i} " + json.dumps(out), flush=True)
+        continue
     metrics = []
     with mesh:
         for tokens, labels in case["batches"]:
@@ -1043,11 +1266,16 @@ for i, case in enumerate(args["cases"]):
 '''
 
 # the reference runs of this file, one child process for all of them: the
-# ``tp2d`` step for both ``moe_shard`` values (group 16, its HLO read) and
-# fault 8's groups across the batch shards (group 64, both row kinds)
+# ``tp2d`` step for both ``moe_shard`` values (group 16, its HLO read, at
+# 2 microbatches and, HLO alone, at 1) and fault 8's groups across the
+# batch shards (group 64, both row kinds) on 2 x 2; the HLO alone at 1
+# microbatch on 4 x 4 and 1 x 4 (16 host devices)
 REFERENCE_CASES = ([("expert", 16, "random"), ("ffn", 16, "random")]
                    + [(ms, 64, rows) for ms in ("expert", "ffn")
-                      for rows in ("same", "random")])
+                      for rows in ("same", "random")]
+                   + [("expert", 16, "hlo-m1"), ("ffn", 16, "hlo-m1")]
+                   + [("expert", 16, "hlo-4x4"), ("expert", 16, "hlo-1x4")])
+HLO_MESH = {"hlo-4x4": (4, 4), "hlo-1x4": (1, 4)}
 
 
 @pytest.fixture(scope="module")
@@ -1061,7 +1289,12 @@ def reference_runs(tmp_path_factory):
         batches = _batches(cfg)
         if rows == "same":
             batches = _same_rows(batches)
-        cases.append({"cfg": dataclasses.asdict(cfg), "micro": 2,
+        hlo_alone = rows.startswith("hlo-")
+        if hlo_alone:
+            batches = batches[:1]
+        cases.append({"cfg": dataclasses.asdict(cfg),
+                      "mesh": HLO_MESH.get(rows, (2, 2)),
+                      "micro": 1 if hlo_alone else 2,
                       "group": group, "hlo": group == 16,
                       "out": str(tmp / f"{moe_shard}_{group}_{rows}.npz"),
                       "batches": [[t.tolist() for t in b] for b in batches]})
@@ -1070,7 +1303,7 @@ def reference_runs(tmp_path_factory):
         k: getattr(TCFG, k) for k in ("learning_rate", "warmup_steps",
                                       "total_steps")}}))
     env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=16"
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.path.join(REPO, "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -1127,6 +1360,118 @@ def _by_axis(mesh, moves):
               "model" if a["data"] == b["data"] else "both")
         out[f"{name} {ax}"] = out.get(f"{name} {ax}", 0) + n
     return dict(sorted(out.items()))
+
+
+# the port's lookup collectives by the HLO collective each stands for;
+# its own re-layouts, which the reference does not run, stand for none
+LOOKUP_KINDS = {"emb_ids_permute": "collective-permute",
+                "emb_ids_gather": "all-gather",
+                "emb_rows_model": "all-reduce",
+                "emb_rows_data": "all-to-all",
+                "emb_grad_data": "all-to-all"}
+PORT_ONLY_LOOKUP = {"emb_rows_relayout", "emb_rows_home", "emb_grad_home"}
+
+
+def lookup_by_kind(mesh, moves):
+    """The port's lookup bytes by ``"kind axis"`` a chip, in the units in
+    which ``lookup_collectives`` reads the HLO's (``collective_bytes``'
+    operand bytes a chip): each move of a lookup collective by the HLO
+    collective it stands for and the axis its ends differ on, the most
+    one position receives, over what a position receives of one operand
+    in a group of G along that axis: G − 1 operands of an all-gather (each
+    member's contribution) and of an all-to-all (one piece from each
+    other member), 2(G − 1)/G of an all-reduce's (its reduce-scatter and
+    all-gather), one of a collective-permute's. (The HLO's operand bytes
+    count a collective-permute's pairs from a device to itself; those
+    positions move nothing.) Moves of any other name are left out, the
+    port's own re-layouts apart: (by kind, theirs by name)."""
+    got, own = {}, {}
+    for (name, frm, to), n in moves.items():
+        if name in PORT_ONLY_LOOKUP:
+            own[name] = own.get(name, 0) + n
+        if name not in LOOKUP_KINDS:
+            continue
+        a, b = mesh.coords(frm), mesh.coords(to)
+        ax = ("data" if a["model"] == b["model"] else
+              "model" if a["data"] == b["data"] else "both")
+        at = got.setdefault((LOOKUP_KINDS[name], ax), {})
+        at[to] = at.get(to, 0) + n
+    out = {}
+    for (kind, ax), at in sorted(got.items()):
+        G = mesh.axis_size(ax) if ax != "both" else 2
+        per = {"all-gather": G - 1, "all-to-all": G - 1,
+               "all-reduce": Fraction(2 * (G - 1), G),
+               "collective-permute": 1}[kind]
+        n = Fraction(max(at.values())) / per
+        assert n.denominator == 1, (kind, ax, max(at.values()), G)
+        out[f"{kind} {ax}"] = int(n)
+    return out, own
+
+
+# the lookup's reference cases: (moe_shard, microbatches, mesh)
+LOOKUP_CASES = [("expert", 1, (2, 2)), ("expert", 2, (2, 2)),
+                ("ffn", 1, (2, 2)), ("ffn", 2, (2, 2)),
+                ("expert", 1, (4, 4)), ("expert", 1, (1, 4))]
+
+
+@pytest.mark.parametrize("moe_shard,micro,shape", LOOKUP_CASES,
+                         ids=[f"{ms}-{m}-{d}x{n}"
+                              for ms, m, (d, n) in LOOKUP_CASES])
+def test_tp2d_lookup_moves_as_the_reference(reference_runs, moe_shard,
+                                            micro, shape):
+    """The train step's lookup against the reference's jitted step
+    (qwen3-moe SMOKE, 16 experts, 8 × 16 tokens) on the 2 × 2 mesh at 1
+    and 2 microbatches, and on 4 × 4 and 1 × 4 at 1: the port's lookup
+    bytes a step by kind and axis a chip (:func:`lookup_by_kind`) equal,
+    to the byte, the HLO's collectives of the embedding's gather and its
+    transpose (the child's ``lookup_collectives``): the ids'
+    collective-permute between the off-diagonal positions and all-gather
+    along "model", the partial rows' all-reduce over "model", and the
+    all-to-all along "data" of the rows and of their gradients; on 1 × 4
+    the all-reduce alone."""
+    cfg = _moe_shard(MOE16, moe_shard)
+    rows = ("random" if micro == 2 else
+            next((k for k, v in HLO_MESH.items() if v == shape), "hlo-m1"))
+    read, _ = reference_runs[(moe_shard, 16, rows)]
+    moves = []
+    _run(cfg, shape, micro, P("data", None), steps=1, reference=False,
+         moves=moves)
+    got, own = lookup_by_kind(_mesh(shape), moves[0])
+    print(f"\nlookup ({moe_shard}, {micro} microbatch(es), {shape}): "
+          f"reference HLO {read['lookup']}; the port {got}")
+    assert got == read["lookup"]
+    assert set(read["lookup"]) == (
+        {"all-reduce model"} if shape[0] == 1 else
+        {"collective-permute both", "all-gather model", "all-reduce model",
+         "all-to-all data"})
+    assert not own
+
+
+@pytest.mark.parametrize("shape,B,S", [((16, 16), 256, 4096),
+                                       ((2, 4), 8, 64), ((4, 2), 8, 64)],
+                         ids=["16x16", "2x4", "4x2"])
+def test_tp2d_lookup_bytes_by_chip_smoke_formula(shape, B, S):
+    """The train step's lookup, forward and backward, of smollm-135m's
+    table (49,152 × 576, rows in bf16) on a meta mesh: on the production
+    16 × 16 at train_4k's one microbatch of 256 × 4,096 tokens split over
+    "data", and on two meshes that are not square (the ids gathered along
+    "data"): its bytes equal ``chip_smoke.lookup_want``'s to the byte, the
+    fold over "model" 2(M − 1)/M of the partial rows into each position."""
+    import chip_smoke
+    D, M = shape
+    mesh = Mesh(shape, ("data", "model"), ["meta"] * (D * M))
+    placed = device_put(torch.empty((49152, 576), device="meta"), mesh,
+                        P("model", "data"))
+    view = TPView(placed, batch_groups(mesh, "data")[1])
+    ids = [torch.empty((B // D, S), dtype=torch.int32, device="meta")
+           for _ in range(D)]
+    got = view.take_rows(Rows([ids[view.shard[p]] for p in range(mesh.size)],
+                              list(range(mesh.size)), mesh), torch.bfloat16)
+    seeds = [p for p in range(mesh.size) if view.collects(p)]
+    torch.autograd.backward([got.parts[p] for p in seeds],
+                            [torch.empty_like(got.parts[p]) for p in seeds])
+    assert dict(mesh.bytes) == chip_smoke.lookup_want(
+        shape, placed.layout.counts, B // D * S, 576, 2, 4, "train")
 
 
 @pytest.mark.parametrize("moe_shard", ["expert", "ffn"])
