@@ -1794,12 +1794,13 @@ def sharded_launch_want(n_model: int,
 def sharded_steps(tag, step, state, mesh, pipe, first: int, n: int,
                   n_model: int, total: dict, prof=None, want=None,
                   label: str = "train-sharded",
-                  tokens: int = TRAIN_BATCH * TRAIN_SEQ):
+                  tokens: int = TRAIN_BATCH * TRAIN_SEQ, lookup=None):
     """Run ``n`` sharded steps on batches ``first``, …: per step the
     launches (set to 0 before, read after, checked exactly against
     ``want``, by default ``sharded_launch_want(n_model)``), loss, grad
     norm, time, tokens/s, peak memory, bytes held per mesh position and
-    the collectives' bytes. Returns (state, rows)."""
+    the collectives' bytes, the lookup's (``emb_*``) checked exactly
+    against ``lookup`` where given. Returns (state, rows)."""
     import torch
     from repro_torch.distrib.sharding import position_bytes
     rows = []
@@ -1835,6 +1836,10 @@ def sharded_steps(tag, step, state, mesh, pipe, first: int, n: int,
             f"{dict(mesh.bytes)}")
         check(got == want, f"{label} {tag} step {i}: launches {got}, "
                            f"want {want}")
+        emb = {k: v for k, v in mesh.bytes.items() if k.startswith("emb_")}
+        check(lookup is None or emb == lookup,
+              f"{label} {tag} step {i}: the lookup moved {emb}, the formula "
+              f"{lookup}")
     return state, rows
 
 
@@ -1856,7 +1861,10 @@ def phase_train_sharded(train_lm: dict, profile: bool = False):
     within ``SHARD_LOSS_RTOL``; grad norms and each leaf's AdamW first
     moment within ``TP_LEAF_FACTOR`` times an f32 one-card control's gap;
     bytes (b)'s at M = D plus the sums over the homes (``loss_sum``,
-    ``moe_aux_sum``), exactly; the peak printed. (d) (b)'s model on
+    ``moe_aux_sum``), exactly, but the lookup, whose two batch shards are
+    looked up at once; the peak printed. Every case's lookup of the table
+    where its rows lie (``emb_*``) is held to :func:`fsdp_lookup_want`
+    exactly, a step at a time. (d) (b)'s model on
     ``SPAN_BATCH`` x ``SPAN_SEQ`` tokens with MoE groups of
     ``SPAN_GROUP``: one group spans both batch shards, which run at the
     first home (``train_span``): bitwise one card's step at one
@@ -1908,8 +1916,13 @@ def phase_train_sharded(train_lm: dict, profile: bool = False):
     step = make_sharded_train_step(model.loss, tcfg, mesh, specs, bspec,
                                    TRAIN_MICRO)
     prof = CollectiveProfiler("train-sharded (a) 2x2") if profile else None
+    # each batch shard's microbatch looked up alone, where the table's
+    # rows lie (fsdp_lookup_want)
+    per_shard = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+    lookup_2x2 = fsdp_lookup_want(cfg, (2, 2), [[(0, per_shard)],
+                                                [(1, per_shard)]], True)
     state, rows_a = sharded_steps("(a)", step, state, mesh, pipe, 0, 2, 1,
-                                  total, prof)
+                                  total, prof, lookup=lookup_2x2)
     if prof is not None:
         out["profile_a"] = prof.spans
     plan = plan_elastic(mesh.shape, mesh.axis_names, failed_devices=2)
@@ -1926,8 +1939,10 @@ def phase_train_sharded(train_lm: dict, profile: bool = False):
         f"{reshard_s:.2f} s, {dict(mesh.bytes)} B moved")
     step = make_sharded_train_step(model.loss, tcfg, small, specs, bspec,
                                    TRAIN_MICRO)
-    state, rows_a2 = sharded_steps("(a)", step, state, small, pipe, 2,
-                                   TRAIN_STEPS - 2, 1, total)
+    state, rows_a2 = sharded_steps(
+        "(a)", step, state, small, pipe, 2, TRAIN_STEPS - 2, 1, total,
+        lookup=fsdp_lookup_want(cfg, small.shape,
+                                [[(0, per_shard)]] * TRAIN_MICRO, True))
     rows_a += rows_a2
     got = [(r["loss"], r["grad_norm"]) for r in rows_a]
     want = list(zip(train_lm["losses"], train_lm["grad_norm"]))
@@ -1958,8 +1973,9 @@ def phase_train_sharded(train_lm: dict, profile: bool = False):
                                        TRAIN_MICRO)
         prof = (CollectiveProfiler(f"train-sharded (b) {name}")
                 if profile and name == "2x2" else None)
-        state, rows = sharded_steps(f"(b) {name}", step, state, on, pipe, 0,
-                                    2, n_model, total, prof)
+        state, rows = sharded_steps(
+            f"(b) {name}", step, state, on, pipe, 0, 2, n_model, total, prof,
+            lookup=lookup_2x2 if name == "2x2" else {})
         if prof is not None:
             out["profile_b"] = prof.spans
         runs[name] = (rows, state_digests(state))
@@ -1993,18 +2009,24 @@ def phase_train_sharded(train_lm: dict, profile: bool = False):
     names = leaf_names(state.params)
     step = make_sharded_train_step(model.loss, tcfg, mesh, specs, bspec, 1,
                                    moe_span=model.moe_span)
+    # the microbatch's two batch shards looked up at once
+    half = TRAIN_BATCH // 2 * TRAIN_SEQ
+    lookup_c = fsdp_lookup_want(cfg, (2, 2), [[(0, half), (1, half)]], True)
     state, rows_c = sharded_steps("(c)", step, state, mesh, pipe, 0,
-                                  TP_TRAIN_STEPS, 2, total)
+                                  TP_TRAIN_STEPS, 2, total, lookup=lookup_c)
     gaps = moment_gaps(state, ref)
     del state, step, ref
     torch.cuda.empty_cache()
     E, L = cfg.moe.n_experts, cfg.n_layers
     again = 2 if cfg.remat in ("full", "dots") else 1
-    # (b)'s moves at M = D, and the sums over the two homes: each home's
-    # loss sum and count, each layer's E aux means and E counts (again in
-    # remat's recompute)
-    bytes_want = dict(rows_ep[0]["collective_bytes"])
-    bytes_want.update(loss_sum=2 * 8, moe_aux_sum=again * L * 2 * 8 * E)
+    # (b)'s moves at M = D but the lookup, the lookup of both shards at
+    # once, and the sums over the two homes: each home's loss sum and
+    # count, each layer's E aux means and E counts (again in remat's
+    # recompute)
+    bytes_want = {k: v for k, v in rows_ep[0]["collective_bytes"].items()
+                  if not k.startswith("emb_")}
+    bytes_want.update(lookup_c, loss_sum=2 * 8,
+                      moe_aux_sum=again * L * 2 * 8 * E)
     off = [{k: (r["collective_bytes"].get(k), bytes_want.get(k))
             for k in set(r["collective_bytes"]) | set(bytes_want)
             if r["collective_bytes"].get(k) != bytes_want.get(k)}
@@ -2052,7 +2074,9 @@ def phase_train_sharded(train_lm: dict, profile: bool = False):
     state, rows_d = sharded_steps(
         "(d)", step, state, mesh, pipe_d, 0, TP_TRAIN_STEPS, 2, total,
         want=sharded_launch_want(2, forwards=1),
-        tokens=SPAN_BATCH * SPAN_SEQ)
+        tokens=SPAN_BATCH * SPAN_SEQ,
+        lookup=fsdp_lookup_want(cfg, (2, 2),
+                                [[(0, SPAN_BATCH * SPAN_SEQ)]], True))
     gaps = moment_gaps(state, ref)
     del state, step, ref
     torch.cuda.empty_cache()
@@ -2640,6 +2664,133 @@ def lookup_want(shape, counts, rows: int, d: int, c: int, id_bytes: int,
     return {k: v for k, v in out.items() if v}
 
 
+def row_lookup_want(shape, axes, lookups, e: int, c: int, id_bytes: int,
+                    train: bool) -> dict:
+    """The bytes of lookups in a table split along its rows only, over
+    the mesh axes ``axes`` (("data", "model"): the ``fsdp`` LM table;
+    ("model",): BST's tables; ("data",): the ``fsdp`` LM table where 256
+    does not divide its rows), on a ("data", "model") mesh of ``shape``
+    with the batch over "data" (batch shard d at its home (d, 0)), as the
+    reference's partitioner forms them: ``lookups`` holds per lookup its
+    homes' (d, ids) in batch order, each row ``e`` wide in a ``c``-byte
+    dtype, ``id_bytes`` an id. A home reads the blocks of its group where
+    it holds them (each block's first holder else); of a table over
+    "data" alone, with "model" longer than 1, the blocks of its "model"
+    column (``collectives._column``: shard d on column d when the axes are
+    equal, D / M shards a column when M divides D, one column a shard when
+    D divides M). A lookup's homes that read the same blocks are looked up
+    together. Each home's ids go to the positions of its group on the
+    lines of those blocks along "data" (``emb_ids_home``: the port's batch
+    lies at the home only), then along "data" to each block's position
+    (``emb_ids_gather``); on a column straight to where they land
+    (``emb_ids_permute``, or ``emb_ids_home`` inside the group), then
+    along "data" to the rest of it. The partial rows of the K blocks are
+    reduce-scattered over their positions ((K − 1)·T, T all the homes'
+    rows) and every folded chunk all-gathered to each home, or on a column
+    to the first position where the home's ids land (T less the
+    receiver's own chunk: ``emb_rows_fold``), which sends the home its
+    rows (``emb_rows_permute``); in training the gradient rows go the
+    ids' way (``emb_grad_home``, ``emb_grad_permute``,
+    ``emb_grad_gather``)."""
+    import collections
+    D, M = shape
+    out = collections.Counter()
+    columns = tuple(axes) == ("data",) and M > 1
+
+    def column(d):
+        if D > M and D % M == 0:
+            g = D // M
+            return d // g, [M * (d % g) + k for k in range(M)]
+        return d * M // D, list(range(D))
+    def blocks(d):
+        """Home d's blocks' positions (data, model), block order."""
+        if set(axes) == {"data", "model"}:
+            return tuple((a, b) for a in range(D) for b in range(M))
+        if tuple(axes) == ("model",):
+            return tuple((d, b) for b in range(M))
+        if tuple(axes) == ("data",):
+            return tuple((a, column(d)[0] if columns else 0)
+                         for a in range(D))
+        raise ValueError(f"row_lookup_want: rows over {axes}")
+    sets = []
+    for homes in lookups:       # the homes that read the same blocks
+        by = {}
+        for d, n in homes:
+            by.setdefault(blocks(d), []).append((d, n))
+        sets.extend(by.items())
+    for srcs, homes in sets:
+        srcs = list(srcs)
+        K = len(srcs)
+        T = sum(n for _, n in homes) * e     # entries; chunks cut by entry
+        cut = [k * T // K for k in range(K + 1)]
+        out["emb_rows_fold"] += (K - 1) * T * c
+        relays = {}
+        for d, n in homes:
+            hops = set()
+            for q in srcs:
+                if q == (d, 0):
+                    continue
+                if columns:
+                    col, land = column(d)
+                    r = q if q[0] in land else (land[0] + q[0] % len(land),
+                                                col)
+                    relays[d] = (land[0], col)
+                    hops.add(("home" if r[0] == d else "permute",
+                              (d, 0), r))
+                    hops.add(("gather", r, q))
+                elif q[0] == d:
+                    hops.add(("home", (d, 0), q))
+                else:
+                    hops.add(("home", (d, 0), (d, q[1])))
+                    hops.add(("gather", (d, q[1]), q))
+            relays.setdefault(d, (d, 0))
+            if relays[d] != (d, 0):
+                out["emb_rows_permute"] += n * e * c
+            for kind, frm, to in hops:
+                if frm == to:
+                    continue
+                out[f"emb_ids_{kind}"] += n * id_bytes
+                if train:
+                    out[f"emb_grad_{kind}"] += n * e * c
+        for r in dict.fromkeys(relays.values()):
+            own = srcs.index(r) if r in srcs else None
+            out["emb_rows_fold"] += (T - (0 if own is None else
+                                          cut[own + 1] - cut[own])) * c
+    return {k: v for k, v in out.items() if v}
+
+
+def fsdp_lookup_want(cfg, shape, lookups, train: bool,
+                     id_bytes: int = 4) -> dict:
+    """:func:`row_lookup_want` of the LM table under the ``fsdp`` rules
+    (its spec on a meta mesh of ``shape``), rows in the compute dtype;
+    none for a tied table, which the head gathers whole and the lookup
+    reads there."""
+    import torch
+    if cfg.tie_embeddings:
+        return {}
+    from repro_torch.distrib.sharding import entry_axes, lm_param_specs
+    from repro_torch.models.transformer import TransformerLM
+    params = TransformerLM(cfg).init(torch.Generator(), device="meta")
+    spec = lm_param_specs(params, cfg, "fsdp")["embed"]
+    c = 2 if cfg.dtype == "bfloat16" else 4
+    return row_lookup_want(shape, entry_axes(spec[0]), lookups,
+                           cfg.d_model, c, id_bytes, train)
+
+
+def bst_lookup_want(cfg, shape, homes, train: bool = True) -> dict:
+    """:func:`row_lookup_want` of BST's item table (P("model", None)) and
+    user tables (P(None, "model", None)), f32 rows, int32 ids: per entry
+    ``(d, b)`` of ``homes`` batch shard d's home looks up its ``b`` users'
+    S + 1 items and F user features once, in two lookups of its own."""
+    import collections
+    out = collections.Counter()
+    for n in (cfg.seq_len + 1, cfg.n_user_feats):
+        out.update(row_lookup_want(shape, ("model",),
+                                   [[(d, b * n)] for d, b in homes],
+                                   cfg.embed_dim, 4, 4, train))
+    return dict(out)
+
+
 def tp2d_bytes_want(cfg, shape, rows: int, rounds: int, group: int) -> dict:
     """Every collective's bytes of one ``make_tp2d_train_step`` step on a
     ("data", "model") mesh of ``shape``, the batch split over "data", one
@@ -2958,7 +3109,7 @@ def serve_tp2d_bytes_want(cfg, shape, batch: int, seq: int, kind: str,
 
 
 def serve_fsdp_bytes_want(cfg, shape, batch: int, seq: int, group: int,
-                          capacity: int) -> dict:
+                          capacity: int, id_bytes: int = 4) -> dict:
     """Every collective's bytes of one ``fsdp`` prefill of ``batch``
     sequences of ``seq`` tokens split over "data" on a ("data", "model")
     mesh of ``shape`` (``distrib/serving.py``), the cache placed with room
@@ -2975,7 +3126,9 @@ def serve_fsdp_bytes_want(cfg, shape, batch: int, seq: int, group: int,
     a routing group spans several batch shards, each run of them is
     computed at its first home over the run's rows, and the run's other
     shards get their last logits and their keys and values from there
-    (``prefill_span``)."""
+    (``prefill_span``). A table split along its rows only is not gathered
+    but for a tied head: every run's tokens (``id_bytes`` an id) are
+    looked up at once where the rows lie (:func:`fsdp_lookup_want`)."""
     import collections
     import torch
     from repro_torch.distrib.collectives import batch_groups
@@ -3018,9 +3171,16 @@ def serve_fsdp_bytes_want(cfg, shape, batch: int, seq: int, group: int,
             lp = {**lp, "moe": {"router": lp["moe"]["router"]}}
             sp = {**sp, "moe": {"router": sp["moe"]["router"]}}
         map_with_specs(gathered, lp, sp)
-    map_with_specs(gathered,
-                   {k: v for k, v in params.items() if k != "layers"},
-                   {k: v for k, v in specs.items() if k != "layers"})
+    table = Layout(mesh, specs["embed"], params["embed"].shape).counts
+    looked = table[0] > 1 and table[1] == 1
+    top = [k for k in params if k != "layers" and not (
+        k == "embed" and looked and not cfg.tie_embeddings)]
+    map_with_specs(gathered, {k: params[k] for k in top},
+                   {k: specs[k] for k in top})
+    if looked:
+        moved.update(fsdp_lookup_want(
+            cfg, shape, [[(r, span * Bd * seq) for r in range(0, D, span)]],
+            False, id_bytes))
     cache = Layout(mesh, lm_cache_specs(False, batch),
                    (cfg.n_layers, batch, capacity, cfg.n_kv_heads,
                     cfg.head_dim))
@@ -5786,7 +5946,11 @@ def phase_train_sharded_bst(profile: bool = False):
     crossing once (``loss_sum``); then the same cell's step at two
     microbatches, one a batch shard: losses, grad norms and every leaf's
     digest bitwise ``make_train_step(model.loss, TCFG, microbatches=2)``
-    on one card; no ``all_gather`` byte of the item table. Then serve_p99, serve_bulk and retrieval_cand on the mesh
+    on one card; no ``all_gather`` byte of the item table; at both the
+    lookups' bytes (``emb_*``: each home's users' items and features
+    looked up where the tables' rows lie) exactly
+    :func:`bst_lookup_want`'s. Then serve_p99, serve_bulk and
+    retrieval_cand on the mesh
     (serving replicates the item table): within ``BST_MESH_TOL`` of one
     card's outputs, each repeating bitwise, p50 over ``BST_REPS`` warm
     calls. Launch counts set to 0 before and read after."""
@@ -5847,6 +6011,16 @@ def phase_train_sharded_bst(profile: bool = False):
           f"{one[1][0]} {one[1][1]}")
     check(c1[0].get("loss_sum") == 2 * 8,
           f"train-sharded-bst: loss_sum {c1[0].get('loss_sum')} B")
+    # each home looks its half of the users up where the tables' rows lie,
+    # at one microbatch and at two (one a batch shard) alike
+    lookup = bst_lookup_want(cfg, (2, 2), [(0, B // 2), (1, B // 2)])
+    emb1 = [{k: v for k, v in c.items() if k.startswith("emb_")}
+            for c in c1]
+    say(f"  train-sharded-bst: the lookups' bytes a step at 1 microbatch "
+        f"{emb1}, the formula (bst_lookup_want) {lookup}")
+    check(all(e == lookup for e in emb1),
+          f"train-sharded-bst: at 1 microbatch the lookups moved {emb1}, "
+          f"the formula {lookup}")
     one_l, one_g, one_s, one_d = one[2]
     cell = bst_cell(arch, "train_batch", "cuda", mesh=mesh)
     specs, ispecs = cell.in_shardings
@@ -5880,6 +6054,11 @@ def phase_train_sharded_bst(profile: bool = False):
     gathered = mc[0].get("all_gather", 0)
     check(0 < gathered < table, f"train-sharded-bst: all_gather moved "
                                 f"{gathered} B, the item table is {table} B")
+    emb2 = [{k: v for k, v in c.items() if k.startswith("emb_")}
+            for c in mc]
+    check(all(e == lookup for e in emb2),
+          f"train-sharded-bst: at 2 microbatches the lookups moved {emb2}, "
+          f"the formula {lookup}")
     out = dict(batch=B, losses=ml, grad_norm=mg, step_s=ms, one_card_s=one_s,
                bitwise=same, emb_bytes=emb, table_bytes=table,
                collective_bytes=mc[0], position_bytes=held, peak_bytes=peak,
@@ -6351,7 +6530,7 @@ def phase_serve_sharded_lm(profile: bool = False):
                                       prompt.element_size())
                 if policy == "tp2d" else
                 serve_fsdp_bytes_want(cfg, mesh.shape, B, S, group,
-                                      S + n_tok))
+                                      S + n_tok, prompt.element_size()))
         pre = lm_roofline(cfg, "prefill", B, S)
         dec = lm_roofline(cfg, "decode", B, S + n_tok // 2)
         dec_step = a["decode_s"] / (n_tok - 1)
@@ -6578,11 +6757,12 @@ def serve_sharded_fault7(mesh, total: dict) -> dict:
         total[k] = total.get(k, 0) + v
     got_bytes = dict(mesh.bytes)
     say(f"  serve-sharded-lm (vi) the lookup's bytes by name and axis "
-        f"(the fsdp prefill gathers its table whole: none expected): "
-        f"prefill {lookup_by_axis(mesh)}")
+        f"(the run's tokens at its home, looked up where the table's rows "
+        f"lie): prefill {lookup_by_axis(mesh)}")
     del cache, placed
     torch.cuda.empty_cache()
-    bytes_want = serve_fsdp_bytes_want(cfg, mesh.shape, B, S, group, S)
+    bytes_want = serve_fsdp_bytes_want(cfg, mesh.shape, B, S, group, S,
+                                       prompt.element_size())
     # one run of both batch shards at the first home: flash once a layer,
     # the experts' three products at each of the 2 expert shards
     M = mesh.axis_size("model")

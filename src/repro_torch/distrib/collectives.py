@@ -9,10 +9,11 @@ Each one adds the bytes it moves between positions to ``mesh.bytes``
 under its name (``all_gather``, ``all_gather_grad``, ``expert_send``,
 ``node_send``, ``user_send``, ``grad_psum``, ``grad_send``,
 ``norm_gather``, ``reshard``, ``edge_psum``, ``edge_gather``,
-``edge_scatter``, ``emb_ids``, ``emb_rows``, ``emb_grad``,
-``emb_ids_permute``, ``emb_ids_gather``, ``emb_rows_model``,
-``emb_rows_data``, ``emb_rows_relayout``, ``emb_rows_home``,
-``emb_grad_data``, ``emb_grad_home``, ``tp_act``,
+``edge_scatter``, ``emb_ids_home``, ``emb_rows_fold``,
+``emb_grad_gather``, ``emb_rows_permute``, ``emb_grad_permute``,
+``emb_ids_permute``, ``emb_ids_gather``,
+``emb_rows_model``, ``emb_rows_data``, ``emb_rows_relayout``,
+``emb_rows_home``, ``emb_grad_data``, ``emb_grad_home``, ``tp_act``,
 ``tp_partial``, ``tp_grad_act``, ``tp_grad_partial``, ``xent_stats``,
 ``tp_zero_gather``, ``tp_zero_scatter``, ``tp_model_sum``,
 ``tp_heads_gather``, ``expert_gather``, ``tp_rows_gather``,
@@ -34,11 +35,14 @@ device; the gather's backward hands each block its slice of the gradient.
 ``moe_block`` sends each expert shard's slice of the dispatch buffer there
 (:func:`send`) and brings the products back. ``take_rows`` and
 ``take_along_fields`` look rows up in a table split along its rows (BST's
-item table) or its vocab axis (its user tables) where the rows lie, so the
-table is never gathered whole. The LM's ``embed`` under ``tp2d``, split on
-its rows over "model" and its columns over "data", is looked up as the
-reference's partitioner forms the lookup (:func:`take_rows_two_axis`,
-through ``TPView.take_rows`` and ``StationaryView.take_rows``).
+item table, the LM's ``embed`` under ``fsdp``) or its vocab axis (BST's
+user tables) where the rows lie, as the reference's partitioner forms the
+lookup (:func:`take_rows_where_they_lie`; ``HomeViews.take_rows`` looks
+several homes' batch up at once), so the table is never gathered whole.
+The LM's ``embed`` under ``tp2d``, split on its rows over "model" and its
+columns over "data", is looked up as the reference's partitioner forms
+that lookup (:func:`take_rows_two_axis`, through ``TPView.take_rows`` and
+``StationaryView.take_rows``).
 With ``grad=False`` (the sharded serving steps under ``fsdp``) a view reads
 the shards as they are.
 
@@ -109,10 +113,11 @@ from repro_torch.sparse.segment import (from_end, segment_sum,
 # profiler ranges of the sharded train steps
 SPANS = ("all_gather", "all_gather_grad", "expert_send", "node_send",
          "user_send", "grad_psum", "norm_gather", "adamw", "edge_psum",
-         "edge_gather", "edge_scatter", "emb_ids", "emb_rows", "emb_grad",
-         "emb_ids_permute", "emb_ids_gather", "emb_rows_model",
-         "emb_rows_data", "emb_rows_relayout", "emb_rows_home",
-         "emb_grad_data", "emb_grad_home",
+         "edge_gather", "edge_scatter", "emb_ids_home", "emb_rows_fold",
+         "emb_grad_gather", "emb_rows_permute", "emb_grad_permute",
+         "emb_ids_permute", "emb_ids_gather",
+         "emb_rows_model", "emb_rows_data", "emb_rows_relayout",
+         "emb_rows_home", "emb_grad_data", "emb_grad_home",
          "tp_act", "tp_partial", "tp_grad_act", "tp_grad_partial",
          "xent_stats", "tp_zero_gather", "tp_zero_scatter", "tp_model_sum",
          "tp_heads_gather", "expert_gather", "tp_rows_gather",
@@ -242,94 +247,6 @@ def send(x: torch.Tensor, mesh, src: int, dst: int,
     """``x`` (at position ``src``) copied, contiguous, to position
     ``dst``'s device; differentiable; counted under ``name``."""
     return _Send.apply(x, mesh, src, dst, name)
-
-
-def _select_rows(mesh, home: int, dim: int, n: int, ids, sources,
-                 parts) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """:class:`_Lookup`'s forward: the rows of ``ids`` (at ``home``) from K
-    equal blocks along ``dim`` (block k at position ``sources[k]``), and
-    each block's offsets of the ids."""
-    rows = parts[0].shape[dim]
-    with mesh.at(home):
-        j = from_end(ids, n)
-    offsets, out = [], None
-    for k, (src, part) in enumerate(zip(sources, parts)):
-        with span("emb_ids"), mesh.at(src), mesh.moving():
-            if src != home:
-                mesh.count("emb_ids", _nbytes(ids), frm=home, to=src)
-            j_k = ids.to(part.device)
-        with mesh.at(src):
-            local = from_end(j_k, n) - k * rows
-            offsets.append(local)
-            at = local.clamp(0, rows - 1)
-            if dim == 0:
-                r_k = part[at]
-            else:
-                fields = torch.arange(part.shape[0],
-                                      device=part.device)[None, :]
-                r_k = part[fields, at]
-        with span("emb_rows"), mesh.at(home), mesh.moving():
-            if src != home:
-                mesh.count("emb_rows", _nbytes(r_k), frm=src, to=home)
-            r_k = r_k.to(ids.device)
-        with mesh.at(home):
-            out = r_k if out is None else torch.where(
-                (j // rows == k)[..., None], r_k, out)
-    with mesh.at(home):
-        valid = (j >= 0) & (j < n)
-        out = out.masked_fill(~valid[..., None], float("nan"))
-    return out, offsets
-
-
-class _Lookup(torch.autograd.Function):
-    """Rows of a table split into K equal blocks along ``dim`` (0: rows,
-    ``take_rows``; 1: the vocab axis of (F, V, e) tables,
-    ``take_along_fields``), looked up where they lie. The home sends the
-    ids to each block's holder (``emb_ids``); the holder gathers, for every
-    id, the row of its block at the id's offset there (clamped into the
-    block) and sends them back (``emb_rows``); the home keeps, for each id,
-    the row of the block that owns it — a select, never a sum, so a −0.0
-    row stays −0.0 — and an id outside ``[-n, n)`` gives a NaN row. The
-    backward sends each holder the gradient rows in the home's order
-    (``emb_grad``); the holder sums them into its block
-    (:func:`_block_grad`), over the same rows in the same order as the
-    unsharded lookup's backward. Every id goes to every holder, so the
-    traffic does not depend on the ids' values and a meta run counts what
-    a run with values does."""
-
-    @staticmethod
-    def forward(ctx, mesh, home: int, dim: int, n: int, ids, sources,
-                *parts):
-        ctx.mesh, ctx.home, ctx.dim = mesh, home, dim
-        ctx.rows = parts[0].shape[dim]
-        ctx.sources = sources
-        ctx.devices = [p.device for p in parts]
-        ctx.part_shapes = [p.shape for p in parts]
-        out, offsets = _select_rows(mesh, home, dim, n, ids, sources, parts)
-        ctx.save_for_backward(*offsets)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        mesh, rows, dim = ctx.mesh, ctx.rows, ctx.dim
-        flat = grad.reshape(-1, grad.shape[-1])
-        out = []
-        for src, dev, local in zip(ctx.sources, ctx.devices,
-                                   ctx.saved_tensors):
-            with span("emb_grad"), mesh.at(src), mesh.moving():
-                if src != ctx.home:
-                    mesh.count("emb_grad", _nbytes(flat), frm=ctx.home,
-                               to=src)
-                g = flat.to(dev)
-            with mesh.at(src):
-                inside = (local >= 0) & (local < rows)
-                n = rows if dim == 0 else local.shape[-1] * rows
-                if dim == 1:
-                    fields = torch.arange(local.shape[-1], device=dev)
-                    local = fields * rows + local
-                g = _block_grad(g, local, inside, n)
-                out.append(g.reshape(ctx.part_shapes[len(out)]))
-        return (None, None, None, None, None, None, *out)
 
 
 def _block_grad(g: torch.Tensor, local: torch.Tensor, inside: torch.Tensor,
@@ -503,53 +420,20 @@ class _TwoAxisLookup(torch.autograd.Function):
                 parts.append(leaves[p][local[p].clamp(0, rows - 1)]
                              .to(dtype))
         del at
-        # the fold over "model", formed as an all-reduce's reduce-scatter
-        # and all-gather: the flattened partial rows cut into K chunks,
-        # chunk k folded at vocab block k's holder from every block's
-        # chunk (each entry from the block that owns its row: a select,
-        # never a sum, so a −0.0 row stays −0.0), then every folded chunk
-        # sent to the line's other positions
+        # the fold over "model": each line's partials folded at and sent to
+        # its own positions
         folded = [None] * mesh.size
         for srcs in dict.fromkeys(plan.fold):
-            K, T = len(srcs), parts[srcs[0]].numel()
-            cut = [k * T // K for k in range(K + 1)]
-            flat = [parts[q].reshape(-1) for q in srcs]
-            chunks = []
-            for k, dst in enumerate(srcs):
-                lo, size = cut[k], cut[k + 1] - cut[k]
-                with mesh.at(dst):
-                    e = parts[dst].shape[-1]
-                    owner = (j[dst] // rows).reshape(-1, 1).expand(-1, e) \
-                        .reshape(-1).narrow(0, lo, size)
-                    out = flat[k].narrow(0, lo, size)
-                for i, q in enumerate(srcs):
-                    if q == dst or not size:
-                        continue
-                    with span("emb_rows_model"), mesh.at(dst), \
-                            mesh.moving():
-                        piece = flat[i].narrow(0, lo, size)
-                        mesh.count("emb_rows_model", _nbytes(piece), frm=q,
-                                   to=dst)
-                        piece = piece.to(mesh.device(dst))
-                    with mesh.at(dst):
-                        out = torch.where(owner == i, piece, out)
-                chunks.append(out)
+            flat = _fold(mesh, srcs, [parts[q] for q in srcs],
+                         lambda q: _owners(j[q], rows, parts[q].shape[-1]),
+                         srcs, "emb_rows_model")
             for p in srcs:
-                pieces = []
-                for q, ch in zip(srcs, chunks):
-                    if q != p and ch.numel():
-                        with span("emb_rows_model"), mesh.at(p), \
-                                mesh.moving():
-                            mesh.count("emb_rows_model", _nbytes(ch), frm=q,
-                                       to=p)
-                            ch = ch.to(mesh.device(p))
-                    pieces.append(ch)
                 with mesh.at(p):
-                    out = torch.cat(pieces).reshape(parts[p].shape)
                     valid = (j[p] >= 0) & (j[p] < n)
-                    folded[p] = out.masked_fill(~valid[..., None],
-                                                float("nan"))
-        del parts, flat, chunks
+                    folded[p] = flat[p].reshape(parts[p].shape).masked_fill(
+                        ~valid[..., None], float("nan"))
+            del flat
+        del parts
         # each output's batch shard, its column blocks from the positions
         # of its "data" line that hold them
         name = names[0]
@@ -621,6 +505,60 @@ class _TwoAxisLookup(torch.autograd.Function):
         return (None,) * 7 + tuple(result)
 
 
+def _owners(j: torch.Tensor, rows: int, e: int) -> torch.Tensor:
+    """The block that owns each entry of the flattened (…, ``e``) rows of
+    the ids ``j`` (counted from the end), blocks of ``rows`` rows."""
+    return (j // rows).reshape(-1, 1).expand(-1, e).reshape(-1)
+
+
+def _fold(mesh, srcs: Sequence[int], parts: Sequence[torch.Tensor], owner,
+          to: Sequence[int], name: str) -> Dict[int, torch.Tensor]:
+    """The partial rows ``parts[k]`` of block k (its rows of every id, the
+    others masked), held at ``srcs[k]``, folded as an all-reduce's
+    reduce-scatter and all-gather move them: the flattened partials cut
+    into K chunks, chunk k folded at ``srcs[k]`` from every block's chunk,
+    each entry taken from the block that owns its row (``owner(q)``, at
+    ``q``: the owning block of each flattened entry) — a select, never a
+    sum, so a −0.0 row stays −0.0 — then every folded chunk sent to each
+    position of ``to``. Both halves count under ``name``. The folded
+    rows, flattened, at each position of ``to``."""
+    K, T = len(srcs), parts[0].numel()
+    cut = [k * T // K for k in range(K + 1)]
+    flat = []
+    for q, part in zip(srcs, parts):
+        with mesh.at(q):
+            flat.append(part.reshape(-1))
+    chunks = []
+    for k, dst in enumerate(srcs):
+        lo, size = cut[k], cut[k + 1] - cut[k]
+        with mesh.at(dst):
+            own = owner(dst).narrow(0, lo, size)
+            out = flat[k].narrow(0, lo, size)
+        for i, q in enumerate(srcs):
+            if q == dst or not size:
+                continue
+            with span(name), mesh.at(dst), mesh.moving():
+                piece = flat[i].narrow(0, lo, size)
+                mesh.count(name, _nbytes(piece), frm=q, to=dst)
+                piece = piece.to(mesh.device(dst))
+            with mesh.at(dst):
+                out = torch.where(own == i, piece, out)
+        chunks.append(out)
+    del flat
+    folded = {}
+    for p in to:
+        pieces = []
+        for q, ch in zip(srcs, chunks):
+            if q != p and ch.numel():
+                with span(name), mesh.at(p), mesh.moving():
+                    mesh.count(name, _nbytes(ch), frm=q, to=p)
+                    ch = ch.to(mesh.device(p))
+            pieces.append(ch)
+        with mesh.at(p):
+            folded[p] = torch.cat(pieces)
+    return folded
+
+
 def _shard_of(plan: _LookupPlan, held, o: int) -> int:
     """The batch shard whose rows output position ``o`` takes: the one
     its ids are, or with every shard at every position, ``o``'s place
@@ -664,6 +602,287 @@ def take_rows_two_axis(x: ShardedTensor, leaves, held, shard, outs,
                                      names, frozenset(grad_outs), *leaves))
 
 
+# -- a table split along its rows only, as the reference's partitioner forms
+#    the lookup ---------------------------------------------------------------
+#
+# BST's item table lies as P("model", None) (its user tables as P(None,
+# "model", None), split along their vocab axis) and the LM's ``embed`` under
+# ``fsdp`` as P(("data", "model"), None), the batch split over "data". The
+# reference's compiled train steps (read by
+# ``tests/test_torch_sharded_train.py`` and
+# ``tests/test_torch_sharded_gnn_bst.py``, its prefill by
+# ``tests/test_torch_tp_serve.py``, the lookup's collectives told apart by
+# their op and source line) form the lookup so: where the table's blocks lie
+# along the batch axes too (the LM's), the ids are gathered along "data"
+# (all-gather), so every position holds the whole batch's; each position
+# takes the rows of its own block, masked; the partial rows are all-reduced
+# over the positions of the blocks (both axes for the LM's table, "model"
+# for BST's), after which every position holds its rows whole. BST's user
+# tables ride in the item table's all-reduce (one tuple). The backward:
+# the gradient rows gathered along "data" where the ids were, then a
+# scatter-add into each position's own block, nothing else.
+#
+# A table whose rows split over "data" alone, each block repeated along
+# "model" (``fit_spec``'s fallback where 256 does not divide the vocabulary,
+# qwen3's 151,936 rows), the reference looks up on the "model" columns: the
+# batch is cut into one chunk a column (batch shard d on column d when the
+# axes are equal), the ids go from the batch shards to their column
+# (collective-permute, then an all-gather along "data" where a column takes
+# several shards), each position masks its block's rows of its column's
+# chunk, the partials are all-reduced along "data" within the column, each
+# shard's rows go back (collective-permute); the backward sends the
+# gradient rows the ids' way, scatter-adds each column's into its blocks and
+# all-reduces each block's gradient over "model" (the port's ``grad_psum``,
+# which adds every batch shard's gradients at the block's owner).
+#
+# The port keeps each batch shard at one home (``batch_groups``): its ids
+# and its gradient rows go from the home to the positions of its group
+# (``emb_ids_home``, ``emb_grad_home``: the reference's ``in_shardings``
+# replicate the batch over "model"), and the fold's all-gather goes to the
+# homes only (on the columns, to the one position that sends each home its
+# rows).
+
+
+def _rows_over_data(x: ShardedTensor) -> bool:
+    """Whether ``x`` is split along its rows over "data" alone, each block
+    repeated along a "model" axis of more than one position."""
+    mesh = x.mesh
+    return (tuple(mesh.axis_names) == ("data", "model")
+            and mesh.axis_size("model") > 1 and _split_along(x, 0)
+            and tuple(x.layout.axes[0]) == ("data",))
+
+
+def _column(mesh, d: int) -> Tuple[int, Tuple[int, ...]]:
+    """Batch shard ``d``'s column in the lookup of a table split over
+    "data" alone (:func:`_rows_over_data`): the "model" index whose
+    positions look its rows up, and the "data" indices on it where its ids
+    land from the shard (D / M of them when M divides D and is smaller,
+    the rest of the column then gathering them along "data"; else the
+    whole column)."""
+    D, M = mesh.axis_size("data"), mesh.axis_size("model")
+    if D > M and D % M == 0:
+        g = D // M
+        return d // g, tuple(M * (d % g) + k for k in range(M))
+    return d * M // D, tuple(range(D))
+
+
+class _RowPlan(NamedTuple):
+    """Where :class:`_RowLookup` moves what: the position of each block
+    (``sources``, in block order), the homes whose rows it looks up
+    (``homes``, in batch order), per block and home the hops of the
+    home's ids (its gradient rows the same way) to the block's position,
+    ``(kind, from, to)``: within the home's group (``"home"``), from the
+    home to its "model" column (``"permute"``, the reference's
+    collective-permute), along the batch axes (``"gather"``); and per home
+    the position the fold leaves its rows at (``relays``: the home, or on a
+    column the position that sends them to it)."""
+    sources: Tuple[int, ...]
+    homes: Tuple[int, ...]
+    routes: Tuple[Tuple[Tuple[Tuple[str, int, int], ...], ...], ...]
+    relays: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=256)
+def _row_plan(mesh, sources: Tuple[int, ...], homes: Tuple[int, ...],
+              groups: Tuple[Tuple[int, ...], ...], columns: bool) -> _RowPlan:
+    """The :class:`_RowPlan` of blocks at ``sources`` looked up for the
+    batch shards at ``homes`` (each with its ``groups`` entry). A home's
+    ids reach a block's position in its own group directly, and any other
+    through the position of the group on the block's line along the batch
+    axes (the one that agrees with the block's position on every axis
+    the group spans). With ``columns`` (the blocks on the homes' "model"
+    column, :func:`_column`) they go from the home straight to the
+    positions where they land, and along "data" from there."""
+    routes, relays = [], []
+    for h in homes:
+        if columns:
+            c, land = _column(mesh, mesh.coords(h)["data"])
+            relays.append(_position(mesh, {"data": land[0], "model": c}))
+        else:
+            relays.append(h)
+    for q in sources:
+        per = []
+        for h, g in zip(homes, groups):
+            if q == h:
+                per.append(())
+                continue
+            if columns:
+                c, land = _column(mesh, mesh.coords(h)["data"])
+                a = mesh.coords(q)["data"]
+                r = q if a in land else _position(mesh, {
+                    "data": land[0] + a % len(land), "model": c})
+                hops = (("home" if r in g else "permute", h, r),
+                        ("gather", r, q))
+            elif q in g:
+                hops = (("home", h, q),)
+            else:
+                spans = [x for x in mesh.axis_names
+                         if len({mesh.coords(p)[x] for p in g}) > 1]
+                r = next(p for p in g if all(
+                    mesh.coords(p)[x] == mesh.coords(q)[x] for x in spans))
+                hops = (("home", h, r), ("gather", r, q))
+            per.append(tuple(hop for hop in hops if hop[1] != hop[2]))
+        routes.append(tuple(per))
+    return _RowPlan(sources, homes, tuple(routes), tuple(relays))
+
+
+def _hop(mesh, moved: dict, i: int, t: torch.Tensor, hops, prefix: str
+         ) -> torch.Tensor:
+    """``t`` (home ``i``'s) moved along ``hops``, each counted under
+    ``prefix`` + its kind; a hop already in ``moved`` moves once."""
+    for kind, frm, to in hops:
+        key = (i, frm, to)
+        if key not in moved:
+            name = prefix + kind
+            with span(name), mesh.at(to), mesh.moving():
+                mesh.count(name, _nbytes(t), frm=frm, to=to)
+                moved[key] = t.to(mesh.device(to), copy=True)
+        t = moved[key]
+    return t
+
+
+class _RowLookup(torch.autograd.Function):
+    """:func:`take_rows_where_they_lie` over one set of blocks; the inputs
+    are each home's ids, then each block."""
+
+    @staticmethod
+    def forward(ctx, mesh, plan: _RowPlan, dim: int, n: int, dtype,
+                n_homes: int, *tensors):
+        ids, leaves = tensors[:n_homes], tensors[n_homes:]
+        rows = leaves[0].shape[dim]
+        moved, j, local, parts = {}, [], [], []
+        for k, (q, leaf) in enumerate(zip(plan.sources, leaves)):
+            got = [_hop(mesh, moved, i, t, hops, "emb_ids_")
+                   for i, (t, hops) in enumerate(zip(ids, plan.routes[k]))]
+            with mesh.at(q):
+                jq = from_end(torch.cat(got) if len(got) > 1 else got[0], n)
+                lq = jq - k * rows
+                at = lq.clamp(0, rows - 1)
+                if dim == 0:
+                    part = leaf[at]
+                else:
+                    fields = torch.arange(leaf.shape[0],
+                                          device=leaf.device)[None, :]
+                    part = leaf[fields, at]
+                parts.append(part.to(dtype))
+                j.append(jq)
+                local.append(lq)
+        del moved
+        e = parts[0].shape[-1]
+        flat = _fold(mesh, plan.sources, parts,
+                     lambda q: _owners(j[plan.sources.index(q)], rows, e),
+                     list(dict.fromkeys(plan.relays)), "emb_rows_fold")
+        shape = parts[0].shape
+        del parts, j
+        out, lo = [], 0
+        for h, r, t in zip(plan.homes, plan.relays, ids):
+            with mesh.at(r):
+                mine = flat[r].reshape(shape).narrow(0, lo, t.shape[0])
+            if r != h:
+                with span("emb_rows_permute"), mesh.at(h), mesh.moving():
+                    mesh.count("emb_rows_permute", _nbytes(mine), frm=r,
+                               to=h)
+                    mine = mine.to(mesh.device(h), copy=True)
+            with mesh.at(h):
+                jh = from_end(t, n)
+                valid = (jh >= 0) & (jh < n)
+                out.append(mine.masked_fill(~valid[..., None],
+                                            float("nan")))
+            lo += t.shape[0]
+        ctx.mesh, ctx.plan, ctx.dim, ctx.rows = mesh, plan, dim, rows
+        ctx.leaves = [(t.dtype, t.shape) for t in leaves]
+        ctx.n_homes = n_homes
+        ctx.save_for_backward(*local)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, plan, rows = ctx.mesh, ctx.plan, ctx.rows
+        need = ctx.needs_input_grad[6 + ctx.n_homes:]
+        moved, result = {}, []
+        for k, (q, lq) in enumerate(zip(plan.sources, ctx.saved_tensors)):
+            if not need[k]:
+                result.append(None)
+                continue
+            got = [_hop(mesh, moved, i, g, hops, "emb_grad_")
+                   for i, (g, hops) in enumerate(zip(grads, plan.routes[k]))]
+            dtype, shape = ctx.leaves[k]
+            with mesh.at(q):
+                g = torch.cat(got) if len(got) > 1 else got[0]
+                inside = (lq >= 0) & (lq < rows)
+                n = rows
+                if ctx.dim == 1:
+                    n = lq.shape[-1] * rows
+                    lq = torch.arange(lq.shape[-1],
+                                      device=lq.device) * rows + lq
+                result.append(_block_grad(g, lq, inside, n).to(dtype)
+                              .reshape(shape))
+        return (None,) * (6 + ctx.n_homes) + tuple(result)
+
+
+def take_rows_where_they_lie(views: Sequence["ShardView"],
+                             ids: Sequence[torch.Tensor], dim: int = 0,
+                             dtype: torch.dtype = None
+                             ) -> List[torch.Tensor]:
+    """``sparse.segment.take_rows`` (``dim`` 0) or ``take_along_fields``
+    (``dim`` 1, (F, V, e) tables) of the leaf of ``views`` — one
+    :class:`ShardView` per batch shard, each at its home with its ids
+    ``ids`` there, the leaf split along ``dim`` only — in ``dtype``
+    (default the leaf's; the cast table's rows, bit for bit), formed as
+    the reference's partitioner forms the lookup (see above). The views
+    that read the same blocks from the same positions (all of them, but
+    on a table split over "data" alone, where each "model" column reads
+    its own: :func:`_column`) are looked up together, in batch order.
+    Each home's ids go to the position of every such block (``emb_ids_home``
+    within the home's group, ``emb_ids_permute`` across both axes, then
+    ``emb_ids_gather`` along the batch axes); each block's position takes
+    its rows of every home's ids, masked; the partial rows are
+    reduce-scattered over the blocks' positions and every folded chunk
+    all-gathered to each home, or on a column to the position that sends
+    the home its rows (``emb_rows_fold``: 2(K − 1)/K of the partials into
+    a receiver that holds a block, K blocks; then ``emb_rows_permute``),
+    each entry selected at its chunk's position from the block that owns
+    its row (an id outside ``[-n, n)`` gives a NaN row). Each home's rows,
+    in order.
+
+    The backward: each home's gradient rows go to every block's position
+    the way its ids went (``emb_grad_home``, ``emb_grad_permute``,
+    ``emb_grad_gather``), and the position sums the rows of all the homes
+    looked up together, in batch order, into its block by one
+    :func:`segment_sum` in ``dtype``, then casts it to the leaf's dtype:
+    the order of one device's backward over the same rows. The blocks'
+    gradients go to the blocks of the first of those views."""
+    v0 = views[0]
+    mesh, lay = v0.x.mesh, v0.x.layout
+    order = sorted(v0.proxies)
+    columns = _rows_over_data(v0.x)
+    for v in views if columns else ():
+        v.to_column()
+    together: Dict[Tuple[int, ...], List[int]] = {}
+    for i, v in enumerate(views):
+        together.setdefault(tuple(v.sources[b] for b in order),
+                            []).append(i)
+    out: List[torch.Tensor] = [None] * len(views)
+    for srcs, members in together.items():
+        vs = [views[i] for i in members]
+        plan = _row_plan(mesh, srcs, tuple(v.home for v in vs),
+                         tuple(tuple(v.group) for v in vs), columns)
+        rows = _RowLookup.apply(mesh, plan, dim, lay.shape[dim],
+                                dtype or v0.x.dtype, len(vs),
+                                *(ids[i] for i in members),
+                                *(vs[0].proxies[b] for b in order))
+        for i, r in zip(members, rows):
+            out[i] = r
+    return out
+
+
+def _split_along(x: ShardedTensor, dim: int) -> bool:
+    """Whether ``x`` is split along ``dim`` and no other dimension."""
+    counts = x.layout.counts
+    return counts[dim] > 1 and all(c == 1 for i, c in enumerate(counts)
+                                   if i != dim)
+
+
 class Blocks(NamedTuple):
     """A leaf split along dimension ``dim`` (0 unless said) into equal
     blocks, each on the device of the mesh position that holds it;
@@ -679,7 +898,8 @@ class ShardView:
     """One batch shard's handle on a sharded leaf in the sharded train
     and serving steps. Each block is taken from a position of the batch
     shard's own group (``group``) where one holds it, else from the first
-    holder; ``proxies`` are those shards as leaves that require grad, so
+    holder (a table split over "data" alone, looked up, from the batch
+    shard's "model" column: :meth:`to_column`); ``proxies`` are those shards as leaves that require grad, so
     one batch shard's microbatches add their gradients into them
     (autograd's accumulation, in microbatch order) apart from every other
     batch shard's; with ``grad=False`` the shards themselves."""
@@ -687,15 +907,35 @@ class ShardView:
     def __init__(self, x: ShardedTensor, home: int, group: Sequence[int],
                  grad: bool = True):
         lay = x.layout
-        self.x, self.home = x, home
+        self.x, self.home, self.group = x, home, tuple(group)
+        self.grad = grad
         self.sources: Dict[Tuple[int, ...], int] = {}
         for block in lay.blocks():
             holders = lay.holders(block)
             mine = [p for p in holders if p in group]
             self.sources[block] = mine[0] if mine else holders[0]
-        self.proxies = {block: (x.shards[pos].detach().requires_grad_(True)
-                                if grad else x.shards[pos])
+        self.proxies = {block: self._proxy(pos)
                         for block, pos in self.sources.items()}
+
+    def _proxy(self, pos: int) -> torch.Tensor:
+        shard = self.x.shards[pos]
+        return shard.detach().requires_grad_(True) if self.grad else shard
+
+    def to_column(self) -> None:
+        """Read a table split over "data" alone (:func:`_rows_over_data`)
+        from the batch shard's "model" column, where the reference looks
+        its rows up (:func:`_column`): each block from its holder there.
+        The lookup calls it before it reads the blocks, so the view's
+        gradients collect there (no other read of such a table comes
+        first: a tied one is gathered, not looked up)."""
+        mesh = self.x.mesh
+        c = _column(mesh, mesh.coords(self.home)["data"])[0]
+        for block, pos in self.sources.items():
+            at = next(p for p in self.x.layout.holders(block)
+                      if mesh.coords(p)["model"] == c)
+            if at != pos:
+                self.sources[block] = at
+                self.proxies[block] = self._proxy(at)
 
     def full(self) -> torch.Tensor:
         """The whole leaf on the home position's device."""
@@ -725,29 +965,35 @@ class ShardView:
         for block, proxy in self.proxies.items():
             yield block, self.sources[block], proxy.grad
 
-    def take_rows(self, ids: torch.Tensor) -> torch.Tensor:
-        """``sparse.segment.take_rows`` of the leaf at ``ids`` (at the
-        home), the rows looked up where they lie when the leaf is split
-        along its rows only; otherwise of the whole leaf."""
-        return self._lookup(ids, 0)
+    @property
+    def splits_rows(self) -> bool:
+        """Whether the leaf is split along its rows and nothing else (then
+        :meth:`take_rows` looks it up where the rows lie)."""
+        return _split_along(self.x, 0)
+
+    def take_rows(self, ids: torch.Tensor,
+                  dtype: torch.dtype = None) -> torch.Tensor:
+        """``sparse.segment.take_rows`` of the leaf in ``dtype`` (default
+        the leaf's) at ``ids`` (at the home), the rows looked up where they
+        lie when the leaf is split along its rows only
+        (:func:`take_rows_where_they_lie`); otherwise of the whole
+        leaf."""
+        return self._lookup(ids, 0, dtype)
 
     def take_along_fields(self, ids: torch.Tensor) -> torch.Tensor:
         """``sparse.segment.take_along_fields`` of the (F, V, e) leaf at
         ``ids`` (B, F), the rows looked up where they lie when the leaf is
         split along V only; otherwise of the whole leaf."""
-        return self._lookup(ids, 1)
+        return self._lookup(ids, 1, None)
 
-    def _lookup(self, ids: torch.Tensor, dim: int) -> torch.Tensor:
-        lay = self.x.layout
-        order = sorted(self.proxies)
-        if lay.counts[dim] == 1 or any(
-                c != 1 for i, c in enumerate(lay.counts) if i != dim):
-            whole = self.full()
-            return (take_rows(whole, ids) if dim == 0
-                    else take_along_fields(whole, ids))
-        return _Lookup.apply(self.x.mesh, self.home, dim, lay.shape[dim],
-                             ids, tuple(self.sources[b] for b in order),
-                             *(self.proxies[b] for b in order))
+    def _lookup(self, ids: torch.Tensor, dim: int, dtype) -> torch.Tensor:
+        if _split_along(self.x, dim):
+            return take_rows_where_they_lie([self], [ids], dim, dtype)[0]
+        whole = self.full()
+        if dtype is not None:
+            whole = whole.to(dtype)
+        return (take_rows(whole, ids) if dim == 0
+                else take_along_fields(whole, ids))
 
 
 class HomeViews:
@@ -765,6 +1011,19 @@ class HomeViews:
 
     def part(self, home: int) -> ShardView:
         return self.views[self.homes.index(home)]
+
+    @property
+    def splits_rows(self) -> bool:
+        return self.views[0].splits_rows
+
+    def take_rows(self, ids: "Rows", dtype: torch.dtype = None) -> "Rows":
+        """``sparse.segment.take_rows`` of the leaf, split along its rows
+        only (:attr:`splits_rows`), in ``dtype`` at each home's ids
+        (``Rows``): one lookup of the homes' batch where the rows lie
+        (:func:`take_rows_where_they_lie`), as the reference looks its
+        whole batch up at once."""
+        return Rows(take_rows_where_they_lie(self.views, ids.parts, 0, dtype),
+                    self.homes, self.mesh)
 
 
 def local(x, experts: bool = False):

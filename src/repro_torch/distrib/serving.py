@@ -110,9 +110,9 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distrib.collectives import (Rows, ShardView, StationaryView,
-                                             TPView, batch_groups, kv_heads,
-                                             send)
+from repro_torch.distrib.collectives import (HomeViews, Rows, ShardView,
+                                             StationaryView, TPView,
+                                             batch_groups, kv_heads, send)
 from repro_torch.distrib.sharding import (Layout, ShardedTensor, device_put,
                                           map_with_specs)
 from repro_torch.models import layers as L
@@ -278,17 +278,32 @@ def _prefill_fsdp(model, mesh, homes, groups, params, tokens, run: int):
     the groups lie inside the shards) is computed at the run's first home
     over all its rows, so the reference's groups are formed over the same
     tokens; each other shard's last logits and keys and values then go to
-    its own home (``prefill_span``). The logits and, per batch shard, where
-    its keys and values lie (:func:`place_cache`'s ``parts``)."""
+    its own home (``prefill_span``). A table that the model looks up where
+    its rows lie (``looks_up_in_place``) is looked up first, every run's
+    tokens at once, as the reference looks its whole batch up
+    (``HomeViews.take_rows``), and each run's prefill takes its rows. The
+    logits and, per batch shard, where its keys and values lie
+    (:func:`place_cache`'s ``parts``)."""
     D = len(homes)
     Bd = tokens.shape[0] // D
-    logits, parts = [], []
-    for r in range(0, D, run):
-        home = homes[r]
+    runs = list(range(0, D, run))
+    at = [homes[r] for r in runs]
+    views, toks = [], []
+    for r, home in zip(runs, at):
         with mesh.at(home):
-            views = _views(params, home, groups[r])
-            tok = tokens[r * Bd:(r + run) * Bd].to(mesh.device(home))
-            lg, (k, v) = model.prefill(views, tok)
+            views.append(_views(params, home, groups[r]))
+            toks.append(tokens[r * Bd:(r + run) * Bd].to(mesh.device(home)))
+    table = HomeViews([v.get("embed") for v in views], at, mesh)
+    rows = [None] * len(runs)
+    if (isinstance(params.get("embed"), ShardedTensor)
+            and model.looks_up_in_place(table)):
+        with mesh.at(at[0]):
+            rows = table.take_rows(Rows(toks, at, mesh),
+                                   model.compute_dtype).parts
+    logits, parts = [], []
+    for r, home, view, tok, x in zip(runs, at, views, toks, rows):
+        with mesh.at(home):
+            lg, (k, v) = model.prefill(view, tok, x)
         for j in range(run):
             mine = (lg[j * Bd:(j + 1) * Bd], k[:, j * Bd:(j + 1) * Bd],
                     v[:, j * Bd:(j + 1) * Bd])

@@ -42,12 +42,17 @@ batch shard's activations on its own device and hand the model its
 parameters as per-batch-shard views (``distrib.collectives.ShardView``)
 that each layer gathers where it uses them (and, under ``remat="full"``,
 again in the recompute); with ``exp_spec`` the expert weights stay where
-they live. Where one microbatch lies on several batch shards (the
-reference cell's one microbatch) the train step hands the model every
+they live, and the table, split along its rows, is looked up where its rows
+lie (``ShardView.take_rows``: the reference's lookup), but for a tied one,
+which the head gathers whole and the lookup reads there. Where one
+microbatch lies on several batch shards (the reference cell's one
+microbatch) the train step hands the model every
 home's views at once (``collectives.HomeViews``) and the tokens and labels
-as ``Rows``: each home runs its own rows with its own gathered leaves, and
-the cross entropy's sums and counts and the MoE aux statistics are added
-over the homes (``collectives.batch_mean``, ``moe._batch_aux``). The serving steps under ``tp2d`` with the batch whole
+as ``Rows``: the homes' tokens are looked up at once
+(``HomeViews.take_rows``), each home runs its own rows with its own
+gathered leaves, and the cross entropy's sums and counts and the MoE aux
+statistics are added over the homes (``collectives.batch_mean``,
+``moe._batch_aux``). The serving steps under ``tp2d`` with the batch whole
 (``distrib.serving``) move no parameter: they hand the model
 ``StationaryView`` s of every leaf and the batch's tokens as ``Rows``.
 Each product then runs on the positions that hold the weight's blocks
@@ -92,7 +97,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import TransformerConfig
-from repro_torch.distrib.collectives import (Rows, StationaryView, TPView,
+from repro_torch.distrib.collectives import (HomeViews, Rows, ShardView,
+                                             StationaryView, TPView,
                                              batch_mean, each, local,
                                              model_gather, split_heads)
 from repro_torch.distrib.sharding import P
@@ -136,11 +142,22 @@ class TransformerLM:
                 and cfg.moe.moe_shard == "expert"):
             self.exp_spec = P(act_spec[0], "model", None, None)
 
+    def looks_up_in_place(self, emb) -> bool:
+        """Whether the table ``emb`` is looked up where its rows lie: a
+        view of a table split along its rows only, untied (a tied table is
+        gathered whole for the head, and looked up there)."""
+        return (not self.cfg.tie_embeddings
+                and isinstance(emb, (ShardView, HomeViews))
+                and emb.splits_rows)
+
     def _local(self, params: Params) -> Params:
         """The top-level leaves (embed, head, ln_f) of ``params`` as this
-        batch shard's tensors (``distrib.collectives.local``)."""
-        return {k: (v if k == "layers" else local(v))
-                for k, v in params.items()}
+        batch shard's tensors (``distrib.collectives.local``), but a view
+        of a table that :meth:`_embed` looks up where its rows lie
+        (:meth:`looks_up_in_place`)."""
+        return {k: (v if k == "layers" or (
+            k == "embed" and self.looks_up_in_place(v)) else local(v))
+            for k, v in params.items()}
 
     def _local_layer(self, p: Params) -> Params:
         """One layer's leaves as this batch shard's tensors, the expert
@@ -322,7 +339,7 @@ class TransformerLM:
 
     def _embed(self, params: Params, tokens):
         emb = params["embed"]
-        if isinstance(emb, StationaryView):
+        if isinstance(emb, (StationaryView, ShardView, HomeViews)):
             return emb.take_rows(tokens, self.compute_dtype)
         return each(lambda e, t: e.to(self.compute_dtype)[t.long()], emb,
                     tokens)
@@ -402,14 +419,17 @@ class TransformerLM:
 
     # -- serving ----------------------------------------------------------------
 
-    def prefill(self, params: Params, tokens) -> Tuple[torch.Tensor, Cache]:
-        """Full-sequence forward returning last-position logits + KV cache.
+    def prefill(self, params: Params, tokens, rows=None
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Full-sequence forward returning last-position logits + KV cache;
+        ``rows``, where given, are the tokens' rows of the table, looked up
+        already (``distrib.serving`` looks every batch shard's up at once).
 
         Cache layout: (L, B, S, KV, hd) ×2, bf16.
         """
         positions = each(_prompt_positions, tokens)
         params = self._local(params)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens) if rows is None else rows
         for i, lp in enumerate(params["layers"]):
             lp = self._local_layer(lp)
             x, (k, v) = self._attn(lp, x, positions)

@@ -155,7 +155,18 @@ def test_meta_run_counts_what_a_concrete_run_counts(arch_id, shape_name):
         assert {"edge_psum", "edge_gather", "edge_scatter"} <= \
             set(meta["collectives"])
     if arch_id == "bst":
-        assert {"emb_ids", "emb_rows", "emb_grad"} <= set(meta["collectives"])
+        # the smoke batch (8 users) lies whole at position 0, which looks
+        # its users' items and features up where the tables' rows lie
+        import chip_smoke
+        from repro_torch.config.registry import get_arch
+        from repro_torch.launch.cells import BST_SMOKE_DIMS
+        B = BST_SMOKE_DIMS["train_batch"]["batch"]
+        want = chip_smoke.bst_lookup_want(get_arch("bst", smoke=True).model,
+                                          (2, 2), [(0, B)])
+        assert {k: v for k, v in meta["collectives"].items()
+                if k.startswith("emb_")} == want
+        assert set(want) == {"emb_ids_home", "emb_rows_fold",
+                             "emb_grad_home"}
 
 
 @pytest.mark.parametrize("where", ["outside", "inside", "one-position"])

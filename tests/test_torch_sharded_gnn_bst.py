@@ -16,8 +16,10 @@ no ``all_gather`` byte of the item table. The row-sharded lookup
 (``ShardView.take_rows`` / ``take_along_fields``) must give the plain
 lookups' values and gradients bit for bit at block boundaries, negative
 ids, ids out of range (NaN rows), a −0.0 row and ids repeated across batch
-shards. The cells' spec trees must equal the reference cells' leaf for
-leaf. The files call ``torch.set_num_threads(1)``: the CPU's accumulating
+shards, and move what the reference's jitted BST step moves for its item
+and user tables (its compiled HLO read in a child with four host devices).
+The cells' spec trees must equal the reference cells' leaf for leaf. The
+files call ``torch.set_num_threads(1)``: the CPU's accumulating
 ``index_put_`` (the plain lookups' backward) splits rows over threads,
 where ``segment_sum`` is a serial ``index_add``.
 
@@ -194,7 +196,18 @@ def test_bst_sharded_step_is_two_microbatches_bitwise():
     w0 = params["mlp_w0"]
     assert mesh.bytes["all_gather"] == \
         STEPS * 2 * w0.numel() * w0.element_size() // 2
-    assert mesh.bytes["emb_rows"] > 0 and mesh.bytes["emb_grad"] > 0
+    _assert_lookup_bytes(mesh, arch.model, inputs)
+
+
+def _assert_lookup_bytes(mesh, cfg, inputs):
+    """The step's lookups: each batch shard's home looks its half of the
+    users up where the tables' rows lie, ``STEPS`` times:
+    ``chip_smoke.bst_lookup_want``'s bytes exactly."""
+    import chip_smoke
+    b = inputs.labels.shape[0] // 2
+    want = chip_smoke.bst_lookup_want(cfg, (2, 2), [(0, b), (1, b)])
+    assert {k: v for k, v in mesh.bytes.items() if k.startswith("emb_")} \
+        == {k: STEPS * v for k, v in want.items()}
 
 
 def test_bst_sharded_step_at_one_microbatch():
@@ -229,9 +242,200 @@ def test_bst_sharded_step_at_one_microbatch():
     assert mesh.bytes["all_gather"] == \
         STEPS * 2 * w0.numel() * w0.element_size() // 2
     assert mesh.bytes["loss_sum"] == STEPS * 2 * 8
-    assert mesh.bytes["emb_rows"] > 0 and mesh.bytes["emb_grad"] > 0
+    _assert_lookup_bytes(mesh, arch.model, inputs)
 
 
+# (mesh, microbatches) of the reference's BST train step read: where the
+# port's layout is the reference's, and where it keeps whole microbatches on
+# each of D > 1 batch shards
+BST_LOOKUP_SAME = [((2, 2), 1), ((1, 4), 1), ((1, 4), 2)]
+BST_LOOKUP_PORT = [((2, 2), 2)]
+BST_LOOKUP = BST_LOOKUP_SAME + BST_LOOKUP_PORT
+
+_BST_CHILD = r'''
+import json, sys
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.config.base import TrainConfig
+from repro.config.registry import get_arch
+from repro.distrib.sharding import bst_param_specs, state_specs_like
+from repro.models.recsys.bst import BST, BSTInputs
+from repro.train.state import make_train_step, new_train_state
+
+args = json.loads(open(sys.argv[1]).read())
+cfg = get_arch("bst", smoke=True).model
+model = BST(cfg)
+state = new_train_state(model.init(jax.random.PRNGKey(0)))
+B = args["batch"]
+z = lambda *s: jnp.zeros(s, jnp.int32)
+inputs = BSTInputs(z(B, cfg.seq_len), z(B, cfg.seq_len), z(B), z(B),
+                   z(B, cfg.n_user_feats), jnp.zeros((B,), jnp.float32))
+for i, case in enumerate(args["cases"]):
+    D, MODEL = case["mesh"]
+    mesh = Mesh(np.array(jax.devices()[:D * MODEL]).reshape(D, MODEL),
+                ("data", "model"))
+    ns = lambda s: NamedSharding(mesh, s)
+    b1, b2 = P("data"), P("data", None)
+    specs = state_specs_like(bst_param_specs(state.params, cfg))
+    step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"]),
+                                   microbatches=case["micro"]),
+                   in_shardings=(jax.tree.map(ns, specs), jax.tree.map(
+                       ns, BSTInputs(b2, b2, b1, b1, b2, b1),
+                       is_leaf=lambda x: isinstance(x, P))))
+    with mesh:
+        hlo = step.lower(state, inputs).compile().as_text()
+    item, shapes = lookup_collectives(hlo, "models/recsys/bst.py",
+                                      'jnp.take(params["item_emb"]', True)
+    user = lookup_collectives(hlo, "models/recsys/bst.py",
+                              "jnp.take_along_axis(")
+    # every collective of the module with an element of the user tables'
+    # block gradient's shape (F, V / MODEL, e), by kind and axis
+    block = "%d,%d,%d" % (cfg.n_user_feats, cfg.user_feat_vocab // MODEL,
+                          cfg.embed_dim)
+    grads = sorted({f"{m.group(3)} {axis(l)}" for l in hlo.splitlines()
+                    for m in [_COLLECTIVE_RE.search(l)]
+                    if m and "[" + block + "]" in (m.group(1) or "")
+                    + (m.group(2) or "")})
+    print(f"CASE {i} " + json.dumps({"item": item, "shapes": shapes,
+                                     "user": user, "user_grad": grads}),
+          flush=True)
+'''
+
+
+@pytest.fixture(scope="module")
+def bst_lookup_reference(tmp_path_factory):
+    """(mesh, microbatches) → the reference's BST train step's lookups
+    (``make_train_step(model.loss, TCFG, microbatches=M)`` under
+    ``bst_param_specs`` and the batch over "data", the SMOKE cell's 8
+    users) read from its compiled HLO: the item table's ``jnp.take`` line
+    by kind and axis a chip, a tuple collective's elements each counted,
+    with their shapes; the user tables' ``take_along_axis`` line; the
+    collectives that carry a user table block's gradient. One child
+    process, four host devices."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    from test_torch_tp_train import HLO_AXES
+    pytest.importorskip("jax")
+    payload = tmp_path_factory.mktemp("bst_lookup") / "cases.json"
+    payload.write_text(json.dumps({
+        "batch": 8, "cases": [{"mesh": s, "micro": m} for s, m in BST_LOOKUP],
+        "tcfg": {k: getattr(TCFG, k) for k in ("learning_rate",
+                                                "warmup_steps",
+                                                "total_steps")}}))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(repo, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    res = subprocess.run([sys.executable, "-c",
+                          textwrap.dedent(HLO_AXES + _BST_CHILD),
+                          str(payload)], env=env, capture_output=True,
+                         text=True, cwd=repo, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    outs = {}
+    for line in res.stdout.splitlines():
+        if line.startswith("CASE "):
+            i, body = line[5:].split(" ", 1)
+            outs[BST_LOOKUP[int(i)]] = json.loads(body)
+    assert len(outs) == len(BST_LOOKUP), res.stdout[-2000:]
+    return outs
+
+
+def _bst_lookup_bytes(shape, micro):
+    """The port's BST train step on ``shape`` at ``micro`` microbatches
+    (the SMOKE cell's 8 users over "data"): its lookup bytes by kind and
+    axis a chip (``test_torch_tp_train.lookup_by_kind``) and its own moves
+    by name, every ``emb_*`` byte checked against
+    ``chip_smoke.bst_lookup_want``'s; and the rows a microbatch of a chip
+    in the reference's layout."""
+    import chip_smoke
+    from test_torch_tp_train import lookup_by_kind
+    arch = get_arch("bst", smoke=True)
+    cfg = arch.model
+    one = bst_cell(arch, "train_batch", "cpu", smoke=True)
+    state, inputs = one.args
+    mesh = _mesh(shape)
+    specs = state_specs_like(bst_param_specs(state.params, cfg))
+    step = make_sharded_train_step(one.model.loss, TCFG, mesh, specs,
+                                   P("data", None), microbatches=micro)
+    step(new_sharded_train_state(_copy(state.params), mesh, specs), inputs)
+    got, own = lookup_by_kind(mesh, mesh.moves)
+    D, B = shape[0], inputs.labels.shape[0]
+    per = micro // D if micro % D == 0 else 1
+    homes = [(d, B // D // per) for d in range(D) for _ in range(per)]
+    assert {k: v for k, v in mesh.bytes.items() if k.startswith("emb_")} \
+        == chip_smoke.bst_lookup_want(cfg, shape, homes)
+    b = B // max(D, micro) if micro == 1 or D == 1 else B // micro
+    return cfg, got, own, b
+
+
+def _bst_read_shapes(read, cfg, b):
+    """The reference's lookup: both tables' partial rows all-reduced over
+    "model" in one tuple collective at the item table's ``jnp.take``
+    (elements (b, S + 1, e) and (b, F, 1, e)), nothing at the user
+    tables' ``take_along_axis``."""
+    e, F, S1 = cfg.embed_dim, cfg.n_user_feats, cfg.seq_len + 1
+    assert read["shapes"] == {"all-reduce model": [f"{b},{S1},{e}",
+                                                   f"{b},{F},1,{e}"]}
+    assert not read["user"]
+
+
+@pytest.mark.parametrize("shape,micro", BST_LOOKUP_SAME,
+                         ids=[f"{d}x{k}-M{m}"
+                              for (d, k), m in BST_LOOKUP_SAME])
+def test_bst_lookup_moves_as_the_reference(bst_lookup_reference, shape,
+                                           micro):
+    """BST's train step (the SMOKE cell's 8 users over "data", the item
+    table P("model", None), the user tables P(None, "model", None))
+    against the reference's jitted step where the layouts agree (2 × 2 at
+    1 microbatch, 1 × 4 at 1 and 2): the reference all-reduces the partial
+    rows of both tables over "model" in one tuple collective at the item
+    table's ``jnp.take`` (elements (b, S + 1, e) and (b, F, 1, e)),
+    attributes nothing to the user tables' ``take_along_axis``, and sums
+    a user table block's gradient over "data" only, where the batch
+    shards hold different rows (the step's gradient sum over the batch
+    shards, ``grad_psum`` in the port). The port's lookup bytes by kind
+    and axis a chip equal the tuple's elements summed, to the byte;
+    apart, its own moves of each batch shard's ids and gradient rows from
+    its home to its group (``emb_ids_home``, ``emb_grad_home``). Every
+    ``emb_*`` byte equals ``chip_smoke.bst_lookup_want``'s."""
+    read = bst_lookup_reference[(shape, micro)]
+    cfg, got, own, b = _bst_lookup_bytes(shape, micro)
+    print(f"\nBST lookup ({shape}, {micro} microbatch(es)): reference HLO "
+          f"{read}; the port {got}, its own moves {own}")
+    _bst_read_shapes(read, cfg, b)
+    assert read["user_grad"] == (["all-reduce data"] if shape[0] > 1
+                                 else [])
+    assert got == read["item"]
+    assert set(own) == {"emb_ids_home", "emb_grad_home"}
+
+
+@pytest.mark.parametrize("shape,micro", BST_LOOKUP_PORT,
+                         ids=[f"{d}x{k}-M{m}"
+                              for (d, k), m in BST_LOOKUP_PORT])
+def test_bst_lookup_where_the_layout_differs(bst_lookup_reference, shape,
+                                             micro):
+    """BST's train step at 2 microbatches on 2 × 2, where the layouts
+    differ: the reference gathers each microbatch's inputs along "data"
+    and looks the whole microbatch up at every chip (its all-reduce of
+    both tables' rows over "model", 3,328 B a chip, stated here), where
+    the port keeps one microbatch a batch shard and looks it up at that
+    shard's home (its bytes held to ``chip_smoke.bst_lookup_want``
+    alone)."""
+    read = bst_lookup_reference[(shape, micro)]
+    cfg, got, own, b = _bst_lookup_bytes(shape, micro)
+    print(f"\nBST lookup ({shape}, {micro} microbatch(es)): reference HLO "
+          f"{read}; the port {got}, its own moves {own}")
+    _bst_read_shapes(read, cfg, b)
+    assert read["item"] == {"all-reduce model": 3328}
+    assert not read["user_grad"]
+    assert set(got) == {"all-reduce model"}
+    assert set(own) == {"emb_ids_home", "emb_grad_home"}
 def _lookup_case(case):
     """(table, ids for two batch shards, split dim) of one edge case."""
     g = torch.Generator().manual_seed(3)
@@ -291,8 +495,10 @@ def test_row_sharded_lookup_is_the_plain_lookup_bitwise(case, device="cpu"):
             total[block] = gb if block not in total else total[block] + gb
     whole = torch.cat([total[b] for b in sorted(total)], dim=dim)
     assert torch.equal(_bits(whole), _bits(leaf.grad))
-    assert mesh.bytes["emb_ids"] and mesh.bytes["emb_rows"] \
-        and mesh.bytes["emb_grad"]
+    import chip_smoke
+    assert dict(mesh.bytes) == chip_smoke.row_lookup_want(
+        (2, 4), ("model",), [[(d, i.numel())] for d, i in enumerate(ids)],
+        table.shape[-1], 4, ids[0].element_size(), True)
 
 
 def _specs_in_ref_order(tree):

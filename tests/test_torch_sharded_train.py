@@ -20,8 +20,12 @@ unsharded step. ``moe_block`` with its experts on
 other mesh positions is bitwise the unsharded block, forward and
 backward. The host-mesh step with ``act_spec`` is held against the
 reference's step of that model under a one-device mesh to the same
-tolerances. The JAX package is imported only inside the tests that need
-it, so the card tests (``cuda`` marker) run where JAX is not installed.
+tolerances. The table, split along its rows, is looked up where the rows
+lie: its rows bitwise ``take_rows``, its gradient in one device's order,
+and its collectives a chip by kind and axis equal to the reference's
+jitted ``fsdp`` step's compiled HLO (a child with eight host devices).
+The JAX package is imported only inside the tests that need it, so the
+card tests (``cuda`` marker) run where JAX is not installed.
 """
 
 import dataclasses
@@ -459,6 +463,419 @@ def test_one_microbatch_matches_the_reference_cell_step(fsdp_reference,
           f"step) {per_shard}, step 0's gaps {gaps(per_shard)}")
     if kind != "random":
         assert max(gaps(per_shard)) > max(1e-5, 20 * max(gaps(got)))
+
+
+# -- the table looked up as the reference's partitioner forms it -------------
+
+SMOL = get_arch("smollm-135m", smoke=True).model     # a tied table
+# MOE16 at 528 rows: 256 does not divide them, so fit_spec splits the table
+# over "data" alone, as qwen3's 151,936 rows at its published widths
+LOOKUP_MODELS = {"moe16": MOE16, "smollm": SMOL,
+                 "moe16-v528": dataclasses.replace(MOE16, vocab_size=528)}
+# (model, microbatches, mesh) of the reference's fsdp train step read, B 8 x
+# 16 over "data": the cases where the port's lookup is the reference's
+# (the table P(("data", "model"), None), or P("data", None) at 528 rows) ...
+FSDP_LOOKUP_SAME = ([("moe16", 1, s) for s in ((2, 2), (1, 4), (4, 2))]
+                    + [("moe16", 2, (1, 4))]
+                    + [("moe16-v528", 1, s) for s in ((2, 2), (4, 2),
+                                                      (2, 4))]
+                    + [("moe16-v528", 2, (2, 2))])
+# ... and where the port's layout differs: M > 1 microbatches on D > 1
+# batch shards (the port keeps whole microbatches on each shard), and a
+# tied table (gathered whole for the head, looked up there)
+FSDP_LOOKUP_PORT = ([("moe16", 2, s) for s in ((2, 2), (4, 2))]
+                    + [("smollm", 1, s) for s in ((2, 2), (1, 4), (4, 2))])
+FSDP_LOOKUP = FSDP_LOOKUP_SAME + FSDP_LOOKUP_PORT
+
+
+def _lookup_batch(cfg):
+    return _batches(cfg, 1, B=8)[0]
+
+
+def _fsdp_lookups(shape, micro, B=8, S=16):
+    """The lookups of one ``fsdp`` step: per lookup its batch shards' (d,
+    ids) — each shard's own microbatches where D divides M, else each
+    microbatch's shards at once."""
+    D = shape[0]
+    if micro % D == 0:
+        return [[(d, B // micro * S)] for d in range(D)
+                for _ in range(micro // D)]
+    per = D // micro
+    return [[(i * per + k, B // D * S) for k in range(per)]
+            for i in range(micro)]
+
+
+@pytest.fixture(scope="module")
+def fsdp_lookup_reference(tmp_path_factory):
+    """(model, microbatches, mesh) → the lookup's collectives a chip by
+    kind and axis in the compiled HLO of the reference's jitted ``fsdp``
+    train step (``make_train_step(model.loss, TCFG, microbatches=M)``
+    under the ``fsdp`` ``in_shardings``, the batch over "data"), read by
+    ``lookup_collectives``: one child process, eight host devices."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    import dataclasses as dc
+    from test_torch_tp_train import HLO_AXES
+    pytest.importorskip("jax")
+    tokens, _ = _lookup_batch(MOE16)
+    cases = [{"cfg": dc.asdict(LOOKUP_MODELS[n]), "micro": m, "mesh": s,
+              "shape": list(tokens.shape)} for n, m, s in FSDP_LOOKUP]
+    payload = tmp_path_factory.mktemp("fsdp_lookup") / "cases.json"
+    payload.write_text(json.dumps({"cases": cases, "tcfg": {
+        k: getattr(TCFG, k) for k in ("learning_rate", "warmup_steps",
+                                      "total_steps")}}))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(repo, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    res = subprocess.run([sys.executable, "-c",
+                          textwrap.dedent(HLO_AXES + _LOOKUP_CHILD),
+                          str(payload)], env=env, capture_output=True,
+                         text=True, cwd=repo, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    outs = {}
+    for line in res.stdout.splitlines():
+        if line.startswith("CASE "):
+            i, body = line[5:].split(" ", 1)
+            outs[FSDP_LOOKUP[int(i)]] = json.loads(body)
+    assert len(outs) == len(FSDP_LOOKUP), res.stdout[-2000:]
+    return outs
+
+
+_LOOKUP_CHILD = r'''
+import json, sys
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.config.base import MoEConfig, TrainConfig, TransformerConfig
+from repro.distrib.sharding import lm_param_specs, state_specs_like
+from repro.models.transformer import TransformerLM
+from repro.train.state import make_train_step, new_train_state
+
+args = json.loads(open(sys.argv[1]).read())
+for i, case in enumerate(args["cases"]):
+    D, MODEL = case["mesh"]
+    mesh = Mesh(np.array(jax.devices()[:D * MODEL]).reshape(D, MODEL),
+                ("data", "model"))
+    ns = lambda s: NamedSharding(mesh, s)
+    bs = ns(P("data", None))
+    kw = dict(case["cfg"])
+    kw["moe"] = MoEConfig(**kw["moe"]) if kw.get("moe") else None
+    cfg = TransformerConfig(**kw)
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    state = new_train_state(model.init(jax.random.PRNGKey(0)))
+    specs = state_specs_like(lm_param_specs(state.params, cfg, "fsdp"))
+    step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"]),
+                                   microbatches=case["micro"]),
+                   in_shardings=(jax.tree.map(ns, specs), bs, bs))
+    tokens = jnp.zeros(case["shape"], jnp.int32)
+    with mesh:
+        hlo = step.lower(state, tokens, tokens).compile().as_text()
+    # the ids' collectives alone: those of an integer operand
+    ids = "\n".join(l for l in hlo.splitlines()
+                    if not _COLLECTIVE_RE.search(l)
+                    or re.search(r"= \(?[su]\d+\[", l))
+    print(f"CASE {i} " + json.dumps({
+        "all": lookup_collectives(hlo, *LM_LOOKUP),
+        "ids": lookup_collectives(ids, *LM_LOOKUP)}), flush=True)
+'''
+
+
+def _fsdp_lookup_moves(cfg, shape, micro):
+    """One ``fsdp`` step of ``cfg`` (``act_spec``, groups of 16) on a
+    ("data", "model") mesh of ``shape`` at ``micro`` microbatches: the
+    mesh's moves and bytes."""
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    params = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+    specs = state_specs_like(lm_param_specs(params, cfg, "fsdp"))
+    mesh = Mesh(shape, ("data", "model"), ["cpu"] * (shape[0] * shape[1]))
+    state = new_sharded_train_state(params, mesh, specs)
+    step = make_sharded_train_step(model.loss, TCFG, mesh, specs,
+                                   P("data", None), microbatches=micro,
+                                   moe_span=model.moe_span)
+    step(state, *_lookup_batch(cfg))
+    return mesh, dict(mesh.moves), dict(mesh.bytes)
+
+
+def _fsdp_lookup_bytes(name, micro, shape):
+    """The port's ``fsdp`` step of ``LOOKUP_MODELS[name]``: the mesh, its
+    lookup bytes by kind and axis a chip (``lookup_by_kind``), the ids'
+    apart, its own moves by name, and every ``emb_*`` byte, checked
+    against ``chip_smoke.fsdp_lookup_want``'s."""
+    import chip_smoke
+    from test_torch_tp_train import lookup_by_kind
+    cfg = LOOKUP_MODELS[name]
+    mesh, moves, nbytes = _fsdp_lookup_moves(cfg, shape, micro)
+    ids, own = lookup_by_kind(mesh, {k: v for k, v in moves.items()
+                                     if k[0].startswith("emb_ids_")})
+    rows, own_rows = lookup_by_kind(mesh, {
+        k: v for k, v in moves.items() if not k[0].startswith("emb_ids_")})
+    own.update(own_rows)
+    tokens = _lookup_batch(cfg)[0]
+    assert {k: v for k, v in nbytes.items() if k.startswith("emb_")} == \
+        chip_smoke.fsdp_lookup_want(cfg, shape, _fsdp_lookups(shape, micro),
+                                    True, tokens.element_size())
+    return mesh, ids, rows, own
+
+
+def _read_rows(read):
+    """The reference's lookup collectives but the ids'."""
+    return {k: v - read["ids"].get(k, 0) for k, v in read["all"].items()
+            if v != read["ids"].get(k, 0)}
+
+
+@pytest.mark.parametrize("name,micro,shape", FSDP_LOOKUP_SAME,
+                         ids=[f"{n}-{m}-{d}x{k}"
+                              for n, m, (d, k) in FSDP_LOOKUP_SAME])
+def test_fsdp_lookup_moves_as_the_reference(fsdp_lookup_reference, name,
+                                            micro, shape):
+    """The ``fsdp`` train step's lookup of its table against the
+    reference's jitted step (B 8 × 16 over "data"), where the port's
+    layout is the reference's: the port's lookup bytes a step by kind and
+    axis a chip (``lookup_by_kind``) equal, to the byte, the HLO's
+    collectives of the embedding's gather and its transpose, the ids' and
+    the rows' read apart. MOE16's table, P(("data", "model"), None) (1
+    microbatch on 2 × 2, 1 × 4 and 4 × 2; 2 on 1 × 4): the ids' all-gather
+    along "data", the partial rows' all-reduce over the blocks' positions
+    (both axes; "model" on 1 × 4), the gradient rows' all-gather along
+    "data". At 528 rows the table lies P("data", None) (1 microbatch on 2
+    × 2, 4 × 2 and 2 × 4; 2 on 2 × 2): the ids' collective-permute to each
+    batch shard's "model" column (and all-gather along "data" on 4 × 2),
+    the partial rows' all-reduce along "data" within the column, the rows'
+    and the gradient rows' collective-permute; the block gradient's
+    all-reduce over "model" (one block of V/D rows, once a microbatch) is
+    the step's gradient sum (``grad_psum`` in the port, once a step, of
+    the microbatches' sum at each shard). Apart: the port's own moves
+    (``emb_ids_home``, ``emb_grad_home``: the batch shard's ids and
+    gradient rows from its home to its group). Every ``emb_*`` byte equals
+    ``chip_smoke.fsdp_lookup_want``'s."""
+    cfg = LOOKUP_MODELS[name]
+    read = fsdp_lookup_reference[(name, micro, shape)]
+    mesh, ids, rows, own = _fsdp_lookup_bytes(name, micro, shape)
+    read_rows = _read_rows(read)
+    print(f"\nlookup ({name}, {micro} microbatch(es), {shape}): reference "
+          f"HLO {read}; the port: ids {ids}, rows {rows}, its own moves "
+          f"{own}")
+    assert ids == read["ids"]
+    if cfg.vocab_size % 256:
+        D = shape[0]
+        assert read_rows.pop("all-reduce model") == \
+            micro * cfg.vocab_size // D * cfg.d_model * 4
+        kinds = {"collective-permute both", "all-reduce data"}
+        assert set(read["ids"]) == ({"collective-permute both",
+                                     "all-gather data"} if D > shape[1]
+                                    else {"collective-permute both"})
+    else:
+        kinds = ({"all-reduce model"} if shape[0] == 1 else
+                 {"all-reduce both", "all-gather data"})
+    assert rows == read_rows
+    assert kinds <= set(read_rows)
+    assert set(own) <= {"emb_ids_home", "emb_grad_home"} and own
+
+
+# the reference's readings where the port's layout differs (its HLO read by
+# ``fsdp_lookup_reference``; the port's moves are held to its formula)
+FSDP_LOOKUP_READ = {
+    ("moe16", 2, (2, 2)): {"all": {"all-gather data": 16640,
+                                   "all-reduce both": 32768},
+                           "ids": {"all-gather data": 256}},
+    ("moe16", 2, (4, 2)): {"all": {"all-gather data": 8448,
+                                   "all-reduce both": 32768},
+                           "ids": {"all-gather data": 256}},
+    ("smollm", 1, (2, 2)): {"all": {"all-gather data": 24832,
+                                    "all-reduce both": 49152},
+                            "ids": {"all-gather data": 256}},
+    ("smollm", 1, (1, 4)): {"all": {"all-reduce model": 49152}, "ids": {}},
+    ("smollm", 1, (4, 2)): {"all": {"all-gather data": 12416,
+                                    "all-reduce both": 49152},
+                            "ids": {"all-gather data": 128}}}
+
+
+@pytest.mark.parametrize("name,micro,shape", FSDP_LOOKUP_PORT,
+                         ids=[f"{n}-{m}-{d}x{k}"
+                              for n, m, (d, k) in FSDP_LOOKUP_PORT])
+def test_fsdp_lookup_where_the_layout_differs(fsdp_lookup_reference, name,
+                                              micro, shape):
+    """The ``fsdp`` train step's lookup where the port's layout is not the
+    reference's, the reference's reading stated (``FSDP_LOOKUP_READ``) and
+    the port's bytes held to ``chip_smoke.fsdp_lookup_want`` alone. M > 1
+    microbatches on D > 1 batch shards: the port keeps whole microbatches
+    on each shard (one lookup a shard's microbatch, folded to its home),
+    where the reference splits each over all of "data" and its all-reduce
+    delivers every microbatch's rows to every chip. smollm's tied table:
+    the port's head gathers it whole at each home and the lookup reads it
+    there (no ``emb_*`` byte), where the reference looks it up where it
+    lies and gathers the hidden rows for the head."""
+    read = fsdp_lookup_reference[(name, micro, shape)]
+    assert read == FSDP_LOOKUP_READ[(name, micro, shape)]
+    mesh, ids, rows, own = _fsdp_lookup_bytes(name, micro, shape)
+    print(f"\nlookup ({name}, {micro} microbatch(es), {shape}): reference "
+          f"HLO {read}; the port: ids {ids}, rows {rows}, its own moves "
+          f"{own}")
+    if LOOKUP_MODELS[name].tie_embeddings:
+        assert not ids and not rows and not own
+        assert mesh.bytes["all_gather"] > 0
+    else:
+        assert rows and own
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (2, 4)],
+                         ids=["2x2", "4x1", "2x4"])
+def test_fsdp_lookup_rows_are_take_rows(shape, dtype):
+    """A (16, 5) table placed P(("data", "model"), None), −0.0 in a row
+    and in an entry, looked up over two batch shards' homes at once
+    (``HomeViews.take_rows``), the ids at block boundaries, negative,
+    outside [-n, n) and repeated by both shards: each home's rows in
+    ``dtype`` bit for bit ``take_rows`` of the cast table (−0.0 kept,
+    negative ids from the end, NaN rows), and, from seeded gradient rows,
+    the table's gradient bitwise one device's ``take_rows`` backward over
+    the two shards' ids in batch order, all of it in the first home's
+    view's blocks. (In f32: on the CPU the one-device backward's
+    accumulating ``index_put_`` and ``segment_sum``'s ``index_add`` round
+    bf16 sums differently; on the card both are the sorted
+    ``index_put_``.)"""
+    from repro_torch.distrib.collectives import (HomeViews, Rows,
+                                                 ShardView, batch_groups)
+    from repro_torch.distrib.sharding import device_put
+    from repro_torch.sparse.segment import take_rows
+    g = torch.Generator().manual_seed(11)
+    table = torch.randn((16, 5), generator=g)
+    table[4] = -0.0
+    table[9, 3] = -0.0
+    ids = [torch.tensor([[0, 3, 4, 7, 5, 5], [8, -1, 16, -17, 4, 9]]),
+           torch.tensor([[5, 12, 15, -16, 5, 5], [40, 9, 11, 4, 5, -100]])]
+    grads = [torch.randn(tuple(i.shape) + (5,), generator=g).to(dtype)
+             for i in ids]
+    mesh = Mesh(shape, ("data", "model"), ["cpu"] * (shape[0] * shape[1]))
+    x = device_put(table, mesh, P(("data", "model"), None))
+    homes, groups = batch_groups(mesh, "data")
+    views = [ShardView(x, h, grp) for h, grp in zip(homes[:2], groups[:2])]
+    out = HomeViews(views, homes[:2], mesh).take_rows(
+        Rows(ids, homes[:2], mesh), dtype)
+    leaf = table.clone().requires_grad_(True)
+    want = take_rows(leaf.to(dtype), torch.cat(ids))
+    for d in range(2):
+        assert torch.equal(_bits(out.parts[d]), _bits(want[2 * d:2 * d + 2]))
+    assert mesh.bytes["emb_rows_fold"] > 0
+    if dtype != torch.float32:
+        return
+    want.backward(torch.cat(grads))
+    torch.autograd.backward(out.parts, grads)
+    got = torch.cat([views[0].proxies[b].grad
+                     for b in sorted(views[0].proxies)])
+    assert torch.equal(_bits(got), _bits(leaf.grad))
+    assert all(p.grad is None for p in views[1].proxies.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2), (2, 4)],
+                         ids=["2x2", "4x2", "2x4"])
+def test_column_lookup_rows_are_take_rows(shape, dtype):
+    """A (16, 5) table placed P("data", None) (each block repeated along
+    "model"), −0.0 in a row and in an entry, looked up over every batch
+    shard's home at once (``HomeViews.take_rows``), the ids at block
+    boundaries, negative, outside [-n, n) and repeated: each home's rows in
+    ``dtype`` bit for bit ``take_rows`` of the cast table, looked up on
+    each shard's "model" column (``emb_rows_fold`` within it, the rows
+    sent home by ``emb_rows_permute``); from seeded gradient rows, each
+    column's blocks, at the first of its homes' views, take one device's
+    ``take_rows`` backward over that column's homes' ids in batch order,
+    bit for bit, the other views none; the columns' blocks together are
+    the table's gradient."""
+    from repro_torch.distrib.collectives import (HomeViews, Rows,
+                                                 ShardView, batch_groups)
+    from repro_torch.distrib.sharding import device_put
+    from repro_torch.sparse.segment import take_rows
+    g = torch.Generator().manual_seed(12)
+    table = torch.randn((16, 5), generator=g)
+    table[4] = -0.0
+    table[9, 3] = -0.0
+    mesh = Mesh(shape, ("data", "model"), ["cpu"] * (shape[0] * shape[1]))
+    x = device_put(table, mesh, P("data", None))
+    homes, groups = batch_groups(mesh, "data")
+    pool = torch.tensor([0, 3, 4, 7, 8, -1, 16, -17, 15, -16, 40, 9, 11,
+                         5, -100])
+    ids = [pool[torch.randint(0, len(pool), (2, 6), generator=g)]
+           for _ in homes]
+    grads = [torch.randn((2, 6, 5), generator=g) for _ in homes]
+    views = [ShardView(x, h, grp) for h, grp in zip(homes, groups)]
+    out = HomeViews(views, homes, mesh).take_rows(Rows(ids, homes, mesh),
+                                                  dtype)
+    want = take_rows(table.to(dtype), torch.cat(ids))
+    for d in range(len(homes)):
+        assert torch.equal(_bits(out.parts[d]),
+                           _bits(want[2 * d:2 * d + 2]))
+    assert mesh.bytes["emb_rows_fold"] > 0
+    assert mesh.bytes["emb_rows_permute"] > 0
+    if dtype != torch.float32:
+        return
+    torch.autograd.backward(out.parts, grads)
+    columns = {}
+    for d, v in enumerate(views):
+        columns.setdefault(tuple(sorted(v.sources.values())), []).append(d)
+    assert len(columns) == min(shape)
+    total = torch.zeros_like(table)
+    for members in columns.values():
+        leaf = table.clone().requires_grad_(True)
+        take_rows(leaf, torch.cat([ids[d] for d in members])).backward(
+            torch.cat([grads[d] for d in members]))
+        first = views[members[0]]
+        got = torch.cat([first.proxies[b].grad
+                         for b in sorted(first.proxies)])
+        assert torch.equal(_bits(got), _bits(leaf.grad))
+        assert all(p.grad is None for d in members[1:]
+                   for p in views[d].proxies.values())
+        total += got
+    one = table.clone().requires_grad_(True)
+    take_rows(one, torch.cat(ids)).backward(torch.cat(grads))
+    torch.testing.assert_close(total, one.grad, rtol=1e-6, atol=1e-6)
+
+
+def test_fsdp_lookup_gradient_takes_one_devices_order():
+    """Rows both batch shards hit many times: the joint lookup's table
+    gradient is one device's backward over the whole batch bit for bit,
+    and that order is not the per-shard order (each shard's sum, then the
+    two added), which differs here: the test tells them apart."""
+    from repro_torch.distrib.collectives import (HomeViews, Rows,
+                                                 ShardView, batch_groups)
+    from repro_torch.distrib.sharding import device_put
+    from repro_torch.sparse.segment import take_rows
+    g = torch.Generator().manual_seed(13)
+    table = torch.randn((16, 8), generator=g)
+    ids = [torch.randint(0, 3, (4, 32), generator=g) for _ in range(2)]
+    grads = [torch.randn((4, 32, 8), generator=g) for _ in range(2)]
+    mesh = Mesh((2, 2), ("data", "model"), CPU4)
+    x = device_put(table, mesh, P(("data", "model"), None))
+    homes, groups = batch_groups(mesh, "data")
+    views = [ShardView(x, h, grp) for h, grp in zip(homes, groups)]
+    out = HomeViews(views, homes, mesh).take_rows(Rows(ids, homes, mesh))
+    torch.autograd.backward(out.parts, grads)
+    got = torch.cat([views[0].proxies[b].grad
+                     for b in sorted(views[0].proxies)])
+    one = table.clone().requires_grad_(True)
+    take_rows(one, torch.cat(ids)).backward(torch.cat(grads))
+    assert torch.equal(got, one.grad)
+    per_shard = []
+    for i, gr in zip(ids, grads):
+        t = table.clone().requires_grad_(True)
+        take_rows(t, i).backward(gr)
+        per_shard.append(t.grad)
+    assert not torch.equal(per_shard[0] + per_shard[1], one.grad)
 
 
 def test_lm_train_cell_runs_one_microbatch():

@@ -542,7 +542,7 @@ def test_fsdp_prefill_bytes_by_formula(name, shape):
     prefill(place_params(params, mesh, lm_param_specs(params, cfg, "fsdp")),
             tokens)
     assert dict(mesh.bytes) == chip_smoke.serve_fsdp_bytes_want(
-        cfg, shape, B, S, 16, S + 4)
+        cfg, shape, B, S, 16, S + 4, tokens.element_size())
 
 
 @pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
@@ -619,9 +619,9 @@ for case in json.loads(sys.argv[1]):
             text = prefill.lower(params, tokens).compile().as_text()
         out[case["id"]] = {"prefill": np.asarray(lg, np.float32).tolist(),
                            "hlo": {"prefill": read_hlo(text), "weights": {
-                               "prefill": weight_gathers(text)},
-                               "lookup": {
-                                   "prefill": lookup_collectives(text)}}}
+                               "prefill": weight_gathers(text)}, "lookup": {
+                               "prefill": lookup_collectives(
+                                   text, *LM_LOOKUP)}}}
         continue
     token = np.array(case["token"], np.int32)
     with mesh:
@@ -636,7 +636,8 @@ for case in json.loads(sys.argv[1]):
                  .as_text()}
         hlo = {k: read_hlo(t) for k, t in texts.items()}
         hlo["weights"] = {k: weight_gathers(t) for k, t in texts.items()}
-        hlo["lookup"] = {k: lookup_collectives(t) for k, t in texts.items()}
+        hlo["lookup"] = {k: lookup_collectives(t, *LM_LOOKUP)
+                         for k, t in texts.items()}
     out[case["id"]] = {"prefill": np.asarray(lg, np.float32).tolist(),
                        "decode": np.asarray(dlg, np.float32).tolist(),
                        "hlo": hlo}
@@ -697,11 +698,22 @@ def _fault7_case(key):
             "extra": 4, "tokens": tokens.tolist()}
 
 
+def _fsdp_prefill_case(name):
+    """An ``fsdp`` prefill alone of B 4 × 16 random tokens, the batch split
+    over "data" on 2 × 2, groups of 16 (inside the batch shards)."""
+    cfg = SPLIT_MODELS[name]
+    tokens = np.random.default_rng(8).integers(0, cfg.vocab_size, (4, 16))
+    return {"id": f"fsdp-{name}", "cfg": dataclasses.asdict(cfg),
+            "split": True, "policy": "fsdp", "extra": 4,
+            "tokens": tokens.tolist()}
+
+
 @pytest.fixture(scope="module")
 def reference_serving():
     """The reference's jitted ``prefill`` and ``decode_step`` of every case
-    under the ``tp2d`` ``in_shardings`` (fault 7's prefill alone, under the
-    ``fsdp`` ones) on a 2 × 2 JAX mesh of four host devices (one child
+    under the ``tp2d`` ``in_shardings`` (fault 7's prefill and the three
+    models' ``fsdp`` prefill alone, under the ``fsdp`` ones) on a 2 × 2
+    JAX mesh of four host devices (one child
     process): logits, the compiled HLO's collective bytes a chip by kind
     and axis, and its weight gathers along "data" a chip (``weights``),
     per case id."""
@@ -709,7 +721,8 @@ def reference_serving():
     cases = ([_serve_case(n, b) for n in sorted(SPLIT_MODELS)
               for b in ("split", "whole")]
              + [_fault6_case(k) for k in sorted(FAULT6)]
-             + [_fault7_case(k) for k in sorted(FAULT7)])
+             + [_fault7_case(k) for k in sorted(FAULT7)]
+             + [_fsdp_prefill_case(n) for n in sorted(SPLIT_MODELS)])
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["JAX_PLATFORMS"] = "cpu"
@@ -859,6 +872,84 @@ def test_tp2d_lookup_moves_as_the_reference(reference_serving, name, batch,
     else:
         assert own == {"emb_rows_relayout" if split else "emb_rows_home":
                        (4 if split else 1) * rows * d // 2 * c}
+
+
+def _fsdp_prefill_lookup(reference_serving, name):
+    """The port's ``fsdp`` prefill of :func:`_fsdp_prefill_case`'s tokens:
+    the reference's reading of its lookup, the port's lookup bytes by kind
+    and axis a chip (``test_torch_tp_train.lookup_by_kind``) and its own
+    moves, its bytes, and the logits checked within rtol 1e-4 of the
+    reference's; every ``emb_*`` byte is
+    ``chip_smoke.fsdp_lookup_want``'s."""
+    import jax
+    from repro.models.transformer import TransformerLM as RLM
+    from test_torch_lm import _jax_cfg
+    from test_torch_tp_train import lookup_by_kind
+    cases, ref = reference_serving
+    case, want = cases[f"fsdp-{name}"], ref[f"fsdp-{name}"]
+    cfg = SPLIT_MODELS[name]
+    tree = jax.tree_util.tree_map(np.asarray, RLM(_jax_cfg(cfg)).init(
+        jax.random.PRNGKey(0)))
+    params = params_from_jax(cfg, tree, device="cpu")
+    mesh = _mesh((2, 2))
+    model = TransformerLM(cfg, moe_group_size=16,
+                          act_spec=P("data", None, None))
+    tokens = torch.tensor(case["tokens"], dtype=torch.int32)
+    B, S = tokens.shape
+    prefill = make_sharded_prefill(model, mesh, P("data", None),
+                                   P(None, "data", "model", None, None),
+                                   capacity=S + 4)
+    lg, _ = prefill(place_params(params, mesh,
+                                 lm_param_specs(params, cfg, "fsdp")), tokens)
+    got, own = lookup_by_kind(mesh, mesh.moves)
+    read = want["hlo"]["lookup"]["prefill"]
+    print(f"\n{name}, fsdp prefill: the reference HLO's lookup {read}; the "
+          f"port {got}, its own moves {own}")
+    assert {k: v for k, v in mesh.bytes.items() if k.startswith("emb_")} \
+        == chip_smoke.fsdp_lookup_want(cfg, (2, 2),
+                                       [[(0, B // 2 * S), (1, B // 2 * S)]],
+                                       False)
+    np.testing.assert_allclose(lg.numpy(), np.array(want["prefill"]),
+                               rtol=1e-4, atol=1e-4)
+    return read, got, own, mesh
+
+
+@pytest.mark.parametrize("name", sorted(k for k, c in SPLIT_MODELS.items()
+                                        if not c.tie_embeddings))
+def test_fsdp_prefill_lookup_moves_as_the_reference(reference_serving,
+                                                    name):
+    """The ``fsdp`` prefill's lookup (the prefill cell's default, B 4 × 16
+    split over "data" on 2 × 2, the table P(("data", "model"), None))
+    against the reference's jitted ``fsdp`` prefill: the port's lookup
+    bytes by kind and axis a chip (``test_torch_tp_train.lookup_by_kind``)
+    equal, to the byte, the HLO's collectives of the embedding's gather:
+    the ids' all-gather along "data" and the partial rows' all-reduce over
+    both axes, the two batch shards looked up at once; apart, the port's
+    own move of each batch shard's ids from its home to its group
+    (``emb_ids_home``). Every ``emb_*`` byte is
+    ``chip_smoke.fsdp_lookup_want``'s, and the logits are within rtol
+    1e-4 of the reference's."""
+    read, got, own, _ = _fsdp_prefill_lookup(reference_serving, name)
+    assert got == read
+    assert set(got) == {"all-gather data", "all-reduce both"}
+    assert set(own) == {"emb_ids_home"}
+
+
+@pytest.mark.parametrize("name", sorted(k for k, c in SPLIT_MODELS.items()
+                                        if c.tie_embeddings))
+def test_fsdp_prefill_tied_table_is_gathered(reference_serving, name):
+    """smollm's tied table in the ``fsdp`` prefill: the reference looks it
+    up where it lies (its reading stated: the ids' all-gather along
+    "data", 128 B, and the partial rows' all-reduce over both axes, 24,576
+    B a chip) and gathers the hidden rows for the head; the port's head
+    gathers the table whole at each home and the lookup reads it there,
+    so the port moves no ``emb_*`` byte and gathers the table
+    (``all_gather``). The logits are within rtol 1e-4 of the
+    reference's."""
+    read, got, own, mesh = _fsdp_prefill_lookup(reference_serving, name)
+    assert read == {"all-gather data": 128, "all-reduce both": 24576}
+    assert not got and not own
+    assert mesh.bytes["all_gather"] > 0
 
 
 @pytest.mark.parametrize("key", sorted(FAULT6))

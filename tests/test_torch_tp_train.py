@@ -1080,11 +1080,18 @@ def read_hlo(hlo):
     return read
 
 
-def lookup_collectives(hlo):
-    # {"kind axis": operand bytes a chip} of the embedding lookup's
-    # collectives: those whose op is the gather (or its transpose's
-    # scatter-add) and whose source line, from the module's stack frame
-    # tables, is one of models/transformer.py that indexes params["embed"]
+LM_LOOKUP = ("models/transformer.py", '["embed"].astype(cd)[token')
+
+
+def lookup_collectives(hlo, path, text, sum_tuples=False):
+    # {"kind axis": operand bytes a chip} of a table lookup's collectives:
+    # those whose op is the gather (or its transpose's scatter-add) and
+    # whose source line, from the module's stack frame tables, is one of
+    # the file ending in ``path`` that holds ``text`` (LM_LOOKUP: the LM's
+    # params["embed"][tokens]); with ``sum_tuples`` a tuple collective
+    # counts each element (the operands one combined collective carries),
+    # else its largest, as collective_bytes counts; and its shapes,
+    # {"kind axis": [shape, ...]}
     import linecache
     tables, cur = {}, None
     for l in hlo.splitlines():
@@ -1114,18 +1121,30 @@ def lookup_collectives(hlo):
                 or op.group(1).endswith("transpose(jvp())/scatter-add")):
             return False
         name, n = source(int(frame.group(1)))
-        return name.endswith("models/transformer.py") and \
-            '["embed"].astype(cd)[token' in linecache.getline(name, n)
+        return name.endswith(path) and text in linecache.getline(name, n)
     lines = hlo.splitlines()
     tags = [axis(l) if _COLLECTIVE_RE.search(l) and looks_up(l) else
             "other" if _COLLECTIVE_RE.search(l) else None for l in lines]
-    read = {}
+    read, shapes = {}, {}
     for ax in ("data", "model", "both", "none"):
-        keep = "\n".join(l for l, t in zip(lines, tags) if t in (None, ax))
-        for kind, n in collective_bytes(keep).items():
+        keep = []
+        for l, t in zip(lines, tags):
+            m = _COLLECTIVE_RE.search(l) if t == ax else None
+            if m and sum_tuples and m.group(1) and not m.group(4):
+                # one line per element, each counted as a collective of
+                # its own (the loop weights stay: same computation)
+                for elem in re.findall(r"[a-z]+\d*\[[0-9,]*\]", m.group(1)):
+                    keep.append(l.replace(m.group(0), "= " + elem + " "
+                                          + m.group(3) + "("))
+            elif t in (None, ax):
+                keep.append(l)
+            if m:
+                shapes.setdefault(f"{m.group(3)} {ax}", []).extend(
+                    re.findall(r"\[([0-9,]*)\]", m.group(1) or m.group(2)))
+        for kind, n in collective_bytes("\n".join(keep)).items():
             if n:
                 read[f"{kind} {ax}"] = n
-    return read
+    return (read, shapes) if sum_tuples else read
 
 
 def data_gathers(hlo):
@@ -1245,7 +1264,7 @@ for i, case in enumerate(args["cases"]):
             hlo = step.lower(state, tokens, labels).compile().as_text()
         out.update(kinds=read_hlo(hlo), gathers=data_gathers(hlo),
                    slices=reduce_then_slice(hlo),
-                   lookup=lookup_collectives(hlo))
+                   lookup=lookup_collectives(hlo, *LM_LOOKUP))
     if not case["batches"][1:]:             # the HLO alone
         print(f"CASE {i} " + json.dumps(out), flush=True)
         continue
@@ -1368,37 +1387,60 @@ LOOKUP_KINDS = {"emb_ids_permute": "collective-permute",
                 "emb_ids_gather": "all-gather",
                 "emb_rows_model": "all-reduce",
                 "emb_rows_data": "all-to-all",
-                "emb_grad_data": "all-to-all"}
-PORT_ONLY_LOOKUP = {"emb_rows_relayout", "emb_rows_home", "emb_grad_home"}
+                "emb_grad_data": "all-to-all",
+                "emb_rows_fold": "all-reduce",
+                "emb_rows_permute": "collective-permute",
+                "emb_grad_permute": "collective-permute",
+                "emb_grad_gather": "all-gather"}
+PORT_ONLY_LOOKUP = {"emb_rows_relayout", "emb_rows_home", "emb_grad_home",
+                    "emb_ids_home"}
+
+
+def _axis_of(mesh, ends):
+    """The mesh axes on which the (source, receiver) pairs ``ends``
+    differ: "data", "model" or "both"."""
+    axes = {x for frm, to in ends for x in ("data", "model")
+            if mesh.coords(frm)[x] != mesh.coords(to)[x]}
+    return axes.pop() if len(axes) == 1 else "both"
 
 
 def lookup_by_kind(mesh, moves):
     """The port's lookup bytes by ``"kind axis"`` a chip, in the units in
     which ``lookup_collectives`` reads the HLO's (``collective_bytes``'
     operand bytes a chip): each move of a lookup collective by the HLO
-    collective it stands for and the axis its ends differ on, the most
-    one position receives, over what a position receives of one operand
-    in a group of G along that axis: G − 1 operands of an all-gather (each
-    member's contribution) and of an all-to-all (one piece from each
-    other member), 2(G − 1)/G of an all-reduce's (its reduce-scatter and
-    all-gather), one of a collective-permute's. (The HLO's operand bytes
+    collective it stands for and the axis its ends differ on (an
+    all-reduce's: the axes its moves of that name span, its group), the
+    most one position receives, over what a position receives of one
+    operand in a group of G along that axis (both axes: every position):
+    G − 1 operands of an all-gather (each member's contribution; G one
+    more than the most members a position receives from, as a gather in
+    groups shorter than the axis has) and of an all-to-all (one piece from
+    each other member), 2(G − 1)/G of an all-reduce's (its reduce-scatter
+    and all-gather), one of a collective-permute's (its axis, as an
+    all-reduce's, the span of all its pairs). (The HLO's operand bytes
     count a collective-permute's pairs from a device to itself; those
     positions move nothing.) Moves of any other name are left out, the
-    port's own re-layouts apart: (by kind, theirs by name)."""
-    got, own = {}, {}
+    port's own moves apart: (by kind, theirs by name)."""
+    got, own, senders = {}, {}, {}
+    group = {name: _axis_of(mesh, [(f, t) for (m, f, t) in moves
+                                   if m == name])
+             for name, kind in LOOKUP_KINDS.items()
+             if kind in ("all-reduce", "collective-permute")}
     for (name, frm, to), n in moves.items():
         if name in PORT_ONLY_LOOKUP:
             own[name] = own.get(name, 0) + n
         if name not in LOOKUP_KINDS:
             continue
-        a, b = mesh.coords(frm), mesh.coords(to)
-        ax = ("data" if a["model"] == b["model"] else
-              "model" if a["data"] == b["data"] else "both")
+        ax = group.get(name) or _axis_of(mesh, [(frm, to)])
         at = got.setdefault((LOOKUP_KINDS[name], ax), {})
         at[to] = at.get(to, 0) + n
+        senders.setdefault((LOOKUP_KINDS[name], ax, to), set()).add(frm)
     out = {}
     for (kind, ax), at in sorted(got.items()):
-        G = mesh.axis_size(ax) if ax != "both" else 2
+        G = mesh.axis_size(ax) if ax != "both" else mesh.size
+        if kind == "all-gather":
+            G = 1 + max(len(f) for (k, a, _), f in senders.items()
+                        if (k, a) == (kind, ax))
         per = {"all-gather": G - 1, "all-to-all": G - 1,
                "all-reduce": Fraction(2 * (G - 1), G),
                "collective-permute": 1}[kind]
