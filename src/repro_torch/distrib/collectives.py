@@ -50,10 +50,15 @@ Serving under ``tp2d`` with the batch whole moves no parameter
 (:class:`StationaryView`, :class:`Rows`, :func:`block_matmul`): the
 activations stay at the home as :class:`Rows`, each product runs on the
 positions that hold the weight's blocks, and :func:`each` runs the rest of
-the model at the home. ``block_matmul``'s backward and
-:func:`vocab_parallel_xent` (the loss over a head whose blocks stay where
-they lie, only per-row statistics sent home) differentiate that pattern;
-no step calls them now.
+the model at the home. ``block_matmul``'s backward differentiates that
+pattern; no step calls it now.
+
+The ``fsdp`` train step and prefill on the vocab-parallel route keep the
+LM's head (or its tied table) where its blocks lie, as the reference's
+partitioner forms it (:func:`vocab_parallel_xent`, :func:`head_logits`,
+:class:`LyingHead`): the hidden rows go to the blocks, only per-row
+statistics and dX partials are reduced. BST's ``mlp_w0`` keeps its column
+blocks where they lie (:func:`column_row_product`).
 
 The train step under ``tp2d`` splits the work as the reference's
 partitioner does, Megatron over "model" × ZeRO over "data" (:class:`TPView`,
@@ -172,14 +177,16 @@ class _AllGather(torch.autograd.Function):
 
 class _Send(torch.autograd.Function):
     """A contiguous copy of ``x`` from position ``src`` to ``dst``; the
-    backward sends the gradient back. Both count under ``name``."""
+    backward sends the gradient back. Both count under ``name`` (with
+    ``pair``, under its source and receiver too: ``Mesh.moves``)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, src: int, dst: int, name: str):
+    def forward(ctx, x, mesh, src: int, dst: int, name: str,
+                pair: bool = False):
         ctx.mesh, ctx.src, ctx.dst, ctx.device = mesh, src, dst, x.device
-        ctx.name = name
+        ctx.name, ctx.pair = name, pair
         if src != dst:
-            mesh.count(name, _nbytes(x), to=dst)
+            mesh.count(name, _nbytes(x), to=dst, frm=src if pair else None)
         with span(name), mesh.moving():
             return torch.empty(x.shape, dtype=x.dtype,
                                device=mesh.device(dst)).copy_(x)
@@ -187,12 +194,13 @@ class _Send(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         if ctx.src != ctx.dst:
-            ctx.mesh.count(ctx.name, _nbytes(grad), to=ctx.src)
+            ctx.mesh.count(ctx.name, _nbytes(grad), to=ctx.src,
+                           frm=ctx.dst if ctx.pair else None)
         ctx.mesh.shift(ctx.src)
         with span(ctx.name), ctx.mesh.moving():
             return (torch.empty(grad.shape, dtype=grad.dtype,
                                 device=ctx.device).copy_(grad),
-                    None, None, None, None)
+                    None, None, None, None, None)
 
 
 class _SendSlices(torch.autograd.Function):
@@ -243,10 +251,11 @@ def send_slices(x: torch.Tensor, mesh, src: int, dsts: Sequence[int],
 
 
 def send(x: torch.Tensor, mesh, src: int, dst: int,
-         name: str = "expert_send") -> torch.Tensor:
+         name: str = "expert_send", pair: bool = False) -> torch.Tensor:
     """``x`` (at position ``src``) copied, contiguous, to position
-    ``dst``'s device; differentiable; counted under ``name``."""
-    return _Send.apply(x, mesh, src, dst, name)
+    ``dst``'s device; differentiable; counted under ``name`` (with
+    ``pair``, under both ends too)."""
+    return _Send.apply(x, mesh, src, dst, name, pair)
 
 
 def _block_grad(g: torch.Tensor, local: torch.Tensor, inside: torch.Tensor,
@@ -726,14 +735,15 @@ def _row_plan(mesh, sources: Tuple[int, ...], homes: Tuple[int, ...],
     return _RowPlan(sources, homes, tuple(routes), tuple(relays))
 
 
-def _hop(mesh, moved: dict, i: int, t: torch.Tensor, hops, prefix: str
+def _hop(mesh, moved: dict, i: int, t: torch.Tensor, hops, prefix
          ) -> torch.Tensor:
     """``t`` (home ``i``'s) moved along ``hops``, each counted under
-    ``prefix`` + its kind; a hop already in ``moved`` moves once."""
+    ``prefix`` + its kind (``prefix`` a function of the kind: under what it
+    gives); a hop already in ``moved`` moves once."""
     for kind, frm, to in hops:
         key = (i, frm, to)
         if key not in moved:
-            name = prefix + kind
+            name = prefix(kind) if callable(prefix) else prefix + kind
             with span(name), mesh.at(to), mesh.moving():
                 mesh.count(name, _nbytes(t), frm=frm, to=to)
                 moved[key] = t.to(mesh.device(to), copy=True)
@@ -1472,190 +1482,11 @@ def _join_home(mesh, home: int, parts, dtype: torch.dtype, shape):
         return g.reshape(shape)
 
 
-# -- the vocab-parallel cross entropy ------------------------------------------
-
-def vocab_parallel_xent(hidden: Rows, head: StationaryView,
-                        labels: Rows) -> Rows:
-    """Each home's mean cross entropy of the logits ``hidden @ head`` over
-    its labels ≥ 0 (``models.layers.softmax_xent_sharded``), over the
-    (d, V) head's blocks where they lie: the logits are never assembled
-    and only per-row statistics travel (:class:`_VocabParallelXent`)."""
-    plan = block_plan(head, hidden.homes)
-    out = _VocabParallelXent.apply(
-        hidden.mesh, tuple(hidden.homes), head, plan, len(hidden.parts),
-        *hidden.parts, *labels.parts, *(head.leaves[h] for _, h, _ in plan))
-    return Rows(list(out), hidden.homes, hidden.mesh)
-
-
-def _xent_groups(plan):
-    """:func:`block_plan` of the (d, V) head regrouped: per column block j
-    and group of batch shards, the holders of (0, j) … (D_in − 1, j)."""
-    groups = {}
-    for (i, j), h, ds in plan:
-        groups.setdefault((j, tuple(ds)), []).append(h)
-    return [(j, list(ds), hs) for (j, ds), hs in groups.items()]
-
-
 def _onehot(labels: torch.Tensor, lo: int, n: int) -> torch.Tensor:
     """The one-hot rows of ``labels`` over vocab entries ``lo … lo + n − 1``
     (a label elsewhere, or −1, gives a zero row)."""
     return (labels - lo)[..., None] == torch.arange(n, device=labels.device)
 
-
-class _VocabParallelXent(torch.autograd.Function):
-    """The vocab-parallel cross entropy (Megatron's) over a (d, V) head
-    split into D_in × D_out blocks that stay where they lie: the inputs are
-    the homes' hidden rows, their labels, then the head's leaf at each
-    :func:`block_plan` holder.
-
-    Forward: each home's hidden slice i goes to the holder of (i, j)
-    (``tp_act``), which computes that home's logits block, each home its
-    own product, in the compute dtype when D_in = 1 (then widened, as the
-    one-device loss widens its logits); with D_in > 1 (a head whose d is
-    split: the tied head) the partials are f32, go to the holder of
-    (0, j) (``tp_partial``) and are added there in ascending i and rounded
-    once. With the home's labels (``xent_stats``) that holder takes per row
-    the block's max m_j, s_j = Σ exp(logit − m_j) and the target logit t_j
-    by the one-hot contraction over its vocab range, and sends (m_j, s_j,
-    t_j) home (``xent_stats``). The home folds the blocks in ascending j:
-    m = max m_j, lse = m + log Σ_j s_j · exp(m_j − m), t = Σ_j t_j, and the
-    loss is Σ_valid (lse − t) / max(count, 1). With one block the fold is
-    ``torch.logsumexp``'s own (log s + m).
-
-    Backward: each home sends (lse, g / count) per row to the holders of
-    (0, j) (``xent_stats``), which compute softmax − one-hot for their
-    block as autograd does on one device, cast to the compute dtype; with
-    D_in > 1 that goes on to the holders of (i > 0, j) (``tp_grad_act``).
-    Each holder takes the block product's backward as
-    :class:`_BlockMatmul`'s holders do (:func:`_holder_grads`): the
-    hidden's partial goes home (f32 when D_out > 1; ``tp_grad_partial``),
-    added there in ascending j and cast once, and each home's head
-    gradient is added in ascending batch order into the holder's leaf. The
-    logits never leave their holder."""
-
-    @staticmethod
-    def forward(ctx, mesh, homes, head, plan, n_h, *tensors):
-        hs, labels = tensors[:n_h], tensors[n_h:2 * n_h]
-        wl = dict(zip((h for _, h, _ in plan), tensors[2 * n_h:]))
-        d_model, V = head.shape
-        D_in, D_out = head.counts
-        b_out = V // D_out
-        cd = hs[0].dtype
-        pd = cd if D_in == 1 else torch.float32
-        cut = _cut_rows(mesh, homes, hs, d_model, D_in)
-        stats = [[None] * D_out for _ in homes]
-        saved = []
-        for j, ds, holders in _xent_groups(plan):
-            wcs = []
-            for h in holders:
-                with mesh.at(h):
-                    wcs.append(_compute_block(head, wl[h], cd))
-            saved += wcs
-            h0 = holders[0]
-            for d in ds:
-                p = None
-                for i, (h, wc) in enumerate(zip(holders, wcs)):
-                    xin, = _move(mesh, [cut[d][i]], [homes[d]], h, "tp_act")
-                    saved.append(xin)
-                    with mesh.at(h):
-                        q = _mm(xin, wc, pd)
-                    q, = _move(mesh, [q], [h], h0, "tp_partial")
-                    with mesh.at(h0):
-                        p = q if p is None else p + q
-                lab, = _move(mesh, [labels[d]], [homes[d]], h0, "xent_stats")
-                with mesh.at(h0):
-                    # the logits rounded as one product rounds them, kept
-                    # in the compute dtype (widened again in the backward)
-                    p = p.to(cd)
-                    logits = p.float().reshape(*lab.shape, b_out)
-                    m = logits.amax(dim=-1)
-                    s = torch.exp(logits - m[..., None]).sum(dim=-1)
-                    onehot = _onehot(lab, j * b_out, b_out)
-                    t = torch.einsum("bsv,bsv->bs", logits, onehot.float())
-                saved += [p, lab]
-                del logits, p
-                stats[d][j] = _move(mesh, [m, s, t], [h0] * 3, homes[d],
-                                    "xent_stats")
-        out, home_saved = [], []
-        for d, home in enumerate(homes):
-            with mesh.at(home):
-                m = stats[d][0][0]
-                for mj, _, _ in stats[d][1:]:
-                    m = torch.maximum(m, mj)
-                tot = t = None
-                for mj, sj, tj in stats[d]:
-                    a = sj * torch.exp(mj - m)
-                    tot = a if tot is None else tot + a
-                    t = tj if t is None else t + tj
-                lse = m + torch.log(tot)
-                valid = labels[d] >= 0
-                count = torch.clamp_min(valid.sum(), 1)
-                out.append(torch.where(valid, lse - t, 0.0).sum() / count)
-            home_saved += [lse, valid, count]
-        ctx.save_for_backward(*saved, *home_saved)
-        ctx.n_saved = len(saved)
-        ctx.mesh, ctx.homes, ctx.head, ctx.plan = mesh, homes, head, plan
-        ctx.cd = cd
-        ctx.h_meta = [(hd.shape, hd.dtype) for hd in hs]
-        ctx.w_dtypes = {h: t.dtype for h, t in wl.items()}
-        return tuple(out)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        mesh, homes, head, cd = ctx.mesh, ctx.homes, ctx.head, ctx.cd
-        tensors = ctx.saved_tensors
-        saved, home_saved = tensors[:ctx.n_saved], tensors[ctx.n_saved:]
-        D_in, D_out = head.counts
-        b_out = head.shape[1] // D_out
-        rows = []
-        for d, home in enumerate(homes):
-            lse, valid, count = home_saved[3 * d:3 * d + 3]
-            with mesh.at(home):
-                # the one-device backward of Σ where(valid, lse − t, 0) / n
-                g = torch.where(valid, grads[d] / count, 0.0)
-            rows.append((lse, g))
-        gpd = cd if D_out == 1 else torch.float32
-        # the hidden's partials, added at the home in ascending j (the
-        # groups come in ascending j) as they come
-        got = [[None] * D_in for _ in homes]
-        gw = {}
-        k = 0
-        for j, ds, holders in _xent_groups(ctx.plan):
-            h0 = holders[0]
-            wcs = saved[k:k + len(holders)]
-            k += len(holders)
-            acc = [None] * len(holders)
-            for d in ds:
-                xins = saved[k:k + len(holders)]
-                p, lab = saved[k + len(holders):k + len(holders) + 2]
-                k += len(holders) + 2
-                lse, g = _move(mesh, list(rows[d]), [homes[d]] * 2, h0,
-                               "xent_stats")
-                with mesh.at(h0):
-                    logits = p.float().reshape(*lab.shape, b_out)
-                    # logsumexp's backward, then the one-hot contraction's
-                    dl = g[..., None] * torch.exp(logits - lse[..., None])
-                    del logits
-                    dl = dl - _onehot(lab, j * b_out, b_out).float() \
-                        * g[..., None]
-                    dl = dl.to(cd).reshape(-1, b_out)
-                for i, (h, wc, xin) in enumerate(zip(holders, wcs, xins)):
-                    dli, = _move(mesh, [dl], [h0], h, "tp_grad_act")
-                    with mesh.at(h):
-                        (q,), t = _holder_grads(xin, [dli], wc, gpd,
-                                                ctx.w_dtypes[h])
-                        acc[i] = t if acc[i] is None else acc[i] + t
-                    q, = _move(mesh, [q], [h], homes[d], "tp_grad_partial")
-                    with mesh.at(homes[d]):
-                        got[d][i] = q if got[d][i] is None else got[d][i] + q
-                    del q
-                del dl
-            for h, g_w in zip(holders, acc):
-                gw[h] = g_w.t() if head.transposed else g_w
-        ghs = [_join_home(mesh, home, parts, hdt, shape)
-               for (shape, hdt), home, parts in zip(ctx.h_meta, homes, got)]
-        return ((None,) * 5 + tuple(ghs) + (None,) * len(homes)
-                + tuple(gw[h] for _, h, _ in ctx.plan))
 
 
 def _weight_grad(x: torch.Tensor, w: torch.Tensor,
@@ -1690,6 +1521,639 @@ def _mm(a: torch.Tensor, b: torch.Tensor, out: torch.dtype) -> torch.Tensor:
     if a.device.type == "cpu":
         return a.to(out) @ b.to(out)
     return torch.mm(a, b, out_dtype=out)
+
+
+# -- the head where it lies (the ``fsdp`` vocab-parallel loss and prefill) ----
+#
+# Under ``fsdp`` the head lies as P(None, ("data", "model")) (a tied table as
+# P(("data", "model"), None), read as its transpose), one vocab block a
+# position, or, where the vocabulary does not divide 256 (qwen3's 151,936
+# entries), as ``fit_spec``'s fallback P(None, "data"), each block repeated
+# along "model". The reference's compiled ``fsdp`` train step and prefill
+# (read by ``tests/test_torch_sharded_train.py`` and
+# ``tests/test_torch_tp_serve.py``, the head's collectives told apart by op
+# and source line: the product ``hidden @ head_w`` and the log-sum-exp's
+# reductions) form the head so:
+#
+# * one block a position: the hidden rows are all-gathered along "data", so
+#   each position holds every row of the batch; each multiplies them by its
+#   block; the row maximum and the sum of the exponentials are all-reduced
+#   over every position (an f32 per row each). The backward: each position's
+#   dX partial of every row is all-reduced along "data", then each batch
+#   shard's rows over "model"; each block's dW stays where the block lies.
+# * the fallback on a square mesh: the hidden rows go to the transposed
+#   position (collective-permute) and are all-gathered along "model", so
+#   position (a, b) multiplies every row by block a; the statistics are
+#   all-reduced along "data". The backward works on (batch shard d, block
+#   m) at position (d, m): the head block comes there from (m, d)
+#   (collective-permute), the dX partials are all-reduced over "model" and
+#   the block's dW goes back to (m, d) (collective-permute), where the
+#   block gradients of the batch shards are added over "model" (the step's
+#   ``grad_psum``).
+#
+# The port keeps a batch shard at its home, so the rows (and the labels)
+# reach the shard's group first (``head_rows_home``, ``head_labels``); the
+# target logit's partials go home (``head_target``), the loss's gradient
+# to the blocks (``head_scale``) and, in the fallback, each (batch shard,
+# block)'s logit gradient from the position that formed the logits
+# (``head_grad_relayout``): moves the reference's partitioner makes in
+# other forms (a gathered one-hot contraction, an all-to-all).
+
+
+def _form(lay, mesh, transposed: bool):
+    """:func:`head_form` of a head placed by the layout ``lay``."""
+    if len(lay.counts) != 2:
+        return None
+    v = 0 if transposed else 1
+    if lay.counts[1 - v] != 1 or (lay.counts[v] == 1 and mesh.size > 1):
+        return None
+    if lay.counts[v] == mesh.size:
+        return "lie"
+    if (tuple(mesh.axis_names) == ("data", "model")
+            and tuple(lay.axes[v]) == ("data",)
+            and mesh.axis_size("data") == mesh.axis_size("model")):
+        return "column"
+    return None
+
+
+def head_form(x: ShardedTensor, transposed: bool = False):
+    """How the reference's partitioner forms the product with the head
+    ``x`` ((d, V); with ``transposed`` a tied (V, d) table read as its
+    transpose), by its layout: ``"lie"`` where the vocabulary is split into
+    one block a position of the mesh (one block on a mesh of one
+    position), ``"column"`` where it is split over "data" alone on a
+    square ("data", "model") mesh, each block repeated along "model"; else
+    None (the head is then read whole)."""
+    return _form(x.layout, x.mesh, transposed)
+
+
+def _to(mesh, t: torch.Tensor, frm: int, to: int, name: str) -> torch.Tensor:
+    """``t`` (at ``frm``) at ``to``, counted under ``name`` where it moves."""
+    if frm == to:
+        return t
+    with span(name), mesh.at(to), mesh.moving():
+        mesh.count(name, _nbytes(t), frm=frm, to=to)
+        return t.to(mesh.device(to), copy=True)
+
+
+def _allreduce(mesh, srcs: Sequence[int], parts: Sequence[torch.Tensor],
+               to: Sequence[int], name: str, combine
+               ) -> Dict[int, torch.Tensor]:
+    """``parts[k]`` (equal shapes, at ``srcs[k]``) all-reduced as a
+    reduce-scatter and an all-gather move them: the flattened parts cut
+    into K chunks, chunk k combined at ``srcs[k]`` from every part's chunk
+    in ascending k (``combine(acc, piece)``: ``torch.add``,
+    ``torch.maximum``), then every combined chunk sent to each position of
+    ``to``. Both halves count under ``name``. The reduced parts,
+    flattened, at each position of ``to``; with one part, the part."""
+    K, T = len(srcs), parts[0].numel()
+    cut = [k * T // K for k in range(K + 1)]
+    flat = []
+    for q, part in zip(srcs, parts):
+        with mesh.at(q):
+            flat.append(part.reshape(-1))
+    chunks = []
+    for k, dst in enumerate(srcs):
+        lo, size = cut[k], cut[k + 1] - cut[k]
+        out = None
+        for i, q in enumerate(srcs):
+            with mesh.at(dst):
+                piece = flat[i].narrow(0, lo, size)
+            if q != dst and size:
+                with span(name), mesh.at(dst), mesh.moving():
+                    mesh.count(name, _nbytes(piece), frm=q, to=dst)
+                    piece = piece.to(mesh.device(dst))
+            with mesh.at(dst):
+                out = piece if out is None else combine(out, piece)
+        chunks.append(out)
+    del flat
+    reduced = {}
+    for p in to:
+        pieces = []
+        for q, ch in zip(srcs, chunks):
+            if q != p and ch.numel():
+                with span(name), mesh.at(p), mesh.moving():
+                    mesh.count(name, _nbytes(ch), frm=q, to=p)
+                    ch = ch.to(mesh.device(p))
+            pieces.append(ch)
+        with mesh.at(p):
+            reduced[p] = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+    return reduced
+
+
+class _HeadPlan(NamedTuple):
+    """Where :class:`_VocabParallelXent` and :func:`head_logits` work: ``form``
+    (:func:`head_form`); the positions that form logits (``sites``, in
+    position order) and the vocab block each forms (``blocks``); per site
+    and home the hops of the home's rows there, ``(kind, from, to)``,
+    kind ``"home"`` (within the home's group), ``"permute"`` or
+    ``"gather"`` (``routes``); the sites whose statistics fold together,
+    in block order (``stats``); per home the sites whose target partials it
+    adds, in block order (``targets``); in the fallback, per home and
+    block, in block order, the position that takes the backward's work on
+    them (``units``; where each block lies once, the block's site)."""
+    form: str
+    sites: Tuple[int, ...]
+    blocks: Tuple[int, ...]
+    routes: Tuple[Tuple[Tuple[Tuple[str, int, int], ...], ...], ...]
+    stats: Tuple[Tuple[int, ...], ...]
+    targets: Tuple[Tuple[int, ...], ...]
+    units: Tuple[Tuple[int, ...], ...]
+
+
+@functools.lru_cache(maxsize=64)
+def _head_plan(mesh, spec, shape: Tuple[int, ...], transposed: bool,
+               homes: Tuple[int, ...],
+               groups: Tuple[Tuple[int, ...], ...]) -> _HeadPlan:
+    """The :class:`_HeadPlan` of a head ``shape`` placed by ``spec``
+    (``transposed``: a tied table) for the batch shards at ``homes``, each
+    with its ``groups`` entry. One block a position: each block's position
+    forms every home's logits of it, the rows routed as
+    :func:`_row_plan` routes a lookup's ids. The fallback: every position
+    (a, b) forms block a, a home's rows going from the home to (d, a) of
+    its group, to (a, d) and along "model" to (a, b); the statistics fold
+    along "data"; batch shard d's work on block m is at (d, m)."""
+    from repro_torch.distrib.sharding import Layout
+    lay = Layout(mesh, spec, shape)
+    v = 0 if transposed else 1
+    form = _form(lay, mesh, transposed)
+    sites = tuple(range(mesh.size))
+    if form == "lie":
+        blocks = tuple(lay.block_of(q)[v] for q in sites)
+        routes = _row_plan(mesh, sites, homes, groups, False).routes
+        order = tuple(sorted(sites, key=lambda q: blocks[q]))
+        return _HeadPlan(form, sites, blocks, routes, (order,),
+                         (order,) * len(homes), ())
+    if form != "column":
+        raise ValueError(f"a head placed as {spec} on {mesh!r} is read "
+                         f"whole")
+    D = mesh.axis_size("data")
+
+    def at(a, b):
+        return _position(mesh, {"data": a, "model": b})
+    blocks = tuple(mesh.coords(q)["data"] for q in sites)
+    routes = []
+    for q in sites:
+        a, b = mesh.coords(q)["data"], mesh.coords(q)["model"]
+        per = []
+        for h in homes:
+            s = mesh.coords(h)["data"]
+            hops = (("home", h, at(s, a)), ("permute", at(s, a), at(a, s)),
+                    ("gather", at(a, s), q))
+            per.append(tuple(hop for hop in hops if hop[1] != hop[2]))
+        routes.append(tuple(per))
+    stats = tuple(tuple(at(a, b) for a in range(D)) for b in range(D))
+    units = tuple(tuple(at(mesh.coords(h)["data"], m) for m in range(D))
+                  for h in homes)
+    return _HeadPlan(form, sites, blocks, tuple(routes), stats,
+                     (stats[0],) * len(homes), units)
+
+
+def _head_leaves(views: Sequence["ShardView"], form: str, v: int):
+    """The leaves that take the head's gradient, in vocab order: the first
+    view's blocks (one block a position), or each view's blocks on its
+    "model" column (the fallback, :meth:`ShardView.to_column`), views in
+    batch order."""
+    if form == "lie":
+        views = views[:1]
+    out = []
+    for view in views:
+        if form == "column":
+            view.to_column()
+        out += [view.proxies[b] for b in sorted(view.proxies,
+                                                key=lambda b: b[v])]
+    return out
+
+
+def _rows_of(t: torch.Tensor, sizes: Sequence[int], i: int) -> torch.Tensor:
+    """Home ``i``'s rows of ``t``, which stacks every home's in order."""
+    return t.narrow(0, sum(sizes[:i]), sizes[i])
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """:func:`vocab_parallel_xent`; the inputs are the homes' hidden rows,
+    their labels, then :func:`_head_leaves`."""
+
+    @staticmethod
+    def forward(ctx, mesh, plan, x, transposed, homes, n, *tensors):
+        hs, labs, leaves = tensors[:n], tensors[n:2 * n], tensors[2 * n:]
+        cd, d = hs[0].dtype, hs[0].shape[-1]
+        sizes = [h.numel() // d for h in hs]
+        K = len(set(plan.blocks))
+        Vb = x.shape[0 if transposed else 1] // K
+        moved_h, moved_l = {}, {}
+        xs, wcs, ps, lq, ms = {}, {}, {}, {}, {}
+        # every site: each home's rows times its block, the row maxima
+        for q in plan.sites:
+            rows = [_hop(mesh, moved_h, i, h, plan.routes[q][i], "head_rows_")
+                    for i, h in enumerate(hs)]
+            lab = [_hop(mesh, moved_l, i, t, plan.routes[q][i],
+                        lambda kind: "head_labels")
+                   for i, t in enumerate(labs)]
+            with mesh.at(q):
+                xq = [r.reshape(-1, d) for r in rows]
+                xs[q] = xq[0] if n == 1 else torch.cat(xq)
+                lab = [t.reshape(-1) for t in lab]
+                lq[q] = lab[0] if n == 1 else torch.cat(lab)
+                wcs[q] = _site_weight(x, q, transposed, cd)
+                ps[q] = _mm(xs[q], wcs[q], cd)
+                ms[q] = ps[q].float().amax(dim=-1)
+            del rows, xq
+        del moved_h, moved_l
+        # the statistics: the maxima, then the sums of the exponentials,
+        # all-reduced over each group's sites (one block: logsumexp's bits)
+        lse = {}
+        for group in plan.stats:
+            got = _allreduce(mesh, group, [ms[q] for q in group], group,
+                             "head_stats", torch.maximum)
+            sums = []
+            for q in group:
+                with mesh.at(q):
+                    ms[q] = got[q]
+                    sums.append(torch.exp(ps[q].float() - got[q][:, None])
+                                .sum(dim=-1))
+            got = _allreduce(mesh, group, sums, group, "head_stats",
+                             torch.add)
+            for q in group:
+                with mesh.at(q):
+                    lse[q] = ms[q] + torch.log(got[q])
+        del ms
+        # each home's target logits from the sites, its sum and count
+        tots, counts = [], []
+        for i, (h, lab_h) in enumerate(zip(homes, labs)):
+            t = None
+            for q in plan.targets[i]:
+                with mesh.at(q):
+                    lg = _rows_of(ps[q], sizes, i).float()
+                    lg = lg.reshape(*lab_h.shape, Vb)
+                    lab = _rows_of(lq[q], sizes, i).reshape(lab_h.shape)
+                    lo = plan.blocks[q] * Vb
+                    if K == 1:   # the one-hot contraction's own bits
+                        tq = torch.einsum("bsv,bsv->bs", lg,
+                                          _onehot(lab, lo, Vb).float())
+                    else:        # its value, without an f32 one-hot
+                        j = (lab.long() - lo)[..., None]
+                        inside = (j >= 0) & (j < Vb)
+                        tq = torch.where(inside, lg.gather(
+                            -1, j.clamp(0, Vb - 1)), 0.0)[..., 0]
+                    del lg
+                tq = _to(mesh, tq, q, h, "head_target")
+                with mesh.at(h):
+                    t = tq if t is None else t + tq
+            with mesh.at(h):
+                lse_h = _rows_of(lse[h], sizes, i).reshape(lab_h.shape)
+                valid = lab_h >= 0
+                tots.append(torch.where(valid, lse_h - t, 0.0).sum())
+                counts.append(valid.sum().to(torch.int32))
+        sites = plan.sites
+        # the fallback's backward reads the logits of the sites (m, m) only
+        kept = (set(sites) if plan.form == "lie" else
+                {_position(mesh, {"data": m, "model": m}) for m in range(K)})
+        with mesh.at(homes[0]):
+            none = hs[0].new_empty(0)
+        ctx.save_for_backward(*(xs[q] for q in sites),
+                              *(wcs[q] for q in sites),
+                              *(ps[q] if q in kept else none for q in sites),
+                              *(lq[q] for q in sites),
+                              *(lse[q] for q in sites), *leaves)
+        del ps
+        ctx.mesh, ctx.plan, ctx.transposed, ctx.homes = (mesh, plan,
+                                                         transposed, homes)
+        ctx.sizes, ctx.Vb, ctx.K = sizes, Vb, K
+        ctx.h_meta = [(h.shape, h.dtype) for h in hs]
+        ctx.mark_non_differentiable(*counts)
+        return tuple(tots) + tuple(counts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, plan, homes = ctx.mesh, ctx.plan, ctx.homes
+        sizes, Vb, K, tr = ctx.sizes, ctx.Vb, ctx.K, ctx.transposed
+        n, S = len(homes), len(plan.sites)
+        saved = ctx.saved_tensors
+        xs, wcs, ps, lq, lse = (dict(zip(plan.sites, saved[j * S:(j + 1) * S]))
+                                for j in range(5))
+        leaves = saved[5 * S:]
+        gpd = ctx.h_meta[0][1] if K == 1 else torch.float32
+        scales = {}
+
+        def scale(i, q):
+            """Home ``i``'s gradient of its sum, at ``q``."""
+            if (i, q) not in scales:
+                scales[(i, q)] = _to(mesh, grads[i], homes[i], q,
+                                     "head_scale")
+            return scales[(i, q)]
+
+        def logit_grad(q, i):
+            """The gradient of site ``q``'s logits of home ``i``'s rows
+            (all homes' with ``i`` None), in the compute dtype."""
+            rows = range(n) if i is None else (i,)
+            with mesh.at(q):
+                gs = []
+                for r in rows:
+                    g = scale(r, q)
+                    with mesh.at(q):
+                        gs.append(torch.where(_rows_of(lq[q], sizes, r) >= 0,
+                                              g, 0.0))
+                g = gs[0] if len(gs) == 1 else torch.cat(gs)
+                lo = 0 if i is None else sum(sizes[:i])
+                size = sum(sizes) if i is None else sizes[i]
+                lg = ps[q].narrow(0, lo, size).float()
+                # logsumexp's backward, then the one-hot contraction's
+                dl = g[:, None] * torch.exp(
+                    lg - lse[q].narrow(0, lo, size)[:, None])
+                del lg
+                hot = _onehot(lq[q].narrow(0, lo, size),
+                              plan.blocks[q] * Vb, Vb)
+                if K == 1:      # autograd's own ops on one device
+                    dl = dl - hot.float() * g[:, None]
+                else:           # their values, without an f32 one-hot
+                    dl = torch.where(hot, dl - g[:, None], dl)
+                del hot
+                return dl.to(wcs[q].dtype)
+
+        gws = [None] * len(leaves)
+        parts = [dict() for _ in range(n)]   # home → {unit: dX partial}
+        if plan.form == "lie":
+            order = plan.stats[0]
+            for j, q in enumerate(order):
+                dl = logit_grad(q, None)
+                with mesh.at(q):
+                    dys = (torch.split(dl, sizes) if n > 1 else (dl,))
+                    gxs, g_w = _holder_grads(xs[q], list(dys), wcs[q], gpd,
+                                             leaves[j].dtype)
+                    gws[j] = g_w.t() if tr else g_w
+                    del dl, dys
+                    gx = gxs[0] if n == 1 else torch.cat(gxs)
+                    for i in range(n):
+                        parts[i][q] = gx if K > 1 else _rows_of(gx, sizes, i)
+            if K > 1:
+                # along "data", every row; then each home's rows over the
+                # sites of its group, to the home
+                lines: Dict[Tuple, List[int]] = {}
+                for q in plan.sites:
+                    c = mesh.coords(q)
+                    lines.setdefault(tuple(v for a, v in c.items()
+                                           if a != "data"), []).append(q)
+                summed = {}
+                for line in lines.values():
+                    if len(line) == 1:
+                        summed[line[0]] = parts[0][line[0]]
+                        continue
+                    got = _allreduce(mesh, line, [parts[0][q] for q in line],
+                                     line, "head_grad_data", torch.add)
+                    summed.update(got)
+                for i in range(n):
+                    group = [q for q in plan.sites if all(
+                        mesh.coords(q)[a] == mesh.coords(homes[i])[a]
+                        for a in mesh.axis_names if a != "model")]
+                    rows = []
+                    for q in group:
+                        with mesh.at(q):
+                            rows.append(_rows_of(summed[q].reshape(
+                                -1, xs[q].shape[1]), sizes, i))
+                    parts[i] = {q: r for q, r in zip(group, rows)}
+        else:
+            D = K
+            for i, h in enumerate(homes):
+                s = mesh.coords(h)["data"]
+                for m in range(D):
+                    u = plan.units[i][m]
+                    src = _position(mesh, {"data": m, "model": m})
+                    dl = _to(mesh, logit_grad(src, i), src, u,
+                             "head_grad_relayout")
+                    leaf = leaves[i * D + m]
+                    held = _position(mesh, {"data": m, "model": s})
+                    with mesh.at(held):
+                        w = leaf.detach()
+                    w = _to(mesh, w, held, u, "head_block_permute")
+                    with mesh.at(u):
+                        wc = (w.T if tr else w).to(dl.dtype)
+                        xi = _rows_of(xs[u], sizes, i)
+                        parts[i][u] = _input_grad(dl, wc, xi, gpd)
+                        g_w = _weight_grad(xi, wc, dl).to(leaf.dtype)
+                        g_w = g_w.t() if tr else g_w
+                        del dl, wc, w
+                    gws[i * D + m] = _to(mesh, g_w, u, held,
+                                         "head_wgrad_permute")
+        ghs = []
+        for i, (h, (shape, hdt)) in enumerate(zip(homes, ctx.h_meta)):
+            group = list(parts[i])
+            if len(group) == 1:
+                g = parts[i][group[0]]
+            else:
+                g = _allreduce(mesh, group, [parts[i][q] for q in group],
+                               [h], "head_grad_model", torch.add)[h]
+            with mesh.at(h):
+                ghs.append(g.to(hdt).reshape(shape))
+        return ((None,) * 6 + tuple(ghs) + (None,) * n + tuple(gws))
+
+
+def _site_weight(x: ShardedTensor, q: int, transposed: bool,
+                 dtype) -> torch.Tensor:
+    """The block position ``q`` holds as the product reads it, (d, V/K) in
+    ``dtype``."""
+    leaf = x.shards[q]
+    return (leaf.T if transposed else leaf).to(dtype)
+
+
+def vocab_parallel_xent(hidden: "Rows", labels: "Rows",
+                        views: Sequence["ShardView"],
+                        transposed: bool = False) -> Tuple["Rows", "Rows"]:
+    """Each home's sum of the cross entropy of the logits ``hidden @
+    head`` over its labels ≥ 0, and its int32 count of them
+    (``models.layers.softmax_xent_sharded``'s terms), over the blocks of
+    the head where they lie (``views``: one :class:`ShardView` a home, in
+    batch order; ``transposed``: a tied table), formed as the reference's
+    partitioner forms the vocab-parallel loss (see above): the rows go to
+    every block's position (``head_rows_home``, ``head_rows_gather``; the
+    fallback's ``head_rows_permute``), each position takes its block's
+    logits of every row in the compute dtype, the row maxima and the sums
+    of the exponentials are all-reduced over the positions of the blocks
+    (``head_stats``), lse = max + log(sum), and each block's target logits
+    go home (``head_target``, added in block order). One block gives
+    ``softmax_xent_sharded``'s bits.
+
+    The backward: each home's gradient goes to the blocks (``head_scale``);
+    the logits' gradient, softmax − one-hot as autograd takes it on one
+    device, cast to the compute dtype; each block's dW is each home's own
+    product added in batch order, and stays where the block lies (the
+    fallback: made at (d, m) with the block brought there,
+    ``head_block_permute``, and sent back, ``head_wgrad_permute``); the dX
+    partials (f32 with more than one block) are all-reduced along "data"
+    over every row (``head_grad_data``), then each home's rows over its
+    group to the home (``head_grad_model``), and cast once."""
+    x, mesh = views[0].x, hidden.mesh
+    form = head_form(x, transposed)
+    plan = _head_plan(mesh, x.spec, tuple(x.shape), transposed,
+                      tuple(hidden.homes), tuple(tuple(v.group)
+                                                 for v in views))
+    leaves = _head_leaves(views, form, 0 if transposed else 1)
+    n = len(hidden.parts)
+    out = _VocabParallelXent.apply(mesh, plan, x, transposed,
+                                   tuple(hidden.homes), n, *hidden.parts,
+                                   *labels.parts, *leaves)
+    return (Rows(list(out[:n]), hidden.homes, mesh),
+            Rows(list(out[n:]), hidden.homes, mesh))
+
+
+def head_logits(rows: "Rows", views: Sequence["ShardView"],
+                transposed: bool = False) -> List[torch.Tensor]:
+    """Each home's logits ``rows @ head`` (the head's blocks where they
+    lie, as :func:`vocab_parallel_xent` reads them; no gradient), formed as the
+    reference's partitioner forms a prefill's: the rows go to every
+    block's position as the loss's do, each position multiplies them by its
+    block in the rows' dtype, and the blocks of each home's logits are
+    joined in vocab order at position 0 (``logits_gather``, the port's
+    own: the reference leaves them where they are)."""
+    x, mesh = views[0].x, rows.mesh
+    plan = _head_plan(mesh, x.spec, tuple(x.shape), transposed,
+                      tuple(rows.homes), tuple(tuple(v.group)
+                                               for v in views))
+    cd, d = rows.dtype, rows.parts[0].shape[-1]
+    sizes = [t.numel() // d for t in rows.parts]
+    n = len(rows.parts)
+    moved, blocks = {}, {}
+    first = {}          # vocab block → the first site that forms it
+    for q in plan.sites:
+        first.setdefault(plan.blocks[q], q)
+    for j, q in sorted(first.items()):
+        got = [_hop(mesh, moved, i, t, plan.routes[q][i], "head_rows_")
+               for i, t in enumerate(rows.parts)]
+        with mesh.at(q):
+            xq = [t.reshape(-1, d) for t in got]
+            xq = xq[0] if n == 1 else torch.cat(xq)
+            blocks[j] = _to(mesh, _mm(xq, _site_weight(x, q, transposed, cd),
+                                      cd), q, 0, "logits_gather")
+        del got, xq
+    out = []
+    with mesh.at(0):
+        for i, t in enumerate(rows.parts):
+            parts = [_rows_of(blocks[j], sizes, i) for j in sorted(blocks)]
+            lg = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            out.append(lg.reshape(*t.shape[:-1], lg.shape[-1]))
+    return out
+
+
+class LyingHead:
+    """The LM's head where its blocks lie, as the ``fsdp`` steps read it
+    (``TransformerLM`` on the vocab-parallel route): the views of
+    ``params["head"]``, or with ``transposed`` of a tied table read as its
+    transpose, one :class:`ShardView` a home (a :class:`HomeViews`, or one
+    view). :meth:`xent` takes the loss (:func:`vocab_parallel_xent`),
+    :meth:`logits` a prefill's logits (:func:`head_logits`)."""
+
+    def __init__(self, views, transposed: bool = False):
+        if isinstance(views, HomeViews):
+            self.views, self.mesh = list(views.views), views.mesh
+        else:
+            self.views, self.mesh = [views], views.x.mesh
+        self.transposed = transposed
+
+    def xent(self, hidden, labels):
+        """The mean cross entropy: a home's tensor for one view's hidden
+        tensor; for ``Rows`` each home's sum and count added over the
+        homes (``collectives.batch_mean``), as Rows."""
+        if isinstance(hidden, Rows):
+            return batch_mean(*vocab_parallel_xent(
+                hidden, labels, self.views, self.transposed), None)
+        home = self.views[0].home
+        tots, counts = vocab_parallel_xent(
+            Rows([hidden], [home], self.mesh),
+            Rows([labels], [home], self.mesh), self.views, self.transposed)
+        with self.mesh.at(home):
+            return tots.parts[0] / torch.clamp_min(counts.parts[0], 1)
+
+    def logits(self, rows: "Rows") -> List[torch.Tensor]:
+        return head_logits(rows, self.views, self.transposed)
+
+
+# -- a column block product and its row blocks' after it (BST's ``mlp_w0``) --
+#
+# BST's ``mlp_w0`` lies as P(None, "model"), its bias and ``mlp_w1``
+# replicated. The reference's compiled train step (read by
+# ``tests/test_torch_sharded_gnn_bst.py``, the MLP line's collectives) keeps
+# the column blocks where they lie: each position of a batch shard's
+# "model" group multiplies the shard's rows by its column block, adds its
+# bias entries, takes the activation and multiplies by the matching rows of
+# ``mlp_w1``; the partial products are all-reduced over "model". The
+# backward all-reduces the dX partials of ``mlp_w0``'s input over "model";
+# each block's dW stays where the block lies. The port's batch shard lies
+# at its home, so its rows go to the group first (``mlp_rows_home``), the
+# sum's gradient goes back to it (``mlp_grad_home``), and the bias's and
+# ``mlp_w1``'s slices come from the home's copy of the replicated leaves
+# (``mlp_weights_home``, their gradients back the same way): the
+# reference's positions each hold their own copy.
+
+
+class _GroupCopy(torch.autograd.Function):
+    """``x`` (at ``home``) at each position of ``pos`` (``mlp_rows_home``);
+    the backward all-reduces the copies' gradients to the home as a
+    reduce-scatter and an all-gather move them, added in ``pos`` order
+    (``mlp_grad_sum``)."""
+
+    @staticmethod
+    def forward(ctx, mesh, home, pos, x):
+        ctx.mesh, ctx.home, ctx.pos, ctx.shape = mesh, home, pos, x.shape
+        return tuple(x.clone() if p == home
+                     else _to(mesh, x, home, p, "mlp_rows_home")
+                     for p in pos)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = _allreduce(ctx.mesh, ctx.pos, grads, [ctx.home], "mlp_grad_sum",
+                       torch.add)[ctx.home]
+        return None, None, None, g.reshape(ctx.shape)
+
+
+class _GroupSum(torch.autograd.Function):
+    """The partial products ``parts`` (at ``pos``) all-reduced to ``home``
+    as a reduce-scatter and an all-gather move them, added in ``pos``
+    order (``mlp_sum``); the backward copies the sum's gradient to every
+    position of ``pos`` (``mlp_grad_home``)."""
+
+    @staticmethod
+    def forward(ctx, mesh, home, pos, *parts):
+        ctx.mesh, ctx.home, ctx.pos = mesh, home, pos
+        total = _allreduce(mesh, pos, parts, [home], "mlp_sum",
+                           torch.add)[home]
+        return total.reshape(parts[0].shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, None) + tuple(
+            g.clone() if p == ctx.home
+            else _to(ctx.mesh, g, ctx.home, p, "mlp_grad_home")
+            for p in ctx.pos)
+
+
+def column_row_product(x: torch.Tensor, w0: "ShardView", b0, w1, act
+                       ) -> torch.Tensor:
+    """``act(x @ w0 + b0) @ w1`` for a batch shard's rows ``x`` (at its
+    home), with ``w0`` split into column blocks over the shard's group
+    (:class:`ShardView`) that stay where they lie, as the reference's
+    partitioner forms BST's ``mlp_w0`` (see above): the rows go to each
+    block's position (``mlp_rows_home``), which multiplies them by its
+    block, adds its entries of ``b0``, applies ``act`` and multiplies by its
+    rows of ``w1`` (both sent from the home's copy, ``mlp_weights_home``);
+    the partial products are added at the home in block order
+    (``mlp_sum``: a reduce-scatter and an all-gather's bytes). One block at
+    the home is the plain product, bit for bit."""
+    mesh, home = w0.x.mesh, w0.home
+    order = sorted(w0.proxies)
+    pos = tuple(w0.sources[b] for b in order)
+    bias, w_next = local(b0), local(w1)
+    width = w0.x.shape[1] // len(order)
+    xs = _GroupCopy.apply(mesh, home, pos, x)
+    parts = []
+    for j, (b, p, xp) in enumerate(zip(order, pos, xs)):
+        bj = bias.narrow(0, j * width, width)
+        wj = w_next.narrow(0, j * width, width)
+        if p != home:
+            bj = send(bj, mesh, home, p, "mlp_weights_home", True)
+            wj = send(wj, mesh, home, p, "mlp_weights_home", True)
+        with mesh.at(p):
+            parts.append(act(xp @ w0.proxies[b] + bj) @ wj)
+    return _GroupSum.apply(mesh, home, pos, *parts)
 
 
 # -- Megatron over "model" × ZeRO over "data" (the tp2d train step) -----------

@@ -70,7 +70,11 @@ of work runs.
   each run of the shards it spans is computed at the run's first home over
   all the run's rows, so the groups are the reference's, and the other
   shards' logits and keys and values then go to their homes
-  (``prefill_span``).
+  (``prefill_span``). With ``act_spec`` the head (or a tied table) stays
+  where its vocab blocks lie, as the reference's partitioner forms a
+  prefill's logits: every run's last rows go to the blocks, and the
+  blocks' logits to position 0 (``collectives.head_logits``; a spanned
+  shard then gets only its keys and values).
 
 The KV cache is a pair of ``ShardedTensor`` s (L, B, S, KV, hd) placed by
 ``lm_cache_specs``: ``P(None, ba, "model", None, None)`` for B ≥ the
@@ -110,9 +114,10 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distrib.collectives import (HomeViews, Rows, ShardView,
-                                             StationaryView, TPView,
-                                             batch_groups, kv_heads, send)
+from repro_torch.distrib.collectives import (HomeViews, LyingHead, Rows,
+                                             ShardView, StationaryView,
+                                             TPView, batch_groups, kv_heads,
+                                             send)
 from repro_torch.distrib.sharding import (Layout, ShardedTensor, device_put,
                                           map_with_specs)
 from repro_torch.models import layers as L
@@ -281,9 +286,13 @@ def _prefill_fsdp(model, mesh, homes, groups, params, tokens, run: int):
     its own home (``prefill_span``). A table that the model looks up where
     its rows lie (``looks_up_in_place``) is looked up first, every run's
     tokens at once, as the reference looks its whole batch up
-    (``HomeViews.take_rows``), and each run's prefill takes its rows. The
-    logits and, per batch shard, where its keys and values lie
-    (:func:`place_cache`'s ``parts``)."""
+    (``HomeViews.take_rows``), and each run's prefill takes its rows. A
+    head that stays where it lies (``head_in_place``) multiplies every
+    run's last rows at once (``collectives.head_logits``: the logits at
+    position 0; only the keys and values of a spanned shard go home). The
+    logits, per batch shard where its keys and values lie
+    (:func:`place_cache`'s ``parts``), and the position of each shard's
+    logits."""
     D = len(homes)
     Bd = tokens.shape[0] // D
     runs = list(range(0, D, run))
@@ -300,13 +309,20 @@ def _prefill_fsdp(model, mesh, homes, groups, params, tokens, run: int):
         with mesh.at(at[0]):
             rows = table.take_rows(Rows(toks, at, mesh),
                                    model.compute_dtype).parts
-    logits, parts = [], []
+    key = "embed" if model.cfg.tie_embeddings else "head"
+    head = HomeViews([v.get(key) for v in views], at, mesh)
+    lies = model.head_in_place(head)
+    logits, parts, lasts = [], [], []
     for r, home, view, tok, x in zip(runs, at, views, toks, rows):
         with mesh.at(home):
-            lg, (k, v) = model.prefill(view, tok, x)
+            lg, (k, v) = model.prefill(view, tok, x, last=lies)
+        lasts.append(lg)
         for j in range(run):
-            mine = (lg[j * Bd:(j + 1) * Bd], k[:, j * Bd:(j + 1) * Bd],
-                    v[:, j * Bd:(j + 1) * Bd])
+            # a head that stays where it lies takes the run's last rows at
+            # its home: only the keys and values go to a spanned shard
+            mine = (k[:, j * Bd:(j + 1) * Bd], v[:, j * Bd:(j + 1) * Bd])
+            if not lies:
+                mine = (lg[j * Bd:(j + 1) * Bd],) + mine
             to = homes[r + j]
             if to != home:
                 with mesh.at(to), mesh.moving():
@@ -315,9 +331,17 @@ def _prefill_fsdp(model, mesh, homes, groups, params, tokens, run: int):
                                    to=to)
                     mine = tuple(t.to(mesh.device(to), copy=True)
                                  for t in mine)
-            logits.append(mine[0])
-            parts.append([(to, 0, mine[1], mine[2])])
-    return logits, parts
+            if not lies:
+                logits.append(mine[0])
+            parts.append([(to, 0, mine[-2], mine[-1])])
+    if lies:
+        # every run's last rows times the head's blocks at once, the
+        # logits at position 0
+        whole = LyingHead(head, transposed=model.cfg.tie_embeddings).logits(
+            Rows(lasts, at, mesh))
+        logits = [lg[j * Bd:(j + 1) * Bd] for lg in whole for j in range(run)]
+        return logits, parts, [0] * D
+    return logits, parts, homes
 
 
 def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
@@ -347,6 +371,7 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
         # neither fit into nor span whole shards)
         run = model.moe_span(B, S, D) if policy == "fsdp" else 1
         with torch.no_grad():
+            where = homes
             if policy == "tp2d" and _split(batch_spec):
                 logits, parts = _prefill_split(model, mesh, groups, params,
                                                tokens)
@@ -359,12 +384,13 @@ def make_sharded_prefill(model, mesh, batch_spec, cache_spec,
                          for h, k, v in zip(homes, ks.parts, vs.parts)]
                 del ks, vs
             else:
-                logits, parts = _prefill_fsdp(model, mesh, homes, groups,
-                                              params, tokens, run)
+                logits, parts, where = _prefill_fsdp(model, mesh, homes,
+                                                     groups, params, tokens,
+                                                     run)
             cache = place_cache(mesh, cache_spec, parts,
                                 S if capacity is None else capacity)
             del parts
-            return _to_position_0(mesh, logits, homes), cache
+            return _to_position_0(mesh, logits, where), cache
 
     return prefill
 

@@ -31,11 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distrib.collectives import (Rows, StationaryView, TPView,
+from repro_torch.distrib.collectives import (LyingHead, Rows,
+                                             StationaryView, TPView,
                                              block_matmul, each, tp_linear,
                                              tp_resplit_linear,
-                                             tp_rows_linear, tp_vocab_xent,
-                                             vocab_parallel_xent)
+                                             tp_rows_linear, tp_vocab_xent)
 from repro_torch.kernels import PLAIN_DEVICES
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 
@@ -274,14 +274,16 @@ def softmax_xent_sharded(hidden, head_w, labels, sums: bool = False):
     (the ``tp2d`` train step), over each position's vocab block gathered
     along "data", only per-row statistics crossing "model", the sums and
     counts added over "data": the mean over the rows of every batch shard,
-    at each position (``distrib.collectives.tp_vocab_xent``); a
-    ``StationaryView``, over the head's blocks where they lie, the logits
-    never assembled (``distrib.collectives.vocab_parallel_xent``): each
-    home's mean over its rows. Either as Rows."""
+    at each position (``distrib.collectives.tp_vocab_xent``), as Rows; a
+    ``LyingHead`` (the ``fsdp`` step's head where its blocks lie), over
+    those blocks as the reference's partitioner forms the loss, the
+    logits never assembled (``distrib.collectives.vocab_parallel_xent``):
+    a home's mean, or with ``Rows`` each home's sums added over the homes,
+    as Rows."""
     if isinstance(head_w, TPView):
         return tp_vocab_xent(hidden, head_w, labels)
-    if isinstance(head_w, StationaryView):
-        return vocab_parallel_xent(hidden, head_w, labels)
+    if isinstance(head_w, LyingHead):
+        return head_w.xent(hidden, labels)
     logits = (hidden @ head_w.to(hidden.dtype)).float()
     lse = torch.logsumexp(logits, dim=-1)
     V = logits.shape[-1]

@@ -23,9 +23,11 @@ serving steps). Every lookup goes through :func:`lookup_rows` /
 :func:`lookup_fields`: on a view of a table split along its rows (the
 trained item table) or its vocab axis (the user tables) the rows are
 looked up where they lie (``ShardView.take_rows`` /
-``take_along_fields``), so the item table is never gathered whole; every
-other leaf, ``mlp_w0`` included, is read whole at the batch shard's home
-(``distrib.collectives.local``).
+``take_along_fields``), so the item table is never gathered whole; in
+the train step ``mlp_w0``, split by columns, stays where its blocks lie
+with the product of ``mlp_w1`` after it
+(``distrib.collectives.column_row_product``); every other leaf is read
+whole at the batch shard's home (``distrib.collectives.local``).
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import torch
 
 from repro_torch.config.base import BSTConfig
 from repro_torch.distrib.collectives import (Rows, ShardView, batch_mean,
-                                             each_home, local)
+                                             column_row_product, each_home,
+                                             local)
 from repro_torch.models import layers as L
 from repro_torch.optim.adamw import tree_map
 from repro_torch.sparse.segment import take_along_fields, take_rows
@@ -55,6 +58,16 @@ class BSTInputs(NamedTuple):
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     """``jax.nn.leaky_relu``: x where x ≥ 0 (so its gradient at 0 is 1)."""
     return torch.where(x >= 0, x, slope * x)
+
+
+def splits_columns(w) -> bool:
+    """Whether ``w`` is a train step's view of a 2-D weight split by
+    columns only (BST's ``mlp_w0`` on a mesh, P(None, "model")): its
+    blocks then stay where they lie (``collectives.column_row_product``).
+    The serving steps' views (no gradient) read it whole, as before."""
+    return (isinstance(w, ShardView) and w.grad
+            and len(w.x.layout.counts) == 2
+            and w.x.layout.counts[0] == 1 and w.x.layout.counts[1] > 1)
 
 
 def lookup_rows(table, ids: torch.Tensor) -> torch.Tensor:
@@ -156,11 +169,23 @@ class BST:
                        self._user_feat_emb(params, inputs.user_feats)],
                       dim=-1)
         n_mlp = len(self.cfg.mlp_dims) + 1
-        for i in range(n_mlp):
+        act = lambda h: leaky_relu(h, self.cfg.leaky_slope)  # noqa: E731
+        i = 0
+        w0 = params["mlp_w0"]
+        if n_mlp > 1 and splits_columns(w0):
+            # mlp_w0's column blocks where they lie, the partial products
+            # of mlp_w1 added over them, as the reference's partitioner
+            x = (column_row_product(x, w0, params["mlp_b0"],
+                                    params["mlp_w1"], act)
+                 + local(params["mlp_b1"]))
+            i = 2
+            if i < n_mlp:
+                x = act(x)
+        for i in range(i, n_mlp):
             x = (x @ local(params[f"mlp_w{i}"])
                  + local(params[f"mlp_b{i}"]))
             if i < n_mlp - 1:
-                x = leaky_relu(x, self.cfg.leaky_slope)
+                x = act(x)
         return x[:, 0]
 
     def loss(self, params, inputs: BSTInputs) -> torch.Tensor:

@@ -43,8 +43,12 @@ parameters as per-batch-shard views (``distrib.collectives.ShardView``)
 that each layer gathers where it uses them (and, under ``remat="full"``,
 again in the recompute); with ``exp_spec`` the expert weights stay where
 they live, and the table, split along its rows, is looked up where its rows
-lie (``ShardView.take_rows``: the reference's lookup), but for a tied one,
-which the head gathers whole and the lookup reads there. Where one
+lie (``ShardView.take_rows``: the reference's lookup); on that route the
+head, or a tied table read as its transpose, stays where its vocab blocks
+lie (:meth:`TransformerLM.head_in_place`, ``collectives.LyingHead``: the
+hidden rows go to the blocks, the loss's per-row statistics and dX
+partials are reduced over them, a prefill's logits are formed there),
+where the chunked route gathers it whole at each home. Where one
 microbatch lies on several batch shards (the reference cell's one
 microbatch) the train step hands the model every
 home's views at once (``collectives.HomeViews``) and the tokens and labels
@@ -97,10 +101,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config.base import TransformerConfig
-from repro_torch.distrib.collectives import (HomeViews, Rows, ShardView,
-                                             StationaryView, TPView,
-                                             batch_mean, each, local,
-                                             model_gather, split_heads)
+from repro_torch.distrib.collectives import (HomeViews, LyingHead, Rows,
+                                             ShardView, StationaryView,
+                                             TPView, batch_mean, each,
+                                             head_form, local, model_gather,
+                                             split_heads)
 from repro_torch.distrib.sharding import P
 from repro_torch.models import layers as L
 from repro_torch.models.moe import (batch_shards, init_moe_params,
@@ -144,19 +149,38 @@ class TransformerLM:
 
     def looks_up_in_place(self, emb) -> bool:
         """Whether the table ``emb`` is looked up where its rows lie: a
-        view of a table split along its rows only, untied (a tied table is
-        gathered whole for the head, and looked up there)."""
-        return (not self.cfg.tie_embeddings
-                and isinstance(emb, (ShardView, HomeViews))
-                and emb.splits_rows)
+        view of a table split along its rows only; a tied one only where
+        the head stays where it lies too (:meth:`head_in_place`: else it
+        is gathered whole for the head, and looked up there)."""
+        return (isinstance(emb, (ShardView, HomeViews)) and emb.splits_rows
+                and (not self.cfg.tie_embeddings
+                     or self.head_in_place(emb)))
+
+    def head_in_place(self, w) -> bool:
+        """Whether the head ``w`` (``params["head"]``, or the tied table
+        read as its transpose) is read where its blocks lie
+        (``collectives.LyingHead``): on the vocab-parallel route
+        (``act_spec``), a view of a head whose layout the reference's
+        partitioner forms in place (``collectives.head_form``: one vocab
+        block a position, or the fallback over "data" alone on a square
+        mesh). Otherwise the head is gathered whole at each home, as on
+        the chunked route."""
+        if self.act_spec is None or not isinstance(w, (ShardView,
+                                                       HomeViews)):
+            return False
+        view = w.views[0] if isinstance(w, HomeViews) else w
+        return (isinstance(view, ShardView)
+                and head_form(view.x, self.cfg.tie_embeddings) is not None)
 
     def _local(self, params: Params) -> Params:
         """The top-level leaves (embed, head, ln_f) of ``params`` as this
         batch shard's tensors (``distrib.collectives.local``), but a view
         of a table that :meth:`_embed` looks up where its rows lie
-        (:meth:`looks_up_in_place`)."""
+        (:meth:`looks_up_in_place`) or of a head read where its blocks lie
+        (:meth:`head_in_place`)."""
         return {k: (v if k == "layers" or (
-            k == "embed" and self.looks_up_in_place(v)) else local(v))
+            k == "embed" and self.looks_up_in_place(v)) or (
+            k == "head" and self.head_in_place(v)) else local(v))
             for k, v in params.items()}
 
     def _local_layer(self, p: Params) -> Params:
@@ -367,16 +391,26 @@ class TransformerLM:
         return each(self._norm, x, params["ln_f"]), aux
 
     def _head_w(self, params: Params) -> torch.Tensor:
+        """The head of :meth:`_local`'s leaves: a view left there is read
+        where its blocks lie (``collectives.LyingHead``)."""
         if self.cfg.tie_embeddings:
             emb = params["embed"]
+            if isinstance(emb, (ShardView, HomeViews)):
+                return LyingHead(emb, transposed=True)
             return each(torch.t, emb) if isinstance(emb, Rows) else emb.T
-        return params["head"]
+        head = params["head"]
+        if isinstance(head, (ShardView, HomeViews)):
+            return LyingHead(head)
+        return head
 
     def logits(self, params: Params, hidden):
         """``hidden @ head``; over a ``TPView`` head gathered along "data"
         (the tied head under ``tp2d``) each position's vocab block, joined
         over "model" (``tp_logits_gather``)."""
         w = self._head_w(params)
+        if isinstance(w, LyingHead):   # at position 0
+            home = w.views[0].home
+            return w.logits(Rows([hidden], [home], w.mesh))[0]
         y = L.linear(hidden, w, hidden.dtype)
         if isinstance(w, TPView) and w.splits_output():
             y = model_gather(y, -1, "tp_logits_gather")
@@ -396,7 +430,10 @@ class TransformerLM:
         as ``HomeViews`` (the ``fsdp`` train step's microbatch over several
         batch shards) likewise: each home's cross entropy sum and count
         added over the homes and divided once, the aux loss over all their
-        groups."""
+        groups. On the vocab-parallel route a head (or tied table) that
+        stays where its blocks lie (:meth:`head_in_place`) takes the loss
+        over those blocks, every home's rows at once
+        (``collectives.LyingHead``)."""
         params = self._local(params)
         hidden, aux = self.forward(params, tokens)
         w = self._head_w(params)
@@ -407,11 +444,11 @@ class TransformerLM:
                 return L.softmax_xent_sharded(h, wd, lab, sums)
             return L.softmax_xent_chunked(lambda xc: xc @ wd.to(xc.dtype),
                                           h, lab, sums=sums)
-        if isinstance(w, Rows):   # each home's sums, the microbatch's mean
+        if isinstance(w, (LyingHead, TPView)):
+            xent = L.softmax_xent_sharded(hidden, w, labels)
+        elif isinstance(w, Rows):  # each home's sums, the microbatch's mean
             xent = batch_mean(*each(lambda h, wd, lab: xent(h, wd, lab, True),
                                     hidden, w, labels), None)
-        elif isinstance(w, StationaryView):
-            xent = L.softmax_xent_sharded(hidden, w, labels)
         else:
             xent = xent(hidden, w, labels)
         n = max(self.cfg.n_layers, 1)
@@ -419,11 +456,14 @@ class TransformerLM:
 
     # -- serving ----------------------------------------------------------------
 
-    def prefill(self, params: Params, tokens, rows=None
+    def prefill(self, params: Params, tokens, rows=None, last=False
                 ) -> Tuple[torch.Tensor, Cache]:
         """Full-sequence forward returning last-position logits + KV cache;
         ``rows``, where given, are the tokens' rows of the table, looked up
-        already (``distrib.serving`` looks every batch shard's up at once).
+        already (``distrib.serving`` looks every batch shard's up at once);
+        with ``last`` the last position's hidden rows in place of the
+        logits (``distrib.serving`` multiplies every batch shard's by a head
+        that stays where it lies at once).
 
         Cache layout: (L, B, S, KV, hd) ×2, bf16.
         """
@@ -438,6 +478,8 @@ class TransformerLM:
                 ks, vs = each(self._empty_cache, k)
             each(_store_kv, ks, vs, k, v, i)
         x = each(self._norm, x, params["ln_f"])
+        if last:
+            return each(_last, x), (ks, vs)
         return self.logits(params, each(_last, x)), (ks, vs)
 
     def _empty_cache(self, k: torch.Tensor) -> Cache:

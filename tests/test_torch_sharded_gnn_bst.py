@@ -10,9 +10,11 @@ loss and grad norm within 1e-5 relative of one device's and every leaf
 within 2 · lr · steps (AdamW moves a leaf by at most about lr a step, so
 where a gradient entry near 0 flips sign the leaves part by up to that),
 and within 1e-4 relative of the reference's jitted step from the same
-weights. BST's sharded ``train_batch`` step on 2 × 2 must be
-``make_train_step(..., microbatches=2)`` bit for bit, leaf for leaf, with
-no ``all_gather`` byte of the item table. The row-sharded lookup
+weights. BST's sharded ``train_batch`` step on 2 × 2 must be within f32
+rounding of ``make_train_step(..., microbatches=2)`` (``mlp_w0``'s column
+blocks stay where they lie, so its products are added over them), with no
+``all_gather`` byte at all; with one column block that product is the
+plain one bit for bit. The row-sharded lookup
 (``ShardView.take_rows`` / ``take_along_fields``) must give the plain
 lookups' values and gradients bit for bit at block boundaries, negative
 ids, ids out of range (NaN rows), a −0.0 row and ids repeated across batch
@@ -185,28 +187,38 @@ def test_bst_sharded_step_is_two_microbatches_bitwise():
                                    P("data", None), microbatches=2)
     sstate, got = _run(step, new_sharded_train_state(params, mesh, specs),
                        inputs)
-    assert got == want
-    for tree, stree in ((state.params, sstate.params),
-                        (state.opt.m, sstate.opt.m),
-                        (state.opt.v, sstate.opt.v)):
-        assert all(torch.equal(gather(x), y) for x, y in
-                   zip(tree_leaves(stree), tree_leaves(tree)))
-    # the only leaf gathered whole is mlp_w0 (split by column): half of it
-    # to each of the 2 homes a step, none of the item table
-    w0 = params["mlp_w0"]
-    assert mesh.bytes["all_gather"] == \
-        STEPS * 2 * w0.numel() * w0.element_size() // 2
+    _assert_close_steps(want, got, sstate, state)
+    # no leaf is gathered whole: the item table is looked up where its rows
+    # lie, mlp_w0's column blocks stay where they lie
+    assert "all_gather" not in mesh.bytes
     _assert_lookup_bytes(mesh, arch.model, inputs)
 
 
+def _assert_close_steps(want, got, sstate, state):
+    """Losses and grad norms within 1e-6 relative, every leaf after the
+    steps within rtol 1e-5, atol 2 · lr · steps (f32 rounding alone: the
+    sums over ``mlp_w0``'s column blocks, the halves of a batch)."""
+    for (l0, n0), (l1, n1) in zip(want, got):
+        assert l1 == pytest.approx(l0, rel=1e-6)
+        assert n1 == pytest.approx(n0, rel=1e-6)
+    flips = 2 * TCFG.learning_rate * STEPS
+    for x, y in zip(tree_leaves(sstate.params), tree_leaves(state.params)):
+        np.testing.assert_allclose(gather(x).numpy(), y.numpy(), rtol=1e-5,
+                                   atol=flips)
+
+
 def _assert_lookup_bytes(mesh, cfg, inputs):
-    """The step's lookups: each batch shard's home looks its half of the
-    users up where the tables' rows lie, ``STEPS`` times:
-    ``chip_smoke.bst_lookup_want``'s bytes exactly."""
+    """The step's lookups and ``mlp_w0``: each batch shard's home looks its
+    half of the users up where the tables' rows lie and multiplies its
+    rows by ``mlp_w0``'s blocks where they lie, ``STEPS`` times:
+    ``chip_smoke.bst_lookup_want``'s and ``bst_mlp_want``'s bytes
+    exactly."""
     import chip_smoke
     b = inputs.labels.shape[0] // 2
-    want = chip_smoke.bst_lookup_want(cfg, (2, 2), [(0, b), (1, b)])
-    assert {k: v for k, v in mesh.bytes.items() if k.startswith("emb_")} \
+    want = dict(chip_smoke.bst_lookup_want(cfg, (2, 2), [(0, b), (1, b)]))
+    want.update(chip_smoke.bst_mlp_want(cfg, (2, 2), [(0, b), (1, b)]))
+    assert {k: v for k, v in mesh.bytes.items()
+            if k.startswith(("emb_", "mlp_"))} \
         == {k: STEPS * v for k, v in want.items()}
 
 
@@ -217,8 +229,8 @@ def test_bst_sharded_step_at_one_microbatch():
     ``loss_sum``), one backward. Against ``make_train_step`` at M = 1: the
     loss a mean of two half-batch sums rather than one, so f32 rounding
     alone: loss and grad norm within 1e-6 relative, every leaf after 3
-    steps within rtol 1e-5, atol 2 · lr · steps; the same lookups' bytes
-    as the two-microbatch step and ``mlp_w0`` gathered once a home."""
+    steps within rtol 1e-5, atol 2 · lr · steps; the same lookups' and
+    ``mlp_w0``'s bytes as the two-microbatch step, nothing gathered."""
     arch = get_arch("bst", smoke=True)
     one = bst_cell(arch, "train_batch", "cpu", smoke=True)
     model = one.model
@@ -231,16 +243,8 @@ def test_bst_sharded_step_at_one_microbatch():
                                    P("data", None), microbatches=1)
     sstate, got = _run(step, new_sharded_train_state(params, mesh, specs),
                        inputs)
-    for (l0, n0), (l1, n1) in zip(want, got):
-        assert l1 == pytest.approx(l0, rel=1e-6)
-        assert n1 == pytest.approx(n0, rel=1e-6)
-    flips = 2 * TCFG.learning_rate * STEPS
-    for x, y in zip(tree_leaves(sstate.params), tree_leaves(state.params)):
-        np.testing.assert_allclose(gather(x).numpy(), y.numpy(), rtol=1e-5,
-                                   atol=flips)
-    w0 = params["mlp_w0"]
-    assert mesh.bytes["all_gather"] == \
-        STEPS * 2 * w0.numel() * w0.element_size() // 2
+    _assert_close_steps(want, got, sstate, state)
+    assert "all_gather" not in mesh.bytes
     assert mesh.bytes["loss_sum"] == STEPS * 2 * 8
     _assert_lookup_bytes(mesh, arch.model, inputs)
 
@@ -289,6 +293,11 @@ for i, case in enumerate(args["cases"]):
                                       'jnp.take(params["item_emb"]', True)
     user = lookup_collectives(hlo, "models/recsys/bst.py",
                               "jnp.take_along_axis(")
+    # the MLP's products: mlp_w0's column blocks, mlp_w1's rows after them
+    mlp = {side: lookup_collectives(hlo, "models/recsys/bst.py",
+                                    'x = x @ params[f"mlp_w{i}"]',
+                                    ops=("/dot_general",), side=side)
+           for side in ("fwd", "bwd")}
     # every collective of the module with an element of the user tables'
     # block gradient's shape (F, V / MODEL, e), by kind and axis
     block = "%d,%d,%d" % (cfg.n_user_feats, cfg.user_feat_vocab // MODEL,
@@ -298,8 +307,8 @@ for i, case in enumerate(args["cases"]):
                     if m and "[" + block + "]" in (m.group(1) or "")
                     + (m.group(2) or "")})
     print(f"CASE {i} " + json.dumps({"item": item, "shapes": shapes,
-                                     "user": user, "user_grad": grads}),
-          flush=True)
+                                     "user": user, "user_grad": grads,
+                                     "mlp": mlp}), flush=True)
 '''
 
 
@@ -436,6 +445,114 @@ def test_bst_lookup_where_the_layout_differs(bst_lookup_reference, shape,
     assert not read["user_grad"]
     assert set(got) == {"all-reduce model"}
     assert set(own) == {"emb_ids_home", "emb_grad_home"}
+MLP_FWD = {"mlp_sum": "all-reduce"}
+MLP_BWD = {"mlp_grad_sum": "all-reduce"}
+MLP_OWN = {"mlp_rows_home", "mlp_grad_home", "mlp_weights_home"}
+
+
+def _bst_mlp_bytes(shape, micro):
+    """The port's BST train step on ``shape`` at ``micro`` microbatches:
+    ``mlp_w0``'s bytes by kind and axis a chip, forward and backward apart
+    (``test_torch_tp_train.lookup_by_kind`` of ``MLP_FWD``, ``MLP_BWD``),
+    its own moves by name; every ``mlp_*`` byte ``chip_smoke.
+    bst_mlp_want``'s and no ``all_gather`` byte."""
+    import chip_smoke
+    from test_torch_tp_train import lookup_by_kind
+    arch = get_arch("bst", smoke=True)
+    cfg = arch.model
+    one = bst_cell(arch, "train_batch", "cpu", smoke=True)
+    state, inputs = one.args
+    mesh = _mesh(shape)
+    specs = state_specs_like(bst_param_specs(state.params, cfg))
+    step = make_sharded_train_step(one.model.loss, TCFG, mesh, specs,
+                                   P("data", None), microbatches=micro)
+    step(new_sharded_train_state(_copy(state.params), mesh, specs), inputs)
+    fwd, own = lookup_by_kind(mesh, mesh.moves, MLP_FWD, MLP_OWN)
+    bwd, _ = lookup_by_kind(mesh, mesh.moves, MLP_BWD, ())
+    D, B = shape[0], inputs.labels.shape[0]
+    per = micro // D if micro % D == 0 else 1
+    homes = [(d, B // D // per) for d in range(D) for _ in range(per)]
+    assert {k: v for k, v in mesh.bytes.items() if k.startswith("mlp_")} \
+        == chip_smoke.bst_mlp_want(cfg, shape, homes)
+    assert "all_gather" not in mesh.bytes
+    return fwd, bwd, own
+
+
+@pytest.mark.parametrize("shape,micro", BST_LOOKUP_SAME,
+                         ids=[f"{d}x{k}-M{m}"
+                              for (d, k), m in BST_LOOKUP_SAME])
+def test_bst_mlp_moves_as_the_reference(bst_lookup_reference, shape, micro):
+    """BST's ``mlp_w0`` (P(None, "model")) in the train step against the
+    reference's jitted step where the layouts agree (2 × 2 at 1
+    microbatch, 1 × 4 at 1 and 2): the reference keeps the column blocks
+    where they lie and all-reduces over "model" the partial products of
+    ``mlp_w1`` after them (b × mlp_dims[1] f32) and, in the backward, the
+    dX partials of ``mlp_w0``'s input (b × F_in f32), both at the MLP's
+    line; the port's bytes by kind and axis a chip, forward and backward
+    apart, equal them to the byte; apart, its own moves (the rows to the
+    group, the sum's gradient back, the slices of ``mlp_b0`` and
+    ``mlp_w1`` from the home's copy: ``MLP_OWN``)."""
+    read = bst_lookup_reference[(shape, micro)]["mlp"]
+    fwd, bwd, own = _bst_mlp_bytes(shape, micro)
+    print(f"\nBST mlp_w0 ({shape}, {micro} microbatch(es)): reference HLO "
+          f"{read}; the port forward {fwd}, backward {bwd}, its own moves "
+          f"{own}")
+    assert fwd == read["fwd"] == {"all-reduce model": fwd["all-reduce model"]}
+    assert bwd == read["bwd"] == {"all-reduce model": bwd["all-reduce model"]}
+    assert set(own) == MLP_OWN
+
+
+@pytest.mark.parametrize("shape,micro", BST_LOOKUP_PORT,
+                         ids=[f"{d}x{k}-M{m}"
+                              for (d, k), m in BST_LOOKUP_PORT])
+def test_bst_mlp_where_the_layout_differs(bst_lookup_reference, shape,
+                                          micro):
+    """BST's ``mlp_w0`` at 2 microbatches on 2 × 2, where the layouts
+    differ: the reference multiplies each microbatch's whole rows at every
+    chip (its all-reduces over "model", 512 and 5,632 B a chip, stated
+    here); the port keeps one microbatch a batch shard, whose rows it
+    multiplies where the blocks lie (half of each, its bytes held to
+    ``chip_smoke.bst_mlp_want``)."""
+    read = bst_lookup_reference[(shape, micro)]["mlp"]
+    assert read == {"fwd": {"all-reduce model": 512},
+                    "bwd": {"all-reduce model": 5632}}
+    fwd, bwd, own = _bst_mlp_bytes(shape, micro)
+    assert fwd == {"all-reduce model": 256}
+    assert bwd == {"all-reduce model": 2816}
+    assert set(own) == MLP_OWN
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1)], ids=["1x1", "2x1"])
+def test_bst_mlp_one_block_is_the_plain_product(shape):
+    """``collectives.column_row_product`` with ``mlp_w0`` in one column
+    block (a mesh with one "model" position): ``act(x @ w0 + b0) @ w1``
+    and its gradients bit for bit, nothing moved."""
+    from repro_torch.distrib.collectives import column_row_product
+    from repro_torch.models.recsys.bst import leaky_relu
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((6, 12), generator=g)
+    w0, b0 = torch.randn((12, 8), generator=g), torch.randn((8,), generator=g)
+    w1 = torch.randn((8, 4), generator=g)
+    dy = torch.randn((6, 4), generator=g)
+    act = lambda h: leaky_relu(h, 0.01)  # noqa: E731
+    leaves = [t.clone().requires_grad_(True) for t in (x, w0, b0, w1)]
+    want = act(leaves[0] @ leaves[1] + leaves[2]) @ leaves[3]
+    want.backward(dy)
+    mesh = _mesh(shape)
+    views = [ShardView(device_put(t, mesh, spec), 0, [0])
+             for t, spec in ((w0, P(None, "model")), (b0, P(None)),
+                             (w1, P(None, None)))]
+    xs = x.clone().requires_grad_(True)
+    got = column_row_product(xs, *views, act)
+    got.backward(dy)
+    assert torch.equal(got, want)
+    assert torch.equal(xs.grad, leaves[0].grad)
+    for view, leaf in zip(views, leaves[1:]):
+        (_, _, grad), = view.grads()
+        assert torch.equal(grad, leaf.grad)
+    assert not mesh.bytes
+
+
 def _lookup_case(case):
     """(table, ids for two batch shards, split dim) of one edge case."""
     g = torch.Generator().manual_seed(3)

@@ -189,17 +189,51 @@ def test_sharded_step_with_two_microbatches_per_batch_shard(name):
                                    atol=flips)
 
 
+def _within_flips(want, got, ref, state):
+    """Losses and grad norms within rel 1e-4 of the unsharded step's, lr
+    equal, every leaf within rtol 1e-4 and atol 2 · lr · steps
+    (``test_sharded_step_with_two_microbatches_per_batch_shard``'s
+    form)."""
+    _close_to(want, got, 1e-4)
+    flips = 2 * TCFG.learning_rate * N_STEPS
+    for a, b in zip(tree_leaves(ref.params), tree_leaves(state.params)):
+        np.testing.assert_allclose(gather(b).numpy(), a.numpy(), rtol=1e-4,
+                                   atol=flips)
+
+
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
 def test_expert_parallel_step_is_bitwise_the_unsharded_step(shape):
     """``act_spec`` on the 16-expert SMOKE model: the experts stay on
     their "model" shard and the loss takes the vocab-parallel cross
-    entropy; bitwise the same model's unsharded step."""
+    entropy over the head's blocks where they lie (the reference's form:
+    the log-sum-exp folded over several blocks, the dX partials summed
+    over them), so the step is no longer the unsharded step's bits but
+    within its rounding (the form of
+    ``test_sharded_step_with_two_microbatches_per_batch_shard``); on one
+    block it is (``test_vocab_parallel_head_one_block_is_the_plain_loss``).
+    """
     mesh = Mesh(shape, ("data", "model"), CPU4)
     want, got, ref, state = _run(MOE16, mesh, 2,
                                  act_spec=P("data", None, None))
+    _within_flips(want, got, ref, state)
+    assert mesh.bytes["expert_send"] > 0
+
+
+@pytest.mark.parametrize("name", ["moe16", "smollm", "dense"])
+@pytest.mark.parametrize("micro", [1, 2])
+def test_vocab_parallel_head_one_block_is_the_plain_loss(name, micro):
+    """The head where its blocks lie (``collectives.vocab_parallel_xent``)
+    with one block, on a mesh of one position with ``act_spec``: the fold
+    of one block's statistics is ``torch.logsumexp``'s own, so the step is
+    the unsharded step bit for bit (losses, grad norms, every leaf), the
+    tied table's two gradients included (smollm)."""
+    cfg = {"moe16": MOE16, "smollm": SMOL, "dense": DENSE}[name]
+    mesh = Mesh((1, 1), ("data", "model"), ["cpu"])
+    want, got, ref, state = _run(cfg, mesh, micro,
+                                 act_spec=P("data", None, None))
     assert got == want
     _assert_state_equal(ref, state)
-    assert mesh.bytes["expert_send"] > 0
+    assert not any(k.startswith("head_") for k in mesh.bytes)
 
 
 # -- the reference cell's one microbatch, its rows over the batch shards -----------
@@ -261,15 +295,21 @@ def test_group_across_batch_shards_runs_at_its_first_home(shape, micro):
     (``moe_group_size`` 64; shards of 32 or 16 tokens): the shards it spans
     are computed at the first one's home over all their rows, the others'
     rows sent there (``train_span``), so the step is ``make_train_step``'s
-    at the same M bit for bit, with and without ``act_spec``."""
+    at the same M bit for bit without ``act_spec``; with it the head's
+    blocks stay where they lie (the log-sum-exp folded over the blocks),
+    and the step is within the unsharded step's rounding
+    (:func:`_within_flips`)."""
     n = shape[0] * shape[1]
     for act in (None, P("data", None, None)):
         mesh = Mesh(shape, ("data", "model"), CPU4[:n])
         nbytes = []
         want, got, ref, state = _run(MOE16, mesh, micro, act_spec=act,
                                      group=64, nbytes=nbytes)
-        assert got == want
-        _assert_state_equal(ref, state)
+        if act is None:
+            assert got == want
+            _assert_state_equal(ref, state)
+        else:
+            _within_flips(want, got, ref, state)
         rows = 4 // shape[0]                 # a shard's rows of B = 4
         others = shape[0] - micro            # shards whose rows move
         assert all(st["train_span"] == others * rows * 16 * 4 * 2
@@ -479,13 +519,15 @@ FSDP_LOOKUP_SAME = ([("moe16", 1, s) for s in ((2, 2), (1, 4), (4, 2))]
                     + [("moe16", 2, (1, 4))]
                     + [("moe16-v528", 1, s) for s in ((2, 2), (4, 2),
                                                       (2, 4))]
-                    + [("moe16-v528", 2, (2, 2))])
-# ... and where the port's layout differs: M > 1 microbatches on D > 1
-# batch shards (the port keeps whole microbatches on each shard), and a
-# tied table (gathered whole for the head, looked up there)
-FSDP_LOOKUP_PORT = ([("moe16", 2, s) for s in ((2, 2), (4, 2))]
+                    + [("moe16-v528", 2, (2, 2))]
                     + [("smollm", 1, s) for s in ((2, 2), (1, 4), (4, 2))])
+# ... and where the port's layout differs: M > 1 microbatches on D > 1
+# batch shards (the port keeps whole microbatches on each shard)
+FSDP_LOOKUP_PORT = [("moe16", 2, s) for s in ((2, 2), (4, 2))]
 FSDP_LOOKUP = FSDP_LOOKUP_SAME + FSDP_LOOKUP_PORT
+# the chunked route (no ``act_spec``): the head's reading alone
+FSDP_CHUNKED = [("moe16", 1, (2, 2)), ("smollm", 1, (2, 2)),
+                ("moe16-v528", 1, (2, 2))]
 
 
 def _lookup_batch(cfg):
@@ -522,7 +564,10 @@ def fsdp_lookup_reference(tmp_path_factory):
     pytest.importorskip("jax")
     tokens, _ = _lookup_batch(MOE16)
     cases = [{"cfg": dc.asdict(LOOKUP_MODELS[n]), "micro": m, "mesh": s,
-              "shape": list(tokens.shape)} for n, m, s in FSDP_LOOKUP]
+              "shape": list(tokens.shape), "act": act}
+             for act, keys in ((True, FSDP_LOOKUP), (False, FSDP_CHUNKED))
+             for n, m, s in keys]
+    keys = FSDP_LOOKUP + [("chunked",) + k for k in FSDP_CHUNKED]
     payload = tmp_path_factory.mktemp("fsdp_lookup") / "cases.json"
     payload.write_text(json.dumps({"cases": cases, "tcfg": {
         k: getattr(TCFG, k) for k in ("learning_rate", "warmup_steps",
@@ -542,8 +587,8 @@ def fsdp_lookup_reference(tmp_path_factory):
     for line in res.stdout.splitlines():
         if line.startswith("CASE "):
             i, body = line[5:].split(" ", 1)
-            outs[FSDP_LOOKUP[int(i)]] = json.loads(body)
-    assert len(outs) == len(FSDP_LOOKUP), res.stdout[-2000:]
+            outs[keys[int(i)]] = json.loads(body)
+    assert len(outs) == len(keys), res.stdout[-2000:]
     return outs
 
 
@@ -568,7 +613,8 @@ for i, case in enumerate(args["cases"]):
     kw["moe"] = MoEConfig(**kw["moe"]) if kw.get("moe") else None
     cfg = TransformerConfig(**kw)
     model = TransformerLM(cfg, moe_group_size=16,
-                          act_spec=P("data", None, None))
+                          act_spec=P("data", None, None) if case["act"]
+                          else None)
     state = new_train_state(model.init(jax.random.PRNGKey(0)))
     specs = state_specs_like(lm_param_specs(state.params, cfg, "fsdp"))
     step = jax.jit(make_train_step(model.loss, TrainConfig(**args["tcfg"]),
@@ -581,18 +627,22 @@ for i, case in enumerate(args["cases"]):
     ids = "\n".join(l for l in hlo.splitlines()
                     if not _COLLECTIVE_RE.search(l)
                     or re.search(r"= \(?[su]\d+\[", l))
+    # the head's: the vocab-parallel loss's, or the chunked loss's
+    sites = HEAD_SITES if case["act"] else CHUNKED_HEAD
     print(f"CASE {i} " + json.dumps({
         "all": lookup_collectives(hlo, *LM_LOOKUP),
-        "ids": lookup_collectives(ids, *LM_LOOKUP)}), flush=True)
+        "ids": lookup_collectives(ids, *LM_LOOKUP),
+        "head": {side: head_collectives(hlo, sites, side)
+                 for side in ("fwd", "bwd")}}), flush=True)
 '''
 
 
-def _fsdp_lookup_moves(cfg, shape, micro):
-    """One ``fsdp`` step of ``cfg`` (``act_spec``, groups of 16) on a
-    ("data", "model") mesh of ``shape`` at ``micro`` microbatches: the
-    mesh's moves and bytes."""
+def _fsdp_lookup_moves(cfg, shape, micro, act=True):
+    """One ``fsdp`` step of ``cfg`` (``act_spec`` unless not ``act``,
+    groups of 16) on a ("data", "model") mesh of ``shape`` at ``micro``
+    microbatches: the mesh's moves and bytes."""
     model = TransformerLM(cfg, moe_group_size=16,
-                          act_spec=P("data", None, None))
+                          act_spec=P("data", None, None) if act else None)
     params = model.init(torch.Generator().manual_seed(0),
                         dtype=torch.float32)
     specs = state_specs_like(lm_param_specs(params, cfg, "fsdp"))
@@ -679,10 +729,15 @@ def test_fsdp_lookup_moves_as_the_reference(fsdp_lookup_reference, name,
     assert rows == read_rows
     assert kinds <= set(read_rows)
     assert set(own) <= {"emb_ids_home", "emb_grad_home"} and own
+    if (name, micro, shape) in FSDP_LOOKUP_READ:
+        assert {k: read[k] for k in ("all", "ids")} == \
+            FSDP_LOOKUP_READ[(name, micro, shape)]
 
 
-# the reference's readings where the port's layout differs (its HLO read by
-# ``fsdp_lookup_reference``; the port's moves are held to its formula)
+# the reference's readings stated: where the port's layout differs (its
+# moves held to its formula), and smollm's tied table (looked up where it
+# lies, as the head's blocks stay where they lie: its reading compared as
+# it was when the port gathered the table)
 FSDP_LOOKUP_READ = {
     ("moe16", 2, (2, 2)): {"all": {"all-gather data": 16640,
                                    "all-reduce both": 32768},
@@ -706,25 +761,145 @@ def test_fsdp_lookup_where_the_layout_differs(fsdp_lookup_reference, name,
                                               micro, shape):
     """The ``fsdp`` train step's lookup where the port's layout is not the
     reference's, the reference's reading stated (``FSDP_LOOKUP_READ``) and
-    the port's bytes held to ``chip_smoke.fsdp_lookup_want`` alone. M > 1
-    microbatches on D > 1 batch shards: the port keeps whole microbatches
-    on each shard (one lookup a shard's microbatch, folded to its home),
-    where the reference splits each over all of "data" and its all-reduce
-    delivers every microbatch's rows to every chip. smollm's tied table:
-    the port's head gathers it whole at each home and the lookup reads it
-    there (no ``emb_*`` byte), where the reference looks it up where it
-    lies and gathers the hidden rows for the head."""
+    the port's bytes held to ``chip_smoke.fsdp_lookup_want`` alone: M > 1
+    microbatches on D > 1 batch shards, where the port keeps whole
+    microbatches on each shard (one lookup a shard's microbatch, folded to
+    its home) and the reference splits each over all of "data", its
+    all-reduce delivering every microbatch's rows to every chip."""
     read = fsdp_lookup_reference[(name, micro, shape)]
-    assert read == FSDP_LOOKUP_READ[(name, micro, shape)]
+    assert {k: read[k] for k in ("all", "ids")} == \
+        FSDP_LOOKUP_READ[(name, micro, shape)]
     mesh, ids, rows, own = _fsdp_lookup_bytes(name, micro, shape)
     print(f"\nlookup ({name}, {micro} microbatch(es), {shape}): reference "
           f"HLO {read}; the port: ids {ids}, rows {rows}, its own moves "
           f"{own}")
-    if LOOKUP_MODELS[name].tie_embeddings:
-        assert not ids and not rows and not own
-        assert mesh.bytes["all_gather"] > 0
-    else:
-        assert rows and own
+    assert rows and own
+
+
+# the head's reference cases: (model, microbatches, mesh), the vocab-parallel
+# route, where the port's head stays where it lies ...
+FSDP_HEAD = ([("moe16", 1, s) for s in ((2, 2), (1, 4), (4, 2))]
+             + [("moe16", 2, (1, 4)), ("moe16-v528", 1, (2, 2))]
+             + [("smollm", 1, s) for s in ((2, 2), (1, 4), (4, 2))])
+# ... and the fallback head on meshes that are not square, which the port
+# gathers whole at each home (the reference's readings stated)
+FSDP_HEAD_GATHERED = {
+    ("moe16-v528", 1, (4, 2)): {
+        "fwd": {"all-gather data": 8192, "all-reduce data": 1024},
+        "bwd": {"all-gather data": 33792}},
+    ("moe16-v528", 1, (2, 4)): {
+        "fwd": {"collective-permute both": 8192, "all-gather model": 8192,
+                "all-reduce data": 1024},
+        "bwd": {"collective-permute both": 101376,
+                "all-reduce model": 16384}}}
+
+
+def _fsdp_step_bytes(cfg, shape, micro, nbytes, act=True):
+    """Every ``head_*``, ``emb_*`` and ``all_gather*`` byte of one ``fsdp``
+    step equal to ``chip_smoke.head_want``, ``fsdp_lookup_want`` and
+    ``fsdp_gather_want``'s (the gathers the head's and a tied table's
+    bytes left out where the head stays where it lies)."""
+    import chip_smoke
+    calls = _fsdp_lookups(shape, micro)
+    want = dict(chip_smoke.fsdp_gather_want(cfg, shape, calls, act))
+    want.update(chip_smoke.fsdp_lookup_want(cfg, shape, calls, True,
+                                            lies=act))
+    if act:
+        want.update(chip_smoke.head_want(cfg, shape, calls, True))
+    got = {k: v for k, v in nbytes.items()
+           if k.startswith(("head_", "emb_", "all_gather"))}
+    assert got == want
+
+
+@pytest.mark.parametrize("name,micro,shape", FSDP_HEAD,
+                         ids=[f"{n}-{m}-{d}x{k}"
+                              for n, m, (d, k) in FSDP_HEAD])
+def test_fsdp_head_moves_as_the_reference(fsdp_lookup_reference, name,
+                                          micro, shape):
+    """The ``fsdp`` train step's head on the vocab-parallel route against
+    the reference's jitted step (B 8 × 16 over "data"): the port's head
+    bytes a step by kind and axis a chip
+    (``test_torch_tp_train.head_by_kind``), forward and backward apart,
+    equal, to the byte, the HLO's collectives of the product ``hidden @
+    head_w`` and of the log-sum-exp's reductions (``HEAD_SITES``). One
+    vocab block a position (MOE16's P(None, ("data", "model")), smollm's
+    tied table P(("data", "model"), None) read as its transpose): the
+    hidden rows all-gathered along "data", the row maxima and sums
+    all-reduced over every position, the dX partials all-reduced along
+    "data" and then over "model" (1 × 4: over "model" alone). The fallback
+    at 528 rows, P(None, "data") on 2 × 2: the rows collective-permuted and
+    all-gathered along "model", the statistics all-reduced along "data";
+    the backward's block and its dW collective-permuted, the dX partials
+    all-reduced over "model". Apart: the port's own moves (``HEAD_OWN``).
+    No byte of the head, nor of a tied table, is gathered: every
+    ``head_*``, ``emb_*`` and ``all_gather*`` byte is the formulas'
+    (:func:`_fsdp_step_bytes`)."""
+    from test_torch_tp_train import HEAD_OWN, head_by_kind
+    cfg = LOOKUP_MODELS[name]
+    read = fsdp_lookup_reference[(name, micro, shape)]["head"]
+    mesh, moves, nbytes = _fsdp_lookup_moves(cfg, shape, micro)
+    fwd, bwd, own = head_by_kind(mesh, moves)
+    print(f"\nhead ({name}, {micro} microbatch(es), {shape}): reference "
+          f"HLO {read}; the port: forward {fwd}, backward {bwd}, its own "
+          f"moves {own}")
+    assert fwd == read["fwd"] and bwd == read["bwd"]
+    assert own and set(own) <= HEAD_OWN
+    _fsdp_step_bytes(cfg, shape, micro, nbytes)
+
+
+@pytest.mark.parametrize("name,micro,shape", sorted(FSDP_HEAD_GATHERED),
+                         ids=[f"{n}-{m}-{d}x{k}" for n, m, (d, k)
+                              in sorted(FSDP_HEAD_GATHERED)])
+def test_fsdp_head_where_the_layout_differs(fsdp_lookup_reference, name,
+                                            micro, shape):
+    """The fallback head P(None, "data") on 4 × 2 and 2 × 4, where the
+    port's form is not the reference's: the reference's readings stated
+    (``FSDP_HEAD_GATHERED``: on 4 × 2 the rows all-gathered along "data"
+    and the dW blocks all-gathered along "data" in the backward, on 2 × 4
+    the rows' and the block's permutes at another split); the port gathers
+    the head whole at each home, its bytes the formulas'."""
+    cfg = LOOKUP_MODELS[name]
+    read = fsdp_lookup_reference[(name, micro, shape)]["head"]
+    assert read == FSDP_HEAD_GATHERED[(name, micro, shape)]
+    mesh, moves, nbytes = _fsdp_lookup_moves(cfg, shape, micro)
+    assert not any(k.startswith("head_") for k in nbytes)
+    _fsdp_step_bytes(cfg, shape, micro, nbytes)
+
+
+# the chunked route's readings (no ``act_spec``): the head gathered whole
+# for the chunk scan, forward and again in the backward
+FSDP_CHUNKED_READ = {
+    ("moe16", 1, (2, 2)): {"fwd": {"all-gather both": 32768},
+                           "bwd": {"all-gather both": 32768}},
+    ("smollm", 1, (2, 2)): {"fwd": {"all-gather both": 49152},
+                            "bwd": {"all-gather both": 49152,
+                                    "all-reduce data": 196608}},
+    ("moe16-v528", 1, (2, 2)): {
+        "fwd": {"collective-permute both": 67584, "all-gather model": 67584},
+        "bwd": {"collective-permute both": 135168,
+                "all-gather model": 67584}}}
+
+
+@pytest.mark.parametrize("name,micro,shape", FSDP_CHUNKED,
+                         ids=[f"{n}-{m}-{d}x{k}"
+                              for n, m, (d, k) in FSDP_CHUNKED])
+def test_fsdp_chunked_head_is_gathered(fsdp_lookup_reference, name, micro,
+                                       shape):
+    """The chunked route (no ``act_spec``: train-sharded (a)'s ZeRO-3
+    step) keeps its gathered head on purpose: the reference gathers the
+    head whole for the chunk scan, in the forward and again in the
+    backward (its readings stated, ``FSDP_CHUNKED_READ``); the port
+    gathers it whole at each home once and sends each block's gradient
+    back (``all_gather``, ``all_gather_grad``: the formula's with the head
+    and a tied table read whole), and moves no ``head_*`` byte."""
+    cfg = LOOKUP_MODELS[name]
+    read = fsdp_lookup_reference[("chunked", name, micro, shape)]["head"]
+    print(f"\nchunked head ({name}, {micro}, {shape}): reference HLO "
+          f"{read}")
+    assert read == FSDP_CHUNKED_READ[(name, micro, shape)]
+    mesh, moves, nbytes = _fsdp_lookup_moves(cfg, shape, micro, act=False)
+    assert not any(k.startswith("head_") for k in nbytes)
+    _fsdp_step_bytes(cfg, shape, micro, nbytes, act=False)
 
 
 def _bits(t):
@@ -876,6 +1051,47 @@ def test_fsdp_lookup_gradient_takes_one_devices_order():
         take_rows(t, i).backward(gr)
         per_shard.append(t.grad)
     assert not torch.equal(per_shard[0] + per_shard[1], one.grad)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_tied_table_block_gradient_takes_one_devices_order(shape):
+    """A tied table on the vocab-parallel route, split along its rows over
+    both axes: each block is looked up where it lies
+    (``take_rows_where_they_lie``) and serves as the head's block
+    transposed where it lies (``collectives.vocab_parallel_xent``), both
+    through the same leaf. Over two microbatches its gradient is each
+    microbatch's head dW plus its lookup's ``segment_sum``, then the
+    microbatches added in order: the order in which one device's autograd
+    accumulates the two uses of ``embed`` (their sum in the leaf's input
+    buffer, then the ``.grad`` accumulation), bit for bit, against the two
+    uses run apart through separate leaves."""
+    from repro_torch.distrib.collectives import LyingHead, ShardView
+    from repro_torch.distrib.sharding import device_put
+    g = torch.Generator().manual_seed(11)
+    mesh = Mesh(shape, ("data", "model"), CPU4)
+    placed = device_put(torch.randn((64, 8), generator=g), mesh,
+                        P(("data", "model"), None))
+    ids = torch.randint(0, 64, (2, 2, 6), generator=g)
+    ids[:, 1, :3] = ids[:, 0, :3]                  # rows hit twice
+    labels = torch.randint(-1, 64, (2, 2, 6), generator=g)
+    group = list(range(shape[1]))
+
+    def run(lookup, head, mb):
+        rows = lookup.take_rows(ids[mb])
+        return LyingHead(head, transposed=True).xent(rows * 1.5, labels[mb])
+
+    tied = ShardView(placed, 0, group)
+    for mb in range(2):
+        run(tied, tied, mb).backward()
+    parts = []
+    for mb in range(2):
+        lookup, head = ShardView(placed, 0, group), ShardView(placed, 0, group)
+        run(lookup, head, mb).backward()
+        parts.append((dict((b, gr) for b, _, gr in head.grads()),
+                      dict((b, gr) for b, _, gr in lookup.grads())))
+    for block, _, got in tied.grads():
+        (h0, l0), (h1, l1) = ((h[block], lk[block]) for h, lk in parts)
+        assert torch.equal(got, (h0 + l0) + (h1 + l1))
 
 
 def test_lm_train_cell_runs_one_microbatch():

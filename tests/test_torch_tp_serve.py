@@ -621,7 +621,9 @@ for case in json.loads(sys.argv[1]):
                            "hlo": {"prefill": read_hlo(text), "weights": {
                                "prefill": weight_gathers(text)}, "lookup": {
                                "prefill": lookup_collectives(
-                                   text, *LM_LOOKUP)}}}
+                                   text, *LM_LOOKUP)}, "head": {
+                               "prefill": head_collectives(
+                                   text, PREFILL_HEAD)}}}
         continue
     token = np.array(case["token"], np.int32)
     with mesh:
@@ -914,18 +916,24 @@ def _fsdp_prefill_lookup(reference_serving, name):
     return read, got, own, mesh
 
 
-@pytest.mark.parametrize("name", sorted(k for k, c in SPLIT_MODELS.items()
-                                        if not c.tie_embeddings))
+# the reference's reading of smollm's tied table in the ``fsdp`` prefill,
+# stated as it was read when the port gathered the table for its head
+FSDP_PREFILL_TIED_READ = {"all-gather data": 128, "all-reduce both": 24576}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
 def test_fsdp_prefill_lookup_moves_as_the_reference(reference_serving,
                                                     name):
     """The ``fsdp`` prefill's lookup (the prefill cell's default, B 4 × 16
-    split over "data" on 2 × 2, the table P(("data", "model"), None))
-    against the reference's jitted ``fsdp`` prefill: the port's lookup
-    bytes by kind and axis a chip (``test_torch_tp_train.lookup_by_kind``)
-    equal, to the byte, the HLO's collectives of the embedding's gather:
-    the ids' all-gather along "data" and the partial rows' all-reduce over
-    both axes, the two batch shards looked up at once; apart, the port's
-    own move of each batch shard's ids from its home to its group
+    split over "data" on 2 × 2, the table P(("data", "model"), None);
+    smollm's tied one too, looked up where it lies since its head stays
+    where it lies, its reading ``FSDP_PREFILL_TIED_READ``) against the
+    reference's jitted ``fsdp`` prefill: the port's lookup bytes by kind
+    and axis a chip (``test_torch_tp_train.lookup_by_kind``) equal, to the
+    byte, the HLO's collectives of the embedding's gather: the ids'
+    all-gather along "data" and the partial rows' all-reduce over both
+    axes, the two batch shards looked up at once; apart, the port's own
+    move of each batch shard's ids from its home to its group
     (``emb_ids_home``). Every ``emb_*`` byte is
     ``chip_smoke.fsdp_lookup_want``'s, and the logits are within rtol
     1e-4 of the reference's."""
@@ -933,23 +941,44 @@ def test_fsdp_prefill_lookup_moves_as_the_reference(reference_serving,
     assert got == read
     assert set(got) == {"all-gather data", "all-reduce both"}
     assert set(own) == {"emb_ids_home"}
+    if SPLIT_MODELS[name].tie_embeddings:
+        assert read == FSDP_PREFILL_TIED_READ
 
 
-@pytest.mark.parametrize("name", sorted(k for k, c in SPLIT_MODELS.items()
-                                        if c.tie_embeddings))
-def test_fsdp_prefill_tied_table_is_gathered(reference_serving, name):
-    """smollm's tied table in the ``fsdp`` prefill: the reference looks it
-    up where it lies (its reading stated: the ids' all-gather along
-    "data", 128 B, and the partial rows' all-reduce over both axes, 24,576
-    B a chip) and gathers the hidden rows for the head; the port's head
-    gathers the table whole at each home and the lookup reads it there,
-    so the port moves no ``emb_*`` byte and gathers the table
-    (``all_gather``). The logits are within rtol 1e-4 of the
-    reference's."""
-    read, got, own, mesh = _fsdp_prefill_lookup(reference_serving, name)
-    assert read == {"all-gather data": 128, "all-reduce both": 24576}
-    assert not got and not own
-    assert mesh.bytes["all_gather"] > 0
+@pytest.mark.parametrize("name", sorted(SPLIT_MODELS))
+def test_fsdp_prefill_head_moves_as_the_reference(reference_serving, name):
+    """The ``fsdp`` prefill's logits (B 4 × 16 over "data" on 2 × 2, the
+    head P(None, ("data", "model")), smollm's tied table read as its
+    transpose) against the reference's jitted ``fsdp`` prefill: the
+    port's head bytes by kind and axis a chip
+    (``test_torch_tp_train.head_by_kind``) equal, to the byte, the HLO's
+    collectives of ``hidden @ self._head_w(params)`` (``PREFILL_HEAD``):
+    the last rows all-gathered along "data", each position forming its
+    vocab block's logits; apart, the port's own moves (the rows from each
+    home to its group, ``head_rows_home``; the blocks' logits to position
+    0, ``logits_gather``, where the reference leaves them where they lie).
+    Neither the head nor a tied table is gathered; the bytes are
+    ``chip_smoke.serve_fsdp_bytes_want``'s, and the logits within rtol
+    1e-4 of the reference's."""
+    from test_torch_tp_train import head_by_kind
+    cases, ref = reference_serving
+    read = ref[f"fsdp-{name}"]["hlo"]["head"]["prefill"]
+    _, _, _, mesh = _fsdp_prefill_lookup(reference_serving, name)
+    fwd, bwd, own = head_by_kind(mesh, mesh.moves)
+    print(f"\n{name}, fsdp prefill: the reference HLO's head {read}; the "
+          f"port {fwd}, its own moves {own}")
+    assert fwd == read == {"all-gather data": read["all-gather data"]}
+    assert not bwd and set(own) == {"head_rows_home"}
+    B, S = np.array(cases[f"fsdp-{name}"]["tokens"]).shape
+    assert dict(mesh.bytes) == chip_smoke.serve_fsdp_bytes_want(
+        SPLIT_MODELS[name], (2, 2), B, S, 16, S + 4)
+    # the parent's form gathered the head (a tied table) at each of the 2
+    # homes, 3 of its 4 blocks each
+    cfg = SPLIT_MODELS[name]
+    gathered = chip_smoke.serve_fsdp_bytes_want(
+        cfg, (2, 2), B, S, 16, S + 4, act_spec=False).get("all_gather", 0)
+    assert gathered - mesh.bytes.get("all_gather", 0) == \
+        2 * 3 * cfg.vocab_size * cfg.d_model * 4 // 4
 
 
 @pytest.mark.parametrize("key", sorted(FAULT6))
@@ -1014,9 +1043,11 @@ def test_fsdp_prefill_routes_one_group_over_the_batch(reference_serving,
     "data" whose MoE group (64 tokens, ``moe_group_size`` 64, B 4 × 16)
     spans both batch shards, as the reference groups it. The run of the two
     shards is computed at the first home over both shards' rows, and the
-    second shard's logits and keys and values go to its home
-    (``prefill_span``). The logits and the cache bitwise the one-device
-    ``prefill``'s (f32; with every row row 0's, each picked expert's slots
+    second shard's keys and values go to its home (``prefill_span``; the
+    head multiplies the run's last rows where its blocks lie). The cache
+    bitwise the one-device ``prefill``'s and the logits within
+    ``LOGIT_RTOL`` of its largest (f32; the head's vocab blocks multiplied
+    where they lie; with every row row 0's, each picked expert's slots
     overflow, and the second shard's are dropped as the reference drops
     them), within rtol / atol 1e-4 of the reference's jitted ``fsdp``
     prefill; the bytes ``chip_smoke.serve_fsdp_bytes_want``'s. The
@@ -1049,7 +1080,8 @@ def test_fsdp_prefill_routes_one_group_over_the_batch(reference_serving,
           f"{want['hlo']['weights']['prefill']}\nthe port, bytes by name: "
           f"{dict(mesh.bytes)}; by name and axis: "
           f"{_by_axis(mesh, mesh.moves)}")
-    assert torch.equal(lg, lg1)
+    err = float((lg - lg1).abs().max())
+    assert err <= LOGIT_RTOL * float(lg1.abs().max()), err
     assert torch.equal(gather(cache[0])[:, :, :S], ks)
     assert torch.equal(gather(cache[1])[:, :, :S], vs)
     np.testing.assert_allclose(lg.numpy(), np.array(want["prefill"]),

@@ -106,9 +106,10 @@ from repro_torch.config.base import TrainConfig
 from repro_torch.config.registry import get_arch
 from repro_torch.configs import qwen3_moe_30b_a3b as qcfg
 from repro_torch.data.lm import TokenPipeline
-from repro_torch.distrib.collectives import (Rows, StationaryView,
-                                             TPView, batch_groups,
-                                             block_matmul)
+from repro_torch.distrib.collectives import (Rows, ShardView,
+                                             StationaryView, TPView,
+                                             batch_groups, block_matmul,
+                                             vocab_parallel_xent)
 from repro_torch.distrib.sharding import (P, ShardedTensor, device_put,
                                           gather, lm_param_specs,
                                           state_specs_like)
@@ -456,50 +457,57 @@ def _labels(B, S, V, seed):
 @pytest.mark.parametrize("shape", [(1, 1), (2, 2), (1, 2), (2, 1), (1, 4)],
                          ids=["1x1", "2x2", "1x2", "2x1", "1x4"])
 def test_vocab_parallel_loss(shape, head, batch):
-    """A head split over V only (P(None, ("data", "model"))), or the tied
-    head ``embed.T`` with ``embed`` under P("model", "data"): d over "data",
-    V over "model"."""
+    """``collectives.vocab_parallel_xent`` (the ``fsdp`` head where its
+    blocks lie) over a head split over V on every position
+    (P(None, ("data", "model"))), or a tied table ``embed`` under P(("data",
+    "model"), None) read as its transpose, the batch at one home (whole)
+    or split over "data": each home's loss within LOSS_RTOL, the hidden
+    rows' and the head's gradients within GRAD_RTOL of the plain loss's;
+    one block bit for bit, nothing moved; no gather, only the rows, the
+    statistics and the dX partials cross positions."""
     mesh = _mesh(shape)
-    homes, _ = batch_groups(mesh, "data" if batch == "split" else None)
+    homes, groups = batch_groups(mesh, "data" if batch == "split" else None)
     B, S, d, V = 4, 6, 32, 64
     g = torch.Generator().manual_seed(sum(shape))
     hidden = torch.randn((B, S, d), generator=g)
     labels = _labels(B, S, V, 3)
     if head == "tied":
         w = torch.randn((V, d), generator=g) * 0.3
-        view = StationaryView(device_put(w, mesh, P("model", "data")),
-                              grad=True).T
+        placed = device_put(w, mesh, P(("data", "model"), None))
     else:
         w = torch.randn((d, V), generator=g) * 0.3
-        view = StationaryView(device_put(w, mesh, P(None, ("data", "model"))),
-                              grad=True)
+        placed = device_put(w, mesh, P(None, ("data", "model")))
+    views = [ShardView(placed, h, grp) for h, grp in zip(homes, groups)]
     hr, wr = hidden.clone().requires_grad_(True), w.clone().requires_grad_(True)
     want = [L.softmax_xent_sharded(part, wr.T if head == "tied" else wr, lab)
             for part, lab in zip(hr.chunk(len(homes)),
                                  labels.chunk(len(homes)))]
     torch.autograd.backward(want)
     hs = [t.requires_grad_(True) for t in _split(hidden, len(homes))]
-    got = L.softmax_xent_sharded(Rows(hs, homes, mesh), view,
-                                 Rows(labels.chunk(len(homes)), homes, mesh))
-    torch.autograd.backward(got.parts)
-    gh, gw = torch.cat([t.grad for t in hs]), _block_sum(view)
+    tots, counts = vocab_parallel_xent(
+        Rows(hs, homes, mesh), Rows(list(labels.chunk(len(homes))), homes,
+                                    mesh), views, head == "tied")
+    got = [t / torch.clamp_min(c, 1) for t, c in zip(tots.parts,
+                                                      counts.parts)]
+    torch.autograd.backward(got)
+    gh = torch.cat([t.grad for t in hs])
+    gw = torch.zeros_like(w)
+    for view in views:
+        for block, _, grad in view.grads():
+            if grad is not None:
+                gw[placed.layout.slices(block)] += grad
     if mesh.size == 1:
-        assert all(torch.equal(a, b) for a, b in zip(got.parts, want))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert torch.equal(gh, hr.grad) and torch.equal(gw, wr.grad)
         assert not mesh.bytes
         return
-    for a, b in zip(got.parts, want):
+    for a, b in zip(got, want):
         a, b = float(a.detach()), float(b.detach())
         assert abs(a - b) <= LOSS_RTOL * abs(b)
     _close(gh, hr.grad, GRAD_RTOL)
     _close(gw, wr.grad, GRAD_RTOL)
-    # per row: the labels to the holders, (m, s, t) back, (lse, g) out
-    rows = B * S // len(homes)
-    n = mesh.bytes.get("xent_stats", 0)
-    assert n % (rows * 4) == 0 and n <= len(homes) * mesh.size * 6 * rows * 4
+    assert mesh.bytes["head_stats"] > 0
     assert not set(mesh.bytes) & GATHERS
-    if head == "tied" and view.counts[0] > 1:
-        assert mesh.bytes["tp_partial"] > 0
 
 
 # -- the tp2d train step ----------------------------------------------------------------
@@ -1083,15 +1091,21 @@ def read_hlo(hlo):
 LM_LOOKUP = ("models/transformer.py", '["embed"].astype(cd)[token')
 
 
-def lookup_collectives(hlo, path, text, sum_tuples=False):
+LOOKUP_OPS = ("/gather", "transpose(jvp())/scatter-add")
+
+
+def lookup_collectives(hlo, path, text, sum_tuples=False, ops=LOOKUP_OPS,
+                       kinds=None, side=None):
     # {"kind axis": operand bytes a chip} of a table lookup's collectives:
-    # those whose op is the gather (or its transpose's scatter-add) and
-    # whose source line, from the module's stack frame tables, is one of
-    # the file ending in ``path`` that holds ``text`` (LM_LOOKUP: the LM's
-    # params["embed"][tokens]); with ``sum_tuples`` a tuple collective
-    # counts each element (the operands one combined collective carries),
-    # else its largest, as collective_bytes counts; and its shapes,
-    # {"kind axis": [shape, ...]}
+    # those whose op ends in one of ``ops`` (LOOKUP_OPS: the gather, or its
+    # transpose's scatter-add) and whose source line, from the module's
+    # stack frame tables, is one of the file ending in ``path`` that holds
+    # ``text`` (LM_LOOKUP: the LM's params["embed"][tokens]); only the
+    # collectives of ``kinds`` where given, and of the forward ("fwd") or
+    # the backward ("bwd": an op under ``transpose(``) where ``side`` is
+    # given; with ``sum_tuples`` a tuple collective counts each element
+    # (the operands one combined collective carries), else its largest, as
+    # collective_bytes counts; and its shapes, {"kind axis": [shape, ...]}
     import linecache
     tables, cur = {}, None
     for l in hlo.splitlines():
@@ -1116,9 +1130,12 @@ def lookup_collectives(hlo, path, text, sum_tuples=False):
     def looks_up(line):
         op = re.search(r'op_name="([^"]*)"', line)
         frame = re.search(r"stack_frame_id=(\d+)", line)
-        if not op or not frame or not (
-                op.group(1).endswith("/gather")
-                or op.group(1).endswith("transpose(jvp())/scatter-add")):
+        if not op or not frame or not any(op.group(1).endswith(o)
+                                          for o in ops):
+            return False
+        if kinds and _COLLECTIVE_RE.search(line).group(3) not in kinds:
+            return False
+        if side and (side == "bwd") != ("transpose(" in op.group(1)):
             return False
         name, n = source(int(frame.group(1)))
         return name.endswith(path) and text in linecache.getline(name, n)
@@ -1145,6 +1162,37 @@ def lookup_collectives(hlo, path, text, sum_tuples=False):
             if n:
                 read[f"{kind} {ax}"] = n
     return (read, shapes) if sum_tuples else read
+
+
+# the head's collectives in the vocab-parallel loss: the product
+# ``hidden @ head_w`` (its forward and its transpose), the log-sum-exp's
+# reductions (the row maxima, the sums of the exponentials), and an
+# all-reduce the partitioner makes of the target logits' line where it
+# fuses the sums into it (a tuple, counted by its largest element)
+HEAD_SITES = (("models/layers.py", "logits = (hidden @ head_w",
+               ("/dot_general",), None),
+              ("models/layers.py", "lse = jax.scipy.special.logsumexp",
+               ("/reduce_max", "/reduce_sum"), None),
+              ("models/layers.py", 'tgt = jnp.einsum("bsv,bsv->bs"',
+               ("/dot_general",), ("all-reduce",)))
+# a prefill's logits: ``hidden @ self._head_w(params)``
+PREFILL_HEAD = (("models/transformer.py",
+                 "return hidden @ self._head_w(params)", ("/dot_general",),
+                 None),)
+# the chunked loss's head: ``xc @ w`` in the chunk scan
+CHUNKED_HEAD = (("models/transformer.py", "lambda xc: xc @ w.astype",
+                 ("/dot_general",), None),)
+
+
+def head_collectives(hlo, sites=HEAD_SITES, side=None):
+    # {"kind axis": operand bytes a chip} of ``sites``' collectives
+    # (``lookup_collectives`` of each (path, text, ops, kinds)), added
+    out = {}
+    for path, text, ops, kinds in sites:
+        for k, v in lookup_collectives(hlo, path, text, ops=ops,
+                                       kinds=kinds, side=side).items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def data_gathers(hlo):
@@ -1404,7 +1452,7 @@ def _axis_of(mesh, ends):
     return axes.pop() if len(axes) == 1 else "both"
 
 
-def lookup_by_kind(mesh, moves):
+def lookup_by_kind(mesh, moves, kinds=None, own_names=None):
     """The port's lookup bytes by ``"kind axis"`` a chip, in the units in
     which ``lookup_collectives`` reads the HLO's (``collective_bytes``'
     operand bytes a chip): each move of a lookup collective by the HLO
@@ -1420,21 +1468,26 @@ def lookup_by_kind(mesh, moves):
     all-reduce's, the span of all its pairs). (The HLO's operand bytes
     count a collective-permute's pairs from a device to itself; those
     positions move nothing.) Moves of any other name are left out, the
-    port's own moves apart: (by kind, theirs by name)."""
+    port's own moves apart: (by kind, theirs by name). ``kinds`` and
+    ``own_names`` name other collectives and own moves than the lookup's
+    (``HEAD_KINDS``, ``HEAD_OWN``)."""
+    kinds = LOOKUP_KINDS if kinds is None else kinds
+    own_names = PORT_ONLY_LOOKUP if own_names is None else own_names
     got, own, senders = {}, {}, {}
     group = {name: _axis_of(mesh, [(f, t) for (m, f, t) in moves
                                    if m == name])
-             for name, kind in LOOKUP_KINDS.items()
-             if kind in ("all-reduce", "collective-permute")}
+             for name, kind in kinds.items()
+             if kind in ("all-reduce", "collective-permute")
+             and any(m == name for m, _, _ in moves)}
     for (name, frm, to), n in moves.items():
-        if name in PORT_ONLY_LOOKUP:
+        if name in own_names:
             own[name] = own.get(name, 0) + n
-        if name not in LOOKUP_KINDS:
+        if name not in kinds:
             continue
         ax = group.get(name) or _axis_of(mesh, [(frm, to)])
-        at = got.setdefault((LOOKUP_KINDS[name], ax), {})
+        at = got.setdefault((kinds[name], ax), {})
         at[to] = at.get(to, 0) + n
-        senders.setdefault((LOOKUP_KINDS[name], ax, to), set()).add(frm)
+        senders.setdefault((kinds[name], ax, to), set()).add(frm)
     out = {}
     for (kind, ax), at in sorted(got.items()):
         G = mesh.axis_size(ax) if ax != "both" else mesh.size
@@ -1448,6 +1501,29 @@ def lookup_by_kind(mesh, moves):
         assert n.denominator == 1, (kind, ax, max(at.values()), G)
         out[f"{kind} {ax}"] = int(n)
     return out, own
+
+
+# the head's collectives where it stays where it lies
+# (``collectives.vocab_parallel_xent``, ``head_logits``), forward and
+# backward, by the HLO collective each stands for; the port's own moves
+# apart
+HEAD_FWD = {"head_rows_gather": "all-gather",
+            "head_rows_permute": "collective-permute",
+            "head_stats": "all-reduce"}
+HEAD_BWD = {"head_grad_data": "all-reduce", "head_grad_model": "all-reduce",
+            "head_block_permute": "collective-permute",
+            "head_wgrad_permute": "collective-permute"}
+HEAD_OWN = {"head_rows_home", "head_labels", "head_target", "head_scale",
+            "head_grad_relayout"}
+
+
+def head_by_kind(mesh, moves):
+    """The port's head bytes a chip by ``"kind axis"``, forward and
+    backward apart (:func:`lookup_by_kind` of ``HEAD_FWD``, ``HEAD_BWD``),
+    and its own moves by name."""
+    fwd, own = lookup_by_kind(mesh, moves, HEAD_FWD, HEAD_OWN)
+    bwd, _ = lookup_by_kind(mesh, moves, HEAD_BWD, ())
+    return fwd, bwd, own
 
 
 # the lookup's reference cases: (moe_shard, microbatches, mesh)

@@ -17,7 +17,8 @@ with every check they make (a failed check fails the run), the output
 kept in ``DIR/<A|B>_<n>.log``. The summary, printed last as one JSON line
 and written to ``DIR/summary.json``, holds the card's name and power
 limit and per run what the phases print: each serve-sharded-lm case's
-decode ms/step of its first and second mesh run and of one card, each
+decode ms/step and prefill s of its first and second mesh run and of one
+card ((vi): its one mesh run's prefill and one card's), each
 train-sharded-tp2d case's warm step s and one card's, each
 train-sharded case's step s by step, train-sharded-bst's step s at one
 microbatch and at two, and with ``--profile`` (the phases' own, which
@@ -65,10 +66,14 @@ PHASES = ("serve-sharded-lm", "train-sharded", "train-sharded-tp2d",
 
 DECODE = re.compile(r"serve-sharded-lm \((\w+)\) .* decode ([\d.]+) ms/step "
                     r"\(again ([\d.]+); one card ([\d.]+)\)")
+PREFILL = re.compile(r"serve-sharded-lm \((\w+)\) .*: prefill ([\d.]+) s "
+                     r"\(again ([\d.]+); one card ([\d.]+) s\)")
+FAULT7 = re.compile(r"serve-sharded-lm \(vi\) fault 7, .* prefill fsdp on "
+                    r".*: ([\d.]+) s \(one card ([\d.]+) s\)")
 TRAIN = re.compile(r"train-sharded-tp2d \((\w+)\): \(loss, grad_norm\).* "
                    r"warm step ([\d.]+) s .* against one card's ([\d.]+) s")
-SHARDED = re.compile(r"train-sharded (\([^)]*\)(?: \w+)?) step (\d+) on "
-                     r"\(([\d, ]+)\): .* step ([\d.]+) s")
+SHARDED = re.compile(r"train-sharded (\([^)]*\)(?: [\w ]+?)?) step (\d+) "
+                     r"on \(([\d, ]+)\): .* step ([\d.]+) s")
 BST = re.compile(r"train-sharded-bst step (\d+) on 2 x 2 .* step ([\d.]+) s")
 BST_M1 = re.compile(r"train-sharded-bst: the cell's step at 1 microbatch "
                     r".* steps \[([\d., e-]+)\] s")
@@ -79,8 +84,15 @@ LOOKUP = re.compile(r"(emb_\w+) ([\d.]+) ms")
 
 def read(log: str) -> dict:
     """The timings the phases print, by case."""
-    out = {"decode_ms": {}, "train_s": {}, "lookup_ms": {},
-           "sharded_s": {}, "bst_s": {}}
+    out = {"decode_ms": {}, "prefill_s": {}, "train_s": {},
+           "lookup_ms": {}, "sharded_s": {}, "bst_s": {}}
+    for m in PREFILL.finditer(log):
+        out["prefill_s"][m.group(1)] = {"first": float(m.group(2)),
+                                        "again": float(m.group(3)),
+                                        "one_card": float(m.group(4))}
+    for m in FAULT7.finditer(log):
+        out["prefill_s"]["vi"] = {"first": float(m.group(1)),
+                                  "one_card": float(m.group(2))}
     for m in SHARDED.finditer(log):
         key = f"{m.group(1)} {m.group(3).replace(' ', '')}"
         out["sharded_s"].setdefault(key, []).append(float(m.group(4)))
